@@ -10,8 +10,11 @@ holds each against its plain PyTorch version on the card, drives the
 port's main path — the sync dense-LR trainer at the repo's full width
 (D = 1,000,000 features, 2048 rows a step, bfloat16 features) — through
 ``Trainer.load_data / fit / evaluate_metrics / save_model``, then the
-``gen-data -> sync -> eval`` CLI in a subprocess.  Each phase prints one
-JSON line; any failure exits non-zero before the last line, which is
+``gen-data -> sync -> eval`` CLI in a subprocess, and last the path of the
+on-device generation probes: both roofline experiments
+(``distlr_tpu_torch.benchmarks.exp_gen_roofline*``) at the published
+(256, 8192) x 64 tile, in this process and as ``python -m``.  Each phase
+prints JSON lines; any failure exits non-zero before the last line, which is
 ``{"ok": true, "device": {...}}`` only when every phase passed.  Without
 CUDA, or without the rest of the repository beside it, it exits non-zero
 and prints no result.  Imports nothing of JAX or of ``distlr_tpu``.
@@ -20,6 +23,8 @@ and prints no result.  Imports nothing of JAX or of ``distlr_tpu``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -30,6 +35,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -37,6 +43,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the f32 rate of the CUDA cores, which is what the kernels' products use.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_TENSOR_FLOPS_PER_S = 989e12
+# Per SM and clock, from NVIDIA's arithmetic-instruction throughput table
+# for compute capability 9.0 (CUDA C++ documentation): 32-bit integer add, multiply, shift and
+# logic operations; conversions to and from 32-bit types.  Times the SM
+# count and the card's maximum SM clock (nvidia-smi clocks.max.sm).
+INT32_OPS_PER_SM_CLOCK = 64
+CONVERSIONS_PER_SM_CLOCK = 16
 # Relative bound of a kernel against its plain version: both sum in f32,
 # in different orders.
 REL_TOL = 1e-3
@@ -89,12 +102,17 @@ def phase_env(torch) -> dict:
 
 
 def phase_build() -> None:
-    from distlr_tpu_torch.ops import build, fused_lr  # noqa: PLC0415
+    """Both kernel sources, one nvcc each, started together."""
+    from distlr_tpu_torch.ops import build, fused_lr, gen_roofline  # noqa: PLC0415
 
     t0 = time.perf_counter()
-    path = build.build("fused_lr_grad")
+    names = ("fused_lr_grad", "gen_roofline")
+    with ThreadPoolExecutor(len(names)) as pool:
+        paths = list(pool.map(build.build, names))
     fused_lr._lib()
-    emit("build", seconds=time.perf_counter() - t0, library=os.path.relpath(path, ROOT))
+    gen_roofline._lib()
+    emit("build", seconds=time.perf_counter() - t0,
+         libraries=[os.path.relpath(p, ROOT) for p in paths])
 
 
 def _inputs(torch, gen, B, D, x_dtype, masked_tail=0):
@@ -320,6 +338,292 @@ def phase_cli() -> None:
              eval_accuracy=float(m.group(1)), eval_logloss=float(m.group(2)))
 
 
+# --- the on-device generation probes ----------------------------------------
+# wrapper -> the Pallas kernel it replaces
+ROOFLINE_REPLACES = {
+    "roofline_gen": "benchmarks/exp_gen_roofline.py:44",
+    "roofline_fwd": "benchmarks/exp_gen_roofline.py:76",
+    "roofline_full": "benchmarks/exp_gen_roofline.py:112",
+    "roofline_hash": "benchmarks/exp_gen_roofline2.py:40",
+    "roofline_const": "benchmarks/exp_gen_roofline2.py:76",
+    "roofline_mxu": "benchmarks/exp_gen_roofline2.py:109",
+}
+ROOFLINE_NO_LIBRARY = {
+    "roofline_full": "none: no PyTorch call regenerates x between the forward and "
+                     "the backward; storing x is a different function",
+    "roofline_hash": "none: PyTorch has no call for this integer hash",
+}
+ROOFLINE_SOURCE = "distlr_tpu_torch/ops/csrc/gen_roofline.cu"
+ROOFLINE_ITERS = 200        # back-to-back launches timed per kernel
+ROOFLINE_PLAIN_ITERS = 3    # the plain versions take milliseconds each
+EXPERIMENT_LINES = {
+    "distlr_tpu_torch.benchmarks.exp_gen_roofline": (
+        ("A", r"^A gen-only:\s+([\d.]+) G elem/s$"),
+        ("B", r"^B gen\+fwd:\s+([\d.]+) G elem/s$"),
+        ("C", r"^C full fwd\+bwd:\s+([\d.]+) G gen-elem/s$"),
+        ("samples_per_s_at_1M", r"^   implied samples/sec at D=1M: ([\d,]+)$"),
+    ),
+    "distlr_tpu_torch.benchmarks.exp_gen_roofline2": (
+        ("D", r"^D iota-hash \+ fwd : +([\d.]+) G elem/s$"),
+        ("E", r"^E const tile \+ fwd: +([\d.]+) G elem/s$"),
+        ("F", r"^F const tile \+ MXU: +([\d.]+) G elem/s$"),
+    ),
+}
+
+
+def _max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def roofline_bound(work: dict, sms: int, clock_hz: float) -> tuple[float, str, str]:
+    """(bound_ms, bound_by, limiting term) of ``gen_roofline.roofline_work``
+    counts: the largest of bytes over the HBM rate and each kind of
+    operation over the card's rate for it."""
+    terms = {
+        "bytes": work["bytes"] / HBM_BYTES_PER_S,
+        "int_ops": work["int_ops"] / (INT32_OPS_PER_SM_CLOCK * sms * clock_hz),
+        "conversions": work["conversions"] / (CONVERSIONS_PER_SM_CLOCK * sms * clock_hz),
+        "f32_flops": work["f32_flops"] / F32_FLOPS_PER_S,
+        "bf16_flops": work["bf16_flops"] / BF16_TENSOR_FLOPS_PER_S,
+    }
+    limit = max(terms, key=terms.get)
+    return 1e3 * terms[limit], "bytes" if limit == "bytes" else "operations", limit
+
+
+def _roofline_calls(torch, seed: int, bt: int, dt: int, reps: int):
+    """wrapper name -> (kernel call, plain call, library call or None,
+    whether the library call may be captured in a CUDA graph)."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.ops import gen_roofline as gr  # noqa: PLC0415
+
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).cuda()
+
+    s = torch.tensor([seed], dtype=torch.int32, device="cuda")
+    w = normal((1, dt), dt ** -0.5)
+    y = torch.from_numpy((rng.random((bt, 1)) < 0.5).astype(np.float32)).cuda()
+    x = normal((bt, dt))
+    wm = normal((dt, gr.MXU_N), dt ** -0.5)
+    xb, wmb = x.to(torch.bfloat16), wm.to(torch.bfloat16)
+    n = reps * bt * dt
+
+    def randint():
+        return torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device="cuda")
+
+    def library_fwd():
+        return torch.mv(randint().view(reps * bt, dt).float() * 2.0**-31 - 1.0, w[0])
+
+    def library_const():
+        return [torch.mv(x, w[0]) for _ in range(reps)]
+
+    def library_mxu():
+        return [torch.matmul(xb, wmb) for _ in range(reps)]
+
+    return {
+        "roofline_gen": (lambda: ops.roofline_gen(s, bt=bt, dt=dt, reps=reps),
+                         lambda: gr.roofline_gen_reference(s, bt=bt, dt=dt, reps=reps),
+                         randint, False),
+        "roofline_fwd": (lambda: ops.roofline_fwd(s, w, bt=bt, reps=reps),
+                         lambda: gr.roofline_fwd_reference(s, w, bt=bt, reps=reps),
+                         library_fwd, False),
+        "roofline_full": (lambda: ops.roofline_full(s, w, y, reps=reps),
+                          lambda: gr.roofline_full_reference(s, w, y, reps=reps), None, False),
+        "roofline_hash": (lambda: ops.roofline_hash(w, bt=bt, reps=reps),
+                          lambda: gr.roofline_hash_reference(w, bt=bt, reps=reps), None, False),
+        "roofline_const": (lambda: ops.roofline_const(x, w, reps=reps),
+                           lambda: gr.roofline_const_reference(x, w, reps=reps),
+                           library_const, True),
+        "roofline_mxu": (lambda: ops.roofline_mxu(x, wm, reps=reps),
+                         lambda: gr.roofline_mxu_reference(x, wm, reps=reps),
+                         library_mxu, True),
+    }
+
+
+def phase_roofline(torch, seed: int) -> dict:
+    """Each probe kernel against its plain version on the same inputs, at a
+    small tile and the published one (row 2 exactly, the others within
+    REL_TOL); then times at the published tile."""
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.benchmarks.timing import mean_ms  # noqa: PLC0415
+    from distlr_tpu_torch.ops import gen_roofline as gr  # noqa: PLC0415
+
+    published = (gr.BT, gr.DT, gr.REPS)
+    results = {}
+    worst = dict.fromkeys(ROOFLINE_REPLACES, 0.0)
+    for bt, dt, reps in ((64, 1024, 8), published):
+        for name, (kern, plain, _, _) in _roofline_calls(torch, seed, bt, dt, reps).items():
+            wrapper = getattr(ops, name)
+            before = wrapper.launches
+            got = kern()
+            torch.cuda.synchronize()
+            if wrapper.launches != before + 1:
+                raise AssertionError(f"{name} did not count its launch")
+            ref = plain()
+            max_abs = float((got - ref).abs().max())
+            rel = rel_err(got, ref)
+            emit("roofline_check", kernel=name, bt=bt, dt=dt, reps=reps,
+                 max_abs_err=max_abs, rel_err=rel)
+            ok = max_abs == 0.0 if name == "roofline_gen" else rel <= REL_TOL
+            if not (ok and math.isfinite(max_abs)):
+                raise AssertionError(f"{name} disagrees with its plain version at {(bt, dt, reps)}")
+            worst[name] = max(worst[name], rel)
+            if (bt, dt, reps) == published:
+                results[name] = {"max_abs_err": max_abs, "rel_err": worst[name]}
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = _max_sm_clock_hz()
+    dev = torch.device("cuda")
+    for name, (kern, plain, library, graph) in _roofline_calls(torch, seed, *published).items():
+        bound_ms, bound_by, limit = roofline_bound(gr.roofline_work(name[len("roofline_"):]),
+                                                   sms, clock_hz)
+        r = results[name]
+        r.update(
+            ms=mean_ms(kern, ROOFLINE_ITERS, device=dev),
+            plain_ms=mean_ms(plain, ROOFLINE_PLAIN_ITERS, device=dev, graph=False),
+            library_ms=None if library is None else mean_ms(
+                library, ROOFLINE_ITERS if graph else 20, device=dev, graph=graph),
+            bound_ms=bound_ms, bound_by=bound_by, bound_term=limit,
+        )
+        if library is None:
+            r["library_note"] = ROOFLINE_NO_LIBRARY[name]
+        emit("kernel_timing", kernel=name, bt=published[0], dt=published[1],
+             reps=published[2], iters=ROOFLINE_ITERS, sms=sms, max_sm_clock_hz=clock_hz, **r)
+    torch.cuda.empty_cache()
+    return results
+
+
+def _experiment_rates(module: str, out: str, smi: str) -> dict:
+    lines = out.splitlines()
+    if not lines or lines[0] != smi:
+        raise AssertionError(f"{module} did not print the nvidia-smi line first:\n{out}")
+    rates = {}
+    for key, pattern in EXPERIMENT_LINES[module]:
+        m = re.search(pattern, out, re.M)
+        if m is None:
+            raise AssertionError(f"{module} printed no {key!r} line:\n{out}")
+        rates[key] = float(m.group(1).replace(",", ""))
+        if not rates[key] > 0:
+            raise AssertionError(f"{module}: {key} rate is not positive:\n{out}")
+    return rates
+
+
+def phase_roofline_experiments(torch, smi: str) -> dict:
+    """The probes' path: both experiments' ``main()`` as a user runs
+    them, launch counts zeroed just before and read just after; then each
+    once more as ``python -m`` in a subprocess."""
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.benchmarks import exp_gen_roofline, exp_gen_roofline2  # noqa: PLC0415
+    from distlr_tpu_torch.ops import gen_roofline  # noqa: PLC0415
+
+    experiments = {"distlr_tpu_torch.benchmarks.exp_gen_roofline": exp_gen_roofline,
+               "distlr_tpu_torch.benchmarks.exp_gen_roofline2": exp_gen_roofline2}
+    outs = {}
+    ops.reset_launch_counts()
+    for module, experiment in experiments.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = experiment.main([])
+        if rc != 0:
+            raise AssertionError(f"{module}.main exited {rc}")
+        outs[module] = buf.getvalue()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in gen_roofline.KERNEL_WRAPPERS}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the experiments did not launch every probe kernel: {launches}")
+    rates = {}
+    for module, out in outs.items():
+        rates.update(_experiment_rates(module, out, smi))
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cli_rates = {}
+    for module in experiments:
+        proc = subprocess.run([sys.executable, "-m", module], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m {module} exited {proc.returncode}:\n{proc.stderr[-2000:]}")
+        cli_rates.update(_experiment_rates(module, proc.stdout, smi))
+    emit("roofline_experiments", launches=launches, g_elem_per_s=rates, cli_g_elem_per_s=cli_rates)
+    return launches
+
+
+# function (a substring of its mangled name) -> (opcode prefixes, least
+# count of them inside one loop of its SASS, what that shows)
+SASS_FACTS = {
+    "gen_kernel": (("IMAD.WIDE", "IMAD.HI"), 17,
+                   "every product of a Philox block that depends on t, each pass of t"),
+    "const_partial_kernel": (("FFMA",), 16, "the 16 FMAs of the held tile stay in the REPS loop"),
+    "mxu_partial_kernel": (("HMMA",), 1, "tensor-core products in the REPS loop"),
+}
+
+
+def _sass_loops(text: str) -> dict:
+    """Mangled function name -> opcode counts of each loop of its SASS (the
+    instructions from a backward branch's target up to the branch)."""
+    funcs = {}
+    for block in re.split(r"^\s*Function : ", text, flags=re.M)[1:]:
+        name = block.split(None, 1)[0]
+        insts, labels = [], {}
+        pending = []
+        for line in block.splitlines():
+            m = re.match(r"^\s*(\.L_x_\d+):", line)
+            if m:
+                pending.append(m.group(1))
+                continue
+            m = re.match(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if m:
+                addr = int(m.group(1), 16)
+                for lab in pending:
+                    labels[lab] = addr
+                pending = []
+                insts.append((addr, m.group(2).strip()))
+        loops = []
+        for addr, ins in insts:
+            m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+|\.L_x_\d+)", ins)
+            if not m:
+                continue
+            tgt = m.group(1)
+            tgt = int(tgt, 16) if tgt.startswith("0x") else labels.get(tgt, addr + 1)
+            if tgt <= addr:
+                ops = {}
+                for a, i in insts:
+                    if tgt <= a <= addr:
+                        op = i.split()[1] if i.startswith("@") else i.split()[0]
+                        ops[op] = ops.get(op, 0) + 1
+                loops.append(ops)
+        funcs[name] = loops
+    return funcs
+
+
+def phase_sass() -> dict:
+    """What the probe kernels compiled to: tensor-core products in mxu, the
+    FMAs inside const's REPS loop, a whole Philox block in gen's loop."""
+    from distlr_tpu_torch.ops import build  # noqa: PLC0415
+
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(build.library_path("gen_roofline"))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    loops = _sass_loops(text)
+    facts = {}
+    for fn, (prefixes, least, what) in SASS_FACTS.items():
+        names = [n for n in loops if fn in n]
+        counts = [sum(c for op, c in loop.items() if op.startswith(prefixes))
+                  for n in names for loop in loops[n]]
+        best = max(counts, default=0)
+        facts[fn] = {"most_in_one_loop": best, "opcodes": prefixes, "shows": what}
+        if best < least:
+            raise AssertionError(f"SASS of {fn}: {best} of {prefixes} in its loops, "
+                                 f"expected >= {least} ({what}); functions {names}")
+    emit("sass", library=os.path.relpath(build.library_path("gen_roofline"), ROOT), facts=facts)
+    return facts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every random input")
@@ -346,29 +650,40 @@ def main(argv=None) -> int:
         env = phase_env(torch)
         phase = "build"
         phase_build()
+        phase = "sass"
+        phase_sass()
         phase = "kernels"
         timing = phase_kernels(torch, args.seed)
+        phase = "roofline"
+        timing.update(phase_roofline(torch, args.seed))
         phase = "trainer"
         trainer = phase_trainer(torch, args.seed)
         phase = "cli"
         phase_cli()
+        phase = "roofline_experiments"
+        launches = {**trainer["launches"], **phase_roofline_experiments(torch, env["nvidia_smi"])}
     except Exception as e:  # report which phase failed, then fail the run
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
         raise
     replaces = {"fused_lr_grad": "distlr_tpu/ops/pallas_lr.py:86",
-                "lr_logits": "distlr_tpu/ops/pallas_lr.py:75"}
+                "lr_logits": "distlr_tpu/ops/pallas_lr.py:75", **ROOFLINE_REPLACES}
     kernels = []
     for fn in ops.KERNEL_WRAPPERS:
-        t = timing[fn.__name__]
-        kernels.append({
-            "name": fn.__name__, "route": "cuda",
-            "source": "distlr_tpu_torch/ops/csrc/fused_lr_grad.cu",
-            "replaces": replaces[fn.__name__],
-            "launches": trainer["launches"][fn.__name__],
+        name = fn.__name__
+        t = timing[name]
+        entry = {
+            "name": name, "route": "cuda",
+            "source": ROOFLINE_SOURCE if name in ROOFLINE_REPLACES
+            else "distlr_tpu_torch/ops/csrc/fused_lr_grad.cu",
+            "replaces": replaces[name],
+            "launches": launches[name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "worst_rel_err": t["rel_err"],
-        })
+        }
+        if "library_note" in t:
+            entry["library_note"] = t["library_note"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],
                                              "count": env["count"]}}), flush=True)

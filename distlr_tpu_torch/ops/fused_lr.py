@@ -180,8 +180,3 @@ lr_logits.launches = 0
 
 #: every kernel wrapper of this module, for launch accounting
 KERNEL_WRAPPERS = (fused_lr_grad, lr_logits)
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
-        fn.launches = 0

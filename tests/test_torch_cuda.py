@@ -78,3 +78,62 @@ def test_trainer_on_card_matches_cpu(cuda):
     w_card = on_card.fit()
     assert ops.fused_lr_grad.launches == 5 * 4 * 2  # epochs x steps x shards
     torch.testing.assert_close(w_card.cpu(), on_cpu.fit(), rtol=1e-4, atol=1e-5)
+
+
+# --- the on-device generation probes (ops/gen_roofline.py) -------------------
+def _roofline_calls(cuda, bt, dt, reps, seed=0):
+    """kernel name -> (wrapper call, plain call) on the same inputs."""
+    from distlr_tpu_torch.ops import gen_roofline as gr
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    s = torch.tensor([seed], dtype=torch.int32, device=cuda)
+    w = torch.randn(1, dt, device=cuda, generator=gen) / dt ** 0.5
+    y = (torch.rand(bt, 1, device=cuda, generator=gen) < 0.5).float()
+    x = torch.randn(bt, dt, device=cuda, generator=gen)
+    wm = torch.randn(dt, gr.MXU_N, device=cuda, generator=gen) / dt ** 0.5
+    return {
+        "gen": (lambda: ops.roofline_gen(s, bt=bt, dt=dt, reps=reps),
+                lambda: gr.roofline_gen_reference(s, bt=bt, dt=dt, reps=reps)),
+        "fwd": (lambda: ops.roofline_fwd(s, w, bt=bt, reps=reps),
+                lambda: gr.roofline_fwd_reference(s, w, bt=bt, reps=reps)),
+        "full": (lambda: ops.roofline_full(s, w, y, reps=reps),
+                 lambda: gr.roofline_full_reference(s, w, y, reps=reps)),
+        "hash": (lambda: ops.roofline_hash(w, bt=bt, reps=reps),
+                 lambda: gr.roofline_hash_reference(w, bt=bt, reps=reps)),
+        "const": (lambda: ops.roofline_const(x, w, reps=reps),
+                  lambda: gr.roofline_const_reference(x, w, reps=reps)),
+        "mxu": (lambda: ops.roofline_mxu(x, wm, reps=reps),
+                lambda: gr.roofline_mxu_reference(x, wm, reps=reps)),
+    }
+
+
+@pytest.mark.parametrize("bt,dt,reps", [(64, 1024, 8), (256, 8192, 64)])
+@pytest.mark.parametrize("name", ["gen", "fwd", "full", "hash", "const", "mxu"])
+def test_roofline_kernel_matches_plain(cuda, name, bt, dt, reps):
+    kern, plain = _roofline_calls(cuda, bt, dt, reps)[name]
+    wrapper = getattr(ops, f"roofline_{name}")
+    launches = wrapper.launches
+    got = kern()
+    torch.cuda.synchronize()
+    assert wrapper.launches == launches + 1
+    ref = plain()
+    assert got.shape == ref.shape
+    if name == "gen":
+        # the same words summed as f32 in the same (ascending t) order
+        assert torch.equal(got, ref)
+    else:
+        # f32 sums in different orders
+        assert (got - ref).abs().max() <= 1e-3 * ref.abs().max()
+
+
+def test_roofline_kernels_are_deterministic(cuda):
+    for kern, _ in _roofline_calls(cuda, 64, 1024, 8).values():
+        assert torch.equal(kern(), kern())
+
+
+def test_roofline_shapes_the_kernels_refuse(cuda):
+    w = torch.ones(1, 200, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ops.roofline_hash(w, bt=8, reps=1)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        ops.roofline_mxu(torch.ones(8, 256, device=cuda), torch.ones(256, 128, device=cuda), reps=1)

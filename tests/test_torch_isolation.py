@@ -46,7 +46,9 @@ def test_fresh_interpreter_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     doc = json.loads(proc.stdout.strip().splitlines()[-1])
     for mod in ("distlr_tpu_torch.launch", "distlr_tpu_torch.train.trainer",
-                "distlr_tpu_torch.ops.fused_lr", "distlr_tpu_torch.convert"):
+                "distlr_tpu_torch.ops.fused_lr", "distlr_tpu_torch.convert",
+                "distlr_tpu_torch.ops.gen_roofline", "distlr_tpu_torch.benchmarks.exp_gen_roofline",
+                "distlr_tpu_torch.benchmarks.exp_gen_roofline2"):
         assert mod in doc["imported"]
     assert doc["leaked"] == []
 
