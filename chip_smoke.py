@@ -9,7 +9,9 @@ It builds the port's CUDA kernels from the sources in the checkout,
 holds each against its plain PyTorch version on the card, drives the
 port's main path — the sync dense-LR trainer at the repo's full width
 (D = 1,000,000 features, 2048 rows a step, bfloat16 features) — through
-``Trainer.load_data / fit / evaluate_metrics / save_model``, then the
+``Trainer.load_data / fit / evaluate_metrics / save_model``, then the same
+trainer at a width above the single-pass kernel's shared-memory bound (D =
+6,000,000, where the two-launch kernels take over), then the
 ``gen-data -> sync -> eval`` CLI in a subprocess, and last the path of the
 on-device generation probes: both roofline experiments
 (``distlr_tpu_torch.benchmarks.exp_gen_roofline*``) at the published
@@ -30,7 +32,8 @@ import math
 import os
 import re
 import resource
-import statistics
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -54,7 +57,17 @@ CONVERSIONS_PER_SM_CLOCK = 16
 # in different orders.
 REL_TOL = 1e-3
 FULL_D, FULL_B, FULL_TEST = 1_000_000, 2048, 256
+# above the single pass's bound (5,045,568 for bf16 on 132 SMs)
+WIDE_D, WIDE_B, WIDE_TEST = 6_000_000, 64, 16
 CTR_FIELDS = 39
+FUSED_SOURCE = "distlr_tpu_torch/ops/csrc/fused_lr_grad.cu"
+# wrapper -> the Pallas kernel it replaces
+FUSED_REPLACES = {
+    "fused_lr_grad": "distlr_tpu/ops/pallas_lr.py:86",
+    "lr_logits": "distlr_tpu/ops/pallas_lr.py:75",
+    "fused_lr_grad_two_launch": "distlr_tpu/ops/pallas_lr.py:86",
+    "lr_logits_row_blocks": "distlr_tpu/ops/pallas_lr.py:75",
+}
 
 
 def emit(phase: str, **kv) -> None:
@@ -66,21 +79,15 @@ def rel_err(a, b) -> float:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` (after a warm-up)."""
+    """Mean device time of one call of ``fn`` over ``reps`` back-to-back
+    calls after a warm-up, between two CUDA events: the host issues ahead
+    of the card, so its per-call cost (allocations, ctypes, launches) does
+    not stretch the time unless it exceeds the device's."""
     import torch  # noqa: PLC0415
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    from distlr_tpu_torch.benchmarks.timing import mean_ms  # noqa: PLC0415
+
+    return mean_ms(fn, reps, device=torch.device("cuda"), graph=False)
 
 
 def phase_env(torch) -> dict:
@@ -125,27 +132,98 @@ def _inputs(torch, gen, B, D, x_dtype, masked_tail=0):
     return w, X, y, mask
 
 
+def _launches(ops) -> dict:
+    return {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+
+
+def _grad_bound(B: int, D: int, x_bytes: int) -> tuple[float, str]:
+    """(bound_ms, bound_by) of the gradient: X, w, y, mask in and g out
+    once; a multiply-add each way per element of X."""
+    t_bytes = (B * D * x_bytes + D * 4 + 2 * B * 4 + D * 4) / HBM_BYTES_PER_S
+    t_ops = 4 * B * D / F32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _logits_bound(B: int, D: int, x_bytes: int) -> tuple[float, str]:
+    t_bytes = (B * D * x_bytes + D * 4 + B * 4) / HBM_BYTES_PER_S
+    t_ops = 2 * B * D / F32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _library_grad(torch, w, X, y, mask):
+    """One cuBLAS ``mv``, the sigmoid, one ``mv`` of Xᵀ: the same function
+    in library calls (a yardstick only; the port never calls it)."""
+    wb, yf = w.to(X.dtype), y.to(torch.float32)
+
+    def run():
+        r = (torch.sigmoid(torch.mv(X, wb).float()) - yf) * mask
+        return torch.mv(X.t(), r.to(X.dtype))
+    return run
+
+
+def _plan_fields(plan) -> dict:
+    return {k: plan.as_dict()[k] for k in
+            ("ctas", "ctas_per_sm", "slice_cols", "rows", "stages", "smem_bytes", "single_pass")}
+
+
+def _ncu_dram_bytes(timeout_s: int = 180) -> dict:
+    """``dram__bytes_read.sum`` of one single-pass call at the full width,
+    where Nsight Compute is installed (a one-read kernel reads ~4.1 GB)."""
+    ncu = shutil.which("ncu") or next(
+        (c for c in ("/usr/local/cuda/bin/ncu",) if os.path.exists(c)), None)
+    if ncu is None:
+        return {"ncu": None, "note": "ncu is not on this machine: DRAM bytes not measured"}
+    script = ("import sys, torch; sys.path.insert(0, %r)\n"
+              "from distlr_tpu_torch import ops\n"
+              "X = torch.randn(%d, %d, device='cuda').to(torch.bfloat16)\n"
+              "w = torch.randn(%d, device='cuda') * 1e-3\n"
+              "y = torch.ones(%d, device='cuda'); m = torch.ones(%d, device='cuda')\n"
+              "ops.fused_lr_grad(w, X, y, m); torch.cuda.synchronize()\n"
+              % (ROOT, FULL_B, FULL_D, FULL_D, FULL_B, FULL_B))
+    cmd = [ncu, "--metrics", "dram__bytes_read.sum", "-k", "regex:single_pass", "-c", "1",
+           sys.executable, "-c", script]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        return {"ncu": ncu, "error": f"no result in {timeout_s} s"}
+    m = re.search(r"dram__bytes_read\.sum\s+(\S+)\s+([\d.,]+)", out)
+    if proc.returncode != 0 or m is None:
+        return {"ncu": ncu, "error": f"exit {proc.returncode}", "tail": out[-600:]}
+    unit, value = m.group(1), float(m.group(2).replace(",", ""))
+    scale = {"byte": 1, "Kbyte": 1e3, "Mbyte": 1e6, "Gbyte": 1e9, "Tbyte": 1e12}.get(unit)
+    return {"ncu": ncu, "dram_bytes_read": None if scale is None else value * scale,
+            "raw": m.group(0)}
+
+
 def phase_kernels(torch, seed: int) -> dict:
     """Each kernel against its plain version; timings at the full width."""
     from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.ops import fused_lr  # noqa: PLC0415
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    worst = {"fused_lr_grad": 0.0, "lr_logits": 0.0}
+    worst = dict.fromkeys(FUSED_REPLACES, 0.0)
     cases = [(64, 256, 10), (100, 1000, 7), (1, 1, 0), (4096, 16384, 0)]
     for B, D, tail in cases:
         for x_dtype in (torch.float32, torch.bfloat16):
             for cd in ("bfloat16", "float32"):
                 w, X, y, mask = _inputs(torch, gen, B, D, x_dtype, tail)
-                before = (ops.fused_lr_grad.launches, ops.lr_logits.launches)
+                before = _launches(ops)
                 g = ops.fused_lr_grad(w, X, y, mask, compute_dtype=cd)
                 z = ops.lr_logits(w, X, compute_dtype=cd)
                 torch.cuda.synchronize()
-                if (ops.fused_lr_grad.launches, ops.lr_logits.launches) != (before[0] + 1, before[1] + 1):
+                after = _launches(ops)
+                if (after["fused_lr_grad"], after["lr_logits"]) != (
+                        before["fused_lr_grad"] + 1, before["lr_logits"] + 1):
                     raise AssertionError("a kernel wrapper did not count its launch")
                 eg = rel_err(g, ops.fused_lr_grad_reference(w, X, y, mask, compute_dtype=cd))
                 ez = rel_err(z, ops.lr_logits_reference(w, X, compute_dtype=cd))
                 emit("kernel_check", B=B, D=D, x_dtype=str(x_dtype), compute_dtype=cd,
-                     grad_rel_err=eg, logits_rel_err=ez)
+                     grad_rel_err=eg, logits_rel_err=ez,
+                     plan=_plan_fields(fused_lr.launch_plan_for(X, cd)))
                 if not (eg <= REL_TOL and ez <= REL_TOL):
                     raise AssertionError(f"kernel disagrees with its plain version at {(B, D, x_dtype, cd)}")
                 worst["fused_lr_grad"] = max(worst["fused_lr_grad"], eg)
@@ -158,63 +236,138 @@ def phase_kernels(torch, seed: int) -> dict:
         raise AssertionError("all-masked batch gave a non-zero gradient")
     emit("kernel_check", case="all_masked", max_abs=0.0)
 
+    # above the single pass's shared-memory bound: the two-launch kernels
+    B, D = 8, WIDE_D
+    w, X, y, mask = _inputs(torch, gen, B, D, torch.bfloat16, masked_tail=2)
+    if fused_lr.launch_plan_for(X).single_pass:
+        raise AssertionError(f"({B}, {D}) bf16 should be above the single pass's bound")
+    for cd in ("bfloat16", "float32"):
+        before = _launches(ops)
+        g = ops.fused_lr_grad(w, X, y, mask, compute_dtype=cd)
+        z = ops.lr_logits(w, X, compute_dtype=cd)
+        torch.cuda.synchronize()
+        after = _launches(ops)
+        moved = {k: after[k] - before[k] for k in FUSED_REPLACES}
+        if moved != {"fused_lr_grad": 0, "lr_logits": 0, "fused_lr_grad_two_launch": 1,
+                     "lr_logits_row_blocks": 1}:
+            raise AssertionError(f"above the bound the calls did not take the two-launch path: {moved}")
+        eg = rel_err(g, ops.fused_lr_grad_reference(w, X, y, mask, compute_dtype=cd))
+        ez = rel_err(z, ops.lr_logits_reference(w, X, compute_dtype=cd))
+        emit("kernel_check", B=B, D=D, x_dtype="torch.bfloat16", compute_dtype=cd,
+             path="two_launch", grad_rel_err=eg, logits_rel_err=ez)
+        if not (eg <= REL_TOL and ez <= REL_TOL):
+            raise AssertionError(f"two-launch kernels disagree with the plain version above the bound ({cd})")
+        worst["fused_lr_grad_two_launch"] = max(worst["fused_lr_grad_two_launch"], eg)
+        worst["lr_logits_row_blocks"] = max(worst["lr_logits_row_blocks"], ez)
+    del X, w, y, mask
+
     # the main path's shape: (2048, 1M) bf16 features, bf16 products
     B, D = FULL_B, FULL_D
     w, X, y, mask = _inputs(torch, gen, B, D, torch.bfloat16, masked_tail=48)
     results = {}
     for cd in ("bfloat16", "float32"):
-        g = ops.fused_lr_grad(w, X, y, mask, compute_dtype=cd)
+        g, zg = ops.fused_lr_grad(w, X, y, mask, compute_dtype=cd, with_logits=True)
         g_ref = ops.fused_lr_grad_reference(w, X, y, mask, compute_dtype=cd)
         z = ops.lr_logits(w, X, compute_dtype=cd)
         z_ref = ops.lr_logits_reference(w, X, compute_dtype=cd)
-        eg, ez = rel_err(g, g_ref), rel_err(z, z_ref)
+        g2 = ops.fused_lr_grad_two_launch(w, X, y, mask, compute_dtype=cd)
+        z2 = ops.lr_logits_row_blocks(w, X, compute_dtype=cd)
+        errs = {"fused_lr_grad": (g, g_ref), "lr_logits": (z, z_ref),
+                "fused_lr_grad_two_launch": (g2, g_ref), "lr_logits_row_blocks": (z2, z_ref)}
+        rel = {k: rel_err(a, b) for k, (a, b) in errs.items()}
+        rel["with_logits"] = rel_err(zg, z_ref)
         emit("kernel_check", B=B, D=D, x_dtype="torch.bfloat16", compute_dtype=cd,
-             grad_rel_err=eg, logits_rel_err=ez,
-             grad_max_abs_err=float((g - g_ref).abs().max()),
-             logits_max_abs_err=float((z - z_ref).abs().max()))
-        if not (eg <= REL_TOL and ez <= REL_TOL):
-            raise AssertionError(f"kernel disagrees with its plain version at full width ({cd})")
-        worst["fused_lr_grad"] = max(worst["fused_lr_grad"], eg)
-        worst["lr_logits"] = max(worst["lr_logits"], ez)
+             rel_err=rel, max_abs_err={k: float((a - b).abs().max()) for k, (a, b) in errs.items()})
+        if max(rel.values()) > REL_TOL:
+            raise AssertionError(f"a kernel disagrees with its plain version at full width ({cd}): {rel}")
+        for k in FUSED_REPLACES:
+            worst[k] = max(worst[k], rel[k])
         if cd == "bfloat16":
-            results["fused_lr_grad"] = {"max_abs_err": float((g - g_ref).abs().max())}
-            results["lr_logits"] = {"max_abs_err": float((z - z_ref).abs().max())}
+            for k, (a, b) in errs.items():
+                results[k] = {"max_abs_err": float((a - b).abs().max())}
         del g_ref, z_ref
 
-    # timings at the main path's shape and types
-    x_bytes = B * D * X.element_size()
-    wb, yf = w.to(torch.bfloat16), y.to(torch.float32)
+    # the same bits on a second call
+    same = {"fused_lr_grad": bool(torch.equal(ops.fused_lr_grad(w, X, y, mask),
+                                              ops.fused_lr_grad(w, X, y, mask))),
+            "lr_logits": bool(torch.equal(ops.lr_logits(w, X), ops.lr_logits(w, X)))}
+    emit("kernel_check", B=B, D=D, case="deterministic", same_bits=same)
+    if not all(same.values()):
+        raise AssertionError(f"a slice kernel gave other bits on a second call: {same}")
 
-    def library_grad():
-        r = (torch.sigmoid(torch.mv(X, wb).float()) - yf) * mask
-        return torch.mv(X.t(), r.to(torch.bfloat16))
-
+    # timings at the main path's shape and types: the redesigned kernel
+    # between two runs of the two-launch one (old, new, new, old)
     reps = 25
-    grad_bytes = x_bytes + D * 4 + 2 * B * 4 + D * 4      # X, w, y, mask in; g out
-    grad_ops = 4 * B * D                                  # a multiply-add each way
+    grad_old = lambda: ops.fused_lr_grad_two_launch(w, X, y, mask)  # noqa: E731
+    grad_new = lambda: ops.fused_lr_grad(w, X, y, mask)  # noqa: E731
+    order = [time_ms(f, reps) for f in (grad_old, grad_new, grad_new, grad_old)]
+    bound_ms, bound_by = _grad_bound(B, D, X.element_size())
     results["fused_lr_grad"].update(
-        ms=time_ms(lambda: ops.fused_lr_grad(w, X, y, mask), reps),
+        ms=(order[1] + order[2]) / 2, two_pass_ms=(order[0] + order[3]) / 2,
+        order_old_new_new_old_ms=order,
         plain_ms=time_ms(lambda: ops.fused_lr_grad_reference(w, X, y, mask), reps),
-        library_ms=time_ms(library_grad, reps),
-        bound_ms=1e3 * max(grad_bytes / HBM_BYTES_PER_S, grad_ops / F32_FLOPS_PER_S),
-        bound_by="bytes" if grad_bytes / HBM_BYTES_PER_S >= grad_ops / F32_FLOPS_PER_S else "operations",
-        two_read_floor_ms=1e3 * (2 * x_bytes) / HBM_BYTES_PER_S,
+        library_ms=time_ms(_library_grad(torch, w, X, y, mask), reps),
+        bound_ms=bound_ms, bound_by=bound_by,
+        two_read_floor_ms=1e3 * (2 * B * D * X.element_size()) / HBM_BYTES_PER_S,
+        plan=_plan_fields(fused_lr.launch_plan_for(X)),
     )
-    logits_bytes = x_bytes + D * 4 + B * 4
-    logits_ops = 2 * B * D
+    logits_old = lambda: ops.lr_logits_row_blocks(w, X)  # noqa: E731
+    logits_new = lambda: ops.lr_logits(w, X)  # noqa: E731
+    order = [time_ms(f, reps) for f in (logits_old, logits_new, logits_new, logits_old)]
+    wb = w.to(torch.bfloat16)
+    bound_ms, bound_by = _logits_bound(B, D, X.element_size())
     results["lr_logits"].update(
-        ms=time_ms(lambda: ops.lr_logits(w, X), reps),
+        ms=(order[1] + order[2]) / 2, row_blocks_ms=(order[0] + order[3]) / 2,
+        order_old_new_new_old_ms=order,
         plain_ms=time_ms(lambda: ops.lr_logits_reference(w, X), reps),
         library_ms=time_ms(lambda: torch.mv(X, wb), reps),
-        bound_ms=1e3 * max(logits_bytes / HBM_BYTES_PER_S, logits_ops / F32_FLOPS_PER_S),
-        bound_by="bytes" if logits_bytes / HBM_BYTES_PER_S >= logits_ops / F32_FLOPS_PER_S else "operations",
+        bound_ms=bound_ms, bound_by=bound_by,
+        plan=_plan_fields(fused_lr.launch_plan_for(X, kernel="logits")),
     )
-    for name, r in results.items():
+    for name in ("fused_lr_grad", "lr_logits"):
+        r = results[name]
         r["rel_err"] = worst[name]
         emit("kernel_timing", kernel=name, B=B, D=D, x_dtype="bfloat16", reps=reps, **r)
     del X
     torch.cuda.empty_cache()
+    emit("dram_bytes", kernel="fused_lr_grad", B=B, D=D,
+         one_read_bytes=B * D * 2, **_ncu_dram_bytes())
+    for name in ("fused_lr_grad_two_launch", "lr_logits_row_blocks"):
+        results[name]["rel_err"] = worst[name]
     return results
+
+
+def time_two_launch(torch, seed: int, results: dict) -> None:
+    """The two-launch kernels at the above-bound trainer's shape, (64, 6M)
+    bf16: the shape their path gives them."""
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    B, D = WIDE_B, WIDE_D
+    w, X, y, mask = _inputs(torch, gen, B, D, torch.bfloat16)
+    reps = 25
+    wb = w.to(torch.bfloat16)
+    g_ref = ops.fused_lr_grad_reference(w, X, y, mask)
+    z_ref = ops.lr_logits_reference(w, X)
+    bound_ms, bound_by = _grad_bound(B, D, X.element_size())
+    results["fused_lr_grad_two_launch"].update(
+        shape=[B, D], max_abs_err=float((ops.fused_lr_grad_two_launch(w, X, y, mask) - g_ref).abs().max()),
+        ms=time_ms(lambda: ops.fused_lr_grad_two_launch(w, X, y, mask), reps),
+        plain_ms=time_ms(lambda: ops.fused_lr_grad_reference(w, X, y, mask), reps),
+        library_ms=time_ms(_library_grad(torch, w, X, y, mask), reps),
+        bound_ms=bound_ms, bound_by=bound_by)
+    bound_ms, bound_by = _logits_bound(B, D, X.element_size())
+    results["lr_logits_row_blocks"].update(
+        shape=[B, D], max_abs_err=float((ops.lr_logits_row_blocks(w, X) - z_ref).abs().max()),
+        ms=time_ms(lambda: ops.lr_logits_row_blocks(w, X), reps),
+        plain_ms=time_ms(lambda: ops.lr_logits_reference(w, X), reps),
+        library_ms=time_ms(lambda: torch.mv(X, wb), reps),
+        bound_ms=bound_ms, bound_by=bound_by)
+    for name in ("fused_lr_grad_two_launch", "lr_logits_row_blocks"):
+        emit("kernel_timing", kernel=name, B=B, D=D, x_dtype="bfloat16", reps=reps,
+             **results[name])
+    del X, g_ref, z_ref
+    torch.cuda.empty_cache()
 
 
 def _ctr_rows(rng, n: int, w_true, D: int):
@@ -233,24 +386,33 @@ def _ctr_rows(rng, n: int, w_true, D: int):
     return X, y
 
 
-def phase_trainer(torch, seed: int) -> dict:
-    """The main path at full width: load_data -> fit -> evaluate -> save."""
+def phase_trainer(torch, seed: int, *, D: int = FULL_D, B: int = FULL_B,
+                  test_rows: int = FULL_TEST, phase: str = "trainer") -> dict:
+    """The main path at width D: load_data -> fit -> evaluate -> save, with
+    the launch counts zeroed just before fit and read just after.  At the
+    full width the slice kernels run; above their bound the two-launch
+    kernels."""
     import numpy as np  # noqa: PLC0415
 
     from distlr_tpu_torch import ops  # noqa: PLC0415
     from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.ops import fused_lr  # noqa: PLC0415
     from distlr_tpu_torch.train import GlobalShardedData, Trainer  # noqa: PLC0415
 
     steps = 3
     rng = np.random.default_rng(seed)
-    w_true = (rng.standard_normal(FULL_D) * 0.5).astype(np.float32)
+    w_true = (rng.standard_normal(D) * 0.5).astype(np.float32)
     t0 = time.perf_counter()
-    train = GlobalShardedData([_ctr_rows(rng, FULL_B, w_true, FULL_D)])
-    test = GlobalShardedData([_ctr_rows(rng, FULL_TEST, w_true, FULL_D)])
+    train = GlobalShardedData([_ctr_rows(rng, B, w_true, D)])
+    test = GlobalShardedData([_ctr_rows(rng, test_rows, w_true, D)])
     data_s = time.perf_counter() - t0
+    single = fused_lr.fused_lr_supported(
+        B, D, num_sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    grad_fn, logits_fn = (("fused_lr_grad", "lr_logits") if single
+                          else ("fused_lr_grad_two_launch", "lr_logits_row_blocks"))
 
     with tempfile.TemporaryDirectory(prefix="distlr-smoke-") as tmp:
-        cfg = Config(num_feature_dim=FULL_D, feature_dtype="bfloat16",
+        cfg = Config(num_feature_dim=D, feature_dtype="bfloat16",
                      compute_dtype="bfloat16", batch_size=-1, learning_rate=0.2,
                      l2_c=0.01, num_iteration=steps, test_interval=1, data_dir=tmp)
         t0 = time.perf_counter()
@@ -265,11 +427,12 @@ def phase_trainer(torch, seed: int) -> dict:
         path = trainer.save_model()
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
-        saved_ok = os.path.getsize(path) > FULL_D and open(path).readline().strip() == str(FULL_D)
+        launches = _launches(ops)
+        saved_ok = os.path.getsize(path) > D and open(path).readline().strip() == str(D)
 
-    if launches["fused_lr_grad"] < steps or launches["lr_logits"] < 1:
-        raise AssertionError(f"the main path did not run its kernels once a step: {launches}")
+    others = {k: v for k, v in launches.items() if k not in (grad_fn, logits_fn)}
+    if launches[grad_fn] != steps or launches[logits_fn] < 1 or any(others.values()):
+        raise AssertionError(f"the path did not run {grad_fn} once a step and {logits_fn}: {launches}")
     loss = trainer.metrics.latest("loss")
     if not (math.isfinite(loss) and math.isfinite(metrics["logloss"])):
         raise AssertionError(f"non-finite loss {loss} / logloss {metrics['logloss']}")
@@ -293,7 +456,7 @@ def phase_trainer(torch, seed: int) -> dict:
     del X
 
     out = {
-        "D": FULL_D, "B": FULL_B, "test_rows": FULL_TEST, "steps": steps,
+        "D": D, "B": B, "test_rows": test_rows, "steps": steps, "kernels": [grad_fn, logits_fn],
         "launches": launches, "loss": loss, "test_accuracy": metrics["accuracy"],
         "test_logloss": metrics["logloss"], "step_ms": 1e3 * trainer.timer.sec_per_step,
         "step_device_ms": step_device_ms,
@@ -302,7 +465,7 @@ def phase_trainer(torch, seed: int) -> dict:
         "host_peak_rss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
         "device_peak_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
-    emit("trainer", **out)
+    emit(phase, **out)
     return out
 
 
@@ -658,31 +821,36 @@ def main(argv=None) -> int:
         timing.update(phase_roofline(torch, args.seed))
         phase = "trainer"
         trainer = phase_trainer(torch, args.seed)
+        phase = "trainer_wide"
+        wide = phase_trainer(torch, args.seed, D=WIDE_D, B=WIDE_B, test_rows=WIDE_TEST,
+                             phase="trainer_wide")
+        time_two_launch(torch, args.seed, timing)
         phase = "cli"
         phase_cli()
         phase = "roofline_experiments"
         launches = {**trainer["launches"], **phase_roofline_experiments(torch, env["nvidia_smi"])}
+        for name in ("fused_lr_grad_two_launch", "lr_logits_row_blocks"):
+            launches[name] = wide["launches"][name]
     except Exception as e:  # report which phase failed, then fail the run
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
         raise
-    replaces = {"fused_lr_grad": "distlr_tpu/ops/pallas_lr.py:86",
-                "lr_logits": "distlr_tpu/ops/pallas_lr.py:75", **ROOFLINE_REPLACES}
+    replaces = {**FUSED_REPLACES, **ROOFLINE_REPLACES}
     kernels = []
     for fn in ops.KERNEL_WRAPPERS:
         name = fn.__name__
         t = timing[name]
         entry = {
             "name": name, "route": "cuda",
-            "source": ROOFLINE_SOURCE if name in ROOFLINE_REPLACES
-            else "distlr_tpu_torch/ops/csrc/fused_lr_grad.cu",
+            "source": ROOFLINE_SOURCE if name in ROOFLINE_REPLACES else FUSED_SOURCE,
             "replaces": replaces[name],
             "launches": launches[name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "worst_rel_err": t["rel_err"],
         }
-        if "library_note" in t:
-            entry["library_note"] = t["library_note"]
+        for extra in ("library_note", "two_pass_ms", "row_blocks_ms", "plan", "shape"):
+            if extra in t:
+                entry[extra] = t[extra]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],

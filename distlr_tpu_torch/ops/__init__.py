@@ -1,10 +1,14 @@
 from distlr_tpu_torch.ops import fused_lr, gen_roofline
 from distlr_tpu_torch.ops.fused_lr import (  # noqa: F401
+    LaunchPlan,
     fused_lr_grad,
     fused_lr_grad_reference,
+    fused_lr_grad_two_launch,
     fused_lr_supported,
+    lr_launch_plan,
     lr_logits,
     lr_logits_reference,
+    lr_logits_row_blocks,
 )
 from distlr_tpu_torch.ops.gen_roofline import (  # noqa: F401
     roofline_const,

@@ -3,9 +3,11 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded with
 ``ctypes``.  The library lands in ``build/kernels/`` at the root of the
-checkout; its file name carries a hash of the sources, so an edited
-source builds anew and a stale library is never loaded.  Nothing is
-built when this module is imported: the first kernel call builds.
+checkout; its file name carries a hash of the sources and flags, so an
+edited source builds anew and a stale library is never loaded.  Nothing
+is built when this module is imported: the first kernel call builds.
+A variant with preprocessor ``defines`` (an instrumented build) gets a
+library of its own.
 """
 
 from __future__ import annotations
@@ -36,10 +38,15 @@ def _sources(name: str) -> list[Path]:
     return srcs + sorted(CSRC_DIR.glob("*.cuh"))
 
 
-def library_path(name: str, build_dir: Path | None = None) -> Path:
+def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, build_dir: Path | None = None,
+                 defines: tuple[str, ...] = ()) -> Path:
     """Where the library for ``csrc/<name>.cu`` lives: hashed on the
     bytes of its sources and the compiler flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for src in _sources(name):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -59,15 +66,15 @@ def find_nvcc() -> str:
         "to build the port's kernels")
 
 
-def nvcc_command(name: str, out: Path) -> list[str]:
-    return [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
+def nvcc_command(name: str, out: Path, defines: tuple[str, ...] = ()) -> list[str]:
+    return [find_nvcc(), *_flags(defines), "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
 
 
-def build(name: str, build_dir: Path | None = None) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its hashed library exists;
-    return the library's path.  Raises with the compiler's output when
-    ``nvcc`` fails."""
-    out = library_path(name, build_dir)
+def build(name: str, build_dir: Path | None = None, defines: tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` (with ``-D`` for each of ``defines``)
+    unless its hashed library exists; return the library's path.  Raises
+    with the compiler's output when ``nvcc`` fails."""
+    out = library_path(name, build_dir, defines)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -76,7 +83,7 @@ def build(name: str, build_dir: Path | None = None) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     try:
-        proc = subprocess.run(nvcc_command(name, Path(tmp)),
+        proc = subprocess.run(nvcc_command(name, Path(tmp), defines),
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(

@@ -59,6 +59,80 @@ def test_kernel_is_deterministic(cuda):
     assert torch.equal(ops.fused_lr_grad(w, X, y, mask), ops.fused_lr_grad(w, X, y, mask))
 
 
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+# B not a multiple of R (2 or 4), D not a multiple of 8 (no bulk copies),
+# D < 132 * 8 (fewer CTAs), a wide slice (several register groups a thread)
+@pytest.mark.parametrize("B,D", [(7, 1003), (5, 500), (33, 70_001), (130, 600_000)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_single_pass_matches_plain(cuda, B, D, x_dtype, compute_dtype):
+    w, X, y, mask = _inputs(cuda, B, D, x_dtype, seed=B)
+    assert ops.fused_lr_supported(B, D, x_dtype=x_dtype, compute_dtype=compute_dtype)
+    before = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    g = ops.fused_lr_grad(w, X, y, mask, compute_dtype=compute_dtype)
+    z = ops.lr_logits(w, X, compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    after = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    assert after["fused_lr_grad"] == before["fused_lr_grad"] + 1
+    assert after["lr_logits"] == before["lr_logits"] + 1
+    assert after["fused_lr_grad_two_launch"] == before["fused_lr_grad_two_launch"]
+    # f32 sums in different orders
+    assert _rel(g, ops.fused_lr_grad_reference(w, X, y, mask, compute_dtype=compute_dtype)) <= 1e-3
+    assert _rel(z, ops.lr_logits_reference(w, X, compute_dtype=compute_dtype)) <= 1e-3
+
+
+def test_misaligned_features_take_plain_loads(cuda):
+    """A row view that is not 16-byte aligned cannot feed bulk copies."""
+    w, X, y, mask = _inputs(cuda, 9, 4096, torch.bfloat16)
+    Xv = X.reshape(-1)[1:1 + 8 * 4088].view(8, 4088)  # D % 8 == 0, 2 bytes off
+    g = ops.fused_lr_grad(w[:4088], Xv, y[:8], mask[:8])
+    assert _rel(g, ops.fused_lr_grad_reference(w[:4088], Xv, y[:8], mask[:8])) <= 1e-3
+
+
+def test_above_the_bound_takes_the_two_launch_path(cuda):
+    D = 5_045_569  # one column past the bf16 single pass's bound on 132 SMs
+    w, X, y, mask = _inputs(cuda, 10, D, torch.bfloat16)
+    if ops.fused_lr_supported(10, D, num_sms=torch.cuda.get_device_properties(0).multi_processor_count):
+        pytest.skip("this card's SM count puts the bound above the test shape")
+    before = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    g = ops.fused_lr_grad(w, X, y, mask)
+    z = ops.lr_logits(w, X)
+    torch.cuda.synchronize()
+    after = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    assert after["fused_lr_grad"] == before["fused_lr_grad"]
+    assert after["lr_logits"] == before["lr_logits"]
+    assert after["fused_lr_grad_two_launch"] == before["fused_lr_grad_two_launch"] + 1
+    assert after["lr_logits_row_blocks"] == before["lr_logits_row_blocks"] + 1
+    assert _rel(g, ops.fused_lr_grad_reference(w, X, y, mask)) <= 1e-3
+    assert _rel(z, ops.lr_logits_reference(w, X)) <= 1e-3
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_with_logits_agrees_with_lr_logits(cuda, x_dtype):
+    w, X, y, mask = _inputs(cuda, 257, 300_000, x_dtype)
+    _, z = ops.fused_lr_grad(w, X, y, mask, with_logits=True)
+    z_ref = ops.lr_logits(w, X)
+    assert (z - z_ref).abs().max() <= 1e-5 * z_ref.abs().max()
+
+
+def test_slice_kernels_are_deterministic(cuda):
+    w, X, y, mask = _inputs(cuda, 512, 1_000_000, torch.bfloat16)
+    g1, z1 = ops.fused_lr_grad(w, X, y, mask, with_logits=True)
+    g2, z2 = ops.fused_lr_grad(w, X, y, mask, with_logits=True)
+    assert torch.equal(g1, g2) and torch.equal(z1, z2)
+    assert torch.equal(ops.lr_logits(w, X), ops.lr_logits(w, X))
+
+
+@pytest.mark.parametrize("D", [256, 100_003, 1_000_000])
+def test_all_masked_batch_is_exactly_zero(cuda, D):
+    w, X, y, _ = _inputs(cuda, 64, D, torch.bfloat16)
+    g = ops.fused_lr_grad(w, X, y, torch.zeros(64, device=cuda))
+    assert float(g.abs().max()) == 0.0
+
+
 def test_non_contiguous_features_refused(cuda):
     w, X, y, mask = _inputs(cuda, 16, 64, torch.float32)
     with pytest.raises(ValueError, match="contiguous"):

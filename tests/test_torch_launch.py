@@ -120,6 +120,26 @@ class TestKernelBuild:
         src.write_text("// v2\n")
         assert build.library_path("k", tmp_path) != first
 
+    def test_defines_build_a_library_of_their_own(self, tmp_path, monkeypatch):
+        calls = []
+
+        def fake_run(cmd, **kw):
+            calls.append(cmd)
+            return subprocess.CompletedProcess(cmd, 0, "", "")
+
+        monkeypatch.setattr(build, "find_nvcc", lambda: "nvcc")
+        monkeypatch.setattr(build.subprocess, "run", fake_run)
+        plain = build.build("fused_lr_grad", build_dir=tmp_path)
+        traced = build.build("fused_lr_grad", build_dir=tmp_path, defines=("DISTLR_SLICE_TRACE",))
+        assert traced != plain and traced.exists()
+        assert "-DDISTLR_SLICE_TRACE" in calls[1] and "-DDISTLR_SLICE_TRACE" not in calls[0]
+
+    def test_slice_kernel_benchmark_needs_the_card(self, capsys):
+        from distlr_tpu_torch.benchmarks import slice_kernels
+
+        assert slice_kernels.main(["--sweep", "--trace"]) == 2
+        assert "needs the card" in capsys.readouterr().err
+
     def test_compiler_failure_raises_with_its_output(self, tmp_path, monkeypatch):
         monkeypatch.setattr(build, "find_nvcc", lambda: "nvcc")
         monkeypatch.setattr(build.subprocess, "run", lambda cmd, **kw: subprocess.CompletedProcess(

@@ -108,8 +108,110 @@ class TestFusedLRGradParity:
         w, X, y, mask = _inputs(7, 8, 16)
         ops.fused_lr_grad(*_torch(w, X, y, mask))
         ops.lr_logits(*_torch(w, X))
+        ops.fused_lr_grad_two_launch(*_torch(w, X, y, mask))
+        ops.lr_logits_row_blocks(*_torch(w, X))
         assert ops.fused_lr_grad.launches == 0
         assert ops.lr_logits.launches == 0
+        assert ops.fused_lr_grad_two_launch.launches == 0
+        assert ops.lr_logits_row_blocks.launches == 0
+
+    def test_two_launch_wrappers_match_jax_kernel_interpret(self):
+        """The two-launch path (taken above the single pass's bound) holds
+        the same function: its plain version against the Pallas kernel."""
+        w, X, y, mask = _inputs(9, 32, 384, masked_tail=4)
+        g_jax = np.asarray(jax_fused_lr_grad(
+            jnp.asarray(w), jnp.asarray(X), jnp.asarray(y), jnp.asarray(mask),
+            batch_tile=16, interpret=True))
+        g, z = ops.fused_lr_grad_two_launch(*_torch(w, X, y, mask), with_logits=True)
+        rel = np.abs(g.numpy() - g_jax).max() / np.abs(g_jax).max()
+        assert rel <= 1e-4, f"rel err {rel}"
+        torch.testing.assert_close(z, ops.lr_logits_row_blocks(*_torch(w, X)))
+        torch.testing.assert_close(z, ops.lr_logits(*_torch(w, X)))
+
+
+# the single pass's shared-memory bound on 132 SMs, computed by hand:
+# 132 * floor8((232_448 - 3_072) / (2 * x_bytes + w_bytes)), where the
+# slice of w and two stages of one row must fit next to the static 3 KB
+BOUNDS = [
+    (torch.bfloat16, "bfloat16", 5_045_568),   # 6 bytes a column
+    (torch.bfloat16, "float32", 3_784_704),    # 8
+    (torch.float32, "bfloat16", 3_027_552),    # 10
+    (torch.float32, "float32", 2_522_784),     # 12
+]
+PLAN_SHAPES = [(1, 1), (7, 13), (100, 1000), (3, 129), (64, 1055), (5, 1056),
+               (4096, 16384), (2048, 1_000_000), (8, 2_500_001), (8, 5_045_568)]
+
+
+class TestLaunchPlan:
+    @pytest.mark.parametrize("kernel", ops.fused_lr.KERNELS)
+    @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("B,D", PLAN_SHAPES)
+    def test_slices_cover_dim_exactly(self, B, D, x_dtype, kernel):
+        plan = ops.lr_launch_plan(B, D, x_dtype=x_dtype, kernel=kernel)
+        slices = plan.slices()
+        assert len(slices) == plan.ctas >= 1
+        assert slices[0][0] == 0 and slices[-1][1] == D
+        for (a, b), (c, _) in zip(slices, slices[1:]):
+            assert b == c, "slices must abut: no gap, no overlap"
+            assert (b - a) % 8 == 0 and b - a == plan.slice_cols
+        assert 0 < slices[-1][1] - slices[-1][0] <= plan.slice_cols
+
+    @pytest.mark.parametrize("kernel", ops.fused_lr.KERNELS)
+    @pytest.mark.parametrize("x_dtype,compute_dtype,bound", BOUNDS)
+    @pytest.mark.parametrize("B,D", PLAN_SHAPES)
+    def test_shared_memory_fits(self, B, D, x_dtype, compute_dtype, bound, kernel):
+        plan = ops.lr_launch_plan(B, D, x_dtype=x_dtype, compute_dtype=compute_dtype,
+                                  kernel=kernel)
+        assert plan.single_pass == (D <= bound)
+        if not plan.single_pass:
+            return
+        assert plan.smem_bytes <= 232_448
+        # every block of an SM, each with the 1 KB the card keeps back
+        assert plan.ctas_per_sm * (plan.smem_bytes + 1_024) <= 233_472
+        x_bytes = 2 if x_dtype == torch.bfloat16 else 4
+        w_bytes = 2 if compute_dtype == "bfloat16" else 4
+        ring = plan.stages * plan.rows * plan.slice_cols * x_bytes
+        assert plan.smem_bytes == ring + plan.slice_cols * w_bytes + 3_072
+        assert 1 <= plan.rows <= min(4, B) and plan.stages >= 2
+        assert plan.groups_per_thread * 256 * 8 >= plan.slice_cols
+
+    @pytest.mark.parametrize("x_dtype,compute_dtype,bound", BOUNDS)
+    def test_bound_flips_at_the_computed_dim(self, x_dtype, compute_dtype, bound):
+        kw = dict(x_dtype=x_dtype, compute_dtype=compute_dtype)
+        assert ops.fused_lr_supported(8, bound, **kw)
+        assert not ops.fused_lr_supported(8, bound + 1, **kw)
+        above = ops.lr_launch_plan(8, bound + 1, **kw)
+        assert (above.rows, above.stages, above.smem_bytes) == (0, 0, 0)
+        assert not ops.lr_launch_plan(8, bound + 1, kernel="logits", **kw).single_pass
+
+    @pytest.mark.parametrize("D", [1, 8, 9, 500, 1048])
+    def test_narrow_dim_uses_fewer_ctas(self, D):
+        """Below 132 * 8 columns every block owns 8 (one group)."""
+        plan = ops.lr_launch_plan(16, D)
+        assert plan.slice_cols == 8 and plan.ctas == -(-D // 8) < 132
+
+    def test_main_path_plan(self):
+        """(2048, 1M) bf16: one block per SM owning 7,576 columns, 2-row
+        (30 KB) tiles in 7 stages; the streaming logits two blocks per SM."""
+        grad = ops.lr_launch_plan(2048, 1_000_000)
+        assert (grad.ctas, grad.ctas_per_sm, grad.slice_cols) == (132, 1, 7576)
+        assert (grad.rows, grad.stages, grad.groups_per_thread) == (2, 7, 4)
+        logits = ops.lr_launch_plan(2048, 1_000_000, kernel="logits")
+        assert (logits.ctas, logits.ctas_per_sm, logits.slice_cols) == (264, 2, 3792)
+        assert (logits.rows, logits.stages) == (4, 2)
+
+    def test_plan_follows_the_sm_count(self):
+        plan = ops.lr_launch_plan(64, 1_000_000, num_sms=114)
+        assert plan.ctas == 114 and plan.slice_cols == 8776
+
+    @pytest.mark.parametrize("kw,err", [
+        (dict(batch=0, dim=8), ValueError), (dict(batch=4, dim=0), ValueError),
+        (dict(batch=4, dim=8, kernel="backward"), ValueError),
+        (dict(batch=4, dim=8, compute_dtype="int8"), ValueError),
+        (dict(batch=4, dim=8, x_dtype=torch.float16), TypeError)])
+    def test_rejects(self, kw, err):
+        with pytest.raises(err):
+            ops.lr_launch_plan(**kw)
 
 
 class TestInputChecks:
