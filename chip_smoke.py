@@ -11,7 +11,8 @@ port's main path — the sync dense-LR trainer at the repo's full width
 (D = 1,000,000 features, 2048 rows a step, bfloat16 features) — through
 ``Trainer.load_data / fit / evaluate_metrics / save_model``, then the same
 trainer at a width above the single-pass kernel's shared-memory bound (D =
-6,000,000, where the two-launch kernels take over), then the
+6,000,000, where the two-read path takes over: the streaming forward in
+several waves, a residual epilogue, the backward), then the
 ``gen-data -> sync -> eval`` CLI in a subprocess, and last the path of the
 on-device generation probes: both roofline experiments
 (``distlr_tpu_torch.benchmarks.exp_gen_roofline*``) at the published
@@ -163,7 +164,14 @@ def _library_grad(torch, w, X, y, mask):
 
 def _plan_fields(plan) -> dict:
     return {k: plan.as_dict()[k] for k in
-            ("ctas", "ctas_per_sm", "slice_cols", "rows", "stages", "smem_bytes", "single_pass")}
+            ("ctas", "ctas_per_sm", "waves", "slice_cols", "rows", "stages", "smem_bytes",
+             "single_pass")}
+
+
+def _two_read_floor_ms(B: int, D: int, x_bytes: int) -> float:
+    """Two reads of X at the HBM rate: the least time of any gradient that
+    reads X once for the forward and once for the backward."""
+    return 1e3 * (2 * B * D * x_bytes) / HBM_BYTES_PER_S
 
 
 def _ncu_dram_bytes(timeout_s: int = 180) -> dict:
@@ -236,7 +244,7 @@ def phase_kernels(torch, seed: int) -> dict:
         raise AssertionError("all-masked batch gave a non-zero gradient")
     emit("kernel_check", case="all_masked", max_abs=0.0)
 
-    # above the single pass's shared-memory bound: the two-launch kernels
+    # above the single pass's shared-memory bound: the two-read path
     B, D = 8, WIDE_D
     w, X, y, mask = _inputs(torch, gen, B, D, torch.bfloat16, masked_tail=2)
     if fused_lr.launch_plan_for(X).single_pass:
@@ -250,16 +258,24 @@ def phase_kernels(torch, seed: int) -> dict:
         moved = {k: after[k] - before[k] for k in FUSED_REPLACES}
         if moved != {"fused_lr_grad": 0, "lr_logits": 0, "fused_lr_grad_two_launch": 1,
                      "lr_logits_row_blocks": 1}:
-            raise AssertionError(f"above the bound the calls did not take the two-launch path: {moved}")
+            raise AssertionError(f"above the bound the calls did not take the two-read path: {moved}")
         eg = rel_err(g, ops.fused_lr_grad_reference(w, X, y, mask, compute_dtype=cd))
         ez = rel_err(z, ops.lr_logits_reference(w, X, compute_dtype=cd))
         emit("kernel_check", B=B, D=D, x_dtype="torch.bfloat16", compute_dtype=cd,
-             path="two_launch", grad_rel_err=eg, logits_rel_err=ez)
+             path="two_read", grad_rel_err=eg, logits_rel_err=ez,
+             plan=_plan_fields(fused_lr.wide_plan_for(X, cd)))
         if not (eg <= REL_TOL and ez <= REL_TOL):
-            raise AssertionError(f"two-launch kernels disagree with the plain version above the bound ({cd})")
+            raise AssertionError(f"the two-read path disagrees with the plain version above the bound ({cd})")
         worst["fused_lr_grad_two_launch"] = max(worst["fused_lr_grad_two_launch"], eg)
         worst["lr_logits_row_blocks"] = max(worst["lr_logits_row_blocks"], ez)
-    del X, w, y, mask
+    # the same bits on a second call; with_logits' z is the row blocks' z
+    g1, z1 = ops.fused_lr_grad_two_launch(w, X, y, mask, with_logits=True)
+    g2, z2 = ops.fused_lr_grad_two_launch(w, X, y, mask, with_logits=True)
+    zr1, zr2 = ops.lr_logits_row_blocks(w, X), ops.lr_logits_row_blocks(w, X)
+    same_wide = {"fused_lr_grad_two_launch": bool(torch.equal(g1, g2) and torch.equal(z1, z2)),
+                 "lr_logits_row_blocks": bool(torch.equal(zr1, zr2)),
+                 "with_logits_is_row_blocks": bool(torch.equal(z1, zr1))}
+    del X, w, y, mask, g1, g2
 
     # the main path's shape: (2048, 1M) bf16 features, bf16 products
     B, D = FULL_B, FULL_D
@@ -292,11 +308,12 @@ def phase_kernels(torch, seed: int) -> dict:
                                               ops.fused_lr_grad(w, X, y, mask))),
             "lr_logits": bool(torch.equal(ops.lr_logits(w, X), ops.lr_logits(w, X)))}
     emit("kernel_check", B=B, D=D, case="deterministic", same_bits=same)
-    if not all(same.values()):
-        raise AssertionError(f"a slice kernel gave other bits on a second call: {same}")
+    emit("kernel_check", B=8, D=WIDE_D, case="deterministic", same_bits=same_wide)
+    if not all(same.values()) or not all(same_wide.values()):
+        raise AssertionError(f"a kernel gave other bits on a second call: {same} {same_wide}")
 
     # timings at the main path's shape and types: the redesigned kernel
-    # between two runs of the two-launch one (old, new, new, old)
+    # between two runs of the two-read path (old, new, new, old)
     reps = 25
     grad_old = lambda: ops.fused_lr_grad_two_launch(w, X, y, mask)  # noqa: E731
     grad_new = lambda: ops.fused_lr_grad(w, X, y, mask)  # noqa: E731
@@ -308,7 +325,7 @@ def phase_kernels(torch, seed: int) -> dict:
         plain_ms=time_ms(lambda: ops.fused_lr_grad_reference(w, X, y, mask), reps),
         library_ms=time_ms(_library_grad(torch, w, X, y, mask), reps),
         bound_ms=bound_ms, bound_by=bound_by,
-        two_read_floor_ms=1e3 * (2 * B * D * X.element_size()) / HBM_BYTES_PER_S,
+        two_read_floor_ms=_two_read_floor_ms(B, D, X.element_size()),
         plan=_plan_fields(fused_lr.launch_plan_for(X)),
     )
     logits_old = lambda: ops.lr_logits_row_blocks(w, X)  # noqa: E731
@@ -338,36 +355,47 @@ def phase_kernels(torch, seed: int) -> dict:
 
 
 def time_two_launch(torch, seed: int, results: dict) -> None:
-    """The two-launch kernels at the above-bound trainer's shape, (64, 6M)
-    bf16: the shape their path gives them."""
+    """The two-read path at the above-bound trainer's shape, (64, 6M) bf16,
+    the shape its path gives it; then at (8, 6M), the smoke's smallest
+    batch above the bound, where each block has only 8 tiles, and at
+    (512, 6M), where X is 6.1 GB and the library calls run near the HBM
+    rate.  The two-read floor (two reads of X) is the gradient's alone:
+    the logits read X once."""
     from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.ops import fused_lr  # noqa: PLC0415
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    B, D = WIDE_B, WIDE_D
-    w, X, y, mask = _inputs(torch, gen, B, D, torch.bfloat16)
-    reps = 25
-    wb = w.to(torch.bfloat16)
-    g_ref = ops.fused_lr_grad_reference(w, X, y, mask)
-    z_ref = ops.lr_logits_reference(w, X)
-    bound_ms, bound_by = _grad_bound(B, D, X.element_size())
-    results["fused_lr_grad_two_launch"].update(
-        shape=[B, D], max_abs_err=float((ops.fused_lr_grad_two_launch(w, X, y, mask) - g_ref).abs().max()),
-        ms=time_ms(lambda: ops.fused_lr_grad_two_launch(w, X, y, mask), reps),
-        plain_ms=time_ms(lambda: ops.fused_lr_grad_reference(w, X, y, mask), reps),
-        library_ms=time_ms(_library_grad(torch, w, X, y, mask), reps),
-        bound_ms=bound_ms, bound_by=bound_by)
-    bound_ms, bound_by = _logits_bound(B, D, X.element_size())
-    results["lr_logits_row_blocks"].update(
-        shape=[B, D], max_abs_err=float((ops.lr_logits_row_blocks(w, X) - z_ref).abs().max()),
-        ms=time_ms(lambda: ops.lr_logits_row_blocks(w, X), reps),
-        plain_ms=time_ms(lambda: ops.lr_logits_reference(w, X), reps),
-        library_ms=time_ms(lambda: torch.mv(X, wb), reps),
-        bound_ms=bound_ms, bound_by=bound_by)
-    for name in ("fused_lr_grad_two_launch", "lr_logits_row_blocks"):
-        emit("kernel_timing", kernel=name, B=B, D=D, x_dtype="bfloat16", reps=reps,
-             **results[name])
-    del X, g_ref, z_ref
-    torch.cuda.empty_cache()
+    D, reps = WIDE_D, 25
+    for B in (WIDE_B, 8, 512):
+        w, X, y, mask = _inputs(torch, gen, B, D, torch.bfloat16)
+        wb = w.to(torch.bfloat16)
+        g_ref = ops.fused_lr_grad_reference(w, X, y, mask)
+        z_ref = ops.lr_logits_reference(w, X)
+        plan = _plan_fields(fused_lr.wide_plan_for(X))
+        bound_ms, bound_by = _grad_bound(B, D, X.element_size())
+        grad = dict(
+            max_abs_err=float((ops.fused_lr_grad_two_launch(w, X, y, mask) - g_ref).abs().max()),
+            ms=time_ms(lambda: ops.fused_lr_grad_two_launch(w, X, y, mask), reps),
+            plain_ms=time_ms(lambda: ops.fused_lr_grad_reference(w, X, y, mask), reps),
+            library_ms=time_ms(_library_grad(torch, w, X, y, mask), reps),
+            bound_ms=bound_ms, bound_by=bound_by, plan=plan,
+            two_read_floor_ms=_two_read_floor_ms(B, D, X.element_size()))
+        bound_ms, bound_by = _logits_bound(B, D, X.element_size())
+        logits = dict(
+            max_abs_err=float((ops.lr_logits_row_blocks(w, X) - z_ref).abs().max()),
+            ms=time_ms(lambda: ops.lr_logits_row_blocks(w, X), reps),
+            plain_ms=time_ms(lambda: ops.lr_logits_reference(w, X), reps),
+            library_ms=time_ms(lambda: torch.mv(X, wb), reps),
+            bound_ms=bound_ms, bound_by=bound_by, plan=plan)
+        for name, r in (("fused_lr_grad_two_launch", grad), ("lr_logits_row_blocks", logits)):
+            emit("kernel_timing", kernel=name, B=B, D=D, x_dtype="bfloat16", reps=reps, **r)
+            if B == WIDE_B:
+                results[name].update(shape=[B, D], **r)
+            else:
+                # measured times only: the bounds stay on the kernel_timing line
+                results[name][f"at_{B}_rows"] = {k: r[k] for k in ("ms", "library_ms")}
+        del X, g_ref, z_ref
+        torch.cuda.empty_cache()
 
 
 def _ctr_rows(rng, n: int, w_true, D: int):
@@ -390,8 +418,8 @@ def phase_trainer(torch, seed: int, *, D: int = FULL_D, B: int = FULL_B,
                   test_rows: int = FULL_TEST, phase: str = "trainer") -> dict:
     """The main path at width D: load_data -> fit -> evaluate -> save, with
     the launch counts zeroed just before fit and read just after.  At the
-    full width the slice kernels run; above their bound the two-launch
-    kernels."""
+    full width the slice kernels run; above their bound the two-read
+    path's wrappers."""
     import numpy as np  # noqa: PLC0415
 
     from distlr_tpu_torch import ops  # noqa: PLC0415
@@ -848,7 +876,8 @@ def main(argv=None) -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "worst_rel_err": t["rel_err"],
         }
-        for extra in ("library_note", "two_pass_ms", "row_blocks_ms", "plan", "shape"):
+        for extra in ("library_note", "two_pass_ms", "row_blocks_ms", "plan", "shape",
+                      "at_8_rows", "at_512_rows"):
             if extra in t:
                 entry[extra] = t[extra]
         kernels.append(entry)

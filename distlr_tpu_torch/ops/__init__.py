@@ -9,6 +9,7 @@ from distlr_tpu_torch.ops.fused_lr import (  # noqa: F401
     lr_logits,
     lr_logits_reference,
     lr_logits_row_blocks,
+    lr_wide_plan,
 )
 from distlr_tpu_torch.ops.gen_roofline import (  # noqa: F401
     roofline_const,

@@ -55,20 +55,30 @@
 //     slowest CTA has published it (PERF.md).
 //
 //   distlr_lr_logits_streaming: the same layout with nothing to wait
-//     for: two CTAs per SM, two stages each, a stage refilled as soon as
-//     its partials are written; a second launch sums each row's partials
-//     in the same fixed order.
+//     for: a plain launch, a stage refilled as soon as its partials are
+//     written; a second launch sums each row's partials in the same fixed
+//     order (and, given y and mask, writes the residuals too).  The
+//     helper warp issues the first tiles before the compute warps load
+//     w's slice, so at small B (a block with a few tiles) the two loads
+//     overlap.  No CTA waits on another, so the grid need not be resident
+//     at once: below the single pass's bound one wave of two CTAs per SM;
+//     above it whole waves of the three CTAs an SM holds (its registers
+//     allow no more), on narrower slices (ops/fused_lr.py, lr_wide_plan).
 //
-//   distlr_lr_forward / distlr_lr_backward: the two-launch path, which
-//     reads X twice.  The forward is one block per 4 rows (16-byte loads
-//     of X and w, a fixed-order block reduction), writing z and r; the
-//     backward is one block per 2048-column slice, each thread owning 8
-//     adjacent columns and walking every row.  The wrappers take it for
-//     shapes above the slice kernels' bound: w's slice plus two stages of
-//     one row's slice must fit the 227 KB of shared memory one block may
-//     use (ops/fused_lr.py, lr_launch_plan), D <= 5,045,568 for a bf16 X
-//     with bf16 products on 132 SMs.  It is the counterpart of the JAX
-//     callers' route to XLA above the TPU kernel's VMEM budget.
+//   The two-read path, for shapes above the single pass's bound: w's
+//     slice plus two stages of one row's slice must fit the 227 KB of
+//     shared memory one block may use (ops/fused_lr.py, lr_launch_plan),
+//     D <= 5,045,568 for a bf16 X with bf16 products on 132 SMs.  Three
+//     launches: the streaming forward on the multi-wave plan, the
+//     epilogue (z and r = (sigmoid(z) - y) * mask, one warp a row, in the
+//     single pass's order), then distlr_lr_backward: one block per
+//     2048-column slice, each thread owning 8 adjacent columns and
+//     walking every row.  X is read twice, w once: each column by the one
+//     CTA that owns it (a forward of one block per few rows would re-read
+//     all of w from L2 in every block, and have only a handful of blocks
+//     at small B).  It is the
+//     counterpart of the JAX callers' route to XLA above the TPU kernel's
+//     VMEM budget.
 //
 // Why not the other single-pass designs: a 16-SM cluster has 3.6 MB of
 // shared memory, under two 2 MB rows at D = 1M, so g would leave the chip
@@ -83,7 +93,7 @@
 // float32.  Sums are always float32.  Any B >= 1 and D >= 1: when D is not
 // a multiple of 8 or X is not 16-byte aligned, the producer fills the
 // stages with plain loads (zero-padded to 8 columns) instead of bulk
-// copies, and the two-launch kernels take a scalar path.
+// copies, and the backward takes a scalar path.
 //
 // Built with nvcc into a shared library with a plain C interface and
 // loaded with ctypes (distlr_tpu_torch/ops/build.py).  Each entry point
@@ -98,8 +108,6 @@
 
 namespace {
 
-constexpr int kFwdThreads = 256;
-constexpr int kRows = 4;         // rows per forward block (w reuse)
 constexpr int kBwdThreads = 256;
 constexpr int kCols = 8;         // columns per backward thread / per slice group
 constexpr int kRChunk = 2048;    // residuals staged in shared memory per pass
@@ -111,6 +119,10 @@ constexpr int kComputeThreads = kComputeWarps * 32;
 constexpr int kResolvers = 2;                             // resolver warps, round robin on tiles
 constexpr int kGradThreads = kComputeThreads + (2 + kResolvers) * 32;  // + publisher, producer
 constexpr int kLogitsThreads = kComputeThreads + 32;      // + one helper
+// Blocks of the streaming kernel an SM holds at once: registers for 3
+// (at most 75 a thread).  Its multi-wave plans count waves of what
+// distlr_lr_logits_blocks_per_sm reports (ops/fused_lr.py, wide_plan_for).
+constexpr int kLogitsCtasPerSm = 3;
 constexpr int kMaxTileRows = 4;                           // R, at most
 constexpr int kMaxStages = 16;
 constexpr int kMaxCtas = 256;                             // partials a resolver lane holds: 8
@@ -226,66 +238,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// --- the two-launch path ------------------------------------------------
-
-// z[b] = sum_d X[b, d] * w[d]; with y != nullptr also
-// r[b] = (sigmoid(z[b]) - y[b]) * mask[b].
-template <typename T, bool kRound>
-__global__ void __launch_bounds__(kFwdThreads)
-lr_forward_kernel(const T* __restrict__ X, const float* __restrict__ w,
-                  const float* __restrict__ y, const float* __restrict__ mask,
-                  float* __restrict__ z, float* __restrict__ r, int64_t B,
-                  int64_t D, bool vec) {
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  const int nrows = static_cast<int>(B - row0 < kRows ? B - row0 : kRows);
-  float acc[kRows];
-#pragma unroll
-  for (int j = 0; j < kRows; ++j) acc[j] = 0.f;
-
-  int64_t done = 0;
-  if (vec) {
-    const int64_t nvec = D / kCols;
-    for (int64_t v = threadIdx.x; v < nvec; v += kFwdThreads) {
-      float wv[kCols];
-      load8<float, kRound>(w + v * kCols, wv);
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        if (j < nrows) {
-          float xv[kCols];
-          load8<T, kRound>(X + (row0 + j) * D + v * kCols, xv);
-#pragma unroll
-          for (int k = 0; k < kCols; ++k) acc[j] = fmaf(xv[k], wv[k], acc[j]);
-        }
-      }
-    }
-    done = nvec * kCols;
-  }
-  for (int64_t d = done + threadIdx.x; d < D; d += kFwdThreads) {
-    const float wd = load1<float, kRound>(w + d);
-    for (int j = 0; j < nrows; ++j)
-      acc[j] = fmaf(load1<T, kRound>(X + (row0 + j) * D + d), wd, acc[j]);
-  }
-
-  // Block reduction in a fixed order: lanes by shuffle, warps in index order.
-  __shared__ float part[kRows][kFwdThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < kRows; ++j) {
-    const float s = warp_sum(acc[j]);
-    if (lane == 0) part[j][warp] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < nrows) {
-    const int j = threadIdx.x;
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < kFwdThreads / 32; ++i) s += part[j][i];
-    const int64_t b = row0 + j;
-    z[b] = s;
-    if (y != nullptr) r[b] = (stable_sigmoid(s) - y[b]) * mask[b];
-  }
-}
+// --- the backward of the two-read path -----------------------------------
 
 // g[d] = sum_b r[b] * X[b, d], one thread per kCols adjacent columns.
 template <typename T, bool kRound>
@@ -520,16 +473,57 @@ struct Slice {
     return ring + static_cast<size_t>(slot(t)) * a.rows * a.slice_cols;
   }
 
-  // w's slice into shared memory, zero-padded to whole groups; barriers.
-  // Every thread, before the warps take their roles.
+  // w's slice into shared memory; barriers.  Every thread, before the
+  // warps take their roles.
   __device__ void init() {
-    for (int i = threadIdx.x; i < ngroups * kCols; i += blockDim.x) {
-      const float v = i < len ? a.w[c0 + i] : 0.f;
-      if constexpr (sizeof(WT) == 2)
-        ws[i] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
-      else
-        ws[i] = v;
+    load_w(blockDim.x);
+    init_barriers();
+    __syncthreads();
+  }
+
+  // w's slice into shared memory, zero-padded to whole groups, by the
+  // `threads` threads from 0: groups of 8 with 16-byte loads, kBatch
+  // groups a thread in flight before any is stored.
+  __device__ void load_w(int threads) {
+    constexpr int kBatch = 4;
+    const bool vec = (reinterpret_cast<uintptr_t>(a.w) & 15u) == 0;
+    for (int j0 = threadIdx.x; j0 < ngroups; j0 += kBatch * threads) {
+      float v[kBatch][kCols];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int j = j0 + u * threads;
+        const float* src = a.w + c0 + static_cast<int64_t>(j) * kCols;
+        if (vec && (j + 1) * kCols <= len) {
+          load8<float, false>(src, v[u]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < kCols; ++i) v[u][i] = j * kCols + i < len ? __ldg(src + i) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int j = j0 + u * threads;
+        if (j >= ngroups) break;
+        WT* dst = ws + j * kCols;
+        if constexpr (sizeof(WT) == 2) {
+          uint32_t words[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            words[i] = static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(v[u][2 * i]))) |
+                       static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(v[u][2 * i + 1])))
+                           << 16;
+          *reinterpret_cast<uint4*>(dst) = make_uint4(words[0], words[1], words[2], words[3]);
+        } else {
+          reinterpret_cast<float4*>(dst)[0] = make_float4(v[u][0], v[u][1], v[u][2], v[u][3]);
+          reinterpret_cast<float4*>(dst)[1] = make_float4(v[u][4], v[u][5], v[u][6], v[u][7]);
+        }
+      }
     }
+  }
+
+  // The ring's barriers: thread 0 initialises them; the caller then
+  // synchronises the block.
+  __device__ void init_barriers() {
     if (threadIdx.x == 0) {
       for (int s = 0; s < a.stages; ++s) {
         mbar_init(&sh.full[s], 1);
@@ -539,7 +533,6 @@ struct Slice {
       }
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
-    __syncthreads();
   }
 
   // Start bringing tile t into its stage.  One warp: lane 0 issues one
@@ -789,12 +782,13 @@ lr_grad_single_pass_kernel(const SliceArgs args) {
 // The forward alone: compute warps stream the ring; the helper warp
 // writes each tile's partials and refills the stage at once.
 template <typename XT, typename WT>
-__global__ void __launch_bounds__(kLogitsThreads, 1)
+__global__ void __launch_bounds__(kLogitsThreads, kLogitsCtasPerSm)
 lr_logits_streaming_kernel(const SliceArgs args) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) SliceShared sh;
   Slice<XT, WT> s(args, smem, sh);
-  s.init();
+  s.init_barriers();
+  __syncthreads();
   const int T = s.ntiles;
   const int S = args.stages;
 
@@ -808,37 +802,35 @@ lr_logits_streaming_kernel(const SliceArgs args) {
     }
     return;
   }
+  // w's slice comes in while the first tiles are on their way (at small
+  // B a block has few tiles to hide it behind); the compute warps alone
+  // then agree that it has landed
+  s.load_w(kComputeThreads);
+  asm volatile("bar.sync 1, %0;" ::"n"(kComputeThreads) : "memory");
   for (int t = 0; t < T; ++t) {
     mbar_wait(&sh.full[s.slot(t)], s.parity(t));
     s.forward(t);
   }
 }
 
-// z[b] = the sum of row b's partials, one warp a row, in row_sum's order.
+// z[b] = the sum of row b's partials, one warp a row, in row_sum's order;
+// with y non-null also the residual r[b] = (sigmoid(z[b]) - y[b]) * mask[b],
+// as the single pass's resolvers compute it.
 __global__ void __launch_bounds__(256)
-lr_rows_total_kernel(const float* __restrict__ partials, float* __restrict__ z, int64_t B,
-                     int ctas) {
+lr_rows_total_kernel(const float* __restrict__ partials, const float* __restrict__ y,
+                     const float* __restrict__ mask, float* __restrict__ z,
+                     float* __restrict__ r, int64_t B, int ctas) {
   const int64_t b = static_cast<int64_t>(blockIdx.x) * 8 + (threadIdx.x >> 5);
   if (b >= B) return;
   const float v = row_sum(partials + b * ctas, ctas);
-  if ((threadIdx.x & 31) == 0) z[b] = v;
+  if ((threadIdx.x & 31) == 0) {
+    z[b] = v;
+    if (y != nullptr) r[b] = (stable_sigmoid(v) - y[b]) * mask[b];
+  }
 }
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
-template <typename T>
-void launch_forward(const void* X, const float* w, const float* y,
-                    const float* mask, float* z, float* r, int64_t B,
-                    int64_t D, bool round_bf16, cudaStream_t stream) {
-  const bool vec = D % kCols == 0 && aligned16(X) && aligned16(w);
-  const dim3 grid(static_cast<unsigned>((B + kRows - 1) / kRows));
-  const T* x = static_cast<const T*>(X);
-  if (round_bf16)
-    lr_forward_kernel<T, true><<<grid, kFwdThreads, 0, stream>>>(x, w, y, mask, z, r, B, D, vec);
-  else
-    lr_forward_kernel<T, false><<<grid, kFwdThreads, 0, stream>>>(x, w, y, mask, z, r, B, D, vec);
 }
 
 template <typename T>
@@ -880,6 +872,16 @@ const void* single_pass_kernel(int groups_per_thread) {
   return nullptr;
 }
 
+// The streaming kernel's instance for an X dtype code and compute type.
+const void* streaming_kernel(int x_dtype, bool round_bf16) {
+  if (x_dtype == 1)
+    return round_bf16
+               ? reinterpret_cast<const void*>(&lr_logits_streaming_kernel<uint16_t, uint16_t>)
+               : reinterpret_cast<const void*>(&lr_logits_streaming_kernel<uint16_t, float>);
+  return round_bf16 ? reinterpret_cast<const void*>(&lr_logits_streaming_kernel<float, uint16_t>)
+                    : reinterpret_cast<const void*>(&lr_logits_streaming_kernel<float, float>);
+}
+
 SliceArgs slice_args(const void* X, const float* w, const float* y, const float* mask,
                      float* g, float* z, float* partials, long long B, long long D,
                      int slice_cols, int rows, int stages) {
@@ -902,18 +904,6 @@ bool plan_ok(int ctas, int slice_cols, int rows, int stages, long long D) {
 }  // namespace
 
 extern "C" {
-
-// z = X w (B,) f32; with y and mask non-null also r = (sigmoid(z) - y) * mask.
-int distlr_lr_forward(const void* X, int x_dtype, const float* w,
-                      const float* y, const float* mask, float* z, float* r,
-                      long long B, long long D, int round_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 1)
-    launch_forward<uint16_t>(X, w, y, mask, z, r, B, D, round_bf16 != 0, s);
-  else
-    launch_forward<float>(X, w, y, mask, z, r, B, D, round_bf16 != 0, s);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // g = X^T r (D,) f32.
 int distlr_lr_backward(const void* X, int x_dtype, const float* r, float* g,
@@ -955,29 +945,40 @@ int distlr_lr_grad_single_pass(const void* X, int x_dtype, const float* w, const
 }
 
 // z = X w (B,) f32, streaming X once through the same slice layout, then
-// a second launch sums each row's partials in the single pass's order.
-int distlr_lr_logits_streaming(const void* X, int x_dtype, const float* w, float* z,
-                               float* partials, long long B, long long D, int round_bf16,
-                               int ctas, int slice_cols, int rows, int stages, int smem_bytes,
+// a second launch sums each row's partials in the single pass's order;
+// with y and mask non-null it also writes r = (sigmoid(z) - y) * mask.
+// partials holds B * ctas words.
+int distlr_lr_logits_streaming(const void* X, int x_dtype, const float* w, const float* y,
+                               const float* mask, float* z, float* r, float* partials,
+                               long long B, long long D, int round_bf16, int ctas,
+                               int slice_cols, int rows, int stages, int smem_bytes,
                                void* stream) {
-  if (!plan_ok(ctas, slice_cols, rows, stages, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!plan_ok(ctas, slice_cols, rows, stages, D) || (y == nullptr) != (r == nullptr) ||
+      (y == nullptr) != (mask == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const SliceArgs a = slice_args(X, w, nullptr, nullptr, nullptr, z, partials, B, D,
                                  slice_cols, rows, stages);
-  const void* kernel;
-  if (x_dtype == 1)
-    kernel = round_bf16
-                 ? reinterpret_cast<const void*>(&lr_logits_streaming_kernel<uint16_t, uint16_t>)
-                 : reinterpret_cast<const void*>(&lr_logits_streaming_kernel<uint16_t, float>);
-  else
-    kernel = round_bf16
-                 ? reinterpret_cast<const void*>(&lr_logits_streaming_kernel<float, uint16_t>)
-                 : reinterpret_cast<const void*>(&lr_logits_streaming_kernel<float, float>);
+  const void* kernel = streaming_kernel(x_dtype, round_bf16 != 0);
   const cudaError_t err = launch_slice(kernel, false, ctas, kLogitsThreads, smem_bytes, a, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((B + 7) / 8));
-  lr_rows_total_kernel<<<grid, 256, 0, st>>>(partials, z, B, ctas);
+  lr_rows_total_kernel<<<grid, 256, 0, st>>>(partials, y, mask, z, r, B, ctas);
   return static_cast<int>(cudaGetLastError());
+}
+
+// *blocks = the streaming kernels' blocks an SM holds at once with
+// smem_bytes of dynamic shared memory (the occupancy calculator's figure;
+// with 0, what registers and threads allow), which the multi-wave plans
+// count waves of.
+int distlr_lr_logits_blocks_per_sm(int x_dtype, int round_bf16, int smem_bytes, int* blocks) {
+  const void* kernel = streaming_kernel(x_dtype, round_bf16 != 0);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kLogitsThreads,
+                                                        static_cast<size_t>(smem_bytes));
+  return static_cast<int>(err);
 }
 
 #ifdef DISTLR_SLICE_TRACE

@@ -12,18 +12,20 @@ Two routes, chosen by shape (:func:`lr_launch_plan`):
   a column slice of D and reads X once through a shared-memory ring;
   it fits while w's slice plus two stages of one row's slice fit the
   227 KB of shared memory a block may use (:func:`fused_lr_supported`);
-* above that, the two-launch path (``fused_lr_grad_two_launch``,
-  ``lr_logits_row_blocks``): a forward launch of one block per 4 rows and
-  a backward launch of one block per 2048 columns, reading X twice.  It
-  is a dispatch on shape, as the JAX callers route to XLA above the TPU
-  kernel's VMEM budget, never a fallback on failure.
+* above that, the two-read path (``fused_lr_grad_two_launch``,
+  ``lr_logits_row_blocks``): the streaming forward on narrower slices in
+  several waves (:func:`lr_wide_plan`), an epilogue that sums each row's
+  partials into z and the residual, and a backward launch of one block
+  per 2048 columns, reading X twice.  It is a dispatch on shape, as the
+  JAX callers route to XLA above the TPU kernel's VMEM budget, never a
+  fallback on failure.
 
 A wrapper takes its plain version only when it is given CPU tensors.  A
 CUDA tensor launches the kernel or raises: a missing compiler, a failed
 build or a refused launch is an error, never a quiet fallback.  Each
 wrapper counts the launches of its own kernel in a plain integer
 attribute (``fused_lr_grad.launches`` and so on); a call that goes to the
-two-launch path counts there.
+two-read path counts there.
 """
 
 from __future__ import annotations
@@ -64,6 +66,14 @@ MAX_SINGLE_PASS_CTAS = 256
 TILE_BYTES = 30_720
 #: stages of the streaming logits kernel, which holds nothing while waiting
 LOGITS_STAGES = 2
+#: blocks of the streaming forward an SM holds at once (its registers allow
+#: 3: ``kLogitsCtasPerSm`` in the source), so the two-read path's plans cut
+#: whole waves of this many blocks per SM; on the card the plan takes the
+#: runtime's own figure (:func:`streaming_blocks_per_sm`)
+WIDE_CTAS_PER_SM = 3
+#: waves past the fewest that fit among which the two-read path's plan is
+#: chosen
+WIDE_EXTRA_WAVES = 4
 KERNELS = ("grad", "logits")
 
 
@@ -71,13 +81,16 @@ KERNELS = ("grad", "logits")
 class LaunchPlan:
     """How a slice kernel cuts a (B, D) problem, or that it cannot.
 
-    ``ctas`` blocks (``ctas_per_sm`` on each SM) each own ``slice_cols``
-    columns (a multiple of 8; the last block owns the rest), walking X in
-    tiles of ``rows`` rows through ``stages`` shared-memory stages;
-    ``smem_bytes`` is what one block uses, static part included.
-    ``single_pass`` is False above the shared-memory bound: the two-launch
-    kernels take the shape then, and ``rows``, ``stages`` and
-    ``smem_bytes`` are 0."""
+    ``ctas`` blocks (``ctas_per_sm`` on each SM, in ``waves`` waves) each
+    own ``slice_cols`` columns (a multiple of 8; the last block owns the
+    rest), walking X in tiles of ``rows`` rows through ``stages``
+    shared-memory stages; ``smem_bytes`` is what one block uses, static
+    part included.  ``single_pass`` says whether the one-read route
+    (single pass, streaming logits) takes the shape: an
+    :func:`lr_launch_plan` plan above the shared-memory bound has it False,
+    and so has every :func:`lr_wide_plan` plan, which feeds the two-read
+    path.  A plan that does not fit has ``rows``, ``stages`` and
+    ``smem_bytes`` 0."""
 
     kernel: str
     batch: int
@@ -90,11 +103,12 @@ class LaunchPlan:
     groups_per_thread: int
     smem_bytes: int
     single_pass: bool
+    waves: int = 1
 
     @property
     def dynamic_smem_bytes(self) -> int:
         """The ring and w's slice: the launch's dynamic shared memory."""
-        return self.smem_bytes - SMEM_STATIC if self.single_pass else 0
+        return self.smem_bytes - SMEM_STATIC if self.smem_bytes else 0
 
     def slices(self) -> list[tuple[int, int]]:
         """Each block's columns as ``[start, stop)``."""
@@ -111,17 +125,22 @@ def _element_bytes(x_dtype) -> int:
     return 2 if x_dtype == torch.bfloat16 else 4
 
 
-def _slice_plan(kernel, batch, dim, x_bytes, w_bytes, num_sms, per_sm,
-                rows=None, stages=None):
-    """The plan with ``per_sm`` blocks on each SM (and the given rows and
-    stages, where given), or None if it does not fit."""
-    slice_cols = -(-(-(-dim // (num_sms * per_sm))) // GROUP) * GROUP
+def _budget(per_sm: int) -> int:
+    """Shared memory one of ``per_sm`` blocks on an SM may use."""
+    return min(SMEM_LIMIT, SMEM_PER_SM // per_sm - SMEM_PER_BLOCK_RESERVED)
+
+
+def _slice_plan(kernel, batch, dim, x_bytes, w_bytes, per_sm, target_ctas,
+                rows=None, stages=None, waves=1):
+    """The plan of about ``target_ctas`` blocks, ``per_sm`` on each SM (and
+    the given rows and stages, where given), or None if it does not fit."""
+    slice_cols = -(-(-(-dim // target_ctas)) // GROUP) * GROUP
     ctas = -(-dim // slice_cols)
     groups_per_thread = -(-(slice_cols // GROUP) // COMPUTE_THREADS)
     if groups_per_thread > MAX_GROUPS_PER_THREAD or (
             kernel == "grad" and ctas > MAX_SINGLE_PASS_CTAS):
         return None
-    budget = min(SMEM_LIMIT, SMEM_PER_SM // per_sm - SMEM_PER_BLOCK_RESERVED)
+    budget = _budget(per_sm)
     fixed = slice_cols * w_bytes + SMEM_STATIC
     row = slice_cols * x_bytes
     if rows is None:
@@ -137,7 +156,16 @@ def _slice_plan(kernel, batch, dim, x_bytes, w_bytes, num_sms, per_sm,
     if not (1 <= rows <= MAX_TILE_ROWS and 2 <= stages <= MAX_STAGES) or smem > budget:
         return None
     return LaunchPlan(kernel, batch, dim, ctas, per_sm, slice_cols, rows, stages,
-                      groups_per_thread, smem, True)
+                      groups_per_thread, smem, True, waves)
+
+
+def _check_plan_args(batch, dim, x_dtype, compute_dtype):
+    """(x_bytes, w_bytes) of a plan's arguments, or raise on bad ones."""
+    if batch < 1 or dim < 1:
+        raise ValueError(f"need batch >= 1 and dim >= 1, got ({batch}, {dim})")
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype!r}")
+    return _element_bytes(x_dtype), 2 if compute_dtype == "bfloat16" else 4
 
 
 def lr_launch_plan(batch: int, dim: int, *, x_dtype=torch.bfloat16,
@@ -155,34 +183,111 @@ def lr_launch_plan(batch: int, dim: int, *, x_dtype=torch.bfloat16,
     while the grid agrees on their residuals; it needs at least 2 stages
     of one row.  The streaming forward takes 2 stages, with 2 blocks per
     SM where half an SM's shared memory holds them.  Both take the
-    two-launch kernels above the single pass's bound, so one bound
+    two-read path above the single pass's bound, so one bound
     (:func:`fused_lr_supported`) covers them.
 
     ``ctas_per_sm``, ``rows`` and ``stages`` override the choice, for
     measuring other plans (``benchmarks/slice_kernels.py``); a plan that
     does not fit then comes back with ``single_pass`` False."""
-    if batch < 1 or dim < 1:
-        raise ValueError(f"need batch >= 1 and dim >= 1, got ({batch}, {dim})")
-    if compute_dtype not in COMPUTE_DTYPES:
-        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype!r}")
+    x_bytes, w_bytes = _check_plan_args(batch, dim, x_dtype, compute_dtype)
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
-    x_bytes = _element_bytes(x_dtype)
-    w_bytes = 2 if compute_dtype == "bfloat16" else 4
-    grad = _slice_plan("grad", batch, dim, x_bytes, w_bytes, num_sms, 1)
+    grad = _slice_plan("grad", batch, dim, x_bytes, w_bytes, 1, num_sms)
     if grad is not None and (ctas_per_sm, rows, stages) != (None, None, None):
-        plan = _slice_plan(kernel, batch, dim, x_bytes, w_bytes, num_sms, ctas_per_sm or 1,
+        per_sm = ctas_per_sm or 1
+        plan = _slice_plan(kernel, batch, dim, x_bytes, w_bytes, per_sm, num_sms * per_sm,
                            rows, stages)
     elif kernel == "grad" or grad is None:
         plan = grad
     else:
-        plan = (_slice_plan("logits", batch, dim, x_bytes, w_bytes, num_sms, 2)
-                or _slice_plan("logits", batch, dim, x_bytes, w_bytes, num_sms, 1))
+        plan = (_slice_plan("logits", batch, dim, x_bytes, w_bytes, 2, num_sms * 2)
+                or _slice_plan("logits", batch, dim, x_bytes, w_bytes, 1, num_sms))
     if plan is not None:
         return plan
-    slice_cols = -(-(-(-dim // num_sms)) // GROUP) * GROUP
-    return LaunchPlan(kernel, batch, dim, -(-dim // slice_cols), 1, slice_cols, 0, 0,
-                      -(-(slice_cols // GROUP) // COMPUTE_THREADS), 0, False)
+    return _no_fit(kernel, batch, dim, 1, num_sms, 1)
+
+
+def _no_fit(kernel, batch, dim, per_sm, target_ctas, waves) -> LaunchPlan:
+    """A plan that does not fit: its cut of D, with no rows, stages or
+    shared memory."""
+    slice_cols = -(-(-(-dim // target_ctas)) // GROUP) * GROUP
+    return LaunchPlan(kernel, batch, dim, -(-dim // slice_cols), per_sm, slice_cols, 0, 0,
+                      -(-(slice_cols // GROUP) // COMPUTE_THREADS), 0, False, waves)
+
+
+@functools.lru_cache(maxsize=256)  # the wrappers ask on every call
+def lr_wide_plan(batch: int, dim: int, *, x_dtype=torch.bfloat16,
+                 compute_dtype: str = "bfloat16", num_sms: int = H100_SMS,
+                 ctas_per_sm: int | None = None, waves: int | None = None) -> LaunchPlan:
+    """The streaming forward's plan on the two-read path, for any (batch,
+    dim): ``waves * ctas_per_sm * num_sms`` blocks of narrower slices.
+
+    The streaming forward waits on no other block, so its grid need not be
+    resident at once: where w's slice plus two stages of one wave's slices
+    do not fit an SM's shared memory (above :func:`fused_lr_supported`'s
+    bound), more blocks of fewer columns run in several waves.  Each block
+    keeps its slice of w in shared memory beside a ring of 2 tiles of
+    ``rows`` <= 4 rows, about 30 KB each.  A wave is the ``ctas_per_sm``
+    blocks (default ``WIDE_CTAS_PER_SM``; :func:`wide_plan_for` asks the
+    runtime) that an SM holds at once, so the plan's waves are the card's:
+    no ragged last wave (:func:`whole_waves`).  ``waves`` defaults to the
+    count, among the fewest that fit and the next ``WIDE_EXTRA_WAVES``,
+    whose blocks fill whole waves and hold the most bytes of X in flight
+    (ring bytes; fewer waves on a tie): narrower slices leave more of a
+    block's shared memory to the ring, up to 4-row tiles.  A dim under one
+    wave of 8-column slices takes fewer blocks, in one wave.
+
+    At (64, 6M) bf16 on 132 SMs: 3 waves of 3 blocks per SM, 1,187 blocks
+    of 5,056 columns, 3-row tiles, about 72 KB of shared memory a block.
+
+    ``waves``, and a ``ctas_per_sm`` other than the card's, override the
+    choice, for measuring other plans (``benchmarks/slice_kernels.py
+    --wide``); a plan that does not fit then comes back with ``rows``,
+    ``stages`` and ``smem_bytes`` 0.  ``single_pass`` is always False:
+    this plan is never given to the cooperative single pass."""
+    x_bytes, w_bytes = _check_plan_args(batch, dim, x_dtype, compute_dtype)
+    per_sm = WIDE_CTAS_PER_SM if ctas_per_sm is None else ctas_per_sm
+    if per_sm < 1 or (waves is not None and waves < 1):
+        raise ValueError(f"need ctas_per_sm >= 1 and waves >= 1, got {per_sm}, {waves}")
+    wave = per_sm * num_sms
+    if waves is None:
+        # from the fewest waves whose slices fit with 1-row tiles
+        most_cols = ((_budget(per_sm) - SMEM_STATIC) // (w_bytes + LOGITS_STAGES * x_bytes)
+                     // GROUP * GROUP)
+        if most_cols < GROUP:
+            raise ValueError(f"{per_sm} blocks per SM leave too little shared memory")
+        first = max(1, -(-dim // (wave * most_cols)))
+        candidates = range(first, first + 1 + WIDE_EXTRA_WAVES)
+    else:
+        candidates = [waves]
+    plans = [p for n in candidates
+             if (p := _slice_plan("logits", batch, dim, x_bytes, w_bytes, per_sm, n * wave,
+                                  waves=n)) is not None]
+    if waves is None:
+        # the first wave count with a partial wave ends the list: more
+        # waves would only add blocks with no columns
+        whole = [p for p in plans if whole_waves(p, num_sms)]
+        whole = whole[:next((i + 1 for i, p in enumerate(whole) if p.ctas < wave), None)]
+        plans = [max(whole, key=lambda p: (_ring_bytes(p, x_bytes), -p.waves))] if whole \
+            else plans[:1]
+    if not plans:
+        return _no_fit("logits", batch, dim, per_sm, waves * wave, waves)
+    return dataclasses.replace(plans[0], single_pass=False)
+
+
+def whole_waves(plan: LaunchPlan, num_sms: int) -> bool:
+    """Whether ``plan``'s blocks fill its waves: a single partial wave, or
+    ``waves`` full ones but for fewer blocks than one per 8 SMs (slices
+    rounded up to 8 columns can leave the last few blocks no columns to
+    own, so they are not launched)."""
+    wave = plan.ctas_per_sm * num_sms
+    if plan.waves == 1:
+        return plan.ctas <= wave
+    return 0 <= plan.waves * wave - plan.ctas < max(1, num_sms // 8)
+
+
+def _ring_bytes(plan: LaunchPlan, x_bytes: int) -> int:
+    return plan.stages * plan.rows * plan.slice_cols * x_bytes
 
 
 def fused_lr_supported(batch: int, dim: int, *, x_dtype=torch.bfloat16,
@@ -194,7 +299,7 @@ def fused_lr_supported(batch: int, dim: int, *, x_dtype=torch.bfloat16,
     kernel's VMEM budget.  On 132 SMs the bound is D <= 5,045,568 for a
     bf16 X with bf16 products, 3,784,704 with f32 products, and 3,027,552
     / 2,522,784 for an f32 X.  Above it :func:`fused_lr_grad` and
-    :func:`lr_logits` take the two-launch kernels; any ``B >= 1`` and
+    :func:`lr_logits` take the two-read path; any ``B >= 1`` and
     ``D >= 1`` is taken either way."""
     return lr_launch_plan(batch, dim, x_dtype=x_dtype, compute_dtype=compute_dtype,
                           num_sms=num_sms).single_pass
@@ -258,15 +363,16 @@ def _lib() -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a ``fused_lr_grad`` library."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.distlr_lr_forward.argtypes = [p, i, p, p, p, p, p, ll, ll, i, p]
-    lib.distlr_lr_forward.restype = i
     lib.distlr_lr_backward.argtypes = [p, i, p, p, ll, ll, i, p]
     lib.distlr_lr_backward.restype = i
     lib.distlr_lr_grad_single_pass.argtypes = [p, i, p, p, p, p, p, p, ll, ll, i,
                                                i, i, i, i, i, i, p]
     lib.distlr_lr_grad_single_pass.restype = i
-    lib.distlr_lr_logits_streaming.argtypes = [p, i, p, p, p, ll, ll, i, i, i, i, i, i, p]
+    lib.distlr_lr_logits_streaming.argtypes = [p, i, p, p, p, p, p, p, ll, ll, i,
+                                               i, i, i, i, i, p]
     lib.distlr_lr_logits_streaming.restype = i
+    lib.distlr_lr_logits_blocks_per_sm.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.distlr_lr_logits_blocks_per_sm.restype = i
     lib.distlr_cuda_error_string.argtypes = [i]
     lib.distlr_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -276,28 +382,6 @@ def _raise_on(lib, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.distlr_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
-
-
-def _launch_forward(w, X, y, mask, compute_dtype):
-    """Launch the forward kernel; returns ``(z, r)`` (``r`` None without y)."""
-    lib = _lib()
-    B, D = X.shape
-    w = w.to(torch.float32).contiguous()
-    z = torch.empty(B, dtype=torch.float32, device=X.device)
-    r = None
-    if y is not None:
-        y = y.to(torch.float32).contiguous()
-        mask = mask.to(torch.float32).contiguous()
-        r = torch.empty(B, dtype=torch.float32, device=X.device)
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = lib.distlr_lr_forward(
-        X.data_ptr(), _X_DTYPE_CODES[X.dtype], w.data_ptr(),
-        None if y is None else y.data_ptr(),
-        None if y is None else mask.data_ptr(),
-        z.data_ptr(), None if r is None else r.data_ptr(),
-        B, D, int(compute_dtype == "bfloat16"), stream)
-    _raise_on(lib, rc, "lr_forward")
-    return z, r
 
 
 @functools.cache
@@ -312,8 +396,43 @@ def launch_plan_for(X, compute_dtype: str = "bfloat16", kernel: str = "grad") ->
                           num_sms=_num_sms(X.device.index or 0), kernel=kernel)
 
 
+def streaming_blocks_per_sm(lib, x_dtype, compute_dtype: str, smem_bytes: int = 0) -> int:
+    """Blocks of the streaming forward (its instance for ``x_dtype`` and
+    ``compute_dtype``) that an SM of the current card holds at once with
+    ``smem_bytes`` of dynamic shared memory, as the runtime's occupancy
+    calculator reports it; with 0, what its registers and threads allow."""
+    blocks = ctypes.c_int(0)
+    rc = lib.distlr_lr_logits_blocks_per_sm(_X_DTYPE_CODES[x_dtype],
+                                            int(compute_dtype == "bfloat16"), smem_bytes,
+                                            ctypes.byref(blocks))
+    if rc != 0:
+        msg = lib.distlr_cuda_error_string(rc).decode()
+        raise RuntimeError(f"lr_logits_streaming occupancy query failed: CUDA error {rc} ({msg})")
+    return blocks.value
+
+
+@functools.cache
+def _wide_ctas_per_sm(index: int, x_dtype, compute_dtype: str) -> int:
+    with torch.cuda.device(index):
+        return streaming_blocks_per_sm(_lib(), x_dtype, compute_dtype)
+
+
+def wide_plan_for(X, compute_dtype: str = "bfloat16") -> LaunchPlan:
+    """:func:`lr_wide_plan` for this X on its card, in waves of the blocks
+    the runtime says an SM holds."""
+    B, D = X.shape
+    index = X.device.index or 0
+    return lr_wide_plan(B, D, x_dtype=X.dtype, compute_dtype=compute_dtype,
+                        num_sms=_num_sms(index),
+                        ctas_per_sm=_wide_ctas_per_sm(index, X.dtype, compute_dtype))
+
+
 def _plan_args(plan: LaunchPlan):
     return plan.ctas, plan.slice_cols, plan.rows, plan.stages
+
+
+def _stream(X) -> int:
+    return torch.cuda.current_stream(X.device).cuda_stream
 
 
 def run_single_pass(lib, plan: LaunchPlan, w, X, y, mask, compute_dtype: str,
@@ -321,6 +440,8 @@ def run_single_pass(lib, plan: LaunchPlan, w, X, y, mask, compute_dtype: str,
     """One launch of the single-pass kernel of ``lib`` with ``plan``;
     ``(g, z)`` (``z`` None without ``with_logits``).  Counts nothing:
     :func:`fused_lr_grad` is the counted entry point."""
+    if plan.kernel != "grad" or not plan.single_pass:
+        raise ValueError(f"not a plan of the single pass: {plan}")
     B, D = X.shape
     w = w.to(torch.float32).contiguous()
     y = y.to(torch.float32).contiguous()
@@ -335,25 +456,50 @@ def run_single_pass(lib, plan: LaunchPlan, w, X, y, mask, compute_dtype: str,
         mask.data_ptr(), g.data_ptr(), None if z is None else z.data_ptr(),
         partials.data_ptr(), B, D,
         int(compute_dtype == "bfloat16"), *_plan_args(plan), plan.groups_per_thread,
-        plan.dynamic_smem_bytes, torch.cuda.current_stream(X.device).cuda_stream)
+        plan.dynamic_smem_bytes, _stream(X))
     _raise_on(lib, rc, "lr_grad_single_pass")
     return g, z
 
 
-def run_streaming(lib, plan: LaunchPlan, w, X, compute_dtype: str):
-    """The streaming logits kernel of ``lib`` with ``plan`` (and its
-    fixed-order second launch); (B,) f32.  Counts nothing."""
+def run_streaming(lib, plan: LaunchPlan, w, X, compute_dtype: str, y=None, mask=None):
+    """The streaming forward of ``lib`` with ``plan`` (any fitting
+    ``"logits"`` plan: :func:`lr_launch_plan`'s or :func:`lr_wide_plan`'s),
+    then the fixed-order epilogue; (B,) f32 z, or ``(z, r)`` given y and
+    mask, with the residuals ``r = (σ(z) − y)·mask``.  Counts nothing."""
+    if plan.kernel != "logits" or not plan.smem_bytes:
+        raise ValueError(f"not a fitting plan of the streaming forward: {plan}")
     B, D = X.shape
     w = w.to(torch.float32).contiguous()
     z = torch.empty(B, dtype=torch.float32, device=X.device)
+    r = None
+    if y is not None:
+        y = y.to(torch.float32).contiguous()
+        mask = mask.to(torch.float32).contiguous()
+        r = torch.empty(B, dtype=torch.float32, device=X.device)
+    # per call: B * ctas words, 9.7 MB at (2048, 6M) on the wide plan
     partials = torch.empty(B * plan.ctas, dtype=torch.float32, device=X.device)
     rc = lib.distlr_lr_logits_streaming(
-        X.data_ptr(), _X_DTYPE_CODES[X.dtype], w.data_ptr(), z.data_ptr(),
-        partials.data_ptr(), B, D,
+        X.data_ptr(), _X_DTYPE_CODES[X.dtype], w.data_ptr(),
+        None if y is None else y.data_ptr(), None if y is None else mask.data_ptr(),
+        z.data_ptr(), None if r is None else r.data_ptr(), partials.data_ptr(), B, D,
         int(compute_dtype == "bfloat16"), *_plan_args(plan), plan.dynamic_smem_bytes,
-        torch.cuda.current_stream(X.device).cuda_stream)
+        _stream(X))
     _raise_on(lib, rc, "lr_logits_streaming")
-    return z
+    return z if r is None else (z, r)
+
+
+def run_two_read(lib, plan: LaunchPlan, w, X, y, mask, compute_dtype: str):
+    """The two-read gradient of ``lib``: the streaming forward with
+    ``plan`` and the residual epilogue, then the backward column sums;
+    ``(g, z)``.  Counts nothing."""
+    z, r = run_streaming(lib, plan, w, X, compute_dtype, y, mask)
+    B, D = X.shape
+    g = torch.empty(D, dtype=torch.float32, device=X.device)
+    rc = lib.distlr_lr_backward(X.data_ptr(), _X_DTYPE_CODES[X.dtype], r.data_ptr(),
+                                g.data_ptr(), B, D, int(compute_dtype == "bfloat16"),
+                                _stream(X))
+    _raise_on(lib, rc, "lr_backward")
+    return g, z
 
 
 def fused_lr_grad(w, X, y, mask, *, compute_dtype: str = "bfloat16",
@@ -392,8 +538,11 @@ fused_lr_grad.launches = 0
 
 def fused_lr_grad_two_launch(w, X, y, mask, *, compute_dtype: str = "bfloat16",
                              with_logits: bool = False):
-    """:func:`fused_lr_grad` through the two-launch kernels (forward row
-    dots and residual, then backward column sums), which read X twice.
+    """:func:`fused_lr_grad` through the two-read path: three launches,
+    the streaming forward on :func:`lr_wide_plan`'s multi-wave plan, the
+    epilogue that sums each row's partials into z and the residual, then
+    the backward column sums.  X is read twice.  ``with_logits`` returns
+    the epilogue's z, the same bits as :func:`lr_logits_row_blocks`.
     :func:`fused_lr_grad` routes here above the single pass's shape bound;
     called directly, it takes any shape (the yardstick of the single pass)."""
     _check_inputs(w, X, compute_dtype, y, mask)
@@ -401,15 +550,8 @@ def fused_lr_grad_two_launch(w, X, y, mask, *, compute_dtype: str = "bfloat16",
         g, z = _grad_reference(w, X, y, mask, compute_dtype)
         return (g, z) if with_logits else g
     with torch.cuda.device(X.device):
-        z, r = _launch_forward(w, X, y, mask, compute_dtype)
-        B, D = X.shape
-        g = torch.empty(D, dtype=torch.float32, device=X.device)
-        lib = _lib()
-        rc = lib.distlr_lr_backward(
-            X.data_ptr(), _X_DTYPE_CODES[X.dtype], r.data_ptr(), g.data_ptr(),
-            B, D, int(compute_dtype == "bfloat16"),
-            torch.cuda.current_stream(X.device).cuda_stream)
-        _raise_on(lib, rc, "lr_backward")
+        g, z = run_two_read(_lib(), wide_plan_for(X, compute_dtype), w, X, y, mask,
+                            compute_dtype)
     fused_lr_grad_two_launch.launches += 1
     return (g, z) if with_logits else g
 
@@ -439,14 +581,16 @@ lr_logits.launches = 0
 
 
 def lr_logits_row_blocks(w, X, *, compute_dtype: str = "bfloat16"):
-    """:func:`lr_logits` through the two-launch path's forward kernel (one
-    block per 4 rows, w re-read from L2 for every block).  :func:`lr_logits`
-    routes here above the slice kernels' shape bound."""
+    """:func:`lr_logits` through the two-read path's forward: the streaming
+    kernel on :func:`lr_wide_plan`'s multi-wave plan, then the fixed-order
+    sum of each row's partials (two launches, one read of X, each column
+    of w read once).  :func:`lr_logits` routes here above the slice
+    kernels' shape bound."""
     _check_inputs(w, X, compute_dtype)
     if X.device.type == "cpu":
         return lr_logits_reference(w, X, compute_dtype=compute_dtype)
     with torch.cuda.device(X.device):
-        z, _ = _launch_forward(w, X, None, None, compute_dtype)
+        z = run_streaming(_lib(), wide_plan_for(X, compute_dtype), w, X, compute_dtype)
     lr_logits_row_blocks.launches += 1
     return z
 

@@ -28,6 +28,7 @@ def cuda():
 
 
 def _inputs(cuda, B, D, x_dtype, seed=0):
+    """Random inputs with the last B // 5 rows masked (every row when B < 5)."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
     X = torch.randn(B, D, device=cuda, generator=gen).to(x_dtype)
     w = torch.randn(D, device=cuda, generator=gen) / D ** 0.5
@@ -35,6 +36,14 @@ def _inputs(cuda, B, D, x_dtype, seed=0):
     mask = torch.ones(B, device=cuda)
     mask[-(B // 5):] = 0
     return w, X, y, mask
+
+
+def _counts():
+    return {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
 
 
 @pytest.mark.parametrize("B,D", [(64, 256), (100, 1000), (5, 13), (512, 4096)])
@@ -57,10 +66,6 @@ def test_kernels_match_plain(cuda, B, D, x_dtype, compute_dtype):
 def test_kernel_is_deterministic(cuda):
     w, X, y, mask = _inputs(cuda, 300, 5000, torch.bfloat16)
     assert torch.equal(ops.fused_lr_grad(w, X, y, mask), ops.fused_lr_grad(w, X, y, mask))
-
-
-def _rel(a, b):
-    return float((a - b).abs().max() / b.abs().max())
 
 
 # B not a multiple of R (2 or 4), D not a multiple of 8 (no bulk copies),
@@ -108,6 +113,100 @@ def test_above_the_bound_takes_the_two_launch_path(cuda):
     assert after["lr_logits_row_blocks"] == before["lr_logits_row_blocks"] + 1
     assert _rel(g, ops.fused_lr_grad_reference(w, X, y, mask)) <= 1e-3
     assert _rel(z, ops.lr_logits_reference(w, X)) <= 1e-3
+
+
+# above the single pass's bound on 132 SMs: one column past the bf16 bound
+# at one row; the wide trainer's shapes; a D that is not a multiple of 8;
+# an f32 X past both of its bounds (3,027,552 and 2,522,784)
+WIDE_CASES = [
+    (1, 5_045_569, torch.bfloat16, "bfloat16"),
+    (8, 6_000_000, torch.bfloat16, "bfloat16"),
+    (8, 6_000_000, torch.bfloat16, "float32"),
+    (64, 6_000_000, torch.bfloat16, "bfloat16"),
+    (7, 6_000_003, torch.bfloat16, "bfloat16"),
+    (33, 3_100_001, torch.float32, "bfloat16"),
+    (33, 3_100_001, torch.float32, "float32"),
+]
+
+
+@pytest.mark.parametrize("B,D,x_dtype,compute_dtype", WIDE_CASES)
+def test_two_read_path_matches_plain_above_the_bound(cuda, B, D, x_dtype, compute_dtype):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if ops.fused_lr_supported(B, D, x_dtype=x_dtype, compute_dtype=compute_dtype, num_sms=sms):
+        pytest.skip("this card's SM count puts the bound above the test shape")
+    w, X, y, mask = _inputs(cuda, B, D, x_dtype, seed=B)
+    if B < 5:
+        mask.fill_(1.0)
+    before = _counts()
+    g, z = ops.fused_lr_grad(w, X, y, mask, compute_dtype=compute_dtype, with_logits=True)
+    z_rows = ops.lr_logits(w, X, compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    after = _counts()
+    assert after["fused_lr_grad_two_launch"] == before["fused_lr_grad_two_launch"] + 1
+    assert after["lr_logits_row_blocks"] == before["lr_logits_row_blocks"] + 1
+    assert after["fused_lr_grad"] == before["fused_lr_grad"]
+    assert after["lr_logits"] == before["lr_logits"]
+    # f32 sums in different orders
+    g_ref = ops.fused_lr_grad_reference(w, X, y, mask, compute_dtype=compute_dtype)
+    assert _rel(g, g_ref) <= 1e-3
+    assert _rel(z, ops.lr_logits_reference(w, X, compute_dtype=compute_dtype)) <= 1e-3
+    # the epilogue's z is the forward's: the same bits as lr_logits_row_blocks
+    assert torch.equal(z, z_rows)
+    # fixed sum orders, no atomics: the same bits on a second call
+    g2, z2 = ops.fused_lr_grad_two_launch(w, X, y, mask, compute_dtype=compute_dtype,
+                                          with_logits=True)
+    assert torch.equal(g, g2) and torch.equal(z, z2)
+    assert torch.equal(z_rows, ops.lr_logits_row_blocks(w, X, compute_dtype=compute_dtype))
+
+
+def test_two_read_path_takes_misaligned_rows(cuda):
+    """Above the bound, a row view 2 bytes off 16-byte alignment: the
+    producer fills the stages with plain loads, the backward takes its
+    scalar path."""
+    D = 5_999_992  # a multiple of 8
+    w, X, y, mask = _inputs(cuda, 9, D + 8, torch.bfloat16)
+    Xv = X.reshape(-1)[1:1 + 8 * D].view(8, D)
+    w, y, mask = w[:D], y[:8], mask[:8]
+    before = _counts()
+    g = ops.fused_lr_grad(w, Xv, y, mask)
+    z = ops.lr_logits(w, Xv)
+    torch.cuda.synchronize()
+    after = _counts()
+    assert after["fused_lr_grad_two_launch"] == before["fused_lr_grad_two_launch"] + 1
+    assert after["lr_logits_row_blocks"] == before["lr_logits_row_blocks"] + 1
+    assert _rel(g, ops.fused_lr_grad_reference(w, Xv, y, mask)) <= 1e-3
+    assert _rel(z, ops.lr_logits_reference(w, Xv)) <= 1e-3
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_wide_plan_counts_the_cards_waves(cuda, x_dtype, compute_dtype):
+    """The two-read plan's blocks per SM are the runtime's figure for the
+    streaming kernel, which its launch bounds hold at WIDE_CTAS_PER_SM (the
+    CPU plans' default), and that many of the plan's blocks fit an SM with
+    their shared memory."""
+    fl = ops.fused_lr
+    per_sm = fl.streaming_blocks_per_sm(fl._lib(), x_dtype, compute_dtype)
+    assert per_sm == fl.WIDE_CTAS_PER_SM
+    X = torch.empty((), dtype=x_dtype, device=cuda).expand(64, 6_000_000)
+    plan = fl.wide_plan_for(X, compute_dtype)
+    assert plan.ctas_per_sm == per_sm and plan.smem_bytes
+    assert fl.whole_waves(plan, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert fl.streaming_blocks_per_sm(fl._lib(), x_dtype, compute_dtype,
+                                      plan.dynamic_smem_bytes) == per_sm
+
+
+def test_main_path_kernels_keep_their_bits(cuda):
+    """The single pass and the streaming logits at the trainer's shape,
+    (2048, 1M) bf16, give the bits recorded in main_path_bits.RECORDED,
+    under both compute types.  A new toolkit may move them: re-record with
+    ``python -m distlr_tpu_torch.benchmarks.main_path_bits`` only after
+    checking that the kernels' sources did not change their sums."""
+    from distlr_tpu_torch.benchmarks import main_path_bits as bits
+
+    if torch.cuda.get_device_properties(0).multi_processor_count != bits.RECORDED["sms"]:
+        pytest.skip("the recorded digests follow the launch plan of a 132-SM card")
+    assert bits.main_path_digests(cuda) == bits.RECORDED["digests"]
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])

@@ -140,6 +140,32 @@ class TestKernelBuild:
         assert slice_kernels.main(["--sweep", "--trace"]) == 2
         assert "needs the card" in capsys.readouterr().err
 
+    def test_wide_sweep_needs_the_card(self, capsys):
+        from distlr_tpu_torch.benchmarks import slice_kernels
+
+        assert slice_kernels.main(["--wide", "--batch", "8"]) == 2
+        assert "needs the card" in capsys.readouterr().err
+
+    def test_main_path_bits_needs_the_card(self, capsys):
+        from distlr_tpu_torch.benchmarks import main_path_bits
+
+        assert main_path_bits.main([]) == 2
+        assert "needs the card" in capsys.readouterr().err
+
+    def test_main_path_bits_inputs_are_pinned(self):
+        """The digest's inputs come from an integer hash of each index:
+        these bits on any machine, whatever the chunking."""
+        from distlr_tpu_torch.benchmarks import main_path_bits as bits
+
+        u = bits.hashed_uniform((4, 1000), 0, "cpu")
+        assert torch.equal(bits.hashed_uniform((4, 1000), 0, "cpu", chunk=333), u)
+        assert float(u.min()) >= -1.0 and float(u.max()) < 1.0
+        assert bits.digest(u) == "db76f50582a637a0"
+        w, X, y, mask = bits.hashed_inputs(6, 1000, "cpu", masked=2)
+        assert X.dtype == torch.bfloat16 and bits.digest(X) == "a4cdee1e4962c59b"
+        assert bits.digest(w) == "f832743c3da92667"
+        assert y.tolist() == [1, 0, 1, 0, 0, 0] and mask.tolist() == [1, 1, 1, 1, 0, 0]
+
     def test_compiler_failure_raises_with_its_output(self, tmp_path, monkeypatch):
         monkeypatch.setattr(build, "find_nvcc", lambda: "nvcc")
         monkeypatch.setattr(build.subprocess, "run", lambda cmd, **kw: subprocess.CompletedProcess(

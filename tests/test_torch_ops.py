@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from distlr_tpu.config import Config as JaxConfig
+from distlr_tpu.models import BinaryLR as JaxBinaryLR
 from distlr_tpu.ops import fused_lr_grad as jax_fused_lr_grad
 from distlr_tpu_torch import ops
 
@@ -238,3 +240,145 @@ class TestInputChecks:
         w = torch.empty(8, device="meta")
         with pytest.raises(ValueError, match="cuda or cpu"):
             ops.lr_logits(w, X)
+
+
+# shapes above the single pass's bf16 bound: PLAN_SHAPES' at small SM
+# counts (which put the bound within CPU-sized shapes), and the card
+# tests' at 132 SMs
+WIDE_SHAPES = [(B, D, n) for n in (2, 8) for B, D in PLAN_SHAPES
+               if not ops.fused_lr_supported(B, D, num_sms=n)] + [
+    (1, 5_045_569, 132), (8, 6_000_000, 132), (64, 6_000_000, 132), (2048, 6_000_000, 132),
+    (7, 6_000_003, 132), (33, 3_100_001, 132)]
+DTYPE_PAIRS = [(x, c) for x in (torch.bfloat16, torch.float32) for c in ("bfloat16", "float32")]
+
+
+def _row_sum(partials):
+    """Each row's partials summed as the epilogue's warp does: lane k adds
+    columns k, k + 32, ... in order, then a shuffle-down tree."""
+    lanes = partials.new_zeros(partials.shape[0], 32)
+    for k in range(0, partials.shape[1], 32):
+        chunk = partials[:, k:k + 32]
+        lanes[:, :chunk.shape[1]] += chunk
+    for off in (16, 8, 4, 2, 1):
+        lanes[:, :off] = lanes[:, :off] + lanes[:, off:2 * off]
+    return lanes[:, 0]
+
+
+def _wide_emulation(plan, w, X, y, mask):
+    """The two-read path's order in plain f32: each block's partial dot
+    over its slice, the row totals in the epilogue's order, the residual,
+    then g = rᵀX."""
+    partials = torch.stack([X[:, a:b] @ w[a:b] for a, b in plan.slices()], dim=1)
+    z = _row_sum(partials)
+    r = (torch.sigmoid(z) - y) * mask
+    return r @ X, z
+
+
+class TestWidePlan:
+    @pytest.mark.parametrize("x_dtype,compute_dtype", DTYPE_PAIRS)
+    @pytest.mark.parametrize("B,D,num_sms", WIDE_SHAPES)
+    def test_slices_cover_dim_in_whole_waves(self, B, D, num_sms, x_dtype, compute_dtype):
+        plan = ops.lr_wide_plan(B, D, x_dtype=x_dtype, compute_dtype=compute_dtype,
+                                num_sms=num_sms)
+        slices = plan.slices()
+        assert slices[0][0] == 0 and slices[-1][1] == D
+        for (a, b), (c, _) in zip(slices, slices[1:]):
+            assert b == c and (b - a) % 8 == 0 and b - a == plan.slice_cols
+        # whole waves: short by fewer blocks than one per 8 SMs, where
+        # slices rounded up to 8 columns leave the last blocks none
+        wave = plan.ctas_per_sm * num_sms
+        assert 0 <= plan.waves * wave - plan.ctas < max(1, num_sms // 8)
+        assert ops.fused_lr.whole_waves(plan, num_sms)
+        assert not plan.single_pass and plan.kernel == "logits"
+
+    @pytest.mark.parametrize("x_dtype,compute_dtype", DTYPE_PAIRS)
+    @pytest.mark.parametrize("B,D,num_sms", WIDE_SHAPES)
+    def test_shared_memory_fits(self, B, D, num_sms, x_dtype, compute_dtype):
+        plan = ops.lr_wide_plan(B, D, x_dtype=x_dtype, compute_dtype=compute_dtype,
+                                num_sms=num_sms)
+        assert plan.ctas_per_sm * (plan.smem_bytes + 1_024) <= 233_472
+        x_bytes = 2 if x_dtype == torch.bfloat16 else 4
+        w_bytes = 2 if compute_dtype == "bfloat16" else 4
+        ring = plan.stages * plan.rows * plan.slice_cols * x_bytes
+        assert plan.smem_bytes == ring + plan.slice_cols * w_bytes + 3_072
+        assert 1 <= plan.rows <= min(4, B) and plan.stages == 2
+
+    def test_wide_trainer_plan(self):
+        """(64, 6M) bf16 on 132 SMs: 3 waves of 3 blocks per SM, 1,187
+        blocks of 5,056 columns, 3-row tiles, about 72 KB each."""
+        plan = ops.lr_wide_plan(64, 6_000_000)
+        assert (plan.ctas, plan.ctas_per_sm, plan.waves) == (1187, 3, 3)
+        assert (plan.slice_cols, plan.rows, plan.stages, plan.smem_bytes) == (5056, 3, 2, 73_856)
+
+    def test_below_the_bound_one_wave(self):
+        plan = ops.lr_wide_plan(2048, 1_000_000)
+        assert (plan.waves, plan.ctas, plan.rows) == (1, 396, 4) and not plan.single_pass
+
+    def test_waves_follow_the_rows(self):
+        """One row a block: the fewest waves, as w's slice then costs the
+        ring least; many rows: narrower slices, for 4-row tiles."""
+        assert ops.lr_wide_plan(1, 5_045_569).waves == 2
+        assert ops.lr_wide_plan(8, 5_045_569).waves == 4
+        plan = ops.lr_wide_plan(8, 40_000_000)
+        assert plan.waves > 4 and ops.fused_lr.whole_waves(plan, 132)
+
+    @pytest.mark.parametrize("D", [1, 13, 1000, 3100])
+    def test_narrow_dim_takes_one_partial_wave(self, D):
+        plan = ops.lr_wide_plan(16, D)
+        assert plan.waves == 1 and plan.slice_cols == 8 and plan.ctas == -(-D // 8) < 396
+
+    def test_overrides(self):
+        plan = ops.lr_wide_plan(64, 6_000_000, ctas_per_sm=2, waves=1)
+        assert (plan.rows, plan.stages, plan.smem_bytes, plan.ctas) == (0, 0, 0, 264)
+        plan = ops.lr_wide_plan(64, 6_000_000, ctas_per_sm=3, waves=2)
+        assert (plan.ctas, plan.slice_cols, plan.rows, plan.stages) == (792, 7576, 1, 2)
+
+    def test_single_pass_refuses_other_plans(self):
+        """The wide plan never reaches the cooperative single pass (checked
+        before any library is touched)."""
+        w, X, y, mask = _torch(*_inputs(0, 4, 16))
+        for plan in (ops.lr_wide_plan(4, 16), ops.lr_launch_plan(4, 16, kernel="logits")):
+            with pytest.raises(ValueError, match="single pass"):
+                ops.fused_lr.run_single_pass(None, plan, w, X, y, mask, "bfloat16")
+        with pytest.raises(ValueError, match="streaming"):
+            ops.fused_lr.run_streaming(None, ops.lr_launch_plan(4, 16), w, X, "bfloat16")
+
+    @pytest.mark.parametrize("kw", [dict(ctas_per_sm=0), dict(waves=0), dict(dim=0),
+                                    dict(batch=0), dict(compute_dtype="int8")])
+    def test_rejects(self, kw):
+        args = {"batch": 4, "dim": 8, **kw}
+        with pytest.raises(ValueError):
+            ops.lr_wide_plan(args.pop("batch"), args.pop("dim"), **args)
+
+    def test_emulated_order_matches_jax(self):
+        """The wide plan's sum order at 2 SMs (7 waves of 6 blocks) on
+        bf16-exact f32 inputs, against BinaryLR.logits / grad and the
+        Pallas kernel (interpret mode, on a copy padded to its tile
+        rules with zero columns and masked rows)."""
+        B, D = 5, 100_003
+        w, X, y, mask = _inputs(10, B, D, masked_tail=1)
+        X = torch.from_numpy(X).to(torch.bfloat16).float().numpy()
+        w = torch.from_numpy(w).to(torch.bfloat16).float().numpy()
+        plan = ops.lr_wide_plan(B, D, x_dtype=torch.float32, compute_dtype="float32", num_sms=2)
+        assert (plan.ctas, plan.waves) == (42, 7) and not ops.fused_lr_supported(
+            B, D, x_dtype=torch.float32, compute_dtype="float32", num_sms=2)
+        g, z = _wide_emulation(plan, *_torch(w, X), *_torch(y.astype(np.float32), mask))
+
+        def rel(got, want):
+            got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+            return np.abs(got - want).max() / np.abs(want).max()
+
+        model = JaxBinaryLR(D, compute_dtype="float32")
+        cfg = JaxConfig(num_feature_dim=D, l2_c=0.0, compute_dtype="float32")
+        assert rel(z, model.logits(jnp.asarray(w), jnp.asarray(X))) <= 1e-5
+        g_model = model.grad(jnp.asarray(w), (jnp.asarray(X), jnp.asarray(y), jnp.asarray(mask)),
+                             cfg)
+        assert rel(g / mask.sum(), g_model) <= 1e-5
+        Bp, Dp = 16, -(-D // 128) * 128
+        Xp = np.zeros((Bp, Dp), np.float32)
+        Xp[:B, :D] = X
+        pad = lambda v, n: np.concatenate([v, np.zeros(n - len(v), v.dtype)])  # noqa: E731
+        g_pallas = np.asarray(jax_fused_lr_grad(
+            jnp.asarray(pad(w, Dp)), jnp.asarray(Xp), jnp.asarray(pad(y, Bp)),
+            jnp.asarray(pad(mask, Bp)), batch_tile=16, interpret=True))[:D]
+        assert rel(g, g_pallas) <= 1e-5
