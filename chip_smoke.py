@@ -648,7 +648,8 @@ def phase_roofline(torch, seed: int) -> dict:
     published = (gr.BT, gr.DT, gr.REPS)
     results = {}
     worst = dict.fromkeys(ROOFLINE_REPLACES, 0.0)
-    for bt, dt, reps in ((64, 1024, 8), published):
+    # (128, 2048, 3): two row strips and eight depth slices of mxu
+    for bt, dt, reps in ((64, 1024, 8), (128, 2048, 3), published):
         for name, (kern, plain, _, _) in _roofline_calls(torch, seed, bt, dt, reps).items():
             wrapper = getattr(ops, name)
             before = wrapper.launches
@@ -681,6 +682,7 @@ def phase_roofline(torch, seed: int) -> dict:
             library_ms=None if library is None else mean_ms(
                 library, ROOFLINE_ITERS if graph else 20, device=dev, graph=graph),
             bound_ms=bound_ms, bound_by=bound_by, bound_term=limit,
+            plan=gr.probe_plan(name[len("roofline_"):]),
         )
         if library is None:
             r["library_note"] = ROOFLINE_NO_LIBRARY[name]
@@ -745,12 +747,16 @@ def phase_roofline_experiments(torch, smi: str) -> dict:
 
 
 # function (a substring of its mangled name) -> (opcode prefixes, least
-# count of them inside one loop of its SASS, what that shows)
+# count of them inside one loop of its SASS, what that shows, opcode
+# prefixes that no loop of it may hold)
 SASS_FACTS = {
     "gen_kernel": (("IMAD.WIDE", "IMAD.HI"), 17,
-                   "every product of a Philox block that depends on t, each pass of t"),
-    "const_partial_kernel": (("FFMA",), 16, "the 16 FMAs of the held tile stay in the REPS loop"),
-    "mxu_partial_kernel": (("HMMA",), 1, "tensor-core products in the REPS loop"),
+                   "every product of a Philox block that depends on t, each pass of t", ()),
+    "const_rows_kernel": (("FFMA",), 8,
+                          "a pass's 8 FMAs (2 rows x 4 columns) stay in the pass loop", ()),
+    "mxu_wgmma_kernel": (("HGMMA",), 4,
+                         "a pass's 4 wgmma k-steps of a 64-deep chunk in the pass loop, "
+                         "and no mma.sync (HMMA)", ("HMMA",)),
 }
 
 
@@ -793,8 +799,9 @@ def _sass_loops(text: str) -> dict:
 
 
 def phase_sass() -> dict:
-    """What the probe kernels compiled to: tensor-core products in mxu, the
-    FMAs inside const's REPS loop, a whole Philox block in gen's loop."""
+    """What the probe kernels compiled to: wgmma (HGMMA) and no mma.sync
+    (HMMA) in mxu's pass loop, the FMAs inside const's pass loop, a whole
+    Philox block in gen's loop."""
     from distlr_tpu_torch.ops import build  # noqa: PLC0415
 
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
@@ -802,15 +809,20 @@ def phase_sass() -> dict:
                           capture_output=True, text=True, timeout=120, check=True).stdout
     loops = _sass_loops(text)
     facts = {}
-    for fn, (prefixes, least, what) in SASS_FACTS.items():
+    for fn, (prefixes, least, what, absent) in SASS_FACTS.items():
         names = [n for n in loops if fn in n]
         counts = [sum(c for op, c in loop.items() if op.startswith(prefixes))
                   for n in names for loop in loops[n]]
         best = max(counts, default=0)
-        facts[fn] = {"most_in_one_loop": best, "opcodes": prefixes, "shows": what}
+        found = sorted({op for n in names for loop in loops[n] for op in loop
+                        if absent and op.startswith(absent)})
+        facts[fn] = {"most_in_one_loop": best, "opcodes": prefixes, "shows": what,
+                     "absent": absent, "found_absent": found}
         if best < least:
             raise AssertionError(f"SASS of {fn}: {best} of {prefixes} in its loops, "
                                  f"expected >= {least} ({what}); functions {names}")
+        if found:
+            raise AssertionError(f"SASS of {fn} holds {found}, which it must not ({what})")
     emit("sass", library=os.path.relpath(build.library_path("gen_roofline"), ROOT), facts=facts)
     return facts
 

@@ -217,6 +217,43 @@ def roofline_work(name: str, bt: int = BT, dt: int = DT, reps: int = REPS) -> di
     return work
 
 
+# --- launch plans ---------------------------------------------------------------
+_THREADS = 256           # threads of a gen, fwd, full or hash block
+_GEN_SLICE = 4 * _THREADS  # columns a fwd/hash block covers
+_CONST_ROWS = 2          # rows of x a const block owns
+_CONST_THREADS = 512
+_MXU_BM, _MXU_BK = 64, 256  # rows and depth of x an mxu block holds
+_MXU_THREADS = 256       # a consumer and a producer warpgroup
+
+
+def probe_plan(name: str, bt: int = BT, dt: int = DT) -> dict:
+    """How the CUDA kernel ``name`` runs a (bt, dt) tile, as
+    ``csrc/gen_roofline.cu`` launches it: ``kernels``, the CUDA kernels one
+    call launches, in order; ``blocks`` and ``threads`` of the first;
+    ``scratch``, the length of the scratch buffer the call takes (what
+    ``distlr_roofline_scratch_len`` gives)."""
+    cdiv = lambda a, b: -(-a // b)  # noqa: E731
+    if name == "gen":
+        blocks = cdiv(bt * dt // 4, _THREADS)
+        return dict(kernels=("gen_kernel",), blocks=blocks, threads=_THREADS,
+                    scratch=blocks * _THREADS // 32)
+    if name in ("fwd", "hash", "full"):
+        blocks = cdiv(dt, _GEN_SLICE) * bt
+        kernels = ("gen_fwd_partial_kernel", "sum_partials_kernel")
+        if name == "full":
+            kernels += ("full_bwd_kernel",)
+        return dict(kernels=kernels, blocks=blocks, threads=_THREADS, scratch=blocks)
+    if name == "const":
+        return dict(kernels=("const_rows_kernel",), blocks=cdiv(bt, _CONST_ROWS),
+                    threads=_CONST_THREADS, scratch=0)
+    if name == "mxu":
+        slices = dt // _MXU_BK
+        return dict(kernels=("mxu_wgmma_kernel", "sum_partials_kernel"),
+                    blocks=slices * (bt // _MXU_BM), threads=_MXU_THREADS,
+                    scratch=slices * bt * MXU_N)
+    raise ValueError(f"unknown roofline kernel {name!r}")
+
+
 # --- wrappers -----------------------------------------------------------------
 @functools.cache
 def _lib() -> ctypes.CDLL:
@@ -227,7 +264,7 @@ def _lib() -> ctypes.CDLL:
         ("distlr_roofline_fwd", [p, p, i, i, i, p, p, p]),
         ("distlr_roofline_full", [p, p, p, i, i, i, p, p, p, p]),
         ("distlr_roofline_hash", [p, i, i, i, p, p, p]),
-        ("distlr_roofline_const", [p, p, i, i, i, p, p, p]),
+        ("distlr_roofline_const", [p, p, i, i, i, p, p]),
         ("distlr_roofline_mxu", [p, p, i, i, i, p, p, p]),
     ):
         getattr(lib, fn).argtypes = args
@@ -360,10 +397,9 @@ def roofline_const(x, w, *, reps: int = REPS):
     bt, dt = _tile(x)
     if not _check("const", {"x": x, "w": w}, {"x": (bt, dt), "w": (1, dt)}, bt, dt, reps):
         return roofline_const_reference(x, w, reps=reps)
-    partial = _scratch("const", bt, dt, x.device)
     z = torch.empty(bt, 1, dtype=torch.float32, device=x.device)
     _launch("const", x.device, lambda lib, s: lib.distlr_roofline_const(
-        x.data_ptr(), w.data_ptr(), bt, dt, reps, partial.data_ptr(), z.data_ptr(), s))
+        x.data_ptr(), w.data_ptr(), bt, dt, reps, z.data_ptr(), s))
     roofline_const.launches += 1
     return z
 

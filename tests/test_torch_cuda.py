@@ -304,6 +304,60 @@ def test_roofline_kernels_are_deterministic(cuda):
         assert torch.equal(kern(), kern())
 
 
+def test_mxu_reads_w_the_right_way_round(cuda):
+    """Two row strips, eight depth slices, three passes, on random x and w
+    that are not symmetric in any sense: a B read transposed, a misplaced
+    swizzle unit or a slice summed twice moves the product far past the
+    tolerance."""
+    from distlr_tpu_torch.ops import gen_roofline as gr
+
+    bt, dt, reps = 128, 2048, 3
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(bt, dt, device=cuda, generator=gen) + torch.arange(dt, device=cuda) / dt
+    w = torch.randn(dt, gr.MXU_N, device=cuda, generator=gen) / dt ** 0.5
+    got = ops.roofline_mxu(x, w, reps=reps)
+    ref = gr.roofline_mxu_reference(x, w, reps=reps)
+    # f32 sums in different orders
+    assert (got - ref).abs().max() <= 1e-3 * ref.abs().max()
+    # the same function with each 128-column block of w's slices transposed
+    # differs from the product by the product's own size
+    wt = w.view(dt // 128, 128, 128).transpose(1, 2).reshape(dt, 128)
+    assert (gr.roofline_mxu_reference(x, wt, reps=reps) - ref).abs().max() > 0.1 * ref.abs().max()
+    assert torch.equal(got, ops.roofline_mxu(x, w, reps=reps))
+
+
+@pytest.mark.parametrize("bt,dt", [(64, 1024), (128, 2048), (256, 8192), (5, 384)])
+@pytest.mark.parametrize("name", ["gen", "fwd", "full", "hash", "const", "mxu"])
+def test_probe_plan_scratch_is_the_kernels(cuda, name, bt, dt):
+    from distlr_tpu_torch.ops import gen_roofline as gr
+
+    if name == "mxu" and (bt % 64 or dt % 256):
+        pytest.skip("the mxu kernel does not take this tile")
+    lib = gr._lib()
+    assert lib.distlr_roofline_scratch_len(gr._KIND[name], bt, dt) == gr.probe_plan(name, bt, dt)["scratch"]
+
+
+@pytest.mark.parametrize("name", ["gen", "fwd", "full", "hash", "const", "mxu"])
+def test_probe_call_launches_its_planned_kernels(cuda, name):
+    """torch.profiler's CUDA kernels of one call at the published tile:
+    const is one launch, mxu the wgmma kernel and the slices' sum."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from distlr_tpu_torch.ops import gen_roofline as gr
+
+    kern, _ = _roofline_calls(cuda, gr.BT, gr.DT, gr.REPS)[name]
+    kern()  # build and load first
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kern()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    planned = gr.probe_plan(name)["kernels"]
+    assert len(names) == len(planned), names
+    assert all(p in n for p, n in zip(planned, names)), names
+
+
 def test_roofline_shapes_the_kernels_refuse(cuda):
     w = torch.ones(1, 200, device=cuda)
     with pytest.raises(ValueError, match="multiple of 128"):

@@ -352,6 +352,75 @@ class TestWrappers:
         with pytest.raises(err, match=match):
             call()
 
+    def test_probe_plan_at_the_published_tile(self):
+        """const is one launch of 128 two-row blocks with no scratch; mxu
+        128 blocks of 4 row strips x 32 depth slices, then the slices' sum
+        over a 32-slab scratch."""
+        const = gr.probe_plan("const")
+        assert const == dict(kernels=("const_rows_kernel",), blocks=128, threads=512, scratch=0)
+        mxu = gr.probe_plan("mxu")
+        assert mxu["kernels"] == ("mxu_wgmma_kernel", "sum_partials_kernel")
+        assert mxu["blocks"] == (8192 // 256) * (256 // 64) == 128
+        assert mxu["threads"] == 256  # a consumer and a producer warpgroup
+        assert mxu["scratch"] == 32 * 256 * 128
+        assert [len(gr.probe_plan(n)["kernels"]) for n in ("gen", "fwd", "full", "hash")] == [1, 2, 3, 2]
+        assert gr.probe_plan("gen")["scratch"] == 256 * 8192 // 4 // 256 * 8
+        assert gr.probe_plan("fwd")["scratch"] == gr.probe_plan("hash")["scratch"] == 8 * 256
+
+    @pytest.mark.parametrize("bt,dt,blocks", [(1, 128, 1), (5, 384, 3), (255, 8192, 128),
+                                              (256, 16384, 128)])
+    def test_const_blocks_own_two_rows(self, bt, dt, blocks):
+        plan = gr.probe_plan("const", bt, dt)
+        assert plan["blocks"] == blocks and plan["scratch"] == 0
+
+    @pytest.mark.parametrize("bt,dt", [(64, 256), (128, 2048), (512, 1024)])
+    def test_mxu_blocks_tile_the_product(self, bt, dt):
+        plan = gr.probe_plan("mxu", bt, dt)
+        assert plan["blocks"] == (bt // 64) * (dt // 256)
+        assert plan["scratch"] == (dt // 256) * bt * gr.MXU_N
+
+    def test_probe_plan_rejects_unknown(self):
+        with pytest.raises(ValueError, match="unknown"):
+            gr.probe_plan("nope")
+
+    def test_mxu_kernel_order_matches_pallas(self):
+        """The mxu kernel's decomposition, emulated in f32 on the CPU: each
+        (64-row strip, 256-deep slice) block sums its 64-deep chunks in
+        order, each chunk's passes, each pass's four 16-deep k-steps; the
+        slices' partial products are then added in slice order.  Held
+        against the Pallas kernel at (128, 512) x 3 (two strips, two
+        slices)."""
+        bt, dt, reps = 128, 512, 3
+        rng = np.random.default_rng(12)
+        x = rng.standard_normal((bt, dt)).astype(np.float32)
+        w = rng.standard_normal((dt, 128)).astype(np.float32)
+        f = pl.pallas_call(
+            roof2._kern_mxu,
+            grid=(reps,),
+            in_specs=[
+                pl.BlockSpec((bt, dt), lambda t: (0, 0), memory_space=pltpu.VMEM),
+                pl.BlockSpec((dt, 128), lambda t: (0, 0), memory_space=pltpu.VMEM),
+            ],
+            out_specs=pl.BlockSpec((bt, 128), lambda t: (0, 0), memory_space=pltpu.VMEM),
+            out_shape=jax.ShapeDtypeStruct((bt, 128), jnp.float32),
+            scratch_shapes=[pltpu.VMEM((bt, 128), jnp.float32)],
+            interpret=_interpret(),
+        )
+        want = np.asarray(f(jnp.asarray(x), jnp.asarray(w)))
+        xb = torch.from_numpy(x).to(torch.bfloat16).float()
+        wb = torch.from_numpy(w).to(torch.bfloat16).float()
+        out = torch.zeros(bt, 128)
+        for k0 in range(0, dt, 256):
+            part = torch.zeros(bt, 128)
+            for c in range(k0, k0 + 256, 64):
+                for _ in range(reps):
+                    for k in range(c, c + 64, 16):
+                        part += xb[:, k:k + 16] @ wb[k:k + 16]
+            out += part
+        assert _rel(out.numpy(), want.astype(np.float64)) <= 1e-5
+        assert _rel(ops.roofline_mxu(torch.from_numpy(x), torch.from_numpy(w), reps=reps).numpy(),
+                    out.numpy().astype(np.float64)) <= 1e-5
+
     def test_work_counts(self):
         """The work at the published tile."""
         mxu = gr.roofline_work("mxu")
@@ -391,6 +460,14 @@ class TestExperimentScripts:
                 assert line.startswith(label), line
         assert lines[1].endswith(" G elem/s") and lines[3].endswith(" G gen-elem/s")
         assert float(lines[1].split()[-3]) >= 0
+
+    def test_probe_timer_refuses_without_the_card(self, capsys):
+        from distlr_tpu_torch.benchmarks import roofline_probes
+
+        if torch.cuda.is_available():
+            pytest.skip("a card is present; this checks the refusal without one")
+        assert roofline_probes.main(["--kernels", "const,mxu", "--reps", "1,64"]) == 2
+        assert "needs the card" in capsys.readouterr().err
 
     def test_default_device_is_the_card(self):
         from distlr_tpu_torch.benchmarks import exp_gen_roofline
