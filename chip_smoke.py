@@ -12,8 +12,13 @@ port's main path — the sync dense-LR trainer at the repo's full width
 ``Trainer.load_data / fit / evaluate_metrics / save_model``, then the same
 trainer at a width above the single-pass kernel's shared-memory bound (D =
 6,000,000, where the two-read path takes over: the streaming forward in
-several waves, a residual epilogue, the backward), then the
-``gen-data -> sync -> eval`` CLI in a subprocess, and last the path of the
+several waves, a residual epilogue, the backward), then the four other
+model families through ``Trainer.fit`` at the repo's published shapes
+(``sparse_lr``, ``sparse_softmax`` and ``blocked_lr`` at the Avazu-style
+D = 1M buckets, 21 fields, 65,536 rows a step; ``softmax`` at the
+MNIST-shaped D = 784, K = 10, 60,000 rows, and its step alone at D = 1M,
+2048 rows), then the ``gen-data -> sync -> eval`` CLI in subprocesses for
+every family, and last the path of the
 on-device generation probes: both roofline experiments
 (``distlr_tpu_torch.benchmarks.exp_gen_roofline*``) at the published
 (256, 8192) x 64 tile, in this process and as ``python -m``.  Each phase
@@ -61,6 +66,19 @@ FULL_D, FULL_B, FULL_TEST = 1_000_000, 2048, 256
 # above the single pass's bound (5,045,568 for bf16 on 132 SMs)
 WIDE_D, WIDE_B, WIDE_TEST = 6_000_000, 64, 16
 CTR_FIELDS = 39
+# the other families' shapes: benchmarks/bench_configs.py config 4 (Avazu-
+# style sparse_lr: D = 1M buckets, 21 fields, 65,536 rows a step, vocab
+# 1e7) and bench.py's blocked R = 8/16/32 sub-rows at that shape; config 5
+# (MNIST-shaped softmax: D = 784, K = 10, 60,000 rows, 12,000 test rows)
+# and its large-D row (D = 1M, K = 10, 2048 rows)
+SPARSE_D, SPARSE_B, SPARSE_FIELDS, SPARSE_VOCAB, SPARSE_TEST = 1_000_000, 65_536, 21, 10**7, 8192
+SPARSE_K = 10
+SOFTMAX_D, SOFTMAX_K, SOFTMAX_N, SOFTMAX_TEST = 784, 10, 60_000, 12_000
+SOFTMAX_WIDE_B, SOFTMAX_WIDE_D = 2048, 1_000_000
+FAMILY_STEPS = 3
+# trained weights on the card against the same code on the CPU: the
+# sparse gradients add atomically in any order; softmax rounds to bf16
+FAMILY_TOL = {"sparse_lr": 1e-4, "sparse_softmax": 1e-4, "blocked_lr": 1e-4, "softmax": 1e-3}
 FUSED_SOURCE = "distlr_tpu_torch/ops/csrc/fused_lr_grad.cu"
 # wrapper -> the Pallas kernel it replaces
 FUSED_REPLACES = {
@@ -497,36 +515,288 @@ def phase_trainer(torch, seed: int, *, D: int = FULL_D, B: int = FULL_B,
     return out
 
 
-def phase_cli() -> None:
-    """gen-data -> sync -> eval through ``python -m distlr_tpu_torch.launch``."""
+def _step_kernels(torch, fn, reps: int = 5) -> dict:
+    """The CUDA kernels of ``fn`` from ``torch.profiler`` over ``reps``
+    calls after a warm-up call, per call: their count, their summed
+    device time and the largest by name.  Memsets and copies are counted
+    apart.  Over one call a trace can miss a kernel; over several, a miss
+    moves the means by a fraction."""
+    from torch.autograd import DeviceType  # noqa: PLC0415
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in events if not e.name.startswith(("Memset", "Memcpy"))]
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        name = re.sub(r"^\(anonymous namespace\)::", "", e.name)[:90]
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / reps
+    return {"profiled_calls": reps, "kernels_per_step": len(kernels) / reps,
+            "memsets_copies_per_step": (len(events) - len(kernels)) / reps,
+            "kernel_us_per_step": sum(by_name.values()),
+            "top_kernels_us": sorted(by_name.items(), key=lambda kv: -kv[1])[:6]}
+
+
+def _family_data(family: str, seed: int):
+    """(train, test) ``GlobalShardedData`` of one family at its published
+    shape, made from ``seed`` by the port's own generators."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.data.hashing import encode_blocked, make_ctr_dataset  # noqa: PLC0415
+    from distlr_tpu_torch.data.synthetic import make_synthetic_dataset  # noqa: PLC0415
+    from distlr_tpu_torch.train import GlobalShardedData  # noqa: PLC0415
+
+    if family == "softmax":
+        X, y, _ = make_synthetic_dataset(SOFTMAX_N + SOFTMAX_TEST, SOFTMAX_D, seed=seed,
+                                         num_classes=SOFTMAX_K)
+        leaves, n_test = (X, y), SOFTMAX_TEST
+    else:
+        raw, cols, vals, y, _ = make_ctr_dataset(SPARSE_B + SPARSE_TEST, SPARSE_FIELDS,
+                                                 SPARSE_VOCAB, SPARSE_D, seed=seed)
+        n_test = SPARSE_TEST
+        if family == "sparse_softmax":
+            # K classes from a planted (D, K) table over the same hashed rows
+            rng = np.random.default_rng(seed + 1)
+            w_true = rng.standard_normal((SPARSE_D, SPARSE_K)).astype(np.float32)
+            z = w_true[cols].sum(axis=1)
+            y = np.argmax(z + rng.gumbel(size=z.shape), axis=1).astype(np.int32)
+        if family == "blocked_lr":
+            leaves = (*encode_blocked(raw, SPARSE_D // 8, 8, seed=seed), y)
+        else:
+            leaves = (cols, vals, y)
+    return (GlobalShardedData([tuple(a[n_test:] for a in leaves)]),
+            GlobalShardedData([tuple(a[:n_test] for a in leaves)]))
+
+
+def _family_bytes(batch, params) -> int:
+    """Least bytes of one step: each leaf of the batch read once, the
+    parameters read once and written once."""
+    return sum(a.numel() * a.element_size() for a in batch) + 2 * params.numel() * 4
+
+
+def phase_family(torch, seed: int, family: str) -> dict:
+    """One model family through the user's entry points at its published
+    shape: load_data -> fit (3 full-batch steps) -> evaluate -> save, the
+    launch counts zeroed just before fit and read just after (no kernel of
+    ``ops`` is on these paths: they run library GEMMs, gathers and
+    ``index_add_``); then the same steps with the same code on the CPU from
+    the same data and initial weights."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.train import Trainer  # noqa: PLC0415
+    from distlr_tpu_torch.train.export import load_model_text  # noqa: PLC0415
+
+    t0 = time.perf_counter()
+    train, test = _family_data(family, seed)
+    data_s = time.perf_counter() - t0
+    # the configs' step settings: lr 0.3 from zeros (config 5), lr 0.5 (config 4)
+    if family == "softmax":
+        kw = dict(num_feature_dim=SOFTMAX_D, num_classes=SOFTMAX_K, learning_rate=0.3)
+    else:
+        kw = dict(num_feature_dim=SPARSE_D, num_classes=SPARSE_K, learning_rate=0.5)
+    kw.update(model=family, batch_size=-1, l2_c=0.0, num_iteration=FAMILY_STEPS,
+              test_interval=1)
+    with tempfile.TemporaryDirectory(prefix="distlr-smoke-") as tmp:
+        cfg = Config(data_dir=tmp, **kw)
+        trainer = Trainer(cfg).load_data(train=train, test=test)
+        w0 = trainer.init_weights().clone()
+        if family == "softmax":
+            w0.zero_()
+            trainer.weights = w0.clone()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        step_ms = []
+        for _ in range(FAMILY_STEPS):  # one full-batch step an epoch
+            before = trainer.timer.elapsed
+            trainer.fit(epochs=1, eval_fn=lambda e, a: None)
+            step_ms.append(1e3 * (trainer.timer.elapsed - before))
+        metrics = trainer.evaluate_metrics()
+        path = trainer.save_model()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = _launches(ops)
+        saved = load_model_text(path, shape=trainer.model.param_shape)
+    if any(launches.values()):
+        raise AssertionError(f"{family}'s path launched a kernel of ops: {launches}")
+    loss = trainer.metrics.latest("loss")
+    if not (math.isfinite(loss) and math.isfinite(metrics["logloss"])):
+        raise AssertionError(f"{family}: non-finite loss {loss} / logloss {metrics['logloss']}")
+    if not np.allclose(saved, trainer.weights.cpu().numpy(), rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"{family}: the saved text model does not load back")
+
+    on_cpu = Trainer(cfg.replace(device="cpu")).load_data(train=train, test=test)
+    on_cpu.weights = w0.cpu()
+    t0 = time.perf_counter()
+    w_cpu = on_cpu.fit(eval_fn=lambda e, a: None)
+    cpu_s = time.perf_counter() - t0
+    w_rel = rel_err(trainer.weights.cpu(), w_cpu)
+    if not w_rel <= FAMILY_TOL[family]:
+        raise AssertionError(f"{family}: card weights differ from the CPU's: rel {w_rel}")
+
+    batch = trainer._put(train.full_batch())
+    w_tmp = trainer.weights.clone()
+    bound_ms = 1e3 * _family_bytes(batch, w_tmp) / HBM_BYTES_PER_S
+    out = {
+        "family": family, "shape": list(trainer.model.param_shape), "rows": train.num_samples,
+        "test_rows": test.num_samples, "steps": FAMILY_STEPS, "launches": launches,
+        "loss": loss, "test_accuracy": metrics["accuracy"], "test_logloss": metrics["logloss"],
+        "step_ms": step_ms,
+        "step_device_ms": time_ms(lambda: trainer.train_step(w_tmp, batch), 10),
+        **_step_kernels(torch, lambda: trainer.train_step(w_tmp, batch)),
+        "bound_ms": bound_ms, "bound_by": "bytes",
+        "weights_rel_err_vs_cpu": w_rel, "tolerance": FAMILY_TOL[family],
+        "data_build_s": data_s, "fit_eval_save_s": fit_s, "cpu_fit_s": cpu_s,
+    }
+    out["device_busy_share"] = out["kernel_us_per_step"] / (1e3 * out["step_device_ms"])
+    if family == "blocked_lr":
+        out["step_alone_by_block_size"] = _blocked_step_alone(torch, seed, cfg, batch[-2:])
+    del batch
+    emit(f"trainer_{family}", **out)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _blocked_step_alone(torch, seed: int, cfg, y_mask) -> dict:
+    """blocked_lr's step on a resident batch at R = 16 and 32 (bench.py's
+    blocked sub-rows), from the same raw rows hashed at each width."""
+    from distlr_tpu_torch.data.hashing import encode_blocked, make_ctr_dataset  # noqa: PLC0415
+    from distlr_tpu_torch.models import get_model  # noqa: PLC0415
+    from distlr_tpu_torch.parallel import make_sync_train_step  # noqa: PLC0415
+
+    raw = make_ctr_dataset(SPARSE_B + SPARSE_TEST, SPARSE_FIELDS, SPARSE_VOCAB, SPARSE_D,
+                           seed=seed)[0][SPARSE_TEST:]
+    out = {}
+    for r in (16, 32):
+        c = cfg.replace(block_size=r)
+        model = get_model(c)
+        step = make_sync_train_step(model, c, 1)
+        batch = tuple(torch.from_numpy(a).cuda() for a in encode_blocked(raw, SPARSE_D // r, r,
+                                                                           seed=seed)) + y_mask
+        t = model.init(c, "cuda")
+        out[f"R{r}"] = {"step_device_ms": time_ms(lambda: step(t, batch), 10),
+                        **_step_kernels(torch, lambda: step(t, batch)),
+                        "bound_ms": 1e3 * _family_bytes(batch, t) / HBM_BYTES_PER_S}
+    return out
+
+
+def time_softmax_wide(torch, seed: int) -> dict:
+    """Dense softmax's step alone at config 5's large-D row (2048, 1M,
+    K = 10), bf16 X resident on the card: the step, the forward alone, the
+    kernels of one step, and one and two reads of X at the HBM rate.  The
+    forward and the backward are each held against the f32 product of the
+    same bf16 operands on a slice."""
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.models import get_model  # noqa: PLC0415
+    from distlr_tpu_torch.parallel import make_sync_train_step  # noqa: PLC0415
+
+    B, D, K = SOFTMAX_WIDE_B, SOFTMAX_WIDE_D, SOFTMAX_K
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn(B, D, device="cuda", generator=gen).to(torch.bfloat16)
+    y = torch.randint(0, K, (B,), device="cuda", generator=gen).to(torch.int32)
+    mask = torch.ones(B, device="cuda")
+    W = torch.randn(D, K, device="cuda", generator=gen) * 1e-3
+    cfg = Config(model="softmax", num_feature_dim=D, num_classes=K, learning_rate=0.1,
+                 l2_c=0.0, feature_dtype="bfloat16")
+    model = get_model(cfg)
+    step = make_sync_train_step(model, cfg, 1)
+    Wb = W.to(torch.bfloat16).float()
+    z = model.logits(W, X)
+    fwd_rel = rel_err(z[:256], X[:256].float() @ Wb)
+    R = torch.randn(B, K, device="cuda", generator=gen)
+    cols = slice(0, 65_536)
+    bwd_rel = rel_err(model._backward(W, (X,), R)[cols],
+                      X[:, cols].float().t() @ R.to(torch.bfloat16).float())
+    if not (z.dtype == torch.float32 and max(fwd_rel, bwd_rel) <= REL_TOL):
+        raise AssertionError(f"softmax GEMMs disagree with the f32 product: {fwd_rel} {bwd_rel}")
+    one_read = 1e3 * B * D * 2 / HBM_BYTES_PER_S
+    out = {
+        "B": B, "D": D, "K": K, "x_dtype": "bfloat16",
+        "step_device_ms": time_ms(lambda: step(W, (X, y, mask)), 10),
+        "logits_ms": time_ms(lambda: model.logits(W, X), 10),
+        **_step_kernels(torch, lambda: step(W, (X, y, mask))),
+        "bound_ms": 1e3 * _family_bytes((X, y, mask), W) / HBM_BYTES_PER_S, "bound_by": "bytes",
+        "one_read_of_x_ms": one_read, "two_reads_of_x_ms": 2 * one_read,
+        "logits_rel_err": fwd_rel, "grad_product_rel_err": bwd_rel,
+        "route": "cuBLAS bf16 GEMM with an f32 result (torch.mm out_dtype), forward and backward",
+    }
+    out["device_busy_share"] = out["kernel_us_per_step"] / (1e3 * out["step_device_ms"])
+    emit("step_softmax_wide", **out)
+    del X, W, Wb, z
+    torch.cuda.empty_cache()
+    return out
+
+
+# model family -> (gen-data flags, sync / eval flags, the saved params'
+# shape, sync's iterations and test interval)
+CLI_FAMILIES = {
+    "binary_lr": (["--num-feature-dim", "123"], ["--num-feature-dim", "123"], (123,), 30, 10),
+    "softmax": (["--num-feature-dim", "32", "--num-classes", "3"],
+                ["--num-feature-dim", "32", "--model", "softmax", "--num-classes", "3"], (32, 3),
+                10, 5),
+    "sparse_lr": (["--num-feature-dim", "4096", "--ctr-fields", "8", "--ctr-vocab", "100"],
+                  ["--num-feature-dim", "4096", "--model", "sparse_lr"], (4096,), 10, 5),
+    "sparse_softmax": (["--num-feature-dim", "64", "--num-classes", "4"],
+                       ["--num-feature-dim", "64", "--model", "sparse_softmax",
+                        "--num-classes", "4"], (64, 4), 10, 5),
+    "blocked_lr": (["--num-feature-dim", "4096", "--ctr-fields", "8", "--ctr-raw",
+                    "--ctr-tuples", "64", "--ctr-vocab", "1000"],
+                   ["--num-feature-dim", "4096", "--model", "blocked_lr", "--block-size", "8"],
+                   (512, 8), 10, 5),
+}
+EVAL_LINE = r"^\d\d:\d\d:\d\d Iteration (\d+), accuracy: (\S+)$"
+
+
+def _launch(*argv) -> str:
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", "distlr_tpu_torch.launch", *argv],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"launch {' '.join(argv[:3])} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-2000:]}")
+    return proc.stdout
 
-    def run(*argv):
-        proc = subprocess.run([sys.executable, "-m", "distlr_tpu_torch.launch", *argv],
-                              cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-        if proc.returncode != 0:
-            raise AssertionError(f"launch {argv[0]} exited {proc.returncode}:\n{proc.stderr[-2000:]}")
-        return proc.stdout
 
+def _cli_family(tmp: str, family: str) -> dict:
+    """gen-data -> sync (2 workers, on the card) -> eval of one family at a
+    small size: the eval lines come at the test interval, the saved model
+    has the params' size, and eval scores what the last line reported."""
+    gen_flags, flags, shape, iters, interval = CLI_FAMILIES[family]
+    d = os.path.join(tmp, family)
+    _launch("gen-data", "--data-dir", d, "--num-samples", "2000", "--num-parts", "2", *gen_flags)
+    out = _launch("sync", "--data-dir", d, *flags, "--num-workers", "2", "--num-iteration",
+                  str(iters), "--test-interval", str(interval), "--learning-rate", "0.5",
+                  "--l2-c", "0")
+    lines = re.findall(EVAL_LINE, out, re.M)
+    if [int(n) for n, _ in lines] != list(range(interval, iters + 1, interval)):
+        raise AssertionError(f"unexpected eval lines from {family} sync:\n{out}")
+    model_file = os.path.join(d, "models", "part-001")
+    with open(model_file) as f:
+        if int(f.readline()) != math.prod(shape) or len(f.readline().split()) != math.prod(shape):
+            raise AssertionError(f"{family} sync wrote a malformed model file")
+    ev = _launch("eval", "--data-dir", d, *flags, "--model-file", model_file)
+    m = re.search(r"accuracy: (\S+)\s+test_logloss: (\S+)", ev)
+    if m is None or abs(float(m.group(1)) - float(lines[-1][1])) > 1e-4:
+        raise AssertionError(f"{family} eval disagrees with its last sync line: {ev}")
+    return {"sync_accuracy": [float(a) for _, a in lines], "eval_accuracy": float(m.group(1)),
+            "eval_logloss": float(m.group(2))}
+
+
+def phase_cli() -> None:
+    """gen-data -> sync -> eval through ``python -m distlr_tpu_torch.launch``
+    for every model family, the families' chains side by side."""
     with tempfile.TemporaryDirectory(prefix="distlr-smoke-cli-") as tmp:
-        d = os.path.join(tmp, "d")
-        common = ["--data-dir", d, "--num-feature-dim", "123"]
-        run("gen-data", *common, "--num-samples", "2000", "--num-parts", "2")
-        out = run("sync", *common, "--num-workers", "2", "--num-iteration", "30",
-                  "--test-interval", "10", "--learning-rate", "0.5", "--l2-c", "0")
-        lines = re.findall(r"^\d\d:\d\d:\d\d Iteration (\d+), accuracy: (\S+)$", out, re.M)
-        if [int(n) for n, _ in lines] != [10, 20, 30]:
-            raise AssertionError(f"unexpected eval lines from sync:\n{out}")
-        model_file = os.path.join(d, "models", "part-001")
-        with open(model_file) as f:
-            if f.readline().strip() != "123" or len(f.readline().split()) != 123:
-                raise AssertionError("sync wrote a malformed model file")
-        ev = run("eval", *common, "--model-file", model_file)
-        m = re.search(r"accuracy: (\S+)\s+test_logloss: (\S+)", ev)
-        if m is None:
-            raise AssertionError(f"unexpected eval output: {ev}")
-        emit("cli", sync_accuracy=[float(a) for _, a in lines],
-             eval_accuracy=float(m.group(1)), eval_logloss=float(m.group(2)))
+        with ThreadPoolExecutor(len(CLI_FAMILIES)) as pool:
+            futures = {f: pool.submit(_cli_family, tmp, f) for f in CLI_FAMILIES}
+            results = {f: fut.result() for f, fut in futures.items()}
+    emit("cli", **results.pop("binary_lr"), families=results)
 
 
 # --- the on-device generation probes ----------------------------------------
@@ -865,6 +1135,11 @@ def main(argv=None) -> int:
         wide = phase_trainer(torch, args.seed, D=WIDE_D, B=WIDE_B, test_rows=WIDE_TEST,
                              phase="trainer_wide")
         time_two_launch(torch, args.seed, timing)
+        for family in ("sparse_lr", "sparse_softmax", "blocked_lr", "softmax"):
+            phase = f"trainer_{family}"
+            phase_family(torch, args.seed, family)
+        phase = "step_softmax_wide"
+        time_softmax_wide(torch, args.seed)
         phase = "cli"
         phase_cli()
         phase = "roofline_experiments"

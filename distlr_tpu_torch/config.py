@@ -1,9 +1,9 @@
 """Typed configuration of the port.
 
 Holds the fields of ``distlr_tpu/config.py::Config`` that the ported
-sync dense-LR trainer reads, with the same names and defaults, and the
-same resolution of the reference-quirk gates Q1, Q2, Q4 and Q5 from
-``compat_mode``.  Options whose code is not ported yet raise
+sync trainer reads (all five model families), with the same names,
+defaults and validations, and the same resolution of the reference-quirk
+gates Q1, Q2, Q4 and Q5 from ``compat_mode``.  Options whose code is not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item, so a run never
 silently drops one.  ``device`` is the port's own knob.
 """
@@ -17,6 +17,10 @@ from typing import Any
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to distlr_tpu_torch yet (ROADMAP {item})")
+
+
+_SPARSE_MODELS = ("sparse_lr", "sparse_softmax", "blocked_lr")
+_MODELS = ("binary_lr", "softmax") + _SPARSE_MODELS
 
 
 @dataclasses.dataclass
@@ -36,7 +40,19 @@ class Config:
     l2_c: float = 1.0                 # L2 coefficient C
 
     # ---- model ----
-    model: str = "binary_lr"
+    model: str = "binary_lr"          # binary_lr | softmax | sparse_lr
+    #                                 | sparse_softmax | blocked_lr
+    num_classes: int = 2              # softmax families only
+    nnz_max: int | None = None        # sparse families: per-row nonzero cap (pad width)
+    # blocked_lr: lanes per table row (rows = num_feature_dim / block_size);
+    # 0 = auto, resolved from raw-CTR data before a model is built
+    block_size: int = 8
+    # blocked_lr: conjunction groups the raw fields hash into
+    # (0 = ceil(ctr_fields / block_size) consecutive chunks)
+    block_groups: int = 0
+    # blocked_lr: raw categorical fields per row (0 = read ctr_meta.json)
+    ctr_fields: int = 0
+    hash_seed: int = 0                # seed of the load-time feature hash
     compute_dtype: str = "bfloat16"   # product dtype (sums are always f32)
     # Device-resident storage dtype of the dense feature matrix.
     feature_dtype: str = "float32"    # float32 | bfloat16
@@ -78,21 +94,34 @@ class Config:
             self.reference_rng_init = ref
         if self.wrap_final_batch is None:
             self.wrap_final_batch = ref
-        if self.model != "binary_lr":
-            if self.model == "softmax":
-                raise _not_ported(f"model={self.model!r}", "A.2")
-            if self.model in ("sparse_lr", "sparse_softmax", "blocked_lr"):
-                raise _not_ported(f"model={self.model!r}", "A.4")
+        if self.model not in _MODELS:
             raise ValueError(f"unknown model {self.model!r}")
+        if self.block_size < 0 or (self.block_size == 0 and self.model != "blocked_lr"):
+            raise ValueError(
+                "block_size must be positive (0 = auto, blocked_lr only: "
+                "resolved from raw-CTR data by suggest_block_size)")
+        if self.block_groups < 0 or (self.block_groups > 0 and self.model != "blocked_lr"):
+            raise ValueError(
+                "block_groups is a blocked_lr option (0 = default "
+                "ceil(fields/block_size) grouping; G = near-equal G-way "
+                f"field split); got block_groups={self.block_groups} "
+                f"with model={self.model!r}")
         if self.num_feature_dim <= 0:
             raise ValueError("num_feature_dim must be positive")
         if self.batch_size == 0 or self.batch_size < -1:
             raise ValueError("batch_size must be -1 (full shard) or positive")
+        if self.feature_dtype not in ("float32", "bfloat16", "int8", "int8_dot"):
+            raise ValueError(
+                "feature_dtype must be float32|bfloat16|int8|int8_dot, "
+                f"got {self.feature_dtype!r}")
+        if self.model in _SPARSE_MODELS and self.feature_dtype != "float32":
+            # sparse COO / blocked lane values stay float32 in every mode
+            raise ValueError(
+                "feature_dtype quantization applies to dense models only; "
+                f"{self.model} stores feature values as float32 "
+                "(set feature_dtype='float32')")
         if self.feature_dtype in ("int8", "int8_dot"):
             raise _not_ported(f"feature_dtype={self.feature_dtype!r}", "A.3")
-        if self.feature_dtype not in ("float32", "bfloat16"):
-            raise ValueError(
-                f"feature_dtype must be float32|bfloat16, got {self.feature_dtype!r}")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"compute_dtype must be float32|bfloat16, got {self.compute_dtype!r}")
@@ -114,6 +143,10 @@ class Config:
             raise _not_ported("profile_dir", "A.12")
         if self.prefetch < 1:
             raise ValueError("prefetch must be >= 1 (1 = no prefetch)")
+        if self.ctr_fields < 0:
+            raise ValueError("ctr_fields must be >= 0 (0 = read from manifest)")
+        if not 0 <= self.hash_seed < 1 << 64:
+            raise ValueError(f"hash_seed must be in [0, 2^64), got {self.hash_seed}")
 
     def replace(self, **kw: Any) -> "Config":
         return dataclasses.replace(self, **kw)

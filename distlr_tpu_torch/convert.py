@@ -1,7 +1,8 @@
 """Carry weights between the JAX package and the port as numpy arrays.
 
-``BinaryLR``'s params are a ``(D,)`` float32 vector in both packages, so
-the conversion is a checked copy: the shape must equal the model's
+Every model family's params are one float32 array of the same shape in
+both packages (``(D,)``, ``(D, K)`` or ``(num_blocks, R)``), so the
+conversion is a checked copy: the shape must equal the model's
 ``param_shape``.
 """
 

@@ -9,6 +9,16 @@ only when asked for).  Run as ``python -m distlr_tpu_torch.launch``::
     python -m distlr_tpu_torch.launch sync --data-dir D --num-feature-dim 123 --num-workers 2
     python -m distlr_tpu_torch.launch eval --data-dir D --num-feature-dim 123 \\
         --model-file D/models/part-001
+
+Every ``--model`` trains: ``binary_lr`` and ``softmax`` on dense libsvm
+shards, ``sparse_lr`` / ``sparse_softmax`` on the same shards as padded
+COO (``gen-data --ctr-fields F`` writes hashed CTR ones), ``blocked_lr``
+on raw-CTR shards (``gen-data --ctr-fields F --ctr-raw``)::
+
+    python -m distlr_tpu_torch.launch gen-data --data-dir C --num-feature-dim 4096 \\
+        --ctr-fields 8 --ctr-raw --ctr-tuples 64 --num-samples 4000
+    python -m distlr_tpu_torch.launch sync --data-dir C --num-feature-dim 4096 \\
+        --model blocked_lr --block-size auto
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ _CONFIG_FIELDS = (
     "data_dir", "num_feature_dim", "num_iteration", "batch_size",
     "learning_rate", "l2_c", "test_interval", "model", "compat_mode",
     "random_seed", "prefetch", "feature_dtype", "num_workers", "device",
+    "num_classes", "nnz_max", "block_size", "block_groups", "ctr_fields", "hash_seed",
 )
 
 
@@ -38,7 +49,27 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--test-interval", dest="test_interval", type=int)
     p.add_argument("--model", choices=["binary_lr", "softmax", "sparse_lr",
                                        "sparse_softmax", "blocked_lr"],
-                   help="binary_lr is ported; the others name their ROADMAP item")
+                   help="model family (default binary_lr): dense binary_lr / "
+                   "softmax, padded-COO sparse_lr / sparse_softmax, row-blocked "
+                   "blocked_lr on raw-CTR shards")
+    p.add_argument("--num-classes", dest="num_classes", type=int,
+                   help="softmax families: number of classes (default 2)")
+    p.add_argument("--nnz-max", dest="nnz_max", type=int,
+                   help="sparse families: cap per-row nonzeros (pad width)")
+    p.add_argument("--block-size", dest="block_size",
+                   type=lambda s: 0 if s == "auto" else int(s),
+                   help="blocked_lr: lanes per table row (table rows = "
+                   "num-feature-dim / block-size); 'auto' samples the raw "
+                   "shards and picks the cheapest layout whose groups recur "
+                   "(honors a pinned --block-groups)")
+    p.add_argument("--block-groups", dest="block_groups", type=int,
+                   help="blocked_lr: hash the fields into this many conjunction "
+                   "groups instead of ceil(fields/block-size) chunks")
+    p.add_argument("--ctr-fields", dest="ctr_fields", type=int,
+                   help="blocked_lr: raw categorical fields per row "
+                   "(default: read from the data dir's ctr_meta.json)")
+    p.add_argument("--hash-seed", dest="hash_seed", type=int,
+                   help="seed of the load-time feature hash")
     p.add_argument("--compat-mode", dest="compat_mode", choices=["correct", "reference"])
     p.add_argument("--random-seed", dest="random_seed", type=int,
                    help="seed of the uniform weight init (default 10)")
@@ -57,22 +88,61 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
 
 
 def _config_from_args(args: argparse.Namespace) -> Config:
-    return Config(**{k: v for k, v in vars(args).items()
-                     if v is not None and k in _CONFIG_FIELDS})
+    """The Config of the flags given, with ``--block-size auto`` resolved
+    from the data dir's raw shards (blocked_lr)."""
+    cfg = Config(**{k: v for k, v in vars(args).items()
+                    if v is not None and k in _CONFIG_FIELDS})
+    if cfg.model != "blocked_lr" or cfg.block_size != 0:
+        return cfg
+    from distlr_tpu_torch.data.hashing import resolve_auto_block_size  # noqa: PLC0415
+
+    r, g = resolve_auto_block_size(cfg.data_dir, cfg.ctr_fields, cfg.num_feature_dim,
+                                   num_groups=cfg.block_groups)
+    if r == 1:
+        log.info("block_size auto: resolved to scalar-equivalent R=1 (no candidate "
+                 "layout%s passed the recurrence/row-load gates on this data)",
+                 f" at block_groups={cfg.block_groups}" if cfg.block_groups else "")
+    else:
+        log.info("block_size auto: resolved to R=%d, %s", r,
+                 f"{g} conjunction groups" if g else "default field grouping")
+    return cfg.replace(block_size=r, block_groups=g)
+
+
+def _gen_data_error(args: argparse.Namespace) -> str | None:
+    if args.ctr_raw and not args.ctr_fields:
+        return "--ctr-raw requires --ctr-fields"
+    if args.ctr_tuples < 0:
+        return "--ctr-tuples must be non-negative (0 disables the tuple table)"
+    if args.ctr_tuples and not args.ctr_raw:
+        return ("--ctr-tuples requires --ctr-raw (the pre-hashed one-hot "
+                "writer has no tuple-table mode)")
+    if args.ctr_fields and (args.num_classes != 2 or args.sparsity != 0.5):
+        return ("--num-classes/--sparsity do not apply to CTR shards "
+                "(--ctr-fields writes binary-label CTR data)")
+    return None
 
 
 def cmd_gen_data(args: argparse.Namespace) -> int:
-    from distlr_tpu_torch.data.synthetic import write_synthetic_shards  # noqa: PLC0415
+    from distlr_tpu_torch.data import hashing, synthetic  # noqa: PLC0415
 
-    manifest = write_synthetic_shards(
-        args.data_dir,
-        args.num_samples,
-        args.num_feature_dim,
-        args.num_parts,
-        seed=args.seed,
-        num_classes=args.num_classes,
-        sparsity=args.sparsity,
-    )
+    err = _gen_data_error(args)
+    if err:
+        print(f"error: {err}", file=sys.stderr)
+        return 2
+    if args.ctr_raw:
+        # raw categorical shards: the blocked_lr format, hashed at load time
+        manifest = hashing.write_raw_ctr_shards(
+            args.data_dir, args.num_samples, args.ctr_fields, args.ctr_vocab,
+            args.num_parts, seed=args.seed, num_distinct_tuples=args.ctr_tuples or None)
+    elif args.ctr_fields:
+        # hashed one-hot CTR shards: num-feature-dim is the bucket count
+        manifest = hashing.write_ctr_shards(
+            args.data_dir, args.num_samples, args.ctr_fields, args.ctr_vocab,
+            args.num_feature_dim, args.num_parts, seed=args.seed)
+    else:
+        manifest = synthetic.write_synthetic_shards(
+            args.data_dir, args.num_samples, args.num_feature_dim, args.num_parts,
+            seed=args.seed, num_classes=args.num_classes, sparsity=args.sparsity)
     log.info("wrote %d train shards + test to %s", len(manifest["train_parts"]), args.data_dir)
     return 0
 
@@ -110,7 +180,7 @@ def main(argv=None) -> int:
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = parser.add_subparsers(dest="cmd", required=True)
 
-    g = sub.add_parser("gen-data", help="write seeded synthetic libsvm shards")
+    g = sub.add_parser("gen-data", help="write seeded synthetic libsvm or CTR shards")
     g.add_argument("--data-dir", required=True)
     g.add_argument("--num-samples", type=int, default=10000)
     g.add_argument("--num-feature-dim", type=int, default=123)
@@ -118,6 +188,18 @@ def main(argv=None) -> int:
     g.add_argument("--seed", type=int, default=0)
     g.add_argument("--num-classes", type=int, default=2)
     g.add_argument("--sparsity", type=float, default=0.5)
+    g.add_argument("--ctr-fields", type=int, default=0,
+                   help="if >0: write hashed one-hot CTR shards with this many "
+                   "categorical fields (sparse workloads; --num-feature-dim "
+                   "becomes the bucket count)")
+    g.add_argument("--ctr-vocab", type=int, default=100_000,
+                   help="raw categorical vocabulary size for --ctr-fields")
+    g.add_argument("--ctr-raw", action="store_true",
+                   help="with --ctr-fields: write RAW categorical shards (the "
+                   "blocked_lr format) instead of pre-hashed one-hot rows")
+    g.add_argument("--ctr-tuples", type=int, default=0,
+                   help="with --ctr-raw: draw rows from this many distinct "
+                   "field-value tuples (correlated fields) instead of i.i.d. fields")
     g.set_defaults(fn=cmd_gen_data)
 
     s = sub.add_parser("sync", help="synchronous data-parallel training (one card)")

@@ -1,1 +1,8 @@
-from distlr_tpu_torch.models.linear import BinaryLR, get_model  # noqa: F401
+from distlr_tpu_torch.models.linear import (  # noqa: F401
+    BinaryLR,
+    BlockedSparseLR,
+    SoftmaxRegression,
+    SparseBinaryLR,
+    SparseSoftmaxRegression,
+    get_model,
+)

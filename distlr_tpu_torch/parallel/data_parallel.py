@@ -18,7 +18,6 @@ from __future__ import annotations
 import torch
 
 from distlr_tpu_torch.config import Config
-from distlr_tpu_torch.models.linear import logloss_terms
 
 
 def _blocks(batch, num_shards: int):
@@ -62,15 +61,16 @@ def make_sync_train_step(model, cfg: Config, num_shards: int):
 
 def make_eval_step(model):
     """``evaluate(w, batch) -> {"accuracy", "logloss"}``: exact global
-    masked means over the whole eval batch (the JAX step's psum'd sums)."""
+    masked means over the whole eval batch ``(*inputs, y, mask)`` (the JAX
+    step's psum'd sums), from one forward: X is read once."""
 
     def evaluate(w, batch):
-        X, y, mask = batch
-        z = model.logits(w, X)
+        *inputs, y, mask = batch
+        z = model.logits(w, *inputs)
         m = mask.to(torch.float32)
-        correct = torch.sum(((z > 0).to(torch.int32) == y).to(torch.float32) * m)
-        ll = logloss_terms(z, y)
+        correct = torch.sum((model.predict_from_logits(z) == y).to(torch.float32) * m)
         total = torch.clamp(m.sum(), min=1.0)
-        return {"accuracy": correct / total, "logloss": torch.sum(ll * m) / total}
+        return {"accuracy": correct / total,
+                "logloss": torch.sum(model.row_loss(z, y) * m) / total}
 
     return evaluate

@@ -23,6 +23,12 @@ import numpy as np
 import torch
 
 from distlr_tpu_torch.config import Config
+from distlr_tpu_torch.data.hashing import (
+    csr_to_padded_coo,
+    encode_blocked,
+    read_raw_ctr_file,
+    resolve_ctr_fields,
+)
 from distlr_tpu_torch.data.libsvm import parse_libsvm_file
 from distlr_tpu_torch.data.sharding import part_name
 from distlr_tpu_torch.models import get_model
@@ -52,7 +58,7 @@ def _pad_rows(arr, b: int):
 
 class GlobalShardedData:
     """W per-worker shards packed as one global array with lockstep batching
-    (copy of the JAX package's class, dense shards only).
+    (copy of the JAX package's class).
 
     Shards are padded to a common length ``n_pad`` and stacked to
     ``(W, n_pad, ...)``; a global minibatch of per-worker size ``b`` is the
@@ -63,7 +69,9 @@ class GlobalShardedData:
     """
 
     def __init__(self, shards: list[tuple[np.ndarray, ...]]):
-        """Each shard is ``(X, y)``; both share the sample (leading) axis."""
+        """Each shard is ``(*feature_leaves, y)``: dense ``(X, y)``, padded
+        COO ``(cols, vals, y)`` or blocked ``(blocks, lane_vals, y)``; all
+        leaves share the sample (leading) axis."""
         if not shards:
             raise ValueError("need at least one shard")
         self.num_shards = len(shards)
@@ -73,6 +81,7 @@ class GlobalShardedData:
             raise ValueError("all shards are empty — no training data")
         W = self.num_shards
         n_feat_leaves = len(shards[0]) - 1
+        # sparse shards may disagree on NNZ_MAX; pad trailing dims to match
         trail = [
             tuple(
                 max(s[k].shape[j] for s in shards)
@@ -104,12 +113,38 @@ class GlobalShardedData:
         return self._feats[0]
 
     @classmethod
-    def from_data_dir(cls, data_dir: str, split: str, num_shards: int, num_features: int):
+    def from_data_dir(cls, data_dir: str, split: str, num_shards: int, num_features: int,
+                      *, multiclass: bool = False, sparse: bool = False,
+                      nnz_max: int | None = None):
         """Load ``data_dir/{split}/part-001..`` (reference layout,
         ``src/main.cc:158-159``). If fewer parts exist than shards, parts
-        are round-robined; if more, they are concatenated down."""
-        parts = [parse_libsvm_file(p, num_features)
-                 for p in cls._discover_parts(data_dir, split)]
+        are round-robined; if more, they are concatenated down.
+
+        ``multiclass`` keeps integer labels verbatim; ``sparse`` keeps rows
+        as padded-COO ``(cols, vals)`` leaves, ``nnz_max`` wide, instead of
+        densifying them."""
+        parts = []
+        for p in cls._discover_parts(data_dir, split):
+            if sparse:
+                (row_ptr, cols, vals), y = parse_libsvm_file(
+                    p, num_features, dense=False, multiclass=multiclass)
+                parts.append((*csr_to_padded_coo(row_ptr, cols, vals, nnz_max=nnz_max), y))
+            else:
+                parts.append(parse_libsvm_file(p, num_features, multiclass=multiclass))
+        return cls._from_parts(parts, num_shards)
+
+    @classmethod
+    def from_raw_ctr_dir(cls, data_dir: str, split: str, num_shards: int, cfg: Config):
+        """Load raw-CTR shards (``write_raw_ctr_shards``) as row-blocked
+        leaves ``(blocks, lane_vals, y)`` for ``blocked_lr``.  The hash runs
+        here, at load time, so train and test share grouping and seed."""
+        num_fields = resolve_ctr_fields(data_dir, cfg.ctr_fields)
+        num_blocks = cfg.num_feature_dim // cfg.block_size
+        parts = []
+        for p in cls._discover_parts(data_dir, split):
+            raw_ids, y = read_raw_ctr_file(p, num_fields)
+            parts.append((*encode_blocked(raw_ids, num_blocks, cfg.block_size,
+                                          seed=cfg.hash_seed, num_groups=cfg.block_groups), y))
         return cls._from_parts(parts, num_shards)
 
     @staticmethod
@@ -131,7 +166,15 @@ class GlobalShardedData:
         """Redistribute loaded parts onto ``num_shards`` slots (round-robin
         split when fewer parts, interleaved merge when more)."""
         if len(parts) != num_shards:
-            leaves = [np.concatenate([p[k] for p in parts]) for k in range(len(parts[0]))]
+
+            def _concat(arrs):
+                # sparse parts may disagree on their trailing dims (NNZ_MAX)
+                trail = tuple(max(a.shape[j] for a in arrs) for j in range(1, arrs[0].ndim))
+                return np.concatenate([
+                    np.pad(a, [(0, 0)] + [(0, t - s) for t, s in zip(trail, a.shape[1:])])
+                    for a in arrs])
+
+            leaves = [_concat([p[k] for p in parts]) for k in range(len(parts[0]))]
             shards = [
                 tuple(leaf[i::num_shards] for leaf in leaves) for i in range(num_shards)
             ]
@@ -277,22 +320,33 @@ class Trainer:
     # -- data ---------------------------------------------------------------
     def load_data(self, train: GlobalShardedData | None = None,
                   test: GlobalShardedData | None = None, *, test_only: bool = False):
-        """Load the data dir's splits (or take the given datasets).
-        ``test_only=True`` skips the train split — eval-only workflows,
-        float32 features only."""
+        """Load the data dir's splits (or take the given datasets) in the
+        layout the model family reads: dense ``X`` (``binary_lr``,
+        ``softmax``), padded COO (``sparse_*``) or raw-CTR shards hashed to
+        row blocks (``blocked_lr``).  ``test_only=True`` skips the train
+        split — eval-only workflows, float32 features only."""
         cfg = self.cfg
         if test_only:
             if train is not None:
                 raise ValueError("test_only=True contradicts passing train data")
             if cfg.feature_dtype != "float32":
                 raise ValueError("test_only loading requires feature_dtype='float32'")
-            self._test_data = test or GlobalShardedData.from_data_dir(
-                cfg.data_dir, "test", self.num_shards, cfg.num_feature_dim)
+        if cfg.model == "blocked_lr":
+            def load(split):
+                return GlobalShardedData.from_raw_ctr_dir(cfg.data_dir, split,
+                                                          self.num_shards, cfg)
+        else:
+            def load(split):
+                return GlobalShardedData.from_data_dir(
+                    cfg.data_dir, split, self.num_shards, cfg.num_feature_dim,
+                    multiclass=cfg.model in ("softmax", "sparse_softmax"),
+                    sparse=cfg.model in ("sparse_lr", "sparse_softmax"),
+                    nnz_max=cfg.nnz_max)
+        self._test_data = test or load("test")
+        if test_only:
             return self
-        self._train_data = train or GlobalShardedData.from_data_dir(
-            cfg.data_dir, "train", self.num_shards, cfg.num_feature_dim)
-        self._test_data = test or GlobalShardedData.from_data_dir(
-            cfg.data_dir, "test", self.num_shards, cfg.num_feature_dim)
+        self._train_data = train or load("train")
+        # feature_dtype is float32 for the sparse families (Config)
         if cfg.feature_dtype != "float32":
             self._quantize_features()
         elif any(getattr(d, "_quant_dtype", None)

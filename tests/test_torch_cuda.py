@@ -253,6 +253,85 @@ def test_trainer_on_card_matches_cpu(cuda):
     torch.testing.assert_close(w_card.cpu(), on_cpu.fit(), rtol=1e-4, atol=1e-5)
 
 
+# --- the other model families (library GEMMs, gathers and index_add_) -------
+def _family_shards(family, seed=0):
+    """Two shards of one family's leaves, made with numpy from ``seed``."""
+    import numpy as np
+
+    from distlr_tpu_torch.data.hashing import encode_blocked, make_ctr_dataset
+
+    rng = np.random.default_rng(seed)
+    if family == "softmax":
+        X = rng.standard_normal((400, 40)).astype(np.float32)
+        leaves = (X, rng.integers(0, 5, 400).astype(np.int32))
+    else:
+        raw, cols, vals, y, _ = make_ctr_dataset(400, 6, 50, 4096, seed=seed)
+        if family == "sparse_softmax":
+            y = rng.integers(0, 5, 400).astype(np.int32)
+        leaves = (*encode_blocked(raw, 4096 // 8, 8, seed=seed), y) if family == "blocked_lr" \
+            else (cols, vals, y)
+    return [tuple(a[:200] for a in leaves), tuple(a[200:] for a in leaves)]
+
+
+@pytest.mark.parametrize("compat_mode", ["correct", "reference"])
+@pytest.mark.parametrize("family", ["softmax", "sparse_lr", "sparse_softmax", "blocked_lr"])
+def test_family_step_on_card_matches_cpu(cuda, family, compat_mode):
+    """Five epochs of 64-row steps over two workers' shards on the card and
+    on the CPU land on the same weights: the sparse scatters add
+    atomically in another order, dense softmax sums its bf16 products in
+    another order (rel 1e-4 / 1e-3)."""
+    D = 40 if family == "softmax" else 4096
+    kw = dict(model=family, num_feature_dim=D, num_classes=5, num_iteration=5, batch_size=64,
+              num_workers=2, learning_rate=0.3, l2_c=0.01, test_interval=0,
+              compat_mode=compat_mode)
+    on_card = Trainer(Config(**kw)).load_data(train=GlobalShardedData(_family_shards(family)),
+                                              test=GlobalShardedData(_family_shards(family, 1)))
+    on_cpu = Trainer(Config(device="cpu", **kw)).load_data(
+        train=GlobalShardedData(_family_shards(family)),
+        test=GlobalShardedData(_family_shards(family, 1)))
+    w0 = on_cpu.init_weights() + 0.01
+    on_card.weights, on_cpu.weights = w0.cuda(), w0.clone()
+    ops.reset_launch_counts()
+    w_card = on_card.fit()
+    assert w_card.is_cuda and w_card.shape == on_card.model.param_shape
+    assert not any(_counts().values())  # no kernel of ops is on these paths
+    w_cpu = on_cpu.fit()
+    assert _rel(w_card.cpu(), w_cpu) <= (1e-3 if family == "softmax" else 1e-4)
+    m_card, m_cpu = on_card.evaluate_metrics(), on_cpu.evaluate_metrics()
+    assert abs(m_card["logloss"] - m_cpu["logloss"]) <= 1e-4 * abs(m_cpu["logloss"])
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 1000, 10), (2048, 96, 10), (5, 13, 3)])
+def test_bf16_mm_has_an_f32_result(cuda, m, k, n):
+    """``torch.mm(a, b, out_dtype=torch.float32)`` on bf16 operands returns
+    f32, equal to the f32 product of the same bf16 values up to the order
+    of the f32 sums (not rounded to bf16)."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(m, k, device=cuda, generator=gen).to(torch.bfloat16)
+    b = torch.randn(k, n, device=cuda, generator=gen).to(torch.bfloat16)
+    got = torch.mm(a, b, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    want = a.float() @ b.float()
+    assert _rel(got, want) <= 1e-5
+    assert _rel(torch.mm(a.t().contiguous().t(), b, out_dtype=torch.float32), want) <= 1e-5
+    if k >= 96:  # a bf16 result would be off by ~2^-9 of the largest value
+        assert not torch.equal(got, (a @ b).float())
+
+
+def test_softmax_products_on_card_match_cpu(cuda):
+    """The dense softmax model's forward and backward GEMMs on a bf16 X on
+    the card against the same model on the CPU."""
+    from distlr_tpu_torch.models import SoftmaxRegression
+
+    gen = torch.Generator().manual_seed(1)
+    X = torch.randn(300, 777, generator=gen).to(torch.bfloat16)
+    W = torch.randn(777, 10, generator=gen) * 0.1
+    R = torch.randn(300, 10, generator=gen)
+    m = SoftmaxRegression(777, 10)
+    assert _rel(m.logits(W.cuda(), X.cuda()).cpu(), m.logits(W, X)) <= 1e-5
+    assert _rel(m._backward(W.cuda(), (X.cuda(),), R.cuda()).cpu(), m._backward(W, (X,), R)) <= 1e-5
+
+
 # --- the on-device generation probes (ops/gen_roofline.py) -------------------
 def _roofline_calls(cuda, bt, dt, reps, seed=0):
     """kernel name -> (wrapper call, plain call) on the same inputs."""

@@ -48,7 +48,8 @@ def test_fresh_interpreter_imports_no_jax():
     for mod in ("distlr_tpu_torch.launch", "distlr_tpu_torch.train.trainer",
                 "distlr_tpu_torch.ops.fused_lr", "distlr_tpu_torch.convert",
                 "distlr_tpu_torch.ops.gen_roofline", "distlr_tpu_torch.benchmarks.exp_gen_roofline",
-                "distlr_tpu_torch.benchmarks.exp_gen_roofline2"):
+                "distlr_tpu_torch.benchmarks.exp_gen_roofline2", "distlr_tpu_torch.data.hashing",
+                "distlr_tpu_torch.models.linear"):
         assert mod in doc["imported"]
     assert doc["leaked"] == []
 

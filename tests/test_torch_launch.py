@@ -61,9 +61,9 @@ class TestCLI:
 
     def test_unported_option_names_its_roadmap_item(self, tmp_path):
         proc = _launch("sync", "--data-dir", str(tmp_path), "--model", "softmax",
-                       "--device", "cpu", check=False)
+                       "--feature-dtype", "int8_dot", "--device", "cpu", check=False)
         assert proc.returncode != 0
-        assert "ROADMAP A.2" in proc.stderr
+        assert "ROADMAP A.3" in proc.stderr
 
 
 class TestDeviceRule:

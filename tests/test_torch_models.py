@@ -137,8 +137,8 @@ class TestConvert:
 
 class TestConfigGates:
     @pytest.mark.parametrize("kw,item", [
-        ({"model": "softmax"}, "A.2"),
-        ({"model": "sparse_lr"}, "A.4"),
+        ({"model": "softmax", "feature_dtype": "int8_dot"}, "A.3"),
+        ({"model": "sparse_lr", "sync_mode": False}, "A.9"),
         ({"feature_dtype": "int8"}, "A.3"),
         ({"feature_dtype": "int8_dot"}, "A.3"),
         ({"feature_shards": 2}, "A.7"),
@@ -164,6 +164,7 @@ class TestConfigGates:
                   "num_iteration", "batch_size", "test_interval", "random_seed",
                   "l2_c", "model", "compute_dtype", "feature_dtype", "compat_mode",
                   "num_workers", "feature_shards", "prefetch", "checkpoint_dir",
-                  "checkpoint_interval", "profile_dir"):
+                  "checkpoint_interval", "profile_dir", "num_classes", "nnz_max",
+                  "block_size", "block_groups", "ctr_fields", "hash_seed"):
             assert getattr(t, f) == getattr(j, f), f
         assert t.device == "cuda"
