@@ -8,17 +8,20 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 It builds the port's CUDA kernels from the sources in the checkout,
 holds each against its plain PyTorch version on the card, drives the
 port's main path — the sync dense-LR trainer at the repo's full width
-(D = 1,000,000 features, 2048 rows a step, bfloat16 features) — through
+(D = 1,000,000 features, 2048 rows a step, bfloat16 features, then the
+same rows stored as int8 and as int8_dot) — through
 ``Trainer.load_data / fit / evaluate_metrics / save_model``, then the same
 trainer at a width above the single-pass kernel's shared-memory bound (D =
 6,000,000, where the two-read path takes over: the streaming forward in
-several waves, a residual epilogue, the backward), then the four other
+several waves, a residual epilogue, the backward; bfloat16 and int8
+features), then the four other
 model families through ``Trainer.fit`` at the repo's published shapes
 (``sparse_lr``, ``sparse_softmax`` and ``blocked_lr`` at the Avazu-style
 D = 1M buckets, 21 fields, 65,536 rows a step; ``softmax`` at the
 MNIST-shaped D = 784, K = 10, 60,000 rows, and its step alone at D = 1M,
 2048 rows), then the ``gen-data -> sync -> eval`` CLI in subprocesses for
-every family, and last the path of the
+every family and an int8_dot sync that checkpoints and resumes, and last
+the path of the
 on-device generation probes: both roofline experiments
 (``distlr_tpu_torch.benchmarks.exp_gen_roofline*``) at the published
 (256, 8192) x 64 tile, in this process and as ``python -m``.  Each phase
@@ -80,6 +83,7 @@ FAMILY_STEPS = 3
 # sparse gradients add atomically in any order; softmax rounds to bf16
 FAMILY_TOL = {"sparse_lr": 1e-4, "sparse_softmax": 1e-4, "blocked_lr": 1e-4, "softmax": 1e-3}
 FUSED_SOURCE = "distlr_tpu_torch/ops/csrc/fused_lr_grad.cu"
+INT8_SOURCE = "distlr_tpu_torch/ops/csrc/fused_lr_int8.cu"
 # wrapper -> the Pallas kernel it replaces
 FUSED_REPLACES = {
     "fused_lr_grad": "distlr_tpu/ops/pallas_lr.py:86",
@@ -87,6 +91,20 @@ FUSED_REPLACES = {
     "fused_lr_grad_two_launch": "distlr_tpu/ops/pallas_lr.py:86",
     "lr_logits_row_blocks": "distlr_tpu/ops/pallas_lr.py:75",
 }
+# the int8 instances of the same kernels (K1-K3; the same wrappers launch
+# them for an int8 X and count them apart) and the int8_dot pair (K4)
+INT8_REPLACES = {
+    "fused_lr_grad_int8": "distlr_tpu/ops/pallas_lr.py:86",
+    "lr_logits_int8": "distlr_tpu/ops/pallas_lr.py:75",
+    "fused_lr_grad_two_launch_int8": "distlr_tpu/ops/pallas_lr.py:86",
+    "lr_logits_row_blocks_int8": "distlr_tpu/ops/pallas_lr.py:75",
+    "lr_logits_int8dot": "distlr_tpu/ops/pallas_lr.py:75",
+    "lr_backward_int8dot": "distlr_tpu/ops/pallas_lr.py:86",
+}
+INT8_NOTE = ("int8_dot instance of row 1: the JAX model contracts int8 x int8 with XLA dots "
+             "here (distlr_tpu/models/linear.py:184-187, :211-218)")
+# an int8 X's dequantization scale in the kernel checks (z = s * X.w ~ 1)
+INT8_SCALE = 3.0 / 127.0
 
 
 def emit(phase: str, **kv) -> None:
@@ -128,14 +146,15 @@ def phase_env(torch) -> dict:
 
 
 def phase_build() -> None:
-    """Both kernel sources, one nvcc each, started together."""
+    """Every kernel source, one nvcc each, started together."""
     from distlr_tpu_torch.ops import build, fused_lr, gen_roofline  # noqa: PLC0415
 
     t0 = time.perf_counter()
-    names = ("fused_lr_grad", "gen_roofline")
+    names = ("fused_lr_grad", "fused_lr_int8", "gen_roofline")
     with ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(build.build, names))
     fused_lr._lib()
+    fused_lr._int8_lib()
     gen_roofline._lib()
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[os.path.relpath(p, ROOT) for p in paths])
@@ -416,6 +435,255 @@ def time_two_launch(torch, seed: int, results: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def _int8_inputs(torch, gen, B, D, masked_tail=0):
+    """An int8 X of uniform values in [-127, 127], w ~ N(0, 1/D), labels
+    and a mask with ``masked_tail`` padded rows."""
+    X = torch.randint(-127, 128, (B, D), device="cuda", generator=gen, dtype=torch.int8)
+    w = torch.randn(D, device="cuda", generator=gen) / math.sqrt(D)
+    y = (torch.rand(B, device="cuda", generator=gen) < 0.5).to(torch.int32)
+    mask = torch.ones(B, device="cuda")
+    if masked_tail:
+        mask[-masked_tail:] = 0
+    return w, X, y, mask
+
+
+def _int8_check(torch, ops, fused_lr, gen, B, D, tail, cd) -> dict:
+    """K1-K4 at (B, D) against their plain versions, with the launches each
+    call counted; the int8_dot backward is given the forward's residuals
+    (the plain version quantizes the same r)."""
+    s = INT8_SCALE
+    w, X, y, mask = _int8_inputs(torch, gen, B, D, tail)
+    single = fused_lr.launch_plan_for(X, cd).single_pass
+    single_logits = fused_lr.launch_plan_for(X, cd, "logits").single_pass
+    before = _launches(ops)
+    kw = dict(compute_dtype=cd, feature_scale=s)
+    g1, z1 = ops.fused_lr_grad(w, X, y, mask, with_logits=True, **kw)
+    z2 = ops.lr_logits(w, X, **kw)
+    g3 = ops.fused_lr_grad_two_launch(w, X, y, mask, **kw)
+    z3 = ops.lr_logits_row_blocks(w, X, **kw)
+    z4, r4 = ops.lr_logits_int8dot(w, X, y, mask, feature_scale=s)
+    g4 = ops.lr_backward_int8dot(X, r4, feature_scale=s)
+    torch.cuda.synchronize()
+    after = _launches(ops)
+    moved = {k: after[k] - before[k] for k in INT8_REPLACES}
+    want = {"fused_lr_grad_int8": int(single), "lr_logits_int8": int(single_logits),
+            "fused_lr_grad_two_launch_int8": 1 + (not single),
+            "lr_logits_row_blocks_int8": 1 + (not single_logits), "lr_logits_int8dot": 1,
+            "lr_backward_int8dot": 1}
+    if moved != want or any(after[k] != before[k] for k in FUSED_REPLACES):
+        raise AssertionError(f"int8 wrappers did not count their launches at {(B, D)}: {moved}")
+    g_ref = ops.fused_lr_grad_reference(w, X, y, mask, compute_dtype=cd, feature_scale=s)
+    z_ref = ops.lr_logits_reference(w, X, compute_dtype=cd, feature_scale=s)
+    pairs = {"fused_lr_grad_int8": (g1, g_ref), "lr_logits_int8": (z2, z_ref),
+             "fused_lr_grad_two_launch_int8": (g3, g_ref),
+             "lr_logits_row_blocks_int8": (z3, z_ref),
+             "lr_logits_int8dot": (z4, ops.lr_logits_int8dot_reference(w, X, feature_scale=s)),
+             "lr_backward_int8dot": (g4, ops.lr_backward_int8dot_reference(X, r4,
+                                                                          feature_scale=s))}
+    rel = {k: rel_err(a, b) for k, (a, b) in pairs.items()}
+    rel["with_logits"] = rel_err(z1, z_ref)
+    out = {"B": B, "D": D, "masked_tail": tail, "compute_dtype": cd, "single_pass": single,
+           "rel_err": rel, "max_abs_err": {k: float((a - b).abs().max())
+                                           for k, (a, b) in pairs.items()}}
+    emit("kernel_check", x_dtype="torch.int8", feature_scale=s, **out)
+    if not max(rel.values()) <= REL_TOL:
+        raise AssertionError(f"an int8 kernel disagrees with its plain version at "
+                             f"{(B, D, cd)}: {rel}")
+    return out
+
+
+def _int8_wrap_checks(torch, ops) -> dict:
+    """The int8_dot pair where one int32 sum would wrap, against the closed
+    form: the backward over 140,000 rows of 4,096 all-127 columns with
+    every residual 1 (rq all 127: 127^2 * 140,000 = 2.26e9 > 2^31), and the
+    forward at (8, 1M) all 127 with w all 1 (127^2 * 1M)."""
+    from distlr_tpu_torch.ops.int8 import sym_scale  # noqa: PLC0415
+
+    one = torch.ones((), device="cuda")
+    s_unit = float(sym_scale(one))  # the grid step of max |v| = 1
+    out = {}
+    X = torch.full((140_000, 4096), 127, dtype=torch.int8, device="cuda")
+    r = torch.ones(140_000, device="cuda")
+    g = ops.lr_backward_int8dot(X, r)
+    closed = 127.0 * 127.0 * 140_000 * s_unit
+    out["backward_140000x4096"] = {
+        "rel_err_vs_closed_form": float((g.double() - closed).abs().max() / closed),
+        "rel_err_vs_plain": rel_err(g, ops.lr_backward_int8dot_reference(X, r)),
+        "int32_would_wrap": 127 * 127 * 140_000 > 2**31 - 1}
+    del X, g
+    X = torch.full((8, FULL_D), 127, dtype=torch.int8, device="cuda")
+    z = ops.lr_logits_int8dot(torch.ones(FULL_D, device="cuda"), X)
+    closed = 127.0 * 127.0 * FULL_D * s_unit
+    out["forward_8x1M"] = {
+        "rel_err_vs_closed_form": float((z.double() - closed).abs().max() / closed),
+        "rel_err_vs_plain": rel_err(z, ops.lr_logits_int8dot_reference(
+            torch.ones(FULL_D, device="cuda"), X)),
+        "int32_would_wrap": 127 * 127 * FULL_D > 2**31 - 1}
+    del X, z
+    emit("kernel_check", case="int8_dot_wrap", **out)
+    if max(max(v["rel_err_vs_closed_form"], v["rel_err_vs_plain"]) for v in out.values()) > 1e-6:
+        raise AssertionError(f"an int8_dot kernel wrapped or drifted: {out}")
+    return out
+
+
+def _int8_mm_check(torch) -> None:
+    """The int8 GEMM under the plain int8_dot versions (``torch._int_mm``
+    padded to its shape rules) against f64 products, which are exact for
+    these integer sums."""
+    from distlr_tpu_torch.ops.int8 import int8_mm  # noqa: PLC0415
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    exact = {}
+    for m, k, n in ((1, 2048, 1000), (37, 1003, 10), (2048, 125_000, 1)):
+        a = torch.randint(-127, 128, (m, k), device="cuda", generator=gen, dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), device="cuda", generator=gen, dtype=torch.int8)
+        got = int8_mm(a, b)
+        exact[f"{m}x{k}x{n}"] = bool(got.dtype == torch.int32 and torch.equal(
+            got.double(), a.double() @ b.double()))
+    emit("kernel_check", case="int8_mm", exact=exact)
+    if not all(exact.values()):
+        raise AssertionError(f"torch._int_mm under the plain int8 versions is not exact: {exact}")
+
+
+def phase_int8_kernels(torch, seed: int) -> dict:
+    """K1-K4 against their plain versions at the main path's shape with
+    both product types, the two-read instances at (64, 6M), an odd shape
+    with a masked tail and small ones, the wrap checks, the same bits on a
+    second call; then each one's times at the shape its path gives it."""
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.ops import fused_lr  # noqa: PLC0415
+    from distlr_tpu_torch.ops.int8 import quantize_sym  # noqa: PLC0415
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    results = {k: {"rel_err": 0.0} for k in INT8_REPLACES}
+    cases = [(64, 256, 10), (5, 13, 1), (1, 333, 0), (37, 1_000_003, 5),
+             (FULL_B, FULL_D, 48), (WIDE_B, WIDE_D, 6)]
+    for B, D, tail in cases:
+        for cd in ("bfloat16", "float32"):
+            chk = _int8_check(torch, ops, fused_lr, gen, B, D, tail, cd)
+            for k, v in chk["rel_err"].items():
+                if k in results:
+                    results[k]["rel_err"] = max(results[k]["rel_err"], v)
+            if (B, D, cd) == (FULL_B, FULL_D, "bfloat16"):
+                for k in ("fused_lr_grad_int8", "lr_logits_int8", "lr_logits_int8dot",
+                          "lr_backward_int8dot"):
+                    results[k]["max_abs_err"] = chk["max_abs_err"][k]
+            if (B, D, cd) == (WIDE_B, WIDE_D, "bfloat16"):
+                for k in ("fused_lr_grad_two_launch_int8", "lr_logits_row_blocks_int8"):
+                    results[k]["max_abs_err"] = chk["max_abs_err"][k]
+            torch.cuda.empty_cache()
+    wrap = _int8_wrap_checks(torch, ops)
+    _int8_mm_check(torch)
+
+    s, reps = INT8_SCALE, 25
+    B, D = FULL_B, FULL_D
+    w, X, y, mask = _int8_inputs(torch, gen, B, D, 48)
+    same = {
+        "fused_lr_grad_int8": bool(torch.equal(
+            ops.fused_lr_grad(w, X, y, mask, feature_scale=s),
+            ops.fused_lr_grad(w, X, y, mask, feature_scale=s))),
+        "lr_logits_int8": bool(torch.equal(ops.lr_logits(w, X, feature_scale=s),
+                                           ops.lr_logits(w, X, feature_scale=s))),
+        "fused_lr_grad_int8dot": bool(torch.equal(
+            ops.fused_lr_grad_int8dot(w, X, y, mask, feature_scale=s),
+            ops.fused_lr_grad_int8dot(w, X, y, mask, feature_scale=s)))}
+    emit("kernel_check", B=B, D=D, x_dtype="torch.int8", case="deterministic", same_bits=same)
+    if not all(same.values()):
+        raise AssertionError(f"an int8 kernel gave other bits on a second call: {same}")
+
+    wb, yf = w.to(torch.bfloat16), y.to(torch.float32)
+    wq = quantize_sym(w, torch.amax(w.abs()))[0]
+    z, r = ops.lr_logits_int8dot(w, X, y, mask, feature_scale=s)
+    rq = quantize_sym(r, torch.amax(r.abs()))[0]
+    # column-major, the layout cuBLASLt's int8 GEMM takes for its second operand
+    wq8 = torch.zeros(8, D, dtype=torch.int8, device="cuda")
+    wq8[0] = wq
+    wq8 = wq8.t()
+    rq24 = torch.zeros(24, B, dtype=torch.int8, device="cuda")
+    rq24[0] = rq
+
+    def convert_grad():
+        Xb = X.to(torch.bfloat16)
+        res = (torch.sigmoid(torch.mv(Xb, wb).float() * s) - yf) * mask
+        return torch.mv(Xb.t(), res.to(torch.bfloat16)) * s
+
+    composite = ("no single call reads int8 X into float products: the composite "
+                 "X.to(bf16) + mv + sigmoid + mv of X^T")
+    grad_bound, grad_by = _grad_bound(B, D, 1)
+    logits_bound, logits_by = _logits_bound(B, D, 1)
+    t_bwd = (B * D + B * 4 + D * 4) / HBM_BYTES_PER_S
+    timing = {
+        "fused_lr_grad_int8": dict(
+            ms=time_ms(lambda: ops.fused_lr_grad(w, X, y, mask, feature_scale=s), reps),
+            plain_ms=time_ms(lambda: ops.fused_lr_grad_reference(w, X, y, mask,
+                                                                 feature_scale=s), reps),
+            library_ms=time_ms(convert_grad, reps), library_note=composite,
+            bound_ms=grad_bound, bound_by=grad_by,
+            plan=_plan_fields(fused_lr.launch_plan_for(X))),
+        "lr_logits_int8": dict(
+            ms=time_ms(lambda: ops.lr_logits(w, X, feature_scale=s), reps),
+            plain_ms=time_ms(lambda: ops.lr_logits_reference(w, X, feature_scale=s), reps),
+            library_ms=time_ms(lambda: torch.mv(X.to(torch.bfloat16), wb) * s, reps),
+            library_note="no single call: the composite X.to(bf16) + mv",
+            bound_ms=logits_bound, bound_by=logits_by,
+            plan=_plan_fields(fused_lr.launch_plan_for(X, kernel="logits"))),
+        "lr_logits_int8dot": dict(
+            ms=time_ms(lambda: ops.lr_logits_int8dot(w, X, feature_scale=s), reps),
+            plain_ms=time_ms(lambda: ops.lr_logits_int8dot_reference(w, X, feature_scale=s),
+                             reps),
+            library_ms=time_ms(lambda: torch._int_mm(X, wq8), reps),
+            library_note="torch._int_mm(X, wq) with wq padded to 8 columns, column-major "
+                         "(no wrap guard)",
+            bound_ms=logits_bound, bound_by=logits_by,
+            plan=_plan_fields(fused_lr.int8dot_plan_for(X))),
+        "lr_backward_int8dot": dict(
+            ms=time_ms(lambda: ops.lr_backward_int8dot(X, r, feature_scale=s), reps),
+            plain_ms=time_ms(lambda: ops.lr_backward_int8dot_reference(X, r, feature_scale=s),
+                             reps),
+            library_ms=time_ms(lambda: torch._int_mm(rq24, X), reps),
+            library_note="torch._int_mm(rq, X) with rq padded to 24 rows (no wrap guard)",
+            bound_ms=1e3 * t_bwd, bound_by="bytes"),
+    }
+    timing["lr_backward_int8dot"]["pair_ms"] = time_ms(
+        lambda: ops.fused_lr_grad_int8dot(w, X, y, mask, feature_scale=s), reps)
+    timing["lr_backward_int8dot"]["pair_bound_ms"] = 1e3 * (2 * B * D) / HBM_BYTES_PER_S
+    for name, t in timing.items():
+        results[name].update(t)
+        emit("kernel_timing", kernel=name, B=B, D=D, x_dtype="int8", reps=reps, **results[name])
+    del X, w, y, mask, z, r, rq, wq8, rq24
+    torch.cuda.empty_cache()
+
+    # the two-read path's int8 instances at the shape its trainer gives them
+    B, D = WIDE_B, WIDE_D
+    w, X, y, mask = _int8_inputs(torch, gen, B, D)
+    wb, yf = w.to(torch.bfloat16), y.to(torch.float32)
+    bound_ms, bound_by = _grad_bound(B, D, 1)
+    plan = _plan_fields(fused_lr.wide_plan_for(X))
+    results["fused_lr_grad_two_launch_int8"].update(
+        ms=time_ms(lambda: ops.fused_lr_grad_two_launch(w, X, y, mask, feature_scale=s),
+                   reps),
+        plain_ms=time_ms(lambda: ops.fused_lr_grad_reference(w, X, y, mask, feature_scale=s),
+                         reps),
+        library_ms=time_ms(convert_grad, reps), library_note=composite,
+        bound_ms=bound_ms, bound_by=bound_by, shape=[B, D],
+        two_read_floor_ms=_two_read_floor_ms(B, D, 1), plan=plan)
+    bound_ms, bound_by = _logits_bound(B, D, 1)
+    results["lr_logits_row_blocks_int8"].update(
+        ms=time_ms(lambda: ops.lr_logits_row_blocks(w, X, feature_scale=s), reps),
+        plain_ms=time_ms(lambda: ops.lr_logits_reference(w, X, feature_scale=s), reps),
+        library_ms=time_ms(lambda: torch.mv(X.to(torch.bfloat16), wb) * s, reps),
+        library_note="no single call: the composite X.to(bf16) + mv",
+        bound_ms=bound_ms, bound_by=bound_by, shape=[B, D], plan=plan)
+    for name in ("fused_lr_grad_two_launch_int8", "lr_logits_row_blocks_int8"):
+        emit("kernel_timing", kernel=name, B=B, D=D, x_dtype="int8", reps=reps,
+             **results[name])
+    results["lr_logits_int8dot"]["wrap"] = wrap["forward_8x1M"]
+    results["lr_backward_int8dot"]["wrap"] = wrap["backward_140000x4096"]
+    del X, w, y, mask
+    torch.cuda.empty_cache()
+    return results
+
+
 def _ctr_rows(rng, n: int, w_true, D: int):
     """``n`` dense rows in the config-3 CTR style: each of CTR_FIELDS
     fields one-hot into its own hashed bucket range (Zipf-skewed, so head
@@ -432,33 +700,55 @@ def _ctr_rows(rng, n: int, w_true, D: int):
     return X, y
 
 
-def phase_trainer(torch, seed: int, *, D: int = FULL_D, B: int = FULL_B,
-                  test_rows: int = FULL_TEST, phase: str = "trainer") -> dict:
-    """The main path at width D: load_data -> fit -> evaluate -> save, with
-    the launch counts zeroed just before fit and read just after.  At the
-    full width the slice kernels run; above their bound the two-read
-    path's wrappers."""
+def trainer_rows(seed: int, D: int, B: int, test_rows: int):
+    """(train shard, test shard, seconds) of CTR-style f32 rows at width D,
+    made once and shared by the trainer phases of that width (each copies
+    them into its own datasets, which its trainer then quantizes)."""
     import numpy as np  # noqa: PLC0415
 
-    from distlr_tpu_torch import ops  # noqa: PLC0415
-    from distlr_tpu_torch.config import Config  # noqa: PLC0415
-    from distlr_tpu_torch.ops import fused_lr  # noqa: PLC0415
-    from distlr_tpu_torch.train import GlobalShardedData, Trainer  # noqa: PLC0415
-
-    steps = 3
     rng = np.random.default_rng(seed)
     w_true = (rng.standard_normal(D) * 0.5).astype(np.float32)
     t0 = time.perf_counter()
-    train = GlobalShardedData([_ctr_rows(rng, B, w_true, D)])
-    test = GlobalShardedData([_ctr_rows(rng, test_rows, w_true, D)])
-    data_s = time.perf_counter() - t0
-    single = fused_lr.fused_lr_supported(
-        B, D, num_sms=torch.cuda.get_device_properties(0).multi_processor_count)
-    grad_fn, logits_fn = (("fused_lr_grad", "lr_logits") if single
-                          else ("fused_lr_grad_two_launch", "lr_logits_row_blocks"))
+    train = _ctr_rows(rng, B, w_true, D)
+    test = _ctr_rows(rng, test_rows, w_true, D)
+    return train, test, time.perf_counter() - t0
+
+
+# feature dtype -> (gradient wrapper, logits wrapper) of the path at and
+# below the single pass's bound, then above it
+TRAINER_WRAPPERS = {
+    "bfloat16": (("fused_lr_grad", "lr_logits"),
+                 ("fused_lr_grad_two_launch", "lr_logits_row_blocks")),
+    "int8": (("fused_lr_grad_int8", "lr_logits_int8"),
+             ("fused_lr_grad_two_launch_int8", "lr_logits_row_blocks_int8")),
+    "int8_dot": (("lr_backward_int8dot", "lr_logits_int8dot"),) * 2,
+}
+
+
+def phase_trainer(torch, rows, *, feature_dtype: str = "bfloat16",
+                  phase: str = "trainer") -> dict:
+    """The main path on ``rows`` (:func:`trainer_rows`): load_data (which
+    quantizes int8 features) -> fit -> evaluate -> save, with the launch
+    counts zeroed just before fit and read just after.  At the full width
+    the slice kernels run (their int8 instances for int8 features; the
+    int8_dot pair for int8_dot); above their bound the two-read path's
+    wrappers.  The weights are then held against the plain recurrence."""
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.train import GlobalShardedData, Trainer  # noqa: PLC0415
+
+    steps = 3
+    train_rows, test_rows, data_s = rows
+    B, D = train_rows[0].shape
+    train = GlobalShardedData([train_rows])
+    test = GlobalShardedData([test_rows])
+    x_dtype = torch.bfloat16 if feature_dtype == "bfloat16" else torch.int8
+    single = ops.fused_lr_supported(
+        B, D, x_dtype=x_dtype, num_sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    grad_fn, logits_fn = TRAINER_WRAPPERS[feature_dtype][0 if single else 1]
 
     with tempfile.TemporaryDirectory(prefix="distlr-smoke-") as tmp:
-        cfg = Config(num_feature_dim=D, feature_dtype="bfloat16",
+        cfg = Config(num_feature_dim=D, feature_dtype=feature_dtype,
                      compute_dtype="bfloat16", batch_size=-1, learning_rate=0.2,
                      l2_c=0.01, num_iteration=steps, test_interval=1, data_dir=tmp)
         t0 = time.perf_counter()
@@ -477,7 +767,10 @@ def phase_trainer(torch, seed: int, *, D: int = FULL_D, B: int = FULL_B,
         saved_ok = os.path.getsize(path) > D and open(path).readline().strip() == str(D)
 
     others = {k: v for k, v in launches.items() if k not in (grad_fn, logits_fn)}
-    if launches[grad_fn] != steps or launches[logits_fn] < 1 or any(others.values()):
+    # int8_dot's forward runs in each step and each of the steps + 1 evals
+    logits_ok = (launches[logits_fn] == 2 * steps + 1 if feature_dtype == "int8_dot"
+                 else launches[logits_fn] >= 1)
+    if launches[grad_fn] != steps or not logits_ok or any(others.values()):
         raise AssertionError(f"the path did not run {grad_fn} once a step and {logits_fn}: {launches}")
     loss = trainer.metrics.latest("loss")
     if not (math.isfinite(loss) and math.isfinite(metrics["logloss"])):
@@ -487,11 +780,18 @@ def phase_trainer(torch, seed: int, *, D: int = FULL_D, B: int = FULL_B,
 
     # the same steps as the plain recurrence on the card
     X, y, mask = trainer._put(train.full_batch())
+    scale = trainer.model.feature_scale
+
+    def plain_grad(w):
+        if feature_dtype == "int8_dot":
+            return ops.fused_lr_grad_int8dot_reference(w, X, y, mask, feature_scale=scale)
+        return ops.fused_lr_grad_reference(w, X, y, mask, compute_dtype="bfloat16",
+                                           feature_scale=scale)
+
     w = w0
     n = mask.sum().clamp_min(1.0)
     for _ in range(steps):
-        g = ops.fused_lr_grad_reference(w, X, y, mask, compute_dtype="bfloat16") / n
-        w = w - cfg.learning_rate * (g + cfg.l2_c * w)
+        w = w - cfg.learning_rate * (plain_grad(w) / n + cfg.l2_c * w)
     w_rel = rel_err(trainer.weights, w)
     if w_rel > REL_TOL:
         raise AssertionError(f"trained weights differ from the plain recurrence: rel {w_rel}")
@@ -499,19 +799,26 @@ def phase_trainer(torch, seed: int, *, D: int = FULL_D, B: int = FULL_B,
     # step_ms, which also waits for the batch's host->device copy
     w_tmp = trainer.weights.clone()
     step_device_ms = time_ms(lambda: trainer.train_step(w_tmp, (X, y, mask)), 10)
+    # its kernels from the profiler: the share of the step the card is busy
+    trace = _step_kernels(torch, lambda: trainer.train_step(w_tmp, (X, y, mask)))
     del X
 
     out = {
-        "D": D, "B": B, "test_rows": test_rows, "steps": steps, "kernels": [grad_fn, logits_fn],
+        "D": D, "B": B, "test_rows": test_rows[0].shape[0], "steps": steps,
+        "feature_dtype": feature_dtype, "feature_scale": scale,
+        "kernels": [grad_fn, logits_fn],
         "launches": launches, "loss": loss, "test_accuracy": metrics["accuracy"],
         "test_logloss": metrics["logloss"], "step_ms": 1e3 * trainer.timer.sec_per_step,
-        "step_device_ms": step_device_ms,
+        "step_device_ms": step_device_ms, **trace,
+        "device_busy_share": trace["kernel_us_per_step"] / (1e3 * step_device_ms),
         "weights_rel_err_vs_plain": w_rel, "data_build_s": data_s, "load_s": load_s,
         "fit_eval_save_s": fit_s,
         "host_peak_rss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
         "device_peak_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
     emit(phase, **out)
+    del trainer, train, test
+    torch.cuda.empty_cache()
     return out
 
 
@@ -754,14 +1061,14 @@ CLI_FAMILIES = {
 EVAL_LINE = r"^\d\d:\d\d:\d\d Iteration (\d+), accuracy: (\S+)$"
 
 
-def _launch(*argv) -> str:
+def _launch(*argv) -> subprocess.CompletedProcess:
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run([sys.executable, "-m", "distlr_tpu_torch.launch", *argv],
                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         raise AssertionError(f"launch {' '.join(argv[:3])} exited {proc.returncode}:\n"
                              f"{proc.stderr[-2000:]}")
-    return proc.stdout
+    return proc
 
 
 def _cli_family(tmp: str, family: str) -> dict:
@@ -773,7 +1080,7 @@ def _cli_family(tmp: str, family: str) -> dict:
     _launch("gen-data", "--data-dir", d, "--num-samples", "2000", "--num-parts", "2", *gen_flags)
     out = _launch("sync", "--data-dir", d, *flags, "--num-workers", "2", "--num-iteration",
                   str(iters), "--test-interval", str(interval), "--learning-rate", "0.5",
-                  "--l2-c", "0")
+                  "--l2-c", "0").stdout
     lines = re.findall(EVAL_LINE, out, re.M)
     if [int(n) for n, _ in lines] != list(range(interval, iters + 1, interval)):
         raise AssertionError(f"unexpected eval lines from {family} sync:\n{out}")
@@ -781,7 +1088,7 @@ def _cli_family(tmp: str, family: str) -> dict:
     with open(model_file) as f:
         if int(f.readline()) != math.prod(shape) or len(f.readline().split()) != math.prod(shape):
             raise AssertionError(f"{family} sync wrote a malformed model file")
-    ev = _launch("eval", "--data-dir", d, *flags, "--model-file", model_file)
+    ev = _launch("eval", "--data-dir", d, *flags, "--model-file", model_file).stdout
     m = re.search(r"accuracy: (\S+)\s+test_logloss: (\S+)", ev)
     if m is None or abs(float(m.group(1)) - float(lines[-1][1])) > 1e-4:
         raise AssertionError(f"{family} eval disagrees with its last sync line: {ev}")
@@ -789,14 +1096,47 @@ def _cli_family(tmp: str, family: str) -> dict:
             "eval_logloss": float(m.group(2))}
 
 
+def _cli_int8_dot_resume(tmp: str) -> dict:
+    """binary_lr with int8_dot features: sync 5 epochs with a checkpoint
+    every epoch, then sync to 10 with --resume (it must start at epoch 5
+    and keep the last 3 checkpoints), then eval of what it saved."""
+    from distlr_tpu_torch.train.checkpoint import Checkpointer  # noqa: PLC0415
+
+    d, ck = os.path.join(tmp, "int8_dot"), os.path.join(tmp, "int8_dot_ck")
+    _launch("gen-data", "--data-dir", d, "--num-samples", "2000", "--num-parts", "2",
+            "--num-feature-dim", "123")
+    flags = ["--data-dir", d, "--num-feature-dim", "123", "--feature-dtype", "int8_dot"]
+    sync = ["sync", *flags, "--num-workers", "2", "--test-interval", "5", "--learning-rate",
+            "0.5", "--l2-c", "0", "--checkpoint-dir", ck, "--checkpoint-interval", "1"]
+    first = re.findall(EVAL_LINE, _launch(*sync, "--num-iteration", "5").stdout, re.M)
+    proc = _launch(*sync, "--num-iteration", "10", "--resume")
+    lines = re.findall(EVAL_LINE, proc.stdout, re.M)
+    with Checkpointer(ck) as c:
+        steps = c.all_steps()
+    if ("resumed from checkpoint at epoch 5" not in proc.stderr
+            or [int(n) for n, _ in first + lines] != [5, 10] or steps != [8, 9, 10]):
+        raise AssertionError(f"int8_dot sync did not resume from epoch 5: {first} {lines} "
+                             f"{steps}\n{proc.stderr[-1500:]}")
+    ev = _launch("eval", *flags, "--model-file", os.path.join(d, "models", "part-001")).stdout
+    m = re.search(r"accuracy: (\S+)\s+test_logloss: (\S+)", ev)
+    if m is None or abs(float(m.group(1)) - float(lines[-1][1])) > 1e-4:
+        raise AssertionError(f"int8_dot eval disagrees with its last sync line: {ev}")
+    return {"sync_accuracy": [float(a) for _, a in first + lines], "checkpoints": steps,
+            "resumed_at_epoch": 5, "eval_accuracy": float(m.group(1)),
+            "eval_logloss": float(m.group(2))}
+
+
 def phase_cli() -> None:
     """gen-data -> sync -> eval through ``python -m distlr_tpu_torch.launch``
-    for every model family, the families' chains side by side."""
+    for every model family, and int8_dot sync with checkpoints then
+    --resume, the chains side by side."""
     with tempfile.TemporaryDirectory(prefix="distlr-smoke-cli-") as tmp:
-        with ThreadPoolExecutor(len(CLI_FAMILIES)) as pool:
+        with ThreadPoolExecutor(len(CLI_FAMILIES) + 1) as pool:
             futures = {f: pool.submit(_cli_family, tmp, f) for f in CLI_FAMILIES}
+            resume = pool.submit(_cli_int8_dot_resume, tmp)
             results = {f: fut.result() for f, fut in futures.items()}
-    emit("cli", **results.pop("binary_lr"), families=results)
+            int8_dot = resume.result()
+    emit("cli", **results.pop("binary_lr"), families=results, int8_dot_resume=int8_dot)
 
 
 # --- the on-device generation probes ----------------------------------------
@@ -1016,17 +1356,37 @@ def phase_roofline_experiments(torch, smi: str) -> dict:
     return launches
 
 
-# function (a substring of its mangled name) -> (opcode prefixes, least
-# count of them inside one loop of its SASS, what that shows, opcode
-# prefixes that no loop of it may hold)
+# library -> function (a substring of its mangled name) -> (opcode
+# prefixes, least count of them inside one loop of its SASS, what that
+# shows, opcode prefixes that no loop of it may hold, a pattern of opcodes
+# that the loop holding the most of the first may not hold)
+_INT8_CONVERT = ("each int8 of X becomes an f32 by PRMT + FADD: no int-to-float conversion "
+                 "(I2F, I2FP; I2F.RP is an integer division's reciprocal) in the loop "
+                 "with the most PRMT")
+_NO_CONVERSION = r"I2F(?!\.RP)"
 SASS_FACTS = {
-    "gen_kernel": (("IMAD.WIDE", "IMAD.HI"), 17,
-                   "every product of a Philox block that depends on t, each pass of t", ()),
-    "const_rows_kernel": (("FFMA",), 8,
-                          "a pass's 8 FMAs (2 rows x 4 columns) stay in the pass loop", ()),
-    "mxu_wgmma_kernel": (("HGMMA",), 4,
-                         "a pass's 4 wgmma k-steps of a 64-deep chunk in the pass loop, "
-                         "and no mma.sync (HMMA)", ("HMMA",)),
+    "gen_roofline": {
+        "gen_kernel": (("IMAD.WIDE", "IMAD.HI"), 17,
+                       "every product of a Philox block that depends on t, each pass of t",
+                       (), None),
+        "const_rows_kernel": (("FFMA",), 8,
+                              "a pass's 8 FMAs (2 rows x 4 columns) stay in the pass loop",
+                              (), None),
+        "mxu_wgmma_kernel": (("HGMMA",), 4,
+                             "a pass's 4 wgmma k-steps of a 64-deep chunk in the pass loop, "
+                             "and no mma.sync (HMMA)", ("HMMA",), None),
+    },
+    "fused_lr_int8": {
+        "lr_grad_single_pass_kernel": (("PRMT",), 8, _INT8_CONVERT, (), _NO_CONVERSION),
+        "lr_logits_streaming_kernel": (("PRMT",), 8, _INT8_CONVERT, (), _NO_CONVERSION),
+        "lr_backward_kernel": (("PRMT",), 8, _INT8_CONVERT, (), _NO_CONVERSION),
+        "lr_logits_int8dot_kernel": (("IDP",), 2,
+                                     "one dp4a per 4 columns of a row in the forward loop",
+                                     (), None),
+        "lr_backward_int8dot_kernel": (("IDP",), 8,
+                                       "one dp4a per element of X in the backward loop", (),
+                                       None),
+    },
 }
 
 
@@ -1068,32 +1428,49 @@ def _sass_loops(text: str) -> dict:
     return funcs
 
 
-def phase_sass() -> dict:
-    """What the probe kernels compiled to: wgmma (HGMMA) and no mma.sync
-    (HMMA) in mxu's pass loop, the FMAs inside const's pass loop, a whole
-    Philox block in gen's loop."""
-    from distlr_tpu_torch.ops import build  # noqa: PLC0415
-
-    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", str(build.library_path("gen_roofline"))],
-                          capture_output=True, text=True, timeout=120, check=True).stdout
-    loops = _sass_loops(text)
+def _sass_facts(loops: dict, table: dict) -> dict:
     facts = {}
-    for fn, (prefixes, least, what, absent) in SASS_FACTS.items():
+    for fn, (prefixes, least, what, absent, not_beside) in table.items():
         names = [n for n in loops if fn in n]
+        per_loop = [loop for n in names for loop in loops[n]]
         counts = [sum(c for op, c in loop.items() if op.startswith(prefixes))
-                  for n in names for loop in loops[n]]
+                  for loop in per_loop]
         best = max(counts, default=0)
-        found = sorted({op for n in names for loop in loops[n] for op in loop
+        found = sorted({op for loop in per_loop for op in loop
                         if absent and op.startswith(absent)})
+        # the loops holding the most of the opcodes, in every instance
+        top = [loop for loop, c in zip(per_loop, counts) if c == best]
+        beside = sorted({op for loop in top for op in loop
+                         if not_beside and re.match(not_beside, op)})
         facts[fn] = {"most_in_one_loop": best, "opcodes": prefixes, "shows": what,
-                     "absent": absent, "found_absent": found}
+                     "functions": len(names), "absent": absent, "found_absent": found,
+                     "not_beside": not_beside, "found_beside": beside,
+                     "that_loop": dict(sorted(top[0].items(), key=lambda kv: -kv[1])[:12])
+                     if top else {}}
         if best < least:
             raise AssertionError(f"SASS of {fn}: {best} of {prefixes} in its loops, "
                                  f"expected >= {least} ({what}); functions {names}")
-        if found:
-            raise AssertionError(f"SASS of {fn} holds {found}, which it must not ({what})")
-    emit("sass", library=os.path.relpath(build.library_path("gen_roofline"), ROOT), facts=facts)
+        if found or beside:
+            raise AssertionError(f"SASS of {fn} holds {found + beside}, which it must not "
+                                 f"({what})")
+    return facts
+
+
+def phase_sass() -> dict:
+    """What the kernels compiled to: wgmma (HGMMA) and no mma.sync (HMMA)
+    in the probe mxu's pass loop, the FMAs inside const's pass loop, a
+    whole Philox block in gen's loop; in the int8 library the byte-permute
+    conversion (PRMT, no I2F beside it) in the int8 instances' loops and
+    dp4a (IDP) in the int8_dot pair's."""
+    from distlr_tpu_torch.ops import build  # noqa: PLC0415
+
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    facts = {}
+    for lib, table in SASS_FACTS.items():
+        text = subprocess.run([cuobjdump, "-sass", str(build.library_path(lib))],
+                              capture_output=True, text=True, timeout=120, check=True).stdout
+        facts[lib] = _sass_facts(_sass_loops(text), table)
+        emit("sass", library=os.path.relpath(build.library_path(lib), ROOT), facts=facts[lib])
     return facts
 
 
@@ -1127,13 +1504,23 @@ def main(argv=None) -> int:
         phase_sass()
         phase = "kernels"
         timing = phase_kernels(torch, args.seed)
+        phase = "int8_kernels"
+        timing.update(phase_int8_kernels(torch, args.seed))
         phase = "roofline"
         timing.update(phase_roofline(torch, args.seed))
-        phase = "trainer"
-        trainer = phase_trainer(torch, args.seed)
-        phase = "trainer_wide"
-        wide = phase_trainer(torch, args.seed, D=WIDE_D, B=WIDE_B, test_rows=WIDE_TEST,
-                             phase="trainer_wide")
+        # the main path at its full width, on one set of rows: bf16, int8
+        # and int8_dot features; then above the single pass's bound
+        rows = trainer_rows(args.seed, FULL_D, FULL_B, FULL_TEST)
+        paths = {}
+        for fd, name in (("bfloat16", "trainer"), ("int8", "trainer_int8"),
+                         ("int8_dot", "trainer_int8_dot")):
+            phase = name
+            paths[name] = phase_trainer(torch, rows, feature_dtype=fd, phase=name)
+        rows = trainer_rows(args.seed, WIDE_D, WIDE_B, WIDE_TEST)
+        for fd, name in (("bfloat16", "trainer_wide"), ("int8", "trainer_int8_wide")):
+            phase = name
+            paths[name] = phase_trainer(torch, rows, feature_dtype=fd, phase=name)
+        del rows
         time_two_launch(torch, args.seed, timing)
         for family in ("sparse_lr", "sparse_softmax", "blocked_lr", "softmax"):
             phase = f"trainer_{family}"
@@ -1143,20 +1530,24 @@ def main(argv=None) -> int:
         phase = "cli"
         phase_cli()
         phase = "roofline_experiments"
-        launches = {**trainer["launches"], **phase_roofline_experiments(torch, env["nvidia_smi"])}
-        for name in ("fused_lr_grad_two_launch", "lr_logits_row_blocks"):
-            launches[name] = wide["launches"][name]
+        launches = phase_roofline_experiments(torch, env["nvidia_smi"])
+        # each dense kernel's launches on the main path that runs it
+        for path in paths.values():  # the full width's path first
+            for name in path["kernels"]:
+                launches.setdefault(name, path["launches"][name])
     except Exception as e:  # report which phase failed, then fail the run
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
         raise
-    replaces = {**FUSED_REPLACES, **ROOFLINE_REPLACES}
+    replaces = {**FUSED_REPLACES, **INT8_REPLACES, **ROOFLINE_REPLACES}
+    sources = {**dict.fromkeys(FUSED_REPLACES, FUSED_SOURCE),
+               **dict.fromkeys(INT8_REPLACES, INT8_SOURCE),
+               **dict.fromkeys(ROOFLINE_REPLACES, ROOFLINE_SOURCE)}
     kernels = []
     for fn in ops.KERNEL_WRAPPERS:
         name = fn.__name__
         t = timing[name]
         entry = {
-            "name": name, "route": "cuda",
-            "source": ROOFLINE_SOURCE if name in ROOFLINE_REPLACES else FUSED_SOURCE,
+            "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name],
             "launches": launches[name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -1164,9 +1555,13 @@ def main(argv=None) -> int:
             "worst_rel_err": t["rel_err"],
         }
         for extra in ("library_note", "two_pass_ms", "row_blocks_ms", "plan", "shape",
-                      "at_8_rows", "at_512_rows"):
+                      "at_8_rows", "at_512_rows", "pair_ms", "wrap"):
             if extra in t:
                 entry[extra] = t[extra]
+        if name in ("lr_logits_int8dot", "lr_backward_int8dot"):
+            entry["replaces_note"] = INT8_NOTE
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was never launched on its main path")
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],

@@ -1,9 +1,10 @@
 """Typed configuration of the port.
 
 Holds the fields of ``distlr_tpu/config.py::Config`` that the ported
-sync trainer reads (all five model families), with the same names,
-defaults and validations, and the same resolution of the reference-quirk
-gates Q1, Q2, Q4 and Q5 from ``compat_mode``.  Options whose code is not ported yet raise
+sync trainer reads (all five model families, int8 feature storage,
+checkpoints), with the same names, defaults and validations, and the same
+resolution of the reference-quirk gates Q1, Q2, Q4 and Q5 from
+``compat_mode``.  Options whose code is not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item, so a run never
 silently drops one.  ``device`` is the port's own knob.
 """
@@ -54,8 +55,11 @@ class Config:
     ctr_fields: int = 0
     hash_seed: int = 0                # seed of the load-time feature hash
     compute_dtype: str = "bfloat16"   # product dtype (sums are always f32)
-    # Device-resident storage dtype of the dense feature matrix.
-    feature_dtype: str = "float32"    # float32 | bfloat16
+    # Device-resident storage dtype of the dense feature matrix: int8 is
+    # symmetric per-dataset quantization (the scale becomes the model's
+    # feature_scale); int8_dot also quantizes w and the residual per step
+    # and contracts int8 x int8 (binary_lr and softmax only).
+    feature_dtype: str = "float32"    # float32 | bfloat16 | int8 | int8_dot
 
     # ---- parity / compat with reference quirks ----
     compat_mode: str = "correct"      # correct | reference
@@ -74,10 +78,10 @@ class Config:
     # batches are sliced, pinned and copied ahead of the running step.
     prefetch: int = 2
 
-    # ---- checkpoint / obs (not ported: must stay unset) ----
+    # ---- checkpoint / obs ----
     checkpoint_dir: str | None = None
-    checkpoint_interval: int = 0
-    profile_dir: str | None = None
+    checkpoint_interval: int = 0      # epochs; 0 = only final save
+    profile_dir: str | None = None    # not ported: must stay unset
 
     # ---- port only ----
     device: str = "cuda"              # "cuda", "cuda:N" or "cpu"
@@ -114,14 +118,17 @@ class Config:
             raise ValueError(
                 "feature_dtype must be float32|bfloat16|int8|int8_dot, "
                 f"got {self.feature_dtype!r}")
+        if self.feature_dtype == "int8_dot" and self.model not in ("binary_lr", "softmax"):
+            raise ValueError(
+                "feature_dtype='int8_dot' (native int8 contraction) "
+                f"requires a dense model (binary_lr or softmax); "
+                f"got model={self.model!r}")
         if self.model in _SPARSE_MODELS and self.feature_dtype != "float32":
             # sparse COO / blocked lane values stay float32 in every mode
             raise ValueError(
                 "feature_dtype quantization applies to dense models only; "
                 f"{self.model} stores feature values as float32 "
                 "(set feature_dtype='float32')")
-        if self.feature_dtype in ("int8", "int8_dot"):
-            raise _not_ported(f"feature_dtype={self.feature_dtype!r}", "A.3")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"compute_dtype must be float32|bfloat16, got {self.compute_dtype!r}")
@@ -137,8 +144,10 @@ class Config:
                 "the port's data axis is num_workers row blocks on one card")
         if not self.sync_mode:
             raise _not_ported("async / parameter-server training (sync_mode=False)", "A.9")
-        if self.checkpoint_dir or self.checkpoint_interval:
-            raise _not_ported("checkpoint_dir / checkpoint_interval", "A.8")
+        if self.checkpoint_interval < 0:
+            raise ValueError(
+                "checkpoint_interval must be >= 0 (epochs; 0 = only final save), "
+                f"got {self.checkpoint_interval}")
         if self.profile_dir:
             raise _not_ported("profile_dir", "A.12")
         if self.prefetch < 1:

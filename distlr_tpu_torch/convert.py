@@ -3,7 +3,9 @@
 Every model family's params are one float32 array of the same shape in
 both packages (``(D,)``, ``(D, K)`` or ``(num_blocks, R)``), so the
 conversion is a checked copy: the shape must equal the model's
-``param_shape``.
+``param_shape``.  An int8-feature model's ``feature_scale`` is a field of
+the model (the trainer sets it from the train split), not a parameter, so
+it does not travel with the weights.
 """
 
 from __future__ import annotations

@@ -19,6 +19,13 @@ on raw-CTR shards (``gen-data --ctr-fields F --ctr-raw``)::
         --ctr-fields 8 --ctr-raw --ctr-tuples 64 --num-samples 4000
     python -m distlr_tpu_torch.launch sync --data-dir C --num-feature-dim 4096 \\
         --model blocked_lr --block-size auto
+
+The dense models store their features as int8 with ``--feature-dtype
+int8`` (or ``int8_dot``, which also quantizes w and the residuals), and
+``sync`` saves checkpoints and resumes from the latest::
+
+    python -m distlr_tpu_torch.launch sync --data-dir D --num-feature-dim 123 \\
+        --feature-dtype int8 --checkpoint-dir K --checkpoint-interval 10 [--resume]
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ _CONFIG_FIELDS = (
     "learning_rate", "l2_c", "test_interval", "model", "compat_mode",
     "random_seed", "prefetch", "feature_dtype", "num_workers", "device",
     "num_classes", "nnz_max", "block_size", "block_groups", "ctr_fields", "hash_seed",
+    "checkpoint_dir", "checkpoint_interval", "profile_dir",
 )
 
 
@@ -79,10 +87,14 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--feature-dtype", dest="feature_dtype",
                    choices=["float32", "bfloat16", "int8", "int8_dot"],
                    help="device-resident storage dtype for dense features "
-                   "(bfloat16 halves the bytes the step reads; int8 and "
-                   "int8_dot are not ported yet)")
+                   "(bfloat16 halves the bytes the step reads; int8: symmetric "
+                   "per-dataset quantization, a quarter of float32's bytes; "
+                   "int8_dot: int8 storage plus w and the residuals quantized "
+                   "per step, int8 x int8 products; dense models only)")
     p.add_argument("--num-workers", dest="num_workers", type=int,
                    help="data-parallel shards, as row blocks of one batch")
+    p.add_argument("--profile-dir", dest="profile_dir",
+                   help="trace the run into this directory (not ported yet: refused)")
     p.add_argument("--device", dest="device",
                    help="cuda (default), cuda:N or cpu")
 
@@ -151,7 +163,7 @@ def cmd_sync(args: argparse.Namespace) -> int:
     from distlr_tpu_torch.train import Trainer  # noqa: PLC0415
 
     trainer = Trainer(_config_from_args(args)).load_data()
-    trainer.fit()
+    trainer.fit(resume=args.resume)
     path = trainer.save_model()
     log.info(
         "final accuracy %.4f, %.0f samples/sec, model -> %s",
@@ -204,6 +216,12 @@ def main(argv=None) -> int:
 
     s = sub.add_parser("sync", help="synchronous data-parallel training (one card)")
     _add_config_flags(s)
+    s.add_argument("--checkpoint-dir", dest="checkpoint_dir",
+                   help="save the weights and the epoch here (numpy .npz a step)")
+    s.add_argument("--checkpoint-interval", dest="checkpoint_interval", type=int,
+                   help="epochs between checkpoints (default 0: only the final one)")
+    s.add_argument("--resume", action="store_true",
+                   help="restart from the latest checkpoint in --checkpoint-dir")
     s.set_defaults(fn=cmd_sync)
 
     e = sub.add_parser("eval", help="score a saved text model on the test split")

@@ -11,10 +11,21 @@ softmax twin — so no autograd is involved.
   :mod:`distlr_tpu_torch.ops` on CUDA tensors (their plain versions on
   CPU tensors): the gradient is one ``fused_lr_grad`` call and the logits
   one ``lr_logits`` call, both f32 for a bf16 X without an f32 copy of X.
+  An int8 X (``feature_dtype="int8"``) goes through the same two calls,
+  which launch the kernels' int8 instances with the dataset's
+  ``feature_scale``; ``int8_dot`` takes the int8 x int8 pair.
 - ``SoftmaxRegression``: dense X, params (D, K); both products are one
   GEMM each with f32 sums and an f32 result, from operands rounded to
   ``compute_dtype`` — as the JAX model's ``jnp.dot(...,
-  preferred_element_type=f32)``, which rounds the residual too.
+  preferred_element_type=f32)``, which rounds the residual too.  With
+  ``int8_dot`` both are chunked int8 GEMMs (``torch._int_mm``), as the JAX
+  model's ``_int8_contract`` runs XLA dots and no kernel of its own.
+
+``feature_scale`` and ``int8_dot`` follow ``distlr_tpu/models/linear.py``:
+the scale multiplies z before the sigmoid and multiplies g; int8_dot
+quantizes w over its whole extent and the residual over the batch
+(:func:`quantize_sym`) and folds ``s_w · feature_scale`` into z and
+``s_r · feature_scale`` into g before the division by n.
 - ``SparseBinaryLR`` / ``SparseSoftmaxRegression``: padded-COO
   ``(cols, vals)``; a gather forward and an ``index_add_`` gradient (the
   JAX ``segment_sum``).
@@ -32,7 +43,10 @@ import dataclasses
 import torch
 
 from distlr_tpu_torch.config import Config
-from distlr_tpu_torch.ops import fused_lr_grad, lr_logits
+from distlr_tpu_torch.ops import fused_lr_grad, fused_lr_grad_int8dot, lr_logits, lr_logits_int8dot
+from distlr_tpu_torch.ops.int8 import quantize_sym
+from distlr_tpu_torch.ops.int8 import int8_contract as _int8_contract
+from distlr_tpu_torch.ops.int8 import mm_f32 as _mm_f32
 from distlr_tpu_torch.utils.reference_rng import reference_init_weights
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -63,18 +77,6 @@ def logloss_terms(z, y):
     """Per-row logloss from logits: log(1 + e^z) - y*z, via logaddexp for
     stability (``jax.nn.softplus`` in the JAX model)."""
     return torch.logaddexp(z, torch.zeros_like(z)) - y.to(torch.float32) * z
-
-
-def _mm_f32(a, b):
-    """``a @ b`` with f32 sums and an f32 result, from operands of one
-    dtype.  For bf16 operands: on the card cuBLAS's bf16 GEMM with an f32
-    output (``aten::mm.dtype``, no rounding of the result to bf16); on the
-    CPU the f32 product of the same bf16 values."""
-    if a.dtype == torch.float32:
-        return a @ b
-    if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
 
 
 def _uniform_or_reference(shape, cfg: Config) -> torch.Tensor:
@@ -183,6 +185,12 @@ class BinaryLR(_BinaryHead, _LinearModel):
     num_features: int
     # Product dtype; sums are always f32.  "float32" for parity runs.
     compute_dtype: str = "bfloat16"
+    # Dequantization scale of an int8 X (feature_dtype int8 / int8_dot):
+    # X holds round(X_real / scale), and z and g are multiplied by it.
+    feature_scale: float = 1.0
+    # feature_dtype="int8_dot": w and the residual are quantized to int8 per
+    # step and both products are int8 x int8 (X must be int8).
+    int8_dot: bool = False
 
     @property
     def param_shape(self) -> tuple[int, ...]:
@@ -192,20 +200,30 @@ class BinaryLR(_BinaryHead, _LinearModel):
         return _uniform_or_reference(self.param_shape, cfg).to(device)
 
     def logits(self, w, X):
-        return lr_logits(w, X, compute_dtype=self.compute_dtype)
+        if self.int8_dot:
+            return lr_logits_int8dot(w, X, feature_scale=self.feature_scale)
+        return lr_logits(w, X, compute_dtype=self.compute_dtype, feature_scale=self.feature_scale)
+
+    def _grad_sum(self, w, X, y, mask, with_logits=False):
+        """The unnormalized gradient (and the logits) from one kernel call
+        (int8_dot: the forward and the backward kernel)."""
+        if self.int8_dot:
+            return fused_lr_grad_int8dot(w, X, y, mask, feature_scale=self.feature_scale,
+                                         with_logits=with_logits)
+        return fused_lr_grad(w, X, y, mask, compute_dtype=self.compute_dtype,
+                             feature_scale=self.feature_scale, with_logits=with_logits)
 
     def grad(self, w, batch, cfg: Config):
         X, y, mask = batch
         n = _batch_count(mask)
-        g = fused_lr_grad(w, X, y, mask, compute_dtype=self.compute_dtype)
+        g = self._grad_sum(w, X, y, mask)
         return g / n + _l2_grad(w, cfg, n)
 
     def value_and_grad(self, w, batch, cfg: Config):
         """``(loss, grad)`` from one kernel call: the loss reuses the
         forward's logits, so X is not read a third time."""
         X, y, mask = batch
-        g, z = fused_lr_grad(w, X, y, mask, compute_dtype=self.compute_dtype,
-                             with_logits=True)
+        g, z = self._grad_sum(w, X, y, mask, with_logits=True)
         n = _batch_count(mask)
         loss = _masked_mean(self.row_loss(z, y), mask) + _l2_loss(w, cfg, mask)
         return loss, g / n + _l2_grad(w, cfg, n)
@@ -218,6 +236,8 @@ class SoftmaxRegression(_SoftmaxHead, _LinearModel):
     num_features: int
     num_classes: int
     compute_dtype: str = "bfloat16"
+    feature_scale: float = 1.0  # see BinaryLR.feature_scale
+    int8_dot: bool = False      # see BinaryLR.int8_dot: W (D, K) on one grid
 
     @property
     def param_shape(self) -> tuple[int, ...]:
@@ -227,13 +247,21 @@ class SoftmaxRegression(_SoftmaxHead, _LinearModel):
         return _uniform_or_reference(self.param_shape, cfg).to(device)
 
     def logits(self, W, X):
+        if self.int8_dot:
+            Wq, s_w = quantize_sym(W, W.abs().max())
+            return _int8_contract(X, Wq, 1) * (s_w * self.feature_scale)
         cdt = _DTYPES[self.compute_dtype]
-        return _mm_f32(X.to(cdt), W.to(cdt))
+        z = _mm_f32(X.to(cdt), W.to(cdt))
+        return z * self.feature_scale if self.feature_scale != 1.0 else z
 
     def _backward(self, W, inputs, resid):
         (X,) = inputs
+        if self.int8_dot:
+            rq, s_r = quantize_sym(resid, resid.abs().max())
+            return _int8_contract(X, rq, 0) * (s_r * self.feature_scale)
         cdt = _DTYPES[self.compute_dtype]
-        return _mm_f32(X.to(cdt).t(), resid.to(cdt))
+        g = _mm_f32(X.to(cdt).t(), resid.to(cdt))
+        return g * self.feature_scale if self.feature_scale != 1.0 else g
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,11 +339,12 @@ class BlockedSparseLR(_BinaryHead, _LinearModel):
 
 
 def get_model(cfg: Config):
+    int8_dot = cfg.feature_dtype == "int8_dot"
     if cfg.model == "binary_lr":
-        return BinaryLR(cfg.num_feature_dim, compute_dtype=cfg.compute_dtype)
+        return BinaryLR(cfg.num_feature_dim, compute_dtype=cfg.compute_dtype, int8_dot=int8_dot)
     if cfg.model == "softmax":
         return SoftmaxRegression(cfg.num_feature_dim, cfg.num_classes,
-                                 compute_dtype=cfg.compute_dtype)
+                                 compute_dtype=cfg.compute_dtype, int8_dot=int8_dot)
     if cfg.model == "sparse_lr":
         return SparseBinaryLR(cfg.num_feature_dim)
     if cfg.model == "sparse_softmax":

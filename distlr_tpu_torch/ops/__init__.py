@@ -2,11 +2,17 @@ from distlr_tpu_torch.ops import fused_lr, gen_roofline
 from distlr_tpu_torch.ops.fused_lr import (  # noqa: F401
     LaunchPlan,
     fused_lr_grad,
+    fused_lr_grad_int8dot,
+    fused_lr_grad_int8dot_reference,
     fused_lr_grad_reference,
     fused_lr_grad_two_launch,
     fused_lr_supported,
+    lr_backward_int8dot,
+    lr_backward_int8dot_reference,
     lr_launch_plan,
     lr_logits,
+    lr_logits_int8dot,
+    lr_logits_int8dot_reference,
     lr_logits_reference,
     lr_logits_row_blocks,
     lr_wide_plan,

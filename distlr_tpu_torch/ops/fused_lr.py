@@ -20,12 +20,21 @@ Two routes, chosen by shape (:func:`lr_launch_plan`):
   JAX callers route to XLA above the TPU kernel's VMEM budget, never a
   fallback on failure.
 
+An int8 X (``feature_dtype="int8"``) takes the same four wrappers,
+which launch the instances of the same kernels in
+``csrc/fused_lr_int8.cu`` with the dequantization scale
+``feature_scale`` (z times it into the sigmoid, g times it out);
+``int8_dot`` quantizes w and the residual to int8 as well
+(:func:`lr_logits_int8dot`, :func:`lr_backward_int8dot`, composed by
+:func:`fused_lr_grad_int8dot`).
+
 A wrapper takes its plain version only when it is given CPU tensors.  A
 CUDA tensor launches the kernel or raises: a missing compiler, a failed
 build or a refused launch is an error, never a quiet fallback.  Each
 wrapper counts the launches of its own kernel in a plain integer
-attribute (``fused_lr_grad.launches`` and so on); a call that goes to the
-two-read path counts there.
+attribute (``fused_lr_grad.launches`` and so on; an int8 X's launches in
+``fused_lr_grad.int8.launches``); a call that goes to the two-read path
+counts there.
 """
 
 from __future__ import annotations
@@ -37,10 +46,18 @@ import functools
 import torch
 
 from distlr_tpu_torch.ops import build
+from distlr_tpu_torch.ops.int8 import int8_contract, quantize_sym, sym_scale
 
 COMPUTE_DTYPES = ("bfloat16", "float32")
-_X_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_X_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_INT8_X = (torch.int8,)
+#: bytes of w's slice in shared memory, by the products' type; "int8" is w
+#: quantized to int8 (int8_dot, with an int8 X only)
+_W_BYTES = {"bfloat16": 2, "float32": 4, "int8": 1}
+#: the type of w in the kernels' C interface (the bf16 library takes 0 or 1)
+_W_CODES = {"float32": 0, "bfloat16": 1, "int8": 2}
 _LIB_NAME = "fused_lr_grad"
+_INT8_LIB_NAME = "fused_lr_int8"
 
 
 #: shared memory one block may use on Hopper (H100, H200): 227 KB
@@ -54,6 +71,9 @@ SMEM_STATIC = 3_072
 H100_SMS = 132
 COMPUTE_THREADS = 256   # a slice kernel's compute warps
 GROUP = 8               # columns a thread reads at once (16 bytes of bf16)
+#: bytes of X a bulk copy moves per unit: an int8 slice is a multiple of 16
+#: columns, so that each of its rows is
+BULK_UNIT = 16
 #: groups of 8 columns one thread may hold as g registers (the kernel's
 #: largest register tile)
 MAX_GROUPS_PER_THREAD = 20
@@ -121,8 +141,19 @@ class LaunchPlan:
 
 def _element_bytes(x_dtype) -> int:
     if x_dtype not in _X_DTYPE_CODES:
-        raise TypeError(f"X must be float32 or bfloat16, got {x_dtype}")
-    return 2 if x_dtype == torch.bfloat16 else 4
+        raise TypeError(f"X must be float32, bfloat16 or int8, got {x_dtype}")
+    return {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[x_dtype]
+
+
+def _col_align(x_bytes: int) -> int:
+    """Columns a slice is a multiple of: whole groups of 8, and whole
+    16-byte units of an int8 row (the bulk copies' and w's alignment)."""
+    return max(GROUP, BULK_UNIT // x_bytes)
+
+
+def _slice_cols(dim: int, target_ctas: int, x_bytes: int) -> int:
+    align = _col_align(x_bytes)
+    return -(-(-(-dim // target_ctas)) // align) * align
 
 
 def _budget(per_sm: int) -> int:
@@ -134,7 +165,7 @@ def _slice_plan(kernel, batch, dim, x_bytes, w_bytes, per_sm, target_ctas,
                 rows=None, stages=None, waves=1):
     """The plan of about ``target_ctas`` blocks, ``per_sm`` on each SM (and
     the given rows and stages, where given), or None if it does not fit."""
-    slice_cols = -(-(-(-dim // target_ctas)) // GROUP) * GROUP
+    slice_cols = _slice_cols(dim, target_ctas, x_bytes)
     ctas = -(-dim // slice_cols)
     groups_per_thread = -(-(slice_cols // GROUP) // COMPUTE_THREADS)
     if groups_per_thread > MAX_GROUPS_PER_THREAD or (
@@ -160,12 +191,14 @@ def _slice_plan(kernel, batch, dim, x_bytes, w_bytes, per_sm, target_ctas,
 
 
 def _check_plan_args(batch, dim, x_dtype, compute_dtype):
-    """(x_bytes, w_bytes) of a plan's arguments, or raise on bad ones."""
+    """(x_bytes, w_bytes) of a plan's arguments, or raise on bad ones.
+    ``compute_dtype="int8"`` (an int8 w: int8_dot) goes with an int8 X."""
     if batch < 1 or dim < 1:
         raise ValueError(f"need batch >= 1 and dim >= 1, got ({batch}, {dim})")
-    if compute_dtype not in COMPUTE_DTYPES:
+    if compute_dtype not in COMPUTE_DTYPES and not (
+            compute_dtype == "int8" and x_dtype == torch.int8):
         raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype!r}")
-    return _element_bytes(x_dtype), 2 if compute_dtype == "bfloat16" else 4
+    return _element_bytes(x_dtype), _W_BYTES[compute_dtype]
 
 
 def lr_launch_plan(batch: int, dim: int, *, x_dtype=torch.bfloat16,
@@ -204,13 +237,13 @@ def lr_launch_plan(batch: int, dim: int, *, x_dtype=torch.bfloat16,
                 or _slice_plan("logits", batch, dim, x_bytes, w_bytes, 1, num_sms))
     if plan is not None:
         return plan
-    return _no_fit(kernel, batch, dim, 1, num_sms, 1)
+    return _no_fit(kernel, batch, dim, 1, num_sms, 1, x_bytes)
 
 
-def _no_fit(kernel, batch, dim, per_sm, target_ctas, waves) -> LaunchPlan:
+def _no_fit(kernel, batch, dim, per_sm, target_ctas, waves, x_bytes) -> LaunchPlan:
     """A plan that does not fit: its cut of D, with no rows, stages or
     shared memory."""
-    slice_cols = -(-(-(-dim // target_ctas)) // GROUP) * GROUP
+    slice_cols = _slice_cols(dim, target_ctas, x_bytes)
     return LaunchPlan(kernel, batch, dim, -(-dim // slice_cols), per_sm, slice_cols, 0, 0,
                       -(-(slice_cols // GROUP) // COMPUTE_THREADS), 0, False, waves)
 
@@ -252,9 +285,10 @@ def lr_wide_plan(batch: int, dim: int, *, x_dtype=torch.bfloat16,
     wave = per_sm * num_sms
     if waves is None:
         # from the fewest waves whose slices fit with 1-row tiles
+        align = _col_align(x_bytes)
         most_cols = ((_budget(per_sm) - SMEM_STATIC) // (w_bytes + LOGITS_STAGES * x_bytes)
-                     // GROUP * GROUP)
-        if most_cols < GROUP:
+                     // align * align)
+        if most_cols < align:
             raise ValueError(f"{per_sm} blocks per SM leave too little shared memory")
         first = max(1, -(-dim // (wave * most_cols)))
         candidates = range(first, first + 1 + WIDE_EXTRA_WAVES)
@@ -271,7 +305,7 @@ def lr_wide_plan(batch: int, dim: int, *, x_dtype=torch.bfloat16,
         plans = [max(whole, key=lambda p: (_ring_bytes(p, x_bytes), -p.waves))] if whole \
             else plans[:1]
     if not plans:
-        return _no_fit("logits", batch, dim, per_sm, waves * wave, waves)
+        return _no_fit("logits", batch, dim, per_sm, waves * wave, waves, x_bytes)
     return dataclasses.replace(plans[0], single_pass=False)
 
 
@@ -298,7 +332,11 @@ def fused_lr_supported(batch: int, dim: int, *, x_dtype=torch.bfloat16,
     The twin of ``pallas_lr.fused_lr_supported``, which states the TPU
     kernel's VMEM budget.  On 132 SMs the bound is D <= 5,045,568 for a
     bf16 X with bf16 products, 3,784,704 with f32 products, and 3,027,552
-    / 2,522,784 for an f32 X.  Above it :func:`fused_lr_grad` and
+    / 2,522,784 for an f32 X.  For an int8 X (slices of 16-column
+    multiples) it is 5,406,720 with bf16 products, where the register
+    tile (20 groups of 8 columns a thread) binds before shared memory,
+    and 5,045,568 with f32 products; the int8_dot forward (int8 w) shares
+    the first.  Above it :func:`fused_lr_grad` and
     :func:`lr_logits` take the two-read path; any ``B >= 1`` and
     ``D >= 1`` is taken either way."""
     return lr_launch_plan(batch, dim, x_dtype=x_dtype, compute_dtype=compute_dtype,
@@ -311,37 +349,76 @@ def _round(t: torch.Tensor, compute_dtype: str) -> torch.Tensor:
     return t.to(torch.float32)
 
 
-def lr_logits_reference(w, X, *, compute_dtype: str = "bfloat16"):
-    """Plain version of :func:`lr_logits`: f32 ``X @ w`` with both operands
-    rounded to ``compute_dtype``."""
-    return _round(X, compute_dtype) @ _round(w, compute_dtype)
+def _scaled(v: torch.Tensor, scale: float) -> torch.Tensor:
+    return v if scale == 1.0 else v * scale
 
 
-def _grad_reference(w, X, y, mask, compute_dtype):
+def lr_logits_reference(w, X, *, compute_dtype: str = "bfloat16", feature_scale: float = 1.0):
+    """Plain version of :func:`lr_logits` (for an int8 X too, given its
+    ``feature_scale``): f32 ``X @ w`` with both
+    operands rounded to ``compute_dtype``, times the scale."""
+    return _scaled(_round(X, compute_dtype) @ _round(w, compute_dtype), feature_scale)
+
+
+def _residual(z, y, mask):
+    return (torch.sigmoid(z) - y.to(torch.float32)) * mask.to(torch.float32)
+
+
+def _grad_reference(w, X, y, mask, compute_dtype, feature_scale=1.0):
     Xc = _round(X, compute_dtype)
-    z = Xc @ _round(w, compute_dtype)
-    r = (torch.sigmoid(z) - y.to(torch.float32)) * mask.to(torch.float32)
-    return r @ Xc, z
+    z = _scaled(Xc @ _round(w, compute_dtype), feature_scale)
+    return _scaled(_residual(z, y, mask) @ Xc, feature_scale), z
 
 
-def fused_lr_grad_reference(w, X, y, mask, *, compute_dtype: str = "bfloat16"):
+def fused_lr_grad_reference(w, X, y, mask, *, compute_dtype: str = "bfloat16",
+                            feature_scale: float = 1.0):
     """Plain version of :func:`fused_lr_grad`:
     ``Xᵀ((σ(X·w) − y)·mask)`` in f32 after rounding X and w to
-    ``compute_dtype``; the residual stays f32, as in the TPU kernel."""
-    return _grad_reference(w, X, y, mask, compute_dtype)[0]
+    ``compute_dtype``; the residual stays f32, as in the TPU kernel.  With
+    an int8 X, X dequantized by
+    ``feature_scale`` (z times it, g times it)."""
+    return _grad_reference(w, X, y, mask, compute_dtype, feature_scale)[0]
 
 
-def _check_inputs(w, X, compute_dtype, y=None, mask=None) -> None:
-    if compute_dtype not in COMPUTE_DTYPES:
+def lr_logits_int8dot_reference(w, X, *, feature_scale: float = 1.0):
+    """Plain version of :func:`lr_logits_int8dot`, the JAX model's int8_dot
+    logits: w quantized on its own grid, ``int8_contract(X, wq) * (s_w ·
+    feature_scale)``."""
+    wq, s_w = quantize_sym(w, w.abs().max())
+    return int8_contract(X, wq, 1) * (s_w * feature_scale)
+
+
+def lr_backward_int8dot_reference(X, r, *, feature_scale: float = 1.0):
+    """Plain version of :func:`lr_backward_int8dot`: the residuals quantized
+    on their own grid, ``int8_contract(rq, X) * (s_r · feature_scale)``."""
+    rq, s_r = quantize_sym(r, r.abs().max())
+    return int8_contract(rq, X, 0) * (s_r * feature_scale)
+
+
+def fused_lr_grad_int8dot_reference(w, X, y, mask, *, feature_scale: float = 1.0):
+    """Plain version of :func:`fused_lr_grad_int8dot` (unnormalized, like
+    :func:`fused_lr_grad`)."""
+    z = lr_logits_int8dot_reference(w, X, feature_scale=feature_scale)
+    return lr_backward_int8dot_reference(X, _residual(z, y, mask), feature_scale=feature_scale)
+
+
+def _check_inputs(w, X, compute_dtype, y=None, mask=None, *, x_dtypes=tuple(_X_DTYPE_CODES),
+                  feature_scale: float = 1.0) -> None:
+    """Shapes, dtypes, devices and the scale; ``w`` may be None (a
+    backward alone), ``compute_dtype`` None (int8_dot: products are int8)."""
+    if compute_dtype is not None and compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype!r}")
     if X.dim() != 2:
         raise ValueError(f"X must be (B, D), got shape {tuple(X.shape)}")
     B, D = X.shape
     if B < 1 or D < 1:
         raise ValueError(f"X must have B >= 1 and D >= 1, got {tuple(X.shape)}")
-    if X.dtype not in _X_DTYPE_CODES:
-        raise TypeError(f"X must be float32 or bfloat16, got {X.dtype}")
-    if w.shape != (D,):
+    if X.dtype not in x_dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in x_dtypes)
+        raise TypeError(f"X must be {names}, got {X.dtype}")
+    if feature_scale != 1.0 and X.dtype != torch.int8:
+        raise ValueError(f"feature_scale={feature_scale} dequantizes an int8 X; got {X.dtype}")
+    if w is not None and w.shape != (D,):
         raise ValueError(f"w must be ({D},), got {tuple(w.shape)}")
     for name, v in (("y", y), ("mask", mask)):
         if v is not None and v.shape != (B,):
@@ -360,21 +437,38 @@ def _lib() -> ctypes.CDLL:
     return bind(build.load(_LIB_NAME))
 
 
+@functools.cache
+def _int8_lib() -> ctypes.CDLL:
+    return bind(build.load(_INT8_LIB_NAME))
+
+
+def _lib_for(x_dtype) -> ctypes.CDLL:
+    """The library holding the instances for this X dtype."""
+    return _int8_lib() if x_dtype == torch.int8 else _lib()
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entry points of a ``fused_lr_grad`` library."""
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.distlr_lr_backward.argtypes = [p, i, p, p, ll, ll, i, p]
+    """Declare the C entry points of a ``fused_lr_grad`` or
+    ``fused_lr_int8`` library (the latter also has the int8_dot pair)."""
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.distlr_lr_backward.argtypes = [p, i, p, p, ll, ll, i, f, p]
     lib.distlr_lr_backward.restype = i
-    lib.distlr_lr_grad_single_pass.argtypes = [p, i, p, p, p, p, p, p, ll, ll, i,
+    lib.distlr_lr_grad_single_pass.argtypes = [p, i, p, p, p, p, p, p, ll, ll, i, f,
                                                i, i, i, i, i, i, p]
     lib.distlr_lr_grad_single_pass.restype = i
-    lib.distlr_lr_logits_streaming.argtypes = [p, i, p, p, p, p, p, p, ll, ll, i,
+    lib.distlr_lr_logits_streaming.argtypes = [p, i, p, p, p, p, p, p, ll, ll, i, f,
                                                i, i, i, i, i, p]
     lib.distlr_lr_logits_streaming.restype = i
     lib.distlr_lr_logits_blocks_per_sm.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.distlr_lr_logits_blocks_per_sm.restype = i
     lib.distlr_cuda_error_string.argtypes = [i]
     lib.distlr_cuda_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "distlr_lr_logits_int8dot"):
+        lib.distlr_lr_logits_int8dot.argtypes = [p, p, p, p, p, p, p, p, ll, ll, f,
+                                                 i, i, i, i, i, p]
+        lib.distlr_lr_logits_int8dot.restype = i
+        lib.distlr_lr_backward_int8dot.argtypes = [p, p, p, p, ll, ll, f, p]
+        lib.distlr_lr_backward_int8dot.restype = i
     return lib
 
 
@@ -398,13 +492,13 @@ def launch_plan_for(X, compute_dtype: str = "bfloat16", kernel: str = "grad") ->
 
 def streaming_blocks_per_sm(lib, x_dtype, compute_dtype: str, smem_bytes: int = 0) -> int:
     """Blocks of the streaming forward (its instance for ``x_dtype`` and
-    ``compute_dtype``) that an SM of the current card holds at once with
-    ``smem_bytes`` of dynamic shared memory, as the runtime's occupancy
-    calculator reports it; with 0, what its registers and threads allow."""
+    ``compute_dtype``; ``"int8"``: the int8_dot forward) that an SM of the
+    current card holds at once with ``smem_bytes`` of dynamic shared
+    memory, as the runtime's occupancy calculator reports it; with 0, what
+    its registers and threads allow."""
     blocks = ctypes.c_int(0)
-    rc = lib.distlr_lr_logits_blocks_per_sm(_X_DTYPE_CODES[x_dtype],
-                                            int(compute_dtype == "bfloat16"), smem_bytes,
-                                            ctypes.byref(blocks))
+    rc = lib.distlr_lr_logits_blocks_per_sm(_X_DTYPE_CODES[x_dtype], _W_CODES[compute_dtype],
+                                            smem_bytes, ctypes.byref(blocks))
     if rc != 0:
         msg = lib.distlr_cuda_error_string(rc).decode()
         raise RuntimeError(f"lr_logits_streaming occupancy query failed: CUDA error {rc} ({msg})")
@@ -414,7 +508,7 @@ def streaming_blocks_per_sm(lib, x_dtype, compute_dtype: str, smem_bytes: int = 
 @functools.cache
 def _wide_ctas_per_sm(index: int, x_dtype, compute_dtype: str) -> int:
     with torch.cuda.device(index):
-        return streaming_blocks_per_sm(_lib(), x_dtype, compute_dtype)
+        return streaming_blocks_per_sm(_lib_for(x_dtype), x_dtype, compute_dtype)
 
 
 def wide_plan_for(X, compute_dtype: str = "bfloat16") -> LaunchPlan:
@@ -436,10 +530,11 @@ def _stream(X) -> int:
 
 
 def run_single_pass(lib, plan: LaunchPlan, w, X, y, mask, compute_dtype: str,
-                    with_logits: bool = False):
+                    with_logits: bool = False, feature_scale: float = 1.0):
     """One launch of the single-pass kernel of ``lib`` with ``plan``;
-    ``(g, z)`` (``z`` None without ``with_logits``).  Counts nothing:
-    :func:`fused_lr_grad` is the counted entry point."""
+    ``(g, z)`` (``z`` None without ``with_logits``).  ``feature_scale`` is
+    an int8 X's.  Counts nothing: :func:`fused_lr_grad` is the counted
+    entry point."""
     if plan.kernel != "grad" or not plan.single_pass:
         raise ValueError(f"not a plan of the single pass: {plan}")
     B, D = X.shape
@@ -455,21 +550,18 @@ def run_single_pass(lib, plan: LaunchPlan, w, X, y, mask, compute_dtype: str,
         X.data_ptr(), _X_DTYPE_CODES[X.dtype], w.data_ptr(), y.data_ptr(),
         mask.data_ptr(), g.data_ptr(), None if z is None else z.data_ptr(),
         partials.data_ptr(), B, D,
-        int(compute_dtype == "bfloat16"), *_plan_args(plan), plan.groups_per_thread,
-        plan.dynamic_smem_bytes, _stream(X))
+        int(compute_dtype == "bfloat16"), feature_scale, *_plan_args(plan),
+        plan.groups_per_thread, plan.dynamic_smem_bytes, _stream(X))
     _raise_on(lib, rc, "lr_grad_single_pass")
     return g, z
 
 
-def run_streaming(lib, plan: LaunchPlan, w, X, compute_dtype: str, y=None, mask=None):
-    """The streaming forward of ``lib`` with ``plan`` (any fitting
-    ``"logits"`` plan: :func:`lr_launch_plan`'s or :func:`lr_wide_plan`'s),
-    then the fixed-order epilogue; (B,) f32 z, or ``(z, r)`` given y and
-    mask, with the residuals ``r = (σ(z) − y)·mask``.  Counts nothing."""
+def _streaming_outputs(X, plan: LaunchPlan, y, mask):
+    """(z, r, partials, y, mask) for a streaming launch: r, y and mask
+    None without labels."""
     if plan.kernel != "logits" or not plan.smem_bytes:
         raise ValueError(f"not a fitting plan of the streaming forward: {plan}")
-    B, D = X.shape
-    w = w.to(torch.float32).contiguous()
+    B = X.shape[0]
     z = torch.empty(B, dtype=torch.float32, device=X.device)
     r = None
     if y is not None:
@@ -478,32 +570,96 @@ def run_streaming(lib, plan: LaunchPlan, w, X, compute_dtype: str, y=None, mask=
         r = torch.empty(B, dtype=torch.float32, device=X.device)
     # per call: B * ctas words, 9.7 MB at (2048, 6M) on the wide plan
     partials = torch.empty(B * plan.ctas, dtype=torch.float32, device=X.device)
+    return z, r, partials, y, mask
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def run_streaming(lib, plan: LaunchPlan, w, X, compute_dtype: str, y=None, mask=None,
+                  feature_scale: float = 1.0):
+    """The streaming forward of ``lib`` with ``plan`` (any fitting
+    ``"logits"`` plan: :func:`lr_launch_plan`'s or :func:`lr_wide_plan`'s),
+    then the fixed-order epilogue; (B,) f32 z, or ``(z, r)`` given y and
+    mask, with the residuals ``r = (σ(z) − y)·mask``.  ``feature_scale`` is
+    an int8 X's.  Counts nothing."""
+    z, r, partials, y, mask = _streaming_outputs(X, plan, y, mask)
+    B, D = X.shape
+    w = w.to(torch.float32).contiguous()
     rc = lib.distlr_lr_logits_streaming(
-        X.data_ptr(), _X_DTYPE_CODES[X.dtype], w.data_ptr(),
-        None if y is None else y.data_ptr(), None if y is None else mask.data_ptr(),
-        z.data_ptr(), None if r is None else r.data_ptr(), partials.data_ptr(), B, D,
-        int(compute_dtype == "bfloat16"), *_plan_args(plan), plan.dynamic_smem_bytes,
-        _stream(X))
+        X.data_ptr(), _X_DTYPE_CODES[X.dtype], w.data_ptr(), _ptr(y), _ptr(mask),
+        z.data_ptr(), _ptr(r), partials.data_ptr(), B, D,
+        int(compute_dtype == "bfloat16"), feature_scale, *_plan_args(plan),
+        plan.dynamic_smem_bytes, _stream(X))
     _raise_on(lib, rc, "lr_logits_streaming")
     return z if r is None else (z, r)
 
 
-def run_two_read(lib, plan: LaunchPlan, w, X, y, mask, compute_dtype: str):
+def run_two_read(lib, plan: LaunchPlan, w, X, y, mask, compute_dtype: str,
+                 feature_scale: float = 1.0):
     """The two-read gradient of ``lib``: the streaming forward with
     ``plan`` and the residual epilogue, then the backward column sums;
     ``(g, z)``.  Counts nothing."""
-    z, r = run_streaming(lib, plan, w, X, compute_dtype, y, mask)
+    z, r = run_streaming(lib, plan, w, X, compute_dtype, y, mask, feature_scale)
     B, D = X.shape
     g = torch.empty(D, dtype=torch.float32, device=X.device)
     rc = lib.distlr_lr_backward(X.data_ptr(), _X_DTYPE_CODES[X.dtype], r.data_ptr(),
                                 g.data_ptr(), B, D, int(compute_dtype == "bfloat16"),
-                                _stream(X))
+                                feature_scale, _stream(X))
     _raise_on(lib, rc, "lr_backward")
     return g, z
 
 
+def run_int8dot_forward(lib, plan: LaunchPlan, wq, w_scale, X, feature_scale: float,
+                        y=None, mask=None):
+    """The int8_dot forward of ``lib`` with ``plan`` (a fitting
+    ``"logits"`` plan for compute_dtype ``"int8"``): ``z = (X·wq) · (s_w ·
+    feature_scale)``, and ``(z, r)`` given y and mask; ``w_scale`` is the
+    (0-dim, on the card) scale of wq's grid.  Counts nothing."""
+    z, r, partials, y, mask = _streaming_outputs(X, plan, y, mask)
+    B, D = X.shape
+    rc = lib.distlr_lr_logits_int8dot(
+        X.data_ptr(), wq.contiguous().data_ptr(), w_scale.data_ptr(), _ptr(y), _ptr(mask),
+        z.data_ptr(), _ptr(r), partials.data_ptr(), B, D, feature_scale, *_plan_args(plan),
+        plan.dynamic_smem_bytes, _stream(X))
+    _raise_on(lib, rc, "lr_logits_int8dot")
+    return z if r is None else (z, r)
+
+
+def run_int8dot_backward(lib, X, r, r_scale, feature_scale: float):
+    """The int8_dot backward of ``lib``: ``g = (rqᵀX) · (s_r ·
+    feature_scale)``, rq the residuals quantized on the grid of
+    ``r_scale`` (0-dim, on the card) as the kernel stages them.  Counts
+    nothing."""
+    B, D = X.shape
+    r = r.to(torch.float32).contiguous()
+    g = torch.empty(D, dtype=torch.float32, device=X.device)
+    rc = lib.distlr_lr_backward_int8dot(X.data_ptr(), r.data_ptr(), r_scale.data_ptr(),
+                                        g.data_ptr(), B, D, feature_scale, _stream(X))
+    _raise_on(lib, rc, "lr_backward_int8dot")
+    return g
+
+
+class Int8Instance:
+    """The launch count of a wrapper's int8-X instance (``csrc/fused_lr_int8.cu``),
+    kept apart from the wrapper's own count of its float instances:
+    ``fused_lr_grad.int8.launches`` and so on.  It carries a wrapper's
+    ``__name__`` (the wrapper's with ``_int8``) so that it stands beside the
+    wrappers in :data:`KERNEL_WRAPPERS`."""
+
+    def __init__(self, wrapper) -> None:
+        self.__name__ = f"{wrapper.__name__}_int8"
+        self.launches = 0
+
+
+def _count(wrapper, X) -> None:
+    """One launch of ``wrapper``'s kernel: its int8 instance's for an int8 X."""
+    (wrapper.int8 if X.dtype == torch.int8 else wrapper).launches += 1
+
+
 def fused_lr_grad(w, X, y, mask, *, compute_dtype: str = "bfloat16",
-                  with_logits: bool = False):
+                  feature_scale: float = 1.0, with_logits: bool = False):
     """Unnormalized logistic gradient ``Xᵀ((σ(X·w) − y)·mask)``, (D,) f32.
 
     The caller divides by the batch count and adds the L2 term, as
@@ -514,30 +670,33 @@ def fused_lr_grad(w, X, y, mask, *, compute_dtype: str = "bfloat16",
     :func:`fused_lr_grad_two_launch`.
 
     Args:
-      w: (D,) weights.  X: (B, D) float32 or bfloat16 features.
+      w: (D,) weights.  X: (B, D) float32, bfloat16 or int8 features.
       y: (B,) labels; mask: (B,) validity (both cast to f32).
       compute_dtype: "bfloat16" rounds X and w to bf16 before the
         products (the TPU kernel's casts); "float32" keeps full f32.
+      feature_scale: an int8 X's dequantization scale ``s`` (X holds
+        ``round(X_real / s)``): ``s · Xᵀ((σ(s · X·w) − y)·mask)`` and
+        ``z = s · X·w``, on the kernels' int8 instances, X read at one byte
+        an element.  A float X takes only 1.0.
     """
-    _check_inputs(w, X, compute_dtype, y, mask)
+    _check_inputs(w, X, compute_dtype, y, mask, feature_scale=feature_scale)
     if X.device.type == "cpu":
-        g, z = _grad_reference(w, X, y, mask, compute_dtype)
+        g, z = _grad_reference(w, X, y, mask, compute_dtype, feature_scale)
         return (g, z) if with_logits else g
     with torch.cuda.device(X.device):
         plan = launch_plan_for(X, compute_dtype)
         if not plan.single_pass:
             return fused_lr_grad_two_launch(w, X, y, mask, compute_dtype=compute_dtype,
+                                            feature_scale=feature_scale,
                                             with_logits=with_logits)
-        g, z = run_single_pass(_lib(), plan, w, X, y, mask, compute_dtype, with_logits)
-    fused_lr_grad.launches += 1
+        g, z = run_single_pass(_lib_for(X.dtype), plan, w, X, y, mask, compute_dtype,
+                               with_logits, feature_scale)
+    _count(fused_lr_grad, X)
     return (g, z) if with_logits else g
 
 
-fused_lr_grad.launches = 0
-
-
 def fused_lr_grad_two_launch(w, X, y, mask, *, compute_dtype: str = "bfloat16",
-                             with_logits: bool = False):
+                             feature_scale: float = 1.0, with_logits: bool = False):
     """:func:`fused_lr_grad` through the two-read path: three launches,
     the streaming forward on :func:`lr_wide_plan`'s multi-wave plan, the
     epilogue that sums each row's partials into z and the residual, then
@@ -545,57 +704,129 @@ def fused_lr_grad_two_launch(w, X, y, mask, *, compute_dtype: str = "bfloat16",
     the epilogue's z, the same bits as :func:`lr_logits_row_blocks`.
     :func:`fused_lr_grad` routes here above the single pass's shape bound;
     called directly, it takes any shape (the yardstick of the single pass)."""
-    _check_inputs(w, X, compute_dtype, y, mask)
+    _check_inputs(w, X, compute_dtype, y, mask, feature_scale=feature_scale)
     if X.device.type == "cpu":
-        g, z = _grad_reference(w, X, y, mask, compute_dtype)
+        g, z = _grad_reference(w, X, y, mask, compute_dtype, feature_scale)
         return (g, z) if with_logits else g
     with torch.cuda.device(X.device):
-        g, z = run_two_read(_lib(), wide_plan_for(X, compute_dtype), w, X, y, mask,
-                            compute_dtype)
-    fused_lr_grad_two_launch.launches += 1
+        g, z = run_two_read(_lib_for(X.dtype), wide_plan_for(X, compute_dtype), w, X, y, mask,
+                            compute_dtype, feature_scale)
+    _count(fused_lr_grad_two_launch, X)
     return (g, z) if with_logits else g
 
 
-fused_lr_grad_two_launch.launches = 0
-
-
-def lr_logits(w, X, *, compute_dtype: str = "bfloat16"):
-    """(B,) f32 logits ``X·w`` with X and w rounded to ``compute_dtype``.
+def lr_logits(w, X, *, compute_dtype: str = "bfloat16", feature_scale: float = 1.0):
+    """(B,) f32 logits ``X·w`` with X and w rounded to ``compute_dtype``
+    (times an int8 X's ``feature_scale``, as in :func:`fused_lr_grad`).
     Keeps f32 logits for a bf16 X without an f32 copy of the (B, D)
     matrix.  On the card this is the streaming slice kernel, whose logits
     have the same bits as :func:`fused_lr_grad`'s ``with_logits``; above
     the shape bound the call goes to :func:`lr_logits_row_blocks`."""
-    _check_inputs(w, X, compute_dtype)
+    _check_inputs(w, X, compute_dtype, feature_scale=feature_scale)
     if X.device.type == "cpu":
-        return lr_logits_reference(w, X, compute_dtype=compute_dtype)
+        return lr_logits_reference(w, X, compute_dtype=compute_dtype,
+                                   feature_scale=feature_scale)
     with torch.cuda.device(X.device):
         plan = launch_plan_for(X, compute_dtype, "logits")
         if not plan.single_pass:
-            return lr_logits_row_blocks(w, X, compute_dtype=compute_dtype)
-        z = run_streaming(_lib(), plan, w, X, compute_dtype)
-    lr_logits.launches += 1
+            return lr_logits_row_blocks(w, X, compute_dtype=compute_dtype,
+                                        feature_scale=feature_scale)
+        z = run_streaming(_lib_for(X.dtype), plan, w, X, compute_dtype,
+                          feature_scale=feature_scale)
+    _count(lr_logits, X)
     return z
 
 
-lr_logits.launches = 0
-
-
-def lr_logits_row_blocks(w, X, *, compute_dtype: str = "bfloat16"):
+def lr_logits_row_blocks(w, X, *, compute_dtype: str = "bfloat16", feature_scale: float = 1.0):
     """:func:`lr_logits` through the two-read path's forward: the streaming
     kernel on :func:`lr_wide_plan`'s multi-wave plan, then the fixed-order
     sum of each row's partials (two launches, one read of X, each column
     of w read once).  :func:`lr_logits` routes here above the slice
     kernels' shape bound."""
-    _check_inputs(w, X, compute_dtype)
+    _check_inputs(w, X, compute_dtype, feature_scale=feature_scale)
     if X.device.type == "cpu":
-        return lr_logits_reference(w, X, compute_dtype=compute_dtype)
+        return lr_logits_reference(w, X, compute_dtype=compute_dtype,
+                                   feature_scale=feature_scale)
     with torch.cuda.device(X.device):
-        z = run_streaming(_lib(), wide_plan_for(X, compute_dtype), w, X, compute_dtype)
-    lr_logits_row_blocks.launches += 1
+        z = run_streaming(_lib_for(X.dtype), wide_plan_for(X, compute_dtype), w, X,
+                          compute_dtype, feature_scale=feature_scale)
+    _count(lr_logits_row_blocks, X)
     return z
 
 
-lr_logits_row_blocks.launches = 0
+#: the wrappers of a float or an int8 X, each with its int8 instance's count
+_DENSE_WRAPPERS = (fused_lr_grad, lr_logits, fused_lr_grad_two_launch, lr_logits_row_blocks)
+for _wrapper in _DENSE_WRAPPERS:
+    _wrapper.launches = 0
+    _wrapper.int8 = Int8Instance(_wrapper)
 
-#: every kernel wrapper of this module, for launch accounting
-KERNEL_WRAPPERS = (fused_lr_grad, lr_logits, fused_lr_grad_two_launch, lr_logits_row_blocks)
+
+# --- int8_dot: w and the residual quantized too --------------------------------
+
+
+def int8dot_plan_for(X) -> LaunchPlan:
+    """The int8_dot forward's plan for this X on its card: one wave where
+    wq's slice and two stages fit, else :func:`lr_wide_plan`'s waves."""
+    plan = launch_plan_for(X, "int8", "logits")
+    return plan if plan.single_pass else wide_plan_for(X, "int8")
+
+
+def lr_logits_int8dot(w, X, y=None, mask=None, *, feature_scale: float = 1.0):
+    """The JAX model's ``int8_dot`` logits for an int8 X: w quantized on
+    its own symmetric grid (``s_w = max|w| / 127``), ``z = (X·wq) · (s_w ·
+    feature_scale)`` with int32 sums that cannot wrap; given y and mask,
+    ``(z, r)`` with the residuals ``r = (σ(z) − y)·mask``.  On the card
+    the dp4a streaming forward and its epilogue (wq from ``torch.amax``
+    and :func:`quantize_sym` first)."""
+    _check_inputs(w, X, None, y, mask, x_dtypes=_INT8_X)
+    if X.device.type == "cpu":
+        z = lr_logits_int8dot_reference(w, X, feature_scale=feature_scale)
+        return z if y is None else (z, _residual(z, y, mask))
+    with torch.cuda.device(X.device):
+        wq, s_w = quantize_sym(w.to(torch.float32), torch.amax(w.abs()))
+        out = run_int8dot_forward(_int8_lib(), int8dot_plan_for(X), wq, s_w, X,
+                                  feature_scale, y, mask)
+    lr_logits_int8dot.launches += 1
+    return out
+
+
+lr_logits_int8dot.launches = 0
+
+
+def lr_backward_int8dot(X, r, *, feature_scale: float = 1.0):
+    """The JAX model's ``int8_dot`` backward, unnormalized: the residuals r
+    quantized on their own grid (``s_r = max|r| / 127``), ``g = (rqᵀX) ·
+    (s_r · feature_scale)``, int32 over at most 133,120 rows at a time.
+    On the card one kernel that quantizes r as it stages it."""
+    _check_inputs(None, X, None, x_dtypes=_INT8_X)
+    if r.shape != X.shape[:1] or r.device != X.device:
+        raise ValueError(f"r must be ({X.shape[0]},) on {X.device}, got {tuple(r.shape)} "
+                         f"on {r.device}")
+    if X.device.type == "cpu":
+        return lr_backward_int8dot_reference(X, r, feature_scale=feature_scale)
+    with torch.cuda.device(X.device):
+        g = run_int8dot_backward(_int8_lib(), X, r, sym_scale(torch.amax(r.abs())),
+                                 feature_scale)
+    lr_backward_int8dot.launches += 1
+    return g
+
+
+lr_backward_int8dot.launches = 0
+
+
+def fused_lr_grad_int8dot(w, X, y, mask, *, feature_scale: float = 1.0,
+                          with_logits: bool = False):
+    """The ``int8_dot`` gradient ``(rqᵀX) · (s_r · feature_scale)``,
+    unnormalized like :func:`fused_lr_grad`: :func:`lr_logits_int8dot`
+    with the residuals, then :func:`lr_backward_int8dot`.  s_r is the
+    maximum over every residual of the batch, so the backward waits for
+    the whole forward: X is read twice."""
+    z, r = lr_logits_int8dot(w, X, y, mask, feature_scale=feature_scale)
+    g = lr_backward_int8dot(X, r, feature_scale=feature_scale)
+    return (g, z) if with_logits else g
+
+
+#: every kernel wrapper of this module (and the int8 instances' counts), for
+#: launch accounting
+KERNEL_WRAPPERS = (*_DENSE_WRAPPERS, *(fn.int8 for fn in _DENSE_WRAPPERS),
+                   lr_logits_int8dot, lr_backward_int8dot)

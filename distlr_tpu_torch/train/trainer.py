@@ -15,6 +15,7 @@ one reference "iteration".
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import queue
 import threading
@@ -33,6 +34,7 @@ from distlr_tpu_torch.data.libsvm import parse_libsvm_file
 from distlr_tpu_torch.data.sharding import part_name
 from distlr_tpu_torch.models import get_model
 from distlr_tpu_torch.parallel import make_eval_step, make_sync_train_step
+from distlr_tpu_torch.train.checkpoint import Checkpointer
 from distlr_tpu_torch.train.export import save_model_text
 from distlr_tpu_torch.train.metrics import MetricsLogger, StepTimer
 from distlr_tpu_torch.utils.device import resolve_device
@@ -64,8 +66,9 @@ class GlobalShardedData:
     ``(W, n_pad, ...)``; a global minibatch of per-worker size ``b`` is the
     flattened ``(W*b, ...)`` slice ``[:, k*b:(k+1)*b]`` with a validity
     mask, so worker i's rows are row block i.  The feature leaf is a numpy
-    array, or a ``torch.bfloat16`` tensor once the trainer has quantized
-    it (numpy has no bfloat16).
+    array (int8 once the trainer has quantized it to int8), or a
+    ``torch.bfloat16`` tensor once quantized to bfloat16 (numpy has no
+    bfloat16).
     """
 
     def __init__(self, shards: list[tuple[np.ndarray, ...]]):
@@ -239,6 +242,39 @@ def _as_tensor(a) -> torch.Tensor:
     return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
 
 
+#: bytes of f32 features converted at a time when quantizing: the
+#: elementwise arithmetic gives the same bytes in any cut, and a (2048, 1M)
+#: matrix needs no full-size f32 temporaries
+_QUANT_CHUNK_BYTES = 1 << 26
+
+
+def _row_blocks(X: np.ndarray):
+    """``(start, stop)`` of blocks of X's rows (all axes but the last)
+    holding about ``_QUANT_CHUNK_BYTES`` of X each."""
+    n, d = X.size // X.shape[-1], X.shape[-1]
+    step = max(1, _QUANT_CHUNK_BYTES // max(1, d * X.itemsize))
+    for i in range(0, n, step):
+        yield i, min(i + step, n)
+
+
+def _int8_scale(X: np.ndarray) -> float:
+    """``max|X| / 127`` (1.0 for an all-zero X): the JAX trainer's scale."""
+    rows = X.reshape(-1, X.shape[-1])
+    max_abs = max((float(np.abs(rows[a:b]).max()) for a, b in _row_blocks(X)), default=0.0)
+    scale = max_abs / 127.0
+    return 1.0 if scale == 0.0 else scale
+
+
+def _quantize_int8(X: np.ndarray, scale: float) -> np.ndarray:
+    """``clip(rint(X / scale), -127, 127)`` as int8, the JAX trainer's
+    numpy arithmetic, a block of rows at a time."""
+    q = np.empty(X.shape, dtype=np.int8)
+    rows, q_rows = X.reshape(-1, X.shape[-1]), q.reshape(-1, X.shape[-1])
+    for a, b in _row_blocks(X):
+        q_rows[a:b] = np.clip(np.rint(rows[a:b] / scale), -127, 127).astype(np.int8)
+    return q
+
+
 def _prefetch(to_device, host_batches, depth: int):
     """Yield ``(host_batch, to_device(host_batch))`` pairs with up to
     ``depth`` batches sliced and copied ahead of the consumer, from a
@@ -287,8 +323,7 @@ class Trainer:
         self.num_shards = cfg.num_workers
         self.model = get_model(cfg)
         self.metrics = metrics or MetricsLogger()
-        self.train_step = make_sync_train_step(self.model, cfg, self.num_shards)
-        self.eval_step = make_eval_step(self.model)
+        self._build_steps()
         self.timer = StepTimer()
         self.weights: torch.Tensor | None = None
         self._train_data: GlobalShardedData | None = None
@@ -297,13 +332,22 @@ class Trainer:
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
 
+    def _build_steps(self) -> None:
+        self.train_step = make_sync_train_step(self.model, self.cfg, self.num_shards)
+        self.eval_step = make_eval_step(self.model)
+
     def _quantize_features(self) -> None:
-        """Convert loaded dense feature storage to ``cfg.feature_dtype``
-        (bfloat16: a ``torch.bfloat16`` tensor, round to nearest even).
+        """Convert loaded dense feature storage to ``cfg.feature_dtype``:
+        bfloat16, a ``torch.bfloat16`` tensor (round to nearest even); int8
+        and int8_dot, symmetric per-dataset quantization with one scale from
+        the train split's max |x| (the test split reuses it, clipped),
+        folded into the model as ``feature_scale``.
 
         Datasets can be shared across Trainers (``load_data(train=...)``),
         so the conversion is recorded on the object: an already converted
-        dataset is kept, and a dtype mismatch fails loudly."""
+        dataset keeps its stored scale (re-quantizing ints would compute
+        scale 1), a fresh one is quantized with that scale, and a dtype
+        mismatch fails loudly."""
         fd = self.cfg.feature_dtype
         datasets = [d for d in (self._train_data, self._test_data) if d is not None]
         prev = {d._quant_dtype for d in datasets if getattr(d, "_quant_dtype", None)}
@@ -312,10 +356,22 @@ class Trainer:
                 f"dataset was already quantized as {sorted(prev)} by another "
                 f"Trainer; this one wants {fd!r}"
             )
-        for d in datasets:
-            if getattr(d, "_quant_dtype", None) is None:
+        fresh = [d for d in datasets if getattr(d, "_quant_dtype", None) is None]
+        if fd == "bfloat16":
+            for d in fresh:
                 d._feats[0] = _as_tensor(d._feats[0]).to(torch.bfloat16)
-                d._quant_dtype = fd
+                d._quant_dtype, d._quant_scale = fd, 1.0
+            return
+        prev_scales = {d._quant_scale for d in datasets if getattr(d, "_quant_dtype", None)}
+        if len(prev_scales) > 1:
+            raise ValueError(
+                f"shared datasets carry inconsistent quantization scales {prev_scales}")
+        scale = prev_scales.pop() if prev_scales else _int8_scale(self._train_data._feats[0])
+        for d in fresh:
+            d._feats[0] = _quantize_int8(d._feats[0], scale)
+            d._quant_dtype, d._quant_scale = fd, scale
+        self.model = dataclasses.replace(self.model, feature_scale=scale)
+        self._build_steps()
 
     # -- data ---------------------------------------------------------------
     def load_data(self, train: GlobalShardedData | None = None,
@@ -324,13 +380,16 @@ class Trainer:
         layout the model family reads: dense ``X`` (``binary_lr``,
         ``softmax``), padded COO (``sparse_*``) or raw-CTR shards hashed to
         row blocks (``blocked_lr``).  ``test_only=True`` skips the train
-        split — eval-only workflows, float32 features only."""
+        split — eval-only workflows, float32 features only (a quantized
+        dtype's scale comes from the train split)."""
         cfg = self.cfg
         if test_only:
             if train is not None:
                 raise ValueError("test_only=True contradicts passing train data")
             if cfg.feature_dtype != "float32":
-                raise ValueError("test_only loading requires feature_dtype='float32'")
+                raise ValueError(
+                    "test_only loading requires feature_dtype='float32' "
+                    "(quantization scales come from the train split)")
         if cfg.model == "blocked_lr":
             def load(split):
                 return GlobalShardedData.from_raw_ctr_dir(cfg.data_dir, split,
@@ -396,22 +455,43 @@ class Trainer:
         self.weights = self.model.init(self.cfg, self.device)
         return self.weights
 
-    def fit(self, *, epochs: int | None = None, eval_fn=None) -> torch.Tensor:
+    def fit(self, *, epochs: int | None = None, eval_fn=None,
+            resume: bool = False) -> torch.Tensor:
         """Run the training loop; returns the final weights.
 
         ``eval_fn(epoch, accuracy)`` is called at each test interval
-        (default: print the reference-format line)."""
+        (default: print the reference-format line).  With a
+        ``checkpoint_dir``, the weights and the epoch are saved every
+        ``checkpoint_interval`` epochs and after the last one; with
+        ``resume=True`` training restarts from the latest saved epoch."""
         cfg = self.cfg
         if self._train_data is None:
             self.load_data()
+        ckpt = None
+        start_epoch = 0
+        if cfg.checkpoint_dir:
+            ckpt = Checkpointer(cfg.checkpoint_dir)
+            state = ckpt.restore() if resume else None
+            if state is not None:
+                w = np.asarray(state["weights"], dtype=np.float32).reshape(self.model.param_shape)
+                self.weights = torch.from_numpy(w).to(self.device)
+                start_epoch = int(state["epoch"])
+                log.info("resumed from checkpoint at epoch %d", start_epoch)
         if self.weights is None:
             self.init_weights()
         epochs = cfg.num_iteration if epochs is None else epochs
+        self._run_epochs(start_epoch, epochs, eval_fn, ckpt)
+        if ckpt is not None and epochs > start_epoch and ckpt.latest_step() != epochs:
+            ckpt.save(epochs, self.weights, extra={"epoch": epochs})
+        return self.weights
+
+    def _run_epochs(self, start_epoch: int, epochs: int, eval_fn, ckpt) -> None:
+        cfg = self.cfg
         test_batch = None
         if self._test_data is not None:
             test_batch = self._put(self._test_data.full_batch())
 
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             host_iter = self._train_data.batches(
                 cfg.batch_size, wrap=bool(cfg.wrap_final_batch))
             if cfg.prefetch > 1:
@@ -441,7 +521,9 @@ class Trainer:
                     eval_fn(epoch + 1, acc)
                 else:
                     log_eval_line(epoch + 1, acc)
-        return self.weights
+            if ckpt is not None and cfg.checkpoint_interval > 0 and (
+                    epoch + 1) % cfg.checkpoint_interval == 0:
+                ckpt.save(epoch + 1, self.weights, extra={"epoch": epoch + 1})
 
     def evaluate(self) -> float:
         return self.evaluate_metrics()["accuracy"]

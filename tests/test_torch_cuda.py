@@ -238,6 +238,133 @@ def test_non_contiguous_features_refused(cuda):
         ops.fused_lr_grad(w[:32], X[:, ::2], y, mask)
 
 
+# --- int8 features: the int8 instances (K1-K3) and the int8_dot pair (K4) ----
+INT8_SCALE = 3.0 / 127.0
+
+
+def _rel0(a, b):
+    """``_rel`` that takes two all-zero results (an all-masked batch) as equal."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _int8_inputs(cuda, B, D, seed=0):
+    """An int8 X uniform in [-127, 127], the last B // 5 rows masked (every
+    row when B < 5)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    X = torch.randint(-127, 128, (B, D), device=cuda, generator=gen, dtype=torch.int8)
+    w = torch.randn(D, device=cuda, generator=gen) / D ** 0.5
+    y = (torch.rand(B, device=cuda, generator=gen) < 0.5).to(torch.int32)
+    mask = torch.ones(B, device=cuda)
+    mask[-(B // 5):] = 0
+    return w, X, y, mask
+
+
+# D % 16 != 0 (no bulk copies), B = 1, fewer CTAs than SMs, a wide slice,
+# above the single pass's bound
+@pytest.mark.parametrize("B,D", [(64, 256), (37, 1003), (1, 333), (130, 600_000),
+                                 (9, 5_500_000)])
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_int8_kernels_match_plain(cuda, B, D, compute_dtype):
+    s = INT8_SCALE
+    w, X, y, mask = _int8_inputs(cuda, B, D, seed=B)
+    kw = dict(compute_dtype=compute_dtype, feature_scale=s)
+    single = ops.fused_lr_supported(B, D, x_dtype=torch.int8, compute_dtype=compute_dtype)
+    before = _counts()
+    g, z = ops.fused_lr_grad(w, X, y, mask, with_logits=True, **kw)
+    torch.cuda.synchronize()
+    after = _counts()
+    assert after["fused_lr_grad_int8"] == before["fused_lr_grad_int8"] + single
+    assert after["fused_lr_grad_two_launch_int8"] == (
+        before["fused_lr_grad_two_launch_int8"] + (not single))
+    assert after["fused_lr_grad"] == before["fused_lr_grad"]
+    g_ref = ops.fused_lr_grad_reference(w, X, y, mask, **kw)
+    z_ref = ops.lr_logits_reference(w, X, **kw)
+    assert _rel0(g, g_ref) <= 1e-3 and _rel0(z, z_ref) <= 1e-3
+    assert _rel0(ops.lr_logits(w, X, **kw), z_ref) <= 1e-3
+    assert _rel0(ops.lr_logits_row_blocks(w, X, **kw), z_ref) <= 1e-3
+    assert _rel0(ops.fused_lr_grad_two_launch(w, X, y, mask, **kw), g_ref) <= 1e-3
+
+
+@pytest.mark.parametrize("B,D", [(64, 256), (37, 1003), (1, 333), (130, 600_000),
+                                 (9, 6_000_000)])
+def test_int8dot_kernels_match_plain(cuda, B, D):
+    """The forward against the plain int8 contraction (int32 chunks in
+    both: equal but for the f32 sums across slices); the backward given
+    the same residuals quantizes them alike, so its int32 sums are equal."""
+    s = INT8_SCALE
+    w, X, y, mask = _int8_inputs(cuda, B, D, seed=D)
+    before = _counts()
+    z, r = ops.lr_logits_int8dot(w, X, y, mask, feature_scale=s)
+    g = ops.lr_backward_int8dot(X, r, feature_scale=s)
+    torch.cuda.synchronize()
+    after = _counts()
+    assert after["lr_logits_int8dot"] == before["lr_logits_int8dot"] + 1
+    assert after["lr_backward_int8dot"] == before["lr_backward_int8dot"] + 1
+    assert _rel0(z, ops.lr_logits_int8dot_reference(w, X, feature_scale=s)) <= 1e-5
+    assert _rel0(g, ops.lr_backward_int8dot_reference(X, r, feature_scale=s)) <= 1e-6
+    assert torch.equal(ops.fused_lr_grad_int8dot(w, X, y, mask, feature_scale=s),
+                       ops.fused_lr_grad_int8dot(w, X, y, mask, feature_scale=s))
+
+
+def test_int8dot_long_backward_does_not_wrap(cuda):
+    """140,000 rows of all-127 X with every residual 1: rq is all 127, the
+    exact sum 127^2 * 140,000 exceeds int32, the kernel flushes in time."""
+    X = torch.full((140_000, 64), 127, dtype=torch.int8, device=cuda)
+    g = ops.lr_backward_int8dot(X, torch.ones(140_000, device=cuda))
+    s_r = float(ops.fused_lr.sym_scale(torch.ones((), device=cuda)))
+    closed = 127.0 * 127.0 * 140_000 * s_r
+    assert float((g.double() - closed).abs().max()) <= 1e-6 * closed
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 2048, 1000), (37, 1003, 10), (20, 64, 8)])
+def test_int8_mm_is_exact(cuda, m, k, n):
+    """The plain int8_dot versions' GEMM (torch._int_mm, padded to its
+    shape rules) against f64 products, exact for these integer sums."""
+    from distlr_tpu_torch.ops.int8 import int8_mm
+
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    a = torch.randint(-127, 128, (m, k), device=cuda, generator=gen, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), device=cuda, generator=gen, dtype=torch.int8)
+    assert torch.equal(int8_mm(a, b).double(), a.double() @ b.double())
+
+
+def test_int8_single_pass_is_deterministic(cuda):
+    w, X, y, mask = _int8_inputs(cuda, 512, 1_000_000)
+    g1, z1 = ops.fused_lr_grad(w, X, y, mask, feature_scale=0.5, with_logits=True)
+    g2, z2 = ops.fused_lr_grad(w, X, y, mask, feature_scale=0.5, with_logits=True)
+    assert torch.equal(g1, g2) and torch.equal(z1, z2)
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32", "int8"])
+def test_int8_wide_plan_counts_the_cards_waves(cuda, compute_dtype):
+    fl = ops.fused_lr
+    per_sm = fl.streaming_blocks_per_sm(fl._int8_lib(), torch.int8, compute_dtype)
+    X = torch.empty((), dtype=torch.int8, device=cuda).expand(64, 6_000_000)
+    plan = fl.wide_plan_for(X, compute_dtype)
+    assert plan.ctas_per_sm == per_sm >= 1 and plan.smem_bytes
+    assert plan.slice_cols % 16 == 0
+    assert fl.whole_waves(plan, torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+@pytest.mark.parametrize("fd", ["int8", "int8_dot"])
+def test_int8_trainer_on_card_matches_cpu(cuda, fd):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    shards = [(rng.standard_normal((300, 512)).astype(np.float32),
+               rng.integers(0, 2, 300).astype(np.int32)) for _ in range(2)]
+    kw = dict(num_feature_dim=512, num_iteration=3, batch_size=-1, learning_rate=0.5,
+              l2_c=0.01, test_interval=0, compute_dtype="float32", feature_dtype=fd,
+              num_workers=2)
+    weights = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(Config(device=dev, **kw)).load_data(
+            train=GlobalShardedData(shards), test=GlobalShardedData(shards[:1]))
+        tr.weights = torch.linspace(-0.1, 0.1, 512, device=dev)
+        weights[dev] = tr.fit().cpu()
+    assert _rel(weights["cuda"], weights["cpu"]) <= 1e-4
+
+
 def test_trainer_on_card_matches_cpu(cuda):
     gen = torch.Generator().manual_seed(0)
     X = torch.randn(400, 40, generator=gen).numpy()

@@ -229,6 +229,7 @@ class TestConfig:
         {"block_groups": 2}, {"model": "blocked_lr", "block_groups": -1},
         {"model": "sparse_lr", "feature_dtype": "bfloat16"},
         {"model": "blocked_lr", "feature_dtype": "int8"},
+        {"model": "sparse_lr", "feature_dtype": "int8_dot"},
         {"ctr_fields": -1}, {"hash_seed": -1}, {"hash_seed": 1 << 64}])
     def test_rejects_like_jax(self, kw):
         with pytest.raises(ValueError):

@@ -60,10 +60,10 @@ class TestCLI:
         assert not os.path.exists(os.path.join(d, "models", "part-001"))
 
     def test_unported_option_names_its_roadmap_item(self, tmp_path):
-        proc = _launch("sync", "--data-dir", str(tmp_path), "--model", "softmax",
-                       "--feature-dtype", "int8_dot", "--device", "cpu", check=False)
+        proc = _launch("sync", "--data-dir", str(tmp_path), "--profile-dir",
+                       str(tmp_path / "prof"), "--device", "cpu", check=False)
         assert proc.returncode != 0
-        assert "ROADMAP A.3" in proc.stderr
+        assert "ROADMAP A.12" in proc.stderr
 
 
 class TestDeviceRule:

@@ -137,19 +137,33 @@ class TestConvert:
 
 class TestConfigGates:
     @pytest.mark.parametrize("kw,item", [
-        ({"model": "softmax", "feature_dtype": "int8_dot"}, "A.3"),
         ({"model": "sparse_lr", "sync_mode": False}, "A.9"),
-        ({"feature_dtype": "int8"}, "A.3"),
-        ({"feature_dtype": "int8_dot"}, "A.3"),
         ({"feature_shards": 2}, "A.7"),
         ({"mesh_shape": {"data": 1, "model": 2}}, "A.7"),
-        ({"checkpoint_dir": "ck"}, "A.8"),
         ({"profile_dir": "prof"}, "A.12"),
         ({"sync_mode": False}, "A.9"),
     ])
     def test_unported_options_name_their_roadmap_item(self, kw, item):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
             Config(device="cpu", **kw)
+
+    # the options of ROADMAP A.3 (int8 features) and A.8 (checkpoints)
+    @pytest.mark.parametrize("kw", [
+        {"model": "softmax", "feature_dtype": "int8_dot", "num_classes": 3},
+        {"feature_dtype": "int8"},
+        {"feature_dtype": "int8_dot"},
+        {"checkpoint_dir": "ck", "checkpoint_interval": 5},
+    ])
+    def test_ported_options_resolve_like_jax(self, kw):
+        j, t = JaxConfig(**kw), Config(device="cpu", **kw)
+        for f in ("model", "feature_dtype", "compute_dtype", "num_classes", "checkpoint_dir",
+                  "checkpoint_interval", "l2_scale_by_batch", "sync_last_gradient"):
+            assert getattr(t, f) == getattr(j, f), f
+        assert get_model(t).int8_dot == (kw.get("feature_dtype") == "int8_dot")
+
+    def test_negative_checkpoint_interval_rejected(self):
+        with pytest.raises(ValueError, match="checkpoint_interval"):
+            Config(device="cpu", checkpoint_interval=-1)
 
     @pytest.mark.parametrize("mode", ["correct", "reference"])
     def test_quirk_gates_resolve_like_jax(self, mode):
