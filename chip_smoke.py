@@ -201,8 +201,8 @@ def _library_grad(torch, w, X, y, mask):
 
 def _plan_fields(plan) -> dict:
     return {k: plan.as_dict()[k] for k in
-            ("ctas", "ctas_per_sm", "waves", "slice_cols", "rows", "stages", "smem_bytes",
-             "single_pass")}
+            ("ctas", "ctas_per_sm", "waves", "slice_cols", "rows", "stages", "compute_warps",
+             "groups_per_thread", "smem_bytes", "single_pass")}
 
 
 def _two_read_floor_ms(B: int, D: int, x_bytes: int) -> float:
@@ -653,12 +653,31 @@ def phase_int8_kernels(torch, seed: int) -> dict:
     del X, w, y, mask, z, r, rq, wq8, rq24
     torch.cuda.empty_cache()
 
-    # the two-read path's int8 instances at the shape its trainer gives them
+    # the two-read path's int8 instances at the shape its trainer gives them,
+    # and the gradient's backward alone on the forward's residuals
     B, D = WIDE_B, WIDE_D
     w, X, y, mask = _int8_inputs(torch, gen, B, D)
     wb, yf = w.to(torch.bfloat16), y.to(torch.float32)
     bound_ms, bound_by = _grad_bound(B, D, 1)
-    plan = _plan_fields(fused_lr.wide_plan_for(X))
+    wide = fused_lr.wide_plan_for(X)
+    plan = _plan_fields(wide)
+    lib = fused_lr._int8_lib()
+    r = fused_lr.run_streaming(lib, wide, w, X, "bfloat16", y, mask, feature_scale=s)[1]
+    same_wide = {
+        "fused_lr_grad_two_launch_int8": bool(torch.equal(
+            ops.fused_lr_grad_two_launch(w, X, y, mask, feature_scale=s),
+            ops.fused_lr_grad_two_launch(w, X, y, mask, feature_scale=s))),
+        "lr_backward": bool(torch.equal(fused_lr.run_backward(lib, X, r, "bfloat16", s),
+                                        fused_lr.run_backward(lib, X, r, "bfloat16", s)))}
+    emit("kernel_check", B=B, D=D, x_dtype="torch.int8", case="deterministic",
+         same_bits=same_wide)
+    if not all(same_wide.values()):
+        raise AssertionError(f"an int8 two-read kernel gave other bits on a second call: "
+                             f"{same_wide}")
+    results["fused_lr_grad_two_launch_int8"].update(
+        backward_ms=time_ms(lambda: fused_lr.run_backward(lib, X, r, "bfloat16", s), reps),
+        backward_bound_ms=1e3 * (B * D + B * 4 + D * 4) / HBM_BYTES_PER_S,
+        backward_grid=fused_lr.int8_backward_grid(X))
     results["fused_lr_grad_two_launch_int8"].update(
         ms=time_ms(lambda: ops.fused_lr_grad_two_launch(w, X, y, mask, feature_scale=s),
                    reps),
@@ -1356,10 +1375,11 @@ def phase_roofline_experiments(torch, smi: str) -> dict:
     return launches
 
 
-# library -> function (a substring of its mangled name) -> (opcode
-# prefixes, least count of them inside one loop of its SASS, what that
-# shows, opcode prefixes that no loop of it may hold, a pattern of opcodes
-# that the loop holding the most of the first may not hold)
+# library -> function (a substring of its mangled name, then optionally
+# "#" and a label, for a second fact of one function) -> (opcode prefixes,
+# least count of them inside one loop of its SASS, what that shows, opcode
+# prefixes that no loop of it may hold, a pattern of opcodes that the loop
+# holding the most of the first may not hold)
 _INT8_CONVERT = ("each int8 of X becomes an f32 by PRMT + FADD: no int-to-float conversion "
                  "(I2F, I2FP; I2F.RP is an integer division's reciprocal) in the loop "
                  "with the most PRMT")
@@ -1379,7 +1399,10 @@ SASS_FACTS = {
     "fused_lr_int8": {
         "lr_grad_single_pass_kernel": (("PRMT",), 8, _INT8_CONVERT, (), _NO_CONVERSION),
         "lr_logits_streaming_kernel": (("PRMT",), 8, _INT8_CONVERT, (), _NO_CONVERSION),
-        "lr_backward_kernel": (("PRMT",), 8, _INT8_CONVERT, (), _NO_CONVERSION),
+        "lr_backward_int8_kernel": (("PRMT",), 8, _INT8_CONVERT, (), _NO_CONVERSION),
+        "lr_backward_int8_kernel#loads": (("LDG.E.64",), 8,
+                                          "8 rows' 8-byte loads issued together in the "
+                                          "backward's row loop", (), None),
         "lr_logits_int8dot_kernel": (("IDP",), 2,
                                      "one dp4a per 4 columns of a row in the forward loop",
                                      (), None),
@@ -1431,7 +1454,7 @@ def _sass_loops(text: str) -> dict:
 def _sass_facts(loops: dict, table: dict) -> dict:
     facts = {}
     for fn, (prefixes, least, what, absent, not_beside) in table.items():
-        names = [n for n in loops if fn in n]
+        names = [n for n in loops if fn.split("#")[0] in n]
         per_loop = [loop for n in names for loop in loops[n]]
         counts = [sum(c for op, c in loop.items() if op.startswith(prefixes))
                   for loop in per_loop]
@@ -1460,8 +1483,9 @@ def phase_sass() -> dict:
     """What the kernels compiled to: wgmma (HGMMA) and no mma.sync (HMMA)
     in the probe mxu's pass loop, the FMAs inside const's pass loop, a
     whole Philox block in gen's loop; in the int8 library the byte-permute
-    conversion (PRMT, no I2F beside it) in the int8 instances' loops and
-    dp4a (IDP) in the int8_dot pair's."""
+    conversion (PRMT, no I2F beside it) in the int8 kernels' loops, 8
+    rows' loads together in the two-read backward's, and dp4a (IDP) in the
+    int8_dot pair's."""
     from distlr_tpu_torch.ops import build  # noqa: PLC0415
 
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
@@ -1555,7 +1579,7 @@ def main(argv=None) -> int:
             "worst_rel_err": t["rel_err"],
         }
         for extra in ("library_note", "two_pass_ms", "row_blocks_ms", "plan", "shape",
-                      "at_8_rows", "at_512_rows", "pair_ms", "wrap"):
+                      "at_8_rows", "at_512_rows", "pair_ms", "wrap", "backward_ms"):
             if extra in t:
                 entry[extra] = t[extra]
         if name in ("lr_logits_int8dot", "lr_backward_int8dot"):

@@ -128,23 +128,26 @@ int distlr_lr_backward(const void* X, int x_dtype, const float* r, float* g,
   if (scale != 1.f) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 1)
-    launch_backward<uint16_t>(X, r, g, B, D, round_bf16 != 0, scale, s);
+    launch_backward<uint16_t>(X, r, g, B, D, round_bf16 != 0, s);
   else
-    launch_backward<float>(X, r, g, B, D, round_bf16 != 0, scale, s);
+    launch_backward<float>(X, r, g, B, D, round_bf16 != 0, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 // g = X^T ((sigmoid(X w) - y) * mask) (D,) f32 in one read of X; z = X w
 // too when z is non-null.  The launch plan (ctas, slice_cols, rows,
-// stages, groups_per_thread, smem_bytes: the dynamic shared memory) comes
-// from the wrapper's lr_launch_plan; partials holds B * ctas words, each
-// 0xffffffff.
+// stages, groups_per_thread, compute_warps: kComputeWarps here, smem_bytes:
+// the dynamic shared memory) comes from the wrapper's lr_launch_plan;
+// partials holds B * ctas + B words, each 0xffffffff.
 int distlr_lr_grad_single_pass(const void* X, int x_dtype, const float* w, const float* y,
                                const float* mask, float* g, float* z, float* partials,
                                long long B, long long D, int round_bf16, float scale,
                                int ctas, int slice_cols, int rows, int stages,
-                               int groups_per_thread, int smem_bytes, void* stream) {
-  if (!single_pass_plan_ok(ctas, slice_cols, rows, stages, groups_per_thread, D) ||
+                               int groups_per_thread, int compute_warps, int smem_bytes,
+                               void* stream) {
+  if (compute_warps != kComputeWarps ||
+      !single_pass_plan_ok(ctas, slice_cols, rows, stages, groups_per_thread, compute_warps,
+                           D) ||
       scale != 1.f)
     return static_cast<int>(cudaErrorInvalidValue);
   const SliceArgs a = slice_args(X, w, y, mask, g, z, partials, B, D, slice_cols, rows, stages,

@@ -10,16 +10,19 @@
 // scales and contracts int8 x int8 in int32 chunks that cannot wrap
 // (_int8_contract).
 //
-//   int8 X, f32 or bf16 products (the instances of fused_lr_slice.cuh at
-//     XT = int8_t): the single pass (z * s into the sigmoid, g * s out),
-//     the streaming forward and its residual epilogue (z * s), and the
-//     two-read path's backward (g * s).  X moves at one byte an element:
-//     at (2048, 1M) the single pass's byte bound is 0.614 ms, half the
-//     bf16 one.  Each byte becomes an f32 with one PRMT and one FADD
-//     (int8x4_to_f32), not the conversion unit: 2 conversions of 2.05e9
-//     elements at 16 per SM and clock would take 0.98 ms, more than the
-//     bytes.  Bulk copies need 16-byte rows, so int8 slices are multiples
-//     of 16 columns and D % 16 == 0 (else the producer's plain loads).
+//   int8 X, f32 or bf16 products: the single pass (z * s into the
+//     sigmoid, g * s out), the streaming forward and its residual epilogue
+//     (z * s), instances of fused_lr_slice.cuh at XT = int8_t; the single
+//     pass with bf16 products on 16 compute warps and arrival counters
+//     where its register tile allows (kWideWarps below); and the two-read
+//     path's backward (g * s), lr_backward_int8_kernel below.  X moves at
+//     one byte an element: at (2048, 1M) the single pass's byte bound is
+//     0.614 ms, half the bf16 one.  Each byte becomes an f32 with one PRMT
+//     and one FADD (int8x4_to_f32), not the conversion unit: 2 conversions
+//     of 2.05e9 elements at 16 per SM and clock would take 0.98 ms, more
+//     than the bytes.  Bulk copies need 16-byte rows, so int8 slices are
+//     multiples of 16 columns and D % 16 == 0 (else the producer's plain
+//     loads).
 //
 //   int8_dot, two kernels a step:
 //     lr_logits_int8dot_kernel, the streaming forward with w quantized to
@@ -119,7 +122,7 @@ __device__ void write_int_partial(const Int8DotSlice& s, int t) {
 __global__ void __launch_bounds__(kLogitsThreads, kLogitsCtasPerSm)
 lr_logits_int8dot_kernel(const SliceArgs args) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) SliceShared sh;
+  __shared__ __align__(8) SliceShared<> sh;
   Int8DotSlice s(args, smem, sh);
   s.init_barriers();
   __syncthreads();
@@ -218,6 +221,131 @@ lr_backward_int8dot_kernel(const int8_t* __restrict__ X, const float* __restrict
   }
 }
 
+// --- the two-read path's backward for an int8 X ------------------------------
+// g[d] = (sum_b r[b] * X[b, d]) * scale, each column summed over the rows in
+// order with one f32 FMA a row, as lr_backward_kernel does (the same bits).
+// That kernel, instantiated for an int8 X, loads one row at a time (8
+// bytes a thread, the loop unrolled 4 but each load used at once); here
+// each thread issues the loads of kI8BwdBatch rows before it converts any,
+// 64 bytes a thread in flight.  (16 columns a thread, one 16-byte load a
+// row, measured slower: 0.151 ms against lr_backward_kernel's 0.141 at (64, 6M),
+// fewer blocks an SM at 48 registers; slice_kernels.py --times.)  The grid is
+// the blocks the card holds at once (the runtime's occupancy figure times
+// the SMs), each walking 2,048-column blocks in a grid-stride loop, so no
+// partial wave trails the launch.  D % 8 != 0 or an unaligned X or g takes
+// a scalar path.
+constexpr int kI8BwdBatch = 8;
+constexpr int64_t kI8BwdBlockCols = static_cast<int64_t>(kBwdThreads) * kCols;
+
+__device__ __forceinline__ void fma8(const uint2 v, float ri, float (&acc)[kCols]) {
+  float x[kCols];
+  int8x4_to_f32(v.x, x);
+  int8x4_to_f32(v.y, x + 4);
+#pragma unroll
+  for (int k = 0; k < kCols; ++k) acc[k] = fmaf(ri, x[k], acc[k]);
+}
+
+__global__ void __launch_bounds__(kBwdThreads)
+lr_backward_int8_kernel(const int8_t* __restrict__ X, const float* __restrict__ r,
+                        float* __restrict__ g, int64_t B, int64_t D, bool vec, float scale) {
+  __shared__ float rs[kRChunk];
+  const int64_t nblocks = (D + kI8BwdBlockCols - 1) / kI8BwdBlockCols;
+  for (int64_t cb = blockIdx.x; cb < nblocks; cb += gridDim.x) {
+    const int64_t c0 = cb * kI8BwdBlockCols + static_cast<int64_t>(threadIdx.x) * kCols;
+    const bool active = c0 < D;
+    float acc[kCols];
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) acc[k] = 0.f;
+    for (int64_t b0 = 0; b0 < B; b0 += kRChunk) {
+      const int n = static_cast<int>(B - b0 < kRChunk ? B - b0 : kRChunk);
+      __syncthreads();  // the previous chunk is fully consumed
+      for (int i = threadIdx.x; i < n; i += kBwdThreads) rs[i] = r[b0 + i];
+      __syncthreads();
+      if (!active) continue;
+      const int8_t* p = X + b0 * D + c0;
+      if (vec) {
+        int i = 0;
+        for (; i + kI8BwdBatch <= n; i += kI8BwdBatch) {
+          uint2 v[kI8BwdBatch];
+#pragma unroll
+          for (int u = 0; u < kI8BwdBatch; ++u)
+            v[u] = __ldg(reinterpret_cast<const uint2*>(p + static_cast<int64_t>(i + u) * D));
+#pragma unroll
+          for (int u = 0; u < kI8BwdBatch; ++u) fma8(v[u], rs[i + u], acc);
+        }
+        for (; i < n; ++i)
+          fma8(__ldg(reinterpret_cast<const uint2*>(p + static_cast<int64_t>(i) * D)), rs[i], acc);
+      } else {
+        const int ncols = static_cast<int>(D - c0 < kCols ? D - c0 : kCols);
+        for (int i = 0; i < n; ++i) {
+          const float ri = rs[i];
+          for (int k = 0; k < ncols; ++k)
+            acc[k] = fmaf(ri, load1<int8_t, false>(p + static_cast<int64_t>(i) * D + k), acc[k]);
+        }
+      }
+    }
+    if (!active) continue;
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) acc[k] *= scale;
+    if (vec) {
+      float4* out = reinterpret_cast<float4*>(g + c0);
+      out[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      out[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+    } else {
+      for (int k = 0; k < kCols && c0 + k < D; ++k) g[c0 + k] = acc[k];
+    }
+  }
+}
+
+// The int8 backward's grid: the blocks an SM of the current card holds at
+// once times its SMs (fewer where D has fewer column blocks).
+cudaError_t backward_int8_grid(int64_t D, int* blocks, int* per_sm) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, lr_backward_int8_kernel,
+                                                        kBwdThreads, 0);
+  if (err != cudaSuccess) return err;
+  const int64_t nblocks = (D + kI8BwdBlockCols - 1) / kI8BwdBlockCols;
+  const int64_t wave = static_cast<int64_t>(*per_sm) * sms;
+  *blocks = static_cast<int>(nblocks < wave ? nblocks : wave);
+  return *blocks >= 1 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+// --- the single pass for an int8 X ---------------------------------------------
+// A 30 KB tile of an int8 X holds 4 rows, twice the elements of a bf16
+// tile, and each element costs a PRMT, an FADD and an FFMA each way.  With
+// the 8 compute warps of the bf16 instances (2 a scheduler, each running a
+// dependent LDS -> PRMT -> FADD -> FFMA chain), a CTA's forward of a
+// tile took 2.0 us and its backward 1.3 us from the first warp's start to
+// the last warp's end (medians, slice_kernels.py --trace) in a 2.3 us tile
+// period: a CTA that falls behind cannot catch up, and every stage waits
+// on its publish (6.7 us behind the median CTA's, against 1.8 us for bf16).  The
+// wide instances run kWideWarps compute warps, 4 a scheduler, each owning
+// half the groups (a register tile of 2 or 4 groups), and a ring of at
+// most max_stages(kWideWarps) stages.  Where the tile does not fit their
+// registers (launch bounds of 640 threads leave at most 96 a thread) the
+// plan keeps 8 warps (ops/fused_lr.py, _slice_plan).
+constexpr int kWideWarps = 16;
+
+// The single pass for `warps` compute warps and the register tile that
+// holds `groups_per_thread`; null where there is none.  The wide instances
+// are for bf16 products (WT = uint16_t): with f32 products they measured
+// slower than 8 warps (1.28 against 1.25 ms at (2048, 1M)).
+template <typename WT>
+const void* int8_single_pass_kernel(int warps, int groups_per_thread) {
+  if (warps == kComputeWarps) return single_pass_kernel<int8_t, WT>(groups_per_thread);
+  if constexpr (sizeof(WT) == 2) {
+    if (warps != kWideWarps) return nullptr;
+    if (groups_per_thread <= 2)
+      return reinterpret_cast<const void*>(&lr_grad_single_pass_kernel<int8_t, WT, 2, kWideWarps>);
+    if (groups_per_thread <= 4)
+      return reinterpret_cast<const void*>(&lr_grad_single_pass_kernel<int8_t, WT, 4, kWideWarps>);
+  }
+  return nullptr;
+}
+
 // The streaming kernel's instance for w's type.
 const void* streaming_kernel(int w_code) {
   if (w_code == kWInt8) return reinterpret_cast<const void*>(&lr_logits_int8dot_kernel);
@@ -237,11 +365,23 @@ constexpr int kInt8SliceAlign = 16;
 extern "C" {
 
 // g = (X^T r) * scale (D,) f32 for an int8 X (dtype code 2).
+// (round_bf16 changes nothing: an int8 is exact in bf16.)
 int distlr_lr_backward(const void* X, int x_dtype, const float* r, float* g,
                        long long B, long long D, int round_bf16, float scale, void* stream) {
   if (x_dtype != kInt8Code) return static_cast<int>(invalid());
-  launch_backward<int8_t>(X, r, g, B, D, round_bf16 != 0, scale, static_cast<cudaStream_t>(stream));
+  int blocks = 0, per_sm = 0;
+  const cudaError_t err = backward_int8_grid(D, &blocks, &per_sm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = D % kCols == 0 && aligned16(X) && aligned16(g);
+  lr_backward_int8_kernel<<<blocks, kBwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(X), r, g, B, D, vec, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's launch for a D-column int8 X on the current card: *blocks
+// in its grid, *per_sm the blocks an SM holds at once.
+int distlr_lr_backward_grid(long long D, int* blocks, int* per_sm) {
+  return static_cast<int>(backward_int8_grid(D, blocks, per_sm));
 }
 
 // fused_lr_grad.cu's single pass for an int8 X: z = (X w) * scale into the
@@ -250,16 +390,20 @@ int distlr_lr_grad_single_pass(const void* X, int x_dtype, const float* w, const
                                const float* mask, float* g, float* z, float* partials,
                                long long B, long long D, int round_bf16, float scale,
                                int ctas, int slice_cols, int rows, int stages,
-                               int groups_per_thread, int smem_bytes, void* stream) {
+                               int groups_per_thread, int compute_warps, int smem_bytes,
+                               void* stream) {
   if (x_dtype != kInt8Code || slice_cols % kInt8SliceAlign != 0 ||
-      !single_pass_plan_ok(ctas, slice_cols, rows, stages, groups_per_thread, D))
+      !single_pass_plan_ok(ctas, slice_cols, rows, stages, groups_per_thread, compute_warps,
+                           D))
     return static_cast<int>(invalid());
   const SliceArgs a = slice_args(X, w, y, mask, g, z, partials, B, D, slice_cols, rows, stages,
                                  1, scale);
-  const void* kernel = round_bf16 ? single_pass_kernel<int8_t, uint16_t>(groups_per_thread)
-                                  : single_pass_kernel<int8_t, float>(groups_per_thread);
+  const void* kernel =
+      round_bf16 ? int8_single_pass_kernel<uint16_t>(compute_warps, groups_per_thread)
+                 : int8_single_pass_kernel<float>(compute_warps, groups_per_thread);
   if (kernel == nullptr) return static_cast<int>(invalid());
-  const cudaError_t err = launch_slice(kernel, true, ctas, kGradThreads, smem_bytes, a,
+  const cudaError_t err = launch_slice(kernel, true, ctas, grad_threads(compute_warps),
+                                       smem_bytes, a,
                                        static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -334,6 +478,13 @@ int distlr_lr_backward_int8dot(const void* X, const float* r, const float* r_sca
       static_cast<const int8_t*>(X), r, r_scale, scale, g, B, D, vec);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef DISTLR_SLICE_TRACE
+// The trace of the last single pass (fused_lr_grad.cu's, for an int8 X).
+int distlr_slice_trace(unsigned long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_slice_trace, sizeof(g_slice_trace)));
+}
+#endif
 
 const char* distlr_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

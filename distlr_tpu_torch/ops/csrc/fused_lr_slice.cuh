@@ -17,12 +17,25 @@ constexpr int kBwdThreads = 256;
 constexpr int kCols = 8;         // columns per backward thread / per slice group
 constexpr int kRChunk = 2048;    // residuals staged in shared memory per pass
 
-// A slice kernel's CTA: kComputeWarps warps that read the ring and do
-// the arithmetic, and helper warps that move data and synchronize.
+// A slice kernel's CTA: W compute warps that read the ring and do the
+// arithmetic (kComputeWarps, but for the int8 single pass's wider
+// instances: fused_lr_int8.cu), and helper warps that move data and
+// synchronize.
 constexpr int kComputeWarps = 8;
 constexpr int kComputeThreads = kComputeWarps * 32;
-constexpr int kResolvers = 2;                             // resolver warps, round robin on tiles
-constexpr int kGradThreads = kComputeThreads + (2 + kResolvers) * 32;  // + publisher, producer
+// The single pass's resolver warps, round robin on tiles: one per 4
+// compute warps (the wider instances run tiles faster, and a resolver
+// handles one tile at a time).
+__host__ __device__ constexpr int resolvers(int warps) { return warps / 4; }
+// the single pass's threads: + publisher, resolvers, producer
+__host__ __device__ constexpr int grad_threads(int warps) {
+  return (warps + 2 + resolvers(warps)) * 32;
+}
+// Whether the single pass's publishers count each row's arrivals, which
+// its resolvers poll instead of the partials (the wider instances; see
+// lr_grad_single_pass_kernel).
+__host__ __device__ constexpr bool counts_arrivals(int warps) { return warps != kComputeWarps; }
+constexpr int kGradThreads = grad_threads(kComputeWarps);
 constexpr int kLogitsThreads = kComputeThreads + 32;      // + one helper
 // Blocks of the streaming kernel an SM holds at once: registers for 3
 // (at most 75 a thread).  Its multi-wave plans count waves of what
@@ -30,6 +43,12 @@ constexpr int kLogitsThreads = kComputeThreads + 32;      // + one helper
 constexpr int kLogitsCtasPerSm = 3;
 constexpr int kMaxTileRows = 4;                           // R, at most
 constexpr int kMaxStages = 16;
+// The ring's depth with W compute warps: sh.red holds a sum per stage, row
+// and warp, so twice the warps take half the stages and the static shared
+// memory stays the same.
+__host__ __device__ constexpr int max_stages(int warps) {
+  return kMaxStages * kComputeWarps / warps;
+}
 constexpr int kMaxCtas = 256;                             // partials a resolver lane holds: 8
 // A partial not yet written: a NaN that float arithmetic on the card
 // never produces (its NaNs are 0x7fffffff).
@@ -151,12 +170,6 @@ __device__ __forceinline__ float load1<int8_t, false>(const int8_t* p) {
   return __uint_as_float(0x4B000000u | biased) - kInt8Magic;
 }
 template <>
-__device__ __forceinline__ void load8<int8_t, false>(const int8_t* p, float (&out)[kCols]) {
-  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-  int8x4_to_f32(v.x, out);
-  int8x4_to_f32(v.y, out + 4);
-}
-template <>
 __device__ __forceinline__ void lds8<int8_t, false>(const int8_t* p, float (&out)[kCols]) {
   const uint2 v = *reinterpret_cast<const uint2*>(p);
   int8x4_to_f32(v.x, out);
@@ -179,12 +192,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // --- the backward of the two-read path -----------------------------------
 
-// g[d] = sum_b r[b] * X[b, d], one thread per kCols adjacent columns.
-// An int8 X's g is multiplied by its dequantization scale on the way out.
+// g[d] = sum_b r[b] * X[b, d], one thread per kCols adjacent columns (an
+// int8 X has its own backward: fused_lr_int8.cu).
 template <typename T, bool kRound>
 __global__ void __launch_bounds__(kBwdThreads)
 lr_backward_kernel(const T* __restrict__ X, const float* __restrict__ r,
-                   float* __restrict__ g, int64_t B, int64_t D, bool vec, float scale) {
+                   float* __restrict__ g, int64_t B, int64_t D, bool vec) {
   __shared__ float rs[kRChunk];
   const int64_t c0 =
       (static_cast<int64_t>(blockIdx.x) * kBwdThreads + threadIdx.x) * kCols;
@@ -220,10 +233,6 @@ lr_backward_kernel(const T* __restrict__ X, const float* __restrict__ r,
     }
   }
   if (!active) return;
-  if constexpr (sizeof(T) == 1) {
-#pragma unroll
-    for (int k = 0; k < kCols; ++k) acc[k] *= scale;
-  }
   if (full) {
     float4* out = reinterpret_cast<float4*>(g + c0);
     out[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
@@ -250,16 +259,22 @@ __device__ __forceinline__ unsigned long long global_ns() {
 // every CTA and kTraceTiles tiles from kTraceFirst, the %globaltimer at
 // each event below, read back with distlr_slice_trace().
 enum TraceEvent { kIssued, kForwardStart, kForwarded, kPublished, kResolved, kResidualsOut,
-                  kBackwardStart, kStageFree, kTraceEvents };
+                  kBackwardStart, kStageFree, kResolveStart, kArrived, kPollRounds,
+                  kTraceEvents };
 #ifdef DISTLR_SLICE_TRACE
 constexpr int kTraceFirst = 400, kTraceTiles = 32;
 __device__ unsigned long long g_slice_trace[256 * kTraceTiles * kTraceEvents];
-__device__ __forceinline__ void trace(TraceEvent ev, int tile) {
+// A value in an event's slot (kPollRounds: a count, not a time).
+__device__ __forceinline__ void trace_value(TraceEvent ev, int tile, unsigned long long v) {
   const int i = tile - kTraceFirst;
   if (i >= 0 && i < kTraceTiles && (threadIdx.x & 31) == 0 && blockIdx.x < 256)
-    g_slice_trace[(blockIdx.x * kTraceTiles + i) * kTraceEvents + ev] = global_ns();
+    g_slice_trace[(blockIdx.x * kTraceTiles + i) * kTraceEvents + ev] = v;
+}
+__device__ __forceinline__ void trace(TraceEvent ev, int tile) {
+  trace_value(ev, tile, global_ns());
 }
 #else
+__device__ __forceinline__ void trace_value(TraceEvent, int, unsigned long long) {}
 __device__ __forceinline__ void trace(TraceEvent, int) {}
 #endif
 
@@ -341,6 +356,18 @@ __device__ __forceinline__ void st_relaxed(float* p, float v) {
   asm volatile("st.relaxed.gpu.global.f32 [%0], %1;" ::"l"(p), "f"(v) : "memory");
 }
 
+// One more arrival on a counter, after (release) this thread's earlier
+// stores; and a counter's value, before (acquire) this thread's later loads.
+__device__ __forceinline__ void add_release(uint32_t* p) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(p) : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_acquire(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
 // The total of one row's `ctas` partial dots, summed by one warp in a
 // fixed order (lane-strided in CTA order, then a shuffle tree; the single
 // pass's resolvers add in the same order).  Lane 0 holds it.
@@ -359,7 +386,8 @@ struct SliceArgs {
   const float* mask;     // single pass only
   float* g;              // single pass only
   float* z;              // may be null in the single pass
-  float* partials;       // (B, ctas) f32 scratch; single pass: every word kUnwritten
+  float* partials;       // (B, ctas) f32 scratch; single pass: every word kUnwritten, then
+                         // B more (arrival counters), also kUnwritten
   long long B, D;
   int slice_cols;        // columns a CTA owns (multiple of 8); the last CTA may own fewer
   int rows;              // R, rows per tile
@@ -369,27 +397,30 @@ struct SliceArgs {
   const int8_t* wq;      // int8_dot: w quantized to int8
 };
 
-// The barriers and small buffers of a slice kernel, in static shared
-// memory.  For tile t, slot t % stages; each barrier completes one phase
-// per tile that uses its slot.
+// The barriers and small buffers of a slice kernel with W compute warps,
+// in static shared memory.  For tile t, slot t % stages; each barrier
+// completes one phase per tile that uses its slot.
+template <int W = kComputeWarps>
 struct SliceShared {
-  uint64_t full[kMaxStages];      // the tile has landed (1 arrival + bytes)
-  uint64_t fwd_done[kMaxStages];  // every compute warp wrote its partials (kComputeWarps)
-  uint64_t res_ready[kMaxStages]; // the tile's residuals are in `res` (1)
-  uint64_t empty[kMaxStages];     // every compute warp is done with the stage (kComputeWarps)
-  float red[kMaxStages][kMaxTileRows][kComputeWarps];  // per-warp partial dots
-  float res[kMaxStages][kMaxTileRows];                 // residuals
+  static constexpr int kStages = max_stages(W);
+  uint64_t full[kStages];         // the tile has landed (1 arrival + bytes)
+  uint64_t fwd_done[kStages];     // every compute warp wrote its partials (W)
+  uint64_t res_ready[kStages];    // the tile's residuals are in `res` (1)
+  uint64_t empty[kStages];        // every compute warp is done with the stage (W)
+  float red[kStages][kMaxTileRows][W];  // per-warp partial dots
+  float res[kStages][kMaxTileRows];     // residuals
 };
 
 // One CTA's view of its column slice and of the shared-memory ring.  XT
 // is the element type of X (uint16_t: bf16 bits), WT that of w in shared
-// memory (bf16 when the products are rounded to bf16).
-template <typename XT, typename WT>
+// memory (bf16 when the products are rounded to bf16), W the compute warps.
+template <typename XT, typename WT, int W = kComputeWarps>
 struct Slice {
   static constexpr bool kRoundX = sizeof(XT) == 4 && sizeof(WT) == 2;
+  static constexpr int kThreads = W * 32;  // compute threads
 
   const SliceArgs a;
-  SliceShared& sh;
+  SliceShared<W>& sh;
   int64_t c0;    // first column
   int len;       // columns owned
   int ngroups;   // groups of 8 columns (the last zero-padded)
@@ -397,7 +428,7 @@ struct Slice {
   XT* ring;      // stages x rows x slice_cols
   WT* ws;        // slice_cols
 
-  __device__ Slice(const SliceArgs& args, unsigned char* smem, SliceShared& shared)
+  __device__ Slice(const SliceArgs& args, unsigned char* smem, SliceShared<W>& shared)
       : a(args), sh(shared) {
     c0 = static_cast<int64_t>(blockIdx.x) * a.slice_cols;
     const int64_t left = a.D - c0;
@@ -473,9 +504,9 @@ struct Slice {
     if (threadIdx.x == 0) {
       for (int s = 0; s < a.stages; ++s) {
         mbar_init(&sh.full[s], 1);
-        mbar_init(&sh.fwd_done[s], kComputeWarps);
+        mbar_init(&sh.fwd_done[s], W);
         mbar_init(&sh.res_ready[s], 1);
-        mbar_init(&sh.empty[s], kComputeWarps);
+        mbar_init(&sh.empty[s], W);
       }
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
@@ -520,7 +551,7 @@ struct Slice {
     float acc[kMaxTileRows];
 #pragma unroll
     for (int r = 0; r < kMaxTileRows; ++r) acc[r] = 0.f;
-    for (int j = threadIdx.x; j < ngroups; j += kComputeThreads) {
+    for (int j = threadIdx.x; j < ngroups; j += kThreads) {
       float wv[kCols];
       lds8<WT, false>(ws + j * kCols, wv);
 #pragma unroll
@@ -551,41 +582,54 @@ struct Slice {
     const int r = threadIdx.x & 31;
     float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < kComputeWarps; ++i) s += sh.red[slot(t)][r][i];
+    for (int i = 0; i < W; ++i) s += sh.red[slot(t)][r][i];
     st_relaxed(a.partials + (static_cast<int64_t>(t) * a.rows + r) * gridDim.x + blockIdx.x, s);
   }
 };
 
-template <typename XT, typename WT, int KG>
-__global__ void __launch_bounds__(kGradThreads, 1)
+template <typename XT, typename WT, int KG, int W = kComputeWarps>
+__global__ void __launch_bounds__(grad_threads(W), 1)
 lr_grad_single_pass_kernel(const SliceArgs args) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) SliceShared sh;
-  Slice<XT, WT> s(args, smem, sh);
+  __shared__ __align__(8) SliceShared<W> sh;
+  Slice<XT, WT, W> s(args, smem, sh);
   s.init();
   const int T = s.ntiles;
   const int S = args.stages;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int ctas = static_cast<int>(gridDim.x);
+  // each row's count of the CTAs that published its partial, from
+  // kUnwritten (-1): complete at ctas - 1
+  uint32_t* arrivals = reinterpret_cast<uint32_t*>(args.partials) + args.B * ctas;
 
-  if (warp == kComputeWarps) {
+  if (warp == W) {
     // Publisher: each tile's partials to the scratch, where the resolvers
     // of every CTA poll them.
     for (int p = 0; p < T; ++p) {
       mbar_wait(&sh.fwd_done[s.slot(p)], s.parity(p));
       trace(kForwarded, p);
-      if (lane < s.tile_rows(p)) s.write_partial(p);
+      if (lane < s.tile_rows(p)) {
+        s.write_partial(p);
+        if constexpr (counts_arrivals(W))
+          add_release(arrivals + static_cast<int64_t>(p) * args.rows + lane);
+      }
       trace(kPublished, p);
     }
     return;
   }
-  if (warp > kComputeWarps && warp <= kComputeWarps + kResolvers) {
+  constexpr int kResolvers = resolvers(W);
+  if (warp > W && warp <= W + kResolvers) {
     // Resolvers, round robin on tiles: poll tile t's partials until every
     // CTA has written its own, then z (the same bits in every CTA, in
     // row_sum's order) and the residuals r = (sigmoid(z) - y) * mask.
+    // With 16 compute warps 4 resolvers poll in every CTA, and polling the
+    // tile's 17 lines of partials made the single pass slower (1.28 ms at
+    // (2048, 1M) int8, against 1.17 polling the rows' arrival counters,
+    // one line, then reading the partials once; slice_kernels.py --times):
+    // the wide instances count arrivals.
     constexpr int kPerLane = kMaxCtas / 32;
-    for (int t = warp - kComputeWarps - 1; t < T; t += kResolvers) {
+    for (int t = warp - W - 1; t < T; t += kResolvers) {
       const int n = s.tile_rows(t);
       const float* rows = args.partials + static_cast<int64_t>(t) * args.rows * ctas;
       // the labels and mask of the tile's rows, loaded while the poll waits
@@ -594,33 +638,66 @@ lr_grad_single_pass_kernel(const SliceArgs args) {
         yr = __ldg(args.y + static_cast<int64_t>(t) * args.rows + lane);
         mr = __ldg(args.mask + static_cast<int64_t>(t) * args.rows + lane);
       }
-      float v[kMaxTileRows][kPerLane];
+      // each row's partials summed in CTA order; polling the partials
+      // themselves, the sums of the round that found every one written
+      float acc[kMaxTileRows];
+      trace(kResolveStart, t);
       const unsigned long long t0 = global_ns();
-      for (;;) {
-        bool written = true;
+      unsigned long long rounds = 0;
+      if constexpr (counts_arrivals(W)) {
+        const uint32_t* count = arrivals + static_cast<int64_t>(t) * args.rows;
+        for (;; ++rounds) {
+          // every lane reads every row's count (one line), all in flight
+          // before any is compared
+          uint32_t c[kMaxTileRows];
 #pragma unroll
-        for (int r = 0; r < kMaxTileRows; ++r)
+          for (int r = 0; r < kMaxTileRows; ++r)
+            c[r] = r < n ? ld_acquire(count + r) : static_cast<uint32_t>(ctas - 1);
+          bool arrived = true;
+#pragma unroll
+          for (int r = 0; r < kMaxTileRows; ++r)
+            arrived = arrived && c[r] == static_cast<uint32_t>(ctas - 1);
+          if (__all_sync(0xffffffffu, arrived)) break;
+          __nanosleep(20);
+          watchdog(t0);
+        }
+        trace(kArrived, t);
+#pragma unroll
+        for (int r = 0; r < kMaxTileRows; ++r) {
+          acc[r] = 0.f;
 #pragma unroll
           for (int i = 0; i < kPerLane; ++i) {
             const int k = lane + 32 * i;
-            if (r < n && k < ctas) {
-              const uint32_t bits = ld_relaxed(rows + r * ctas + k);
-              v[r][i] = __uint_as_float(bits);
-              written = written && bits != kUnwritten;
+            if (r < n && k < ctas) acc[r] += __ldcg(rows + r * ctas + k);
+          }
+        }
+      } else {
+        for (;; ++rounds) {
+          bool written = true;
+#pragma unroll
+          for (int r = 0; r < kMaxTileRows; ++r) {
+            acc[r] = 0.f;
+#pragma unroll
+            for (int i = 0; i < kPerLane; ++i) {
+              const int k = lane + 32 * i;
+              if (r < n && k < ctas) {
+                const uint32_t bits = ld_relaxed(rows + r * ctas + k);
+                acc[r] += __uint_as_float(bits);
+                written = written && bits != kUnwritten;
+              }
             }
           }
-        if (__all_sync(0xffffffffu, written)) break;
-        __nanosleep(20);
-        watchdog(t0);
+          if (__all_sync(0xffffffffu, written)) break;
+          __nanosleep(20);
+          watchdog(t0);
+        }
+        trace(kArrived, t);
       }
+      trace_value(kPollRounds, t, rounds + 1);
 #pragma unroll
       for (int r = 0; r < kMaxTileRows; ++r) {
         if (r < n) {
-          float acc = 0.f;
-#pragma unroll
-          for (int i = 0; i < kPerLane; ++i)
-            if (lane + 32 * i < ctas) acc += v[r][i];
-          float z = warp_sum(acc);
+          float z = warp_sum(acc[r]);
           if constexpr (sizeof(XT) == 1) z *= args.scale;
           const float yb = __shfl_sync(0xffffffffu, yr, r);
           const float mb = __shfl_sync(0xffffffffu, mr, r);
@@ -638,7 +715,7 @@ lr_grad_single_pass_kernel(const SliceArgs args) {
     }
     return;
   }
-  if (warp == kComputeWarps + kResolvers + 1) {
+  if (warp == W + kResolvers + 1) {
     // Producer: fill the ring, then refill each stage once every compute
     // warp is done with its tile.
     for (int t = 0; t < T && t < S; ++t) s.issue(t);
@@ -691,13 +768,13 @@ lr_grad_single_pass_kernel(const SliceArgs args) {
     for (int r = 0; r < kMaxTileRows; ++r) rr[r] = r < n ? sh.res[s.slot(t)][r] : 0.f;
 #pragma unroll
     for (int k = 0; k < KG; ++k) {
-      const int j = threadIdx.x + k * kComputeThreads;
+      const int j = threadIdx.x + k * Slice<XT, WT, W>::kThreads;
       if (j < s.ngroups) {
 #pragma unroll
         for (int r = 0; r < kMaxTileRows; ++r) {
           if (r < n) {
             float xv[kCols];
-            lds8<XT, Slice<XT, WT>::kRoundX>(
+            lds8<XT, Slice<XT, WT, W>::kRoundX>(
                 tile + static_cast<size_t>(r) * args.slice_cols + j * kCols, xv);
 #pragma unroll
             for (int i = 0; i < kCols; ++i) g[k][i] = fmaf(rr[r], xv[i], g[k][i]);
@@ -717,7 +794,7 @@ lr_grad_single_pass_kernel(const SliceArgs args) {
   }
 #pragma unroll
   for (int k = 0; k < KG; ++k) {
-    const int j = threadIdx.x + k * kComputeThreads;
+    const int j = threadIdx.x + k * Slice<XT, WT, W>::kThreads;
     if (j < s.ngroups) {
       float* out = args.g + s.c0 + j * kCols;
       if ((j + 1) * kCols <= s.len) {
@@ -738,7 +815,7 @@ template <typename XT, typename WT>
 __global__ void __launch_bounds__(kLogitsThreads, kLogitsCtasPerSm)
 lr_logits_streaming_kernel(const SliceArgs args) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) SliceShared sh;
+  __shared__ __align__(8) SliceShared<> sh;
   Slice<XT, WT> s(args, smem, sh);
   s.init_barriers();
   __syncthreads();
@@ -798,17 +875,15 @@ dim3 backward_grid(int64_t D) {
 
 template <typename T>
 void launch_backward(const void* X, const float* r, float* g, int64_t B,
-                     int64_t D, bool round_bf16, float scale, cudaStream_t stream) {
+                     int64_t D, bool round_bf16, cudaStream_t stream) {
   const bool vec = D % kCols == 0 && aligned16(X) && aligned16(g);
   const dim3 grid = backward_grid(D);
   const T* x = static_cast<const T*>(X);
-  if constexpr (sizeof(T) > 1) {  // an int8 X is exact in bf16
-    if (round_bf16) {
-      lr_backward_kernel<T, true><<<grid, kBwdThreads, 0, stream>>>(x, r, g, B, D, vec, scale);
-      return;
-    }
+  if (round_bf16) {
+    lr_backward_kernel<T, true><<<grid, kBwdThreads, 0, stream>>>(x, r, g, B, D, vec);
+    return;
   }
-  lr_backward_kernel<T, false><<<grid, kBwdThreads, 0, stream>>>(x, r, g, B, D, vec, scale);
+  lr_backward_kernel<T, false><<<grid, kBwdThreads, 0, stream>>>(x, r, g, B, D, vec);
 }
 
 cudaError_t launch_slice(const void* kernel, bool cooperative, int ctas, int threads,
@@ -861,12 +936,15 @@ bool plan_ok(int ctas, int slice_cols, int rows, int stages, long long D) {
          static_cast<long long>(ctas - 1) * slice_cols < D;
 }
 
-// The single pass's plan: every CTA's partials fit a resolver warp, and
-// the register tile holds a thread's groups.
+// The single pass's plan with `warps` compute warps: every CTA's partials
+// fit a resolver warp, the ring fits sh.red, and the register tile holds a
+// thread's groups.
 bool single_pass_plan_ok(int ctas, int slice_cols, int rows, int stages,
-                         int groups_per_thread, long long D) {
+                         int groups_per_thread, int warps, long long D) {
+  const int threads = warps * 32;
   return plan_ok(ctas, slice_cols, rows, stages, D) && ctas <= kMaxCtas &&
-         (slice_cols / kCols + kComputeThreads - 1) / kComputeThreads <= groups_per_thread;
+         stages <= max_stages(warps) &&
+         (slice_cols / kCols + threads - 1) / threads <= groups_per_thread;
 }
 
 // The streaming forward's arguments: y, mask and r are given together or

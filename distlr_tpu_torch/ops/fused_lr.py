@@ -69,15 +69,20 @@ SMEM_PER_BLOCK_RESERVED = 1_024
 SMEM_STATIC = 3_072
 #: SMs of an H100 SXM, the plan's default
 H100_SMS = 132
-COMPUTE_THREADS = 256   # a slice kernel's compute warps
+COMPUTE_WARPS = 8       # a slice kernel's compute warps
+#: the int8 single pass's wider instances: 4 compute warps a scheduler
+WIDE_COMPUTE_WARPS = 16
 GROUP = 8               # columns a thread reads at once (16 bytes of bf16)
 #: bytes of X a bulk copy moves per unit: an int8 slice is a multiple of 16
 #: columns, so that each of its rows is
 BULK_UNIT = 16
 #: groups of 8 columns one thread may hold as g registers (the kernel's
-#: largest register tile)
-MAX_GROUPS_PER_THREAD = 20
+#: largest register tile), by compute warps: 640 threads of the 16-warp
+#: instances leave at most 96 registers a thread
+MAX_GROUPS_PER_THREAD = {COMPUTE_WARPS: 20, WIDE_COMPUTE_WARPS: 4}
 MAX_TILE_ROWS = 4
+#: the ring's depth with 8 compute warps; twice the warps hold half
+#: (``max_stages`` in the source: the per-warp sums of each stage)
 MAX_STAGES = 16
 #: CTAs whose partials a resolver lane of the single pass holds (8 each)
 MAX_SINGLE_PASS_CTAS = 256
@@ -104,9 +109,11 @@ class LaunchPlan:
     ``ctas`` blocks (``ctas_per_sm`` on each SM, in ``waves`` waves) each
     own ``slice_cols`` columns (a multiple of 8; the last block owns the
     rest), walking X in tiles of ``rows`` rows through ``stages``
-    shared-memory stages; ``smem_bytes`` is what one block uses, static
-    part included.  ``single_pass`` says whether the one-read route
-    (single pass, streaming logits) takes the shape: an
+    shared-memory stages with ``compute_warps`` compute warps, each thread
+    of which owns ``groups_per_thread`` groups of 8 columns; ``smem_bytes``
+    is what one block uses, static part included.  ``single_pass`` says
+    whether the one-read route (single pass, streaming logits) takes the
+    shape: an
     :func:`lr_launch_plan` plan above the shared-memory bound has it False,
     and so has every :func:`lr_wide_plan` plan, which feeds the two-read
     path.  A plan that does not fit has ``rows``, ``stages`` and
@@ -124,6 +131,7 @@ class LaunchPlan:
     smem_bytes: int
     single_pass: bool
     waves: int = 1
+    compute_warps: int = COMPUTE_WARPS
 
     @property
     def dynamic_smem_bytes(self) -> int:
@@ -161,16 +169,42 @@ def _budget(per_sm: int) -> int:
     return min(SMEM_LIMIT, SMEM_PER_SM // per_sm - SMEM_PER_BLOCK_RESERVED)
 
 
+def _groups_per_thread(slice_cols: int, warps: int) -> int:
+    return -(-(slice_cols // GROUP) // (warps * 32))
+
+
+def _warps_to_try(kernel, x_bytes, w_bytes, compute_warps):
+    """Compute warps a plan may take, in order of preference: the int8
+    single pass with bf16 products takes 16 where their register tile
+    holds its slice, else 8 (every other kernel 8; with f32 products 16
+    warps measured slower, 1.28 against 1.25 ms at (2048, 1M))."""
+    wide = kernel == "grad" and x_bytes == 1 and w_bytes == 2
+    options = [WIDE_COMPUTE_WARPS, COMPUTE_WARPS] if wide else [COMPUTE_WARPS]
+    return options if compute_warps is None else [w for w in options if w == compute_warps]
+
+
 def _slice_plan(kernel, batch, dim, x_bytes, w_bytes, per_sm, target_ctas,
-                rows=None, stages=None, waves=1):
+                rows=None, stages=None, waves=1, compute_warps=None):
     """The plan of about ``target_ctas`` blocks, ``per_sm`` on each SM (and
-    the given rows and stages, where given), or None if it does not fit."""
+    the given rows, stages and compute warps, where given), or None if it
+    does not fit."""
+    for warps in _warps_to_try(kernel, x_bytes, w_bytes, compute_warps):
+        plan = _slice_plan_for(kernel, batch, dim, x_bytes, w_bytes, per_sm, target_ctas,
+                               rows, stages, waves, warps)
+        if plan is not None:
+            return plan
+    return None
+
+
+def _slice_plan_for(kernel, batch, dim, x_bytes, w_bytes, per_sm, target_ctas, rows, stages,
+                    waves, warps):
     slice_cols = _slice_cols(dim, target_ctas, x_bytes)
     ctas = -(-dim // slice_cols)
-    groups_per_thread = -(-(slice_cols // GROUP) // COMPUTE_THREADS)
-    if groups_per_thread > MAX_GROUPS_PER_THREAD or (
+    groups_per_thread = _groups_per_thread(slice_cols, warps)
+    if groups_per_thread > MAX_GROUPS_PER_THREAD[warps] or (
             kernel == "grad" and ctas > MAX_SINGLE_PASS_CTAS):
         return None
+    max_stages = MAX_STAGES * COMPUTE_WARPS // warps
     budget = _budget(per_sm)
     fixed = slice_cols * w_bytes + SMEM_STATIC
     row = slice_cols * x_bytes
@@ -181,13 +215,13 @@ def _slice_plan(kernel, batch, dim, x_bytes, w_bytes, per_sm, target_ctas,
             rows //= 2
     if stages is None:
         # the single pass: as many stages as fit
-        stages = (min(MAX_STAGES, (budget - fixed) // (rows * row)) if kernel == "grad"
+        stages = (min(max_stages, (budget - fixed) // (rows * row)) if kernel == "grad"
                   else LOGITS_STAGES)
     smem = fixed + stages * rows * row
-    if not (1 <= rows <= MAX_TILE_ROWS and 2 <= stages <= MAX_STAGES) or smem > budget:
+    if not (1 <= rows <= MAX_TILE_ROWS and 2 <= stages <= max_stages) or smem > budget:
         return None
     return LaunchPlan(kernel, batch, dim, ctas, per_sm, slice_cols, rows, stages,
-                      groups_per_thread, smem, True, waves)
+                      groups_per_thread, smem, True, waves, warps)
 
 
 def _check_plan_args(batch, dim, x_dtype, compute_dtype):
@@ -204,7 +238,8 @@ def _check_plan_args(batch, dim, x_dtype, compute_dtype):
 def lr_launch_plan(batch: int, dim: int, *, x_dtype=torch.bfloat16,
                    compute_dtype: str = "bfloat16", num_sms: int = H100_SMS,
                    kernel: str = "grad", ctas_per_sm: int | None = None,
-                   rows: int | None = None, stages: int | None = None) -> LaunchPlan:
+                   rows: int | None = None, stages: int | None = None,
+                   compute_warps: int | None = None) -> LaunchPlan:
     """The launch plan of a slice kernel (``"grad"``: the single pass;
     ``"logits"``: the streaming forward) for a (batch, dim) X.
 
@@ -214,22 +249,25 @@ def lr_launch_plan(batch: int, dim: int, *, x_dtype=torch.bfloat16,
     each about 30 KB (R <= 4 rows).  The single pass runs one block per SM
     and fills the rest of its shared memory with stages, which hold tiles
     while the grid agrees on their residuals; it needs at least 2 stages
-    of one row.  The streaming forward takes 2 stages, with 2 blocks per
-    SM where half an SM's shared memory holds them.  Both take the
-    two-read path above the single pass's bound, so one bound
-    (:func:`fused_lr_supported`) covers them.
+    of one row.  Its compute warps are 8, but for an int8 X with bf16
+    products, whose tiles hold twice a bf16 tile's elements: 16 where a
+    register tile of at most 4 groups a thread holds the slice (D <=
+    2,162,688 on 132 SMs), with at most 8 stages.  The streaming forward
+    takes 2 stages, with 2 blocks per SM where half an SM's shared memory
+    holds them.  Both take the two-read path above the single pass's
+    bound, so one bound (:func:`fused_lr_supported`) covers them.
 
-    ``ctas_per_sm``, ``rows`` and ``stages`` override the choice, for
-    measuring other plans (``benchmarks/slice_kernels.py``); a plan that
-    does not fit then comes back with ``single_pass`` False."""
+    ``ctas_per_sm``, ``rows``, ``stages`` and ``compute_warps`` override
+    the choice, for measuring other plans (``benchmarks/slice_kernels.py``);
+    a plan that does not fit then comes back with ``single_pass`` False."""
     x_bytes, w_bytes = _check_plan_args(batch, dim, x_dtype, compute_dtype)
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
     grad = _slice_plan("grad", batch, dim, x_bytes, w_bytes, 1, num_sms)
-    if grad is not None and (ctas_per_sm, rows, stages) != (None, None, None):
+    if grad is not None and (ctas_per_sm, rows, stages, compute_warps) != (None,) * 4:
         per_sm = ctas_per_sm or 1
         plan = _slice_plan(kernel, batch, dim, x_bytes, w_bytes, per_sm, num_sms * per_sm,
-                           rows, stages)
+                           rows, stages, compute_warps=compute_warps)
     elif kernel == "grad" or grad is None:
         plan = grad
     else:
@@ -245,7 +283,7 @@ def _no_fit(kernel, batch, dim, per_sm, target_ctas, waves, x_bytes) -> LaunchPl
     shared memory."""
     slice_cols = _slice_cols(dim, target_ctas, x_bytes)
     return LaunchPlan(kernel, batch, dim, -(-dim // slice_cols), per_sm, slice_cols, 0, 0,
-                      -(-(slice_cols // GROUP) // COMPUTE_THREADS), 0, False, waves)
+                      _groups_per_thread(slice_cols, COMPUTE_WARPS), 0, False, waves)
 
 
 @functools.lru_cache(maxsize=256)  # the wrappers ask on every call
@@ -454,7 +492,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.distlr_lr_backward.argtypes = [p, i, p, p, ll, ll, i, f, p]
     lib.distlr_lr_backward.restype = i
     lib.distlr_lr_grad_single_pass.argtypes = [p, i, p, p, p, p, p, p, ll, ll, i, f,
-                                               i, i, i, i, i, i, p]
+                                               i, i, i, i, i, i, i, p]
     lib.distlr_lr_grad_single_pass.restype = i
     lib.distlr_lr_logits_streaming.argtypes = [p, i, p, p, p, p, p, p, ll, ll, i, f,
                                                i, i, i, i, i, p]
@@ -469,6 +507,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.distlr_lr_logits_int8dot.restype = i
         lib.distlr_lr_backward_int8dot.argtypes = [p, p, p, p, ll, ll, f, p]
         lib.distlr_lr_backward_int8dot.restype = i
+        lib.distlr_lr_backward_grid.argtypes = [ll, ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.distlr_lr_backward_grid.restype = i
     return lib
 
 
@@ -521,6 +561,19 @@ def wide_plan_for(X, compute_dtype: str = "bfloat16") -> LaunchPlan:
                         ctas_per_sm=_wide_ctas_per_sm(index, X.dtype, compute_dtype))
 
 
+def int8_backward_grid(X) -> dict:
+    """The launch of the two-read path's backward for this int8 X on its
+    card (``csrc/fused_lr_int8.cu``): a grid of the blocks an SM holds at
+    once (the runtime's occupancy figure) times the SMs, each thread owning
+    8 columns, fewer blocks where D has fewer 2,048-column blocks."""
+    blocks, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(X.device):
+        lib = _int8_lib()
+        rc = lib.distlr_lr_backward_grid(X.shape[1], ctypes.byref(blocks), ctypes.byref(per_sm))
+    _raise_on(lib, rc, "lr_backward grid query")
+    return {"blocks": blocks.value, "blocks_per_sm": per_sm.value}
+
+
 def _plan_args(plan: LaunchPlan):
     return plan.ctas, plan.slice_cols, plan.rows, plan.stages
 
@@ -544,14 +597,14 @@ def run_single_pass(lib, plan: LaunchPlan, w, X, y, mask, compute_dtype: str,
     g = torch.empty(D, dtype=torch.float32, device=X.device)
     z = torch.empty(B, dtype=torch.float32, device=X.device) if with_logits else None
     # every word 0xffffffff, "not written yet": the CTAs poll for their
-    # peers' partials in this buffer
-    partials = torch.full((B * plan.ctas,), -1, dtype=torch.int32, device=X.device)
+    # peers' partials in this buffer, or count them in its last B words
+    partials = torch.full((B * plan.ctas + B,), -1, dtype=torch.int32, device=X.device)
     rc = lib.distlr_lr_grad_single_pass(
         X.data_ptr(), _X_DTYPE_CODES[X.dtype], w.data_ptr(), y.data_ptr(),
         mask.data_ptr(), g.data_ptr(), None if z is None else z.data_ptr(),
         partials.data_ptr(), B, D,
         int(compute_dtype == "bfloat16"), feature_scale, *_plan_args(plan),
-        plan.groups_per_thread, plan.dynamic_smem_bytes, _stream(X))
+        plan.groups_per_thread, plan.compute_warps, plan.dynamic_smem_bytes, _stream(X))
     _raise_on(lib, rc, "lr_grad_single_pass")
     return g, z
 
@@ -602,13 +655,20 @@ def run_two_read(lib, plan: LaunchPlan, w, X, y, mask, compute_dtype: str,
     ``plan`` and the residual epilogue, then the backward column sums;
     ``(g, z)``.  Counts nothing."""
     z, r = run_streaming(lib, plan, w, X, compute_dtype, y, mask, feature_scale)
+    return run_backward(lib, X, r, compute_dtype, feature_scale), z
+
+
+def run_backward(lib, X, r, compute_dtype: str, feature_scale: float = 1.0):
+    """The two-read path's backward of ``lib``: ``g = (rᵀX) · feature_scale``
+    (D,) f32 from the (B,) f32 residuals ``r``.  Counts nothing."""
     B, D = X.shape
+    r = r.to(torch.float32).contiguous()
     g = torch.empty(D, dtype=torch.float32, device=X.device)
     rc = lib.distlr_lr_backward(X.data_ptr(), _X_DTYPE_CODES[X.dtype], r.data_ptr(),
                                 g.data_ptr(), B, D, int(compute_dtype == "bfloat16"),
                                 feature_scale, _stream(X))
     _raise_on(lib, rc, "lr_backward")
-    return g, z
+    return g
 
 
 def run_int8dot_forward(lib, plan: LaunchPlan, wq, w_scale, X, feature_scale: float,

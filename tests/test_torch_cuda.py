@@ -260,9 +260,10 @@ def _int8_inputs(cuda, B, D, seed=0):
 
 
 # D % 16 != 0 (no bulk copies), B = 1, fewer CTAs than SMs, a wide slice,
-# above the single pass's bound
+# above the single pass's bound (B = 1 there too), two chunks of staged
+# residuals in the two-read backward
 @pytest.mark.parametrize("B,D", [(64, 256), (37, 1003), (1, 333), (130, 600_000),
-                                 (9, 5_500_000)])
+                                 (9, 5_500_000), (1, 6_000_000), (2049, 600_016)])
 @pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
 def test_int8_kernels_match_plain(cuda, B, D, compute_dtype):
     s = INT8_SCALE
@@ -333,6 +334,82 @@ def test_int8_single_pass_is_deterministic(cuda):
     g1, z1 = ops.fused_lr_grad(w, X, y, mask, feature_scale=0.5, with_logits=True)
     g2, z2 = ops.fused_lr_grad(w, X, y, mask, feature_scale=0.5, with_logits=True)
     assert torch.equal(g1, g2) and torch.equal(z1, z2)
+
+
+def test_int8_two_read_is_deterministic(cuda):
+    """The int8 two-read gradient and its backward alone give the same bits
+    on a second call."""
+    w, X, y, mask = _int8_inputs(cuda, 64, 6_000_000)
+    g1 = ops.fused_lr_grad_two_launch(w, X, y, mask, feature_scale=0.5)
+    assert torch.equal(g1, ops.fused_lr_grad_two_launch(w, X, y, mask, feature_scale=0.5))
+    lib, r = ops.fused_lr._int8_lib(), torch.randn(64, device=cuda)
+    b1 = ops.fused_lr.run_backward(lib, X, r, "bfloat16", 0.5)
+    assert torch.equal(b1, ops.fused_lr.run_backward(lib, X, r, "bfloat16", 0.5))
+
+
+# the int8 backward: B = 1, B = 2049 (two chunks of staged residuals), an
+# unaligned X view and D % 8 != 0 (its scalar path), a partial last
+# column block, and the trainer's shape
+@pytest.mark.parametrize("B,D,offset", [(1, 6_000_000, 0), (2049, 600_016, 0), (37, 1003, 0),
+                                        (64, 60_000, 1), (5, 13, 0), (64, 6_000_000, 0)])
+def test_int8_backward_matches_plain(cuda, B, D, offset):
+    s = INT8_SCALE
+    gen = torch.Generator(device=cuda).manual_seed(B + D)
+    flat = torch.randint(-127, 128, (B * D + offset,), device=cuda, generator=gen,
+                         dtype=torch.int8)
+    X = flat[offset:].view(B, D)
+    assert X.is_contiguous() and (X.data_ptr() % 16 != 0) == (offset != 0)
+    r = torch.randn(B, device=cuda, generator=gen)
+    g = ops.fused_lr.run_backward(ops.fused_lr._int8_lib(), X, r, "bfloat16", s)
+    # f32 sums in row order against f64 ones
+    assert _rel0(g.double(), (r.double() @ X.double()) * s) <= 1e-4
+    w, y = torch.randn(D, device=cuda, generator=gen) / D ** 0.5, (r > 0).to(torch.int32)
+    mask = torch.ones(B, device=cuda)
+    before = ops.fused_lr_grad_two_launch.int8.launches
+    g2 = ops.fused_lr_grad_two_launch(w, X, y, mask, feature_scale=s)
+    torch.cuda.synchronize()
+    assert ops.fused_lr_grad_two_launch.int8.launches == before + 1
+    assert _rel0(g2, ops.fused_lr_grad_reference(w, X, y, mask, feature_scale=s)) <= 1e-3
+
+
+def test_int8_backward_grid_is_whole_waves(cuda):
+    """The backward's grid is the blocks an SM holds (the runtime's
+    figure) times the SMs, fewer where D has fewer column blocks."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    X = torch.empty((), dtype=torch.int8, device=cuda).expand(64, 6_000_000)
+    grid = ops.fused_lr.int8_backward_grid(X)
+    assert grid["blocks_per_sm"] >= 1 and grid["blocks"] == grid["blocks_per_sm"] * sms
+    assert ops.fused_lr.int8_backward_grid(X[:, :333])["blocks"] == 1
+
+
+def test_int8_single_pass_takes_the_plans_warps(cuda):
+    """The plan's compute warps reach the launch: at (256, 1M) int8 with
+    bf16 products the plan takes 16 (on 132 SMs), 8 warps launch too, both
+    match the plain version, and warp counts or register tiles that no
+    instance has are refused."""
+    import dataclasses
+
+    fl = ops.fused_lr
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    w, X, y, mask = _int8_inputs(cuda, 256, 1_000_000)
+    plan = fl.launch_plan_for(X)
+    if sms == 132:
+        assert (plan.compute_warps, plan.groups_per_thread) == (16, 2)
+    lib = fl._int8_lib()
+    ref = fl.fused_lr_grad_reference(w, X, y, mask, feature_scale=0.5)
+    for warps in (16, 8):
+        p = fl.lr_launch_plan(256, 1_000_000, x_dtype=torch.int8, compute_warps=warps,
+                              num_sms=sms)
+        assert p.single_pass and p.compute_warps == warps
+        g, _ = fl.run_single_pass(lib, p, w, X, y, mask, "bfloat16", feature_scale=0.5)
+        assert _rel(g, ref) <= 1e-3
+    for bad in (dataclasses.replace(plan, compute_warps=12),
+                dataclasses.replace(plan, compute_warps=16, groups_per_thread=8)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fl.run_single_pass(lib, bad, w, X, y, mask, "bfloat16", feature_scale=0.5)
+    f32 = dataclasses.replace(fl.launch_plan_for(X, "float32"), compute_warps=16)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fl.run_single_pass(lib, f32, w, X, y, mask, "float32", feature_scale=0.5)
 
 
 @pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32", "int8"])

@@ -314,6 +314,179 @@ class TestInt8KernelsPlain:
         assert not ops.fused_lr_supported(8, 5_406_721, x_dtype=torch.int8)
 
 
+# --- the int8 single pass's plans: 16 compute warps where they fit -----------
+# test_torch_ops.PLAN_SHAPES, beside the int8 single pass's shape bounds
+INT8_PLAN_SHAPES = [(1, 1), (7, 13), (100, 1000), (3, 129), (64, 1055), (5, 1056),
+                    (4096, 16384), (2048, 1_000_000), (8, 2_162_688), (8, 2_162_689),
+                    (8, 2_500_001), (8, 5_045_568), (8, 5_406_720)]
+SMEM_LIMIT, SMEM_PER_SM, STATIC = 232_448, 233_472, 3_072
+# the int8 single pass's bound on 132 SMs, by product type (fused_lr_supported)
+INT8_BOUNDS = {"bfloat16": 5_406_720, "float32": 5_045_568}
+
+
+class TestInt8Plans:
+    @pytest.mark.parametrize("cd", ["bfloat16", "float32"])
+    @pytest.mark.parametrize("b,d", INT8_PLAN_SHAPES)
+    def test_warps_rows_and_stages_fit(self, b, d, cd):
+        """The plan's compute warps, rows and stages fit one block's shared
+        memory, the ring's per-warp sums (16 stages at 8 warps, 8 at 16) and
+        the register tile (20 groups a thread at 8 warps, 4 at 16); 16 warps
+        only with bf16 products, wherever their register tile holds the
+        slice."""
+        plan = ops.lr_launch_plan(b, d, x_dtype=torch.int8, compute_dtype=cd)
+        assert plan.single_pass == (d <= INT8_BOUNDS[cd])
+        if not plan.single_pass:
+            return
+        warps = plan.compute_warps
+        assert warps in (8, 16)
+        w_bytes = 2 if cd == "bfloat16" else 4
+        ring = plan.stages * plan.rows * plan.slice_cols
+        assert plan.smem_bytes == ring + plan.slice_cols * w_bytes + STATIC <= SMEM_LIMIT
+        assert plan.smem_bytes + 1_024 <= SMEM_PER_SM
+        assert 1 <= plan.rows <= min(4, b) and 2 <= plan.stages <= 16 * 8 // warps
+        groups = plan.slice_cols // 8
+        assert plan.groups_per_thread == -(-groups // (warps * 32))
+        assert plan.groups_per_thread <= {8: 20, 16: 4}[warps]
+        fits_wide = -(-groups // 512) <= 4
+        assert (warps == 16) == (cd == "bfloat16" and fits_wide)
+
+    def test_main_path_plan(self):
+        """(2048, 1M) int8 with bf16 products: 16 compute warps, 2 groups a
+        thread, 4-row tiles in 7 stages, as the 8-warp plan had."""
+        plan = ops.lr_launch_plan(2048, 1_000_000, x_dtype=torch.int8)
+        assert (plan.ctas, plan.slice_cols, plan.rows, plan.stages) == (132, 7584, 4, 7)
+        assert (plan.compute_warps, plan.groups_per_thread) == (16, 2)
+        eight = ops.lr_launch_plan(2048, 1_000_000, x_dtype=torch.int8, compute_warps=8)
+        assert (eight.rows, eight.stages, eight.groups_per_thread) == (4, 7, 4)
+
+    def test_bound_keeps_eight_warps(self):
+        """The int8 bound stays 5,406,720: there the slice needs a register
+        tile of 20 groups, which only the 8-warp instances hold."""
+        plan = ops.lr_launch_plan(8, 5_406_720, x_dtype=torch.int8)
+        assert plan.single_pass and (plan.compute_warps, plan.groups_per_thread) == (8, 20)
+        assert not ops.fused_lr_supported(8, 5_406_721, x_dtype=torch.int8)
+
+    @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("cd", ["bfloat16", "float32"])
+    @pytest.mark.parametrize("b,d", INT8_PLAN_SHAPES)
+    def test_float_plans_keep_eight_warps(self, b, d, x_dtype, cd):
+        for kernel in ("grad", "logits"):
+            plan = ops.lr_launch_plan(b, d, x_dtype=x_dtype, compute_dtype=cd, kernel=kernel)
+            assert plan.compute_warps == 8
+            assert plan.groups_per_thread == -(-(plan.slice_cols // 8) // 256)
+
+    @pytest.mark.parametrize("kw", [dict(x_dtype=torch.bfloat16), dict(compute_dtype="float32"),
+                                    dict(kernel="logits")])
+    def test_sixteen_warps_only_for_the_int8_bf16_single_pass(self, kw):
+        args = {"x_dtype": torch.int8, "compute_dtype": "bfloat16", "kernel": "grad", **kw}
+        plan = ops.lr_launch_plan(2048, 1_000_000, compute_warps=16, **args)
+        assert not plan.single_pass and plan.smem_bytes == 0
+
+    def test_emulated_order_matches_jax(self):
+        """The 16-warp single pass's sum order, emulated in plain f32 on 2
+        SMs (16 warps of 32 threads a CTA, each thread's groups of 8 columns
+        in order, a shuffle-down tree a warp, the warps in order, the CTAs in
+        the resolvers' lane-strided order; then g in row order), against
+        BinaryLR's logits and gradient with f32 products on bf16-exact w."""
+        b, d = 9, 20_000
+        w, Xq, y, mask, scale = _quantized(11, b, d, 2)
+        w = torch.from_numpy(w).to(torch.bfloat16).float().numpy()
+        plan = ops.lr_launch_plan(b, d, x_dtype=torch.int8, num_sms=2)
+        assert (plan.compute_warps, plan.ctas, plan.groups_per_thread) == (16, 2, 3)
+        z, g = _single_pass_emulation(plan, *_t(w, Xq, y.astype(np.float32), mask), scale)
+        jm = JaxBinaryLR(d, compute_dtype="float32", feature_scale=scale)
+        jb = _jax_batch(Xq, y, mask)
+        assert _rel(z, jm.logits(jnp.asarray(w), jb[0])) <= 1e-5
+        g_j = jm.grad(jnp.asarray(w), jb, JaxConfig(num_feature_dim=d, l2_c=0.0,
+                                                     compute_dtype="float32"))
+        assert _rel(g / mask.sum(), g_j) <= 1e-5
+
+
+def _warp_tree(lanes):
+    """A warp's shuffle-down sum over the last axis (32 lanes): lane 0's."""
+    lanes = lanes.clone()
+    for off in (16, 8, 4, 2, 1):
+        lanes[..., :off] = lanes[..., :off] + lanes[..., off:2 * off]
+    return lanes[..., 0]
+
+
+def _single_pass_emulation(plan, w, X, y, mask, scale):
+    """The single pass's z and g in its order of f32 additions."""
+    threads = plan.compute_warps * 32
+    partials = []
+    Xf = X.to(torch.float32)
+    for a, e in plan.slices():
+        cols = plan.groups_per_thread * threads * 8
+        xs = torch.zeros(X.shape[0], cols)
+        ws = torch.zeros(cols)
+        xs[:, :e - a], ws[:e - a] = Xf[:, a:e], w[a:e]
+        # group j = k * threads + t: thread t's k-th group, 8 columns each
+        xs = xs.view(-1, plan.groups_per_thread, threads, 8)
+        ws = ws.view(plan.groups_per_thread, threads, 8)
+        acc = torch.zeros(X.shape[0], threads)
+        for k in range(plan.groups_per_thread):
+            for i in range(8):
+                acc = acc + xs[:, k, :, i] * ws[k, :, i]
+        warps = _warp_tree(acc.view(-1, plan.compute_warps, 32))
+        total = torch.zeros(X.shape[0])
+        for v in warps.unbind(1):
+            total = total + v
+        partials.append(total)
+    partials = torch.stack(partials, dim=1)
+    lanes = torch.zeros(partials.shape[0], 32)
+    for k in range(0, partials.shape[1], 32):
+        chunk = partials[:, k:k + 32]
+        lanes[:, :chunk.shape[1]] += chunk
+    z = _warp_tree(lanes) * scale
+    r = (torch.sigmoid(z) - y) * mask
+    g = torch.zeros(X.shape[1])
+    for b in range(X.shape[0]):
+        g = g + r[b] * Xf[b]
+    return z, g * scale
+
+
+class TestSliceKernelsScript:
+    """``benchmarks/slice_kernels.py``'s options, on a machine without the
+    card (the script's measurements need one)."""
+
+    @pytest.mark.parametrize("argv", [["--times"], ["--trace", "--x-dtype", "int8"],
+                                      ["--sweep", "--x-dtype", "int8"],
+                                      ["--wide", "--x-dtype", "int8", "--batch", "8"],
+                                      ["--trace", "--x-dtype", "int8", "--compute-warps", "8"]])
+    def test_exits_without_the_card(self, argv, capsys):
+        from distlr_tpu_torch.benchmarks import slice_kernels
+
+        if torch.cuda.is_available():
+            pytest.skip("a card is present; this checks the refusal without one")
+        assert slice_kernels.main(argv) == 2
+        assert "needs the card" in capsys.readouterr().err
+
+    @pytest.mark.parametrize("argv", [["--x-dtype", "fp8"], ["--compute-warps", "many"],
+                                      ["--batch"]])
+    def test_rejects_bad_options(self, argv):
+        from distlr_tpu_torch.benchmarks import slice_kernels
+
+        with pytest.raises(SystemExit) as e:
+            slice_kernels.main(argv)
+        assert e.value.code == 2
+
+    def test_int8_plans_of_the_sweep(self):
+        """Every int8 plan the sweep names either fits or is reported as not
+        fitting (never raises), and the default plan is among them."""
+        from distlr_tpu_torch.benchmarks import slice_kernels as sk
+
+        seen = set()
+        for kernel, plans in (("grad", sk.GRAD_PLANS["int8"]), ("logits", sk.LOGITS_PLANS["int8"])):
+            for per_sm, rows, stages, warps in plans:
+                plan = ops.lr_launch_plan(sk.B, sk.D, x_dtype=torch.int8, kernel=kernel,
+                                          ctas_per_sm=per_sm, rows=rows, stages=stages,
+                                          compute_warps=warps)
+                if plan.single_pass:
+                    seen.add((kernel, per_sm, plan.rows, plan.stages, plan.compute_warps))
+        default = ops.lr_launch_plan(sk.B, sk.D, x_dtype=torch.int8)
+        assert ("grad", 1, default.rows, default.stages, default.compute_warps) in seen
+
+
 # --- the trainer ------------------------------------------------------------------
 @pytest.fixture(scope="module")
 def int8_data_dir(tmp_path_factory):
