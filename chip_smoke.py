@@ -20,8 +20,13 @@ model families through ``Trainer.fit`` at the repo's published shapes
 D = 1M buckets, 21 fields, 65,536 rows a step; ``softmax`` at the
 MNIST-shaped D = 784, K = 10, 60,000 rows, and its step alone at D = 1M,
 2048 rows), then the ``gen-data -> sync -> eval`` CLI in subprocesses for
-every family and an int8_dot sync that checkpoints and resumes, and last
-the path of the
+every family, an int8_dot sync that checkpoints and resumes and
+``gen-data -> ps -> eval``, then the parameter-server path at the full
+width through ``run_ps_local`` (native libsvm shards of config-3 CTR rows
+at D = 1M, 2 native KV servers, 2 worker threads on the card: sync BSP
+and async Hogwild, each gradient the ``fused_lr_grad`` single pass; then
+the path's kernels checked and timed at the shapes those runs gave
+them), and last the path of the
 on-device generation probes: both roofline experiments
 (``distlr_tpu_torch.benchmarks.exp_gen_roofline*``) at the published
 (256, 8192) x 64 tile, in this process and as ``python -m``.  Each phase
@@ -46,6 +51,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -703,19 +709,28 @@ def phase_int8_kernels(torch, seed: int) -> dict:
     return results
 
 
-def _ctr_rows(rng, n: int, w_true, D: int):
-    """``n`` dense rows in the config-3 CTR style: each of CTR_FIELDS
-    fields one-hot into its own hashed bucket range (Zipf-skewed, so head
-    buckets recur), labels drawn from the planted ``w_true``."""
+def _ctr_cols(rng, n: int, w_true, D: int):
+    """``n`` rows in the config-3 CTR style as their (n, CTR_FIELDS)
+    ascending one-hot columns and labels: each field one-hot into its own
+    hashed bucket range (Zipf-skewed, so head buckets recur), labels
+    drawn from the planted ``w_true``."""
     import numpy as np  # noqa: PLC0415
 
     per_field = D // CTR_FIELDS
     buckets = np.minimum(rng.zipf(1.3, size=(n, CTR_FIELDS)) - 1, per_field - 1)
     cols = buckets + np.arange(CTR_FIELDS) * per_field
-    X = np.zeros((n, D), dtype=np.float32)
-    X[np.arange(n)[:, None], cols] = 1.0
     z = w_true[cols].sum(axis=1)
     y = (rng.random(n) < 1.0 / (1.0 + np.exp(-z))).astype(np.int32)
+    return cols, y
+
+
+def _ctr_rows(rng, n: int, w_true, D: int):
+    """:func:`_ctr_cols`'s rows as a dense (n, D) f32 matrix."""
+    import numpy as np  # noqa: PLC0415
+
+    cols, y = _ctr_cols(rng, n, w_true, D)
+    X = np.zeros((n, D), dtype=np.float32)
+    X[np.arange(n)[:, None], cols] = 1.0
     return X, y
 
 
@@ -1060,6 +1075,303 @@ def time_softmax_wide(torch, seed: int) -> dict:
     return out
 
 
+# --- the parameter-server path ----------------------------------------------
+PS_WORKERS, PS_SERVERS, PS_SHARD_ROWS, PS_TEST_ROWS, PS_EPOCHS = 2, 2, 1024, 256, 3
+PS_ASYNC_BATCH = 512
+# a KV op that waits longer fails the run (a hung worker or card); the
+# phase as a whole has a wall-clock limit on top
+PS_TIMEOUT_MS, PS_WALL_S = 120_000, 600
+
+
+def _write_libsvm_cols(path: str, cols, y) -> None:
+    """Rows of ascending one-hot columns as libsvm text (1-based, value 1),
+    the lines ``write_libsvm`` writes for the same dense rows."""
+    with open(path, "w") as f:
+        f.writelines(f"{int(label)} " + " ".join(f"{c + 1}:1" for c in row) + "\n"
+                     for row, label in zip(cols.tolist(), y))
+
+
+def _ps_data(tmp: str, seed: int) -> float:
+    """The ps phase's data dir: two train shards of PS_SHARD_ROWS config-3
+    CTR rows and PS_TEST_ROWS test rows at D = FULL_D, as libsvm text."""
+    import numpy as np  # noqa: PLC0415
+
+    rng = np.random.default_rng(seed)
+    w_true = (rng.standard_normal(FULL_D) * 0.5).astype(np.float32)
+    t0 = time.perf_counter()
+    for split, part, n in (("train", 1, PS_SHARD_ROWS), ("train", 2, PS_SHARD_ROWS),
+                           ("test", 1, PS_TEST_ROWS)):
+        os.makedirs(os.path.join(tmp, split), exist_ok=True)
+        _write_libsvm_cols(os.path.join(tmp, split, f"part-{part:03d}"),
+                           *_ctr_cols(rng, n, w_true, FULL_D))
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _sampled_peak_rss(out: dict, period_s: float = 0.05):
+    """This process's resident set at the start of the block and its peak
+    over the block, sampled from ``/proc/self/status`` every ``period_s``,
+    into ``out`` (the kernel's own peak, ``VmHWM``, covers the whole
+    process; earlier phases leave pinned host blocks cached)."""
+    def rss_kb() -> int:
+        with open("/proc/self/status") as f:
+            return next(int(line.split()[1]) for line in f if line.startswith("VmRSS:"))
+
+    stop = threading.Event()
+    start = peak = rss_kb()
+
+    def sample():
+        nonlocal peak
+        while not stop.wait(period_s):
+            peak = max(peak, rss_kb())
+
+    t = threading.Thread(target=sample, daemon=True, name="smoke-rss")
+    t.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        t.join()
+        out["host_rss_at_start_gb"] = start / 2**20
+        out["host_peak_rss_gb"] = max(peak, rss_kb()) / 2**20
+
+
+def _run_ps(torch, cfg) -> tuple[list, dict, dict, float]:
+    """``run_ps_local(cfg)`` with the launch counts zeroed just before and
+    read just after, under a wall-clock limit; ``(weights, report,
+    launches, seconds)``.  Raises if the run hangs or fails."""
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.train.ps_trainer import run_ps_local  # noqa: PLC0415
+
+    out, report = {}, {}
+
+    def run():
+        try:
+            out["weights"] = run_ps_local(cfg, save=True, report=report)
+        except BaseException as e:  # noqa: BLE001 — re-raised below, in the main thread
+            out["error"] = e
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    worker = threading.Thread(target=run, daemon=True, name="smoke-ps")
+    worker.start()
+    worker.join(PS_WALL_S)
+    if worker.is_alive():
+        # stop the KV servers this process started, then fail the phase
+        subprocess.run(["pkill", "-TERM", "-P", str(os.getpid())], check=False)
+        raise AssertionError(f"the ps run did not end within {PS_WALL_S} s")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if "error" in out:
+        raise out["error"]
+    return out["weights"], report, _launches(ops), seconds
+
+
+def _test_logloss(torch, ops, w, Xt, yt) -> float:
+    """Mean test logloss of ``w`` by the plain forward on the card."""
+    z = ops.lr_logits_reference(torch.as_tensor(w, device="cuda"), Xt, compute_dtype="bfloat16")
+    return float((torch.logaddexp(z, torch.zeros_like(z)) - yt * z).mean())
+
+
+def _ps_kernel_shapes(torch, ops, w_run, shards, Xt) -> dict:
+    """The path's kernels at the shapes the ps runs gave them, against
+    their plain versions (REL_TOL), and their times: ``fused_lr_grad`` on
+    each worker's whole shard (a sync step) and on each 512-row half (an
+    async step), ``lr_logits`` on the test rows (rank 0's eval).  The
+    runs' weights saturate every residual (±1 or 0), which would hide the
+    kernels' rounding, so the check takes the sync run's final weights
+    centred and scaled to logits of standard deviation 1.5 on the first
+    shard, and reports the share of residuals off ±1 and 0.  Launches
+    made here come after the runs' counts were read."""
+    X0 = shards[0][0]
+    wc = w_run - w_run.mean()
+    wc = wc * (1.5 / float(ops.lr_logits_reference(wc, X0).std()))
+    cases = [(f"shard{r}", X, y) for r, (X, y) in enumerate(shards)]
+    cases += [(f"shard{r}_rows{a}_{a + PS_ASYNC_BATCH}", X[a:a + PS_ASYNC_BATCH].contiguous(),
+               y[a:a + PS_ASYNC_BATCH]) for r, (X, y) in enumerate(shards)
+              for a in range(0, PS_SHARD_ROWS, PS_ASYNC_BATCH)]
+    reps, checks, worst, unsaturated = 25, {}, {"fused_lr_grad": 0.0, "lr_logits": 0.0}, []
+    for name, X, y in cases:
+        mask = torch.ones(X.shape[0], device="cuda")
+        g = ops.fused_lr_grad(wc, X, y, mask)
+        g_ref = ops.fused_lr_grad_reference(wc, X, y, mask)
+        resid = torch.sigmoid(ops.lr_logits_reference(wc, X)) - y.float()
+        unsaturated.append(float(((resid.abs() > 1e-3) & (resid.abs() < 1 - 1e-3)).float().mean()))
+        checks[name] = {"B": X.shape[0], "rel_err": rel_err(g, g_ref),
+                        "max_abs_err": float((g - g_ref).abs().max())}
+        worst["fused_lr_grad"] = max(worst["fused_lr_grad"], checks[name]["rel_err"])
+    z, z_ref = ops.lr_logits(wc, Xt), ops.lr_logits_reference(wc, Xt)
+    checks["test"] = {"B": Xt.shape[0], "rel_err": rel_err(z, z_ref),
+                      "max_abs_err": float((z - z_ref).abs().max())}
+    worst["lr_logits"] = checks["test"]["rel_err"]
+    out = {"checks": checks, "worst_rel_err": worst, "tolerance": REL_TOL,
+           "residuals_unsaturated_share": min(unsaturated)}
+    if max(worst.values()) > REL_TOL or min(unsaturated) < 0.5:
+        raise AssertionError(f"ps: a kernel disagrees with its plain version at the ps "
+                             f"shapes, or the check's residuals saturate: {out}")
+    # device times at those shapes (back-to-back calls between two events)
+    timing = {}
+    for B in (PS_SHARD_ROWS, PS_ASYNC_BATCH):
+        X, y = shards[0][0][:B].contiguous(), shards[0][1][:B]
+        mask = torch.ones(B, device="cuda")
+        bound_ms, bound_by = _grad_bound(B, FULL_D, X.element_size())
+        timing[f"fused_lr_grad_B{B}"] = {
+            "ms": time_ms(lambda: ops.fused_lr_grad(wc, X, y, mask), reps),
+            "plain_ms": time_ms(lambda: ops.fused_lr_grad_reference(wc, X, y, mask), reps),
+            "library_ms": time_ms(_library_grad(torch, wc, X, y, mask), reps),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    bound_ms, bound_by = _logits_bound(Xt.shape[0], FULL_D, Xt.element_size())
+    wb = wc.to(torch.bfloat16)
+    timing[f"lr_logits_B{Xt.shape[0]}"] = {
+        "ms": time_ms(lambda: ops.lr_logits(wc, Xt), reps),
+        "plain_ms": time_ms(lambda: ops.lr_logits_reference(wc, Xt), reps),
+        "library_ms": time_ms(lambda: torch.mv(Xt, wb), reps),
+        "bound_ms": bound_ms, "bound_by": bound_by}
+    out["timing"] = timing
+    return out
+
+
+def phase_ps(torch, seed: int, smi: str) -> dict:
+    """The parameter-server path at the full width (D = 1M), through
+    ``run_ps_local``: PS_SERVERS native KV servers and PS_WORKERS worker
+    threads sharing the card, each gradient the ``fused_lr_grad`` single
+    pass and rank 0's eval ``lr_logits``.  Sync (BSP, reference compat:
+    Q1, Q2, Q4), full shards a step: both workers end with the same
+    weights, within REL_TOL of the plain recurrence (each shard's plain
+    gradient on the card and the server's Q1 update), ``fused_lr_grad``
+    launched once a worker and step, and rank 0's reported test logloss
+    within REL_TOL of the plain forward's on the final weights; then the
+    same with the reference's serialized pull -> gradient -> push a batch
+    (``ps_pipeline=False``), whose weights must equal the fused run's bit
+    for bit.  Async (Hogwild), PS_ASYNC_BATCH rows a step: the servers
+    count one push a worker and step (plus the seeding push), the weights
+    are finite and the test logloss falls below the init's.  Last, the
+    kernels at the shapes the runs gave them, against their plain
+    versions on unsaturated residuals, and timed
+    (:func:`_ps_kernel_shapes`)."""
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.data import native_available, parse_libsvm_file  # noqa: PLC0415
+    from distlr_tpu_torch.models import get_model  # noqa: PLC0415
+
+    lines, rss = {}, {}
+    with _sampled_peak_rss(rss), tempfile.TemporaryDirectory(prefix="distlr-smoke-ps-") as tmp:
+        data_s = _ps_data(tmp, seed)
+        t0 = time.perf_counter()
+        X1, y1 = parse_libsvm_file(os.path.join(tmp, "train", "part-001"), FULL_D)
+        parse_s = time.perf_counter() - t0
+        if not native_available():
+            raise AssertionError("the native libsvm parser did not run")
+        del X1, y1
+        cfg = Config(data_dir=tmp, num_feature_dim=FULL_D, num_workers=PS_WORKERS,
+                     num_servers=PS_SERVERS, batch_size=PS_SHARD_ROWS, num_iteration=PS_EPOCHS,
+                     test_interval=1, learning_rate=0.2, l2_c=0.01, compat_mode="reference",
+                     compute_dtype="bfloat16", ps_timeout_ms=PS_TIMEOUT_MS)
+        w0 = get_model(cfg).init(cfg).to("cuda")
+        Xt, yt = parse_libsvm_file(os.path.join(tmp, "test", "part-001"), FULL_D)
+        Xt = torch.from_numpy(Xt).to(torch.bfloat16).cuda()
+        yt = torch.from_numpy(yt).float().cuda()
+        init_ll = _test_logloss(torch, ops, w0, Xt, yt)
+        # each worker's shard on the card, as its steps copy it there
+        shards = []
+        for part in range(1, PS_WORKERS + 1):
+            X, y = parse_libsvm_file(os.path.join(tmp, "train", f"part-{part:03d}"), FULL_D)
+            shards.append((torch.from_numpy(X).to(torch.bfloat16).cuda(),
+                           torch.from_numpy(y).cuda()))
+            del X
+
+        for mode, run_cfg in (("sync", cfg), ("sync_serialized", cfg.replace(ps_pipeline=False)),
+                              ("async", cfg.replace(sync_mode=False, batch_size=PS_ASYNC_BATCH))):
+            weights, report, launches, seconds = _run_ps(torch, run_cfg)
+            steps = PS_EPOCHS * -(-PS_SHARD_ROWS // run_cfg.batch_size)
+            others = {k: v for k, v in launches.items()
+                      if v and k not in ("fused_lr_grad", "lr_logits")}
+            if (launches["fused_lr_grad"] != PS_WORKERS * steps
+                    or launches["lr_logits"] != PS_EPOCHS or others):
+                raise AssertionError(f"ps {mode}: not one fused_lr_grad a worker and step and "
+                                     f"one lr_logits an eval: {launches}")
+            if not all(r["steps"] == steps for r in report.values()):
+                raise AssertionError(f"ps {mode}: steps {report}")
+            for rank in range(PS_WORKERS):
+                path = os.path.join(tmp, "models", f"part-{rank + 1:03d}")
+                with open(path) as f:
+                    if f.readline().strip() != str(FULL_D) or len(f.readline().split()) != FULL_D:
+                        raise AssertionError(f"ps {mode}: {path} is malformed")
+            w = [torch.from_numpy(x).cuda() for x in weights]
+            line = {"mode": mode, "seconds": seconds, "steps_per_worker": steps,
+                    "batch_rows": run_cfg.batch_size,
+                    "launches": {k: v for k, v in launches.items() if v},
+                    "workers": [report[r] for r in range(PS_WORKERS)]}
+            if mode == "sync_serialized":
+                # the reference's pull -> gradient -> push a batch: the same
+                # BSP rounds, so the same weights bit for bit
+                line["equals_fused_sync"] = all(torch.equal(a, b) for a, b in zip(w, sync_w))
+                if not line["equals_fused_sync"]:
+                    raise AssertionError("ps: serialized sync weights differ from the fused run's")
+            elif mode == "sync":
+                sync_w = w
+                line["workers_max_abs_diff"] = float((w[0] - w[1]).abs().max())
+                if line["workers_max_abs_diff"] > 1e-5:
+                    raise AssertionError(f"ps sync: the workers' weights differ by "
+                                         f"{line['workers_max_abs_diff']}")
+                # rank 0's eval: its last test logloss is that of the
+                # final weights (the BSP round has ended when it pulls)
+                line["test_logloss_reported"] = report[0]["test_logloss"]
+                line["test_logloss_plain"] = _test_logloss(torch, ops, w[0], Xt, yt)
+                if not (abs(line["test_logloss_reported"] - line["test_logloss_plain"])
+                        <= REL_TOL * abs(line["test_logloss_plain"])):
+                    raise AssertionError(f"ps sync: rank 0 reported test logloss "
+                                         f"{line['test_logloss_reported']}, the plain forward "
+                                         f"gives {line['test_logloss_plain']}")
+                # the plain recurrence: Q1 applies the highest rank's gradient
+                # / W, Q4 divides the L2 term by the batch count
+                X, y = shards[-1]
+                mask = torch.ones(X.shape[0], device="cuda")
+                n = mask.sum()
+                wp = w0
+                for _ in range(steps):
+                    g = (ops.fused_lr_grad_reference(wp, X, y, mask, compute_dtype="bfloat16")
+                         / n + cfg.l2_c * wp / n)
+                    wp = wp - cfg.learning_rate * g / PS_WORKERS
+                del X
+                # the weights, and what training moved them by (most of w is
+                # its init, untouched by rare buckets' small updates)
+                line["weights_rel_err_vs_plain"] = rel_err(w[0], wp)
+                line["update_rel_err_vs_plain"] = rel_err(w[0] - w0, wp - w0)
+                if max(line["weights_rel_err_vs_plain"], line["update_rel_err_vs_plain"]) > REL_TOL:
+                    raise AssertionError(f"ps sync: weights differ from the plain recurrence: "
+                                         f"rel {line['weights_rel_err_vs_plain']}, of the update "
+                                         f"{line['update_rel_err_vs_plain']}")
+            else:
+                line["gradient_pushes"] = report[0]["group_pushes"] - 1  # less the seeding push
+                line["test_logloss_init"] = init_ll
+                line["test_logloss_final"] = [_test_logloss(torch, ops, x, Xt, yt) for x in w]
+                if line["gradient_pushes"] != PS_WORKERS * steps:
+                    raise AssertionError(f"ps async: the servers counted "
+                                         f"{line['gradient_pushes']} gradient pushes, not "
+                                         f"{PS_WORKERS * steps}")
+                if not all(bool(torch.isfinite(x).all()) for x in w) or not all(
+                        ll < init_ll for ll in line["test_logloss_final"]):
+                    raise AssertionError(f"ps async: weights not finite or test logloss "
+                                         f"{line['test_logloss_final']} not below the "
+                                         f"init's {init_ll}")
+            lines[mode] = line
+        kernels = _ps_kernel_shapes(torch, ops, sync_w[0], shards, Xt)
+        del Xt, w0, shards
+    torch.cuda.empty_cache()
+    out = {
+        "nvidia_smi": smi, "D": FULL_D, "workers": PS_WORKERS, "servers": PS_SERVERS,
+        "shard_rows": PS_SHARD_ROWS, "test_rows": PS_TEST_ROWS, "epochs": PS_EPOCHS,
+        "reduced": {"epochs": f"{PS_EPOCHS} (cut in depth)",
+                    "shard_rows": f"{PS_SHARD_ROWS} a worker (cut; the sync round is the "
+                                  f"headline's global batch of {PS_WORKERS * PS_SHARD_ROWS})"},
+        "data_write_s": data_s, "parse_s_per_shard": parse_s, "native_parser": True,
+        **rss, **lines, "kernels_at_ps_shapes": kernels,
+    }
+    emit("ps", **out)
+    return out
+
+
 # model family -> (gen-data flags, sync / eval flags, the saved params'
 # shape, sync's iterations and test interval)
 CLI_FAMILIES = {
@@ -1145,17 +1457,51 @@ def _cli_int8_dot_resume(tmp: str) -> dict:
             "eval_logloss": float(m.group(2))}
 
 
+def _cli_ps(tmp: str) -> dict:
+    """gen-data -> ps (2 servers, 2 worker threads, steps on the card)
+    -> eval of each worker's saved model, then ps --async: sync
+    workers end with the same weights, so eval scores what the last line
+    reported for either file."""
+    d = os.path.join(tmp, "ps")
+    _launch("gen-data", "--data-dir", d, "--num-samples", "2000", "--num-parts", "2",
+            "--num-feature-dim", "123")
+    flags = ["--data-dir", d, "--num-feature-dim", "123"]
+    ps = ["ps", *flags, "--num-workers", "2", "--num-servers", "2", "--learning-rate", "0.5",
+          "--l2-c", "0"]
+    lines = re.findall(EVAL_LINE, _launch(*ps, "--num-iteration", "20", "--test-interval",
+                                          "10").stdout, re.M)
+    if [int(n) for n, _ in lines] != [10, 20]:
+        raise AssertionError(f"unexpected eval lines from launch ps: {lines}")
+    evals = []
+    for part in ("part-001", "part-002"):
+        ev = _launch("eval", *flags, "--model-file", os.path.join(d, "models", part)).stdout
+        m = re.search(r"accuracy: (\S+)\s+test_logloss: (\S+)", ev)
+        if m is None or abs(float(m.group(1)) - float(lines[-1][1])) > 1e-4:
+            raise AssertionError(f"eval of ps's {part} disagrees with its last line: {ev}")
+        evals.append(float(m.group(1)))
+    async_lines = re.findall(EVAL_LINE, _launch(*ps, "--async", "--batch-size", "100",
+                                                "--num-iteration", "10", "--test-interval",
+                                                "5").stdout, re.M)
+    if [int(n) for n, _ in async_lines] != [5, 10]:
+        raise AssertionError(f"unexpected eval lines from launch ps --async: {async_lines}")
+    return {"sync_accuracy": [float(a) for _, a in lines], "eval_accuracy": evals,
+            "async_accuracy": [float(a) for _, a in async_lines]}
+
+
 def phase_cli() -> None:
     """gen-data -> sync -> eval through ``python -m distlr_tpu_torch.launch``
-    for every model family, and int8_dot sync with checkpoints then
-    --resume, the chains side by side."""
+    for every model family, int8_dot sync with checkpoints then --resume,
+    and gen-data -> ps -> eval, the chains side by side."""
     with tempfile.TemporaryDirectory(prefix="distlr-smoke-cli-") as tmp:
-        with ThreadPoolExecutor(len(CLI_FAMILIES) + 1) as pool:
+        with ThreadPoolExecutor(len(CLI_FAMILIES) + 2) as pool:
             futures = {f: pool.submit(_cli_family, tmp, f) for f in CLI_FAMILIES}
             resume = pool.submit(_cli_int8_dot_resume, tmp)
+            ps = pool.submit(_cli_ps, tmp)
             results = {f: fut.result() for f, fut in futures.items()}
             int8_dot = resume.result()
-    emit("cli", **results.pop("binary_lr"), families=results, int8_dot_resume=int8_dot)
+            ps_cli = ps.result()
+    emit("cli", **results.pop("binary_lr"), families=results, int8_dot_resume=int8_dot,
+         ps=ps_cli)
 
 
 # --- the on-device generation probes ----------------------------------------
@@ -1553,12 +1899,24 @@ def main(argv=None) -> int:
         time_softmax_wide(torch, args.seed)
         phase = "cli"
         phase_cli()
+        phase = "ps"
+        ps = phase_ps(torch, args.seed, env["nvidia_smi"])
         phase = "roofline_experiments"
         launches = phase_roofline_experiments(torch, env["nvidia_smi"])
-        # each dense kernel's launches on the main path that runs it
-        for path in paths.values():  # the full width's path first
+        # each dense kernel's launches on the main path that runs it, and
+        # on every path, the parameter server's runs among them
+        by_path = {}
+        for path_name, path in paths.items():  # the full width's path first
             for name in path["kernels"]:
                 launches.setdefault(name, path["launches"][name])
+                by_path.setdefault(name, {})[path_name] = path["launches"][name]
+        for mode in ("sync", "sync_serialized", "async"):
+            for name, n in ps[mode]["launches"].items():
+                if n:
+                    by_path.setdefault(name, {})[f"ps_{mode}"] = n
+        for shape, t in ps["kernels_at_ps_shapes"]["timing"].items():
+            name, rows = shape.rsplit("_B", 1)
+            timing[name].setdefault("at_ps_shapes", {})[f"B{rows}"] = t
     except Exception as e:  # report which phase failed, then fail the run
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
         raise
@@ -1579,9 +1937,12 @@ def main(argv=None) -> int:
             "worst_rel_err": t["rel_err"],
         }
         for extra in ("library_note", "two_pass_ms", "row_blocks_ms", "plan", "shape",
-                      "at_8_rows", "at_512_rows", "pair_ms", "wrap", "backward_ms"):
+                      "at_8_rows", "at_512_rows", "pair_ms", "wrap", "backward_ms",
+                      "at_ps_shapes"):
             if extra in t:
                 entry[extra] = t[extra]
+        if name in by_path:
+            entry["launches_by_path"] = by_path[name]
         if name in ("lr_logits_int8dot", "lr_backward_int8dot"):
             entry["replaces_note"] = INT8_NOTE
         if launches[name] < 1:

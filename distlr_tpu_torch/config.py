@@ -2,11 +2,14 @@
 
 Holds the fields of ``distlr_tpu/config.py::Config`` that the ported
 sync trainer reads (all five model families, int8 feature storage,
-checkpoints), with the same names, defaults and validations, and the same
-resolution of the reference-quirk gates Q1, Q2, Q4 and Q5 from
+checkpoints) and that the ported parameter-server worker loop reads
+(``num_servers``, ``ps_compute_backend``, ``ps_pipeline``,
+``ps_timeout_ms``; sync BSP and async Hogwild for the dense families), with the same names, defaults and validations, and the
+same resolution of the reference-quirk gates Q1, Q2, Q4 and Q5 from
 ``compat_mode``.  Options whose code is not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item, so a run never
-silently drops one.  ``device`` is the port's own knob.
+silently drops one; the JAX package's other PS options are here under
+their names for that reason alone.  ``device`` is the port's own knob.
 """
 
 from __future__ import annotations
@@ -22,6 +25,20 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 _SPARSE_MODELS = ("sparse_lr", "sparse_softmax", "blocked_lr")
 _MODELS = ("binary_lr", "softmax") + _SPARSE_MODELS
+
+#: the JAX package's PS robustness and deployment options, with their
+#: defaults: any other value raises (ROADMAP A.16).  The local group's
+#: servers bind port 0 on 127.0.0.1, so the rendezvous address
+#: (``ps_host``, ``ps_port``) is among them.
+_UNPORTED_PS_OPTIONS = {
+    "ps_host": "127.0.0.1", "ps_port": 8001,
+    "ps_retry_attempts": 0, "ps_retry_backoff_ms": 50.0, "ps_retry_backoff_max_ms": 2000.0,
+    "ps_retry_deadline_s": 60.0, "ps_retry_adaptive": False,
+    "ps_optimizer": "sgd", "ps_compress": "none",
+    "ps_accum_start": 1, "ps_accum_growth": 2.0, "ps_accum_growth_every": 32, "ps_accum_max": 1,
+    "ps_store_dir": None, "ps_store_interval_s": 5.0, "ps_store_wal": False,
+    "ps_store_wal_fsync_s": 0.1, "chaos_plan": None, "chaos_seed": None,
+}
 
 
 @dataclasses.dataclass
@@ -70,8 +87,43 @@ class Config:
 
     # ---- parallelism ----
     num_workers: int = 1              # data-parallel shards (DMLC_NUM_WORKER)
+    num_servers: int = 1              # PS mode server count (DMLC_NUM_SERVER)
     mesh_shape: dict | None = None    # only {"data": W} is ported
     feature_shards: int = 1           # model-axis sharding (not ported)
+
+    # ---- PS / async mode ----
+    # Where PS workers run their dense gradient and eval steps: "numpy"
+    # (host numpy, f32) and "cpu" (torch on the CPU) on request; "auto"
+    # and "default" take ``device``.
+    ps_compute_backend: str = "auto"  # auto | numpy | cpu | default
+    # Dense PS protocol: one fused push_pull a batch instead of the
+    # reference's pull -> grad -> push (src/lr.cc:116-132); async also
+    # computes batch k+1's gradient while batch k's round trip is in
+    # flight.  Sync trajectories are bit-identical either way.
+    ps_pipeline: bool = True
+    # Per-op receive timeout (0 = block forever, the reference's
+    # semantics: a dead peer then deadlocks the sync barrier).
+    ps_timeout_ms: int = 600_000
+    # Not ported (ROADMAP A.16): must keep these defaults.
+    ps_host: str = "127.0.0.1"        # DMLC_PS_ROOT_URI
+    ps_port: int = 8001               # DMLC_PS_ROOT_PORT
+    ps_retry_attempts: int = 0
+    ps_retry_backoff_ms: float = 50.0
+    ps_retry_backoff_max_ms: float = 2000.0
+    ps_retry_deadline_s: float = 60.0
+    ps_retry_adaptive: bool = False
+    ps_optimizer: str = "sgd"         # sgd | ftrl
+    ps_compress: str = "none"         # none | int8 | signsgd
+    ps_accum_start: int = 1
+    ps_accum_growth: float = 2.0
+    ps_accum_growth_every: int = 32
+    ps_accum_max: int = 1
+    ps_store_dir: str | None = None
+    ps_store_interval_s: float = 5.0
+    ps_store_wal: bool = False
+    ps_store_wal_fsync_s: float = 0.1
+    chaos_plan: str | None = None
+    chaos_seed: int | None = None
 
     # ---- input pipeline ----
     # Host->device streaming depth in Trainer.fit: up to prefetch-1
@@ -142,8 +194,23 @@ class Config:
             raise ValueError(
                 f"mesh_shape {self.mesh_shape} disagrees with num_workers={self.num_workers}; "
                 "the port's data axis is num_workers row blocks on one card")
-        if not self.sync_mode:
-            raise _not_ported("async / parameter-server training (sync_mode=False)", "A.9")
+        if not self.sync_mode and self.model in _SPARSE_MODELS:
+            raise _not_ported(f"async parameter-server training of {self.model} "
+                              "(sync_mode=False; the keyed PS families)", "A.15")
+        if self.num_servers < 1:
+            raise ValueError("num_servers must be >= 1")
+        if self.ps_compute_backend not in ("auto", "numpy", "cpu", "default"):
+            raise ValueError("ps_compute_backend must be auto|numpy|cpu|default, "
+                             f"got {self.ps_compute_backend!r}")
+        if self.ps_timeout_ms < 0:
+            raise ValueError(f"ps_timeout_ms must be >= 0 (0 = no timeout), got {self.ps_timeout_ms}")
+        if self.ps_optimizer not in ("sgd", "ftrl"):
+            raise ValueError(f"ps_optimizer must be sgd|ftrl, got {self.ps_optimizer!r}")
+        if self.ps_compress not in ("none", "int8", "signsgd"):
+            raise ValueError(f"ps_compress must be none|int8|signsgd, got {self.ps_compress!r}")
+        for name, default in _UNPORTED_PS_OPTIONS.items():
+            if getattr(self, name) != default:
+                raise _not_ported(f"the PS option {name}={getattr(self, name)!r}", "A.16")
         if self.checkpoint_interval < 0:
             raise ValueError(
                 "checkpoint_interval must be >= 0 (epochs; 0 = only final save), "

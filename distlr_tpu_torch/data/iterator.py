@@ -1,0 +1,121 @@
+"""Epoch-based minibatch iterator over an in-memory shard (the port's copy
+of ``DataIter`` from ``distlr_tpu/data/iterator.py``).
+
+Redesign of the reference ``distlr::DataIter`` (``include/data_iter.h:16-59``):
+one constructed iterator serves one pass (epoch) over its shard;
+``batch_size=-1`` means the whole shard (``data_iter.h:39-43``).
+Differences, all deliberate:
+
+* **Static shapes.** The final short batch is *padded* to ``batch_size``
+  and a boolean mask is returned, instead of the reference's Q5
+  wraparound quirk (which silently duplicates head samples into the last
+  batch, ``data_iter.h:46-53``).  ``drop_remainder=True`` gives the
+  classic drop-last behavior; ``wrap_compat=True`` reproduces Q5 exactly
+  for parity experiments.
+* Data lives in numpy on the host; the training loop moves batches to the
+  device.
+* Optional per-epoch shuffling (the reference never shuffles inside an
+  epoch).
+
+The padded-COO and row-blocked iterators of the keyed PS families wait
+for ROADMAP A.15.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+class DataIter:
+    """One-epoch minibatch iterator with static batch shapes.
+
+    Yields ``(X, y, mask)`` where mask flags real (non-padding) rows.
+    """
+
+    def __init__(
+        self,
+        X: np.ndarray,
+        y: np.ndarray,
+        batch_size: int = -1,
+        *,
+        shuffle: bool = False,
+        seed: int = 0,
+        drop_remainder: bool = False,
+        wrap_compat: bool = False,
+    ):
+        self.X = np.asarray(X)
+        self.y = np.asarray(y)
+        if self.X.shape[0] != self.y.shape[0]:
+            raise ValueError(f"X has {self.X.shape[0]} rows but y has {self.y.shape[0]}")
+        n = self.X.shape[0]
+        self.num_samples = n
+        self.batch_size = n if batch_size == -1 else int(batch_size)
+        if self.batch_size <= 0:
+            raise ValueError(f"batch_size must be -1 or positive, got {batch_size}")
+        self.drop_remainder = drop_remainder
+        self.wrap_compat = wrap_compat
+        self._order = np.arange(n)
+        if shuffle:
+            np.random.default_rng(seed).shuffle(self._order)
+        self._shuffled = shuffle
+        self._offset = 0
+
+    @classmethod
+    def from_file(cls, path, num_features: int, batch_size: int = -1, *,
+                  multiclass: bool = False, **kw):
+        from distlr_tpu_torch.data.libsvm import parse_libsvm_file  # noqa: PLC0415
+
+        X, y = parse_libsvm_file(path, num_features, multiclass=multiclass)
+        return cls(X, y, batch_size, **kw)
+
+    def has_next(self) -> bool:
+        """True while this epoch still has unserved samples
+        (mirrors reference ``HasNext``, ``data_iter.h:57-59``)."""
+        if self.drop_remainder:
+            return self._offset + self.batch_size <= self.num_samples
+        return self._offset < self.num_samples
+
+    def _next_idx(self):
+        """Row indices + validity mask of the next static-shape batch."""
+        if not self.has_next():
+            raise StopIteration
+        b = self.batch_size
+        idx = self._order[self._offset: self._offset + b]
+        if len(idx) < b and self.wrap_compat:
+            # Q5 parity: wrap around and duplicate head samples, cycling as
+            # many times as needed (the reference's NextBatch loop keeps
+            # walking modulo the shard, data_iter.h:46-53).
+            extra = np.take(self._order, np.arange(b - len(idx)), mode="wrap")
+            idx = np.concatenate([idx, extra])
+        self._offset += b
+        real = len(idx)
+        mask = np.ones(b, dtype=bool)
+        if real < b:  # pad to static shape
+            pad = b - real
+            idx = np.concatenate([idx, np.zeros(pad, dtype=idx.dtype)])
+            mask[real:] = False
+        return idx, mask
+
+    def next_batch(self):
+        start = self._offset
+        idx, mask = self._next_idx()
+        if not self._shuffled and mask.all() and idx[-1] == start + len(idx) - 1:
+            # a run of consecutive rows: views, not a copy of the rows
+            # (4 GB a worker for a 1,024-row batch at D = 1M)
+            return self.X[start: start + len(idx)], self.y[start: start + len(idx)], mask
+        return self.X[idx], self.y[idx], mask
+
+    def __iter__(self):
+        while self.has_next():
+            yield self.next_batch()
+
+    def reset(self) -> None:
+        """Start a new epoch (the reference instead re-reads the file from
+        disk every epoch, ``src/main.cc:158-159``; the arrays stay)."""
+        self._offset = 0
+
+    @property
+    def num_batches(self) -> int:
+        if self.drop_remainder:
+            return self.num_samples // self.batch_size
+        return -(-self.num_samples // self.batch_size)

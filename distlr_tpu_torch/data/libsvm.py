@@ -1,4 +1,5 @@
-"""libsvm text parsing (pure-Python path of ``distlr_tpu/data/libsvm.py``).
+"""libsvm text parsing — the port's copy of ``distlr_tpu/data/libsvm.py``:
+a native C++ tokenizer with a pure-Python fallback.
 
 Replaces the reference's hand-rolled parser stack (``include/data_iter.h``
 + ``src/util.cc``), which densifies each sparse row eagerly and has several
@@ -11,20 +12,25 @@ becomes 0).  This parser:
   rule, which is what a9a's ``-1/+1`` labels need),
 * converts 1-based libsvm indices to 0-based (same as reference
   ``data_iter.h:30``),
-* returns either a dense ``(N, D) float32`` matrix or CSR arrays.
-
-The JAX package's native C tokenizer is not carried over: porting it is
-ROADMAP A.5.  Every parse here takes the pure-Python tokenizer.
+* returns either a dense ``(N, D) float32`` matrix or CSR arrays,
+* tokenizes a bytes/str blob with the port's own copy of the native
+  tokenizer (:mod:`distlr_tpu_torch.data._native`, built with ``g++`` at
+  first use), falling back to pure Python for the rest of the process if
+  it cannot be built or loaded; an iterable of lines always takes the
+  pure-Python tokenizer.  Both give the same arrays bit for bit.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from distlr_tpu_torch.data import _native
+
 __all__ = [
     "parse_libsvm_lines",
     "parse_libsvm_file",
     "write_libsvm",
+    "native_available",
 ]
 
 
@@ -61,8 +67,34 @@ def _parse_python(lines, multiclass: bool):
     )
 
 
+#: the native tokenizer, or None once it failed to build or load
+_NATIVE = _native
+
+
+def native_available() -> bool:
+    """True iff the native tokenizer is still in use and its library
+    builds and loads (False after a failure made this process fall back)."""
+    if _NATIVE is None:
+        return False
+    try:
+        _NATIVE._load()
+        return True
+    except (OSError, RuntimeError):
+        return False
+
+
 def _parse_csr(text_or_lines, multiclass: bool):
+    global _NATIVE
     if isinstance(text_or_lines, (bytes, str)):
+        if _NATIVE is not None:
+            data = text_or_lines.encode() if isinstance(text_or_lines, str) else text_or_lines
+            try:
+                return _NATIVE.parse_libsvm_bytes(data, multiclass)
+            except (OSError, RuntimeError):
+                # no toolchain or a library that does not load: the
+                # pure-Python tokenizer for the rest of this process
+                # (malformed input raises ValueError, which propagates)
+                _NATIVE = None
         text = text_or_lines.decode() if isinstance(text_or_lines, bytes) else text_or_lines
         return _parse_python(text.splitlines(), multiclass)
     return _parse_python(text_or_lines, multiclass)

@@ -1,4 +1,5 @@
-"""Command-line entry point of the port: ``gen-data``, ``sync`` and ``eval``.
+"""Command-line entry point of the port: ``gen-data``, ``sync``, ``eval``
+and ``ps``.
 
 Counterpart of ``distlr_tpu/launch.py`` for the options the port carries,
 with the same flag names, plus ``--device`` (default ``cuda``; the CPU
@@ -26,6 +27,13 @@ int8`` (or ``int8_dot``, which also quantizes w and the residuals), and
 
     python -m distlr_tpu_torch.launch sync --data-dir D --num-feature-dim 123 \\
         --feature-dtype int8 --checkpoint-dir K --checkpoint-interval 10 [--resume]
+
+``ps`` trains the dense families on the parameter-server path: native KV
+server processes on localhost and one worker thread per shard, sync BSP
+or (``--async``) Hogwild; each worker writes ``models/part-00{rank+1}``::
+
+    python -m distlr_tpu_torch.launch ps --data-dir D --num-feature-dim 123 \\
+        --num-workers 2 --num-servers 2 [--async] [--no-ps-pipeline]
 """
 
 from __future__ import annotations
@@ -44,6 +52,38 @@ _CONFIG_FIELDS = (
     "random_seed", "prefetch", "feature_dtype", "num_workers", "device",
     "num_classes", "nnz_max", "block_size", "block_groups", "ctr_fields", "hash_seed",
     "checkpoint_dir", "checkpoint_interval", "profile_dir",
+    "num_servers", "ps_compute_backend", "ps_timeout_ms", "ps_pipeline",
+)
+
+#: the JAX package's ``ps`` flags that are not ported yet (ROADMAP A.16):
+#: (flag, dest, type; None = a switch); given, each one raises
+_UNPORTED_PS_FLAGS = (
+    ("--max-worker-restarts", "max_worker_restarts", int),
+    ("--supervise-servers", "supervise_servers", None),
+    ("--chaos-plan", "chaos_plan", str),
+    ("--chaos-seed", "chaos_seed", int),
+    ("--ps-retry-attempts", "ps_retry_attempts", int),
+    ("--ps-retry-backoff", "ps_retry_backoff_ms", float),
+    ("--ps-retry-backoff-max", "ps_retry_backoff_max_ms", float),
+    ("--ps-retry-deadline", "ps_retry_deadline_s", float),
+    ("--ps-retry-adaptive", "ps_retry_adaptive", None),
+    ("--ps-optimizer", "ps_optimizer", str),
+    ("--ftrl-alpha", "ftrl_alpha", float),
+    ("--ftrl-beta", "ftrl_beta", float),
+    ("--ftrl-l1", "ftrl_l1", float),
+    ("--ftrl-l2", "ftrl_l2", float),
+    ("--ps-compress", "ps_compress", str),
+    ("--accum-start", "ps_accum_start", int),
+    ("--accum-growth", "ps_accum_growth", float),
+    ("--accum-growth-every", "ps_accum_growth_every", int),
+    ("--accum-max", "ps_accum_max", int),
+    ("--store-dir", "ps_store_dir", str),
+    ("--store-interval", "ps_store_interval_s", float),
+    ("--store-wal", "ps_store_wal", None),
+    ("--store-wal-fsync", "ps_store_wal_fsync_s", float),
+    ("--checkpoint-dir", "checkpoint_dir", str),
+    ("--checkpoint-interval", "checkpoint_interval", int),
+    ("--resume", "resume", None),
 )
 
 
@@ -187,6 +227,31 @@ def cmd_eval(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_ps(args: argparse.Namespace) -> int:
+    """Parameter-server training: spawn the servers here and run every
+    worker rank, or (``--hosts``) join a running group with some ranks."""
+    from distlr_tpu_torch.config import _not_ported  # noqa: PLC0415
+    from distlr_tpu_torch.train.ps_trainer import run_ps_local, run_ps_workers  # noqa: PLC0415
+
+    for flag, dest, _ in _UNPORTED_PS_FLAGS:
+        if getattr(args, dest) not in (None, False):
+            raise _not_ported(f"launch ps {flag}", "A.16")
+    cfg = _config_from_args(args)
+    if args.asynchronous:
+        cfg = cfg.replace(sync_mode=False)
+    if args.hosts:
+        ranks = ([int(r) for r in args.worker_ranks.split(",")] if args.worker_ranks
+                 else range(cfg.num_workers))
+        run_ps_workers(cfg, args.hosts, ranks, save=True)
+    elif args.worker_ranks:
+        print("error: --worker-ranks requires --hosts (local mode runs every rank)",
+              file=sys.stderr)
+        return 2
+    else:
+        run_ps_local(cfg, save=True)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="distlr_tpu_torch.launch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -230,6 +295,34 @@ def main(argv=None) -> int:
                    help="text model file (the reference SaveModel format; "
                         "what sync runs write to models/part-001)")
     e.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("ps", help="parameter-server training (native KV servers, "
+                       "worker threads on one card)")
+    _add_config_flags(p)
+    p.add_argument("--num-servers", dest="num_servers", type=int,
+                   help="KV server processes, one key range each (default 1)")
+    p.add_argument("--ps-compute-backend", dest="ps_compute_backend",
+                   choices=["auto", "numpy", "cpu", "default"],
+                   help="where workers run their dense steps: auto and default "
+                   "take --device; numpy (host) and cpu (torch) on request")
+    p.add_argument("--ps-timeout", dest="ps_timeout_ms", type=int,
+                   help="receive timeout of every KV op, ms (default 600000; 0 = none)")
+    p.add_argument("--async", dest="asynchronous", action="store_true",
+                   help="Hogwild mode (SYNC_MODE=0 equivalent)")
+    p.add_argument("--hosts", help="join existing servers (comma-separated host:port, "
+                   "rank order) instead of spawning local ones")
+    p.add_argument("--worker-ranks", dest="worker_ranks",
+                   help="with --hosts: this host's ranks, e.g. 0,1 (default: all)")
+    p.add_argument("--no-ps-pipeline", dest="ps_pipeline", action="store_false", default=None,
+                   help="the reference's serialized pull -> grad -> push a batch instead "
+                   "of one fused push_pull (and, async, the overlapped next gradient)")
+    for flag, dest, typ in _UNPORTED_PS_FLAGS:
+        if typ is None:
+            p.add_argument(flag, dest=dest, action="store_true", default=None,
+                           help="not ported yet (ROADMAP A.16)")
+        else:
+            p.add_argument(flag, dest=dest, type=typ, help="not ported yet (ROADMAP A.16)")
+    p.set_defaults(fn=cmd_ps)
 
     args = parser.parse_args(argv)
     return args.fn(args)

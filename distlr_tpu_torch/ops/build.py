@@ -4,7 +4,9 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded with
 ``ctypes``.  The library lands in ``build/kernels/`` at the root of the
 checkout; its file name carries a hash of the sources and flags, so an
-edited source builds anew and a stale library is never loaded.  Nothing
+edited source builds anew and a stale library is never loaded (the
+scheme of :mod:`distlr_tpu_torch.utils.native`, shared with the
+host-side C++).  Nothing
 is built when this module is imported: the first kernel call builds.
 A variant with preprocessor ``defines`` (an instrumented build) gets a
 library of its own.
@@ -14,12 +16,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
 import shutil
-import subprocess
-import tempfile
 from pathlib import Path
+
+from distlr_tpu_torch.utils import native
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = (
@@ -46,11 +47,8 @@ def library_path(name: str, build_dir: Path | None = None,
                  defines: tuple[str, ...] = ()) -> Path:
     """Where the library for ``csrc/<name>.cu`` lives: hashed on the
     bytes of its sources and the compiler flags."""
-    h = hashlib.sha256(" ".join(_flags(defines)).encode())
-    for src in _sources(name):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return (build_dir or default_build_dir()) / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return native.artifact_path(f"lib{name}", _sources(name), _flags(defines),
+                                build_dir or default_build_dir(), ".so")
 
 
 def find_nvcc() -> str:
@@ -74,26 +72,9 @@ def build(name: str, build_dir: Path | None = None, defines: tuple[str, ...] = (
     """Compile ``csrc/<name>.cu`` (with ``-D`` for each of ``defines``)
     unless its hashed library exists; return the library's path.  Raises
     with the compiler's output when ``nvcc`` fails."""
-    out = library_path(name, build_dir, defines)
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builds never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run(nvcc_command(name, Path(tmp), defines),
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    return native.build_once(library_path(name, build_dir, defines),
+                             lambda tmp: nvcc_command(name, tmp, defines),
+                             f"nvcc failed on {name}.cu")
 
 
 @functools.cache

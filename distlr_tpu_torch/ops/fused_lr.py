@@ -42,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 
 import torch
 
@@ -713,9 +714,14 @@ class Int8Instance:
         self.launches = 0
 
 
+_count_lock = threading.Lock()
+
+
 def _count(wrapper, X) -> None:
-    """One launch of ``wrapper``'s kernel: its int8 instance's for an int8 X."""
-    (wrapper.int8 if X.dtype == torch.int8 else wrapper).launches += 1
+    """One launch of ``wrapper``'s kernel: its int8 instance's for an int8 X.
+    Locked: PS worker threads launch side by side."""
+    with _count_lock:
+        (wrapper.int8 if X.dtype == torch.int8 else wrapper).launches += 1
 
 
 def fused_lr_grad(w, X, y, mask, *, compute_dtype: str = "bfloat16",

@@ -1,0 +1,1021 @@
+// libdistlr_kv — native KV client with a plain-C API (consumed from
+// Python via ctypes; see distlr_tpu/ps/client.py).
+//
+// The worker-side equivalent of ps-lite's KVWorker<float>
+// (reference call sites: ctor src/main.cc:135, Push src/lr.cc:131,
+// Pull src/lr.cc:122, Wait everywhere).  Requests over multiple servers
+// are range-sliced exactly like ps-lite's key partition: server r of S
+// owns global keys [r*D/S, (r+1)*D/S), and each slice is rebased to a
+// server-local key — the client-side mirror of DecodeKey
+// (src/main.cc:98-101).
+//
+// Blocking semantics: kv_push/kv_pull send the request to every
+// involved server, then block until all responses arrive.  The reference
+// always pairs Push/Pull with an immediate Wait (src/lr.cc:122,131,
+// src/main.cc:147), so a blocking call is semantically identical — and
+// in sync mode the server's deferred reply makes kv_push the BSP
+// barrier, same as the reference.  kv_wait exists for API parity and is
+// a no-op.
+
+#include <arpa/inet.h>
+#include <fcntl.h>
+#include <netinet/in.h>
+#include <netinet/tcp.h>
+#include <poll.h>
+#include <sys/socket.h>
+#include <sys/time.h>
+#include <unistd.h>
+
+#include <algorithm>
+#include <cerrno>
+#include <chrono>
+#include <cstring>
+#include <cstdio>
+#include <cstdlib>
+#include <string>
+#include <vector>
+
+#include "kv_protocol.h"
+
+namespace distlr {
+namespace {
+
+struct ServerConn {
+  int fd = -1;
+  Key range_begin = 0;  // inclusive global key
+  Key range_end = 0;    // exclusive global key
+};
+
+struct Client {
+  std::vector<ServerConn> servers;
+  uint64_t dim = 0;
+  uint32_t client_id = 0;
+  uint32_t next_ts = 0;
+  // Whether pushes visit servers with EMPTY key slices (the sync-mode
+  // BSP "present" vote; see RoundTrip).  Async groups have no barrier to
+  // keep honest, so their clients turn this off and save S-1 round
+  // trips per keyed push.  Defaults on — the safe choice for a client
+  // that does not know the group's mode.
+  bool push_visit_all = true;
+  bool timed_out = false;  // last failure was a receive timeout
+  // Last failure was an explicit kError protocol rejection (the server
+  // answered "unsupported for its configuration") — a deterministic
+  // caller error that will fail identically on every re-issue, so the
+  // retry layer must surface it instead of burning attempts on it.
+  bool op_rejected = false;
+  // After any receive failure the stream may still hold a late/partial
+  // reply, so every subsequent frame would be misparsed.  The handle is
+  // poisoned: ops fail fast until the caller reconnects.
+  bool poisoned = false;
+  // Delivery state of the most recent FAILED op: false = not one byte of
+  // the op's request reached any server's kernel (the kernel accepted
+  // nothing — a retry after reconnect cannot double-apply anything);
+  // true = delivery began, so for a non-idempotent push the outcome is
+  // genuinely unknown (the server may have applied the frame before the
+  // stream died).  The conservative direction: a partially-accepted
+  // write counts as "began" even though the server drops incomplete
+  // frames, so "false" is a hard safety guarantee, never a guess.
+  bool op_delivery_began = false;
+  // Gradient wire codec for push-class value payloads (kv_protocol.h),
+  // 0 = dense f32.  Set ONLY by kv_negotiate_codec after the kHello
+  // capability handshake proved every server decodes it.
+  uint8_t codec = 0;
+  // Membership epoch (kv_protocol.h kEpoch): the layout epoch this
+  // handle ANNOUNCED to every server (0 = never announced — no
+  // fencing), set by kv_negotiate_epoch after the kHello handshake
+  // proved every server speaks kEpoch.
+  uint16_t announced_epoch = 0;
+  // Last failure was an epoch-fence rejection: the server's layout
+  // epoch moved past announced_epoch (membership changed mid-op).  The
+  // caller must re-fetch the layout from the membership coordinator
+  // and reconnect — NOT retry in place (the op would bounce forever)
+  // and NOT treat it as a config rejection (it is transient by
+  // design).  server_epoch carries the epoch the server reported.
+  bool epoch_mismatch = false;
+  uint16_t server_epoch = 0;
+  // Distributed-trace capability (kv_protocol.h kTraced/kCapTrace):
+  // set ONLY by kv_negotiate_trace after every server advertised it.
+  bool trace_ok = false;
+  // One-shot trace stamp (kv_set_trace): the NEXT op's request frames
+  // carry this TraceFrame trailer, then it clears — attribution is
+  // per-op, and a stale stamp must never bleed onto an untraced op.
+  uint64_t trace_id = 0;
+  uint64_t trace_span = 0;
+  // Estimated per-server clock offset (server wall clock minus this
+  // host's, seconds; assumes a symmetric hello round trip), measured by
+  // kv_negotiate_trace — trace-agg shifts server-journal timestamps by
+  // it so cross-host spans line up.
+  std::vector<double> clock_offsets;
+  // Request bytes (headers + keys + value payload, summed over servers)
+  // the most recent op put on the wire — the honest numerator/
+  // denominator for the push-byte compression-ratio accounting.
+  uint64_t wire_sent = 0;
+  char err[256] = {0};
+};
+
+bool ReadFull(int fd, void* buf, size_t n) {
+  auto* p = static_cast<char*>(buf);
+  while (n > 0) {
+    ssize_t r = read(fd, p, n);
+    if (r <= 0) return false;
+    p += r;
+    n -= static_cast<size_t>(r);
+  }
+  return true;
+}
+
+bool WriteFull(int fd, const void* buf, size_t n, bool* any_sent = nullptr) {
+  const auto* p = static_cast<const char*>(buf);
+  while (n > 0) {
+    // MSG_NOSIGNAL: a dead peer yields EPIPE instead of SIGPIPE, so
+    // non-Python consumers of this library survive server loss too.
+    ssize_t r = send(fd, p, n, MSG_NOSIGNAL);
+    if (r <= 0) return false;
+    if (any_sent != nullptr) *any_sent = true;  // kernel accepted bytes
+    p += r;
+    n -= static_cast<size_t>(r);
+  }
+  return true;
+}
+
+int ConnectTo(const std::string& host, int port, int timeout_ms) {
+  int fd = socket(AF_INET, SOCK_STREAM, 0);
+  if (fd < 0) return -1;
+  sockaddr_in addr{};
+  addr.sin_family = AF_INET;
+  addr.sin_port = htons(static_cast<uint16_t>(port));
+  if (inet_pton(AF_INET, host.c_str(), &addr.sin_addr) != 1) {
+    close(fd);
+    return -1;
+  }
+  // Bounded-wait connect: a blocking connect to an unreachable host (a
+  // DCN partition, a firewalled server box) stalls for the kernel's
+  // SYN-retry window — minutes — freezing supervisor probes and worker
+  // restarts.  A dead-but-reachable host still fails fast (RST).
+  const int flags = fcntl(fd, F_GETFL, 0);
+  fcntl(fd, F_SETFL, flags | O_NONBLOCK);
+  if (connect(fd, reinterpret_cast<sockaddr*>(&addr), sizeof(addr)) < 0) {
+    if (errno != EINPROGRESS) {
+      close(fd);
+      return -1;
+    }
+    pollfd p{};
+    p.fd = fd;
+    p.events = POLLOUT;
+    // EINTR must not read as "unreachable": retry with the remaining
+    // budget (a SIGPROF/SIGTERM during the wait would otherwise fail a
+    // perfectly live connect).
+    const auto deadline =
+        std::chrono::steady_clock::now() + std::chrono::milliseconds(timeout_ms);
+    int pr;
+    for (;;) {
+      const auto left = std::chrono::duration_cast<std::chrono::milliseconds>(
+          deadline - std::chrono::steady_clock::now()).count();
+      if (left <= 0) { pr = 0; break; }
+      pr = poll(&p, 1, static_cast<int>(left));
+      if (pr >= 0 || errno != EINTR) break;
+    }
+    if (pr <= 0) {
+      close(fd);
+      return -1;
+    }
+    int err = 0;
+    socklen_t len = sizeof(err);
+    if (getsockopt(fd, SOL_SOCKET, SO_ERROR, &err, &len) < 0 || err != 0) {
+      close(fd);
+      return -1;
+    }
+  }
+  fcntl(fd, F_SETFL, flags);  // back to blocking for the RPC path
+  int one = 1;
+  setsockopt(fd, IPPROTO_TCP, TCP_NODELAY, &one, sizeof(one));
+  return fd;
+}
+
+// Slice [keys, keys+n) (sorted ascending, global ids in units of
+// vpk-wide rows) into per-server contiguous sub-ranges.  Returns
+// per-server (begin_idx, end_idx).  With vpk > 1 the servers' flat
+// ranges are divided into row space — the caller has already validated
+// divisibility (see RoundTrip).
+std::vector<std::pair<uint64_t, uint64_t>> SliceByRange(
+    const Client& c, const Key* keys, uint64_t n, uint64_t vpk) {
+  std::vector<std::pair<uint64_t, uint64_t>> out(c.servers.size());
+  for (size_t s = 0; s < c.servers.size(); ++s) {
+    const Key* lo =
+        std::lower_bound(keys, keys + n, c.servers[s].range_begin / vpk);
+    const Key* hi =
+        std::lower_bound(keys, keys + n, c.servers[s].range_end / vpk);
+    out[s] = {static_cast<uint64_t>(lo - keys), static_cast<uint64_t>(hi - keys)};
+  }
+  return out;
+}
+
+int RoundTrip(Client* c, Op op, const Key* keys, const float* vals,
+              float* out_vals, uint64_t n, uint8_t flags = kNone,
+              uint16_t barrier_id = 0, uint64_t vpk = 1) {
+  c->timed_out = false;
+  c->op_rejected = false;
+  c->epoch_mismatch = false;
+  c->op_delivery_began = false;
+  c->wire_sent = 0;
+  if (c->poisoned) {
+    snprintf(c->err, sizeof(c->err),
+             "connection poisoned by an earlier receive failure; "
+             "reconnect (kv_connect) before issuing more ops");
+    return -1;
+  }
+  if (vpk < 1 || vpk > kMaxValsPerKey) {
+    snprintf(c->err, sizeof(c->err),
+             "vals_per_key %llu outside [1, %llu]",
+             (unsigned long long)vpk, (unsigned long long)kMaxValsPerKey);
+    return -1;
+  }
+  // Opt-state ops ship BOTH accumulators ([z..., n...], 2x vals per
+  // key); the flat buffer cannot be range-sliced per server, and the
+  // only caller (the supervisor) holds per-rank connections — so the
+  // restriction costs nothing and keeps the wire layout trivial.
+  const bool opt_state = (flags & kOptState) != 0;
+  if (opt_state && c->servers.size() != 1) {
+    snprintf(c->err, sizeof(c->err),
+             "opt-state ops address ONE server per handle (got %zu); "
+             "use a per-rank connection", c->servers.size());
+    return -1;
+  }
+  const uint64_t mult = opt_state ? 2 : 1;
+  if (vpk > 1) {
+    // A row's whole [k*vpk, (k+1)*vpk) range must live on ONE server:
+    // every range boundary (dim*s/S by construction) must be a
+    // multiple of vpk, or rows would straddle servers and the per-row
+    // wire encoding could not be range-sliced.  Callers for whom this
+    // fails should fall back to expanded per-lane keys.
+    for (auto& sc : c->servers) {
+      if (sc.range_begin % vpk != 0 || sc.range_end % vpk != 0) {
+        snprintf(c->err, sizeof(c->err),
+                 "server range [%llu, %llu) not aligned to vals_per_key "
+                 "%llu; use expanded keys instead",
+                 (unsigned long long)sc.range_begin,
+                 (unsigned long long)sc.range_end, (unsigned long long)vpk);
+        return -1;
+      }
+    }
+  }
+  const uint32_t ts = c->next_ts++;
+  auto slices = SliceByRange(*c, keys, n, vpk);
+
+  // One-shot trace stamp (kv_set_trace): consumed by THIS op whether it
+  // succeeds or fails — a retry re-issue goes unstamped rather than
+  // risking a stale stamp attributing a later op to the wrong trace.
+  const TraceFrame tf{c->trace_id, c->trace_span};
+  const bool traced = c->trace_ok && tf.trace_id != 0;
+  c->trace_id = 0;
+  c->trace_span = 0;
+
+  // A PUSH visits EVERY server even when its key slice is empty: in sync
+  // mode the server releases the BSP barrier only after num_workers
+  // pushes, so a keyed (sparse) push that skipped an untouched server
+  // would desynchronize the round — peers' deferred replies would wait
+  // for a push that never comes, then mix gradients across rounds when
+  // the next batch happens to touch that range.  The empty push is the
+  // worker's "present" vote; it merges nothing.  (PULLs may still skip:
+  // replies are immediate, no barrier semantics.)  Fused kPushPull
+  // carries push barrier semantics, so it votes too.
+  const bool is_push = op == Op::kPush || op == Op::kPushPull;
+  const bool visit_all = is_push && c->push_visit_all;
+
+  // Phase 1: send the sliced request to every involved server.
+  // The op-specific 16-bit header field (kv_protocol.h MsgHeader::aux)
+  // carries the barrier generation for kBarrier and vals_per_key for
+  // the keyed ops.
+  const uint16_t aux =
+      op == Op::kBarrier ? barrier_id : static_cast<uint16_t>(vpk);
+  // Gradient codec (kv_protocol.h): compress the value payload of
+  // gradient-carrying pushes PER SERVER SLICE (the slice is the frame;
+  // each server decodes its own blocks independently).  Init and
+  // opt-state pushes seed exact values and are never compressed.
+  const uint8_t codec =
+      (is_push && c->codec && !(flags & (kInitPush | kOptState)))
+          ? c->codec : 0;
+  const uint8_t send_flags = static_cast<uint8_t>(
+      flags | (codec << kCodecShift) | (traced ? kTraced : 0));
+  std::vector<std::vector<Key>> local_keys(c->servers.size());
+  std::vector<uint8_t> coded;
+  for (size_t s = 0; s < c->servers.size(); ++s) {
+    const auto [b, e] = slices[s];
+    if (b == e && !visit_all && !(op == Op::kBarrier && s == 0)) continue;
+    MsgHeader h{kMagic, static_cast<uint8_t>(op), send_flags, aux,
+                c->client_id, ts, e - b};
+    auto& lk = local_keys[s];
+    lk.resize(e - b);
+    // DecodeKey rebase — in row units when vpk > 1 (range_begin is
+    // vpk-aligned, validated above)
+    const Key rebase = c->servers[s].range_begin / vpk;
+    for (uint64_t i = b; i < e; ++i) lk[i - b] = keys[i] - rebase;
+    const int fd = c->servers[s].fd;
+    const uint64_t n_vals = (e - b) * vpk * mult;
+    const void* payload = nullptr;
+    uint64_t payload_bytes = 0;
+    if (is_push && n_vals) {
+      payload = vals + b * vpk * mult;
+      payload_bytes = n_vals * sizeof(Val);
+      if (codec != 0) {
+        payload_bytes = CodecPayloadBytes(codec, n_vals);
+        coded.resize(payload_bytes);
+        EncodeGrad(codec, vals + b * vpk, n_vals, coded.data());
+        payload = coded.data();
+      }
+    }
+    if (!WriteFull(fd, &h, sizeof(h), &c->op_delivery_began) ||
+        (traced && !WriteFull(fd, &tf, sizeof(tf), &c->op_delivery_began)) ||
+        (h.num_keys && !WriteFull(fd, lk.data(), lk.size() * sizeof(Key),
+                                  &c->op_delivery_began)) ||
+        (is_push && h.num_keys &&
+         !WriteFull(fd, payload, payload_bytes, &c->op_delivery_began))) {
+      c->poisoned = true;  // peers already received slices of this ts
+      snprintf(c->err, sizeof(c->err), "send to server %zu failed", s);
+      return -1;
+    }
+    c->wire_sent += sizeof(h) + (traced ? sizeof(tf) : 0) +
+                    lk.size() * sizeof(Key) +
+                    (is_push && h.num_keys ? payload_bytes : 0);
+  }
+  // Every request frame left intact; any failure from here on is on the
+  // receive side, where delivery is a fact (only the REPLY is in doubt).
+  c->op_delivery_began = true;
+
+  // Phase 2: collect every response (blocks through deferred replies —
+  // in sync mode this wait IS the BSP barrier).
+  for (size_t s = 0; s < c->servers.size(); ++s) {
+    const auto [b, e] = slices[s];
+    if (b == e && !visit_all && !(op == Op::kBarrier && s == 0)) continue;
+    MsgHeader rh{};
+    errno = 0;
+    if (!ReadFull(c->servers[s].fd, &rh, sizeof(rh))) {
+      c->poisoned = true;  // a late reply may still arrive on this stream
+      if (errno == EAGAIN || errno == EWOULDBLOCK) {
+        // SO_RCVTIMEO fired. In sync mode the classic cause is the
+        // reference's named failure mode: a dead/slow peer wedging the
+        // deferred-reply BSP barrier forever (SURVEY.md §5.3).
+        c->timed_out = true;
+        snprintf(c->err, sizeof(c->err),
+                 "timed out waiting for server %zu (op %d); in sync mode "
+                 "this usually means a straggler/dead worker is holding "
+                 "the BSP barrier", s, static_cast<int>(op));
+      } else {
+        snprintf(c->err, sizeof(c->err), "connection to server %zu lost", s);
+      }
+      return -1;
+    }
+    if (rh.magic != kMagic || !(rh.flags & kResponse) || rh.timestamp != ts) {
+      c->poisoned = true;
+      snprintf(c->err, sizeof(c->err), "bad response from server %zu", s);
+      return -1;
+    }
+    // Validate the response size BEFORE any allocation: the client
+    // knows exactly how many vals a well-formed reply carries (the key
+    // slice for pull-class ops, zero otherwise), so a corrupt num_keys
+    // must poison the stream — sizing a buffer from it would let one
+    // bad frame demand an arbitrary allocation, and a bad_alloc
+    // escaping this extern "C" boundary would terminate the worker.
+    const uint64_t expected =
+        (op == Op::kPull || op == Op::kPushPull) ? (e - b) * vpk * mult : 0;
+    if (rh.flags & kError) {
+      if (rh.op == static_cast<uint8_t>(Op::kEpoch) && op != Op::kEpoch) {
+        // Epoch fence (kv_protocol.h kEpoch): the server's layout
+        // epoch moved past what this handle announced — membership
+        // changed.  Distinct from op_rejected: a config rejection is
+        // deterministic forever, this one clears the moment the caller
+        // re-negotiates routing from the coordinator and reconnects.
+        // Still poisons a multi-server handle (peers' replies were
+        // abandoned mid-collection) — which is fine, the re-route
+        // rebuilds the handle anyway.
+        c->poisoned = c->servers.size() > 1;
+        c->epoch_mismatch = true;
+        c->server_epoch = rh.aux;
+        snprintf(c->err, sizeof(c->err),
+                 "server %zu fenced op %d at membership epoch %u (this "
+                 "client announced %u): the group layout changed — "
+                 "re-negotiate routing", s, static_cast<int>(op),
+                 static_cast<unsigned>(rh.aux),
+                 static_cast<unsigned>(c->announced_epoch));
+        return -1;
+      }
+      // Explicit protocol-level rejection (e.g. an opt-state op against
+      // a non-FTRL server): a caller error with a clean, still-framed
+      // stream — named, and not poisoned on the single-server handles
+      // these ops ride (a multi-server op abandons peers' replies
+      // mid-collection, so THAT stream set must poison).
+      c->poisoned = c->servers.size() > 1;
+      c->op_rejected = true;
+      snprintf(c->err, sizeof(c->err),
+               "server %zu rejected op %d (flags 0x%x): unsupported for "
+               "its configuration", s, static_cast<int>(op), flags);
+      return -1;
+    }
+    if (rh.num_keys != expected) {
+      c->poisoned = true;
+      snprintf(c->err, sizeof(c->err),
+               "response size mismatch from server %zu", s);
+      return -1;
+    }
+    if (expected) {
+      bool ok;
+      if (out_vals != nullptr) {
+        ok = ReadFull(c->servers[s].fd, out_vals + b * vpk * mult,
+                      expected * sizeof(Val));
+      } else {
+        // Caller doesn't want the weights (push_pull with a null out is
+        // legal through the C API): drain the well-sized payload so the
+        // stream stays framed.  Bounded by the caller's own key slice.
+        std::vector<Val> scratch(expected);
+        ok = ReadFull(c->servers[s].fd, scratch.data(),
+                      expected * sizeof(Val));
+      }
+      if (!ok) {
+        c->poisoned = true;
+        snprintf(c->err, sizeof(c->err), "short response from server %zu", s);
+        return -1;
+      }
+    }
+  }
+  return static_cast<int>(ts);
+}
+
+}  // namespace
+}  // namespace distlr
+
+extern "C" {
+
+// hosts: comma-separated "ip:port" list, one per server, in server-rank
+// order.  dim: total key-space size D (used for the range partition).
+void* kv_connect(const char* hosts, uint64_t dim, uint32_t client_id) {
+  auto* c = new distlr::Client();
+  c->dim = dim;
+  c->client_id = client_id;
+  std::string spec(hosts);
+  std::vector<std::string> parts;
+  size_t pos = 0;
+  while (pos != std::string::npos) {
+    size_t comma = spec.find(',', pos);
+    parts.push_back(spec.substr(pos, comma == std::string::npos ? comma : comma - pos));
+    pos = comma == std::string::npos ? comma : comma + 1;
+  }
+  // Default connect timeout 10s (DISTLR_CONNECT_TIMEOUT_MS overrides):
+  // long enough for a loaded-but-alive server host, short enough that a
+  // partitioned one fails the op instead of freezing its caller.
+  // Unparseable or non-positive values fall back to the default — 0
+  // would fail every non-synchronous connect, negative would silently
+  // restore the unbounded wait this knob exists to remove.
+  int connect_timeout_ms = 10000;
+  if (const char* e = std::getenv("DISTLR_CONNECT_TIMEOUT_MS")) {
+    const int v = std::atoi(e);
+    if (v > 0) connect_timeout_ms = v;
+  }
+  const size_t S = parts.size();
+  for (size_t s = 0; s < S; ++s) {
+    size_t colon = parts[s].rfind(':');
+    if (colon == std::string::npos) { delete c; return nullptr; }
+    const std::string host = parts[s].substr(0, colon);
+    const int port = std::atoi(parts[s].c_str() + colon + 1);
+    int fd = distlr::ConnectTo(host, port, connect_timeout_ms);
+    if (fd < 0) {
+      for (auto& sc : c->servers) close(sc.fd);
+      delete c;
+      return nullptr;
+    }
+    distlr::ServerConn sc;
+    sc.fd = fd;
+    // ps-lite-style equal contiguous ranges over [0, dim).
+    sc.range_begin = dim * s / S;
+    sc.range_end = dim * (s + 1) / S;
+    c->servers.push_back(sc);
+  }
+  return c;
+}
+
+// keys must be sorted ascending global ids; returns ts >= 0, or -1.
+int kv_push(void* handle, const uint64_t* keys, const float* vals, uint64_t n) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  return distlr::RoundTrip(c, distlr::Op::kPush, keys, vals, nullptr, n);
+}
+
+// Idempotent weight-seeding push (kInitPush, kv_protocol.h): seeds only
+// an uninitialized server group, no-ops otherwise — safe for a restarted
+// worker to re-send.  force != 0 adds kForceInit (overwrite live
+// weights; the checkpoint-resume path — see kv_protocol.h).
+int kv_push_init(void* handle, const uint64_t* keys, const float* vals,
+                 uint64_t n, int force) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  const uint8_t flags = force ? (distlr::kInitPush | distlr::kForceInit)
+                              : distlr::kInitPush;
+  return distlr::RoundTrip(c, distlr::Op::kPush, keys, vals, nullptr, n,
+                           flags);
+}
+
+int kv_pull(void* handle, const uint64_t* keys, float* out_vals, uint64_t n) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  return distlr::RoundTrip(c, distlr::Op::kPull, keys, nullptr, out_vals, n);
+}
+
+// Fused push+pull (kv_protocol.h kPushPull): pushes `vals` and receives
+// the post-update weights for the same keys into out_vals — ONE round
+// trip per server where the reference protocol takes two per batch.  In
+// sync mode the reply is deferred with the BSP round and carries the
+// post-round weights (trajectory-identical to pull-then-push).
+int kv_push_pull(void* handle, const uint64_t* keys, const float* vals,
+                 float* out_vals, uint64_t n) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  return distlr::RoundTrip(c, distlr::Op::kPushPull, keys, vals, out_vals, n);
+}
+
+// --- vals_per_key variants (ps-lite KVPairs.lens, uniform): each key
+// addresses `vpk` consecutive flat slots starting at key*vpk; keys are
+// in row units, vals/out_vals hold n*vpk floats in row-major order.
+// The row-blocked CTR path ships one u64 per R-lane table row this way
+// instead of R expanded keys (~2.7x fewer keyed wire bytes at R=32).
+// Requires every server range boundary to be a multiple of vpk (always
+// true when (dim/S) % vpk == 0); otherwise the op fails with a named
+// error and the caller should fall back to expanded keys. ---
+int kv_push_vpk(void* handle, const uint64_t* keys, const float* vals,
+                uint64_t n, uint64_t vpk) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  return distlr::RoundTrip(c, distlr::Op::kPush, keys, vals, nullptr, n,
+                           distlr::kNone, 0, vpk);
+}
+
+int kv_pull_vpk(void* handle, const uint64_t* keys, float* out_vals,
+                uint64_t n, uint64_t vpk) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  return distlr::RoundTrip(c, distlr::Op::kPull, keys, nullptr, out_vals, n,
+                           distlr::kNone, 0, vpk);
+}
+
+int kv_push_pull_vpk(void* handle, const uint64_t* keys, const float* vals,
+                     float* out_vals, uint64_t n, uint64_t vpk) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  return distlr::RoundTrip(c, distlr::Op::kPushPull, keys, vals, out_vals, n,
+                           distlr::kNone, 0, vpk);
+}
+
+static double WallNowS() {
+  timeval tv{};
+  gettimeofday(&tv, nullptr);
+  return static_cast<double>(tv.tv_sec) + 1e-6 * tv.tv_usec;
+}
+
+// One kHello capability round trip toward server s — THE shared copy of
+// the hello-reply framing (codec / trace / epoch negotiators all call
+// it; three hand-rolled parses of the same frame would drift apart on
+// the next reply extension).  `flags`: kNone, or kTraced to ask for the
+// server's wall clock in the reply.  A legacy server's empty reply
+// reads as mask 0 ("no capabilities").  Accepts 0/2/4 Val slots (the
+// 4-slot form only arrives for kTraced requests); when `clock_offset`
+// is non-null and the clock arrived, fills the symmetric-RTT offset
+// estimate (server minus client, seconds).  Returns 0, or -1 on a
+// transport/framing failure (handle poisoned, err set).
+static int HelloProbe(distlr::Client* c, size_t s, uint8_t flags,
+                      uint64_t* mask, double* clock_offset) {
+  const uint32_t ts = c->next_ts++;
+  distlr::MsgHeader h{distlr::kMagic,
+                      static_cast<uint8_t>(distlr::Op::kHello),
+                      flags, 0, c->client_id, ts, 0};
+  const int fd = c->servers[s].fd;
+  const double t0 = WallNowS();
+  if (!distlr::WriteFull(fd, &h, sizeof(h))) {
+    c->poisoned = true;
+    snprintf(c->err, sizeof(c->err), "hello to server %zu failed", s);
+    return -1;
+  }
+  distlr::MsgHeader rh{};
+  errno = 0;
+  if (!distlr::ReadFull(fd, &rh, sizeof(rh))) {
+    c->poisoned = true;
+    c->timed_out = errno == EAGAIN || errno == EWOULDBLOCK;
+    snprintf(c->err, sizeof(c->err), "no hello reply from server %zu", s);
+    return -1;
+  }
+  if (rh.magic != distlr::kMagic || !(rh.flags & distlr::kResponse) ||
+      rh.timestamp != ts ||
+      (rh.num_keys != 0 && rh.num_keys != 2 && rh.num_keys != 4)) {
+    c->poisoned = true;
+    snprintf(c->err, sizeof(c->err), "bad hello reply from server %zu", s);
+    return -1;
+  }
+  *mask = 0;  // legacy empty reply: no capabilities
+  if (rh.num_keys) {
+    double d[2] = {0.0, 0.0};
+    static_assert(sizeof(d[0]) == 2 * sizeof(distlr::Val),
+                  "capability mask layout");
+    if (!distlr::ReadFull(fd, d, rh.num_keys * sizeof(distlr::Val))) {
+      c->poisoned = true;
+      snprintf(c->err, sizeof(c->err),
+               "short hello reply from server %zu", s);
+      return -1;
+    }
+    *mask = static_cast<uint64_t>(d[0]);
+    if (clock_offset != nullptr && rh.num_keys == 4) {
+      // symmetric-RTT estimate: the server stamped d[1] roughly at the
+      // round trip's midpoint
+      const double t1 = WallNowS();
+      *clock_offset = d[1] - (t0 + (t1 - t0) / 2.0);
+    }
+  }
+  return 0;
+}
+
+// --- gradient-codec negotiation (kv_protocol.h capability handshake).
+// Sends kHello to EVERY server and intersects the capability masks: a
+// legacy server's empty reply reads as "no capabilities", so the
+// negotiated codec degrades to dense f32 against any old binary in the
+// group.  `want` is a Codec id (1 = int8 block-quant, 2 = signSGD
+// 1-bit); returns the codec now in force (want, or 0 on fallback), or
+// -1 on a transport failure (handle poisoned like any receive failure).
+// Subsequent gradient pushes on this handle carry the negotiated codec;
+// init and opt-state pushes stay dense f32 always.
+int kv_negotiate_codec(void* handle, int want) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  c->timed_out = false;
+  if (c->poisoned) {
+    snprintf(c->err, sizeof(c->err),
+             "connection poisoned by an earlier receive failure; "
+             "reconnect (kv_connect) before issuing more ops");
+    return -1;
+  }
+  if (want != distlr::kCodecInt8 && want != distlr::kCodecSign) {
+    snprintf(c->err, sizeof(c->err), "unknown codec %d (1=int8, 2=sign)",
+             want);
+    return -1;
+  }
+  uint64_t caps = ~0ull;
+  for (size_t s = 0; s < c->servers.size(); ++s) {
+    uint64_t mask = 0;
+    if (HelloProbe(c, s, distlr::kNone, &mask, nullptr) < 0) return -1;
+    caps &= mask;
+  }
+  c->codec = (caps & (1ull << want)) ? static_cast<uint8_t>(want) : 0;
+  return c->codec;
+}
+
+// Request bytes the most recent op put on the wire (headers + keys +
+// value payload over all servers) — the compression-ratio denominator.
+uint64_t kv_last_wire_sent(void* handle) {
+  return static_cast<distlr::Client*>(handle)->wire_sent;
+}
+
+// --- distributed-trace negotiation (kv_protocol.h kCapTrace).  Sends a
+// kHello with the kTraced flag to every server: a trace-capable server
+// answers [caps, its wall clock] (4 Val slots); a legacy or
+// --compress=0 server answers the empty frame, read as "no
+// capabilities".  Returns 1 when EVERY server parses kTraced trailers
+// (subsequent stamped ops carry them), 0 on graceful fallback
+// (client-only spans — the mixed-fleet degradation), -1 on transport
+// failure.  The hello round trip doubles as a clock-skew probe: the
+// estimated per-server offset (server minus client, symmetric-RTT
+// assumption) is kept for kv_clock_offset.
+int kv_negotiate_trace(void* handle) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  c->timed_out = false;
+  if (c->poisoned) {
+    snprintf(c->err, sizeof(c->err),
+             "connection poisoned by an earlier receive failure; "
+             "reconnect (kv_connect) before issuing more ops");
+    return -1;
+  }
+  c->trace_ok = false;
+  c->clock_offsets.assign(c->servers.size(), 0.0);
+  uint64_t caps = ~0ull;
+  for (size_t s = 0; s < c->servers.size(); ++s) {
+    // kTraced on a kHello carries NO trailer: the flag here only asks
+    // the server to include its clock in the reply (kv_protocol.h).
+    uint64_t mask = 0;
+    if (HelloProbe(c, s, distlr::kTraced, &mask,
+                   &c->clock_offsets[s]) < 0) {
+      return -1;
+    }
+    caps &= mask;
+  }
+  c->trace_ok = (caps & distlr::kCapTrace) != 0;
+  return c->trace_ok ? 1 : 0;
+}
+
+// Stamp the NEXT op with a trace context (one-shot; no-op until
+// kv_negotiate_trace returned 1).  span_id should be the caller's
+// client-side op span so the server's handler span parents under it.
+int kv_set_trace(void* handle, uint64_t trace_id, uint64_t span_id) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  c->trace_id = trace_id;
+  c->trace_span = span_id;
+  return 0;
+}
+
+// Estimated clock offset of one server (server wall clock minus this
+// host's, seconds) from the last kv_negotiate_trace; 0.0 when never
+// negotiated or the server predates the clock probe.
+double kv_clock_offset(void* handle, uint32_t server) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  if (server >= c->clock_offsets.size()) return 0.0;
+  return c->clock_offsets[server];
+}
+
+// --- membership-epoch ops (kv_protocol.h kEpoch) -----------------------
+
+// One kEpoch round trip toward server s; returns the server's epoch
+// (>= 1) or -1 on transport failure (handle poisoned).
+static int EpochRoundTrip(distlr::Client* c, size_t s, uint8_t flags,
+                          uint16_t aux) {
+  const uint32_t ts = c->next_ts++;
+  distlr::MsgHeader h{distlr::kMagic,
+                      static_cast<uint8_t>(distlr::Op::kEpoch),
+                      flags, aux, c->client_id, ts, 0};
+  const int fd = c->servers[s].fd;
+  if (!distlr::WriteFull(fd, &h, sizeof(h))) {
+    c->poisoned = true;
+    snprintf(c->err, sizeof(c->err), "epoch op to server %zu failed", s);
+    return -1;
+  }
+  distlr::MsgHeader rh{};
+  errno = 0;
+  if (!distlr::ReadFull(fd, &rh, sizeof(rh))) {
+    c->poisoned = true;
+    c->timed_out = errno == EAGAIN || errno == EWOULDBLOCK;
+    snprintf(c->err, sizeof(c->err),
+             "no epoch reply from server %zu", s);
+    return -1;
+  }
+  if (rh.magic != distlr::kMagic || !(rh.flags & distlr::kResponse) ||
+      rh.timestamp != ts || rh.num_keys != 0) {
+    c->poisoned = true;
+    snprintf(c->err, sizeof(c->err), "bad epoch reply from server %zu", s);
+    return -1;
+  }
+  return static_cast<int>(rh.aux);
+}
+
+// Announce a layout epoch to every server of the group (arming the
+// per-connection fence), after a kHello capability pass proved they all
+// speak kEpoch.  Returns:
+//   epoch  — every server confirmed this epoch; fencing armed;
+//   other  — some server is already at a DIFFERENT epoch (its value is
+//            returned): the layout this handle was built from is stale,
+//            re-fetch it from the coordinator and reconnect;
+//   0      — some server predates the membership protocol (no kCapEpoch;
+//            graceful fallback: no fencing, like a pre-epoch client);
+//   -1     — transport failure (handle poisoned).
+int kv_negotiate_epoch(void* handle, int epoch) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  c->timed_out = false;
+  c->epoch_mismatch = false;
+  if (c->poisoned) {
+    snprintf(c->err, sizeof(c->err),
+             "connection poisoned by an earlier receive failure; "
+             "reconnect (kv_connect) before issuing more ops");
+    return -1;
+  }
+  if (epoch < 1 || epoch > 0xFFFF) {
+    snprintf(c->err, sizeof(c->err),
+             "epoch must be in [1, 65535], got %d", epoch);
+    return -1;
+  }
+  // capability pass: a kEpoch frame against a pre-epoch binary would
+  // never be answered (unknown ops are skipped, not nacked), so probe
+  // with kHello first — the same additive-negotiation move the codec
+  // and trace capabilities made.
+  uint64_t caps = ~0ull;
+  for (size_t s = 0; s < c->servers.size(); ++s) {
+    uint64_t mask = 0;
+    if (HelloProbe(c, s, distlr::kNone, &mask, nullptr) < 0) return -1;
+    caps &= mask;
+  }
+  if (!(caps & distlr::kCapEpoch)) return 0;  // graceful: no fencing
+  for (size_t s = 0; s < c->servers.size(); ++s) {
+    const int got = EpochRoundTrip(c, s, distlr::kNone,
+                                   static_cast<uint16_t>(epoch));
+    if (got < 0) return -1;
+    if (got != epoch) {
+      // this handle was built from a stale layout: report the newer
+      // epoch so the caller re-fetches routing before any data op
+      c->server_epoch = static_cast<uint16_t>(got);
+      return got;
+    }
+  }
+  c->announced_epoch = static_cast<uint16_t>(epoch);
+  c->server_epoch = static_cast<uint16_t>(epoch);
+  return epoch;
+}
+
+// ADMIN: flip every server of this handle to `epoch` (the membership
+// coordinator's fence-arming set — coordinators hold per-rank handles,
+// so "every server" is usually one).  Returns 0, or -1 on failure.
+int kv_set_epoch(void* handle, int epoch) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  c->timed_out = false;
+  if (c->poisoned) {
+    snprintf(c->err, sizeof(c->err),
+             "connection poisoned by an earlier receive failure; "
+             "reconnect (kv_connect) before issuing more ops");
+    return -1;
+  }
+  if (epoch < 1 || epoch > 0xFFFF) {
+    snprintf(c->err, sizeof(c->err),
+             "epoch must be in [1, 65535], got %d", epoch);
+    return -1;
+  }
+  for (size_t s = 0; s < c->servers.size(); ++s) {
+    if (EpochRoundTrip(c, s, distlr::kForceInit,
+                       static_cast<uint16_t>(epoch)) < 0) {
+      return -1;
+    }
+  }
+  return 0;
+}
+
+// 1 if the most recent failed op was an epoch-fence rejection (the
+// group layout changed): re-fetch the layout and reconnect — never
+// retry in place, never treat as a config rejection.
+int kv_epoch_mismatch(void* handle) {
+  return static_cast<distlr::Client*>(handle)->epoch_mismatch ? 1 : 0;
+}
+
+// The newest membership epoch any server reported to this handle
+// (via negotiation or a fence rejection); 0 = never epoch-negotiated.
+int kv_group_epoch(void* handle) {
+  return static_cast<distlr::Client*>(handle)->server_epoch;
+}
+
+// --- FTRL opt-state snapshot/restore (kOptState, kv_protocol.h).
+// Single-server handles only (the supervisor's per-rank connections):
+// out/vals hold [z for every key..., n for every key...] = 2n floats.
+int kv_pull_opt_state(void* handle, const uint64_t* keys, float* out_vals,
+                      uint64_t n) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  return distlr::RoundTrip(c, distlr::Op::kPull, keys, nullptr, out_vals, n,
+                           distlr::kOptState);
+}
+
+int kv_push_init_opt_state(void* handle, const uint64_t* keys,
+                           const float* vals, uint64_t n, int force) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  const uint8_t flags = static_cast<uint8_t>(
+      distlr::kInitPush | distlr::kOptState |
+      (force ? distlr::kForceInit : 0));
+  return distlr::RoundTrip(c, distlr::Op::kPush, keys, vals, nullptr, n,
+                           flags);
+}
+
+// Receive timeout for every pending/future op, in milliseconds; 0
+// restores the reference's semantics (block forever — and deadlock on a
+// sync-mode straggler exactly like ps-lite, SURVEY.md §5.3).
+int kv_set_timeout_ms(void* handle, int ms) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  timeval tv{};
+  tv.tv_sec = ms / 1000;
+  tv.tv_usec = (ms % 1000) * 1000;
+  int rc = 0;
+  for (auto& sc : c->servers) {
+    if (setsockopt(sc.fd, SOL_SOCKET, SO_RCVTIMEO, &tv, sizeof(tv)) < 0)
+      rc = -1;
+  }
+  return rc;
+}
+
+// Whether keyed pushes visit servers whose key slice is empty (default
+// 1).  Required ON for sync groups (the empty push is the worker's BSP
+// barrier vote); async groups may set 0 to skip the wasted round trips.
+int kv_set_push_visit_all(void* handle, int on) {
+  static_cast<distlr::Client*>(handle)->push_visit_all = on != 0;
+  return 0;
+}
+
+// 1 if the most recent failed op failed on a receive timeout (vs a dead
+// connection / protocol error).
+int kv_timed_out(void* handle) {
+  return static_cast<distlr::Client*>(handle)->timed_out ? 1 : 0;
+}
+
+// 1 if the most recent failed op was an explicit kError protocol
+// rejection — deterministic (e.g. an opt-state op against a non-FTRL
+// server), so re-issuing it can never succeed and retry loops must
+// fail fast instead of burning their attempt/deadline budget.
+int kv_op_rejected(void* handle) {
+  return static_cast<distlr::Client*>(handle)->op_rejected ? 1 : 0;
+}
+
+// Delivery state of the most recent FAILED op: 0 = no byte of its
+// request was accepted by any server's kernel (re-issuing after a
+// reconnect cannot double-apply anything — the hard guarantee a push
+// retry needs); 1 = delivery began, so a non-idempotent op's outcome is
+// unknown.  Conservative: partial writes count as 1.
+int kv_op_delivery_began(void* handle) {
+  return static_cast<distlr::Client*>(handle)->op_delivery_began ? 1 : 0;
+}
+
+// Health probe of one server: fills out[0..n) with the kStats counters
+// (dim, initialized, pending_sync_pushes, barrier_waiters, pushes,
+// pulls) as float64 (the wire ships doubles — f32 would freeze counters
+// at 2^24).  Safe while the sync barrier is wedged — the server never
+// defers a stats reply.  Use a dedicated connection for supervision:
+// like every op, a probe on a poisoned/busy handle fails.
+int kv_stats(void* handle, uint32_t server, double* out, uint64_t n) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  c->timed_out = false;
+  if (c->poisoned) {
+    snprintf(c->err, sizeof(c->err),
+             "connection poisoned by an earlier receive failure; "
+             "reconnect (kv_connect) before issuing more ops");
+    return -1;
+  }
+  if (server >= c->servers.size()) {
+    snprintf(c->err, sizeof(c->err), "no such server %u", server);
+    return -1;
+  }
+  const uint32_t ts = c->next_ts++;
+  // aux advertises how many stats this client accepts (kv_protocol.h):
+  // an extension-aware server replies that many; an old server ignores
+  // aux and sends the six v1 counters either way.
+  distlr::MsgHeader h{distlr::kMagic, static_cast<uint8_t>(distlr::Op::kStats),
+                      distlr::kNone,
+                      static_cast<uint16_t>(distlr::kStatsVals),
+                      c->client_id, ts, 0};
+  const int fd = c->servers[server].fd;
+  if (!distlr::WriteFull(fd, &h, sizeof(h))) {
+    c->poisoned = true;
+    snprintf(c->err, sizeof(c->err), "send to server %u failed", server);
+    return -1;
+  }
+  distlr::MsgHeader rh{};
+  errno = 0;
+  if (!distlr::ReadFull(fd, &rh, sizeof(rh))) {
+    c->poisoned = true;
+    if (errno == EAGAIN || errno == EWOULDBLOCK) {
+      c->timed_out = true;
+      snprintf(c->err, sizeof(c->err),
+               "stats probe timed out waiting for server %u", server);
+    } else {
+      snprintf(c->err, sizeof(c->err), "connection to server %u lost", server);
+    }
+    return -1;
+  }
+  // Additive acceptance (kv_protocol.h): a reply carries at least the
+  // six v1 counters; newer servers append more (per-handler CPU).  Any
+  // even slot count in [2*v1, 2*64] frames correctly — read what we
+  // know, drain the rest, so mixed vintages keep probing.
+  if (rh.magic != distlr::kMagic || !(rh.flags & distlr::kResponse) ||
+      rh.timestamp != ts || rh.num_keys < 2 * distlr::kStatsValsV1 ||
+      rh.num_keys % 2 != 0 || rh.num_keys > 2 * 64) {
+    c->poisoned = true;
+    snprintf(c->err, sizeof(c->err), "bad stats response from server %u", server);
+    return -1;
+  }
+  const uint64_t avail = rh.num_keys / 2;
+  double stats[64];
+  if (!distlr::ReadFull(fd, stats, avail * sizeof(double))) {
+    c->poisoned = true;
+    snprintf(c->err, sizeof(c->err), "short stats response from server %u", server);
+    return -1;
+  }
+  const uint64_t k = std::min<uint64_t>(n, avail);
+  for (uint64_t i = 0; i < k; ++i) out[i] = stats[i];
+  return static_cast<int>(k);
+}
+
+// Group barrier via server 0 (Postoffice::Barrier equivalent).
+// barrier_id is the generation (kv_protocol.h): late votes for an
+// already-released generation return immediately.
+int kv_barrier(void* handle, uint32_t barrier_id) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  return distlr::RoundTrip(c, distlr::Op::kBarrier, nullptr, nullptr, nullptr,
+                           0, distlr::kNone,
+                           static_cast<uint16_t>(barrier_id));
+}
+
+// No-op: kv_push/kv_pull already block until completion (see header
+// comment); kept so the Python surface mirrors KVWorker::Wait.
+int kv_wait(void* handle, int ts) {
+  (void)handle;
+  (void)ts;
+  return 0;
+}
+
+int kv_shutdown_servers(void* handle) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  int rc = 0;
+  for (size_t s = 0; s < c->servers.size(); ++s) {
+    distlr::MsgHeader h{distlr::kMagic, static_cast<uint8_t>(distlr::Op::kShutdown),
+                        distlr::kNone, 0, c->client_id, c->next_ts++, 0};
+    if (!distlr::WriteFull(c->servers[s].fd, &h, sizeof(h))) rc = -1;
+    distlr::MsgHeader rh{};
+    distlr::ReadFull(c->servers[s].fd, &rh, sizeof(rh));
+  }
+  return rc;
+}
+
+const char* kv_last_error(void* handle) {
+  return static_cast<distlr::Client*>(handle)->err;
+}
+
+void kv_close(void* handle) {
+  auto* c = static_cast<distlr::Client*>(handle);
+  for (auto& sc : c->servers) close(sc.fd);
+  delete c;
+}
+
+}  // extern "C"

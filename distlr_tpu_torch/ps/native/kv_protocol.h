@@ -1,0 +1,408 @@
+// Wire protocol for the distlr_tpu KV parameter server.
+//
+// TPU-native re-design of the ps-lite worker<->server RPC surface the
+// reference links against (reconstructed API in SURVEY.md §2.2 E1.d-f:
+// KVWorker::Push/Pull/Wait, KVServer with deferred Response, KVMeta.push
+// discriminator, SArray<Key>/SArray<Val> payloads).  This replaces
+// ZeroMQ + protobuf with a minimal length-prefixed binary framing over
+// TCP (the DCN control/data plane; the on-chip sync path never touches
+// this — it is lax.psum over ICI).
+//
+// Frame layout (little-endian, no padding):
+//   MsgHeader { magic, op, flags, aux, client_id, timestamp, num_keys }
+//   then num_keys * u64 keys
+//   then (op == PUSH || (op == PULL && is_response))
+//        num_keys * vals_per_key * f32 vals
+//
+// vals_per_key (the header's aux field for kPush/kPull/kPushPull;
+// 0 == 1 == legacy scalar keys): each key addresses vals_per_key
+// CONSECUTIVE slots of the flat parameter space, starting at
+// key * vals_per_key — ps-lite's KVPairs.lens capability (uniform
+// lens), which the row-blocked CTR path uses to ship one u64 row id
+// per R-lane table row instead of R expanded keys (the expanded
+// encoding spends 8 bytes of key per 4 bytes of value; at R=32 the
+// multi-val encoding cuts keyed wire bytes ~2.7x).  The server
+// expands at the parsing layer, so merge/barrier/rollback semantics
+// are byte-identical to a client that expanded the keys itself.
+//
+// Semantics mirror the reference server handle (src/main.cc:41-96):
+//   * first PUSH initializes server weights (src/main.cc:50-56)
+//   * sync mode: PUSH responses are DEFERRED until num_workers pushes
+//     arrive, then one SGD update is applied and all responses released
+//     at once — the reply is the BSP barrier (src/main.cc:57-78)
+//   * async mode: SGD applied per PUSH, reply immediate (src/main.cc:79-84)
+//   * PULL replies the current weight slice (src/main.cc:85-95)
+//   * BARRIER: counted per-group, released when num_workers reached
+//     (Postoffice::Barrier equivalent, src/main.cc:150)
+
+#ifndef DISTLR_TPU_PS_KV_PROTOCOL_H_
+#define DISTLR_TPU_PS_KV_PROTOCOL_H_
+
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+
+namespace distlr {
+
+constexpr uint32_t kMagic = 0xD157C0DE;
+
+enum class Op : uint8_t {
+  kPush = 1,
+  kPull = 2,
+  kBarrier = 3,
+  kShutdown = 4,
+  kHello = 5,   // worker registration: client_id announces itself
+  kStats = 6,   // health probe: response vals = server counters (see below)
+  // Fused push+pull: the request carries gradient vals like kPush; the
+  // reply carries the post-update weights for the SAME keys like a
+  // kPull.  One round trip replaces the reference's two per batch
+  // (src/lr.cc:116-132 pulls then pushes the full vector every step).
+  // Async: apply immediately, reply fresh weights.  Sync: the reply is
+  // deferred with the BSP round like any push — and when the barrier
+  // releases, the payload is the post-round weights, which is exactly
+  // what the worker's NEXT pull would have returned (rounds are totally
+  // ordered), so the fused trajectory is bit-identical to pull+push.
+  kPushPull = 7,
+  // Membership epoch (the elastic-fleet round): the group layout —
+  // which rank owns which key range — is versioned by a u16 epoch that
+  // rides MsgHeader::aux, the same field (and the same released-
+  // generation pattern) the barrier machinery already uses for its
+  // generation ids.  Three forms:
+  //   * ANNOUNCE (flags kNone, aux = E > 0): this connection expects
+  //     layout epoch E.  From then on every keyed data op (push / pull
+  //     / push_pull, incl. init forms) is FENCED: if the server's
+  //     epoch differs, the op is answered — after its payload is fully
+  //     read, so the stream stays framed — with an error frame whose
+  //     op is kEpoch (not the echoed data op; that is what makes the
+  //     fence unambiguous to the client) and whose aux carries the
+  //     server's CURRENT epoch.  The client re-negotiates routing from
+  //     the membership coordinator exactly the way it already re-runs
+  //     kHello on reconnect; an in-flight push that straddled the flip
+  //     is absorbed through the push-outcome-unknown path (some ranks
+  //     may have applied their slices), never re-issued.
+  //   * QUERY (flags kNone, aux = 0): no announcement; the reply's aux
+  //     is the server's current epoch.
+  //   * SET (flags kForceInit, aux = E): ADMIN — the membership
+  //     coordinator flips the server to epoch E (the fence arming the
+  //     drain window).  Replies aux = E.
+  // Un-announced connections (legacy clients, supervisor probes, the
+  // coordinator's own drain pulls/seeds) are never fenced — the
+  // control plane must work THROUGH a migration, and a pre-epoch
+  // client of a static group sees zero behavior change.  Epochs start
+  // at 1; 0 means "not announced".
+  kEpoch = 8,
+};
+
+// kStats response payload, in order: dim, initialized,
+// pending_sync_pushes, barrier_waiters, total_pushes, total_pulls,
+// then (since the continuous-profiling round) cumulative per-handler
+// THREAD CPU seconds — cpu_push_seconds, cpu_pull_seconds,
+// cpu_stats_seconds, cpu_barrier_seconds — measured with
+// CLOCK_THREAD_CPUTIME_ID around each handler dispatch (payload read +
+// decode + apply; blocked socket time never counts), so the Python
+// side can mirror them as distlr_kv_server_cpu_seconds{handler} and a
+// flamegraph's Python edge lines up with the C++ side.
+// Each counter is a float64 (f32 would silently freeze counters at
+// 2^24), transmitted as 2 Val slots via memcpy — so the response header
+// carries num_keys == 2 * (stats replied).  Extension is ADDITIVE in
+// BOTH directions: the request's aux field advertises how many stats
+// the CLIENT accepts (0 from a pre-extension client — its aux was
+// always zero), and the server replies min(aux, kStatsVals) but never
+// fewer than the v1 six.  So an old client against a new server still
+// gets exactly the 6-slot reply its strict length check demands, and a
+// new client against an old server (which ignores aux and always sends
+// six) reads what arrived — mixed vintages keep probing.
+// The failure-detection hook the reference lacks entirely (SURVEY.md
+// §5.3: a dead worker deadlocks the sync barrier forever with no
+// diagnostic) — a supervisor polling kStats sees pending_sync_pushes
+// stuck below num_workers and can name the straggler condition.
+// Slot 10 (the membership round, additive like the CPU tail): the
+// server's current layout EPOCH — so one health probe shows a mixed-
+// epoch group mid-migration, and `distlr_ps_server_stat{stat="epoch"}`
+// scrapes the flip.
+constexpr uint64_t kStatsValsV1 = 6;
+constexpr uint64_t kStatsVals = 11;
+
+enum Flags : uint8_t {
+  kNone = 0,
+  kResponse = 1,
+  kError = 2,
+  // PUSH that seeds the weights IF the server is uninitialized and is a
+  // no-op otherwise (always replied immediately, never counted toward
+  // the sync merge).  Idempotent by design: a restarted worker re-sends
+  // its init without corrupting state — without the flag, a re-sent
+  // init lands in the async path as a bogus gradient.
+  kInitPush = 4,
+  // With kInitPush: seed UNCONDITIONALLY, overwriting live weights.
+  // The checkpoint-resume path needs this against a surviving
+  // (already-initialized) server group — a plain init would no-op and
+  // training would silently resume from the servers' stale crash-time
+  // weights while the epoch counter says otherwise.  Restarted workers
+  // must NOT set it (they would roll peers back to the checkpoint).
+  kForceInit = 8,
+  // Bits 4-5: gradient CODEC of a push-class frame's value payload
+  // (see Codec below; 0 = dense f32, the only encoding older peers
+  // speak).  Landed additively like vals_per_key: the server decodes at
+  // the parsing layer, so merge/barrier/rollback/optimizer semantics
+  // are byte-identical to a client that sent dense f32.  A client may
+  // set these bits ONLY after the kHello capability handshake proved
+  // every server of the group decodes the codec — an un-negotiated
+  // compressed frame against an old server would desynchronize the
+  // stream (the old server reads num_keys*vpk f32s of payload).
+  kCodecShift = 4,
+  kCodecMask = 0x30,
+  // The op addresses the server optimizer's per-coordinate accumulator
+  // state (FTRL z/n) instead of the weights: a kPull|kOptState reply
+  // carries 2x vals per key ([z..., n...]); a kPush|kInitPush|kOptState
+  // request seeds them the same way.  This is what lets a supervisor
+  // snapshot/restore an FTRL rank without degrading a respawn to a
+  // warm restart (weights-only reseed loses the accumulators).  Only
+  // valid with kInitPush on the push side — optimizer state has no
+  // gradient semantics to merge.
+  kOptState = 64,
+  // Bit 7: the request frame carries a 16-byte TraceFrame (trace_id,
+  // span_id — Dapper-style distributed-trace propagation) immediately
+  // after the header, BEFORE the keys.  Landed additively like
+  // vals_per_key and the codec bits: the server strips it at the
+  // parsing layer and (when --trace_journal is set) logs a per-handler
+  // span joined to the client's span — every downstream handler sees
+  // exactly the frame an untraced client would have sent.  A client may
+  // set this bit ONLY after the kHello capability handshake proved
+  // every server of the group parses it (kCapTrace): an un-negotiated
+  // trailer against a pre-trace server would desynchronize the stream
+  // (16 bytes misread as keys).  Responses never carry the trailer
+  // (Respond clears the bit), and ops with no sampled trace context
+  // are wire-byte-identical to the pre-trace protocol.
+  kTraced = 128,
+};
+
+// Trace-context trailer of a kTraced request frame.  span_id is the
+// CLIENT-side op span: the server's handler span (logged to its span
+// journal) parents itself under it, which is what stitches the
+// cross-process timeline together in `launch trace-agg`.
+#pragma pack(push, 1)
+struct TraceFrame {
+  uint64_t trace_id;
+  uint64_t span_id;
+};
+#pragma pack(pop)
+static_assert(sizeof(TraceFrame) == 16, "TraceFrame must be 16 bytes");
+
+// --- gradient wire codecs (the Flags bits 4-5 field) -------------------
+//
+// A coded push replaces the num_keys*vpk f32 value payload with:
+//   kCodecInt8: ceil(n/kQuantBlock) f32 per-block scales, then n int8
+//               quantized values (block-symmetric: scale = amax/127,
+//               q = rint(v/scale) clamped to [-127, 127]) — ~3.9x
+//               fewer value bytes, error bounded by scale/2 per coord;
+//   kCodecSign: ceil(n/8) bytes, bit i (LSB-first) = (v_i > 0) — the
+//               1-bit signSGD encoding (Bernstein et al.): decode is
+//               +1/-1, with NO abstention — an exact zero decodes -1
+//               and votes like any other coordinate.  Safe when the
+//               gradient crossing the wire is dense in the measure-
+//               theoretic sense (the paper's regime: every coordinate
+//               stochastically nonzero); NOT safe for a full-width
+//               push of an effectively-sparse gradient, where every
+//               never-touched coordinate's -1 vote walks its weight
+//               +lr per round.  Sparse workloads must push touched
+//               keys only (the keyed path) or use kCodecInt8 (a zero
+//               block encodes exactly); the Python client logs a
+//               one-time warning when a sign-coded push is mostly
+//               zeros.  Pairs with the server's signsgd majority-vote
+//               optimizer; the capability mask only advertises it there.
+// Keys, headers, and every reply stay dense/uncompressed — pulls are
+// the serving tier's path and already have keyed/chunked/hot-row
+// reductions; the PUSH payload is what crosses the wire every batch.
+enum Codec : uint8_t {
+  kCodecNone = 0,
+  kCodecInt8 = 1,
+  kCodecSign = 2,
+};
+
+//: int8 block-quantization granularity (values per f32 scale)
+constexpr uint64_t kQuantBlock = 256;
+
+inline uint8_t CodecOf(uint8_t flags) {
+  return (flags & kCodecMask) >> kCodecShift;
+}
+
+// Exact value-payload size of a coded frame carrying n values — both
+// sides derive it from (codec, n), so a compressed frame needs no extra
+// length field and stays as corruption-guarded as the dense layout.
+inline uint64_t CodecPayloadBytes(uint8_t codec, uint64_t n) {
+  if (codec == kCodecInt8)
+    return ((n + kQuantBlock - 1) / kQuantBlock) * 4 + n;
+  if (codec == kCodecSign) return (n + 7) / 8;
+  return n * sizeof(float);
+}
+
+// Shared by client (encode) and server (decode) so the two sides cannot
+// drift: one definition of the byte layout, compiled into both.
+inline void EncodeGrad(uint8_t codec, const float* v, uint64_t n,
+                       uint8_t* out) {
+  if (codec == kCodecInt8) {
+    const uint64_t nb = (n + kQuantBlock - 1) / kQuantBlock;
+    int8_t* q = reinterpret_cast<int8_t*>(out + nb * 4);
+    for (uint64_t b = 0; b < nb; ++b) {
+      const uint64_t lo = b * kQuantBlock;
+      const uint64_t hi = lo + kQuantBlock < n ? lo + kQuantBlock : n;
+      float amax = 0.0f;
+      for (uint64_t i = lo; i < hi; ++i) {
+        const float a = v[i] < 0 ? -v[i] : v[i];
+        if (a > amax) amax = a;
+      }
+      const float scale = amax / 127.0f;
+      std::memcpy(out + b * 4, &scale, 4);
+      for (uint64_t i = lo; i < hi; ++i) {
+        if (scale == 0.0f) {
+          q[i] = 0;
+          continue;
+        }
+        // nearbyintf default mode = round-half-to-even = np.rint: the
+        // NumPy reference codec (distlr_tpu/compress/codecs.py) must
+        // reproduce this bit for bit
+        float r = nearbyintf(v[i] / scale);
+        if (r > 127.0f) r = 127.0f;
+        if (r < -127.0f) r = -127.0f;
+        q[i] = static_cast<int8_t>(r);
+      }
+    }
+  } else if (codec == kCodecSign) {
+    const uint64_t nb = (n + 7) / 8;
+    for (uint64_t b = 0; b < nb; ++b) out[b] = 0;
+    for (uint64_t i = 0; i < n; ++i) {
+      if (v[i] > 0.0f) out[i / 8] |= static_cast<uint8_t>(1u << (i % 8));
+    }
+  }
+}
+
+inline void DecodeGrad(uint8_t codec, const uint8_t* in, uint64_t n,
+                       float* out) {
+  if (codec == kCodecInt8) {
+    const uint64_t nb = (n + kQuantBlock - 1) / kQuantBlock;
+    const int8_t* q = reinterpret_cast<const int8_t*>(in + nb * 4);
+    for (uint64_t i = 0; i < n; ++i) {
+      float scale;
+      std::memcpy(&scale, in + (i / kQuantBlock) * 4, 4);
+      out[i] = static_cast<float>(q[i]) * scale;
+    }
+  } else if (codec == kCodecSign) {
+    for (uint64_t i = 0; i < n; ++i) {
+      out[i] = (in[i / 8] >> (i % 8)) & 1 ? 1.0f : -1.0f;
+    }
+  }
+}
+
+// --- kHello capability handshake ---------------------------------------
+// A capability-aware server answers kHello with ONE f64 bitmask shipped
+// as 2 Val slots (the kStats float64-in-Val convention); a legacy
+// server echoes an EMPTY reply (num_keys == 0), which the client reads
+// as "no capabilities" and falls back to dense f32 — negotiation is
+// additive, no version field needed.  kCapCodecSign is advertised only
+// by --optimizer=signsgd servers: decoded ±1 votes through any other
+// update rule would be sign-mean, not the paper's majority vote.
+constexpr uint64_t kCapCodecInt8 = 1ull << kCodecInt8;
+constexpr uint64_t kCapCodecSign = 1ull << kCodecSign;
+// The server parses kTraced frames (the 16-byte TraceFrame trailer).
+// Advertised by every capability-aware server; a kHello request that
+// itself sets kTraced additionally asks for the server's wall clock in
+// the reply (4 Val slots: [caps f64, unix-seconds f64]) — the clock-
+// skew probe `launch trace-agg` aligns cross-host span timelines with.
+// Plain kHello requests keep the 2-slot reply, so pre-trace clients
+// never see a frame shape they cannot parse.
+constexpr uint64_t kCapTrace = 1ull << 8;
+// The server speaks the kEpoch membership op (announce/query/set) and
+// fences announced connections on epoch mismatch — the elastic-fleet
+// capability.  A client must see this from EVERY server before
+// announcing an epoch: a kEpoch frame against a pre-epoch binary would
+// never be answered (unknown ops are skipped, not nacked).
+constexpr uint64_t kCapEpoch = 1ull << 9;
+
+#pragma pack(push, 1)
+struct MsgHeader {
+  uint32_t magic;
+  uint8_t op;
+  uint8_t flags;
+  // Op-specific 16-bit field:
+  //   kBarrier — the barrier GENERATION id.  Barriers are counted per
+  //   id, and an id that has already released replies instantly to
+  //   late votes — so a restarted worker re-voting the startup barrier
+  //   (id 0) can never pair with peers' exit-barrier votes (id 1), and
+  //   never hangs regardless of when its predecessor crashed.
+  //   kPush/kPull/kPushPull — vals_per_key (0 == 1 == scalar keys); see
+  //   the frame-layout comment above.
+  uint16_t aux;
+  uint32_t client_id;
+  uint32_t timestamp;   // per-client op sequence number (ps-lite ts)
+  uint64_t num_keys;
+};
+#pragma pack(pop)
+
+// Wire-corruption guard for vals_per_key: large enough for any
+// realistic row width (the blocked path uses R in {8, 16, 32}), small
+// enough to reject essentially all random u16s.
+constexpr uint64_t kMaxValsPerKey = 4096;
+
+static_assert(sizeof(MsgHeader) == 24, "MsgHeader must be 24 bytes");
+
+// --- durable store: on-DISK formats (--store_dir) ----------------------
+//
+// Disk formats are protocol too: the Python reader (distlr_tpu/ps/
+// store.py) mirrors every constant here, and the analysis wire-parity
+// pass fails `make lint` on any drift — the same lint culture that
+// pins the socket framing above.
+//
+// Snapshot file (snap-0.bin / snap-1.bin, two alternating generations;
+// written tmp+fsync+rename so a reader never sees a half-written
+// generation — torn files can only come from a crash mid-rename-free
+// filesystem, and the CRC rejects them):
+//   40-byte header, little-endian, no padding:
+//     u32 magic         kStoreMagic
+//     u16 version       kStoreVersion (bump on ANY layout change)
+//     u16 flags         kStoreFlagFtrl | kStoreFlagInitialized
+//     u16 epoch         membership epoch at capture (kEpoch round)
+//     u16 reserved      zero
+//     u32 crc           CRC32 (zlib polynomial) over the header with
+//                       this field zeroed, then the whole payload
+//     u64 dim           weights_.size() at capture
+//     u64 push_clock    n_push_ at capture — the RPO audit clock
+//     f64 wall_time_s   capture wall time (snapshot-age metric)
+//   payload: dim f32 weights, then (flags & kStoreFlagFtrl) dim f32 z
+//   and dim f32 n — the FTRL accumulators, so a restore is never a
+//   silent warm restart.
+//
+// WAL segment (wal-<push_clock>.log, append-only, rotated at every
+// snapshot; a segment named wal-C holds exactly the records with
+// seq > C up to the next rotation's clock — which is what makes
+// "delete segments older than the oldest on-disk generation" safe):
+//   8-byte segment header: u32 kWalMagic, u16 kStoreVersion, u16 epoch
+//   then records, each:
+//     20-byte record header: u64 seq (n_push_ AFTER the mutation; the
+//       replay skip/apply cursor), u32 nkeys, u8 flags (the wire Flags
+//       bits that describe the mutation: kInitPush/kForceInit/
+//       kOptState), u8 op (Op::kPush, or Op::kEpoch for a membership
+//       flip — then reserved carries the new epoch and nkeys == 0),
+//       u16 reserved, u32 crc (CRC32 over the record payload)
+//     payload: nkeys u64 keys, then nvals f32 vals where nvals is
+//       2*nkeys for kOptState records (the [z..., n...] layout) and
+//       nkeys otherwise.
+//   A torn tail (crash mid-append) truncates replay at the first short
+//   or CRC-failing record — loudly, never silently.
+constexpr uint32_t kStoreMagic = 0xD157510D;
+constexpr uint32_t kStoreVersion = 1;
+constexpr uint32_t kStoreHeaderSize = 40;
+//: generations kept on disk (alternating snap-0 / snap-1)
+constexpr uint32_t kStoreGenerations = 2;
+//: snapshot header flag bits
+constexpr uint32_t kStoreFlagFtrl = 1;
+constexpr uint32_t kStoreFlagInitialized = 2;
+constexpr uint32_t kWalMagic = 0xD157106D;
+constexpr uint32_t kWalHeaderSize = 8;
+constexpr uint32_t kWalRecordHeaderSize = 20;
+
+using Key = uint64_t;
+using Val = float;
+
+}  // namespace distlr
+
+#endif  // DISTLR_TPU_PS_KV_PROTOCOL_H_

@@ -1,0 +1,2261 @@
+// distlr_kv_server — native parameter-server process.
+//
+// The TPU framework's host-side equivalent of the reference's
+// KVStoreDistServer<float> + the ps-lite runtime it rides on
+// (reference src/main.cc:17-114; ps-lite API surface per SURVEY.md §2.2).
+// One process owns one contiguous key range of the model ("server rank"
+// r of S owns [r*D/S, (r+1)*D/S) — the GetServerKeyRanges partition,
+// src/main.cc:98-101).  Workers connect over TCP (DCN in multi-host
+// deployments); each connection gets a receive thread, and all state
+// mutations are serialized by a single mutex — the same effective
+// serialization ps-lite's single recv thread gave the reference handler
+// ("threadsafe" comment, src/main.cc:40).
+//
+// Behavior contract (mirrors DataHandle, src/main.cc:41-96):
+//   * first PUSH initializes the weight slice and replies immediately
+//   * sync mode: PUSH replies are withheld until `num_workers` distinct
+//     pushes arrive; then ONE SGD update is applied and all replies are
+//     released together — the deferred reply is the BSP barrier
+//   * async mode (Hogwild): SGD applied immediately per PUSH
+//   * PULL replies the current weights for the requested keys
+//   * BARRIER is released once `num_workers` requests are pending
+//   * Q1 compat flag (--last_gradient): reproduce the reference bug of
+//     applying only the last-arriving gradient / W (src/main.cc:70-72)
+//     instead of the merged mean
+//
+// Usage:
+//   distlr_kv_server --port=P --num_workers=W --dim=D [--lr=0.2]
+//                    [--max_dim=2^31]  (elasticity/corruption cap, §below)
+//                    [--sync=1] [--last_gradient=0] [--bind_any=0]
+//                    [--optimizer=sgd] [--ftrl_alpha=0.1] [--ftrl_beta=1]
+//                    [--ftrl_l1=0] [--ftrl_l2=0] [--compress=1]
+//                    [--epoch=1]  (initial membership epoch; see kEpoch
+//                                  in kv_protocol.h — elastic groups)
+//                    [--opt_segments=end:opt,...]  (per-LOCAL-key-range
+//                        optimizer map: keys < end1 use opt1, then <
+//                        end2 use opt2, ...; keys past the last end use
+//                        --optimizer.  The per-namespace-optimizer
+//                        capability: one group hosts an FTRL namespace
+//                        next to an SGD one.  sgd|ftrl only.)
+//                    [--trace_journal=<path>]  (per-handler span JSONL for
+//                                               `launch trace-agg`)
+//                    [--prof_journal=<path>] [--prof_window=10]
+//                        (continuous-profiling windows: per-handler
+//                         thread-CPU deltas as "profwindow" JSONL lines,
+//                         the native half of `launch prof-agg`'s merge)
+//                    [--store_dir=<dir>] [--store_interval=5]
+//                    [--store_wal=0] [--store_wal_fsync=0.1]
+//                        (durable store: crash-consistent snapshot
+//                         generations every --store_interval seconds +
+//                         optional per-push WAL with group-commit fsync;
+//                         cold start recovers from disk before the PORT
+//                         announcement, SIGUSR1 forces a snapshot now)
+//
+// --optimizer selects the server-side update rule applied to incoming
+// gradients (the pluggable point the lr flag already parameterized):
+//   sgd  — w -= lr * g (the reference's DataHandle update, default)
+//   ftrl — per-coordinate FTRL-Proximal (McMahan et al., KDD'13): the
+//          sparse-CTR production optimizer.  Keeps two accumulators per
+//          coordinate (z: L1-shrunk dual state, n: sum of squared
+//          gradients) and derives the weight in closed form:
+//            sigma = (sqrt(n + g^2) - sqrt(n)) / alpha
+//            z    += g - sigma * w;   n += g^2
+//            w     = 0                         if |z| <= l1
+//                  = -(z - sign(z)*l1) /
+//                    ((beta + sqrt(n)) / alpha + l2)   otherwise
+//          Zero-gradient coordinates are untouched (no information, no
+//          update) — which is also what keeps the sync path's dense
+//          merge scan from re-deriving untouched weights.  Sync mode
+//          applies FTRL to the round's MEAN gradient; async per push.
+//          --last_gradient (the Q1 reference-SGD quirk) is rejected.
+//   signsgd — majority-vote signSGD (Bernstein et al., arXiv:1802.04434;
+//          the 1-bit-per-coordinate PS aggregation the paper's theory
+//          covers): workers push sign(g) (normally via the kCodecSign
+//          wire codec, ±1 after decode).  Sync/BSP: the round's votes
+//          accumulate in the merge buffer and release applies ONE step
+//          w -= lr * sign(sum of votes), tied coordinates untouched —
+//          the vote-then-apply kernel.  Async: each push applies
+//          w -= lr * sign(g) (a one-voter majority).  Incompatible
+//          with --last_gradient (an SGD parity quirk).
+//
+// --compress=0 hides the gradient-codec capability: kHello answers with
+// the legacy empty reply, so negotiating clients fall back to dense f32
+// exactly as against a pre-codec server binary (the compatibility knob,
+// and what the graceful-fallback tests simulate an old server with).
+//
+// --port=0 binds an ephemeral port; the chosen port is announced as
+// "PORT <n>" on stdout so a supervisor can read it race-free.
+// --bind_any=1 listens on 0.0.0.0 for multi-host (DCN) deployments;
+// the default stays loopback-only.
+//
+// The server is dimension-elastic: --dim pre-sizes the slice, but any
+// key seen in a PUSH grows storage (keys are server-local after the
+// client rebases them by the range start, exactly like DecodeKey,
+// src/main.cc:98-101).
+
+#include <arpa/inet.h>
+#include <dirent.h>
+#include <fcntl.h>
+#include <netinet/in.h>
+#include <netinet/tcp.h>
+#include <pthread.h>
+#include <sys/socket.h>
+#include <sys/stat.h>
+#include <sys/time.h>
+#include <time.h>
+#include <unistd.h>
+
+#include <cerrno>
+
+#include <algorithm>
+#include <atomic>
+#include <cmath>
+#include <condition_variable>
+#include <cstring>
+#include <cstdio>
+#include <cstdlib>
+#include <mutex>
+#include <string>
+#include <csignal>
+#include <set>
+#include <thread>
+#include <unordered_map>
+#include <vector>
+
+#include "kv_protocol.h"
+
+namespace distlr {
+
+struct PendingPush {
+  int fd;
+  MsgHeader header;       // echoed back (with kResponse) on release
+  // The pushed gradient is kept so a disconnecting worker's contribution
+  // can be rolled back out of the merge buffer (worker-restart recovery;
+  // the reference has no such path — SURVEY.md §5.3).
+  std::vector<Key> keys;
+  std::vector<Val> vals;
+  // kPushPull: the deferred reply carries the post-round weights for
+  // this push's keys (the fused pull half) instead of an empty frame.
+  bool want_vals = false;
+};
+
+struct FtrlParams {
+  float alpha = 0.1f;
+  float beta = 1.0f;
+  float l1 = 0.0f;
+  float l2 = 0.0f;
+};
+
+// Server-side update rule (--optimizer); kSign is the majority-vote
+// signSGD aggregation path, the third peer of sgd/ftrl.
+enum class Opt : uint8_t { kSgd, kFtrl, kSign };
+
+//: span-journal entry cap (--trace_journal): a runaway sampled stream
+//: must bound disk growth; drops are counted and reported at exit.
+constexpr uint64_t kMaxTraceSpans = 200000;
+
+inline double WallNowS() {
+  timeval tv{};
+  gettimeofday(&tv, nullptr);
+  return static_cast<double>(tv.tv_sec) + 1e-6 * tv.tv_usec;
+}
+
+// Per-handler thread-CPU accounting slots (the kStats extension and
+// the --prof_journal windows share them).
+enum CpuSlot : int {
+  kCpuPush = 0,     // kPush / kPushPull / opt-state push
+  kCpuPull = 1,     // kPull (weights and opt-state)
+  kCpuStats = 2,    // kStats + kHello (control plane)
+  kCpuBarrier = 3,
+  kCpuSlots = 4,
+};
+
+class KVServer;
+// For the SIGTERM handler only (a capture-less lambda): the final
+// profile window must not be stranded by ServerGroup.stop()'s terminate.
+static KVServer* g_server = nullptr;
+// SIGUSR1 = "durable snapshot now" (`launch ps-ctl snapshot`): the
+// handler only flips this flag — the persistence loop polls it every
+// 100ms slice and does the actual write from its own thread, so the
+// signal path stays async-signal-safe.
+static std::atomic<bool> g_store_snap_req{false};
+
+class KVServer {
+ public:
+  KVServer(int port, int num_workers, uint64_t dim, float lr, bool sync,
+           bool last_gradient, bool bind_any, uint64_t max_dim,
+           Opt opt, FtrlParams ftrl_params, bool compress,
+           std::string trace_journal, std::string prof_journal,
+           double prof_window_s, uint16_t epoch,
+           std::vector<std::pair<uint64_t, Opt>> opt_segments,
+           std::string store_dir, double store_interval_s,
+           bool store_wal, double store_wal_fsync_s)
+      : port_(port), num_workers_(num_workers), lr_(lr), sync_(sync),
+        last_gradient_(last_gradient), bind_any_(bind_any),
+        max_dim_(max_dim), opt_(opt), fp_(ftrl_params),
+        compress_(compress), trace_journal_(std::move(trace_journal)),
+        prof_journal_(std::move(prof_journal)),
+        prof_window_s_(prof_window_s),
+        store_dir_(std::move(store_dir)),
+        store_interval_s_(store_interval_s), store_wal_(store_wal),
+        store_wal_fsync_s_(store_wal_fsync_s), epoch_(epoch),
+        opt_segments_(std::move(opt_segments)) {
+    weights_.resize(dim, 0.0f);
+    has_ftrl_ = opt_ == Opt::kFtrl;
+    for (const auto& seg : opt_segments_) {
+      if (seg.second == Opt::kFtrl) has_ftrl_ = true;
+    }
+    if (has_ftrl_) {
+      z_.resize(dim, 0.0f);
+      nacc_.resize(dim, 0.0f);
+    }
+  }
+
+  int Run() {
+    // A worker dying between its request and our reply must surface as a
+    // failed write on that connection (handled by DropConnection), not
+    // SIGPIPE-kill the whole server group member.
+    signal(SIGPIPE, SIG_IGN);
+    // ServerGroup.stop() terminates ranks with SIGTERM; the span
+    // journal batches flushes, so the default immediate-death action
+    // would strand up to 63 buffered spans of a short run.  Write the
+    // profiler's final partial window (a short run may never see a full
+    // window elapse), flush every stream, then exit with the
+    // conventional 143.  (fprintf/fflush are not strictly
+    // async-signal-safe; worst case is a torn tail line, which every
+    // journal reader already skips.)
+    g_server = this;
+    signal(SIGTERM, [](int) {
+      if (g_server != nullptr) g_server->ProfWriteWindow(true);
+      fflush(nullptr);
+      _exit(143);
+    });
+    if (!store_dir_.empty()) {
+      signal(SIGUSR1, [](int) { g_store_snap_req.store(true); });
+      // Recovery runs BEFORE the listen socket exists: by the time
+      // "PORT n" is announced the slice is fully restored (snapshot +
+      // WAL replay) at its persisted epoch, so a surviving client's
+      // very first fenced op against the restarted rank already sees
+      // consistent state — there is no "up but empty" window.
+      if (!LoadStore()) return 1;
+      if (store_wal_) {
+        RotateWalLocked(n_push_, epoch_);  // pre-threads: no lock needed
+        if (wal_fd_ < 0) {
+          fprintf(stderr, "[distlr_kv_server] cannot arm --store_wal "
+                  "(segment open failed)\n");
+          return 1;
+        }
+      }
+    }
+    listen_fd_ = socket(AF_INET, SOCK_STREAM, 0);
+    if (listen_fd_ < 0) { perror("socket"); return 1; }
+    int one = 1;
+    setsockopt(listen_fd_, SOL_SOCKET, SO_REUSEADDR, &one, sizeof(one));
+    sockaddr_in addr{};
+    addr.sin_family = AF_INET;
+    addr.sin_addr.s_addr = htonl(bind_any_ ? INADDR_ANY : INADDR_LOOPBACK);
+    addr.sin_port = htons(static_cast<uint16_t>(port_));
+    if (bind(listen_fd_, reinterpret_cast<sockaddr*>(&addr), sizeof(addr)) < 0) {
+      perror("bind");
+      return 1;
+    }
+    if (port_ == 0) {  // ephemeral: report the kernel-chosen port
+      sockaddr_in bound{};
+      socklen_t len = sizeof(bound);
+      getsockname(listen_fd_, reinterpret_cast<sockaddr*>(&bound), &len);
+      port_ = ntohs(bound.sin_port);
+    }
+    if (listen(listen_fd_, 128) < 0) { perror("listen"); return 1; }
+    // Machine-readable announcement (supervisors parse this; race-free
+    // alternative to picking a "free" port up front).
+    printf("PORT %d\n", port_);
+    fflush(stdout);
+    if (!trace_journal_.empty()) {
+      trace_f_ = fopen(trace_journal_.c_str(), "a");
+      if (trace_f_ == nullptr) {
+        fprintf(stderr, "[distlr_kv_server] cannot open --trace_journal=%s; "
+                "handler spans will not be recorded\n",
+                trace_journal_.c_str());
+      } else {
+        // meta line: names this journal's listen address so trace-agg
+        // can pair it with client-measured clock offsets (kHello probe)
+        fprintf(trace_f_,
+                "{\"type\":\"meta\",\"role\":\"kvserver\",\"listen\":"
+                "\"%s:%d\",\"pid\":%d,\"optimizer\":\"%s\"}\n",
+                bind_any_ ? "0.0.0.0" : "127.0.0.1", port_, getpid(),
+                OptName());
+        fflush(trace_f_);
+      }
+    }
+    fprintf(stderr, "[distlr_kv_server] listening on %s:%d "
+            "(workers=%d dim=%zu sync=%d optimizer=%s lr=%g compress=%d)\n",
+            bind_any_ ? "0.0.0.0" : "127.0.0.1", port_, num_workers_,
+            weights_.size(), sync_ ? 1 : 0,
+            opt_ == Opt::kFtrl ? "ftrl"
+            : opt_ == Opt::kSign ? "signsgd" : "sgd",
+            lr_, compress_ ? 1 : 0);
+    fflush(stderr);
+    if (!prof_journal_.empty()) {
+      prof_f_ = fopen(prof_journal_.c_str(), "a");
+      if (prof_f_ == nullptr) {
+        fprintf(stderr, "[distlr_kv_server] cannot open --prof_journal=%s; "
+                "profile windows will not be recorded\n",
+                prof_journal_.c_str());
+      } else {
+        prof_t0_ = WallNowS();
+        // Detached like the handler threads (the TSan matrix round):
+        // ServerGroup.stop() SIGTERMs ranks that are MID-clean-shutdown
+        // too, and a joinable prof thread that finished between
+        // shutdown_ flipping and the epilogue's join showed up as a
+        // thread leak at the handler's _exit.  The epilogue waits on
+        // prof_loop_done_ (bounded) before the final window write.
+        prof_loop_done_.store(false);
+        if (!SpawnDetached(&KVServer::ProfTrampoline, this)) {
+          prof_loop_done_.store(true);
+          fprintf(stderr, "[distlr_kv_server] cannot start profiler "
+                  "thread; profile windows will not be recorded\n");
+        }
+      }
+    }
+    if (!store_dir_.empty()) {
+      // Persistence loop: detached like the profiler (and for the same
+      // TSan-matrix reason); the epilogue below waits on
+      // store_loop_done_ (bounded) before the final snapshot.
+      store_loop_done_.store(false);
+      if (!SpawnDetached(&KVServer::StoreTrampoline, this)) {
+        store_loop_done_.store(true);
+        fprintf(stderr, "[distlr_kv_server] cannot start persistence "
+                "thread; periodic snapshots will not be written\n");
+      }
+    }
+
+    // Handler threads are DETACHED and tracked by a live counter
+    // instead of accumulating std::thread objects per connection: the
+    // old join-at-shutdown vector retained every finished handler's
+    // stack for the life of the process, an unbounded zombie-thread
+    // leak under elastic reroute/reconnect churn — the first confirmed
+    // finding of the TSan matrix round (it reports finished joinable
+    // threads at exit).  Shutdown waits the counter to zero, which is
+    // exactly what the join loop provided.
+    while (!shutdown_.load()) {
+      int fd = accept(listen_fd_, nullptr, nullptr);
+      if (fd < 0) {
+        if (shutdown_.load()) break;
+        continue;
+      }
+      setsockopt(fd, IPPROTO_TCP, TCP_NODELAY, &one, sizeof(one));
+      {
+        // Registration re-checks shutdown_ UNDER mu_: the kShutdown
+        // handler stores shutdown_ before sweeping active_fds_ under
+        // this same mutex, so a connection accept() handed over
+        // concurrently with shutdown either lands in the sweep or is
+        // closed here — never a Serve thread parked in ReadFull that
+        // nobody will unblock (which wedged the drain below until
+        // teardown escalated to SIGTERM).
+        std::lock_guard<std::mutex> lock(mu_);
+        if (shutdown_.load()) {
+          close(fd);
+          break;
+        }
+        active_fds_.push_back(fd);
+        ++live_serves_;
+      }
+      auto* arg = new ServeArg{this, fd};
+      if (!SpawnDetached(&KVServer::ServeTrampoline, arg)) {
+        delete arg;
+        close(fd);
+        std::lock_guard<std::mutex> lock(mu_);
+        active_fds_.pop_back();
+        --live_serves_;
+      }
+    }
+    {
+      std::unique_lock<std::mutex> lock(mu_);
+      serves_done_.wait(lock, [this] { return live_serves_ == 0; });
+    }
+    close(listen_fd_);
+    // bounded wait for the detached profiler loop (it polls shutdown_
+    // every 100ms) so the final window write below cannot race it
+    for (int i = 0; i < 30 && !prof_loop_done_.load(); ++i) {
+      usleep(100 * 1000);
+    }
+    if (prof_f_ != nullptr && prof_loop_done_.load()) {
+      ProfWriteWindow(true);  // final partial window of a clean shutdown
+      fclose(prof_f_);
+      prof_f_ = nullptr;
+    } else if (prof_f_ != nullptr) {
+      // loop still wedged (e.g. a stalled filesystem inside its own
+      // write): leak the FILE rather than fclose it out from under an
+      // in-flight fprintf — the process is exiting anyway
+      fprintf(stderr, "[distlr_kv_server] profiler loop still busy at "
+              "shutdown; final window skipped\n");
+    }
+    if (trace_f_ != nullptr) {
+      if (trace_dropped_) {
+        fprintf(stderr, "[distlr_kv_server] span journal hit its %llu-"
+                "entry cap; %llu spans dropped\n",
+                (unsigned long long)kMaxTraceSpans,
+                (unsigned long long)trace_dropped_);
+      }
+      fclose(trace_f_);
+      trace_f_ = nullptr;
+    }
+    if (!store_dir_.empty()) {
+      // bounded wait for the detached persistence loop (it polls
+      // shutdown_ every 100ms) so the final generation below cannot
+      // race an in-flight interval snapshot
+      for (int i = 0; i < 30 && !store_loop_done_.load(); ++i) {
+        usleep(100 * 1000);
+      }
+      if (store_loop_done_.load()) {
+        WriteSnapshot();  // final generation of a clean shutdown
+        WalClose();
+      } else {
+        fprintf(stderr, "[distlr_kv_server] persistence loop still busy "
+                "at shutdown; final snapshot skipped\n");
+      }
+    }
+    return 0;
+  }
+
+ private:
+  static bool ReadFull(int fd, void* buf, size_t n) {
+    auto* p = static_cast<char*>(buf);
+    while (n > 0) {
+      ssize_t r = read(fd, p, n);
+      if (r <= 0) return false;
+      p += r;
+      n -= static_cast<size_t>(r);
+    }
+    return true;
+  }
+
+  static bool WriteFull(int fd, const void* buf, size_t n) {
+    const auto* p = static_cast<const char*>(buf);
+    while (n > 0) {
+      ssize_t r = write(fd, p, n);
+      if (r <= 0) return false;
+      p += r;
+      n -= static_cast<size_t>(r);
+    }
+    return true;
+  }
+
+  // Read n elements into vec, GROWING IN CHUNKS as payload actually
+  // arrives: allocation then mirrors real traffic, so a corrupt or
+  // hostile 24-byte header claiming num_keys=2^31 cannot force a
+  // multi-GB resize before a single payload byte shows up.
+  template <typename T>
+  bool ReadChunked(int fd, std::vector<T>& vec, uint64_t n) {
+    constexpr uint64_t kChunk = 1 << 20;  // 1M elements per growth step
+    // Fill-cursor, not clear(): steady-state same-size frames reuse the
+    // buffer with ZERO resize/memset cost (a clear()+resize would memset
+    // the whole buffer every frame just for ReadFull to overwrite it);
+    // only genuine growth value-initializes, and only the new region.
+    if (vec.size() > n) vec.resize(n);
+    uint64_t filled = 0;
+    while (filled < n) {
+      const uint64_t take = std::min<uint64_t>(kChunk, n - filled);
+      if (vec.size() < filled + take) vec.resize(filled + take);
+      if (!ReadFull(fd, vec.data() + filled, take * sizeof(T))) return false;
+      filled += take;
+    }
+    return true;
+  }
+
+  // Threads are created ALREADY-DETACHED (PTHREAD_CREATE_DETACHED)
+  // rather than std::thread(...).detach(): a child that finishes
+  // between pthread_create and pthread_detach leaves this toolchain's
+  // TSan runtime a window to account it as a finished-joinable thread
+  // at exit (a flaky "thread leak" report the matrix caught); born-
+  // detached threads have no such transition.
+  static bool SpawnDetached(void* (*fn)(void*), void* arg) {
+    pthread_attr_t attr;
+    if (pthread_attr_init(&attr) != 0) return false;
+    pthread_attr_setdetachstate(&attr, PTHREAD_CREATE_DETACHED);
+    pthread_t tid;
+    const int rc = pthread_create(&tid, &attr, fn, arg);
+    pthread_attr_destroy(&attr);
+    return rc == 0;
+  }
+
+  struct ServeArg {
+    KVServer* self;
+    int fd;
+  };
+
+  static void* ServeTrampoline(void* p) {
+    ServeArg* a = static_cast<ServeArg*>(p);
+    KVServer* self = a->self;
+    const int fd = a->fd;
+    delete a;
+    self->Serve(fd);
+    return nullptr;
+  }
+
+  static void* ProfTrampoline(void* p) {
+    auto* self = static_cast<KVServer*>(p);
+    self->ProfLoop();
+    self->prof_loop_done_.store(true);
+    return nullptr;
+  }
+
+  void Serve(int fd) {
+    try {
+      ServeLoop(fd);
+    } catch (const std::bad_alloc&) {
+      // Last line of the never-kill-the-rank invariant: a key just
+      // UNDER max_dim_ passes every guard yet can demand a huge
+      // EnsureCapacity resize (e.g. key 2^31-1 on a small slice =
+      // ~16 GiB for weights_+merge_).  An uncaught bad_alloc would
+      // std::terminate the whole group member; dropping the connection
+      // keeps the rank serving its real clients.  vector::resize has
+      // the strong guarantee, so server state is unchanged.
+      std::fprintf(stderr,
+                   "[distlr_kv_server] dropping connection: allocation "
+                   "for requested capacity failed\n");
+    }
+    FinishConnection(fd);
+    {
+      // notify UNDER the mutex: the shutdown waiter may destroy this
+      // whole object the moment it observes live_serves_ == 0, and it
+      // cannot reacquire mu_ (and thus return from wait) until this
+      // thread releases it — which is strictly after notify_all() has
+      // finished touching the condition variable
+      std::lock_guard<std::mutex> lock(mu_);
+      --live_serves_;
+      serves_done_.notify_all();
+    }
+  }
+
+  void ServeLoop(int fd) {
+    std::vector<Key> keys;
+    std::vector<Key> expanded;
+    std::vector<Val> vals;
+    std::vector<uint8_t> coded;
+    while (true) {
+      MsgHeader h{};
+      if (!ReadFull(fd, &h, sizeof(h)) || h.magic != kMagic) break;
+      const Op op = static_cast<Op>(h.op);
+      // Per-handler thread CPU (kStats extension + --prof_journal):
+      // CLOCK_THREAD_CPUTIME_ID from here to the end of the dispatch
+      // covers payload read + decode + apply but never time blocked on
+      // the socket — the number a flamegraph's C++ edge should carry.
+      timespec cpu0{};
+      clock_gettime(CLOCK_THREAD_CPUTIME_ID, &cpu0);
+      // Trace trailer (kv_protocol.h kTraced): stripped HERE, at the
+      // parsing layer — like vpk expansion and codec decode, so every
+      // handler sees exactly the frame an untraced client sent.  A
+      // kHello never carries the trailer (its kTraced flag only asks
+      // for a clock in the reply).
+      TraceFrame tf{};
+      const bool traced =
+          (h.flags & kTraced) != 0 && op != Op::kHello;
+      if (traced && !ReadFull(fd, &tf, sizeof(tf))) break;
+      const double tr_t0 = traced ? WallNowS() : 0.0;
+      double tr_decoded = tr_t0;
+      // vals_per_key (kv_protocol.h): each key addresses vpk consecutive
+      // flat slots starting at key*vpk.  Expansion happens HERE, at the
+      // parsing layer, so every handler below (merge, barrier release,
+      // disconnect rollback) sees exactly the per-lane keys a legacy
+      // client would have sent — the semantics cannot diverge.
+      const bool keyed_op =
+          op == Op::kPush || op == Op::kPull || op == Op::kPushPull;
+      const uint64_t vpk = keyed_op && h.aux > 1 ? h.aux : 1;
+      // Wire values size allocations, so garbage must DROP the
+      // connection, never kill the server: a corrupt num_keys, key id,
+      // or vals_per_key is an essentially random integer, and
+      // resize(2^50) would bad_alloc the whole group member (the
+      // supervisor would then respawn it for no reason).  The magic
+      // check alone cannot catch a frame whose header is intact but
+      // whose counts are corrupt.  Guards: vals_per_key capped
+      // (kMaxValsPerKey), num_keys * vals_per_key capped by max_dim_
+      // AND read chunk-by-chunk (see ReadChunked), every EXPANDED key
+      // id capped by max_dim_, and capacity grown to the frame's MAX
+      // key — not its last, the wire does not promise sorted keys, and
+      // an unsorted frame passing a back()-based bound would be an
+      // out-of-bounds heap write.
+      if (vpk > kMaxValsPerKey || h.num_keys > max_dim_ / vpk) {
+        std::fprintf(stderr,
+                     "[distlr_kv_server] dropping connection: frame "
+                     "num_keys %llu x vals_per_key %llu exceeds "
+                     "max_dim %llu\n",
+                     (unsigned long long)h.num_keys,
+                     (unsigned long long)vpk,
+                     (unsigned long long)max_dim_);
+        break;
+      }
+      if (!ReadChunked(fd, keys, h.num_keys)) break;
+      // a key's WHOLE expanded range [k*vpk, (k+1)*vpk) must fit below
+      // max_dim_: k < max_dim_ / vpk  =>  k*vpk + vpk - 1 < max_dim_
+      const Key key_cap = max_dim_ / vpk;
+      Key max_key = 0;
+      bool keys_ok = true;
+      for (uint64_t i = 0; i < h.num_keys; ++i) {
+        if (keys[i] >= key_cap) { keys_ok = false; break; }
+        if (keys[i] > max_key) max_key = keys[i];
+      }
+      if (!keys_ok) {
+        std::fprintf(stderr,
+                     "[distlr_kv_server] dropping connection: key id "
+                     "exceeds max_dim %llu (vals_per_key %llu)\n",
+                     (unsigned long long)max_dim_,
+                     (unsigned long long)vpk);
+        break;
+      }
+      const std::vector<Key>* use_keys = &keys;
+      uint64_t n_flat = h.num_keys;
+      if (vpk > 1) {
+        n_flat = h.num_keys * vpk;
+        expanded.resize(n_flat);
+        for (uint64_t i = 0; i < h.num_keys; ++i) {
+          const Key base = keys[i] * vpk;
+          for (uint64_t j = 0; j < vpk; ++j) expanded[i * vpk + j] = base + j;
+        }
+        max_key = max_key * vpk + vpk - 1;
+        use_keys = &expanded;
+      }
+      // Handlers reply with h.num_keys-independent sizes (vals counts),
+      // but the echoed header must describe the EXPANDED frame so
+      // deferred-release bookkeeping stays uniform.
+      MsgHeader hf = h;
+      hf.num_keys = n_flat;
+      if (op == Op::kPush || op == Op::kPushPull) {
+        // Wire codec (kv_protocol.h): a coded push's value payload is
+        // decoded HERE, at the parsing layer — like vpk expansion, so
+        // every handler below (merge, rollback, optimizer, deferred
+        // release) sees exactly the dense f32 values a legacy client
+        // would have sent and the semantics cannot diverge.  A codec
+        // this server never advertised (negotiation is the only legal
+        // path to these bits) is wire corruption: drop the connection.
+        const uint8_t codec = CodecOf(h.flags);
+        const bool opt_state = (h.flags & kOptState) != 0;
+        if (codec != kCodecNone &&
+            (!compress_ || codec > kCodecSign || opt_state ||
+             (h.flags & kInitPush) ||
+             (codec == kCodecSign && opt_ != Opt::kSign))) {
+          std::fprintf(stderr,
+                       "[distlr_kv_server] dropping connection: "
+                       "un-negotiated or invalid codec %u on push "
+                       "(flags 0x%x)\n", codec, h.flags);
+          break;
+        }
+        if (opt_state && !(h.flags & kInitPush)) {
+          // optimizer state has no gradient semantics to merge — only
+          // the idempotent init/seed form exists
+          std::fprintf(stderr,
+                       "[distlr_kv_server] dropping connection: "
+                       "kOptState push without kInitPush\n");
+          break;
+        }
+        if (codec != kCodecNone) {
+          if (!ReadChunked(fd, coded, CodecPayloadBytes(codec, n_flat)))
+            break;
+          vals.resize(n_flat);
+          DecodeGrad(codec, coded.data(), n_flat, vals.data());
+        } else if (!ReadChunked(fd, vals, opt_state ? 2 * n_flat : n_flat)) {
+          break;
+        }
+        if (traced) tr_decoded = WallNowS();
+        if (EpochFence(fd, h)) {
+          AccumulateCpu(op, cpu0);
+          continue;  // payload fully read above — the stream stays framed
+        }
+        if (opt_state) {
+          HandleOptStatePush(fd, hf, *use_keys, vals, max_key);
+        } else {
+          HandlePush(fd, hf, *use_keys, vals, max_key, op == Op::kPushPull);
+        }
+        if (traced) {
+          TraceLog(op == Op::kPushPull ? "kv.push_pull" : "kv.push", tf,
+                   tr_t0, tr_decoded, WallNowS(), n_flat, codec,
+                   h.client_id);
+        }
+      } else if (op == Op::kPull) {
+        if (traced) tr_decoded = WallNowS();
+        if (EpochFence(fd, h)) {
+          AccumulateCpu(op, cpu0);
+          continue;
+        }
+        if (h.flags & kOptState) {
+          HandleOptStatePull(fd, hf, *use_keys, max_key);
+        } else {
+          HandlePull(fd, hf, *use_keys, max_key);
+        }
+        if (traced) {
+          TraceLog("kv.pull", tf, tr_t0, tr_decoded, WallNowS(), n_flat,
+                   kCodecNone, h.client_id);
+        }
+      } else if (op == Op::kBarrier) {
+        HandleBarrier(fd, h);
+        // NB: a deferred sync barrier reply costs the RELEASING voter's
+        // thread the release loop; the accounting charges whoever burned
+        // the cycles, which is the truth a CPU profile wants.
+      } else if (op == Op::kStats) {
+        HandleStats(fd, h);
+      } else if (op == Op::kHello) {
+        HandleHello(fd, h);
+      } else if (op == Op::kEpoch) {
+        HandleEpoch(fd, h);
+      } else if (op == Op::kShutdown) {
+        Respond(fd, h, nullptr, 0);
+        shutdown_.store(true);
+        // Unblock accept() AND every connection thread parked in
+        // ReadFull for another worker — otherwise Run()'s join would
+        // deadlock whenever more than one worker is connected.
+        ::shutdown(listen_fd_, SHUT_RDWR);
+        {
+          std::lock_guard<std::mutex> lock(mu_);
+          for (int other : active_fds_) {
+            if (other != fd) ::shutdown(other, SHUT_RDWR);
+          }
+        }
+        break;
+      }
+      AccumulateCpu(op, cpu0);
+    }
+  }
+
+  static int CpuSlotOf(Op op) {
+    switch (op) {
+      case Op::kPush:
+      case Op::kPushPull:
+        return kCpuPush;
+      case Op::kPull:
+        return kCpuPull;
+      case Op::kBarrier:
+        return kCpuBarrier;
+      default:  // kStats / kHello: the control plane
+        return kCpuStats;
+    }
+  }
+
+  void AccumulateCpu(Op op, const timespec& cpu0) {
+    timespec cpu1{};
+    clock_gettime(CLOCK_THREAD_CPUTIME_ID, &cpu1);
+    const int64_t ns = (cpu1.tv_sec - cpu0.tv_sec) * 1000000000LL +
+                       (cpu1.tv_nsec - cpu0.tv_nsec);
+    if (ns > 0) {
+      cpu_us_[CpuSlotOf(op)].fetch_add(static_cast<uint64_t>(ns) / 1000,
+                                       std::memory_order_relaxed);
+    }
+  }
+
+  void FinishConnection(int fd) {
+    DropConnection(fd);
+    {
+      std::lock_guard<std::mutex> lock(mu_);
+      conn_epoch_.erase(fd);
+      for (auto it = active_fds_.begin(); it != active_fds_.end(); ++it) {
+        if (*it == fd) { active_fds_.erase(it); break; }
+      }
+    }
+    close(fd);
+  }
+
+  // --- EPOCH fence (kv_protocol.h kEpoch): a connection that ANNOUNCED
+  // a layout epoch gets its keyed data ops rejected — with the server's
+  // current epoch, on a still-framed stream — the moment the epochs
+  // diverge.  The rejection frame's op is kEpoch (not the echoed data
+  // op), which is what lets the client distinguish "membership changed,
+  // re-negotiate routing" from an ordinary kError config rejection.
+  // Un-announced connections (legacy clients, supervisors, the
+  // migration drain itself) pass untouched. ---
+  bool EpochFence(int fd, const MsgHeader& h) {
+    uint16_t current;
+    {
+      std::lock_guard<std::mutex> lock(mu_);
+      auto it = conn_epoch_.find(fd);
+      if (it == conn_epoch_.end() || it->second == epoch_) return false;
+      current = epoch_;
+    }
+    MsgHeader eh = h;
+    eh.op = static_cast<uint8_t>(Op::kEpoch);
+    eh.aux = current;
+    RespondError(fd, eh);
+    return true;
+  }
+
+  // --- kEpoch: membership announce / query / admin set (kv_protocol.h).
+  // Control plane like kStats/kHello: never deferred, never fenced. ---
+  void HandleEpoch(int fd, const MsgHeader& h) {
+    MsgHeader eh = h;
+    {
+      std::lock_guard<std::mutex> lock(mu_);
+      if (h.flags & kForceInit) {
+        // admin SET: the membership coordinator arms the fence — every
+        // connection still announced at the old epoch starts bouncing
+        epoch_ = h.aux;
+        // epoch flips are durable too: a rank recovering past one must
+        // not fence survivors with a stale epoch
+        WalAppendEpoch(h.aux);
+        fprintf(stderr, "[distlr_kv_server] membership epoch -> %u\n",
+                static_cast<unsigned>(h.aux));
+      } else if (h.aux != 0) {
+        conn_epoch_[fd] = h.aux;  // announce: arm the fence for this conn
+      }
+      eh.aux = epoch_;
+    }
+    Respond(fd, eh, nullptr, 0);
+  }
+
+  void Respond(int fd, MsgHeader h, const Val* vals, uint64_t nvals) {
+    // responses never carry the trace trailer — drop the request's bit
+    // so the echoed header describes the frame actually sent
+    h.flags = static_cast<uint8_t>((h.flags | kResponse) & ~kTraced);
+    h.num_keys = nvals;
+    // Responses carry vals only (keys are implied by the request).
+    WriteFull(fd, &h, sizeof(h));
+    if (nvals) WriteFull(fd, vals, nvals * sizeof(Val));
+  }
+
+  // Explicit protocol-level rejection (kError): the stream stays framed
+  // — unlike a dropped connection — so the client can surface a named
+  // error and keep the handle (e.g. an opt-state op against a non-FTRL
+  // server is a CALLER bug, not wire corruption).
+  void RespondError(int fd, MsgHeader h) {
+    h.flags |= kError;
+    Respond(fd, h, nullptr, 0);
+  }
+
+  // --- HELLO: capability handshake (kv_protocol.h).  With --compress=0
+  // the reply is the legacy empty frame — byte-identical to a pre-codec
+  // server, which is exactly what negotiating clients fall back on. ---
+  void HandleHello(int fd, const MsgHeader& h) {
+    if (!compress_) {
+      Respond(fd, h, nullptr, 0);
+      return;
+    }
+    uint64_t mask = kCapCodecInt8 | kCapTrace | kCapEpoch;
+    // sign votes only mean majority-vote through the signsgd kernel;
+    // any other optimizer would apply sign-mean, so don't offer it
+    if (opt_ == Opt::kSign) mask |= kCapCodecSign;
+    const double d = static_cast<double>(mask);
+    if (h.flags & kTraced) {
+      // trace-negotiating hello: include this server's wall clock (the
+      // cross-host clock-skew probe trace-agg aligns journals with)
+      double pair[2] = {d, WallNowS()};
+      Val out[4];
+      std::memcpy(out, pair, sizeof(pair));
+      Respond(fd, h, out, 4);
+      return;
+    }
+    Val out[2];
+    std::memcpy(out, &d, sizeof(d));
+    Respond(fd, h, out, 2);
+  }
+
+  const char* OptName() const {
+    return opt_ == Opt::kFtrl ? "ftrl"
+           : opt_ == Opt::kSign ? "signsgd" : "sgd";
+  }
+
+  // --- span journal (--trace_journal): one JSONL line per traced
+  // keyed op, same schema as the Python side's span journals
+  // (distlr_tpu/obs/dtrace.py) so `launch trace-agg` parses both with
+  // one reader.  The handler span parents under the CLIENT's stamped
+  // op span; decode_us/apply_us break the recv→decode→apply(+reply)
+  // pipeline down (for a deferred sync push, "apply" is the merge —
+  // the reply is the BSP barrier and rides the releasing push).  Cap +
+  // drop counter: a runaway sampled stream bounds disk, loudly. ---
+  void TraceLog(const char* name, const TraceFrame& tf, double t0,
+                double t_decoded, double t_done, uint64_t n_flat,
+                uint8_t codec, uint32_t client_id) {
+    std::lock_guard<std::mutex> lk(trace_mu_);
+    if (trace_f_ == nullptr) return;
+    if (trace_logged_ >= kMaxTraceSpans) {
+      ++trace_dropped_;
+      return;
+    }
+    ++trace_logged_;
+    const uint64_t sid =
+        (static_cast<uint64_t>(getpid()) << 32) ^ ++trace_seq_;
+    const char* codec_name =
+        codec == kCodecInt8 ? "int8" : codec == kCodecSign ? "sign" : "none";
+    fprintf(trace_f_,
+            "{\"type\":\"span\",\"name\":\"%s\",\"trace\":\"%016llx\","
+            "\"span\":\"%016llx\",\"parent\":\"%016llx\",\"ts\":%.1f,"
+            "\"dur\":%.1f,\"tid\":%d,\"args\":{\"op\":\"%s\","
+            "\"codec\":\"%s\",\"optimizer\":\"%s\",\"sync\":%d,"
+            "\"vals\":%llu,\"client_id\":%u,\"decode_us\":%.1f,"
+            "\"apply_us\":%.1f}}\n",
+            name, (unsigned long long)tf.trace_id, (unsigned long long)sid,
+            (unsigned long long)tf.span_id, t0 * 1e6, (t_done - t0) * 1e6,
+            getpid(), name, codec_name, OptName(), sync_ ? 1 : 0,
+            (unsigned long long)n_flat, client_id,
+            (t_decoded - t0) * 1e6, (t_done - t_decoded) * 1e6);
+    // batched flush, mirroring the Python journal: a per-span fflush
+    // under trace_mu_ serializes every handler thread on disk I/O at
+    // full sampling; readers tolerate a torn/missing tail, and fclose
+    // at shutdown flushes the rest
+    if (++trace_unflushed_ >= 64) {
+      fflush(trace_f_);
+      trace_unflushed_ = 0;
+    }
+  }
+
+  void EnsureCapacity(Key max_key) {
+    if (max_key < weights_.size()) return;
+    const size_t old_w = weights_.size();
+    const size_t old_m = merge_.size();
+    const size_t old_z = z_.size();
+    try {
+      weights_.resize(max_key + 1, 0.0f);
+      merge_.resize(weights_.size(), 0.0f);
+      if (has_ftrl_) {
+        z_.resize(weights_.size(), 0.0f);
+        nacc_.resize(weights_.size(), 0.0f);
+      }
+    } catch (...) {
+      // All-or-nothing: weights_.resize succeeding and merge_.resize
+      // throwing would leave a permanently inflated weights_ whose size
+      // re-triggers the same bad_alloc on every later legitimate sync
+      // push.  Restore both sizes and give the big block back
+      // (shrink_to_fit); the tiny re-allocation there failing too is
+      // astronomically unlikely and only costs footprint, not state.
+      weights_.resize(old_w);
+      merge_.resize(old_m);
+      if (has_ftrl_) {
+        z_.resize(old_z);
+        nacc_.resize(old_z);
+      }
+      try {
+        weights_.shrink_to_fit();
+        merge_.shrink_to_fit();
+        if (has_ftrl_) {
+          z_.shrink_to_fit();
+          nacc_.shrink_to_fit();
+        }
+      } catch (...) {
+      }
+      throw;
+    }
+  }
+
+  // One coordinate's FTRL-Proximal step (caller holds mu_; g != 0).
+  // All arithmetic is float32, matching the NumPy oracle the parity
+  // tests compare against (tests/test_ftrl.py) operation for operation.
+  inline void FtrlStep(Key k, float g) {
+    const float n_old = nacc_[k];
+    const float n_new = n_old + g * g;
+    const float sigma =
+        (std::sqrt(n_new) - std::sqrt(n_old)) / fp_.alpha;
+    z_[k] += g - sigma * weights_[k];
+    nacc_[k] = n_new;
+    const float z = z_[k];
+    if (std::fabs(z) <= fp_.l1) {
+      weights_[k] = 0.0f;  // L1 sparsification: the CTR memory saver
+      return;
+    }
+    const float sgn = z > 0.0f ? 1.0f : -1.0f;
+    weights_[k] = -(z - sgn * fp_.l1) /
+                  ((fp_.beta + std::sqrt(n_new)) / fp_.alpha + fp_.l2);
+  }
+
+  // The optimizer governing one coordinate: the --opt_segments map when
+  // present (per-namespace optimizers: keys < end_i use opt_i, in
+  // ascending-end order), else the global --optimizer.  Segment lists
+  // are tiny (one entry per hosted namespace), so a linear scan beats
+  // anything clever.
+  inline Opt OptFor(Key k) const {
+    for (const auto& seg : opt_segments_) {
+      if (k < seg.first) return seg.second;
+    }
+    return opt_;
+  }
+
+  // Apply one gradient value to one coordinate under the configured
+  // optimizer — THE pluggable update this server exists to serialize.
+  // FTRL skips zero gradients (no information; and re-deriving w from
+  // unchanged z would zero a freshly init-pushed weight, since init
+  // seeds weights_ directly and leaves z/n at 0 until real traffic).
+  // signSGD async is the one-voter majority: w -= lr * sign(g).
+  inline void ApplyGrad(Key k, float g) {
+    const Opt o = opt_segments_.empty() ? opt_ : OptFor(k);
+    if (o == Opt::kFtrl) {
+      if (g != 0.0f) FtrlStep(k, g);
+    } else if (o == Opt::kSign) {
+      if (g > 0.0f) weights_[k] -= lr_;
+      else if (g < 0.0f) weights_[k] += lr_;
+    } else {
+      weights_[k] -= lr_ * g;
+    }
+  }
+
+  // Gather the current weights for a key set (caller holds mu_) — the
+  // payload of a fused kPushPull reply.
+  std::vector<Val> WeightsFor(const std::vector<Key>& keys) {
+    std::vector<Val> out(keys.size());
+    for (size_t i = 0; i < keys.size(); ++i) out[i] = weights_[keys[i]];
+    return out;
+  }
+
+  // --- PUSH: the reference DataHandle push branch (src/main.cc:48-84).
+  // reply_weights = fused kPushPull: the reply carries the post-update
+  // weights for the pushed keys (see kv_protocol.h). ---
+  void HandlePush(int fd, const MsgHeader& h, const std::vector<Key>& keys,
+                  const std::vector<Val>& vals, Key max_key,
+                  bool reply_weights = false) {
+    std::unique_lock<std::mutex> lock(mu_);
+    ++n_push_;
+    if (reply_weights) ++n_pull_;  // it serves the next pull too
+    // max_key computed by Serve over the WHOLE frame — keys.back()
+    // would assume sorted keys, and an unsorted frame would then write
+    // out of bounds.
+    if (!keys.empty()) EnsureCapacity(max_key);
+
+    if (h.flags & kInitPush) {
+      // Idempotent init (kv_protocol.h): seeds only an uninitialized
+      // server, replies immediately either way, never joins the sync
+      // merge — a restarted worker can re-send it safely.  kForceInit
+      // (checkpoint resume against a surviving group) overwrites.
+      if ((!initialized_ || (h.flags & kForceInit)) && !keys.empty()) {
+        for (size_t i = 0; i < keys.size(); ++i) weights_[keys[i]] = vals[i];
+        initialized_ = true;
+        // WAL records describe the mutation that ACTUALLY happened (a
+        // no-op'd idempotent re-init is not logged), so replay applies
+        // every record unconditionally.
+        WalAppend(n_push_, kInitPush, Op::kPush, keys, vals);
+      }
+      const auto out = reply_weights ? WeightsFor(keys) : std::vector<Val>();
+      lock.unlock();
+      Respond(fd, h, out.data(), out.size());
+      return;
+    }
+
+    if (!initialized_ && !keys.empty()) {
+      // First non-empty push seeds the weights (src/main.cc:50-56).  An
+      // EMPTY push (a sparse worker's "present" vote for a range it did
+      // not touch) can never initialize — it falls through to the normal
+      // sync/async handling so it still counts toward the BSP barrier.
+      for (size_t i = 0; i < keys.size(); ++i) weights_[keys[i]] = vals[i];
+      initialized_ = true;
+      // logged as an init record: the SEMANTIC was a seed (weights
+      // set, not gradient-applied), and replay must reproduce exactly
+      // that regardless of what the wire flags said
+      WalAppend(n_push_, kInitPush, Op::kPush, keys, vals);
+      const auto out = reply_weights ? WeightsFor(keys) : std::vector<Val>();
+      lock.unlock();
+      Respond(fd, h, out.data(), out.size());
+      return;
+    }
+
+    if (!sync_) {
+      // Async/Hogwild: apply immediately (src/main.cc:79-84) under the
+      // configured optimizer (SGD or per-coordinate FTRL-Proximal).
+      for (size_t i = 0; i < keys.size(); ++i)
+        ApplyGrad(keys[i], vals[i]);
+      // empty "present" votes are logged too: the WAL clock must track
+      // n_push_ exactly or the RPO push-clock audit would drift
+      WalAppend(n_push_, 0, Op::kPush, keys, vals);
+      const auto out = reply_weights ? WeightsFor(keys) : std::vector<Val>();
+      lock.unlock();
+      Respond(fd, h, out.data(), out.size());
+      return;
+    }
+
+    // Sync/BSP: merge and defer the response (src/main.cc:57-78).
+    // Order matters for exception safety: ALL allocating operations
+    // (merge_ resize, the pending entry's key/val copies) happen BEFORE
+    // the merge_ mutation loop, which itself cannot throw.  The reverse
+    // order would let a bad_alloc in push_back leave an orphan gradient
+    // in merge_ with no pending entry — DropConnection's rollback could
+    // never remove it, and the worker's retry would count twice.
+    if (merge_.size() < weights_.size()) merge_.resize(weights_.size(), 0.0f);
+    pending_.push_back({fd, h, keys, vals, reply_weights});
+    for (size_t i = 0; i < keys.size(); ++i) merge_[keys[i]] += vals[i];
+
+    if (static_cast<int>(pending_.size()) == num_workers_) {
+      const float w = static_cast<float>(num_workers_);
+      if (last_gradient_) {
+        // Q1 compat: apply only ONE worker's gradient / W (the reference
+        // reads req_data.vals of the final arrival, src/main.cc:70-72 —
+        // an arrival-order lottery).  We refine the lottery into a
+        // deterministic pick: the DATA push with the highest client_id,
+        // the same "last = rank W-1" convention the SPMD Q1 gate uses —
+        // any fixed arrival order is a valid reference execution, and a
+        // deterministic one is testable against the trajectory oracle
+        // (benchmarks/reference_oracle.cc).  Keyed rounds can end on an
+        // empty "present" vote; the quirk means the last worker that
+        // pushed DATA, so empty votes never win the pick.
+        const PendingPush* pick = nullptr;
+        for (const auto& p : pending_) {
+          if (p.keys.empty()) continue;
+          if (pick == nullptr || p.header.client_id > pick->header.client_id)
+            pick = &p;
+        }
+        if (pick != nullptr) {
+          for (size_t i = 0; i < pick->keys.size(); ++i)
+            weights_[pick->keys[i]] -= lr_ * pick->vals[i] / w;
+        }
+      } else if (!opt_segments_.empty()) {
+        // Per-namespace optimizers (sgd|ftrl segments): dispatch the
+        // round's mean gradient per coordinate.  Uniform groups keep
+        // the verbatim loops below — those trajectories are
+        // oracle-pinned and must not change by a single operation.
+        for (size_t i = 0; i < merge_.size(); ++i) {
+          if (OptFor(i) == Opt::kFtrl) {
+            if (merge_[i] != 0.0f) FtrlStep(i, merge_[i] / w);
+          } else {
+            weights_[i] -= lr_ * merge_[i] / w;
+          }
+        }
+      } else if (opt_ == Opt::kFtrl) {
+        // FTRL BSP: ONE optimizer step on the round's mean gradient,
+        // untouched (zero-merge) coordinates skipped — see ApplyGrad.
+        for (size_t i = 0; i < merge_.size(); ++i)
+          if (merge_[i] != 0.0f) FtrlStep(i, merge_[i] / w);
+      } else if (opt_ == Opt::kSign) {
+        // signSGD BSP: the merge buffer accumulated the round's ±1
+        // votes (kCodecSign decodes to exactly ±1, so vote counts are
+        // exact small integers in f32); majority vote then ONE step —
+        // w -= lr * sign(sum of votes), tied/untouched coordinates
+        // skipped.  NOT divided by W: the paper's server applies the
+        // aggregate sign, magnitude lr, however many voters.
+        for (size_t i = 0; i < merge_.size(); ++i) {
+          if (merge_[i] > 0.0f) weights_[i] -= lr_;
+          else if (merge_[i] < 0.0f) weights_[i] += lr_;
+        }
+      } else {
+        // Correct BSP: mean of the merged gradients.  Expression kept
+        // verbatim (lr*g/W, not lr*(g/W)) — the trajectory is pinned
+        // bit-identical by the reference-oracle parity tests.
+        for (size_t i = 0; i < merge_.size(); ++i)
+          weights_[i] -= lr_ * merge_[i] / w;
+      }
+      std::fill(merge_.begin(), merge_.end(), 0.0f);
+      std::vector<PendingPush> release;
+      release.swap(pending_);
+      // Releasing every deferred reply at once IS the BSP barrier.
+      // Written under mu_ (weights are read for fused replies): a racing
+      // kShutdown holds mu_ while severing other connections, so it
+      // cannot cut a release loop midway and strand a peer without its
+      // reply.  Fused (kPushPull) pushes get the post-round weights for
+      // their keys — exactly what their next pull would have returned.
+      for (auto& p : release) {
+        if (p.want_vals) {
+          const auto out = WeightsFor(p.keys);
+          Respond(p.fd, p.header, out.data(), out.size());
+        } else {
+          Respond(p.fd, p.header, nullptr, 0);
+        }
+      }
+    }
+  }
+
+  // A connection died (worker crash, or client-side timeout followed by
+  // reconnect).  Undo its effect on BSP accounting: its deferred pushes
+  // can never be replied to, and leaving them would (a) let the barrier
+  // release with a duplicate gradient once the worker re-pushes, or
+  // (b) send a reply to a recycled fd owned by a different worker.
+  void DropConnection(int fd) {
+    std::lock_guard<std::mutex> lock(mu_);
+    for (auto it = pending_.begin(); it != pending_.end();) {
+      if (it->fd == fd) {
+        for (size_t i = 0; i < it->keys.size(); ++i)
+          merge_[it->keys[i]] -= it->vals[i];  // roll back the merge
+        it = pending_.erase(it);
+      } else {
+        ++it;
+      }
+    }
+    for (auto& [id, waiters] : barrier_) {
+      for (auto it = waiters.begin(); it != waiters.end();) {
+        if (it->fd == fd) it = waiters.erase(it);
+        else ++it;
+      }
+    }
+  }
+
+  // --- OPT-STATE (kOptState): read/seed the FTRL z/n accumulators.
+  // The supervisor's snapshot/restore path: a weights-only reseed of a
+  // respawned FTRL rank silently degrades to a warm restart (z/n reset
+  // to zero = per-coordinate learning rates and L1 duals forgotten);
+  // these two ops let it capture and restore the full optimizer state.
+  // Layout on the wire: [z for every key..., n for every key...] —
+  // 2x vals per expanded key, both directions. ---
+  void HandleOptStatePull(int fd, const MsgHeader& h,
+                          const std::vector<Key>& keys, Key max_key) {
+    if (!has_ftrl_) {  // any FTRL segment allocates z/n (zeros elsewhere)
+      RespondError(fd, h);
+      return;
+    }
+    const size_t n = keys.size();
+    std::vector<Val> out(2 * n);
+    {
+      std::lock_guard<std::mutex> lock(mu_);
+      ++n_pull_;
+      if (!keys.empty()) EnsureCapacity(max_key);
+      for (size_t i = 0; i < n; ++i) {
+        out[i] = z_[keys[i]];
+        out[n + i] = nacc_[keys[i]];
+      }
+    }
+    Respond(fd, h, out.data(), out.size());
+  }
+
+  void HandleOptStatePush(int fd, const MsgHeader& h,
+                          const std::vector<Key>& keys,
+                          const std::vector<Val>& vals, Key max_key) {
+    // ServeLoop enforced kInitPush: this is the idempotent seed form
+    // only, replied immediately, never merged (mirrors weight init).
+    if (!has_ftrl_) {
+      RespondError(fd, h);
+      return;
+    }
+    std::lock_guard<std::mutex> lock(mu_);
+    ++n_push_;
+    if (!keys.empty()) EnsureCapacity(max_key);
+    if ((!initialized_ || (h.flags & kForceInit)) && !keys.empty()) {
+      const size_t n = keys.size();
+      for (size_t i = 0; i < n; ++i) {
+        z_[keys[i]] = vals[i];
+        nacc_[keys[i]] = vals[n + i];
+      }
+      WalAppend(n_push_, kOptState | kInitPush, Op::kPush, keys, vals);
+    }
+    Respond(fd, h, nullptr, 0);
+  }
+
+  // --- PULL: reply current weights (src/main.cc:85-95) ---
+  void HandlePull(int fd, const MsgHeader& h, const std::vector<Key>& keys,
+                  Key max_key) {
+    std::vector<Val> out(keys.size());
+    {
+      std::lock_guard<std::mutex> lock(mu_);
+      ++n_pull_;
+      // frame-wide max from Serve, not keys.back() (unsorted frame =>
+      // out-of-bounds read)
+      if (!keys.empty()) EnsureCapacity(max_key);
+      for (size_t i = 0; i < keys.size(); ++i) out[i] = weights_[keys[i]];
+    }
+    Respond(fd, h, out.data(), out.size());
+  }
+
+  // --- STATS: liveness/progress probe (no reference equivalent — the
+  // failure-detection gap SURVEY.md §5.3 documents).  Never deferred, so
+  // it works even while the sync barrier is wedged by a straggler. ---
+  void HandleStats(int fd, const MsgHeader& h) {
+    // float64 counters (f32 freezes at 2^24 pushes), shipped as 2 Val
+    // slots each — see kv_protocol.h.  The request's aux advertises how
+    // many stats the client accepts: a pre-extension client (aux 0)
+    // gets exactly the six v1 counters its strict length check demands.
+    const uint64_t want =
+        h.aux >= kStatsValsV1
+            ? std::min<uint64_t>(h.aux, kStatsVals)
+            : kStatsValsV1;
+    double stats[kStatsVals];
+    {
+      std::lock_guard<std::mutex> lock(mu_);
+      stats[0] = static_cast<double>(weights_.size());
+      stats[1] = initialized_ ? 1.0 : 0.0;
+      stats[2] = static_cast<double>(pending_.size());
+      size_t waiters = 0;
+      for (auto& [id, w] : barrier_) waiters += w.size();
+      stats[3] = static_cast<double>(waiters);
+      stats[4] = static_cast<double>(n_push_);
+      stats[5] = static_cast<double>(n_pull_);
+      // slot 10 (the membership round): this rank's layout epoch — a
+      // health probe of a migrating group reads the flip rank by rank
+      stats[kStatsValsV1 + kCpuSlots] = static_cast<double>(epoch_);
+    }
+    // per-handler thread-CPU seconds (the continuous-profiling
+    // extension; atomic — no mu_ needed)
+    for (int i = 0; i < kCpuSlots; ++i) {
+      stats[kStatsValsV1 + i] =
+          1e-6 * static_cast<double>(
+                     cpu_us_[i].load(std::memory_order_relaxed));
+    }
+    Val out[2 * kStatsVals];
+    std::memcpy(out, stats, sizeof(stats));
+    Respond(fd, h, out, 2 * want);
+  }
+
+  // --- continuous-profiling journal (--prof_journal): one JSONL
+  // "profwindow" line per --prof_window seconds, carrying the window's
+  // per-handler thread-CPU deltas as two-frame folded stacks
+  // ("kvserver;push": microseconds) — the same window schema the Python
+  // samplers journal (distlr_tpu/obs/profile.py), so `launch prof-agg`
+  // merges both with one reader and the fleet flamegraph carries the
+  // native ranks as their own tracks. ---
+  void ProfLoop() {
+    double elapsed = 0.0;
+    while (!shutdown_.load()) {
+      // 100ms slices so shutdown is prompt even with long windows
+      usleep(100 * 1000);
+      elapsed += 0.1;
+      if (elapsed + 1e-9 >= prof_window_s_) {
+        ProfWriteWindow(false);
+        elapsed = 0.0;
+      }
+    }
+  }
+
+ public:
+  // Public for the SIGTERM handler (final=true: a partial window is
+  // better than a stranded one; empty windows are skipped either way).
+  void ProfWriteWindow(bool final_flush) {
+    if (prof_f_ == nullptr) return;
+    static const char* kSlotNames[kCpuSlots] = {"push", "pull", "stats",
+                                                "barrier"};
+    uint64_t now_us[kCpuSlots];
+    uint64_t deltas[kCpuSlots];
+    uint64_t total = 0;
+    for (int i = 0; i < kCpuSlots; ++i) {
+      now_us[i] = cpu_us_[i].load(std::memory_order_relaxed);
+      // clamp, don't subtract blindly: a SIGTERM-handler flush racing
+      // the profiler thread can advance prof_last_us_ past this
+      // thread's older snapshot, and an underflowed u64 would journal
+      // as ~2^64 cpu_us of perfectly VALID JSON — dwarfing every real
+      // sample in the merged flamegraph (readers only skip torn lines)
+      deltas[i] = now_us[i] >= prof_last_us_[i]
+                      ? now_us[i] - prof_last_us_[i]
+                      : 0;
+      total += deltas[i];
+    }
+    if (total == 0) return;  // idle window: stay silent on disk
+    const double t1 = WallNowS();
+    std::string stacks;
+    for (int i = 0; i < kCpuSlots; ++i) {
+      const uint64_t d = deltas[i];
+      prof_last_us_[i] = now_us[i];
+      if (d == 0) continue;
+      char buf[96];
+      snprintf(buf, sizeof(buf), "%s\"kvserver;%s\":%llu",
+               stacks.empty() ? "" : ",", kSlotNames[i],
+               (unsigned long long)d);
+      stacks += buf;
+    }
+    fprintf(prof_f_,
+            "{\"type\":\"profwindow\",\"role\":\"kvserver\",\"pid\":%d,"
+            "\"kind\":\"%s\",\"t0\":%.3f,\"t1\":%.3f,\"unit\":\"cpu_us\","
+            "\"samples\":%llu,\"stacks\":{%s}}\n",
+            getpid(), final_flush ? "final" : "window",
+            prof_t0_ > 0.0 ? prof_t0_ : t1, t1,
+            (unsigned long long)total, stacks.c_str());
+    fflush(prof_f_);  // windows are rare; readers want them durable
+    prof_t0_ = t1;
+  }
+
+ private:
+
+  // --- BARRIER: Postoffice::Barrier equivalent (src/main.cc:150),
+  // counted per GENERATION id (h.aux; see kv_protocol.h).  A vote
+  // for an id that already released replies instantly, so restarted
+  // workers re-voting an old generation neither hang nor contaminate a
+  // later barrier's count. ---
+  void HandleBarrier(int fd, const MsgHeader& h) {
+    std::lock_guard<std::mutex> lock(mu_);
+    const uint16_t id = h.aux;
+    if (released_barriers_.count(id)) {
+      Respond(fd, h, nullptr, 0);
+      return;
+    }
+    auto& waiters = barrier_[id];
+    // One vote per CLIENT per generation, keyed by client_id — not one
+    // per connection.  A worker that times out and reconnects re-votes
+    // on a NEW connection, and nothing orders that re-vote after the
+    // old connection's DropConnection rollback (separate reader
+    // threads): appending blindly would let one worker hold two live
+    // votes, release the barrier early with peers absent, and — for
+    // the exit generation — trigger rank 0's shutdown_servers while a
+    // peer is still training.  Replacing the stale entry's fd keeps
+    // exactly one vote and routes the eventual release reply to the
+    // connection that is still alive.
+    for (auto& p : waiters) {
+      if (p.header.client_id == h.client_id) {
+        p.fd = fd;
+        p.header = h;
+        return;
+      }
+    }
+    waiters.push_back({fd, h, {}, {}});
+    if (static_cast<int>(waiters.size()) < num_workers_) return;
+    std::vector<PendingPush> release;
+    release.swap(waiters);
+    barrier_.erase(id);
+    released_barriers_.insert(id);
+    // Replies written under mu_ — see HandlePush's release loop: the
+    // exit-barrier reply to rank 0 triggers its kShutdown, whose
+    // connection-severing loop takes mu_ and must not interleave here
+    // (it would strand peers mid-release without their replies).
+    for (auto& p : release) Respond(p.fd, p.header, nullptr, 0);
+  }
+
+  // ===== durable store (--store_dir) ===================================
+  // Crash-consistent snapshots + optional push WAL; on-disk formats in
+  // kv_protocol.h, Python mirror distlr_tpu/ps/store.py (the store-
+  // format parity lint pins the two against each other).
+
+  // CRC32 with the zlib polynomial (reflected 0xEDB88320) so Python's
+  // zlib.crc32 verifies native-written files bit for bit.  Chainable
+  // like zlib: Crc32(Crc32(0, a, na), b, nb) == crc32 of a||b.
+  static uint32_t Crc32(uint32_t crc, const void* buf, size_t n) {
+    static const uint32_t* table = [] {
+      static uint32_t t[256];
+      for (uint32_t i = 0; i < 256; ++i) {
+        uint32_t c = i;
+        for (int k = 0; k < 8; ++k)
+          c = (c & 1) ? 0xEDB88320u ^ (c >> 1) : c >> 1;
+        t[i] = c;
+      }
+      return t;
+    }();
+    const auto* p = static_cast<const uint8_t*>(buf);
+    crc ^= 0xFFFFFFFFu;
+    for (size_t i = 0; i < n; ++i)
+      crc = table[(crc ^ p[i]) & 0xFF] ^ (crc >> 8);
+    return crc ^ 0xFFFFFFFFu;
+  }
+
+  std::string SnapPath(int gen) const {
+    return store_dir_ + "/snap-" + std::to_string(gen) + ".bin";
+  }
+
+  std::string WalPath(uint64_t clock) const {
+    char num[32];
+    snprintf(num, sizeof(num), "%020llu", (unsigned long long)clock);
+    return store_dir_ + "/wal-" + num + ".log";
+  }
+
+  // 40-byte snapshot header (layout doc in kv_protocol.h); crc field
+  // left zeroed — the caller stamps it after checksumming.
+  static void FillSnapHeader(uint8_t* b, uint16_t flags, uint16_t epoch,
+                             uint64_t dim, uint64_t clock, double wall) {
+    std::memset(b, 0, kStoreHeaderSize);
+    const uint32_t magic = kStoreMagic;
+    const uint16_t version = static_cast<uint16_t>(kStoreVersion);
+    std::memcpy(b + 0, &magic, 4);
+    std::memcpy(b + 4, &version, 2);
+    std::memcpy(b + 6, &flags, 2);
+    std::memcpy(b + 8, &epoch, 2);
+    std::memcpy(b + 16, &dim, 8);
+    std::memcpy(b + 24, &clock, 8);
+    std::memcpy(b + 32, &wall, 8);
+  }
+
+  struct SnapMeta {
+    bool present = false;
+    bool valid = false;
+    const char* why = "";  // rejection reason when present && !valid
+    uint16_t flags = 0;
+    uint16_t epoch = 0;
+    uint64_t dim = 0;
+    uint64_t clock = 0;
+    double wall = 0.0;
+  };
+
+  // Validate one generation WITHOUT retaining the payload: header
+  // sanity + streaming CRC over the whole file.  The chosen generation
+  // is re-read by LoadSnapPayload — two cheap sequential reads beat
+  // holding both generations' weights in RAM at once.
+  SnapMeta ReadSnapMeta(const std::string& path) {
+    SnapMeta m;
+    FILE* f = fopen(path.c_str(), "rb");
+    if (f == nullptr) return m;  // absent: not an error
+    m.present = true;
+    uint8_t hdr[kStoreHeaderSize];
+    if (fread(hdr, 1, sizeof(hdr), f) != sizeof(hdr)) {
+      m.why = "short header";
+      fclose(f);
+      return m;
+    }
+    uint32_t magic, crc;
+    uint16_t version;
+    std::memcpy(&magic, hdr + 0, 4);
+    std::memcpy(&version, hdr + 4, 2);
+    std::memcpy(&m.flags, hdr + 6, 2);
+    std::memcpy(&m.epoch, hdr + 8, 2);
+    std::memcpy(&crc, hdr + 12, 4);
+    std::memcpy(&m.dim, hdr + 16, 8);
+    std::memcpy(&m.clock, hdr + 24, 8);
+    std::memcpy(&m.wall, hdr + 32, 8);
+    if (magic != kStoreMagic) {
+      m.why = "bad magic";
+    } else if (version != kStoreVersion) {
+      m.why = "unknown version";
+    } else if (m.dim > max_dim_) {
+      m.why = "dim exceeds max_dim";
+    } else {
+      const uint64_t vecs = (m.flags & kStoreFlagFtrl) ? 3 : 1;
+      const uint64_t want = m.dim * vecs * sizeof(Val);
+      std::memset(hdr + 12, 0, 4);  // crc is computed with its field zeroed
+      uint32_t got_crc = Crc32(0, hdr, sizeof(hdr));
+      std::vector<uint8_t> chunk(1 << 20);
+      uint64_t seen = 0;
+      for (;;) {
+        const size_t r = fread(chunk.data(), 1, chunk.size(), f);
+        if (r == 0) break;
+        got_crc = Crc32(got_crc, chunk.data(), r);
+        seen += r;
+        if (seen > want) break;  // oversized: reject below
+      }
+      if (seen != want) m.why = "payload size mismatch (torn write?)";
+      else if (got_crc != crc) m.why = "CRC mismatch";
+      else m.valid = true;
+    }
+    fclose(f);
+    return m;
+  }
+
+  // Restore weights_/z_/nacc_ from an already-validated generation.
+  bool LoadSnapPayload(const std::string& path, const SnapMeta& m) {
+    FILE* f = fopen(path.c_str(), "rb");
+    if (f == nullptr) return false;
+    bool ok = fseek(f, kStoreHeaderSize, SEEK_SET) == 0;
+    weights_.assign(m.dim, 0.0f);
+    ok = ok && fread(weights_.data(), sizeof(Val), m.dim, f) == m.dim;
+    if (ok && (m.flags & kStoreFlagFtrl)) {
+      if (has_ftrl_) {
+        z_.assign(m.dim, 0.0f);
+        nacc_.assign(m.dim, 0.0f);
+        ok = fread(z_.data(), sizeof(Val), m.dim, f) == m.dim &&
+             fread(nacc_.data(), sizeof(Val), m.dim, f) == m.dim;
+      } else {
+        fprintf(stderr, "[distlr_kv_server] store: snapshot carries FTRL "
+                "state but this server runs without FTRL; accumulators "
+                "dropped\n");
+      }
+    } else if (ok && has_ftrl_) {
+      z_.assign(m.dim, 0.0f);
+      nacc_.assign(m.dim, 0.0f);
+      fprintf(stderr, "[distlr_kv_server] store: snapshot has no FTRL "
+              "state; accumulators start at zero (warm restart)\n");
+    }
+    fclose(f);
+    return ok;
+  }
+
+  // Cold-start recovery: newest VALID generation wins; corrupt/torn
+  // generations are rejected LOUDLY with fallback to the other one
+  // (never silently restored — the acceptance contract), then every
+  // WAL record past the snapshot's push clock is replayed on top.
+  // Returns false only when the store directory itself is unusable —
+  // a durable rank that cannot persist must fail at startup, not
+  // quietly serve volatile state.
+  bool LoadStore() {
+    mkdir(store_dir_.c_str(), 0777);  // best-effort; open() is the check
+    store_dirfd_ = open(store_dir_.c_str(), O_RDONLY | O_DIRECTORY);
+    if (store_dirfd_ < 0) {
+      fprintf(stderr, "[distlr_kv_server] --store_dir=%s is not a usable "
+              "directory: %s\n", store_dir_.c_str(), strerror(errno));
+      return false;
+    }
+    SnapMeta metas[kStoreGenerations];
+    int best = -1;
+    for (int g = 0; g < static_cast<int>(kStoreGenerations); ++g) {
+      metas[g] = ReadSnapMeta(SnapPath(g));
+      if (metas[g].present && !metas[g].valid) {
+        ++store_corrupt_;
+        fprintf(stderr, "[distlr_kv_server] store: snapshot %s REJECTED "
+                "(%s); falling back to the other generation\n",
+                SnapPath(g).c_str(), metas[g].why);
+        continue;
+      }
+      if (metas[g].valid) {
+        gen_clock_[g] = metas[g].clock;
+        if (best < 0 || metas[g].clock > metas[best].clock ||
+            (metas[g].clock == metas[best].clock &&
+             metas[g].wall > metas[best].wall)) {
+          best = g;
+        }
+      }
+    }
+    if (best >= 0) {
+      const SnapMeta& m = metas[best];
+      if (!LoadSnapPayload(SnapPath(best), m)) {
+        // validated a moment ago, unreadable now: the disk is lying —
+        // treat like corruption, fall back to zero state loudly
+        ++store_corrupt_;
+        fprintf(stderr, "[distlr_kv_server] store: snapshot %s became "
+                "unreadable during load; starting from zero state\n",
+                SnapPath(best).c_str());
+        weights_.assign(weights_.size(), 0.0f);
+        best = -1;
+      } else {
+        epoch_ = m.epoch;
+        initialized_ = (m.flags & kStoreFlagInitialized) != 0;
+        n_push_ = m.clock;
+        next_gen_ = 1 - best;
+        last_snap_clock_ = m.clock;
+        last_snap_epoch_ = m.epoch;
+      }
+    }
+    if (best < 0 && (metas[0].present || metas[1].present)) {
+      fprintf(stderr, "[distlr_kv_server] store: NO valid snapshot "
+              "generation; starting from zero state\n");
+    }
+    // WAL replay runs regardless of --store_wal: segments written by a
+    // previous (WAL-armed) incarnation must never be ignored silently.
+    const uint64_t replayed = ReplayWal();
+    if (best >= 0 || replayed > 0) {
+      fprintf(stderr, "[distlr_kv_server] store: recovered dim=%zu "
+              "push_clock=%llu epoch=%u (%llu WAL records replayed)\n",
+              weights_.size(), (unsigned long long)n_push_,
+              static_cast<unsigned>(epoch_),
+              (unsigned long long)replayed);
+    }
+    return true;
+  }
+
+  // All wal-*.log segments sorted by start clock (the rotation clock in
+  // the name — see kv_protocol.h for why that ordering is total).
+  std::vector<std::pair<uint64_t, std::string>> WalSegments() {
+    std::vector<std::pair<uint64_t, std::string>> segs;
+    DIR* d = opendir(store_dir_.c_str());
+    if (d == nullptr) return segs;
+    while (dirent* e = readdir(d)) {
+      const std::string name = e->d_name;
+      if (name.rfind("wal-", 0) != 0 || name.size() < 9 ||
+          name.substr(name.size() - 4) != ".log")
+        continue;
+      segs.emplace_back(
+          strtoull(name.c_str() + 4, nullptr, 10),
+          store_dir_ + "/" + name);
+    }
+    closedir(d);
+    std::sort(segs.begin(), segs.end());
+    return segs;
+  }
+
+  uint64_t ReplayWal() {
+    uint64_t applied = 0;
+    for (const auto& [clock, path] : WalSegments()) {
+      (void)clock;
+      applied += ReplaySegment(path);
+    }
+    return applied;
+  }
+
+  // Replay one segment on top of the current state.  A torn tail or a
+  // CRC-failing record stops THIS segment loudly (everything after a
+  // corrupt record is unordered guesswork); sane records before it are
+  // kept.  Pre-snapshot records (seq <= n_push_) are skipped.
+  uint64_t ReplaySegment(const std::string& path) {
+    FILE* f = fopen(path.c_str(), "rb");
+    if (f == nullptr) return 0;
+    uint64_t applied = 0;
+    uint8_t shdr[kWalHeaderSize];
+    uint32_t magic = 0;
+    uint16_t version = 0;
+    if (fread(shdr, 1, sizeof(shdr), f) != sizeof(shdr) ||
+        (std::memcpy(&magic, shdr, 4), magic != kWalMagic) ||
+        (std::memcpy(&version, shdr + 4, 2), version != kStoreVersion)) {
+      fprintf(stderr, "[distlr_kv_server] store: WAL segment %s has a "
+              "bad header; segment skipped\n", path.c_str());
+      fclose(f);
+      return 0;
+    }
+    std::vector<Key> keys;
+    std::vector<Val> vals;
+    for (;;) {
+      uint8_t rh[kWalRecordHeaderSize];
+      const size_t got = fread(rh, 1, sizeof(rh), f);
+      if (got == 0) break;  // clean segment end
+      uint64_t seq;
+      uint32_t nkeys, crc;
+      uint8_t rflags, rop;
+      uint16_t reserved;
+      if (got < sizeof(rh)) {
+        fprintf(stderr, "[distlr_kv_server] store: torn WAL tail in %s "
+                "(short record header); replay stops here\n", path.c_str());
+        break;
+      }
+      std::memcpy(&seq, rh + 0, 8);
+      std::memcpy(&nkeys, rh + 8, 4);
+      rflags = rh[12];
+      rop = rh[13];
+      std::memcpy(&reserved, rh + 14, 2);
+      std::memcpy(&crc, rh + 16, 4);
+      if (nkeys > max_dim_ ||
+          (rop == static_cast<uint8_t>(Op::kEpoch) && nkeys != 0)) {
+        fprintf(stderr, "[distlr_kv_server] store: corrupt WAL record in "
+                "%s (nkeys=%u); replay stops here\n", path.c_str(), nkeys);
+        break;
+      }
+      const uint64_t nvals = (rflags & kOptState) ? 2ull * nkeys : nkeys;
+      keys.resize(nkeys);
+      vals.resize(nvals);
+      if ((nkeys &&
+           fread(keys.data(), sizeof(Key), nkeys, f) != nkeys) ||
+          (nvals &&
+           fread(vals.data(), sizeof(Val), nvals, f) != nvals)) {
+        fprintf(stderr, "[distlr_kv_server] store: torn WAL tail in %s "
+                "(short record payload); replay stops here\n",
+                path.c_str());
+        break;
+      }
+      uint32_t got_crc = Crc32(0, keys.data(), nkeys * sizeof(Key));
+      got_crc = Crc32(got_crc, vals.data(), nvals * sizeof(Val));
+      if (got_crc != crc) {
+        fprintf(stderr, "[distlr_kv_server] store: WAL record CRC "
+                "mismatch in %s; replay stops here\n", path.c_str());
+        break;
+      }
+      if (rop == static_cast<uint8_t>(Op::kEpoch)) {
+        // epoch flips ride the current clock; >= (not >) because a
+        // flip at exactly the snapshot clock is ambiguous about which
+        // side of the capture it landed on — re-applying is idempotent
+        if (seq >= n_push_) epoch_ = reserved;
+        ++applied;
+        continue;
+      }
+      if (seq <= n_push_) continue;  // covered by the snapshot
+      Key max_key = 0;
+      bool keys_ok = true;
+      for (uint32_t i = 0; i < nkeys; ++i) {
+        if (keys[i] >= max_dim_) { keys_ok = false; break; }
+        if (keys[i] > max_key) max_key = keys[i];
+      }
+      if (!keys_ok) {
+        fprintf(stderr, "[distlr_kv_server] store: WAL record key exceeds "
+                "max_dim in %s; replay stops here\n", path.c_str());
+        break;
+      }
+      if (nkeys) EnsureCapacity(max_key);
+      if (rflags & kOptState) {
+        if (has_ftrl_) {
+          for (uint32_t i = 0; i < nkeys; ++i) {
+            z_[keys[i]] = vals[i];
+            nacc_[keys[i]] = vals[nkeys + i];
+          }
+        }
+      } else if (rflags & kInitPush) {
+        for (uint32_t i = 0; i < nkeys; ++i) weights_[keys[i]] = vals[i];
+        initialized_ = true;
+      } else {
+        for (uint32_t i = 0; i < nkeys; ++i) ApplyGrad(keys[i], vals[i]);
+      }
+      n_push_ = seq;
+      ++applied;
+    }
+    fclose(f);
+    return applied;
+  }
+
+  // Open the next WAL segment and swap it in.  Called under mu_ (or
+  // pre-threads): the swap must be atomic with the snapshot's state
+  // copy so the OLD segment holds exactly the records with seq <= the
+  // snapshot clock — the invariant that makes segment deletion safe.
+  // On open failure the previous segment stays active (appends
+  // continue; durability degrades by one rotation, loudly).
+  // Returns the previous fd for the caller to fsync+close OUTSIDE mu_,
+  // or -1 when there is none / the open failed.
+  int RotateWalLocked(uint64_t clock, uint16_t epoch) {
+    const std::string path = WalPath(clock);
+    const int fd = open(path.c_str(), O_WRONLY | O_CREAT | O_APPEND, 0644);
+    if (fd < 0) {
+      fprintf(stderr, "[distlr_kv_server] store: cannot open WAL segment "
+              "%s: %s\n", path.c_str(), strerror(errno));
+      return -1;
+    }
+    // The segment header is written only to a FRESH (or torn-header)
+    // file: a restart at the same push clock re-opens the previous
+    // incarnation's segment in append mode, and a second mid-file
+    // header would read back as a corrupt record.
+    struct stat st {};
+    bool ok = fstat(fd, &st) == 0;
+    if (ok && st.st_size < static_cast<off_t>(kWalHeaderSize)) {
+      ok = ftruncate(fd, 0) == 0;
+      uint8_t hdr[kWalHeaderSize];
+      const uint32_t magic = kWalMagic;
+      const uint16_t version = static_cast<uint16_t>(kStoreVersion);
+      std::memcpy(hdr + 0, &magic, 4);
+      std::memcpy(hdr + 4, &version, 2);
+      std::memcpy(hdr + 6, &epoch, 2);
+      ok = ok && WriteFull(fd, hdr, sizeof(hdr));
+    }
+    if (!ok) {
+      fprintf(stderr, "[distlr_kv_server] store: cannot open WAL segment "
+              "%s: %s\n", path.c_str(), strerror(errno));
+      close(fd);
+      return -1;
+    }
+    const int old = wal_fd_;
+    wal_fd_ = fd;
+    wal_start_clock_ = clock;
+    return old;
+  }
+
+  // Append one mutation record (caller holds mu_ — ordering on disk is
+  // exactly apply order).  write() puts the bytes in the page cache, so
+  // a SIGKILL after the reply loses nothing; the batched fsync in
+  // StoreLoop (group commit) is what bounds POWER-loss exposure to
+  // --store_wal_fsync seconds.
+  void WalAppend(uint64_t seq, uint8_t flags, Op op,
+                 const std::vector<Key>& keys,
+                 const std::vector<Val>& vals) {
+    if (wal_fd_ < 0) return;
+    const uint32_t nkeys = static_cast<uint32_t>(keys.size());
+    const size_t kb = keys.size() * sizeof(Key);
+    const size_t vb = vals.size() * sizeof(Val);
+    wal_buf_.resize(kWalRecordHeaderSize + kb + vb);
+    uint8_t* b = wal_buf_.data();
+    std::memset(b, 0, kWalRecordHeaderSize);
+    std::memcpy(b + 0, &seq, 8);
+    std::memcpy(b + 8, &nkeys, 4);
+    b[12] = flags;
+    b[13] = static_cast<uint8_t>(op);
+    if (kb) std::memcpy(b + kWalRecordHeaderSize, keys.data(), kb);
+    if (vb) std::memcpy(b + kWalRecordHeaderSize + kb, vals.data(), vb);
+    uint32_t crc = Crc32(0, b + kWalRecordHeaderSize, kb + vb);
+    std::memcpy(b + 16, &crc, 4);
+    if (!WriteFull(wal_fd_, b, wal_buf_.size())) {
+      // never-kill-the-rank: a full disk degrades durability, not
+      // service — but LOUDLY, and snapshots keep trying
+      fprintf(stderr, "[distlr_kv_server] store: WAL append failed (%s); "
+              "WAL DISABLED — snapshots continue\n", strerror(errno));
+      close(wal_fd_);
+      wal_fd_ = -1;
+      return;
+    }
+    wal_dirty_.store(true, std::memory_order_relaxed);
+  }
+
+  // Membership-epoch flip record: nkeys == 0, new epoch in `reserved`.
+  void WalAppendEpoch(uint16_t epoch) {
+    if (wal_fd_ < 0) return;
+    uint8_t b[kWalRecordHeaderSize];
+    std::memset(b, 0, sizeof(b));
+    std::memcpy(b + 0, &n_push_, 8);
+    b[12] = kForceInit;
+    b[13] = static_cast<uint8_t>(Op::kEpoch);
+    std::memcpy(b + 14, &epoch, 2);
+    const uint32_t crc = Crc32(0, b + kWalRecordHeaderSize, 0);
+    std::memcpy(b + 16, &crc, 4);
+    if (!WriteFull(wal_fd_, b, sizeof(b))) {
+      fprintf(stderr, "[distlr_kv_server] store: WAL append failed (%s); "
+              "WAL DISABLED — snapshots continue\n", strerror(errno));
+      close(wal_fd_);
+      wal_fd_ = -1;
+      return;
+    }
+    wal_dirty_.store(true, std::memory_order_relaxed);
+  }
+
+  // Group commit: one fsync per --store_wal_fsync window, only when
+  // records actually landed.  Runs on the store thread, which is the
+  // only thread that ever REPLACES wal_fd_ — so reading it here without
+  // mu_ is race-free.
+  void WalSync() {
+    if (wal_fd_ >= 0 && wal_dirty_.exchange(false)) fsync(wal_fd_);
+  }
+
+  void WalClose() {
+    if (wal_fd_ >= 0) {
+      fsync(wal_fd_);
+      close(wal_fd_);
+      wal_fd_ = -1;
+    }
+    if (store_dirfd_ >= 0) {
+      close(store_dirfd_);
+      store_dirfd_ = -1;
+    }
+  }
+
+  // One crash-consistent generation: copy state under mu_ (and rotate
+  // the WAL segment in the same critical section — see RotateWalLocked),
+  // then serialize + tmp + fsync + rename OUTSIDE the lock so handlers
+  // only ever pay for the memcpy, never the disk.
+  void WriteSnapshot() {
+    std::vector<Val> w, z, n;
+    uint64_t clock;
+    uint16_t epoch;
+    bool init;
+    int old_wal = -1;
+    {
+      std::lock_guard<std::mutex> lock(mu_);
+      if (n_push_ == last_snap_clock_ && epoch_ == last_snap_epoch_)
+        return;  // unchanged since the last generation: skip the write
+      w = weights_;
+      if (has_ftrl_) {
+        z = z_;
+        n = nacc_;
+      }
+      clock = n_push_;
+      epoch = epoch_;
+      init = initialized_;
+      if (wal_fd_ >= 0) old_wal = RotateWalLocked(clock, epoch);
+    }
+    if (old_wal >= 0) {
+      fsync(old_wal);  // the closed segment must be durable before the
+      close(old_wal);  // snapshot that supersedes part of it
+    }
+    const uint16_t sflags = static_cast<uint16_t>(
+        (has_ftrl_ ? kStoreFlagFtrl : 0) |
+        (init ? kStoreFlagInitialized : 0));
+    uint8_t hdr[kStoreHeaderSize];
+    FillSnapHeader(hdr, sflags, epoch, w.size(), clock, WallNowS());
+    uint32_t crc = Crc32(0, hdr, sizeof(hdr));
+    crc = Crc32(crc, w.data(), w.size() * sizeof(Val));
+    if (has_ftrl_) {
+      crc = Crc32(crc, z.data(), z.size() * sizeof(Val));
+      crc = Crc32(crc, n.data(), n.size() * sizeof(Val));
+    }
+    std::memcpy(hdr + 12, &crc, 4);
+    const int gen = next_gen_;
+    const std::string final_path = SnapPath(gen);
+    const std::string tmp_path = final_path + ".tmp";
+    const int fd = open(tmp_path.c_str(),
+                        O_WRONLY | O_CREAT | O_TRUNC, 0644);
+    bool ok = fd >= 0 && WriteFull(fd, hdr, sizeof(hdr)) &&
+              WriteFull(fd, w.data(), w.size() * sizeof(Val));
+    if (ok && has_ftrl_) {
+      ok = WriteFull(fd, z.data(), z.size() * sizeof(Val)) &&
+           WriteFull(fd, n.data(), n.size() * sizeof(Val));
+    }
+    ok = ok && fsync(fd) == 0;
+    if (fd >= 0) close(fd);
+    ok = ok && rename(tmp_path.c_str(), final_path.c_str()) == 0;
+    if (!ok) {
+      fprintf(stderr, "[distlr_kv_server] store: snapshot write to %s "
+              "FAILED (%s); previous generations remain\n",
+              final_path.c_str(), strerror(errno));
+      return;
+    }
+    if (store_dirfd_ >= 0) fsync(store_dirfd_);  // make the rename stick
+    gen_clock_[gen] = clock;
+    last_snap_clock_ = clock;
+    last_snap_epoch_ = epoch;
+    next_gen_ = 1 - gen;
+    DeleteStaleSegments();
+  }
+
+  // WAL retention: a segment named wal-C holds exactly seq in
+  // (C, next rotation's clock], so any segment with C < min(on-disk
+  // generation clocks) is fully covered by BOTH generations and can go.
+  // wal_start_clock_ joins the min as a belt-and-braces guard for the
+  // rotation-open-failed path, where the active segment's name is older
+  // than the newest snapshot.
+  void DeleteStaleSegments() {
+    uint64_t boundary = ~0ull;
+    for (uint64_t c : gen_clock_) boundary = std::min(boundary, c);
+    if (wal_fd_ >= 0) boundary = std::min(boundary, wal_start_clock_);
+    if (boundary == 0 || boundary == ~0ull) return;
+    for (const auto& [clock, path] : WalSegments()) {
+      if (clock < boundary) unlink(path.c_str());
+    }
+  }
+
+  void StoreLoop() {
+    double elapsed = 0.0;
+    double fsync_elapsed = 0.0;
+    while (!shutdown_.load()) {
+      // 100ms slices so shutdown (and ps-ctl's SIGUSR1 "snapshot now")
+      // are prompt even with long intervals; this also floors the
+      // effective WAL group-commit window at 100ms
+      usleep(100 * 1000);
+      elapsed += 0.1;
+      fsync_elapsed += 0.1;
+      if (fsync_elapsed + 1e-9 >= store_wal_fsync_s_) {
+        WalSync();
+        fsync_elapsed = 0.0;
+      }
+      if (g_store_snap_req.exchange(false) ||
+          elapsed + 1e-9 >= store_interval_s_) {
+        WriteSnapshot();
+        elapsed = 0.0;
+      }
+    }
+    WalSync();
+  }
+
+  static void* StoreTrampoline(void* p) {
+    auto* self = static_cast<KVServer*>(p);
+    self->StoreLoop();
+    self->store_loop_done_.store(true);
+    return nullptr;
+  }
+
+  int port_;
+  int num_workers_;
+  float lr_;
+  bool sync_;
+  bool last_gradient_;
+  bool bind_any_;
+  uint64_t max_dim_;
+  Opt opt_;
+  FtrlParams fp_;
+  bool compress_;
+  std::string trace_journal_;
+  std::string prof_journal_;
+  double prof_window_s_;
+  //: durable store config (--store_dir family; formats in kv_protocol.h)
+  std::string store_dir_;
+  double store_interval_s_;
+  bool store_wal_;
+  double store_wal_fsync_s_;
+  int store_dirfd_ = -1;
+  //: active WAL segment fd — handlers append under mu_; ONLY the store
+  //: thread (and startup, pre-threads) replaces it, also under mu_, so
+  //: the store thread may read it lock-free (WalSync)
+  int wal_fd_ = -1;
+  uint64_t wal_start_clock_ = 0;
+  std::vector<uint8_t> wal_buf_;  // append scratch (guarded by mu_)
+  std::atomic<bool> wal_dirty_{false};
+  //: the detached persistence loop has exited (true when never started)
+  std::atomic<bool> store_loop_done_{true};
+  //: snapshot bookkeeping — store-thread-only after startup (the final
+  //: clean-shutdown write happens after store_loop_done_ is observed)
+  int next_gen_ = 0;
+  uint64_t last_snap_clock_ = ~0ull;
+  uint16_t last_snap_epoch_ = 0;
+  uint64_t gen_clock_[kStoreGenerations] = {~0ull, ~0ull};
+  //: generations rejected at load (corrupt/torn) — surfaced on stderr
+  uint64_t store_corrupt_ = 0;
+  FILE* prof_f_ = nullptr;
+  // per-handler thread-CPU totals, microseconds (atomic: read by
+  // HandleStats and the profiler thread without mu_)
+  std::atomic<uint64_t> cpu_us_[kCpuSlots]{};
+  // profiler-thread-only window state (SIGTERM final flush races at
+  // worst into one torn line, which every journal reader skips)
+  uint64_t prof_last_us_[kCpuSlots] = {0, 0, 0, 0};
+  double prof_t0_ = 0.0;
+  FILE* trace_f_ = nullptr;
+  std::mutex trace_mu_;
+  uint64_t trace_seq_ = 0;
+  uint64_t trace_logged_ = 0;
+  uint64_t trace_dropped_ = 0;
+  uint64_t trace_unflushed_ = 0;
+  int listen_fd_ = -1;
+  std::atomic<bool> shutdown_{false};
+  std::vector<int> active_fds_;
+  //: detached handler threads still running (guarded by mu_); Run()'s
+  //: shutdown waits it to zero — the join the detach pattern replaces
+  size_t live_serves_ = 0;
+  std::condition_variable serves_done_;
+  //: the detached profiler loop has exited (true when never started)
+  std::atomic<bool> prof_loop_done_{true};
+
+  std::mutex mu_;
+  bool initialized_ = false;
+  //: membership epoch (kv_protocol.h kEpoch; guarded by mu_): flipped
+  //: by the coordinator's admin SET, fencing announced connections
+  uint16_t epoch_;
+  //: per-connection announced epoch (fd -> epoch; guarded by mu_)
+  std::unordered_map<int, uint16_t> conn_epoch_;
+  //: per-local-key-range optimizer map (--opt_segments; immutable after
+  //: construction) and whether ANY coordinate runs FTRL (z_/nacc_ live)
+  std::vector<std::pair<uint64_t, Opt>> opt_segments_;
+  bool has_ftrl_ = false;
+  uint64_t n_push_ = 0;
+  uint64_t n_pull_ = 0;
+  std::vector<Val> weights_;
+  std::vector<Val> merge_;
+  // FTRL-Proximal per-coordinate accumulators (sized with weights_ when
+  // --optimizer=ftrl; empty otherwise): z is the L1-shrunk dual state,
+  // nacc the running sum of squared gradients.
+  std::vector<Val> z_;
+  std::vector<Val> nacc_;
+  std::vector<PendingPush> pending_;
+  std::unordered_map<uint16_t, std::vector<PendingPush>> barrier_;
+  std::set<uint16_t> released_barriers_;
+};
+
+}  // namespace distlr
+
+static long Arg(int argc, char** argv, const char* name, long dflt) {
+  const std::string prefix = std::string("--") + name + "=";
+  for (int i = 1; i < argc; ++i) {
+    if (std::string(argv[i]).rfind(prefix, 0) == 0)
+      return std::atol(argv[i] + prefix.size());
+  }
+  return dflt;
+}
+
+static double ArgF(int argc, char** argv, const char* name, double dflt) {
+  const std::string prefix = std::string("--") + name + "=";
+  for (int i = 1; i < argc; ++i) {
+    if (std::string(argv[i]).rfind(prefix, 0) == 0)
+      return std::atof(argv[i] + prefix.size());
+  }
+  return dflt;
+}
+
+static std::string ArgS(int argc, char** argv, const char* name,
+                        const char* dflt) {
+  const std::string prefix = std::string("--") + name + "=";
+  for (int i = 1; i < argc; ++i) {
+    if (std::string(argv[i]).rfind(prefix, 0) == 0)
+      return std::string(argv[i] + prefix.size());
+  }
+  return dflt;
+}
+
+int main(int argc, char** argv) {
+  const int port = static_cast<int>(Arg(argc, argv, "port", 8001));
+  const int num_workers = static_cast<int>(Arg(argc, argv, "num_workers", 1));
+  const long dim = Arg(argc, argv, "dim", 0);
+  const double lr = ArgF(argc, argv, "lr", 0.2);
+  const bool sync = Arg(argc, argv, "sync", 1) != 0;
+  const bool last_gradient = Arg(argc, argv, "last_gradient", 0) != 0;
+  const bool bind_any = Arg(argc, argv, "bind_any", 0) != 0;
+  // Elasticity cap: keys may grow the slice past --dim, but never past
+  // this (wire-corruption guard: rejects essentially all random u64s
+  // while permitting any realistic slice).  Always at least --dim, so a
+  // legitimately huge pre-sized slice can never have its own keys
+  // misread as corruption.
+  const uint64_t max_dim = std::max<uint64_t>(
+      static_cast<uint64_t>(Arg(argc, argv, "max_dim", 1L << 31)),
+      static_cast<uint64_t>(dim));
+  const std::string optimizer = ArgS(argc, argv, "optimizer", "sgd");
+  distlr::Opt opt;
+  if (optimizer == "sgd") {
+    opt = distlr::Opt::kSgd;
+  } else if (optimizer == "ftrl") {
+    opt = distlr::Opt::kFtrl;
+  } else if (optimizer == "signsgd") {
+    opt = distlr::Opt::kSign;
+  } else {
+    std::fprintf(stderr, "[distlr_kv_server] unknown --optimizer=%s "
+                 "(sgd|ftrl|signsgd)\n", optimizer.c_str());
+    return 2;
+  }
+  if (opt != distlr::Opt::kSgd && last_gradient) {
+    // Q1 is a reference-SGD parity quirk; neither "the last worker's
+    // FTRL step / W" nor "the last worker's majority vote" exists as a
+    // reference behavior to mirror.
+    std::fprintf(stderr, "[distlr_kv_server] --optimizer=%s is "
+                 "incompatible with --last_gradient=1 (Q1 is an SGD "
+                 "parity quirk)\n", optimizer.c_str());
+    return 2;
+  }
+  distlr::FtrlParams fp;
+  fp.alpha = static_cast<float>(ArgF(argc, argv, "ftrl_alpha", 0.1));
+  fp.beta = static_cast<float>(ArgF(argc, argv, "ftrl_beta", 1.0));
+  fp.l1 = static_cast<float>(ArgF(argc, argv, "ftrl_l1", 0.0));
+  fp.l2 = static_cast<float>(ArgF(argc, argv, "ftrl_l2", 0.0));
+  if (opt == distlr::Opt::kFtrl &&
+      (fp.alpha <= 0.0f || fp.beta < 0.0f || fp.l1 < 0.0f ||
+       fp.l2 < 0.0f)) {
+    std::fprintf(stderr, "[distlr_kv_server] bad FTRL params: need "
+                 "alpha > 0 and beta/l1/l2 >= 0 (got alpha=%g beta=%g "
+                 "l1=%g l2=%g)\n", fp.alpha, fp.beta, fp.l1, fp.l2);
+    return 2;
+  }
+  const bool compress = Arg(argc, argv, "compress", 1) != 0;
+  // Span journal for distributed tracing (kv_protocol.h kTraced): one
+  // JSONL file of per-handler spans, merged cross-process by
+  // `launch trace-agg`.  Empty (the default) = no journal; traced
+  // frames are still parsed either way.
+  const std::string trace_journal = ArgS(argc, argv, "trace_journal", "");
+  // Continuous-profiling journal (ISSUE 9): per-handler thread-CPU
+  // windows in the Python samplers' profwindow schema, merged by
+  // `launch prof-agg`.  Empty (the default) = no journal.
+  const std::string prof_journal = ArgS(argc, argv, "prof_journal", "");
+  const double prof_window = ArgF(argc, argv, "prof_window", 10.0);
+  if (prof_window <= 0.0) {
+    std::fprintf(stderr,
+                 "[distlr_kv_server] --prof_window must be positive "
+                 "(got %g)\n", prof_window);
+    return 2;
+  }
+  // Membership epoch (kv_protocol.h kEpoch): elastic groups spawn each
+  // rank at the layout epoch it belongs to; 0 is reserved ("no
+  // announcement"), so epochs live in [1, 65535].
+  const long epoch = Arg(argc, argv, "epoch", 1);
+  if (epoch < 1 || epoch > 0xFFFF) {
+    std::fprintf(stderr, "[distlr_kv_server] --epoch must be in "
+                 "[1, 65535], got %ld\n", epoch);
+    return 2;
+  }
+  // Per-local-key-range optimizer map (--opt_segments=end:opt,...):
+  // ascending ends, sgd|ftrl only (sign votes only mean majority vote
+  // through a uniform signsgd group — a mixed group cannot advertise
+  // the codec honestly, so segments reject it outright).
+  std::vector<std::pair<uint64_t, distlr::Opt>> opt_segments;
+  const std::string seg_spec = ArgS(argc, argv, "opt_segments", "");
+  if (!seg_spec.empty()) {
+    if (opt == distlr::Opt::kSign || last_gradient) {
+      std::fprintf(stderr, "[distlr_kv_server] --opt_segments is "
+                   "incompatible with --optimizer=signsgd and "
+                   "--last_gradient=1\n");
+      return 2;
+    }
+    size_t pos = 0;
+    uint64_t prev_end = 0;
+    while (pos < seg_spec.size()) {
+      size_t comma = seg_spec.find(',', pos);
+      const std::string part = seg_spec.substr(
+          pos, comma == std::string::npos ? comma : comma - pos);
+      pos = comma == std::string::npos ? seg_spec.size() : comma + 1;
+      const size_t colon = part.find(':');
+      const char* bad = nullptr;
+      uint64_t end = 0;
+      if (colon == std::string::npos || colon == 0) {
+        bad = "want end:opt";
+      } else {
+        end = static_cast<uint64_t>(std::atoll(part.c_str()));
+        if (end <= prev_end) bad = "segment ends must ascend from > 0";
+      }
+      const std::string opt_name =
+          colon == std::string::npos ? "" : part.substr(colon + 1);
+      distlr::Opt seg_opt = distlr::Opt::kSgd;
+      if (bad == nullptr) {
+        if (opt_name == "sgd") seg_opt = distlr::Opt::kSgd;
+        else if (opt_name == "ftrl") seg_opt = distlr::Opt::kFtrl;
+        else bad = "segment optimizer must be sgd|ftrl";
+      }
+      if (bad != nullptr) {
+        std::fprintf(stderr, "[distlr_kv_server] bad --opt_segments "
+                     "entry %s (%s)\n", part.c_str(), bad);
+        return 2;
+      }
+      prev_end = end;
+      opt_segments.emplace_back(end, seg_opt);
+    }
+    bool any_ftrl = false;
+    for (const auto& seg : opt_segments) {
+      if (seg.second == distlr::Opt::kFtrl) any_ftrl = true;
+    }
+    if (any_ftrl &&
+        (fp.alpha <= 0.0f || fp.beta < 0.0f || fp.l1 < 0.0f ||
+         fp.l2 < 0.0f)) {
+      std::fprintf(stderr, "[distlr_kv_server] bad FTRL params for "
+                   "--opt_segments: need alpha > 0 and beta/l1/l2 >= 0\n");
+      return 2;
+    }
+  }
+  // Durable store (--store_dir): background persistence thread writing
+  // crash-consistent CRC32'd snapshot generations, plus an optional
+  // per-push WAL for RPO≈0 — formats in kv_protocol.h, Python reader
+  // distlr_tpu/ps/store.py.  Empty (the default) = volatile, the
+  // pre-store behavior byte for byte.
+  const std::string store_dir = ArgS(argc, argv, "store_dir", "");
+  const double store_interval = ArgF(argc, argv, "store_interval", 5.0);
+  const bool store_wal = Arg(argc, argv, "store_wal", 0) != 0;
+  const double store_wal_fsync = ArgF(argc, argv, "store_wal_fsync", 0.1);
+  if (store_interval <= 0.0) {
+    std::fprintf(stderr, "[distlr_kv_server] --store_interval must be "
+                 "positive (got %g)\n", store_interval);
+    return 2;
+  }
+  if (store_wal_fsync <= 0.0) {
+    std::fprintf(stderr, "[distlr_kv_server] --store_wal_fsync must be "
+                 "positive (got %g)\n", store_wal_fsync);
+    return 2;
+  }
+  if (store_wal && store_dir.empty()) {
+    std::fprintf(stderr, "[distlr_kv_server] --store_wal=1 requires "
+                 "--store_dir\n");
+    return 2;
+  }
+  if (store_wal && sync) {
+    // A sync round's pre-barrier merge state dies with the worker
+    // connections on any crash, so per-push replay has no meaning
+    // there; snapshots (committed-round state) are the sync story.
+    std::fprintf(stderr, "[distlr_kv_server] --store_wal=1 requires "
+                 "--sync=0 (async): sync-round merge state has no "
+                 "per-push replay semantics\n");
+    return 2;
+  }
+  distlr::KVServer server(port, num_workers, static_cast<uint64_t>(dim),
+                          static_cast<float>(lr), sync, last_gradient,
+                          bind_any, max_dim, opt, fp, compress,
+                          trace_journal, prof_journal, prof_window,
+                          static_cast<uint16_t>(epoch),
+                          std::move(opt_segments),
+                          store_dir, store_interval, store_wal,
+                          store_wal_fsync);
+  return server.Run();
+}

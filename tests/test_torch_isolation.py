@@ -49,7 +49,8 @@ def test_fresh_interpreter_imports_no_jax():
                 "distlr_tpu_torch.ops.fused_lr", "distlr_tpu_torch.convert",
                 "distlr_tpu_torch.ops.gen_roofline", "distlr_tpu_torch.benchmarks.exp_gen_roofline",
                 "distlr_tpu_torch.benchmarks.exp_gen_roofline2", "distlr_tpu_torch.data.hashing",
-                "distlr_tpu_torch.models.linear"):
+                "distlr_tpu_torch.models.linear", "distlr_tpu_torch.train.ps_trainer",
+                "distlr_tpu_torch.ps.client", "distlr_tpu_torch.data._native"):
         assert mod in doc["imported"]
     assert doc["leaked"] == []
 

@@ -2,6 +2,7 @@
 
 import os
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from distlr_tpu_torch.config import Config
+from distlr_tpu_torch.launch import _UNPORTED_PS_FLAGS
 from distlr_tpu_torch.ops import build
 from distlr_tpu_torch.train import Trainer
 from distlr_tpu_torch.utils.device import resolve_device
@@ -66,6 +68,84 @@ class TestCLI:
         assert "ROADMAP A.12" in proc.stderr
 
 
+class TestPSCLI:
+    """``launch ps``: the parameter-server path on the CPU (``--device cpu``)."""
+
+    @pytest.fixture(scope="class")
+    def data_dir(self, tmp_path_factory):
+        d = str(tmp_path_factory.mktemp("psdata") / "d")
+        _launch("gen-data", "--data-dir", d, "--num-feature-dim", "123", "--num-samples",
+                "2000", "--num-parts", "2")
+        return d
+
+    def test_gen_data_ps_eval_on_cpu(self, data_dir):
+        common = ["--data-dir", data_dir, "--num-feature-dim", "123"]
+        out = _launch("ps", *common, "--num-workers", "2", "--num-servers", "2",
+                      "--num-iteration", "20", "--test-interval", "10", "--learning-rate",
+                      "0.5", "--l2-c", "0", "--device", "cpu").stdout
+        evals = EVAL_LINE.findall(out)
+        assert [int(n) for n, _ in evals] == [10, 20]
+        for part in ("part-001", "part-002"):  # one model file a worker (Q8)
+            model_file = os.path.join(data_dir, "models", part)
+            with open(model_file) as f:
+                assert f.readline().strip() == "123"
+                assert len(f.readline().split()) == 123
+            ev = _launch("eval", *common, "--model-file", model_file, "--device", "cpu").stdout
+            m = re.search(r"accuracy: (\S+)\s+test_logloss: (\S+)", ev)
+            # sync workers end with the same weights: eval scores the last line's
+            assert m is not None and float(m.group(1)) == pytest.approx(
+                float(evals[-1][1]), abs=1e-4)
+
+    def test_async_and_serialized_protocol_run(self, data_dir):
+        for extra in (["--async"], ["--async", "--no-ps-pipeline"]):
+            out = _launch("ps", "--data-dir", data_dir, "--num-feature-dim", "123",
+                          "--num-workers", "2", "--batch-size", "100", "--num-iteration", "4",
+                          "--test-interval", "2", "--device", "cpu", *extra).stdout
+            assert [int(n) for n, _ in EVAL_LINE.findall(out)] == [2, 4], extra
+
+    def test_workers_join_running_servers(self, data_dir, tmp_path):
+        from distlr_tpu_torch.ps import ServerGroup
+
+        d = tmp_path / "d"
+        shutil.copytree(data_dir, d)
+        with ServerGroup(2, 2, dim=123, learning_rate=0.5) as group:
+            _launch("ps", "--data-dir", str(d), "--num-feature-dim", "123", "--num-workers", "2",
+                    "--num-iteration", "3", "--test-interval", "0", "--learning-rate", "0.5",
+                    "--hosts", group.hosts, "--worker-ranks", "0,1", "--device", "cpu")
+            for p in group.procs:  # rank 0's exit retired the servers
+                p.wait(timeout=10)
+        assert sorted(os.listdir(d / "models")) == ["part-001", "part-002"]
+
+    def test_worker_ranks_need_hosts(self, data_dir):
+        proc = _launch("ps", "--data-dir", data_dir, "--num-feature-dim", "123",
+                       "--worker-ranks", "0", "--device", "cpu", check=False)
+        assert proc.returncode == 2 and "--worker-ranks requires --hosts" in proc.stderr
+
+    def test_ps_without_cuda_refuses_to_fall_back(self, tmp_path):
+        d = str(tmp_path / "d")
+        _launch("gen-data", "--data-dir", d, "--num-feature-dim", "8", "--num-samples", "50",
+                "--num-parts", "1")
+        proc = _launch("ps", "--data-dir", d, "--num-feature-dim", "8",
+                       env_extra={"CUDA_VISIBLE_DEVICES": ""}, check=False)
+        assert proc.returncode != 0
+        assert "--device cpu" in proc.stderr
+        assert not os.path.exists(os.path.join(d, "models", "part-001"))
+
+    @pytest.mark.parametrize("argv,item", [
+        *[([flag, "1"] if typ is not None else [flag], "A.16")
+          for flag, _, typ in _UNPORTED_PS_FLAGS],
+        (["--model", "sparse_lr"], "A.15"),
+        (["--model", "blocked_lr", "--block-size", "8"], "A.15"),
+        (["--profile-dir", "prof"], "A.12"),
+    ])
+    def test_unported_ps_flags_name_their_roadmap_item(self, argv, item, tmp_path):
+        from distlr_tpu_torch import launch
+
+        with pytest.raises(NotImplementedError, match=rf"ROADMAP {re.escape(item)}\)"):
+            launch.main(["ps", "--data-dir", str(tmp_path), "--num-feature-dim", "8",
+                         "--device", "cpu", *argv])
+
+
 class TestDeviceRule:
     def test_default_trainer_raises_without_cuda(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -96,7 +176,7 @@ class TestKernelBuild:
             return subprocess.CompletedProcess(cmd, 0, "", "")
 
         monkeypatch.setattr(build, "find_nvcc", lambda: "/toolkit/bin/nvcc")
-        monkeypatch.setattr(build.subprocess, "run", fake_run)
+        monkeypatch.setattr(subprocess, "run", fake_run)
         out = build.build("fused_lr_grad", build_dir=tmp_path)
         assert out == build.library_path("fused_lr_grad", tmp_path) and out.exists()
         (cmd,) = calls
@@ -128,7 +208,7 @@ class TestKernelBuild:
             return subprocess.CompletedProcess(cmd, 0, "", "")
 
         monkeypatch.setattr(build, "find_nvcc", lambda: "nvcc")
-        monkeypatch.setattr(build.subprocess, "run", fake_run)
+        monkeypatch.setattr(subprocess, "run", fake_run)
         plain = build.build("fused_lr_grad", build_dir=tmp_path)
         traced = build.build("fused_lr_grad", build_dir=tmp_path, defines=("DISTLR_SLICE_TRACE",))
         assert traced != plain and traced.exists()
@@ -168,11 +248,13 @@ class TestKernelBuild:
 
     def test_compiler_failure_raises_with_its_output(self, tmp_path, monkeypatch):
         monkeypatch.setattr(build, "find_nvcc", lambda: "nvcc")
-        monkeypatch.setattr(build.subprocess, "run", lambda cmd, **kw: subprocess.CompletedProcess(
+        monkeypatch.setattr(subprocess, "run", lambda cmd, **kw: subprocess.CompletedProcess(
             cmd, 2, "", "fused_lr_grad.cu(1): error: bad"))
         with pytest.raises(RuntimeError, match="error: bad"):
             build.build("fused_lr_grad", build_dir=tmp_path)
-        assert list(tmp_path.iterdir()) == []  # no half-written library left
+        # no half-written library left: only the library's build lock
+        lib = build.library_path("fused_lr_grad", tmp_path)
+        assert [p.name for p in tmp_path.iterdir()] == [f".{lib.name}.lock"]
 
     def test_missing_nvcc_raises(self, monkeypatch):
         import torch.utils.cpp_extension as cpp_ext

@@ -137,11 +137,22 @@ class TestConvert:
 
 class TestConfigGates:
     @pytest.mark.parametrize("kw,item", [
-        ({"model": "sparse_lr", "sync_mode": False}, "A.9"),
+        ({"model": "sparse_lr", "sync_mode": False}, "A.15"),
         ({"feature_shards": 2}, "A.7"),
         ({"mesh_shape": {"data": 1, "model": 2}}, "A.7"),
         ({"profile_dir": "prof"}, "A.12"),
-        ({"sync_mode": False}, "A.9"),
+        ({"model": "blocked_lr", "block_size": 8, "sync_mode": False}, "A.15"),
+        ({"model": "sparse_softmax", "sync_mode": False}, "A.15"),
+        ({"ps_host": "10.0.0.1"}, "A.16"),
+        ({"ps_port": 9000}, "A.16"),
+        ({"ps_retry_attempts": 3}, "A.16"),
+        ({"ps_retry_adaptive": True}, "A.16"),
+        ({"ps_optimizer": "ftrl"}, "A.16"),
+        ({"ps_compress": "int8"}, "A.16"),
+        ({"ps_accum_max": 4}, "A.16"),
+        ({"ps_store_dir": "store"}, "A.16"),
+        ({"ps_store_wal": True}, "A.16"),
+        ({"chaos_plan": "plan.json"}, "A.16"),
     ])
     def test_unported_options_name_their_roadmap_item(self, kw, item):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
@@ -161,6 +172,29 @@ class TestConfigGates:
             assert getattr(t, f) == getattr(j, f), f
         assert get_model(t).int8_dot == (kw.get("feature_dtype") == "int8_dot")
 
+    # the dense families' PS options (ROADMAP A.9, port PR 9)
+    @pytest.mark.parametrize("kw", [
+        {"sync_mode": False},
+        {"sync_mode": False, "model": "softmax", "num_classes": 3},
+        {"num_servers": 3, "ps_compute_backend": "numpy", "ps_pipeline": False,
+         "ps_timeout_ms": 0},
+    ])
+    def test_ported_ps_options_resolve_like_jax(self, kw):
+        j, t = JaxConfig(**kw), Config(device="cpu", **kw)
+        for f in ("sync_mode", "model", "num_servers", "ps_compute_backend", "ps_pipeline",
+                  "ps_timeout_ms", "sync_last_gradient"):
+            assert getattr(t, f) == getattr(j, f), f
+
+    @pytest.mark.parametrize("kw,match", [
+        ({"ps_compute_backend": "gpu"}, "ps_compute_backend"),
+        ({"ps_optimizer": "adam"}, "ps_optimizer"),
+        ({"ps_compress": "fp8"}, "ps_compress"),
+        ({"num_servers": 0}, "num_servers"),
+    ])
+    def test_invalid_ps_options_rejected(self, kw, match):
+        with pytest.raises(ValueError, match=match):
+            Config(device="cpu", **kw)
+
     def test_negative_checkpoint_interval_rejected(self):
         with pytest.raises(ValueError, match="checkpoint_interval"):
             Config(device="cpu", checkpoint_interval=-1)
@@ -179,6 +213,13 @@ class TestConfigGates:
                   "l2_c", "model", "compute_dtype", "feature_dtype", "compat_mode",
                   "num_workers", "feature_shards", "prefetch", "checkpoint_dir",
                   "checkpoint_interval", "profile_dir", "num_classes", "nnz_max",
-                  "block_size", "block_groups", "ctr_fields", "hash_seed"):
+                  "block_size", "block_groups", "ctr_fields", "hash_seed",
+                  "num_servers", "ps_host", "ps_port", "ps_compute_backend", "ps_pipeline",
+                  "ps_timeout_ms", "ps_retry_attempts", "ps_retry_backoff_ms",
+                  "ps_retry_backoff_max_ms", "ps_retry_deadline_s", "ps_retry_adaptive",
+                  "ps_optimizer", "ps_compress", "ps_accum_start", "ps_accum_growth",
+                  "ps_accum_growth_every", "ps_accum_max", "ps_store_dir",
+                  "ps_store_interval_s", "ps_store_wal", "ps_store_wal_fsync_s",
+                  "chaos_plan", "chaos_seed"):
             assert getattr(t, f) == getattr(j, f), f
         assert t.device == "cuda"
