@@ -20,13 +20,17 @@ model families through ``Trainer.fit`` at the repo's published shapes
 D = 1M buckets, 21 fields, 65,536 rows a step; ``softmax`` at the
 MNIST-shaped D = 784, K = 10, 60,000 rows, and its step alone at D = 1M,
 2048 rows), then the ``gen-data -> sync -> eval`` CLI in subprocesses for
-every family, an int8_dot sync that checkpoints and resumes and
-``gen-data -> ps -> eval``, then the parameter-server path at the full
+every family, an int8_dot sync that checkpoints and resumes,
+``gen-data -> ps -> eval`` and ``gen-data -> sync -> serve``, then the parameter-server path at the full
 width through ``run_ps_local`` (native libsvm shards of config-3 CTR rows
 at D = 1M, 2 native KV servers, 2 worker threads on the card: sync BSP
 and async Hogwild, each gradient the ``fused_lr_grad`` single pass; then
 the path's kernels checked and timed at the shapes those runs gave
-them), and last the path of the
+them), then the scoring tier at the full width (``ScoringEngine`` behind
+an in-process ``ScoringServer``: dense binary_lr at D = 1M on the
+``lr_logits`` kernels, concurrent clients and JSON batches over TCP, int8,
+int8_dot and D = 6M engines, checkpoint and live-PS hot reload, idle
+eviction; then the kernels at the serving buckets), and last the path of the
 on-device generation probes: both roofline experiments
 (``distlr_tpu_torch.benchmarks.exp_gen_roofline*``) at the published
 (256, 8192) x 64 tile, in this process and as ``python -m``.  Each phase
@@ -1372,6 +1376,542 @@ def phase_ps(torch, seed: int, smi: str) -> dict:
     return out
 
 
+# --- the scoring tier -------------------------------------------------------
+SERVE_BUCKETS, SERVE_WAIT_MS = (64, 256, 1024), 2.0
+SERVE_CLIENTS, SERVE_SINGLES = 8, 16
+SERVE_JSON_ROWS = (37, 200, 1024, 1500)   # the last splits into 1,024 + 476
+SERVE_SCORE_TOL, SERVE_LABEL_MARGIN = 1e-5, 1e-3
+SERVE_SIDE_ROWS, SERVE_WIDE_ROWS = 256, 64
+# int8 features quantized on the grid of the one-hot rows: max|x| / 127
+SERVE_INT8_SCALE = 1.0 / 127.0
+# the JAX server's STATS schema (distlr_tpu/serve/server.py:572-625, pinned
+# by tests/test_serve.py:477-569), written out: this machine has no JAX
+SERVE_STATS_KEYS = {"requests", "errors", "qps", "p50_ms", "p99_ms", "shed", "retries",
+                    "replica_count", "models", "per_model", "batcher", "engine"}
+SERVE_BATCHER_KEYS = {"batches", "requests", "rows", "mean_occupancy",
+                      "mean_requests_per_batch", "max_batch_size", "max_wait_ms"}
+SERVE_ENGINE_KEYS = {"weights_version", "batches_scored", "rows_scored", "bucket_hits",
+                     "buckets"}
+# the serving path's kernels: each must launch in the serve phase's run
+SERVE_KERNELS = ("lr_logits", "lr_logits_int8", "lr_logits_int8dot", "lr_logits_row_blocks")
+
+
+def _libsvm_lines(cols, y) -> list[str]:
+    """Rows of one-hot columns as libsvm request lines (1-based, value 1)."""
+    return [f"{int(label)} " + " ".join(f"{c + 1}:1" for c in row)
+            for row, label in zip(cols.tolist(), y)]
+
+
+def _device_rows(torch, cols, D: int, dtype, value: float = 1.0):
+    """The one-hot rows of ``cols`` as an (n, D) tensor on the card."""
+    X = torch.zeros((cols.shape[0], D), dtype=dtype, device="cuda")
+    X.scatter_(1, torch.from_numpy(cols).cuda(), value)
+    return X
+
+
+def _serve_weights(rng, D: int, cols):
+    """Seeded weights, centred and scaled so that the logits of the rows of
+    ``cols`` have a deviation of 1.5: no score saturates."""
+    import numpy as np  # noqa: PLC0415
+
+    w = rng.standard_normal(D).astype(np.float32)
+    w -= w.mean()
+    return (w * (1.5 / float(w[cols].sum(axis=1).std()))).astype(np.float32)
+
+
+def _plain_logits(torch, ops, w, cols, D: int, kind: str = "bfloat16"):
+    """The plain forward on the card for the rows of ``cols``, 1,024 rows at
+    a time: bf16 rows, or their int8 quantization for ``int8`` /
+    ``int8_dot`` engines (f32 on the host)."""
+    zs = []
+    for lo in range(0, cols.shape[0], 1024):
+        c = cols[lo:lo + 1024]
+        if kind == "bfloat16":
+            z = ops.lr_logits_reference(w, _device_rows(torch, c, D, torch.bfloat16))
+        else:
+            Xq = _device_rows(torch, c, D, torch.int8, round(1.0 / SERVE_INT8_SCALE))
+            z = (ops.lr_logits_int8dot_reference(w, Xq, feature_scale=SERVE_INT8_SCALE)
+                 if kind == "int8_dot"
+                 else ops.lr_logits_reference(w, Xq, feature_scale=SERVE_INT8_SCALE))
+        zs.append(z.cpu())
+    return torch.cat(zs)
+
+
+def _check_replies(torch, what: str, labels, scores, z) -> dict:
+    """Replies against the plain logits: scores within SERVE_SCORE_TOL of
+    σ(z), labels equal wherever |z| > SERVE_LABEL_MARGIN."""
+    labels, scores = torch.as_tensor(labels), torch.as_tensor(scores, dtype=torch.float64)
+    err = float((scores - torch.sigmoid(z.double())).abs().max())
+    clear = z.abs() > SERVE_LABEL_MARGIN
+    flips = int((labels[clear] != (z[clear] > 0).to(labels.dtype)).sum())
+    if err > SERVE_SCORE_TOL or flips:
+        raise AssertionError(f"serve {what}: replies disagree with the plain forward: "
+                             f"max |score - σ(z)| {err}, {flips} labels differ")
+    return {"rows": int(z.shape[0]), "max_abs_score_err": err,
+            "labels_checked": int(clear.sum())}
+
+
+def _parse_libsvm_replies(replies):
+    if any(r.startswith("ERR") for r in replies):
+        raise AssertionError(f"serve: ERR replies: {[r for r in replies if r.startswith('ERR')]}")
+    return [int(r.split()[0]) for r in replies], [float(r.split()[1]) for r in replies]
+
+
+def _json_request(host, port, lines):
+    """One JSON batch request; (labels, scores, client seconds)."""
+    from distlr_tpu_torch.serve import score_lines_over_tcp  # noqa: PLC0415
+
+    t0 = time.perf_counter()
+    (reply,) = score_lines_over_tcp(host, port, [json.dumps({"rows": lines})], timeout_s=300)
+    seconds = time.perf_counter() - t0
+    if reply.startswith("ERR"):
+        raise AssertionError(f"serve: a JSON request of {len(lines)} rows answered {reply}")
+    doc = json.loads(reply)
+    return doc["labels"], doc["scores"], seconds
+
+
+def _serve_engine(torch, D: int, feature_dtype: str = "bfloat16", **kw):
+    import dataclasses  # noqa: PLC0415
+
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.serve import ScoringEngine  # noqa: PLC0415
+
+    cfg = Config(num_feature_dim=D, feature_dtype=feature_dtype, compute_dtype="bfloat16",
+                 l2_c=0.0, serve_max_batch_size=SERVE_BUCKETS[-1], serve_max_wait_ms=SERVE_WAIT_MS)
+    eng = ScoringEngine(cfg, max_batch_size=cfg.serve_max_batch_size, buckets=SERVE_BUCKETS, **kw)
+    if feature_dtype != "bfloat16":
+        eng.model = dataclasses.replace(eng.model, feature_scale=SERVE_INT8_SCALE)
+    return eng
+
+
+def _serve_traffic(torch, ops, srv, w_dev, cols, y) -> dict:
+    """The full-width engine's traffic through its server over TCP:
+    SERVE_CLIENTS concurrent clients of SERVE_SINGLES single-line requests,
+    then JSON batches of SERVE_JSON_ROWS rows, then one malformed line on a
+    connection that keeps serving, then STATS; every reply held against
+    the plain forward."""
+    from distlr_tpu_torch.serve import score_lines_over_tcp  # noqa: PLC0415
+
+    singles = SERVE_CLIENTS * SERVE_SINGLES
+    lines = _libsvm_lines(cols, y)
+    start = threading.Barrier(SERVE_CLIENTS)
+    replies: dict[int, list] = {}
+
+    def client(k):
+        start.wait()
+        replies[k] = score_lines_over_tcp(
+            srv.host, srv.port, lines[k * SERVE_SINGLES:(k + 1) * SERVE_SINGLES])
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+        list(pool.map(client, range(SERVE_CLIENTS)))
+    singles_s = time.perf_counter() - t0
+    coalesce = srv.batcher.stats()
+    single_flushes = coalesce["batches"]
+    if coalesce["mean_requests_per_batch"] <= 1:
+        raise AssertionError(f"serve: {SERVE_CLIENTS} concurrent clients did not coalesce: "
+                             f"{coalesce}")
+    labels, scores = _parse_libsvm_replies([r for k in range(SERVE_CLIENTS) for r in replies[k]])
+    requests = {}
+    lo = singles
+    for n in SERVE_JSON_ROWS:
+        lab, sc, seconds = _json_request(srv.host, srv.port, lines[lo:lo + n])
+        labels += lab
+        scores += sc
+        requests[f"json_{n}"] = {"rows": n, "client_ms": 1e3 * seconds}
+        lo += n
+    bad, good = score_lines_over_tcp(srv.host, srv.port, ["1:x 2:1", lines[0]])
+    if not bad.startswith("ERR ") or good.startswith("ERR") or good != replies[0][0]:
+        raise AssertionError(f"serve: a malformed line answered {bad!r}, then {good!r}")
+    z = _plain_logits(torch, ops, w_dev, cols[:lo], w_dev.shape[0])
+    check = _check_replies(torch, "full width", labels, scores, z)
+    (raw,) = score_lines_over_tcp(srv.host, srv.port, ["STATS"])
+    stats = json.loads(raw)
+    # a 1,500-row request is one batch of two chunks: 1,024 and 476 rows
+    want = {64: single_flushes + 2, 256: 1, 1024: 3}  # + 37 rows, + the malformed line's good one
+    got = {int(k): v for k, v in stats["engine"]["bucket_hits"].items()}
+    if got != want:
+        raise AssertionError(f"serve: bucket_hits {got}, the requests imply {want}")
+    if (set(stats) != SERVE_STATS_KEYS or set(stats["batcher"]) != SERVE_BATCHER_KEYS
+            or set(stats["engine"]) != SERVE_ENGINE_KEYS or stats["errors"] != 1
+            or stats["per_model"]["default"]["requests"] != stats["requests"]):
+        raise AssertionError(f"serve: STATS departs from the JAX schema: {stats}")
+    return {"singles": {"clients": SERVE_CLIENTS, "requests_per_client": SERVE_SINGLES,
+                        "seconds": singles_s, "flushes": single_flushes,
+                        "mean_requests_per_batch": coalesce["mean_requests_per_batch"]},
+            "json": requests, "replies_vs_plain": check, "bucket_hits": got,
+            "malformed_reply": bad, "stats": stats}
+
+
+def _serve_side_engines(torch, ops, rng, w, cols_side, cols_wide, y) -> dict:
+    """One 256-row JSON request each to an int8 and an int8_dot engine at
+    D = 1M, one 64-row request to a bf16 engine at WIDE_D (above the slice
+    kernels' width bound: lr_logits_row_blocks), each over its own server
+    and against its plain forward."""
+    from distlr_tpu_torch.serve import ScoringServer  # noqa: PLC0415
+
+    out = {}
+    cases = [("int8", FULL_D, w, cols_side), ("int8_dot", FULL_D, w, cols_side),
+             ("bfloat16", WIDE_D, _serve_weights(rng, WIDE_D, cols_wide), cols_wide)]
+    for fd, D, wk, cols in cases:
+        eng = _serve_engine(torch, D, feature_dtype=fd)
+        eng.set_weights(wk)
+        with ScoringServer(eng, max_wait_ms=SERVE_WAIT_MS) as srv:
+            labels, scores, seconds = _json_request(srv.host, srv.port,
+                                                    _libsvm_lines(cols, y[:len(cols)]))
+        z = _plain_logits(torch, ops, torch.from_numpy(wk).cuda(), cols, D, fd)
+        name = "wide" if D == WIDE_D else fd
+        out[name] = {"D": D, "feature_dtype": fd, "client_ms": 1e3 * seconds,
+                     "bucket_hits": eng.stats()["bucket_hits"],
+                     **_check_replies(torch, name, labels, scores, z)}
+        del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_checkpoint_swap(torch, rng, tmp: str, cols, y) -> dict:
+    """Two checkpoints of the port's Checkpointer at D = 1M, the second
+    written while a client streams a probe line: every reply is version
+    1's or version 2's, none of version 1's after the first of version 2's,
+    and no ERR."""
+    from distlr_tpu_torch.serve import CheckpointWatcher, HotReloader, ScoringServer  # noqa: PLC0415
+    from distlr_tpu_torch.train.checkpoint import Checkpointer  # noqa: PLC0415
+
+    probe = _libsvm_lines(cols[:1], y[:1])[0]
+    ws = [_serve_weights(rng, FULL_D, cols) for _ in range(2)]
+    eng = _serve_engine(torch, FULL_D)
+    want = []
+    for w in ws:  # the reply each version gives the probe
+        eng.set_weights(w)
+        lab, sc = eng.score(eng.encode_lines([probe]))
+        want.append(f"{int(lab[0])} {float(sc[0]):.6g}")
+    if want[0] == want[1]:
+        raise AssertionError(f"serve: the two checkpoints score the probe alike: {want}")
+    eng = _serve_engine(torch, FULL_D)
+    ck_dir = os.path.join(tmp, "ck")
+    ck = Checkpointer(ck_dir)
+    ck.save(1, ws[0])
+    reloader = HotReloader(eng, CheckpointWatcher(ck_dir), interval_s=0.05)
+    reloader.wait_for_weights(60)
+    reloader.start()
+    with ScoringServer(eng, max_wait_ms=SERVE_WAIT_MS, reloader=reloader) as srv:
+        client = _StreamingProbe(srv.host, srv.port, probe)
+        client.wait_for(20)
+        t0 = time.perf_counter()
+        ck.save(2, ws[1])
+        while reloader.last_version != 2 and time.perf_counter() - t0 < 60:
+            time.sleep(0.005)
+        swap_s = time.perf_counter() - t0
+        client.wait_for(len(client.replies) + 20)
+        client.stop()
+    got = client.replies
+    first_v2 = got.index(want[1]) if want[1] in got else None
+    if (client.errors or first_v2 is None or any(r not in want for r in got)
+            or want[0] in got[first_v2:] or reloader.last_version != 2):
+        raise AssertionError(f"serve checkpoint swap: {client.errors} {sorted(set(got))} "
+                             f"(want {want}), version {reloader.last_version}")
+    return {"replies": len(got), "version_1_replies": first_v2,
+            "save_to_swap_s": swap_s, "reloads": reloader.reloads}
+
+
+class _StreamingProbe:
+    """A client streaming one line in a loop on one connection, keeping
+    every reply (the witness of requests in flight across weight swaps)."""
+
+    def __init__(self, host, port, line):
+        self.replies: list[str] = []
+        self.errors: list[str] = []
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, args=(host, port, line), daemon=True)
+        self._t.start()
+
+    def _run(self, host, port, line):
+        import socket  # noqa: PLC0415
+
+        try:
+            with socket.create_connection((host, port), timeout=60) as s:
+                f = s.makefile("rwb")
+                while not self._stop.is_set():
+                    f.write((line + "\n").encode())
+                    f.flush()
+                    reply = f.readline()
+                    if not reply:
+                        raise ConnectionError("server closed mid-stream")
+                    self.replies.append(reply.decode().strip())
+        except Exception as e:  # noqa: BLE001 — checked by the phase
+            self.errors.append(f"{type(e).__name__}: {e}")
+
+    def wait_for(self, n: int, timeout_s: float = 60.0) -> None:
+        t0 = time.perf_counter()
+        while len(self.replies) < n and not self.errors and time.perf_counter() - t0 < timeout_s:
+            time.sleep(0.005)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._t.join(timeout=60)
+
+
+def _serve_live_ps(torch, rng, tmp: str, seed: int) -> dict:
+    """A ServerGroup of 2 servers at D = 1M seeded with centred weights,
+    one async ``run_ps_workers`` worker on the card pushing
+    PS_ASYNC_BATCH-row gradients, and a client streaming a probe line
+    through a live-PS hot-reloading server meanwhile: at least 2 reloads,
+    at least 2 distinct served scores, no ERR (the worker's exit retires
+    the servers; the polls that fail after it are counted, and the engine
+    keeps its last weights).  Also the time of a full ``pull_chunked`` of
+    the 1M weights."""
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.ps import KVWorker, ServerGroup  # noqa: PLC0415
+    from distlr_tpu_torch.serve import HotReloader, LivePSWatcher, ScoringServer  # noqa: PLC0415
+    from distlr_tpu_torch.train.ps_trainer import run_ps_workers  # noqa: PLC0415
+
+    import numpy as np  # noqa: PLC0415
+
+    d = os.path.join(tmp, "psdata")
+    _ps_data(d, seed)
+    with open(os.path.join(d, "train", "part-001")) as f:
+        shard = [ln.split() for ln in f if ln.strip()]
+    probe = " ".join(shard[0])
+    cols = np.array([[int(t.split(":")[0]) - 1 for t in row[1:]] for row in shard])
+    w0 = _serve_weights(rng, FULL_D, cols)
+    epochs = 8
+    cfg = Config(data_dir=d, num_feature_dim=FULL_D, sync_mode=False, num_workers=1,
+                 num_servers=PS_SERVERS, batch_size=PS_ASYNC_BATCH, num_iteration=epochs,
+                 learning_rate=0.5, l2_c=0.0, test_interval=0, ps_timeout_ms=PS_TIMEOUT_MS)
+    with ServerGroup(PS_SERVERS, 1, FULL_D, learning_rate=cfg.learning_rate, sync=False) as sg:
+        with KVWorker(sg.hosts, FULL_D, client_id=1) as kv:
+            kv.push_init(w0)  # the worker's own seeding push is then a no-op
+        eng = _serve_engine(torch, FULL_D)
+        watcher = LivePSWatcher(sg.hosts, FULL_D)
+        pull_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            watcher.kv.pull_chunked(chunk_rows=watcher.chunk_rows)
+            pull_ms.append(1e3 * (time.perf_counter() - t0))
+        reloader = HotReloader(eng, watcher, interval_s=0.05)
+        reloader.wait_for_weights(60)
+        reloader.start()
+        errors = []
+
+        def train():
+            try:
+                run_ps_workers(cfg, sg.hosts, [0])
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        with ScoringServer(eng, max_wait_ms=SERVE_WAIT_MS, reloader=reloader) as srv:
+            client = _StreamingProbe(srv.host, srv.port, probe)
+            client.wait_for(5)
+            t0 = time.perf_counter()
+            trainer = threading.Thread(target=train, daemon=True, name="smoke-serve-ps")
+            trainer.start()
+            trainer.join(PS_WALL_S)
+            train_s = time.perf_counter() - t0
+            # rank 0's exit retires the servers: the reloader then keeps
+            # the last weights it pulled, and the probe goes on scoring
+            client.wait_for(len(client.replies) + 5, timeout_s=10)
+            client.stop()
+        if trainer.is_alive():
+            raise AssertionError(f"serve live PS: the worker did not end within {PS_WALL_S} s")
+    if errors:
+        raise errors[0]
+    scores = {r.split()[1] for r in client.replies if not r.startswith("ERR")}
+    if (client.errors or any(r.startswith("ERR") for r in client.replies)
+            or reloader.reloads < 2 or len(scores) < 2):
+        raise AssertionError(f"serve live PS: {client.errors}, {len(client.replies)} replies, "
+                             f"{len(scores)} distinct scores, {reloader.reloads} reloads")
+    return {"servers": PS_SERVERS, "worker_steps": epochs * -(-PS_SHARD_ROWS // PS_ASYNC_BATCH),
+            "train_s": train_s, "replies": len(client.replies),
+            "distinct_scores": len(scores), "reloads": reloader.reloads,
+            "reload_errors": reloader.errors, "pull_chunked_1M_ms": pull_ms,
+            "chunk_rows": watcher.chunk_rows}
+
+
+def _serve_eviction(torch, w, cols) -> dict:
+    """``maybe_evict`` on an idle engine: not resident, the device table's
+    bytes freed, and the next request reloads it and scores the same bits."""
+    import numpy as np  # noqa: PLC0415
+
+    eng = _serve_engine(torch, FULL_D, idle_evict_s=3600.0)
+    eng.set_weights(w)
+    rows = eng.encode_lines(_libsvm_lines(cols, np.zeros(len(cols))))
+    before = eng.score(rows)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    if not eng.maybe_evict(now=time.monotonic() + 1e4) or eng.resident:
+        raise AssertionError("serve: an idle engine did not evict its table")
+    freed = held - torch.cuda.memory_allocated()
+    after = eng.score(rows)
+    if (freed < FULL_D * 4 or not eng.resident or not np.array_equal(before[0], after[0])
+            or not np.array_equal(before[1], after[1])):
+        raise AssertionError(f"serve eviction: freed {freed} bytes, resident {eng.resident}, "
+                             "or the reloaded table scores other bits")
+    return {"freed_bytes": freed, "evictions": eng.evictions, "same_bits_after_reload": True}
+
+
+def _serve_breakdown(torch, srv, eng, cols, y) -> dict:
+    """Where a request's time goes, per bucket (a request of the bucket's
+    size): ``encode_ms`` (host parse and densify), ``cast_ms`` (host f32 ->
+    bf16), ``h2d_ms`` (the zeroed bucket on the card and the copy),
+    ``forward_span_ms`` (CUDA events around the engine's forward: the
+    ``lr_logits`` launch with its host-side plan and call, σ and the
+    labels), ``reply_ms`` (read-back and the JSON reply), and
+    ``request_ms``, the client's wall time of the same JSON request."""
+    out = {}
+    w = eng._weights
+    lo = 0
+    for b in SERVE_BUCKETS:
+        lines = _libsvm_lines(cols[lo:lo + b], y[lo:lo + b])
+        lo += b
+        t0 = time.perf_counter()
+        (X,) = eng.encode_lines(lines)
+        t1 = time.perf_counter()
+        src = torch.from_numpy(X).to(torch.bfloat16)
+        t2 = time.perf_counter()
+        buf = torch.zeros((b, X.shape[1]), dtype=torch.bfloat16, device="cuda")
+        buf[:b].copy_(src)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        labels, scores = eng._forward(w, (buf,))
+        end.record()
+        end.synchronize()
+        t4 = time.perf_counter()
+        json.dumps({"labels": [int(v) for v in labels.cpu().numpy()],
+                    "scores": [round(float(v), 6) for v in scores.cpu().numpy()]})
+        t5 = time.perf_counter()
+        _, _, seconds = _json_request(srv.host, srv.port, lines)
+        out[f"B{b}"] = {"encode_ms": 1e3 * (t1 - t0), "cast_ms": 1e3 * (t2 - t1),
+                        "h2d_ms": 1e3 * (t3 - t2), "forward_span_ms": start.elapsed_time(end),
+                        "forward_host_ms": 1e3 * (t4 - t3), "reply_ms": 1e3 * (t5 - t4),
+                        "request_ms": 1e3 * seconds}
+        del X, src, buf
+    return out
+
+
+def _serve_kernel_shapes(torch, ops, w, cols) -> dict:
+    """``lr_logits`` at the serving buckets (64, 256, 1,024 rows x 1M, bf16),
+    its int8 instance and ``lr_logits_int8dot`` at 1,024 rows, against
+    their plain versions (REL_TOL) and timed: ``ms`` (25 back-to-back
+    calls between CUDA events), ``plain_ms``, ``library_ms`` (``torch.mv``;
+    for int8 X the composite of earlier phases) and ``bound_ms``; the
+    bf16 kernel and ``torch.mv`` are timed twice, alternating, the second
+    pair under ``repeat``."""
+    from distlr_tpu_torch.ops import fused_lr  # noqa: PLC0415
+
+    reps, out = 25, {}
+    wd = torch.from_numpy(w).cuda()
+    wb = wd.to(torch.bfloat16)
+    s = SERVE_INT8_SCALE
+    for b in SERVE_BUCKETS:
+        X = _device_rows(torch, cols[:b], FULL_D, torch.bfloat16)
+        z, z_ref = ops.lr_logits(wd, X), ops.lr_logits_reference(wd, X)
+        bound_ms, bound_by = _logits_bound(b, FULL_D, 2)
+        out[f"lr_logits_B{b}"] = {
+            "rel_err": rel_err(z, z_ref), "max_abs_err": float((z - z_ref).abs().max()),
+            "ms": time_ms(lambda: ops.lr_logits(wd, X), reps),
+            "library_ms": time_ms(lambda: torch.mv(X, wb), reps),
+            "repeat": {"ms": time_ms(lambda: ops.lr_logits(wd, X), reps),
+                       "library_ms": time_ms(lambda: torch.mv(X, wb), reps)},
+            "plain_ms": time_ms(lambda: ops.lr_logits_reference(wd, X), reps),
+            "plan": _plan_fields(fused_lr.launch_plan_for(X, kernel="logits")),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        del X
+    b = SERVE_BUCKETS[-1]
+    Xq = _device_rows(torch, cols[:b], FULL_D, torch.int8, round(1.0 / s))
+    bound_ms, bound_by = _logits_bound(b, FULL_D, 1)
+    for name, fn, ref in (
+            ("lr_logits_int8", lambda: ops.lr_logits(wd, Xq, feature_scale=s),
+             lambda: ops.lr_logits_reference(wd, Xq, feature_scale=s)),
+            ("lr_logits_int8dot", lambda: ops.lr_logits_int8dot(wd, Xq, feature_scale=s),
+             lambda: ops.lr_logits_int8dot_reference(wd, Xq, feature_scale=s))):
+        z, z_ref = fn(), ref()
+        out[f"{name}_B{b}"] = {
+            "rel_err": rel_err(z, z_ref), "max_abs_err": float((z - z_ref).abs().max()),
+            "ms": time_ms(fn, reps), "plain_ms": time_ms(ref, reps),
+            "library_ms": time_ms(lambda: torch.mv(Xq.to(torch.bfloat16), wb) * s, reps),
+            "library_note": "no single call: the composite X.to(bf16) + mv",
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    del Xq
+    torch.cuda.empty_cache()
+    bad = {k: v["rel_err"] for k, v in out.items() if v["rel_err"] > REL_TOL}
+    if bad:
+        raise AssertionError(f"serve: kernels disagree with their plain versions at the "
+                             f"serving shapes: {bad}")
+    return out
+
+
+def phase_serve(torch, seed: int, smi: str) -> dict:
+    """The scoring tier at the full width, through the entry points a user
+    calls: ``ScoringEngine`` (dense binary_lr, D = 1M, bf16 products,
+    buckets 64 / 256 / 1,024) behind an in-process ``ScoringServer``,
+    with the launch counts zeroed just before its traffic and read just
+    after the int8, int8_dot and wide engines' requests, the checkpoint and
+    live-PS hot reloads and the eviction; then the kernels at the serving
+    shapes and the per-bucket time breakdown (launches made there come
+    after the counts were read)."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.serve import ScoringServer  # noqa: PLC0415
+
+    rng = np.random.default_rng(seed + 10)
+    w_true = (rng.standard_normal(FULL_D) * 0.5).astype(np.float32)
+    n_main = SERVE_CLIENTS * SERVE_SINGLES + sum(SERVE_JSON_ROWS)
+    cols, y = _ctr_cols(rng, n_main, w_true, FULL_D)
+    cols_wide, _ = _ctr_cols(rng, SERVE_WIDE_ROWS, np.zeros(WIDE_D, np.float32), WIDE_D)
+    w = _serve_weights(rng, FULL_D, cols)
+    out, rss = {"nvidia_smi": smi, "D": FULL_D, "wide_D": WIDE_D,
+                "buckets": list(SERVE_BUCKETS), "max_wait_ms": SERVE_WAIT_MS}, {}
+    t_phase = time.perf_counter()
+    with _sampled_peak_rss(rss), tempfile.TemporaryDirectory(prefix="distlr-smoke-serve-") as tmp:
+        t0 = time.perf_counter()
+        eng = _serve_engine(torch, FULL_D)
+        eng.set_weights(w)
+        out["engine_start_s"] = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        with ScoringServer(eng, max_wait_ms=SERVE_WAIT_MS) as srv:
+            traffic = _serve_traffic(torch, ops, srv, torch.from_numpy(w).cuda(), cols, y)
+            out["side_engines"] = _serve_side_engines(
+                torch, ops, rng, w, cols[:SERVE_SIDE_ROWS], cols_wide, y)
+            out["checkpoint_swap"] = _serve_checkpoint_swap(torch, rng, tmp, cols, y)
+            out["eviction"] = _serve_eviction(torch, w, cols[:64])
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in _launches(ops).items() if v}
+            missing = [k for k in SERVE_KERNELS if not launches.get(k)]
+            others = sorted(set(launches) - set(SERVE_KERNELS))
+            if missing or others:
+                raise AssertionError(f"serve: the path launched {launches}: missing "
+                                     f"{missing}, unexpected {others}")
+            # the live-PS reload counts apart: its worker trains on the card
+            ops.reset_launch_counts()
+            live = _serve_live_ps(torch, rng, tmp, seed)
+            torch.cuda.synchronize()
+            live["launches"] = {k: v for k, v in _launches(ops).items() if v}
+            if (live["launches"].get("fused_lr_grad") != live["worker_steps"]
+                    or not live["launches"].get("lr_logits")
+                    or set(live["launches"]) != {"fused_lr_grad", "lr_logits"}):
+                raise AssertionError(f"serve live PS: not one fused_lr_grad a worker step and "
+                                     f"lr_logits for the probe: {live['launches']}")
+            out["live_ps"] = live
+            out["breakdown"] = _serve_breakdown(torch, srv, eng, cols, y)
+        stats = traffic.pop("stats")
+        out.update(traffic)
+        out["kernels_at_serve_shapes"] = _serve_kernel_shapes(torch, ops, w, cols)
+    out.update({"p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"], "qps": stats["qps"],
+                "requests": stats["requests"], "errors": stats["errors"],
+                "mean_occupancy": stats["batcher"]["mean_occupancy"],
+                "mean_requests_per_batch": stats["batcher"]["mean_requests_per_batch"],
+                "launches": launches, **rss, "phase_s": time.perf_counter() - t_phase,
+                "reduced": {"traffic": "a few thousand requests (a smoke test, not a load "
+                                       "test); the weights are random, made from the seed"}})
+    del eng
+    torch.cuda.empty_cache()
+    emit("serve", **out)
+    return out
+
+
 # model family -> (gen-data flags, sync / eval flags, the saved params'
 # shape, sync's iterations and test interval)
 CLI_FAMILIES = {
@@ -1488,20 +2028,69 @@ def _cli_ps(tmp: str) -> dict:
             "async_accuracy": [float(a) for _, a in async_lines]}
 
 
+def _cli_serve(tmp: str) -> dict:
+    """gen-data -> sync -> ``serve --model-file ... --port 0`` in a
+    subprocess on the card: the SERVING line, 3 test lines answered as the
+    in-process engine scores them on the same weights, exit code 143 on
+    SIGTERM."""
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.serve import ScoringEngine, score_lines_over_tcp  # noqa: PLC0415
+    from distlr_tpu_torch.train.export import load_model_text  # noqa: PLC0415
+
+    d = os.path.join(tmp, "serve")
+    _launch("gen-data", "--data-dir", d, "--num-samples", "2000", "--num-parts", "1",
+            "--num-feature-dim", "123")
+    _launch("sync", "--data-dir", d, "--num-feature-dim", "123", "--num-iteration", "10",
+            "--test-interval", "5", "--learning-rate", "0.5", "--l2-c", "0")
+    model_file = os.path.join(d, "models", "part-001")
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distlr_tpu_torch.launch", "serve", "--num-feature-dim", "123",
+         "--model-file", model_file, "--port", "0"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ready = proc.stdout.readline()
+        if not ready.startswith("SERVING "):
+            err = proc.stderr.read()[-2000:] if proc.poll() is not None else ""
+            raise AssertionError(f"launch serve printed {ready!r} first\n{err}")
+        host, port = ready.split()[1].rsplit(":", 1)
+        with open(os.path.join(d, "test", "part-001")) as f:
+            lines = [ln.strip() for ln in f if ln.strip()][:3]
+        replies = score_lines_over_tcp(host, int(port), lines)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    eng = ScoringEngine(Config(num_feature_dim=123))
+    eng.set_weights(load_model_text(model_file))
+    labels, scores = eng.score(eng.encode_lines(lines))
+    want = [f"{int(a)} {float(b):.6g}" for a, b in zip(labels, scores)]
+    if rc != 143 or replies != want:
+        raise AssertionError(f"launch serve: exit {rc} (want 143), replies {replies}, the "
+                             f"in-process engine gives {want}")
+    return {"ready_line": ready.strip().split()[0], "replies": replies,
+            "equal_to_in_process_engine": True, "sigterm_returncode": rc}
+
+
 def phase_cli() -> None:
     """gen-data -> sync -> eval through ``python -m distlr_tpu_torch.launch``
     for every model family, int8_dot sync with checkpoints then --resume,
-    and gen-data -> ps -> eval, the chains side by side."""
+    gen-data -> ps -> eval, and gen-data -> sync -> serve, the chains side
+    by side."""
     with tempfile.TemporaryDirectory(prefix="distlr-smoke-cli-") as tmp:
-        with ThreadPoolExecutor(len(CLI_FAMILIES) + 2) as pool:
+        with ThreadPoolExecutor(len(CLI_FAMILIES) + 3) as pool:
             futures = {f: pool.submit(_cli_family, tmp, f) for f in CLI_FAMILIES}
             resume = pool.submit(_cli_int8_dot_resume, tmp)
             ps = pool.submit(_cli_ps, tmp)
+            serve = pool.submit(_cli_serve, tmp)
             results = {f: fut.result() for f, fut in futures.items()}
             int8_dot = resume.result()
             ps_cli = ps.result()
+            serve_cli = serve.result()
     emit("cli", **results.pop("binary_lr"), families=results, int8_dot_resume=int8_dot,
-         ps=ps_cli)
+         ps=ps_cli, serve=serve_cli)
 
 
 # --- the on-device generation probes ----------------------------------------
@@ -1901,6 +2490,8 @@ def main(argv=None) -> int:
         phase_cli()
         phase = "ps"
         ps = phase_ps(torch, args.seed, env["nvidia_smi"])
+        phase = "serve"
+        serve = phase_serve(torch, args.seed, env["nvidia_smi"])
         phase = "roofline_experiments"
         launches = phase_roofline_experiments(torch, env["nvidia_smi"])
         # each dense kernel's launches on the main path that runs it, and
@@ -1917,6 +2508,14 @@ def main(argv=None) -> int:
         for shape, t in ps["kernels_at_ps_shapes"]["timing"].items():
             name, rows = shape.rsplit("_B", 1)
             timing[name].setdefault("at_ps_shapes", {})[f"B{rows}"] = t
+        # the scoring tier's run, and its live-PS reload's apart
+        for path_name, counts in (("serve", serve["launches"]),
+                                  ("serve_live_ps", serve["live_ps"]["launches"])):
+            for name, n in counts.items():
+                by_path.setdefault(name, {})[path_name] = n
+        for shape, t in serve["kernels_at_serve_shapes"].items():
+            name, rows = shape.rsplit("_B", 1)
+            timing[name].setdefault("at_serve_shapes", {})[f"B{rows}"] = t
     except Exception as e:  # report which phase failed, then fail the run
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
         raise
@@ -1938,7 +2537,7 @@ def main(argv=None) -> int:
         }
         for extra in ("library_note", "two_pass_ms", "row_blocks_ms", "plan", "shape",
                       "at_8_rows", "at_512_rows", "pair_ms", "wrap", "backward_ms",
-                      "at_ps_shapes"):
+                      "at_ps_shapes", "at_serve_shapes"):
             if extra in t:
                 entry[extra] = t[extra]
         if name in by_path:

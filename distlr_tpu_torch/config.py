@@ -4,7 +4,9 @@ Holds the fields of ``distlr_tpu/config.py::Config`` that the ported
 sync trainer reads (all five model families, int8 feature storage,
 checkpoints) and that the ported parameter-server worker loop reads
 (``num_servers``, ``ps_compute_backend``, ``ps_pipeline``,
-``ps_timeout_ms``; sync BSP and async Hogwild for the dense families), with the same names, defaults and validations, and the
+``ps_timeout_ms``; sync BSP and async Hogwild for the dense families)
+and the scoring tier reads (the ``serve_*`` fields of ``launch serve``),
+with the same names, defaults and validations, and the
 same resolution of the reference-quirk gates Q1, Q2, Q4 and Q5 from
 ``compat_mode``.  Options whose code is not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item, so a run never
@@ -38,6 +40,18 @@ _UNPORTED_PS_OPTIONS = {
     "ps_accum_start": 1, "ps_accum_growth": 2.0, "ps_accum_growth_every": 32, "ps_accum_max": 1,
     "ps_store_dir": None, "ps_store_interval_s": 5.0, "ps_store_wal": False,
     "ps_store_wal_fsync_s": 0.1, "chaos_plan": None, "chaos_seed": None,
+}
+
+#: the JAX package's serving options that are not ported, with their
+#: defaults and their ROADMAP items: hot-row keyed reload (A.18) and the
+#: feedback loop (A.11); any other value raises
+_UNPORTED_SERVE_OPTIONS = {
+    "serve_hot_rows": (0, "A.18"), "serve_hot_min_coverage": (0.95, "A.18"),
+    "serve_hot_full_every": (10, "A.18"),
+    "feedback_spool_dir": (None, "A.11"), "feedback_shard_dir": (None, "A.11"),
+    "feedback_window_s": (60.0, "A.11"), "feedback_negative_rate": (0.1, "A.11"),
+    "feedback_shard_records": (1024, "A.11"), "feedback_capacity": (100_000, "A.11"),
+    "feedback_drift_block": (512, "A.11"), "feedback_drift_threshold": (0.25, "A.11"),
 }
 
 
@@ -135,6 +149,40 @@ class Config:
     checkpoint_interval: int = 0      # epochs; 0 = only final save
     profile_dir: str | None = None    # not ported: must stay unset
 
+    # ---- serving (launch serve / distlr_tpu_torch.serve) ----
+    # Port 0 = OS-assigned ephemeral (announced as "SERVING host:port").
+    serve_port: int = 0
+    serve_host: str = "127.0.0.1"
+    # Upper bucket of the engine's padded batch ladder; also the
+    # microbatcher's flush size.
+    serve_max_batch_size: int = 1024
+    # Microbatch window: a request waits at most this long for
+    # co-batching company before flushing.
+    serve_max_wait_ms: float = 2.0
+    # Weight-source poll cadence for hot reload (checkpoint watch or
+    # live-PS pull): the serving staleness bound.
+    serve_reload_interval_s: float = 1.0
+    # Idle-engine eviction: an engine that scored nothing for this many
+    # seconds drops its device weight table (a host copy stays) and
+    # reloads it on the next request.  0 = never evict.
+    serve_engine_idle_evict_s: float = 0.0
+    # Model id the engine answers as; only "default" (one unnamed engine)
+    # is ported (several engines: ROADMAP A.17).
+    serve_model_id: str = "default"
+    # Not ported: hot-row reload (A.18) and the feedback loop (A.11);
+    # they must keep these defaults.
+    serve_hot_rows: int = 0
+    serve_hot_min_coverage: float = 0.95
+    serve_hot_full_every: int = 10
+    feedback_spool_dir: str | None = None
+    feedback_shard_dir: str | None = None
+    feedback_window_s: float = 60.0
+    feedback_negative_rate: float = 0.1
+    feedback_shard_records: int = 1024
+    feedback_capacity: int = 100_000
+    feedback_drift_block: int = 512
+    feedback_drift_threshold: float = 0.25
+
     # ---- port only ----
     device: str = "cuda"              # "cuda", "cuda:N" or "cpu"
 
@@ -223,6 +271,28 @@ class Config:
             raise ValueError("ctr_fields must be >= 0 (0 = read from manifest)")
         if not 0 <= self.hash_seed < 1 << 64:
             raise ValueError(f"hash_seed must be in [0, 2^64), got {self.hash_seed}")
+        self._check_serve()
+
+    def _check_serve(self) -> None:
+        if not 0 <= self.serve_port < 1 << 16:
+            raise ValueError(f"serve_port must be in [0, 65536), got {self.serve_port}")
+        if self.serve_max_batch_size <= 0:
+            raise ValueError(
+                f"serve_max_batch_size must be positive, got {self.serve_max_batch_size}")
+        if self.serve_max_wait_ms < 0:
+            raise ValueError(f"serve_max_wait_ms must be >= 0, got {self.serve_max_wait_ms}")
+        if self.serve_reload_interval_s <= 0:
+            raise ValueError(
+                f"serve_reload_interval_s must be positive, got {self.serve_reload_interval_s}")
+        if self.serve_engine_idle_evict_s < 0:
+            raise ValueError("serve_engine_idle_evict_s must be >= 0 (0 = never evict), "
+                             f"got {self.serve_engine_idle_evict_s}")
+        if self.serve_model_id != "default":
+            raise _not_ported(f"serve_model_id={self.serve_model_id!r} (named and several "
+                              "engines)", "A.17")
+        for name, (default, item) in _UNPORTED_SERVE_OPTIONS.items():
+            if getattr(self, name) != default:
+                raise _not_ported(f"the serving option {name}={getattr(self, name)!r}", item)
 
     def replace(self, **kw: Any) -> "Config":
         return dataclasses.replace(self, **kw)

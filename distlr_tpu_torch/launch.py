@@ -1,5 +1,5 @@
-"""Command-line entry point of the port: ``gen-data``, ``sync``, ``eval``
-and ``ps``.
+"""Command-line entry point of the port: ``gen-data``, ``sync``, ``eval``,
+``ps`` and ``serve``.
 
 Counterpart of ``distlr_tpu/launch.py`` for the options the port carries,
 with the same flag names, plus ``--device`` (default ``cuda``; the CPU
@@ -34,6 +34,14 @@ or (``--async``) Hogwild; each worker writes ``models/part-00{rank+1}``::
 
     python -m distlr_tpu_torch.launch ps --data-dir D --num-feature-dim 123 \\
         --num-workers 2 --num-servers 2 [--async] [--no-ps-pipeline]
+
+``serve`` scores libsvm lines over TCP with a trained model (every
+family), reloading its weights from a watched checkpoint dir or a live KV
+server group; it prints ``SERVING host:port`` when it listens and exits
+143 on SIGTERM::
+
+    python -m distlr_tpu_torch.launch serve --num-feature-dim 123 \
+        --model-file D/models/part-001 [--checkpoint-dir K | --ps-hosts H] --port 0
 """
 
 from __future__ import annotations
@@ -84,6 +92,28 @@ _UNPORTED_PS_FLAGS = (
     ("--checkpoint-dir", "checkpoint_dir", str),
     ("--checkpoint-interval", "checkpoint_interval", int),
     ("--resume", "resume", None),
+)
+
+
+#: the JAX package's ``serve`` flags that are not ported, with their ROADMAP
+#: items: (flag, dest, type; None = a switch, item); given, each one raises
+_UNPORTED_SERVE_FLAGS = (
+    ("--ps-ctl", "ps_ctl", str, "A.16"),
+    ("--hot-rows", "hot_rows", int, "A.18"),
+    ("--hot-min-coverage", "hot_min_coverage", float, "A.18"),
+    ("--hot-full-every", "hot_full_every", int, "A.18"),
+    ("--feedback-spool", "feedback_spool", str, "A.11"),
+    ("--feedback-shards", "feedback_shards", str, "A.11"),
+    ("--feedback-window", "feedback_window", float, "A.11"),
+    ("--feedback-negative-rate", "feedback_negative_rate", float, "A.11"),
+    ("--feedback-shard-records", "feedback_shard_records", int, "A.11"),
+    ("--feedback-capacity", "feedback_capacity", int, "A.11"),
+    ("--drift-block", "drift_block", int, "A.11"),
+    ("--drift-threshold", "drift_threshold", float, "A.11"),
+    ("--model-id", "model_id", str, "A.17"),
+    ("--extra-model", "extra_models", str, "A.17"),
+    ("--ps-namespaces", "ps_namespaces", str, "A.17"),
+    ("--ps-namespace", "ps_namespace", str, "A.17"),
 )
 
 
@@ -252,6 +282,86 @@ def cmd_ps(args: argparse.Namespace) -> int:
     return 0
 
 
+def _serve_row_width(cfg: Config) -> int:
+    """Values a PS row key owns in serving pulls.  The dense families'
+    tables are pulled as flat keys, one value a key, as the port's PS
+    trainer pushes them; blocked rows own ``block_size`` lanes and
+    ``sparse_softmax`` rows ``num_classes`` values (keyed rows: A.15)."""
+    if cfg.model == "blocked_lr":
+        return cfg.block_size
+    if cfg.model == "sparse_softmax":
+        return cfg.num_classes
+    return 1
+
+
+def cmd_serve(args: argparse.Namespace) -> int:
+    """Scoring front-end over a trained model: batched scoring behind the
+    TCP line protocol, with hot weight reload from a checkpoint dir or a
+    live KV server group (a trainer and this server can share the group:
+    ``launch ps --async`` + ``launch serve --ps-hosts ...``)."""
+    import os  # noqa: PLC0415
+    import signal  # noqa: PLC0415
+
+    from distlr_tpu_torch.config import _not_ported  # noqa: PLC0415
+    from distlr_tpu_torch.serve import (  # noqa: PLC0415
+        CheckpointWatcher,
+        HotReloader,
+        LivePSWatcher,
+        ScoringEngine,
+        ScoringServer,
+    )
+    from distlr_tpu_torch.train.export import load_model_text  # noqa: PLC0415
+    from distlr_tpu_torch.train.ps_trainer import ps_param_dim  # noqa: PLC0415
+
+    for flag, dest, _, item in _UNPORTED_SERVE_FLAGS:
+        if getattr(args, dest) not in (None, False):
+            raise _not_ported(f"launch serve {flag}", item)
+    if not (args.model_file or args.checkpoint_dir or args.ps_hosts):
+        print("error: serve needs a weight source: --model-file and/or --checkpoint-dir "
+              "(watched) or --ps-hosts (live pull)", file=sys.stderr)
+        return 2
+    if args.model == "blocked_lr" and args.block_size == 0 and not os.path.isdir(
+            args.data_dir or Config.data_dir):
+        print("error: blocked_lr serving needs the trained (R, groups) pinned "
+              "(--block-size/--block-groups), or a --data-dir to re-resolve 'auto' from",
+              file=sys.stderr)
+        return 2
+    serve_over = {
+        "serve_port": args.port, "serve_host": args.bind,
+        "serve_max_batch_size": args.serve_max_batch_size,
+        "serve_max_wait_ms": args.max_wait_ms,
+        "serve_reload_interval_s": args.reload_interval,
+        "serve_engine_idle_evict_s": args.engine_idle_evict,
+    }
+    cfg = _config_from_args(args).replace(
+        **{k: v for k, v in serve_over.items() if v is not None})
+
+    if args.ps_hosts:
+        source = LivePSWatcher(args.ps_hosts, ps_param_dim(cfg),
+                               vals_per_key=_serve_row_width(cfg))
+    elif cfg.checkpoint_dir:
+        source = CheckpointWatcher(cfg.checkpoint_dir)
+    else:
+        source = None
+    engine = ScoringEngine(cfg, max_batch_size=cfg.serve_max_batch_size,
+                           idle_evict_s=cfg.serve_engine_idle_evict_s)
+    if args.model_file:
+        engine.set_weights(load_model_text(args.model_file, shape=engine.model.param_shape))
+    reloader = None
+    if source is not None:
+        reloader = HotReloader(engine, source, interval_s=cfg.serve_reload_interval_s).start()
+        if not engine.has_weights:
+            reloader.wait_for_weights()
+
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    server = ScoringServer(engine, host=cfg.serve_host, port=cfg.serve_port,
+                           max_wait_ms=cfg.serve_max_wait_ms, reloader=reloader)
+    # the scriptable readiness line
+    print(f"SERVING {server.host}:{server.port}", flush=True)
+    server.serve_forever()
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="distlr_tpu_torch.launch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -323,6 +433,33 @@ def main(argv=None) -> int:
         else:
             p.add_argument(flag, dest=dest, type=typ, help="not ported yet (ROADMAP A.16)")
     p.set_defaults(fn=cmd_ps)
+
+    r = sub.add_parser("serve", help="online scoring server (batched scoring on the card, "
+                       "hot weight reload)")
+    _add_config_flags(r)
+    r.add_argument("--model-file", dest="model_file",
+                   help="initial weights: a text model file (models/part-00N)")
+    r.add_argument("--checkpoint-dir", dest="checkpoint_dir",
+                   help="watch this checkpoint dir and serve each new step")
+    r.add_argument("--ps-hosts", dest="ps_hosts",
+                   help="pull live weights from this running KV server group "
+                   "(comma-separated host:port, rank order), e.g. while `launch ps "
+                   "--async --hosts` trains against it")
+    r.add_argument("--port", type=int, help="listen port (default: ephemeral, announced "
+                   "as 'SERVING host:port')")
+    r.add_argument("--bind", help="listen address (default 127.0.0.1)")
+    r.add_argument("--serve-max-batch-size", dest="serve_max_batch_size", type=int,
+                   help="top batch bucket and microbatch flush size (default 1024)")
+    r.add_argument("--max-wait-ms", dest="max_wait_ms", type=float,
+                   help="microbatch window: max ms a request waits for company (default 2)")
+    r.add_argument("--reload-interval", dest="reload_interval", type=float,
+                   help="weight-source poll period, seconds (jittered ±20%%; default 1)")
+    r.add_argument("--engine-idle-evict", dest="engine_idle_evict", type=float,
+                   help="drop the device weight table after this many idle seconds (the "
+                   "next request reloads it); default 0 = never")
+    for flag, dest, typ, item in _UNPORTED_SERVE_FLAGS:
+        r.add_argument(flag, dest=dest, type=typ, help=f"not ported yet (ROADMAP {item})")
+    r.set_defaults(fn=cmd_serve)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -9,7 +9,7 @@ wire are that client's byte for byte.  Each call releases the GIL inside
 ``ctypes``: a worker blocked in a sync push (the BSP barrier is the
 server's deferred reply) does not hold up the other worker threads.
 
-Not ported yet: the retry policy and reconnect ladder, membership epochs
+Not ported yet: the retry policy, membership epochs
 and re-routing, wire codecs, keyed ``vals_per_key`` rows, namespaces
 (ROADMAP A.15, A.16) and the trace spans and registry counters (A.12).
 """
@@ -21,6 +21,7 @@ import threading
 
 import numpy as np
 
+from distlr_tpu_torch.config import _not_ported
 from distlr_tpu_torch.ps import wire
 from distlr_tpu_torch.ps.build import client_lib
 
@@ -116,28 +117,47 @@ class KVWorker:
 
     def __init__(self, hosts: str, dim: int, client_id: int = 0, *,
                  timeout_ms: int = 0, sync_group: bool = True):
-        lib = _load()
-        self._lib = lib
+        self._lib = _load()
+        self.hosts = hosts
         self.dim = int(dim)
         self.num_servers = hosts.count(",") + 1
-        self._h = lib.kv_connect(hosts.encode(), self.dim, client_id)
-        if not self._h:
-            raise ConnectionError(f"could not connect to KV servers at {hosts}")
-        try:
-            if timeout_ms:
-                self.set_timeout(timeout_ms)
-            if not sync_group:
-                lib.kv_set_push_visit_all(self._h, 0)
-        except Exception:
-            self.close()
-            raise
+        self._client_id = client_id
+        self._timeout_ms = int(timeout_ms)
+        self._sync_group = sync_group
+        self._h = self._build_handle()
         # dense default key set 0..D-1, like the reference app (src/lr.cc:117-121)
         self._all_keys = np.arange(self.dim, dtype=np.uint64)
+
+    def _build_handle(self):
+        """A new native handle with this worker's hosts, dim, client id,
+        timeout and group mode."""
+        lib = self._lib
+        h = lib.kv_connect(self.hosts.encode(), self.dim, self._client_id)
+        if not h:
+            raise ConnectionError(f"could not connect to KV servers at {self.hosts}")
+        if self._timeout_ms and lib.kv_set_timeout_ms(h, self._timeout_ms) != 0:
+            lib.kv_close(h)
+            raise OSError("failed to set KV socket timeout")
+        if not self._sync_group:
+            lib.kv_set_push_visit_all(h, 0)
+        return h
+
+    def reconnect(self) -> None:
+        """Rebuild the native handle in place, the way out of a poisoned
+        connection (after one failed receive every later op on that stream
+        fails).  The new connections open before the old ones close, so a
+        failed reconnect (servers still down) raises and leaves the old
+        handle as it was."""
+        h = self._build_handle()
+        old, self._h = self._h, h
+        if old:
+            self._lib.kv_close(old)
 
     def set_timeout(self, timeout_ms: int) -> None:
         """Receive timeout for every op; 0 = block forever."""
         if self._lib.kv_set_timeout_ms(self._h, int(timeout_ms)) != 0:
             raise OSError("failed to set KV socket timeout")
+        self._timeout_ms = int(timeout_ms)
 
     def _check(self, ts: int, what: str) -> int:
         if ts < 0:
@@ -210,6 +230,30 @@ class KVWorker:
         ts = self._lib.kv_pull_vpk(self._h, _ptr(keys), _ptr(out), keys.shape[0], 1)
         self._check(ts, "pull")
         return out
+
+    def pull_chunked(self, keys: np.ndarray | None = None, *, vals_per_key: int = 1,
+                     chunk_rows: int = 1 << 16) -> np.ndarray:
+        """Pull a large key set as a sequence of keyed pulls of at most
+        ``chunk_rows`` keys each, so a periodic weight refresh never holds a
+        server's receive loop for a whole table against a trainer pushing
+        to the same group (the scoring tier's read path).  ``keys=None``
+        pulls ``0..dim`` as explicit keys; an ascending ``keys`` array is
+        chunked as given; an empty one gives an empty f32 array."""
+        if int(vals_per_key) != 1:
+            raise _not_ported(f"pull_chunked with vals_per_key={vals_per_key} (keyed PS rows)",
+                              "A.15")
+        if chunk_rows <= 0:
+            raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
+        if keys is None:
+            parts = [self.pull(np.arange(lo, min(lo + chunk_rows, self.dim), dtype=np.uint64))
+                     for lo in range(0, self.dim, chunk_rows)]
+        else:
+            keys = self._keys(keys)
+            parts = [self.pull(keys[lo:lo + chunk_rows])
+                     for lo in range(0, keys.shape[0], chunk_rows)]
+        if not parts:
+            return np.empty(0, np.float32)
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
     def wait(self, ts: int) -> None:
         """No-op for API parity: push and pull already block (the

@@ -1,0 +1,277 @@
+"""Hot weight reload: keep a scoring engine fresh while training runs.
+
+Counterpart of ``distlr_tpu/serve/reload.py``: two weight sources behind
+one ``poll() -> (version, weights) | None`` interface, and a poller that
+publishes into ``engine.set_weights``.
+
+* :class:`CheckpointWatcher` watches a checkpoint directory written by the
+  port's :class:`~distlr_tpu_torch.train.checkpoint.Checkpointer` (one
+  ``.npz`` a step; the JAX package's orbax format is not read) and
+  reports each new latest step once; the version is the step.
+* :class:`LivePSWatcher` pulls the current weights from a running KV
+  server group through chunked keyed pulls
+  (:meth:`~distlr_tpu_torch.ps.KVWorker.pull_chunked`, one value a key:
+  the dense families' tables).  Pulls neither vote in barriers nor count
+  as pushes, so a trainer and the scoring tier run against the same group
+  at once; the poll interval is the staleness bound.
+
+:class:`HotReloader` polls a source on a background thread with a
+jittered interval (replicas started together would otherwise pull the PS
+in lockstep), keeps serving the last good weights through failed polls,
+and offers :meth:`HotReloader.wait_for_weights` as the start-up gate.
+
+Not ported: the retry policy and membership routing of the PS client
+(ROADMAP A.16), hot-row keyed reload (A.18), PS namespaces (A.17), keyed
+rows of several values (A.15), and the trace spans and registry counters
+(A.12).
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+import time
+
+import numpy as np
+
+from distlr_tpu_torch.config import _not_ported
+from distlr_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
+
+
+class CheckpointWatcher:
+    """Poll a checkpoint dir; report each new latest step once."""
+
+    def __init__(self, directory: str):
+        self._dir = directory
+        self._last_step: int | None = None
+
+    def poll(self):
+        from distlr_tpu_torch.train.checkpoint import Checkpointer  # noqa: PLC0415
+
+        with Checkpointer(self._dir) as ckpt:
+            step = ckpt.latest_step()
+            if step is None or step == self._last_step:
+                return None
+            state = ckpt.restore(step)
+        self._last_step = step
+        return step, np.asarray(state["weights"]).reshape(-1)
+
+    def close(self) -> None:
+        pass
+
+
+class LivePSWatcher:
+    """Pull the current weights from a live KV server group each poll.
+
+    The protocol has no "new version" signal: every poll returns the
+    current table with a local version that increases by one.  After a
+    failed poll the next one reconnects first, then re-checks that every
+    server rank is initialized (the group may have been replaced by an
+    unseeded one, which answers pulls with zeros); until then a poll
+    reports nothing and the last good weights keep serving.
+    """
+
+    #: client_id of serving pulls, out of the way of trainer worker ranks
+    SERVE_CLIENT_ID = 4095
+
+    def __init__(self, hosts: str, dim: int, *, vals_per_key: int = 1,
+                 chunk_rows: int = 1 << 16, timeout_ms: int = 10_000,
+                 client_id: int | None = None, hot_tracker=None, retry=None,
+                 ns_base: int = 0, ns_total_dim: int | None = None, route=None):
+        if int(vals_per_key) != 1:
+            raise _not_ported(f"live-PS serving with vals_per_key={vals_per_key} "
+                              "(keyed PS rows)", "A.15")
+        if retry is not None or route is not None:
+            raise _not_ported("the PS client's retry policy and membership routing", "A.16")
+        if hot_tracker is not None:
+            raise _not_ported("hot-row keyed reload (hot_tracker)", "A.18")
+        if ns_base or ns_total_dim is not None:
+            raise _not_ported("PS namespaces (ns_base / ns_total_dim)", "A.17")
+        from distlr_tpu_torch.ps import KVWorker  # noqa: PLC0415
+
+        self.hosts = hosts
+        self.dim = int(dim)
+        # a pull-only client never votes in a BSP barrier
+        self.kv = KVWorker(hosts, self.dim,
+                           client_id=self.SERVE_CLIENT_ID if client_id is None else client_id,
+                           timeout_ms=timeout_ms, sync_group=True)
+        self.chunk_rows = int(chunk_rows)
+        self._needs_reconnect = False
+        self._check_init = True
+        self._version = 0
+        self.full_reloads = 0
+        self.last_kind: str | None = None
+        self.last_rows = 0
+
+    def poll(self):
+        if self._needs_reconnect:
+            # a still-down PS raises here: one more degraded cycle
+            self.kv.reconnect()
+            self._needs_reconnect = False
+            self._check_init = True
+        try:
+            if self._check_init:
+                # every rank must be seeded: an unseeded one answers zeros
+                if not all(self.kv.stats(r).get("initialized")
+                           for r in range(self.kv.num_servers)):
+                    return None
+                self._check_init = False
+            w = self.kv.pull_chunked(chunk_rows=self.chunk_rows)
+        except OSError:
+            self._needs_reconnect = True
+            raise
+        self._version += 1
+        self.full_reloads += 1
+        self.last_kind, self.last_rows = "full", w.size
+        return self._version, w
+
+    def describe_unready(self) -> str:
+        """Why no weights came: "PS unreachable" and "PS reachable but
+        uninitialized" call for different fixes."""
+        from distlr_tpu_torch.ps import KVWorker  # noqa: PLC0415
+
+        try:
+            # a fresh probe: this watcher's handle may be the broken thing
+            with KVWorker(self.hosts, self.dim, client_id=self.SERVE_CLIENT_ID,
+                          timeout_ms=2000) as probe:
+                unseeded = [r for r in range(probe.num_servers)
+                            if not probe.stats(r).get("initialized")]
+        except OSError as e:
+            return f"PS unreachable at {self.hosts}: {type(e).__name__}: {e}"
+        if unseeded:
+            return (f"PS reachable at {self.hosts} but UNINITIALIZED (server rank(s) "
+                    f"{unseeded} unseeded) — no trainer has pushed initial weights there yet")
+        return (f"PS reachable and initialized at {self.hosts}; polls are failing for "
+                "another reason (see reload warnings)")
+
+    def stats(self) -> dict:
+        return {"mode": "full", "full_reloads": self.full_reloads, "hot_reloads": 0,
+                "last_kind": self.last_kind, "last_rows": self.last_rows}
+
+    def close(self) -> None:
+        self.kv.close()
+
+
+class HotReloader:
+    """Background poller: source -> ``engine.set_weights`` swaps.
+
+    Poll errors are counted and logged, never fatal: the engine keeps
+    answering on its last good weights.  While degraded, at most one
+    warning per ``warn_every_s``; recovery logs once.  Each wait is drawn
+    from ``interval_s * (1 ± jitter)`` (``jitter=0``: a fixed cadence).
+    """
+
+    #: floor between degraded-cycle warnings (seconds)
+    warn_every_s = 10.0
+
+    def __init__(self, engine, source, *, interval_s: float = 1.0, jitter: float = 0.2,
+                 _seed: int | None = None):
+        if interval_s <= 0:
+            raise ValueError(f"interval_s must be positive, got {interval_s}")
+        if not 0.0 <= jitter < 1.0:
+            raise ValueError(f"jitter must be in [0, 1), got {jitter}")
+        self.engine = engine
+        self.source = source
+        self.interval_s = float(interval_s)
+        self.jitter = float(jitter)
+        self._rng = random.Random(_seed)
+        self.reloads = 0
+        self.errors = 0
+        self.last_version = None
+        self._degraded_since: float | None = None
+        self._last_warn = float("-inf")
+        self._stop = threading.Event()
+        # wait_for_weights (the caller's thread) can overlap the loop, and
+        # sources keep per-poll state
+        self._poll_lock = threading.Lock()
+        self._thread = threading.Thread(target=self._run, daemon=True, name="distlr-hot-reload")
+
+    def _next_wait(self) -> float:
+        if not self.jitter:
+            return self.interval_s
+        return self.interval_s * (1.0 + self.jitter * (2.0 * self._rng.random() - 1.0))
+
+    def _warn_degraded(self, what: str) -> None:
+        now = time.monotonic()
+        if now - self._last_warn >= self.warn_every_s:
+            self._last_warn = now
+            last = (f", version {self.last_version}" if self.last_version is not None
+                    else " — none yet")
+            log.warning("weight source DEGRADED for %.0fs (%d errors; serving last-good "
+                        "weights%s): %s", now - self._degraded_since, self.errors, last, what)
+
+    def _poll_once(self) -> bool:
+        with self._poll_lock:
+            try:
+                got = self.source.poll()
+            except Exception as e:
+                self.errors += 1
+                if self._degraded_since is None:
+                    self._degraded_since = time.monotonic()
+                self._warn_degraded(str(e))
+                return False
+            if got is None:
+                # the transport answered but there is nothing to publish
+                # (e.g. a replacement PS group not seeded yet): not recovery
+                if self._degraded_since is not None:
+                    self._warn_degraded("transport answered but published no weights")
+                return False
+            if self._degraded_since is not None:
+                log.info("weight source recovered after %.0fs degraded (%d errors total)",
+                         time.monotonic() - self._degraded_since, self.errors)
+                self._degraded_since = None
+                self._last_warn = float("-inf")
+            version, weights = got
+            self.engine.set_weights(weights)
+            self.reloads += 1
+            self.last_version = version
+            return True
+
+    def _run(self):
+        while not self._stop.wait(self._next_wait()):
+            self._poll_once()
+
+    def start(self) -> "HotReloader":
+        self._thread.start()
+        return self
+
+    def wait_for_weights(self, timeout_s: float = 30.0) -> None:
+        """Block until the engine has weights (the first successful poll):
+        the server's start-up gate when no initial weights were given."""
+        deadline = time.monotonic() + timeout_s
+        while not self.engine.has_weights:
+            if self._poll_once():
+                return
+            if time.monotonic() >= deadline:
+                detail = ""
+                describe = getattr(self.source, "describe_unready", None)
+                if callable(describe):
+                    try:
+                        detail = f": {describe()}"
+                    except Exception as e:  # the diagnosis must not mask the timeout
+                        detail = f" (diagnosis failed: {e})"
+                raise TimeoutError(f"no weights from {type(self.source).__name__} within "
+                                   f"{timeout_s:.0f}s{detail}")
+            time.sleep(min(self.interval_s, 0.2))
+
+    def stats(self) -> dict:
+        rec = {"reloads": self.reloads, "reload_errors": self.errors,
+               "last_version": self.last_version, "interval_s": self.interval_s}
+        source_stats = getattr(self.source, "stats", None)
+        if callable(source_stats):
+            rec["source"] = source_stats()
+        return rec
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout=10.0)
+        self.source.close()
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()

@@ -62,6 +62,12 @@ class MetricsLogger:
             self._file.flush()
         return record
 
+    @property
+    def closed(self) -> bool:
+        """Whether :meth:`close` ran (a scoring server's ``stats()`` then
+        stops mirroring its records here)."""
+        return self._closed
+
     def close(self):
         if self._file:
             self._file.close()

@@ -647,3 +647,108 @@ def test_roofline_shapes_the_kernels_refuse(cuda):
         ops.roofline_hash(w, bt=8, reps=1)
     with pytest.raises(ValueError, match="multiple of 64"):
         ops.roofline_mxu(torch.ones(8, 256, device=cuda), torch.ones(256, 128, device=cuda), reps=1)
+
+
+# --- the scoring engine on the card ------------------------------------------
+
+
+def _one_hot_rows(n, D, fields=39, seed=0):
+    """``n`` host rows with one 1.0 in each of ``fields`` column ranges."""
+    import numpy as np  # noqa: PLC0415
+
+    rng = np.random.default_rng(seed)
+    per = D // fields
+    cols = rng.integers(0, per, size=(n, fields)) + np.arange(fields) * per
+    X = np.zeros((n, D), np.float32)
+    X[np.arange(n)[:, None], cols] = 1.0
+    return X
+
+
+def _serve_weights(D, seed=0):
+    """Centred weights whose logits on :func:`_one_hot_rows` have a
+    deviation of about 1.5 (no residual saturates)."""
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn(D, generator=gen) * (1.5 / 39 ** 0.5)).numpy()
+
+
+def test_engine_on_card_matches_plain_at_64_rows(cuda):
+    from distlr_tpu_torch.serve import ScoringEngine  # noqa: PLC0415
+
+    D = 1_000_000
+    eng = ScoringEngine(Config(num_feature_dim=D, l2_c=0.0))
+    assert eng.device.type == "cuda" and eng.product_dtype == torch.bfloat16
+    w = _serve_weights(D)
+    eng.set_weights(w)
+    X = _one_hot_rows(40, D)
+    before = _counts()
+    labels, scores = eng.score((X,))
+    after = _counts()
+    # one streaming forward for the 64-row bucket, and nothing else
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {"lr_logits": 1}
+    assert eng.stats()["bucket_hits"] == {64: 1}
+    z = ops.lr_logits_reference(torch.from_numpy(w).to(cuda),
+                                torch.from_numpy(X).to(cuda, torch.bfloat16)).cpu()
+    assert (torch.from_numpy(scores) - torch.sigmoid(z)).abs().max() <= 1e-5
+    clear = z.abs() > 1e-3
+    assert torch.equal(torch.from_numpy(labels)[clear], (z > 0).to(torch.int32)[clear])
+
+
+def test_engine_swap_under_concurrent_scoring(cuda):
+    """Every batch scored while another thread swaps the weights scores on
+    one of the two tables, bit for bit: no torn or freed table is read."""
+    import threading  # noqa: PLC0415
+
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.serve import ScoringEngine  # noqa: PLC0415
+
+    D = 200_000
+    eng = ScoringEngine(Config(num_feature_dim=D, l2_c=0.0))
+    w1, w2 = _serve_weights(D, 1), _serve_weights(D, 2)
+    X = _one_hot_rows(64, D, seed=3)
+    expected = []
+    for w in (w1, w2):
+        eng.set_weights(w)
+        expected.append(eng.score((X,))[1])
+    assert not np.array_equal(*expected)
+    stop, seen, errors = threading.Event(), [], []
+
+    def scorer():
+        try:
+            while not stop.is_set():
+                seen.append(eng.score((X,))[1])
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    import time  # noqa: PLC0415
+
+    t = threading.Thread(target=scorer)
+    t.start()
+    # swap until the scorer has scored often enough, whatever its pace
+    swaps, deadline = 0, time.monotonic() + 60
+    while (swaps < 60 or len(seen) < 30) and not errors and time.monotonic() < deadline:
+        eng.set_weights((w1, w2)[swaps % 2])
+        swaps += 1
+    stop.set()
+    t.join(timeout=60)
+    assert not t.is_alive() and not errors and len(seen) >= 30, (len(seen), errors)
+    assert all(np.array_equal(s, expected[0]) or np.array_equal(s, expected[1]) for s in seen)
+
+
+def test_engine_eviction_frees_the_device_table(cuda):
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.serve import ScoringEngine  # noqa: PLC0415
+
+    D = 1_000_000
+    eng = ScoringEngine(Config(num_feature_dim=D, l2_c=0.0), idle_evict_s=3600.0)
+    eng.set_weights(_serve_weights(D))
+    X = _one_hot_rows(8, D)
+    first = eng.score((X,))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    assert eng.maybe_evict(now=1e12) and not eng.resident
+    assert held - torch.cuda.memory_allocated() >= D * 4
+    again = eng.score((X,))
+    assert eng.resident
+    assert np.array_equal(first[1], again[1]) and np.array_equal(first[0], again[0])

@@ -153,6 +153,15 @@ class TestConfigGates:
         ({"ps_store_dir": "store"}, "A.16"),
         ({"ps_store_wal": True}, "A.16"),
         ({"chaos_plan": "plan.json"}, "A.16"),
+        # the serving options of hot-row reload, the feedback loop and
+        # named engines
+        ({"serve_hot_rows": 1024}, "A.18"),
+        ({"serve_hot_min_coverage": 0.5}, "A.18"),
+        ({"serve_hot_full_every": 0}, "A.18"),
+        ({"feedback_spool_dir": "spool"}, "A.11"),
+        ({"feedback_window_s": 5.0}, "A.11"),
+        ({"feedback_drift_threshold": 0.5}, "A.11"),
+        ({"serve_model_id": "v2"}, "A.17"),
     ])
     def test_unported_options_name_their_roadmap_item(self, kw, item):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
@@ -194,6 +203,24 @@ class TestConfigGates:
     def test_invalid_ps_options_rejected(self, kw, match):
         with pytest.raises(ValueError, match=match):
             Config(device="cpu", **kw)
+
+    def test_ported_serve_options_resolve_like_jax(self):
+        kw = {"serve_port": 8123, "serve_host": "0.0.0.0", "serve_max_batch_size": 256,
+              "serve_max_wait_ms": 0.5, "serve_reload_interval_s": 0.2,
+              "serve_engine_idle_evict_s": 30.0}
+        j, t = JaxConfig(**kw), Config(device="cpu", **kw)
+        for f in (*kw, "serve_model_id", "serve_hot_rows", "feedback_spool_dir"):
+            assert getattr(t, f) == getattr(j, f), f
+
+    @pytest.mark.parametrize("kw", [
+        {"serve_port": 70_000}, {"serve_max_batch_size": 0}, {"serve_max_wait_ms": -1.0},
+        {"serve_reload_interval_s": 0.0}, {"serve_engine_idle_evict_s": -1.0},
+    ])
+    def test_invalid_serve_options_rejected_like_jax(self, kw):
+        (name,) = kw
+        for cls in (JaxConfig, lambda **k: Config(device="cpu", **k)):
+            with pytest.raises(ValueError, match=name):
+                cls(**kw)
 
     def test_negative_checkpoint_interval_rejected(self):
         with pytest.raises(ValueError, match="checkpoint_interval"):
