@@ -9,8 +9,12 @@ It builds the port's CUDA kernels from the sources in the checkout,
 holds each against its plain PyTorch version on the card, drives the
 port's main path — the sync dense-LR trainer at the repo's full width
 (D = 1,000,000 features, 2048 rows a step, bfloat16 features, then the
-same rows stored as int8 and as int8_dot) — through
-``Trainer.load_data / fit / evaluate_metrics / save_model``, then the same
+same rows stored as int8 and as int8_dot, and the same bf16 rows on the
+feature-sharded path, 2 row blocks x 4 column blocks of ``lr_logits`` and
+``lr_backward`` a step, held to the unsharded run) — through
+``Trainer.load_data / fit / evaluate_metrics / save_model``, then the
+feature-sharded step at 256 rows (int8, int8_dot, the ring step, and a
+column block of unaligned 24-byte rows), then the same
 trainer at a width above the single-pass kernel's shared-memory bound (D =
 6,000,000, where the two-read path takes over: the streaming forward in
 several waves, a residual epilogue, the backward; bfloat16 and int8
@@ -21,7 +25,9 @@ D = 1M buckets, 21 fields, 65,536 rows a step; ``softmax`` at the
 MNIST-shaped D = 784, K = 10, 60,000 rows, and its step alone at D = 1M,
 2048 rows), then the ``gen-data -> sync -> eval`` CLI in subprocesses for
 every family, an int8_dot sync that checkpoints and resumes,
-``gen-data -> ps -> eval`` and ``gen-data -> sync -> serve``, then the parameter-server path at the full
+``gen-data -> ps -> eval``, ``gen-data -> sync -> serve`` (a text model,
+then a checkpoint directory), ``sync`` and ``eval --feature-shards 4`` and
+``sync`` as a one-rank NCCL group, then the parameter-server path at the full
 width through ``run_ps_local`` (native libsvm shards of config-3 CTR rows
 at D = 1M, 2 native KV servers, 2 worker threads on the card: sync BSP
 and async Hogwild, each gradient the ``fused_lr_grad`` single pass; then
@@ -111,6 +117,19 @@ INT8_REPLACES = {
     "lr_logits_int8dot": "distlr_tpu/ops/pallas_lr.py:75",
     "lr_backward_int8dot": "distlr_tpu/ops/pallas_lr.py:86",
 }
+# the backward launch of row 1's two-read path under its own wrapper, the
+# feature-sharded step's gradient of each column block, and
+# its int8 instance
+BACKWARD_REPLACES = {"lr_backward": "distlr_tpu/ops/pallas_lr.py:86"}
+BACKWARD_INT8_REPLACES = {"lr_backward_int8": "distlr_tpu/ops/pallas_lr.py:86"}
+BACKWARD_NOTE = ("the backward half of row 1 (rᵀX) alone; the JAX feature-sharded step runs "
+                 "an XLA dot there (distlr_tpu/parallel/feature_parallel.py:85-106)")
+# the feature-sharded step at the main path's width: 2 row blocks x 4
+# column blocks (D / 4 = 250,000 columns a block)
+SHARDED_MESH = {"data": 2, "model": 4}
+SHARDED_SMALL_B = 256
+# a column block whose rows break 16-byte alignment: 12 bf16 columns
+UNALIGNED_D, UNALIGNED_B = 24, 64
 INT8_NOTE = ("int8_dot instance of row 1: the JAX model contracts int8 x int8 with XLA dots "
              "here (distlr_tpu/models/linear.py:184-187, :211-218)")
 # an int8 X's dequantization scale in the kernel checks (z = s * X.w ~ 1)
@@ -855,6 +874,8 @@ def phase_trainer(torch, rows, *, feature_dtype: str = "bfloat16",
         "device_peak_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
     emit(phase, **out)
+    # the unsharded path's result, which the feature-sharded phase is held to
+    out["final_weights"] = trainer.weights.cpu()
     del trainer, train, test
     torch.cuda.empty_cache()
     return out
@@ -886,6 +907,376 @@ def _step_kernels(torch, fn, reps: int = 5) -> dict:
             "memsets_copies_per_step": (len(events) - len(kernels)) / reps,
             "kernel_us_per_step": sum(by_name.values()),
             "top_kernels_us": sorted(by_name.items(), key=lambda kv: -kv[1])[:6]}
+
+
+# --- the feature-sharded step ----------------------------------------------
+def _backward_bound(B: int, D: int, x_bytes: int) -> tuple[float, str]:
+    """(bound_ms, bound_by) of ``rᵀX``: X, r in and g out once; a
+    multiply-add per element of X."""
+    t_bytes = (B * D * x_bytes + B * 4 + D * 4) / HBM_BYTES_PER_S
+    t_ops = 2 * B * D / F32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_lr_backward(torch, seed: int) -> dict:
+    """``ops.lr_backward`` (bf16 X) and its int8 instance against their
+    plain versions at small, odd and unaligned shapes (a view at an odd
+    offset, rows of 24 bytes), then at the feature-sharded step's block
+    (1024, 250,000) and the full width (2048, 1M), timed with the plain
+    version and one library call beside them.  Between the two, the
+    step's other wrappers at its blocks (:func:`_check_sharded_blocks`)."""
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    s, reps = INT8_SCALE, 25
+    results = {"lr_backward": {"rel_err": 0.0}, "lr_backward_int8": {"rel_err": 0.0}}
+
+    def inputs(B, D, int8, offset=0):
+        n = B * D + offset
+        flat = (torch.randint(-127, 128, (n,), device="cuda", generator=gen, dtype=torch.int8)
+                if int8 else torch.randn(n, device="cuda", generator=gen).to(torch.bfloat16))
+        return flat[offset:].view(B, D), torch.randn(B, device="cuda", generator=gen)
+
+    for B, D, offset in ((64, 256, 0), (7, 1003, 0), (UNALIGNED_B // 2, UNALIGNED_D // 2, 0),
+                         (33, 12, 3), (1, 1, 0), (1024, 250_000, 0)):
+        for int8 in (False, True):
+            name = "lr_backward_int8" if int8 else "lr_backward"
+            X, r = inputs(B, D, int8, offset)
+            kw = {"feature_scale": s} if int8 else {}
+            for cd in ("bfloat16", "float32"):
+                before = _launches(ops)
+                g = ops.lr_backward(X, r, compute_dtype=cd, **kw)
+                torch.cuda.synchronize()
+                after = _launches(ops)
+                moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+                if moved != {name: 1}:
+                    raise AssertionError(f"lr_backward did not count its launch: {moved}")
+                e = rel_err(g, ops.lr_backward_reference(X, r, compute_dtype=cd, **kw))
+                same = bool(torch.equal(g, ops.lr_backward(X, r, compute_dtype=cd, **kw)))
+                emit("kernel_check", kernel=name, B=B, D=D, offset=offset, compute_dtype=cd,
+                     rel_err=e, same_bits=same,
+                     x_aligned_16=X.data_ptr() % 16 == 0 and (D * X.element_size()) % 16 == 0)
+                if not (e <= REL_TOL and same):
+                    raise AssertionError(f"{name} disagrees with its plain version at "
+                                         f"{(B, D, offset, cd)}: {e}, same bits {same}")
+                results[name]["rel_err"] = max(results[name]["rel_err"], e)
+
+    _check_sharded_blocks(torch, gen)
+
+    for B, D in ((1024, 250_000), (FULL_B, FULL_D)):
+        for int8 in (False, True):
+            name = "lr_backward_int8" if int8 else "lr_backward"
+            X, r = inputs(B, D, int8)
+            kw = {"feature_scale": s} if int8 else {}
+            rb = r.to(torch.bfloat16)
+            if int8:
+                library = (lambda: torch.mv(X.to(torch.bfloat16).t(), rb) * s)  # noqa: E731
+                note = "no single call reads int8 X: the composite X.to(bf16) + mv of X^T"
+            else:
+                library = (lambda: torch.mv(X.t(), rb))  # noqa: E731
+                note = "torch.mv(X.t(), r.to(bf16)): cuBLAS, the residual rounded to bf16"
+            bound_ms, bound_by = _backward_bound(B, D, X.element_size())
+            t = dict(
+                max_abs_err=float((ops.lr_backward(X, r, **kw)
+                                   - ops.lr_backward_reference(X, r, **kw)).abs().max()),
+                ms=time_ms(lambda: ops.lr_backward(X, r, **kw), reps),
+                plain_ms=time_ms(lambda: ops.lr_backward_reference(X, r, **kw), reps),
+                library_ms=time_ms(library, reps), library_note=note,
+                bound_ms=bound_ms, bound_by=bound_by, shape=[B, D])
+            emit("kernel_timing", kernel=name, B=B, D=D, reps=reps, **t)
+            if B == 1024:  # the block the feature-sharded step gives it
+                results[name].update(t)
+            else:
+                results[name]["at_2048_rows_1M"] = {k: t[k] for k in
+                                                    ("ms", "plain_ms", "library_ms", "bound_ms")}
+            del X
+            torch.cuda.empty_cache()
+    return results
+
+
+def _check_sharded_blocks(torch, gen) -> None:
+    """The feature-sharded path's other wrappers against their plain
+    versions at the blocks it gives them: a quarter of D = 1M by the rows
+    of a train block (1,024 on the main path, 128 at 256 rows) and of an
+    eval (256 and 64 rows); ``lr_logits_int8dot`` on the global grid of the
+    whole w (``w_amax``), as each column block quantizes its shard."""
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+
+    s, d = INT8_SCALE, FULL_D // SHARDED_MESH["model"]
+    w_full = torch.randn(FULL_D, device="cuda", generator=gen) / math.sqrt(FULL_D)
+    w, w_amax = w_full[d:2 * d], w_full.abs().amax()
+    for B in (1024, 256, 128, 64):
+        Xb = torch.randn(B, d, device="cuda", generator=gen).to(torch.bfloat16)
+        Xq = torch.randint(-127, 128, (B, d), device="cuda", generator=gen, dtype=torch.int8)
+        r = torch.randn(B, device="cuda", generator=gen)
+        checks = (
+            ("lr_logits", "lr_logits", lambda: ops.lr_logits(w, Xb),
+             lambda: ops.lr_logits_reference(w, Xb)),
+            ("lr_logits", "lr_logits_int8", lambda: ops.lr_logits(w, Xq, feature_scale=s),
+             lambda: ops.lr_logits_reference(w, Xq, feature_scale=s)),
+            ("lr_logits_int8dot", "lr_logits_int8dot",
+             lambda: ops.lr_logits_int8dot(w, Xq, feature_scale=s, w_amax=w_amax),
+             lambda: ops.lr_logits_int8dot_reference(w, Xq, feature_scale=s, w_amax=w_amax)),
+            ("lr_backward_int8dot", "lr_backward_int8dot",
+             lambda: ops.lr_backward_int8dot(Xq, r, feature_scale=s),
+             lambda: ops.lr_backward_int8dot_reference(Xq, r, feature_scale=s)),
+        )
+        for wrapper, counted, run, plain in checks:
+            before = _launches(ops)
+            out = run()
+            torch.cuda.synchronize()
+            after = _launches(ops)
+            moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            if moved != {counted: 1}:
+                raise AssertionError(f"{wrapper} did not count its launch: {moved}")
+            e = rel_err(out, plain())
+            emit("kernel_check", kernel=counted, wrapper=wrapper, B=B, D=d,
+                 at="feature_sharded_block", rel_err=e)
+            if not e <= REL_TOL:
+                raise AssertionError(f"{counted} disagrees with its plain version at the "
+                                     f"block {(B, d)}: {e}")
+        del Xb, Xq
+    torch.cuda.empty_cache()
+
+
+def _blocks_of(fn, X, y, mask, w, num_blocks: int, cfg):
+    """The plain recurrence's gradient over ``num_blocks`` row blocks:
+    the mean of each block's ``fn(w, X_i, y_i, mask_i) / n_i + L2``."""
+    b = X.shape[0] // num_blocks
+    g = None
+    for i in range(num_blocks):
+        rows = slice(i * b, (i + 1) * b)
+        n = mask[rows].sum().clamp_min(1.0)
+        gi = fn(w, X[rows], y[rows], mask[rows]) / n + cfg.l2_c * w
+        g = gi if g is None else g + gi
+    return g / num_blocks
+
+
+def _sharded_trainer(torch, rows, cfg, *, phase: str, steps: int, kernels, ref=None,
+                     plain=None, timing: bool = True) -> dict:
+    """A feature-sharded ``Trainer`` through load_data -> fit -> evaluate ->
+    save on ``rows``, with the launch counts zeroed just before fit and
+    read just after; one step's launches; the weights against the plain
+    recurrence (``plain(model, w, X, y, mask)``: a row block's
+    unnormalized gradient) and, given ``ref`` (weights, eval metrics), against the
+    unsharded path; with ``timing``, the step's device time and busy share
+    on a resident batch."""
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.parallel import make_eval_step  # noqa: PLC0415
+    from distlr_tpu_torch.train import GlobalShardedData, Trainer  # noqa: PLC0415
+
+    train_rows, test_rows = rows[0], rows[1]
+    B, D = train_rows[0].shape
+    train, test = GlobalShardedData([train_rows]), GlobalShardedData([test_rows])
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg).load_data(train=train, test=test)
+    load_s = time.perf_counter() - t0
+    w0 = trainer.init_weights().clone()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit()
+    metrics = trainer.evaluate_metrics()
+    path = trainer.save_model()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _launches(ops)
+    saved_ok = os.path.getsize(path) > D and open(path).readline().strip() == str(D)
+    s = cfg.mesh_shape["model"]
+    W = cfg.mesh_shape["data"]
+    grad_fn, logits_fn = kernels
+    evals = cfg.num_iteration + 1  # an eval each epoch, then evaluate_metrics
+    want = {grad_fn: steps * W * s, logits_fn: steps * W * s + evals * s}
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    if {k: launches[k] for k in want} != want or others or not saved_ok:
+        raise AssertionError(f"{phase}: launches {launches}, want {want}; saved ok {saved_ok}")
+
+    # one step on a resident, column-blocked batch: its launches
+    Xb, yb, mb = trainer._put(train.full_batch(column_blocks=s))
+    w_tmp = trainer.weights.clone()
+    ops.reset_launch_counts()
+    trainer.train_step(w_tmp, (Xb, yb, mb))
+    torch.cuda.synchronize()
+    step_launches = {k: v for k, v in _launches(ops).items() if v}
+    if step_launches != {grad_fn: W * s, logits_fn: W * s}:
+        raise AssertionError(f"{phase}: one step launched {step_launches}")
+
+    # the plain recurrence on the unblocked rows, block by block
+    X, y, mask = trainer._put(train.full_batch())
+    w = w0
+    for _ in range(steps):
+        w = w - cfg.learning_rate * _blocks_of(
+            lambda *a: plain(trainer.model, *a), X, y, mask, w, W, cfg)
+    out = {"D": D, "B": B, "mesh": cfg.mesh_shape, "steps": steps,
+           "feature_dtype": cfg.feature_dtype, "feature_scale": trainer.model.feature_scale,
+           "kernels": list(kernels), "launches": launches, "launches_per_step": step_launches,
+           "loss": trainer.metrics.latest("loss"), "test_accuracy": metrics["accuracy"],
+           "test_logloss": metrics["logloss"],
+           "weights_rel_err_vs_plain": rel_err(trainer.weights, w), "load_s": load_s,
+           "fit_eval_save_s": fit_s}
+    if not (math.isfinite(out["loss"]) and math.isfinite(metrics["logloss"])):
+        raise AssertionError(f"{phase}: non-finite loss {out['loss']} / {metrics}")
+    if out["weights_rel_err_vs_plain"] > REL_TOL:
+        raise AssertionError(f"{phase}: weights differ from the plain recurrence: "
+                             f"{out['weights_rel_err_vs_plain']}")
+    if ref is not None:
+        ref_w, ref_metrics = ref
+        out["weights_rel_err_vs_unsharded"] = rel_err(trainer.weights.cpu(), ref_w)
+        # the sharded weights through the unsharded eval, on the same test rows
+        Xt, yt, mt = trainer._put(test.full_batch())
+        unsharded = {k: float(v) for k, v in
+                     make_eval_step(trainer.model)(trainer.weights, (Xt, yt, mt)).items()}
+        out["unsharded_eval_of_these_weights"] = unsharded
+        out["unsharded_path_eval"] = ref_metrics
+        n_test = int(mt.sum())
+        if (out["weights_rel_err_vs_unsharded"] > REL_TOL
+                or abs(unsharded["accuracy"] - metrics["accuracy"]) > 1.0 / n_test
+                or abs(unsharded["logloss"] - metrics["logloss"])
+                > 1e-4 * abs(unsharded["logloss"])):
+            raise AssertionError(f"{phase}: the sharded path disagrees with the unsharded one: "
+                                 f"{out}")
+    if timing:
+        out["step_device_ms"] = time_ms(lambda: trainer.train_step(w_tmp, (Xb, yb, mb)), 10)
+        trace = _step_kernels(torch, lambda: trainer.train_step(w_tmp, (Xb, yb, mb)))
+        out.update(trace)
+        out["device_busy_share"] = trace["kernel_us_per_step"] / (1e3 * out["step_device_ms"])
+        out["step_ms"] = 1e3 * trainer.timer.sec_per_step
+        out["two_read_floor_ms"] = _two_read_floor_ms(B, D, Xb.element_size())
+        out["host_peak_rss_gb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        out["device_peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    emit(phase, **out)
+    del trainer, train, test, X, Xb
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_trainer_feature_sharded(torch, rows, ref) -> dict:
+    """The main path's rows (D = 1M, 2,048 a step, bf16) through the
+    feature-sharded trainer on the mesh {"data": 2, "model": 4}: each step
+    8 ``lr_logits`` and 8 ``lr_backward`` launches on (1024, 250,000)
+    blocks; held against the unsharded ``trainer`` phase's weights and
+    eval, and against the plain recurrence."""
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+
+    D = rows[0][0].shape[1]
+    steps = 3
+    with tempfile.TemporaryDirectory(prefix="distlr-smoke-") as tmp:
+        cfg = Config(num_feature_dim=D, feature_dtype="bfloat16", compute_dtype="bfloat16",
+                     batch_size=-1, learning_rate=0.2, l2_c=0.01, num_iteration=steps,
+                     test_interval=1, data_dir=tmp, num_workers=SHARDED_MESH["data"],
+                     mesh_shape=SHARDED_MESH)
+        return _sharded_trainer(
+            torch, rows, cfg, phase="trainer_feature_sharded", steps=steps,
+            kernels=("lr_backward", "lr_logits"), ref=ref,
+            plain=lambda model, w, X, y, m: ops.fused_lr_grad_reference(w, X, y, m))
+
+
+def phase_feature_sharded_small(torch, seed: int) -> dict:
+    """At 256 rows of D = 1M: the feature-sharded trainer on int8 and
+    int8_dot features, ``make_ring_train_step`` against the psum step and
+    the plain recurrence; then a column block whose rows break 16-byte
+    alignment (D = 24 over 2 blocks, bf16) through the trainer, against
+    the same trainer on the CPU.  Returns each path's line."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.models import BinaryLR  # noqa: PLC0415
+    from distlr_tpu_torch.parallel.feature_parallel import (  # noqa: PLC0415
+        make_feature_sharded_train_step,
+        shard_batch_2d,
+    )
+    from distlr_tpu_torch.parallel.mesh import make_mesh  # noqa: PLC0415
+    from distlr_tpu_torch.parallel.ring import make_ring_train_step  # noqa: PLC0415
+    from distlr_tpu_torch.train import GlobalShardedData, Trainer  # noqa: PLC0415
+
+    rows = trainer_rows(seed + 5, FULL_D, SHARDED_SMALL_B, 64)
+    paths = {}
+    steps = 3
+    with tempfile.TemporaryDirectory(prefix="distlr-smoke-") as tmp:
+        base = dict(num_feature_dim=FULL_D, compute_dtype="bfloat16", batch_size=-1,
+                    learning_rate=0.2, l2_c=0.01, num_iteration=steps, test_interval=1,
+                    data_dir=tmp, num_workers=SHARDED_MESH["data"], mesh_shape=SHARDED_MESH)
+        for fd, kernels in (("int8", ("lr_backward_int8", "lr_logits_int8")),
+                            ("int8_dot", ("lr_backward_int8dot", "lr_logits_int8dot"))):
+            cfg = Config(feature_dtype=fd, **base)
+
+            def plain(model, w, X, y, m, fd=fd):
+                fs = model.feature_scale
+                if fd == "int8_dot":
+                    return ops.fused_lr_grad_int8dot_reference(w, X, y, m, feature_scale=fs)
+                return ops.fused_lr_grad_reference(w, X, y, m, feature_scale=fs)
+
+            name = f"trainer_feature_sharded_{fd}"
+            paths[name] = _sharded_trainer(torch, rows, cfg, phase=name, steps=steps,
+                                           kernels=kernels, plain=plain, timing=False)
+
+    # the ring step against the psum step, on one resident batch
+    train_rows = rows[0]
+    mesh = make_mesh(SHARDED_MESH)
+    cfg = Config(num_feature_dim=FULL_D, learning_rate=0.2, l2_c=0.01,
+                 num_workers=SHARDED_MESH["data"], mesh_shape=SHARDED_MESH)
+    model = BinaryLR(FULL_D)
+    X, y, mask = train_rows[0], train_rows[1], torch.ones(SHARDED_SMALL_B)
+    Xb = torch.from_numpy(X).to(torch.bfloat16)
+    batch = shard_batch_2d((Xb, torch.from_numpy(y), mask), mesh, "cuda")
+    w0 = torch.randn(FULL_D, device="cuda", generator=torch.Generator(device="cuda")
+                     .manual_seed(seed)) / math.sqrt(FULL_D)
+    ops.reset_launch_counts()
+    w_ring, m_ring = w0.clone(), None
+    ring = make_ring_train_step(model, cfg, mesh)
+    for _ in range(steps):
+        w_ring, m_ring = ring(w_ring, batch)
+    torch.cuda.synchronize()
+    launches = _launches(ops)
+    want = {"lr_backward": steps * 8, "lr_logits": steps * 8}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"the ring step launched {launches}, want {want}")
+    w_psum = w0.clone()
+    psum = make_feature_sharded_train_step(model, cfg, mesh)
+    for _ in range(steps):
+        w_psum, m_psum = psum(w_psum, batch)
+    Xd = Xb.to("cuda")
+    yd, md = batch[1], batch[2]
+    w = w0
+    for _ in range(steps):
+        w = w - cfg.learning_rate * _blocks_of(ops.fused_lr_grad_reference, Xd, yd, md, w,
+                                               SHARDED_MESH["data"], cfg)
+    ring_out = {"D": FULL_D, "B": SHARDED_SMALL_B, "mesh": SHARDED_MESH, "steps": steps,
+                "kernels": ["lr_backward", "lr_logits"], "launches": launches,
+                "loss": float(m_ring["loss"]), "psum_loss": float(m_psum["loss"]),
+                "weights_rel_err_vs_psum_step": rel_err(w_ring, w_psum),
+                "weights_rel_err_vs_plain": rel_err(w_ring, w),
+                "step_device_ms": time_ms(lambda: ring(w_ring.clone(), batch), 5),
+                "psum_step_device_ms": time_ms(lambda: psum(w_psum.clone(), batch), 5)}
+    emit("ring_step", **ring_out)
+    if max(ring_out["weights_rel_err_vs_psum_step"], ring_out["weights_rel_err_vs_plain"]) \
+            > REL_TOL:
+        raise AssertionError(f"the ring step disagrees: {ring_out}")
+    paths["ring_step"] = ring_out
+    del batch, Xd, Xb
+
+    # a column block of 12 bf16 columns: rows of 24 bytes, no bulk copies
+    rng = np.random.default_rng(seed)
+    Xs = rng.standard_normal((UNALIGNED_B, UNALIGNED_D)).astype(np.float32)
+    ys = (rng.random(UNALIGNED_B) < 0.5).astype(np.int32)
+    data = lambda: GlobalShardedData([(Xs, ys)])  # noqa: E731
+    kw = dict(num_feature_dim=UNALIGNED_D, feature_dtype="bfloat16", num_iteration=steps,
+              batch_size=-1, test_interval=0, num_workers=2,
+              mesh_shape={"data": 2, "model": 2}, learning_rate=0.5, l2_c=0.0)
+    card = Trainer(Config(**kw)).load_data(train=data(), test=data())
+    cpu = Trainer(Config(device="cpu", **kw)).load_data(train=data(), test=data())
+    ops.reset_launch_counts()
+    w_card = card.fit().cpu()
+    launches = _launches(ops)
+    unaligned = {"D": UNALIGNED_D, "B": UNALIGNED_B, "block_cols": UNALIGNED_D // 2,
+                 "block_row_bytes": UNALIGNED_D // 2 * 2, "kernels": ["lr_backward", "lr_logits"],
+                 "launches": launches, "weights_rel_err_vs_cpu": rel_err(w_card, cpu.fit())}
+    emit("feature_sharded_unaligned", **unaligned)
+    if unaligned["weights_rel_err_vs_cpu"] > REL_TOL or launches["lr_backward"] != steps * 4:
+        raise AssertionError(f"the unaligned column blocks disagree: {unaligned}")
+    paths["feature_sharded_unaligned"] = unaligned
+    return paths
 
 
 def _family_data(family: str, seed: int):
@@ -2028,21 +2419,25 @@ def _cli_ps(tmp: str) -> dict:
             "async_accuracy": [float(a) for _, a in async_lines]}
 
 
-def _cli_serve(tmp: str) -> dict:
+def _cli_serve(tmp: str, *, checkpoints: bool = False) -> dict:
     """gen-data -> sync -> ``serve --model-file ... --port 0`` in a
     subprocess on the card: the SERVING line, 3 test lines answered as the
     in-process engine scores them on the same weights, exit code 143 on
-    SIGTERM."""
+    SIGTERM.  With ``checkpoints``, sync checkpoints every 5 epochs and
+    ``--model-file`` is the checkpoint directory (its latest step)."""
     from distlr_tpu_torch.config import Config  # noqa: PLC0415
     from distlr_tpu_torch.serve import ScoringEngine, score_lines_over_tcp  # noqa: PLC0415
-    from distlr_tpu_torch.train.export import load_model_text  # noqa: PLC0415
+    from distlr_tpu_torch.train.checkpoint import Checkpointer  # noqa: PLC0415
+    from distlr_tpu_torch.train.export import load_weights  # noqa: PLC0415
 
-    d = os.path.join(tmp, "serve")
+    d = os.path.join(tmp, "serve_checkpoint" if checkpoints else "serve")
+    ck = os.path.join(tmp, "serve_ck")
     _launch("gen-data", "--data-dir", d, "--num-samples", "2000", "--num-parts", "1",
             "--num-feature-dim", "123")
     _launch("sync", "--data-dir", d, "--num-feature-dim", "123", "--num-iteration", "10",
-            "--test-interval", "5", "--learning-rate", "0.5", "--l2-c", "0")
-    model_file = os.path.join(d, "models", "part-001")
+            "--test-interval", "5", "--learning-rate", "0.5", "--l2-c", "0",
+            *(["--checkpoint-dir", ck, "--checkpoint-interval", "5"] if checkpoints else []))
+    model_file = ck if checkpoints else os.path.join(d, "models", "part-001")
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.Popen(
         [sys.executable, "-m", "distlr_tpu_torch.launch", "serve", "--num-feature-dim", "123",
@@ -2064,33 +2459,105 @@ def _cli_serve(tmp: str) -> dict:
             proc.kill()
             proc.wait()
     eng = ScoringEngine(Config(num_feature_dim=123))
-    eng.set_weights(load_model_text(model_file))
+    eng.set_weights(load_weights(model_file))
     labels, scores = eng.score(eng.encode_lines(lines))
     want = [f"{int(a)} {float(b):.6g}" for a, b in zip(labels, scores)]
     if rc != 143 or replies != want:
         raise AssertionError(f"launch serve: exit {rc} (want 143), replies {replies}, the "
                              f"in-process engine gives {want}")
-    return {"ready_line": ready.strip().split()[0], "replies": replies,
-            "equal_to_in_process_engine": True, "sigterm_returncode": rc}
+    out = {"ready_line": ready.strip().split()[0], "replies": replies,
+           "equal_to_in_process_engine": True, "sigterm_returncode": rc}
+    if checkpoints:
+        with Checkpointer(ck) as c:
+            out["checkpoint_steps"] = c.all_steps()
+        if out["checkpoint_steps"] != [5, 10]:
+            raise AssertionError(f"sync wrote checkpoints {out['checkpoint_steps']}")
+    return out
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _cli_feature_shards(tmp: str) -> dict:
+    """gen-data -> ``sync --num-workers 2 --feature-shards 4`` on the card
+    (8 blocks of 31 columns a step) -> ``eval --feature-shards 4``, then the
+    same sync without the column blocks: the weights within rel 1e-3."""
+    from distlr_tpu_torch.train.export import load_model_text  # noqa: PLC0415
+
+    d = os.path.join(tmp, "feature_shards")
+    _launch("gen-data", "--data-dir", d, "--num-samples", "2000", "--num-parts", "2",
+            "--num-feature-dim", "124")
+    flags = ["--data-dir", d, "--num-feature-dim", "124"]
+    sync = ["sync", *flags, "--num-workers", "2", "--num-iteration", "10", "--test-interval",
+            "5", "--learning-rate", "0.5", "--l2-c", "0"]
+    model_file = os.path.join(d, "models", "part-001")
+    lines = re.findall(EVAL_LINE, _launch(*sync, "--feature-shards", "4").stdout, re.M)
+    sharded = load_model_text(model_file)
+    ev = _launch("eval", *flags, "--feature-shards", "4", "--model-file", model_file).stdout
+    m = re.search(r"accuracy: (\S+)\s+test_logloss: (\S+)", ev)
+    _launch(*sync)
+    rel = float(abs(sharded - load_model_text(model_file)).max()
+                / abs(load_model_text(model_file)).max())
+    if ([int(n) for n, _ in lines] != [5, 10] or m is None
+            or abs(float(m.group(1)) - float(lines[-1][1])) > 1e-4 or rel > REL_TOL):
+        raise AssertionError(f"sync --feature-shards 4: lines {lines}, eval {ev}, rel {rel}")
+    return {"sync_accuracy": [float(a) for _, a in lines], "eval_accuracy": float(m.group(1)),
+            "weights_rel_err_vs_unsharded_sync": rel}
+
+
+def _free_port() -> int:
+    import socket  # noqa: PLC0415
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _cli_one_nccl_rank(tmp: str) -> dict:
+    """``sync`` as a one-rank NCCL group (``--coordinator``,
+    ``--num-processes 1``, ``--process-id 0``): its ``part-001`` equals a
+    plain ``sync``'s byte for byte."""
+    d = os.path.join(tmp, "nccl")
+    _launch("gen-data", "--data-dir", d, "--num-samples", "2000", "--num-parts", "2",
+            "--num-feature-dim", "123")
+    sync = ["sync", "--data-dir", d, "--num-feature-dim", "123", "--num-workers", "2",
+            "--num-iteration", "10", "--test-interval", "5", "--learning-rate", "0.5",
+            "--l2-c", "0"]
+    model_file = os.path.join(d, "models", "part-001")
+    _launch(*sync)
+    plain = _read(model_file)
+    proc = _launch(*sync, "--coordinator", f"127.0.0.1:{_free_port()}", "--num-processes",
+                   "1", "--process-id", "0")
+    joined = re.search(r"joined distributed run: process 0 of 1 \((\w+)\)",
+                       proc.stderr + proc.stdout)
+    same = _read(model_file) == plain
+    if joined is None or joined.group(1) != "nccl" or not same:
+        raise AssertionError(f"the one-rank NCCL sync: backend "
+                             f"{joined and joined.group(1)}, same bytes {same}\n"
+                             f"{proc.stderr[-1500:]}")
+    return {"backend": joined.group(1), "part_001_equals_plain_sync": same}
 
 
 def phase_cli() -> None:
     """gen-data -> sync -> eval through ``python -m distlr_tpu_torch.launch``
     for every model family, int8_dot sync with checkpoints then --resume,
-    gen-data -> ps -> eval, and gen-data -> sync -> serve, the chains side
-    by side."""
+    gen-data -> ps -> eval, gen-data -> sync -> serve (of a text model and
+    of a checkpoint directory), sync and eval with --feature-shards, and
+    sync as a one-rank NCCL group, the chains side by side."""
     with tempfile.TemporaryDirectory(prefix="distlr-smoke-cli-") as tmp:
-        with ThreadPoolExecutor(len(CLI_FAMILIES) + 3) as pool:
+        with ThreadPoolExecutor(len(CLI_FAMILIES) + 6) as pool:
             futures = {f: pool.submit(_cli_family, tmp, f) for f in CLI_FAMILIES}
-            resume = pool.submit(_cli_int8_dot_resume, tmp)
-            ps = pool.submit(_cli_ps, tmp)
-            serve = pool.submit(_cli_serve, tmp)
+            chains = {"int8_dot_resume": pool.submit(_cli_int8_dot_resume, tmp),
+                      "ps": pool.submit(_cli_ps, tmp),
+                      "serve": pool.submit(_cli_serve, tmp),
+                      "serve_checkpoint_dir": pool.submit(_cli_serve, tmp, checkpoints=True),
+                      "feature_shards": pool.submit(_cli_feature_shards, tmp),
+                      "one_nccl_rank": pool.submit(_cli_one_nccl_rank, tmp)}
             results = {f: fut.result() for f, fut in futures.items()}
-            int8_dot = resume.result()
-            ps_cli = ps.result()
-            serve_cli = serve.result()
-    emit("cli", **results.pop("binary_lr"), families=results, int8_dot_resume=int8_dot,
-         ps=ps_cli, serve=serve_cli)
+            chains = {k: fut.result() for k, fut in chains.items()}
+    emit("cli", **results.pop("binary_lr"), families=results, **chains)
 
 
 # --- the on-device generation probes ----------------------------------------
@@ -2465,6 +2932,8 @@ def main(argv=None) -> int:
         timing = phase_kernels(torch, args.seed)
         phase = "int8_kernels"
         timing.update(phase_int8_kernels(torch, args.seed))
+        phase = "lr_backward"
+        timing.update(phase_lr_backward(torch, args.seed))
         phase = "roofline"
         timing.update(phase_roofline(torch, args.seed))
         # the main path at its full width, on one set of rows: bf16, int8
@@ -2475,6 +2944,16 @@ def main(argv=None) -> int:
                          ("int8_dot", "trainer_int8_dot")):
             phase = name
             paths[name] = phase_trainer(torch, rows, feature_dtype=fd, phase=name)
+            if name == "trainer":
+                # the same rows on the feature-sharded path, held to this one
+                phase = "trainer_feature_sharded"
+                ref = (paths[name].pop("final_weights"),
+                       {"accuracy": paths[name]["test_accuracy"],
+                        "logloss": paths[name]["test_logloss"]})
+                paths[phase] = phase_trainer_feature_sharded(torch, rows, ref)
+            paths[name].pop("final_weights", None)
+        phase = "feature_sharded_small"
+        paths.update(phase_feature_sharded_small(torch, args.seed))
         rows = trainer_rows(args.seed, WIDE_D, WIDE_B, WIDE_TEST)
         for fd, name in (("bfloat16", "trainer_wide"), ("int8", "trainer_int8_wide")):
             phase = name
@@ -2519,9 +2998,10 @@ def main(argv=None) -> int:
     except Exception as e:  # report which phase failed, then fail the run
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
         raise
-    replaces = {**FUSED_REPLACES, **INT8_REPLACES, **ROOFLINE_REPLACES}
-    sources = {**dict.fromkeys(FUSED_REPLACES, FUSED_SOURCE),
-               **dict.fromkeys(INT8_REPLACES, INT8_SOURCE),
+    replaces = {**FUSED_REPLACES, **INT8_REPLACES, **BACKWARD_REPLACES,
+                **BACKWARD_INT8_REPLACES, **ROOFLINE_REPLACES}
+    sources = {**dict.fromkeys({**FUSED_REPLACES, **BACKWARD_REPLACES}, FUSED_SOURCE),
+               **dict.fromkeys({**INT8_REPLACES, **BACKWARD_INT8_REPLACES}, INT8_SOURCE),
                **dict.fromkeys(ROOFLINE_REPLACES, ROOFLINE_SOURCE)}
     kernels = []
     for fn in ops.KERNEL_WRAPPERS:
@@ -2537,13 +3017,15 @@ def main(argv=None) -> int:
         }
         for extra in ("library_note", "two_pass_ms", "row_blocks_ms", "plan", "shape",
                       "at_8_rows", "at_512_rows", "pair_ms", "wrap", "backward_ms",
-                      "at_ps_shapes", "at_serve_shapes"):
+                      "at_ps_shapes", "at_serve_shapes", "at_2048_rows_1M"):
             if extra in t:
                 entry[extra] = t[extra]
         if name in by_path:
             entry["launches_by_path"] = by_path[name]
         if name in ("lr_logits_int8dot", "lr_backward_int8dot"):
             entry["replaces_note"] = INT8_NOTE
+        if name in ("lr_backward", "lr_backward_int8"):
+            entry["replaces_note"] = BACKWARD_NOTE
         if launches[name] < 1:
             raise AssertionError(f"{name} was never launched on its main path")
         kernels.append(entry)

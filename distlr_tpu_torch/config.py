@@ -2,7 +2,8 @@
 
 Holds the fields of ``distlr_tpu/config.py::Config`` that the ported
 sync trainer reads (all five model families, int8 feature storage,
-checkpoints) and that the ported parameter-server worker loop reads
+checkpoints, the ``data x model`` mesh of the feature-sharded step) and
+that the ported parameter-server worker loop reads
 (``num_servers``, ``ps_compute_backend``, ``ps_pipeline``,
 ``ps_timeout_ms``; sync BSP and async Hogwild for the dense families)
 and the scoring tier reads (the ``serve_*`` fields of ``launch serve``),
@@ -102,8 +103,11 @@ class Config:
     # ---- parallelism ----
     num_workers: int = 1              # data-parallel shards (DMLC_NUM_WORKER)
     num_servers: int = 1              # PS mode server count (DMLC_NUM_SERVER)
-    mesh_shape: dict | None = None    # only {"data": W} is ported
-    feature_shards: int = 1           # model-axis sharding (not ported)
+    # {"data": W} or {"data": W, "model": S}: W row blocks a process (the
+    # data axis spans every process of a torch.distributed run), S column
+    # blocks (the feature-sharded step); None = {"data": num_workers}
+    mesh_shape: dict | None = None
+    feature_shards: int = 1           # model-axis sharding of the feature dim
 
     # ---- PS / async mode ----
     # Where PS workers run their dense gradient and eval steps: "numpy"
@@ -234,14 +238,7 @@ class Config:
                 f"compute_dtype must be float32|bfloat16, got {self.compute_dtype!r}")
         if self.num_workers < 1:
             raise ValueError("num_workers must be >= 1")
-        if self.feature_shards > 1 or (
-            self.mesh_shape is not None and set(self.mesh_shape) - {"data"}
-        ):
-            raise _not_ported("feature sharding (a 'model' mesh axis)", "A.7")
-        if self.mesh_shape is not None and self.mesh_shape.get("data", 1) != self.num_workers:
-            raise ValueError(
-                f"mesh_shape {self.mesh_shape} disagrees with num_workers={self.num_workers}; "
-                "the port's data axis is num_workers row blocks on one card")
+        self._check_mesh()
         if not self.sync_mode and self.model in _SPARSE_MODELS:
             raise _not_ported(f"async parameter-server training of {self.model} "
                               "(sync_mode=False; the keyed PS families)", "A.15")
@@ -272,6 +269,32 @@ class Config:
         if not 0 <= self.hash_seed < 1 << 64:
             raise ValueError(f"hash_seed must be in [0, 2^64), got {self.hash_seed}")
         self._check_serve()
+
+    def _check_mesh(self) -> None:
+        if self.feature_shards < 1:
+            raise ValueError(f"feature_shards must be >= 1, got {self.feature_shards}")
+        if self.mesh_shape is None:
+            s = self.feature_shards
+        else:
+            bad = set(self.mesh_shape) - {"data", "model"}
+            if bad:
+                raise ValueError(f"mesh_shape axes must be 'data' and 'model', got "
+                                 f"{sorted(self.mesh_shape)}")
+            if self.mesh_shape.get("data", 1) != self.num_workers:
+                raise ValueError(
+                    f"mesh_shape {self.mesh_shape} disagrees with num_workers="
+                    f"{self.num_workers}; the port's data axis is num_workers row blocks a "
+                    "process")
+            s = int(self.mesh_shape.get("model", 1))
+            if self.feature_shards not in (1, s):
+                raise ValueError(f"feature_shards={self.feature_shards} disagrees with "
+                                 f"mesh_shape {self.mesh_shape}")
+        if s < 1:
+            raise ValueError(f"the model axis must be >= 1, got {s}")
+        if self.num_feature_dim % s:
+            raise ValueError(
+                f"num_features={self.num_feature_dim} must be divisible by the model-axis "
+                f"size {s} (pad the feature dimension)")
 
     def _check_serve(self) -> None:
         if not 0 <= self.serve_port < 1 << 16:

@@ -21,6 +21,18 @@ on raw-CTR shards (``gen-data --ctr-fields F --ctr-raw``)::
     python -m distlr_tpu_torch.launch sync --data-dir C --num-feature-dim 4096 \\
         --model blocked_lr --block-size auto
 
+``--feature-shards S`` cuts the features into S column blocks (the
+feature-sharded step, the mesh ``{"data": num_workers, "model": S}``), for
+``sync`` and ``eval``; ``--coordinator host:port --num-processes N
+--process-id i`` runs one process of an N-process sync over
+``torch.distributed`` (NCCL on the card, gloo with ``--device cpu``), whose
+data axis spans the processes; each writes ``models/part-00{i+1}``::
+
+    python -m distlr_tpu_torch.launch sync --data-dir D --num-feature-dim 124 \\
+        --num-workers 2 --feature-shards 4
+    python -m distlr_tpu_torch.launch sync --data-dir D --num-feature-dim 123 --device cpu \\
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0   # and 1
+
 The dense models store their features as int8 with ``--feature-dtype
 int8`` (or ``int8_dot``, which also quantizes w and the residuals), and
 ``sync`` saves checkpoints and resumes from the latest::
@@ -42,11 +54,15 @@ server group; it prints ``SERVING host:port`` when it listens and exits
 
     python -m distlr_tpu_torch.launch serve --num-feature-dim 123 \
         --model-file D/models/part-001 [--checkpoint-dir K | --ps-hosts H] --port 0
+
+``--model-file`` also takes a checkpoint directory (its latest step).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 
 from distlr_tpu_torch.config import Config
@@ -167,13 +183,37 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
                    help="trace the run into this directory (not ported yet: refused)")
     p.add_argument("--device", dest="device",
                    help="cuda (default), cuda:N or cpu")
+    p.add_argument("--cpu-devices", dest="cpu_devices", type=int,
+                   help="N > 0 runs on the CPU (env twin DISTLR_CPU_DEVICES).  The JAX "
+                   "package simulates an N-device CPU mesh with it; here every row and "
+                   "column block shares one device, so N only selects the CPU")
+
+
+def _add_mesh_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--feature-shards", dest="feature_shards", type=int,
+                   help="model-axis size: >1 cuts the features into this many column "
+                   "blocks (the 2D feature-sharded step; num-feature-dim must divide)")
+
+
+def _add_process_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--coordinator", help="host:port of process 0: the tcp:// rendezvous of "
+                   "torch.distributed (NCCL on the card, gloo with --device cpu)")
+    p.add_argument("--num-processes", dest="num_processes", type=int,
+                   help="processes of the run (with --coordinator)")
+    p.add_argument("--process-id", dest="process_id", type=int,
+                   help="this process's rank, 0 .. num-processes - 1 (with --coordinator)")
 
 
 def _config_from_args(args: argparse.Namespace) -> Config:
     """The Config of the flags given, with ``--block-size auto`` resolved
     from the data dir's raw shards (blocked_lr)."""
-    cfg = Config(**{k: v for k, v in vars(args).items()
-                    if v is not None and k in _CONFIG_FIELDS})
+    over = {k: v for k, v in vars(args).items() if v is not None and k in _CONFIG_FIELDS}
+    if _cpu_devices(args):
+        over["device"] = "cpu"
+    cfg = Config(**over)
+    if getattr(args, "feature_shards", None):
+        cfg = cfg.replace(mesh_shape={"data": cfg.num_workers, "model": args.feature_shards},
+                          feature_shards=args.feature_shards)
     if cfg.model != "blocked_lr" or cfg.block_size != 0:
         return cfg
     from distlr_tpu_torch.data.hashing import resolve_auto_block_size  # noqa: PLC0415
@@ -188,6 +228,58 @@ def _config_from_args(args: argparse.Namespace) -> Config:
         log.info("block_size auto: resolved to R=%d, %s", r,
                  f"{g} conjunction groups" if g else "default field grouping")
     return cfg.replace(block_size=r, block_groups=g)
+
+
+def _cpu_devices(args: argparse.Namespace) -> int:
+    """``--cpu-devices``, else its env twin ``DISTLR_CPU_DEVICES`` (0 when
+    neither is given); the flag, even an explicit 0, wins."""
+    n = getattr(args, "cpu_devices", None)
+    if n is not None:
+        return n
+    raw = os.environ.get("DISTLR_CPU_DEVICES", "")
+    try:
+        return int(raw) if raw else 0
+    except ValueError:
+        raise SystemExit(f"DISTLR_CPU_DEVICES must be an integer, got {raw!r}") from None
+
+
+@contextlib.contextmanager
+def _process_group(args: argparse.Namespace, cfg: Config):
+    """Join the ``torch.distributed`` run of ``--coordinator`` (a no-op
+    without it) for the command's length: NCCL on a card, gloo on the CPU,
+    never the one in place of the other.  Yields the Config, whose device
+    is this process's card (``cuda:<rank mod cards>`` for ``cuda``)."""
+    if not args.coordinator:
+        if args.num_processes is not None or args.process_id is not None:
+            raise SystemExit("error: --num-processes/--process-id need --coordinator")
+        yield cfg
+        return
+    if args.num_processes is None or args.process_id is None:
+        raise SystemExit("error: --coordinator needs --num-processes and --process-id")
+    if not 0 <= args.process_id < args.num_processes:
+        raise SystemExit(f"error: --process-id {args.process_id} is not in "
+                         f"[0, {args.num_processes})")
+    import torch  # noqa: PLC0415
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from distlr_tpu_torch.utils.device import resolve_device  # noqa: PLC0415
+
+    if cfg.device == "cuda" and torch.cuda.is_available():
+        cfg = cfg.replace(device=f"cuda:{args.process_id % torch.cuda.device_count()}")
+    device = resolve_device(cfg.device)
+    kw = {}
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        kw["device_id"] = device
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"tcp://{args.coordinator}",
+                            world_size=args.num_processes, rank=args.process_id, **kw)
+    log.info("joined distributed run: process %s of %s (%s)", args.process_id,
+             args.num_processes, dist.get_backend())
+    try:
+        yield cfg
+    finally:
+        dist.destroy_process_group()
 
 
 def _gen_data_error(args: argparse.Namespace) -> str | None:
@@ -232,13 +324,14 @@ def cmd_gen_data(args: argparse.Namespace) -> int:
 def cmd_sync(args: argparse.Namespace) -> int:
     from distlr_tpu_torch.train import Trainer  # noqa: PLC0415
 
-    trainer = Trainer(_config_from_args(args)).load_data()
-    trainer.fit(resume=args.resume)
-    path = trainer.save_model()
-    log.info(
-        "final accuracy %.4f, %.0f samples/sec, model -> %s",
-        trainer.evaluate(), trainer.timer.samples_per_sec, path,
-    )
+    with _process_group(args, _config_from_args(args)) as cfg:
+        trainer = Trainer(cfg).load_data()
+        trainer.fit(resume=args.resume)
+        path = trainer.save_model()
+        log.info(
+            "final accuracy %.4f, %.0f samples/sec, model -> %s",
+            trainer.evaluate(), trainer.timer.samples_per_sec, path,
+        )
     return 0
 
 
@@ -299,7 +392,6 @@ def cmd_serve(args: argparse.Namespace) -> int:
     TCP line protocol, with hot weight reload from a checkpoint dir or a
     live KV server group (a trainer and this server can share the group:
     ``launch ps --async`` + ``launch serve --ps-hosts ...``)."""
-    import os  # noqa: PLC0415
     import signal  # noqa: PLC0415
 
     from distlr_tpu_torch.config import _not_ported  # noqa: PLC0415
@@ -310,7 +402,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
         ScoringEngine,
         ScoringServer,
     )
-    from distlr_tpu_torch.train.export import load_model_text  # noqa: PLC0415
+    from distlr_tpu_torch.train.export import load_weights  # noqa: PLC0415
     from distlr_tpu_torch.train.ps_trainer import ps_param_dim  # noqa: PLC0415
 
     for flag, dest, _, item in _UNPORTED_SERVE_FLAGS:
@@ -346,7 +438,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
     engine = ScoringEngine(cfg, max_batch_size=cfg.serve_max_batch_size,
                            idle_evict_s=cfg.serve_engine_idle_evict_s)
     if args.model_file:
-        engine.set_weights(load_model_text(args.model_file, shape=engine.model.param_shape))
+        engine.set_weights(load_weights(args.model_file, shape=engine.model.param_shape))
     reloader = None
     if source is not None:
         reloader = HotReloader(engine, source, interval_s=cfg.serve_reload_interval_s).start()
@@ -389,7 +481,8 @@ def main(argv=None) -> int:
                    "field-value tuples (correlated fields) instead of i.i.d. fields")
     g.set_defaults(fn=cmd_gen_data)
 
-    s = sub.add_parser("sync", help="synchronous data-parallel training (one card)")
+    s = sub.add_parser("sync", help="synchronous data-parallel training (one card, or one "
+                       "process of a torch.distributed run)")
     _add_config_flags(s)
     s.add_argument("--checkpoint-dir", dest="checkpoint_dir",
                    help="save the weights and the epoch here (numpy .npz a step)")
@@ -397,10 +490,13 @@ def main(argv=None) -> int:
                    help="epochs between checkpoints (default 0: only the final one)")
     s.add_argument("--resume", action="store_true",
                    help="restart from the latest checkpoint in --checkpoint-dir")
+    _add_mesh_flags(s)
+    _add_process_flags(s)
     s.set_defaults(fn=cmd_sync)
 
     e = sub.add_parser("eval", help="score a saved text model on the test split")
     _add_config_flags(e)
+    _add_mesh_flags(e)
     e.add_argument("--model-file", dest="model_file", required=True,
                    help="text model file (the reference SaveModel format; "
                         "what sync runs write to models/part-001)")
@@ -438,7 +534,8 @@ def main(argv=None) -> int:
                        "hot weight reload)")
     _add_config_flags(r)
     r.add_argument("--model-file", dest="model_file",
-                   help="initial weights: a text model file (models/part-00N)")
+                   help="initial weights: a text model file (models/part-00N) or a "
+                   "checkpoint directory (its latest step)")
     r.add_argument("--checkpoint-dir", dest="checkpoint_dir",
                    help="watch this checkpoint dir and serve each new step")
     r.add_argument("--ps-hosts", dest="ps_hosts",

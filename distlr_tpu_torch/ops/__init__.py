@@ -7,8 +7,11 @@ from distlr_tpu_torch.ops.fused_lr import (  # noqa: F401
     fused_lr_grad_reference,
     fused_lr_grad_two_launch,
     fused_lr_supported,
+    int8dot_weight_grid,
+    lr_backward,
     lr_backward_int8dot,
     lr_backward_int8dot_reference,
+    lr_backward_reference,
     lr_launch_plan,
     lr_logits,
     lr_logits_int8dot,

@@ -20,6 +20,12 @@ Two routes, chosen by shape (:func:`lr_launch_plan`):
   JAX callers route to XLA above the TPU kernel's VMEM budget, never a
   fallback on failure.
 
+The two-read path's backward launch is also a wrapper of its own,
+:func:`lr_backward` (``g = rᵀX`` from residuals computed elsewhere): the
+feature-sharded step of :mod:`distlr_tpu_torch.parallel.feature_parallel`
+sums each row's logits over column blocks before any residual exists, so
+it runs :func:`lr_logits` and :func:`lr_backward` on each block.
+
 An int8 X (``feature_dtype="int8"``) takes the same four wrappers,
 which launch the instances of the same kernels in
 ``csrc/fused_lr_int8.cu`` with the dequantization scale
@@ -399,6 +405,13 @@ def lr_logits_reference(w, X, *, compute_dtype: str = "bfloat16", feature_scale:
     return _scaled(_round(X, compute_dtype) @ _round(w, compute_dtype), feature_scale)
 
 
+def lr_backward_reference(X, r, *, compute_dtype: str = "bfloat16", feature_scale: float = 1.0):
+    """Plain version of :func:`lr_backward`: f32 ``rᵀX`` with X rounded to
+    ``compute_dtype`` and r kept f32 (the two-read path's backward keeps
+    the residual f32, as the TPU kernel does), times the scale."""
+    return _scaled(r.to(torch.float32) @ _round(X, compute_dtype), feature_scale)
+
+
 def _residual(z, y, mask):
     return (torch.sigmoid(z) - y.to(torch.float32)) * mask.to(torch.float32)
 
@@ -419,11 +432,20 @@ def fused_lr_grad_reference(w, X, y, mask, *, compute_dtype: str = "bfloat16",
     return _grad_reference(w, X, y, mask, compute_dtype, feature_scale)[0]
 
 
-def lr_logits_int8dot_reference(w, X, *, feature_scale: float = 1.0):
+def int8dot_weight_grid(w, w_amax=None):
+    """``(wq, s_w)``: w quantized on the symmetric int8 grid of ``w_amax``
+    (default ``max|w|``, w's own grid).  A feature-sharded step passes the
+    maximum over every shard of w, as the JAX step's ``lax.pmax`` gives it,
+    so that each shard lands on the global grid."""
+    w = w.to(torch.float32)
+    return quantize_sym(w, torch.amax(w.abs()) if w_amax is None else w_amax)
+
+
+def lr_logits_int8dot_reference(w, X, *, feature_scale: float = 1.0, w_amax=None):
     """Plain version of :func:`lr_logits_int8dot`, the JAX model's int8_dot
-    logits: w quantized on its own grid, ``int8_contract(X, wq) * (s_w ·
-    feature_scale)``."""
-    wq, s_w = quantize_sym(w, w.abs().max())
+    logits: w quantized on its own grid (or on the grid of ``w_amax``),
+    ``int8_contract(X, wq) * (s_w · feature_scale)``."""
+    wq, s_w = int8dot_weight_grid(w, w_amax)
     return int8_contract(X, wq, 1) * (s_w * feature_scale)
 
 
@@ -820,8 +842,30 @@ def lr_logits_row_blocks(w, X, *, compute_dtype: str = "bfloat16", feature_scale
     return z
 
 
+def lr_backward(X, r, *, compute_dtype: str = "bfloat16", feature_scale: float = 1.0):
+    """The backward alone: ``g = (rᵀX) · feature_scale``, (D,) f32, from a
+    (B, D) f32, bf16 or int8 X and (B,) residuals r, kept f32 (X rounded to
+    ``compute_dtype``).  Unnormalized, like :func:`fused_lr_grad`.  On the
+    card this is the two-read path's backward launch (the int8 instance's
+    for an int8 X, counted as ``lr_backward_int8``): the gradient of a
+    residual computed elsewhere, as the feature-sharded step computes it
+    from the logits summed over every column block."""
+    _check_inputs(None, X, compute_dtype, feature_scale=feature_scale)
+    if r.shape != X.shape[:1] or r.device != X.device:
+        raise ValueError(f"r must be ({X.shape[0]},) on {X.device}, got {tuple(r.shape)} "
+                         f"on {r.device}")
+    if X.device.type == "cpu":
+        return lr_backward_reference(X, r, compute_dtype=compute_dtype,
+                                     feature_scale=feature_scale)
+    with torch.cuda.device(X.device):
+        g = run_backward(_lib_for(X.dtype), X, r, compute_dtype, feature_scale)
+    _count(lr_backward, X)
+    return g
+
+
 #: the wrappers of a float or an int8 X, each with its int8 instance's count
-_DENSE_WRAPPERS = (fused_lr_grad, lr_logits, fused_lr_grad_two_launch, lr_logits_row_blocks)
+_DENSE_WRAPPERS = (fused_lr_grad, lr_logits, fused_lr_grad_two_launch, lr_logits_row_blocks,
+                   lr_backward)
 for _wrapper in _DENSE_WRAPPERS:
     _wrapper.launches = 0
     _wrapper.int8 = Int8Instance(_wrapper)
@@ -837,19 +881,22 @@ def int8dot_plan_for(X) -> LaunchPlan:
     return plan if plan.single_pass else wide_plan_for(X, "int8")
 
 
-def lr_logits_int8dot(w, X, y=None, mask=None, *, feature_scale: float = 1.0):
+def lr_logits_int8dot(w, X, y=None, mask=None, *, feature_scale: float = 1.0, w_amax=None):
     """The JAX model's ``int8_dot`` logits for an int8 X: w quantized on
     its own symmetric grid (``s_w = max|w| / 127``), ``z = (X·wq) · (s_w ·
     feature_scale)`` with int32 sums that cannot wrap; given y and mask,
-    ``(z, r)`` with the residuals ``r = (σ(z) − y)·mask``.  On the card
+    ``(z, r)`` with the residuals ``r = (σ(z) − y)·mask``.  ``w_amax`` (a
+    0-dim tensor on X's device) puts w on the grid of that maximum
+    instead: a column block of the feature-sharded step quantizes on the
+    maximum over every block (:func:`int8dot_weight_grid`).  On the card
     the dp4a streaming forward and its epilogue (wq from ``torch.amax``
     and :func:`quantize_sym` first)."""
     _check_inputs(w, X, None, y, mask, x_dtypes=_INT8_X)
     if X.device.type == "cpu":
-        z = lr_logits_int8dot_reference(w, X, feature_scale=feature_scale)
+        z = lr_logits_int8dot_reference(w, X, feature_scale=feature_scale, w_amax=w_amax)
         return z if y is None else (z, _residual(z, y, mask))
     with torch.cuda.device(X.device):
-        wq, s_w = quantize_sym(w.to(torch.float32), torch.amax(w.abs()))
+        wq, s_w = int8dot_weight_grid(w, w_amax)
         out = run_int8dot_forward(_int8_lib(), int8dot_plan_for(X), wq, s_w, X,
                                   feature_scale, y, mask)
     lr_logits_int8dot.launches += 1

@@ -9,7 +9,11 @@ text-dumps its weights at the end.  Here the W workers are W contiguous
 row blocks of one global batch on one device
 (:func:`distlr_tpu_torch.parallel.make_sync_train_step`); with
 ``batch_size=-1`` each step consumes every worker's full shard, exactly
-one reference "iteration".
+one reference "iteration".  A mesh with a ``model`` axis cuts the
+features into column blocks too (:mod:`distlr_tpu_torch.parallel.
+feature_parallel`), and in a ``torch.distributed`` run the data axis
+spans the processes: each loads the whole data dir and trains its own
+row blocks, as a JAX process does on a global mesh.
 """
 
 from __future__ import annotations
@@ -34,6 +38,12 @@ from distlr_tpu_torch.data.libsvm import parse_libsvm_file
 from distlr_tpu_torch.data.sharding import part_name
 from distlr_tpu_torch.models import get_model
 from distlr_tpu_torch.parallel import make_eval_step, make_sync_train_step
+from distlr_tpu_torch.parallel.feature_parallel import column_blocks as column_blocks_of
+from distlr_tpu_torch.parallel.feature_parallel import (
+    make_feature_sharded_eval_step,
+    make_feature_sharded_train_step,
+)
+from distlr_tpu_torch.parallel.mesh import MODEL_AXIS, make_mesh, num_data_shards
 from distlr_tpu_torch.train.checkpoint import Checkpointer
 from distlr_tpu_torch.train.export import save_model_text
 from distlr_tpu_torch.train.metrics import MetricsLogger, StepTimer
@@ -189,7 +199,8 @@ class GlobalShardedData:
     def num_samples(self) -> int:
         return int(sum(self.shard_sizes))
 
-    def batches(self, per_worker_batch: int, *, wrap: bool = False):
+    def batches(self, per_worker_batch: int, *, wrap: bool = False, column_blocks: int = 1,
+                pin_memory: bool = False):
         """One epoch of lockstep global batches ``(X, y, mask)`` shaped
         ``(W*b, ...)``. ``-1`` = full shard per worker (one step/epoch).
 
@@ -198,6 +209,11 @@ class GlobalShardedData:
         shard head and re-serves leading samples instead of being
         padded+masked.  Unequal shard sizes reject loudly, since lockstep
         batches cannot wrap every shard at its own offset.
+
+        ``column_blocks=S`` > 1 gives the dense X of each batch in the
+        feature-sharded step's layout, (S, W*b, D/S), built in the same one
+        host copy as the batch's slice (``pin_memory``: into page-locked
+        memory, ready for an asynchronous copy to the card).
         """
         b = self.n_pad if per_worker_batch == -1 else min(per_worker_batch, self.n_pad)
         if wrap and per_worker_batch != -1 and any(
@@ -214,28 +230,52 @@ class GlobalShardedData:
             for k in range(-(-n // bw)):
                 idx = np.arange(k * bw, (k + 1) * bw) % n
                 yield tuple(
-                    _take_rows(a, idx).reshape((-1,) + tuple(a.shape[2:]))
+                    self._leaf(a, _take_rows(a, idx), bw, column_blocks, pin_memory)
                     for a in (*self._feats, self.y, self.mask)
                 )
             return
 
-        def _slice(arr, sl, bw):
-            out = arr[:, sl]
-            if bw < b:  # pad the short final batch to a fixed shape
-                out = _pad_rows(out, b)
-            return out.reshape((-1,) + tuple(arr.shape[2:]))
-
         for k in range(-(-self.n_pad // b)):
             sl = slice(k * b, min((k + 1) * b, self.n_pad))
-            bw = sl.stop - sl.start
             yield tuple(
-                _slice(a, sl, bw) for a in (*self._feats, self.y, self.mask)
+                self._leaf(a, a[:, sl], b, column_blocks, pin_memory)
+                for a in (*self._feats, self.y, self.mask)
             )
 
-    def full_batch(self):
-        return tuple(
-            a.reshape((-1,) + tuple(a.shape[2:])) for a in (*self._feats, self.y, self.mask)
-        )
+    def _leaf(self, arr, rows, b: int, column_blocks: int, pin_memory: bool):
+        """A batch leaf from ``rows``, the (W, bw, ...) rows of ``arr`` a
+        batch takes: flattened to (W*b, ...) with each worker's rows padded
+        to ``b`` (the short final batch keeps a fixed shape), or for the
+        dense X with column blocks, column-blocked."""
+        if column_blocks > 1 and arr is self._feats[0] and len(self._feats) == 1:
+            return column_blocks_of(rows, column_blocks, pad_rows=b, pin_memory=pin_memory)
+        if rows.shape[1] < b:
+            rows = _pad_rows(rows, b)
+        return rows.reshape((-1,) + tuple(arr.shape[2:]))
+
+    def full_batch(self, *, column_blocks: int = 1, pin_memory: bool = False):
+        return tuple(self._leaf(a, a, self.n_pad, column_blocks, pin_memory)
+                     for a in (*self._feats, self.y, self.mask))
+
+    def shards(self, start: int, stop: int) -> GlobalShardedData:
+        """The dataset of shards ``start .. stop - 1`` alone (views of this
+        one's arrays, with its quantization record): a process's own row
+        blocks of a global data axis."""
+        part = object.__new__(type(self))
+        part.__dict__.update(self.__dict__)
+        part._feats = [f[start:stop] for f in self._feats]
+        part.y, part.mask = self.y[start:stop], self.mask[start:stop]
+        part.num_shards = stop - start
+        part.shard_sizes = self.shard_sizes[start:stop]
+        return part
+
+
+def _process_group():
+    """The default ``torch.distributed`` group when this process is in one
+    (``launch sync --coordinator``), else None."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    return dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
 
 
 def _as_tensor(a) -> torch.Tensor:
@@ -320,7 +360,20 @@ class Trainer:
     def __init__(self, cfg: Config, *, metrics: MetricsLogger | None = None):
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
-        self.num_shards = cfg.num_workers
+        # num_workers > 1 is the data-axis size; otherwise one row block a
+        # process.  The data axis spans every process of a torch.distributed run
+        shape = cfg.mesh_shape
+        if shape is None and cfg.num_workers > 1:
+            shape = {"data": cfg.num_workers}
+        self.mesh = make_mesh(shape, group=_process_group())
+        self.num_shards = num_data_shards(self.mesh)
+        # a 'model' axis selects the 2D data x feature-sharded path
+        self.feature_sharded = MODEL_AXIS in self.mesh.axis_names
+        if self.feature_sharded and cfg.model in ("sparse_lr", "sparse_softmax", "blocked_lr"):
+            # w[cols] / t[blocks] gathers arbitrary buckets: a column-blocked
+            # table would split every gather across blocks
+            raise NotImplementedError(
+                f"{cfg.model} supports data-parallel meshes only (no 'model' axis)")
         self.model = get_model(cfg)
         self.metrics = metrics or MetricsLogger()
         self._build_steps()
@@ -333,8 +386,16 @@ class Trainer:
                              if self.device.type == "cuda" else None)
 
     def _build_steps(self) -> None:
-        self.train_step = make_sync_train_step(self.model, self.cfg, self.num_shards)
-        self.eval_step = make_eval_step(self.model)
+        if self.feature_sharded:
+            self.train_step = make_feature_sharded_train_step(self.model, self.cfg, self.mesh)
+            self.eval_step = make_feature_sharded_eval_step(self.model, self.mesh)
+        else:
+            self.train_step = make_sync_train_step(self.model, self.cfg, self.mesh)
+            self.eval_step = make_eval_step(self.model, self.mesh)
+
+    @property
+    def _column_blocks(self) -> int:
+        return self.mesh.shape[MODEL_AXIS] if self.feature_sharded else 1
 
     def _quantize_features(self) -> None:
         """Convert loaded dense feature storage to ``cfg.feature_dtype``:
@@ -403,6 +464,7 @@ class Trainer:
                     nnz_max=cfg.nnz_max)
         self._test_data = test or load("test")
         if test_only:
+            self._test_data = self._own_shards(self._test_data)
             return self
         self._train_data = train or load("train")
         # feature_dtype is float32 for the sparse families (Config)
@@ -415,7 +477,20 @@ class Trainer:
                 "feature_dtype='float32' run would train on converted "
                 "features — reload the data or match feature_dtype"
             )
+        # after quantizing: the scale is the whole train split's
+        self._train_data = self._own_shards(self._train_data)
+        self._test_data = self._own_shards(self._test_data)
         return self
+
+    def _own_shards(self, data: GlobalShardedData) -> GlobalShardedData:
+        """This process's row blocks of a dataset of the global data axis."""
+        if self.mesh.num_processes == 1:
+            return data
+        if data.num_shards != self.num_shards:
+            raise ValueError(f"a dataset of {data.num_shards} shards on a data axis of "
+                             f"{self.num_shards} blocks across processes")
+        first = self.mesh.first_data_shard
+        return data.shards(first, first + self.mesh.local_data_shards)
 
     def _put(self, host_batch) -> tuple[torch.Tensor, ...]:
         """Blocking host->device copy of a batch."""
@@ -450,6 +525,23 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _barrier(self) -> None:
+        """Every process of the data axis reaches this point (one small
+        ``all_reduce`` on the trainer's device, so NCCL and gloo alike)."""
+        if self.mesh.group is not None:
+            import torch.distributed as dist  # noqa: PLC0415
+
+            dist.all_reduce(torch.zeros(1, device=self.device), group=self.mesh.group)
+
+    def _save_checkpoint(self, ckpt: Checkpointer, epoch: int, *, unless_saved=False) -> None:
+        """Rank 0 writes the checkpoint once every process has got here, so
+        no process still reads a step that pruning would remove; with
+        ``unless_saved``, only if the directory's latest step is not
+        ``epoch`` already."""
+        self._barrier()
+        if self.mesh.process_index == 0 and not (unless_saved and ckpt.latest_step() == epoch):
+            ckpt.save(epoch, self.weights, extra={"epoch": epoch})
+
     # -- training -----------------------------------------------------------
     def init_weights(self) -> torch.Tensor:
         self.weights = self.model.init(self.cfg, self.device)
@@ -481,19 +573,20 @@ class Trainer:
             self.init_weights()
         epochs = cfg.num_iteration if epochs is None else epochs
         self._run_epochs(start_epoch, epochs, eval_fn, ckpt)
-        if ckpt is not None and epochs > start_epoch and ckpt.latest_step() != epochs:
-            ckpt.save(epochs, self.weights, extra={"epoch": epochs})
+        if ckpt is not None and epochs > start_epoch:
+            self._save_checkpoint(ckpt, epochs, unless_saved=True)
         return self.weights
 
     def _run_epochs(self, start_epoch: int, epochs: int, eval_fn, ckpt) -> None:
         cfg = self.cfg
         test_batch = None
         if self._test_data is not None:
-            test_batch = self._put(self._test_data.full_batch())
+            test_batch = self._test_batch()
 
         for epoch in range(start_epoch, epochs):
             host_iter = self._train_data.batches(
-                cfg.batch_size, wrap=bool(cfg.wrap_final_batch))
+                cfg.batch_size, wrap=bool(cfg.wrap_final_batch),
+                column_blocks=self._column_blocks, pin_memory=self._copy_stream is not None)
             if cfg.prefetch > 1:
                 pairs = _prefetch(self._h2d_async, host_iter, cfg.prefetch - 1)
             else:  # prefetch=1: the strictly-serial reference shape
@@ -523,22 +616,27 @@ class Trainer:
                     log_eval_line(epoch + 1, acc)
             if ckpt is not None and cfg.checkpoint_interval > 0 and (
                     epoch + 1) % cfg.checkpoint_interval == 0:
-                ckpt.save(epoch + 1, self.weights, extra={"epoch": epoch + 1})
+                self._save_checkpoint(ckpt, epoch + 1)
 
     def evaluate(self) -> float:
         return self.evaluate_metrics()["accuracy"]
 
     def evaluate_metrics(self) -> dict:
         """Full-test-set ``{"accuracy", "logloss"}`` as Python floats."""
-        em = self.eval_step(self.weights, self._put(self._test_data.full_batch()))
+        em = self.eval_step(self.weights, self._test_batch())
         return {k: float(v) for k, v in em.items()}
 
+    def _test_batch(self) -> tuple[torch.Tensor, ...]:
+        return self._put(self._test_data.full_batch(column_blocks=self._column_blocks))
+
     def save_model(self, path: str | None = None) -> str:
-        """Text export, reference format & layout: ``models/part-001``
-        (single process; the per-worker files of multi-process runs come
-        with ROADMAP A.6)."""
+        """Text export, reference format & layout: ``models/part-00{i+1}``
+        with i this process's rank (0 in a single process) — the
+        reference's per-worker model files (Q8, ``src/main.cc:168-169``).
+        In a ``torch.distributed`` run every process exports the same
+        weights to its own file."""
         if path is None:
-            path = os.path.join(self.cfg.data_dir, "models", part_name(0))
+            path = os.path.join(self.cfg.data_dir, "models", part_name(self.mesh.process_index))
             os.makedirs(os.path.dirname(path), exist_ok=True)
         save_model_text(path, self.weights.detach().cpu().numpy())
         return path

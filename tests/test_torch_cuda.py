@@ -752,3 +752,73 @@ def test_engine_eviction_frees_the_device_table(cuda):
     again = eng.score((X,))
     assert eng.resident
     assert np.array_equal(first[1], again[1]) and np.array_equal(first[0], again[0])
+
+
+# --- the feature-sharded step (lr_backward, column blocks) ------------------
+# aligned shapes, D not a multiple of 8, a block whose rows break 16-byte
+# alignment (12 bf16 columns), a view at an odd offset
+@pytest.mark.parametrize("B,D,offset", [(64, 4096, 0), (1024, 250_000, 0), (7, 1003, 0),
+                                        (33, 12, 0), (16, 96, 5)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_lr_backward_matches_plain(cuda, B, D, offset, x_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(B + D)
+    if x_dtype == torch.int8:
+        flat = torch.randint(-127, 128, (B * D + offset,), device=cuda, generator=gen,
+                             dtype=torch.int8)
+        kw = dict(feature_scale=3.0 / 127.0)
+    else:
+        flat = torch.randn(B * D + offset, device=cuda, generator=gen).to(x_dtype)
+        kw = {}
+    X = flat[offset:].view(B, D)
+    r = torch.randn(B, device=cuda, generator=gen)
+    for cd in ("bfloat16", "float32"):
+        before = _counts()
+        g = ops.lr_backward(X, r, compute_dtype=cd, **kw)
+        torch.cuda.synchronize()
+        after = _counts()
+        name = "lr_backward_int8" if x_dtype == torch.int8 else "lr_backward"
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {name: 1}
+        ref = ops.lr_backward_reference(X, r, compute_dtype=cd, **kw)
+        assert _rel(g, ref) <= 1e-3
+        assert torch.equal(g, ops.lr_backward(X, r, compute_dtype=cd, **kw))
+
+
+def test_lr_logits_int8dot_takes_a_global_grid(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    X = torch.randint(-127, 128, (64, 4096), device=cuda, generator=gen, dtype=torch.int8)
+    w = torch.randn(8192, device=cuda, generator=gen)
+    amax = torch.amax(w.abs())
+    z = ops.lr_logits_int8dot(w[:4096], X, w_amax=amax)
+    ref = ops.lr_logits_int8dot_reference(w[:4096].cpu(), X.cpu(), w_amax=amax.cpu())
+    assert _rel(z.cpu(), ref) <= 1e-6
+
+
+@pytest.mark.parametrize("fd", ["float32", "bfloat16", "int8", "int8_dot"])
+def test_feature_sharded_trainer_on_card_matches_cpu(cuda, fd):
+    import numpy as np  # noqa: PLC0415
+
+    rng = np.random.default_rng(1)
+    X = rng.standard_normal((400, 48)).astype(np.float32)
+    y = rng.integers(0, 2, 400).astype(np.int32)
+    kw = dict(num_feature_dim=48, num_iteration=4, batch_size=64, num_workers=2,
+              mesh_shape={"data": 2, "model": 4}, compute_dtype="float32", test_interval=0,
+              feature_dtype=fd)
+    data = lambda: GlobalShardedData([(X[:200], y[:200]), (X[200:], y[200:])])  # noqa: E731
+    on_card = Trainer(Config(**kw)).load_data(train=data(), test=data())
+    on_cpu = Trainer(Config(device="cpu", **kw)).load_data(train=data(), test=data())
+    on_cpu.weights = on_cpu.init_weights().clone()
+    on_card.weights = on_cpu.weights.to(cuda)
+    ops.reset_launch_counts()
+    w_card = on_card.fit()
+    steps = 4 * 4  # epochs x steps
+    counts = _counts()
+    if fd == "int8_dot":
+        assert counts["lr_logits_int8dot"] == counts["lr_backward_int8dot"] == steps * 2 * 4
+    else:
+        sfx = "_int8" if fd == "int8" else ""
+        assert counts["lr_logits" + sfx] == counts["lr_backward" + sfx] == steps * 2 * 4
+    assert counts["fused_lr_grad"] == counts["fused_lr_grad_int8"] == 0
+    tol = 1e-4 if fd != "int8_dot" else 1e-3
+    assert _rel(w_card.cpu(), on_cpu.fit()) <= tol
+    got, want = on_card.evaluate_metrics(), on_cpu.evaluate_metrics()
+    assert abs(got["accuracy"] - want["accuracy"]) <= 1 / 400

@@ -263,3 +263,81 @@ class TestKernelBuild:
         monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
         with pytest.raises(RuntimeError, match="nvcc not found"):
             build.find_nvcc()
+
+
+class TestMeshCLI:
+    """``--feature-shards`` (the 2D feature-sharded step) and ``--cpu-devices``."""
+
+    @pytest.mark.parametrize("argv", [
+        ["--feature-shards", "2"],
+        ["--num-workers", "2", "--feature-shards", "4"],
+        ["--num-workers", "3"],
+    ])
+    def test_flags_give_jax_mesh_shape(self, argv):
+        import argparse
+
+        from distlr_tpu import launch as jax_launch
+        from distlr_tpu_torch import launch
+
+        jp, tp = argparse.ArgumentParser(), argparse.ArgumentParser()
+        jax_launch._add_config_flags(jp)
+        launch._add_config_flags(tp)
+        launch._add_mesh_flags(tp)
+        common = ["--num-feature-dim", "24"]
+        j = jax_launch._config_from_args(jp.parse_args(common + argv))
+        t = launch._config_from_args(tp.parse_args(common + argv + ["--device", "cpu"]))
+        for f in ("mesh_shape", "feature_shards", "num_workers"):
+            assert getattr(t, f) == getattr(j, f), f
+
+    def test_sync_feature_shards_writes_jax_weights(self, tmp_path):
+        from distlr_tpu.config import Config as JaxConfig
+        from distlr_tpu.train import Trainer as JaxTrainer
+        from distlr_tpu_torch.train import load_model_text
+
+        d = str(tmp_path / "d")
+        common = ["--data-dir", d, "--num-feature-dim", "24"]
+        _launch("gen-data", *common, "--num-samples", "1200", "--num-parts", "2")
+        flags = [*common, "--num-workers", "2", "--feature-shards", "2", "--device", "cpu"]
+        out = _launch("sync", *flags, "--num-iteration", "6", "--test-interval", "3",
+                      "--learning-rate", "0.5", "--l2-c", "0.01").stdout
+        evals = EVAL_LINE.findall(out)
+        assert [int(n) for n, _ in evals] == [3, 6]
+        model_file = os.path.join(d, "models", "part-001")
+
+        kw = dict(data_dir=d, num_feature_dim=24, num_iteration=6, learning_rate=0.5,
+                  l2_c=0.01, test_interval=0, num_workers=2,
+                  mesh_shape={"data": 2, "model": 2}, feature_shards=2)
+        jt = JaxTrainer(JaxConfig(**kw)).load_data()
+        # the port's seeded init (JAX's own is another generator)
+        w0 = Trainer(Config(device="cpu", **kw)).init_weights().numpy()
+        jt.weights = jt._shard_weights(w0)
+        assert jt.feature_sharded
+        import numpy as np
+
+        # bf16 products (both CLIs' default): the update is held at rel 1e-2
+        got, want = load_model_text(model_file) - w0, np.asarray(jt.fit()) - w0
+        assert np.abs(got - want).max() <= 1e-2 * np.abs(want).max()
+        # eval on the column blocks scores what the last sync line reported
+        ev = _launch("eval", *flags, "--model-file", model_file).stdout
+        m = re.search(r"accuracy: (\S+)\s+test_logloss: (\S+)", ev)
+        assert m is not None and float(m.group(1)) == pytest.approx(float(evals[-1][1]),
+                                                                    abs=1e-4)
+
+    def test_feature_shards_must_divide_the_features(self, tmp_path):
+        proc = _launch("sync", "--data-dir", str(tmp_path), "--num-feature-dim", "123",
+                       "--feature-shards", "2", "--device", "cpu", check=False)
+        assert proc.returncode != 0 and "pad the feature dimension" in proc.stderr
+
+    @pytest.mark.parametrize("how", ["flag", "env"])
+    def test_cpu_devices_selects_the_cpu(self, tmp_path, how):
+        d = str(tmp_path / "d")
+        _launch("gen-data", "--data-dir", d, "--num-feature-dim", "8", "--num-samples", "50",
+                "--num-parts", "1")
+        argv = ["sync", "--data-dir", d, "--num-feature-dim", "8", "--num-iteration", "2"]
+        env = {"CUDA_VISIBLE_DEVICES": ""}
+        if how == "flag":
+            argv += ["--cpu-devices", "4"]
+        else:
+            env["DISTLR_CPU_DEVICES"] = "4"
+        _launch(*argv, env_extra=env)
+        assert os.path.exists(os.path.join(d, "models", "part-001"))

@@ -138,8 +138,6 @@ class TestConvert:
 class TestConfigGates:
     @pytest.mark.parametrize("kw,item", [
         ({"model": "sparse_lr", "sync_mode": False}, "A.15"),
-        ({"feature_shards": 2}, "A.7"),
-        ({"mesh_shape": {"data": 1, "model": 2}}, "A.7"),
         ({"profile_dir": "prof"}, "A.12"),
         ({"model": "blocked_lr", "block_size": 8, "sync_mode": False}, "A.15"),
         ({"model": "sparse_softmax", "sync_mode": False}, "A.15"),
@@ -166,6 +164,32 @@ class TestConfigGates:
     def test_unported_options_name_their_roadmap_item(self, kw, item):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
             Config(device="cpu", **kw)
+
+    # the options of ROADMAP A.7 (a 'model' mesh axis: the feature-sharded
+    # step), with a feature count the axis divides (the port checks it here,
+    # the JAX package when it builds the step)
+    @pytest.mark.parametrize("kw", [
+        {"feature_shards": 2, "num_feature_dim": 124},
+        {"mesh_shape": {"data": 1, "model": 2}, "num_feature_dim": 124},
+        {"mesh_shape": {"data": 2, "model": 4}, "num_workers": 2, "feature_shards": 4,
+         "num_feature_dim": 124},
+    ])
+    def test_model_axis_options_resolve_like_jax(self, kw):
+        j, t = JaxConfig(**kw), Config(device="cpu", **kw)
+        for f in ("mesh_shape", "feature_shards", "num_workers", "num_feature_dim"):
+            assert getattr(t, f) == getattr(j, f), f
+
+    @pytest.mark.parametrize("model", ["sparse_lr", "sparse_softmax", "blocked_lr"])
+    def test_sparse_family_on_a_model_axis_raises_jax_message(self, model):
+        from distlr_tpu.train import Trainer as JaxTrainer
+        from distlr_tpu_torch.train import Trainer
+
+        kw = dict(model=model, num_feature_dim=16, mesh_shape={"data": 1, "model": 2})
+        with pytest.raises(NotImplementedError) as theirs:
+            JaxTrainer(JaxConfig(**kw))
+        with pytest.raises(NotImplementedError) as ours:
+            Trainer(Config(device="cpu", **kw))
+        assert str(ours.value) == str(theirs.value)
 
     # the options of ROADMAP A.3 (int8 features) and A.8 (checkpoints)
     @pytest.mark.parametrize("kw", [

@@ -929,6 +929,53 @@ class TestLaunchServe:
         assert seen["stats"]["reload"]["last_version"] == 3
         np.testing.assert_array_equal(seen["weights"], w)
 
+    def test_model_file_takes_a_checkpoint_dir(self, tmp_path, monkeypatch):
+        """``--model-file <checkpoint dir>`` serves the latest step's weights
+        (JAX: ``load_weights``), with no watcher."""
+        ck = str(tmp_path / "ck")
+        old, new = np.zeros(24, np.float32), np.linspace(-1, 1, 24).astype(np.float32)
+        with Checkpointer(ck) as c:
+            c.save(2, old)
+            c.save(5, new)
+        seen = {}
+
+        def fake_forever(self):
+            seen["weights"] = self.engine.get_weights()
+            seen["reloader"] = self.reloader
+            self.stop()
+
+        monkeypatch.setattr(ScoringServer, "serve_forever", fake_forever)
+        monkeypatch.setattr(signal, "signal", lambda *a: None)
+        assert launch.main(["serve", "--num-feature-dim", "24", "--model-file", ck,
+                            "--device", "cpu"]) == 0
+        np.testing.assert_array_equal(seen["weights"], new)
+        assert seen["reloader"] is None
+
+    def test_model_file_empty_checkpoint_dir_raises_like_jax(self, tmp_path):
+        from distlr_tpu.train.export import load_weights as jax_load_weights
+        from distlr_tpu_torch.train import load_weights
+
+        empty = tmp_path / "empty"
+        empty.mkdir()
+        with pytest.raises(FileNotFoundError, match="no checkpoint steps") as theirs:
+            jax_load_weights(str(empty))
+        with pytest.raises(FileNotFoundError, match="no checkpoint steps") as ours:
+            launch.main(["serve", "--num-feature-dim", "24", "--model-file", str(empty),
+                         "--device", "cpu"])
+        assert str(ours.value) == str(theirs.value)
+        with pytest.raises(FileNotFoundError):
+            load_weights(str(empty), shape=(24,))
+
+    def test_load_weights_reads_text_models_and_shapes(self, tmp_path):
+        from distlr_tpu_torch.train import load_weights, save_model_text
+
+        w = np.arange(12, dtype=np.float32)
+        save_model_text(str(tmp_path / "m.txt"), w)
+        np.testing.assert_array_equal(load_weights(str(tmp_path / "m.txt"), shape=(4, 3)),
+                                      w.reshape(4, 3))
+        Checkpointer(str(tmp_path / "ck")).save(1, w.reshape(4, 3))
+        np.testing.assert_array_equal(load_weights(str(tmp_path / "ck")), w)
+
     def test_serve_needs_a_weight_source(self, capsys):
         assert launch.main(["serve", "--num-feature-dim", "8", "--device", "cpu"]) == 2
         assert "needs a weight source" in capsys.readouterr().err
