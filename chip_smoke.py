@@ -918,13 +918,27 @@ def _backward_bound(B: int, D: int, x_bytes: int) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _backward_plan(torch, X, cd: str) -> dict:
+    """The launch of ``lr_backward`` on X: the float backward's plan
+    (column tiles x row splits, its cluster, the runtime's blocks per SM
+    and the clusters resident at once), or the int8 backward's grid."""
+    from distlr_tpu_torch.ops import fused_lr  # noqa: PLC0415
+
+    if X.dtype == torch.int8:
+        return fused_lr.int8_backward_grid(X)
+    return fused_lr.backward_plan_for(X, cd)
+
+
 def phase_lr_backward(torch, seed: int) -> dict:
     """``ops.lr_backward`` (bf16 X) and its int8 instance against their
     plain versions at small, odd and unaligned shapes (a view at an odd
-    offset, rows of 24 bytes), then at the feature-sharded step's block
-    (1024, 250,000) and the full width (2048, 1M), timed with the plain
-    version and one library call beside them.  Between the two, the
-    step's other wrappers at its blocks (:func:`_check_sharded_blocks`)."""
+    offset, rows of 24 bytes; the step's block at 8 column blocks (two
+    row splits), few rows there, B under the row splits), then at the
+    feature-sharded step's block (1024, 250,000), the same at 8 column
+    blocks (1024, 125,000; bf16 only) and the full width (2048, 1M), timed
+    with the plain version and one library call beside them;
+    each line with the launch's plan.  Between the two, the step's other
+    wrappers at its blocks (:func:`_check_sharded_blocks`)."""
     from distlr_tpu_torch import ops  # noqa: PLC0415
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 11)
@@ -938,7 +952,8 @@ def phase_lr_backward(torch, seed: int) -> dict:
         return flat[offset:].view(B, D), torch.randn(B, device="cuda", generator=gen)
 
     for B, D, offset in ((64, 256, 0), (7, 1003, 0), (UNALIGNED_B // 2, UNALIGNED_D // 2, 0),
-                         (33, 12, 3), (1, 1, 0), (1024, 250_000, 0)):
+                         (33, 12, 3), (1, 1, 0), (1, 250_000, 0), (5, 125_000, 0),
+                         (3, 4096, 0), (1024, 125_000, 0), (1024, 250_000, 0)):
         for int8 in (False, True):
             name = "lr_backward_int8" if int8 else "lr_backward"
             X, r = inputs(B, D, int8, offset)
@@ -955,7 +970,8 @@ def phase_lr_backward(torch, seed: int) -> dict:
                 same = bool(torch.equal(g, ops.lr_backward(X, r, compute_dtype=cd, **kw)))
                 emit("kernel_check", kernel=name, B=B, D=D, offset=offset, compute_dtype=cd,
                      rel_err=e, same_bits=same,
-                     x_aligned_16=X.data_ptr() % 16 == 0 and (D * X.element_size()) % 16 == 0)
+                     x_aligned_16=X.data_ptr() % 16 == 0 and (D * X.element_size()) % 16 == 0,
+                     plan=_backward_plan(torch, X, cd))
                 if not (e <= REL_TOL and same):
                     raise AssertionError(f"{name} disagrees with its plain version at "
                                          f"{(B, D, offset, cd)}: {e}, same bits {same}")
@@ -963,8 +979,11 @@ def phase_lr_backward(torch, seed: int) -> dict:
 
     _check_sharded_blocks(torch, gen)
 
-    for B, D in ((1024, 250_000), (FULL_B, FULL_D)):
-        for int8 in (False, True):
+    # the step's block, the same at 8 column blocks (the float backward's
+    # rows split in a cluster), the full width
+    for B, D, x_kinds in ((1024, 250_000, (False, True)), (1024, 125_000, (False,)),
+                          (FULL_B, FULL_D, (False, True))):
+        for int8 in x_kinds:
             name = "lr_backward_int8" if int8 else "lr_backward"
             X, r = inputs(B, D, int8)
             kw = {"feature_scale": s} if int8 else {}
@@ -982,13 +1001,15 @@ def phase_lr_backward(torch, seed: int) -> dict:
                 ms=time_ms(lambda: ops.lr_backward(X, r, **kw), reps),
                 plain_ms=time_ms(lambda: ops.lr_backward_reference(X, r, **kw), reps),
                 library_ms=time_ms(library, reps), library_note=note,
-                bound_ms=bound_ms, bound_by=bound_by, shape=[B, D])
+                bound_ms=bound_ms, bound_by=bound_by, shape=[B, D],
+                plan=_backward_plan(torch, X, "bfloat16"))
             emit("kernel_timing", kernel=name, B=B, D=D, reps=reps, **t)
-            if B == 1024:  # the block the feature-sharded step gives it
+            if (B, D) == (1024, 250_000):  # the block the feature-sharded step gives it
                 results[name].update(t)
             else:
-                results[name]["at_2048_rows_1M"] = {k: t[k] for k in
-                                                    ("ms", "plain_ms", "library_ms", "bound_ms")}
+                at = "at_8_column_blocks" if D == 125_000 else "at_2048_rows_1M"
+                results[name][at] = {k: t[k] for k in ("ms", "plain_ms", "library_ms",
+                                                       "bound_ms", "plan")}
             del X
             torch.cuda.empty_cache()
     return results
@@ -2787,6 +2808,11 @@ _INT8_CONVERT = ("each int8 of X becomes an f32 by PRMT + FADD: no int-to-float 
                  "with the most PRMT")
 _NO_CONVERSION = r"I2F(?!\.RP)"
 SASS_FACTS = {
+    "fused_lr_grad": {
+        "lr_backward_kernel": (("LDG.E.128",), 16,
+                               "16 loads of 16 bytes issued together in the backward's row loop "
+                               "(16 rows of a bf16 X, 8 of an f32 one)", (), None),
+    },
     "gen_roofline": {
         "gen_kernel": (("IMAD.WIDE", "IMAD.HI"), 17,
                        "every product of a Philox block that depends on t, each pass of t",
@@ -2813,6 +2839,29 @@ SASS_FACTS = {
                                        None),
     },
 }
+
+
+# library -> function -> opcode prefixes that none of its instructions may
+# hold: the float backward's splits meet in shared memory, with no atomics
+SASS_ABSENT = {"fused_lr_grad": {"lr_backward_kernel": ("RED.", "ATOM")}}
+
+
+def _sass_absent(text: str, table: dict) -> dict:
+    """Function -> the instructions of ``table``'s prefixes found anywhere
+    in it (in any instance); raises where one is found."""
+    found = {fn: set() for fn in table}
+    for block in re.split(r"^\s*Function : ", text, flags=re.M)[1:]:
+        name = block.split(None, 1)[0]
+        for fn, prefixes in table.items():
+            if fn not in name:
+                continue
+            for m in re.finditer(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                                 block, flags=re.M):
+                if m.group(1).startswith(prefixes):
+                    found[fn].add(m.group(1))
+    if any(found.values()):
+        raise AssertionError(f"SASS holds instructions it must not: {found}")
+    return {fn: {"absent": table[fn], "found": sorted(v)} for fn, v in found.items()}
 
 
 def _sass_loops(text: str) -> dict:
@@ -2882,7 +2931,9 @@ def _sass_facts(loops: dict, table: dict) -> dict:
 
 
 def phase_sass() -> dict:
-    """What the kernels compiled to: wgmma (HGMMA) and no mma.sync (HMMA)
+    """What the kernels compiled to: in the float library the backward's
+    16 batched 16-byte loads in its row loop and no atomic anywhere in it;
+    wgmma (HGMMA) and no mma.sync (HMMA)
     in the probe mxu's pass loop, the FMAs inside const's pass loop, a
     whole Philox block in gen's loop; in the int8 library the byte-permute
     conversion (PRMT, no I2F beside it) in the int8 kernels' loops, 8
@@ -2896,6 +2947,8 @@ def phase_sass() -> dict:
         text = subprocess.run([cuobjdump, "-sass", str(build.library_path(lib))],
                               capture_output=True, text=True, timeout=120, check=True).stdout
         facts[lib] = _sass_facts(_sass_loops(text), table)
+        if lib in SASS_ABSENT:
+            facts[lib]["absent_anywhere"] = _sass_absent(text, SASS_ABSENT[lib])
         emit("sass", library=os.path.relpath(build.library_path(lib), ROOT), facts=facts[lib])
     return facts
 
@@ -3017,7 +3070,8 @@ def main(argv=None) -> int:
         }
         for extra in ("library_note", "two_pass_ms", "row_blocks_ms", "plan", "shape",
                       "at_8_rows", "at_512_rows", "pair_ms", "wrap", "backward_ms",
-                      "at_ps_shapes", "at_serve_shapes", "at_2048_rows_1M"):
+                      "at_ps_shapes", "at_serve_shapes", "at_2048_rows_1M",
+                      "at_8_column_blocks"):
             if extra in t:
                 entry[extra] = t[extra]
         if name in by_path:

@@ -4,7 +4,7 @@ int8 instances in ``ops/csrc/fused_lr_int8.cu`` (``--x-dtype int8``: X
 uniform in [-127, 127] with the dequantization scale 3/127).
 
     python -m distlr_tpu_torch.benchmarks.slice_kernels [--sweep] [--trace] [--wide]
-        [--times] [--x-dtype bfloat16|int8] [--batch 64] [--seed 0]
+        [--backward] [--times] [--x-dtype bfloat16|int8] [--batch 64] [--seed 0]
 
 ``--sweep`` times the single-pass gradient and the streaming logits over a
 grid of launch plans (blocks per SM, rows a tile, stages), each checked
@@ -27,11 +27,23 @@ time from the producer's issue of a tile to each later event, how far the
 last CTA's publish of a tile trails the median CTA's, and how long after
 the last publish the resolvers see the tile complete.
 
+``--backward`` times the float backward (``distlr_lr_backward_splits``,
+bf16 X and products) at the feature-sharded block (1,024, 250,000) and
+its half (1,024, 125,000), the two-read path's shapes (2,048, 1M) and
+(64, 6M), and at 1/4 to 4 column tiles an SM, with each row-split count
+from 1 to 8 forced, beside the
+plan's own count and ``torch.mv(X.t(), r)``; each result is checked
+against the plain version.  It also times the host's plan query.
+
 ``--times`` times, on one set of inputs, the int8 single pass at (2048,
 1M) with both product types, the bf16 single pass at (2048, 1M), the int8
 two-read gradient at (64, 6M) and that gradient's backward alone (the
-C entry point ``distlr_lr_backward`` on the forward's residuals), each
-checked against its plain version, and prints them on one line with the
+C entry point ``distlr_lr_backward`` on the forward's residuals), the
+bf16 backward (the same entry point) at (1,024, 250,000) and (2,048, 1M)
+and the bf16 two-read gradient at (64, 6M), each with its library call
+(``torch.mv`` of Xᵀ; for the gradient also ``mv``, sigmoid, ``mv`` of
+Xᵀ) beside it, each checked against its plain version, and prints them on
+one line with the
 checkout whose kernels ran (the directory ``distlr_tpu_torch`` was
 imported from).  It uses only entry points that every checkout since the
 int8 kernels has, so it can time another checkout's kernels: run the
@@ -88,6 +100,15 @@ X_DTYPES = {"bfloat16": torch.bfloat16, "int8": torch.int8}
 INT8_SCALE = 3.0 / 127.0
 ITERS = 20
 TIMES_REPS = 25
+# the float backward's shapes in --times: the feature-sharded block and
+# the two-read path's full width
+BACKWARD_SHAPES = ((1024, 250_000), (2048, 1_000_000))
+# --backward: those, (64, 6M), the feature-sharded block at 8 column
+# blocks of 1M, and D at 1/4, 1, 2, 3, 4 column tiles of 2,048 per SM of
+# 132 (a literal: --times imports other checkouts' fused_lr)
+BACKWARD_SWEEP = BACKWARD_SHAPES + ((WIDE_B, WIDE_D), (1024, 125_000)) + tuple(
+    (2048, k * 132 * 2048 // 4) for k in (1, 4, 8, 12, 16))
+HBM_BYTES_PER_S = 3.35e12
 
 
 def _inputs(seed: int, b: int = B, d: int = D, masked: int = 48, x_dtype=torch.bfloat16):
@@ -278,6 +299,65 @@ def trace(seed: int, x_dtype, compute_warps: int | None = None) -> None:
     }), flush=True)
 
 
+def _bf16_backward_inputs(seed: int, b: int, d: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn(b, d, device="cuda", generator=gen).to(torch.bfloat16)
+    return X, torch.randn(b, device="cuda", generator=gen)
+
+
+def _backward_call(lib, X, r, splits=None):
+    """``g = rᵀX`` through ``distlr_lr_backward`` (the entry point every
+    checkout has) or, given ``splits``, ``distlr_lr_backward_splits``."""
+    b, d = X.shape
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        g = torch.empty(d, dtype=torch.float32, device="cuda")
+        if splits is None:
+            rc = lib.distlr_lr_backward(X.data_ptr(), 1, r.data_ptr(), g.data_ptr(), b, d, 1,
+                                        1.0, stream)
+        else:
+            rc = lib.distlr_lr_backward_splits(X.data_ptr(), 1, r.data_ptr(), g.data_ptr(), b,
+                                               d, 1, splits, stream)
+        if rc != 0:
+            raise RuntimeError(f"lr_backward launch failed: CUDA error {rc}")
+        return g
+    return call
+
+
+def backward_sweep(seed: int) -> None:
+    """The float backward at each forced split count, one line a shape."""
+    import time  # noqa: PLC0415
+
+    lib = fused_lr._lib()
+    for b, d in BACKWARD_SWEEP:
+        X, r = _bf16_backward_inputs(seed, b, d)
+        ref = r @ X.to(torch.float32)
+        rb = r.to(torch.bfloat16)
+        plan = fused_lr.backward_plan_for(X)
+        line = {"backward": True, "shape": [b, d], "plan": plan,
+                "bound_ms": 1e3 * (b * d * 2 + b * 4 + d * 4) / HBM_BYTES_PER_S,
+                "mv_ms_before": _ms(lambda: torch.mv(X.t(), rb), TIMES_REPS)}
+        ms, errs = {}, {}
+        for splits in range(1, min(fused_lr.MAX_BACKWARD_SPLITS, b) + 1):
+            call = _backward_call(lib, X, r, splits)
+            errs[splits] = _rel(call(), ref)
+            ms[splits] = _ms(call, TIMES_REPS)
+        call = _backward_call(lib, X, r)
+        line.update(ms_by_splits=ms, rel_err_by_splits=errs, plan_ms=_ms(call, TIMES_REPS),
+                    same_bits=bool(torch.equal(call(), call())),
+                    mv_ms_after=_ms(lambda: torch.mv(X.t(), rb), TIMES_REPS))
+        print(json.dumps(line), flush=True)
+        del X, ref
+        torch.cuda.empty_cache()
+    out = (ctypes.c_longlong * 4)()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        lib.distlr_lr_backward_plan(1, 1, 1024, 250_000, out)
+    print(json.dumps({"backward_plan_query_host_us": 1e3 * (time.perf_counter() - t0)}),
+          flush=True)
+
+
 def times(seed: int) -> None:
     """K1 (both product types), the bf16 single pass, K3 and K3's backward
     alone, each against its plain version, on one line."""
@@ -329,6 +409,29 @@ def times(seed: int) -> None:
                             "shape": [WIDE_B, WIDE_D]}
     out["int8_backward"] = {"rel_err": _rel(backward(), bwd_ref), "ms": _ms(backward, TIMES_REPS),
                             "shape": [WIDE_B, WIDE_D]}
+    del X, g_ref, bwd_ref
+    torch.cuda.empty_cache()
+
+    lib = fused_lr._lib()
+    for b, d in BACKWARD_SHAPES:
+        X, r = _bf16_backward_inputs(seed, b, d)
+        call, rb = _backward_call(lib, X, r), r.to(torch.bfloat16)
+        out[f"bf16_backward_{b}x{d}"] = {"rel_err": _rel(call(), r @ X.to(torch.float32)),
+                                         "ms": _ms(call, TIMES_REPS),
+                                         "mv_ms": _ms(lambda: torch.mv(X.t(), rb), TIMES_REPS)}
+        del X
+        torch.cuda.empty_cache()
+    w, X, y, mask = _inputs(seed, WIDE_B, WIDE_D, WIDE_B // 5)
+
+    def two_read():
+        return fused_lr.fused_lr_grad_two_launch(w, X, y, mask)
+    rb = torch.randn(WIDE_B, device="cuda").to(torch.bfloat16)
+    out["bf16_two_read"] = {
+        "rel_err": _rel(two_read(), fused_lr.fused_lr_grad_reference(w, X, y, mask)),
+        "ms": _ms(two_read, TIMES_REPS),
+        "library_grad_ms": _ms(_library_calls(w, X, y, mask)["library_grad_ms"], TIMES_REPS),
+        "backward_mv_ms": _ms(lambda: torch.mv(X.t(), rb), TIMES_REPS),
+        "shape": [WIDE_B, WIDE_D]}
     print(json.dumps(out), flush=True)
 
 
@@ -338,9 +441,12 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", action="store_true", help="trace the single pass's hand-offs")
     ap.add_argument("--wide", action="store_true",
                     help="time the two-read path's plans above the single pass's bound")
+    ap.add_argument("--backward", action="store_true",
+                    help="time the float backward at each forced row-split count")
     ap.add_argument("--times", action="store_true",
                     help="time the int8 single pass and two-read gradient, its backward alone, "
-                         "and the bf16 single pass (for comparing checkouts)")
+                         "the bf16 single pass, backward and two-read gradient (for comparing "
+                         "checkouts)")
     ap.add_argument("--x-dtype", choices=sorted(X_DTYPES), default="bfloat16",
                     help="X's type for --sweep, --trace and --wide")
     ap.add_argument("--compute-warps", type=int, default=None,
@@ -353,8 +459,10 @@ def main(argv=None) -> int:
         return 2
     print(nvidia_smi_line(), flush=True)
     x_dtype = X_DTYPES[args.x_dtype]
-    if args.sweep or not (args.trace or args.wide or args.times):
+    if args.sweep or not (args.trace or args.wide or args.times or args.backward):
         sweep(args.seed, x_dtype)
+    if args.backward:
+        backward_sweep(args.seed)
     if args.wide:
         wide_sweep(args.seed, args.batch, x_dtype)
     if args.trace:

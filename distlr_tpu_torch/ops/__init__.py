@@ -1,5 +1,6 @@
 from distlr_tpu_torch.ops import fused_lr, gen_roofline
 from distlr_tpu_torch.ops.fused_lr import (  # noqa: F401
+    BackwardPlan,
     LaunchPlan,
     fused_lr_grad,
     fused_lr_grad_int8dot,
@@ -11,6 +12,7 @@ from distlr_tpu_torch.ops.fused_lr import (  # noqa: F401
     lr_backward,
     lr_backward_int8dot,
     lr_backward_int8dot_reference,
+    lr_backward_plan,
     lr_backward_reference,
     lr_launch_plan,
     lr_logits,

@@ -1,9 +1,10 @@
-// The slice kernels and the two-read path's backward, shared by the
-// kernel libraries of the dense logistic-regression gradient and logits:
-// fused_lr_grad.cu (float32 and bfloat16 X) and fused_lr_int8.cu (int8 X,
-// and the int8 x int8 contraction of feature_dtype="int8_dot").  The
-// design is set out at the top of fused_lr_grad.cu.  Everything here is
-// in an anonymous namespace: each library instantiates what it launches.
+// The slice kernels and the helpers of the two-read path's backward
+// kernels, shared by the kernel libraries of the dense logistic-regression
+// gradient and logits: fused_lr_grad.cu (float32 and bfloat16 X, and their
+// backward) and fused_lr_int8.cu (int8 X, and the int8 x int8 contraction
+// of feature_dtype="int8_dot").  The design is set out at the top of
+// fused_lr_grad.cu.  Everything here is in an anonymous namespace: each
+// library instantiates what it launches.
 
 #pragma once
 
@@ -81,26 +82,11 @@ __device__ __forceinline__ float load1<uint16_t, true>(const uint16_t* p) {
   return __uint_as_float(static_cast<uint32_t>(__ldg(p)) << 16);
 }
 
-// Eight adjacent elements as f32 from a 16-byte aligned address.
+// Eight adjacent elements as f32 from a 16-byte aligned address (w's
+// slice).
 template <typename T, bool kRound>
 __device__ __forceinline__ void load8(const T* p, float (&out)[kCols]);
 
-template <>
-__device__ __forceinline__ void load8<uint16_t, false>(const uint16_t* p,
-                                                       float (&out)[kCols]) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t words[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[2 * i] = __uint_as_float(words[i] << 16);
-    out[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
-  }
-}
-template <>
-__device__ __forceinline__ void load8<uint16_t, true>(const uint16_t* p,
-                                                      float (&out)[kCols]) {
-  load8<uint16_t, false>(p, out);
-}
 template <>
 __device__ __forceinline__ void load8<float, false>(const float* p,
                                                     float (&out)[kCols]) {
@@ -108,13 +94,6 @@ __device__ __forceinline__ void load8<float, false>(const float* p,
   const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
   out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-template <>
-__device__ __forceinline__ void load8<float, true>(const float* p,
-                                                   float (&out)[kCols]) {
-  load8<float, false>(p, out);
-#pragma unroll
-  for (int k = 0; k < kCols; ++k) out[k] = to_bf16(out[k]);
 }
 
 // Eight adjacent elements as f32 from a 16-byte aligned shared address.
@@ -188,58 +167,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
-}
-
-// --- the backward of the two-read path -----------------------------------
-
-// g[d] = sum_b r[b] * X[b, d], one thread per kCols adjacent columns (an
-// int8 X has its own backward: fused_lr_int8.cu).
-template <typename T, bool kRound>
-__global__ void __launch_bounds__(kBwdThreads)
-lr_backward_kernel(const T* __restrict__ X, const float* __restrict__ r,
-                   float* __restrict__ g, int64_t B, int64_t D, bool vec) {
-  __shared__ float rs[kRChunk];
-  const int64_t c0 =
-      (static_cast<int64_t>(blockIdx.x) * kBwdThreads + threadIdx.x) * kCols;
-  const bool active = c0 < D;
-  const bool full = vec && c0 + kCols <= D;
-  float acc[kCols];
-#pragma unroll
-  for (int k = 0; k < kCols; ++k) acc[k] = 0.f;
-
-  for (int64_t b0 = 0; b0 < B; b0 += kRChunk) {
-    const int n = static_cast<int>(B - b0 < kRChunk ? B - b0 : kRChunk);
-    __syncthreads();  // the previous chunk is fully consumed
-    for (int i = threadIdx.x; i < n; i += kBwdThreads) rs[i] = r[b0 + i];
-    __syncthreads();
-    if (!active) continue;
-    const T* p = X + b0 * D + c0;
-    if (full) {
-#pragma unroll 4
-      for (int i = 0; i < n; ++i) {
-        float xv[kCols];
-        load8<T, kRound>(p + i * D, xv);
-        const float ri = rs[i];
-#pragma unroll
-        for (int k = 0; k < kCols; ++k) acc[k] = fmaf(ri, xv[k], acc[k]);
-      }
-    } else {
-      const int ncols = static_cast<int>(D - c0 < kCols ? D - c0 : kCols);
-      for (int i = 0; i < n; ++i) {
-        const float ri = rs[i];
-        for (int k = 0; k < ncols; ++k)
-          acc[k] = fmaf(ri, load1<T, kRound>(p + i * D + k), acc[k]);
-      }
-    }
-  }
-  if (!active) return;
-  if (full) {
-    float4* out = reinterpret_cast<float4*>(g + c0);
-    out[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    out[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
-  } else {
-    for (int k = 0; k < kCols && c0 + k < D; ++k) g[c0 + k] = acc[k];
-  }
 }
 
 // --- the slice kernels: PTX helpers ---------------------------------------
@@ -871,19 +798,6 @@ bool aligned16(const void* p) {
 dim3 backward_grid(int64_t D) {
   const int64_t cols_per_block = static_cast<int64_t>(kBwdThreads) * kCols;
   return dim3(static_cast<unsigned>((D + cols_per_block - 1) / cols_per_block));
-}
-
-template <typename T>
-void launch_backward(const void* X, const float* r, float* g, int64_t B,
-                     int64_t D, bool round_bf16, cudaStream_t stream) {
-  const bool vec = D % kCols == 0 && aligned16(X) && aligned16(g);
-  const dim3 grid = backward_grid(D);
-  const T* x = static_cast<const T*>(X);
-  if (round_bf16) {
-    lr_backward_kernel<T, true><<<grid, kBwdThreads, 0, stream>>>(x, r, g, B, D, vec);
-    return;
-  }
-  lr_backward_kernel<T, false><<<grid, kBwdThreads, 0, stream>>>(x, r, g, B, D, vec);
 }
 
 cudaError_t launch_slice(const void* kernel, bool cooperative, int ctas, int threads,

@@ -15,10 +15,11 @@ Two routes, chosen by shape (:func:`lr_launch_plan`):
 * above that, the two-read path (``fused_lr_grad_two_launch``,
   ``lr_logits_row_blocks``): the streaming forward on narrower slices in
   several waves (:func:`lr_wide_plan`), an epilogue that sums each row's
-  partials into z and the residual, and a backward launch of one block
-  per 2048 columns, reading X twice.  It is a dispatch on shape, as the
-  JAX callers route to XLA above the TPU kernel's VMEM budget, never a
-  fallback on failure.
+  partials into z and the residual, and a backward launch on
+  :func:`lr_backward_plan`'s grid (column tiles of 2,048 by row splits
+  that meet in a thread-block cluster), reading X twice.  It is a
+  dispatch on shape, as the JAX callers route to XLA above the TPU
+  kernel's VMEM budget, never a fallback on failure.
 
 The two-read path's backward launch is also a wrapper of its own,
 :func:`lr_backward` (``g = rᵀX`` from residuals computed elsewhere): the
@@ -107,6 +108,12 @@ WIDE_CTAS_PER_SM = 3
 #: chosen
 WIDE_EXTRA_WAVES = 4
 KERNELS = ("grad", "logits")
+#: the float backward's block (``kBwdThreads``), 8 adjacent columns a
+#: thread: a column tile of 2,048
+BACKWARD_THREADS = 256
+BACKWARD_TILE_COLS = BACKWARD_THREADS * GROUP
+#: the most row splits of a column tile: one cluster, of the portable size
+MAX_BACKWARD_SPLITS = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +159,70 @@ class LaunchPlan:
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """The float backward's grid (``distlr_lr_backward``): ``col_tiles``
+    tiles of 2,048 columns by ``splits`` row splits on ``num_sms`` SMs.
+    The splits of a tile form one thread-block cluster (``cluster``
+    blocks; 1: no cluster) and are summed in split order."""
+
+    batch: int
+    dim: int
+    num_sms: int
+    col_tiles: int
+    splits: int
+
+    @property
+    def blocks(self) -> int:
+        return self.col_tiles * self.splits
+
+    @property
+    def cluster(self) -> int:
+        return self.splits
+
+    def row_ranges(self) -> list[tuple[int, int]]:
+        """Each split's rows as ``[start, stop)``, in split order."""
+        return [(k * self.batch // self.splits, (k + 1) * self.batch // self.splits)
+                for k in range(self.splits)]
+
+    def as_dict(self) -> dict:
+        return {**dataclasses.asdict(self), "blocks": self.blocks, "cluster": self.cluster}
+
+
+def lr_backward_plan(batch: int, dim: int, *, num_sms: int = H100_SMS) -> BackwardPlan:
+    """The float backward's grid for a (batch, dim) X: column tiles of
+    2,048 by row splits.  A function of its arguments alone, so two calls
+    sum in the same order and give the same bits; ``csrc/fused_lr_grad.cu``
+    (``backward_plan``) computes the same on the card from the runtime's
+    SM count (:func:`backward_plan_for` checks that).
+
+    A block of 256 threads reads its tile's rows in order, 16 rows'
+    16-byte loads in flight a thread (64 KB a block).  The rows are split
+    as far as every block keeps an SM of its own: ``num_sms // col_tiles``
+    splits, at least 1, at most ``MAX_BACKWARD_SPLITS`` (8, a portable
+    cluster) and at most ``batch`` (a split has a row at least).  At the
+    feature-sharded block (1,024, 250,000), 123 tiles on 132 SMs, that is
+    one split; from 66 tiles down (D <= 135,168) two or more.
+
+    Why not more splits, to give the idle SMs work: an SM streams two
+    blocks each slower than one, and the grid waits for its last block.
+    Measured with each split count forced (``slice_kernels.py
+    --backward``, bf16, on "NVIDIA H100 80GB HBM3, 700.00 W"): at (1,024,
+    250,000), 123 tiles, 1 to 8 splits took 0.1702, 0.1697, 0.1780,
+    0.1740, 0.1783, 0.1789, 0.1772, 0.1764 ms (``torch.mv`` 0.1760 /
+    0.1710): one and two splits tie, more lose 2-5%; at (1,024, 125,000),
+    62 tiles, 0.0915 / 0.0887 / 0.0911 for 1 / 2 / 3 splits; at (2,048,
+    270,336), 132 tiles, 0.3518 / 0.3530 for 1 / 2.  With 8 rows in
+    flight a thread (4 blocks an SM), a grid of a whole wave of resident
+    blocks, 5 splits at (1,024, 250,000), was 11% slower than 2 (0.1939
+    against 0.1734 ms; PERF.md)."""
+    if batch < 1 or dim < 1 or num_sms < 1:
+        raise ValueError(f"need batch, dim, num_sms >= 1, got {batch}, {dim}, {num_sms}")
+    tiles = -(-dim // BACKWARD_TILE_COLS)
+    splits = max(1, min(num_sms // tiles, MAX_BACKWARD_SPLITS, batch))
+    return BackwardPlan(batch, dim, num_sms, tiles, splits)
 
 
 def _element_bytes(x_dtype) -> int:
@@ -524,6 +595,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.distlr_lr_logits_blocks_per_sm.restype = i
     lib.distlr_cuda_error_string.argtypes = [i]
     lib.distlr_cuda_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "distlr_lr_backward_plan"):
+        lib.distlr_lr_backward_splits.argtypes = [p, i, p, p, ll, ll, i, i, p]
+        lib.distlr_lr_backward_splits.restype = i
+        lib.distlr_lr_backward_plan.argtypes = [i, i, ll, ll, ctypes.POINTER(ll)]
+        lib.distlr_lr_backward_plan.restype = i
     if hasattr(lib, "distlr_lr_logits_int8dot"):
         lib.distlr_lr_logits_int8dot.argtypes = [p, p, p, p, p, p, p, p, ll, ll, f,
                                                  i, i, i, i, i, p]
@@ -595,6 +671,29 @@ def int8_backward_grid(X) -> dict:
         rc = lib.distlr_lr_backward_grid(X.shape[1], ctypes.byref(blocks), ctypes.byref(per_sm))
     _raise_on(lib, rc, "lr_backward grid query")
     return {"blocks": blocks.value, "blocks_per_sm": per_sm.value}
+
+
+def backward_plan_for(X, compute_dtype: str = "bfloat16") -> dict:
+    """The float backward's launch for this X on its card: the plan the
+    kernel library computes (``distlr_lr_backward_plan``), held to
+    :func:`lr_backward_plan` on the runtime's SM count, with the blocks an
+    SM holds and the clusters of the plan's size the card holds at once
+    (0 with one split), as the runtime reports them.  Raises where the two
+    plans disagree or the card cannot hold one cluster of the plan."""
+    if X.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the float backward's plan needs a float32 or bfloat16 X, got {X.dtype}")
+    B, D = X.shape
+    out = (ctypes.c_longlong * 4)()
+    with torch.cuda.device(X.device):
+        lib = _lib()
+        rc = lib.distlr_lr_backward_plan(_X_DTYPE_CODES[X.dtype], int(compute_dtype == "bfloat16"),
+                                         B, D, out)
+    _raise_on(lib, rc, "lr_backward plan query")
+    plan = lr_backward_plan(B, D, num_sms=_num_sms(X.device.index or 0))
+    if (int(out[0]), int(out[1])) != (plan.col_tiles, plan.splits):
+        raise RuntimeError(f"the kernel's backward plan (tiles, splits) {tuple(out[:2])} is not "
+                           f"lr_backward_plan's {(plan.col_tiles, plan.splits)}")
+    return {**plan.as_dict(), "blocks_per_sm": int(out[2]), "clusters_resident": int(out[3])}
 
 
 def _plan_args(plan: LaunchPlan):
@@ -683,7 +782,8 @@ def run_two_read(lib, plan: LaunchPlan, w, X, y, mask, compute_dtype: str,
 
 def run_backward(lib, X, r, compute_dtype: str, feature_scale: float = 1.0):
     """The two-read path's backward of ``lib``: ``g = (rᵀX) · feature_scale``
-    (D,) f32 from the (B,) f32 residuals ``r``.  Counts nothing."""
+    (D,) f32 from the (B,) f32 residuals ``r``; a float X on the grid of
+    :func:`lr_backward_plan`.  Counts nothing."""
     B, D = X.shape
     r = r.to(torch.float32).contiguous()
     g = torch.empty(D, dtype=torch.float32, device=X.device)

@@ -756,9 +756,13 @@ def test_engine_eviction_frees_the_device_table(cuda):
 
 # --- the feature-sharded step (lr_backward, column blocks) ------------------
 # aligned shapes, D not a multiple of 8, a block whose rows break 16-byte
-# alignment (12 bf16 columns), a view at an odd offset
+# alignment (12 bf16 columns), a view at an odd offset; the step's blocks
+# at S = 4 (one split) and S = 8 (two splits in a cluster), few rows at
+# that width, one row, and B under the split count (3 splits of 1 row)
 @pytest.mark.parametrize("B,D,offset", [(64, 4096, 0), (1024, 250_000, 0), (7, 1003, 0),
-                                        (33, 12, 0), (16, 96, 5)])
+                                        (33, 12, 0), (16, 96, 5), (1024, 125_000, 0),
+                                        (5, 250_000, 0), (5, 125_000, 0), (1, 250_000, 0),
+                                        (3, 4096, 0)])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_lr_backward_matches_plain(cuda, B, D, offset, x_dtype):
     gen = torch.Generator(device=cuda).manual_seed(B + D)
@@ -781,6 +785,31 @@ def test_lr_backward_matches_plain(cuda, B, D, offset, x_dtype):
         ref = ops.lr_backward_reference(X, r, compute_dtype=cd, **kw)
         assert _rel(g, ref) <= 1e-3
         assert torch.equal(g, ops.lr_backward(X, r, compute_dtype=cd, **kw))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_backward_plan_fits_the_cards_occupancy(cuda, x_dtype, compute_dtype):
+    """The kernel library's plan is lr_backward_plan's on the runtime's SM
+    count (backward_plan_for raises otherwise); the kernel fits the 2
+    blocks an SM its launch bounds ask for, every split grid gives each
+    block an SM of its own, its cluster is one the card schedules, and the
+    full-width shapes take one split."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, D in [(1024, 250_000), (1024, 125_000), (5, 125_000), (1, 250_000), (3, 4096),
+                 (37, 1003), (2048, 1_000_000), (64, 6_000_000)]:
+        X = torch.empty((), dtype=x_dtype, device=cuda).expand(B, D)
+        plan = ops.fused_lr.backward_plan_for(X, compute_dtype)
+        assert plan["num_sms"] == sms and plan["blocks_per_sm"] >= 2
+        assert plan["splits"] <= min(B, 8) and plan["blocks"] % plan["cluster"] == 0
+        if plan["splits"] > 1:
+            assert plan["clusters_resident"] >= 1 and plan["blocks"] <= sms
+        else:
+            assert plan["clusters_resident"] == 0
+        if (B, D) == (1024, 125_000):
+            assert plan["splits"] == 2
+        if D >= 250_000:
+            assert plan["splits"] == 1
 
 
 def test_lr_logits_int8dot_takes_a_global_grid(cuda):

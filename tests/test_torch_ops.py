@@ -14,6 +14,7 @@ import torch
 from distlr_tpu.config import Config as JaxConfig
 from distlr_tpu.models import BinaryLR as JaxBinaryLR
 from distlr_tpu.ops import fused_lr_grad as jax_fused_lr_grad
+from distlr_tpu.parallel import feature_parallel as jfp
 from distlr_tpu_torch import ops
 
 
@@ -382,3 +383,120 @@ class TestWidePlan:
             jnp.asarray(pad(w, Dp)), jnp.asarray(Xp), jnp.asarray(pad(y, Bp)),
             jnp.asarray(pad(mask, Bp)), batch_tile=16, interpret=True))[:D]
         assert rel(g, g_pallas) <= 1e-5
+
+
+# --- the float backward's grid: column tiles x row splits ---------------------
+BACKWARD_SHAPES = [(1, 1), (1, 250_000), (3, 250_000), (5, 250_000), (37, 1003), (33, 12),
+                   (1024, 250_000), (2048, 500_000), (2049, 600_016), (2048, 1_000_000),
+                   (64, 6_000_000), (8, 40_000_000)]
+
+
+def _backward_emulation(plan, X, r):
+    """The float backward's order in plain f32: each split's sum over its
+    rows, then the splits summed in split order."""
+    parts = [r[a:b] @ X[a:b] for a, b in plan.row_ranges()]
+    g = parts[0]
+    for part in parts[1:]:
+        g = g + part
+    return g
+
+
+class TestBackwardPlan:
+    @pytest.mark.parametrize("num_sms", [132, 16, 2, 1])
+    @pytest.mark.parametrize("B,D", BACKWARD_SHAPES)
+    def test_rows_covered_once_in_order(self, B, D, num_sms):
+        plan = ops.lr_backward_plan(B, D, num_sms=num_sms)
+        ranges = plan.row_ranges()
+        assert len(ranges) == plan.splits and ranges[0][0] == 0 and ranges[-1][1] == B
+        for (a, b), (c, _) in zip(ranges, ranges[1:]):
+            assert b == c
+        assert all(b > a for a, b in ranges)  # no split without a row
+        assert 1 <= plan.splits <= min(B, 8)
+        assert (plan.col_tiles - 1) * 2048 < D <= plan.col_tiles * 2048
+        # one cluster a tile: its size divides the grid's rows of blocks
+        assert plan.cluster == plan.splits <= 8 and plan.blocks % plan.cluster == 0
+        assert plan.blocks == plan.col_tiles * plan.splits
+        # every block has an SM of its own wherever the rows are split
+        assert plan.splits == 1 or plan.blocks <= num_sms
+
+    @pytest.mark.parametrize("B,D", [(64, 6_000_000), (2048, 1_000_000), (8, 40_000_000),
+                                     (1024, 250_000), (2048, 270_336), (1, 250_000)])
+    def test_one_split_where_a_second_would_share_an_sm(self, B, D):
+        """67 or more tiles on 132 SMs (2,930, 489, 123 at the
+        feature-sharded block, 132), or one row."""
+        assert ops.lr_backward_plan(B, D).splits == 1
+
+    @pytest.mark.parametrize("D,splits", [(135_168, 2), (135_169, 1), (67_584, 4), (32_768, 8),
+                                          (2048, 8)])
+    def test_narrow_blocks_split_their_rows(self, D, splits):
+        """66 tiles take 2 splits, 33 take 4, 16 or fewer 8 (the cluster's
+        most); 67 tiles one."""
+        plan = ops.lr_backward_plan(1024, D)
+        assert plan.splits == splits and plan.blocks <= 132
+        assert plan.splits == 8 or (plan.splits + 1) * plan.col_tiles > 132
+
+    def test_main_path_plans(self):
+        """On 132 SMs: the feature-sharded step's blocks at S = 4 and 8."""
+        plan = ops.lr_backward_plan(1024, 250_000)
+        assert (plan.col_tiles, plan.splits, plan.blocks) == (123, 1, 123)
+        plan = ops.lr_backward_plan(1024, 125_000)
+        assert (plan.col_tiles, plan.splits, plan.blocks) == (62, 2, 124)
+        assert ops.lr_backward_plan(5, 125_000).row_ranges() == [(0, 2), (2, 5)]
+        assert ops.lr_backward_plan(3, 4096).splits == 3  # capped at B
+
+    def test_a_function_of_its_arguments(self):
+        a = ops.lr_backward_plan(1024, 125_000, num_sms=100)
+        b = ops.lr_backward_plan(1024, 125_000, num_sms=100)
+        assert a == b and a.as_dict() == b.as_dict()
+        assert a.as_dict()["blocks"] == a.blocks and a.as_dict()["cluster"] == a.splits
+        assert ops.lr_backward_plan(1024, 125_000, num_sms=132) != a
+
+    @pytest.mark.parametrize("kw", [dict(batch=0), dict(dim=0), dict(num_sms=0)])
+    def test_rejects(self, kw):
+        args = {"batch": 4, "dim": 8, **kw}
+        with pytest.raises(ValueError):
+            ops.lr_backward_plan(args.pop("batch"), args.pop("dim"), **args)
+
+    @pytest.mark.parametrize("B,num_sms", [(37, 132), (3, 132), (37, 2)])
+    def test_emulated_order_matches_jax(self, B, num_sms):
+        """The kernel's order (per-split f32 sums, then the splits in
+        order) at a small odd shape, 8 splits, splits capped at B = 3, and
+        2 splits on two SMs, against JAX's ``resid_grad`` (n = 1, f32
+        products) and the Pallas kernel's gradient (interpret mode, on a
+        copy padded to its tile rules with zero columns and masked rows)
+        on the residuals JAX computes; bf16-exact f32 inputs."""
+        D = 1003
+        w, X, y, mask = _inputs(12, B, D, masked_tail=1)
+        X = torch.from_numpy(X).to(torch.bfloat16).float().numpy()
+        w = torch.from_numpy(w).to(torch.bfloat16).float().numpy()
+        plan = ops.lr_backward_plan(B, D, num_sms=num_sms)
+        assert plan.splits == {37: 8 if num_sms == 132 else 2, 3: 3}[B]
+
+        def rel(got, want):
+            got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+            return np.abs(got - want).max() / np.abs(want).max()
+
+        model = JaxBinaryLR(D, compute_dtype="float32")
+        z = np.asarray(model.logits(jnp.asarray(w), jnp.asarray(X)))
+        r = ((1.0 / (1.0 + np.exp(-z.astype(np.float64))) - y) * mask).astype(np.float32)
+        g = _backward_emulation(plan, *_torch(X, r)).numpy()
+        assert rel(g, jfp.resid_grad(model, jnp.asarray(r), jnp.asarray(X), 1.0)) <= 1e-5
+        Bp, Dp = -(-B // 16) * 16, -(-D // 128) * 128
+        Xp = np.zeros((Bp, Dp), np.float32)
+        Xp[:B, :D] = X
+        pad = lambda v, n: np.concatenate([v, np.zeros(n - len(v), v.dtype)])  # noqa: E731
+        g_pallas = np.asarray(jax_fused_lr_grad(
+            jnp.asarray(pad(w, Dp)), jnp.asarray(Xp), jnp.asarray(pad(y, Bp)),
+            jnp.asarray(pad(mask, Bp)), batch_tile=16, interpret=True))[:D]
+        assert rel(g, g_pallas) <= 1e-5
+
+    @pytest.mark.parametrize("B,D", [(37, 1003), (3, 1003), (1024, 4096)])
+    def test_emulated_order_matches_the_plain_version_at_bf16(self, B, D):
+        """With X rounded to bf16 and r kept f32, as ``lr_backward`` on
+        the card computes it."""
+        rng = np.random.default_rng(B)
+        X = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(torch.bfloat16)
+        r = torch.from_numpy(rng.standard_normal(B).astype(np.float32))
+        g = _backward_emulation(ops.lr_backward_plan(B, D), X.float(), r)
+        ref = ops.lr_backward_reference(X, r)
+        assert float((g - ref).abs().max() / ref.abs().max()) <= 1e-5
