@@ -36,8 +36,14 @@ them), then the scoring tier at the full width (``ScoringEngine`` behind
 an in-process ``ScoringServer``: dense binary_lr at D = 1M on the
 ``lr_logits`` kernels, concurrent clients and JSON batches over TCP, int8,
 int8_dot and D = 6M engines, checkpoint and live-PS hot reload, idle
-eviction; then the kernels at the serving buckets), and last the path of the
-on-device generation probes: both roofline experiments
+eviction; then the kernels at the serving buckets), then the keyed
+parameter-server path (``sparse_lr``, ``sparse_softmax`` and ``blocked_lr``
+at config 4's D = 1M buckets and 21 fields through ``run_ps_local``, sync
+and async, 2 servers and 2 worker threads on the card, each keyed gradient
+a gather and an ``index_add_`` there, held to the numpy backend) and
+hot-row serving (a ``blocked_lr`` engine refreshed from a live PS through
+a ``HotSetTracker``'s keyed pulls while an async keyed worker pushes), and
+last the path of the on-device generation probes: both roofline experiments
 (``distlr_tpu_torch.benchmarks.exp_gen_roofline*``) at the published
 (256, 8192) x 64 tile, in this process and as ``python -m``.  Each phase
 prints JSON lines; any failure exits non-zero before the last line, which is
@@ -1552,7 +1558,7 @@ def _sampled_peak_rss(out: dict, period_s: float = 0.05):
         out["host_peak_rss_gb"] = max(peak, rss_kb()) / 2**20
 
 
-def _run_ps(torch, cfg) -> tuple[list, dict, dict, float]:
+def _run_ps(torch, cfg, *, save: bool = True) -> tuple[list, dict, dict, float]:
     """``run_ps_local(cfg)`` with the launch counts zeroed just before and
     read just after, under a wall-clock limit; ``(weights, report,
     launches, seconds)``.  Raises if the run hangs or fails."""
@@ -1563,7 +1569,7 @@ def _run_ps(torch, cfg) -> tuple[list, dict, dict, float]:
 
     def run():
         try:
-            out["weights"] = run_ps_local(cfg, save=True, report=report)
+            out["weights"] = run_ps_local(cfg, save=save, report=report)
         except BaseException as e:  # noqa: BLE001 — re-raised below, in the main thread
             out["error"] = e
 
@@ -2324,6 +2330,391 @@ def phase_serve(torch, seed: int, smi: str) -> dict:
     return out
 
 
+# --- the keyed parameter-server path -----------------------------------------
+# config 4's shape (SPARSE_*: D = 1M buckets, 21 fields, vocab 1e7) on the
+# PS path: 2 servers, 2 worker threads on the card, 1,024-row batches
+KEYED_FAMILIES = ("sparse_lr", "sparse_softmax", "blocked_lr")
+KEYED_SHARD_ROWS, KEYED_BATCH, KEYED_EPOCHS, KEYED_TEST_ROWS = 16_384, 1024, 3, 8192
+KEYED_BLOCK = 16
+# rows drawn from this many distinct field tuples: features recur across
+# 41k rows, as a day of real CTR logs' do (i.i.d. ids over a vocab of 1e7
+# would almost never repeat, and no held-out row could be scored better
+# than the init)
+KEYED_TUPLES = 8192
+# the card's keyed eval against the numpy one on the same final weights
+KEYED_EVAL_TOL = 1e-5
+
+
+def _keyed_data(tmp: str, family: str, seed: int) -> str:
+    """A family's data dir: two train shards of KEYED_SHARD_ROWS rows and
+    KEYED_TEST_ROWS test rows at config 4's shape, hashed one-hot libsvm
+    (binary labels, or SPARSE_K classes from a planted (D, K) table) or
+    raw CTR rows (blocked_lr)."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.data import hashing  # noqa: PLC0415
+
+    d = os.path.join(tmp, family)
+    n = 2 * KEYED_SHARD_ROWS + KEYED_TEST_ROWS
+    if family == "blocked_lr":
+        hashing.write_raw_ctr_shards(d, n, SPARSE_FIELDS, SPARSE_VOCAB, 2, seed=seed,
+                                     test_fraction=KEYED_TEST_ROWS / n,
+                                     num_distinct_tuples=KEYED_TUPLES)
+        return d
+    _, cols, _, y, _ = hashing.make_ctr_dataset(n, SPARSE_FIELDS, SPARSE_VOCAB, SPARSE_D,
+                                                seed=seed, num_distinct_tuples=KEYED_TUPLES)
+    if family == "sparse_softmax":
+        rng = np.random.default_rng(seed + 1)
+        w_true = rng.standard_normal((SPARSE_D, SPARSE_K)).astype(np.float32)
+        y = np.argmax(w_true[cols].sum(axis=1) + rng.gumbel(size=(n, SPARSE_K)), axis=1)
+    for split, part, sl in (("test", 1, slice(0, KEYED_TEST_ROWS)),
+                            ("train", 1, slice(KEYED_TEST_ROWS,
+                                               KEYED_TEST_ROWS + KEYED_SHARD_ROWS)),
+                            ("train", 2, slice(KEYED_TEST_ROWS + KEYED_SHARD_ROWS, n))):
+        os.makedirs(os.path.join(d, split), exist_ok=True)
+        with open(os.path.join(d, split, f"part-{part:03d}"), "w") as f:
+            for row, label in zip(cols[sl].tolist(), y[sl].tolist()):
+                c, k = np.unique(row, return_counts=True)  # collisions add
+                f.write(f"{label} " + " ".join(f"{a + 1}:{b}" for a, b in zip(c, k)) + "\n")
+    return d
+
+
+def _keyed_cfg(data_dir: str, family: str):
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+
+    return Config(data_dir=data_dir, model=family, num_feature_dim=SPARSE_D,
+                  num_classes=SPARSE_K, block_size=KEYED_BLOCK, ctr_fields=SPARSE_FIELDS,
+                  num_workers=PS_WORKERS, num_servers=PS_SERVERS, batch_size=KEYED_BATCH,
+                  num_iteration=KEYED_EPOCHS, test_interval=1, learning_rate=0.5, l2_c=0.0,
+                  ps_timeout_ms=PS_TIMEOUT_MS)
+
+
+def _keyed_slice(cfg, split: str, batch_size: int, w_flat) -> tuple:
+    """The first batch of a split's first shard as a keyed round hands it
+    to the gradient: ``(w_u, pos, *leaves, y, mask)``, ``w_u`` the batch's
+    unique rows gathered from the flat weights ``w_flat``."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.train import ps_trainer  # noqa: PLC0415
+
+    path = os.path.join(cfg.data_dir, split, "part-001")
+    ids, *rest = ps_trainer.load_ps_iter(cfg, path, batch_size).next_batch()
+    ub, pos = np.unique(ids, return_inverse=True)
+    table = (w_flat if cfg.model == "sparse_lr"
+             else w_flat.reshape(-1, ps_trainer.keyed_row_width(cfg)))
+    return (np.ascontiguousarray(table[ub]), pos.reshape(ids.shape), *rest)
+
+
+def _keyed_numpy_eval(cfg, w_flat) -> tuple[float, float]:
+    """``(accuracy, logloss)`` of flat PS weights on the test split, by
+    host numpy: the test rows' unique keys gathered from the weights."""
+    from distlr_tpu_torch.train import ps_trainer  # noqa: PLC0415
+
+    w_u, pos, vals, y, mask = _keyed_slice(cfg, "test", -1, w_flat)
+    return ps_trainer._dense_eval_from_logits(
+        ps_trainer._keyed_logits(w_u, pos, vals, cfg.model), y, mask,
+        SPARSE_K if cfg.model == "sparse_softmax" else None)
+
+
+def _keyed_grad_inputs(torch, cfg, w_flat):
+    """Worker 0's first batch as its keyed round gives it to the gradient:
+    ``(numpy args, the same on the card, numpy fn, torch fn, l2 args)``."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.train import ps_trainer  # noqa: PLC0415
+
+    args = _keyed_slice(cfg, "train", KEYED_BATCH, w_flat)
+    dev = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in args]
+    return (args, dev, *ps_trainer._KEYED_GRADS[cfg.model],
+            (cfg.l2_c, bool(cfg.l2_scale_by_batch)))
+
+
+def _keyed_grad_probe(torch, cfg, w_flat) -> dict:
+    """One keyed gradient at the path's shape (worker 0's first batch, its
+    unique rows gathered from ``w_flat``): the CUDA kernels of one call,
+    its device time, the copies' host round trip, and the numpy
+    function's host time on the same batch."""
+    import numpy as np  # noqa: PLC0415
+
+    args, dev, np_fn, torch_fn, l2 = _keyed_grad_inputs(torch, cfg, w_flat)
+    ub = args[0]
+    g_card = torch_fn(*dev, *l2).cpu().numpy()
+    g_np = np_fn(*args, *l2)
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        np_fn(*args, *l2)
+    numpy_ms = 1e3 * (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        torch_fn(*(torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in args),
+                 *l2).cpu()
+    host_ms = 1e3 * (time.perf_counter() - t0) / reps
+    return {"unique_rows": int(ub.shape[0]), "batch_rows": KEYED_BATCH,
+            "rel_err_vs_numpy": float(np.abs(g_card - g_np).max()
+                                      / max(np.abs(g_np).max(), 1e-30)),
+            "device_ms": time_ms(lambda: torch_fn(*dev, *l2), reps),
+            "copy_call_readback_ms": host_ms, "numpy_grad_ms": numpy_ms,
+            **_step_kernels(torch, lambda: torch_fn(*dev, *l2))}
+
+
+def _keyed_round_fields(report: dict) -> dict:
+    keys = ("steps", "round_ms", "prep_ms", "pull_ms", "grad_ms", "push_ms", "grad_span_ms",
+            "vals_per_key", "keyed_rows_per_round", "wire_bytes_per_round")
+    return {k: report.get(k) for k in keys}
+
+
+def phase_ps_keyed(torch, seed: int, smi: str) -> dict:
+    """The keyed PS families at config 4's width through ``run_ps_local``:
+    PS_SERVERS native servers, PS_WORKERS worker threads on the card,
+    KEYED_BATCH-row batches, KEYED_EPOCHS epochs, for ``sparse_lr``,
+    ``sparse_softmax`` (K = SPARSE_K: 10M keys) and ``blocked_lr`` (R =
+    KEYED_BLOCK over raw CTR shards).  Sync: the workers' final weights
+    agree within 1e-5 and within FAMILY_TOL of the same run on the numpy
+    backend, the servers count one push a worker and step, rank 0's
+    reported test logloss is the numpy keyed eval's on the final weights,
+    and it falls below the init's.  Async: the push count, finite weights,
+    the logloss below the init's.  The wide families take vals_per_key
+    rows.  Each run's launch counts are zeroed just before and read just
+    after: no kernel of ``ops`` is on this path (gathers, σ and
+    ``index_add_``)."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.models import get_model  # noqa: PLC0415
+    from distlr_tpu_torch.train.ps_trainer import keyed_row_width  # noqa: PLC0415
+
+    out = {"nvidia_smi": smi, "D": SPARSE_D, "fields": SPARSE_FIELDS, "vocab": SPARSE_VOCAB,
+           "workers": PS_WORKERS, "servers": PS_SERVERS, "shard_rows": KEYED_SHARD_ROWS,
+           "batch_rows": KEYED_BATCH, "epochs": KEYED_EPOCHS, "test_rows": KEYED_TEST_ROWS,
+           "distinct_tuples": KEYED_TUPLES,
+           "reduced": {"epochs": f"{KEYED_EPOCHS} (cut in depth)",
+                       "shard_rows": f"{KEYED_SHARD_ROWS} a worker (cut: a few minutes of a "
+                                     "CTR stream, not a day)",
+                       "rows": f"drawn from {KEYED_TUPLES} distinct field tuples, so "
+                               "features recur; the weights start from zeros"}}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="distlr-smoke-keyed-") as tmp:
+        for family in KEYED_FAMILIES:
+            t0 = time.perf_counter()
+            d = _keyed_data(tmp, family, seed)
+            cfg = _keyed_cfg(d, family)
+            line = {"data_write_s": time.perf_counter() - t0}
+            w0 = get_model(cfg).init(cfg).numpy().reshape(-1)
+            _, init_ll = _keyed_numpy_eval(cfg, w0)
+            line["test_logloss_init"] = init_ll
+            # load this gradient's kernels before the timed runs: the first
+            # call of each costs ~1 s, which a mean of 48 rounds would carry
+            _, dev, _, torch_fn, l2 = _keyed_grad_inputs(torch, cfg, w0)
+            torch_fn(*dev, *l2).cpu()
+            del dev
+            steps = KEYED_EPOCHS * -(-KEYED_SHARD_ROWS // KEYED_BATCH)
+            for mode, run_cfg in (("sync", cfg), ("async", cfg.replace(sync_mode=False)),
+                                  ("sync_numpy", cfg.replace(ps_compute_backend="numpy"))):
+                weights, report, launches, seconds = _run_ps(torch, run_cfg, save=False)
+                if any(launches.values()):
+                    raise AssertionError(f"ps_keyed {family} {mode}: launched a kernel of "
+                                         f"ops: {launches}")
+                r0 = report[0]
+                if not all(r["steps"] == steps for r in report.values()):
+                    raise AssertionError(f"ps_keyed {family} {mode}: steps {report}")
+                pushes = r0["group_pushes"] - 1  # less the seeding push
+                if pushes != PS_WORKERS * steps:
+                    raise AssertionError(f"ps_keyed {family} {mode}: the servers counted "
+                                         f"{pushes} gradient pushes, not {PS_WORKERS * steps}")
+                if r0["vals_per_key"] != keyed_row_width(cfg):
+                    raise AssertionError(f"ps_keyed {family}: the wire took vals_per_key="
+                                         f"{r0['vals_per_key']}, not {keyed_row_width(cfg)}")
+                run = {"seconds": seconds, "gradient_pushes": pushes,
+                       "workers": [_keyed_round_fields(report[r]) for r in range(PS_WORKERS)],
+                       "test_logloss_reported": r0["test_logloss"]}
+                if not all(np.isfinite(w).all() for w in weights):
+                    raise AssertionError(f"ps_keyed {family} {mode}: weights not finite")
+                _, run["test_logloss_final_numpy"] = _keyed_numpy_eval(run_cfg, weights[0])
+                if not run["test_logloss_final_numpy"] < init_ll:
+                    raise AssertionError(f"ps_keyed {family} {mode}: test logloss "
+                                         f"{run['test_logloss_final_numpy']} not below the "
+                                         f"init's {init_ll}")
+                if mode != "async":
+                    run["workers_max_abs_diff"] = float(np.abs(weights[0] - weights[1]).max())
+                    if run["workers_max_abs_diff"] > 1e-5:
+                        raise AssertionError(f"ps_keyed {family} {mode}: the workers' weights "
+                                             f"differ by {run['workers_max_abs_diff']}")
+                    # rank 0's last eval ran on the final weights (the round ended)
+                    ll = run["test_logloss_final_numpy"]
+                    if abs(run["test_logloss_reported"] - ll) > KEYED_EVAL_TOL * abs(ll):
+                        raise AssertionError(f"ps_keyed {family} {mode}: rank 0 reported "
+                                             f"{run['test_logloss_reported']}, numpy's eval "
+                                             f"gives {ll}")
+                if mode == "sync":
+                    sync_w = weights[0]
+                elif mode == "sync_numpy":
+                    run["weights_rel_err_vs_numpy"] = rel_err(torch.from_numpy(sync_w),
+                                                              torch.from_numpy(weights[0]))
+                    if run["weights_rel_err_vs_numpy"] > FAMILY_TOL[family]:
+                        raise AssertionError(f"ps_keyed {family}: card weights differ from the "
+                                             f"numpy backend's: rel "
+                                             f"{run['weights_rel_err_vs_numpy']}")
+                line[mode] = run
+            line["gradient_at_path_shape"] = _keyed_grad_probe(torch, cfg, sync_w)
+            line["tolerance"] = FAMILY_TOL[family]
+            out[family] = line
+            del weights, sync_w
+    out["phase_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    emit("ps_keyed", **out)
+    return out
+
+
+# --- hot-row serving from a live PS ------------------------------------------
+HOT_ROWS, HOT_PROBE_ROWS, HOT_FULL_EVERY, HOT_INTERVAL_S, HOT_EPOCHS = 4096, 64, 10, 0.05, 24
+
+
+def phase_serve_hot(torch, seed: int, smi: str) -> dict:
+    """Hot-row serving at D = 1M: a ``blocked_lr`` engine (R = KEYED_BLOCK,
+    config 4's 21 fields) behind a ``ScoringServer`` with a live-PS
+    ``HotReloader`` whose ``LivePSWatcher`` refreshes a ``HotSetTracker``'s
+    rows (``pull_rows_into``) between full refreshes, while one async keyed
+    worker on the card pushes to the group and a client streams one JSON
+    batch of HOT_PROBE_ROWS fixed rows.  Pass: >= 2 hot reloads while the
+    worker trains and >= 1 full one, no ERR, >= 2 distinct score vectors;
+    once the worker stops, a
+    hot poll's rows equal a full ``pull_chunked`` of those rows bit for bit,
+    and the replies are within SERVE_SCORE_TOL of σ(plain logits) on the
+    published table.  The worker runs as rank 1 of a one-worker group, so
+    its exit leaves the servers up (rank 0 retires them)."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.data import hashing  # noqa: PLC0415
+    from distlr_tpu_torch.ps import KVWorker, ServerGroup  # noqa: PLC0415
+    from distlr_tpu_torch.serve import (  # noqa: PLC0415
+        HotReloader,
+        HotSetTracker,
+        LivePSWatcher,
+        ScoringEngine,
+        ScoringServer,
+        score_lines_over_tcp,
+    )
+    from distlr_tpu_torch.train.ps_trainer import run_ps_workers  # noqa: PLC0415
+
+    R, D = KEYED_BLOCK, SPARSE_D
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="distlr-smoke-hot-") as tmp:
+        d = _keyed_data(tmp, "blocked_lr", seed + 20)
+        cfg = _keyed_cfg(d, "blocked_lr").replace(
+            sync_mode=False, num_workers=1, num_iteration=HOT_EPOCHS, test_interval=0)
+        with open(os.path.join(d, "test", "part-001")) as f:
+            probe_lines = [ln.strip() for ln, _ in zip(f, range(HOT_PROBE_ROWS))]
+        probe = json.dumps({"rows": probe_lines})
+        eng = ScoringEngine(Config(model="blocked_lr", num_feature_dim=D, block_size=R,
+                                   ctr_fields=SPARSE_FIELDS, l2_c=0.0),
+                            max_batch_size=SERVE_BUCKETS[-1], buckets=SERVE_BUCKETS)
+        rows = eng.encode_lines(probe_lines)
+        probe_keys = eng.row_keys(rows)
+        with ServerGroup(PS_SERVERS, 1, D, learning_rate=cfg.learning_rate, sync=False) as sg:
+            with KVWorker(sg.hosts, D, client_id=2) as kv:
+                kv.push_init(np.zeros(D, np.float32))
+            tracker = HotSetTracker(HOT_ROWS)
+            watcher = LivePSWatcher(sg.hosts, D, vals_per_key=R, hot_tracker=tracker,
+                                    full_refresh_every=HOT_FULL_EVERY)
+            if watcher.vals_per_key != R:
+                raise AssertionError(f"serve_hot: the watcher pulls vals_per_key="
+                                     f"{watcher.vals_per_key}, not {R}")
+            reloader = HotReloader(eng, watcher, interval_s=HOT_INTERVAL_S)
+            reloader.wait_for_weights(60)
+            reloader.start()
+            errors = []
+
+            def train():
+                try:
+                    run_ps_workers(cfg, sg.hosts, [1])
+                except Exception as e:  # noqa: BLE001 — re-raised below
+                    errors.append(e)
+
+            with ScoringServer(eng, max_wait_ms=SERVE_WAIT_MS, reloader=reloader,
+                               hot_tracker=tracker) as srv:
+                client = _StreamingProbe(srv.host, srv.port, probe)
+                client.wait_for(5)
+                t0 = time.perf_counter()
+                trainer = threading.Thread(target=train, daemon=True, name="smoke-serve-hot")
+                trainer.start()
+                trainer.join(PS_WALL_S)
+                train_s = time.perf_counter() - t0
+                if trainer.is_alive():
+                    raise AssertionError(f"serve_hot: the worker did not end within "
+                                         f"{PS_WALL_S} s")
+                if errors:
+                    raise errors[0]
+                # two hot polls that began after the last push (no forced
+                # full refresh from here: the last poll is a hot one)
+                watcher.full_refresh_every = 0
+                hot_at_end = watcher.hot_reloads
+                t1 = time.perf_counter()
+                while watcher.hot_reloads < hot_at_end + 2 and time.perf_counter() - t1 < 30:
+                    time.sleep(HOT_INTERVAL_S / 2)
+                n_replies = len(client.replies)
+                client.wait_for(n_replies + 5, timeout_s=10)
+                client.stop()
+                reloader.stop()
+                stats = srv.stats()
+                final = json.loads(score_lines_over_tcp(srv.host, srv.port, [probe])[0])
+            table = eng.get_weights().reshape(-1)
+            with KVWorker(sg.hosts, D, client_id=3) as kv:
+                full = kv.pull_chunked(vals_per_key=R)
+                rows_now = kv.pull_chunked(probe_keys, vals_per_key=R)
+                hot_keys = tracker.hot_keys()
+                hot_table = table.copy()
+                rows_ms, full_ms = [], []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    kv.pull_rows_into(hot_table, hot_keys, vals_per_key=R)
+                    rows_ms.append(1e3 * (time.perf_counter() - t0))
+                    t0 = time.perf_counter()
+                    kv.pull_chunked(vals_per_key=R)
+                    full_ms.append(1e3 * (time.perf_counter() - t0))
+    src = stats["reload"]["source"]
+    replies = [json.loads(r) for r in client.replies if not r.startswith("ERR")]
+    distinct = {tuple(r["scores"]) for r in replies}
+    if (client.errors or len(replies) != len(client.replies) or len(distinct) < 2
+            or hot_at_end < 2 or src["full_reloads"] < 1):
+        raise AssertionError(f"serve_hot: {client.errors}, {len(client.replies)} replies, "
+                             f"{len(replies)} not ERR, {len(distinct)} distinct, {src}")
+    hot_rows_equal = bool(np.array_equal(table.reshape(-1, R)[probe_keys.astype(np.int64)],
+                                         rows_now.reshape(-1, R)))
+    if src["last_kind"] != "hot" or not hot_rows_equal:
+        raise AssertionError(f"serve_hot: the last poll was {src['last_kind']}; its rows equal "
+                             f"a full pull's: {hot_rows_equal}")
+    # σ(plain logits) on the published table, on the card
+    t = torch.from_numpy(table.reshape(-1, R)).cuda()
+    blocks, lane_vals = (torch.from_numpy(np.asarray(a)).cuda() for a in rows[:2])
+    plain = torch.sigmoid((t[blocks] * lane_vals).sum(dim=(-1, -2))).cpu().numpy()
+    err = float(np.abs(np.asarray(final["scores"]) - plain).max())
+    if err > SERVE_SCORE_TOL:
+        raise AssertionError(f"serve_hot: replies differ from σ(plain logits) by {err}")
+    stale = int((table != full).sum())
+    out = {"nvidia_smi": smi, "D": D, "block_size": R, "servers": PS_SERVERS,
+           "hot_capacity": HOT_ROWS, "probe_rows": HOT_PROBE_ROWS,
+           "probe_row_keys": int(probe_keys.size), "full_refresh_every": HOT_FULL_EVERY,
+           "interval_s": HOT_INTERVAL_S, "worker_epochs": HOT_EPOCHS, "train_s": train_s,
+           "replies": len(client.replies), "distinct_score_vectors": len(distinct),
+           "reloads": stats["reload"]["reloads"], "reload_errors": stats["reload"]["reload_errors"],
+           "source": src, "hot_reloads_while_training": hot_at_end,
+           "hot_rows_equal_full_pull": hot_rows_equal,
+           "replies_vs_plain": err, "tolerance": SERVE_SCORE_TOL,
+           "cold_slots_stale_at_end": stale, "hot_keys": int(hot_keys.size),
+           "pull_rows_into_ms": rows_ms, "pull_chunked_full_ms": full_ms,
+           "hot_wire_bytes": int(hot_keys.size) * (8 + 4 * R),
+           "full_wire_bytes": (D // R) * (8 + 4 * R),
+           "phase_s": time.perf_counter() - t_phase,
+           "reduced": {"traffic": "one streaming client and one JSON batch (a smoke test)",
+                       "worker": f"one async worker, {HOT_EPOCHS} epochs of "
+                                 f"{KEYED_SHARD_ROWS} rows"}}
+    del eng, t
+    torch.cuda.empty_cache()
+    emit("serve_hot", **out)
+    return out
+
+
 # model family -> (gen-data flags, sync / eval flags, the saved params'
 # shape, sync's iterations and test interval)
 CLI_FAMILIES = {
@@ -3024,6 +3415,10 @@ def main(argv=None) -> int:
         ps = phase_ps(torch, args.seed, env["nvidia_smi"])
         phase = "serve"
         serve = phase_serve(torch, args.seed, env["nvidia_smi"])
+        phase = "ps_keyed"
+        phase_ps_keyed(torch, args.seed, env["nvidia_smi"])
+        phase = "serve_hot"
+        phase_serve_hot(torch, args.seed, env["nvidia_smi"])
         phase = "roofline_experiments"
         launches = phase_roofline_experiments(torch, env["nvidia_smi"])
         # each dense kernel's launches on the main path that runs it, and

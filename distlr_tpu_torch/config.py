@@ -5,8 +5,9 @@ sync trainer reads (all five model families, int8 feature storage,
 checkpoints, the ``data x model`` mesh of the feature-sharded step) and
 that the ported parameter-server worker loop reads
 (``num_servers``, ``ps_compute_backend``, ``ps_pipeline``,
-``ps_timeout_ms``; sync BSP and async Hogwild for the dense families)
-and the scoring tier reads (the ``serve_*`` fields of ``launch serve``),
+``ps_timeout_ms``; sync BSP and async Hogwild for every family)
+and the scoring tier reads (the ``serve_*`` fields of ``launch serve``,
+hot-row reload among them),
 with the same names, defaults and validations, and the
 same resolution of the reference-quirk gates Q1, Q2, Q4 and Q5 from
 ``compat_mode``.  Options whose code is not ported yet raise
@@ -44,11 +45,9 @@ _UNPORTED_PS_OPTIONS = {
 }
 
 #: the JAX package's serving options that are not ported, with their
-#: defaults and their ROADMAP items: hot-row keyed reload (A.18) and the
-#: feedback loop (A.11); any other value raises
+#: defaults and their ROADMAP items: the feedback loop (A.11); any other
+#: value raises
 _UNPORTED_SERVE_OPTIONS = {
-    "serve_hot_rows": (0, "A.18"), "serve_hot_min_coverage": (0.95, "A.18"),
-    "serve_hot_full_every": (10, "A.18"),
     "feedback_spool_dir": (None, "A.11"), "feedback_shard_dir": (None, "A.11"),
     "feedback_window_s": (60.0, "A.11"), "feedback_negative_rate": (0.1, "A.11"),
     "feedback_shard_records": (1024, "A.11"), "feedback_capacity": (100_000, "A.11"),
@@ -173,11 +172,18 @@ class Config:
     # Model id the engine answers as; only "default" (one unnamed engine)
     # is ported (several engines: ROADMAP A.17).
     serve_model_id: str = "default"
-    # Not ported: hot-row reload (A.18) and the feedback loop (A.11);
-    # they must keep these defaults.
+    # Hot-row keyed reload (live-PS serving only): capacity of the
+    # request-fed HotSetTracker.  0 = off (every reload pulls the full
+    # table); N > 0 = reload only the ~N-row working set through keyed
+    # pulls, with a full refresh as the fallback below.
     serve_hot_rows: int = 0
+    # Full refresh when the published hot set covers less than this
+    # fraction of recently requested keys (a shifting distribution).
     serve_hot_min_coverage: float = 0.95
+    # Also a full refresh every N polls (bounds cold rows' staleness to N
+    # poll intervals); 0 = only coverage-driven ones.
     serve_hot_full_every: int = 10
+    # Not ported: the feedback loop (A.11); it must keep these defaults.
     feedback_spool_dir: str | None = None
     feedback_shard_dir: str | None = None
     feedback_window_s: float = 60.0
@@ -239,9 +245,6 @@ class Config:
         if self.num_workers < 1:
             raise ValueError("num_workers must be >= 1")
         self._check_mesh()
-        if not self.sync_mode and self.model in _SPARSE_MODELS:
-            raise _not_ported(f"async parameter-server training of {self.model} "
-                              "(sync_mode=False; the keyed PS families)", "A.15")
         if self.num_servers < 1:
             raise ValueError("num_servers must be >= 1")
         if self.ps_compute_backend not in ("auto", "numpy", "cpu", "default"):
@@ -310,6 +313,14 @@ class Config:
         if self.serve_engine_idle_evict_s < 0:
             raise ValueError("serve_engine_idle_evict_s must be >= 0 (0 = never evict), "
                              f"got {self.serve_engine_idle_evict_s}")
+        if self.serve_hot_rows < 0:
+            raise ValueError(f"serve_hot_rows must be >= 0 (0 = off), got {self.serve_hot_rows}")
+        if not 0.0 < self.serve_hot_min_coverage <= 1.0:
+            raise ValueError("serve_hot_min_coverage must be in (0, 1], "
+                             f"got {self.serve_hot_min_coverage}")
+        if self.serve_hot_full_every < 0:
+            raise ValueError("serve_hot_full_every must be >= 0 (0 = coverage-driven "
+                             f"only), got {self.serve_hot_full_every}")
         if self.serve_model_id != "default":
             raise _not_ported(f"serve_model_id={self.serve_model_id!r} (named and several "
                               "engines)", "A.17")

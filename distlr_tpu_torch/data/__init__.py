@@ -1,4 +1,4 @@
-from distlr_tpu_torch.data.iterator import DataIter  # noqa: F401
+from distlr_tpu_torch.data.iterator import BlockedDataIter, DataIter, SparseDataIter  # noqa: F401
 from distlr_tpu_torch.data.libsvm import (  # noqa: F401
     native_available,
     parse_libsvm_file,

@@ -17,8 +17,9 @@ Differences, all deliberate:
 * Optional per-epoch shuffling (the reference never shuffles inside an
   epoch).
 
-The padded-COO and row-blocked iterators of the keyed PS families wait
-for ROADMAP A.15.
+:class:`SparseDataIter` (padded COO) and :class:`BlockedDataIter` (row
+blocks of raw CTR rows) are the same iterator over the keyed PS families'
+batch layouts.
 """
 
 from __future__ import annotations
@@ -119,3 +120,76 @@ class DataIter:
         if self.drop_remainder:
             return self.num_samples // self.batch_size
         return -(-self.num_samples // self.batch_size)
+
+
+class SparseDataIter(DataIter):
+    """Padded-COO variant: yields ``(cols, vals, y, mask)`` batches.
+
+    ``cols`` / ``vals`` are ``(B, NNZ_MAX)`` per-row index / value arrays
+    (pad col 0, pad val 0), the ``SparseBinaryLR`` batch layout; the
+    epochs and batches are :class:`DataIter`'s.
+    """
+
+    def __init__(self, cols, vals, y, batch_size: int = -1, **kw):
+        cols = np.asarray(cols)
+        self.vals = np.asarray(vals)
+        if cols.shape != self.vals.shape:
+            raise ValueError(f"cols {cols.shape} vs vals {self.vals.shape}")
+        super().__init__(cols, y, batch_size, **kw)
+
+    @property
+    def cols(self) -> np.ndarray:
+        return self.X
+
+    @classmethod
+    def from_file(cls, path, num_features: int | None = None, batch_size: int = -1, *,
+                  nnz_max: int | None = None, multiclass: bool = False, **kw):
+        """Parse a libsvm shard WITHOUT densifying it (CTR-scale feature
+        spaces, where ``(N, D)`` dense would not fit host RAM);
+        ``multiclass`` keeps integer labels verbatim (sparse_softmax)."""
+        from distlr_tpu_torch.data.hashing import csr_to_padded_coo  # noqa: PLC0415
+        from distlr_tpu_torch.data.libsvm import parse_libsvm_file  # noqa: PLC0415
+
+        (row_ptr, csr_cols, csr_vals), y = parse_libsvm_file(
+            path, num_features, dense=False, multiclass=multiclass)
+        cols, vals = csr_to_padded_coo(row_ptr, csr_cols, csr_vals, nnz_max=nnz_max)
+        return cls(cols, vals, y, batch_size, **kw)
+
+    def next_batch(self):
+        idx, mask = self._next_idx()
+        return self.X[idx], self.vals[idx], self.y[idx], mask
+
+
+class BlockedDataIter(DataIter):
+    """Row-blocked variant: yields ``(blocks, lane_vals, y, mask)``, the
+    ``BlockedSparseLR`` batch layout: ``blocks`` (B, G) int32 table-row
+    ids, ``lane_vals`` (B, G, R) float32 lane values (zero = padded lane).
+    """
+
+    def __init__(self, blocks, lane_vals, y, batch_size: int = -1, **kw):
+        blocks = np.asarray(blocks)
+        self.lane_vals = np.asarray(lane_vals)
+        if blocks.shape != self.lane_vals.shape[:2]:
+            raise ValueError(f"blocks {blocks.shape} vs lane_vals {self.lane_vals.shape}")
+        super().__init__(blocks, y, batch_size, **kw)
+
+    @property
+    def blocks(self) -> np.ndarray:
+        return self.X
+
+    @classmethod
+    def from_file(cls, path, num_fields: int, num_blocks: int, block_size: int,
+                  batch_size: int = -1, *, seed: int = 0, num_groups: int = 0, **kw):
+        """Parse a raw-CTR shard (``write_raw_ctr_shards``) and hash its
+        field groups into block rows at load time (``num_groups``: see
+        ``hashing.split_field_groups``)."""
+        from distlr_tpu_torch.data.hashing import encode_blocked, read_raw_ctr_file  # noqa: PLC0415
+
+        raw_ids, y = read_raw_ctr_file(path, num_fields)
+        blocks, lane_vals = encode_blocked(raw_ids, num_blocks, block_size, seed=seed,
+                                           num_groups=num_groups)
+        return cls(blocks, lane_vals, y, batch_size, **kw)
+
+    def next_batch(self):
+        idx, mask = self._next_idx()
+        return self.X[idx], self.lane_vals[idx], self.y[idx], mask

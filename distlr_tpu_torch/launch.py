@@ -40,12 +40,16 @@ int8`` (or ``int8_dot``, which also quantizes w and the residuals), and
     python -m distlr_tpu_torch.launch sync --data-dir D --num-feature-dim 123 \\
         --feature-dtype int8 --checkpoint-dir K --checkpoint-interval 10 [--resume]
 
-``ps`` trains the dense families on the parameter-server path: native KV
-server processes on localhost and one worker thread per shard, sync BSP
-or (``--async``) Hogwild; each worker writes ``models/part-00{rank+1}``::
+``ps`` trains every family on the parameter-server path: native KV server
+processes on localhost and one worker thread per shard, sync BSP or
+(``--async``) Hogwild; the keyed families (``sparse_lr``,
+``sparse_softmax``, ``blocked_lr``) move only a batch's unique rows.
+Each worker writes ``models/part-00{rank+1}``::
 
     python -m distlr_tpu_torch.launch ps --data-dir D --num-feature-dim 123 \\
         --num-workers 2 --num-servers 2 [--async] [--no-ps-pipeline]
+    python -m distlr_tpu_torch.launch ps --data-dir C --num-feature-dim 4096 \\
+        --model blocked_lr --block-size auto --num-workers 2 --num-servers 2
 
 ``serve`` scores libsvm lines over TCP with a trained model (every
 family), reloading its weights from a watched checkpoint dir or a live KV
@@ -56,6 +60,8 @@ server group; it prints ``SERVING host:port`` when it listens and exits
         --model-file D/models/part-001 [--checkpoint-dir K | --ps-hosts H] --port 0
 
 ``--model-file`` also takes a checkpoint directory (its latest step).
+``--hot-rows N`` (with ``--ps-hosts``) refreshes only the requests' hot
+rows between full refreshes.
 """
 
 from __future__ import annotations
@@ -115,9 +121,6 @@ _UNPORTED_PS_FLAGS = (
 #: items: (flag, dest, type; None = a switch, item); given, each one raises
 _UNPORTED_SERVE_FLAGS = (
     ("--ps-ctl", "ps_ctl", str, "A.16"),
-    ("--hot-rows", "hot_rows", int, "A.18"),
-    ("--hot-min-coverage", "hot_min_coverage", float, "A.18"),
-    ("--hot-full-every", "hot_full_every", int, "A.18"),
     ("--feedback-spool", "feedback_spool", str, "A.11"),
     ("--feedback-shards", "feedback_shards", str, "A.11"),
     ("--feedback-window", "feedback_window", float, "A.11"),
@@ -376,13 +379,14 @@ def cmd_ps(args: argparse.Namespace) -> int:
 
 
 def _serve_row_width(cfg: Config) -> int:
-    """Values a PS row key owns in serving pulls.  The dense families'
-    tables are pulled as flat keys, one value a key, as the port's PS
-    trainer pushes them; blocked rows own ``block_size`` lanes and
-    ``sparse_softmax`` rows ``num_classes`` values (keyed rows: A.15)."""
+    """Flat KV slots one engine row key owns in serving pulls; it must
+    match the key space ``ScoringEngine.row_keys`` feeds the hot tracker:
+    blocked rows own ``block_size`` lanes, and both softmax families
+    (``ps_param_dim`` flattens the (D, K) matrix row-major) own
+    ``num_classes`` slots a feature key."""
     if cfg.model == "blocked_lr":
         return cfg.block_size
-    if cfg.model == "sparse_softmax":
+    if cfg.model in ("softmax", "sparse_softmax"):
         return cfg.num_classes
     return 1
 
@@ -398,6 +402,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
     from distlr_tpu_torch.serve import (  # noqa: PLC0415
         CheckpointWatcher,
         HotReloader,
+        HotSetTracker,
         LivePSWatcher,
         ScoringEngine,
         ScoringServer,
@@ -424,13 +429,25 @@ def cmd_serve(args: argparse.Namespace) -> int:
         "serve_max_wait_ms": args.max_wait_ms,
         "serve_reload_interval_s": args.reload_interval,
         "serve_engine_idle_evict_s": args.engine_idle_evict,
+        "serve_hot_rows": args.hot_rows,
+        "serve_hot_min_coverage": args.hot_min_coverage,
+        "serve_hot_full_every": args.hot_full_every,
     }
     cfg = _config_from_args(args).replace(
         **{k: v for k, v in serve_over.items() if v is not None})
+    if cfg.serve_hot_rows and not args.ps_hosts:
+        print("error: --hot-rows applies to live-PS reload only (--ps-hosts); "
+              "checkpoint/model-file sources always load the full table", file=sys.stderr)
+        return 2
 
+    hot_tracker = None
     if args.ps_hosts:
+        if cfg.serve_hot_rows:
+            hot_tracker = HotSetTracker(cfg.serve_hot_rows)
         source = LivePSWatcher(args.ps_hosts, ps_param_dim(cfg),
-                               vals_per_key=_serve_row_width(cfg))
+                               vals_per_key=_serve_row_width(cfg), hot_tracker=hot_tracker,
+                               min_coverage=cfg.serve_hot_min_coverage,
+                               full_refresh_every=cfg.serve_hot_full_every)
     elif cfg.checkpoint_dir:
         source = CheckpointWatcher(cfg.checkpoint_dir)
     else:
@@ -447,7 +464,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
 
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     server = ScoringServer(engine, host=cfg.serve_host, port=cfg.serve_port,
-                           max_wait_ms=cfg.serve_max_wait_ms, reloader=reloader)
+                           max_wait_ms=cfg.serve_max_wait_ms, reloader=reloader,
+                           hot_tracker=hot_tracker)
     # the scriptable readiness line
     print(f"SERVING {server.host}:{server.port}", flush=True)
     server.serve_forever()
@@ -502,15 +520,15 @@ def main(argv=None) -> int:
                         "what sync runs write to models/part-001)")
     e.set_defaults(fn=cmd_eval)
 
-    p = sub.add_parser("ps", help="parameter-server training (native KV servers, "
-                       "worker threads on one card)")
+    p = sub.add_parser("ps", help="parameter-server training of every family (native KV "
+                       "servers, worker threads on one card)")
     _add_config_flags(p)
     p.add_argument("--num-servers", dest="num_servers", type=int,
                    help="KV server processes, one key range each (default 1)")
     p.add_argument("--ps-compute-backend", dest="ps_compute_backend",
                    choices=["auto", "numpy", "cpu", "default"],
-                   help="where workers run their dense steps: auto and default "
-                   "take --device; numpy (host) and cpu (torch) on request")
+                   help="where workers run their gradient and eval steps: auto and "
+                   "default take --device; numpy (host) and cpu (torch) on request")
     p.add_argument("--ps-timeout", dest="ps_timeout_ms", type=int,
                    help="receive timeout of every KV op, ms (default 600000; 0 = none)")
     p.add_argument("--async", dest="asynchronous", action="store_true",
@@ -554,6 +572,16 @@ def main(argv=None) -> int:
     r.add_argument("--engine-idle-evict", dest="engine_idle_evict", type=float,
                    help="drop the device weight table after this many idle seconds (the "
                    "next request reloads it); default 0 = never")
+    r.add_argument("--hot-rows", dest="hot_rows", type=int,
+                   help="with --ps-hosts: track the requests' hot working set (capacity N "
+                   "row keys) and reload only that slice through keyed pulls, with a full "
+                   "refresh when coverage drops (default 0 = always full)")
+    r.add_argument("--hot-min-coverage", dest="hot_min_coverage", type=float,
+                   help="full-refresh fallback: least share of recent request keys the hot "
+                   "set must cover (default 0.95)")
+    r.add_argument("--hot-full-every", dest="hot_full_every", type=int,
+                   help="also a full refresh every N polls, bounding cold rows' staleness "
+                   "(default 10; 0 = coverage-driven only)")
     for flag, dest, typ, item in _UNPORTED_SERVE_FLAGS:
         r.add_argument(flag, dest=dest, type=typ, help=f"not ported yet (ROADMAP {item})")
     r.set_defaults(fn=cmd_serve)

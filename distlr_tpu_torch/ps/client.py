@@ -1,5 +1,5 @@
 """Python KV worker: a ctypes binding of the port's native client library
-(the dense surface of ``distlr_tpu/ps/client.py``'s ``KVWorker``).
+(the dense and keyed surface of ``distlr_tpu/ps/client.py``'s ``KVWorker``).
 
 API mirror of ps-lite's ``KVWorker<float>`` as used by the reference
 (``Push``/``Pull``/``Wait``, call sites ``src/lr.cc:116-132``,
@@ -9,9 +9,12 @@ wire are that client's byte for byte.  Each call releases the GIL inside
 ``ctypes``: a worker blocked in a sync push (the BSP barrier is the
 server's deferred reply) does not hold up the other worker threads.
 
-Not ported yet: the retry policy, membership epochs
-and re-routing, wire codecs, keyed ``vals_per_key`` rows, namespaces
-(ROADMAP A.15, A.16) and the trace spans and registry counters (A.12).
+Keyed ops take ``vals_per_key=R`` rows: one u64 row id on the wire per R
+values (ps-lite's uniform ``lens``), the keyed PS families' encoding.
+
+Not ported yet: the retry policy, membership epochs and re-routing, wire
+codecs (ROADMAP A.16), namespaces (A.17) and the trace spans and registry
+counters (A.12).
 """
 
 from __future__ import annotations
@@ -21,7 +24,6 @@ import threading
 
 import numpy as np
 
-from distlr_tpu_torch.config import _not_ported
 from distlr_tpu_torch.ps import wire
 from distlr_tpu_torch.ps.build import client_lib
 
@@ -167,35 +169,67 @@ class KVWorker:
             raise OSError(f"KV {what} failed: {err}")
         return ts
 
-    def _keys(self, keys) -> np.ndarray:
-        """The dense default key set, or ``keys`` checked: the native
-        range slicer binary-searches range boundaries, so keys must be
-        strictly ascending and in range."""
-        if keys is None:
-            return self._all_keys
+    def _validate_keys(self, keys, vpk: int = 1) -> np.ndarray:
+        """``keys`` as strictly ascending in-range u64s (the native range
+        slicer binary-searches range boundaries).  With ``vpk > 1`` keys
+        are row ids over a ``dim // vpk`` row space."""
         keys = np.ascontiguousarray(keys, dtype=np.uint64)
+        space = self.dim // vpk
         if keys.size:
             kmax = int(keys.max())
-            if kmax >= self.dim:
-                raise ValueError(f"key {kmax} out of range (dim={self.dim})")
+            if kmax >= space:
+                raise ValueError(f"key {kmax} out of range (dim={self.dim}"
+                                 + (f", vals_per_key={vpk} -> {space} rows)" if vpk > 1
+                                    else ")"))
             if keys.size > 1 and not (keys[1:] > keys[:-1]).all():
                 raise ValueError("keys must be strictly ascending")
         return keys
 
-    @staticmethod
-    def _vals(vals, keys: np.ndarray) -> np.ndarray:
-        vals = np.ascontiguousarray(vals, dtype=np.float32).reshape(-1)
-        if vals.shape[0] != keys.shape[0]:
-            raise ValueError(f"{vals.shape[0]} vals vs {keys.shape[0]} keys")
-        return vals
+    def supports_vals_per_key(self, vpk: int) -> bool:
+        """Whether ``vals_per_key=vpk`` ops can be range-sliced over this
+        group: every range boundary (``dim*s/S``) must be a multiple of
+        vpk, so no row straddles two servers.  Where it is False, callers
+        send expanded per-lane keys instead."""
+        if vpk <= 1:
+            return True
+        if self.dim % vpk != 0:
+            return False
+        return all((self.dim * s // self.num_servers) % vpk == 0
+                   for s in range(1, self.num_servers))
 
-    def push(self, vals: np.ndarray, keys: np.ndarray | None = None) -> int:
+    def _default_or_validated(self, keys, vpk: int) -> np.ndarray:
+        """The dense default key set (flat ids, so never with ``vpk > 1``:
+        that would reinterpret flat ids as row ids), or ``keys`` checked."""
+        if keys is None:
+            if vpk != 1:
+                raise ValueError("vals_per_key > 1 requires explicit row keys (the dense "
+                                 "default key set is flat ids, not rows)")
+            return self._all_keys
+        return self._validate_keys(keys, vpk)
+
+    def _frame(self, vals, keys, vpk: int) -> tuple[np.ndarray, np.ndarray]:
+        """A push's ``(keys, vals)``: ``vals`` holds ``len(keys) * vpk``
+        f32s, row-major."""
+        vals = np.ascontiguousarray(vals, dtype=np.float32).reshape(-1)
+        keys = self._default_or_validated(keys, vpk)
+        if vals.shape[0] != keys.shape[0] * vpk:
+            raise ValueError(f"{vals.shape[0]} vals vs {keys.shape[0]} keys "
+                             f"x vals_per_key {vpk}")
+        return keys, vals
+
+    def push(self, vals: np.ndarray, keys: np.ndarray | None = None, *,
+             vals_per_key: int = 1) -> int:
         """Blocking push; in sync mode it returns only after ALL workers
         pushed (the server's deferred reply is the BSP barrier).  The
-        first push to an uninitialized group seeds the weights."""
-        keys = self._keys(keys)
-        vals = self._vals(vals, keys)
-        ts = self._lib.kv_push_vpk(self._h, _ptr(keys), _ptr(vals), keys.shape[0], 1)
+        first push to an uninitialized group seeds the weights.
+
+        ``vals_per_key=R``: keys are R-lane ROW ids (row ``k`` owns flat
+        slots ``[k*R, (k+1)*R)``) and ``vals`` holds ``len(keys)*R`` floats
+        row-major, one u64 of key on the wire per R values (requires
+        :meth:`supports_vals_per_key`)."""
+        vpk = int(vals_per_key)
+        keys, vals = self._frame(vals, keys, vpk)
+        ts = self._lib.kv_push_vpk(self._h, _ptr(keys), _ptr(vals), keys.shape[0], vpk)
         return self._check(ts, "push")
 
     def push_init(self, vals: np.ndarray, keys: np.ndarray | None = None,
@@ -203,57 +237,86 @@ class KVWorker:
         """Idempotent weight-seeding push: initializes an uninitialized
         group and no-ops otherwise (kInitPush); ``force=True`` overwrites
         live weights (kForceInit)."""
-        keys = self._keys(keys)
-        vals = self._vals(vals, keys)
+        keys, vals = self._frame(vals, keys, 1)
         ts = self._lib.kv_push_init(self._h, _ptr(keys), _ptr(vals), keys.shape[0],
                                     1 if force else 0)
         return self._check(ts, "push_init")
 
-    def push_pull(self, vals: np.ndarray, keys: np.ndarray | None = None) -> np.ndarray:
+    def push_pull(self, vals: np.ndarray, keys: np.ndarray | None = None, *,
+                  vals_per_key: int = 1) -> np.ndarray:
         """Fused push + pull: push a gradient and receive the post-update
         weights for the same keys in ONE round trip per server (the
         reference spends two per batch, ``src/lr.cc:116-132``).  Sync:
         blocks through the BSP round; the reply is the post-round state,
-        the same bits as the pull that would have followed."""
-        keys = self._keys(keys)
-        vals = self._vals(vals, keys)
-        out = np.empty(keys.shape[0], dtype=np.float32)
+        the same bits as the pull that would have followed.
+        ``vals_per_key``: see :meth:`push`."""
+        vpk = int(vals_per_key)
+        keys, vals = self._frame(vals, keys, vpk)
+        out = np.empty(keys.shape[0] * vpk, dtype=np.float32)
         ts = self._lib.kv_push_pull_vpk(self._h, _ptr(keys), _ptr(vals), _ptr(out),
-                                        keys.shape[0], 1)
+                                        keys.shape[0], vpk)
         self._check(ts, "push_pull")
         return out
 
-    def pull(self, keys: np.ndarray | None = None) -> np.ndarray:
-        """Blocking pull of ``keys`` (default: all ``dim`` weights)."""
-        keys = self._keys(keys)
-        out = np.empty(keys.shape[0], dtype=np.float32)
-        ts = self._lib.kv_pull_vpk(self._h, _ptr(keys), _ptr(out), keys.shape[0], 1)
+    def pull(self, keys: np.ndarray | None = None, *, vals_per_key: int = 1) -> np.ndarray:
+        """Blocking pull of ``keys`` (default: all ``dim`` weights).
+        ``vals_per_key=R``: keys are row ids and the result holds
+        ``len(keys)*R`` floats row-major (see :meth:`push`)."""
+        vpk = int(vals_per_key)
+        keys = self._default_or_validated(keys, vpk)
+        out = np.empty(keys.shape[0] * vpk, dtype=np.float32)
+        ts = self._lib.kv_pull_vpk(self._h, _ptr(keys), _ptr(out), keys.shape[0], vpk)
         self._check(ts, "pull")
         return out
 
     def pull_chunked(self, keys: np.ndarray | None = None, *, vals_per_key: int = 1,
                      chunk_rows: int = 1 << 16) -> np.ndarray:
         """Pull a large key set as a sequence of keyed pulls of at most
-        ``chunk_rows`` keys each, so a periodic weight refresh never holds a
+        ``chunk_rows`` rows each, so a periodic weight refresh never holds a
         server's receive loop for a whole table against a trainer pushing
         to the same group (the scoring tier's read path).  ``keys=None``
-        pulls ``0..dim`` as explicit keys; an ascending ``keys`` array is
-        chunked as given; an empty one gives an empty f32 array."""
-        if int(vals_per_key) != 1:
-            raise _not_ported(f"pull_chunked with vals_per_key={vals_per_key} (keyed PS rows)",
-                              "A.15")
+        pulls the full row space ``0..dim/vals_per_key`` as explicit keys;
+        an ascending ``keys`` array (hot-row serving) is chunked as given;
+        an empty one gives an empty f32 array."""
+        vpk = int(vals_per_key)
         if chunk_rows <= 0:
             raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
+        if vpk > 1 and not self.supports_vals_per_key(vpk):
+            raise ValueError(f"vals_per_key={vpk} rows straddle this group's range "
+                             "boundaries; pull with vals_per_key=1 instead")
         if keys is None:
-            parts = [self.pull(np.arange(lo, min(lo + chunk_rows, self.dim), dtype=np.uint64))
-                     for lo in range(0, self.dim, chunk_rows)]
+            space = self.dim // vpk
+            parts = [self.pull(np.arange(lo, min(lo + chunk_rows, space), dtype=np.uint64),
+                               vals_per_key=vpk)
+                     for lo in range(0, space, chunk_rows)]
         else:
-            keys = self._keys(keys)
-            parts = [self.pull(keys[lo:lo + chunk_rows])
+            keys = self._validate_keys(keys, vpk)
+            parts = [self.pull(keys[lo:lo + chunk_rows], vals_per_key=vpk)
                      for lo in range(0, keys.shape[0], chunk_rows)]
         if not parts:
             return np.empty(0, np.float32)
         return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+    def pull_rows_into(self, table: np.ndarray, keys: np.ndarray, *, vals_per_key: int = 1,
+                       chunk_rows: int = 1 << 16) -> int:
+        """Keyed hot-slice pull: fetch only the ``keys`` rows and scatter
+        them into ``table`` in place (the serving tier's working-set
+        refresh, :mod:`distlr_tpu_torch.serve.hotset`).  A refresh moves
+        ``rows * (8 + 4*vpk)`` wire bytes; every cold row of ``table``
+        keeps the last full pull's value.  ``table`` must be a
+        C-contiguous float32 array of ``dim`` elements (flat or
+        ``(rows, vals_per_key)``); returns the rows pulled."""
+        vpk = int(vals_per_key)
+        table = np.asarray(table)
+        if table.dtype != np.float32 or table.size != self.dim or not table.flags["C_CONTIGUOUS"]:
+            raise ValueError(f"table must be C-contiguous float32 with {self.dim} elements, "
+                             f"got {table.dtype} shape {table.shape}")
+        keys = self._validate_keys(keys, vpk)
+        if keys.size == 0:
+            return 0
+        vals = self.pull_chunked(keys, vals_per_key=vpk, chunk_rows=chunk_rows)
+        table.reshape(self.dim // vpk, vpk)[keys.astype(np.int64)] = vals.reshape(-1, vpk)
+        return int(keys.size)
 
     def wait(self, ts: int) -> None:
         """No-op for API parity: push and pull already block (the

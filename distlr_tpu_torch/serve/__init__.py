@@ -5,19 +5,21 @@ the engine, the microbatcher, the TCP front-end and hot reload.
 port's forward kernels for dense ``binary_lr``), ``batcher`` (request
 coalescing), ``server`` (the threaded TCP line protocol; ``python -m
 distlr_tpu_torch.launch serve``) and ``reload`` (checkpoint-watch and
-live-PS weight sources with atomic swaps and jittered polling).  Not
-ported: the hot-row tracker (ROADMAP A.18) and the serving control plane
-(router, balance, tenant, rollout: A.17).
+live-PS weight sources with atomic swaps and jittered polling, and the
+hot-row refresh that ``hotset``'s tracker feeds).  Not ported: the
+serving control plane (router, balance, tenant, rollout: ROADMAP A.17).
 """
 
 from distlr_tpu_torch.serve.batcher import MicroBatcher
 from distlr_tpu_torch.serve.engine import ScoringEngine
+from distlr_tpu_torch.serve.hotset import HotSetTracker
 from distlr_tpu_torch.serve.reload import CheckpointWatcher, HotReloader, LivePSWatcher
 from distlr_tpu_torch.serve.server import ScoringServer, score_lines_over_tcp
 
 __all__ = [
     "CheckpointWatcher",
     "HotReloader",
+    "HotSetTracker",
     "LivePSWatcher",
     "MicroBatcher",
     "ScoringEngine",

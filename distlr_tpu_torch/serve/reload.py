@@ -10,10 +10,16 @@ publishes into ``engine.set_weights``.
   reports each new latest step once; the version is the step.
 * :class:`LivePSWatcher` pulls the current weights from a running KV
   server group through chunked keyed pulls
-  (:meth:`~distlr_tpu_torch.ps.KVWorker.pull_chunked`, one value a key:
-  the dense families' tables).  Pulls neither vote in barriers nor count
-  as pushes, so a trainer and the scoring tier run against the same group
-  at once; the poll interval is the staleness bound.
+  (:meth:`~distlr_tpu_torch.ps.KVWorker.pull_chunked`), ``vals_per_key``
+  rows where the group's ranges align.  Pulls neither vote in barriers
+  nor count as pushes, so a trainer and the scoring tier run against the
+  same group at once; the poll interval is the staleness bound.  With a
+  :class:`~distlr_tpu_torch.serve.hotset.HotSetTracker` attached, a poll
+  refreshes only the traffic's hot rows
+  (:meth:`~distlr_tpu_torch.ps.KVWorker.pull_rows_into`) into a cached
+  full table, and falls back to a full refresh when the tracker's
+  coverage drops below ``min_coverage`` or every ``full_refresh_every``
+  polls.
 
 :class:`HotReloader` polls a source on a background thread with a
 jittered interval (replicas started together would otherwise pull the PS
@@ -21,9 +27,8 @@ in lockstep), keeps serving the last good weights through failed polls,
 and offers :meth:`HotReloader.wait_for_weights` as the start-up gate.
 
 Not ported: the retry policy and membership routing of the PS client
-(ROADMAP A.16), hot-row keyed reload (A.18), PS namespaces (A.17), keyed
-rows of several values (A.15), and the trace spans and registry counters
-(A.12).
+(ROADMAP A.16), PS namespaces (A.17), and the trace spans and registry
+counters (A.12).
 """
 
 from __future__ import annotations
@@ -71,6 +76,13 @@ class LivePSWatcher:
     server rank is initialized (the group may have been replaced by an
     unseeded one, which answers pulls with zeros); until then a poll
     reports nothing and the last good weights keep serving.
+
+    ``vals_per_key`` is the engine's row width (the unit of its row keys
+    and of the hot tracker); the wire falls back to flat keys when such
+    rows straddle a range boundary.  ``hot_tracker``: refresh only the
+    hot rows into a cached table, with a full refresh on the first poll,
+    when ``coverage() < min_coverage``, or every ``full_refresh_every``
+    polls (0 = never forced).
     """
 
     #: client_id of serving pulls, out of the way of trainer worker ranks
@@ -78,15 +90,11 @@ class LivePSWatcher:
 
     def __init__(self, hosts: str, dim: int, *, vals_per_key: int = 1,
                  chunk_rows: int = 1 << 16, timeout_ms: int = 10_000,
-                 client_id: int | None = None, hot_tracker=None, retry=None,
+                 client_id: int | None = None, hot_tracker=None,
+                 min_coverage: float = 0.95, full_refresh_every: int = 10, retry=None,
                  ns_base: int = 0, ns_total_dim: int | None = None, route=None):
-        if int(vals_per_key) != 1:
-            raise _not_ported(f"live-PS serving with vals_per_key={vals_per_key} "
-                              "(keyed PS rows)", "A.15")
         if retry is not None or route is not None:
             raise _not_ported("the PS client's retry policy and membership routing", "A.16")
-        if hot_tracker is not None:
-            raise _not_ported("hot-row keyed reload (hot_tracker)", "A.18")
         if ns_base or ns_total_dim is not None:
             raise _not_ported("PS namespaces (ns_base / ns_total_dim)", "A.17")
         from distlr_tpu_torch.ps import KVWorker  # noqa: PLC0415
@@ -97,13 +105,45 @@ class LivePSWatcher:
         self.kv = KVWorker(hosts, self.dim,
                            client_id=self.SERVE_CLIENT_ID if client_id is None else client_id,
                            timeout_ms=timeout_ms, sync_group=True)
-        self.chunk_rows = int(chunk_rows)
         self._needs_reconnect = False
         self._check_init = True
+        #: the requested row width: the unit of the engine's row keys and of
+        #: the hot tracker, even when the wire falls back to flat keys
+        self.row_width = max(int(vals_per_key), 1)
+        self.vals_per_key = self.row_width
+        if self.vals_per_key > 1 and not self.kv.supports_vals_per_key(self.vals_per_key):
+            # the keyed trainer's rule: rows that straddle a range boundary
+            # ride flat keys, the same slots
+            log.info("serve pull: vals_per_key=%d rows straddle range boundaries; "
+                     "using flat keys", self.vals_per_key)
+            self.vals_per_key = 1
+        self.chunk_rows = int(chunk_rows)
+        if not 0.0 < min_coverage <= 1.0:
+            raise ValueError(f"min_coverage must be in (0, 1], got {min_coverage}")
+        if full_refresh_every < 0:
+            raise ValueError(f"full_refresh_every must be >= 0, got {full_refresh_every}")
+        self.hot_tracker = hot_tracker
+        self.min_coverage = float(min_coverage)
+        self.full_refresh_every = int(full_refresh_every)
         self._version = 0
+        self._table: np.ndarray | None = None
+        self._since_full = 0
         self.full_reloads = 0
+        self.hot_reloads = 0
         self.last_kind: str | None = None
         self.last_rows = 0
+
+    def _pull_full(self) -> np.ndarray:
+        return self.kv.pull_chunked(vals_per_key=self.vals_per_key, chunk_rows=self.chunk_rows)
+
+    def _hot_pull_keys(self, row_keys: np.ndarray) -> np.ndarray:
+        """Tracker row ids -> the wire's key space: when the wire fell
+        back to flat keys, each R-lane row id expands to its R flat slots
+        (ascending in, ascending out)."""
+        if self.vals_per_key == self.row_width:
+            return row_keys
+        r = self.row_width
+        return (row_keys[:, None] * r + np.arange(r, dtype=np.uint64)[None, :]).reshape(-1)
 
     def poll(self):
         if self._needs_reconnect:
@@ -112,20 +152,52 @@ class LivePSWatcher:
             self._needs_reconnect = False
             self._check_init = True
         try:
-            if self._check_init:
-                # every rank must be seeded: an unseeded one answers zeros
-                if not all(self.kv.stats(r).get("initialized")
-                           for r in range(self.kv.num_servers)):
-                    return None
-                self._check_init = False
-            w = self.kv.pull_chunked(chunk_rows=self.chunk_rows)
+            return self._poll_inner()
         except OSError:
             self._needs_reconnect = True
             raise
+
+    def _poll_inner(self):
+        if self._check_init:
+            # every rank must be seeded: an unseeded one answers zeros
+            if not all(self.kv.stats(r).get("initialized") for r in range(self.kv.num_servers)):
+                return None
+            self._check_init = False
+        if self.hot_tracker is None:
+            w = self._pull_full()
+            self._version += 1
+            self.full_reloads += 1
+            self.last_kind, self.last_rows = "full", w.size // self.row_width
+            return self._version, w
+        full = (self._table is None
+                or self.hot_tracker.coverage() < self.min_coverage
+                or (self.full_refresh_every > 0 and self._since_full >= self.full_refresh_every))
+        if full:
+            self._table = np.ascontiguousarray(self._pull_full(), dtype=np.float32)
+            self._since_full = 0
+            self.full_reloads += 1
+            rows = self._table.size // self.row_width
+            # publish a snapshot, so the coverage window restarts over the
+            # fresh table (everything is current right after a full pull)
+            self.hot_tracker.hot_keys()
+            kind = "full"
+        else:
+            keys = self._hot_pull_keys(self.hot_tracker.hot_keys())
+            if keys.size == 0:
+                # nothing hot and the cached table already published: a "new"
+                # version would re-upload an identical table every poll
+                return None
+            pulled = self.kv.pull_rows_into(self._table, keys, vals_per_key=self.vals_per_key,
+                                            chunk_rows=self.chunk_rows)
+            rows = pulled if self.vals_per_key == self.row_width else pulled // self.row_width
+            self._since_full += 1
+            self.hot_reloads += 1
+            kind = "hot"
         self._version += 1
-        self.full_reloads += 1
-        self.last_kind, self.last_rows = "full", w.size
-        return self._version, w
+        self.last_kind, self.last_rows = kind, rows
+        # a COPY: the next hot poll scatters into the table in place, and a
+        # request in flight must finish on the weights it started with
+        return self._version, self._table.copy()
 
     def describe_unready(self) -> str:
         """Why no weights came: "PS unreachable" and "PS reachable but
@@ -147,8 +219,12 @@ class LivePSWatcher:
                 "another reason (see reload warnings)")
 
     def stats(self) -> dict:
-        return {"mode": "full", "full_reloads": self.full_reloads, "hot_reloads": 0,
-                "last_kind": self.last_kind, "last_rows": self.last_rows}
+        rec = {"mode": "hot" if self.hot_tracker is not None else "full",
+               "full_reloads": self.full_reloads, "hot_reloads": self.hot_reloads,
+               "last_kind": self.last_kind, "last_rows": self.last_rows}
+        if self.hot_tracker is not None:
+            rec["hot_set"] = self.hot_tracker.stats()
+        return rec
 
     def close(self) -> None:
         self.kv.close()

@@ -121,9 +121,11 @@ class _TCPServer(socketserver.ThreadingTCPServer):
 class ScoringServer:
     """One engine and its microbatcher behind a line-protocol TCP listener.
 
-    ``engines``, ``extra_reloaders``, ``hot_tracker`` and ``feedback``
-    stand in the signature as in the JAX server; given, they raise naming
-    their ROADMAP items (A.17, A.18, A.11).
+    ``hot_tracker`` (a :class:`~distlr_tpu_torch.serve.hotset.HotSetTracker`)
+    observes the row keys of every request (``engine.row_keys``), the
+    working set a hot-row live-PS reload refreshes.  ``engines``,
+    ``extra_reloaders`` and ``feedback`` stand in the signature as in the
+    JAX server; given, they raise naming their ROADMAP items (A.17, A.11).
     """
 
     def __init__(self, engine=None, *, engines: dict | None = None, host: str = "127.0.0.1",
@@ -131,8 +133,6 @@ class ScoringServer:
                  metrics: MetricsLogger | None = None, hot_tracker=None, feedback=None):
         if engines is not None or extra_reloaders:
             raise _not_ported("a server hosting several engines", "A.17")
-        if hot_tracker is not None:
-            raise _not_ported("hot-row tracking (hot_tracker)", "A.18")
         if feedback is not None:
             raise _not_ported("the feedback sink", "A.11")
         if engine is None:
@@ -140,6 +140,8 @@ class ScoringServer:
         self.engine = engine
         self.engines = {"default": engine}
         self.reloader = reloader
+        #: fed from request traffic; None = full-table refresh, no tracking
+        self.hot_tracker = hot_tracker
         self.batcher = MicroBatcher(engine.score, max_batch_size=engine.max_batch_size,
                                     max_wait_ms=max_wait_ms)
         self.metrics = metrics or MetricsLogger()
@@ -168,6 +170,8 @@ class ScoringServer:
 
     def _score_lines(self, lines: list[str]):
         rows = self.engine.encode_lines(lines)
+        if self.hot_tracker is not None:
+            self.hot_tracker.observe(self.engine.row_keys(rows))
         labels, scores = self.batcher.submit(rows).result()
         return np.asarray(labels), np.asarray(scores)
 

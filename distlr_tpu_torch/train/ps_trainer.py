@@ -1,6 +1,6 @@
 """Parameter-server training (sync BSP or async Hogwild over the native KV
-server group): the port of ``distlr_tpu/train/ps_trainer.py`` for the
-dense families (``binary_lr``, ``softmax``).
+server group): the port of ``distlr_tpu/train/ps_trainer.py`` for every
+family.
 
 The control flow mirrors the reference worker (``RunWorker``,
 ``src/main.cc:124-170`` + ``LR::Train``, ``src/lr.cc:28-45``): pull
@@ -21,9 +21,20 @@ Worker lifecycle, as the reference's:
 * each worker text-exports its final *pulled* weights to
   ``models/part-00{rank+1}`` (Q8, ``src/main.cc:168-169``).
 
-Not ported yet: the keyed families (ROADMAP A.15); accumulation, retries
-and restarts, checkpoints and resume, supervision, chaos (A.16); the
-staleness histograms, trace spans and profiler hooks (A.12).
+The keyed families (``sparse_lr``, ``sparse_softmax``, ``blocked_lr``)
+pull and push only a batch's unique touched rows (ps-lite's sliced keys,
+which the reference app never uses): ``vals_per_key`` rows of R lanes
+(blocked) or K classes (sparse softmax) where the group's ranges align,
+expanded per-lane keys where a row straddles two servers.  Their
+gradients are gathers, a sigmoid or softmax and an ``index_add_`` scatter
+on the compute device (:func:`_sparse_batch_grad_torch` and its
+siblings), or the JAX package's host numpy functions, copied here, with
+``ps_compute_backend="numpy"``.  Their L2 is lazy: only a batch's active
+keys decay.
+
+Not ported yet: accumulation, retries and restarts, checkpoints and
+resume, supervision, chaos (ROADMAP A.16); the staleness histograms,
+trace spans and profiler hooks (A.12).
 """
 
 from __future__ import annotations
@@ -38,16 +49,18 @@ import numpy as np
 import torch
 
 from distlr_tpu_torch.config import Config, _not_ported
-from distlr_tpu_torch.data.iterator import DataIter
+from distlr_tpu_torch.data.iterator import BlockedDataIter, DataIter, SparseDataIter
 from distlr_tpu_torch.data.sharding import part_name
 from distlr_tpu_torch.models import get_model
 from distlr_tpu_torch.ps import KVWorker, ServerGroup
 from distlr_tpu_torch.train.export import save_model_text
 from distlr_tpu_torch.train.metrics import MetricsLogger, StepTimer
 from distlr_tpu_torch.utils.device import resolve_device
-from distlr_tpu_torch.utils.logging import log_eval_line
+from distlr_tpu_torch.utils.logging import get_logger, log_eval_line
 
-_DENSE_MODELS = ("binary_lr", "softmax")
+log = get_logger(__name__)
+
+_KEYED_MODELS = ("sparse_lr", "sparse_softmax", "blocked_lr")
 
 
 def ps_param_dim(cfg: Config) -> int:
@@ -131,13 +144,201 @@ def _np_dense_eval(w, X, y, mask, num_classes=None):
     return _dense_eval_from_logits(X @ w, y, mask, num_classes)
 
 
+def _sparse_batch_grad(w_u, pos, vals, y, mask, l2_c, l2_scale_by_batch):
+    """Gradient of the sparse one-hot LR loss wrt the batch's UNIQUE
+    touched weights (host numpy; the JAX package's function).
+
+    ``w_u`` are the pulled weights of the batch's unique columns and
+    ``pos`` maps each (row, slot) to its index in ``w_u``; the scatter is
+    ``np.bincount`` (f64 sums, cast to f32).  L2 is lazy: only keys a real
+    (nonzero) value touched decay, so COO padding at key 0 does not give
+    bucket 0 every-step decay.
+    """
+    z = (w_u[pos] * vals).sum(axis=-1)
+    sig = 0.5 * (1.0 + np.tanh(0.5 * z))
+    n = np.float32(max(mask.sum(), 1))
+    resid = ((sig - y) * mask).astype(np.float32)
+    contrib = (resid[:, None] * vals).ravel() / n
+    g = np.bincount(pos.ravel(), weights=contrib, minlength=len(w_u)).astype(np.float32)
+    if l2_c:
+        active = np.bincount(pos.ravel(), weights=(vals != 0).ravel().astype(np.float32),
+                             minlength=len(w_u)) > 0
+        term = np.float32(l2_c) * w_u * active
+        g += term / n if l2_scale_by_batch else term
+    return g
+
+
+def _sparse_softmax_batch_grad(W_u, pos, vals, y, mask, l2_c, l2_scale_by_batch):
+    """Gradient of the sparse softmax loss wrt the batch's UNIQUE touched
+    (D, K) table rows (host numpy; the JAX package's function): ``W_u`` is
+    the ``(n_u, K)`` pulled slice; ``np.add.at`` adds in f32, in order.
+    Lazy L2 at row granularity with the active-key discount."""
+    z = (W_u[pos] * vals[..., None]).sum(axis=1)
+    z -= z.max(axis=1, keepdims=True)
+    p = np.exp(z, dtype=np.float32)
+    p /= p.sum(axis=1, keepdims=True)
+    p[np.arange(len(y)), y] -= 1.0
+    n = np.float32(max(mask.sum(), 1))
+    resid = p * np.asarray(mask, np.float32)[:, None]
+    contrib = (vals[..., None] * resid[:, None, :]).reshape(-1, W_u.shape[1]) / n
+    g = np.zeros_like(W_u, dtype=np.float32)
+    np.add.at(g, pos.ravel(), contrib)
+    if l2_c:
+        active = np.bincount(pos.ravel(), weights=(vals != 0).ravel().astype(np.float32),
+                             minlength=len(W_u)) > 0
+        term = np.float32(l2_c) * W_u * active[:, None]
+        g += term / n if l2_scale_by_batch else term
+    return g
+
+
+def _expand_block_keys(blocks: np.ndarray, block_size: int) -> np.ndarray:
+    """Unique row ids -> their flat KV keys (row b owns the contiguous
+    range ``[b*R, (b+1)*R)`` of the ``ps_param_dim`` key space)."""
+    r = np.arange(block_size, dtype=np.uint64)
+    return (blocks.astype(np.uint64)[:, None] * np.uint64(block_size) + r).reshape(-1)
+
+
+def _blocked_batch_grad(t_u, pos, lane_vals, y, mask, l2_c, l2_scale_by_batch):
+    """Gradient of the blocked LR loss wrt the batch's UNIQUE touched
+    table rows (host numpy; the JAX package's function): ``t_u`` is the
+    ``(n_u, R)`` pulled slice, ``pos`` maps each (sample, group) to its
+    row.  Lazy L2 at row granularity: a row gathered with a real
+    (nonzero) lane decays as a unit."""
+    z = (t_u[pos] * lane_vals).sum(axis=(-1, -2))
+    sig = 0.5 * (1.0 + np.tanh(0.5 * z))
+    n = np.float32(max(mask.sum(), 1))
+    resid = ((sig - y) * mask).astype(np.float32)
+    contrib = (resid[:, None, None] * lane_vals).reshape(-1, t_u.shape[1]) / n
+    g = np.zeros_like(t_u, dtype=np.float32)
+    np.add.at(g, pos.reshape(-1), contrib)
+    if l2_c:
+        touched = (lane_vals != 0).any(axis=-1).reshape(-1)
+        active = np.zeros(len(t_u), bool)
+        np.logical_or.at(active, pos.reshape(-1), touched)
+        term = np.float32(l2_c) * t_u * active[:, None]
+        g += term / n if l2_scale_by_batch else term
+    return g
+
+
+def _lazy_l2(g, w_u, active, n, l2_c, l2_scale_by_batch):
+    """Add the lazy L2 term ``l2_c * w_u`` on the active rows to ``g``."""
+    if active.dim() < w_u.dim():
+        active = active[:, None]
+    term = l2_c * w_u * active
+    return g + (term / n if l2_scale_by_batch else term)
+
+
+def _active_rows(pos, touched, n_u):
+    """Rows of the unique slice that a real (nonzero) value touched."""
+    return torch.zeros(n_u, dtype=torch.float32, device=pos.device).index_add_(
+        0, pos.reshape(-1), touched.reshape(-1).to(torch.float32)) > 0
+
+
+def _sparse_batch_grad_torch(w_u, pos, vals, y, mask, l2_c, l2_scale_by_batch):
+    """:func:`_sparse_batch_grad` in torch on the tensors' device: a
+    gather, σ as ``0.5·(1 + tanh(z/2))``, and an ``index_add_`` scatter
+    (f32 sums; on the card in any order)."""
+    z = (w_u[pos] * vals).sum(dim=-1)
+    sig = 0.5 * (1.0 + torch.tanh(0.5 * z))
+    n = mask.sum().clamp(min=1).to(torch.float32)
+    resid = (sig - y) * mask
+    contrib = (resid[:, None] * vals).reshape(-1) / n
+    g = torch.zeros_like(w_u).index_add_(0, pos.reshape(-1), contrib)
+    if l2_c:
+        g = _lazy_l2(g, w_u, _active_rows(pos, vals != 0, w_u.shape[0]), n, l2_c,
+                     l2_scale_by_batch)
+    return g
+
+
+def _sparse_softmax_batch_grad_torch(W_u, pos, vals, y, mask, l2_c, l2_scale_by_batch):
+    """:func:`_sparse_softmax_batch_grad` in torch on the tensors' device."""
+    z = (W_u[pos] * vals[..., None]).sum(dim=1)
+    p = torch.softmax(z, dim=1)
+    p[torch.arange(y.shape[0], device=y.device), y.long()] -= 1.0
+    n = mask.sum().clamp(min=1).to(torch.float32)
+    resid = p * mask.to(torch.float32)[:, None]
+    contrib = (vals[..., None] * resid[:, None, :]).reshape(-1, W_u.shape[1]) / n
+    g = torch.zeros_like(W_u).index_add_(0, pos.reshape(-1), contrib)
+    if l2_c:
+        g = _lazy_l2(g, W_u, _active_rows(pos, vals != 0, W_u.shape[0]), n, l2_c,
+                     l2_scale_by_batch)
+    return g
+
+
+def _blocked_batch_grad_torch(t_u, pos, lane_vals, y, mask, l2_c, l2_scale_by_batch):
+    """:func:`_blocked_batch_grad` in torch on the tensors' device."""
+    z = (t_u[pos] * lane_vals).sum(dim=(-1, -2))
+    sig = 0.5 * (1.0 + torch.tanh(0.5 * z))
+    n = mask.sum().clamp(min=1).to(torch.float32)
+    resid = (sig - y) * mask
+    contrib = (resid[:, None, None] * lane_vals).reshape(-1, t_u.shape[1]) / n
+    g = torch.zeros_like(t_u).index_add_(0, pos.reshape(-1), contrib)
+    if l2_c:
+        g = _lazy_l2(g, t_u, _active_rows(pos, (lane_vals != 0).any(dim=-1), t_u.shape[0]),
+                     n, l2_c, l2_scale_by_batch)
+    return g
+
+
+#: family -> (numpy gradient, torch gradient) of the keyed round
+_KEYED_GRADS = {
+    "sparse_lr": (_sparse_batch_grad, _sparse_batch_grad_torch),
+    "sparse_softmax": (_sparse_softmax_batch_grad, _sparse_softmax_batch_grad_torch),
+    "blocked_lr": (_blocked_batch_grad, _blocked_batch_grad_torch),
+}
+
+
+def keyed_row_width(cfg: Config) -> int:
+    """Values one keyed row owns: ``block_size`` lanes (blocked_lr),
+    ``num_classes`` (sparse_softmax), else 1."""
+    if cfg.model == "blocked_lr":
+        return cfg.block_size
+    return cfg.num_classes if cfg.model == "sparse_softmax" else 1
+
+
+def _keyed_logits(w_u, pos, vals, model: str):
+    """Logits of the keyed families from a unique slice: numpy arrays on
+    the host or tensors on a device."""
+    if model == "blocked_lr":
+        return (w_u[pos] * vals).sum(axis=(-1, -2))
+    if model == "sparse_softmax":
+        return (w_u[pos] * vals[..., None]).sum(axis=1)
+    return (w_u[pos] * vals).sum(axis=-1)
+
+
+def load_ps_iter(cfg: Config, path: str, batch_size: int, *, wrap: bool = False) -> DataIter:
+    """A PS worker's iterator over one shard, in its family's batch layout:
+    dense rows, padded COO (``sparse_lr``, ``sparse_softmax``) or row
+    blocks hashed from raw CTR rows (``blocked_lr``)."""
+    if cfg.model in ("sparse_lr", "sparse_softmax"):
+        return SparseDataIter.from_file(path, cfg.num_feature_dim, batch_size,
+                                        nnz_max=cfg.nnz_max,
+                                        multiclass=cfg.model == "sparse_softmax",
+                                        wrap_compat=wrap)
+    if cfg.model == "blocked_lr":
+        from distlr_tpu_torch.data.hashing import resolve_ctr_fields  # noqa: PLC0415
+
+        return BlockedDataIter.from_file(
+            path, resolve_ctr_fields(cfg.data_dir, cfg.ctr_fields),
+            cfg.num_feature_dim // cfg.block_size, cfg.block_size, batch_size,
+            seed=cfg.hash_seed, num_groups=cfg.block_groups, wrap_compat=wrap)
+    return DataIter.from_file(path, cfg.num_feature_dim, batch_size,
+                              multiclass=cfg.model == "softmax", wrap_compat=wrap)
+
+
 def check_ps_config(cfg: Config) -> torch.device:
     """Refuse what the port's PS path does not run, then resolve
     ``cfg.device`` (which raises without CUDA unless the CPU was asked
     for, even when ``ps_compute_backend`` puts the steps on the host)."""
-    if cfg.model not in _DENSE_MODELS:
-        raise _not_ported(f"parameter-server training of {cfg.model} (the keyed PS families)",
-                          "A.15")
+    if cfg.model in ("sparse_lr", "blocked_lr") and cfg.sync_last_gradient:
+        # Q1 is a dense-reference parity quirk: with keyed pushes "the last
+        # worker's gradient" touches an arbitrary key subset a server
+        raise ValueError(
+            "sync_last_gradient (Q1 compat) is a dense-model parity "
+            f"quirk; {cfg.model} PS training requires the correct-mean "
+            "update (compat_mode='correct')")
+    if cfg.model == "blocked_lr" and cfg.block_size == 0:
+        raise ValueError("block_size=0 (auto) must be resolved before PS training "
+                         "(launch ps resolves it; see hashing.resolve_auto_block_size)")
     if cfg.checkpoint_dir:
         raise _not_ported("checkpoints and resume in PS mode (checkpoint_dir)", "A.16")
     if cfg.feature_dtype != "float32":
@@ -150,11 +351,13 @@ def check_ps_config(cfg: Config) -> torch.device:
 
 
 class PSWorker:
-    """One worker's training loop against a KV server group: the full
-    weight vector pulled and pushed per batch, like the reference worker.
+    """One worker's training loop against a KV server group.  The dense
+    families pull and push the full weight vector a batch, like the
+    reference worker; the keyed families only the batch's unique rows.
 
     ``op_seconds`` collects the host seconds of each KV op (``pull``,
-    ``push``, ``push_pull``) and of each gradient (``grad``);
+    ``push``, ``push_pull``), of each gradient (``grad``) and of each
+    keyed round's key preparation (``prep``);
     :meth:`report` summarizes them, with the span of each ``model.grad``
     call on the card's stream (CUDA events).  ``device_lock``, shared by
     the workers of one card, holds a gradient's copy to the card, call
@@ -183,6 +386,16 @@ class PSWorker:
         # thread (ops on one connection must never overlap)
         self._w_cache: np.ndarray | None = None
         self._comm: ThreadPoolExecutor | None = None
+        #: keyed rounds: the unique rows of each and the wire's vals_per_key
+        self.keyed_rows: list[int] = []
+        self.vals_per_key: int | None = None
+        self._test_keyed = None  # the keyed test set's unique rows and positions, once
+        if cfg.model in _KEYED_MODELS and cfg.l2_c > 0:
+            # only a batch's touched keys decay, scaled by touch frequency,
+            # while the sync trainer decays every weight every step
+            log.warning("%s PS mode applies L2 lazily (touched keys only); effective "
+                        "regularization differs from the sync trainer at the same l2_c "
+                        "— see PARITY.md", cfg.model)
 
     @contextlib.contextmanager
     def _timed(self, op: str):
@@ -210,14 +423,11 @@ class PSWorker:
         # The reference re-reads its shard every epoch (src/main.cc:158-159);
         # it is parsed once here and reset (the same samples).
         path = os.path.join(self.cfg.data_dir, "train", part_name(self.rank))
-        return DataIter.from_file(path, self.cfg.num_feature_dim, self.cfg.batch_size,
-                                  multiclass=self.cfg.model == "softmax",
-                                  wrap_compat=bool(self.cfg.wrap_final_batch))  # Q5
+        return load_ps_iter(self.cfg, path, self.cfg.batch_size,
+                            wrap=bool(self.cfg.wrap_final_batch))  # Q5
 
     def _load_test_iter(self) -> DataIter:
-        path = os.path.join(self.cfg.data_dir, "test", part_name(0))
-        return DataIter.from_file(path, self.cfg.num_feature_dim, -1,
-                                  multiclass=self.cfg.model == "softmax")
+        return load_ps_iter(self.cfg, os.path.join(self.cfg.data_dir, "test", part_name(0)), -1)
 
     def _grad_fn(self, dev):
         """``compute_g(w_flat, X, y, mask) -> g_flat`` (numpy in and out)
@@ -252,9 +462,76 @@ class PSWorker:
                 return g.numpy().reshape(-1)
         return compute_g
 
+    def _keyed_grad_fn(self, dev, row_width: int):
+        """``kgrad(w_u, (pos, vals, y, mask)) -> g_flat`` of the keyed
+        families (numpy in and out): the host numpy function, or its torch
+        counterpart on ``dev`` (on the card under the device lock, with
+        CUDA events around the call, as the dense gradient)."""
+        cfg = self.cfg
+        np_fn, torch_fn = _KEYED_GRADS[cfg.model]
+        l2 = (cfg.l2_c, bool(cfg.l2_scale_by_batch))
+
+        def rows(w_u):
+            return w_u if cfg.model == "sparse_lr" else w_u.reshape(-1, row_width)
+
+        if dev == "numpy":
+            def kgrad(w_u, rest):
+                with self._timed("grad"):
+                    return np_fn(rows(w_u), *rest, *l2).reshape(-1)
+            return kgrad
+
+        def kgrad(w_u, rest):
+            with self._timed("grad"):
+                host = [torch.from_numpy(np.ascontiguousarray(a)) for a in (rows(w_u), *rest)]
+                if dev.type != "cuda":
+                    return torch_fn(*host, *l2).numpy().reshape(-1)
+                with self._device_lock:
+                    args = [a.to(dev) for a in host]
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    start.record()
+                    g = torch_fn(*args, *l2)
+                    end.record()
+                    g = g.cpu()
+                self._grad_events.append((start, end))
+                return g.numpy().reshape(-1)
+        return kgrad
+
+    def _pull_rows(self, rows: np.ndarray, row_width: int) -> np.ndarray:
+        """The servers' values of unique ``rows``: ``vals_per_key`` rows
+        where the group's ranges align, else expanded per-lane keys."""
+        if row_width > 1 and not self.kv.supports_vals_per_key(row_width):
+            return self.kv.pull(_expand_block_keys(rows, row_width))
+        return self.kv.pull(rows.astype(np.uint64), vals_per_key=row_width)
+
+    def _keyed_evaluate(self, test: DataIter, dev) -> tuple[float, float]:
+        """Full-test-set ``(accuracy, logloss)`` of the keyed families: a
+        keyed pull of the test set's unique rows, then one forward pass
+        (host numpy, or gathers on the compute device)."""
+        cfg = self.cfg
+        R = keyed_row_width(cfg)
+        if self._test_keyed is None:
+            test.reset()
+            ids, vals, y, mask = test.next_batch()
+            ub, pos = np.unique(ids, return_inverse=True)
+            pos = pos.reshape(ids.shape)
+            if dev != "numpy":
+                pos, vals = torch.from_numpy(pos).to(dev), torch.from_numpy(vals).to(dev)
+            self._test_keyed = ub, pos, vals, y, mask
+        ub, pos, vals, y, mask = self._test_keyed
+        w_u = self._pull_rows(ub, R)
+        w_u = w_u if cfg.model == "sparse_lr" else w_u.reshape(-1, R)
+        if dev == "numpy":
+            z = _keyed_logits(w_u, pos, vals, cfg.model)
+        else:
+            z = _keyed_logits(torch.from_numpy(w_u).to(dev), pos, vals, cfg.model).cpu().numpy()
+        return _dense_eval_from_logits(z, y, mask,
+                                       cfg.num_classes if cfg.model == "sparse_softmax" else None)
+
     def _evaluate(self, test: DataIter, dev) -> tuple[float, float]:
         """Full-test-set ``(accuracy, logloss)`` of the servers' weights,
         from one forward pass."""
+        if self.cfg.model in _KEYED_MODELS:
+            return self._keyed_evaluate(test, dev)
         w = self.kv.pull()
         test.reset()
         Xt, yt, mt = test.next_batch()
@@ -283,10 +560,22 @@ class PSWorker:
         cfg = self.cfg
         dev = ps_compute_device(cfg)
         dev = resolve_device(dev) if isinstance(dev, torch.device) else dev
-        compute_g = self._grad_fn(dev)
+        keyed = cfg.model in _KEYED_MODELS
+        if keyed:
+            kround = self._keyed_round(dev)
+        else:
+            compute_g = self._grad_fn(dev)
         for epoch in range(cfg.num_iteration):
             train.reset()
-            if not cfg.ps_pipeline:
+            if keyed:
+                # serialized in both modes: in sync a pull issued before the
+                # round's push would read pre-round weights; the pull and push
+                # key sets differ a batch, so no fused op removes a round trip
+                for b in train:
+                    self.timer.start()
+                    kround(b)
+                    self.timer.stop(int(b[-1].sum()))
+            elif not cfg.ps_pipeline:
                 # the reference's serialized protocol: two blocking round
                 # trips a batch (src/lr.cc:116-132)
                 for X, y, mask in train:
@@ -351,6 +640,35 @@ class PSWorker:
             self.kv.shutdown_servers()
         return self.final_weights
 
+    def _keyed_round(self, dev):
+        """The keyed round of one batch, ``kround(batch)``: its unique rows
+        (``np.unique``), a keyed pull, the gradient, a keyed push of the
+        same rows.  Rows wider than one value ride ``vals_per_key`` where
+        the group's ranges align, else expanded per-lane keys (the same
+        slots either way: the server expands at parse time)."""
+        cfg = self.cfg
+        row_width = keyed_row_width(cfg)
+        vpk = row_width if row_width > 1 and self.kv.supports_vals_per_key(row_width) else 1
+        self.vals_per_key = vpk
+        if row_width > 1:
+            log.info("rank %d keyed wire encoding: %s", self.rank,
+                     f"vals_per_key={vpk}" if vpk > 1 else "expanded per-lane keys")
+        kgrad = self._keyed_grad_fn(dev, row_width)
+
+        def kround(b):
+            with self._timed("prep"):
+                ids = b[0]
+                ub, pos = np.unique(ids, return_inverse=True)
+                keys = (_expand_block_keys(ub, row_width) if row_width > 1 and vpk == 1
+                        else ub.astype(np.uint64))
+            self.keyed_rows.append(int(keys.size))
+            with self._timed("pull"):
+                w_u = self.kv.pull(keys, vals_per_key=vpk)
+            g = kgrad(w_u, (pos.reshape(ids.shape), *b[1:]))
+            with self._timed("push"):
+                self.kv.wait(self.kv.push(g, keys, vals_per_key=vpk))
+        return kround
+
     def _comm_pool(self) -> ThreadPoolExecutor:
         if self._comm is None:
             self._comm = ThreadPoolExecutor(max_workers=1,
@@ -371,6 +689,12 @@ class PSWorker:
         (``grad_span_first_ms`` is the first step's, with the kernel
         library's load); rank 0 adds its last eval and the push clock."""
         span_ms = [s.elapsed_time(e) for s, e in self._grad_events]
+        keyed = {}
+        if self.keyed_rows:
+            # a keyed frame carries a u64 key and vals_per_key f32s a row
+            rows = float(np.mean(self.keyed_rows))
+            keyed = {"vals_per_key": self.vals_per_key, "keyed_rows_per_round": rows,
+                     "wire_bytes_per_round": rows * (8 + 4 * self.vals_per_key)}
         return {
             "rank": self.rank, "steps": self.timer.steps,
             "round_ms": 1e3 * self.timer.sec_per_step,
@@ -381,6 +705,7 @@ class PSWorker:
             "group_pushes": self.group_pushes,
             "test_accuracy": self.metrics.latest("accuracy"),
             "test_logloss": self.metrics.latest("test_logloss"),
+            **keyed,
         }
 
     def close(self) -> None:

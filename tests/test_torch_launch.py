@@ -134,8 +134,6 @@ class TestPSCLI:
     @pytest.mark.parametrize("argv,item", [
         *[([flag, "1"] if typ is not None else [flag], "A.16")
           for flag, _, typ in _UNPORTED_PS_FLAGS],
-        (["--model", "sparse_lr"], "A.15"),
-        (["--model", "blocked_lr", "--block-size", "8"], "A.15"),
         (["--profile-dir", "prof"], "A.12"),
     ])
     def test_unported_ps_flags_name_their_roadmap_item(self, argv, item, tmp_path):
@@ -144,6 +142,30 @@ class TestPSCLI:
         with pytest.raises(NotImplementedError, match=rf"ROADMAP {re.escape(item)}\)"):
             launch.main(["ps", "--data-dir", str(tmp_path), "--num-feature-dim", "8",
                          "--device", "cpu", *argv])
+
+
+    @pytest.mark.parametrize("argv,writer", [
+        (["--model", "sparse_lr"], "ctr"),
+        (["--model", "blocked_lr", "--block-size", "8"], "raw"),
+    ])
+    def test_keyed_models_train_through_launch_ps(self, argv, writer, tmp_path):
+        """``launch ps`` trains the keyed families (sync, 2 workers x 2
+        servers) and each worker writes its model."""
+        from distlr_tpu_torch import launch
+        from distlr_tpu_torch.data import hashing
+
+        d = str(tmp_path / "d")
+        if writer == "ctr":
+            hashing.write_ctr_shards(d, 400, 4, 50, 64, 2, seed=1)
+        else:
+            hashing.write_raw_ctr_shards(d, 400, 4, 50, 2, seed=1)
+        assert launch.main(["ps", "--data-dir", d, "--num-feature-dim", "64", "--device", "cpu",
+                            "--num-workers", "2", "--num-servers", "2", "--num-iteration", "2",
+                            "--batch-size", "50", "--test-interval", "1", *argv]) == 0
+        for part in ("part-001", "part-002"):
+            with open(os.path.join(d, "models", part)) as f:
+                assert f.readline().strip() == "64"
+                assert len(f.readline().split()) == 64
 
 
 class TestDeviceRule:

@@ -137,10 +137,7 @@ class TestConvert:
 
 class TestConfigGates:
     @pytest.mark.parametrize("kw,item", [
-        ({"model": "sparse_lr", "sync_mode": False}, "A.15"),
         ({"profile_dir": "prof"}, "A.12"),
-        ({"model": "blocked_lr", "block_size": 8, "sync_mode": False}, "A.15"),
-        ({"model": "sparse_softmax", "sync_mode": False}, "A.15"),
         ({"ps_host": "10.0.0.1"}, "A.16"),
         ({"ps_port": 9000}, "A.16"),
         ({"ps_retry_attempts": 3}, "A.16"),
@@ -151,11 +148,7 @@ class TestConfigGates:
         ({"ps_store_dir": "store"}, "A.16"),
         ({"ps_store_wal": True}, "A.16"),
         ({"chaos_plan": "plan.json"}, "A.16"),
-        # the serving options of hot-row reload, the feedback loop and
-        # named engines
-        ({"serve_hot_rows": 1024}, "A.18"),
-        ({"serve_hot_min_coverage": 0.5}, "A.18"),
-        ({"serve_hot_full_every": 0}, "A.18"),
+        # the serving options of the feedback loop and named engines
         ({"feedback_spool_dir": "spool"}, "A.11"),
         ({"feedback_window_s": 5.0}, "A.11"),
         ({"feedback_drift_threshold": 0.5}, "A.11"),
@@ -164,6 +157,35 @@ class TestConfigGates:
     def test_unported_options_name_their_roadmap_item(self, kw, item):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
             Config(device="cpu", **kw)
+
+    # the keyed PS families in async mode and the hot-row serving options
+    # (ROADMAP A.15, A.18): accepted, with the JAX package's values
+    @pytest.mark.parametrize("kw", [
+        {"model": "sparse_lr", "sync_mode": False},
+        {"model": "blocked_lr", "block_size": 8, "sync_mode": False},
+        {"model": "sparse_softmax", "sync_mode": False},
+        {"serve_hot_rows": 1024},
+        {"serve_hot_min_coverage": 0.5},
+        {"serve_hot_full_every": 0},
+    ])
+    def test_keyed_ps_and_hot_row_options_resolve_like_jax(self, kw):
+        j, t = JaxConfig(**kw), Config(device="cpu", **kw)
+        for f in ("model", "sync_mode", "block_size", "serve_hot_rows",
+                  "serve_hot_min_coverage", "serve_hot_full_every"):
+            assert getattr(t, f) == getattr(j, f), f
+
+    @pytest.mark.parametrize("kw,match", [
+        ({"serve_hot_rows": -1}, "serve_hot_rows"),
+        ({"serve_hot_min_coverage": 0.0}, "serve_hot_min_coverage"),
+        ({"serve_hot_min_coverage": 1.5}, "serve_hot_min_coverage"),
+        ({"serve_hot_full_every": -1}, "serve_hot_full_every"),
+    ])
+    def test_hot_row_options_validate_like_jax(self, kw, match):
+        with pytest.raises(ValueError, match=match) as theirs:
+            JaxConfig(**kw)
+        with pytest.raises(ValueError, match=match) as ours:
+            Config(device="cpu", **kw)
+        assert str(ours.value) == str(theirs.value)
 
     # the options of ROADMAP A.7 (a 'model' mesh axis: the feature-sharded
     # step), with a feature count the axis divides (the port checks it here,

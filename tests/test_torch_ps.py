@@ -356,9 +356,25 @@ class TestEntryRules:
         with pytest.raises(RuntimeError, match='device="cpu"'):
             run_ps_local(cfg)
 
+    @pytest.mark.parametrize("model,kw", [
+        ("sparse_lr", {}), ("sparse_softmax", {"num_classes": 3}),
+        ("blocked_lr", {"block_size": 4}),
+    ])
+    @pytest.mark.parametrize("sync", [True, False])
+    def test_keyed_families_raise_without_cuda_before_any_server(
+            self, ps_data_dir, monkeypatch, model, kw, sync):
+        """The keyed families run on the card by default too: without CUDA
+        they raise naming the way out, before any server starts, even when
+        the steps were asked onto the host."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        monkeypatch.setattr(ServerGroup, "start", lambda self: pytest.fail("servers spawned"))
+        for backend in ("auto", "numpy"):
+            cfg = Config(data_dir=ps_data_dir, num_feature_dim=16, model=model, num_workers=2,
+                         sync_mode=sync, ps_compute_backend=backend, **kw)
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                run_ps_local(cfg)
+
     @pytest.mark.parametrize("kw,err,match", [
-        ({"model": "sparse_lr"}, NotImplementedError, r"ROADMAP A\.15\)"),
-        ({"model": "blocked_lr"}, NotImplementedError, r"ROADMAP A\.15\)"),
         ({"checkpoint_dir": "ck"}, NotImplementedError, r"ROADMAP A\.16\)"),
         ({"feature_dtype": "int8"}, ValueError, "feature_dtype"),
     ])

@@ -522,13 +522,36 @@ class TestServerEndToEnd:
         assert not good.startswith("ERR")
 
     @pytest.mark.parametrize("kw,item", [
-        ({"engines": {"a": None}}, "A.17"), ({"hot_tracker": object()}, "A.18"),
-        ({"feedback": object()}, "A.11"),
+        ({"engines": {"a": None}}, "A.17"), ({"feedback": object()}, "A.11"),
     ])
     def test_unported_server_options_raise(self, kw, item):
         eng = ScoringEngine(Config(device="cpu", num_feature_dim=4))
         with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
             ScoringServer(eng, **kw)
+
+    @pytest.mark.parametrize("lines,keys", [
+        (["1:1 3:1", "3:1 8:1"], {0: 1, 2: 2, 7: 1}),
+        (['{"rows": ["2:1", "2:1 5:1"]}'], {1: 1, 4: 1}),
+    ])
+    def test_hot_tracker_observes_request_row_keys(self, lines, keys):
+        """A server given a ``hot_tracker`` feeds it the row keys of every
+        request (``engine.row_keys``: the columns any row of a batch uses),
+        as the JAX server does."""
+        from distlr_tpu.serve import HotSetTracker as JaxHotSetTracker
+        from distlr_tpu_torch.serve import HotSetTracker
+
+        ours, theirs = HotSetTracker(16), JaxHotSetTracker(16)
+        eng = ScoringEngine(Config(device="cpu", num_feature_dim=8))
+        eng.set_weights(_trained_weights(8))
+        jeng = JaxEngine(JaxConfig(num_feature_dim=8))
+        jeng.set_weights(_trained_weights(8))
+        with ScoringServer(eng, hot_tracker=ours) as srv, \
+                JaxServer(jeng, hot_tracker=theirs) as jsrv:
+            replies = score_lines_over_tcp(srv.host, srv.port, lines)
+            jreplies = score_lines_over_tcp(jsrv.host, jsrv.port, lines)
+        assert not any(r.startswith("ERR") for r in replies + jreplies)
+        assert dict(ours._counts) == dict(theirs._counts) == keys
+        np.testing.assert_array_equal(ours.hot_keys(), theirs.hot_keys())
 
     def test_abort_severs_open_connections(self):
         ours, _ = _servers(_trained_weights(8), num_feature_dim=8)
@@ -667,8 +690,10 @@ class TestHotReload:
             assert empty.shape == (0,) and empty.dtype == np.float32
             with pytest.raises(ValueError, match="chunk_rows"):
                 kv.pull_chunked(chunk_rows=0)
-            with pytest.raises(NotImplementedError, match=r"ROADMAP A\.15\)"):
-                kv.pull_chunked(vals_per_key=2)
+            # rows of 2 straddle the boundary 33 (dim 50 over 3 servers): both refuse
+            for client in (kv, jkv):
+                with pytest.raises(ValueError, match="straddle"):
+                    client.pull_chunked(vals_per_key=2)
 
     def test_live_watcher_waits_for_init_and_reconnects(self):
         with ServerGroup(2, 1, dim=16, sync=False) as sg:
@@ -696,13 +721,36 @@ class TestHotReload:
         assert "unreachable" in watcher.describe_unready()
 
     @pytest.mark.parametrize("kw,item", [
-        ({"vals_per_key": 4}, "A.15"), ({"retry": object()}, "A.16"),
-        ({"route": object()}, "A.16"), ({"hot_tracker": object()}, "A.18"),
+        ({"retry": object()}, "A.16"), ({"route": object()}, "A.16"),
         ({"ns_base": 16}, "A.17"), ({"ns_total_dim": 64}, "A.17"),
     ])
     def test_unported_watcher_options_raise(self, kw, item):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
             LivePSWatcher("127.0.0.1:1", 16, **kw)
+
+    @pytest.mark.parametrize("kw,mode,rows", [
+        ({"vals_per_key": 4}, "full", 4), ({"hot_tracker": "tracker"}, "hot", 16),
+    ])
+    def test_watcher_rows_and_hot_tracker(self, kw, mode, rows):
+        """``vals_per_key`` rows (2 servers at dim 16: the boundary 8 is a
+        multiple of 4) and a hot tracker: the first poll is a full pull of
+        the seeded table, and ``stats()`` reports the mode."""
+        from distlr_tpu_torch.serve import HotSetTracker
+
+        if kw.get("hot_tracker") == "tracker":
+            kw = {"hot_tracker": HotSetTracker(4)}
+        init = np.linspace(-1, 1, 16).astype(np.float32)
+        with ServerGroup(2, 1, dim=16, sync=False) as sg:
+            with KVWorker(sg.hosts, 16) as kv:
+                kv.push_init(init)
+            watcher = LivePSWatcher(sg.hosts, 16, chunk_rows=3, **kw)
+            version, w = watcher.poll()
+            watcher.close()
+        assert version == 1
+        np.testing.assert_array_equal(w, init)
+        st = watcher.stats()
+        assert (st["mode"], st["full_reloads"], st["last_kind"], st["last_rows"]) == (
+            mode, 1, "full", rows)
 
     def test_reloader_stats_and_errors_match_jax(self):
         class Flaky:
@@ -994,10 +1042,109 @@ class TestLaunchServe:
 
     @pytest.mark.parametrize("argv,item", [
         *[([flag, "1"], item) for flag, _, _, item in launch._UNPORTED_SERVE_FLAGS],
-        (["--ps-hosts", "127.0.0.1:1", "--model", "blocked_lr", "--num-feature-dim", "64"],
-         "A.15"),
     ])
     def test_unported_serve_flags_name_their_roadmap_item(self, argv, item, model_dir):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
             launch.main(["serve", "--num-feature-dim", "24", "--model-file", model_dir[1],
                          "--device", "cpu", *argv])
+
+
+class TestLaunchServeLivePS:
+    """``launch serve --ps-hosts`` in process (``serve_forever`` replaced by
+    a probe): keyed rows and the hot-row flags."""
+
+    @staticmethod
+    def _serve(monkeypatch, argv, hosts, lines):
+        seen = {}
+
+        def fake_forever(self):
+            # with a tracker: the start-up poll publishes an empty hot set, so
+            # the next poll is a full one (coverage 0) and the one after hot
+            seen["replies"] = [[self.handle_line(ln) for ln in lines]]
+            for _ in range(2):
+                assert self.reloader._poll_once()
+                seen["replies"].append([self.handle_line(ln) for ln in lines])
+            seen["stats"] = self.stats()
+            seen["source"] = self.reloader.source
+            seen["hot_tracker"] = self.hot_tracker
+            self.stop()
+
+        monkeypatch.setattr(ScoringServer, "serve_forever", fake_forever)
+        monkeypatch.setattr(signal, "signal", lambda *a: None)
+        assert launch.main(["serve", "--ps-hosts", hosts, "--device", "cpu",
+                            "--reload-interval", "30", *argv]) == 0
+        return seen
+
+    @pytest.mark.parametrize("argv,mode", [
+        (["--model", "blocked_lr", "--block-size", "8", "--ctr-fields", "8"], "full"),
+        (["--hot-rows", "64"], "hot"),
+        (["--hot-rows", "64", "--hot-min-coverage", "0.5"], "hot"),
+        (["--hot-rows", "64", "--hot-full-every", "0"], "hot"),
+    ])
+    def test_live_ps_serving_flags_run(self, monkeypatch, argv, mode):
+        rng = np.random.default_rng(5)
+        blocked = "blocked_lr" in argv
+        D = 64
+        w = rng.standard_normal(D).astype(np.float32)
+        lines = (_raw_ctr_lines(rng, 3, 8) if blocked
+                 else [ln for ln in _dense_lines(rng, 3, D)])
+        with ServerGroup(2, 1, dim=D, sync=False) as sg:
+            with KVWorker(sg.hosts, D) as kv:
+                kv.push_init(w)
+            seen = self._serve(monkeypatch, ["--num-feature-dim", str(D), *argv], sg.hosts,
+                               lines)
+        src = seen["source"]
+        assert src.row_width == src.vals_per_key == (8 if blocked else 1)
+        assert seen["stats"]["reload"]["source"]["mode"] == mode
+        assert (seen["hot_tracker"] is None) == (mode == "full")
+        if mode == "hot":
+            assert src.hot_tracker is seen["hot_tracker"]
+            assert (seen["stats"]["reload"]["source"]["full_reloads"],
+                    seen["stats"]["reload"]["source"]["hot_reloads"]) == (2, 1)
+            assert (src.min_coverage, src.full_refresh_every) == (
+                float(argv[argv.index("--hot-min-coverage") + 1])
+                if "--hot-min-coverage" in argv else 0.95,
+                int(argv[argv.index("--hot-full-every") + 1])
+                if "--hot-full-every" in argv else 10)
+        # the served scores are the engine's on the group's table
+        eng = ScoringEngine(Config(device="cpu", num_feature_dim=D,
+                                   **({"model": "blocked_lr", "block_size": 8, "ctr_fields": 8}
+                                      if blocked else {})))
+        eng.set_weights(w)
+        labels, scores = eng.score(eng.encode_lines(lines))
+        for replies in seen["replies"]:
+            got_l, got_s = _parse_replies(replies)
+            np.testing.assert_array_equal(got_l, labels)
+            np.testing.assert_allclose(got_s, scores, rtol=1e-5)
+
+    def test_hot_rows_need_a_live_ps(self, capsys):
+        assert launch.main(["serve", "--num-feature-dim", "8", "--device", "cpu",
+                            "--model-file", "m", "--hot-rows", "4"]) == 2
+        assert "--hot-rows applies to live-PS reload only" in capsys.readouterr().err
+
+    def test_dense_softmax_pulls_class_rows_and_serves_the_same_scores(self, monkeypatch):
+        """Dense softmax's live pull takes ``num_classes`` values a key, as
+        the JAX package's (its flat ``(D, K)`` keys are the same slots):
+        the served scores equal those of the flat-key pull."""
+        rng = np.random.default_rng(8)
+        D, K = 24, 3
+        w = rng.standard_normal(D * K).astype(np.float32)
+        lines = _dense_lines(rng, 5, D)
+        with ServerGroup(2, 1, dim=D * K, sync=False) as sg:
+            with KVWorker(sg.hosts, D * K) as kv:
+                kv.push_init(w)
+            flat = LivePSWatcher(sg.hosts, D * K)
+            _, w_flat = flat.poll()
+            flat.close()
+            seen = self._serve(monkeypatch, ["--model", "softmax", "--num-classes", str(K),
+                                             "--num-feature-dim", str(D)], sg.hosts, lines)
+        assert seen["source"].vals_per_key == K
+        np.testing.assert_array_equal(w_flat, w)
+        eng = ScoringEngine(Config(device="cpu", model="softmax", num_classes=K,
+                                   num_feature_dim=D))
+        eng.set_weights(w_flat)
+        labels, scores = eng.score(eng.encode_lines(lines))
+        for replies in seen["replies"]:
+            got_l, got_s = _parse_replies(replies)
+            np.testing.assert_array_equal(got_l, labels)
+            np.testing.assert_allclose(got_s, scores, rtol=1e-5)
