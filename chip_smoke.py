@@ -26,8 +26,9 @@ MNIST-shaped D = 784, K = 10, 60,000 rows, and its step alone at D = 1M,
 2048 rows), then the ``gen-data -> sync -> eval`` CLI in subprocesses for
 every family, an int8_dot sync that checkpoints and resumes,
 ``gen-data -> ps -> eval``, ``gen-data -> sync -> serve`` (a text model,
-then a checkpoint directory), ``sync`` and ``eval --feature-shards 4`` and
-``sync`` as a one-rank NCCL group, then the parameter-server path at the full
+then a checkpoint directory), ``sync`` and ``eval --feature-shards 4``,
+``sync`` as a one-rank NCCL group and ``serve`` x2 -> ``route`` ->
+``rollout``, then the parameter-server path at the full
 width through ``run_ps_local`` (native libsvm shards of config-3 CTR rows
 at D = 1M, 2 native KV servers, 2 worker threads on the card: sync BSP
 and async Hogwild, each gradient the ``fused_lr_grad`` single pass; then
@@ -42,8 +43,13 @@ at config 4's D = 1M buckets and 21 fields through ``run_ps_local``, sync
 and async, 2 servers and 2 worker threads on the card, each keyed gradient
 a gather and an ``index_add_`` there, held to the numpy backend) and
 hot-row serving (a ``blocked_lr`` engine refreshed from a live PS through
-a ``HotSetTracker``'s keyed pulls while an async keyed worker pushes), and
-last the path of the on-device generation probes: both roofline experiments
+a ``HotSetTracker``'s keyed pulls while an async keyed worker pushes), then
+the serving control plane (a ``ScoringRouter`` in front of two
+``ScoringServer`` replicas, each hosting the binary_lr versions v1 and v2
+at D = 1M: one reloads both from two namespaces of one PS group, the other
+serves text models; mixed traffic, a tenant quota, SPLIT, SHADOW, a replica
+killed and restarted under load, canary ramps that roll back and promote,
+and a keyed push into one namespace), and last the path of the on-device generation probes: both roofline experiments
 (``distlr_tpu_torch.benchmarks.exp_gen_roofline*``) at the published
 (256, 8192) x 64 tile, in this process and as ``python -m``.  Each phase
 prints JSON lines; any failure exits non-zero before the last line, which is
@@ -2715,6 +2721,496 @@ def phase_serve_hot(torch, seed: int, smi: str) -> dict:
     return out
 
 
+# --- the serving control plane ----------------------------------------------
+# two replicas, each hosting the engines v1 and v2 at D = 1M (A reloads both
+# live from one PS group of two namespaces, B serves text models), behind one
+# ScoringRouter; 8 clients of single lines and JSON batches of 37-256 rows
+# (host densify of a 1M-wide row costs ~1 ms, ROADMAP A.19: the batches
+# stay small but one 1,024-row request to v1)
+ROUTE_CLIENTS, ROUTE_ROWS, ROUTE_JSON_ROWS, ROUTE_BIG_JSON = 8, 4096, (37, 64, 128, 256), 1024
+ROUTE_SINGLES = 8             # a client's lines of each addressing, mixed stage
+ROUTE_SPLIT, ROUTE_SPLIT_LINES = 0.25, 50
+ROUTE_SHADOW, ROUTE_SHADOW_LINES, ROUTE_SHADOW_BLOCK = 0.5, 32, 32
+# v2's quota: sheds come in the mixed stage's burst of v2 lines
+ROUTE_QUOTA_RATE, ROUTE_QUOTA_BURST = 5.0, 5.0
+ROUTE_MAX_INFLIGHT, ROUTE_EJECT_AFTER = 16, 3
+ROUTE_HEALTH_S, ROUTE_BACKOFF_S, ROUTE_BACKOFF_MAX_S = 0.5, 0.2, 2.0
+ROUTE_RELOAD_S, ROUTE_CLIENT_TIMEOUT_S = 0.5, 120.0
+ROUTE_STAGES, ROUTE_HOP_PAIRS = "0.25:0.5,0.5:0.5,1.0:0.5", 10
+# v2 = v1 + ROUTE_V2_SHIFT / CTR_FIELDS: every row has CTR_FIELDS ones, so its
+# v2 logit is its v1 logit + ~2, and every reply matches exactly one version
+ROUTE_V2_SHIFT = 2.0
+
+
+def _bf16_exact(torch, w):
+    """``w`` rounded to bfloat16 values, kept in float32: their ``%g`` text
+    reads back to the same bf16 products, so a text-model replica and a
+    live-PS one score the same bits."""
+    return torch.from_numpy(w).bfloat16().float().numpy()
+
+
+class _RouteClient:
+    """One client of the route phase: two connections to the router (one
+    unscoped, one ``MODEL v2``-scoped), sending its requests in order, or
+    round and round until stopped (``stream``); keeps ``(request, reply,
+    seconds)`` for each.  A transport error or a timeout is recorded and
+    ends the client."""
+
+    def __init__(self, host, port, requests, *, stream=False):
+        self.requests, self.stream = requests, stream
+        self.results: list = []
+        self.errors: list[str] = []
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, args=(host, port), daemon=True)
+
+    def _run(self, host, port):
+        import socket  # noqa: PLC0415
+
+        conns = []
+        try:
+            for scoped in (False, True):
+                s = socket.create_connection((host, port), timeout=ROUTE_CLIENT_TIMEOUT_S)
+                f = s.makefile("rwb")
+                conns.append((s, f))
+                if scoped:
+                    f.write(b"MODEL v2\n")
+                    f.flush()
+                    if f.readline().decode().strip() != "OK MODEL v2":
+                        raise AssertionError("MODEL v2 was not acknowledged")
+            i = 0
+            while not self._stop.is_set() and (self.stream or i < len(self.requests)):
+                req = self.requests[i % len(self.requests)]
+                f = conns[req["scoped"]][1]
+                t0 = time.perf_counter()
+                f.write((req["wire"] + "\n").encode())
+                f.flush()
+                reply = f.readline()
+                if not reply:
+                    raise ConnectionError("the router closed the connection")
+                self.results.append((req, reply.decode().strip(), time.perf_counter() - t0))
+                i += 1
+        except Exception as e:  # noqa: BLE001 — checked by the phase
+            self.errors.append(f"{type(e).__name__}: {e}")
+        finally:
+            for s, f in conns:
+                f.close()
+                s.close()
+
+    def start(self) -> "_RouteClient":
+        self._t.start()
+        return self
+
+    def join(self, stop: bool = False) -> "_RouteClient":
+        if stop:
+            self._stop.set()
+        self._t.join(ROUTE_CLIENT_TIMEOUT_S)
+        if self._t.is_alive():
+            raise AssertionError("route: a client hangs past its timeout")
+        return self
+
+
+def _route_request(lines, rows, *, address="none", want="v1"):
+    """A request of ``rows`` (indices into the phase's rows): one libsvm line,
+    or a JSON batch for several; unaddressed, ``@v2``-prefixed or sent on
+    the ``MODEL v2``-scoped connection; ``want`` is the version that must
+    answer (None: either, for split traffic)."""
+    body = lines[rows[0]] if len(rows) == 1 else json.dumps({"rows": [lines[r] for r in rows]})
+    return {"wire": f"@v2 {body}" if address == "at" else body, "rows": list(rows),
+            "scoped": address == "scope", "address": address, "want": want}
+
+
+def _route_verdict(req, reply, s1, s2) -> str:
+    """Which version answered: ``v1`` / ``v2`` (the reply's scores within
+    SERVE_SCORE_TOL of σ(plain logits) for exactly that one), or ``shed`` /
+    ``route`` for ``ERR SHED`` / ``ERR ROUTE``.  Any other reply, or
+    scores that match neither or both, raise."""
+    import numpy as np  # noqa: PLC0415
+
+    if reply.startswith(("ERR SHED", "ERR ROUTE")):
+        return "shed" if reply.startswith("ERR SHED") else "route"
+    if reply.startswith("ERR"):
+        raise AssertionError(f"route: {req['wire'][:80]!r} answered {reply!r}")
+    scores = (np.asarray(json.loads(reply)["scores"]) if reply.startswith("{")
+              else np.asarray([float(reply.split()[1])]))
+    rows = np.asarray(req["rows"])
+    match = [float(np.abs(scores - s[rows]).max()) <= SERVE_SCORE_TOL for s in (s1, s2)]
+    if sum(match) != 1:
+        raise AssertionError(f"route: a reply of {len(rows)} rows matches "
+                             f"{['v1', 'v2'] if all(match) else 'neither version'}")
+    version = "v1" if match[0] else "v2"
+    if req["want"] is not None and version != req["want"]:
+        raise AssertionError(f"route: {req['address']}-addressed traffic for {req['want']} "
+                             f"was answered by {version}")
+    return version
+
+
+def _route_tally(clients, s1, s2) -> dict:
+    """Every reply of ``clients`` checked (:func:`_route_verdict`); the
+    count of each verdict, and the client seconds of the scored ones."""
+    tally = {"v1": 0, "v2": 0, "shed": 0, "route": 0, "tenant_shed": 0}
+    for c in clients:
+        if c.errors:
+            raise AssertionError(f"route: a client failed: {c.errors}")
+        for req, reply, _ in c.results:
+            tally[_route_verdict(req, reply, s1, s2)] += 1
+            tally["tenant_shed"] += reply.startswith("ERR SHED tenant")
+    return tally
+
+
+def _run_clients(host, port, per_client) -> list:
+    clients = [_RouteClient(host, port, reqs).start() for reqs in per_client]
+    return [c.join() for c in clients]
+
+
+def _stats(host, port) -> dict:
+    from distlr_tpu_torch.serve import score_lines_over_tcp  # noqa: PLC0415
+
+    return json.loads(score_lines_over_tcp(host, port, ["STATS"])[0])
+
+
+def _route_mixed(host, port, lines, rng, s1, s2) -> dict:
+    """Check 1 and 4: ROUTE_CLIENTS clients, each ROUTE_SINGLES lines
+    unaddressed, @v2-prefixed and MODEL v2-scoped, and one JSON batch of
+    ROUTE_JSON_ROWS rows (alternately unaddressed and @v2), shuffled;
+    then the ROUTE_BIG_JSON-row batch to v1 alone."""
+    per_client = []
+    for k in range(ROUTE_CLIENTS):
+        reqs = [_route_request(lines, [int(r)], address=a, want="v1" if a == "none" else "v2")
+                for a in ("none", "at", "scope")
+                for r in rng.integers(0, ROUTE_ROWS, ROUTE_SINGLES)]
+        n = ROUTE_JSON_ROWS[k % len(ROUTE_JSON_ROWS)]
+        a = "at" if k % 2 else "none"
+        reqs.append(_route_request(lines, rng.integers(0, ROUTE_ROWS, n).tolist(), address=a,
+                                   want="v2" if a == "at" else "v1"))
+        per_client.append([reqs[i] for i in rng.permutation(len(reqs))])
+    t0 = time.perf_counter()
+    clients = _run_clients(host, port, per_client)
+    mixed_s = time.perf_counter() - t0
+    big = _RouteClient(host, port, [_route_request(
+        lines, rng.integers(0, ROUTE_ROWS, ROUTE_BIG_JSON).tolist())]).start().join()
+    tally = _route_tally(clients + [big], s1, s2)
+    if tally["route"] or tally["shed"] != tally["tenant_shed"] or not tally["tenant_shed"]:
+        raise AssertionError(f"route mixed: want tenant sheds only, and some: {tally}")
+    return {"requests": sum(len(c.results) for c in clients) + 1, "seconds": mixed_s,
+            "big_json_ms": 1e3 * big.results[0][2], **tally}
+
+
+def _route_split(host, port, lines, rng, s1, s2) -> dict:
+    """Check 2: SPLIT v1 v2 ROUTE_SPLIT, then ROUTE_CLIENTS x
+    ROUTE_SPLIT_LINES unaddressed lines: the share v2 answered lies within
+    a binomial 4σ of the weight."""
+    from distlr_tpu_torch.serve import RouterAdmin  # noqa: PLC0415
+
+    admin = RouterAdmin(host, port)
+    admin.expect_ok(f"SPLIT v1 v2 {ROUTE_SPLIT:g}")
+    clients = _run_clients(host, port, [
+        [_route_request(lines, [int(r)], want=None)
+         for r in rng.integers(0, ROUTE_ROWS, ROUTE_SPLIT_LINES)]
+        for _ in range(ROUTE_CLIENTS)])
+    admin.expect_ok("SPLIT v1 v2 0")
+    tally = _route_tally(clients, s1, s2)
+    n = tally["v1"] + tally["v2"]
+    share, sigma = tally["v2"] / n, math.sqrt(ROUTE_SPLIT * (1 - ROUTE_SPLIT) / n)
+    if n != ROUTE_CLIENTS * ROUTE_SPLIT_LINES or abs(share - ROUTE_SPLIT) > 4 * sigma:
+        raise AssertionError(f"route split: v2 answered {tally['v2']} of {n} "
+                             f"(weight {ROUTE_SPLIT}, 4σ = {4 * sigma:.4f})")
+    return {"weight": ROUTE_SPLIT, "requests": n, "v2_share": share, "four_sigma": 4 * sigma}
+
+
+def _route_shadow(router, host, port, lines, rng, s1, s2) -> dict:
+    """Check 3: SHADOW v1 v2 ROUTE_SHADOW: every primary reply is v1's,
+    and STATS' shadow holds a finite PSI above 0."""
+    from distlr_tpu_torch.serve import RouterAdmin  # noqa: PLC0415
+
+    admin = RouterAdmin(host, port)
+    admin.expect_ok(f"SHADOW v1 v2 {ROUTE_SHADOW:g}")
+    clients = _run_clients(host, port, [
+        [_route_request(lines, [int(r)]) for r in rng.integers(0, ROUTE_ROWS, ROUTE_SHADOW_LINES)]
+        for _ in range(ROUTE_CLIENTS)])
+    router._shadow_mirror.drain(60.0)
+    shadow = _stats(host, port)["shadow"]
+    admin.expect_ok("SHADOW v1 v2 0")
+    tally = _route_tally(clients, s1, s2)
+    pair = shadow["pairs"].get("v1->v2", {})
+    psi = pair.get("psi")
+    if tally["v1"] != ROUTE_CLIENTS * ROUTE_SHADOW_LINES or psi is None or not (
+            math.isfinite(psi) and psi > 0):
+        raise AssertionError(f"route shadow: {tally}, shadow stats {shadow}")
+    return {"fraction": ROUTE_SHADOW, "primary_replies": tally["v1"], **shadow}
+
+
+def _route_failover(router, host, port, lines, rng, s1, s2, restart_b) -> dict:
+    """Check 5: clients stream unaddressed and @v2 lines; replica B is
+    aborted mid-stream and restarted on its port half a second after the
+    router ejected it.  Every
+    reply is a version's scores, ERR SHED or ERR ROUTE; the router retried
+    and ejected, and reinstated B within ROUTE_BACKOFF_MAX_S of its
+    restart."""
+    before = _stats(host, port)
+    clients = [_RouteClient(host, port, [
+        _route_request(lines, [int(r)], address=a, want="v1" if a == "none" else "v2")
+        for a in ("none", "at") for r in rng.integers(0, ROUTE_ROWS, 16)], stream=True).start()
+        for _ in range(ROUTE_CLIENTS)]
+    time.sleep(1.0)
+    t_abort = time.perf_counter()
+    b_addr = restart_b(None)      # abort B
+    rep_b = next(r for r in router.replicas if r.addr == b_addr)
+    while rep_b.healthy and time.perf_counter() - t_abort < 30:
+        time.sleep(0.01)
+    ejected_s = time.perf_counter() - t_abort
+    time.sleep(0.5)
+    t_restart = time.perf_counter()
+    restart_b(b_addr)             # B again, on its port
+    while not rep_b.healthy and time.perf_counter() - t_restart < 30:
+        time.sleep(0.01)
+    reinstate_s = time.perf_counter() - t_restart
+    time.sleep(0.5)               # traffic on both again
+    for c in clients:
+        c.join(stop=True)
+    after = _stats(host, port)
+    tally = _route_tally(clients, s1, s2)
+    delta = {k: after[k] - before[k] for k in ("retries", "shed", "errors", "requests")}
+    ejections = sum(r["ejections"] for r in after["replicas"])
+    reinstates = sum(r["reinstates"] for r in after["replicas"])
+    if (delta["retries"] < 1 or ejections < 1 or reinstates < 1
+            or reinstate_s > ROUTE_BACKOFF_MAX_S or not rep_b.healthy):
+        raise AssertionError(f"route failover: {delta}, ejections {ejections}, reinstates "
+                             f"{reinstates}, reinstated {reinstate_s:.3f} s after the restart")
+    return {"replies": sum(tally[k] for k in ("v1", "v2", "shed", "route")), **tally,
+            **{f"{k}_delta": v for k, v in delta.items()}, "ejections": ejections,
+            "reinstates": reinstates, "eject_after_abort_s": ejected_s,
+            "reinstate_after_restart_s": reinstate_s, "probe_backoff_max_s": ROUTE_BACKOFF_MAX_S}
+
+
+def _route_ramp(host, port, lines, rng, s1, s2, *, fire: bool, journal: str) -> dict:
+    """Checks 6 and 7: a RolloutController over ROUTE_STAGES, unwatched
+    (``fire`` False: it must promote) or with a scripted poller that fires
+    at stage 2 (it must roll back), while a client streams unaddressed
+    lines; after it, unaddressed replies are v2's (promoted) or v1's."""
+    from distlr_tpu_torch.serve import RolloutController, RouterAdmin  # noqa: PLC0415
+
+    stream = _RouteClient(host, port, [_route_request(lines, [int(r)], want=None)
+                                       for r in rng.integers(0, ROUTE_ROWS, 64)],
+                          stream=True).start()
+    ctrl = None
+
+    def poller():
+        return ["distlr_alert_smoke{candidate=v2}"] if ctrl.weight >= 0.5 else []
+
+    ctrl = RolloutController(RouterAdmin(host, port), "v1", "v2", ROUTE_STAGES,
+                             alert_poll=poller if fire else None, poll_interval_s=0.05,
+                             journal_dir=journal)
+    t0 = time.perf_counter()
+    outcome = ctrl.run()
+    ramp_s = time.perf_counter() - t0
+    stream.join(stop=True)
+    want = "rolled_back" if fire else "promoted"
+    after_version = "v1" if fire else "v2"
+    after = _run_clients(host, port, [[_route_request(lines, [int(r)], want=after_version)
+                                       for r in rng.integers(0, ROUTE_ROWS, 16)]])
+    tally = _route_tally([stream], s1, s2)
+    _route_tally(after, s1, s2)
+    models = RouterAdmin(host, port).models()
+    events = [t["event"] for t in ctrl.transitions]
+    if (outcome["outcome"] != want or models["splits"] or tally["route"]
+            or (fire and (outcome["stage"] != 1 or events[-1] != "rollback"))
+            or (not fire and events[-1] != "promote")):
+        raise AssertionError(f"route ramp: {outcome}, events {events}, splits "
+                             f"{models['splits']}, stream {tally}")
+    return {"outcome": outcome["outcome"], "events": events, "seconds": ramp_s,
+            "stream_replies": tally, "after": after_version,
+            **({"stage": outcome["stage"], "alerts": outcome["alerts"]} if fire else {})}
+
+
+def _route_hop(host, port, a_host, a_port, lines, rng) -> dict:
+    """The router hop: client ms of a 64-row JSON request and of a single
+    line through the router and straight to replica A (v1, A's default
+    engine), ROUTE_HOP_PAIRS of each in turns (router, direct, direct,
+    router, ...), and the medians' difference."""
+    from distlr_tpu_torch.serve import score_lines_over_tcp  # noqa: PLC0415
+
+    out = {}
+    for name, req in (("json_64", json.dumps({"rows": [lines[int(r)] for r in
+                                                       rng.integers(0, ROUTE_ROWS, 64)]})),
+                      ("single", lines[int(rng.integers(0, ROUTE_ROWS))])):
+        times = {"via_router_ms": [], "direct_ms": []}
+        for i in range(2 * ROUTE_HOP_PAIRS):
+            key = "via_router_ms" if i % 4 in (0, 3) else "direct_ms"
+            h, p = (host, port) if key == "via_router_ms" else (a_host, a_port)
+            t0 = time.perf_counter()
+            score_lines_over_tcp(h, p, [req], timeout_s=ROUTE_CLIENT_TIMEOUT_S)
+            times[key].append(1e3 * (time.perf_counter() - t0))
+        med = {k: sorted(v)[ROUTE_HOP_PAIRS // 2] for k, v in times.items()}
+        out[name] = {**times, "median_via_router_ms": med["via_router_ms"],
+                     "median_direct_ms": med["direct_ms"],
+                     "median_hop_ms": med["via_router_ms"] - med["direct_ms"]}
+    return out
+
+
+def _route_namespace(torch, ops, kv_v2, a_host, a_port, engines_a, lines, cols, w1, w2) -> dict:
+    """Check 8: a keyed push into v2's namespace (1.0 on the columns of 16
+    rows, learning rate 1): A's v2 engine then serves the new table, by
+    σ(plain logits) and bit for bit, and its v1 engine's table is w1 still."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.serve import score_lines_over_tcp  # noqa: PLC0415
+
+    rows = list(range(16))
+    keys = np.unique(cols[rows].reshape(-1)).astype(np.uint64)
+    kv_v2.push(np.ones(keys.size, np.float32), keys)
+    w2_new = w2.copy()
+    w2_new[keys.astype(np.int64)] -= 1.0
+    t0 = time.perf_counter()
+    while not np.array_equal(engines_a["v2"].get_weights(), w2_new):
+        if time.perf_counter() - t0 > 30:
+            raise AssertionError("route namespace: A's v2 engine never served the push")
+        time.sleep(0.05)
+    reload_s = time.perf_counter() - t0
+    probe = json.dumps({"rows": [lines[r] for r in rows]})
+    got = {m: np.asarray(json.loads(score_lines_over_tcp(
+        a_host, a_port, [f"@{m} {probe}"])[0])["scores"]) for m in ("v1", "v2")}
+    errs = {}
+    for m, w in (("v1", w1), ("v2", w2_new)):
+        z = _plain_logits(torch, ops, torch.from_numpy(w).cuda(), cols[rows], FULL_D)
+        errs[m] = float(np.abs(got[m] - torch.sigmoid(z).numpy()).max())
+    v1_same = bool(np.array_equal(engines_a["v1"].get_weights(), w1))
+    if max(errs.values()) > SERVE_SCORE_TOL or not v1_same:
+        raise AssertionError(f"route namespace: replies vs plain {errs}, v1 table the same "
+                             f"{v1_same}")
+    return {"pushed_keys": int(keys.size), "v2_served_after_s": reload_s,
+            "replies_vs_plain": errs, "v1_table_unchanged": v1_same}
+
+
+def phase_route(torch, seed: int, smi: str) -> dict:
+    """The serving control plane at the full width, through the entry points
+    a user calls: replicas A and B, each a ``ScoringServer`` hosting the
+    binary_lr engines v1 and v2 (D = 1M, bf16; four engines on the card).
+    A reloads both live from one ``ServerGroup`` of 2 servers at total dim
+    2M, laid out by ``namespace_layout("v1,v2", 1M)`` and seeded with
+    ``push_init(force=True)``; B serves them from text models.  A
+    ``ScoringRouter`` (``v1=A+B,v2=A+B``, a quota on v2) is in front.  The
+    launch counts are zeroed just before the traffic and read after the
+    namespace check: mixed traffic (checks 1, 4), SPLIT (2), SHADOW (3), B
+    aborted and restarted under load (5), a ramp that rolls back (7), one
+    that promotes (6), then the namespace push (8)."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.ps import KVWorker, ServerGroup, namespace_layout  # noqa: PLC0415
+    from distlr_tpu_torch.serve import (  # noqa: PLC0415
+        HotReloader,
+        LivePSWatcher,
+        ScoringRouter,
+        ScoringServer,
+    )
+    from distlr_tpu_torch.train.export import load_weights, save_model_text  # noqa: PLC0415
+
+    rng = np.random.default_rng(seed + 40)
+    w_true = (rng.standard_normal(FULL_D) * 0.5).astype(np.float32)
+    cols, y = _ctr_cols(rng, ROUTE_ROWS, w_true, FULL_D)
+    lines = _libsvm_lines(cols, y)
+    w1 = _bf16_exact(torch, _serve_weights(rng, FULL_D, cols))
+    w2 = _bf16_exact(torch, w1 + np.float32(ROUTE_V2_SHIFT / CTR_FIELDS))
+    s1, s2 = (torch.sigmoid(_plain_logits(torch, ops, torch.from_numpy(w).cuda(), cols,
+                                          FULL_D)).numpy() for w in (w1, w2))
+    out, rss = {"nvidia_smi": smi, "D": FULL_D, "rows": ROUTE_ROWS, "clients": ROUTE_CLIENTS,
+                "buckets": list(SERVE_BUCKETS)}, {}
+    t_phase = time.perf_counter()
+    servers, reloaders = {}, []
+    with _sampled_peak_rss(rss), tempfile.TemporaryDirectory(prefix="distlr-smoke-route-") as tmp, \
+            ServerGroup(PS_SERVERS, 1, 2 * FULL_D, learning_rate=1.0, sync=False) as sg, \
+            KVWorker(sg.hosts, 2 * FULL_D, client_id=1) as kv:
+        layout = namespace_layout("v1,v2", FULL_D)
+        for m, w in (("v1", w1), ("v2", w2)):
+            kv.namespace(*layout[m]).push_init(w, force=True)
+        engines_a = {m: _serve_engine(torch, FULL_D) for m in ("v1", "v2")}
+        for i, m in enumerate(("v1", "v2")):
+            watcher = LivePSWatcher(sg.hosts, FULL_D, client_id=LivePSWatcher.SERVE_CLIENT_ID - i,
+                                    ns_base=layout[m][0], ns_total_dim=2 * FULL_D)
+            reloaders.append(HotReloader(engines_a[m], watcher, interval_s=ROUTE_RELOAD_S))
+            reloaders[-1].wait_for_weights(60)
+            reloaders[-1].start()
+        engines_b = {}
+        for m, w in (("v1", w1), ("v2", w2)):
+            path = os.path.join(tmp, f"{m}.txt")
+            save_model_text(path, w)
+            engines_b[m] = _serve_engine(torch, FULL_D)
+            engines_b[m].set_weights(load_weights(path, shape=(FULL_D,)))
+        servers["A"] = ScoringServer(engines=engines_a, max_wait_ms=SERVE_WAIT_MS,
+                                     reloader=reloaders[0], extra_reloaders=reloaders[1:]).start()
+        servers["B"] = ScoringServer(engines=engines_b, max_wait_ms=SERVE_WAIT_MS).start()
+        addr = {k: f"{s.host}:{s.port}" for k, s in servers.items()}
+
+        def restart_b(b_addr):
+            """Abort B (``None``), or start it again on its port."""
+            if b_addr is None:
+                servers["B"].abort()
+                return addr["B"]
+            servers["B"] = ScoringServer(engines=engines_b, port=servers["B"].port,
+                                         max_wait_ms=SERVE_WAIT_MS).start()
+            return b_addr
+
+        pool = f"{addr['A']}+{addr['B']}"
+        ops.reset_launch_counts()
+        try:
+            with ScoringRouter(f"v1={pool},v2={pool}", seed=seed,
+                               max_inflight=ROUTE_MAX_INFLIGHT, eject_after=ROUTE_EJECT_AFTER,
+                               health_interval_s=ROUTE_HEALTH_S,
+                               probe_backoff_s=ROUTE_BACKOFF_S,
+                               probe_backoff_max_s=ROUTE_BACKOFF_MAX_S,
+                               shadow_block=ROUTE_SHADOW_BLOCK,
+                               quotas=f"v2={ROUTE_QUOTA_RATE:g}:{ROUTE_QUOTA_BURST:g}") as router:
+                h, p = router.host, router.port
+                out["mixed"] = _route_mixed(h, p, lines, rng, s1, s2)
+                out["split"] = _route_split(h, p, lines, rng, s1, s2)
+                out["shadow"] = _route_shadow(router, h, p, lines, rng, s1, s2)
+                # the same traffic, seen by the router and by each replica
+                stats = {"router": _stats(h, p),
+                         **{k: _stats(s.host, s.port) for k, s in servers.items()}}
+                out["latency"] = {k: {f: v[f] for f in ("requests", "qps", "p50_ms", "p99_ms")}
+                                  for k, v in stats.items()}
+                out["hop"] = _route_hop(h, p, servers["A"].host, servers["A"].port, lines, rng)
+                out["hop"]["p50_minus_replica_p50_ms"] = {
+                    k: stats["router"]["p50_ms"] - stats[k]["p50_ms"] for k in servers}
+                out["failover"] = _route_failover(router, h, p, lines, rng, s1, s2, restart_b)
+                out["rollback"] = _route_ramp(h, p, lines, rng, s1, s2, fire=True,
+                                              journal=tmp)
+                out["promote"] = _route_ramp(h, p, lines, rng, s1, s2, fire=False,
+                                             journal=tmp)
+                final = router.stats()
+            out["namespace"] = _route_namespace(torch, ops, kv.namespace(*layout["v2"]),
+                                                servers["A"].host, servers["A"].port,
+                                                engines_a, lines, cols, w1, w2)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in _launches(ops).items() if v}
+        finally:
+            for s in servers.values():
+                s.stop()
+    engine_launches = {f"{r}_{m}": sum(e.stats()["bucket_hits"].values())
+                       for r, engs in (("A", engines_a), ("B", engines_b))
+                       for m, e in engs.items()}
+    if set(launches) != {"lr_logits"} or launches["lr_logits"] != sum(engine_launches.values()):
+        raise AssertionError(f"route: the path launched {launches}; the engines' buckets "
+                             f"{engine_launches}")
+    quota = final["per_model"]["v2"]["quota"]
+    if quota["shed"] < 1 or final["per_model"]["v2"]["shed"] != quota["shed"]:
+        raise AssertionError(f"route: the v2 quota shed nothing: {final['per_model']['v2']}")
+    out.update({"launches": launches, "engine_lr_logits_launches": engine_launches,
+                "retries": final["retries"], "shed": final["shed"],
+                "tenant_shed": quota["shed"], "errors": final["errors"],
+                "ejections": sum(r["ejections"] for r in final["replicas"]),
+                "reinstates": sum(r["reinstates"] for r in final["replicas"]),
+                "router_requests": final["requests"], "per_model": final["per_model"],
+                **rss, "phase_s": time.perf_counter() - t_phase,
+                "reduced": {"traffic": "a few thousand requests from 8 clients (a smoke test, "
+                                       "not a load test); the weights are random, from the seed",
+                            "replicas": "two in-process replicas on one card"}})
+    del engines_a, engines_b
+    torch.cuda.empty_cache()
+    emit("route", **out)
+    return out
+
+
 # model family -> (gen-data flags, sync / eval flags, the saved params'
 # shape, sync's iterations and test interval)
 CLI_FAMILIES = {
@@ -2887,6 +3383,90 @@ def _cli_serve(tmp: str, *, checkpoints: bool = False) -> dict:
     return out
 
 
+def _cli_route(tmp: str) -> dict:
+    """gen-data -> sync (v1) and a sync from another initial seed (v2) ->
+    two ``launch serve --model-id v1 --extra-model v2=<v2 model>``
+    subprocesses on the card -> ``launch route --replicas v1=A+B,v2=A+B``
+    -> ``launch rollout ... --unwatched``: it exits 0 with ``promote`` the
+    journal's last event, then replies through the router equal σ(X·w_v2)
+    (the plain forward on the card) to SERVE_SCORE_TOL, and every process
+    exits 143 on SIGTERM."""
+    import numpy as np  # noqa: PLC0415
+
+    import torch  # noqa: PLC0415
+
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.serve import ScoringEngine, score_lines_over_tcp  # noqa: PLC0415
+    from distlr_tpu_torch.train.export import load_weights  # noqa: PLC0415
+
+    d = os.path.join(tmp, "route")
+    _launch("gen-data", "--data-dir", d, "--num-samples", "2000", "--num-parts", "1",
+            "--num-feature-dim", "123")
+    models = {}
+    for m, init_seed in (("v1", "10"), ("v2", "11")):
+        _launch("sync", "--data-dir", d, "--num-feature-dim", "123", "--num-iteration", "5",
+                "--test-interval", "0", "--learning-rate", "0.5", "--l2-c", "0",
+                "--random-seed", init_seed)
+        models[m] = os.path.join(tmp, f"route_{m}.txt")
+        shutil.copy(os.path.join(d, "models", "part-001"), models[m])
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = []
+
+    def start(*argv, ready):
+        proc = subprocess.Popen([sys.executable, "-m", "distlr_tpu_torch.launch", *argv],
+                                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        procs.append(proc)
+        line = proc.stdout.readline()
+        if not line.startswith(ready):
+            err = proc.stderr.read()[-2000:] if proc.poll() is not None else ""
+            raise AssertionError(f"launch {argv[0]} printed {line!r} first\n{err}")
+        return line.split()[1]
+
+    try:
+        pool = "+".join(start("serve", "--num-feature-dim", "123", "--model-file",
+                              models["v1"], "--model-id", "v1", "--extra-model",
+                              f"v2={models['v2']}", "--port", "0", ready="SERVING ")
+                        for _ in range(2))
+        router = start("route", "--replicas", f"v1={pool},v2={pool}", ready="ROUTING ")
+        journal = os.path.join(tmp, "route_journal")
+        ro = subprocess.run([sys.executable, "-m", "distlr_tpu_torch.launch", "rollout",
+                             "--router", router, "--tenant", "v1", "--candidate", "v2",
+                             "--stages", "0.5:0.2,1.0:0.2", "--unwatched", "--journal-dir",
+                             journal], cwd=ROOT, env=env, capture_output=True, text=True,
+                            timeout=300)
+        with open(os.path.join(d, "test", "part-001")) as f:
+            lines = [ln.strip() for ln in f if ln.strip()][:16]
+        host, port = router.rsplit(":", 1)
+        replies = score_lines_over_tcp(host, int(port), lines)
+        for proc in procs:
+            proc.send_signal(signal.SIGTERM)
+        rcs = [proc.wait(timeout=60) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(os.path.join(journal, "rollout", "ramp-0000.jsonl")) as f:
+        events = [json.loads(ln)["event"] for ln in f]
+    eng = ScoringEngine(Config(num_feature_dim=123, device="cpu"))
+    (X,) = eng.encode_lines(lines)
+    got = np.asarray([float(r.split()[1]) for r in replies])
+    err = {}
+    for m in ("v1", "v2"):
+        w = torch.from_numpy(load_weights(models[m], shape=(123,))).cuda()
+        z = ops.lr_logits_reference(w, torch.from_numpy(X).cuda())
+        err[m] = float(np.abs(got - torch.sigmoid(z).cpu().numpy()).max())
+    if (ro.returncode != 0 or events[-1] != "promote" or err["v2"] > SERVE_SCORE_TOL
+            or err["v1"] <= SERVE_SCORE_TOL or rcs != [143, 143, 143]):
+        raise AssertionError(f"launch rollout exited {ro.returncode} ({ro.stderr[-1500:]}), "
+                             f"journal {events}, replies vs σ(X·w) {err}, exits {rcs}")
+    return {"rollout_returncode": ro.returncode, "rollout_line": ro.stdout.strip()[-300:],
+            "journal_events": events, "replies": len(replies), "replies_vs_plain": err,
+            "sigterm_returncodes": rcs}
+
+
 def _read(path: str) -> bytes:
     with open(path, "rb") as f:
         return f.read()
@@ -2956,17 +3536,19 @@ def phase_cli() -> None:
     """gen-data -> sync -> eval through ``python -m distlr_tpu_torch.launch``
     for every model family, int8_dot sync with checkpoints then --resume,
     gen-data -> ps -> eval, gen-data -> sync -> serve (of a text model and
-    of a checkpoint directory), sync and eval with --feature-shards, and
-    sync as a one-rank NCCL group, the chains side by side."""
+    of a checkpoint directory), sync and eval with --feature-shards, sync
+    as a one-rank NCCL group, and gen-data -> sync x2 -> serve x2 -> route
+    -> rollout, the chains side by side."""
     with tempfile.TemporaryDirectory(prefix="distlr-smoke-cli-") as tmp:
-        with ThreadPoolExecutor(len(CLI_FAMILIES) + 6) as pool:
+        with ThreadPoolExecutor(len(CLI_FAMILIES) + 7) as pool:
             futures = {f: pool.submit(_cli_family, tmp, f) for f in CLI_FAMILIES}
             chains = {"int8_dot_resume": pool.submit(_cli_int8_dot_resume, tmp),
                       "ps": pool.submit(_cli_ps, tmp),
                       "serve": pool.submit(_cli_serve, tmp),
                       "serve_checkpoint_dir": pool.submit(_cli_serve, tmp, checkpoints=True),
                       "feature_shards": pool.submit(_cli_feature_shards, tmp),
-                      "one_nccl_rank": pool.submit(_cli_one_nccl_rank, tmp)}
+                      "one_nccl_rank": pool.submit(_cli_one_nccl_rank, tmp),
+                      "route": pool.submit(_cli_route, tmp)}
             results = {f: fut.result() for f, fut in futures.items()}
             chains = {k: fut.result() for k, fut in chains.items()}
     emit("cli", **results.pop("binary_lr"), families=results, **chains)
@@ -3419,6 +4001,8 @@ def main(argv=None) -> int:
         phase_ps_keyed(torch, args.seed, env["nvidia_smi"])
         phase = "serve_hot"
         phase_serve_hot(torch, args.seed, env["nvidia_smi"])
+        phase = "route"
+        route = phase_route(torch, args.seed, env["nvidia_smi"])
         phase = "roofline_experiments"
         launches = phase_roofline_experiments(torch, env["nvidia_smi"])
         # each dense kernel's launches on the main path that runs it, and
@@ -3437,7 +4021,8 @@ def main(argv=None) -> int:
             timing[name].setdefault("at_ps_shapes", {})[f"B{rows}"] = t
         # the scoring tier's run, and its live-PS reload's apart
         for path_name, counts in (("serve", serve["launches"]),
-                                  ("serve_live_ps", serve["live_ps"]["launches"])):
+                                  ("serve_live_ps", serve["live_ps"]["launches"]),
+                                  ("route", route["launches"])):
             for name, n in counts.items():
                 by_path.setdefault(name, {})[path_name] = n
         for shape, t in serve["kernels_at_serve_shapes"].items():

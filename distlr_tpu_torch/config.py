@@ -7,7 +7,8 @@ that the ported parameter-server worker loop reads
 (``num_servers``, ``ps_compute_backend``, ``ps_pipeline``,
 ``ps_timeout_ms``; sync BSP and async Hogwild for every family)
 and the scoring tier reads (the ``serve_*`` fields of ``launch serve``,
-hot-row reload among them),
+hot-row reload and named engines among them, and the ``route_*`` fields
+of ``launch route``),
 with the same names, defaults and validations, and the
 same resolution of the reference-quirk gates Q1, Q2, Q4 and Q5 from
 ``compat_mode``.  Options whose code is not ported yet raise
@@ -169,8 +170,9 @@ class Config:
     # seconds drops its device weight table (a host copy stays) and
     # reloads it on the next request.  0 = never evict.
     serve_engine_idle_evict_s: float = 0.0
-    # Model id the engine answers as; only "default" (one unnamed engine)
-    # is ported (several engines: ROADMAP A.17).
+    # Model id this serving process's primary engine answers as: the tenant
+    # identity MODEL/@-addressed traffic selects.  "default" = one unnamed
+    # engine (unaddressed traffic).
     serve_model_id: str = "default"
     # Hot-row keyed reload (live-PS serving only): capacity of the
     # request-fed HotSetTracker.  0 = off (every reload pulls the full
@@ -192,6 +194,30 @@ class Config:
     feedback_capacity: int = 100_000
     feedback_drift_block: int = 512
     feedback_drift_threshold: float = 0.25
+    # Per-tenant token-bucket admission quotas of `launch route`:
+    # "model=rate[:burst],..." (requests/s; burst defaults to 2*rate).  A
+    # tenant over budget gets an explicit "ERR SHED tenant" reply, apart
+    # from the capacity sheds.  None = no quotas.
+    route_quota: str | None = None
+
+    # ---- serving router (launch route / distlr_tpu_torch.serve.router) ----
+    # Port 0 = OS-assigned ephemeral (announced as "ROUTING host:port").
+    route_port: int = 0
+    route_host: str = "127.0.0.1"
+    # Admission control: in-flight request budget a replica; a request that
+    # finds no replica with a free slot is shed with "ERR SHED".
+    route_max_inflight: int = 64
+    # Passive failure detection: consecutive transport failures before a
+    # replica is ejected from rotation.
+    route_eject_after: int = 3
+    # Active health probes of in-rotation replicas with no recent traffic.
+    route_health_interval_s: float = 1.0
+    # Reinstatement probes of ejected replicas: exponential backoff from
+    # base to max.
+    route_probe_backoff_s: float = 0.5
+    route_probe_backoff_max_s: float = 30.0
+    # Per-exchange socket timeout toward replicas (connect + reply read).
+    route_backend_timeout_s: float = 30.0
 
     # ---- port only ----
     device: str = "cuda"              # "cuda", "cuda:N" or "cpu"
@@ -321,12 +347,32 @@ class Config:
         if self.serve_hot_full_every < 0:
             raise ValueError("serve_hot_full_every must be >= 0 (0 = coverage-driven "
                              f"only), got {self.serve_hot_full_every}")
-        if self.serve_model_id != "default":
-            raise _not_ported(f"serve_model_id={self.serve_model_id!r} (named and several "
-                              "engines)", "A.17")
+        if not self.serve_model_id or any(c in self.serve_model_id for c in " \t@=,+"):
+            raise ValueError("serve_model_id must be non-empty without any of "
+                             f"' @=,+', got {self.serve_model_id!r}")
         for name, (default, item) in _UNPORTED_SERVE_OPTIONS.items():
             if getattr(self, name) != default:
                 raise _not_ported(f"the serving option {name}={getattr(self, name)!r}", item)
+        self._check_route()
+
+    def _check_route(self) -> None:
+        if not 0 <= self.route_port < 1 << 16:
+            raise ValueError(f"route_port must be in [0, 65536), got {self.route_port}")
+        if self.route_max_inflight <= 0:
+            raise ValueError(
+                f"route_max_inflight must be positive, got {self.route_max_inflight}")
+        if self.route_eject_after < 1:
+            raise ValueError(f"route_eject_after must be >= 1, got {self.route_eject_after}")
+        if self.route_health_interval_s <= 0:
+            raise ValueError("route_health_interval_s must be positive, "
+                             f"got {self.route_health_interval_s}")
+        if (self.route_probe_backoff_s <= 0
+                or self.route_probe_backoff_max_s < self.route_probe_backoff_s):
+            raise ValueError("need 0 < route_probe_backoff_s <= route_probe_backoff_max_s, "
+                             f"got {self.route_probe_backoff_s}/{self.route_probe_backoff_max_s}")
+        if self.route_backend_timeout_s <= 0:
+            raise ValueError("route_backend_timeout_s must be positive, "
+                             f"got {self.route_backend_timeout_s}")
 
     def replace(self, **kw: Any) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -1,5 +1,5 @@
 """Command-line entry point of the port: ``gen-data``, ``sync``, ``eval``,
-``ps`` and ``serve``.
+``ps``, ``serve``, ``route`` and ``rollout``.
 
 Counterpart of ``distlr_tpu/launch.py`` for the options the port carries,
 with the same flag names, plus ``--device`` (default ``cuda``; the CPU
@@ -61,7 +61,23 @@ server group; it prints ``SERVING host:port`` when it listens and exits
 
 ``--model-file`` also takes a checkpoint directory (its latest step).
 ``--hot-rows N`` (with ``--ps-hosts``) refreshes only the requests' hot
-rows between full refreshes.
+rows between full refreshes.  One server hosts several model versions
+with ``--model-id`` and ``--extra-model id=<model file>`` (or ``id=@ps``:
+a live reloader over that id's namespace of the ``--ps-hosts`` group,
+laid out by ``--ps-namespaces``)::
+
+    python -m distlr_tpu_torch.launch serve --num-feature-dim 123 \\
+        --model-file M1 --model-id v1 --extra-model v2=M2 --port 0
+
+``route`` load-balances the serving protocol over replicas (a model
+registry ``v1=h:p+h:p,v2=h:p``, health checks, admission control, per
+tenant quotas) and prints ``ROUTING host:port``; ``rollout`` ramps a
+tenant's traffic onto a candidate through the router's ``SPLIT`` lines
+and promotes it (exit 0), or rolls back when an alert fires (exit 3)::
+
+    python -m distlr_tpu_torch.launch route --replicas v1=A+B,v2=A+B --quota v2=50
+    python -m distlr_tpu_torch.launch rollout --router R --tenant v1 --candidate v2 \\
+        --stages 0.5:10,1.0:10 --unwatched --journal-dir J
 """
 
 from __future__ import annotations
@@ -129,10 +145,6 @@ _UNPORTED_SERVE_FLAGS = (
     ("--feedback-capacity", "feedback_capacity", int, "A.11"),
     ("--drift-block", "drift_block", int, "A.11"),
     ("--drift-threshold", "drift_threshold", float, "A.11"),
-    ("--model-id", "model_id", str, "A.17"),
-    ("--extra-model", "extra_models", str, "A.17"),
-    ("--ps-namespaces", "ps_namespaces", str, "A.17"),
-    ("--ps-namespace", "ps_namespace", str, "A.17"),
 )
 
 
@@ -432,6 +444,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
         "serve_hot_rows": args.hot_rows,
         "serve_hot_min_coverage": args.hot_min_coverage,
         "serve_hot_full_every": args.hot_full_every,
+        "serve_model_id": args.model_id,
     }
     cfg = _config_from_args(args).replace(
         **{k: v for k, v in serve_over.items() if v is not None})
@@ -439,15 +452,36 @@ def cmd_serve(args: argparse.Namespace) -> int:
         print("error: --hot-rows applies to live-PS reload only (--ps-hosts); "
               "checkpoint/model-file sources always load the full table", file=sys.stderr)
         return 2
+    # which slice of a shared PS group's key space each model id owns (the
+    # order of the group's namespaces spec)
+    ns_layout = None
+    if args.ps_namespaces:
+        if not args.ps_hosts:
+            print("error: --ps-namespaces applies to live-PS reload only (--ps-hosts)",
+                  file=sys.stderr)
+            return 2
+        from distlr_tpu_torch.ps import namespace_layout  # noqa: PLC0415
+
+        ns_layout = namespace_layout(args.ps_namespaces, ps_param_dim(cfg))
+
+    def _ns(model_id: str) -> tuple[int, int | None]:
+        if ns_layout is None:
+            return 0, None
+        if model_id not in ns_layout:
+            raise SystemExit(f"error: model {model_id!r} not in --ps-namespaces "
+                             f"{sorted(ns_layout)}")
+        return ns_layout[model_id][0], ps_param_dim(cfg) * len(ns_layout)
 
     hot_tracker = None
     if args.ps_hosts:
         if cfg.serve_hot_rows:
             hot_tracker = HotSetTracker(cfg.serve_hot_rows)
+        base, total = _ns(args.ps_namespace or cfg.serve_model_id)
         source = LivePSWatcher(args.ps_hosts, ps_param_dim(cfg),
                                vals_per_key=_serve_row_width(cfg), hot_tracker=hot_tracker,
                                min_coverage=cfg.serve_hot_min_coverage,
-                               full_refresh_every=cfg.serve_hot_full_every)
+                               full_refresh_every=cfg.serve_hot_full_every,
+                               ns_base=base, ns_total_dim=total)
     elif cfg.checkpoint_dir:
         source = CheckpointWatcher(cfg.checkpoint_dir)
     else:
@@ -462,14 +496,143 @@ def cmd_serve(args: argparse.Namespace) -> int:
         if not engine.has_weights:
             reloader.wait_for_weights()
 
+    # more hosted versions: "id=<weights>" loads a static engine from a model
+    # file; "id=@ps" reloads that id's namespace of the same group live
+    engines = {cfg.serve_model_id: engine}
+    extra_reloaders = []
+    for spec in args.extra_models or []:
+        mid, eq, src = spec.partition("=")
+        mid, src = mid.strip(), src.strip()
+        if not eq or not mid or not src:
+            print(f"error: bad --extra-model {spec!r} (want id=weights or id=@ps)",
+                  file=sys.stderr)
+            return 2
+        if mid in engines:
+            print(f"error: duplicate model id {mid!r}", file=sys.stderr)
+            return 2
+        eng = ScoringEngine(cfg, max_batch_size=cfg.serve_max_batch_size,
+                            idle_evict_s=cfg.serve_engine_idle_evict_s)
+        if src == "@ps":
+            if not args.ps_hosts:
+                print("error: --extra-model id=@ps needs --ps-hosts", file=sys.stderr)
+                return 2
+            base, total = _ns(mid)
+            # a pull client of its own for each namespace watcher
+            extra_src = LivePSWatcher(args.ps_hosts, ps_param_dim(cfg),
+                                      vals_per_key=_serve_row_width(cfg),
+                                      client_id=LivePSWatcher.SERVE_CLIENT_ID - len(engines),
+                                      ns_base=base, ns_total_dim=total)
+            rl = HotReloader(eng, extra_src, interval_s=cfg.serve_reload_interval_s).start()
+            rl.wait_for_weights()
+            extra_reloaders.append(rl)
+        else:
+            eng.set_weights(load_weights(src, shape=eng.model.param_shape))
+        engines[mid] = eng
+
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
-    server = ScoringServer(engine, host=cfg.serve_host, port=cfg.serve_port,
+    # one unnamed engine is the single-model server; --model-id or extra
+    # models turn model identity on
+    multi = bool(args.extra_models) or args.model_id is not None
+    server = ScoringServer(None if multi else engine, engines=engines if multi else None,
+                           host=cfg.serve_host, port=cfg.serve_port,
                            max_wait_ms=cfg.serve_max_wait_ms, reloader=reloader,
-                           hot_tracker=hot_tracker)
+                           extra_reloaders=extra_reloaders, hot_tracker=hot_tracker)
     # the scriptable readiness line
     print(f"SERVING {server.host}:{server.port}", flush=True)
     server.serve_forever()
     return 0
+
+
+def cmd_route(args: argparse.Namespace) -> int:
+    """The serving tier's routing front-end (:mod:`distlr_tpu_torch.serve.
+    router`): the serve protocol load-balanced over replicas, with health
+    checks, ejection and reinstatement, an in-flight budget a replica
+    (explicit ``ERR SHED``) and retry-once failover.  It needs no card."""
+    import signal  # noqa: PLC0415
+
+    from distlr_tpu_torch.serve.router import ScoringRouter  # noqa: PLC0415
+
+    route_over = {
+        "route_port": args.port, "route_host": args.bind,
+        "route_max_inflight": args.max_inflight,
+        "route_eject_after": args.eject_after,
+        "route_health_interval_s": args.health_interval,
+        "route_probe_backoff_s": args.probe_backoff,
+        "route_probe_backoff_max_s": args.probe_backoff_max,
+        "route_backend_timeout_s": args.backend_timeout,
+        "route_quota": args.quota,
+    }
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    try:
+        cfg = _config_from_args(args).replace(
+            **{k: v for k, v in route_over.items() if v is not None})
+        router = ScoringRouter(
+            args.replicas, host=cfg.route_host, port=cfg.route_port,
+            max_inflight=cfg.route_max_inflight, eject_after=cfg.route_eject_after,
+            health_interval_s=cfg.route_health_interval_s,
+            probe_backoff_s=cfg.route_probe_backoff_s,
+            probe_backoff_max_s=cfg.route_probe_backoff_max_s,
+            backend_timeout_s=cfg.route_backend_timeout_s, quotas=cfg.route_quota)
+    except ValueError as e:
+        # config and replica-list errors: the argparse-style exit, no traceback
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    # the scriptable readiness line
+    print(f"ROUTING {router.host}:{router.port}", flush=True)
+    router.serve_forever()
+    return 0
+
+
+def cmd_rollout(args: argparse.Namespace) -> int:
+    """A canary ramp with automatic rollback (:mod:`distlr_tpu_torch.serve.
+    rollout`) against a running router.  Exit codes: 0 promoted, 3 rolled
+    back, 4 aborted (alerts before the ramp, registry problems)."""
+    import json  # noqa: PLC0415
+
+    from distlr_tpu_torch.serve.rollout import (  # noqa: PLC0415
+        RolloutController,
+        RouterAdmin,
+        fleet_alert_poller,
+        parse_stages,
+    )
+
+    _config_from_args(args)  # the config flags validate as in every command
+    host, _, port = args.router.rpartition(":")
+    if not host or not port.isdigit():
+        print(f"error: --router must be host:port, got {args.router!r}", file=sys.stderr)
+        return 2
+    try:
+        stages = parse_stages(args.stages)
+    except ValueError as e:
+        print(f"error: bad --stages: {e}", file=sys.stderr)
+        return 2
+    poller = None
+    if args.fleet:
+        names = ([n.strip() for n in args.alerts.split(",") if n.strip()]
+                 if args.alerts else None)
+        # by default only alerts attributable to the candidate break the
+        # ramp; --gate-all-alerts gates on every bound alert, --slo narrows
+        # to one objective's burn-rate alerts
+        poller = fleet_alert_poller(
+            args.fleet, names=names,
+            scope_model=None if args.gate_all_alerts else args.candidate, scope_slo=args.slo)
+    elif not args.unwatched:
+        print("error: no alert source — pass --fleet http://host:port, an "
+              "--obs-run-dir with a running obs-agg, or --unwatched to "
+              "ramp on the timer alone (rollback becomes manual)", file=sys.stderr)
+        return 2
+    ctrl = RolloutController(RouterAdmin(host, int(port)), args.tenant, args.candidate, stages,
+                             alert_poll=poller, poll_interval_s=args.poll_interval,
+                             shadow_fraction=args.shadow, settle_s=args.settle,
+                             journal_dir=args.journal_dir)
+    try:
+        outcome = ctrl.run()
+    except (OSError, RuntimeError) as e:
+        print(f"error: ramp failed against the router: {e}", file=sys.stderr)
+        return 1
+    # the scriptable outcome line
+    print(f"ROLLOUT {json.dumps(outcome)}", flush=True)
+    return {"promoted": 0, "rolled_back": 3}.get(outcome["outcome"], 4)
 
 
 def main(argv=None) -> int:
@@ -582,9 +745,90 @@ def main(argv=None) -> int:
     r.add_argument("--hot-full-every", dest="hot_full_every", type=int,
                    help="also a full refresh every N polls, bounding cold rows' staleness "
                    "(default 10; 0 = coverage-driven only)")
+    r.add_argument("--model-id", dest="model_id",
+                   help="model id the primary engine answers as (MODEL/@-addressing); "
+                   "default 'default' = unaddressed single-model behavior")
+    r.add_argument("--extra-model", dest="extra_models", action="append",
+                   metavar="ID=WEIGHTS|ID=@ps",
+                   help="host another model version (repeatable): id=path loads a static "
+                   "engine from a model file or checkpoint dir; id=@ps reloads that id's "
+                   "namespace of the --ps-hosts group live (needs --ps-namespaces)")
+    r.add_argument("--ps-namespaces", dest="ps_namespaces",
+                   help="comma-separated model ids the PS group hosts as key-space "
+                   "namespaces, in the group's order (the order defines the slices)")
+    r.add_argument("--ps-namespace", dest="ps_namespace",
+                   help="which namespace the primary engine serves (default: --model-id)")
     for flag, dest, typ, item in _UNPORTED_SERVE_FLAGS:
         r.add_argument(flag, dest=dest, type=typ, help=f"not ported yet (ROADMAP {item})")
     r.set_defaults(fn=cmd_serve)
+
+    rt = sub.add_parser("route", help="serving-tier front-end: load-balance the serve "
+                        "protocol over replicas with health checks, admission control "
+                        "(explicit load shed) and retry-once failover")
+    _add_config_flags(rt)
+    rt.add_argument("--replicas", required=True,
+                    help="host:port of running `launch serve` replicas, comma-separated, "
+                    "or a model registry v1=h:p+h:p,v2=h:p")
+    rt.add_argument("--port", type=int, help="listen port (default: ephemeral, announced "
+                    "as 'ROUTING host:port')")
+    rt.add_argument("--bind", help="listen address (default 127.0.0.1)")
+    rt.add_argument("--max-inflight", dest="max_inflight", type=int,
+                    help="in-flight request budget a replica; past it requests shed with "
+                    "'ERR SHED' (default 64)")
+    rt.add_argument("--eject-after", dest="eject_after", type=int,
+                    help="consecutive transport failures before a replica is ejected "
+                    "(default 3)")
+    rt.add_argument("--health-interval", dest="health_interval", type=float,
+                    help="STATS probe period of idle in-rotation replicas, seconds "
+                    "(default 1)")
+    rt.add_argument("--probe-backoff", dest="probe_backoff", type=float,
+                    help="base of the reinstatement probes' exponential backoff, seconds "
+                    "(default 0.5)")
+    rt.add_argument("--probe-backoff-max", dest="probe_backoff_max", type=float,
+                    help="cap of the reinstatement probes' backoff, seconds (default 30)")
+    rt.add_argument("--backend-timeout", dest="backend_timeout", type=float,
+                    help="socket timeout of each exchange with a replica, seconds "
+                    "(default 30)")
+    rt.add_argument("--quota", dest="quota", metavar="MODEL=RATE[:BURST],..",
+                    help="per-tenant token-bucket quotas (requests/s; burst defaults to "
+                    "2*rate): a tenant over budget gets 'ERR SHED tenant'")
+    rt.set_defaults(fn=cmd_route)
+
+    ro = sub.add_parser("rollout", help="canary ramp with automatic rollback: stage a "
+                        "tenant's traffic onto a candidate version through the router's "
+                        "SPLIT line, roll back when a bound alert fires, PROMOTE at the end")
+    _add_config_flags(ro)
+    ro.add_argument("--router", required=True,
+                    help="the router's host:port (what `launch route` printed as ROUTING)")
+    ro.add_argument("--tenant", required=True, help="model id whose traffic is ramped")
+    ro.add_argument("--candidate", required=True,
+                    help="model id that takes the ramped traffic (registered in the router)")
+    ro.add_argument("--stages", default="0.05:10,0.25:10,0.5:10,1.0:10",
+                    help="comma-separated weight:hold_s stages, ascending to 1.0 "
+                    "(default '0.05:10,0.25:10,0.5:10,1.0:10')")
+    ro.add_argument("--shadow", type=float, default=0.0,
+                    help="also mirror this fraction of the tenant's traffic to the "
+                    "candidate during the ramp (default 0)")
+    ro.add_argument("--settle", type=float, default=0.0,
+                    help="with --shadow: watch the shadow this many seconds before the "
+                    "first stage (default 0)")
+    ro.add_argument("--fleet", help="aggregator URL (http://host:port) whose /fleet.json "
+                    "alerts gate the ramp")
+    ro.add_argument("--alerts", help="comma-separated alert names to bind (default: every "
+                    "distlr_alert_*)")
+    ro.add_argument("--gate-all-alerts", dest="gate_all_alerts", action="store_true",
+                    help="roll back on any bound firing alert; default: only alerts "
+                    "attributable to the candidate (an unreachable aggregator always gates)")
+    ro.add_argument("--slo", help="gate on one SLO's burn-rate alerts only "
+                    "(distlr_alert_slo_burn{slo=NAME})")
+    ro.add_argument("--unwatched", action="store_true",
+                    help="ramp on the stage timers alone, with no alert gate (rollback "
+                    "becomes manual)")
+    ro.add_argument("--poll-interval", dest="poll_interval", type=float, default=0.5,
+                    help="alert poll period during holds, seconds (default 0.5)")
+    ro.add_argument("--journal-dir", dest="journal_dir",
+                    help="journal the transitions under DIR/rollout/")
+    ro.set_defaults(fn=cmd_rollout)
 
     args = parser.parse_args(argv)
     return args.fn(args)

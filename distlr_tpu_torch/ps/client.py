@@ -12,9 +12,14 @@ server's deferred reply) does not hold up the other worker threads.
 Keyed ops take ``vals_per_key=R`` rows: one u64 row id on the wire per R
 values (ps-lite's uniform ``lens``), the keyed PS families' encoding.
 
+Namespaces (:func:`namespace_layout`, :class:`KVNamespace`,
+:meth:`KVWorker.namespace`) fold several equal-width model versions into
+one group's key space, offset on the client side: the wire carries plain
+keyed ops, so the server needs no change.
+
 Not ported yet: the retry policy, membership epochs and re-routing, wire
-codecs (ROADMAP A.16), namespaces (A.17) and the trace spans and registry
-counters (A.12).
+codecs and per-namespace optimizers other than ``sgd`` (ROADMAP A.16),
+and the trace spans and registry counters (A.12).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import threading
 
 import numpy as np
 
+from distlr_tpu_torch.config import _not_ported
 from distlr_tpu_torch.ps import wire
 from distlr_tpu_torch.ps.build import client_lib
 
@@ -351,10 +357,211 @@ class KVWorker:
     def shutdown_servers(self) -> None:
         self._lib.kv_shutdown_servers(self._h)
 
+    def namespace(self, base: int, dim: int) -> "KVNamespace":
+        """A view of this worker whose ops address only the flat-slot
+        slice ``[base, base + dim)`` (see :class:`KVNamespace`)."""
+        return KVNamespace(self, base, dim)
+
     def close(self) -> None:
         if self._h:
             self._lib.kv_close(self._h)
             self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def parse_namespace_optimizers(spec) -> dict[str, str]:
+    """Per-namespace server optimizers of an extended namespaces spec:
+    ``"v1:sgd,v2"`` -> ``{"v1": "sgd"}``; entries without a ``:opt``
+    suffix are omitted (they ride the group's optimizer), bare specs give
+    ``{}``.  JAX's legal values are ``sgd`` and ``ftrl``; ``ftrl`` needs
+    the server optimizers of ROADMAP A.16 and raises here."""
+    if not isinstance(spec, str):
+        return {}
+    opts: dict[str, str] = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part or ":" not in part:
+            continue
+        mid, _, opt = part.partition(":")
+        mid, opt = mid.strip(), opt.strip()
+        if opt not in ("sgd", "ftrl"):
+            raise ValueError(f"namespace optimizer must be sgd|ftrl, got {part!r}")
+        if opt != "sgd":
+            raise _not_ported(f"the namespace optimizer {part!r}", "A.16")
+        opts[mid] = opt
+    return opts
+
+
+def namespace_layout(models, per_model_dim: int) -> dict[str, tuple[int, int]]:
+    """Pack equal-width model namespaces into one flat key space:
+    ``{model_id: (base, per_model_dim)}`` in spec order, namespace ``i``
+    owning flat slots ``[i*D, (i+1)*D)``.  The group is spawned with the
+    total dim ``len(models) * per_model_dim``; a server count dividing the
+    model count (or one server) keeps every range boundary on a namespace
+    boundary.  A ``:opt`` suffix of an entry is stripped, so clients
+    repeat the server's spec verbatim; ``:ftrl`` raises, as in
+    :func:`parse_namespace_optimizers`.
+
+    Equal widths only: a spec asking for per-model dims (``"v1=8192,
+    v2=1024"`` or a ``{model: dim}`` mapping) with different widths is
+    refused, as in JAX; equal explicit dims spell the uniform case."""
+    explicit_dims: dict[str, int] = {}
+    if isinstance(models, dict):
+        explicit_dims = {str(m): int(d) for m, d in models.items()}
+        models = list(models)
+    elif isinstance(models, str):
+        parsed = []
+        for part in models.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            mid, eq, dim = part.partition("=")
+            mid, _, opt = mid.partition(":")
+            if opt.strip() == "ftrl":
+                raise _not_ported(f"the namespace optimizer {part!r}", "A.16")
+            mid = mid.strip()
+            parsed.append(mid)
+            if eq:
+                try:
+                    explicit_dims[mid] = int(dim)
+                except ValueError:
+                    raise ValueError(f"bad namespace dim in {part!r} "
+                                     "(want <model>=<int>)") from None
+        models = parsed
+    models = list(models)
+    if not models:
+        raise ValueError("namespace layout needs at least one model id")
+    if len(set(models)) != len(models):
+        raise ValueError(f"duplicate model ids in {models}")
+    if explicit_dims:
+        widths = sorted(set(explicit_dims.values()))
+        if len(widths) > 1 or (per_model_dim and widths != [int(per_model_dim)]):
+            raise ValueError(
+                "heterogeneous-dim namespaces are not supported by the "
+                f"equal-width layout (asked for {explicit_dims}, "
+                f"uniform width {per_model_dim}): per-model widths need "
+                "the packed namespace_layout follow-on (cumulative-sum "
+                "bases + per-namespace range alignment) tracked in "
+                "ROADMAP.md 'Carried minor debts' — until then give "
+                "every model the same dim")
+        per_model_dim = widths[0]
+    if per_model_dim <= 0:
+        raise ValueError(f"per_model_dim must be positive, got {per_model_dim}")
+    return {m: (i * per_model_dim, per_model_dim) for i, m in enumerate(models)}
+
+
+class KVNamespace:
+    """A model namespace inside one KV server group's key space.
+
+    Namespace ``i`` owns a contiguous flat-slot slice; this view offsets
+    every key by the namespace base on the client side, so the wire
+    carries plain ascending keyed ops.  The underlying :class:`KVWorker`
+    is connected with the group's total dim; the view presents the
+    namespace's ``dim`` through the worker's op surface (``vals_per_key``
+    rows, ``pull_chunked``, ``pull_rows_into``, ``push_pull``).
+
+    Seeding: the group's ``initialized`` flag is global (the first init
+    push wins), so a later namespace's plain ``push_init`` is a no-op; a
+    namespace seeding non-zero weights into an initialized group passes
+    ``force=True`` (a keyed force-init overwrites only its keys).
+    """
+
+    def __init__(self, kv: KVWorker, base: int, dim: int):
+        if dim <= 0:
+            raise ValueError(f"namespace dim must be positive, got {dim}")
+        if base < 0 or base + dim > kv.dim:
+            raise ValueError(f"namespace [{base}, {base + dim}) outside the group's "
+                             f"key space [0, {kv.dim})")
+        self.kv = kv
+        self.base = int(base)
+        self.dim = int(dim)
+
+    @property
+    def num_servers(self) -> int:
+        return self.kv.num_servers
+
+    def supports_vals_per_key(self, vpk: int) -> bool:
+        """Rows work inside the namespace when they work group-wide and
+        the slice is row-aligned (base and dim multiples of ``vpk``)."""
+        if vpk <= 1:
+            return True
+        return (self.base % vpk == 0 and self.dim % vpk == 0
+                and self.kv.supports_vals_per_key(vpk))
+
+    def _wire_keys(self, keys, vpk: int) -> np.ndarray:
+        """Namespace-local row keys -> group row keys; ``keys=None`` is the
+        namespace's whole row space as explicit keys."""
+        if self.base % vpk != 0 or self.dim % vpk != 0:
+            raise ValueError(f"vals_per_key={vpk} does not align with namespace "
+                             f"base={self.base}/dim={self.dim}")
+        rows = self.dim // vpk
+        shift = self.base // vpk
+        if keys is None:
+            return np.arange(shift, shift + rows, dtype=np.uint64)
+        keys = np.ascontiguousarray(keys, dtype=np.uint64)
+        if keys.size:
+            kmax = int(keys.max())
+            if kmax >= rows:
+                raise ValueError(f"key {kmax} outside namespace row space [0, {rows}) "
+                                 f"(vals_per_key={vpk})")
+        return keys + np.uint64(shift)
+
+    def pull(self, keys=None, *, vals_per_key: int = 1) -> np.ndarray:
+        vpk = int(vals_per_key)
+        return self.kv.pull(self._wire_keys(keys, vpk), vals_per_key=vpk)
+
+    def pull_chunked(self, keys=None, *, vals_per_key: int = 1,
+                     chunk_rows: int = 1 << 16) -> np.ndarray:
+        vpk = int(vals_per_key)
+        return self.kv.pull_chunked(self._wire_keys(keys, vpk), vals_per_key=vpk,
+                                    chunk_rows=chunk_rows)
+
+    def pull_rows_into(self, table: np.ndarray, keys: np.ndarray, *, vals_per_key: int = 1,
+                       chunk_rows: int = 1 << 16) -> int:
+        """Keyed hot-slice pull into a namespace-sized table."""
+        vpk = int(vals_per_key)
+        table = np.asarray(table)
+        if table.dtype != np.float32 or table.size != self.dim or not table.flags["C_CONTIGUOUS"]:
+            raise ValueError(f"table must be C-contiguous float32 with {self.dim} elements, "
+                             f"got {table.dtype} shape {table.shape}")
+        keys = np.ascontiguousarray(keys, dtype=np.uint64)
+        if keys.size == 0:
+            return 0
+        vals = self.pull_chunked(keys, vals_per_key=vpk, chunk_rows=chunk_rows)
+        table.reshape(self.dim // vpk, vpk)[keys.astype(np.int64)] = vals.reshape(-1, vpk)
+        return int(keys.size)
+
+    def push(self, vals: np.ndarray, keys=None, *, vals_per_key: int = 1) -> int:
+        vpk = int(vals_per_key)
+        return self.kv.push(vals, self._wire_keys(keys, vpk), vals_per_key=vpk)
+
+    def push_pull(self, vals: np.ndarray, keys=None, *, vals_per_key: int = 1) -> np.ndarray:
+        vpk = int(vals_per_key)
+        return self.kv.push_pull(vals, self._wire_keys(keys, vpk), vals_per_key=vpk)
+
+    def push_init(self, vals: np.ndarray, keys=None, *, force: bool = False) -> int:
+        """Seed this namespace's slice (see the class docstring)."""
+        return self.kv.push_init(vals, self._wire_keys(keys, 1), force=force)
+
+    def stats(self, server: int = 0) -> dict:
+        return self.kv.stats(server)
+
+    def global_pushes(self) -> float:
+        return self.kv.global_pushes()
+
+    def wait(self, ts: int) -> None:
+        self.kv.wait(ts)
+
+    def reconnect(self) -> None:
+        self.kv.reconnect()
+
+    def close(self) -> None:
+        self.kv.close()
 
     def __enter__(self):
         return self

@@ -19,7 +19,10 @@ publishes into ``engine.set_weights``.
   (:meth:`~distlr_tpu_torch.ps.KVWorker.pull_rows_into`) into a cached
   full table, and falls back to a full refresh when the tracker's
   coverage drops below ``min_coverage`` or every ``full_refresh_every``
-  polls.
+  polls.  ``ns_base`` / ``ns_total_dim`` scope it to one model's
+  namespace of a group that hosts several
+  (:func:`~distlr_tpu_torch.ps.namespace_layout`): every pull addresses
+  only ``[ns_base, ns_base + dim)`` of the group's key space.
 
 :class:`HotReloader` polls a source on a background thread with a
 jittered interval (replicas started together would otherwise pull the PS
@@ -27,8 +30,7 @@ in lockstep), keeps serving the last good weights through failed polls,
 and offers :meth:`HotReloader.wait_for_weights` as the start-up gate.
 
 Not ported: the retry policy and membership routing of the PS client
-(ROADMAP A.16), PS namespaces (A.17), and the trace spans and registry
-counters (A.12).
+(ROADMAP A.16), and the trace spans and registry counters (A.12).
 """
 
 from __future__ import annotations
@@ -95,16 +97,24 @@ class LivePSWatcher:
                  ns_base: int = 0, ns_total_dim: int | None = None, route=None):
         if retry is not None or route is not None:
             raise _not_ported("the PS client's retry policy and membership routing", "A.16")
-        if ns_base or ns_total_dim is not None:
-            raise _not_ported("PS namespaces (ns_base / ns_total_dim)", "A.17")
         from distlr_tpu_torch.ps import KVWorker  # noqa: PLC0415
 
         self.hosts = hosts
         self.dim = int(dim)
+        #: the slice [ns_base, ns_base + dim) of a group of ns_total_dim slots
+        #: that this engine serves; N versions' watchers share one group
+        #: without reading each other's rows
+        self.ns_base = int(ns_base)
+        self._wire_dim = int(ns_total_dim) if ns_total_dim else self.dim
+        if self.ns_base < 0 or self.ns_base + self.dim > self._wire_dim:
+            raise ValueError(f"namespace [{ns_base}, {ns_base + dim}) outside the "
+                             f"group's key space [0, {self._wire_dim})")
         # a pull-only client never votes in a BSP barrier
-        self.kv = KVWorker(hosts, self.dim,
-                           client_id=self.SERVE_CLIENT_ID if client_id is None else client_id,
-                           timeout_ms=timeout_ms, sync_group=True)
+        worker = KVWorker(hosts, self._wire_dim,
+                          client_id=self.SERVE_CLIENT_ID if client_id is None else client_id,
+                          timeout_ms=timeout_ms, sync_group=True)
+        self.kv = (worker if self._wire_dim == self.dim and not self.ns_base
+                   else worker.namespace(self.ns_base, self.dim))
         self._needs_reconnect = False
         self._check_init = True
         #: the requested row width: the unit of the engine's row keys and of
@@ -206,7 +216,7 @@ class LivePSWatcher:
 
         try:
             # a fresh probe: this watcher's handle may be the broken thing
-            with KVWorker(self.hosts, self.dim, client_id=self.SERVE_CLIENT_ID,
+            with KVWorker(self.hosts, self._wire_dim, client_id=self.SERVE_CLIENT_ID,
                           timeout_ms=2000) as probe:
                 unseeded = [r for r in range(probe.num_servers)
                             if not probe.stats(r).get("initialized")]
@@ -222,6 +232,8 @@ class LivePSWatcher:
         rec = {"mode": "hot" if self.hot_tracker is not None else "full",
                "full_reloads": self.full_reloads, "hot_reloads": self.hot_reloads,
                "last_kind": self.last_kind, "last_rows": self.last_rows}
+        if self.ns_base or self._wire_dim != self.dim:
+            rec["namespace"] = [self.ns_base, self.dim, self._wire_dim]
         if self.hot_tracker is not None:
             rec["hot_set"] = self.hot_tracker.stats()
         return rec

@@ -11,17 +11,23 @@ protocol, one request per line and one reply line per request:
   travels as ONE microbatcher request.
 * **STATS**: one JSON line of request, latency, batcher, engine and
   reload counters, in the JAX server's schema.
+* **Model addressing**: one server can host several model versions, one
+  :class:`~distlr_tpu_torch.serve.engine.ScoringEngine` each.  ``MODEL
+  <id>`` scopes the connection to a hosted model (reply ``OK MODEL
+  <id>``); a per-request ``@<id> `` prefix addresses one line (JSON lines
+  too).  Unaddressed lines score on the default (first) engine.
 * Malformed input answers ``ERR <Type>: <reason>`` for that line; the
   connection stays up.
 
 Not ported, each answered with ``ERR`` naming its ROADMAP item: ``ID`` /
-``LABEL`` lines and the JSON ``"ids"`` list (the feedback loop, A.11),
-``MODEL <id>`` and ``@<id>`` addressing (several engines, A.17), and
+``LABEL`` lines and the JSON ``"ids"`` list (the feedback loop, A.11) and
 ``TRACE`` prefixes (distributed tracing, A.12).
 
-One thread per connection (``ThreadingTCPServer``); every connection
-funnels into one :class:`~distlr_tpu_torch.serve.batcher.MicroBatcher`,
-so requests coalesce exactly when traffic is concurrent.  ``p50_ms`` /
+One thread per connection (``ThreadingTCPServer``); every connection of a
+model funnels into that engine's
+:class:`~distlr_tpu_torch.serve.batcher.MicroBatcher`, so requests
+coalesce exactly when traffic is concurrent, and two versions' rows never
+share a padded batch.  ``p50_ms`` /
 ``p99_ms`` come from a fixed-bucket latency histogram with the bucket
 edges and the percentile estimate of ``distlr_tpu/obs/registry.py``, so
 the two packages' values mean the same thing.
@@ -97,13 +103,18 @@ class _Handler(socketserver.StreamRequestHandler):
     def handle(self):
         srv: ScoringServer = self.server.scoring_server  # type: ignore[attr-defined]
         srv._track(self.connection)
+        scope: str | None = None  # MODEL <id> connection scoping
         try:
             for raw in self.rfile:
                 line = raw.decode("utf-8", errors="replace").strip()
                 if not line:
                     continue
+                if line == "MODEL" or line.startswith("MODEL "):
+                    reply, scope = srv.handle_model_line(line, scope)
+                else:
+                    reply = srv.handle_line(line, model=scope)
                 try:
-                    self.wfile.write((srv.handle_line(line) + "\n").encode())
+                    self.wfile.write((reply + "\n").encode())
                     self.wfile.flush()
                 except (BrokenPipeError, ConnectionResetError):
                     return
@@ -119,31 +130,48 @@ class _TCPServer(socketserver.ThreadingTCPServer):
 
 
 class ScoringServer:
-    """One engine and its microbatcher behind a line-protocol TCP listener.
+    """Engines and their microbatchers behind a line-protocol TCP listener.
 
-    ``hot_tracker`` (a :class:`~distlr_tpu_torch.serve.hotset.HotSetTracker`)
-    observes the row keys of every request (``engine.row_keys``), the
-    working set a hot-row live-PS reload refreshes.  ``engines``,
-    ``extra_reloaders`` and ``feedback`` stand in the signature as in the
-    JAX server; given, they raise naming their ROADMAP items (A.17, A.11).
+    One model: pass ``engine``.  Several: pass ``engines``, an ordered
+    ``{model_id: ScoringEngine}`` mapping whose first entry is the default
+    engine unaddressed lines score on; each engine gets its own
+    microbatcher.  ``extra_reloaders`` are per-engine reloaders the server
+    owns for their lifecycle only (stopped with it).  ``hot_tracker`` (a
+    :class:`~distlr_tpu_torch.serve.hotset.HotSetTracker`) observes the row
+    keys of the default engine's requests (``engine.row_keys``), the working
+    set a hot-row live-PS reload refreshes: each version has its own
+    namespace, and mixing their keys would poison the set.  ``feedback``
+    stands in the signature as in the JAX server; given, it raises naming
+    ROADMAP A.11.
     """
 
     def __init__(self, engine=None, *, engines: dict | None = None, host: str = "127.0.0.1",
                  port: int = 0, max_wait_ms: float = 2.0, reloader=None, extra_reloaders=(),
                  metrics: MetricsLogger | None = None, hot_tracker=None, feedback=None):
-        if engines is not None or extra_reloaders:
-            raise _not_ported("a server hosting several engines", "A.17")
         if feedback is not None:
             raise _not_ported("the feedback sink", "A.11")
-        if engine is None:
-            raise ValueError("need an engine")
-        self.engine = engine
-        self.engines = {"default": engine}
+        if engines is None:
+            if engine is None:
+                raise ValueError("need an engine (or an engines mapping)")
+            engines = {"default": engine}
+        else:
+            if engine is not None:
+                raise ValueError("pass engine OR engines, not both")
+            if not engines:
+                raise ValueError("engines mapping must name >= 1 model")
+            engines = dict(engines)
+        self.engines = engines
+        self._default_id = next(iter(engines))
+        self.engine = engines[self._default_id]
         self.reloader = reloader
-        #: fed from request traffic; None = full-table refresh, no tracking
+        self._extra_reloaders = list(extra_reloaders)
+        #: fed from the default engine's traffic; None = full-table refresh
         self.hot_tracker = hot_tracker
-        self.batcher = MicroBatcher(engine.score, max_batch_size=engine.max_batch_size,
-                                    max_wait_ms=max_wait_ms)
+        self._batchers = {mid: MicroBatcher(eng.score, max_batch_size=eng.max_batch_size,
+                                            max_wait_ms=max_wait_ms)
+                          for mid, eng in engines.items()}
+        self.batcher = self._batchers[self._default_id]
+        self._model_requests = dict.fromkeys(engines, 0)
         self.metrics = metrics or MetricsLogger()
         self._latency = LatencyHistogram()
         self._count_lock = threading.Lock()
@@ -168,11 +196,15 @@ class ScoringServer:
         with self._conn_lock:
             self._active_conns.discard(conn)
 
-    def _score_lines(self, lines: list[str]):
-        rows = self.engine.encode_lines(lines)
-        if self.hot_tracker is not None:
-            self.hot_tracker.observe(self.engine.row_keys(rows))
-        labels, scores = self.batcher.submit(rows).result()
+    def _score_lines(self, lines: list[str], model: str | None = None):
+        mid = self._default_id if model is None else model
+        engine = self.engines[mid]
+        rows = engine.encode_lines(lines)
+        if self.hot_tracker is not None and mid == self._default_id:
+            self.hot_tracker.observe(engine.row_keys(rows))
+        labels, scores = self._batchers[mid].submit(rows).result()
+        with self._count_lock:
+            self._model_requests[mid] += 1
         return np.asarray(labels), np.asarray(scores)
 
     @staticmethod
@@ -180,14 +212,43 @@ class ScoringServer:
         word = line.split(None, 1)[0]
         if word in ("ID", "LABEL"):
             raise _not_ported(f"{word} lines (the feedback loop)", "A.11")
-        if word == "MODEL" or line.startswith("@"):
-            raise _not_ported("MODEL / @<id> addressing (several engines)", "A.17")
         if word == "TRACE":
             raise _not_ported("TRACE prefixes (distributed tracing)", "A.12")
 
-    def handle_line(self, line: str) -> str:
-        """One request line -> one reply line."""
+    def _count_error(self) -> None:
+        with self._count_lock:
+            self._errors += 1
+
+    def _unknown_model(self, model: str) -> str:
+        return f"ERR MODEL: unknown model {model!r} (hosted: {','.join(self.engines)})"
+
+    def handle_model_line(self, line: str, scope: str | None) -> tuple[str, str | None]:
+        """``MODEL <id>`` connection scoping: later unaddressed lines of the
+        connection score on ``<id>``.  Returns ``(reply, new_scope)``; an
+        unknown id keeps the old scope."""
+        parts = line.split()
+        if len(parts) != 2:
+            self._count_error()
+            return "ERR MODEL: need MODEL <id>", scope
+        if parts[1] not in self.engines:
+            self._count_error()
+            return self._unknown_model(parts[1]), scope
+        return f"OK MODEL {parts[1]}", parts[1]
+
+    def handle_line(self, line: str, model: str | None = None) -> str:
+        """One request line -> one reply line.  ``model`` is the
+        connection's ``MODEL`` scope; a per-request ``@<id>`` prefix
+        overrides it."""
         t0 = time.monotonic()
+        if line.startswith("@"):
+            prefix, _, rest = line.partition(" ")
+            model, line = prefix[1:], rest.strip()
+            if not model or not line:
+                self._count_error()
+                return "ERR MODEL: need @<id> <request line>"
+        if model is not None and model not in self.engines:
+            self._count_error()
+            return self._unknown_model(model)
         try:
             if line == "STATS":
                 return json.dumps(self.stats())
@@ -199,17 +260,16 @@ class ScoringServer:
                     raise ValueError('JSON request needs a non-empty "rows" list')
                 if req.get("ids") is not None:
                     raise _not_ported('the JSON "ids" list (the feedback loop)', "A.11")
-                labels, scores = self._score_lines([str(r) for r in batch])
+                labels, scores = self._score_lines([str(r) for r in batch], model)
                 reply = json.dumps({
                     "labels": [int(v) for v in labels],
                     "scores": [round(float(v), 6) for v in scores],
                 })
             else:
-                labels, scores = self._score_lines([line])
+                labels, scores = self._score_lines([line], model)
                 reply = f"{int(labels[0])} {float(scores[0]):.6g}"
         except Exception as e:
-            with self._count_lock:
-                self._errors += 1
+            self._count_error()
             return f"ERR {type(e).__name__}: {e}"
         self._latency.observe(time.monotonic() - t0)
         with self._count_lock:
@@ -222,6 +282,7 @@ class ScoringServer:
         engine never sheds or retries and is its own one-replica tier)."""
         with self._count_lock:
             n_req, n_err = self._requests, self._errors
+            per_model = dict(self._model_requests)
         elapsed = max(time.monotonic() - self._t0, 1e-9)
         rec = {
             "requests": n_req,
@@ -232,9 +293,9 @@ class ScoringServer:
             "shed": 0,
             "retries": 0,
             "replica_count": 1,
-            "models": 1,
-            "per_model": {"default": {"requests": n_req, "shed": 0,
-                                      "engine": self.engine.stats()}},
+            "models": len(self.engines),
+            "per_model": {mid: {"requests": per_model[mid], "shed": 0, "engine": eng.stats()}
+                          for mid, eng in self.engines.items()},
             "batcher": self.batcher.stats(),
             "engine": self.engine.stats(),
         }
@@ -251,9 +312,9 @@ class ScoringServer:
     def start(self) -> "ScoringServer":
         self._started = True
         self._thread.start()
-        log.info("serving %s on %s:%d (max_batch=%d, buckets=%s, device=%s)",
+        log.info("serving %s on %s:%d (max_batch=%d, buckets=%s, device=%s, models=%s)",
                  self.engine.cfg.model, self.host, self.port, self.engine.max_batch_size,
-                 list(self.engine.buckets), self.engine.device)
+                 list(self.engine.buckets), self.engine.device, ",".join(self.engines))
         return self
 
     def serve_forever(self) -> None:
@@ -273,9 +334,12 @@ class ScoringServer:
             self._tcp.shutdown()
             self._started = False
         self._tcp.server_close()
-        self.batcher.close()
+        for batcher in self._batchers.values():
+            batcher.close()
         if self.reloader is not None:
             self.reloader.stop()
+        for rl in self._extra_reloaders:
+            rl.stop()
         self.metrics.close()
 
     def abort(self) -> None:

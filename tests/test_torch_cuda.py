@@ -754,6 +754,47 @@ def test_engine_eviction_frees_the_device_table(cuda):
     assert np.array_equal(first[1], again[1]) and np.array_equal(first[0], again[0])
 
 
+def test_router_over_two_replicas_on_card_matches_plain(cuda):
+    """One ``ScoringRouter`` in front of two one-engine replicas at
+    D = 4,096 on the card: every reply within 1e-5 of σ(plain logits), the
+    traffic spread over both replicas, each request one ``lr_logits``."""
+    import json  # noqa: PLC0415
+
+    from distlr_tpu_torch.serve import (  # noqa: PLC0415
+        ScoringEngine,
+        ScoringRouter,
+        ScoringServer,
+        score_lines_over_tcp,
+    )
+
+    D = 4096
+    w = _serve_weights(D, 4)
+    X = _one_hot_rows(24, D, seed=5)
+    lines = [" ".join(f"{c + 1}:1" for c in row.nonzero()[0]) for row in X]
+    servers = []
+    for _ in range(2):
+        eng = ScoringEngine(Config(num_feature_dim=D, l2_c=0.0), max_batch_size=64)
+        eng.set_weights(w)
+        servers.append(ScoringServer(eng, max_wait_ms=0.5).start())
+    before = _counts()
+    try:
+        with ScoringRouter(",".join(f"{s.host}:{s.port}" for s in servers), seed=0) as router:
+            replies = score_lines_over_tcp(router.host, router.port, lines + ["STATS"])
+    finally:
+        for s in servers:
+            s.stop()
+    after = _counts()
+    stats = json.loads(replies.pop())
+    scores = torch.tensor([float(r.split()[1]) for r in replies], dtype=torch.float64)
+    z = ops.lr_logits_reference(torch.from_numpy(w).to(cuda),
+                                torch.from_numpy(X).to(cuda, torch.bfloat16)).cpu()
+    assert (scores - torch.sigmoid(z.double())).abs().max() <= 1e-5
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "lr_logits": len(lines)}
+    assert stats["requests"] == len(lines) and stats["errors"] == 0
+    assert all(r["requests"] > 0 for r in stats["replicas"])
+
+
 # --- the feature-sharded step (lr_backward, column blocks) ------------------
 # aligned shapes, D not a multiple of 8, a block whose rows break 16-byte
 # alignment (12 bf16 columns), a view at an odd offset; the step's blocks

@@ -52,7 +52,9 @@ def test_fresh_interpreter_imports_no_jax():
                 "distlr_tpu_torch.ops.gen_roofline", "distlr_tpu_torch.benchmarks.exp_gen_roofline",
                 "distlr_tpu_torch.benchmarks.exp_gen_roofline2", "distlr_tpu_torch.data.hashing",
                 "distlr_tpu_torch.models.linear", "distlr_tpu_torch.train.ps_trainer",
-                "distlr_tpu_torch.ps.client", "distlr_tpu_torch.data._native"):
+                "distlr_tpu_torch.ps.client", "distlr_tpu_torch.data._native",
+                "distlr_tpu_torch.serve.router", "distlr_tpu_torch.serve.balance",
+                "distlr_tpu_torch.serve.tenant", "distlr_tpu_torch.serve.rollout"):
         assert mod in doc["imported"]
     assert doc["leaked"] == []
 

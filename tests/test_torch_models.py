@@ -152,7 +152,6 @@ class TestConfigGates:
         ({"feedback_spool_dir": "spool"}, "A.11"),
         ({"feedback_window_s": 5.0}, "A.11"),
         ({"feedback_drift_threshold": 0.5}, "A.11"),
-        ({"serve_model_id": "v2"}, "A.17"),
     ])
     def test_unported_options_name_their_roadmap_item(self, kw, item):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
@@ -173,6 +172,37 @@ class TestConfigGates:
         for f in ("model", "sync_mode", "block_size", "serve_hot_rows",
                   "serve_hot_min_coverage", "serve_hot_full_every"):
             assert getattr(t, f) == getattr(j, f), f
+
+    # a named engine and the router's options (ROADMAP A.17): accepted,
+    # with the JAX package's values
+    @pytest.mark.parametrize("kw", [
+        {"serve_model_id": "v2"},
+        {"route_quota": "v2=5:10", "route_port": 8080, "route_host": "0.0.0.0"},
+        {"route_max_inflight": 8, "route_eject_after": 5, "route_health_interval_s": 0.5},
+        {"route_probe_backoff_s": 0.1, "route_probe_backoff_max_s": 2.0,
+         "route_backend_timeout_s": 3.0},
+    ])
+    def test_named_engine_and_route_options_resolve_like_jax(self, kw):
+        j, t = JaxConfig(**kw), Config(device="cpu", **kw)
+        for f in ("serve_model_id", "route_quota", "route_port", "route_host",
+                  "route_max_inflight", "route_eject_after", "route_health_interval_s",
+                  "route_probe_backoff_s", "route_probe_backoff_max_s",
+                  "route_backend_timeout_s"):
+            assert getattr(t, f) == getattr(j, f), f
+
+    @pytest.mark.parametrize("kw", [
+        {"serve_model_id": ""}, {"serve_model_id": "v 2"}, {"serve_model_id": "a@b"},
+        {"route_port": 70000}, {"route_max_inflight": 0}, {"route_eject_after": 0},
+        {"route_health_interval_s": 0.0}, {"route_probe_backoff_s": 0.0},
+        {"route_probe_backoff_s": 3.0, "route_probe_backoff_max_s": 1.0},
+        {"route_backend_timeout_s": -1.0},
+    ])
+    def test_named_engine_and_route_options_validate_like_jax(self, kw):
+        with pytest.raises(ValueError) as theirs:
+            JaxConfig(**kw)
+        with pytest.raises(ValueError) as ours:
+            Config(device="cpu", **kw)
+        assert str(ours.value) == str(theirs.value)
 
     @pytest.mark.parametrize("kw,match", [
         ({"serve_hot_rows": -1}, "serve_hot_rows"),

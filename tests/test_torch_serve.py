@@ -511,8 +511,7 @@ class TestServerEndToEnd:
 
     @pytest.mark.parametrize("line,item", [
         ("ID r1 1:1 2:1", "A.11"), ("LABEL r1 1", "A.11"),
-        ('{"rows": ["1:1"], "ids": ["r1"]}', "A.11"),
-        ("MODEL v2", "A.17"), ("@v2 1:1", "A.17"), ("TRACE 00/00 1:1", "A.12"),
+        ('{"rows": ["1:1"], "ids": ["r1"]}', "A.11"), ("TRACE 00/00 1:1", "A.12"),
     ])
     def test_unported_lines_answer_err_naming_their_item(self, line, item):
         ours, _ = _servers(_trained_weights(8), num_feature_dim=8)
@@ -521,13 +520,45 @@ class TestServerEndToEnd:
         assert reply.startswith("ERR NotImplementedError: ") and f"ROADMAP {item})" in reply
         assert not good.startswith("ERR")
 
-    @pytest.mark.parametrize("kw,item", [
-        ({"engines": {"a": None}}, "A.17"), ({"feedback": object()}, "A.11"),
-    ])
+    # MODEL / @<id> addressing (ROADMAP A.17): answered as the JAX server
+    # answers, here on one unnamed engine (an unknown model)
+    @pytest.mark.parametrize("line", ["MODEL v2", "@v2 1:1"])
+    def test_model_lines_answer_like_jax(self, line):
+        replies = []
+        for srv in _servers(_trained_weights(8), num_feature_dim=8):
+            with srv:
+                replies.append(score_lines_over_tcp(srv.host, srv.port, [line, "1:1"]))
+                replies[-1].append(srv.stats()["errors"])
+        assert replies[0][0] == replies[1][0] == (
+            "ERR MODEL: unknown model 'v2' (hosted: default)")
+        assert replies[0][2] == replies[1][2] == 1
+        _, ours = _parse_replies(replies[0][1:2])
+        _, theirs = _parse_replies(replies[1][1:2])
+        np.testing.assert_allclose(ours, theirs, rtol=1e-5)
+
+    @pytest.mark.parametrize("kw,item", [({"feedback": object()}, "A.11")])
     def test_unported_server_options_raise(self, kw, item):
         eng = ScoringEngine(Config(device="cpu", num_feature_dim=4))
         with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
             ScoringServer(eng, **kw)
+
+    # several engines (ROADMAP A.17): accepted, with the JAX server's replies
+    @pytest.mark.parametrize("kw", [{"engines": ["a"]}])
+    def test_server_options_accepted_like_jax(self, kw):
+        w = _trained_weights(8)
+        replies = []
+        for eng in _pair(l2_c=0.0, num_feature_dim=8):
+            eng.set_weights(w)
+            cls = ScoringServer if isinstance(eng, ScoringEngine) else JaxServer
+            with cls(engines={m: eng for m in kw["engines"]}, max_wait_ms=0.5) as srv:
+                replies.append(score_lines_over_tcp(srv.host, srv.port,
+                                                    ["@a 1:1 2:1", "MODEL a", "3:1"]))
+                replies[-1].append(srv.stats()["models"])
+        assert replies[0][1] == replies[1][1] == "OK MODEL a"
+        assert replies[0][3] == replies[1][3] == 1
+        for i in (0, 2):
+            np.testing.assert_allclose(_parse_replies([replies[0][i]])[1],
+                                       _parse_replies([replies[1][i]])[1], rtol=1e-5)
 
     @pytest.mark.parametrize("lines,keys", [
         (["1:1 3:1", "3:1 8:1"], {0: 1, 2: 2, 7: 1}),
@@ -722,7 +753,6 @@ class TestHotReload:
 
     @pytest.mark.parametrize("kw,item", [
         ({"retry": object()}, "A.16"), ({"route": object()}, "A.16"),
-        ({"ns_base": 16}, "A.17"), ({"ns_total_dim": 64}, "A.17"),
     ])
     def test_unported_watcher_options_raise(self, kw, item):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
