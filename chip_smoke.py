@@ -43,7 +43,12 @@ at config 4's D = 1M buckets and 21 fields through ``run_ps_local``, sync
 and async, 2 servers and 2 worker threads on the card, each keyed gradient
 a gather and an ``index_add_`` there, held to the numpy backend) and
 hot-row serving (a ``blocked_lr`` engine refreshed from a live PS through
-a ``HotSetTracker``'s keyed pulls while an async keyed worker pushes), then
+a ``HotSetTracker``'s keyed pulls while an async keyed worker pushes) and
+the PS update rules and gradient wire at D = 1M (sync FTRL, int8 and
+signSGD pushes and async accumulation through ``run_ps_local``, each held
+to its oracle on the ``fused_lr_grad`` kernel's own gradients; keyed
+FTRL; ``launch ps-server --namespaces v1:ftrl,v2`` with ``launch serve``
+and ``launch ps --hosts`` against it), then
 the serving control plane (a ``ScoringRouter`` in front of two
 ``ScoringServer`` replicas, each hosting the binary_lr versions v1 and v2
 at D = 1M: one reloads both from two namespaces of one PS group, the other
@@ -2571,6 +2576,516 @@ def phase_ps_keyed(torch, seed: int, smi: str) -> dict:
     return out
 
 
+# --- the PS update rules and the gradient wire ---------------------------------
+# FTRL as tests/test_ftrl.py runs it; signSGD at a signSGD-scale rate; an
+# accumulation span that grows within the async run's 6 batches a worker
+WIRE_FTRL = {"ftrl_alpha": 0.5, "ftrl_beta": 1.0, "ftrl_l1": 0.01, "ftrl_l2": 0.1}
+WIRE_SIGN_LR, WIRE_EPOCHS = 0.02, 2
+WIRE_ACCUM = {"ps_accum_start": 1, "ps_accum_max": 4, "ps_accum_growth_every": 2}
+# keyed FTRL without L1: at a keyed row's gradient (~1e-3 a batch) an L1
+# of 0.01 would hold nearly every weight at zero, and the card-vs-numpy
+# comparison with it
+WIRE_KEYED_FTRL = {**WIRE_FTRL, "ftrl_l1": 0.0}
+WIRE_FTRL_TOL, WIRE_PLAIN_TOL, WIRE_INT8_TOL, WIRE_KEYED_TOL = 1e-5, 1e-3, 1e-5, 1e-4
+WIRE_INT8_MIN_RATIO, WIRE_SIGN_MIN_RATIO = 8.0, 32.0
+# namespace pushes into the `launch ps-server` group, a namespace
+WIRE_NS_PUSHES, WIRE_NS_LR = 3, 0.2
+WIRE_PUSH_REPS = 10
+
+
+class _FtrlOracle:
+    """float32 FTRL-Proximal, ``tests/test_ftrl.py``'s oracle with its z and n
+    kept between steps: a zero gradient leaves its coordinate untouched."""
+
+    def __init__(self, w0, alpha, beta, l1, l2):
+        import numpy as np  # noqa: PLC0415
+
+        self.w = np.array(w0, np.float32).copy()
+        self.z, self.n = np.zeros_like(self.w), np.zeros_like(self.w)
+        self.a, self.b, self.l1, self.l2 = (np.float32(v) for v in (alpha, beta, l1, l2))
+
+    def step(self, g):
+        import numpy as np  # noqa: PLC0415
+
+        g = np.asarray(g, np.float32)
+        touched = g != 0
+        n_new = (self.n + g * g).astype(np.float32)
+        sigma = ((np.sqrt(n_new) - np.sqrt(self.n)) / self.a).astype(np.float32)
+        self.z = np.where(touched, (self.z + g - sigma * self.w).astype(np.float32), self.z)
+        self.n = np.where(touched, n_new, self.n)
+        w_new = np.where(np.abs(self.z) <= self.l1, np.float32(0.0),
+                         (-(self.z - np.sign(self.z) * self.l1)
+                          / ((self.b + np.sqrt(self.n)) / self.a + self.l2)).astype(np.float32))
+        self.w = np.where(touched, w_new, self.w).astype(np.float32)
+        return self.w
+
+
+@contextlib.contextmanager
+def _spawned_commands():
+    """The command lines of the KV servers spawned in the block."""
+    from distlr_tpu_torch.ps.server import ServerGroup  # noqa: PLC0415
+
+    seen, orig = [], ServerGroup._command
+
+    def spy(self, *a, **kw):
+        seen.append(orig(self, *a, **kw))
+        return seen[-1]
+
+    ServerGroup._command = spy
+    try:
+        yield seen
+    finally:
+        ServerGroup._command = orig
+
+
+def _wire_grads(torch, ops, model, cfg, w, shards, *, plain: bool):
+    """Each worker's gradient at ``w`` on its full shard, as numpy: the
+    model's own (one ``fused_lr_grad`` launch, what the workers ran) or the
+    plain version's sum / n + the L2 term."""
+    wd = torch.from_numpy(w).cuda()
+    out = []
+    for X, y in shards:
+        mask = torch.ones(X.shape[0], device="cuda")
+        if plain:
+            g = (ops.fused_lr_grad_reference(wd, X, y, mask, compute_dtype="bfloat16")
+                 / mask.sum() + cfg.l2_c * wd)
+        else:
+            g = model.grad(wd, (X, y, mask), cfg)
+        out.append(g.cpu().numpy())
+    return out
+
+
+def _replay(torch, ops, model, cfg, w0, shards, steps, update, *, plain: bool):
+    """The BSP trajectory of ``steps`` rounds on full shards: the workers'
+    gradients at the oracle's weights, then ``update(w, grads)``."""
+    w, all_grads = w0, []
+    for _ in range(steps):
+        grads = _wire_grads(torch, ops, model, cfg, w, shards, plain=plain)
+        all_grads.append(grads)
+        w = update(w, grads)
+    return w, all_grads
+
+
+def _slices(g, servers: int):
+    """``g`` cut at the group's range boundaries: one coded frame a server."""
+    n = g.shape[0]
+    return [g[n * r // servers:n * (r + 1) // servers] for r in range(servers)]
+
+
+def _wire_round_fields(report: dict) -> dict:
+    keys = ("steps", "round_ms", "grad_ms", "pull_ms", "push_pull_ms", "push_ms",
+            "grad_span_ms", "compress_active", "push_bytes_raw", "push_bytes_wire",
+            "compress_ratio", "accum_flushes", "accum_k")
+    return {k: report.get(k) for k in keys}
+
+
+def _wire_dense_runs(torch, ops, tmp: str, smi: str) -> tuple[dict, dict]:
+    """The dense runs of the phase on the ps phase's data: sync FTRL, sync
+    SGD dense f32 and int8, sync signSGD, async int8 with accumulation;
+    ``(lines, launches)``."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.compress import GradientAccumulator, int8_roundtrip  # noqa: PLC0415
+    from distlr_tpu_torch.compress import sign_roundtrip  # noqa: PLC0415
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.data import parse_libsvm_file  # noqa: PLC0415
+    from distlr_tpu_torch.models import get_model  # noqa: PLC0415
+
+    base = Config(data_dir=tmp, num_feature_dim=FULL_D, num_workers=PS_WORKERS,
+                  num_servers=PS_SERVERS, batch_size=PS_SHARD_ROWS, num_iteration=WIRE_EPOCHS,
+                  test_interval=1, learning_rate=0.2, l2_c=0.01, compat_mode="correct",
+                  compute_dtype="bfloat16", ps_timeout_ms=PS_TIMEOUT_MS)
+    model = get_model(base)
+    w0 = model.init(base).numpy()
+    shards = []
+    for part in range(1, PS_WORKERS + 1):
+        X, y = parse_libsvm_file(os.path.join(tmp, "train", f"part-{part:03d}"), FULL_D)
+        shards.append((torch.from_numpy(X).to(torch.bfloat16).cuda(), torch.from_numpy(y).cuda()))
+        del X
+    Xt, yt = parse_libsvm_file(os.path.join(tmp, "test", "part-001"), FULL_D)
+    Xt = torch.from_numpy(Xt).to(torch.bfloat16).cuda()
+    yt = torch.from_numpy(yt).float().cuda()
+    init_ll = _test_logloss(torch, ops, torch.from_numpy(w0).cuda(), Xt, yt)
+    lr, two = np.float32(base.learning_rate), np.float32(PS_WORKERS)
+
+    def sgd_int8(w, grads):
+        dec = [np.concatenate([int8_roundtrip(s) for s in _slices(g, PS_SERVERS)]) for g in grads]
+        return (w - lr * sum(dec[1:], dec[0]) / two).astype(np.float32)
+
+    def sign_vote(w, grads):
+        votes = sum((sign_roundtrip(g) for g in grads[1:]), sign_roundtrip(grads[0]))
+        step = np.float32(WIRE_SIGN_LR)
+        return np.where(votes > 0, w - step, np.where(votes < 0, w + step, w)).astype(np.float32)
+
+    def ftrl_oracle():
+        orc = _FtrlOracle(w0, *(WIRE_FTRL[k] for k in ("ftrl_alpha", "ftrl_beta", "ftrl_l1",
+                                                       "ftrl_l2")))
+        return lambda w, grads: orc.step(sum(grads[1:], grads[0]) / two)
+
+    runs = {
+        "ftrl_sync": (base.replace(ps_optimizer="ftrl", num_iteration=PS_EPOCHS, **WIRE_FTRL),
+                      None),
+        "none_sync": (base, None),
+        "int8_sync": (base.replace(ps_compress="int8"), sgd_int8),
+        "signsgd_sync": (base.replace(ps_compress="signsgd", learning_rate=WIRE_SIGN_LR),
+                         sign_vote),
+        "int8_accum_async": (base.replace(ps_compress="int8", sync_mode=False,
+                                          batch_size=PS_ASYNC_BATCH, num_iteration=PS_EPOCHS,
+                                          **WIRE_ACCUM), None),
+    }
+    lines, launches = {}, {"fused_lr_grad": 0, "lr_logits": 0}
+    for mode, (cfg, update) in runs.items():
+        with _spawned_commands() as cmds:
+            weights, report, counts, seconds = _run_ps(torch, cfg, save=False)
+        steps = cfg.num_iteration * -(-PS_SHARD_ROWS // cfg.batch_size)
+        others = {k: v for k, v in counts.items() if v and k not in launches}
+        if (counts["fused_lr_grad"] != PS_WORKERS * steps
+                or counts["lr_logits"] != cfg.num_iteration or others):
+            raise AssertionError(f"ps_wire {mode}: not one fused_lr_grad a worker and batch "
+                                 f"and one lr_logits an eval: {counts}")
+        for k in launches:
+            launches[k] += counts[k]
+        want_codec = cfg.ps_compress
+        if any(r["compress_active"] != want_codec for r in report.values()):
+            raise AssertionError(f"ps_wire {mode}: the workers pushed "
+                                 f"{[r['compress_active'] for r in report.values()]}, "
+                                 f"not {want_codec!r}")
+        line = {"seconds": seconds, "epochs": cfg.num_iteration, "batch_rows": cfg.batch_size,
+                "server_optimizer_flags": sorted({a for c in cmds for a in c
+                                                  if a.startswith("--optimizer")}),
+                "launches": {k: v for k, v in counts.items() if v},
+                "workers": [_wire_round_fields(report[r]) for r in range(PS_WORKERS)]}
+        ratio = report[0]["compress_ratio"]
+        if not all(np.isfinite(w).all() for w in weights):
+            raise AssertionError(f"ps_wire {mode}: weights not finite")
+        if cfg.sync_mode:
+            line["workers_max_abs_diff"] = float(np.abs(weights[0] - weights[1]).max())
+            if line["workers_max_abs_diff"] != 0.0:
+                raise AssertionError(f"ps_wire {mode}: the workers' weights differ by "
+                                     f"{line['workers_max_abs_diff']}")
+        w = torch.from_numpy(weights[0])
+        if mode == "ftrl_sync":
+            w_k, grads_k = _replay(torch, ops, model, cfg, w0, shards, steps, ftrl_oracle(),
+                                   plain=False)
+            w_p, _ = _replay(torch, ops, model, cfg, w0, shards, steps, ftrl_oracle(),
+                             plain=True)
+            line["weights_rel_err_vs_oracle_kernel_grads"] = rel_err(w, torch.from_numpy(w_k))
+            line["weights_rel_err_vs_oracle_plain_grads"] = rel_err(w, torch.from_numpy(w_p))
+            if (line["weights_rel_err_vs_oracle_kernel_grads"] > WIRE_FTRL_TOL
+                    or line["weights_rel_err_vs_oracle_plain_grads"] > WIRE_PLAIN_TOL):
+                raise AssertionError(f"ps_wire ftrl: weights differ from the FTRL oracle: {line}")
+            if line["server_optimizer_flags"] != ["--optimizer=ftrl"]:
+                raise AssertionError(f"ps_wire ftrl: the group ran {cmds}")
+            line["zero_weights_share"] = float((weights[0] == 0).mean())
+        elif mode == "int8_sync":
+            w_k, _ = _replay(torch, ops, model, cfg, w0, shards, steps, update, plain=False)
+            line["weights_rel_err_vs_oracle"] = rel_err(w, torch.from_numpy(w_k))
+            if line["weights_rel_err_vs_oracle"] > WIRE_INT8_TOL or ratio < WIRE_INT8_MIN_RATIO:
+                raise AssertionError(f"ps_wire int8: rel {line['weights_rel_err_vs_oracle']} "
+                                     f"vs the decoded-mean oracle, byte ratio {ratio}")
+        elif mode == "signsgd_sync":
+            w_k, grads_k = _replay(torch, ops, model, cfg, w0, shards, steps, update,
+                                   plain=False)
+            line["equals_vote_oracle"] = bool(np.array_equal(weights[0], w_k))
+            # the sign the kernel's gradient and the plain one give each
+            # coordinate, at the same weights (the oracle's, round by round)
+            flips, w_r = [], w0
+            for grads in grads_k:
+                plain = _wire_grads(torch, ops, model, cfg, w_r, shards, plain=True)
+                flips += [float(((a > 0) != (b > 0)).mean()) for a, b in zip(grads, plain)]
+                w_r = update(w_r, grads)
+            line["sign_differs_kernel_vs_plain_share"] = {"max": max(flips),
+                                                          "mean": float(np.mean(flips))}
+            if not line["equals_vote_oracle"] or ratio < WIRE_SIGN_MIN_RATIO:
+                raise AssertionError(f"ps_wire signsgd: weights equal the vote oracle: "
+                                     f"{line['equals_vote_oracle']}, byte ratio {ratio}")
+            if line["server_optimizer_flags"] != ["--optimizer=signsgd"]:
+                raise AssertionError(f"ps_wire signsgd: the group ran {cmds}")
+        elif mode == "int8_accum_async":
+            flushes = []
+            for _ in range(PS_WORKERS):
+                acc = GradientAccumulator(1, start=cfg.ps_accum_start,
+                                          growth=cfg.ps_accum_growth,
+                                          growth_every=cfg.ps_accum_growth_every,
+                                          max_k=cfg.ps_accum_max)
+                for _ in range(cfg.num_iteration):
+                    for _ in range(-(-PS_SHARD_ROWS // cfg.batch_size)):
+                        acc.add(np.ones(1, np.float32))
+                        if acc.ready:
+                            acc.flush_dense()
+                    acc.flush_dense()
+                flushes.append(acc.flushes)
+            line["schedule_pushes"] = flushes
+            line["gradient_pushes"] = report[0]["group_pushes"] - 1  # less the seeding push
+            line["test_logloss_init"] = init_ll
+            line["test_logloss_final"] = [_test_logloss(torch, ops, torch.from_numpy(x).cuda(),
+                                                        Xt, yt) for x in weights]
+            if (line["gradient_pushes"] != sum(flushes)
+                    or [report[r]["accum_flushes"] for r in range(PS_WORKERS)] != flushes):
+                raise AssertionError(f"ps_wire accum: the servers counted "
+                                     f"{line['gradient_pushes']} pushes, the schedule gives "
+                                     f"{flushes}")
+            if not all(ll < init_ll for ll in line["test_logloss_final"]):
+                raise AssertionError(f"ps_wire accum: test logloss {line['test_logloss_final']} "
+                                     f"not below the init's {init_ll}")
+        line["test_logloss_reported"] = report[0]["test_logloss"]
+        lines[mode] = line
+    del shards, Xt
+    return lines, launches
+
+
+def _wire_keyed_runs(torch, tmp: str, seed: int) -> dict:
+    """Keyed FTRL: ``sparse_lr`` at config 4's keyed shape, sync, on the
+    card and on the numpy backend, and on the card with int8 pushes."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.models import get_model  # noqa: PLC0415
+
+    d = _keyed_data(tmp, "sparse_lr", seed)
+    cfg = _keyed_cfg(d, "sparse_lr").replace(ps_optimizer="ftrl", **WIRE_KEYED_FTRL)
+    w0 = get_model(cfg).init(cfg).numpy().reshape(-1)
+    _, init_ll = _keyed_numpy_eval(cfg, w0)
+    _, dev, _, torch_fn, l2 = _keyed_grad_inputs(torch, cfg, w0)
+    torch_fn(*dev, *l2).cpu()  # load the gather and scatter kernels first
+    del dev
+    out = {"ftrl_params": WIRE_KEYED_FTRL, "test_logloss_init": init_ll}
+    for mode, run_cfg in (("ftrl", cfg), ("ftrl_numpy", cfg.replace(ps_compute_backend="numpy")),
+                          ("ftrl_int8", cfg.replace(ps_compress="int8"))):
+        weights, report, launches, seconds = _run_ps(torch, run_cfg, save=False)
+        if any(launches.values()):
+            raise AssertionError(f"ps_wire keyed {mode}: launched a kernel of ops: {launches}")
+        if not all(np.isfinite(w).all() for w in weights):
+            raise AssertionError(f"ps_wire keyed {mode}: weights not finite")
+        run = {"seconds": seconds,
+               "workers": [_wire_round_fields(report[r]) for r in range(PS_WORKERS)],
+               "test_logloss_final_numpy": _keyed_numpy_eval(run_cfg, weights[0])[1]}
+        if report[0]["compress_active"] != run_cfg.ps_compress:
+            raise AssertionError(f"ps_wire keyed {mode}: pushed {report[0]['compress_active']}")
+        out[mode] = run
+        out.setdefault("weights", {})[mode] = weights[0]
+    ws = out.pop("weights")
+    out["weights_rel_err_card_vs_numpy"] = rel_err(torch.from_numpy(ws["ftrl"]),
+                                                   torch.from_numpy(ws["ftrl_numpy"]))
+    out["nonzero_weights"] = int(np.count_nonzero(ws["ftrl"]))
+    out["int8_byte_ratio"] = out["ftrl_int8"]["workers"][0]["compress_ratio"]
+    out["int8_test_logloss_gap"] = (out["ftrl_int8"]["test_logloss_final_numpy"]
+                                    - out["ftrl"]["test_logloss_final_numpy"])
+    out["tolerance"] = WIRE_KEYED_TOL
+    if out["weights_rel_err_card_vs_numpy"] > WIRE_KEYED_TOL:
+        raise AssertionError(f"ps_wire keyed ftrl: card weights differ from the numpy "
+                             f"backend's: rel {out['weights_rel_err_card_vs_numpy']}")
+    if not out["ftrl"]["test_logloss_final_numpy"] < init_ll:
+        raise AssertionError(f"ps_wire keyed ftrl: test logloss did not fall: {out}")
+    return out
+
+
+def _proc_alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _child_pids(pid: int) -> list[int]:
+    kids = []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    if int(f.read().rsplit(")", 1)[1].split()[1]) == pid:
+                        kids.append(int(entry))
+            except OSError:
+                continue
+    return kids
+
+
+def _wire_ps_server(torch, ops, tmp: str) -> dict:
+    """``launch ps-server --namespaces v1:ftrl,v2`` at 2 x D keys in a
+    subprocess: WIRE_NS_PUSHES kernel gradients pushed into each namespace
+    through ``KVNamespace`` (v1 held to the FTRL oracle, v2 to SGD), then
+    ``launch serve ... --ps-namespaces v1:ftrl,v2 --ps-namespace v1`` on the
+    card answering the test rows within SERVE_SCORE_TOL of σ(plain logits)
+    of v1's weights, then ``launch ps --hosts`` (v1's server, int8 pushes)
+    training on the card, then SIGTERM: exit 143, no server left."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.data import parse_libsvm_file  # noqa: PLC0415
+    from distlr_tpu_torch.models import get_model  # noqa: PLC0415
+    from distlr_tpu_torch.ps import KVWorker, namespace_layout  # noqa: PLC0415
+    from distlr_tpu_torch.serve import score_lines_over_tcp  # noqa: PLC0415
+
+    spec = "v1:ftrl,v2"
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    ftrl_flags = [f"--ftrl-{k[5:]}={v}" for k, v in WIRE_FTRL.items()]
+    t0 = time.perf_counter()
+    server = subprocess.Popen(
+        [sys.executable, "-m", "distlr_tpu_torch.launch", "ps-server", "--num-feature-dim",
+         str(FULL_D), "--num-servers", str(PS_SERVERS), "--num-workers", str(PS_WORKERS),
+         "--async", "--namespaces", spec, "--learning-rate", str(WIRE_NS_LR), *ftrl_flags],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    out = {"namespaces": spec, "group_dim": 2 * FULL_D}
+    serve = None
+    try:
+        hosts = server.stdout.readline().split()
+        ns_line = server.stdout.readline().strip()
+        if not hosts or hosts[0] != "HOSTS":
+            raise AssertionError(f"launch ps-server printed {hosts!r}: {server.stderr.read()}")
+        hosts = hosts[1]
+        servers = _child_pids(server.pid)
+        out.update(hosts_line=True, namespaces_line=ns_line, server_processes=len(servers),
+                   start_s=time.perf_counter() - t0)
+        if ns_line != f"NAMESPACES v1=0,v2={FULL_D} per_dim={FULL_D}" or len(servers) != 2:
+            raise AssertionError(f"launch ps-server: {ns_line!r}, {len(servers)} servers")
+        layout = namespace_layout(spec, FULL_D)
+        cfg = Config(num_feature_dim=FULL_D, l2_c=0.01)
+        model = get_model(cfg)
+        rng = np.random.default_rng(7)
+        w_init = {m: (rng.standard_normal(FULL_D) * 0.05).astype(np.float32) for m in layout}
+        shards = {}
+        for m, part in (("v1", 1), ("v2", 2)):
+            X, y = parse_libsvm_file(os.path.join(tmp, "train", f"part-{part:03d}"), FULL_D)
+            shards[m] = (torch.from_numpy(X).to(torch.bfloat16).cuda(),
+                         torch.from_numpy(y).cuda())
+            del X
+        pushed = {m: [] for m in layout}
+        with KVWorker(hosts, 2 * FULL_D, sync_group=False, timeout_ms=PS_TIMEOUT_MS) as kv:
+            views = {m: kv.namespace(*layout[m]) for m in layout}
+            views["v1"].push_init(w_init["v1"])
+            views["v2"].push_init(w_init["v2"], force=True)
+            for _ in range(WIRE_NS_PUSHES):
+                for m, view in views.items():
+                    (g,) = _wire_grads(torch, ops, model, cfg, view.pull(), [shards[m]],
+                                       plain=False)
+                    pushed[m].append(g)
+                    view.wait(view.push(g))
+            got = {m: view.pull() for m, view in views.items()}
+        orc = _FtrlOracle(w_init["v1"], *WIRE_FTRL.values())
+        for g in pushed["v1"]:
+            orc.step(g)
+        sgd = w_init["v2"]
+        for g in pushed["v2"]:
+            sgd = (sgd - np.float32(WIRE_NS_LR) * g).astype(np.float32)
+        out["v1_rel_err_vs_ftrl_oracle"] = rel_err(torch.from_numpy(got["v1"]),
+                                                   torch.from_numpy(orc.w))
+        out["v2_rel_err_vs_sgd_oracle"] = rel_err(torch.from_numpy(got["v2"]),
+                                                  torch.from_numpy(sgd))
+        if max(out["v1_rel_err_vs_ftrl_oracle"], out["v2_rel_err_vs_sgd_oracle"]) > WIRE_FTRL_TOL:
+            raise AssertionError(f"ps_wire ps-server: namespaces off their oracles: {out}")
+        del shards
+        # serve v1 from the live group
+        t1 = time.perf_counter()
+        serve = subprocess.Popen(
+            [sys.executable, "-m", "distlr_tpu_torch.launch", "serve", "--num-feature-dim",
+             str(FULL_D), "--ps-hosts", hosts, "--ps-namespaces", spec, "--ps-namespace", "v1",
+             "--port", "0", "--reload-interval", "30"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        ready = serve.stdout.readline()
+        if not ready.startswith("SERVING "):
+            raise AssertionError(f"launch serve printed {ready!r}: {serve.stderr.read()[-2000:]}")
+        host, port = ready.split()[1].rsplit(":", 1)
+        with open(os.path.join(tmp, "test", "part-001")) as f:
+            lines = [ln.strip() for ln in f if ln.strip()]
+        labels, scores = _parse_libsvm_replies(score_lines_over_tcp(host, int(port), lines,
+                                                                    timeout_s=300))
+        Xt, _ = parse_libsvm_file(os.path.join(tmp, "test", "part-001"), FULL_D)
+        z = ops.lr_logits_reference(torch.from_numpy(got["v1"]).cuda(),
+                                    torch.from_numpy(Xt).to(torch.bfloat16).cuda()).cpu()
+        out["serve_v1"] = {**_check_replies(torch, "ps-server v1", labels, scores, z),
+                           "seconds": time.perf_counter() - t1}
+        serve.send_signal(signal.SIGTERM)
+        out["serve_v1"]["sigterm_returncode"] = serve.wait(timeout=60)
+        # workers join v1's server (the whole of v1's slice) and train on the card
+        t2 = time.perf_counter()
+        ps = _launch("ps", "--data-dir", tmp, "--num-feature-dim", str(FULL_D), "--num-workers",
+                     str(PS_WORKERS), "--hosts", hosts.split(",")[0], "--async",
+                     "--batch-size", str(PS_ASYNC_BATCH), "--num-iteration", "1",
+                     "--test-interval", "1", "--ps-optimizer", "ftrl", "--ps-compress", "int8",
+                     *ftrl_flags)
+        acc = re.findall(r"Iteration 1, accuracy: (\S+)", ps.stdout)
+        out["launch_ps_hosts"] = {"seconds": time.perf_counter() - t2,
+                                  "negotiated_int8": "negotiated 'int8'" in ps.stderr,
+                                  "accuracy": float(acc[0]) if acc else None}
+        if not out["launch_ps_hosts"]["negotiated_int8"] or not acc:
+            raise AssertionError(f"launch ps --hosts: {out['launch_ps_hosts']}\n"
+                                 f"{ps.stderr[-2000:]}")
+        server.send_signal(signal.SIGTERM)
+        out["sigterm_returncode"] = server.wait(timeout=60)
+        deadline = time.monotonic() + 10
+        while any(_proc_alive(p) for p in servers) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        out["servers_left"] = sum(_proc_alive(p) for p in servers)
+        if out["sigterm_returncode"] != 143 or out["servers_left"]:
+            raise AssertionError(f"launch ps-server: exit {out['sigterm_returncode']} after "
+                                 f"SIGTERM, {out['servers_left']} servers left")
+    finally:
+        for proc in (serve, server):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def phase_ps_wire(torch, seed: int, smi: str) -> dict:
+    """What the PS servers compute and what crosses the wire, at the ps
+    phase's full width (config-3 CTR rows at D = 1M, PS_SERVERS native
+    servers, PS_WORKERS worker threads on the card, full 1,024-row shards,
+    bf16, the correct-mean update): each worker's gradient the
+    ``fused_lr_grad`` single pass, rank 0's eval ``lr_logits``.
+
+    * sync FTRL (WIRE_FTRL, PS_EPOCHS epochs): both workers end equal, the
+      servers' weights within WIRE_FTRL_TOL of a float32 FTRL oracle
+      applied to the BSP mean of the kernel's gradients, replayed on the
+      card at the oracle's weights (the kernel is deterministic), and
+      within WIRE_PLAIN_TOL of the same oracle fed the plain gradients;
+    * sync SGD dense f32 (the comparison's baseline), and with int8
+      pushes: ``compress_active`` "int8", the weights within
+      WIRE_INT8_TOL of the oracle that decodes each worker's gradient
+      (``int8_roundtrip`` a server's slice), a byte ratio >=
+      WIRE_INT8_MIN_RATIO;
+    * sync signSGD (lr WIRE_SIGN_LR): the group runs
+      ``--optimizer=signsgd``, the weights equal the majority-vote oracle
+      (ties untouched) bit for bit, a byte ratio >= WIRE_SIGN_MIN_RATIO, and
+      the share of coordinates whose sign the kernel's gradient and the
+      plain one disagree on;
+    * async SGD + int8 + accumulation (WIRE_ACCUM, PS_ASYNC_BATCH-row
+      batches): the servers count exactly the schedule's pushes plus the
+      seeding push, the weights are finite and the test logloss falls;
+    * keyed FTRL (:func:`_wire_keyed_runs`) and ``launch ps-server``
+      (:func:`_wire_ps_server`);
+    * the cost of one push of each codec alone
+      (:func:`distlr_tpu_torch.benchmarks.wire_push.push_costs`).
+    The dense runs' launches are counted (zeroed before, read after each)."""
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.benchmarks.wire_push import push_costs  # noqa: PLC0415
+
+    t_phase = time.perf_counter()
+    out = {"nvidia_smi": smi, "D": FULL_D, "workers": PS_WORKERS, "servers": PS_SERVERS,
+           "shard_rows": PS_SHARD_ROWS, "test_rows": PS_TEST_ROWS,
+           "reduced": {"epochs": f"{PS_EPOCHS} for FTRL and the async run, {WIRE_EPOCHS} for "
+                                 "the dense f32, int8 and signSGD sync runs (cut in depth)",
+                       "shard_rows": f"{PS_SHARD_ROWS} a worker, as the ps phase"},
+           "tolerances": {"ftrl": WIRE_FTRL_TOL, "ftrl_plain": WIRE_PLAIN_TOL,
+                          "int8": WIRE_INT8_TOL, "keyed": WIRE_KEYED_TOL,
+                          "int8_min_ratio": WIRE_INT8_MIN_RATIO,
+                          "signsgd_min_ratio": WIRE_SIGN_MIN_RATIO}}
+    rss = {}
+    with _sampled_peak_rss(rss), tempfile.TemporaryDirectory(prefix="distlr-smoke-wire-") as tmp:
+        _ps_data(tmp, seed)
+        runs, launches = _wire_dense_runs(torch, ops, tmp, smi)
+        out.update(runs)
+        out["launches"] = launches
+        out["keyed_sparse_lr"] = _wire_keyed_runs(torch, tmp, seed)
+        out["ps_server"] = _wire_ps_server(torch, ops, tmp)
+    out["push_alone"] = push_costs(FULL_D, PS_SERVERS, WIRE_PUSH_REPS, seed)
+    out.update(rss)
+    out["phase_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    emit("ps_wire", **out)
+    return out
+
+
 # --- hot-row serving from a live PS ------------------------------------------
 HOT_ROWS, HOT_PROBE_ROWS, HOT_FULL_EVERY, HOT_INTERVAL_S, HOT_EPOCHS = 4096, 64, 10, 0.05, 24
 
@@ -3999,6 +4514,8 @@ def main(argv=None) -> int:
         serve = phase_serve(torch, args.seed, env["nvidia_smi"])
         phase = "ps_keyed"
         phase_ps_keyed(torch, args.seed, env["nvidia_smi"])
+        phase = "ps_wire"
+        ps_wire = phase_ps_wire(torch, args.seed, env["nvidia_smi"])
         phase = "serve_hot"
         phase_serve_hot(torch, args.seed, env["nvidia_smi"])
         phase = "route"
@@ -4016,6 +4533,8 @@ def main(argv=None) -> int:
             for name, n in ps[mode]["launches"].items():
                 if n:
                     by_path.setdefault(name, {})[f"ps_{mode}"] = n
+        for name, n in ps_wire["launches"].items():
+            by_path.setdefault(name, {})["ps_wire"] = n
         for shape, t in ps["kernels_at_ps_shapes"]["timing"].items():
             name, rows = shape.rsplit("_B", 1)
             timing[name].setdefault("at_ps_shapes", {})[f"B{rows}"] = t

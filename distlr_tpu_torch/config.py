@@ -5,7 +5,9 @@ sync trainer reads (all five model families, int8 feature storage,
 checkpoints, the ``data x model`` mesh of the feature-sharded step) and
 that the ported parameter-server worker loop reads
 (``num_servers``, ``ps_compute_backend``, ``ps_pipeline``,
-``ps_timeout_ms``; sync BSP and async Hogwild for every family)
+``ps_timeout_ms``; sync BSP and async Hogwild for every family; the
+servers' update rule ``ps_optimizer`` with the ``ftrl_*`` parameters,
+the wire codec ``ps_compress`` and the ``ps_accum_*`` accumulation)
 and the scoring tier reads (the ``serve_*`` fields of ``launch serve``,
 hot-row reload and named engines among them, and the ``route_*`` fields
 of ``launch route``),
@@ -39,8 +41,6 @@ _UNPORTED_PS_OPTIONS = {
     "ps_host": "127.0.0.1", "ps_port": 8001,
     "ps_retry_attempts": 0, "ps_retry_backoff_ms": 50.0, "ps_retry_backoff_max_ms": 2000.0,
     "ps_retry_deadline_s": 60.0, "ps_retry_adaptive": False,
-    "ps_optimizer": "sgd", "ps_compress": "none",
-    "ps_accum_start": 1, "ps_accum_growth": 2.0, "ps_accum_growth_every": 32, "ps_accum_max": 1,
     "ps_store_dir": None, "ps_store_interval_s": 5.0, "ps_store_wal": False,
     "ps_store_wal_fsync_s": 0.1, "chaos_plan": None, "chaos_seed": None,
 }
@@ -122,6 +122,29 @@ class Config:
     # Per-op receive timeout (0 = block forever, the reference's
     # semantics: a dead peer then deadlocks the sync barrier).
     ps_timeout_ms: int = 600_000
+    # Server-side update rule of gradient pushes: "sgd" (the reference's
+    # w -= lr * g) or "ftrl" (per-coordinate FTRL-Proximal with z and n
+    # accumulators; L1 sparsifies).  Incompatible with the Q1
+    # sync_last_gradient quirk (an SGD parity artifact).
+    ps_optimizer: str = "sgd"         # sgd | ftrl
+    ftrl_alpha: float = 0.1           # per-coordinate learning-rate scale
+    ftrl_beta: float = 1.0            # learning-rate smoothing
+    ftrl_l1: float = 0.0              # L1 strength (sparsifies weights)
+    ftrl_l2: float = 0.0              # L2 strength
+    # Gradient wire codec of PS pushes, negotiated a connection (a group
+    # that does not advertise it gets dense f32): "int8" block-quantized
+    # values with f32 scales (sgd and ftrl), "signsgd" 1 bit a coordinate
+    # and the servers' majority vote (the group runs --optimizer=signsgd;
+    # needs ps_optimizer="sgd" and a signSGD-scale learning_rate).
+    # Incompatible with Q1.
+    ps_compress: str = "none"         # none | int8 | signsgd
+    # AdaBatch accumulation: push the MEAN gradient every k batches, k
+    # growing from ps_accum_start by x ps_accum_growth every
+    # ps_accum_growth_every pushes, capped at ps_accum_max; (1, 1) = off.
+    ps_accum_start: int = 1
+    ps_accum_growth: float = 2.0
+    ps_accum_growth_every: int = 32
+    ps_accum_max: int = 1
     # Not ported (ROADMAP A.16): must keep these defaults.
     ps_host: str = "127.0.0.1"        # DMLC_PS_ROOT_URI
     ps_port: int = 8001               # DMLC_PS_ROOT_PORT
@@ -130,12 +153,6 @@ class Config:
     ps_retry_backoff_max_ms: float = 2000.0
     ps_retry_deadline_s: float = 60.0
     ps_retry_adaptive: bool = False
-    ps_optimizer: str = "sgd"         # sgd | ftrl
-    ps_compress: str = "none"         # none | int8 | signsgd
-    ps_accum_start: int = 1
-    ps_accum_growth: float = 2.0
-    ps_accum_growth_every: int = 32
-    ps_accum_max: int = 1
     ps_store_dir: str | None = None
     ps_store_interval_s: float = 5.0
     ps_store_wal: bool = False
@@ -278,10 +295,7 @@ class Config:
                              f"got {self.ps_compute_backend!r}")
         if self.ps_timeout_ms < 0:
             raise ValueError(f"ps_timeout_ms must be >= 0 (0 = no timeout), got {self.ps_timeout_ms}")
-        if self.ps_optimizer not in ("sgd", "ftrl"):
-            raise ValueError(f"ps_optimizer must be sgd|ftrl, got {self.ps_optimizer!r}")
-        if self.ps_compress not in ("none", "int8", "signsgd"):
-            raise ValueError(f"ps_compress must be none|int8|signsgd, got {self.ps_compress!r}")
+        self._check_ps_wire()
         for name, default in _UNPORTED_PS_OPTIONS.items():
             if getattr(self, name) != default:
                 raise _not_ported(f"the PS option {name}={getattr(self, name)!r}", "A.16")
@@ -298,6 +312,38 @@ class Config:
         if not 0 <= self.hash_seed < 1 << 64:
             raise ValueError(f"hash_seed must be in [0, 2^64), got {self.hash_seed}")
         self._check_serve()
+
+    def _check_ps_wire(self) -> None:
+        """The JAX package's checks of the servers' update rule, the wire
+        codec and the accumulation, in its order and with its messages."""
+        if self.ps_optimizer not in ("sgd", "ftrl"):
+            raise ValueError(f"ps_optimizer must be sgd|ftrl, got {self.ps_optimizer!r}")
+        if self.ps_optimizer == "ftrl" and self.sync_last_gradient:
+            raise ValueError("ps_optimizer='ftrl' is incompatible with "
+                             "sync_last_gradient (Q1 compat is an SGD parity quirk)")
+        if self.ftrl_alpha <= 0:
+            raise ValueError(f"ftrl_alpha must be positive, got {self.ftrl_alpha}")
+        if self.ftrl_beta < 0 or self.ftrl_l1 < 0 or self.ftrl_l2 < 0:
+            raise ValueError("ftrl_beta/ftrl_l1/ftrl_l2 must be >= 0, got "
+                             f"{self.ftrl_beta}/{self.ftrl_l1}/{self.ftrl_l2}")
+        if self.ps_compress not in ("none", "int8", "signsgd"):
+            raise ValueError(f"ps_compress must be none|int8|signsgd, got {self.ps_compress!r}")
+        if self.ps_compress != "none" and self.sync_last_gradient:
+            raise ValueError("ps_compress is incompatible with sync_last_gradient "
+                             "(Q1 compat pins the dense-SGD wire trajectory)")
+        if self.ps_compress == "signsgd" and self.ps_optimizer != "sgd":
+            raise ValueError("ps_compress='signsgd' replaces the server update rule "
+                             "(the group runs --optimizer=signsgd); it is incompatible "
+                             f"with ps_optimizer={self.ps_optimizer!r}")
+        if self.ps_accum_start < 1 or self.ps_accum_max < self.ps_accum_start:
+            raise ValueError("need 1 <= ps_accum_start <= ps_accum_max, got "
+                             f"{self.ps_accum_start}/{self.ps_accum_max} "
+                             "(raise --accum-max when setting --accum-start)")
+        if self.ps_accum_growth < 1.0:
+            raise ValueError(f"ps_accum_growth must be >= 1, got {self.ps_accum_growth}")
+        if self.ps_accum_growth_every <= 0:
+            raise ValueError("ps_accum_growth_every must be positive, "
+                             f"got {self.ps_accum_growth_every}")
 
     def _check_mesh(self) -> None:
         if self.feature_shards < 1:

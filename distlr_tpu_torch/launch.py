@@ -1,5 +1,5 @@
 """Command-line entry point of the port: ``gen-data``, ``sync``, ``eval``,
-``ps``, ``serve``, ``route`` and ``rollout``.
+``ps``, ``ps-server``, ``serve``, ``route`` and ``rollout``.
 
 Counterpart of ``distlr_tpu/launch.py`` for the options the port carries,
 with the same flag names, plus ``--device`` (default ``cuda``; the CPU
@@ -51,6 +51,18 @@ Each worker writes ``models/part-00{rank+1}``::
     python -m distlr_tpu_torch.launch ps --data-dir C --num-feature-dim 4096 \\
         --model blocked_lr --block-size auto --num-workers 2 --num-servers 2
 
+The servers' update rule is ``--ps-optimizer sgd|ftrl`` (``--ftrl-*``),
+the gradients cross the wire as ``--ps-compress none|int8|signsgd``, and
+``--accum-start/-growth/-growth-every/-max`` push the mean of a growing
+span of batches.  ``ps-server`` hosts a group in the foreground (``HOSTS
+h:p,...``; ``--namespaces v1:ftrl,v2`` hosts model namespaces, each with
+its own optimizer) for workers that join it with ``ps --hosts``::
+
+    python -m distlr_tpu_torch.launch ps-server --num-feature-dim 123 \\
+        --num-servers 2 --num-workers 2 --ps-optimizer ftrl      # HOSTS h:p,h:p
+    python -m distlr_tpu_torch.launch ps --data-dir D --num-feature-dim 123 \\
+        --num-workers 2 --hosts h:p,h:p --ps-optimizer ftrl --ps-compress int8
+
 ``serve`` scores libsvm lines over TCP with a trained model (every
 family), reloading its weights from a watched checkpoint dir or a live KV
 server group; it prints ``SERVING host:port`` when it listens and exits
@@ -99,6 +111,8 @@ _CONFIG_FIELDS = (
     "num_classes", "nnz_max", "block_size", "block_groups", "ctr_fields", "hash_seed",
     "checkpoint_dir", "checkpoint_interval", "profile_dir",
     "num_servers", "ps_compute_backend", "ps_timeout_ms", "ps_pipeline",
+    "ps_optimizer", "ftrl_alpha", "ftrl_beta", "ftrl_l1", "ftrl_l2", "ps_compress",
+    "ps_accum_start", "ps_accum_growth", "ps_accum_growth_every", "ps_accum_max",
 )
 
 #: the JAX package's ``ps`` flags that are not ported yet (ROADMAP A.16):
@@ -113,16 +127,6 @@ _UNPORTED_PS_FLAGS = (
     ("--ps-retry-backoff-max", "ps_retry_backoff_max_ms", float),
     ("--ps-retry-deadline", "ps_retry_deadline_s", float),
     ("--ps-retry-adaptive", "ps_retry_adaptive", None),
-    ("--ps-optimizer", "ps_optimizer", str),
-    ("--ftrl-alpha", "ftrl_alpha", float),
-    ("--ftrl-beta", "ftrl_beta", float),
-    ("--ftrl-l1", "ftrl_l1", float),
-    ("--ftrl-l2", "ftrl_l2", float),
-    ("--ps-compress", "ps_compress", str),
-    ("--accum-start", "ps_accum_start", int),
-    ("--accum-growth", "ps_accum_growth", float),
-    ("--accum-growth-every", "ps_accum_growth_every", int),
-    ("--accum-max", "ps_accum_max", int),
     ("--store-dir", "ps_store_dir", str),
     ("--store-interval", "ps_store_interval_s", float),
     ("--store-wal", "ps_store_wal", None),
@@ -130,6 +134,17 @@ _UNPORTED_PS_FLAGS = (
     ("--checkpoint-dir", "checkpoint_dir", str),
     ("--checkpoint-interval", "checkpoint_interval", int),
     ("--resume", "resume", None),
+)
+
+#: the JAX package's ``ps-server`` flags that are not ported yet (ROADMAP
+#: A.16: membership and the durable store); given, each one raises
+_UNPORTED_PS_SERVER_FLAGS = (
+    ("--elastic", "elastic", None),
+    ("--ctl-port", "ctl_port", int),
+    ("--store-dir", "ps_store_dir", str),
+    ("--store-interval", "ps_store_interval_s", float),
+    ("--store-wal", "ps_store_wal", None),
+    ("--store-wal-fsync", "ps_store_wal_fsync_s", float),
 )
 
 
@@ -202,6 +217,37 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
                    help="N > 0 runs on the CPU (env twin DISTLR_CPU_DEVICES).  The JAX "
                    "package simulates an N-device CPU mesh with it; here every row and "
                    "column block shares one device, so N only selects the CPU")
+
+
+def _add_ps_wire_flags(p: argparse.ArgumentParser) -> None:
+    """The servers' update rule, the gradient wire codec and the
+    accumulation: JAX's names, types and defaults."""
+    p.add_argument("--ps-optimizer", dest="ps_optimizer", choices=["sgd", "ftrl"],
+                   help="server-side update rule of gradient pushes: sgd (the reference "
+                   "w -= lr*g, default) or ftrl (per-coordinate FTRL-Proximal with z/n "
+                   "accumulators and --ftrl-l1 sparsification)")
+    p.add_argument("--ftrl-alpha", dest="ftrl_alpha", type=float,
+                   help="FTRL per-coordinate learning-rate scale (default 0.1)")
+    p.add_argument("--ftrl-beta", dest="ftrl_beta", type=float,
+                   help="FTRL learning-rate smoothing (default 1.0)")
+    p.add_argument("--ftrl-l1", dest="ftrl_l1", type=float,
+                   help="FTRL L1 strength, sparsifies server weights (default 0)")
+    p.add_argument("--ftrl-l2", dest="ftrl_l2", type=float, help="FTRL L2 strength (default 0)")
+    p.add_argument("--ps-compress", dest="ps_compress", choices=["none", "int8", "signsgd"],
+                   help="gradient wire codec of PS pushes, negotiated a connection (a group "
+                   "that does not advertise it gets dense f32): int8 = block-quantized "
+                   "values with f32 scales (sgd/ftrl), signsgd = 1 bit a coordinate and the "
+                   "servers' majority vote (the group runs --optimizer=signsgd; use a "
+                   "signSGD-scale --learning-rate).  Default none: the wire is unchanged")
+    p.add_argument("--accum-start", dest="ps_accum_start", type=int,
+                   help="AdaBatch local accumulation: initial batches a push (default 1)")
+    p.add_argument("--accum-growth", dest="ps_accum_growth", type=float,
+                   help="multiply the accumulation span by this every --accum-growth-every "
+                   "pushes (default 2)")
+    p.add_argument("--accum-growth-every", dest="ps_accum_growth_every", type=int,
+                   help="pushes between accumulation-span growths (default 32)")
+    p.add_argument("--accum-max", dest="ps_accum_max", type=int,
+                   help="accumulation span cap (default 1 = accumulation off)")
 
 
 def _add_mesh_flags(p: argparse.ArgumentParser) -> None:
@@ -387,6 +433,77 @@ def cmd_ps(args: argparse.Namespace) -> int:
         return 2
     else:
         run_ps_local(cfg, save=True)
+    return 0
+
+
+def cmd_ps_server(args: argparse.Namespace) -> int:
+    """Host a KV server group in the foreground (the reference's
+    ``DMLC_ROLE=server`` processes, ``examples/local.sh:36-41``; the
+    rendezvous is TCP, there is no scheduler): it prints ``HOSTS h:p,...``
+    (and ``NAMESPACES id=base,... per_dim=D`` with ``--namespaces``), then
+    waits until a worker retires the group.  SIGTERM stops every server
+    and exits 143."""
+    import signal  # noqa: PLC0415
+
+    from distlr_tpu_torch.config import _not_ported  # noqa: PLC0415
+    from distlr_tpu_torch.ps import (  # noqa: PLC0415
+        ServerGroup,
+        namespace_layout,
+        parse_namespace_optimizers,
+    )
+    from distlr_tpu_torch.train.ps_trainer import ps_param_dim, server_optimizer  # noqa: PLC0415
+
+    for flag, dest, _ in _UNPORTED_PS_SERVER_FLAGS:
+        if getattr(args, dest) not in (None, False):
+            raise _not_ported(f"launch ps-server {flag}", "A.16")
+    # a terminated foreground group must not orphan its servers: SIGTERM
+    # becomes SystemExit, so the group's context manager stops them
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    cfg = _config_from_args(args)
+    if args.asynchronous:
+        cfg = cfg.replace(sync_mode=False)
+    ports = [int(s) for s in args.ports.split(",")] if args.ports else None
+    if ports and len(ports) != cfg.num_servers:
+        print(f"error: {len(ports)} ports for {cfg.num_servers} servers", file=sys.stderr)
+        return 2
+    # model namespaces: one group hosts N models as contiguous slices of an
+    # N-times-larger key space; an entry's ":opt" gives its slice an update
+    # rule of its own (the group spawns with --opt_segments)
+    layout, opt_segments = None, None
+    per_dim = total_dim = ps_param_dim(cfg)
+    if args.namespaces:
+        layout = namespace_layout(args.namespaces, per_dim)
+        total_dim = per_dim * len(layout)
+        try:
+            ns_opts = parse_namespace_optimizers(args.namespaces)
+        except ValueError as e:
+            print(f"error: bad --namespaces: {e}", file=sys.stderr)
+            return 2
+        if ns_opts:
+            default_opt = server_optimizer(cfg)
+            if default_opt == "signsgd":
+                print("error: per-namespace optimizers are incompatible with signsgd groups "
+                      "(sign votes only mean majority-vote through a uniform group)",
+                      file=sys.stderr)
+                return 2
+            opt_segments = [(base + d, ns_opts.get(m, default_opt))
+                            for m, (base, d) in layout.items()]
+    group = ServerGroup(cfg.num_servers, cfg.num_workers, total_dim,
+                        learning_rate=cfg.learning_rate, sync=cfg.sync_mode,
+                        last_gradient=bool(cfg.sync_last_gradient), ports=ports, bind_any=True,
+                        optimizer=server_optimizer(cfg), ftrl_alpha=cfg.ftrl_alpha,
+                        ftrl_beta=cfg.ftrl_beta, ftrl_l1=cfg.ftrl_l1, ftrl_l2=cfg.ftrl_l2,
+                        opt_segments=opt_segments)
+    try:
+        with group:
+            # workers pass this, with this host's address for 127.0.0.1, as --hosts
+            print(f"HOSTS {group.hosts}", flush=True)
+            if layout is not None:
+                print("NAMESPACES " + ",".join(f"{m}={b}" for m, (b, _) in layout.items())
+                      + f" per_dim={per_dim}", flush=True)
+            group.wait()
+    except KeyboardInterrupt:
+        return 130  # interrupted, not a worker-driven shutdown
     return 0
 
 
@@ -703,6 +820,7 @@ def main(argv=None) -> int:
     p.add_argument("--no-ps-pipeline", dest="ps_pipeline", action="store_false", default=None,
                    help="the reference's serialized pull -> grad -> push a batch instead "
                    "of one fused push_pull (and, async, the overlapped next gradient)")
+    _add_ps_wire_flags(p)
     for flag, dest, typ in _UNPORTED_PS_FLAGS:
         if typ is None:
             p.add_argument(flag, dest=dest, action="store_true", default=None,
@@ -710,6 +828,29 @@ def main(argv=None) -> int:
         else:
             p.add_argument(flag, dest=dest, type=typ, help="not ported yet (ROADMAP A.16)")
     p.set_defaults(fn=cmd_ps)
+
+    v = sub.add_parser("ps-server", help="host a KV server group in the foreground (workers "
+                       "join it with `ps --hosts`)")
+    _add_config_flags(v)
+    v.add_argument("--num-servers", dest="num_servers", type=int,
+                   help="KV server processes, one key range each (default 1)")
+    v.add_argument("--async", dest="asynchronous", action="store_true",
+                   help="Hogwild group (each push applied at once)")
+    v.add_argument("--ports", help="fixed ports, comma-separated (default: ephemeral)")
+    v.add_argument("--namespaces",
+                   help="host N model namespaces in one group (comma-separated model ids, "
+                   "the order defines the key-space slices): the group's dim becomes N x "
+                   "the per-model dim, announced as 'NAMESPACES id=base,...'; clients "
+                   "repeat the list as --ps-namespaces.  An id may carry an optimizer "
+                   "suffix ('v1:ftrl,v2:sgd'): that slice's keys run it (sgd|ftrl)")
+    _add_ps_wire_flags(v)
+    for flag, dest, typ in _UNPORTED_PS_SERVER_FLAGS:
+        if typ is None:
+            v.add_argument(flag, dest=dest, action="store_true", default=None,
+                           help="not ported yet (ROADMAP A.16)")
+        else:
+            v.add_argument(flag, dest=dest, type=typ, help="not ported yet (ROADMAP A.16)")
+    v.set_defaults(fn=cmd_ps_server)
 
     r = sub.add_parser("serve", help="online scoring server (batched scoring on the card, "
                        "hot weight reload)")
@@ -755,7 +896,8 @@ def main(argv=None) -> int:
                    "namespace of the --ps-hosts group live (needs --ps-namespaces)")
     r.add_argument("--ps-namespaces", dest="ps_namespaces",
                    help="comma-separated model ids the PS group hosts as key-space "
-                   "namespaces, in the group's order (the order defines the slices)")
+                   "namespaces, in the group's order (the order defines the slices); "
+                   "repeat `ps-server --namespaces` verbatim, ':opt' suffixes included")
     r.add_argument("--ps-namespace", dest="ps_namespace",
                    help="which namespace the primary engine serves (default: --model-id)")
     for flag, dest, typ, item in _UNPORTED_SERVE_FLAGS:

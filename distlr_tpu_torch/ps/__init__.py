@@ -5,6 +5,7 @@ from distlr_tpu_torch.ps.client import (  # noqa: F401
     STATS_FIELDS,
     KVNamespace,
     KVWorker,
+    PSRejectedError,
     PSTimeoutError,
     namespace_layout,
     parse_namespace_optimizers,

@@ -15,11 +15,18 @@ values (ps-lite's uniform ``lens``), the keyed PS families' encoding.
 Namespaces (:func:`namespace_layout`, :class:`KVNamespace`,
 :meth:`KVWorker.namespace`) fold several equal-width model versions into
 one group's key space, offset on the client side: the wire carries plain
-keyed ops, so the server needs no change.
+keyed ops, so the server needs no change.  A namespace may carry its own
+server optimizer (``v1:ftrl``).
 
-Not ported yet: the retry policy, membership epochs and re-routing, wire
-codecs and per-namespace optimizers other than ``sgd`` (ROADMAP A.16),
-and the trace spans and registry counters (A.12).
+Gradient wire codecs (``compress="int8"|"signsgd"``,
+:mod:`distlr_tpu_torch.compress`) are negotiated at connect and at every
+reconnect through the kHello capability handshake; a group that does not
+advertise the codec gets dense f32 pushes, and the fallback is logged.
+The worker counts the bytes of each delivered push in
+:attr:`KVWorker.push_bytes_raw` / :attr:`KVWorker.push_bytes_wire`.
+
+Not ported yet: the retry policy, membership epochs and re-routing
+(ROADMAP A.16), and the trace spans and registry counters (A.12).
 """
 
 from __future__ import annotations
@@ -29,9 +36,11 @@ import threading
 
 import numpy as np
 
-from distlr_tpu_torch.config import _not_ported
 from distlr_tpu_torch.ps import wire
 from distlr_tpu_torch.ps.build import client_lib
+from distlr_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
 
 #: Order of the counters a server stats probe returns (kv_protocol.h);
 #: the ``cpu_*`` tail is per-handler thread-CPU seconds.
@@ -59,6 +68,12 @@ class PSTimeoutError(TimeoutError):
     """A KV op hit the receive timeout: in sync mode, a dead or slow
     worker holding the BSP barrier (the reference deadlocks forever
     there, SURVEY.md §5.3)."""
+
+
+class PSRejectedError(OSError):
+    """The server answered an explicit rejection: the op does not apply
+    to its configuration (an FTRL opt-state op against an sgd server,
+    say).  Deterministic: re-issuing it cannot succeed."""
 
 
 def _load():
@@ -95,6 +110,18 @@ def _load():
                 lib.kv_set_push_visit_all.argtypes = [ctypes.c_void_p, ctypes.c_int]
                 lib.kv_timed_out.restype = ctypes.c_int
                 lib.kv_timed_out.argtypes = [ctypes.c_void_p]
+                lib.kv_op_rejected.restype = ctypes.c_int
+                lib.kv_op_rejected.argtypes = [ctypes.c_void_p]
+                lib.kv_negotiate_codec.restype = ctypes.c_int
+                lib.kv_negotiate_codec.argtypes = [ctypes.c_void_p, ctypes.c_int]
+                lib.kv_last_wire_sent.restype = ctypes.c_uint64
+                lib.kv_last_wire_sent.argtypes = [ctypes.c_void_p]
+                for name in ("kv_pull_opt_state", "kv_push_init_opt_state"):
+                    fn = getattr(lib, name)
+                    fn.restype = ctypes.c_int
+                    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_uint64]
+                lib.kv_push_init_opt_state.argtypes += [ctypes.c_int]
                 lib.kv_stats.restype = ctypes.c_int
                 lib.kv_stats.argtypes = [  # out buffer is float64 (see kv_protocol.h)
                     ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p, ctypes.c_uint64,
@@ -119,12 +146,18 @@ class KVWorker:
     every receive (0 blocks forever, the reference's semantics).
     ``sync_group=False`` (an async group) lets keyed pushes skip servers
     whose key slice is empty; a sync group must visit all, because an
-    empty push is that worker's vote in the BSP round.  Ops on one
-    worker must not overlap: one connection per server, one op at a time.
+    empty push is that worker's vote in the BSP round.  ``compress`` asks
+    for a gradient wire codec (``none``, ``int8``, ``signsgd``);
+    :attr:`compress_active` is the one in force.  Ops on one worker must
+    not overlap: one connection per server, one op at a time.
     """
 
     def __init__(self, hosts: str, dim: int, client_id: int = 0, *,
-                 timeout_ms: int = 0, sync_group: bool = True):
+                 timeout_ms: int = 0, sync_group: bool = True, compress: str = "none"):
+        from distlr_tpu_torch.compress import CODEC_IDS  # noqa: PLC0415
+
+        if compress not in CODEC_IDS:
+            raise ValueError(f"compress must be one of {tuple(CODEC_IDS)}, got {compress!r}")
         self._lib = _load()
         self.hosts = hosts
         self.dim = int(dim)
@@ -132,30 +165,64 @@ class KVWorker:
         self._client_id = client_id
         self._timeout_ms = int(timeout_ms)
         self._sync_group = sync_group
+        #: the wire codec asked for ("none" = dense f32, never negotiated)
+        self.compress = compress
+        #: the codec in force after the kHello handshake ("none" when a
+        #: server of the group lacks it); None until the first handshake,
+        #: so that the first outcome, a fallback too, is always logged
+        self.compress_active: str | None = None
+        self._codec_id = CODEC_IDS[compress]
+        #: bytes of the delivered gradient pushes: ``raw`` what they would
+        #: have cost as dense f32 (the keys as given + 4 bytes a value),
+        #: ``wire`` what left for the servers (headers + keys + coded
+        #: payload, summed over servers); a failed push counts in neither
+        self.push_bytes_raw = 0
+        self.push_bytes_wire = 0
+        self._sign_zero_checked = False  # the first sign-coded push is checked
+        self._dense_rows: tuple[np.ndarray, int] | None = None
         self._h = self._build_handle()
         # dense default key set 0..D-1, like the reference app (src/lr.cc:117-121)
         self._all_keys = np.arange(self.dim, dtype=np.uint64)
 
     def _build_handle(self):
         """A new native handle with this worker's hosts, dim, client id,
-        timeout and group mode."""
+        timeout and group mode, its codec negotiated when one was asked
+        for (the codec state lives a handle)."""
         lib = self._lib
         h = lib.kv_connect(self.hosts.encode(), self.dim, self._client_id)
         if not h:
             raise ConnectionError(f"could not connect to KV servers at {self.hosts}")
-        if self._timeout_ms and lib.kv_set_timeout_ms(h, self._timeout_ms) != 0:
+        try:
+            if self._timeout_ms and lib.kv_set_timeout_ms(h, self._timeout_ms) != 0:
+                raise OSError("failed to set KV socket timeout")
+            if not self._sync_group:
+                lib.kv_set_push_visit_all(h, 0)
+            if self._codec_id:
+                got = lib.kv_negotiate_codec(h, self._codec_id)
+                if got < 0:
+                    raise OSError("codec negotiation failed: " + lib.kv_last_error(h).decode())
+                active = self.compress if got == self._codec_id else "none"
+                if active != self.compress_active:
+                    if active == "none":
+                        log.warning("KV group at %s does not advertise codec %r; "
+                                    "falling back to dense f32 pushes", self.hosts,
+                                    self.compress)
+                    else:
+                        log.info("negotiated %r gradient pushes with %s", active, self.hosts)
+                self.compress_active = active
+            else:
+                self.compress_active = "none"
+        except Exception:
             lib.kv_close(h)
-            raise OSError("failed to set KV socket timeout")
-        if not self._sync_group:
-            lib.kv_set_push_visit_all(h, 0)
+            raise
         return h
 
     def reconnect(self) -> None:
         """Rebuild the native handle in place, the way out of a poisoned
         connection (after one failed receive every later op on that stream
-        fails).  The new connections open before the old ones close, so a
-        failed reconnect (servers still down) raises and leaves the old
-        handle as it was."""
+        fails); the codec is negotiated anew.  The new connections open
+        before the old ones close, so a failed reconnect (servers still
+        down) raises and leaves the old handle as it was."""
         h = self._build_handle()
         old, self._h = self._h, h
         if old:
@@ -172,6 +239,8 @@ class KVWorker:
             err = self._lib.kv_last_error(self._h).decode()
             if self._lib.kv_timed_out(self._h):
                 raise PSTimeoutError(f"KV {what} timed out: {err}")
+            if self._lib.kv_op_rejected(self._h):
+                raise PSRejectedError(f"KV {what} rejected: {err}")
             raise OSError(f"KV {what} failed: {err}")
         return ts
 
@@ -213,15 +282,59 @@ class KVWorker:
             return self._all_keys
         return self._validate_keys(keys, vpk)
 
-    def _frame(self, vals, keys, vpk: int) -> tuple[np.ndarray, np.ndarray]:
-        """A push's ``(keys, vals)``: ``vals`` holds ``len(keys) * vpk``
-        f32s, row-major."""
-        vals = np.ascontiguousarray(vals, dtype=np.float32).reshape(-1)
-        keys = self._default_or_validated(keys, vpk)
+    def _dense_row_encoding(self) -> tuple[np.ndarray, int]:
+        """Row keys of a dense default-key push under a codec: the largest
+        ``vpk`` (at most the protocol's cap) that divides ``dim`` and
+        aligns with the group's range boundaries, so the key frame shrinks
+        from ``dim`` u64s to ``dim/vpk`` (at D = 1M, 8 MB of keys become
+        2 KB).  Flat keys when no divisor aligns; the uncompressed path
+        always keeps the flat dense key set."""
+        if self._dense_rows is None:
+            best = 1
+            for v in range(min(wire.MAX_VALS_PER_KEY, self.dim), 1, -1):
+                if self.dim % v == 0 and self.supports_vals_per_key(v):
+                    best = v
+                    break
+            keys = np.arange(self.dim // best, dtype=np.uint64) if best > 1 else self._all_keys
+            self._dense_rows = (keys, best)
+        return self._dense_rows
+
+    def _push_frame(self, keys, vpk: int, vals: np.ndarray):
+        """A gradient push's ``(raw_bytes, keys, vpk)``: ``raw`` is what
+        the push would cost as dense f32 (the keys as given + 4 bytes a
+        value), and a dense default-key push rides the row encoding when
+        a codec is in force (:meth:`_dense_row_encoding`)."""
+        if self.compress_active == "signsgd" and not self._sign_zero_checked:
+            # 1-bit signSGD has no abstention: an exact zero votes -1, so a
+            # mostly-zero gradient walks every untouched weight by +lr a
+            # round.  One check, on the first coded push.
+            self._sign_zero_checked = True
+            if vals.size and np.count_nonzero(vals) < vals.size // 2:
+                log.warning("signsgd push is mostly exact zeros (%d of %d coordinates): zero "
+                            "votes decode -1 and drift untouched weights by +lr a round; "
+                            "push touched keys only, or use compress='int8' for sparse "
+                            "gradients", vals.size - np.count_nonzero(vals), vals.size)
+        if keys is None and vpk == 1 and self.compress_active != "none":
+            raw = self._all_keys.nbytes + vals.nbytes
+            keys, vpk = self._dense_row_encoding()
+            keys = self._validate_keys(keys, vpk)
+        else:
+            keys = self._default_or_validated(keys, vpk)
+            raw = keys.nbytes + vals.nbytes
         if vals.shape[0] != keys.shape[0] * vpk:
             raise ValueError(f"{vals.shape[0]} vals vs {keys.shape[0]} keys "
                              f"x vals_per_key {vpk}")
-        return keys, vals
+        return raw, keys, vpk
+
+    def _account_push(self, raw: int) -> None:
+        self.push_bytes_raw += raw
+        self.push_bytes_wire += int(self._lib.kv_last_wire_sent(self._h))
+
+    @property
+    def compress_ratio(self) -> float | None:
+        """Cumulative raw / wire bytes of the delivered pushes (about 1 for
+        dense f32; None before the first push)."""
+        return self.push_bytes_raw / self.push_bytes_wire if self.push_bytes_wire else None
 
     def push(self, vals: np.ndarray, keys: np.ndarray | None = None, *,
              vals_per_key: int = 1) -> int:
@@ -232,18 +345,24 @@ class KVWorker:
         ``vals_per_key=R``: keys are R-lane ROW ids (row ``k`` owns flat
         slots ``[k*R, (k+1)*R)``) and ``vals`` holds ``len(keys)*R`` floats
         row-major, one u64 of key on the wire per R values (requires
-        :meth:`supports_vals_per_key`)."""
-        vpk = int(vals_per_key)
-        keys, vals = self._frame(vals, keys, vpk)
-        ts = self._lib.kv_push_vpk(self._h, _ptr(keys), _ptr(vals), keys.shape[0], vpk)
-        return self._check(ts, "push")
+        :meth:`supports_vals_per_key`).  Under a negotiated codec the
+        values cross the wire coded."""
+        vals = np.ascontiguousarray(vals, dtype=np.float32).reshape(-1)
+        raw, keys, vpk = self._push_frame(keys, int(vals_per_key), vals)
+        ts = self._check(self._lib.kv_push_vpk(self._h, _ptr(keys), _ptr(vals),
+                                               keys.shape[0], vpk), "push")
+        self._account_push(raw)
+        return ts
 
     def push_init(self, vals: np.ndarray, keys: np.ndarray | None = None,
                   *, force: bool = False) -> int:
         """Idempotent weight-seeding push: initializes an uninitialized
         group and no-ops otherwise (kInitPush); ``force=True`` overwrites
         live weights (kForceInit)."""
-        keys, vals = self._frame(vals, keys, 1)
+        vals = np.ascontiguousarray(vals, dtype=np.float32).reshape(-1)
+        keys = self._default_or_validated(keys, 1)
+        if vals.shape[0] != keys.shape[0]:
+            raise ValueError(f"{vals.shape[0]} vals vs {keys.shape[0]} keys")
         ts = self._lib.kv_push_init(self._h, _ptr(keys), _ptr(vals), keys.shape[0],
                                     1 if force else 0)
         return self._check(ts, "push_init")
@@ -256,12 +375,13 @@ class KVWorker:
         blocks through the BSP round; the reply is the post-round state,
         the same bits as the pull that would have followed.
         ``vals_per_key``: see :meth:`push`."""
-        vpk = int(vals_per_key)
-        keys, vals = self._frame(vals, keys, vpk)
+        vals = np.ascontiguousarray(vals, dtype=np.float32).reshape(-1)
+        raw, keys, vpk = self._push_frame(keys, int(vals_per_key), vals)
         out = np.empty(keys.shape[0] * vpk, dtype=np.float32)
         ts = self._lib.kv_push_pull_vpk(self._h, _ptr(keys), _ptr(vals), _ptr(out),
                                         keys.shape[0], vpk)
         self._check(ts, "push_pull")
+        self._account_push(raw)
         return out
 
     def pull(self, keys: np.ndarray | None = None, *, vals_per_key: int = 1) -> np.ndarray:
@@ -324,6 +444,37 @@ class KVWorker:
         table.reshape(self.dim // vpk, vpk)[keys.astype(np.int64)] = vals.reshape(-1, vpk)
         return int(keys.size)
 
+    def pull_opt_state(self) -> tuple[np.ndarray, np.ndarray]:
+        """The server's FTRL accumulators ``(z, n)`` over this handle's
+        whole key range (kOptState).  One server a handle: the
+        ``[z..., n...]`` layout cannot be range-sliced.  Raises
+        :class:`PSRejectedError` against a server without FTRL."""
+        if self.num_servers != 1:
+            raise ValueError("pull_opt_state addresses ONE server per handle (got "
+                             f"{self.num_servers}); use a per-rank connection")
+        out = np.empty(2 * self.dim, dtype=np.float32)
+        self._check(self._lib.kv_pull_opt_state(self._h, _ptr(self._all_keys), _ptr(out),
+                                                self._all_keys.shape[0]), "pull_opt_state")
+        return out[:self.dim].copy(), out[self.dim:].copy()
+
+    def push_init_opt_state(self, z: np.ndarray, n: np.ndarray, *,
+                            force: bool = False) -> int:
+        """Seed the server's FTRL z and n (idempotent as :meth:`push_init`;
+        ``force=True`` overwrites): with a forced weight init, a fresh
+        group resumes an FTRL trajectory exactly.  One server a handle."""
+        if self.num_servers != 1:
+            raise ValueError("push_init_opt_state addresses ONE server per handle "
+                             f"(got {self.num_servers}); use a per-rank connection")
+        z = np.ascontiguousarray(z, dtype=np.float32).reshape(-1)
+        n = np.ascontiguousarray(n, dtype=np.float32).reshape(-1)
+        if z.shape[0] != self.dim or n.shape[0] != self.dim:
+            raise ValueError(f"z/n must each hold dim={self.dim} values, got "
+                             f"{z.shape[0]}/{n.shape[0]}")
+        buf = np.concatenate([z, n])
+        ts = self._lib.kv_push_init_opt_state(self._h, _ptr(self._all_keys), _ptr(buf),
+                                              self._all_keys.shape[0], 1 if force else 0)
+        return self._check(ts, "push_init_opt_state")
+
     def wait(self, ts: int) -> None:
         """No-op for API parity: push and pull already block (the
         reference pairs every Push/Pull with an immediate Wait)."""
@@ -378,8 +529,8 @@ def parse_namespace_optimizers(spec) -> dict[str, str]:
     """Per-namespace server optimizers of an extended namespaces spec:
     ``"v1:sgd,v2"`` -> ``{"v1": "sgd"}``; entries without a ``:opt``
     suffix are omitted (they ride the group's optimizer), bare specs give
-    ``{}``.  JAX's legal values are ``sgd`` and ``ftrl``; ``ftrl`` needs
-    the server optimizers of ROADMAP A.16 and raises here."""
+    ``{}``.  Only ``sgd`` and ``ftrl`` are legal a namespace (sign votes
+    mean a majority vote only through a uniform signsgd group)."""
     if not isinstance(spec, str):
         return {}
     opts: dict[str, str] = {}
@@ -391,8 +542,6 @@ def parse_namespace_optimizers(spec) -> dict[str, str]:
         mid, opt = mid.strip(), opt.strip()
         if opt not in ("sgd", "ftrl"):
             raise ValueError(f"namespace optimizer must be sgd|ftrl, got {part!r}")
-        if opt != "sgd":
-            raise _not_ported(f"the namespace optimizer {part!r}", "A.16")
         opts[mid] = opt
     return opts
 
@@ -403,9 +552,9 @@ def namespace_layout(models, per_model_dim: int) -> dict[str, tuple[int, int]]:
     owning flat slots ``[i*D, (i+1)*D)``.  The group is spawned with the
     total dim ``len(models) * per_model_dim``; a server count dividing the
     model count (or one server) keeps every range boundary on a namespace
-    boundary.  A ``:opt`` suffix of an entry is stripped, so clients
-    repeat the server's spec verbatim; ``:ftrl`` raises, as in
-    :func:`parse_namespace_optimizers`.
+    boundary.  A ``:opt`` suffix of an entry (:func:`parse_namespace_
+    optimizers`) is stripped, so clients repeat the server's spec
+    verbatim.
 
     Equal widths only: a spec asking for per-model dims (``"v1=8192,
     v2=1024"`` or a ``{model: dim}`` mapping) with different widths is
@@ -421,10 +570,7 @@ def namespace_layout(models, per_model_dim: int) -> dict[str, tuple[int, int]]:
             if not part:
                 continue
             mid, eq, dim = part.partition("=")
-            mid, _, opt = mid.partition(":")
-            if opt.strip() == "ftrl":
-                raise _not_ported(f"the namespace optimizer {part!r}", "A.16")
-            mid = mid.strip()
+            mid = mid.partition(":")[0].strip()
             parsed.append(mid)
             if eq:
                 try:
@@ -484,6 +630,10 @@ class KVNamespace:
     @property
     def num_servers(self) -> int:
         return self.kv.num_servers
+
+    @property
+    def compress_active(self):
+        return self.kv.compress_active
 
     def supports_vals_per_key(self, vpk: int) -> bool:
         """Rows work inside the namespace when they work group-wide and

@@ -32,9 +32,17 @@ siblings), or the JAX package's host numpy functions, copied here, with
 ``ps_compute_backend="numpy"``.  Their L2 is lazy: only a batch's active
 keys decay.
 
-Not ported yet: accumulation, retries and restarts, checkpoints and
-resume, supervision, chaos (ROADMAP A.16); the staleness histograms,
-trace spans and profiler hooks (A.12).
+What the servers compute and what crosses the wire follow the config as
+in the JAX package: the group runs ``ps_optimizer`` (FTRL with the
+``ftrl_*`` parameters) or, under ``ps_compress="signsgd"``, the majority
+vote; each worker negotiates the ``ps_compress`` codec; with
+``ps_accum_max > 1`` a worker pushes the mean of a growing span of
+batches (:class:`~distlr_tpu_torch.compress.GradientAccumulator`),
+pulling at each span's start, instead of the fused round a batch.
+
+Not ported yet: retries and restarts, checkpoints and resume,
+supervision, chaos (ROADMAP A.16); the staleness histograms, trace spans
+and profiler hooks (A.12).
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from distlr_tpu_torch.compress import GradientAccumulator
 from distlr_tpu_torch.config import Config, _not_ported
 from distlr_tpu_torch.data.iterator import BlockedDataIter, DataIter, SparseDataIter
 from distlr_tpu_torch.data.sharding import part_name
@@ -68,6 +77,14 @@ def ps_param_dim(cfg: Config) -> int:
     and workers; softmax flattens its (D, K) weight matrix)."""
     return cfg.num_feature_dim * (
         cfg.num_classes if cfg.model in ("softmax", "sparse_softmax") else 1)
+
+
+def server_optimizer(cfg: Config) -> str:
+    """The update rule the server group runs: ``signsgd`` compression
+    replaces the rule (1-bit votes through another optimizer would be a
+    sign mean, not a majority vote), else ``ps_optimizer``.  Local spawns
+    and ``launch ps-server`` share it."""
+    return "signsgd" if cfg.ps_compress == "signsgd" else cfg.ps_optimizer
 
 
 def ps_compute_device(cfg: Config):
@@ -371,8 +388,11 @@ class PSWorker:
         self.cfg = cfg
         self.rank = rank
         self.model = get_model(cfg)
+        # the negotiated wire codec (dense f32 when the group does not
+        # advertise it: KVWorker logs the fallback)
         self.kv = KVWorker(hosts, ps_param_dim(cfg), client_id=rank,
-                           timeout_ms=cfg.ps_timeout_ms, sync_group=cfg.sync_mode)
+                           timeout_ms=cfg.ps_timeout_ms, sync_group=cfg.sync_mode,
+                           compress=cfg.ps_compress)
         self.metrics = MetricsLogger()
         self.timer = StepTimer()
         self.final_weights: np.ndarray | None = None
@@ -389,6 +409,8 @@ class PSWorker:
         #: keyed rounds: the unique rows of each and the wire's vals_per_key
         self.keyed_rows: list[int] = []
         self.vals_per_key: int | None = None
+        #: the AdaBatch accumulator of a run with ps_accum_max > 1
+        self.accum: GradientAccumulator | None = None
         self._test_keyed = None  # the keyed test set's unique rows and positions, once
         if cfg.model in _KEYED_MODELS and cfg.l2_c > 0:
             # only a batch's touched keys decay, scaled by touch frequency,
@@ -556,13 +578,41 @@ class PSWorker:
         self.kv.barrier(0)
         return self._run_epochs(train, test, eval_fn=eval_fn, save=save)
 
+    def _flush_dense_accum(self, accum: GradientAccumulator) -> None:
+        """Push one dense accumulation span: its mean gradient."""
+        g = accum.flush_dense()
+        if g is None:
+            return
+        with self._timed("push"):
+            self.kv.wait(self.kv.push(g))
+
+    def _flush_keyed_accum(self, accum: GradientAccumulator, vpk: int) -> None:
+        """Push one keyed accumulation span: the mean gradient on the rows
+        it touched.  A sync span that cancelled to exact zeros still
+        pushes an empty frame: the BSP vote its peers' replies wait on."""
+        res = accum.flush_keyed(vpk)
+        if res is None:
+            return  # no batches in the span: the same on every worker
+        rows, vals = res
+        if rows.size == 0 and not self.cfg.sync_mode:
+            return
+        with self._timed("push"):
+            self.kv.wait(self.kv.push(vals, rows, vals_per_key=vpk))
+
     def _run_epochs(self, train: DataIter, test: DataIter | None, *, eval_fn, save):
         cfg = self.cfg
         dev = ps_compute_device(cfg)
         dev = resolve_device(dev) if isinstance(dev, torch.device) else dev
         keyed = cfg.model in _KEYED_MODELS
+        # AdaBatch accumulation: the span's mean a push, k growing on the
+        # schedule; a span also ends with its epoch, so epochs stay
+        # self-contained for eval and BSP workers stay in lockstep
+        accum = self.accum = (GradientAccumulator(
+            ps_param_dim(cfg), start=cfg.ps_accum_start, growth=cfg.ps_accum_growth,
+            growth_every=cfg.ps_accum_growth_every, max_k=cfg.ps_accum_max)
+            if cfg.ps_accum_max > 1 else None)
         if keyed:
-            kround = self._keyed_round(dev)
+            kround = self._keyed_round(dev, accum)
         else:
             compute_g = self._grad_fn(dev)
         for epoch in range(cfg.num_iteration):
@@ -575,6 +625,23 @@ class PSWorker:
                     self.timer.start()
                     kround(b)
                     self.timer.stop(int(b[-1].sum()))
+                if accum is not None:
+                    self._flush_keyed_accum(accum, self.vals_per_key)
+            elif accum is not None:
+                # a pull at each span's start, k gradients on the span's
+                # weights, one push of their mean: the fused and pipelined
+                # protocols give way (the span already removes k-1 of k
+                # round trips), as in the JAX package
+                for X, y, mask in train:
+                    self.timer.start()
+                    if accum.batches == 0:
+                        with self._timed("pull"):
+                            self._w_cache = self.kv.pull()
+                    accum.add(compute_g(self._w_cache, X, y, mask))
+                    if accum.ready:
+                        self._flush_dense_accum(accum)
+                    self.timer.stop(int(mask.sum()))
+                self._flush_dense_accum(accum)
             elif not cfg.ps_pipeline:
                 # the reference's serialized protocol: two blocking round
                 # trips a batch (src/lr.cc:116-132)
@@ -640,12 +707,14 @@ class PSWorker:
             self.kv.shutdown_servers()
         return self.final_weights
 
-    def _keyed_round(self, dev):
+    def _keyed_round(self, dev, accum: GradientAccumulator | None = None):
         """The keyed round of one batch, ``kround(batch)``: its unique rows
         (``np.unique``), a keyed pull, the gradient, a keyed push of the
-        same rows.  Rows wider than one value ride ``vals_per_key`` where
-        the group's ranges align, else expanded per-lane keys (the same
-        slots either way: the server expands at parse time)."""
+        same rows, or with ``accum`` the gradient added at the batch's own
+        keys and the span's union of touched rows pushed when it is full.
+        Rows wider than one value ride ``vals_per_key`` where the group's
+        ranges align, else expanded per-lane keys (the same slots either
+        way: the server expands at parse time)."""
         cfg = self.cfg
         row_width = keyed_row_width(cfg)
         vpk = row_width if row_width > 1 and self.kv.supports_vals_per_key(row_width) else 1
@@ -665,8 +734,16 @@ class PSWorker:
             with self._timed("pull"):
                 w_u = self.kv.pull(keys, vals_per_key=vpk)
             g = kgrad(w_u, (pos.reshape(ids.shape), *b[1:]))
-            with self._timed("push"):
-                self.kv.wait(self.kv.push(g, keys, vals_per_key=vpk))
+            if accum is None:
+                with self._timed("push"):
+                    self.kv.wait(self.kv.push(g, keys, vals_per_key=vpk))
+                return
+            if vpk > 1:
+                accum.add_rows(keys, g, vpk)
+            else:
+                accum.add_at(keys, g)
+            if accum.ready:
+                self._flush_keyed_accum(accum, vpk)
         return kround
 
     def _comm_pool(self) -> ThreadPoolExecutor:
@@ -687,7 +764,10 @@ class PSWorker:
         ``model.grad``: the kernel and the host's planning, allocation and
         launch inside the call, which the card waits out
         (``grad_span_first_ms`` is the first step's, with the kernel
-        library's load); rank 0 adds its last eval and the push clock."""
+        library's load); the codec in force and the bytes of the pushes
+        (raw as dense f32, and on the wire), with the accumulation's
+        flushes and span when it is on; rank 0 adds its last eval and the
+        push clock."""
         span_ms = [s.elapsed_time(e) for s, e in self._grad_events]
         keyed = {}
         if self.keyed_rows:
@@ -695,8 +775,14 @@ class PSWorker:
             rows = float(np.mean(self.keyed_rows))
             keyed = {"vals_per_key": self.vals_per_key, "keyed_rows_per_round": rows,
                      "wire_bytes_per_round": rows * (8 + 4 * self.vals_per_key)}
+        wire = {"compress_active": self.kv.compress_active,
+                "push_bytes_raw": self.kv.push_bytes_raw,
+                "push_bytes_wire": self.kv.push_bytes_wire,
+                "compress_ratio": self.kv.compress_ratio}
+        if self.accum is not None:
+            wire.update(accum_flushes=self.accum.flushes, accum_k=self.accum.k)
         return {
-            "rank": self.rank, "steps": self.timer.steps,
+            "rank": self.rank, "steps": self.timer.steps, **wire,
             "round_ms": 1e3 * self.timer.sec_per_step,
             **{f"{op}_ms": 1e3 * float(np.mean(v)) for op, v in self.op_seconds.items()},
             **{f"{op}_count": len(v) for op, v in self.op_seconds.items()},
@@ -772,7 +858,9 @@ def run_ps_local(cfg: Config, *, eval_fn=None, save: bool = False, report: dict 
     check_ps_config(cfg)
     group = ServerGroup(cfg.num_servers, cfg.num_workers, ps_param_dim(cfg),
                         learning_rate=cfg.learning_rate, sync=cfg.sync_mode,
-                        last_gradient=bool(cfg.sync_last_gradient))
+                        last_gradient=bool(cfg.sync_last_gradient),
+                        optimizer=server_optimizer(cfg), ftrl_alpha=cfg.ftrl_alpha,
+                        ftrl_beta=cfg.ftrl_beta, ftrl_l1=cfg.ftrl_l1, ftrl_l2=cfg.ftrl_l2)
     with group:
         results = run_ps_workers(cfg, group.hosts, range(cfg.num_workers), eval_fn=eval_fn,
                                  save=save, on_error=group.stop, report=report)

@@ -892,3 +892,33 @@ def test_feature_sharded_trainer_on_card_matches_cpu(cuda, fd):
     assert _rel(w_card.cpu(), on_cpu.fit()) <= tol
     got, want = on_card.evaluate_metrics(), on_cpu.evaluate_metrics()
     assert abs(got["accuracy"] - want["accuracy"]) <= 1 / 400
+
+
+def test_int8_push_of_a_card_gradient_reads_back_its_codec_and_ratio(cuda):
+    """A worker's gradient computed on the card (one ``fused_lr_grad``
+    launch), read back and pushed int8-coded into a 2-server group: the
+    worker reads back ``compress_active`` "int8", a byte ratio above 8,
+    and the servers hold w minus the decoded gradient of each slice."""
+    import numpy as np
+
+    from distlr_tpu_torch.compress import int8_roundtrip
+    from distlr_tpu_torch.models import get_model
+    from distlr_tpu_torch.ps import KVWorker, ServerGroup
+
+    B, D = 256, 100_000
+    w, X, y, mask = _inputs(cuda, B, D, torch.bfloat16, seed=3)
+    cfg = Config(num_feature_dim=D, l2_c=0.0)
+    launches = ops.fused_lr_grad.launches
+    g = get_model(cfg).grad(w, (X, y, mask), cfg).cpu().numpy()
+    assert ops.fused_lr_grad.launches == launches + 1
+    w0 = w.cpu().numpy()
+    with ServerGroup(2, 1, D, sync=False, learning_rate=1.0) as sg, \
+            KVWorker(sg.hosts, D, sync_group=False, compress="int8") as kv:
+        assert kv.compress_active == "int8"
+        kv.push_init(w0)
+        kv.wait(kv.push(g))
+        got = kv.pull()
+        ratio = kv.compress_ratio
+    assert ratio > 8.0
+    decoded = np.concatenate([int8_roundtrip(g[:D // 2]), int8_roundtrip(g[D // 2:])])
+    np.testing.assert_array_equal(got, (w0 - decoded).astype(np.float32))

@@ -54,7 +54,10 @@ def test_fresh_interpreter_imports_no_jax():
                 "distlr_tpu_torch.models.linear", "distlr_tpu_torch.train.ps_trainer",
                 "distlr_tpu_torch.ps.client", "distlr_tpu_torch.data._native",
                 "distlr_tpu_torch.serve.router", "distlr_tpu_torch.serve.balance",
-                "distlr_tpu_torch.serve.tenant", "distlr_tpu_torch.serve.rollout"):
+                "distlr_tpu_torch.serve.tenant", "distlr_tpu_torch.serve.rollout",
+                "distlr_tpu_torch.compress", "distlr_tpu_torch.compress.codecs",
+                "distlr_tpu_torch.compress.accum", "distlr_tpu_torch.ps.server",
+                "distlr_tpu_torch.benchmarks.wire_push"):
         assert mod in doc["imported"]
     assert doc["leaked"] == []
 

@@ -144,6 +144,43 @@ class TestPSCLI:
                          "--device", "cpu", *argv])
 
 
+    @pytest.mark.parametrize("argv", [
+        ["--ps-optimizer", "ftrl"],
+        ["--ftrl-alpha", "0.3"],
+        ["--ftrl-beta", "2.0"],
+        ["--ftrl-l1", "0.05"],
+        ["--ftrl-l2", "0.5"],
+        ["--ps-compress", "int8"],
+        ["--accum-start", "2", "--accum-max", "8"],
+        ["--accum-growth", "1.5"],
+        ["--accum-growth-every", "4"],
+        ["--accum-max", "4"],
+    ])
+    def test_ps_wire_flags_reach_config_like_jax(self, argv, tmp_path, monkeypatch):
+        """The FTRL, codec and accumulation flags of ``launch ps`` give the
+        run the Config fields the JAX package's ``launch ps`` gives it."""
+        from distlr_tpu import launch as jax_launch
+        from distlr_tpu.train import ps_trainer as jax_ps_trainer
+
+        from distlr_tpu_torch import launch
+        from distlr_tpu_torch.train import ps_trainer
+
+        seen = {}
+        monkeypatch.setattr(ps_trainer, "run_ps_local",
+                            lambda cfg, **kw: seen.setdefault("ours", cfg))
+        monkeypatch.setattr(jax_ps_trainer, "run_ps_local",
+                            lambda cfg, **kw: seen.setdefault("theirs", cfg))
+        common = ["ps", "--data-dir", str(tmp_path), "--num-feature-dim", "8", *argv]
+        assert launch.main([*common, "--device", "cpu"]) == 0
+        assert jax_launch.main(common) == 0
+        for f in ("ps_optimizer", "ftrl_alpha", "ftrl_beta", "ftrl_l1", "ftrl_l2",
+                  "ps_compress", "ps_accum_start", "ps_accum_growth", "ps_accum_growth_every",
+                  "ps_accum_max"):
+            assert getattr(seen["ours"], f) == getattr(seen["theirs"], f), f
+        flag_dest = {"--ps-optimizer": "ps_optimizer", "--ps-compress": "ps_compress"}
+        dest = flag_dest.get(argv[0], argv[0][2:].replace("-", "_").replace("accum", "ps_accum"))
+        assert getattr(seen["ours"], dest) != getattr(Config(device="cpu"), dest)
+
     @pytest.mark.parametrize("argv,writer", [
         (["--model", "sparse_lr"], "ctr"),
         (["--model", "blocked_lr", "--block-size", "8"], "raw"),

@@ -142,9 +142,6 @@ class TestConfigGates:
         ({"ps_port": 9000}, "A.16"),
         ({"ps_retry_attempts": 3}, "A.16"),
         ({"ps_retry_adaptive": True}, "A.16"),
-        ({"ps_optimizer": "ftrl"}, "A.16"),
-        ({"ps_compress": "int8"}, "A.16"),
-        ({"ps_accum_max": 4}, "A.16"),
         ({"ps_store_dir": "store"}, "A.16"),
         ({"ps_store_wal": True}, "A.16"),
         ({"chaos_plan": "plan.json"}, "A.16"),
@@ -172,6 +169,40 @@ class TestConfigGates:
         for f in ("model", "sync_mode", "block_size", "serve_hot_rows",
                   "serve_hot_min_coverage", "serve_hot_full_every"):
             assert getattr(t, f) == getattr(j, f), f
+
+    # the servers' update rule, the wire codec and the accumulation (the
+    # first half of ROADMAP A.16): accepted, with the JAX package's values
+    @pytest.mark.parametrize("kw", [
+        {"ps_optimizer": "ftrl"},
+        {"ps_compress": "int8"},
+        {"ps_accum_max": 4},
+        {"ps_optimizer": "ftrl", "ftrl_alpha": 0.3, "ftrl_beta": 2.0, "ftrl_l1": 0.05,
+         "ftrl_l2": 0.5, "ps_compress": "int8"},
+        {"ps_compress": "signsgd", "learning_rate": 0.01},
+        {"ps_accum_start": 2, "ps_accum_growth": 1.5, "ps_accum_growth_every": 4,
+         "ps_accum_max": 16},
+    ])
+    def test_ps_wire_options_resolve_like_jax(self, kw):
+        j, t = JaxConfig(**kw), Config(device="cpu", **kw)
+        for f in ("ps_optimizer", "ftrl_alpha", "ftrl_beta", "ftrl_l1", "ftrl_l2",
+                  "ps_compress", "ps_accum_start", "ps_accum_growth", "ps_accum_growth_every",
+                  "ps_accum_max", "learning_rate"):
+            assert getattr(t, f) == getattr(j, f), f
+
+    @pytest.mark.parametrize("kw", [
+        {"ps_optimizer": "adagrad"}, {"ps_optimizer": "ftrl", "compat_mode": "reference"},
+        {"ftrl_alpha": 0.0}, {"ftrl_beta": -1.0}, {"ftrl_l1": -1.0}, {"ftrl_l2": -0.5},
+        {"ps_compress": "gzip"}, {"ps_compress": "int8", "compat_mode": "reference"},
+        {"ps_compress": "signsgd", "ps_optimizer": "ftrl"},
+        {"ps_accum_start": 0}, {"ps_accum_start": 4, "ps_accum_max": 2},
+        {"ps_accum_growth": 0.5}, {"ps_accum_growth_every": 0},
+    ])
+    def test_ps_wire_options_validate_like_jax(self, kw):
+        with pytest.raises(ValueError) as theirs:
+            JaxConfig(**kw)
+        with pytest.raises(ValueError) as ours:
+            Config(device="cpu", **kw)
+        assert str(ours.value) == str(theirs.value)
 
     # a named engine and the router's options (ROADMAP A.17): accepted,
     # with the JAX package's values

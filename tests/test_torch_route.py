@@ -430,7 +430,8 @@ class TestNamespaces:
 
         from distlr_tpu_torch.ps import parse_namespace_optimizers
 
-        for spec in ("v1,v2", "v1:sgd, v2 : sgd ,v3", None, 5):
+        for spec in ("v1,v2", "v1:sgd, v2 : sgd ,v3", None, 5, "v1:ftrl,v2",
+                     "v1:ftrl, v2:sgd ,v3:ftrl"):
             assert parse_namespace_optimizers(spec) == jax_parse(spec)
         for spec in ("v1:adam",):
             with pytest.raises(ValueError) as a:
@@ -438,11 +439,10 @@ class TestNamespaces:
             with pytest.raises(ValueError) as b:
                 jax_parse(spec)
             assert str(a.value) == str(b.value)
-        # JAX takes ftrl here; its server optimizers are ROADMAP A.16
-        assert jax_parse("v1:ftrl,v2") == {"v1": "ftrl"}
-        for fn in (parse_namespace_optimizers, namespace_layout):
-            with pytest.raises(NotImplementedError, match=r"ROADMAP A\.16\)"):
-                fn("v1:ftrl,v2", *((4,) if fn is namespace_layout else ()))
+        # an FTRL namespace is accepted: the same optimizers and layout as JAX's
+        assert parse_namespace_optimizers("v1:ftrl,v2") == {"v1": "ftrl"}
+        for spec in ("v1:ftrl,v2", "v1:ftrl=4,v2=4", "a:sgd,b:ftrl,c"):
+            assert namespace_layout(spec, 4) == jax_namespace_layout(spec, 4)
 
     def test_both_clients_read_the_same_bytes_of_each_slice(self):
         """Two namespaces of 16 on a port group of 2 servers (total 32):
