@@ -27,8 +27,9 @@ MNIST-shaped D = 784, K = 10, 60,000 rows, and its step alone at D = 1M,
 every family, an int8_dot sync that checkpoints and resumes,
 ``gen-data -> ps -> eval``, ``gen-data -> sync -> serve`` (a text model,
 then a checkpoint directory), ``sync`` and ``eval --feature-shards 4``,
-``sync`` as a one-rank NCCL group and ``serve`` x2 -> ``route`` ->
-``rollout``, then the parameter-server path at the full
+``sync`` as a one-rank NCCL group, ``serve`` x2 -> ``route`` ->
+``rollout`` and ``ps-server`` -> ``online`` -> ``serve --feedback-spool``,
+then the parameter-server path at the full
 width through ``run_ps_local`` (native libsvm shards of config-3 CTR rows
 at D = 1M, 2 native KV servers, 2 worker threads on the card: sync BSP
 and async Hogwild, each gradient the ``fused_lr_grad`` single pass; then
@@ -54,7 +55,13 @@ the serving control plane (a ``ScoringRouter`` in front of two
 at D = 1M: one reloads both from two namespaces of one PS group, the other
 serves text models; mixed traffic, a tenant quota, SPLIT, SHADOW, a replica
 killed and restarted under load, canary ramps that roll back and promote,
-and a keyed push into one namespace), and last the path of the on-device generation probes: both roofline experiments
+and a keyed push into one namespace), then the closed online-learning
+loop at D = 1M (``ID`` requests and their ``LABEL`` lines through a
+``ScoringRouter`` to a ``ScoringServer`` with a ``FeedbackSink``, ``python
+-m distlr_tpu_torch.launch online`` training an async FTRL group the
+server hot-reloads from; the probes separate from cold, follow a label
+flip, the drift alert fires and clears, and the joined shards replay to a
+numpy oracle), and last the path of the on-device generation probes: both roofline experiments
 (``distlr_tpu_torch.benchmarks.exp_gen_roofline*``) at the published
 (256, 8192) x 64 tile, in this process and as ``python -m``.  Each phase
 prints JSON lines; any failure exits non-zero before the last line, which is
@@ -3726,6 +3733,352 @@ def phase_route(torch, seed: int, smi: str) -> dict:
     return out
 
 
+# --- the online-learning loop ---------------------------------------------------
+# a row takes one of ONLINE_VOCAB columns (spread over [0, D)) in each of
+# ONLINE_FIELDS fields, so features recur and FTRL learns in seconds; a
+# label is the sign of the planted margin, |margin| >= 2 (the JAX package's
+# closed-loop test rows); the probes' margins are >= 4
+ONLINE_FIELDS, ONLINE_VOCAB, ONLINE_MIN_MARGIN, ONLINE_PROBE_MARGIN = 8, 8, 2, 4
+ONLINE_ROUND_ROWS, ONLINE_LABEL_FRAC, ONLINE_PROBES = 60, 0.85, 8
+ONLINE_WINDOW_S, ONLINE_NEG_RATE, ONLINE_SHARD_RECORDS = 1.0, 0.3, 64
+ONLINE_DRIFT_BLOCK, ONLINE_DRIFT_THRESHOLD = 120, 0.15
+ONLINE_TICK_S, ONLINE_IDLE_FLUSH_S, ONLINE_RELOAD_S = 0.1, 0.3, 0.2
+ONLINE_FTRL = {"ftrl_alpha": 1.0, "ftrl_beta": 1.0, "ftrl_l1": 0.001, "ftrl_l2": 0.0}
+ONLINE_DEADLINE_S, ONLINE_REL_TOL = 20.0, 1e-5
+# launch online's accumulation defaults (--accum-max 64 when not given)
+ONLINE_ACCUM = {"start": 1, "growth": 2.0, "growth_every": 32, "max_k": 64}
+
+
+def _online_rows(rng, vocab, w_true, n: int, sign: int, min_margin: int = ONLINE_MIN_MARGIN):
+    """``n`` rows of the phase as (n, ONLINE_FIELDS) ascending columns and
+    their labels under ``sign * w_true``."""
+    import numpy as np  # noqa: PLC0415
+
+    cols, ys = [], []
+    while len(cols) < n:
+        c = np.sort(vocab[np.arange(ONLINE_FIELDS), rng.integers(0, ONLINE_VOCAB, ONLINE_FIELDS)])
+        m = sign * float(w_true[c].sum())
+        if abs(m) < min_margin:
+            continue
+        cols.append(c)
+        ys.append(int(m > 0))
+    return np.stack(cols), np.asarray(ys, np.int32)
+
+
+def _features(cols_row) -> str:
+    return " ".join(f"{c + 1}:1" for c in cols_row)
+
+
+class _OnlineClient:
+    """One connection to the router: ID lines and their LABEL lines, JSON
+    probes, plain lines."""
+
+    def __init__(self, host, port):
+        import socket  # noqa: PLC0415
+
+        self._s = socket.create_connection((host, port), timeout=ROUTE_CLIENT_TIMEOUT_S)
+        self._f = self._s.makefile("rwb")
+        self.next_id = 0
+        self.seconds: list[float] = []
+
+    def exchange(self, line: str) -> str:
+        t0 = time.perf_counter()
+        self._f.write((line + "\n").encode())
+        self._f.flush()
+        reply = self._f.readline().decode().rstrip("\n")
+        self.seconds.append(time.perf_counter() - t0)
+        if not reply:
+            raise ConnectionError("the router closed the connection")
+        return reply
+
+    def drive(self, cols, y, rng) -> None:
+        for c, label in zip(cols, y):
+            rid = f"r{self.next_id}"
+            self.next_id += 1
+            reply = self.exchange(f"ID {rid} {_features(c)}")
+            if reply.startswith("ERR"):
+                raise AssertionError(f"online: ID {rid} answered {reply}")
+            if rng.random() < ONLINE_LABEL_FRAC:
+                reply = self.exchange(f"LABEL {rid} {int(label)}")
+                if not reply.startswith("OK"):
+                    raise AssertionError(f"online: LABEL {rid} answered {reply}")
+
+    def probe(self, cols):
+        import numpy as np  # noqa: PLC0415
+
+        reply = self.exchange(json.dumps({"rows": [_features(c) for c in cols]}))
+        if reply.startswith("ERR"):
+            raise AssertionError(f"online: the probe answered {reply}")
+        return np.asarray(json.loads(reply)["scores"], np.float64)
+
+    def close(self) -> None:
+        self._f.close()
+        self._s.close()
+
+
+def _online_replay(torch, tmp: str, shard_paths, smi: str) -> dict:
+    """Check 5: the loop's joined shards, all present before ``run``, through
+    the port's ``OnlineTrainer`` into a fresh async FTRL group, against a
+    numpy replay of the same arithmetic: a pull at each span's start, the
+    numpy mean gradient, the accumulation schedule and the FTRL oracle."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.data.libsvm import parse_libsvm_lines  # noqa: PLC0415
+    from distlr_tpu_torch.feedback import OnlineTrainer  # noqa: PLC0415
+    from distlr_tpu_torch.ps import KVWorker, ServerGroup  # noqa: PLC0415
+    from distlr_tpu_torch.train.ps_trainer import _np_dense_grad  # noqa: PLC0415
+
+    d = os.path.join(tmp, "replay")
+    os.makedirs(d)
+    for i, path in enumerate(shard_paths):
+        shutil.copy(path, os.path.join(d, f"shard-{i:06d}.libsvm"))
+    cfg = Config(num_feature_dim=FULL_D, l2_c=0.0, sync_mode=False, ps_optimizer="ftrl",
+                 ps_timeout_ms=PS_TIMEOUT_MS, **ONLINE_FTRL)
+    acc = ONLINE_ACCUM
+    with ServerGroup(PS_SERVERS, 1, FULL_D, sync=False, optimizer="ftrl",
+                     **ONLINE_FTRL) as sg:
+        tr = OnlineTrainer(cfg, sg.hosts, d, accum_start=acc["start"],
+                           accum_growth=acc["growth"], accum_growth_every=acc["growth_every"],
+                           accum_max=acc["max_k"], poll_interval_s=0.01)
+        t0 = time.perf_counter()
+        stats = tr.run(max_shards=len(shard_paths))
+        run_s = time.perf_counter() - t0
+        tr.close()
+        with KVWorker(sg.hosts, FULL_D, client_id=9) as kv:
+            w_run = kv.pull()
+    orc = _FtrlOracle(np.zeros(FULL_D, np.float32), *(ONLINE_FTRL[k] for k in (
+        "ftrl_alpha", "ftrl_beta", "ftrl_l1", "ftrl_l2")))
+    k, flushes, batches, buf, w_span = acc["start"], 0, 0, None, None
+
+    def flush():
+        nonlocal k, flushes, batches, buf
+        orc.step(buf / np.float32(batches))
+        flushes, batches, buf = flushes + 1, 0, None
+        if flushes % acc["growth_every"] == 0:
+            k = min(acc["max_k"], max(k + 1, int(round(k * acc["growth"]))))
+
+    B = 256  # the trainer's batch when batch_size is -1
+    for i in range(len(shard_paths)):
+        with open(os.path.join(d, f"shard-{i:06d}.libsvm.done")) as f:
+            lines = [ln for ln in f.read().splitlines() if ln.strip()]
+        X, y = parse_libsvm_lines(lines, FULL_D, dense=True)
+        for lo in range(0, len(y), B):
+            if batches == 0:
+                w_span = orc.w.copy()
+            g = _np_dense_grad(w_span, X[lo:lo + B], y[lo:lo + B],
+                               np.ones(len(y[lo:lo + B]), np.float32), 0.0, False, None)
+            buf = g if buf is None else buf + g
+            batches += 1
+            if batches >= k:
+                flush()
+    if batches:
+        flush()
+    err = float(np.abs(w_run - orc.w).max() / max(np.abs(orc.w).max(), 1e-30))
+    out = {"shards": len(shard_paths), "stats": stats, "oracle_pushes": flushes,
+           "oracle_accum_k": k, "weights_rel_err_vs_oracle": err,
+           "nonzero_weights": int(np.count_nonzero(w_run)), "run_s": run_s,
+           "consume_ms_per_shard": 1e3 * tr.consume_s / max(len(shard_paths), 1),
+           "parse_ms_per_shard": 1e3 * tr.parse_s / max(len(shard_paths), 1),
+           "gradient_ms_per_shard": 1e3 * tr.grad_s / max(len(shard_paths), 1),
+           "nvidia_smi": smi}
+    if (err > ONLINE_REL_TOL or stats["pushes"] != flushes or stats["accum_k"] != k
+            or stats["shards_consumed"] != len(shard_paths)):
+        raise AssertionError(f"online replay: the trainer's weights or pushes differ from "
+                             f"the numpy replay: {out}")
+    return out
+
+
+def phase_online(torch, seed: int, smi: str) -> dict:
+    """The closed online-learning loop at the full width (binary_lr, D = 1M,
+    bf16, ``lr_logits``), through the entry points a user runs: an async FTRL
+    ``ServerGroup`` of PS_SERVERS servers; ``python -m distlr_tpu_torch.launch
+    online`` in a subprocess (it seeds the group); an in-process
+    ``ScoringServer`` with a ``HotReloader`` over a ``LivePSWatcher`` and a
+    ``FeedbackSink``, behind a ``ScoringRouter`` that fans the LABEL lines
+    out.  ID requests come through the router, ~85% of them labelled; the
+    JSON probes go to a second listener of the same engine, without a sink
+    (a spooled probe row would return as a label-0 sample every round).  The
+    launch counts are zeroed just before the traffic and read after check 3.
+    Checks: (1) from cold the probes separate; (2) the labels flip and the
+    probes follow with no restart, the drift alert fires and then clears on
+    steady traffic; (3) with the trainer stopped, the served scores equal
+    σ(plain logits of the pulled weights); (4) ``lr_logits`` launched on
+    the path; (5) the joined shards replayed into a fresh group equal a numpy
+    replay."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.feedback import FeedbackSink  # noqa: PLC0415
+    from distlr_tpu_torch.ps import KVWorker, ServerGroup  # noqa: PLC0415
+    from distlr_tpu_torch.serve import (  # noqa: PLC0415
+        HotReloader,
+        LivePSWatcher,
+        ScoringRouter,
+        ScoringServer,
+    )
+
+    rng = np.random.default_rng(seed + 50)
+    vocab = np.sort(rng.choice(FULL_D, size=ONLINE_FIELDS * ONLINE_VOCAB, replace=False)
+                    ).reshape(ONLINE_FIELDS, ONLINE_VOCAB)
+    w_true = np.zeros(FULL_D, np.float32)
+    # half of each field's columns +1 and half -1: the labels are balanced
+    w_true[vocab] = rng.permuted(np.tile([-1.0, 1.0], vocab.shape[1] // 2)[None].repeat(
+        ONLINE_FIELDS, 0), axis=1)
+    cols, y = _online_rows(rng, vocab, w_true, 16 * ONLINE_PROBES, +1, ONLINE_PROBE_MARGIN)
+    probe_pos, probe_neg = cols[y == 1][:ONLINE_PROBES // 2], cols[y == 0][:ONLINE_PROBES // 2]
+    probes = np.concatenate([probe_pos, probe_neg])
+    out = {"nvidia_smi": smi, "D": FULL_D, "servers": PS_SERVERS, "ftrl": ONLINE_FTRL,
+           "window_s": ONLINE_WINDOW_S, "negative_rate": ONLINE_NEG_RATE,
+           "shard_records": ONLINE_SHARD_RECORDS, "round_rows": ONLINE_ROUND_ROWS}
+    rss: dict = {}
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with _sampled_peak_rss(rss), tempfile.TemporaryDirectory(prefix="distlr-smoke-online-") as tmp, \
+            ServerGroup(PS_SERVERS, 1, FULL_D, sync=False, optimizer="ftrl",
+                        **ONLINE_FTRL) as sg:
+        shard_dir = os.path.join(tmp, "shards")
+        err_path = os.path.join(tmp, "online.err")
+        with open(err_path, "w") as err_f:
+            trainer = subprocess.Popen(
+                [sys.executable, "-m", "distlr_tpu_torch.launch", "online", "--num-feature-dim",
+                 str(FULL_D), "--l2-c", "0", "--hosts", sg.hosts, "--shard-dir", shard_dir,
+                 "--poll-interval", "0.05", "--ps-timeout", str(PS_TIMEOUT_MS)],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=err_f, text=True)
+        servers, router, client = [], None, None
+        try:
+            ready = trainer.stdout.readline()
+            if not ready.startswith("ONLINE "):
+                raise AssertionError(f"launch online printed {ready!r} first")
+            eng = _serve_engine(torch, FULL_D)
+            reloader = HotReloader(eng, LivePSWatcher(sg.hosts, FULL_D),
+                                   interval_s=ONLINE_RELOAD_S, jitter=0.0)
+            reloader.wait_for_weights(60)
+            reloader.start()
+            sink = FeedbackSink(os.path.join(tmp, "spool"), shard_dir, window_s=ONLINE_WINDOW_S,
+                                negative_rate=ONLINE_NEG_RATE,
+                                shard_records=ONLINE_SHARD_RECORDS,
+                                drift_block=ONLINE_DRIFT_BLOCK,
+                                drift_threshold=ONLINE_DRIFT_THRESHOLD,
+                                tick_interval_s=ONLINE_TICK_S, idle_flush_s=ONLINE_IDLE_FLUSH_S,
+                                seed=seed)
+            servers.append(ScoringServer(eng, max_wait_ms=SERVE_WAIT_MS, reloader=reloader,
+                                         feedback=sink).start())
+            router = ScoringRouter(f"{servers[0].host}:{servers[0].port}", seed=seed,
+                                   max_inflight=ROUTE_MAX_INFLIGHT).start()
+            client = _OnlineClient(router.host, router.port)
+            # the probes go to a listener of the same engine without a sink:
+            # spooled, they would come back as label-0 samples every round
+            servers.append(ScoringServer(eng, max_wait_ms=SERVE_WAIT_MS).start())
+            prober = _OnlineClient(servers[1].host, servers[1].port)
+            ops.reset_launch_counts()
+
+            def adapted(sign):
+                sp, sn = prober.probe(probe_pos).mean(), prober.probe(probe_neg).mean()
+                return (sp > 0.6 and sn < 0.4) if sign > 0 else (sp < 0.4 and sn > 0.6), sp, sn
+
+            def phase(sign, tag):
+                t0, deadline, rounds = time.perf_counter(), time.monotonic() + ONLINE_DEADLINE_S, 0
+                while True:
+                    cols, y = _online_rows(rng, vocab, w_true, ONLINE_ROUND_ROWS, sign)
+                    client.drive(cols, y, rng)
+                    rounds += 1
+                    ok, sp, sn = adapted(sign)
+                    if ok:
+                        return {"seconds_to_adapt": time.perf_counter() - t0, "rounds": rounds,
+                                "probe_pos_mean": sp, "probe_neg_mean": sn}
+                    if time.monotonic() > deadline:
+                        with open(err_path) as f:
+                            log_tail = f.read()[-1500:]
+                        raise AssertionError(
+                            f"online {tag}: the probes never followed the labels: pos {sp:.3f} "
+                            f"neg {sn:.3f}, {sink.stats()}; launch online's log:\n{log_tail}")
+                    time.sleep(ONLINE_TICK_S)  # the window ticks, the trainer consumes
+
+            out["phase1"] = phase(+1, "phase1")
+            out["phase2"] = phase(-1, "phase2")
+            if sink.drift.fired_total < 1:
+                raise AssertionError(f"online: the drift alert never fired: {sink.drift.stats()}")
+            t0, deadline, rounds = time.perf_counter(), time.monotonic() + ONLINE_DEADLINE_S, 0
+            while sink.drift.firing:
+                cols, y = _online_rows(rng, vocab, w_true, ONLINE_ROUND_ROWS, -1)
+                client.drive(cols, y, rng)
+                rounds += 1
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"online: the drift alert never cleared: "
+                                         f"{sink.drift.stats()}")
+            out["drift_cleared"] = {"seconds": time.perf_counter() - t0, "rounds": rounds,
+                                    **sink.drift.stats()}
+            if sink.drift.cleared_total < 1:
+                raise AssertionError(f"online: the drift alert never cleared: "
+                                     f"{sink.drift.stats()}")
+            stats = {"router": router.stats(), "replica": servers[0].stats()}
+            out["latency"] = {k: {f: v[f] for f in ("requests", "qps", "p50_ms", "p99_ms")}
+                              for k, v in stats.items()}
+            out["client_request_ms_p50"] = 1e3 * float(np.median(client.seconds))
+            # check 3: the trainer stops (SIGTERM: a final flush), the reloader
+            # takes the final weights, the served scores are σ(plain z)
+            trainer.send_signal(signal.SIGTERM)
+            out["trainer_sigterm_returncode"] = trainer.wait(timeout=120)
+            with KVWorker(sg.hosts, FULL_D, client_id=9) as kv:
+                w = kv.pull()
+            deadline = time.monotonic() + 60
+            while not np.array_equal(eng.get_weights(), w):
+                if time.monotonic() > deadline:
+                    raise AssertionError("online: the reloader never took the final weights")
+                time.sleep(ONLINE_RELOAD_S / 2)
+            replies = [client.exchange(_features(c)) for c in probes]
+            json_scores = prober.probe(probes)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in _launches(ops).items() if v}
+            z = _plain_logits(torch, ops, torch.from_numpy(w).cuda(), probes, FULL_D).double()
+            want = torch.sigmoid(z).numpy()
+            got = np.asarray([float(r.split()[1]) for r in replies])
+            out["served_vs_plain"] = {
+                "rows": len(probes),
+                "libsvm_max_rel_err": float((np.abs(got - want) / want).max()),
+                "json_max_abs_err": float(np.abs(json_scores - want).max())}
+            out["feedback"] = sink.stats()
+            engine_launches = sum(eng.stats()["bucket_hits"].values())
+        finally:
+            if client is not None:
+                client.close()
+                prober.close()
+            if router is not None:
+                router.stop()
+            for s in servers:
+                s.stop()
+            if trainer.poll() is None:
+                trainer.kill()
+                trainer.wait()
+        with open(err_path) as f:
+            done = [ln for ln in f.read().splitlines() if "online trainer done" in ln]
+        out["trainer_exit_line"] = done[-1].split("] ", 1)[-1] if done else None
+        consumed = sorted(os.path.join(shard_dir, n) for n in os.listdir(shard_dir)
+                          if n.endswith(".libsvm.done"))
+        written = sorted(n for n in os.listdir(shard_dir) if n.startswith("shard-")
+                         and not n.endswith(".tmp"))
+        out.update({"shards_written": len(written), "shards_consumed": len(consumed)})
+        sv = out["served_vs_plain"]
+        if (sv["libsvm_max_rel_err"] > ONLINE_REL_TOL or sv["json_max_abs_err"] > 1e-6
+                or out["trainer_sigterm_returncode"] != 0):
+            raise AssertionError(f"online: served scores against σ(plain z) {sv}, the trainer "
+                                 f"exited {out['trainer_sigterm_returncode']}")
+        # check 4: the replicas scored through lr_logits, and only it
+        if set(launches) != {"lr_logits"} or launches["lr_logits"] != engine_launches:
+            raise AssertionError(f"online: the path launched {launches}; the engine's buckets "
+                                 f"{engine_launches}")
+        out["launches"] = launches
+        out["replay"] = _online_replay(torch, tmp, consumed, smi)
+    out.update({**rss, "phase_s": time.perf_counter() - t_phase,
+                "reduced": {"traffic": "a few thousand single-row requests from one client "
+                                       "(a smoke test, not a load test); the weights start at "
+                                       "zero and the labels come from a planted model",
+                            "replicas": "one in-process replica behind an in-process router"}})
+    emit("online", **out)
+    return out
+
+
 # model family -> (gen-data flags, sync / eval flags, the saved params'
 # shape, sync's iterations and test interval)
 CLI_FAMILIES = {
@@ -3982,6 +4335,74 @@ def _cli_route(tmp: str) -> dict:
             "sigterm_returncodes": rcs}
 
 
+def _cli_online(tmp: str) -> dict:
+    """``launch ps-server --async --ps-optimizer ftrl`` -> ``launch online
+    --max-shards 1`` -> ``launch serve --ps-hosts ... --feedback-spool ...``
+    on the card, as the closed-loop drive wires them: 40 ``ID`` lines and
+    their ``LABEL`` lines, all joined; SIGTERM on serve (143) flushes the
+    partial shard, online consumes it and exits 0, and the group's weights
+    classify the labelled rows."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.ps import KVWorker  # noqa: PLC0415
+    from distlr_tpu_torch.serve import score_lines_over_tcp  # noqa: PLC0415
+
+    D, n = 123, 40
+    d = os.path.join(tmp, "online")
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = []
+
+    def start(*argv, ready):
+        proc = subprocess.Popen([sys.executable, "-m", "distlr_tpu_torch.launch", *argv],
+                                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.DEVNULL, text=True)
+        procs.append(proc)
+        line = proc.stdout.readline()
+        if not line.startswith(ready):
+            raise AssertionError(f"launch {argv[0]} printed {line!r} first")
+        return line.split()[1]
+
+    rng = np.random.default_rng(3)
+    w_true = np.where(np.arange(D) % 2 == 0, 1.0, -1.0).astype(np.float32)
+    cols = np.stack([np.sort(rng.choice(D, 5, replace=False)) for _ in range(4 * n)])
+    margin = w_true[cols].sum(axis=1)
+    cols = cols[np.abs(margin) >= 3][:n]
+    y = (w_true[cols].sum(axis=1) > 0).astype(int)
+    try:
+        hosts = start("ps-server", "--num-feature-dim", str(D), "--async", "--ps-optimizer",
+                      "ftrl", "--ftrl-alpha", "1.0", ready="HOSTS ")
+        start("online", "--num-feature-dim", str(D), "--l2-c", "0", "--hosts", hosts,
+              "--shard-dir", os.path.join(d, "shards"), "--max-shards", "1",
+              "--poll-interval", "0.05", ready="ONLINE ")
+        addr = start("serve", "--num-feature-dim", str(D), "--ps-hosts", hosts, "--port", "0",
+                     "--feedback-spool", os.path.join(d, "spool"), "--feedback-shards",
+                     os.path.join(d, "shards"), ready="SERVING ")
+        host, port = addr.rsplit(":", 1)
+        lines = [ln for i, c in enumerate(cols)
+                 for ln in (f"ID c{i} {_features(c)}", f"LABEL c{i} {y[i]}")]
+        replies = score_lines_over_tcp(host, int(port), lines)
+        procs[2].send_signal(signal.SIGTERM)
+        rcs = {"serve": procs[2].wait(timeout=120), "online": procs[1].wait(timeout=120)}
+        with KVWorker(hosts, D, client_id=9) as kv:
+            w = kv.pull()
+        procs[0].send_signal(signal.SIGTERM)
+        rcs["ps-server"] = procs[0].wait(timeout=60)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    acc = float(((w[cols].sum(axis=1) > 0).astype(int) == y).mean())
+    shards = sorted(os.listdir(os.path.join(d, "shards")))
+    joined = sum(r == "OK joined" for r in replies[1::2])
+    if (rcs != {"serve": 143, "online": 0, "ps-server": 143} or joined != len(cols)
+            or shards != ["shard-000000.libsvm.done"] or acc < 0.9):
+        raise AssertionError(f"launch online: exits {rcs}, {joined} of {len(cols)} labels "
+                             f"joined, shards {shards}, accuracy {acc}")
+    return {"exit_codes": rcs, "labels_joined": joined, "shards": shards,
+            "accuracy_of_pulled_weights": acc}
+
+
 def _read(path: str) -> bytes:
     with open(path, "rb") as f:
         return f.read()
@@ -4052,10 +4473,11 @@ def phase_cli() -> None:
     for every model family, int8_dot sync with checkpoints then --resume,
     gen-data -> ps -> eval, gen-data -> sync -> serve (of a text model and
     of a checkpoint directory), sync and eval with --feature-shards, sync
-    as a one-rank NCCL group, and gen-data -> sync x2 -> serve x2 -> route
-    -> rollout, the chains side by side."""
+    as a one-rank NCCL group, gen-data -> sync x2 -> serve x2 -> route
+    -> rollout, and ps-server -> online -> serve --feedback-spool, the
+    chains side by side."""
     with tempfile.TemporaryDirectory(prefix="distlr-smoke-cli-") as tmp:
-        with ThreadPoolExecutor(len(CLI_FAMILIES) + 7) as pool:
+        with ThreadPoolExecutor(len(CLI_FAMILIES) + 8) as pool:
             futures = {f: pool.submit(_cli_family, tmp, f) for f in CLI_FAMILIES}
             chains = {"int8_dot_resume": pool.submit(_cli_int8_dot_resume, tmp),
                       "ps": pool.submit(_cli_ps, tmp),
@@ -4063,7 +4485,8 @@ def phase_cli() -> None:
                       "serve_checkpoint_dir": pool.submit(_cli_serve, tmp, checkpoints=True),
                       "feature_shards": pool.submit(_cli_feature_shards, tmp),
                       "one_nccl_rank": pool.submit(_cli_one_nccl_rank, tmp),
-                      "route": pool.submit(_cli_route, tmp)}
+                      "route": pool.submit(_cli_route, tmp),
+                      "online": pool.submit(_cli_online, tmp)}
             results = {f: fut.result() for f, fut in futures.items()}
             chains = {k: fut.result() for k, fut in chains.items()}
     emit("cli", **results.pop("binary_lr"), families=results, **chains)
@@ -4520,6 +4943,8 @@ def main(argv=None) -> int:
         phase_serve_hot(torch, args.seed, env["nvidia_smi"])
         phase = "route"
         route = phase_route(torch, args.seed, env["nvidia_smi"])
+        phase = "online"
+        online = phase_online(torch, args.seed, env["nvidia_smi"])
         phase = "roofline_experiments"
         launches = phase_roofline_experiments(torch, env["nvidia_smi"])
         # each dense kernel's launches on the main path that runs it, and
@@ -4541,7 +4966,8 @@ def main(argv=None) -> int:
         # the scoring tier's run, and its live-PS reload's apart
         for path_name, counts in (("serve", serve["launches"]),
                                   ("serve_live_ps", serve["live_ps"]["launches"]),
-                                  ("route", route["launches"])):
+                                  ("route", route["launches"]),
+                                  ("online", online["launches"])):
             for name, n in counts.items():
                 by_path.setdefault(name, {})[path_name] = n
         for shape, t in serve["kernels_at_serve_shapes"].items():

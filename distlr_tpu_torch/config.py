@@ -9,8 +9,8 @@ that the ported parameter-server worker loop reads
 servers' update rule ``ps_optimizer`` with the ``ftrl_*`` parameters,
 the wire codec ``ps_compress`` and the ``ps_accum_*`` accumulation)
 and the scoring tier reads (the ``serve_*`` fields of ``launch serve``,
-hot-row reload and named engines among them, and the ``route_*`` fields
-of ``launch route``),
+hot-row reload and named engines among them, the ``feedback_*`` fields of
+the feedback loop, and the ``route_*`` fields of ``launch route``),
 with the same names, defaults and validations, and the
 same resolution of the reference-quirk gates Q1, Q2, Q4 and Q5 from
 ``compat_mode``.  Options whose code is not ported yet raise
@@ -43,16 +43,6 @@ _UNPORTED_PS_OPTIONS = {
     "ps_retry_deadline_s": 60.0, "ps_retry_adaptive": False,
     "ps_store_dir": None, "ps_store_interval_s": 5.0, "ps_store_wal": False,
     "ps_store_wal_fsync_s": 0.1, "chaos_plan": None, "chaos_seed": None,
-}
-
-#: the JAX package's serving options that are not ported, with their
-#: defaults and their ROADMAP items: the feedback loop (A.11); any other
-#: value raises
-_UNPORTED_SERVE_OPTIONS = {
-    "feedback_spool_dir": (None, "A.11"), "feedback_shard_dir": (None, "A.11"),
-    "feedback_window_s": (60.0, "A.11"), "feedback_negative_rate": (0.1, "A.11"),
-    "feedback_shard_records": (1024, "A.11"), "feedback_capacity": (100_000, "A.11"),
-    "feedback_drift_block": (512, "A.11"), "feedback_drift_threshold": (0.25, "A.11"),
 }
 
 
@@ -202,13 +192,25 @@ class Config:
     # Also a full refresh every N polls (bounds cold rows' staleness to N
     # poll intervals); 0 = only coverage-driven ones.
     serve_hot_full_every: int = 10
-    # Not ported: the feedback loop (A.11); it must keep these defaults.
+    # The feedback loop (distlr_tpu_torch.feedback): a spool dir turns it
+    # on (journal every scored request, accept LABEL lines, emit joined
+    # shards); None = off.
     feedback_spool_dir: str | None = None
+    # Joined-shard output dir (the online trainer's input).  None =
+    # "<feedback_spool_dir>/shards".
     feedback_shard_dir: str | None = None
+    # Delayed-label join window: a request unlabelled this long goes
+    # through negative sampling.
     feedback_window_s: float = 60.0
+    # Probability an expired, never-labelled request is emitted as a
+    # label-0 example (0 = drop them all).
     feedback_negative_rate: float = 0.1
+    # Joined examples a shard.
     feedback_shard_records: int = 1024
+    # In-memory spool bound (importance-aware eviction past it).
     feedback_capacity: int = 100_000
+    # Score-drift detector: served scores a PSI block, and the alert's
+    # block-to-block PSI threshold.
     feedback_drift_block: int = 512
     feedback_drift_threshold: float = 0.25
     # Per-tenant token-bucket admission quotas of `launch route`:
@@ -396,10 +398,24 @@ class Config:
         if not self.serve_model_id or any(c in self.serve_model_id for c in " \t@=,+"):
             raise ValueError("serve_model_id must be non-empty without any of "
                              f"' @=,+', got {self.serve_model_id!r}")
-        for name, (default, item) in _UNPORTED_SERVE_OPTIONS.items():
-            if getattr(self, name) != default:
-                raise _not_ported(f"the serving option {name}={getattr(self, name)!r}", item)
+        self._check_feedback()
         self._check_route()
+
+    def _check_feedback(self) -> None:
+        """The JAX package's checks of the feedback options, with its
+        messages."""
+        if self.feedback_window_s <= 0:
+            raise ValueError(f"feedback_window_s must be positive, got {self.feedback_window_s}")
+        if not 0.0 <= self.feedback_negative_rate <= 1.0:
+            raise ValueError("feedback_negative_rate must be in [0, 1], got "
+                             f"{self.feedback_negative_rate}")
+        if self.feedback_shard_records <= 0 or self.feedback_capacity <= 0:
+            raise ValueError("feedback_shard_records and feedback_capacity must be positive, "
+                             f"got {self.feedback_shard_records}/{self.feedback_capacity}")
+        if self.feedback_drift_block <= 0 or self.feedback_drift_threshold <= 0:
+            raise ValueError("feedback_drift_block and feedback_drift_threshold must be "
+                             f"positive, got {self.feedback_drift_block}/"
+                             f"{self.feedback_drift_threshold}")
 
     def _check_route(self) -> None:
         if not 0 <= self.route_port < 1 << 16:

@@ -1,9 +1,15 @@
 """Command-line entry point of the port: ``gen-data``, ``sync``, ``eval``,
-``ps``, ``ps-server``, ``serve``, ``route`` and ``rollout``.
+``ps``, ``ps-server``, ``serve``, ``online``, ``route`` and ``rollout``.
 
-Counterpart of ``distlr_tpu/launch.py`` for the options the port carries,
-with the same flag names, plus ``--device`` (default ``cuda``; the CPU
-only when asked for).  Run as ``python -m distlr_tpu_torch.launch``::
+Counterpart of ``distlr_tpu/launch.py``: every subcommand takes the
+option strings its JAX twin takes, with the same dests, types and
+defaults, plus ``--device`` (default ``cuda``; the CPU only when asked
+for).  A flag whose use is not ported yet is accepted at its default and
+raises ``NotImplementedError`` naming its ROADMAP item otherwise (the obs
+flags A.12; the profiler, log and incident flags A.21; the PS retry,
+store, checkpoint and membership flags A.16), so a JAX command line never
+fails at parse time and never drops a flag silently.  Run as ``python -m
+distlr_tpu_torch.launch``::
 
     python -m distlr_tpu_torch.launch gen-data --data-dir D --num-feature-dim 123 \\
         --num-samples 2000 --num-parts 2
@@ -81,6 +87,18 @@ laid out by ``--ps-namespaces``)::
     python -m distlr_tpu_torch.launch serve --num-feature-dim 123 \\
         --model-file M1 --model-id v1 --extra-model v2=M2 --port 0
 
+``--feedback-spool S`` closes the loop: the server journals every scored
+request (``ID <rid> <features>`` lines carry the caller's id), joins
+``LABEL <rid> <y>`` lines into shards under ``S/shards`` (or
+``--feedback-shards``), and ``online`` trains on them into the live group
+the server reloads from (FTRL from ``ps-server --async --ps-optimizer
+ftrl``; it prints ``ONLINE ...`` and stops on SIGTERM)::
+
+    python -m distlr_tpu_torch.launch online --num-feature-dim 123 --l2-c 0 \\
+        --hosts H --shard-dir S/shards
+    python -m distlr_tpu_torch.launch serve --num-feature-dim 123 --ps-hosts H \\
+        --port 0 --feedback-spool S --feedback-window 1
+
 ``route`` load-balances the serving protocol over replicas (a model
 registry ``v1=h:p+h:p,v2=h:p``, health checks, admission control, per
 tenant quotas) and prints ``ROUTING host:port``; ``rollout`` ramps a
@@ -99,7 +117,7 @@ import contextlib
 import os
 import sys
 
-from distlr_tpu_torch.config import Config
+from distlr_tpu_torch.config import Config, _not_ported
 from distlr_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -113,57 +131,86 @@ _CONFIG_FIELDS = (
     "num_servers", "ps_compute_backend", "ps_timeout_ms", "ps_pipeline",
     "ps_optimizer", "ftrl_alpha", "ftrl_beta", "ftrl_l1", "ftrl_l2", "ps_compress",
     "ps_accum_start", "ps_accum_growth", "ps_accum_growth_every", "ps_accum_max",
+    # refused by Config itself, naming ROADMAP A.16
+    "ps_retry_attempts", "ps_retry_backoff_ms", "ps_retry_backoff_max_ms",
+    "ps_retry_deadline_s", "ps_retry_adaptive", "ps_store_dir", "ps_store_interval_s",
+    "ps_store_wal", "ps_store_wal_fsync_s", "chaos_plan", "chaos_seed",
 )
 
-#: the JAX package's ``ps`` flags that are not ported yet (ROADMAP A.16):
-#: (flag, dest, type; None = a switch); given, each one raises
-_UNPORTED_PS_FLAGS = (
-    ("--max-worker-restarts", "max_worker_restarts", int),
-    ("--supervise-servers", "supervise_servers", None),
-    ("--chaos-plan", "chaos_plan", str),
-    ("--chaos-seed", "chaos_seed", int),
-    ("--ps-retry-attempts", "ps_retry_attempts", int),
-    ("--ps-retry-backoff", "ps_retry_backoff_ms", float),
-    ("--ps-retry-backoff-max", "ps_retry_backoff_max_ms", float),
-    ("--ps-retry-deadline", "ps_retry_deadline_s", float),
-    ("--ps-retry-adaptive", "ps_retry_adaptive", None),
-    ("--store-dir", "ps_store_dir", str),
-    ("--store-interval", "ps_store_interval_s", float),
-    ("--store-wal", "ps_store_wal", None),
-    ("--store-wal-fsync", "ps_store_wal_fsync_s", float),
-    ("--checkpoint-dir", "checkpoint_dir", str),
-    ("--checkpoint-interval", "checkpoint_interval", int),
-    ("--resume", "resume", None),
-)
-
-#: the JAX package's ``ps-server`` flags that are not ported yet (ROADMAP
-#: A.16: membership and the durable store); given, each one raises
-_UNPORTED_PS_SERVER_FLAGS = (
-    ("--elastic", "elastic", None),
-    ("--ctl-port", "ctl_port", int),
-    ("--store-dir", "ps_store_dir", str),
-    ("--store-interval", "ps_store_interval_s", float),
-    ("--store-wal", "ps_store_wal", None),
-    ("--store-wal-fsync", "ps_store_wal_fsync_s", float),
-)
-
+#: the JAX package's shared flags with no Config field in the port:
+#: dest -> (flag, the JAX Config default, ROADMAP item).  Given with
+#: another value, each one raises naming its item; the default is
+#: accepted, so a JAX command line with defaults runs unchanged.
+_GATED_SHARED_FLAGS = {
+    "obs_metrics_port": ("--metrics-port", None, "A.12"),
+    "obs_metrics_host": ("--metrics-host", "127.0.0.1", "A.12"),
+    "obs_run_dir": ("--obs-run-dir", None, "A.12"),
+    "obs_trace_path": ("--trace-path", None, "A.12"),
+    "trace_sample": ("--trace-sample", 0.01, "A.12"),
+    "prof_hz": ("--prof-hz", 19.0, "A.21"),
+    "prof_window_s": ("--prof-window", 10.0, "A.21"),
+    "log_level": ("--log-level", "info", "A.21"),
+    "log_ring": ("--log-ring", 2048, "A.21"),
+    "log_dedupe_s": ("--log-dedupe", 5.0, "A.21"),
+    "incident_window_s": ("--incident-window", 120.0, "A.21"),
+    "incident_settle_s": ("--incident-settle", 6.0, "A.21"),
+    "incident_max": ("--incident-max", 32, "A.21"),
+}
 
 #: the JAX package's ``serve`` flags that are not ported, with their ROADMAP
 #: items: (flag, dest, type; None = a switch, item); given, each one raises
 _UNPORTED_SERVE_FLAGS = (
     ("--ps-ctl", "ps_ctl", str, "A.16"),
-    ("--feedback-spool", "feedback_spool", str, "A.11"),
-    ("--feedback-shards", "feedback_shards", str, "A.11"),
-    ("--feedback-window", "feedback_window", float, "A.11"),
-    ("--feedback-negative-rate", "feedback_negative_rate", float, "A.11"),
-    ("--feedback-shard-records", "feedback_shard_records", int, "A.11"),
-    ("--feedback-capacity", "feedback_capacity", int, "A.11"),
-    ("--drift-block", "drift_block", int, "A.11"),
-    ("--drift-threshold", "drift_threshold", float, "A.11"),
 )
+
+#: each subcommand's flags whose Config field the port has, or whose
+#: command the port runs, but whose use there is not ported: (flag, dest,
+#: the JAX default, ROADMAP item).  Config refuses the retry, store and
+#: chaos options itself.
+_COMMAND_GATES = {
+    "ps": (("--max-worker-restarts", "max_worker_restarts", 0, "A.16"),
+           ("--supervise-servers", "supervise_servers", False, "A.16"),
+           ("--checkpoint-dir", "checkpoint_dir", None, "A.16"),
+           ("--checkpoint-interval", "checkpoint_interval", 0, "A.16"),
+           ("--resume", "resume", False, "A.16")),
+    "ps-server": (("--elastic", "elastic", False, "A.16"),
+                  ("--ctl-port", "ctl_port", None, "A.16"),
+                  ("--checkpoint-dir", "checkpoint_dir", None, "A.16"),
+                  ("--checkpoint-interval", "checkpoint_interval", 0, "A.16"),
+                  ("--resume", "resume", False, "A.16")),
+    "serve": tuple((f, d, None, item) for f, d, _, item in _UNPORTED_SERVE_FLAGS),
+    "online": (("--ps-ctl", "ps_ctl", None, "A.16"),),
+}
+
+
+def _given(value, default) -> bool:
+    """A flag was given with a value other than its default (None = not
+    given; a switch that is off is not given)."""
+    return value is not None and value is not False and value != default
+
+
+def _refuse_gated(args: argparse.Namespace) -> None:
+    """Raise naming the ROADMAP item of the first flag given whose use is
+    not ported: the shared obs flags (A.12; on ``rollout``,
+    ``--obs-run-dir`` is the aggregator's discovery, A.21) and the
+    profiler, log and incident flags (A.21), then the command's own."""
+    cmd = getattr(args, "cmd", None)
+    where = f"launch {cmd}" if cmd else "launch"
+    for dest, (flag, default, item) in _GATED_SHARED_FLAGS.items():
+        if _given(getattr(args, dest, None), default):
+            if cmd == "rollout" and dest == "obs_run_dir":
+                item = "A.21"
+            raise _not_ported(f"{where} {flag}", item)
+    for flag, dest, default, item in _COMMAND_GATES.get(cmd, ()):
+        if _given(getattr(args, dest, None), default):
+            raise _not_ported(f"{where} {flag}", item)
 
 
 def _add_config_flags(p: argparse.ArgumentParser) -> None:
+    """The JAX package's shared flag set (``distlr_tpu/launch.py``
+    ``_add_config_flags``) with its dests, types and defaults, less
+    ``--feature-shards`` (:func:`_add_mesh_flags`) and the process flags
+    (:func:`_add_process_flags`); plus ``--device``."""
     p.add_argument("--data-dir", dest="data_dir")
     p.add_argument("--num-feature-dim", dest="num_feature_dim", type=int)
     p.add_argument("--num-iteration", dest="num_iteration", type=int)
@@ -200,6 +247,8 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--prefetch", dest="prefetch", type=int,
                    help="host->device streaming depth in Trainer.fit "
                    "(default 2 = double buffering; 1 = strictly serial)")
+    p.add_argument("--ps-timeout", dest="ps_timeout_ms", type=int,
+                   help="receive timeout of every KV op, ms (default 600000; 0 = none)")
     p.add_argument("--feature-dtype", dest="feature_dtype",
                    choices=["float32", "bfloat16", "int8", "int8_dot"],
                    help="device-resident storage dtype for dense features "
@@ -207,16 +256,63 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
                    "per-dataset quantization, a quarter of float32's bytes; "
                    "int8_dot: int8 storage plus w and the residuals quantized "
                    "per step, int8 x int8 products; dense models only)")
-    p.add_argument("--num-workers", dest="num_workers", type=int,
-                   help="data-parallel shards, as row blocks of one batch")
+    p.add_argument("--checkpoint-dir", dest="checkpoint_dir",
+                   help="sync: save the weights and the epoch here (numpy .npz a step); "
+                   "serve: watch this checkpoint dir and serve each new step")
+    p.add_argument("--checkpoint-interval", dest="checkpoint_interval", type=int,
+                   help="epochs between checkpoints (default 0: only the final one)")
     p.add_argument("--profile-dir", dest="profile_dir",
                    help="trace the run into this directory (not ported yet: refused)")
-    p.add_argument("--device", dest="device",
-                   help="cuda (default), cuda:N or cpu")
+    # the obs, profiler, log and incident flags: refused when given
+    # (_GATED_SHARED_FLAGS)
+    for flag, dest, typ in (("--metrics-port", "obs_metrics_port", int),
+                            ("--metrics-host", "obs_metrics_host", None),
+                            ("--trace-path", "obs_trace_path", None),
+                            ("--trace-sample", "trace_sample", float),
+                            ("--prof-hz", "prof_hz", float),
+                            ("--prof-window", "prof_window_s", float),
+                            ("--log-ring", "log_ring", int),
+                            ("--log-dedupe", "log_dedupe_s", float),
+                            ("--incident-window", "incident_window_s", float),
+                            ("--incident-settle", "incident_settle_s", float),
+                            ("--incident-max", "incident_max", int)):
+        p.add_argument(flag, dest=dest, type=typ,
+                       help=f"not ported yet (ROADMAP {_GATED_SHARED_FLAGS[dest][2]})")
+    p.add_argument("--obs-run-dir", dest="obs_run_dir", action="append",
+                   help="not ported yet (ROADMAP A.12; on rollout A.21)")
+    p.add_argument("--log-level", dest="log_level", choices=["debug", "info", "warning", "error"],
+                   help="not ported yet (ROADMAP A.21)")
+    p.add_argument("--resume", action="store_true",
+                   help="sync: restart from the latest checkpoint in --checkpoint-dir")
+    p.add_argument("--num-workers", dest="num_workers", type=int,
+                   help="data-parallel shards, as row blocks of one batch")
+    p.add_argument("--num-servers", dest="num_servers", type=int,
+                   help="KV server processes, one key range each (default 1)")
+    for flag, dest, typ in (("--ps-retry-attempts", "ps_retry_attempts", int),
+                            ("--ps-retry-backoff", "ps_retry_backoff_ms", float),
+                            ("--ps-retry-backoff-max", "ps_retry_backoff_max_ms", float),
+                            ("--ps-retry-deadline", "ps_retry_deadline_s", float)):
+        p.add_argument(flag, dest=dest, type=typ, help="not ported yet (ROADMAP A.16)")
+    _add_ps_wire_flags(p)
+    p.add_argument("--ps-retry-adaptive", dest="ps_retry_adaptive", action="store_true",
+                   default=None, help="not ported yet (ROADMAP A.16)")
+    p.add_argument("--store-dir", dest="ps_store_dir", help="not ported yet (ROADMAP A.16)")
+    p.add_argument("--store-interval", dest="ps_store_interval_s", type=float,
+                   help="not ported yet (ROADMAP A.16)")
+    p.add_argument("--store-wal", dest="ps_store_wal", action="store_true", default=None,
+                   help="not ported yet (ROADMAP A.16)")
+    p.add_argument("--store-wal-fsync", dest="ps_store_wal_fsync_s", type=float,
+                   help="not ported yet (ROADMAP A.16)")
+    p.add_argument("--ps-compute-backend", dest="ps_compute_backend",
+                   choices=["auto", "numpy", "cpu", "default"],
+                   help="where PS workers run their gradient and eval steps: auto and "
+                   "default take --device; numpy (host) and cpu (torch) on request")
     p.add_argument("--cpu-devices", dest="cpu_devices", type=int,
                    help="N > 0 runs on the CPU (env twin DISTLR_CPU_DEVICES).  The JAX "
                    "package simulates an N-device CPU mesh with it; here every row and "
                    "column block shares one device, so N only selects the CPU")
+    p.add_argument("--device", dest="device",
+                   help="cuda (default), cuda:N or cpu")
 
 
 def _add_ps_wire_flags(p: argparse.ArgumentParser) -> None:
@@ -267,7 +363,9 @@ def _add_process_flags(p: argparse.ArgumentParser) -> None:
 
 def _config_from_args(args: argparse.Namespace) -> Config:
     """The Config of the flags given, with ``--block-size auto`` resolved
-    from the data dir's raw shards (blocked_lr)."""
+    from the data dir's raw shards (blocked_lr).  A flag whose use is not
+    ported raises naming its ROADMAP item first."""
+    _refuse_gated(args)
     over = {k: v for k, v in vars(args).items() if v is not None and k in _CONFIG_FIELDS}
     if _cpu_devices(args):
         over["device"] = "cpu"
@@ -343,6 +441,70 @@ def _process_group(args: argparse.Namespace, cfg: Config):
         dist.destroy_process_group()
 
 
+def _ps_config(args: argparse.Namespace) -> Config:
+    """``ps`` and ``ps-server``: ``--async`` is the Config's ``sync_mode``."""
+    cfg = _config_from_args(args)
+    return cfg.replace(sync_mode=False) if args.asynchronous else cfg
+
+
+def _serve_config(args: argparse.Namespace) -> Config:
+    """``serve``: the serving and feedback flags on top of the shared ones
+    (``distlr_tpu/launch.py`` ``cmd_serve``'s ``serve_over``)."""
+    serve_over = {
+        "serve_port": args.port, "serve_host": args.bind,
+        "serve_max_batch_size": args.serve_max_batch_size,
+        "serve_max_wait_ms": args.max_wait_ms,
+        "serve_reload_interval_s": args.reload_interval,
+        "serve_engine_idle_evict_s": args.engine_idle_evict,
+        "serve_hot_rows": args.hot_rows,
+        "serve_hot_min_coverage": args.hot_min_coverage,
+        "serve_hot_full_every": args.hot_full_every,
+        "serve_model_id": args.model_id,
+        "feedback_spool_dir": args.feedback_spool,
+        "feedback_shard_dir": args.feedback_shards,
+        "feedback_window_s": args.feedback_window,
+        "feedback_negative_rate": args.feedback_negative_rate,
+        "feedback_shard_records": args.feedback_shard_records,
+        "feedback_capacity": args.feedback_capacity,
+        "feedback_drift_block": args.drift_block,
+        "feedback_drift_threshold": args.drift_threshold,
+    }
+    return _config_from_args(args).replace(
+        **{k: v for k, v in serve_over.items() if v is not None})
+
+
+def _route_config(args: argparse.Namespace) -> Config:
+    route_over = {
+        "route_port": args.port, "route_host": args.bind,
+        "route_max_inflight": args.max_inflight,
+        "route_eject_after": args.eject_after,
+        "route_health_interval_s": args.health_interval,
+        "route_probe_backoff_s": args.probe_backoff,
+        "route_probe_backoff_max_s": args.probe_backoff_max,
+        "route_backend_timeout_s": args.backend_timeout,
+        "route_quota": args.quota,
+    }
+    return _config_from_args(args).replace(
+        **{k: v for k, v in route_over.items() if v is not None})
+
+
+def _online_config(args: argparse.Namespace) -> Config:
+    """``online``: growing accumulation is on by default (``--accum-max``
+    64, as the JAX package's ``cmd_online`` sets it; Config keeps 1)."""
+    if args.ps_accum_max is None:
+        args.ps_accum_max = 64
+    return _config_from_args(args)
+
+
+def command_config(args: argparse.Namespace) -> Config:
+    """The Config the parsed subcommand ``args`` runs with, built as the
+    command builds it, its gates applied (they raise naming a ROADMAP
+    item)."""
+    return {"ps": _ps_config, "ps-server": _ps_config, "serve": _serve_config,
+            "route": _route_config, "online": _online_config}.get(
+                args.cmd, _config_from_args)(args)
+
+
 def _gen_data_error(args: argparse.Namespace) -> str | None:
     if args.ctr_raw and not args.ctr_fields:
         return "--ctr-raw requires --ctr-fields"
@@ -414,15 +576,9 @@ def cmd_eval(args: argparse.Namespace) -> int:
 def cmd_ps(args: argparse.Namespace) -> int:
     """Parameter-server training: spawn the servers here and run every
     worker rank, or (``--hosts``) join a running group with some ranks."""
-    from distlr_tpu_torch.config import _not_ported  # noqa: PLC0415
     from distlr_tpu_torch.train.ps_trainer import run_ps_local, run_ps_workers  # noqa: PLC0415
 
-    for flag, dest, _ in _UNPORTED_PS_FLAGS:
-        if getattr(args, dest) not in (None, False):
-            raise _not_ported(f"launch ps {flag}", "A.16")
-    cfg = _config_from_args(args)
-    if args.asynchronous:
-        cfg = cfg.replace(sync_mode=False)
+    cfg = _ps_config(args)
     if args.hosts:
         ranks = ([int(r) for r in args.worker_ranks.split(",")] if args.worker_ranks
                  else range(cfg.num_workers))
@@ -445,7 +601,6 @@ def cmd_ps_server(args: argparse.Namespace) -> int:
     and exits 143."""
     import signal  # noqa: PLC0415
 
-    from distlr_tpu_torch.config import _not_ported  # noqa: PLC0415
     from distlr_tpu_torch.ps import (  # noqa: PLC0415
         ServerGroup,
         namespace_layout,
@@ -453,15 +608,10 @@ def cmd_ps_server(args: argparse.Namespace) -> int:
     )
     from distlr_tpu_torch.train.ps_trainer import ps_param_dim, server_optimizer  # noqa: PLC0415
 
-    for flag, dest, _ in _UNPORTED_PS_SERVER_FLAGS:
-        if getattr(args, dest) not in (None, False):
-            raise _not_ported(f"launch ps-server {flag}", "A.16")
     # a terminated foreground group must not orphan its servers: SIGTERM
     # becomes SystemExit, so the group's context manager stops them
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
-    cfg = _config_from_args(args)
-    if args.asynchronous:
-        cfg = cfg.replace(sync_mode=False)
+    cfg = _ps_config(args)
     ports = [int(s) for s in args.ports.split(",")] if args.ports else None
     if ports and len(ports) != cfg.num_servers:
         print(f"error: {len(ports)} ports for {cfg.num_servers} servers", file=sys.stderr)
@@ -527,7 +677,6 @@ def cmd_serve(args: argparse.Namespace) -> int:
     ``launch ps --async`` + ``launch serve --ps-hosts ...``)."""
     import signal  # noqa: PLC0415
 
-    from distlr_tpu_torch.config import _not_ported  # noqa: PLC0415
     from distlr_tpu_torch.serve import (  # noqa: PLC0415
         CheckpointWatcher,
         HotReloader,
@@ -539,9 +688,6 @@ def cmd_serve(args: argparse.Namespace) -> int:
     from distlr_tpu_torch.train.export import load_weights  # noqa: PLC0415
     from distlr_tpu_torch.train.ps_trainer import ps_param_dim  # noqa: PLC0415
 
-    for flag, dest, _, item in _UNPORTED_SERVE_FLAGS:
-        if getattr(args, dest) not in (None, False):
-            raise _not_ported(f"launch serve {flag}", item)
     if not (args.model_file or args.checkpoint_dir or args.ps_hosts):
         print("error: serve needs a weight source: --model-file and/or --checkpoint-dir "
               "(watched) or --ps-hosts (live pull)", file=sys.stderr)
@@ -552,19 +698,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
               "(--block-size/--block-groups), or a --data-dir to re-resolve 'auto' from",
               file=sys.stderr)
         return 2
-    serve_over = {
-        "serve_port": args.port, "serve_host": args.bind,
-        "serve_max_batch_size": args.serve_max_batch_size,
-        "serve_max_wait_ms": args.max_wait_ms,
-        "serve_reload_interval_s": args.reload_interval,
-        "serve_engine_idle_evict_s": args.engine_idle_evict,
-        "serve_hot_rows": args.hot_rows,
-        "serve_hot_min_coverage": args.hot_min_coverage,
-        "serve_hot_full_every": args.hot_full_every,
-        "serve_model_id": args.model_id,
-    }
-    cfg = _config_from_args(args).replace(
-        **{k: v for k, v in serve_over.items() if v is not None})
+    cfg = _serve_config(args)
     if cfg.serve_hot_rows and not args.ps_hosts:
         print("error: --hot-rows applies to live-PS reload only (--ps-hosts); "
               "checkpoint/model-file sources always load the full table", file=sys.stderr)
@@ -646,17 +780,87 @@ def cmd_serve(args: argparse.Namespace) -> int:
             eng.set_weights(load_weights(src, shape=eng.model.param_shape))
         engines[mid] = eng
 
+    feedback = None
+    if cfg.feedback_spool_dir:
+        from distlr_tpu_torch.feedback import FeedbackSink  # noqa: PLC0415
+
+        shard_dir = cfg.feedback_shard_dir or os.path.join(cfg.feedback_spool_dir, "shards")
+        feedback = FeedbackSink(
+            cfg.feedback_spool_dir, shard_dir, model=cfg.model, capacity=cfg.feedback_capacity,
+            window_s=cfg.feedback_window_s, negative_rate=cfg.feedback_negative_rate,
+            shard_records=cfg.feedback_shard_records, tracker=hot_tracker,
+            drift_block=cfg.feedback_drift_block,
+            drift_threshold=cfg.feedback_drift_threshold)
+        log.info("feedback loop ON: spool=%s shards=%s window=%.0fs negative_rate=%.2f",
+                 cfg.feedback_spool_dir, shard_dir, cfg.feedback_window_s,
+                 cfg.feedback_negative_rate)
+
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
-    # one unnamed engine is the single-model server; --model-id or extra
-    # models turn model identity on
+    # one unnamed engine is the single-model server (flat feedback shards);
+    # --model-id or extra models turn model identity on (shards a model)
     multi = bool(args.extra_models) or args.model_id is not None
     server = ScoringServer(None if multi else engine, engines=engines if multi else None,
                            host=cfg.serve_host, port=cfg.serve_port,
                            max_wait_ms=cfg.serve_max_wait_ms, reloader=reloader,
-                           extra_reloaders=extra_reloaders, hot_tracker=hot_tracker)
+                           extra_reloaders=extra_reloaders, hot_tracker=hot_tracker,
+                           feedback=feedback)
     # the scriptable readiness line
     print(f"SERVING {server.host}:{server.port}", flush=True)
     server.serve_forever()
+    return 0
+
+
+def cmd_online(args: argparse.Namespace) -> int:
+    """Continuous trainer (:mod:`distlr_tpu_torch.feedback.online`): watch
+    the feedback joiner's shard dir and push Hogwild updates into the live
+    KV group the serving engines hot-reload from, the closed loop's
+    training leg.  It computes on the host (numpy, as the JAX package's
+    does) and needs no card.  It runs until SIGTERM (a final flush, exit
+    0) unless ``--max-shards`` / ``--idle-exit`` bound it."""
+    import signal  # noqa: PLC0415
+    import threading  # noqa: PLC0415
+
+    from distlr_tpu_torch.feedback import OnlineTrainer  # noqa: PLC0415
+
+    cfg = _online_config(args)
+    ns_base, ns_total = 0, None
+    if args.ps_namespaces:
+        # train only this tenant's namespace slice of a shared group
+        from distlr_tpu_torch.ps import namespace_layout  # noqa: PLC0415
+        from distlr_tpu_torch.train.ps_trainer import ps_param_dim  # noqa: PLC0415
+
+        layout = namespace_layout(args.ps_namespaces, ps_param_dim(cfg))
+        ns_id = args.ps_namespace or cfg.serve_model_id
+        if ns_id not in layout:
+            print(f"error: namespace {ns_id!r} not in --ps-namespaces {sorted(layout)}",
+                  file=sys.stderr)
+            return 2
+        ns_base = layout[ns_id][0]
+        ns_total = ps_param_dim(cfg) * len(layout)
+    if not args.hosts:
+        print("error: online needs --hosts or --ps-ctl", file=sys.stderr)
+        return 2
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    trainer = OnlineTrainer(
+        cfg, args.hosts, args.shard_dir, accum_start=cfg.ps_accum_start,
+        accum_growth=cfg.ps_accum_growth, accum_growth_every=cfg.ps_accum_growth_every,
+        accum_max=cfg.ps_accum_max, poll_interval_s=args.poll_interval,
+        worker_id=args.worker_id, ns_base=ns_base, ns_total_dim=ns_total)
+    # the scriptable readiness line
+    print(f"ONLINE shard_dir={args.shard_dir} hosts={args.hosts} worker={args.worker_id}",
+          flush=True)
+    try:
+        stats = trainer.run(stop=stop, max_shards=args.max_shards, idle_exit_s=args.idle_exit)
+    except KeyboardInterrupt:
+        trainer._flush_push()
+        stats = trainer.stats()
+    finally:
+        trainer.close()
+    log.info("online trainer done: %d shards, %d examples, %d pushes (k=%d); %.3f s consuming "
+             "shards, %.3f s of it parsing, %.3f s in the gradients", stats["shards_consumed"],
+             stats["examples"], stats["pushes"], stats["accum_k"], trainer.consume_s,
+             trainer.parse_s, trainer.grad_s)
     return 0
 
 
@@ -669,20 +873,9 @@ def cmd_route(args: argparse.Namespace) -> int:
 
     from distlr_tpu_torch.serve.router import ScoringRouter  # noqa: PLC0415
 
-    route_over = {
-        "route_port": args.port, "route_host": args.bind,
-        "route_max_inflight": args.max_inflight,
-        "route_eject_after": args.eject_after,
-        "route_health_interval_s": args.health_interval,
-        "route_probe_backoff_s": args.probe_backoff,
-        "route_probe_backoff_max_s": args.probe_backoff_max,
-        "route_backend_timeout_s": args.backend_timeout,
-        "route_quota": args.quota,
-    }
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     try:
-        cfg = _config_from_args(args).replace(
-            **{k: v for k, v in route_over.items() if v is not None})
+        cfg = _route_config(args)
         router = ScoringRouter(
             args.replicas, host=cfg.route_host, port=cfg.route_port,
             max_inflight=cfg.route_max_inflight, eject_after=cfg.route_eject_after,
@@ -779,61 +972,46 @@ def main(argv=None) -> int:
                    "field-value tuples (correlated fields) instead of i.i.d. fields")
     g.set_defaults(fn=cmd_gen_data)
 
-    s = sub.add_parser("sync", help="synchronous data-parallel training (one card, or one "
-                       "process of a torch.distributed run)")
-    _add_config_flags(s)
-    s.add_argument("--checkpoint-dir", dest="checkpoint_dir",
-                   help="save the weights and the epoch here (numpy .npz a step)")
-    s.add_argument("--checkpoint-interval", dest="checkpoint_interval", type=int,
-                   help="epochs between checkpoints (default 0: only the final one)")
-    s.add_argument("--resume", action="store_true",
-                   help="restart from the latest checkpoint in --checkpoint-dir")
-    _add_mesh_flags(s)
-    _add_process_flags(s)
+    def config_parser(name: str, **kw) -> argparse.ArgumentParser:
+        """A subcommand with the JAX package's shared flag set."""
+        sp = sub.add_parser(name, **kw)
+        _add_config_flags(sp)
+        _add_mesh_flags(sp)
+        _add_process_flags(sp)
+        return sp
+
+    s = config_parser("sync", help="synchronous data-parallel training (one card, or one "
+                      "process of a torch.distributed run)")
     s.set_defaults(fn=cmd_sync)
 
-    e = sub.add_parser("eval", help="score a saved text model on the test split")
-    _add_config_flags(e)
-    _add_mesh_flags(e)
+    e = config_parser("eval", help="score a saved text model on the test split")
     e.add_argument("--model-file", dest="model_file", required=True,
                    help="text model file (the reference SaveModel format; "
                         "what sync runs write to models/part-001)")
     e.set_defaults(fn=cmd_eval)
 
-    p = sub.add_parser("ps", help="parameter-server training of every family (native KV "
-                       "servers, worker threads on one card)")
-    _add_config_flags(p)
-    p.add_argument("--num-servers", dest="num_servers", type=int,
-                   help="KV server processes, one key range each (default 1)")
-    p.add_argument("--ps-compute-backend", dest="ps_compute_backend",
-                   choices=["auto", "numpy", "cpu", "default"],
-                   help="where workers run their gradient and eval steps: auto and "
-                   "default take --device; numpy (host) and cpu (torch) on request")
-    p.add_argument("--ps-timeout", dest="ps_timeout_ms", type=int,
-                   help="receive timeout of every KV op, ms (default 600000; 0 = none)")
+    p = config_parser("ps", help="parameter-server training of every family (native KV "
+                      "servers, worker threads on one card)")
     p.add_argument("--async", dest="asynchronous", action="store_true",
                    help="Hogwild mode (SYNC_MODE=0 equivalent)")
     p.add_argument("--hosts", help="join existing servers (comma-separated host:port, "
                    "rank order) instead of spawning local ones")
     p.add_argument("--worker-ranks", dest="worker_ranks",
                    help="with --hosts: this host's ranks, e.g. 0,1 (default: all)")
+    p.add_argument("--max-worker-restarts", dest="max_worker_restarts", type=int, default=0,
+                   help="not ported yet (ROADMAP A.16)")
+    p.add_argument("--supervise-servers", dest="supervise_servers", action="store_true",
+                   help="not ported yet (ROADMAP A.16)")
+    p.add_argument("--chaos-plan", dest="chaos_plan", help="not ported yet (ROADMAP A.16)")
+    p.add_argument("--chaos-seed", dest="chaos_seed", type=int,
+                   help="not ported yet (ROADMAP A.16)")
     p.add_argument("--no-ps-pipeline", dest="ps_pipeline", action="store_false", default=None,
                    help="the reference's serialized pull -> grad -> push a batch instead "
                    "of one fused push_pull (and, async, the overlapped next gradient)")
-    _add_ps_wire_flags(p)
-    for flag, dest, typ in _UNPORTED_PS_FLAGS:
-        if typ is None:
-            p.add_argument(flag, dest=dest, action="store_true", default=None,
-                           help="not ported yet (ROADMAP A.16)")
-        else:
-            p.add_argument(flag, dest=dest, type=typ, help="not ported yet (ROADMAP A.16)")
     p.set_defaults(fn=cmd_ps)
 
-    v = sub.add_parser("ps-server", help="host a KV server group in the foreground (workers "
-                       "join it with `ps --hosts`)")
-    _add_config_flags(v)
-    v.add_argument("--num-servers", dest="num_servers", type=int,
-                   help="KV server processes, one key range each (default 1)")
+    v = config_parser("ps-server", help="host a KV server group in the foreground (workers "
+                      "join it with `ps --hosts`)")
     v.add_argument("--async", dest="asynchronous", action="store_true",
                    help="Hogwild group (each push applied at once)")
     v.add_argument("--ports", help="fixed ports, comma-separated (default: ephemeral)")
@@ -843,27 +1021,22 @@ def main(argv=None) -> int:
                    "the per-model dim, announced as 'NAMESPACES id=base,...'; clients "
                    "repeat the list as --ps-namespaces.  An id may carry an optimizer "
                    "suffix ('v1:ftrl,v2:sgd'): that slice's keys run it (sgd|ftrl)")
-    _add_ps_wire_flags(v)
-    for flag, dest, typ in _UNPORTED_PS_SERVER_FLAGS:
-        if typ is None:
-            v.add_argument(flag, dest=dest, action="store_true", default=None,
-                           help="not ported yet (ROADMAP A.16)")
-        else:
-            v.add_argument(flag, dest=dest, type=typ, help="not ported yet (ROADMAP A.16)")
+    v.add_argument("--elastic", action="store_true", help="not ported yet (ROADMAP A.16)")
+    v.add_argument("--ctl-port", dest="ctl_port", type=int,
+                   help="not ported yet (ROADMAP A.16)")
     v.set_defaults(fn=cmd_ps_server)
 
-    r = sub.add_parser("serve", help="online scoring server (batched scoring on the card, "
-                       "hot weight reload)")
-    _add_config_flags(r)
+    r = config_parser("serve", help="online scoring server (batched scoring on the card, "
+                      "hot weight reload)")
     r.add_argument("--model-file", dest="model_file",
                    help="initial weights: a text model file (models/part-00N) or a "
                    "checkpoint directory (its latest step)")
-    r.add_argument("--checkpoint-dir", dest="checkpoint_dir",
-                   help="watch this checkpoint dir and serve each new step")
     r.add_argument("--ps-hosts", dest="ps_hosts",
                    help="pull live weights from this running KV server group "
                    "(comma-separated host:port, rank order), e.g. while `launch ps "
                    "--async --hosts` trains against it")
+    for flag, dest, typ, item in _UNPORTED_SERVE_FLAGS:
+        r.add_argument(flag, dest=dest, type=typ, help=f"not ported yet (ROADMAP {item})")
     r.add_argument("--port", type=int, help="listen port (default: ephemeral, announced "
                    "as 'SERVING host:port')")
     r.add_argument("--bind", help="listen address (default 127.0.0.1)")
@@ -873,9 +1046,6 @@ def main(argv=None) -> int:
                    help="microbatch window: max ms a request waits for company (default 2)")
     r.add_argument("--reload-interval", dest="reload_interval", type=float,
                    help="weight-source poll period, seconds (jittered ±20%%; default 1)")
-    r.add_argument("--engine-idle-evict", dest="engine_idle_evict", type=float,
-                   help="drop the device weight table after this many idle seconds (the "
-                   "next request reloads it); default 0 = never")
     r.add_argument("--hot-rows", dest="hot_rows", type=int,
                    help="with --ps-hosts: track the requests' hot working set (capacity N "
                    "row keys) and reload only that slice through keyed pulls, with a full "
@@ -886,9 +1056,35 @@ def main(argv=None) -> int:
     r.add_argument("--hot-full-every", dest="hot_full_every", type=int,
                    help="also a full refresh every N polls, bounding cold rows' staleness "
                    "(default 10; 0 = coverage-driven only)")
+    r.add_argument("--engine-idle-evict", dest="engine_idle_evict", type=float,
+                   help="drop the device weight table after this many idle seconds (the "
+                   "next request reloads it); default 0 = never")
+    r.add_argument("--feedback-spool", dest="feedback_spool",
+                   help="turn the feedback loop on: journal every scored request into this "
+                   "bounded spool dir, accept LABEL lines, emit joined training shards and "
+                   "run the score-drift detector")
+    r.add_argument("--feedback-shards", dest="feedback_shards",
+                   help="joined-shard output dir the online trainer watches "
+                   "(default <feedback-spool>/shards)")
+    r.add_argument("--feedback-window", dest="feedback_window", type=float,
+                   help="delayed-label join window, seconds (default 60)")
+    r.add_argument("--feedback-negative-rate", dest="feedback_negative_rate", type=float,
+                   help="probability a never-labelled request becomes a label-0 example at "
+                   "window expiry (default 0.1; 0 = drop them all)")
+    r.add_argument("--feedback-shard-records", dest="feedback_shard_records", type=int,
+                   help="joined examples a shard (default 1024)")
+    r.add_argument("--feedback-capacity", dest="feedback_capacity", type=int,
+                   help="in-memory spool bound; past it the least important of the oldest "
+                   "requests go (default 100000)")
+    r.add_argument("--drift-block", dest="drift_block", type=int,
+                   help="served scores a drift-PSI block (default 512)")
+    r.add_argument("--drift-threshold", dest="drift_threshold", type=float,
+                   help="block-to-block PSI above which the drift alert fires "
+                   "(default 0.25)")
     r.add_argument("--model-id", dest="model_id",
-                   help="model id the primary engine answers as (MODEL/@-addressing); "
-                   "default 'default' = unaddressed single-model behavior")
+                   help="model id the primary engine answers as (MODEL/@-addressing; "
+                   "feedback records carry it, so shards go a model); default 'default' = "
+                   "unaddressed single-model behavior")
     r.add_argument("--extra-model", dest="extra_models", action="append",
                    metavar="ID=WEIGHTS|ID=@ps",
                    help="host another model version (repeatable): id=path loads a static "
@@ -900,14 +1096,38 @@ def main(argv=None) -> int:
                    "repeat `ps-server --namespaces` verbatim, ':opt' suffixes included")
     r.add_argument("--ps-namespace", dest="ps_namespace",
                    help="which namespace the primary engine serves (default: --model-id)")
-    for flag, dest, typ, item in _UNPORTED_SERVE_FLAGS:
-        r.add_argument(flag, dest=dest, type=typ, help=f"not ported yet (ROADMAP {item})")
     r.set_defaults(fn=cmd_serve)
 
-    rt = sub.add_parser("route", help="serving-tier front-end: load-balance the serve "
-                        "protocol over replicas with health checks, admission control "
-                        "(explicit load shed) and retry-once failover")
-    _add_config_flags(rt)
+    on = config_parser("online", help="continuous trainer: consume joined feedback shards "
+                       "as they appear and push Hogwild updates into the live PS the "
+                       "serving engines hot-reload from (the closed loop)")
+    on.add_argument("--hosts", help="the live async KV server group (comma-separated "
+                    "host:port, rank order): the group `launch serve --ps-hosts` pulls from")
+    on.add_argument("--ps-ctl", dest="ps_ctl", help="not ported yet (ROADMAP A.16)")
+    on.add_argument("--shard-dir", dest="shard_dir", required=True,
+                    help="joined-shard dir the serving tier's feedback sink writes "
+                    "(serve --feedback-shards)")
+    on.add_argument("--worker-id", dest="worker_id", type=int, default=0,
+                    help="this trainer's id among the online workers sharing one shard dir "
+                    "(its own PS client id; shards are claimed by the .claim rename)")
+    on.add_argument("--poll-interval", dest="poll_interval", type=float, default=0.5,
+                    help="shard-dir scan period while idle, seconds (default 0.5)")
+    on.add_argument("--max-shards", dest="max_shards", type=int, default=0,
+                    help="exit after consuming N shards (0 = run until stopped)")
+    on.add_argument("--idle-exit", dest="idle_exit", type=float,
+                    help="exit after this many seconds with no new shards (default: wait)")
+    on.add_argument("--ps-namespaces", dest="ps_namespaces",
+                    help="comma-separated model ids the PS group hosts as key-space "
+                    "namespaces (repeat `launch ps-server --namespaces`); this trainer "
+                    "pushes only into its own namespace slice")
+    on.add_argument("--ps-namespace", dest="ps_namespace",
+                    help="which namespace this trainer trains (default: serve_model_id); "
+                    "point --shard-dir at the same tenant's shard subdir")
+    on.set_defaults(fn=cmd_online)
+
+    rt = config_parser("route", help="serving-tier front-end: load-balance the serve "
+                       "protocol over replicas with health checks, admission control "
+                       "(explicit load shed) and retry-once failover")
     rt.add_argument("--replicas", required=True,
                     help="host:port of running `launch serve` replicas, comma-separated, "
                     "or a model registry v1=h:p+h:p,v2=h:p")
@@ -936,10 +1156,9 @@ def main(argv=None) -> int:
                     "2*rate): a tenant over budget gets 'ERR SHED tenant'")
     rt.set_defaults(fn=cmd_route)
 
-    ro = sub.add_parser("rollout", help="canary ramp with automatic rollback: stage a "
-                        "tenant's traffic onto a candidate version through the router's "
-                        "SPLIT line, roll back when a bound alert fires, PROMOTE at the end")
-    _add_config_flags(ro)
+    ro = config_parser("rollout", help="canary ramp with automatic rollback: stage a "
+                       "tenant's traffic onto a candidate version through the router's "
+                       "SPLIT line, roll back when a bound alert fires, PROMOTE at the end")
     ro.add_argument("--router", required=True,
                     help="the router's host:port (what `launch route` printed as ROUTING)")
     ro.add_argument("--tenant", required=True, help="model id whose traffic is ramped")

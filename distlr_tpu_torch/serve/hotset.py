@@ -125,7 +125,7 @@ class HotSetTracker:
     def importance(self, keys) -> float:
         """Decayed-count mass of a key set — how much of the tracked
         traffic touches these rows.  The feedback spool's retention
-        score (ROADMAP A.11): under capacity
+        score (:mod:`distlr_tpu_torch.feedback.spool`): under capacity
         pressure, requests whose rows nobody asks about are shed first,
         reusing exactly the statistics hot-row reload already pays for."""
         keys = np.asarray(keys, dtype=np.uint64).reshape(-1)

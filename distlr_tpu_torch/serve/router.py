@@ -21,9 +21,9 @@ router from a single :class:`~distlr_tpu_torch.serve.server.ScoringServer`:
   reply from a replica (malformed input) passes through untouched.
 * **label fan-out**: a ``LABEL <id> <y>`` line is broadcast to every
   healthy replica (of the connection's model), and the best outcome
-  (``joined`` > ``duplicate`` > ``pending``) is the reply.  The port's
-  replicas answer those lines with ``ERR`` until the feedback loop is
-  ported (ROADMAP A.11), and the router then answers ``ERR LABEL``.
+  (``joined`` > ``duplicate`` > ``pending``) is the reply.  A replica
+  without a feedback sink answers ``ERR``; when none accepts, the router
+  answers ``ERR LABEL``.
 * **multi-tenant registry**: the replica spec may name several model
   versions (``v1=h:p+h:p,v2=h:p``,
   :func:`~distlr_tpu_torch.serve.tenant.parse_model_spec`); requests

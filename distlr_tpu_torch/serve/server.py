@@ -11,17 +11,25 @@ protocol, one request per line and one reply line per request:
   travels as ONE microbatcher request.
 * **STATS**: one JSON line of request, latency, batcher, engine and
   reload counters, in the JAX server's schema.
+* **ID**: ``ID <request_id> <libsvm line>`` scores the line as libsvm
+  mode does and journals it under the caller's request id, so that a
+  later label can join it (without a feedback sink the id is ignored).
+  JSON mode's twin is an optional ``"ids"`` list parallel to ``"rows"``
+  (entries may be null).
+* **LABEL**: ``LABEL <request_id> <0|1>``, a delayed label for a scored
+  request (:mod:`distlr_tpu_torch.feedback`); reply ``OK <outcome>``
+  (``joined`` / ``pending`` / ``duplicate``), or ``ERR`` when the server
+  runs no feedback sink.
 * **Model addressing**: one server can host several model versions, one
   :class:`~distlr_tpu_torch.serve.engine.ScoringEngine` each.  ``MODEL
   <id>`` scopes the connection to a hosted model (reply ``OK MODEL
-  <id>``); a per-request ``@<id> `` prefix addresses one line (JSON lines
-  too).  Unaddressed lines score on the default (first) engine.
+  <id>``); a per-request ``@<id> `` prefix addresses one line (JSON and
+  ID lines too).  Unaddressed lines score on the default (first) engine.
 * Malformed input answers ``ERR <Type>: <reason>`` for that line; the
   connection stays up.
 
-Not ported, each answered with ``ERR`` naming its ROADMAP item: ``ID`` /
-``LABEL`` lines and the JSON ``"ids"`` list (the feedback loop, A.11) and
-``TRACE`` prefixes (distributed tracing, A.12).
+Not ported: ``TRACE`` prefixes (distributed tracing) answer ``ERR``
+naming ROADMAP A.12.
 
 One thread per connection (``ThreadingTCPServer``); every connection of a
 model funnels into that engine's
@@ -140,26 +148,28 @@ class ScoringServer:
     :class:`~distlr_tpu_torch.serve.hotset.HotSetTracker`) observes the row
     keys of the default engine's requests (``engine.row_keys``), the working
     set a hot-row live-PS reload refreshes: each version has its own
-    namespace, and mixing their keys would poison the set.  ``feedback``
-    stands in the signature as in the JAX server; given, it raises naming
-    ROADMAP A.11.
+    namespace, and mixing their keys would poison the set.  ``feedback`` (a
+    :class:`~distlr_tpu_torch.feedback.FeedbackSink`) journals the scored
+    requests, joins ``LABEL`` lines and feeds the drift detector; with
+    several engines its records carry the model id (shards a model), with
+    one unnamed engine they carry none (flat shards).
     """
 
     def __init__(self, engine=None, *, engines: dict | None = None, host: str = "127.0.0.1",
                  port: int = 0, max_wait_ms: float = 2.0, reloader=None, extra_reloaders=(),
                  metrics: MetricsLogger | None = None, hot_tracker=None, feedback=None):
-        if feedback is not None:
-            raise _not_ported("the feedback sink", "A.11")
         if engines is None:
             if engine is None:
                 raise ValueError("need an engine (or an engines mapping)")
             engines = {"default": engine}
+            self._multi = False
         else:
             if engine is not None:
                 raise ValueError("pass engine OR engines, not both")
             if not engines:
                 raise ValueError("engines mapping must name >= 1 model")
             engines = dict(engines)
+            self._multi = True
         self.engines = engines
         self._default_id = next(iter(engines))
         self.engine = engines[self._default_id]
@@ -167,6 +177,8 @@ class ScoringServer:
         self._extra_reloaders = list(extra_reloaders)
         #: fed from the default engine's traffic; None = full-table refresh
         self.hot_tracker = hot_tracker
+        #: None = the loop is open (no journal, no LABEL lines)
+        self.feedback = feedback
         self._batchers = {mid: MicroBatcher(eng.score, max_batch_size=eng.max_batch_size,
                                             max_wait_ms=max_wait_ms)
                           for mid, eng in engines.items()}
@@ -196,24 +208,38 @@ class ScoringServer:
         with self._conn_lock:
             self._active_conns.discard(conn)
 
-    def _score_lines(self, lines: list[str], model: str | None = None):
+    def _score_lines(self, lines: list[str], ids: list | None = None,
+                     model: str | None = None):
         mid = self._default_id if model is None else model
         engine = self.engines[mid]
         rows = engine.encode_lines(lines)
         if self.hot_tracker is not None and mid == self._default_id:
             self.hot_tracker.observe(engine.row_keys(rows))
+        # the version is read before scoring: a swap racing the batch makes
+        # the journal name at most one version early, never a later one
+        version = engine.weights_version
         labels, scores = self._batchers[mid].submit(rows).result()
+        labels, scores = np.asarray(labels), np.asarray(scores)
         with self._count_lock:
             self._model_requests[mid] += 1
-        return np.asarray(labels), np.asarray(scores)
+        if self.feedback is not None:
+            # ``rows`` are encode_lines' host arrays, not the device batch
+            self.feedback.scored(lines, rows, scores, version=version, ids=ids,
+                                 model=mid if self._multi else None)
+        return labels, scores
 
-    @staticmethod
-    def _refuse_unported(line: str) -> None:
-        word = line.split(None, 1)[0]
-        if word in ("ID", "LABEL"):
-            raise _not_ported(f"{word} lines (the feedback loop)", "A.11")
-        if word == "TRACE":
-            raise _not_ported("TRACE prefixes (distributed tracing)", "A.12")
+    def _handle_label(self, line: str) -> str:
+        if self.feedback is None:
+            raise ValueError(
+                "this server runs no feedback sink (start with "
+                "--feedback-spool to close the loop)")
+        parts = line.split()
+        if len(parts) != 3:
+            raise ValueError("LABEL needs exactly: LABEL <request_id> <0|1>")
+        y = float(parts[2])
+        if y not in (0.0, 1.0):
+            raise ValueError(f"label must be 0 or 1, got {parts[2]!r}")
+        return f"OK {self.feedback.label(parts[1], int(y))}"
 
     def _count_error(self) -> None:
         with self._count_lock:
@@ -252,21 +278,34 @@ class ScoringServer:
         try:
             if line == "STATS":
                 return json.dumps(self.stats())
-            self._refuse_unported(line)
+            if line.startswith("TRACE ") or line == "TRACE":
+                raise _not_ported("TRACE prefixes (distributed tracing)", "A.12")
+            if line.startswith("LABEL ") or line == "LABEL":
+                return self._handle_label(line)
             if line.startswith("{"):
                 req = json.loads(line)
                 batch = req.get("rows")
                 if not isinstance(batch, list) or not batch:
                     raise ValueError('JSON request needs a non-empty "rows" list')
-                if req.get("ids") is not None:
-                    raise _not_ported('the JSON "ids" list (the feedback loop)', "A.11")
-                labels, scores = self._score_lines([str(r) for r in batch], model)
+                ids = req.get("ids")
+                if ids is not None and (not isinstance(ids, list) or len(ids) != len(batch)):
+                    raise ValueError('"ids" must be a list parallel to "rows"')
+                labels, scores = self._score_lines(
+                    [str(r) for r in batch],
+                    None if ids is None else [None if i is None else str(i) for i in ids],
+                    model)
                 reply = json.dumps({
                     "labels": [int(v) for v in labels],
                     "scores": [round(float(v), 6) for v in scores],
                 })
             else:
-                labels, scores = self._score_lines([line], model)
+                ids = None
+                if line.startswith("ID "):
+                    parts = line.split(None, 2)
+                    if len(parts) != 3:
+                        raise ValueError("ID mode needs: ID <request_id> <features>")
+                    line, ids = parts[2], [parts[1]]
+                labels, scores = self._score_lines([line], ids, model)
                 reply = f"{int(labels[0])} {float(scores[0]):.6g}"
         except Exception as e:
             self._count_error()
@@ -301,6 +340,8 @@ class ScoringServer:
         }
         if self.reloader is not None:
             rec["reload"] = self.reloader.stats()
+        if self.feedback is not None:
+            rec["feedback"] = self.feedback.stats()
         # mirrored into the metrics records, unless stop() closed them
         if not self.metrics.closed:
             self.metrics.log(requests=rec["requests"], qps=rec["qps"], p50_ms=rec["p50_ms"],
@@ -311,6 +352,8 @@ class ScoringServer:
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> "ScoringServer":
         self._started = True
+        if self.feedback is not None:
+            self.feedback.start()  # the window-expiry and idle-flush ticker
         self._thread.start()
         log.info("serving %s on %s:%d (max_batch=%d, buckets=%s, device=%s, models=%s)",
                  self.engine.cfg.model, self.host, self.port, self.engine.max_batch_size,
@@ -340,6 +383,8 @@ class ScoringServer:
             self.reloader.stop()
         for rl in self._extra_reloaders:
             rl.stop()
+        if self.feedback is not None:
+            self.feedback.stop()  # flushes the partial shards
         self.metrics.close()
 
     def abort(self) -> None:

@@ -31,22 +31,11 @@ import time
 
 import numpy as np
 
+from distlr_tpu_torch.feedback.drift import psi
+
 #: model id of unaddressed traffic: a spec without ``=`` registers its
 #: replicas here, so single-model clients and replica lists keep working
 DEFAULT_MODEL = "default"
-
-
-def _psi(p_counts, q_counts, *, smoothing: float = 1e-3) -> float:
-    """PSI of two histograms (the port's copy of
-    ``distlr_tpu/feedback/drift.py::psi``, until the feedback loop is
-    ported, ROADMAP A.11)."""
-    p = np.asarray(p_counts, np.float64)
-    q = np.asarray(q_counts, np.float64)
-    if p.shape != q.shape or p.sum() <= 0 or q.sum() <= 0:
-        raise ValueError("need two same-shape non-empty histograms")
-    p = p / p.sum() + smoothing
-    q = q / q.sum() + smoothing
-    return float(np.sum((p - q) * np.log(p / q)))
 
 
 def parse_model_spec(spec) -> dict[str, list[str]]:
@@ -200,7 +189,7 @@ class _ShadowPair:
             hist += np.bincount(idx, minlength=self.bins)
         self.pairs += n
         if self.pairs >= self.block:
-            self.psi_last = _psi(self.primary, self.candidate)
+            self.psi_last = psi(self.primary, self.candidate)
             self.blocks += 1
             self.primary[:] = 0
             self.candidate[:] = 0

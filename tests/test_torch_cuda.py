@@ -795,6 +795,41 @@ def test_router_over_two_replicas_on_card_matches_plain(cuda):
     assert all(r["requests"] > 0 for r in stats["replicas"])
 
 
+def test_labelled_request_on_card_journals_the_plain_score(cuda, tmp_path):
+    """An ``ID`` request and its ``LABEL`` through a server with a feedback
+    sink at D = 4,096 on the card: the journal holds the score of the plain
+    forward (to its 6 digits), one ``lr_logits`` launched, and the joined
+    shard holds the label and the request's features."""
+    import json  # noqa: PLC0415
+
+    from distlr_tpu_torch.feedback import FeedbackSink  # noqa: PLC0415
+    from distlr_tpu_torch.serve import ScoringEngine, ScoringServer  # noqa: PLC0415
+
+    D = 4096
+    w = _serve_weights(D, 6)
+    X = _one_hot_rows(1, D, seed=7)
+    line = " ".join(f"{c + 1}:1" for c in X[0].nonzero()[0])
+    eng = ScoringEngine(Config(num_feature_dim=D, l2_c=0.0), max_batch_size=64)
+    eng.set_weights(w)
+    sink = FeedbackSink(str(tmp_path / "spool"), str(tmp_path / "shards"), window_s=60.0)
+    before = _counts()
+    with ScoringServer(eng, max_wait_ms=0.5, feedback=sink) as srv:
+        reply = srv.handle_line(f"ID q1 {line}")
+        assert srv.handle_line("LABEL q1 1") == "OK joined"
+    after = _counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {"lr_logits": 1}
+    z = ops.lr_logits_reference(torch.from_numpy(w).to(cuda),
+                                torch.from_numpy(X).to(cuda, torch.bfloat16)).cpu()
+    want = float(torch.sigmoid(z.double())[0])
+    with open(tmp_path / "spool" / "spool-000000.jsonl") as f:
+        docs = [json.loads(ln) for ln in f]
+    assert docs[0]["id"] == "q1" and docs[0]["line"] == line
+    assert abs(docs[0]["score"] - round(want, 6)) <= 1e-5
+    assert abs(float(reply.split()[1]) - want) <= 1e-5
+    assert docs[1] == {"joined": "q1"}
+    assert (tmp_path / "shards" / "shard-000000.libsvm").read_text() == f"1 {line}\n"
+
+
 # --- the feature-sharded step (lr_backward, column blocks) ------------------
 # aligned shapes, D not a multiple of 8, a block whose rows break 16-byte
 # alignment (12 bf16 columns), a view at an odd offset; the step's blocks

@@ -57,7 +57,11 @@ def test_fresh_interpreter_imports_no_jax():
                 "distlr_tpu_torch.serve.tenant", "distlr_tpu_torch.serve.rollout",
                 "distlr_tpu_torch.compress", "distlr_tpu_torch.compress.codecs",
                 "distlr_tpu_torch.compress.accum", "distlr_tpu_torch.ps.server",
-                "distlr_tpu_torch.benchmarks.wire_push"):
+                "distlr_tpu_torch.benchmarks.wire_push",
+                "distlr_tpu_torch.feedback", "distlr_tpu_torch.feedback.spool",
+                "distlr_tpu_torch.feedback.join", "distlr_tpu_torch.feedback.drift",
+                "distlr_tpu_torch.feedback.sink", "distlr_tpu_torch.feedback.online",
+                "distlr_tpu_torch.feedback.clock"):
         assert mod in doc["imported"]
     assert doc["leaked"] == []
 

@@ -1,5 +1,7 @@
 """The port's CLI, its device rule and its kernel build, on the CPU."""
 
+import argparse
+import dataclasses
 import os
 import re
 import shutil
@@ -10,13 +12,35 @@ from pathlib import Path
 import pytest
 import torch
 
+from distlr_tpu import launch as jax_launch
+from distlr_tpu_torch import launch
 from distlr_tpu_torch.config import Config
-from distlr_tpu_torch.launch import _UNPORTED_PS_FLAGS
 from distlr_tpu_torch.ops import build
 from distlr_tpu_torch.train import Trainer
 from distlr_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
+
+#: the JAX package's ``ps`` flags that are not ported yet (ROADMAP A.16):
+#: (flag, dest, type; None = a switch); given, each one raises
+_UNPORTED_PS_FLAGS = (
+    ("--max-worker-restarts", "max_worker_restarts", int),
+    ("--supervise-servers", "supervise_servers", None),
+    ("--chaos-plan", "chaos_plan", str),
+    ("--chaos-seed", "chaos_seed", int),
+    ("--ps-retry-attempts", "ps_retry_attempts", int),
+    ("--ps-retry-backoff", "ps_retry_backoff_ms", float),
+    ("--ps-retry-backoff-max", "ps_retry_backoff_max_ms", float),
+    ("--ps-retry-deadline", "ps_retry_deadline_s", float),
+    ("--ps-retry-adaptive", "ps_retry_adaptive", None),
+    ("--store-dir", "ps_store_dir", str),
+    ("--store-interval", "ps_store_interval_s", float),
+    ("--store-wal", "ps_store_wal", None),
+    ("--store-wal-fsync", "ps_store_wal_fsync_s", float),
+    ("--checkpoint-dir", "checkpoint_dir", str),
+    ("--checkpoint-interval", "checkpoint_interval", int),
+    ("--resume", "resume", None),
+)
 EVAL_LINE = re.compile(r"^\d\d:\d\d:\d\d Iteration (\d+), accuracy: (\S+)$", re.M)
 
 
@@ -203,6 +227,128 @@ class TestPSCLI:
             with open(os.path.join(d, "models", part)) as f:
                 assert f.readline().strip() == "64"
                 assert len(f.readline().split()) == 64
+
+
+def _subparsers(main_fn) -> dict:
+    """The subcommand parsers ``main_fn`` builds, read by stopping it at
+    ``parse_args``."""
+    from unittest import mock
+
+    class _Built(Exception):
+        pass
+
+    def stop(parser, *a, **k):
+        raise _Built(parser)
+
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", stop):
+        try:
+            main_fn(["sync"])
+        except _Built as built:
+            parser = built.args[0]
+    (sub,) = [a for a in parser._actions if isinstance(a, argparse._SubParsersAction)]
+    return parser, sub.choices
+
+
+# both CLIs' parsers, built once for every case below
+_JAX_PARSER, _JAX_SUBS = _subparsers(jax_launch.main)
+_PARSER, _SUBS = _subparsers(launch.main)
+_SHARED_CASES = [(cmd, opt) for cmd in _SUBS if cmd in _JAX_SUBS
+                 for opt in sorted({o for a in _JAX_SUBS[cmd]._actions for o in a.option_strings}
+                                   - {"-h", "--help"})]
+
+# the ROADMAP item a flag's non-default value must name, independent of
+# the port's own tables
+_GATES = {
+    **dict.fromkeys(("--metrics-port", "--metrics-host", "--obs-run-dir", "--trace-path",
+                     "--trace-sample", "--profile-dir"), "A.12"),
+    **dict.fromkeys(("--prof-hz", "--prof-window", "--log-level", "--log-ring", "--log-dedupe",
+                     "--incident-window", "--incident-settle", "--incident-max"), "A.21"),
+    **dict.fromkeys(("--ps-retry-attempts", "--ps-retry-backoff", "--ps-retry-backoff-max",
+                     "--ps-retry-deadline", "--ps-retry-adaptive", "--store-dir",
+                     "--store-interval", "--store-wal", "--store-wal-fsync", "--chaos-plan",
+                     "--chaos-seed", "--max-worker-restarts", "--supervise-servers",
+                     "--elastic", "--ctl-port", "--ps-ctl"), "A.16"),
+}
+_COMMAND_ITEMS = {("rollout", "--obs-run-dir"): "A.21",
+                  **{(c, f): "A.16" for c in ("ps", "ps-server")
+                     for f in ("--checkpoint-dir", "--checkpoint-interval", "--resume")}}
+# flags whose value must come with another flag to be valid in both packages
+_WITH = {"--accum-start": ["--accum-max", "4"],
+         "--block-groups": ["--model", "blocked_lr", "--block-size", "4"]}
+_VALUE = {"--accum-growth": "2.5", "--coordinator": "127.0.0.1:1", "--block-size": "4",
+          "--eject-after": "5", "--probe-backoff": "0.25"}
+# the flags a command maps onto Config fields itself (the JAX package's
+# cmd_serve / cmd_route overrides)
+_COMMAND_FIELDS = {
+    "serve": {"port": "serve_port", "bind": "serve_host",
+              "serve_max_batch_size": "serve_max_batch_size",
+              "max_wait_ms": "serve_max_wait_ms", "reload_interval": "serve_reload_interval_s",
+              "hot_rows": "serve_hot_rows", "hot_min_coverage": "serve_hot_min_coverage",
+              "hot_full_every": "serve_hot_full_every",
+              "engine_idle_evict": "serve_engine_idle_evict_s", "model_id": "serve_model_id",
+              "feedback_spool": "feedback_spool_dir", "feedback_shards": "feedback_shard_dir",
+              "feedback_window": "feedback_window_s",
+              "feedback_negative_rate": "feedback_negative_rate",
+              "feedback_shard_records": "feedback_shard_records",
+              "feedback_capacity": "feedback_capacity", "drift_block": "feedback_drift_block",
+              "drift_threshold": "feedback_drift_threshold"},
+    "route": {"port": "route_port", "bind": "route_host", "max_inflight": "route_max_inflight",
+              "eject_after": "route_eject_after", "health_interval": "route_health_interval_s",
+              "probe_backoff": "route_probe_backoff_s",
+              "probe_backoff_max": "route_probe_backoff_max_s",
+              "backend_timeout": "route_backend_timeout_s", "quota": "route_quota"},
+}
+
+
+def _flag_value(action, opt: str) -> list[str]:
+    """A value of ``opt`` other than its default, valid in both packages."""
+    if action.nargs == 0:
+        return []
+    if opt in _VALUE:
+        return [_VALUE[opt]]
+    if action.choices:
+        return [[c for c in action.choices if c != action.default][-1]]
+    if action.type is int:
+        return ["3"]
+    if action.type is float:
+        return ["0.5"]
+    return ["x"]
+
+
+@pytest.mark.parametrize("cmd,opt", _SHARED_CASES, ids=[f"{c}:{o}" for c, o in _SHARED_CASES])
+def test_shared_flags_match_jax(cmd, opt):
+    """Every option string of a JAX subcommand parses on the port's twin
+    into the same dest, value and default, then either reaches the same
+    Config field as in the JAX package or raises naming its ROADMAP item."""
+    (action,) = [a for a in _JAX_SUBS[cmd]._actions if opt in a.option_strings]
+    required = [x for a in _JAX_SUBS[cmd]._actions if a.required
+                for x in (a.option_strings[0], "x") if a.option_strings[0] != opt]
+    argv = [cmd, *required, *_WITH.get(opt, []), opt, *_flag_value(action, opt)]
+    if not action.required:
+        ours_default = _PARSER.parse_args([cmd, *required] + (["--device", "cpu"]
+                                                              if cmd != "gen-data" else []))
+        theirs_default = _JAX_PARSER.parse_args([cmd, *required])
+        assert getattr(ours_default, action.dest) == getattr(theirs_default, action.dest)
+    ours = _PARSER.parse_args(argv + (["--device", "cpu"] if cmd != "gen-data" else []))
+    theirs = _JAX_PARSER.parse_args(argv)
+    assert getattr(ours, action.dest) == getattr(theirs, action.dest)
+    if cmd == "gen-data":
+        return  # no Config: the flags go to the writers
+    item = _COMMAND_ITEMS.get((cmd, opt), _GATES.get(opt))
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=rf"\(ROADMAP {re.escape(item)}\)"):
+            launch.command_config(ours)
+        return
+    cfg = launch.command_config(ours)
+    jax_cfg = jax_launch._config_from_args(theirs)
+    if action.dest in _COMMAND_FIELDS.get(cmd, {}):
+        field = _COMMAND_FIELDS[cmd][action.dest]
+        assert getattr(cfg, field) == getattr(theirs, action.dest) != getattr(Config(), field)
+    elif action.dest in {f.name for f in dataclasses.fields(Config)}:
+        assert getattr(cfg, action.dest) == getattr(jax_cfg, action.dest)
+    elif action.dest == "feature_shards":
+        assert (cfg.mesh_shape, cfg.feature_shards) == (jax_cfg.mesh_shape,
+                                                        jax_cfg.feature_shards)
 
 
 class TestDeviceRule:

@@ -145,14 +145,38 @@ class TestConfigGates:
         ({"ps_store_dir": "store"}, "A.16"),
         ({"ps_store_wal": True}, "A.16"),
         ({"chaos_plan": "plan.json"}, "A.16"),
-        # the serving options of the feedback loop and named engines
-        ({"feedback_spool_dir": "spool"}, "A.11"),
-        ({"feedback_window_s": 5.0}, "A.11"),
-        ({"feedback_drift_threshold": 0.5}, "A.11"),
     ])
     def test_unported_options_name_their_roadmap_item(self, kw, item):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
             Config(device="cpu", **kw)
+
+    # the feedback loop's options (ROADMAP A.11): accepted, with the JAX
+    # package's values
+    @pytest.mark.parametrize("kw", [
+        {"feedback_spool_dir": "spool"},
+        {"feedback_window_s": 5.0},
+        {"feedback_drift_threshold": 0.5},
+        {"feedback_shard_dir": "shards", "feedback_negative_rate": 0.3,
+         "feedback_shard_records": 64, "feedback_capacity": 10, "feedback_drift_block": 32},
+    ])
+    def test_feedback_options_resolve_like_jax(self, kw):
+        j, t = JaxConfig(**kw), Config(device="cpu", **kw)
+        for f in ("feedback_spool_dir", "feedback_shard_dir", "feedback_window_s",
+                  "feedback_negative_rate", "feedback_shard_records", "feedback_capacity",
+                  "feedback_drift_block", "feedback_drift_threshold"):
+            assert getattr(t, f) == getattr(j, f), f
+
+    @pytest.mark.parametrize("kw", [
+        {"feedback_window_s": 0.0}, {"feedback_negative_rate": 1.5},
+        {"feedback_shard_records": 0}, {"feedback_capacity": -1},
+        {"feedback_drift_block": 0}, {"feedback_drift_threshold": 0.0},
+    ])
+    def test_feedback_options_refused_like_jax(self, kw):
+        with pytest.raises(ValueError) as ours:
+            Config(device="cpu", **kw)
+        with pytest.raises(ValueError) as theirs:
+            JaxConfig(**kw)
+        assert str(ours.value) == str(theirs.value)
 
     # the keyed PS families in async mode and the hot-row serving options
     # (ROADMAP A.15, A.18): accepted, with the JAX package's values

@@ -509,16 +509,37 @@ class TestServerEndToEnd:
         assert not good.startswith("ERR")
         assert stats["errors"] == 2 and stats["requests"] == 1
 
-    @pytest.mark.parametrize("line,item", [
-        ("ID r1 1:1 2:1", "A.11"), ("LABEL r1 1", "A.11"),
-        ('{"rows": ["1:1"], "ids": ["r1"]}', "A.11"), ("TRACE 00/00 1:1", "A.12"),
-    ])
+    @pytest.mark.parametrize("line,item", [("TRACE 00/00 1:1", "A.12")])
     def test_unported_lines_answer_err_naming_their_item(self, line, item):
         ours, _ = _servers(_trained_weights(8), num_feature_dim=8)
         with ours as srv:
             reply, good = score_lines_over_tcp(srv.host, srv.port, [line, "1:1"])
         assert reply.startswith("ERR NotImplementedError: ") and f"ROADMAP {item})" in reply
         assert not good.startswith("ERR")
+
+    # ID / LABEL lines and the JSON "ids" (ROADMAP A.11), on a server without
+    # a feedback sink: the id is ignored, LABEL answers the JAX server's ERR
+    @pytest.mark.parametrize("line", [
+        "ID r1 1:1 2:1", "LABEL r1 1", '{"rows": ["1:1"], "ids": ["r1"]}',
+        '{"rows": ["1:1"], "ids": ["r1", "r2"]}', "ID r1",
+    ])
+    def test_feedback_lines_without_a_sink_answer_like_jax(self, line):
+        replies = []
+        for srv in _servers(_trained_weights(8), num_feature_dim=8, compute_dtype="float32"):
+            with srv:
+                replies.append(score_lines_over_tcp(srv.host, srv.port, [line, "1:1"]))
+                replies[-1].append(srv.stats()["errors"])
+        ours, theirs = replies
+        if line.startswith("{") and not ours[0].startswith("ERR"):
+            a, b = json.loads(ours[0]), json.loads(theirs[0])
+            assert a["labels"] == b["labels"]
+            np.testing.assert_allclose(a["scores"], b["scores"], rtol=1e-5)
+        elif line.startswith("ID r1 "):
+            np.testing.assert_allclose(_parse_replies(ours[:2])[1],
+                                       _parse_replies(theirs[:2])[1], rtol=1e-5)
+        else:
+            assert ours[0] == theirs[0] and ours[0].startswith("ERR ValueError: ")
+        assert ours[2] == theirs[2]
 
     # MODEL / @<id> addressing (ROADMAP A.17): answered as the JAX server
     # answers, here on one unnamed engine (an unknown model)
@@ -536,11 +557,40 @@ class TestServerEndToEnd:
         _, theirs = _parse_replies(replies[1][1:2])
         np.testing.assert_allclose(ours, theirs, rtol=1e-5)
 
-    @pytest.mark.parametrize("kw,item", [({"feedback": object()}, "A.11")])
-    def test_unported_server_options_raise(self, kw, item):
-        eng = ScoringEngine(Config(device="cpu", num_feature_dim=4))
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
-            ScoringServer(eng, **kw)
+    # the feedback= sink (ROADMAP A.11): accepted, with the JAX server's
+    # replies, journal and STATS
+    def test_feedback_sink_accepted_like_jax(self, tmp_path):
+        from distlr_tpu.feedback import FeedbackSink as JaxSink
+        from distlr_tpu_torch.feedback import FeedbackSink
+
+        w = _trained_weights(8)
+        lines = ["ID r1 1:1 2:1", "ID r2 3:1", "LABEL r1 1", "LABEL r1 0", "LABEL r9 1",
+                 json.dumps({"rows": ["4:1", "5:1"], "ids": ["r3", None]}), "LABEL r3 0"]
+        got = []
+        for (eng, cls, sink_cls), tag in zip(
+                ((e, srv, k) for e, srv, k in zip(_pair(l2_c=0.0, num_feature_dim=8,
+                                                        compute_dtype="float32"),
+                                                  (ScoringServer, JaxServer),
+                                                  (FeedbackSink, JaxSink))), ("ours", "jax")):
+            eng.set_weights(w)
+            sink = sink_cls(str(tmp_path / tag / "spool"), str(tmp_path / tag / "shards"),
+                            window_s=30.0, shard_records=1)
+            with cls(eng, max_wait_ms=1.0, feedback=sink) as srv:
+                replies = [srv.handle_line(ln) for ln in lines]
+                stats = srv.stats()["feedback"]
+            got.append((replies, stats, sorted(os.listdir(tmp_path / tag / "shards"))))
+        (ours, ours_stats, ours_shards), (theirs, theirs_stats, theirs_shards) = got
+        assert ours[2:5] == theirs[2:5] == ["OK joined", "OK duplicate", "OK pending"]
+        assert ours[6] == theirs[6] == "OK joined"
+        np.testing.assert_allclose(_parse_replies(ours[:2])[1], _parse_replies(theirs[:2])[1],
+                                   rtol=1e-5)
+        for k in ("join", "drift"):
+            assert ours_stats[k] == theirs_stats[k], k
+        assert {k: v for k, v in ours_stats["spool"].items()} == theirs_stats["spool"]
+        assert ours_shards == theirs_shards == ["shard-000000.libsvm", "shard-000001.libsvm"]
+        for name in ours_shards:
+            assert (tmp_path / "ours" / "shards" / name).read_bytes() == \
+                (tmp_path / "jax" / "shards" / name).read_bytes()
 
     # several engines (ROADMAP A.17): accepted, with the JAX server's replies
     @pytest.mark.parametrize("kw", [{"engines": ["a"]}])
@@ -1077,6 +1127,44 @@ class TestLaunchServe:
         with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
             launch.main(["serve", "--num-feature-dim", "24", "--model-file", model_dir[1],
                          "--device", "cpu", *argv])
+
+    # the feedback loop's flags (ROADMAP A.11): the same Config as the JAX
+    # package's launch serve builds, taken where each builds its engine
+    @pytest.mark.parametrize("argv,field", [
+        (["--feedback-spool", "spool"], "feedback_spool_dir"),
+        (["--feedback-shards", "shards"], "feedback_shard_dir"),
+        (["--feedback-window", "5"], "feedback_window_s"),
+        (["--feedback-negative-rate", "0.3"], "feedback_negative_rate"),
+        (["--feedback-shard-records", "64"], "feedback_shard_records"),
+        (["--feedback-capacity", "10"], "feedback_capacity"),
+        (["--drift-block", "32"], "feedback_drift_block"),
+        (["--drift-threshold", "0.5"], "feedback_drift_threshold"),
+    ])
+    def test_feedback_serve_flags_reach_config_like_jax(self, argv, field, model_dir,
+                                                        monkeypatch):
+        import distlr_tpu.serve as jax_serve
+        import distlr_tpu_torch.serve as serve
+        from distlr_tpu import launch as jax_launch
+
+        seen = {}
+
+        class _Seen(Exception):
+            pass
+
+        def grab(key):
+            def f(cfg, *a, **k):
+                seen[key] = cfg
+                raise _Seen
+            return f
+
+        monkeypatch.setattr(serve, "ScoringEngine", grab("ours"))
+        monkeypatch.setattr(jax_serve, "ScoringEngine", grab("jax"))
+        common = ["serve", "--num-feature-dim", "24", "--model-file", model_dir[1], *argv]
+        for main, extra in ((launch.main, ["--device", "cpu"]), (jax_launch.main, [])):
+            with pytest.raises(_Seen):
+                main(common + extra)
+        assert getattr(seen["ours"], field) == getattr(seen["jax"], field) != getattr(
+            Config(), field)
 
 
 class TestLaunchServeLivePS:

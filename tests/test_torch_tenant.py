@@ -148,10 +148,10 @@ class TestTenant:
     def test_psi_same_bits(self, seed):
         rng = np.random.default_rng(seed)
         p, q = rng.integers(0, 50, 10), rng.integers(0, 50, 10)
-        assert tenant._psi(p, q) == jax_psi(p, q)
+        assert tenant.psi(p, q) == jax_psi(p, q)
         for bad in ((p, q[:5]), (np.zeros(10), q)):
             with pytest.raises(ValueError) as a:
-                tenant._psi(*bad)
+                tenant.psi(*bad)
             with pytest.raises(ValueError) as b:
                 jax_psi(*bad)
             assert str(a.value) == str(b.value)
