@@ -49,7 +49,11 @@ the PS update rules and gradient wire at D = 1M (sync FTRL, int8 and
 signSGD pushes and async accumulation through ``run_ps_local``, each held
 to its oracle on the ``fused_lr_grad`` kernel's own gradients; keyed
 FTRL; ``launch ps-server --namespaces v1:ftrl,v2`` with ``launch serve``
-and ``launch ps --hosts`` against it), then
+and ``launch ps --hosts`` against it) and PS fault recovery at D = 1M
+(a sync crash after a checkpoint resumed against the surviving group and
+held to an uninterrupted run, an async worker restart, a server SIGKILLed
+under the ``ServerSupervisor`` and re-seeded from its snapshot, and
+``launch ps`` with the recovery flags), then
 the serving control plane (a ``ScoringRouter`` in front of two
 ``ScoringServer`` replicas, each hosting the binary_lr versions v1 and v2
 at D = 1M: one reloads both from two namespaces of one PS group, the other
@@ -1531,7 +1535,8 @@ def _write_libsvm_cols(path: str, cols, y) -> None:
                      for row, label in zip(cols.tolist(), y))
 
 
-def _ps_data(tmp: str, seed: int) -> float:
+def _ps_data(tmp: str, seed: int, shard_rows: int = PS_SHARD_ROWS,
+             test_rows: int = PS_TEST_ROWS) -> float:
     """The ps phase's data dir: two train shards of PS_SHARD_ROWS config-3
     CTR rows and PS_TEST_ROWS test rows at D = FULL_D, as libsvm text."""
     import numpy as np  # noqa: PLC0415
@@ -1539,8 +1544,8 @@ def _ps_data(tmp: str, seed: int) -> float:
     rng = np.random.default_rng(seed)
     w_true = (rng.standard_normal(FULL_D) * 0.5).astype(np.float32)
     t0 = time.perf_counter()
-    for split, part, n in (("train", 1, PS_SHARD_ROWS), ("train", 2, PS_SHARD_ROWS),
-                           ("test", 1, PS_TEST_ROWS)):
+    for split, part, n in (("train", 1, shard_rows), ("train", 2, shard_rows),
+                           ("test", 1, test_rows)):
         os.makedirs(os.path.join(tmp, split), exist_ok=True)
         _write_libsvm_cols(os.path.join(tmp, split, f"part-{part:03d}"),
                            *_ctr_cols(rng, n, w_true, FULL_D))
@@ -1576,18 +1581,17 @@ def _sampled_peak_rss(out: dict, period_s: float = 0.05):
         out["host_peak_rss_gb"] = max(peak, rss_kb()) / 2**20
 
 
-def _run_ps(torch, cfg, *, save: bool = True) -> tuple[list, dict, dict, float]:
-    """``run_ps_local(cfg)`` with the launch counts zeroed just before and
-    read just after, under a wall-clock limit; ``(weights, report,
-    launches, seconds)``.  Raises if the run hangs or fails."""
+def _bounded(torch, fn) -> tuple[object, dict, float]:
+    """``fn()`` (a PS run) with the launch counts zeroed just before and
+    read just after, under a wall-clock limit; ``(result, launches,
+    seconds)``.  Raises if the run hangs or fails."""
     from distlr_tpu_torch import ops  # noqa: PLC0415
-    from distlr_tpu_torch.train.ps_trainer import run_ps_local  # noqa: PLC0415
 
-    out, report = {}, {}
+    out = {}
 
     def run():
         try:
-            out["weights"] = run_ps_local(cfg, save=save, report=report)
+            out["result"] = fn()
         except BaseException as e:  # noqa: BLE001 — re-raised below, in the main thread
             out["error"] = e
 
@@ -1604,7 +1608,18 @@ def _run_ps(torch, cfg, *, save: bool = True) -> tuple[list, dict, dict, float]:
     seconds = time.perf_counter() - t0
     if "error" in out:
         raise out["error"]
-    return out["weights"], report, _launches(ops), seconds
+    return out["result"], _launches(ops), seconds
+
+
+def _run_ps(torch, cfg, *, save: bool = True, **kw) -> tuple[list, dict, dict, float]:
+    """``run_ps_local(cfg, **kw)`` under :func:`_bounded`; ``(weights,
+    report, launches, seconds)``."""
+    from distlr_tpu_torch.train.ps_trainer import run_ps_local  # noqa: PLC0415
+
+    report = {}
+    weights, launches, seconds = _bounded(
+        torch, lambda: run_ps_local(cfg, save=save, report=report, **kw))
+    return weights, report, launches, seconds
 
 
 def _test_logloss(torch, ops, w, Xt, yt) -> float:
@@ -3090,6 +3105,403 @@ def phase_ps_wire(torch, seed: int, smi: str) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     torch.cuda.empty_cache()
     emit("ps_wire", **out)
+    return out
+
+
+# --- PS fault recovery ---------------------------------------------------------
+# a straggler timeout that outlasts a round at this width (about 1.3 s a
+# sync round) and bounds how long rank 1 waits out the crashed rank 0
+REC_TIMEOUT_MS = 6_000
+REC_KILL_EPOCHS, REC_KILL_AT_PUSHES = 6, 5
+# the supervisor's poll and snapshot intervals in the kill run (its
+# defaults are 0.2 s and 1 s)
+REC_SUP_POLL_S, REC_SUP_SNAPSHOT_S = 0.05, 0.2
+REC_RESUME_TOL = 1e-5
+REC_CLI_ROWS = 128
+
+
+def _rec_sync_resume(torch, ops, cfg, Xt, yt) -> tuple[dict, dict, object]:
+    """Sync, checkpoint_interval 1: rank 0 raises after its epoch-1
+    checkpoint, rank 1 times out, and the job resumes against the
+    surviving group; its weights against an uninterrupted run's on a fresh
+    group.  ``(line, launches, resumed weights)``."""
+    from distlr_tpu_torch.ps import ServerGroup  # noqa: PLC0415
+    from distlr_tpu_torch.train import ps_trainer  # noqa: PLC0415
+    from distlr_tpu_torch.train.ps_trainer import ps_param_dim, run_ps_workers  # noqa: PLC0415
+
+    sidecar = os.path.join(cfg.checkpoint_dir, "ps_latest.json")
+    launches = {}
+    real = ps_trainer.PSWorker._checkpoint
+    state = {"crashed": False}
+
+    def crashing(self, ckpt, epoch):
+        real(self, ckpt, epoch)
+        if epoch == 1 and not state["crashed"]:
+            state["crashed"] = True
+            raise RuntimeError("injected crash after checkpoint")
+
+    ps_trainer.PSWorker._checkpoint = crashing
+    try:
+        with ServerGroup(PS_SERVERS, PS_WORKERS, ps_param_dim(cfg),
+                         learning_rate=cfg.learning_rate, sync=True) as group:
+            try:
+                _bounded(torch, lambda: run_ps_workers(cfg, group.hosts, range(PS_WORKERS)))
+            except Exception as e:  # noqa: BLE001 — the injected crash, checked below
+                crash_error = f"{type(e).__name__}: {e}"
+            else:
+                raise AssertionError("ps_recovery: the crashed sync run did not fail")
+            if not state["crashed"]:
+                raise AssertionError(f"ps_recovery: the crash did not fire ({crash_error})")
+            with open(sidecar) as f:
+                crashed_sidecar = json.load(f)
+            counts = _launches(ops)  # the crashed run's: _bounded raised before reading
+            report = {}
+            resumed, resumed_launches, resume_s = _bounded(torch, lambda: run_ps_workers(
+                cfg, group.hosts, range(PS_WORKERS), resume=True, report=report))
+    finally:
+        ps_trainer.PSWorker._checkpoint = real
+    with open(sidecar) as f:
+        final_sidecar = json.load(f)
+    whole, _, whole_launches, whole_s = _run_ps(torch, cfg.replace(checkpoint_dir=None),
+                                                save=False)
+    for c in (counts, resumed_launches, whole_launches):
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+    w = torch.from_numpy(resumed[0]).cuda()
+    w_whole = torch.from_numpy(whole[0]).cuda()
+    line = {
+        "crash": crash_error, "sidecar_after_crash": crashed_sidecar,
+        "sidecar_after_resume": final_sidecar, "resume_seconds": resume_s,
+        "uninterrupted_seconds": whole_s,
+        "resume_to_first_round_s": report[0]["rendezvous_s"],
+        "checkpoint_save_ms": report[0]["checkpoint_ms"],
+        "checkpoint_saves": report[0]["checkpoint_count"],
+        "checkpoint_bytes": os.path.getsize(os.path.join(
+            cfg.checkpoint_dir, f"ckpt-{PS_EPOCHS}.npz")),
+        "weights_max_rel_err_vs_uninterrupted": rel_err(w, w_whole),
+        "weights_equal_uninterrupted": bool(torch.equal(w, w_whole)),
+        "tolerance": REC_RESUME_TOL,
+        "test_logloss": _test_logloss(torch, ops, w, Xt, yt),
+        "workers": [report[r] for r in range(PS_WORKERS)],
+    }
+    if crashed_sidecar != {"epoch": 1, "attempt": 0} or final_sidecar != {
+            "epoch": PS_EPOCHS, "attempt": 1}:
+        raise AssertionError(f"ps_recovery: sidecars {crashed_sidecar} -> {final_sidecar}")
+    if line["weights_max_rel_err_vs_uninterrupted"] > REC_RESUME_TOL:
+        raise AssertionError(f"ps_recovery: the resumed weights are "
+                             f"{line['weights_max_rel_err_vs_uninterrupted']} (rel) from the "
+                             f"uninterrupted run's")
+    return line, launches, w
+
+
+def _rec_async_restart(torch, ops, cfg, Xt, yt, init_ll) -> tuple[dict, dict]:
+    """Async, max_restarts 1: rank 1's gradient raises once, in its second
+    round (the device lock is held then); the run completes, one restart
+    is counted, the weights are finite and the test logloss falls."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.models import linear  # noqa: PLC0415
+
+    real = linear.BinaryLR.grad
+    calls = {"rank1": 0, "crashed": False}
+
+    def flaky(self, *a, **kw):
+        if threading.current_thread().name == "ps-worker-1":
+            calls["rank1"] += 1
+            if calls["rank1"] == 2 and not calls["crashed"]:
+                calls["crashed"] = True
+                raise RuntimeError("injected crash in rank 1's second round")
+        return real(self, *a, **kw)
+
+    linear.BinaryLR.grad = flaky
+    try:
+        weights, report, launches, seconds = _run_ps(torch, cfg, save=False, max_restarts=1)
+    finally:
+        linear.BinaryLR.grad = real
+    final_ll = [_test_logloss(torch, ops, x, Xt, yt) for x in weights]
+    line = {"seconds": seconds, "crashed": calls["crashed"],
+            "restarts": [report[r]["restarts"] for r in range(PS_WORKERS)],
+            "test_logloss_init": init_ll, "test_logloss_final": final_ll,
+            "workers": [report[r] for r in range(PS_WORKERS)]}
+    if (not calls["crashed"] or line["restarts"] != [0, 1]
+            or not all(np.isfinite(x).all() for x in weights)
+            or not all(ll < init_ll for ll in final_ll)):
+        raise AssertionError(f"ps_recovery async restart: {line}")
+    return line, launches
+
+
+def _rec_server_kill(torch, ops, cfg) -> tuple[dict, dict]:
+    """Async FTRL under the supervisor, with restarts and retries: server
+    rank 1 is SIGKILLed mid-run.  Its slice and its z/n, read right after
+    the re-seed (worker pushes held off by a gate for that moment), must
+    equal the supervisor's snapshot bit for bit; then the run completes."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.ps import KVWorker, ServerSupervisor  # noqa: PLC0415
+    from distlr_tpu_torch.train.ps_trainer import ps_server_group, run_ps_workers  # noqa: PLC0415
+
+    gate = threading.Lock()
+    real_run, real_reseed = KVWorker._run_with_retry, ServerSupervisor._reseed
+    reseeds = []
+
+    def gated_run(self, op, fn, *, idempotent, on_failure=None):
+        if idempotent:
+            return real_run(self, op, fn, idempotent=True, on_failure=on_failure)
+
+        def issue():
+            with gate:
+                return fn()
+        return real_run(self, op, issue, idempotent=False, on_failure=on_failure)
+
+    def checked_reseed(self, rank):
+        t_call = time.monotonic()
+        with gate:
+            t_gate = time.monotonic()
+            ok = real_reseed(self, rank)
+            t_done = time.monotonic()
+            if ok and self.events[-1][2] == "reseeded":
+                lo, hi = self._group.key_range(rank)
+                with self._probe_rank(rank) as kv:
+                    w = kv.pull()
+                    z, n = kv.pull_opt_state()
+                reseeds.append({
+                    "at": t_done, "called_at": t_call, "gate_wait_ms": 1e3 * (t_gate - t_call),
+                    "reseed_ms": 1e3 * (t_done - t_gate), "rank": rank,
+                    "weights_equal_snapshot": w.tobytes() == self._snapshot[lo:hi].tobytes(),
+                    "z_equal_snapshot": z.tobytes() == self._opt_z[lo:hi].tobytes(),
+                    "n_equal_snapshot": n.tobytes() == self._opt_n[lo:hi].tobytes(),
+                    "n_nonzero": int(np.count_nonzero(n))})
+        return ok
+
+    group = ps_server_group(cfg)
+    killed, respawns = {}, []
+    real_respawn = group.respawn
+
+    def timed_respawn(rank):
+        t0 = time.monotonic()
+        ok = real_respawn(rank)
+        respawns.append((t0, time.monotonic()))
+        return ok
+
+    group.respawn = timed_respawn
+
+    def killer(sup, stop):
+        lo, hi = group.key_range(1)
+        while not stop.is_set():
+            try:
+                with KVWorker(f"127.0.0.1:{group.ports[1]}", hi - lo, client_id=0xFFFD,
+                              timeout_ms=2000) as probe:
+                    pushes = probe.stats(0)["total_pushes"]
+            except OSError:
+                pushes = 0
+            if sup._snap_valid[1] and pushes >= REC_KILL_AT_PUSHES:
+                killed.update(at=time.monotonic(), pushes=pushes)
+                group.procs[1].kill()
+                return
+            time.sleep(0.01)
+
+    KVWorker._run_with_retry, ServerSupervisor._reseed = gated_run, checked_reseed
+    report, stop = {}, threading.Event()
+    try:
+        with group, ServerSupervisor(group, poll_interval=REC_SUP_POLL_S,
+                                     snapshot_interval=REC_SUP_SNAPSHOT_S) as sup:
+            t = threading.Thread(target=killer, args=(sup, stop), daemon=True,
+                                 name="smoke-killer")
+            t.start()
+            try:
+                weights, launches, seconds = _bounded(torch, lambda: run_ps_workers(
+                    cfg, group.hosts, range(PS_WORKERS), max_restarts=2, report=report))
+            finally:
+                stop.set()
+                t.join()
+    finally:
+        KVWorker._run_with_retry, ServerSupervisor._reseed = real_run, real_reseed
+    kinds = [(r, ev) for _, r, ev in sup.events]
+    at = {ev: t for t, r, ev in sup.events if r == 1}
+    line = {
+        "seconds": seconds, "poll_interval_s": REC_SUP_POLL_S,
+        "snapshot_interval_s": REC_SUP_SNAPSHOT_S,
+        "killed_at_pushes": killed.get("pushes"), "events": kinds,
+        "kill_to_respawn_ms": 1e3 * (at["respawned"] - killed["at"]) if killed and
+        "respawned" in at else None,
+        "kill_to_reseed_ms": 1e3 * (reseeds[0]["at"] - killed["at"]) if killed and reseeds
+        else None,
+        # where the kill-to-reseed time goes: the respawn call (spawn and
+        # the PORT line), then the re-seed (the gate: a worker push in
+        # flight; the forced init and z/n over a probe connection)
+        "respawn_call_ms": [1e3 * (b - a) for a, b in respawns],
+        "kill_to_respawn_call_ms": 1e3 * (respawns[0][0] - killed["at"]) if killed and respawns
+        else None,
+        "reseed_checks": reseeds,
+        **{k: sum(report[r][k] for r in range(PS_WORKERS))
+           for k in ("retries", "reconnects", "push_outcome_unknown", "restarts")},
+        "workers": [report[r] for r in range(PS_WORKERS)],
+    }
+    ok = (killed and kinds[:2] == [(1, "respawned"), (1, "reseeded")] and reseeds
+          and all(c["weights_equal_snapshot"] and c["z_equal_snapshot"]
+                  and c["n_equal_snapshot"] and c["n_nonzero"] for c in reseeds)
+          and all(np.isfinite(weights[r]).all() for r in range(PS_WORKERS)))
+    if not ok:
+        raise AssertionError(f"ps_recovery server kill: {line}")
+    return line, launches
+
+
+def _rec_kernel_check(torch, ops, w_run, tmp: str, Xt) -> dict:
+    """``fused_lr_grad`` at (PS_SHARD_ROWS, FULL_D) on rank 0's shard and
+    ``lr_logits`` on the test rows, against their plain versions
+    (REL_TOL), on the resumed weights centred and scaled to logits of
+    standard deviation 1.5 (the runs' weights saturate the residuals), as
+    :func:`_ps_kernel_shapes` does."""
+    from distlr_tpu_torch.data import parse_libsvm_file  # noqa: PLC0415
+
+    X, y = parse_libsvm_file(os.path.join(tmp, "train", "part-001"), FULL_D)
+    X, y = torch.from_numpy(X).to(torch.bfloat16).cuda(), torch.from_numpy(y).cuda()
+    wc = w_run - w_run.mean()
+    wc = wc * (1.5 / float(ops.lr_logits_reference(wc, X).std()))
+    mask = torch.ones(X.shape[0], device=X.device)
+    g, g_ref = ops.fused_lr_grad(wc, X, y, mask), ops.fused_lr_grad_reference(wc, X, y, mask)
+    z, z_ref = ops.lr_logits(wc, Xt), ops.lr_logits_reference(wc, Xt)
+    out = {"fused_lr_grad": {"B": X.shape[0], "rel_err": rel_err(g, g_ref),
+                             "max_abs_err": float((g - g_ref).abs().max())},
+           "lr_logits": {"B": Xt.shape[0], "rel_err": rel_err(z, z_ref),
+                         "max_abs_err": float((z - z_ref).abs().max())},
+           "tolerance": REL_TOL}
+    if max(out["fused_lr_grad"]["rel_err"], out["lr_logits"]["rel_err"]) > REL_TOL:
+        raise AssertionError(f"ps_recovery: a kernel disagrees with its plain version: {out}")
+    return out
+
+
+def _cli_ps_recovery(tmp: str, seed: int) -> dict:
+    """``launch ps`` on the card with the recovery flags, on REC_CLI_ROWS-row
+    shards at D = FULL_D: checkpoints every epoch, then ``--resume`` with
+    more epochs (the sidecar advances, the eval lines start after the
+    checkpoint); ``--async --supervise-servers --max-worker-restarts 2
+    --ps-retry-attempts 4``; and ``--supervise-servers`` without
+    ``--async``, which exits 2 with the JAX package's message.  The chains
+    run side by side."""
+    d, ck = os.path.join(tmp, "cli"), os.path.join(tmp, "cli_ck")
+    _ps_data(d, seed, shard_rows=REC_CLI_ROWS, test_rows=REC_CLI_ROWS)
+    ps = ["ps", "--data-dir", d, "--num-feature-dim", str(FULL_D), "--num-workers",
+          str(PS_WORKERS), "--num-servers", str(PS_SERVERS), "--device", "cuda",
+          "--test-interval", "1", "--learning-rate", "0.2"]
+    sidecar = os.path.join(ck, "ps_latest.json")
+
+    def resume_chain():
+        ckpt = ps + ["--checkpoint-dir", ck, "--checkpoint-interval", "1"]
+        _launch(*ckpt, "--num-iteration", "2")
+        with open(sidecar) as f:
+            first = json.load(f)
+        out = _launch(*ckpt, "--num-iteration", "4", "--resume").stdout
+        with open(sidecar) as f:
+            return {"sidecar_first": first, "sidecar_resumed": json.load(f),
+                    "resumed_eval_epochs": [int(n) for n, _ in re.findall(EVAL_LINE, out, re.M)]}
+
+    def supervised():
+        out = _launch(*ps, "--async", "--supervise-servers", "--max-worker-restarts", "2",
+                      "--ps-retry-attempts", "4", "--num-iteration", "2").stdout
+        return {"exit": 0, "eval_epochs": [int(n) for n, _ in re.findall(EVAL_LINE, out, re.M)]}
+
+    def sync_supervised():
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        proc = subprocess.run([sys.executable, "-m", "distlr_tpu_torch.launch", *ps,
+                               "--supervise-servers"], cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=300)
+        return {"exit": proc.returncode, "stderr": proc.stderr.strip()}
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        futs = {k: pool.submit(f) for k, f in (("resume", resume_chain),
+                                                ("supervised", supervised),
+                                                ("sync_supervised", sync_supervised))}
+        out = {k: f.result() for k, f in futs.items()}
+    out["seconds"] = time.perf_counter() - t0
+    want_msg = ("error: --supervise-servers requires --async (sync BSP state cannot be "
+                "reconstructed; use --checkpoint-dir + --resume)")
+    if (out["resume"]["sidecar_first"] != {"epoch": 2, "attempt": 0}
+            or out["resume"]["sidecar_resumed"] != {"epoch": 4, "attempt": 1}
+            or out["resume"]["resumed_eval_epochs"] != [3, 4]
+            or out["supervised"]["eval_epochs"] != [1, 2]
+            or out["sync_supervised"]["exit"] != 2
+            or want_msg not in out["sync_supervised"]["stderr"]):
+        raise AssertionError(f"ps_recovery cli: {out}")
+    return out
+
+
+def phase_ps_recovery(torch, seed: int, smi: str) -> dict:
+    """PS fault recovery at the ps phase's full width (config-3 CTR rows at
+    D = 1M, PS_SERVERS native servers, PS_WORKERS worker threads on the
+    card, 1,024-row shards, bf16), each gradient the ``fused_lr_grad``
+    single pass and rank 0's eval ``lr_logits``:
+
+    1. sync resume (:func:`_rec_sync_resume`): a crash after the epoch-1
+       checkpoint, a resume against the surviving group, the sidecars, and
+       the weights within REC_RESUME_TOL of an uninterrupted run's; the
+       checkpoint's save ms and the seconds from the resume to its first
+       round;
+    2. an async worker restart (:func:`_rec_async_restart`);
+    3. a server SIGKILL under the supervisor (:func:`_rec_server_kill`):
+       the events, the re-seeded slice and z/n against the snapshot, ms
+       from the kill to the re-seed, retries, reconnects and restarts;
+    4. the kernels at the path's shapes against their plain versions
+       (:func:`_rec_kernel_check`), after the runs' launches were read;
+    5. the CLI (:func:`_cli_ps_recovery`).
+    """
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.data import parse_libsvm_file  # noqa: PLC0415
+    from distlr_tpu_torch.models import get_model  # noqa: PLC0415
+
+    t_phase = time.perf_counter()
+    out = {"nvidia_smi": smi, "D": FULL_D, "workers": PS_WORKERS, "servers": PS_SERVERS,
+           "shard_rows": PS_SHARD_ROWS, "test_rows": PS_TEST_ROWS, "epochs": PS_EPOCHS,
+           "reduced": {"epochs": f"{PS_EPOCHS} (sync, async restart), {REC_KILL_EPOCHS} "
+                                 "(server kill): cut in depth",
+                       "shard_rows": f"{PS_SHARD_ROWS} a worker, as the ps phase",
+                       "cli": f"{REC_CLI_ROWS}-row shards at D = {FULL_D}"}}
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    rss = {}
+    with _sampled_peak_rss(rss), tempfile.TemporaryDirectory(prefix="distlr-smoke-rec-") as tmp:
+        _ps_data(tmp, seed)
+        cfg = Config(data_dir=tmp, num_feature_dim=FULL_D, num_workers=PS_WORKERS,
+                     num_servers=PS_SERVERS, batch_size=PS_SHARD_ROWS,
+                     num_iteration=PS_EPOCHS, test_interval=1, learning_rate=0.2, l2_c=0.01,
+                     compute_dtype="bfloat16", ps_timeout_ms=REC_TIMEOUT_MS)
+        Xt, yt = parse_libsvm_file(os.path.join(tmp, "test", "part-001"), FULL_D)
+        Xt = torch.from_numpy(Xt).to(torch.bfloat16).cuda()
+        yt = torch.from_numpy(yt).float().cuda()
+        init_ll = _test_logloss(torch, ops, get_model(cfg).init(cfg).cuda(), Xt, yt)
+        line, counts, w_resumed = _rec_sync_resume(
+            torch, ops, cfg.replace(checkpoint_dir=os.path.join(tmp, "ck"),
+                                    checkpoint_interval=1), Xt, yt)
+        out["sync_resume"] = line
+        add(counts)
+        async_cfg = cfg.replace(sync_mode=False, batch_size=PS_ASYNC_BATCH,
+                                ps_timeout_ms=PS_TIMEOUT_MS)
+        out["async_restart"], counts = _rec_async_restart(torch, ops, async_cfg, Xt, yt,
+                                                          init_ll)
+        add(counts)
+        out["server_kill"], counts = _rec_server_kill(
+            torch, ops, async_cfg.replace(ps_optimizer="ftrl", ps_retry_attempts=4,
+                                          num_iteration=REC_KILL_EPOCHS,
+                                          test_interval=REC_KILL_EPOCHS))
+        add(counts)
+        out["launches"] = {k: v for k, v in launches.items() if v}
+        others = {k: v for k, v in out["launches"].items()
+                  if k not in ("fused_lr_grad", "lr_logits")}
+        if not launches.get("fused_lr_grad") or not launches.get("lr_logits") or others:
+            raise AssertionError(f"ps_recovery: launches {launches}")
+        out["kernels_at_ps_shapes"] = _rec_kernel_check(torch, ops, w_resumed, tmp, Xt)
+        del Xt, w_resumed
+        out["cli"] = _cli_ps_recovery(tmp, seed)
+    out.update(rss)
+    out["phase_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    emit("ps_recovery", **out)
     return out
 
 
@@ -4939,6 +5351,8 @@ def main(argv=None) -> int:
         phase_ps_keyed(torch, args.seed, env["nvidia_smi"])
         phase = "ps_wire"
         ps_wire = phase_ps_wire(torch, args.seed, env["nvidia_smi"])
+        phase = "ps_recovery"
+        ps_recovery = phase_ps_recovery(torch, args.seed, env["nvidia_smi"])
         phase = "serve_hot"
         phase_serve_hot(torch, args.seed, env["nvidia_smi"])
         phase = "route"
@@ -4960,6 +5374,8 @@ def main(argv=None) -> int:
                     by_path.setdefault(name, {})[f"ps_{mode}"] = n
         for name, n in ps_wire["launches"].items():
             by_path.setdefault(name, {})["ps_wire"] = n
+        for name, n in ps_recovery["launches"].items():
+            by_path.setdefault(name, {})["ps_recovery"] = n
         for shape, t in ps["kernels_at_ps_shapes"]["timing"].items():
             name, rows = shape.rsplit("_B", 1)
             timing[name].setdefault("at_ps_shapes", {})[f"B{rows}"] = t

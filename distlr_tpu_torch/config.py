@@ -5,7 +5,7 @@ sync trainer reads (all five model families, int8 feature storage,
 checkpoints, the ``data x model`` mesh of the feature-sharded step) and
 that the ported parameter-server worker loop reads
 (``num_servers``, ``ps_compute_backend``, ``ps_pipeline``,
-``ps_timeout_ms``; sync BSP and async Hogwild for every family; the
+``ps_timeout_ms``, the ``ps_retry_*`` policy; sync BSP and async Hogwild for every family; the
 servers' update rule ``ps_optimizer`` with the ``ftrl_*`` parameters,
 the wire codec ``ps_compress`` and the ``ps_accum_*`` accumulation)
 and the scoring tier reads (the ``serve_*`` fields of ``launch serve``,
@@ -39,8 +39,6 @@ _MODELS = ("binary_lr", "softmax") + _SPARSE_MODELS
 #: (``ps_host``, ``ps_port``) is among them.
 _UNPORTED_PS_OPTIONS = {
     "ps_host": "127.0.0.1", "ps_port": 8001,
-    "ps_retry_attempts": 0, "ps_retry_backoff_ms": 50.0, "ps_retry_backoff_max_ms": 2000.0,
-    "ps_retry_deadline_s": 60.0, "ps_retry_adaptive": False,
     "ps_store_dir": None, "ps_store_interval_s": 5.0, "ps_store_wal": False,
     "ps_store_wal_fsync_s": 0.1, "chaos_plan": None, "chaos_seed": None,
 }
@@ -135,14 +133,19 @@ class Config:
     ps_accum_growth: float = 2.0
     ps_accum_growth_every: int = 32
     ps_accum_max: int = 1
-    # Not ported (ROADMAP A.16): must keep these defaults.
-    ps_host: str = "127.0.0.1"        # DMLC_PS_ROOT_URI
-    ps_port: int = 8001               # DMLC_PS_ROOT_PORT
+    # In-place retry of transient KV transport faults (ps.RetryPolicy):
+    # total tries an op (0 = off, fail fast), jittered exponential backoff
+    # between them, a wall deadline an op.  Sync gradient pushes are never
+    # retried.  ps_retry_adaptive scales the backoff base by the recent
+    # fault rate (up to 8x, still capped by ps_retry_backoff_max_ms).
     ps_retry_attempts: int = 0
     ps_retry_backoff_ms: float = 50.0
     ps_retry_backoff_max_ms: float = 2000.0
     ps_retry_deadline_s: float = 60.0
     ps_retry_adaptive: bool = False
+    # Not ported (ROADMAP A.16): must keep these defaults.
+    ps_host: str = "127.0.0.1"        # DMLC_PS_ROOT_URI
+    ps_port: int = 8001               # DMLC_PS_ROOT_PORT
     ps_store_dir: str | None = None
     ps_store_interval_s: float = 5.0
     ps_store_wal: bool = False
@@ -298,6 +301,22 @@ class Config:
         if self.ps_timeout_ms < 0:
             raise ValueError(f"ps_timeout_ms must be >= 0 (0 = no timeout), got {self.ps_timeout_ms}")
         self._check_ps_wire()
+        if self.ps_retry_attempts < 0:
+            raise ValueError(
+                f"ps_retry_attempts must be >= 0 (0 = off), "
+                f"got {self.ps_retry_attempts}"
+            )
+        if (self.ps_retry_backoff_ms < 0
+                or self.ps_retry_backoff_max_ms < self.ps_retry_backoff_ms):
+            raise ValueError(
+                "need 0 <= ps_retry_backoff_ms <= ps_retry_backoff_max_ms, "
+                f"got {self.ps_retry_backoff_ms}/{self.ps_retry_backoff_max_ms}"
+            )
+        if self.ps_retry_deadline_s <= 0:
+            raise ValueError(
+                f"ps_retry_deadline_s must be positive, "
+                f"got {self.ps_retry_deadline_s}"
+            )
         for name, default in _UNPORTED_PS_OPTIONS.items():
             if getattr(self, name) != default:
                 raise _not_ported(f"the PS option {name}={getattr(self, name)!r}", "A.16")

@@ -27,8 +27,9 @@ one shard.
 It needs an async server group: a lone push into a sync (BSP) group
 would wait forever in the barrier.  The JAX trainer's registry series
 (shards consumed, examples, pushes, shard lag, the span ``k``) are the
-attributes here until ROADMAP A.12; its retry policy and membership
-route wait for ROADMAP A.16.
+attributes here until ROADMAP A.12.  Its client retries transport
+faults by ``RetryPolicy.from_config(cfg)``; the membership route waits
+for ROADMAP A.16.
 """
 
 from __future__ import annotations
@@ -86,7 +87,7 @@ class OnlineTrainer:
         if route is not None:
             raise _not_ported("a membership route for the online trainer", "A.16")
         from distlr_tpu_torch.compress import GradientAccumulator  # noqa: PLC0415
-        from distlr_tpu_torch.ps import KVWorker  # noqa: PLC0415
+        from distlr_tpu_torch.ps import KVWorker, RetryPolicy  # noqa: PLC0415
         from distlr_tpu_torch.train.ps_trainer import ps_param_dim  # noqa: PLC0415
 
         self.cfg = cfg
@@ -99,12 +100,12 @@ class OnlineTrainer:
         # several model namespaces in one group: train only the slice
         # [ns_base, ns_base + dim)
         wire_dim = int(ns_total_dim) if ns_total_dim else self.dim
-        # no retry policy until ROADMAP A.16.2: Config refuses ps_retry_*
         worker = KVWorker(
             hosts, wire_dim,
             client_id=self.ONLINE_CLIENT_ID + worker_id if client_id is None else client_id,
             timeout_ms=cfg.ps_timeout_ms,
             sync_group=False,  # Hogwild client: no barriers, keyed shortcut
+            retry=RetryPolicy.from_config(cfg),
             compress=cfg.ps_compress)
         self.kv = (worker if wire_dim == self.dim and not ns_base
                    else worker.namespace(int(ns_base), self.dim))

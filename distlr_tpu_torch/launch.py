@@ -6,8 +6,8 @@ option strings its JAX twin takes, with the same dests, types and
 defaults, plus ``--device`` (default ``cuda``; the CPU only when asked
 for).  A flag whose use is not ported yet is accepted at its default and
 raises ``NotImplementedError`` naming its ROADMAP item otherwise (the obs
-flags A.12; the profiler, log and incident flags A.21; the PS retry,
-store, checkpoint and membership flags A.16), so a JAX command line never
+flags A.12; the profiler, log and incident flags A.21; the PS store,
+chaos and membership flags A.16), so a JAX command line never
 fails at parse time and never drops a flag silently.  Run as ``python -m
 distlr_tpu_torch.launch``::
 
@@ -56,6 +56,17 @@ Each worker writes ``models/part-00{rank+1}``::
         --num-workers 2 --num-servers 2 [--async] [--no-ps-pipeline]
     python -m distlr_tpu_torch.launch ps --data-dir C --num-feature-dim 4096 \\
         --model blocked_lr --block-size auto --num-workers 2 --num-servers 2
+
+A PS run recovers from faults as the JAX package's does: rank 0
+checkpoints (``--checkpoint-dir K --checkpoint-interval N``) and a crashed
+job continues with ``--resume``; async workers retry transport faults in
+place (``--ps-retry-attempts``) and restart (``--max-worker-restarts``),
+and ``--supervise-servers`` respawns and re-seeds dead servers::
+
+    python -m distlr_tpu_torch.launch ps --data-dir D --num-feature-dim 123 \\
+        --num-workers 2 --num-servers 2 --checkpoint-dir K --checkpoint-interval 1 [--resume]
+    python -m distlr_tpu_torch.launch ps --data-dir D --num-feature-dim 123 --async \\
+        --supervise-servers --max-worker-restarts 2 --ps-retry-attempts 4
 
 The servers' update rule is ``--ps-optimizer sgd|ftrl`` (``--ftrl-*``),
 the gradients cross the wire as ``--ps-compress none|int8|signsgd``, and
@@ -131,9 +142,10 @@ _CONFIG_FIELDS = (
     "num_servers", "ps_compute_backend", "ps_timeout_ms", "ps_pipeline",
     "ps_optimizer", "ftrl_alpha", "ftrl_beta", "ftrl_l1", "ftrl_l2", "ps_compress",
     "ps_accum_start", "ps_accum_growth", "ps_accum_growth_every", "ps_accum_max",
-    # refused by Config itself, naming ROADMAP A.16
     "ps_retry_attempts", "ps_retry_backoff_ms", "ps_retry_backoff_max_ms",
-    "ps_retry_deadline_s", "ps_retry_adaptive", "ps_store_dir", "ps_store_interval_s",
+    "ps_retry_deadline_s", "ps_retry_adaptive",
+    # refused by Config itself, naming ROADMAP A.16
+    "ps_store_dir", "ps_store_interval_s",
     "ps_store_wal", "ps_store_wal_fsync_s", "chaos_plan", "chaos_seed",
 )
 
@@ -165,19 +177,11 @@ _UNPORTED_SERVE_FLAGS = (
 
 #: each subcommand's flags whose Config field the port has, or whose
 #: command the port runs, but whose use there is not ported: (flag, dest,
-#: the JAX default, ROADMAP item).  Config refuses the retry, store and
-#: chaos options itself.
+#: the JAX default, ROADMAP item).  Config refuses the store and chaos
+#: options itself.
 _COMMAND_GATES = {
-    "ps": (("--max-worker-restarts", "max_worker_restarts", 0, "A.16"),
-           ("--supervise-servers", "supervise_servers", False, "A.16"),
-           ("--checkpoint-dir", "checkpoint_dir", None, "A.16"),
-           ("--checkpoint-interval", "checkpoint_interval", 0, "A.16"),
-           ("--resume", "resume", False, "A.16")),
     "ps-server": (("--elastic", "elastic", False, "A.16"),
-                  ("--ctl-port", "ctl_port", None, "A.16"),
-                  ("--checkpoint-dir", "checkpoint_dir", None, "A.16"),
-                  ("--checkpoint-interval", "checkpoint_interval", 0, "A.16"),
-                  ("--resume", "resume", False, "A.16")),
+                  ("--ctl-port", "ctl_port", None, "A.16")),
     "serve": tuple((f, d, None, item) for f, d, _, item in _UNPORTED_SERVE_FLAGS),
     "online": (("--ps-ctl", "ps_ctl", None, "A.16"),),
 }
@@ -257,8 +261,9 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
                    "int8_dot: int8 storage plus w and the residuals quantized "
                    "per step, int8 x int8 products; dense models only)")
     p.add_argument("--checkpoint-dir", dest="checkpoint_dir",
-                   help="sync: save the weights and the epoch here (numpy .npz a step); "
-                   "serve: watch this checkpoint dir and serve each new step")
+                   help="sync and ps: save the weights and the epoch here (numpy .npz a "
+                   "step; ps also writes the sidecar ps_latest.json); serve: watch this "
+                   "checkpoint dir and serve each new step")
     p.add_argument("--checkpoint-interval", dest="checkpoint_interval", type=int,
                    help="epochs between checkpoints (default 0: only the final one)")
     p.add_argument("--profile-dir", dest="profile_dir",
@@ -283,19 +288,27 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--log-level", dest="log_level", choices=["debug", "info", "warning", "error"],
                    help="not ported yet (ROADMAP A.21)")
     p.add_argument("--resume", action="store_true",
-                   help="sync: restart from the latest checkpoint in --checkpoint-dir")
+                   help="sync: restart from the latest checkpoint in --checkpoint-dir; "
+                   "ps: from the step its sidecar names, against a surviving group or "
+                   "a fresh one")
     p.add_argument("--num-workers", dest="num_workers", type=int,
                    help="data-parallel shards, as row blocks of one batch")
     p.add_argument("--num-servers", dest="num_servers", type=int,
                    help="KV server processes, one key range each (default 1)")
-    for flag, dest, typ in (("--ps-retry-attempts", "ps_retry_attempts", int),
-                            ("--ps-retry-backoff", "ps_retry_backoff_ms", float),
-                            ("--ps-retry-backoff-max", "ps_retry_backoff_max_ms", float),
-                            ("--ps-retry-deadline", "ps_retry_deadline_s", float)):
-        p.add_argument(flag, dest=dest, type=typ, help="not ported yet (ROADMAP A.16)")
+    p.add_argument("--ps-retry-attempts", dest="ps_retry_attempts", type=int,
+                   help="in-place retry of transient KV transport faults: total tries an "
+                   "op (default 0 = fail fast); async workers, the online trainer and "
+                   "serving pulls reconnect and re-issue, sync BSP pushes never")
+    p.add_argument("--ps-retry-backoff", dest="ps_retry_backoff_ms", type=float,
+                   help="base backoff between retries, ms (default 50)")
+    p.add_argument("--ps-retry-backoff-max", dest="ps_retry_backoff_max_ms", type=float,
+                   help="backoff cap, ms (default 2000)")
+    p.add_argument("--ps-retry-deadline", dest="ps_retry_deadline_s", type=float,
+                   help="an op's wall deadline across its retries, seconds (default 60)")
     _add_ps_wire_flags(p)
     p.add_argument("--ps-retry-adaptive", dest="ps_retry_adaptive", action="store_true",
-                   default=None, help="not ported yet (ROADMAP A.16)")
+                   default=None, help="scale the retry backoff base by the recent "
+                   "transport-fault rate (up to 8x, decaying when quiet)")
     p.add_argument("--store-dir", dest="ps_store_dir", help="not ported yet (ROADMAP A.16)")
     p.add_argument("--store-interval", dest="ps_store_interval_s", type=float,
                    help="not ported yet (ROADMAP A.16)")
@@ -580,15 +593,28 @@ def cmd_ps(args: argparse.Namespace) -> int:
 
     cfg = _ps_config(args)
     if args.hosts:
+        if args.supervise_servers:
+            print("error: --supervise-servers applies to local mode (the "
+                  "server host owns its processes; supervise there)",
+                  file=sys.stderr)
+            return 2
         ranks = ([int(r) for r in args.worker_ranks.split(",")] if args.worker_ranks
                  else range(cfg.num_workers))
-        run_ps_workers(cfg, args.hosts, ranks, save=True)
+        run_ps_workers(cfg, args.hosts, ranks, save=True, resume=args.resume,
+                       max_restarts=args.max_worker_restarts)
     elif args.worker_ranks:
         print("error: --worker-ranks requires --hosts (local mode runs every rank)",
               file=sys.stderr)
         return 2
+    elif args.supervise_servers and cfg.sync_mode:
+        print("error: --supervise-servers requires --async (sync BSP "
+              "state cannot be reconstructed; use --checkpoint-dir + "
+              "--resume)", file=sys.stderr)
+        return 2
     else:
-        run_ps_local(cfg, save=True)
+        run_ps_local(cfg, save=True, resume=args.resume,
+                     max_restarts=args.max_worker_restarts,
+                     supervise_servers=args.supervise_servers)
     return 0
 
 
@@ -685,6 +711,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
         ScoringEngine,
         ScoringServer,
     )
+    from distlr_tpu_torch.ps import RetryPolicy  # noqa: PLC0415
     from distlr_tpu_torch.train.export import load_weights  # noqa: PLC0415
     from distlr_tpu_torch.train.ps_trainer import ps_param_dim  # noqa: PLC0415
 
@@ -723,16 +750,20 @@ def cmd_serve(args: argparse.Namespace) -> int:
                              f"{sorted(ns_layout)}")
         return ns_layout[model_id][0], ps_param_dim(cfg) * len(ns_layout)
 
-    hot_tracker = None
+    hot_tracker = retry = None
     if args.ps_hosts:
         if cfg.serve_hot_rows:
             hot_tracker = HotSetTracker(cfg.serve_hot_rows)
         base, total = _ns(args.ps_namespace or cfg.serve_model_id)
+        # serving pulls are idempotent, so the whole policy applies: a PS
+        # blip mid-poll is retried inside the poll, and an exhausted policy
+        # keeps the last good weights serving
+        retry = RetryPolicy.from_config(cfg)
         source = LivePSWatcher(args.ps_hosts, ps_param_dim(cfg),
                                vals_per_key=_serve_row_width(cfg), hot_tracker=hot_tracker,
                                min_coverage=cfg.serve_hot_min_coverage,
                                full_refresh_every=cfg.serve_hot_full_every,
-                               ns_base=base, ns_total_dim=total)
+                               retry=retry, ns_base=base, ns_total_dim=total)
     elif cfg.checkpoint_dir:
         source = CheckpointWatcher(cfg.checkpoint_dir)
     else:
@@ -772,7 +803,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
             extra_src = LivePSWatcher(args.ps_hosts, ps_param_dim(cfg),
                                       vals_per_key=_serve_row_width(cfg),
                                       client_id=LivePSWatcher.SERVE_CLIENT_ID - len(engines),
-                                      ns_base=base, ns_total_dim=total)
+                                      retry=retry, ns_base=base, ns_total_dim=total)
             rl = HotReloader(eng, extra_src, interval_s=cfg.serve_reload_interval_s).start()
             rl.wait_for_weights()
             extra_reloaders.append(rl)
@@ -999,9 +1030,11 @@ def main(argv=None) -> int:
     p.add_argument("--worker-ranks", dest="worker_ranks",
                    help="with --hosts: this host's ranks, e.g. 0,1 (default: all)")
     p.add_argument("--max-worker-restarts", dest="max_worker_restarts", type=int, default=0,
-                   help="not ported yet (ROADMAP A.16)")
+                   help="async mode: restart a failed worker in place up to N times "
+                   "(sync recovery is --checkpoint-dir + --resume)")
     p.add_argument("--supervise-servers", dest="supervise_servers", action="store_true",
-                   help="not ported yet (ROADMAP A.16)")
+                   help="async local mode: respawn dead server ranks and re-seed them "
+                   "from a rolling snapshot (pair with --max-worker-restarts)")
     p.add_argument("--chaos-plan", dest="chaos_plan", help="not ported yet (ROADMAP A.16)")
     p.add_argument("--chaos-seed", dest="chaos_seed", type=int,
                    help="not ported yet (ROADMAP A.16)")

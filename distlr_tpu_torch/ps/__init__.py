@@ -3,11 +3,13 @@ its ctypes client (see :mod:`distlr_tpu_torch.ps.client`)."""
 
 from distlr_tpu_torch.ps.client import (  # noqa: F401
     STATS_FIELDS,
+    FaultRateTracker,
     KVNamespace,
     KVWorker,
     PSRejectedError,
     PSTimeoutError,
+    RetryPolicy,
     namespace_layout,
     parse_namespace_optimizers,
 )
-from distlr_tpu_torch.ps.server import ServerGroup  # noqa: F401
+from distlr_tpu_torch.ps.server import ServerGroup, ServerSupervisor  # noqa: F401

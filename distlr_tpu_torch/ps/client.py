@@ -25,14 +25,26 @@ advertise the codec gets dense f32 pushes, and the fallback is logged.
 The worker counts the bytes of each delivered push in
 :attr:`KVWorker.push_bytes_raw` / :attr:`KVWorker.push_bytes_wire`.
 
-Not ported yet: the retry policy, membership epochs and re-routing
-(ROADMAP A.16), and the trace spans and registry counters (A.12).
+A :class:`RetryPolicy` (``KVWorker(retry=)``) answers a transient
+transport fault in place: reconnect, back off, re-issue.  Idempotent ops
+are always re-issued; a gradient push only while the native client
+proves no byte of it reached a server, else it is absorbed (the Hogwild
+staleness class), and a sync group's pushes never.  The worker counts
+what the JAX package's registry counts (:attr:`KVWorker.retries`,
+``reconnects``, ``push_outcome_unknown``) as attributes.
+
+Not ported yet: membership epochs and re-routing (ROADMAP A.16), and the
+trace spans and registry counters (A.12).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
+import random
 import threading
+import time
 
 import numpy as np
 
@@ -76,6 +88,126 @@ class PSRejectedError(OSError):
     say).  Deterministic: re-issuing it cannot succeed."""
 
 
+class FaultRateTracker:
+    """Sliding-window transport-fault counter -> adaptive backoff scale
+    (``distlr_tpu/ps/client.py:204``).
+
+    Scales a policy's backoff base by ``1 + 0.5 * faults`` seen in the
+    last ``window_s`` seconds, capped at ``max_scale``: a fault storm
+    backs off harder, a quiet window decays back to the base.
+    """
+
+    def __init__(self, window_s: float = 30.0, max_scale: float = 8.0):
+        if window_s <= 0:
+            raise ValueError(f"window_s must be positive, got {window_s}")
+        if max_scale < 1.0:
+            raise ValueError(f"max_scale must be >= 1, got {max_scale}")
+        self.window_s = float(window_s)
+        self.max_scale = float(max_scale)
+        self._faults: list[float] = []
+
+    def _prune(self, now: float) -> None:
+        cutoff = now - self.window_s
+        # faults append in time order, so the stale prefix is contiguous
+        drop = 0
+        for t in self._faults:
+            if t >= cutoff:
+                break
+            drop += 1
+        if drop:
+            del self._faults[:drop]
+
+    def record(self, now: float | None = None) -> None:
+        """One observed transport fault (call at failure time)."""
+        now = time.monotonic() if now is None else now
+        self._prune(now)
+        self._faults.append(now)
+
+    def scale(self, now: float | None = None) -> float:
+        """Current backoff-base multiplier in [1, max_scale]."""
+        now = time.monotonic() if now is None else now
+        self._prune(now)
+        return min(self.max_scale, 1.0 + 0.5 * len(self._faults))
+
+
+@dataclasses.dataclass(frozen=True)
+class RetryPolicy:
+    """In-place recovery policy for transient KV transport faults
+    (``distlr_tpu/ps/client.py:253``): bounded attempts, jittered
+    exponential backoff and a per-op wall deadline.
+
+    Only idempotent ops are always re-issued (pulls, stats, barrier
+    votes: the server rolls a dead connection's vote out of the count).
+    A gradient push is re-issued only while ``kv_op_delivery_began`` is
+    0; otherwise its outcome is unknown, and it is counted and absorbed.
+    Sync (BSP) pushes are never retried: the deferred reply is the
+    barrier, and the timeout is the named straggler signal.
+    """
+
+    #: total tries per op, the first issue included (>= 1)
+    attempts: int = 4
+    #: base of the exponential backoff between tries
+    backoff_ms: float = 50.0
+    #: backoff cap (jitter applies after the cap)
+    backoff_max_ms: float = 2000.0
+    #: +/- fraction of each backoff drawn uniformly (0 = a fixed ladder)
+    jitter: float = 0.2
+    #: wall deadline per op across all tries
+    deadline_s: float = 60.0
+    #: seed of the jitter draw (None = nondeterministic)
+    seed: int | None = None
+    #: scale the backoff base by the recent fault rate (FaultRateTracker)
+    adaptive: bool = False
+    adaptive_window_s: float = 30.0
+    adaptive_max_scale: float = 8.0
+
+    def __post_init__(self):
+        if self.attempts < 1:
+            raise ValueError(f"attempts must be >= 1, got {self.attempts}")
+        if self.backoff_ms < 0 or self.backoff_max_ms < self.backoff_ms:
+            raise ValueError(
+                "need 0 <= backoff_ms <= backoff_max_ms, got "
+                f"{self.backoff_ms}/{self.backoff_max_ms}")
+        if not 0.0 <= self.jitter < 1.0:
+            raise ValueError(f"jitter must be in [0, 1), got {self.jitter}")
+        if self.deadline_s <= 0:
+            raise ValueError(
+                f"deadline_s must be positive, got {self.deadline_s}")
+        if self.adaptive_window_s <= 0:
+            raise ValueError(
+                f"adaptive_window_s must be positive, "
+                f"got {self.adaptive_window_s}")
+        if self.adaptive_max_scale < 1.0:
+            raise ValueError(
+                f"adaptive_max_scale must be >= 1, "
+                f"got {self.adaptive_max_scale}")
+
+    @classmethod
+    def from_config(cls, cfg) -> "RetryPolicy | None":
+        """The policy a Config asks for, or None when retries are off
+        (``ps_retry_attempts == 0``): the one construction the PS workers,
+        the online trainer and the serving pulls share."""
+        if cfg.ps_retry_attempts <= 0:
+            return None
+        return cls(
+            attempts=cfg.ps_retry_attempts,
+            backoff_ms=cfg.ps_retry_backoff_ms,
+            backoff_max_ms=cfg.ps_retry_backoff_max_ms,
+            deadline_s=cfg.ps_retry_deadline_s,
+            adaptive=bool(getattr(cfg, "ps_retry_adaptive", False)),
+        )
+
+    def backoff_s(self, retry_index: int, rng: random.Random,
+                  scale: float = 1.0) -> float:
+        """Sleep before re-issue number ``retry_index`` (0-based);
+        ``scale`` multiplies the base, and the cap applies after it."""
+        base = min(self.backoff_ms * scale * (2.0 ** retry_index),
+                   self.backoff_max_ms)
+        if self.jitter:
+            base *= 1.0 + self.jitter * (2.0 * rng.random() - 1.0)
+        return max(base, 0.0) / 1000.0
+
+
 def _load():
     global _lib
     if _lib is None:
@@ -112,6 +244,8 @@ def _load():
                 lib.kv_timed_out.argtypes = [ctypes.c_void_p]
                 lib.kv_op_rejected.restype = ctypes.c_int
                 lib.kv_op_rejected.argtypes = [ctypes.c_void_p]
+                lib.kv_op_delivery_began.restype = ctypes.c_int
+                lib.kv_op_delivery_began.argtypes = [ctypes.c_void_p]
                 lib.kv_negotiate_codec.restype = ctypes.c_int
                 lib.kv_negotiate_codec.argtypes = [ctypes.c_void_p, ctypes.c_int]
                 lib.kv_last_wire_sent.restype = ctypes.c_uint64
@@ -148,12 +282,15 @@ class KVWorker:
     whose key slice is empty; a sync group must visit all, because an
     empty push is that worker's vote in the BSP round.  ``compress`` asks
     for a gradient wire codec (``none``, ``int8``, ``signsgd``);
-    :attr:`compress_active` is the one in force.  Ops on one worker must
-    not overlap: one connection per server, one op at a time.
+    :attr:`compress_active` is the one in force.  ``retry`` (a
+    :class:`RetryPolicy`) re-issues ops after a transport fault, by the
+    rules of :meth:`_run_with_retry`.  Ops on one worker must not
+    overlap: one connection per server, one op at a time.
     """
 
     def __init__(self, hosts: str, dim: int, client_id: int = 0, *,
-                 timeout_ms: int = 0, sync_group: bool = True, compress: str = "none"):
+                 timeout_ms: int = 0, sync_group: bool = True,
+                 retry: RetryPolicy | None = None, compress: str = "none"):
         from distlr_tpu_torch.compress import CODEC_IDS  # noqa: PLC0415
 
         if compress not in CODEC_IDS:
@@ -165,6 +302,15 @@ class KVWorker:
         self._client_id = client_id
         self._timeout_ms = int(timeout_ms)
         self._sync_group = sync_group
+        self.retry = retry
+        self._retry_rng = random.Random(retry.seed if retry else None)
+        self._fault_rate = (FaultRateTracker(retry.adaptive_window_s, retry.adaptive_max_scale)
+                            if retry is not None and retry.adaptive else None)
+        #: the JAX package's registry counters, kept here: re-issued ops by
+        #: op name, rebuilt handles, and absorbed pushes of unknown outcome
+        self.retries: dict[str, int] = {}
+        self.reconnects = 0
+        self.push_outcome_unknown = 0
         #: the wire codec asked for ("none" = dense f32, never negotiated)
         self.compress = compress
         #: the codec in force after the kHello handshake ("none" when a
@@ -227,6 +373,80 @@ class KVWorker:
         old, self._h = self._h, h
         if old:
             self._lib.kv_close(old)
+        self.reconnects += 1
+
+    def _run_with_retry(self, op: str, fn, *, idempotent: bool, on_failure=None):
+        """The retry loop (``distlr_tpu/ps/client.py:735``, without its
+        membership re-route layer).  With no policy, or for a sync group's
+        gradient push, a plain call.  A :class:`PSRejectedError` is never
+        retried.  On another transport failure: reconnect, back off, and
+        re-issue, within the policy's attempts and deadline.
+
+        ``idempotent=False`` marks a gradient push: it is re-issued only
+        while ``kv_op_delivery_began`` is 0.  Once delivery began its
+        outcome is unknown: it is counted, the handle is reconnected
+        best-effort, and ``on_failure`` resolves the op (the fused
+        push_pull re-pulls), or without one the push is absorbed and -1
+        returned; re-issuing a maybe-applied push would apply it twice.
+        """
+        if not idempotent and self._sync_group:
+            return fn()  # BSP pushes: fail fast, never retried
+        pol = self.retry
+        if pol is None:
+            return fn()
+        deadline = time.monotonic() + pol.deadline_s
+        last: Exception | None = None
+        for attempt in range(pol.attempts):
+            if attempt:
+                scale = self._fault_rate.scale() if self._fault_rate is not None else 1.0
+                nap = pol.backoff_s(attempt - 1, self._retry_rng, scale)
+                time.sleep(min(nap, max(0.0, deadline - time.monotonic())))
+                try:
+                    self.reconnect()
+                except OSError as e:
+                    # servers unreachable: the reconnect burns the attempt
+                    self._record_fault()
+                    last = e
+                    if time.monotonic() >= deadline:
+                        break
+                    continue
+                if time.monotonic() >= deadline:
+                    # crossed during the backoff: surface the last failure
+                    # rather than block a further full receive timeout
+                    break
+                self.retries[op] = self.retries.get(op, 0) + 1
+            try:
+                return fn()
+            except PSRejectedError:
+                raise  # deterministic: identical on every re-issue
+            except OSError as e:
+                self._record_fault()
+                if not idempotent and self._lib.kv_op_delivery_began(self._h):
+                    self.push_outcome_unknown += 1
+                    with contextlib.suppress(OSError):
+                        self.reconnect()  # best-effort: later ops retry their own
+                    if on_failure is not None:
+                        return on_failure()
+                    return -1
+                last = e
+                if time.monotonic() >= deadline:
+                    break
+        assert last is not None
+        raise last
+
+    def _record_fault(self) -> None:
+        if self._fault_rate is not None:
+            self._fault_rate.record()
+
+    def _with_retry(self, op: str, fn):
+        """Idempotent ops: re-issue is always legal (the server rolls a
+        dead connection's state back, so a re-issue counts once)."""
+        return self._run_with_retry(op, fn, idempotent=True)
+
+    def _push_with_retry(self, op: str, fn, *, on_unknown=None):
+        """Gradient-carrying ops: the delivery-proof rules of
+        :meth:`_run_with_retry`."""
+        return self._run_with_retry(op, fn, idempotent=False, on_failure=on_unknown)
 
     def set_timeout(self, timeout_ms: int) -> None:
         """Receive timeout for every op; 0 = block forever."""
@@ -349,10 +569,13 @@ class KVWorker:
         values cross the wire coded."""
         vals = np.ascontiguousarray(vals, dtype=np.float32).reshape(-1)
         raw, keys, vpk = self._push_frame(keys, int(vals_per_key), vals)
-        ts = self._check(self._lib.kv_push_vpk(self._h, _ptr(keys), _ptr(vals),
-                                               keys.shape[0], vpk), "push")
-        self._account_push(raw)
-        return ts
+
+        def issue():
+            ts = self._check(self._lib.kv_push_vpk(self._h, _ptr(keys), _ptr(vals),
+                                                   keys.shape[0], vpk), "push")
+            self._account_push(raw)
+            return ts
+        return self._push_with_retry("push", issue)
 
     def push_init(self, vals: np.ndarray, keys: np.ndarray | None = None,
                   *, force: bool = False) -> int:
@@ -363,9 +586,13 @@ class KVWorker:
         keys = self._default_or_validated(keys, 1)
         if vals.shape[0] != keys.shape[0]:
             raise ValueError(f"{vals.shape[0]} vals vs {keys.shape[0]} keys")
-        ts = self._lib.kv_push_init(self._h, _ptr(keys), _ptr(vals), keys.shape[0],
-                                    1 if force else 0)
-        return self._check(ts, "push_init")
+
+        def issue():
+            ts = self._lib.kv_push_init(self._h, _ptr(keys), _ptr(vals), keys.shape[0],
+                                        1 if force else 0)
+            return self._check(ts, "push_init")
+        # idempotent: kInitPush no-ops once seeded, kForceInit re-sends the same values
+        return self._with_retry("push_init", issue)
 
     def push_pull(self, vals: np.ndarray, keys: np.ndarray | None = None, *,
                   vals_per_key: int = 1) -> np.ndarray:
@@ -378,11 +605,17 @@ class KVWorker:
         vals = np.ascontiguousarray(vals, dtype=np.float32).reshape(-1)
         raw, keys, vpk = self._push_frame(keys, int(vals_per_key), vals)
         out = np.empty(keys.shape[0] * vpk, dtype=np.float32)
-        ts = self._lib.kv_push_pull_vpk(self._h, _ptr(keys), _ptr(vals), _ptr(out),
-                                        keys.shape[0], vpk)
-        self._check(ts, "push_pull")
-        self._account_push(raw)
-        return out
+
+        def issue():
+            ts = self._lib.kv_push_pull_vpk(self._h, _ptr(keys), _ptr(vals), _ptr(out),
+                                            keys.shape[0], vpk)
+            self._check(ts, "push_pull")
+            self._account_push(raw)
+            return out
+        # an unknown push outcome is absorbed; the pull half is re-issued
+        # idempotently, so the caller still gets the keys' current weights
+        return self._push_with_retry("push_pull", issue,
+                                     on_unknown=lambda: self.pull(keys, vals_per_key=vpk))
 
     def pull(self, keys: np.ndarray | None = None, *, vals_per_key: int = 1) -> np.ndarray:
         """Blocking pull of ``keys`` (default: all ``dim`` weights).
@@ -391,9 +624,12 @@ class KVWorker:
         vpk = int(vals_per_key)
         keys = self._default_or_validated(keys, vpk)
         out = np.empty(keys.shape[0] * vpk, dtype=np.float32)
-        ts = self._lib.kv_pull_vpk(self._h, _ptr(keys), _ptr(out), keys.shape[0], vpk)
-        self._check(ts, "pull")
-        return out
+
+        def issue():
+            self._check(self._lib.kv_pull_vpk(self._h, _ptr(keys), _ptr(out), keys.shape[0],
+                                              vpk), "pull")
+            return out
+        return self._with_retry("pull", issue)
 
     def pull_chunked(self, keys: np.ndarray | None = None, *, vals_per_key: int = 1,
                      chunk_rows: int = 1 << 16) -> np.ndarray:
@@ -453,9 +689,12 @@ class KVWorker:
             raise ValueError("pull_opt_state addresses ONE server per handle (got "
                              f"{self.num_servers}); use a per-rank connection")
         out = np.empty(2 * self.dim, dtype=np.float32)
-        self._check(self._lib.kv_pull_opt_state(self._h, _ptr(self._all_keys), _ptr(out),
-                                                self._all_keys.shape[0]), "pull_opt_state")
-        return out[:self.dim].copy(), out[self.dim:].copy()
+
+        def issue():
+            self._check(self._lib.kv_pull_opt_state(self._h, _ptr(self._all_keys), _ptr(out),
+                                                    self._all_keys.shape[0]), "pull_opt_state")
+            return out[:self.dim].copy(), out[self.dim:].copy()
+        return self._with_retry("pull_opt_state", issue)
 
     def push_init_opt_state(self, z: np.ndarray, n: np.ndarray, *,
                             force: bool = False) -> int:
@@ -471,9 +710,12 @@ class KVWorker:
             raise ValueError(f"z/n must each hold dim={self.dim} values, got "
                              f"{z.shape[0]}/{n.shape[0]}")
         buf = np.concatenate([z, n])
-        ts = self._lib.kv_push_init_opt_state(self._h, _ptr(self._all_keys), _ptr(buf),
-                                              self._all_keys.shape[0], 1 if force else 0)
-        return self._check(ts, "push_init_opt_state")
+
+        def issue():
+            ts = self._lib.kv_push_init_opt_state(self._h, _ptr(self._all_keys), _ptr(buf),
+                                                  self._all_keys.shape[0], 1 if force else 0)
+            return self._check(ts, "push_init_opt_state")
+        return self._with_retry("push_init_opt_state", issue)
 
     def wait(self, ts: int) -> None:
         """No-op for API parity: push and pull already block (the
@@ -489,15 +731,22 @@ class KVWorker:
             # the wire field is u16 (MsgHeader::aux): truncation could
             # alias a released generation
             raise ValueError(f"barrier_id must fit in uint16, got {barrier_id}")
-        self._check(self._lib.kv_barrier(self._h, barrier_id), "barrier")
+        # a re-vote after a reconnect counts once: closing the failed
+        # connection rolls its pending vote out of server 0's count
+        self._with_retry("barrier", lambda: self._check(
+            self._lib.kv_barrier(self._h, barrier_id), "barrier"))
 
     def stats(self, server: int = 0) -> dict:
         """Counters of one server (never deferred, so it answers while
         the sync barrier waits)."""
         out = np.zeros(len(STATS_FIELDS), dtype=np.float64)
-        n = self._check(self._lib.kv_stats(self._h, server, _ptr(out), out.shape[0]), "stats")
-        return {name: float(v) if name.startswith("cpu_") else int(v)
-                for name, v in zip(STATS_FIELDS, out[:n])}
+
+        def issue():
+            n = self._check(self._lib.kv_stats(self._h, server, _ptr(out), out.shape[0]),
+                            "stats")
+            return {name: float(v) if name.startswith("cpu_") else int(v)
+                    for name, v in zip(STATS_FIELDS, out[:n])}
+        return self._with_retry("stats", issue)
 
     def global_pushes(self) -> float:
         """The group's push clock: every server's ``total_pushes`` summed

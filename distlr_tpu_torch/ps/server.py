@@ -8,16 +8,26 @@ Replaces the reference launcher's server-spawning half
 servers' own: ``sgd`` (the reference's ``w -= lr * g``), ``ftrl``
 (per-coordinate FTRL-Proximal with z and n accumulators) or ``signsgd``
 (the majority vote of 1-bit pushes), group-wide or a namespace slice at a
-time (``opt_segments``).  Supervision, resizing, the durable store and
-chaos wait for ROADMAP A.16.
+time (``opt_segments``).
+
+:meth:`ServerGroup.respawn` restarts a dead rank on its original port, and
+:class:`ServerSupervisor` does so on its own for an async group, then
+re-seeds the rank from a rolling snapshot (its FTRL ``z``/``n`` too).
+Resizing, the durable store and chaos wait for ROADMAP A.16.
 """
 
 from __future__ import annotations
 
 import subprocess
 import threading
+import time
+
+import numpy as np
 
 from distlr_tpu_torch.ps.build import server_binary
+from distlr_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
 
 OPTIMIZERS = ("sgd", "ftrl", "signsgd")
 
@@ -87,8 +97,11 @@ class ServerGroup:
         self._opt_segments = list(opt_segments or [])
         self.ports: list[int] = list(ports or [])
         self.procs: list[subprocess.Popen] = []
-        # stop() runs from failing worker threads as well as on exit
+        # stop() runs from failing worker threads as well as on exit, and
+        # respawn() from the supervisor's
         self._lock = threading.Lock()
+        #: set by stop(): a torn-down group is never respawned
+        self._stopped = False
 
     @property
     def hosts(self) -> str:
@@ -146,25 +159,60 @@ class ServerGroup:
             cmd.append("--compress=0")
         return cmd
 
+    def _spawn(self, rank: int, port: int) -> tuple[subprocess.Popen, int]:
+        """Start rank ``rank`` on ``port`` (0: the kernel's choice);
+        returns the process and the port it bound."""
+        proc = subprocess.Popen(self._command(server_binary(), rank, port),
+                                stdout=subprocess.PIPE, text=True)
+        # the server prints "PORT <n>" once listening: reading it is the
+        # readiness wait
+        line = proc.stdout.readline().strip()
+        if not line.startswith("PORT "):
+            proc.terminate()
+            proc.wait()
+            proc.stdout.close()
+            raise RuntimeError(f"KV server rank {rank} failed to start (got {line!r})")
+        return proc, int(line.split()[1])
+
     def start(self) -> "ServerGroup":
-        binary = server_binary()
         fixed_ports, self.ports = list(self.ports), []
+        self._stopped = False
         try:
             for rank in range(self.num_servers):
-                port = fixed_ports[rank] if fixed_ports else 0
-                proc = subprocess.Popen(self._command(binary, rank, port),
-                                        stdout=subprocess.PIPE, text=True)
+                proc, port = self._spawn(rank, fixed_ports[rank] if fixed_ports else 0)
                 self.procs.append(proc)
-                # the server prints "PORT <n>" once listening: reading it
-                # is the readiness wait
-                line = proc.stdout.readline().strip()
-                if not line.startswith("PORT "):
-                    raise RuntimeError(f"KV server rank {rank} failed to start (got {line!r})")
-                self.ports.append(int(line.split()[1]))
+                self.ports.append(port)
         except BaseException:
             self.stop()
             raise
         return self
+
+    def respawn(self, rank: int) -> bool:
+        """Restart a dead server on its original port, so the ``hosts``
+        every client holds stays valid (``distlr_tpu/ps/server.py:566``).
+        The new process starts uninitialized: the caller re-seeds its
+        slice with a forced init push.  False when the group is being torn
+        down or the rank is alive; raises if the port was taken while the
+        rank was down."""
+        with self._lock:
+            if self._stopped:
+                return False
+            old = self.procs[rank]
+            if old.poll() is None:
+                return False
+            if old.stdout:
+                old.stdout.close()
+            proc, port = self._spawn(rank, self.ports[rank])
+            if port != self.ports[rank]:
+                # clients hold the old hosts string: this process is
+                # unreachable, so the respawn fails
+                proc.terminate()
+                proc.wait()
+                proc.stdout.close()
+                raise RuntimeError(f"respawned server rank {rank} bound port {port}, "
+                                   f"expected {self.ports[rank]} (port stolen while down)")
+            self.procs[rank] = proc
+            return True
 
     def alive(self) -> list[bool]:
         """Process-level liveness, one flag per server rank."""
@@ -173,14 +221,19 @@ class ServerGroup:
     def wait(self) -> None:
         """Block until every server process exits, as they do after a
         client's ``shutdown_servers``: the foreground of ``launch
-        ps-server``."""
-        for p in list(self.procs):
-            p.wait()
+        ps-server``.  A rank respawned while it waited is waited too."""
+        while True:
+            for p in list(self.procs):
+                p.wait()
+            with self._lock:
+                if self._stopped or all(p.poll() is not None for p in self.procs):
+                    return
 
     def stop(self) -> None:
         """Terminate every server (a no-op for those that already exited,
         as they do after a client's ``shutdown_servers``)."""
         with self._lock:
+            self._stopped = True
             for p in self.procs:
                 if p.poll() is None:
                     p.terminate()
@@ -199,3 +252,212 @@ class ServerGroup:
 
     def __exit__(self, *exc):
         self.stop()
+
+
+class ServerSupervisor:
+    """Crash recovery of an async (Hogwild) group's servers
+    (``distlr_tpu/ps/server.py:800``): a daemon thread snapshots the
+    group's weights on an interval, polls the processes, respawns a dead
+    rank on its original port (:meth:`ServerGroup.respawn`) and re-seeds
+    its slice from the latest snapshot with a forced init push.
+
+    The updates a dead rank absorbed after its last capture are lost
+    (bounded by ``snapshot_interval``), the staleness class Hogwild
+    already tolerates.  Sync groups are refused: a round's merge buffer
+    and barrier votes cannot be rebuilt; their recovery is
+    ``checkpoint_dir`` and ``resume``.  Workers see one failed op a
+    server death; ``run_ps_workers(max_restarts>0)`` or a
+    :class:`~distlr_tpu_torch.ps.RetryPolicy` carries them over it.
+
+    ``events`` is the audit trail of ``(monotonic time, rank, event)``:
+    ``respawned``, ``reseeded``, ``seeded-zeros``, ``gave-up`` and
+    ``respawn-failed``.
+    """
+
+    #: client_id of the per-rank probe connections
+    PROBE_CLIENT_ID = 0xFFFE
+
+    def __init__(self, group: ServerGroup, *, poll_interval: float = 0.2,
+                 snapshot_interval: float = 1.0, max_respawns: int = 3,
+                 timeout_ms: int = 5000):
+        if group.sync:
+            raise ValueError(
+                "ServerSupervisor supports async groups only: a sync "
+                "server's mid-round BSP merge state cannot be "
+                "reconstructed — use checkpoint_dir + resume for sync runs"
+            )
+        self._group = group
+        self._poll_interval = poll_interval
+        self._snapshot_interval = snapshot_interval
+        self._max_respawns = max_respawns
+        self._timeout_ms = timeout_ms
+        # the rolling snapshot: one full-dim buffer, tracked a key range at
+        # a time (valid, the push count at capture, capture time); a range
+        # whose total_pushes has not moved since its capture is skipped, so
+        # the cost follows the write traffic, not the key space
+        self._snapshot: np.ndarray | None = None
+        self._snapshot_at = 0.0
+        self._snap_valid = [False] * group.num_servers
+        self._snap_pushes = [-1] * group.num_servers
+        self._snap_at = [0.0] * group.num_servers
+        # FTRL groups: z and n ride the same snapshot and are restored
+        # with the weights, or a respawned rank would restart its
+        # per-coordinate schedules and forget its L1 duals
+        self._ftrl = group.has_ftrl
+        self._opt_z: np.ndarray | None = None
+        self._opt_n: np.ndarray | None = None
+        self._respawns = [0] * group.num_servers
+        self._needs_reseed: set[int] = set()
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self.events: list[tuple[float, int, str]] = []
+
+    def _record_event(self, when: float, rank: int, event: str) -> None:
+        self.events.append((when, rank, event))
+
+    def start(self) -> "ServerSupervisor":
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="ps-server-supervisor")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    def _probe_rank(self, rank: int):
+        """A fresh connection to one rank alone: a server death poisons
+        open streams, and a group-wide connection would let one dead rank
+        freeze the healthy ranks' captures.  The server stores its range
+        at local keys, so a one-host client of dim ``hi - lo`` addresses
+        exactly that slice."""
+        from distlr_tpu_torch.ps.client import KVWorker  # noqa: PLC0415  (cycle)
+
+        lo, hi = self._group.key_range(rank)
+        return KVWorker(f"127.0.0.1:{self._group.ports[rank]}", hi - lo,
+                        client_id=self.PROBE_CLIENT_ID, timeout_ms=self._timeout_ms,
+                        sync_group=False)
+
+    def _try_snapshot(self) -> None:
+        from distlr_tpu_torch.ps.client import PSRejectedError  # noqa: PLC0415  (cycle)
+
+        if self._snapshot is None:
+            self._snapshot = np.zeros(self._group.dim, np.float32)
+        if self._ftrl and self._opt_z is None:
+            self._opt_z = np.zeros(self._group.dim, np.float32)
+            self._opt_n = np.zeros(self._group.dim, np.float32)
+        for r in range(self._group.num_servers):
+            try:
+                with self._probe_rank(r) as kv:
+                    s = kv.stats(0)
+                    # an uninitialized server answers zeros: capturing them
+                    # would let a crash re-seed zeros over real weights
+                    if not s["initialized"]:
+                        continue
+                    if self._snap_valid[r] and s["total_pushes"] == self._snap_pushes[r]:
+                        # untouched since its capture: no bytes move
+                        self._snap_at[r] = time.monotonic()
+                        continue
+                    vals = kv.pull()
+                    lo, hi = self._group.key_range(r)
+                    self._snapshot[lo:hi] = vals
+                    if self._ftrl:
+                        # not atomic with the weight pull: z/n may be a few
+                        # updates newer than w, and FTRL re-derives w from z
+                        # at each coordinate's next touch
+                        try:
+                            z, n = kv.pull_opt_state()
+                        except PSRejectedError:
+                            pass  # an opt_segments rank without an FTRL slice
+                        else:
+                            self._opt_z[lo:hi] = z
+                            self._opt_n[lo:hi] = n
+                    # the count was read before the pull: it may undercount
+                    # the capture, which costs at most one redundant re-pull
+                    self._snap_pushes[r] = s["total_pushes"]
+                    self._snap_valid[r] = True
+                    self._snap_at[r] = time.monotonic()
+            except Exception:  # noqa: BLE001 — down or wedged: the respawn pass handles it
+                continue
+        self._snapshot_at = time.monotonic()
+
+    def _reseed(self, rank: int) -> bool:
+        from distlr_tpu_torch.ps.client import PSRejectedError  # noqa: PLC0415  (cycle)
+
+        lo, hi = self._group.key_range(rank)
+        if self._snapshot is not None and self._snap_valid[rank]:
+            vals, event = self._snapshot[lo:hi], "reseeded"
+        else:
+            # died before its first capture: zeros keep the server
+            # initialized (pulls return a defined value), its progress lost
+            vals, event = np.zeros(hi - lo, np.float32), "seeded-zeros"
+        try:
+            with self._probe_rank(rank) as kv:
+                kv.push_init(vals, force=True)
+                if self._ftrl and self._snap_valid[rank]:
+                    try:
+                        kv.push_init_opt_state(self._opt_z[lo:hi], self._opt_n[lo:hi],
+                                               force=True)
+                    except PSRejectedError:
+                        pass  # an opt_segments rank without an FTRL slice
+        except Exception as e:  # noqa: BLE001 — retried next poll (_needs_reseed)
+            # an alive but unseeded server would install the first gradient
+            # push as its weights
+            log.warning("supervisor: re-seed of server %d failed: %s", rank, e)
+            return False
+        self._record_event(time.monotonic(), rank, event)
+        # the new process counts pushes from 0: always re-pull this range
+        self._snap_pushes[rank] = -1
+        return True
+
+    def _run(self) -> None:
+        self._try_snapshot()  # at once, so an early death has a capture
+        while not self._stop.wait(self._poll_interval):
+            now = time.monotonic()
+            if self._group._stopped:
+                # a teardown's SIGTERMed ranks exit nonzero: not crashes
+                continue
+            procs = list(self._group.procs)
+            if not procs or all(p.poll() == 0 for p in procs):
+                # every rank exited voluntarily (rank 0's shutdown_servers
+                # at the end of a run): not a crash
+                continue
+            dead = [r for r, p in enumerate(procs)
+                    if p.poll() is not None and p.returncode != 0]
+            for rank in list(self._needs_reseed):
+                # respawned earlier, its re-seed failed: retry until seeded
+                if rank not in dead and self._reseed(rank):
+                    self._needs_reseed.discard(rank)
+            for rank in dead:
+                if self._respawns[rank] >= self._max_respawns:
+                    if not any(r == rank and ev == "gave-up" for _, r, ev in self.events):
+                        log.error("supervisor: server %d exceeded %d respawns; "
+                                  "leaving it down", rank, self._max_respawns)
+                        self._record_event(now, rank, "gave-up")
+                    continue
+                self._respawns[rank] += 1
+                try:
+                    if not self._group.respawn(rank):
+                        continue  # torn down, or raced a still-alive rank
+                except RuntimeError as e:  # spawn failure, stolen port
+                    log.warning("supervisor: respawn of server %d failed: %s", rank, e)
+                    self._record_event(now, rank, "respawn-failed")
+                    continue
+                log.warning("supervisor: server %d died; respawned (%d/%d)",
+                            rank, self._respawns[rank], self._max_respawns)
+                self._record_event(now, rank, "respawned")
+                if not self._reseed(rank):
+                    self._needs_reseed.add(rank)
+            if now - self._snapshot_at >= self._snapshot_interval:
+                # per-rank captures: a dead or unseeded rank is skipped and
+                # the healthy ranks' slices keep moving
+                self._try_snapshot()

@@ -29,8 +29,9 @@ jittered interval (replicas started together would otherwise pull the PS
 in lockstep), keeps serving the last good weights through failed polls,
 and offers :meth:`HotReloader.wait_for_weights` as the start-up gate.
 
-Not ported: the retry policy and membership routing of the PS client
-(ROADMAP A.16), and the trace spans and registry counters (A.12).
+A :class:`~distlr_tpu_torch.ps.RetryPolicy` (``retry=``) retries a PS
+blip inside the poll.  Not ported: the membership routing of the PS
+client (ROADMAP A.16), and the trace spans and registry counters (A.12).
 """
 
 from __future__ import annotations
@@ -95,8 +96,8 @@ class LivePSWatcher:
                  client_id: int | None = None, hot_tracker=None,
                  min_coverage: float = 0.95, full_refresh_every: int = 10, retry=None,
                  ns_base: int = 0, ns_total_dim: int | None = None, route=None):
-        if retry is not None or route is not None:
-            raise _not_ported("the PS client's retry policy and membership routing", "A.16")
+        if route is not None:
+            raise _not_ported("the PS client's membership routing", "A.16")
         from distlr_tpu_torch.ps import KVWorker  # noqa: PLC0415
 
         self.hosts = hosts
@@ -112,7 +113,7 @@ class LivePSWatcher:
         # a pull-only client never votes in a BSP barrier
         worker = KVWorker(hosts, self._wire_dim,
                           client_id=self.SERVE_CLIENT_ID if client_id is None else client_id,
-                          timeout_ms=timeout_ms, sync_group=True)
+                          timeout_ms=timeout_ms, sync_group=True, retry=retry)
         self.kv = (worker if self._wire_dim == self.dim and not self.ns_base
                    else worker.namespace(self.ns_base, self.dim))
         self._needs_reconnect = False

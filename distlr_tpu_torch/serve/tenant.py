@@ -264,9 +264,9 @@ class ShadowMirror:
                     reply = None
                 cand = extract_scores(reply) if reply is not None else None
                 if cand is None:
-                    self.errors += 1
+                    with self._lock:
+                        self.errors += 1
                     continue
-                self.mirrored += 1
                 # inserted under the lock: stats() iterates the pairs under it
                 with self._lock:
                     pair = self._pairs.get((tenant, candidate))
@@ -274,6 +274,10 @@ class ShadowMirror:
                         pair = self._pairs[(tenant, candidate)] = _ShadowPair(
                             block=self.block, bins=self.bins)
                 pair.observe(primary, cand)
+                # counted once observed, so drain() returns only after the
+                # last pair reached its PSI block
+                with self._lock:
+                    self.mirrored += 1
 
     def drain(self, timeout_s: float = 5.0) -> None:
         """Block until every submitted mirror was processed, not only

@@ -40,14 +40,24 @@ vote; each worker negotiates the ``ps_compress`` codec; with
 batches (:class:`~distlr_tpu_torch.compress.GradientAccumulator`),
 pulling at each span's start, instead of the fused round a batch.
 
-Not ported yet: retries and restarts, checkpoints and resume,
-supervision, chaos (ROADMAP A.16); the staleness histograms, trace spans
-and profiler hooks (A.12).
+Fault recovery, the JAX package's ladder: each worker's client retries
+transient transport faults in place (``ps_retry_*``, async only); a
+failed async worker is rebuilt and rejoins (``max_restarts``); dead
+servers of an async group are respawned and re-seeded
+(``supervise_servers``, :class:`~distlr_tpu_torch.ps.ServerSupervisor`);
+and rank 0 checkpoints every ``checkpoint_interval`` epochs, so a job
+resumes (``resume``), against the surviving group or a fresh one.  The
+checkpoints are the port's ``.npz`` steps (:mod:`.checkpoint`); the
+sidecar ``ps_latest.json`` is the JAX package's byte for byte.
+
+Not ported yet: the durable store, chaos and membership (ROADMAP A.16);
+the staleness histograms, trace spans and profiler hooks (A.12).
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import threading
 import time
@@ -57,11 +67,12 @@ import numpy as np
 import torch
 
 from distlr_tpu_torch.compress import GradientAccumulator
-from distlr_tpu_torch.config import Config, _not_ported
+from distlr_tpu_torch.config import Config
 from distlr_tpu_torch.data.iterator import BlockedDataIter, DataIter, SparseDataIter
 from distlr_tpu_torch.data.sharding import part_name
 from distlr_tpu_torch.models import get_model
-from distlr_tpu_torch.ps import KVWorker, ServerGroup
+from distlr_tpu_torch.ps import KVWorker, RetryPolicy, ServerGroup, ServerSupervisor
+from distlr_tpu_torch.train.checkpoint import Checkpointer
 from distlr_tpu_torch.train.export import save_model_text
 from distlr_tpu_torch.train.metrics import MetricsLogger, StepTimer
 from distlr_tpu_torch.utils.device import resolve_device
@@ -77,6 +88,17 @@ def ps_param_dim(cfg: Config) -> int:
     and workers; softmax flattens its (D, K) weight matrix)."""
     return cfg.num_feature_dim * (
         cfg.num_classes if cfg.model in ("softmax", "sparse_softmax") else 1)
+
+
+def ps_retry_policy(cfg: Config) -> RetryPolicy | None:
+    """The workers' retry policy a config asks for, or None: async only,
+    since a sync round's failed push is the named straggler signal and a
+    retried barrier would mix gradients across rounds.  It sits before
+    the restart and resume ladder: only an exhausted policy surfaces the
+    failure to ``max_restarts`` or to a resume."""
+    if cfg.sync_mode:
+        return None
+    return RetryPolicy.from_config(cfg)
 
 
 def server_optimizer(cfg: Config) -> str:
@@ -356,8 +378,6 @@ def check_ps_config(cfg: Config) -> torch.device:
     if cfg.model == "blocked_lr" and cfg.block_size == 0:
         raise ValueError("block_size=0 (auto) must be resolved before PS training "
                          "(launch ps resolves it; see hashing.resolve_auto_block_size)")
-    if cfg.checkpoint_dir:
-        raise _not_ported("checkpoints and resume in PS mode (checkpoint_dir)", "A.16")
     if cfg.feature_dtype != "float32":
         # PS workers stream numpy batches from host RAM each step: there is
         # no resident feature matrix for quantization to shrink
@@ -365,6 +385,73 @@ def check_ps_config(cfg: Config) -> torch.device:
             "feature_dtype quantization applies to the sync trainer's resident "
             "features; PS mode streams host batches (set feature_dtype='float32')")
     return resolve_device(cfg.device)
+
+
+def _sidecar(cfg: Config) -> str:
+    return os.path.join(cfg.checkpoint_dir, "ps_latest.json")
+
+
+def _write_sidecar(cfg: Config, data: dict) -> None:
+    """``ps_latest.json`` as the JAX package writes it: ``json.dump``
+    to a temporary name, renamed into place."""
+    tmp = _sidecar(cfg) + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(data, f)
+    os.replace(tmp, _sidecar(cfg))
+
+
+def _ps_resume_state(cfg: Config, rank: int):
+    """``(start_epoch, weights | None, attempt | None)`` from
+    ``cfg.checkpoint_dir``; ``attempt`` is None without a sidecar.
+
+    Every rank reads the epoch from the sidecar ``ps_latest.json``, which
+    rank 0 writes after each checkpoint, so sync workers agree on the
+    epochs left; rank 0 also restores the weights, which reach the
+    servers through its init push.  The step restored is the sidecar's,
+    not the latest: a crash between a save and the sidecar's rename
+    leaves the latest step one interval ahead of the sidecar.
+    """
+    sidecar = _sidecar(cfg)
+    if not os.path.exists(sidecar):
+        return 0, None, None
+    with open(sidecar) as f:
+        data = json.load(f)
+    epoch = int(data["epoch"])
+    attempt = int(data.get("attempt", 0))
+    if rank != 0 or epoch == 0:
+        # epoch 0: a resume-attempt sidecar written before the first
+        # checkpoint; there is no step to restore, only a barrier
+        # generation to advance
+        return epoch, None, attempt
+    with Checkpointer(cfg.checkpoint_dir) as ckpt:
+        state = ckpt.restore(epoch) if epoch in ckpt.all_steps() else None
+    if state is None:  # a sidecar without its step (a JAX orbax dir, say)
+        raise FileNotFoundError(
+            f"{sidecar} names epoch {epoch} but {cfg.checkpoint_dir} holds "
+            f"no orbax checkpoint for that step"
+        )
+    return epoch, np.asarray(state["weights"]).reshape(-1), attempt
+
+
+def bump_resume_attempt(cfg: Config) -> None:
+    """Advance the sidecar's resume-attempt counter, once a resumed job,
+    before any worker starts (on the rank-0 host).  Each resume then meets
+    at barrier generations the group never released: a surviving group
+    answers a vote for a released generation at once, which would let
+    peers pull crash-time weights before rank 0's forced init.  Without a
+    sidecar (a crash before the first checkpoint) it is created at epoch
+    0."""
+    if not cfg.checkpoint_dir:
+        return
+    sidecar = _sidecar(cfg)
+    if os.path.exists(sidecar):
+        with open(sidecar) as f:
+            data = json.load(f)
+    else:
+        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+        data = {"epoch": 0, "attempt": 0}
+    data["attempt"] = int(data.get("attempt", 0)) + 1
+    _write_sidecar(cfg, data)
 
 
 class PSWorker:
@@ -392,7 +479,19 @@ class PSWorker:
         # advertise it: KVWorker logs the fallback)
         self.kv = KVWorker(hosts, ps_param_dim(cfg), client_id=rank,
                            timeout_ms=cfg.ps_timeout_ms, sync_group=cfg.sync_mode,
-                           compress=cfg.ps_compress)
+                           retry=ps_retry_policy(cfg), compress=cfg.ps_compress)
+        #: the barrier generations of this run: 0 (startup) and 1 (exit), or
+        #: a fresh pair a resume attempt
+        self._barrier_base = 0
+        self._sidecar_attempt = 0
+        #: in-place restarts before this instance, and the client's fault
+        #: counters of the instances it replaced (run_ps_workers)
+        self.restarts = 0
+        self.prior_faults: dict[str, int] = {}
+        #: seconds from run() to the startup barrier's release: with
+        #: resume, the sidecar read, the restore and the forced init
+        self.rendezvous_s: float | None = None
+        self._reaper: threading.Thread | None = None
         self.metrics = MetricsLogger()
         self.timer = StepTimer()
         self.final_weights: np.ndarray | None = None
@@ -566,17 +665,41 @@ class PSWorker:
                               self._test_features)
         return _dense_eval_from_logits(z.cpu().numpy(), yt, mt, K)
 
-    def run(self, *, eval_fn=None, save: bool = True) -> np.ndarray:
+    def run(self, *, eval_fn=None, save: bool = True, resume: bool = False,
+            rejoin: bool = False) -> np.ndarray:
         cfg = self.cfg
+        t0 = time.perf_counter()
         train = self._load_train_iter()
         test = self._load_test_iter() if self.rank == 0 else None
-        # identical deterministic init on every worker (Q2); only rank 0
-        # pushes it, through the idempotent seeding op
-        w0 = self.model.init(cfg).numpy().reshape(-1)
+        start_epoch, restored, attempt = 0, None, None
+        if resume and cfg.checkpoint_dir:
+            start_epoch, restored, attempt = _ps_resume_state(cfg, self.rank)
+        # identical deterministic init on every worker (Q2), or the restored
+        # weights; only rank 0 pushes, through the idempotent seeding op.
+        # On resume the push is forced: a surviving group holds crash-time
+        # weights.  A restarted worker (rejoin) never forces: it would roll
+        # its peers back mid-run.
+        w0 = restored if restored is not None else self.model.init(cfg).numpy().reshape(-1)
         if self.rank == 0:
-            self.kv.wait(self.kv.push_init(w0))
-        self.kv.barrier(0)
-        return self._run_epochs(train, test, eval_fn=eval_fn, save=save)
+            self.kv.wait(self.kv.push_init(w0, force=resume and not rejoin))
+        # every rank reads the same sidecar, so all agree on the pair; a
+        # rejoining worker's late vote for a released generation returns
+        # at once
+        self._barrier_base = 0 if attempt is None else 2 * (attempt + 1)
+        self._sidecar_attempt = 0 if attempt is None else attempt
+        self.kv.barrier(self._barrier_base)
+        self.rendezvous_s = time.perf_counter() - t0
+        ckpt = Checkpointer(cfg.checkpoint_dir) if self.rank == 0 and cfg.checkpoint_dir else None
+        with ckpt if ckpt is not None else contextlib.nullcontext():
+            return self._run_epochs(start_epoch, train, test, ckpt, eval_fn=eval_fn, save=save)
+
+    def _checkpoint(self, ckpt: Checkpointer, epoch: int) -> None:
+        """Rank 0: the servers' weights as step ``epoch``, then the
+        sidecar (its attempt kept: a rejoining worker re-reads it and must
+        derive the same barrier pair)."""
+        with self._timed("checkpoint"):
+            ckpt.save(epoch, self.kv.pull(), extra={"epoch": epoch})
+            _write_sidecar(self.cfg, {"epoch": epoch, "attempt": self._sidecar_attempt})
 
     def _flush_dense_accum(self, accum: GradientAccumulator) -> None:
         """Push one dense accumulation span: its mean gradient."""
@@ -599,7 +722,8 @@ class PSWorker:
         with self._timed("push"):
             self.kv.wait(self.kv.push(vals, rows, vals_per_key=vpk))
 
-    def _run_epochs(self, train: DataIter, test: DataIter | None, *, eval_fn, save):
+    def _run_epochs(self, start_epoch: int, train: DataIter, test: DataIter | None,
+                    ckpt: Checkpointer | None, *, eval_fn, save):
         cfg = self.cfg
         dev = ps_compute_device(cfg)
         dev = resolve_device(dev) if isinstance(dev, torch.device) else dev
@@ -615,7 +739,7 @@ class PSWorker:
             kround = self._keyed_round(dev, accum)
         else:
             compute_g = self._grad_fn(dev)
-        for epoch in range(cfg.num_iteration):
+        for epoch in range(start_epoch, cfg.num_iteration):
             train.reset()
             if keyed:
                 # serialized in both modes: in sync a pull issued before the
@@ -691,6 +815,12 @@ class PSWorker:
                     eval_fn(epoch + 1, acc)
                 else:
                     log_eval_line(epoch + 1, acc)
+            if (ckpt is not None and cfg.checkpoint_interval > 0
+                    and (epoch + 1) % cfg.checkpoint_interval == 0):
+                self._checkpoint(ckpt, epoch + 1)
+        if (ckpt is not None and cfg.num_iteration > start_epoch
+                and ckpt.latest_step() != cfg.num_iteration):
+            self._checkpoint(ckpt, cfg.num_iteration)
 
         with self._timed("pull"):
             self.final_weights = self.kv.pull()
@@ -699,9 +829,10 @@ class PSWorker:
             os.makedirs(os.path.dirname(path), exist_ok=True)
             save_model_text(path, self.final_weights)
         # ps::Finalize(do_barrier=true) parity (src/main.cc:179): a global
-        # exit barrier so no server retires while a peer still trains,
-        # then rank 0 reads the push clock and retires the group
-        self.kv.barrier(1)
+        # exit barrier (the startup generation + 1) so no server retires
+        # while a peer still trains, then rank 0 reads the push clock and
+        # retires the group
+        self.kv.barrier(self._barrier_base + 1)
         if self.rank == 0:
             self.group_pushes = self.kv.global_pushes()
             self.kv.shutdown_servers()
@@ -782,7 +913,8 @@ class PSWorker:
         if self.accum is not None:
             wire.update(accum_flushes=self.accum.flushes, accum_k=self.accum.k)
         return {
-            "rank": self.rank, "steps": self.timer.steps, **wire,
+            "rank": self.rank, "steps": self.timer.steps, **wire, **self.fault_counts(),
+            "restarts": self.restarts, "rendezvous_s": self.rendezvous_s,
             "round_ms": 1e3 * self.timer.sec_per_step,
             **{f"{op}_ms": 1e3 * float(np.mean(v)) for op, v in self.op_seconds.items()},
             **{f"{op}_count": len(v) for op, v in self.op_seconds.items()},
@@ -794,28 +926,62 @@ class PSWorker:
             **keyed,
         }
 
-    def close(self) -> None:
+    def fault_counts(self) -> dict[str, int]:
+        """The client's re-issued ops, rebuilt handles and absorbed pushes,
+        summed with those of the instances this one replaced."""
+        ours = {"retries": sum(self.kv.retries.values()), "reconnects": self.kv.reconnects,
+                "push_outcome_unknown": self.kv.push_outcome_unknown}
+        return {k: v + self.prior_faults.get(k, 0) for k, v in ours.items()}
+
+    def close(self, *, wait: bool = True) -> None:
+        """Close the client.  The native handle is never freed under a
+        live ctypes call: an in-flight push_pull is waited out first.
+        ``wait=False`` (the failure path) returns at once and leaves that
+        wait, then the close, to a reaper thread, so a restart never
+        blocks behind an op to a dead server for ``ps_timeout_ms``."""
+        if self._reaper is not None:
+            self._reaper.join()  # it closes the client
+            return
         comm, self._comm = self._comm, None
-        if comm is not None:
-            # wait out an in-flight push_pull: the native handle must not be
-            # freed under a live ctypes call
+        if comm is None:
+            self.kv.close()
+            return
+        if wait:
             comm.shutdown(wait=True)
-        self.kv.close()
+            self.kv.close()
+            return
+        comm.shutdown(wait=False, cancel_futures=True)
+
+        def reap():
+            comm.shutdown(wait=True)
+            self.kv.close()
+
+        self._reaper = threading.Thread(target=reap, daemon=True, name=f"ps-close-{self.rank}")
+        self._reaper.start()
 
 
 def run_ps_workers(cfg: Config, hosts: str, ranks, *, eval_fn=None, save: bool = False,
-                   on_error=None, report: dict | None = None):
+                   on_error=None, resume: bool = False, max_restarts: int = 0,
+                   report: dict | None = None):
     """Run the given worker ranks (threads) against an EXISTING server
     group at ``hosts``; returns ``{rank: final_weights}``.
 
     Each thread blocks in the native client with the GIL released, so
-    async staleness is real.  ``on_error`` runs once for each failed
-    worker (local mode tears the servers down with it, so peers blocked
-    on the sync barrier fail instead of hanging); the first error is
-    raised after every thread ended.  ``report``, when given, receives
+    async staleness is real.  ``on_error`` runs once for each worker that
+    fails for good (local mode tears the servers down with it, so peers
+    blocked on the sync barrier fail instead of hanging); the first error
+    is raised after every thread ended.  ``report``, when given, receives
     each worker's :meth:`PSWorker.report` by rank.
+
+    ``resume`` continues from ``cfg.checkpoint_dir``, its attempt counter
+    bumped once here when rank 0 is local.  ``max_restarts`` (async only):
+    a failed worker is rebuilt on a fresh connection and rejoins up to N
+    times; a sync worker's failure stays fatal (rounds are counted a
+    worker: sync recovery is ``checkpoint_dir`` and ``resume``).
     """
     ranks = list(ranks)
+    if resume and 0 in ranks:
+        bump_resume_attempt(cfg)
     results: dict[int, np.ndarray | None] = dict.fromkeys(ranks)
     errors: list[BaseException] = []
     workers: list[PSWorker] = []
@@ -824,17 +990,45 @@ def run_ps_workers(cfg: Config, hosts: str, ranks, *, eval_fn=None, save: bool =
         for r in ranks:
             workers.append(PSWorker(cfg, r, hosts, device_lock=device_lock))
 
-        def run_one(worker: PSWorker):
-            try:
-                results[worker.rank] = worker.run(
-                    eval_fn=eval_fn if worker.rank == 0 else None, save=save)
-            except Exception as e:  # surfaced to the caller after the join
-                errors.append(e)
-                if on_error is not None:
-                    on_error()
+        def fail(e: BaseException) -> None:
+            errors.append(e)
+            if on_error is not None:
+                on_error()
 
-        threads = [threading.Thread(target=run_one, args=(wk,), daemon=True,
-                                    name=f"ps-worker-{wk.rank}") for wk in workers]
+        def run_one(i: int):
+            attempts = 0
+            while True:
+                worker = workers[i]
+                try:
+                    results[worker.rank] = worker.run(
+                        eval_fn=eval_fn if worker.rank == 0 else None, save=save,
+                        resume=resume, rejoin=attempts > 0)
+                    return
+                except Exception as e:  # surfaced to the caller after the join
+                    worker.close(wait=False)
+                    attempts += 1
+                    if cfg.sync_mode or attempts > max_restarts:
+                        fail(e)
+                        return
+                    log.warning("worker %d failed (%s); restart %d/%d",
+                                worker.rank, e, attempts, max_restarts)
+                # a short reconnect window: after a server death a
+                # supervisor needs a moment to respawn the rank
+                deadline = time.monotonic() + 5.0
+                while True:
+                    try:
+                        workers[i] = PSWorker(cfg, worker.rank, hosts, device_lock=device_lock)
+                        break
+                    except Exception as e2:
+                        if time.monotonic() >= deadline:
+                            fail(e2)  # the servers are gone
+                            return
+                        time.sleep(0.2)
+                workers[i].restarts = attempts
+                workers[i].prior_faults = worker.fault_counts()
+
+        threads = [threading.Thread(target=run_one, args=(i,), daemon=True,
+                                    name=f"ps-worker-{wk.rank}") for i, wk in enumerate(workers)]
         for t in threads:
             t.start()
         for t in threads:
@@ -849,19 +1043,37 @@ def run_ps_workers(cfg: Config, hosts: str, ranks, *, eval_fn=None, save: bool =
     return results
 
 
-def run_ps_local(cfg: Config, *, eval_fn=None, save: bool = False, report: dict | None = None):
+def ps_server_group(cfg: Config) -> ServerGroup:
+    """The local server group a config trains against (not started):
+    ``num_servers`` ranks of its key space, its mode, Q1 quirk and update
+    rule."""
+    return ServerGroup(cfg.num_servers, cfg.num_workers, ps_param_dim(cfg),
+                       learning_rate=cfg.learning_rate, sync=cfg.sync_mode,
+                       last_gradient=bool(cfg.sync_last_gradient),
+                       optimizer=server_optimizer(cfg), ftrl_alpha=cfg.ftrl_alpha,
+                       ftrl_beta=cfg.ftrl_beta, ftrl_l1=cfg.ftrl_l1, ftrl_l2=cfg.ftrl_l2)
+
+
+def run_ps_local(cfg: Config, *, eval_fn=None, save: bool = False, resume: bool = False,
+                 max_restarts: int = 0, supervise_servers: bool = False,
+                 report: dict | None = None):
     """Single-host PS run: ``cfg.num_servers`` native server processes and
     ``cfg.num_workers`` worker threads (the local-mode successor of
     ``examples/local.sh``); returns the workers' final weights in rank
     order.  Multi-host deployments run :func:`run_ps_workers` against a
-    group started elsewhere."""
+    group started elsewhere.  ``supervise_servers`` (async only) attaches
+    a :class:`~distlr_tpu_torch.ps.ServerSupervisor`; pair it with
+    ``max_restarts > 0`` or ``ps_retry_attempts`` so the workers whose
+    stream broke carry on.  ``report``, when given, also receives the
+    supervisor's ``events`` under ``"supervisor_events"``."""
     check_ps_config(cfg)
-    group = ServerGroup(cfg.num_servers, cfg.num_workers, ps_param_dim(cfg),
-                        learning_rate=cfg.learning_rate, sync=cfg.sync_mode,
-                        last_gradient=bool(cfg.sync_last_gradient),
-                        optimizer=server_optimizer(cfg), ftrl_alpha=cfg.ftrl_alpha,
-                        ftrl_beta=cfg.ftrl_beta, ftrl_l1=cfg.ftrl_l1, ftrl_l2=cfg.ftrl_l2)
-    with group:
+    group = ps_server_group(cfg)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(group)
+        sup = stack.enter_context(ServerSupervisor(group)) if supervise_servers else None
         results = run_ps_workers(cfg, group.hosts, range(cfg.num_workers), eval_fn=eval_fn,
-                                 save=save, on_error=group.stop, report=report)
+                                 save=save, on_error=group.stop, resume=resume,
+                                 max_restarts=max_restarts, report=report)
+    if report is not None and sup is not None:
+        report["supervisor_events"] = list(sup.events)
     return [results[r] for r in range(cfg.num_workers)]

@@ -957,3 +957,47 @@ def test_int8_push_of_a_card_gradient_reads_back_its_codec_and_ratio(cuda):
     assert ratio > 8.0
     decoded = np.concatenate([int8_roundtrip(g[:D // 2]), int8_roundtrip(g[D // 2:])])
     np.testing.assert_array_equal(got, (w0 - decoded).astype(np.float32))
+
+
+def test_ps_sync_crash_and_resume_on_card_equals_the_uninterrupted_run(cuda, tmp_path,
+                                                                       monkeypatch):
+    """Sync PS at a small width on the card (2 workers x 2 servers, each
+    gradient one ``fused_lr_grad`` launch): rank 0 raises after its
+    epoch-2 checkpoint, the job resumes against the surviving group, and
+    its weights equal an uninterrupted run's (the kernel is
+    deterministic)."""
+    import json
+    import os
+
+    from distlr_tpu_torch.data.synthetic import write_synthetic_shards
+    from distlr_tpu_torch.ps import ServerGroup
+    from distlr_tpu_torch.train import ps_trainer
+
+    d = str(tmp_path / "data")
+    write_synthetic_shards(d, 2048, 4096, num_parts=2, seed=9, sparsity=0.5)
+    cfg = Config(data_dir=d, num_feature_dim=4096, num_workers=2, num_servers=2,
+                 num_iteration=4, learning_rate=0.5, l2_c=0.0, batch_size=256,
+                 test_interval=0, sync_mode=True, checkpoint_dir=str(tmp_path / "ck"),
+                 checkpoint_interval=2, ps_timeout_ms=10_000)
+    real = ps_trainer.PSWorker._checkpoint
+    state = {"crashed": False}
+
+    def crashing(self, ckpt, epoch):
+        real(self, ckpt, epoch)
+        if epoch == 2 and not state["crashed"]:
+            state["crashed"] = True
+            raise RuntimeError("injected crash after checkpoint")
+
+    monkeypatch.setattr(ps_trainer.PSWorker, "_checkpoint", crashing)
+    launches = ops.fused_lr_grad.launches
+    with ServerGroup(2, 2, 4096, learning_rate=0.5, sync=True) as group:
+        with pytest.raises(Exception):
+            ps_trainer.run_ps_workers(cfg, group.hosts, range(2))
+        assert state["crashed"]
+        resumed = ps_trainer.run_ps_workers(cfg, group.hosts, range(2), resume=True)
+    assert ops.fused_lr_grad.launches > launches
+    with open(os.path.join(cfg.checkpoint_dir, "ps_latest.json")) as f:
+        assert json.load(f) == {"epoch": 4, "attempt": 1}
+    monkeypatch.undo()
+    whole = ps_trainer.run_ps_local(cfg.replace(checkpoint_dir=None))
+    assert _rel(torch.from_numpy(resumed[0]), torch.from_numpy(whole[0])) <= 1e-5

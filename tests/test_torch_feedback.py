@@ -11,6 +11,7 @@ port on ``device="cpu"`` is the only test driven by clocks; it waits on
 deadlines, never on fixed sleeps.
 """
 
+import dataclasses
 import json
 import os
 import random
@@ -443,8 +444,20 @@ class TestOnlineTrainer:
         assert msgs[0] == msgs[1]
 
     def test_retry_and_route_name_a16(self, tmp_path):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A\.16\)"):
-            Config(device="cpu", ps_retry_attempts=3)
+        """The retry policy is ported (A.16.2): the trainer's client gets
+        ``RetryPolicy.from_config(cfg)`` as JAX's does.  The membership
+        route still raises naming A.16."""
+        from distlr_tpu.ps import RetryPolicy as JaxRetryPolicy
+
+        cfg = Config(device="cpu", num_feature_dim=D, sync_mode=False, ps_retry_attempts=3)
+        with ServerGroup(1, 1, D, sync=False) as sg:
+            tr = online.OnlineTrainer(cfg, sg.hosts, str(tmp_path))
+            try:
+                assert dataclasses.asdict(tr.kv.retry) == dataclasses.asdict(
+                    JaxRetryPolicy.from_config(JaxConfig(num_feature_dim=D, sync_mode=False,
+                                                         ps_retry_attempts=3)))
+            finally:
+                tr.kv.close()
         with pytest.raises(NotImplementedError, match=r"ROADMAP A\.16\)"):
             online.OnlineTrainer(Config(device="cpu", num_feature_dim=D), "127.0.0.1:1",
                                  str(tmp_path), route=object())

@@ -1,7 +1,9 @@
 """The port's CLI, its device rule and its kernel build, on the CPU."""
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import os
 import re
 import shutil
@@ -24,22 +26,21 @@ REPO = Path(__file__).resolve().parents[1]
 #: the JAX package's ``ps`` flags that are not ported yet (ROADMAP A.16):
 #: (flag, dest, type; None = a switch); given, each one raises
 _UNPORTED_PS_FLAGS = (
-    ("--max-worker-restarts", "max_worker_restarts", int),
-    ("--supervise-servers", "supervise_servers", None),
     ("--chaos-plan", "chaos_plan", str),
     ("--chaos-seed", "chaos_seed", int),
-    ("--ps-retry-attempts", "ps_retry_attempts", int),
-    ("--ps-retry-backoff", "ps_retry_backoff_ms", float),
-    ("--ps-retry-backoff-max", "ps_retry_backoff_max_ms", float),
-    ("--ps-retry-deadline", "ps_retry_deadline_s", float),
-    ("--ps-retry-adaptive", "ps_retry_adaptive", None),
     ("--store-dir", "ps_store_dir", str),
     ("--store-interval", "ps_store_interval_s", float),
     ("--store-wal", "ps_store_wal", None),
     ("--store-wal-fsync", "ps_store_wal_fsync_s", float),
-    ("--checkpoint-dir", "checkpoint_dir", str),
-    ("--checkpoint-interval", "checkpoint_interval", int),
-    ("--resume", "resume", None),
+)
+#: the ``ps`` recovery flags the port runs (ROADMAP A.16.1-A.16.3), each
+#: with a value valid in both packages
+_RECOVERY_PS_FLAGS = (
+    ["--max-worker-restarts", "2"], ["--supervise-servers", "--async"],
+    ["--ps-retry-attempts", "3"], ["--ps-retry-backoff", "25"],
+    ["--ps-retry-backoff-max", "5000"], ["--ps-retry-deadline", "9.5"],
+    ["--ps-retry-adaptive"], ["--checkpoint-dir", "ck"],
+    ["--checkpoint-interval", "2"], ["--resume"],
 )
 EVAL_LINE = re.compile(r"^\d\d:\d\d:\d\d Iteration (\d+), accuracy: (\S+)$", re.M)
 
@@ -167,6 +168,53 @@ class TestPSCLI:
             launch.main(["ps", "--data-dir", str(tmp_path), "--num-feature-dim", "8",
                          "--device", "cpu", *argv])
 
+    @pytest.mark.parametrize("argv", _RECOVERY_PS_FLAGS, ids=lambda a: a[0])
+    @pytest.mark.parametrize("hosts", [False, True], ids=["local", "hosts"])
+    def test_recovery_flags_reach_the_run_like_jax(self, argv, hosts, tmp_path, monkeypatch):
+        """The checkpoint, resume, restart, supervision and retry flags of
+        ``launch ps`` reach the run as the JAX package's ``launch ps``
+        passes them: the same keyword arguments and Config fields, or the
+        same exit 2 and message (``--supervise-servers`` with ``--hosts``)."""
+        from distlr_tpu.train import ps_trainer as jax_ps_trainer
+
+        from distlr_tpu_torch.train import ps_trainer
+
+        seen = {}
+        for mod, who in ((ps_trainer, "ours"), (jax_ps_trainer, "theirs")):
+            for fn in ("run_ps_local", "run_ps_workers"):
+                monkeypatch.setattr(mod, fn, lambda cfg, *a, _w=who, _f=fn, **kw:
+                                    seen.setdefault(_w, (_f, cfg, kw)))
+        common = ["ps", "--data-dir", str(tmp_path), "--num-feature-dim", "8", *argv]
+        if hosts:
+            common += ["--hosts", "127.0.0.1:1"]
+        errs = []
+        for main, extra in ((launch.main, ["--device", "cpu"]), (jax_launch.main, [])):
+            with contextlib.redirect_stderr(io.StringIO()) as err:
+                errs.append((main(common + extra), err.getvalue()))
+        assert errs[0] == errs[1]
+        if errs[0][0] == 2:
+            assert "--supervise-servers applies to local mode" in errs[0][1]
+            return
+        (fn, cfg, kw), (jfn, jcfg, jkw) = seen["ours"], seen["theirs"]
+        assert fn == jfn
+        jkw.pop("on_error", None)
+        kw.pop("on_error", None)
+        assert kw == jkw
+        for f in ("checkpoint_dir", "checkpoint_interval", "sync_mode", "ps_retry_attempts",
+                  "ps_retry_backoff_ms", "ps_retry_backoff_max_ms", "ps_retry_deadline_s",
+                  "ps_retry_adaptive"):
+            assert getattr(cfg, f) == getattr(jcfg, f), f
+
+    def test_supervise_servers_needs_async_like_jax(self, tmp_path):
+        common = ["ps", "--data-dir", str(tmp_path), "--num-feature-dim", "8",
+                  "--supervise-servers"]
+        out = []
+        for main, extra in ((launch.main, ["--device", "cpu"]), (jax_launch.main, [])):
+            with contextlib.redirect_stderr(io.StringIO()) as err:
+                out.append((main(common + extra), err.getvalue()))
+        assert out[0] == out[1]
+        assert out[0][0] == 2 and "--supervise-servers requires --async" in out[0][1]
+
 
     @pytest.mark.parametrize("argv", [
         ["--ps-optimizer", "ftrl"],
@@ -263,20 +311,16 @@ _GATES = {
                      "--trace-sample", "--profile-dir"), "A.12"),
     **dict.fromkeys(("--prof-hz", "--prof-window", "--log-level", "--log-ring", "--log-dedupe",
                      "--incident-window", "--incident-settle", "--incident-max"), "A.21"),
-    **dict.fromkeys(("--ps-retry-attempts", "--ps-retry-backoff", "--ps-retry-backoff-max",
-                     "--ps-retry-deadline", "--ps-retry-adaptive", "--store-dir",
-                     "--store-interval", "--store-wal", "--store-wal-fsync", "--chaos-plan",
-                     "--chaos-seed", "--max-worker-restarts", "--supervise-servers",
-                     "--elastic", "--ctl-port", "--ps-ctl"), "A.16"),
+    **dict.fromkeys(("--store-dir", "--store-interval", "--store-wal", "--store-wal-fsync",
+                     "--chaos-plan", "--chaos-seed", "--elastic", "--ctl-port", "--ps-ctl"),
+                    "A.16"),
 }
-_COMMAND_ITEMS = {("rollout", "--obs-run-dir"): "A.21",
-                  **{(c, f): "A.16" for c in ("ps", "ps-server")
-                     for f in ("--checkpoint-dir", "--checkpoint-interval", "--resume")}}
+_COMMAND_ITEMS = {("rollout", "--obs-run-dir"): "A.21"}
 # flags whose value must come with another flag to be valid in both packages
 _WITH = {"--accum-start": ["--accum-max", "4"],
          "--block-groups": ["--model", "blocked_lr", "--block-size", "4"]}
 _VALUE = {"--accum-growth": "2.5", "--coordinator": "127.0.0.1:1", "--block-size": "4",
-          "--eject-after": "5", "--probe-backoff": "0.25"}
+          "--eject-after": "5", "--probe-backoff": "0.25", "--ps-retry-backoff-max": "5000"}
 # the flags a command maps onto Config fields itself (the JAX package's
 # cmd_serve / cmd_route overrides)
 _COMMAND_FIELDS = {

@@ -140,8 +140,6 @@ class TestConfigGates:
         ({"profile_dir": "prof"}, "A.12"),
         ({"ps_host": "10.0.0.1"}, "A.16"),
         ({"ps_port": 9000}, "A.16"),
-        ({"ps_retry_attempts": 3}, "A.16"),
-        ({"ps_retry_adaptive": True}, "A.16"),
         ({"ps_store_dir": "store"}, "A.16"),
         ({"ps_store_wal": True}, "A.16"),
         ({"chaos_plan": "plan.json"}, "A.16"),
@@ -193,6 +191,32 @@ class TestConfigGates:
         for f in ("model", "sync_mode", "block_size", "serve_hot_rows",
                   "serve_hot_min_coverage", "serve_hot_full_every"):
             assert getattr(t, f) == getattr(j, f), f
+
+    # the retry policy (ROADMAP A.16.2): accepted, with the JAX package's
+    # values, and refused with its texts
+    @pytest.mark.parametrize("kw", [
+        {"ps_retry_attempts": 3},
+        {"ps_retry_adaptive": True},
+        {"ps_retry_attempts": 4, "ps_retry_backoff_ms": 10.0, "ps_retry_backoff_max_ms": 80.0,
+         "ps_retry_deadline_s": 2.5},
+    ])
+    def test_retry_options_resolve_like_jax(self, kw):
+        j, t = JaxConfig(**kw), Config(device="cpu", **kw)
+        for f in ("ps_retry_attempts", "ps_retry_backoff_ms", "ps_retry_backoff_max_ms",
+                  "ps_retry_deadline_s", "ps_retry_adaptive"):
+            assert getattr(t, f) == getattr(j, f), f
+
+    @pytest.mark.parametrize("kw", [
+        {"ps_retry_attempts": -1}, {"ps_retry_backoff_ms": -1.0},
+        {"ps_retry_backoff_ms": 500.0, "ps_retry_backoff_max_ms": 100.0},
+        {"ps_retry_deadline_s": 0.0},
+    ])
+    def test_retry_options_refused_like_jax(self, kw):
+        with pytest.raises(ValueError) as ours:
+            Config(device="cpu", **kw)
+        with pytest.raises(ValueError) as theirs:
+            JaxConfig(**kw)
+        assert str(ours.value) == str(theirs.value)
 
     # the servers' update rule, the wire codec and the accumulation (the
     # first half of ROADMAP A.16): accepted, with the JAX package's values

@@ -375,12 +375,28 @@ class TestEntryRules:
                 run_ps_local(cfg)
 
     @pytest.mark.parametrize("kw,err,match", [
-        ({"checkpoint_dir": "ck"}, NotImplementedError, r"ROADMAP A\.16\)"),
         ({"feature_dtype": "int8"}, ValueError, "feature_dtype"),
     ])
     def test_unported_runs_refused(self, ps_data_dir, kw, err, match):
         with pytest.raises(err, match=match):
             run_ps_local(_cfg(data_dir=ps_data_dir, num_feature_dim=16, **kw))
+
+    def test_checkpoint_dir_runs_like_jax(self, ps_data_dir, tmp_path):
+        """``checkpoint_dir`` is ported (A.16.1): rank 0 saves every
+        ``checkpoint_interval`` epochs, and the sidecar is the JAX
+        package's byte for byte; the port's steps are ``.npz``."""
+        ours_cfg, jax_cfg = _parity_cfgs(ps_data_dir, ps_compute_backend="numpy",
+                                         checkpoint_interval=5)
+        ours = run_ps_local(ours_cfg.replace(checkpoint_dir=str(tmp_path / "ours")))
+        ref = jax_run_ps_local(jax_cfg.replace(checkpoint_dir=str(tmp_path / "jax")))
+        np.testing.assert_allclose(ours[0], ref[0], rtol=1e-6, atol=1e-7)
+        sidecars = [(tmp_path / who / "ps_latest.json").read_bytes() for who in ("ours", "jax")]
+        assert sidecars[0] == sidecars[1] == b'{"epoch": 12, "attempt": 0}'
+        assert sorted(os.listdir(tmp_path / "ours")) == [
+            "ckpt-10.npz", "ckpt-12.npz", "ckpt-5.npz", "ps_latest.json"]
+        with np.load(tmp_path / "ours" / "ckpt-12.npz") as z:
+            np.testing.assert_array_equal(z["weights"], ours[0])
+            assert int(z["epoch"]) == 12
 
 
 def _parity_cfgs(data_dir, **kw):

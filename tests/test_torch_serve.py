@@ -801,12 +801,41 @@ class TestHotReload:
             reloader.stop()
         assert "unreachable" in watcher.describe_unready()
 
-    @pytest.mark.parametrize("kw,item", [
-        ({"retry": object()}, "A.16"), ({"route": object()}, "A.16"),
-    ])
+    @pytest.mark.parametrize("kw,item", [({"route": object()}, "A.16")])
     def test_unported_watcher_options_raise(self, kw, item):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
             LivePSWatcher("127.0.0.1:1", 16, **kw)
+
+    def test_watcher_retry_rides_a_server_respawn(self):
+        """``LivePSWatcher(retry=)`` as in the JAX package: its client
+        carries the policy, and a poll after a server's SIGKILL and
+        respawn succeeds within the poll (a retry, no failed poll).
+        ``launch serve`` builds the policy as JAX's does."""
+        from distlr_tpu.ps import RetryPolicy as JaxRetryPolicy
+
+        from distlr_tpu_torch.ps import RetryPolicy
+
+        cfg = Config(device="cpu", ps_retry_attempts=6, ps_retry_backoff_ms=20.0)
+        pol = RetryPolicy.from_config(cfg)
+        assert dataclasses.asdict(pol) == dataclasses.asdict(JaxRetryPolicy.from_config(
+            JaxConfig(ps_retry_attempts=6, ps_retry_backoff_ms=20.0)))
+        init = np.linspace(-1, 1, 16).astype(np.float32)
+        with ServerGroup(2, 1, dim=16, sync=False) as sg:
+            with KVWorker(sg.hosts, 16) as kv:
+                kv.push_init(init)
+            watcher = LivePSWatcher(sg.hosts, 16, retry=pol)
+            assert watcher.kv.retry is pol
+            assert watcher.poll()[0] == 1
+            sg.procs[1].kill()
+            sg.procs[1].wait()
+            assert sg.respawn(1)
+            with KVWorker(f"127.0.0.1:{sg.ports[1]}", 8) as kv1:
+                kv1.push_init(init[8:])
+            version, w = watcher.poll()
+            watcher.close()
+        assert version == 2
+        np.testing.assert_array_equal(w, init)
+        assert sum(watcher.kv.retries.values()) >= 1
 
     @pytest.mark.parametrize("kw,mode,rows", [
         ({"vals_per_key": 4}, "full", 4), ({"hot_tracker": "tracker"}, "hot", 16),

@@ -14,6 +14,7 @@ dropped) of both rollout controllers over one scripted router.
 import http.server
 import json
 import threading
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -175,13 +176,39 @@ class TestTenant:
                 for ln in lines:
                     assert m.submit("v1", "v2", ln, primary[ln])
                 m.drain(10.0)
-                stats.append((m.stats(), m.psi("v1", "v2"), m.psi("v1", "v9")))
             finally:
                 m.stop()
+            # read after stop(), which joins the mirror thread: the JAX
+            # package's drain() counts a mirror before its pair observes it
+            stats.append((m.stats(), m.psi("v1", "v2"), m.psi("v1", "v9")))
             assert not m.submit("v1", "v2", lines[0], [0.5])  # stopped: dropped
         assert stats[0] == stats[1]
         assert stats[0][1] is not None and stats[0][1] > 0
         assert stats[0][0]["errors"] == sum(ln.endswith("7:1") for ln in lines)
+
+    def test_shadow_mirror_drain_waits_for_the_last_observe(self, monkeypatch):
+        """With each pair's observe slowed, the port's stats() right
+        after drain() already holds every pair: drain() returns only once
+        the last mirror was observed, not only counted."""
+        real = tenant._ShadowPair.observe
+
+        def slow_observe(self, primary, cand):
+            time.sleep(0.02)
+            return real(self, primary, cand)
+
+        monkeypatch.setattr(tenant._ShadowPair, "observe", slow_observe)
+        m = tenant.ShadowMirror(lambda model, line: "1 0.5", queue_max=64, block=2, bins=4)
+        try:
+            for i in range(5):
+                assert m.submit("v1", "v2", f"{i}:1", [0.25 + 0.1 * i])
+            m.drain(10.0)
+            after_drain = m.stats()
+        finally:
+            m.stop()
+        assert after_drain == m.stats()
+        assert after_drain["mirrored"] == 5
+        assert after_drain["pairs"]["v1->v2"]["pairs"] + 2 * after_drain["pairs"]["v1->v2"][
+            "blocks"] == 5
 
     def test_shadow_mirror_validation_matches_jax(self):
         for kw in ({"queue_max": 0}, {"block": 0}, {"bins": 1}):
