@@ -53,7 +53,12 @@ and ``launch ps --hosts`` against it) and PS fault recovery at D = 1M
 (a sync crash after a checkpoint resumed against the surviving group and
 held to an uninterrupted run, an async worker restart, a server SIGKILLed
 under the ``ServerSupervisor`` and re-seeded from its snapshot, and
-``launch ps`` with the recovery flags), then
+``launch ps`` with the recovery flags) and the durable store at D = 1M
+(the WAL's recovery of every acknowledged push after a SIGKILL of the
+group, snapshot-only recovery within an interval, a whole-group power
+loss by a chaos ``kill`` fault under ``run_ps_local``, ``launch ps-server
+--store-dir`` with ``launch ps-ctl``, and ``launch chaos`` throttling the
+links of f32, int8 and signSGD pushes), then
 the serving control plane (a ``ScoringRouter`` in front of two
 ``ScoringServer`` replicas, each hosting the binary_lr versions v1 and v2
 at D = 1M: one reloads both from two namespaces of one PS group, the other
@@ -3505,6 +3510,604 @@ def phase_ps_recovery(torch, seed: int, smi: str) -> dict:
     return out
 
 
+# --- the durable store, its WAL and the chaos fabric --------------------------
+DUR_WAL_PUSHES, DUR_PUSH_REPS, DUR_SUP_POLL_S = 8, 3, 0.05
+DUR_SNAP_INTERVAL_S, DUR_SNAP_RUN_S = 0.5, 2.5
+DUR_RETRY_ATTEMPTS, DUR_CLI_ROWS = 10, 128
+# a throttle of each rate on every link, None = the proxy alone
+DUR_RATES = {"unthrottled": None, "1gbit": 125_000_000, "100mbit": 12_500_000}
+# the WAL's replay applies the same f32 updates in the same order: bits
+DUR_WAL_TOL = 1e-6
+
+
+def _dur_grad_fn(torch, model, cfg, shard):
+    """The card's gradient of ``shard`` at host weights ``w``: one
+    ``fused_lr_grad`` launch, read back as the f32 vector a push sends."""
+    X, y = shard
+    mask = torch.ones(X.shape[0], device="cuda")
+
+    def grad(w):
+        return model.grad(torch.from_numpy(w).cuda(), (X, y, mask), cfg).cpu().numpy()
+
+    return grad
+
+
+def _dur_wait_events(sup, want: str, ranks, timeout_s: float = 60.0) -> dict:
+    """``{rank: monotonic time}`` of each rank's first ``want`` event."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        seen = {}
+        for t, r, ev in list(sup.events):
+            if ev == want and r in ranks:
+                seen.setdefault(r, t)
+        if len(seen) == len(ranks):
+            return seen
+        if time.monotonic() > deadline:
+            raise AssertionError(f"ps_durable: no {want!r} for every rank in {timeout_s} s: "
+                                 f"{sup.events}")
+        time.sleep(0.005)
+
+
+def _dur_wal(torch, grad_fn, w0, root: str) -> dict:
+    """Check 1: an async SGD group with the WAL (interval 60 s, fsync
+    0.01 s) under a supervisor; DUR_WAL_PUSHES card gradients, each at the
+    weights just pulled; both ranks SIGKILLed; their stores' recovered
+    clocks, the supervisor's respawn and ``reseeded-from-store``, and the
+    pull against the pre-kill pull (bits, or DUR_WAL_TOL with the reason
+    printed).  The kill to the re-seed event, the respawn call (spawn,
+    restore and replay, then the port line) and a store-free spawn of the
+    same slice beside it: their difference is the recovery's share."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.ps import KVWorker, ServerGroup, ServerSupervisor, store  # noqa: PLC0415
+
+    group = ServerGroup(PS_SERVERS, 1, FULL_D, sync=False, learning_rate=0.2, store_dir=root,
+                        store_interval_s=60.0, store_wal=True, store_wal_fsync_s=0.01)
+    respawns, real_respawn = {}, group.respawn
+
+    def timed_respawn(rank):
+        t0 = time.monotonic()
+        ok = real_respawn(rank)
+        respawns[rank] = (t0, time.monotonic())
+        return ok
+
+    group.respawn = timed_respawn
+    with group, ServerSupervisor(group, poll_interval=DUR_SUP_POLL_S,
+                                 snapshot_interval=60.0) as sup:
+        with KVWorker(group.hosts, FULL_D, sync_group=False, timeout_ms=PS_TIMEOUT_MS) as kv:
+            kv.push_init(w0)
+            for _ in range(DUR_WAL_PUSHES):
+                kv.push(grad_fn(kv.pull()))
+            before = kv.pull()
+        # every acknowledged push is on disk (the group commit runs before
+        # the ack): the files the kill leaves
+        doc = store.inspect_store(root, now=time.time())
+        t_kill = time.monotonic()
+        for p in list(group.procs):
+            p.kill()
+        reseeded = _dur_wait_events(sup, "reseeded-from-store", range(PS_SERVERS))
+        with KVWorker(group.hosts, FULL_D, sync_group=False, timeout_ms=PS_TIMEOUT_MS) as kv:
+            after = kv.pull()
+        events = [(r, ev) for _, r, ev in sup.events]
+    fresh = ServerGroup(1, 1, FULL_D // PS_SERVERS, sync=False)
+    t0 = time.perf_counter()
+    try:
+        fresh.start()
+        fresh_spawn_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        fresh.stop()
+    ranks = {}
+    for r, d in sorted(doc["ranks"].items()):
+        rank = int(r)
+        recovery_ms = 1e3 * (respawns[rank][1] - respawns[rank][0])
+        ranks[r] = {
+            "recovered_clock": d["recovered_clock"], "snapshot_clock": d["snapshot_clock"],
+            "wal_records": d["wal"]["records"], "wal_bytes": d["wal"]["bytes"],
+            "snapshot_bytes": d["snapshot_bytes"],
+            "wal_bytes_per_push": (d["wal"]["bytes"] - d["wal"]["segments"]
+                                   * store.WAL_HEADER_SIZE) / d["wal"]["records"],
+            "kill_to_reseeded_from_store_ms": 1e3 * (reseeded[rank] - t_kill),
+            "kill_to_respawn_call_ms": 1e3 * (respawns[rank][0] - t_kill),
+            "respawn_call_ms": recovery_ms,
+            "recovery_ms": recovery_ms - fresh_spawn_ms,
+            "recovery_share": (recovery_ms - fresh_spawn_ms) / (1e3 * (reseeded[rank] - t_kill)),
+        }
+    bits = after.tobytes() == before.tobytes()
+    line = {"pushes": DUR_WAL_PUSHES, "fsync_s": 0.01, "ranks": ranks, "events": events,
+            "fresh_spawn_ms": fresh_spawn_ms, "pull_equals_pre_kill_bits": bits,
+            "store_footprint_bytes": sum(d["snapshot_bytes"] + d["wal"]["bytes"]
+                                         for d in doc["ranks"].values())}
+    if not bits:
+        diff = np.abs(after.astype(np.float64) - before) / max(float(np.abs(before).max()), 1e-30)
+        line["max_rel_err_vs_pre_kill"] = float(diff.max())
+        line["why"] = ("the recovered weights differ from the pre-kill pull's bits: the replay "
+                       "applied the logged f32 updates to the restored slice in another order "
+                       "or rounding than the live server did")
+    ok = (all(d["recovered_clock"] == 1 + DUR_WAL_PUSHES for d in ranks.values())
+          and all(events.count((r, "respawned")) == 1
+                  and events.index((r, "respawned")) < events.index((r, "reseeded-from-store"))
+                  for r in range(PS_SERVERS))
+          and (bits or line["max_rel_err_vs_pre_kill"] <= DUR_WAL_TOL))
+    if not ok:
+        raise AssertionError(f"ps_durable wal: {line}")
+    return line
+
+
+def _dur_snapshot_only(torch, grad_fn, w0, root: str) -> dict:
+    """Check 2: no WAL, a snapshot every DUR_SNAP_INTERVAL_S; card
+    gradients pushed for DUR_SNAP_RUN_S, then both ranks SIGKILLed.  Each
+    rank's recovered clock is behind the acknowledged pushes by at most
+    those of the last snapshot interval and the writer's slack (two
+    intervals, as the JAX package's test holds it), and one."""
+    from distlr_tpu_torch.ps import KVWorker, ServerGroup, store  # noqa: PLC0415
+
+    acks = []
+    with ServerGroup(PS_SERVERS, 1, FULL_D, sync=False, learning_rate=0.2, store_dir=root,
+                     store_interval_s=DUR_SNAP_INTERVAL_S) as group:
+        with KVWorker(group.hosts, FULL_D, sync_group=False, timeout_ms=PS_TIMEOUT_MS) as kv:
+            kv.push_init(w0)
+            t_end = time.monotonic() + DUR_SNAP_RUN_S
+            while time.monotonic() < t_end:
+                kv.push(grad_fn(kv.pull()))
+                acks.append(time.monotonic())
+            t_kill = time.monotonic()
+            for p in group.procs:
+                p.kill()
+            for p in group.procs:
+                p.wait()
+        clocks = [store.scan_rank(group.store_rank_dir(r)).recovered_clock
+                  for r in range(PS_SERVERS)]
+    acked = 1 + len(acks)
+    window = 2 * DUR_SNAP_INTERVAL_S
+    line = {"interval_s": DUR_SNAP_INTERVAL_S, "acked_clock": acked, "recovered_clocks": clocks,
+            "clock_gap": [acked - c for c in clocks],
+            "pushes_in_last_interval": sum(1 for t in acks if t_kill - t <= DUR_SNAP_INTERVAL_S),
+            "pushes_in_last_two_intervals": sum(1 for t in acks if t_kill - t <= window),
+            "push_rate_per_s": len(acks) / DUR_SNAP_RUN_S}
+    if any(g > line["pushes_in_last_two_intervals"] + 1 or g < 0 for g in line["clock_gap"]):
+        raise AssertionError(f"ps_durable snapshot-only: the loss is not bounded by the "
+                             f"interval: {line}")
+    return line
+
+
+def _dur_push_alone(grad, root: str) -> dict:
+    """A push alone of one card gradient into a 2-server group at D = 1M,
+    the WAL off and on (fsync 0.1, the default): the mean of DUR_PUSH_REPS
+    after a warm-up.  Then a snapshot on SIGUSR1: ms until each rank's new
+    generation reads back valid at the group's clock."""
+    from distlr_tpu_torch.ps import KVWorker, ServerGroup, store  # noqa: PLC0415
+
+    out = {}
+    for name, kw in (("wal_off", {}), ("wal_on", {"store_dir": root, "store_interval_s": 60.0,
+                                                  "store_wal": True})):
+        with ServerGroup(PS_SERVERS, 1, FULL_D, sync=False, learning_rate=1e-3, **kw) as group:
+            with KVWorker(group.hosts, FULL_D, sync_group=False,
+                          timeout_ms=PS_TIMEOUT_MS) as kv:
+                kv.push_init(grad * 0)
+                kv.push(grad)
+                t0 = time.perf_counter()
+                for _ in range(DUR_PUSH_REPS):
+                    kv.push(grad)
+                out[f"push_{name}_ms"] = 1e3 * (time.perf_counter() - t0) / DUR_PUSH_REPS
+            if name == "wal_on":
+                clock = 2 + DUR_PUSH_REPS
+                t0 = time.perf_counter()
+                for p in group.procs:
+                    os.kill(p.pid, signal.SIGUSR1)
+                deadline, done = time.monotonic() + 30, {}
+                while len(done) < PS_SERVERS and time.monotonic() < deadline:
+                    for r in set(range(PS_SERVERS)) - set(done):
+                        # the server writes a generation to a temporary
+                        # file and renames it: a valid one is whole
+                        for path in store.snapshot_paths(group.store_rank_dir(r)):
+                            meta = store.read_snapshot_meta(path)
+                            if meta.valid and meta.push_clock == clock:
+                                done[r] = (1e3 * (time.perf_counter() - t0), meta.size_bytes)
+                    time.sleep(0.001)
+                if len(done) < PS_SERVERS:
+                    raise AssertionError(f"ps_durable: no snapshot at clock {clock}: {done}")
+                out["snapshot_ms"] = [done[r][0] for r in range(PS_SERVERS)]
+                out["snapshot_bytes_per_rank"] = [done[r][1] for r in range(PS_SERVERS)]
+    out["wal_cost_ms"] = out["push_wal_on_ms"] - out["push_wal_off_ms"]
+    return out
+
+
+def _dur_drill_run(torch, cfg, *, kill_at_s: float, tmp: str):
+    """``run_ps_local`` async with the store, the WAL, supervised servers,
+    retries and one restart, behind the plan ``kill`` the group at
+    ``kill_at_s``; ``(weights, report, launches, seconds, trace)``, the
+    trace holding the fabric's start, rank 0's epoch ends, each worker's
+    acknowledged pushes and, for a kill, its time and each rank's store
+    as the cut left it (read under the group's lock, so the supervisor's
+    respawn waits)."""
+    from distlr_tpu_torch.ps import KVWorker, ServerGroup, store  # noqa: PLC0415
+    from distlr_tpu_torch.train import ps_trainer  # noqa: PLC0415
+
+    plan = os.path.join(tmp, f"plan-{kill_at_s:.3f}.json")
+    with open(plan, "w") as f:
+        json.dump({"faults": [{"kind": "kill", "target": "group", "at_s": kill_at_s}]}, f)
+    trace = {"evals": [], "acks": []}
+    real_psg, real_kill, real_pp = (ps_trainer.ps_server_group, ServerGroup._chaos_kill,
+                                    KVWorker.push_pull)
+
+    def server_group(c):
+        group = real_psg(c)
+        real_start = group.start
+
+        def start():
+            out = real_start()
+            trace["fabric"] = group.chaos
+            return out
+
+        group.start = start
+        return group
+
+    def chaos_kill(self, target):
+        t = time.monotonic()
+        real_kill(self, target)
+        with self._lock:
+            for p in self.procs:
+                p.wait()
+            trace["cut"] = {"t": t, "clocks": [
+                store.scan_rank(self.store_rank_dir(r)).recovered_clock
+                for r in range(self.num_servers)]}
+
+    def push_pull(self, *a, **k):
+        out = real_pp(self, *a, **k)
+        trace["acks"].append(time.monotonic())
+        return out
+
+    ps_trainer.ps_server_group, ServerGroup._chaos_kill, KVWorker.push_pull = (
+        server_group, chaos_kill, push_pull)
+    report = {}
+    try:
+        weights, launches, seconds = _bounded(torch, lambda: ps_trainer.run_ps_local(
+            cfg.replace(chaos_plan=plan), report=report, max_restarts=1, supervise_servers=True,
+            eval_fn=lambda epoch, acc: trace["evals"].append((epoch, time.monotonic(), acc))))
+    finally:
+        ps_trainer.ps_server_group, ServerGroup._chaos_kill, KVWorker.push_pull = (
+            real_psg, real_kill, real_pp)
+    return weights, report, launches, seconds, trace
+
+
+def _dur_drill(torch, ops, cfg, tmp: str, Xt, yt, init_ll) -> tuple[dict, dict, object]:
+    """Check 3: the power-loss drill through ``run_ps_local``.  A first run
+    with the kill beyond its end gives the epochs' times from the fabric's
+    start; the drill cuts the whole group at the middle of epoch 2.  Then:
+    exactly one ``kill`` of target ``group``; on each rank ``respawned``,
+    then ``reseeded-from-store``; each rank's recovered clock at the cut
+    at least the pushes the workers had acknowledged before it, less the
+    absorbed ones (1 + acked - absorbed); the run completes with finite
+    weights and a test logloss below the init's."""
+    import numpy as np  # noqa: PLC0415
+
+    launches = {}
+    _, rep0, counts, s0, tr0 = _dur_drill_run(
+        torch, cfg.replace(ps_store_dir=os.path.join(tmp, "drill0")), kill_at_s=3600.0, tmp=tmp)
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    start = tr0["fabric"].started_at
+    ends = {e: t - start for e, t, _ in tr0["evals"]}
+    if sorted(ends) != list(range(1, PS_EPOCHS + 1)):
+        raise AssertionError(f"ps_durable drill: the first run's evals {tr0['evals']}")
+    kill_at = 0.5 * (ends[1] + ends[2])
+    weights, report, counts, seconds, tr = _dur_drill_run(
+        torch, cfg.replace(ps_store_dir=os.path.join(tmp, "drill")), kill_at_s=kill_at, tmp=tmp)
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    kills = [e for e in tr["fabric"].events() if e[1] == "kill"]
+    cut = tr.get("cut", {})
+    evals_before = sum(1 for _, t, _ in tr["evals"] if cut and t < cut["t"])
+    acked = sum(1 for t in tr["acks"] if cut and t < cut["t"])
+    absorbed = sum(report[r]["push_outcome_unknown"] for r in range(PS_WORKERS))
+    events = report.get("supervisor_events", [])
+    by_rank = {r: [ev for _, rr, ev in events if rr == r] for r in range(PS_SERVERS)}
+    final_ll = _test_logloss(torch, ops, torch.from_numpy(weights[0]).cuda(), Xt, yt)
+    line = {
+        "epochs": PS_EPOCHS, "batch_rows": PS_ASYNC_BATCH, "retry_attempts": DUR_RETRY_ATTEMPTS,
+        "max_restarts": 1, "first_run_s": s0, "first_run_epoch_ends_s": ends,
+        "kill_at_s": kill_at, "seconds": seconds,
+        "kill_events": [list(e[:2]) + [dict(e[2:])] for e in kills],
+        "cut_in_epoch": evals_before + 1, "acked_before_cut": acked, "absorbed": absorbed,
+        "clocks_at_cut": cut.get("clocks"), "supervisor_events": by_rank,
+        "store_events": report.get("store_events"), "chaos_events": report.get("chaos_events"),
+        "store_health": report.get("store_health"),
+        **{k: sum(report[r][k] for r in range(PS_WORKERS))
+           for k in ("retries", "reconnects", "restarts")},
+        "test_logloss_init": init_ll, "test_logloss_final": final_ll,
+        "first_run_test_logloss": rep0[0]["test_logloss"],
+    }
+    ok = (len(kills) == 1 and dict(kills[0][2:])["target"] == "group" and cut
+          and all("respawned" in evs and "reseeded-from-store" in evs
+                  and evs.index("respawned") < evs.index("reseeded-from-store")
+                  for evs in by_rank.values())
+          and min(cut["clocks"]) >= 1 + acked - absorbed
+          and all(np.isfinite(w).all() for w in weights) and final_ll < init_ll)
+    if not ok:
+        raise AssertionError(f"ps_durable drill: {line}")
+    return line, launches, weights[0]
+
+
+def _dur_proc_tree(pid: int) -> list[int]:
+    return [pid] + [k for c in _child_pids(pid) for k in _dur_proc_tree(c)]
+
+
+def _dur_cli(tmp: str, seed: int) -> dict:
+    """Check 4: ``launch ps-server --async --store-dir D --store-wal`` (HOSTS,
+    then PSCTL); one epoch of ``launch ps --hosts ... --async`` on
+    DUR_CLI_ROWS-row shards, whose rank 0 retires the group at its end
+    (the server exits 0); ``ps-server`` again on D (each rank at its
+    clock), ``ps-ctl snapshot`` and ``store``, a pull; SIGKILL of the
+    whole process tree; ``ps-ctl store --store-dir D`` offline; ``ps-server``
+    again on D, whose pull equals the pre-kill pull bit for bit, and whose
+    ``ps-ctl resize 3`` answers the JAX package's durable-group refusal
+    with its exit 3; SIGTERM: exit 143 and no server left."""
+    from distlr_tpu_torch.ps import KVWorker  # noqa: PLC0415
+
+    d, root = os.path.join(tmp, "cli"), os.path.join(tmp, "cli_store")
+    _ps_data(d, seed, shard_rows=DUR_CLI_ROWS, test_rows=DUR_CLI_ROWS)
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    common = ["--num-feature-dim", str(FULL_D), "--num-servers", str(PS_SERVERS),
+              "--num-workers", str(PS_WORKERS)]
+    procs = []
+
+    def ps_server():
+        proc = subprocess.Popen([sys.executable, "-m", "distlr_tpu_torch.launch", "ps-server",
+                                 *common, "--async", "--store-dir", root, "--store-wal"],
+                                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.DEVNULL, text=True)
+        procs.append(proc)
+        hosts, ctl = proc.stdout.readline().split(), proc.stdout.readline().split()
+        if not hosts or hosts[0] != "HOSTS" or not ctl or ctl[0] != "PSCTL":
+            raise AssertionError(f"launch ps-server printed {hosts!r}, {ctl!r}")
+        return proc, hosts[1], ctl[1].replace("0.0.0.0", "127.0.0.1")
+
+    def ps_ctl(*argv):
+        p = subprocess.run([sys.executable, "-m", "distlr_tpu_torch.launch", "ps-ctl", *argv],
+                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+        doc = [json.loads(ln[6:]) for ln in p.stdout.splitlines() if ln.startswith("PSCTL ")]
+        return p.returncode, doc[0] if doc else p.stderr.strip()
+
+    def clocks(doc):
+        return {r: v["recovered_clock"] for r, v in sorted(doc["ranks"].items())}
+
+    out = {"rows_per_shard": DUR_CLI_ROWS}
+    t0 = time.perf_counter()
+    try:
+        first, hosts, ctl = ps_server()
+        t1 = time.perf_counter()
+        _launch("ps", "--data-dir", d, "--hosts", hosts, "--async", "--num-iteration", "1",
+                "--test-interval", "1", *common)
+        out["launch_ps_s"] = time.perf_counter() - t1
+        out["first_server_exit"] = first.wait(timeout=60)  # the workers retired it
+        second, hosts, ctl = ps_server()
+        out["snapshot"] = ps_ctl("--ctl", ctl, "snapshot")
+        code, doc = ps_ctl("--ctl", ctl, "store")
+        out["store_live"] = {"exit": code, "recovered_clocks": clocks(doc)}
+        with KVWorker(hosts, FULL_D, sync_group=False, timeout_ms=PS_TIMEOUT_MS) as kv:
+            before = kv.pull()
+        tree = _dur_proc_tree(second.pid)
+        for pid in tree:
+            os.kill(pid, signal.SIGKILL)
+        second.wait(timeout=30)
+        deadline = time.monotonic() + 10
+        while any(_proc_alive(p) for p in tree) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        code, doc = ps_ctl("store", "--store-dir", root)
+        out["store_offline"] = {"exit": code, "recovered_clocks": clocks(doc)}
+        third, hosts, ctl = ps_server()
+        servers = _child_pids(third.pid)
+        with KVWorker(hosts, FULL_D, sync_group=False, timeout_ms=PS_TIMEOUT_MS) as kv:
+            out["pull_equals_pre_kill_bits"] = kv.pull().tobytes() == before.tobytes()
+        out["resize_3"] = ps_ctl("--ctl", ctl, "resize", "3")
+        third.send_signal(signal.SIGTERM)
+        out["sigterm_returncode"] = third.wait(timeout=60)
+        deadline = time.monotonic() + 10
+        while any(_proc_alive(p) for p in servers) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        out["servers_left"] = sum(_proc_alive(p) for p in servers)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out["seconds"] = time.perf_counter() - t0
+    want_clock = 1 + PS_WORKERS  # the seeding push, one push a worker
+    refusal = ("elastic resize of a durable (store_dir) group is not supported: the per-rank "
+               "on-disk slices would no longer match the new layout — stop the group, clear "
+               "or migrate the store, and restart at the new size")
+    ok = (out["first_server_exit"] == 0
+          and out["snapshot"] == (0, {"ok": True, "signalled": PS_SERVERS,
+                                      "num_servers": PS_SERVERS})
+          and out["store_live"]["exit"] == 0 and out["store_offline"]["exit"] == 0
+          and set(out["store_live"]["recovered_clocks"].values()) == {want_clock}
+          and set(out["store_offline"]["recovered_clocks"].values()) == {want_clock}
+          and out["pull_equals_pre_kill_bits"]
+          and out["resize_3"] == (3, {"ok": False, "error": refusal})
+          and out["sigterm_returncode"] == 143 and out["servers_left"] == 0)
+    if not ok:
+        raise AssertionError(f"ps_durable cli: {out}")
+    return out
+
+
+def _dur_chaos_push(hosts: str, codec: str, grad) -> dict:
+    """``benchmarks/wire_push.py``'s push alone through ``hosts``: the mean
+    of DUR_PUSH_REPS pushes after a warm-up, and the bytes of one."""
+    from distlr_tpu_torch.ps import KVWorker  # noqa: PLC0415
+
+    with KVWorker(hosts, FULL_D, sync_group=False, compress=codec,
+                  timeout_ms=PS_TIMEOUT_MS) as kv:
+        if kv.compress_active != codec:
+            raise AssertionError(f"ps_durable chaos: {codec!r} not negotiated")
+        kv.push_init(grad * 0)
+        kv.push(grad)
+        wire0 = kv.push_bytes_wire
+        t0 = time.perf_counter()
+        for _ in range(DUR_PUSH_REPS):
+            kv.push(grad)
+        return {"push_ms": 1e3 * (time.perf_counter() - t0) / DUR_PUSH_REPS,
+                "wire_bytes": (kv.push_bytes_wire - wire0) // DUR_PUSH_REPS}
+
+
+def _dur_chaos(grad, tmp: str) -> dict:
+    """Check 5: ``launch chaos --upstreams`` in front of two 2-server groups
+    at D = 1M (sgd for f32 and int8, signsgd for sign; links 0-1 and 2-3),
+    one proxy process a rate of DUR_RATES: a push alone of a card gradient
+    in f32, int8 and signSGD through it.  Then a ``reset`` after op 3 on
+    link 0 under a retrying client: exactly one push absorbed, counted in
+    ``push_outcome_unknown``, and the event in ``--events-path``'s log."""
+    from distlr_tpu_torch.ps import KVWorker, RetryPolicy, ServerGroup  # noqa: PLC0415
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+    def chaos(upstreams, faults, events=None):
+        plan = os.path.join(tmp, f"chaos-{len(os.listdir(tmp))}.json")
+        with open(plan, "w") as f:
+            json.dump({"faults": faults}, f)
+        argv = [sys.executable, "-m", "distlr_tpu_torch.launch", "chaos", "--upstreams",
+                upstreams, "--plan", plan]
+        proc = subprocess.Popen(argv + (["--events-path", events] if events else []), cwd=ROOT,
+                                env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                                text=True)
+        line = proc.stdout.readline().split()
+        if not line or line[0] != "HOSTS":
+            proc.kill()
+            raise AssertionError(f"launch chaos printed {line!r}")
+        return proc, line[1].split(",")
+
+    out = {"rates_bytes_per_s": DUR_RATES, "pushes": DUR_PUSH_REPS}
+    with ServerGroup(PS_SERVERS, 1, FULL_D, sync=False, learning_rate=1e-3) as sgd, \
+            ServerGroup(PS_SERVERS, 1, FULL_D, sync=False, learning_rate=1e-3,
+                        optimizer="signsgd") as sign:
+        upstreams = f"{sgd.direct_hosts},{sign.direct_hosts}"
+        for name, rate in DUR_RATES.items():
+            faults = [] if rate is None else [{"kind": "throttle", "bytes_per_sec": rate}]
+            proc, links = chaos(upstreams, faults)
+            line = {}
+            try:
+                for codec in ("none", "int8", "signsgd"):
+                    line[codec] = _dur_chaos_push(",".join(links[:2] if codec != "signsgd"
+                                                           else links[2:]), codec, grad)
+            finally:
+                proc.send_signal(signal.SIGTERM)
+                line["exit"] = proc.wait(timeout=30)
+            out[name] = line
+        out["direct"] = {codec: _dur_chaos_push(sgd.direct_hosts if codec != "signsgd"
+                                                else sign.direct_hosts, codec, grad)
+                         for codec in ("none", "int8", "signsgd")}
+        events = os.path.join(tmp, "reset-events.json")
+        proc, links = chaos(sgd.direct_hosts, [{"kind": "reset", "links": [0], "after_ops": 3}],
+                            events)
+        reset = {}
+        try:
+            with KVWorker(",".join(links), FULL_D, sync_group=False, timeout_ms=PS_TIMEOUT_MS,
+                          retry=RetryPolicy(attempts=4, backoff_ms=20)) as kv:
+                kv.push_init(grad * 0)  # op 1 on link 0
+                for _ in range(4):      # ops 2-5: op 3's reply is cut
+                    kv.push(grad)
+                reset.update(push_outcome_unknown=kv.push_outcome_unknown,
+                             reconnects=kv.reconnects, retries=dict(kv.retries))
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            reset["exit"] = proc.wait(timeout=30)
+        with open(events) as f:
+            reset["events"] = json.load(f)["events"]
+        out["reset_after_ops"] = reset
+    ok = (all(out[n][c]["wire_bytes"] > 0 and out[n]["exit"] == 143
+              for n in DUR_RATES for c in ("none", "int8", "signsgd"))
+          and reset["push_outcome_unknown"] == 1 and reset["exit"] == 143
+          and reset["events"] == [[0, "reset", {"fault": 0, "op": 3}]])
+    if not ok:
+        raise AssertionError(f"ps_durable chaos: {out}")
+    return out
+
+
+def phase_ps_durable(torch, seed: int, smi: str) -> dict:
+    """The PS durable store, its WAL and the chaos fabric at the ps phase's
+    full width (config-3 CTR rows at D = 1M, PS_SERVERS native servers,
+    PS_WORKERS workers of PS_SHARD_ROWS rows, bf16), each gradient the
+    ``fused_lr_grad`` single pass and rank 0's evals ``lr_logits``:
+
+    1. the WAL keeps every acknowledged push (:func:`_dur_wal`);
+    2. snapshot-only recovery loses at most an interval
+       (:func:`_dur_snapshot_only`);
+    3. a power-loss drill through ``run_ps_local`` (:func:`_dur_drill`);
+    4. the CLI chain (:func:`_dur_cli`);
+    5. throttled links and a reset through ``launch chaos``
+       (:func:`_dur_chaos`);
+
+    with a push alone with the WAL off and on and a snapshot's ms
+    (:func:`_dur_push_alone`), and the kernels at the path's shapes
+    against their plain versions (:func:`_rec_kernel_check`), after the
+    runs' launches were read."""
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.data import parse_libsvm_file  # noqa: PLC0415
+    from distlr_tpu_torch.models import get_model  # noqa: PLC0415
+
+    t_phase = time.perf_counter()
+    out = {"nvidia_smi": smi, "D": FULL_D, "workers": PS_WORKERS, "servers": PS_SERVERS,
+           "shard_rows": PS_SHARD_ROWS, "test_rows": PS_TEST_ROWS,
+           "reduced": {"epochs": f"{PS_EPOCHS} (the drill): cut in depth",
+                       "pushes": f"{DUR_WAL_PUSHES} (the WAL), {DUR_SNAP_RUN_S} s (snapshot "
+                                 "only), one client",
+                       "cli": f"{DUR_CLI_ROWS}-row shards at D = {FULL_D}"}}
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    rss = {}
+    with _sampled_peak_rss(rss), tempfile.TemporaryDirectory(prefix="distlr-smoke-dur-") as tmp:
+        _ps_data(tmp, seed)
+        cfg = Config(data_dir=tmp, num_feature_dim=FULL_D, num_workers=PS_WORKERS,
+                     num_servers=PS_SERVERS, batch_size=PS_ASYNC_BATCH, num_iteration=PS_EPOCHS,
+                     test_interval=1, learning_rate=0.2, l2_c=0.01, compute_dtype="bfloat16",
+                     sync_mode=False, ps_timeout_ms=PS_TIMEOUT_MS, ps_store_wal=True,
+                     ps_store_dir=os.path.join(tmp, "unused"),
+                     ps_retry_attempts=DUR_RETRY_ATTEMPTS)
+        model = get_model(cfg)
+        w0 = model.init(cfg).numpy().reshape(-1)
+        Xt, yt = parse_libsvm_file(os.path.join(tmp, "test", "part-001"), FULL_D)
+        Xt = torch.from_numpy(Xt).to(torch.bfloat16).cuda()
+        yt = torch.from_numpy(yt).float().cuda()
+        init_ll = _test_logloss(torch, ops, torch.from_numpy(w0).cuda(), Xt, yt)
+        X, y = parse_libsvm_file(os.path.join(tmp, "train", "part-001"), FULL_D)
+        shard = (torch.from_numpy(X).to(torch.bfloat16).cuda(), torch.from_numpy(y).cuda())
+        del X
+        grad_fn = _dur_grad_fn(torch, model, cfg, shard)
+        out["wal"], counts, _ = _bounded(
+            torch, lambda: _dur_wal(torch, grad_fn, w0, os.path.join(tmp, "wal")))
+        add(counts)
+        out["snapshot_only"], counts, _ = _bounded(
+            torch, lambda: _dur_snapshot_only(torch, grad_fn, w0, os.path.join(tmp, "snap")))
+        add(counts)
+        grad = grad_fn(w0)
+        del shard
+        torch.cuda.empty_cache()
+        out["drill"], counts, w_final = _dur_drill(torch, ops, cfg, tmp, Xt, yt, init_ll)
+        add(counts)
+        out["launches"] = {k: v for k, v in launches.items() if v}
+        others = {k: v for k, v in out["launches"].items()
+                  if k not in ("fused_lr_grad", "lr_logits")}
+        if not launches.get("fused_lr_grad") or not launches.get("lr_logits") or others:
+            raise AssertionError(f"ps_durable: launches {launches}")
+        out["push_alone"] = _dur_push_alone(grad, os.path.join(tmp, "push"))
+        out["kernels_at_ps_shapes"] = _rec_kernel_check(
+            torch, ops, torch.from_numpy(w_final).cuda(), tmp, Xt)
+        del Xt
+        out["cli"] = _dur_cli(tmp, seed)
+        chaos_tmp = os.path.join(tmp, "chaos")
+        os.makedirs(chaos_tmp)
+        out["chaos"] = _dur_chaos(grad, chaos_tmp)
+    out.update(rss)
+    out["phase_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    emit("ps_durable", **out)
+    return out
+
+
 # --- hot-row serving from a live PS ------------------------------------------
 HOT_ROWS, HOT_PROBE_ROWS, HOT_FULL_EVERY, HOT_INTERVAL_S, HOT_EPOCHS = 4096, 64, 10, 0.05, 24
 
@@ -5353,6 +5956,8 @@ def main(argv=None) -> int:
         ps_wire = phase_ps_wire(torch, args.seed, env["nvidia_smi"])
         phase = "ps_recovery"
         ps_recovery = phase_ps_recovery(torch, args.seed, env["nvidia_smi"])
+        phase = "ps_durable"
+        ps_durable = phase_ps_durable(torch, args.seed, env["nvidia_smi"])
         phase = "serve_hot"
         phase_serve_hot(torch, args.seed, env["nvidia_smi"])
         phase = "route"
@@ -5376,6 +5981,8 @@ def main(argv=None) -> int:
             by_path.setdefault(name, {})["ps_wire"] = n
         for name, n in ps_recovery["launches"].items():
             by_path.setdefault(name, {})["ps_recovery"] = n
+        for name, n in ps_durable["launches"].items():
+            by_path.setdefault(name, {})["ps_durable"] = n
         for shape, t in ps["kernels_at_ps_shapes"]["timing"].items():
             name, rows = shape.rsplit("_B", 1)
             timing[name].setdefault("at_ps_shapes", {})[f"B{rows}"] = t

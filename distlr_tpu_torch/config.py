@@ -7,7 +7,8 @@ that the ported parameter-server worker loop reads
 (``num_servers``, ``ps_compute_backend``, ``ps_pipeline``,
 ``ps_timeout_ms``, the ``ps_retry_*`` policy; sync BSP and async Hogwild for every family; the
 servers' update rule ``ps_optimizer`` with the ``ftrl_*`` parameters,
-the wire codec ``ps_compress`` and the ``ps_accum_*`` accumulation)
+the wire codec ``ps_compress``, the ``ps_accum_*`` accumulation, the
+servers' durable store ``ps_store_*`` and the fault plan ``chaos_*``)
 and the scoring tier reads (the ``serve_*`` fields of ``launch serve``,
 hot-row reload and named engines among them, the ``feedback_*`` fields of
 the feedback loop, and the ``route_*`` fields of ``launch route``),
@@ -33,15 +34,11 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 _SPARSE_MODELS = ("sparse_lr", "sparse_softmax", "blocked_lr")
 _MODELS = ("binary_lr", "softmax") + _SPARSE_MODELS
 
-#: the JAX package's PS robustness and deployment options, with their
-#: defaults: any other value raises (ROADMAP A.16).  The local group's
-#: servers bind port 0 on 127.0.0.1, so the rendezvous address
-#: (``ps_host``, ``ps_port``) is among them.
-_UNPORTED_PS_OPTIONS = {
-    "ps_host": "127.0.0.1", "ps_port": 8001,
-    "ps_store_dir": None, "ps_store_interval_s": 5.0, "ps_store_wal": False,
-    "ps_store_wal_fsync_s": 0.1, "chaos_plan": None, "chaos_seed": None,
-}
+#: the JAX package's PS deployment options, with their defaults: any other
+#: value raises (ROADMAP A.16; their item is A.16.6).  The local group's servers bind port 0
+#: on 127.0.0.1, so the rendezvous address (``ps_host``, ``ps_port``) is
+#: not read.
+_UNPORTED_PS_OPTIONS = {"ps_host": "127.0.0.1", "ps_port": 8001}
 
 
 @dataclasses.dataclass
@@ -143,14 +140,24 @@ class Config:
     ps_retry_backoff_max_ms: float = 2000.0
     ps_retry_deadline_s: float = 60.0
     ps_retry_adaptive: bool = False
-    # Not ported (ROADMAP A.16): must keep these defaults.
+    # Not ported (ROADMAP A.16.6): must keep these defaults.
     ps_host: str = "127.0.0.1"        # DMLC_PS_ROOT_URI
     ps_port: int = 8001               # DMLC_PS_ROOT_PORT
+    # Durable server store: each spawned rank snapshots its slice (weights,
+    # FTRL z/n, epoch, push clock) under <ps_store_dir>/rank-<r>/ every
+    # ps_store_interval_s seconds, CRC-checked, two generations kept, and
+    # recovers from it at start.  None = RAM only.
     ps_store_dir: str | None = None
     ps_store_interval_s: float = 5.0
+    # A log of every applied push on top of the snapshots, replayed over the
+    # newest valid one at start (RPO ~0, bounded by the group-commit fsync
+    # window).  Needs ps_store_dir and async mode.
     ps_store_wal: bool = False
     ps_store_wal_fsync_s: float = 0.1
+    # A JSON fault plan: local PS runs put the fault-injection proxies
+    # between every worker and the spawned group.  None = no faults.
     chaos_plan: str | None = None
+    # Seed of the plan's jitter draws; None = the plan file's own "seed".
     chaos_seed: int | None = None
 
     # ---- input pipeline ----
@@ -301,6 +308,7 @@ class Config:
         if self.ps_timeout_ms < 0:
             raise ValueError(f"ps_timeout_ms must be >= 0 (0 = no timeout), got {self.ps_timeout_ms}")
         self._check_ps_wire()
+        self._check_ps_store()
         if self.ps_retry_attempts < 0:
             raise ValueError(
                 f"ps_retry_attempts must be >= 0 (0 = off), "
@@ -333,6 +341,31 @@ class Config:
         if not 0 <= self.hash_seed < 1 << 64:
             raise ValueError(f"hash_seed must be in [0, 2^64), got {self.hash_seed}")
         self._check_serve()
+
+    def _check_ps_store(self) -> None:
+        """The JAX package's checks of the durable store and the fault
+        plan's seed, in its order and with its messages."""
+        if self.ps_store_interval_s <= 0:
+            raise ValueError(
+                "ps_store_interval_s must be positive, "
+                f"got {self.ps_store_interval_s}")
+        if self.ps_store_wal_fsync_s <= 0:
+            raise ValueError(
+                "ps_store_wal_fsync_s must be positive, "
+                f"got {self.ps_store_wal_fsync_s}")
+        if self.ps_store_wal and not self.ps_store_dir:
+            raise ValueError(
+                "ps_store_wal requires ps_store_dir (the WAL lives in "
+                "the same per-rank store directory)")
+        if self.ps_store_wal and self.sync_mode:
+            raise ValueError(
+                "ps_store_wal requires async mode (sync_mode=False): "
+                "sync-round merge state has no per-push replay semantics"
+            )
+        if self.chaos_seed is not None and not 0 <= self.chaos_seed < 1 << 64:
+            raise ValueError(
+                "chaos_seed must be None (use the plan's seed) or in "
+                f"[0, 2^64), got {self.chaos_seed}")
 
     def _check_ps_wire(self) -> None:
         """The JAX package's checks of the servers' update rule, the wire

@@ -1,13 +1,14 @@
 """Command-line entry point of the port: ``gen-data``, ``sync``, ``eval``,
-``ps``, ``ps-server``, ``serve``, ``online``, ``route`` and ``rollout``.
+``ps``, ``ps-server``, ``ps-ctl``, ``chaos``, ``serve``, ``online``,
+``route`` and ``rollout``.
 
 Counterpart of ``distlr_tpu/launch.py``: every subcommand takes the
 option strings its JAX twin takes, with the same dests, types and
 defaults, plus ``--device`` (default ``cuda``; the CPU only when asked
 for).  A flag whose use is not ported yet is accepted at its default and
 raises ``NotImplementedError`` naming its ROADMAP item otherwise (the obs
-flags A.12; the profiler, log and incident flags A.21; the PS store,
-chaos and membership flags A.16), so a JAX command line never
+flags A.12; the profiler, log and incident flags A.21; the membership
+flags ``--elastic``, ``--ctl-port`` and ``--ps-ctl`` A.16), so a JAX command line never
 fails at parse time and never drops a flag silently.  Run as ``python -m
 distlr_tpu_torch.launch``::
 
@@ -80,6 +81,26 @@ its own optimizer) for workers that join it with ``ps --hosts``::
     python -m distlr_tpu_torch.launch ps --data-dir D --num-feature-dim 123 \\
         --num-workers 2 --hosts h:p,h:p --ps-optimizer ftrl --ps-compress int8
 
+``--store-dir S`` makes a group durable: each rank snapshots its slice
+under ``S/rank-<r>/`` every ``--store-interval`` seconds and, with
+``--store-wal`` (async only), logs every applied push; a rank started on
+the directory recovers from it.  A durable ``ps-server`` also prints
+``PSCTL h:p``, the endpoint ``ps-ctl`` drives (``layout``, ``status``,
+``store``, ``snapshot``, ``restore``, and ``resize N``, which a durable
+group refuses); ``ps-ctl store --store-dir S`` reads a store offline::
+
+    python -m distlr_tpu_torch.launch ps-server --num-feature-dim 123 --async \\
+        --store-dir S --store-wal                                # HOSTS ..., PSCTL h:p
+    python -m distlr_tpu_torch.launch ps-ctl --ctl h:p snapshot
+    python -m distlr_tpu_torch.launch ps-ctl store --store-dir S
+
+``chaos`` puts a JSON fault plan's proxies (delay, throttle, reset,
+partition, kill) in front of a running group and prints their ``HOSTS``;
+``ps --chaos-plan P`` does so for the group it spawns::
+
+    python -m distlr_tpu_torch.launch chaos --upstreams h:p,h:p --plan P \\
+        [--pids 123,124] [--events-path E]                       # HOSTS h:p,h:p
+
 ``serve`` scores libsvm lines over TCP with a trained model (every
 family), reloading its weights from a watched checkpoint dir or a live KV
 server group; it prints ``SERVING host:port`` when it listens and exits
@@ -144,9 +165,8 @@ _CONFIG_FIELDS = (
     "ps_accum_start", "ps_accum_growth", "ps_accum_growth_every", "ps_accum_max",
     "ps_retry_attempts", "ps_retry_backoff_ms", "ps_retry_backoff_max_ms",
     "ps_retry_deadline_s", "ps_retry_adaptive",
-    # refused by Config itself, naming ROADMAP A.16
-    "ps_store_dir", "ps_store_interval_s",
-    "ps_store_wal", "ps_store_wal_fsync_s", "chaos_plan", "chaos_seed",
+    "ps_store_dir", "ps_store_interval_s", "ps_store_wal", "ps_store_wal_fsync_s",
+    "chaos_plan", "chaos_seed", "sync_mode",
 )
 
 #: the JAX package's shared flags with no Config field in the port:
@@ -175,10 +195,8 @@ _UNPORTED_SERVE_FLAGS = (
     ("--ps-ctl", "ps_ctl", str, "A.16"),
 )
 
-#: each subcommand's flags whose Config field the port has, or whose
-#: command the port runs, but whose use there is not ported: (flag, dest,
-#: the JAX default, ROADMAP item).  Config refuses the store and chaos
-#: options itself.
+#: each subcommand's flags whose command the port runs, but whose use
+#: there is not ported: (flag, dest, the JAX default, ROADMAP item)
 _COMMAND_GATES = {
     "ps-server": (("--elastic", "elastic", False, "A.16"),
                   ("--ctl-port", "ctl_port", None, "A.16")),
@@ -309,13 +327,17 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--ps-retry-adaptive", dest="ps_retry_adaptive", action="store_true",
                    default=None, help="scale the retry backoff base by the recent "
                    "transport-fault rate (up to 8x, decaying when quiet)")
-    p.add_argument("--store-dir", dest="ps_store_dir", help="not ported yet (ROADMAP A.16)")
+    p.add_argument("--store-dir", dest="ps_store_dir",
+                   help="durable server store: each rank snapshots its slice under "
+                   "<dir>/rank-<r>/ and recovers from it at start (a restart on the same "
+                   "dir resumes the group)")
     p.add_argument("--store-interval", dest="ps_store_interval_s", type=float,
-                   help="not ported yet (ROADMAP A.16)")
+                   help="seconds between store snapshots (default 5)")
     p.add_argument("--store-wal", dest="ps_store_wal", action="store_true", default=None,
-                   help="not ported yet (ROADMAP A.16)")
+                   help="with --store-dir: log every applied push and replay it at start "
+                   "(RPO ~0; async only)")
     p.add_argument("--store-wal-fsync", dest="ps_store_wal_fsync_s", type=float,
-                   help="not ported yet (ROADMAP A.16)")
+                   help="WAL group-commit window, seconds (default 0.1)")
     p.add_argument("--ps-compute-backend", dest="ps_compute_backend",
                    choices=["auto", "numpy", "cpu", "default"],
                    help="where PS workers run their gradient and eval steps: auto and "
@@ -455,9 +477,11 @@ def _process_group(args: argparse.Namespace, cfg: Config):
 
 
 def _ps_config(args: argparse.Namespace) -> Config:
-    """``ps`` and ``ps-server``: ``--async`` is the Config's ``sync_mode``."""
-    cfg = _config_from_args(args)
-    return cfg.replace(sync_mode=False) if args.asynchronous else cfg
+    """``ps`` and ``ps-server``: ``--async`` is the Config's ``sync_mode``,
+    folded in before the Config validates (``--store-wal`` needs it)."""
+    if args.asynchronous:
+        args.sync_mode = False
+    return _config_from_args(args)
 
 
 def _serve_config(args: argparse.Namespace) -> Config:
@@ -598,6 +622,12 @@ def cmd_ps(args: argparse.Namespace) -> int:
                   "server host owns its processes; supervise there)",
                   file=sys.stderr)
             return 2
+        if cfg.chaos_plan:
+            print("error: --chaos-plan applies to local mode (it wraps "
+                  "the spawned server group); to fault-inject a remote "
+                  "group, run `launch chaos --upstreams ...` and point "
+                  "--hosts at the proxied ports", file=sys.stderr)
+            return 2
         ranks = ([int(r) for r in args.worker_ranks.split(",")] if args.worker_ranks
                  else range(cfg.num_workers))
         run_ps_workers(cfg, args.hosts, ranks, save=True, resume=args.resume,
@@ -622,9 +652,10 @@ def cmd_ps_server(args: argparse.Namespace) -> int:
     """Host a KV server group in the foreground (the reference's
     ``DMLC_ROLE=server`` processes, ``examples/local.sh:36-41``; the
     rendezvous is TCP, there is no scheduler): it prints ``HOSTS h:p,...``
-    (and ``NAMESPACES id=base,... per_dim=D`` with ``--namespaces``), then
-    waits until a worker retires the group.  SIGTERM stops every server
-    and exits 143."""
+    (and ``NAMESPACES id=base,... per_dim=D`` with ``--namespaces``; and
+    ``PSCTL host:port``, the coordinator endpoint ``ps-ctl`` drives, with
+    ``--store-dir``), then waits until a worker retires the group.  SIGTERM
+    stops every server and exits 143."""
     import signal  # noqa: PLC0415
 
     from distlr_tpu_torch.ps import (  # noqa: PLC0415
@@ -669,7 +700,10 @@ def cmd_ps_server(args: argparse.Namespace) -> int:
                         last_gradient=bool(cfg.sync_last_gradient), ports=ports, bind_any=True,
                         optimizer=server_optimizer(cfg), ftrl_alpha=cfg.ftrl_alpha,
                         ftrl_beta=cfg.ftrl_beta, ftrl_l1=cfg.ftrl_l1, ftrl_l2=cfg.ftrl_l2,
-                        opt_segments=opt_segments)
+                        opt_segments=opt_segments, store_dir=cfg.ps_store_dir,
+                        store_interval_s=cfg.ps_store_interval_s, store_wal=cfg.ps_store_wal,
+                        store_wal_fsync_s=cfg.ps_store_wal_fsync_s)
+    ctl = None
     try:
         with group:
             # workers pass this, with this host's address for 127.0.0.1, as --hosts
@@ -677,10 +711,128 @@ def cmd_ps_server(args: argparse.Namespace) -> int:
             if layout is not None:
                 print("NAMESPACES " + ",".join(f"{m}={b}" for m, (b, _) in layout.items())
                       + f" per_dim={per_dim}", flush=True)
+            if cfg.ps_store_dir:
+                # the coordinator endpoint: LAYOUT / STATUS / STORE /
+                # SNAPSHOT / RESTORE (and RESIZE, which a durable group
+                # refuses), driven by `launch ps-ctl`
+                from distlr_tpu_torch.ps.membership import (  # noqa: PLC0415
+                    MembershipCoordinator,
+                    MembershipServer,
+                )
+
+                ctl = MembershipServer(MembershipCoordinator(group), host="0.0.0.0").start()
+                print(f"PSCTL {ctl.host}:{ctl.port}", flush=True)
             group.wait()
     except KeyboardInterrupt:
         return 130  # interrupted, not a worker-driven shutdown
+    finally:
+        if ctl is not None:
+            ctl.stop()
     return 0
+
+
+def cmd_ps_ctl(args: argparse.Namespace) -> int:
+    """The admin CLI of a group's coordinator (:mod:`distlr_tpu_torch.ps.
+    membership`): ``layout``, ``status``, ``store``, ``snapshot``,
+    ``restore`` and ``resize N`` against the ``PSCTL host:port`` a durable
+    ``ps-server`` announced, or ``store --store-dir S`` offline.  Prints
+    ``PSCTL <json reply>``; exits 3 when the coordinator refused."""
+    import json  # noqa: PLC0415
+
+    from distlr_tpu_torch.ps.membership import ctl_request  # noqa: PLC0415
+
+    if args.command == "store" and args.store_dir:
+        # offline: the files themselves, when no coordinator is alive (a
+        # torn or corrupt file is described, never raised)
+        import time  # noqa: PLC0415
+
+        from distlr_tpu_torch.ps import store  # noqa: PLC0415
+
+        try:
+            doc = store.inspect_store(args.store_dir, now=time.time())
+        except store.StoreError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        print(f"PSCTL {json.dumps(doc)}", flush=True)
+        return 0
+    if not args.ctl:
+        print("error: --ctl host:port required (or `store --store-dir "
+              "<dir>` for offline inspection)", file=sys.stderr)
+        return 2
+    if args.command == "resize":
+        if args.n is None or args.n < 1:
+            print("error: resize needs a target server count "
+                  "(ps-ctl --ctl host:port resize N)", file=sys.stderr)
+            return 2
+        line = f"RESIZE {args.n}" + (" wait=0" if args.no_wait else "")
+    else:
+        line = args.command.upper()
+    try:
+        doc = ctl_request(args.ctl, line)
+    except (OSError, ValueError) as e:
+        print(f"error: ps-ctl at {args.ctl}: {e}", file=sys.stderr)
+        return 1
+    print(f"PSCTL {json.dumps(doc)}", flush=True)
+    return 0 if doc.get("ok", True) else 3
+
+
+def cmd_chaos(args: argparse.Namespace) -> int:
+    """A fault-injection proxy fabric (:mod:`distlr_tpu_torch.chaos`) in
+    front of a running KV server group: one proxied port an upstream,
+    announced as ``HOSTS <proxied>``; point workers, servers and watchers
+    at those and the whole run rides the JSON fault plan.  ``--pids`` (the
+    servers' pids in rank order) arms the plan's ``kill`` faults.  At exit
+    the deterministic event log goes to ``--events-path``.  SIGTERM exits
+    143."""
+    import json  # noqa: PLC0415
+    import signal  # noqa: PLC0415
+
+    from distlr_tpu_torch.chaos import ChaosFabric, FaultPlanError, load_plan  # noqa: PLC0415
+
+    _config_from_args(args)  # the shared flags' gates
+    killer = None
+    if args.pids:
+        try:
+            pids = [int(p) for p in args.pids.split(",") if p.strip()]
+        except ValueError:
+            print(f"error: --pids must be a comma-separated pid list, "
+                  f"got {args.pids!r}", file=sys.stderr)
+            return 2
+
+        def killer(target: str) -> None:
+            victims = pids if target == "group" else pids[int(target.split(":", 1)[1]):][:1]
+            if not victims:
+                log.warning("chaos kill target %r: no such pid", target)
+            for pid in victims:
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass  # already dead: a kill is idempotent
+
+    try:
+        plan = load_plan(args.plan, seed=args.seed)
+        fabric = ChaosFabric(args.upstreams, plan, protocol=args.protocol, killer=killer)
+    except (OSError, FaultPlanError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    try:
+        with fabric:
+            print(f"HOSTS {fabric.hosts}", flush=True)
+            for lk in fabric.links:
+                log.info("chaos link %d: 127.0.0.1:%d -> %s:%d", lk.link, lk.port,
+                         *lk.upstream)
+            while True:
+                signal.pause()
+    except KeyboardInterrupt:
+        return 130
+    finally:
+        doc = fabric.events_doc()
+        log.info("chaos: %d fault events injected", len(doc["events"]))
+        if args.events_path:
+            with open(args.events_path, "w") as f:
+                json.dump(doc, f, indent=1)
+            log.info("chaos event log -> %s (schema %d)", args.events_path, doc["schema"])
 
 
 def _serve_row_width(cfg: Config) -> int:
@@ -1035,9 +1187,11 @@ def main(argv=None) -> int:
     p.add_argument("--supervise-servers", dest="supervise_servers", action="store_true",
                    help="async local mode: respawn dead server ranks and re-seed them "
                    "from a rolling snapshot (pair with --max-worker-restarts)")
-    p.add_argument("--chaos-plan", dest="chaos_plan", help="not ported yet (ROADMAP A.16)")
+    p.add_argument("--chaos-plan", dest="chaos_plan",
+                   help="JSON fault plan: local mode puts its proxies between the workers "
+                   "and the spawned servers (delay, throttle, reset, partition, kill)")
     p.add_argument("--chaos-seed", dest="chaos_seed", type=int,
-                   help="not ported yet (ROADMAP A.16)")
+                   help="seed of the plan's jitter draws (default: the plan's own)")
     p.add_argument("--no-ps-pipeline", dest="ps_pipeline", action="store_false", default=None,
                    help="the reference's serialized pull -> grad -> push a batch instead "
                    "of one fused push_pull (and, async, the overlapped next gradient)")
@@ -1058,6 +1212,45 @@ def main(argv=None) -> int:
     v.add_argument("--ctl-port", dest="ctl_port", type=int,
                    help="not ported yet (ROADMAP A.16)")
     v.set_defaults(fn=cmd_ps_server)
+
+    pc = sub.add_parser("ps-ctl", help="admin CLI against a group's coordinator (`launch "
+                        "ps-server --store-dir` prints its PSCTL endpoint)")
+    pc.add_argument("--ctl", help="the coordinator endpoint (what ps-server announced as "
+                    "PSCTL host:port); optional only for `store --store-dir`")
+    pc.add_argument("command", choices=["layout", "status", "resize", "store", "snapshot",
+                                        "restore"],
+                    help="layout = the routing contract clients follow; status = the "
+                    "group's state; resize = reshard to N ranks (refused for a durable "
+                    "group; live resizing is not ported yet, ROADMAP A.16.6); store = the "
+                    "durable store's snapshots and WAL per rank; snapshot = every rank "
+                    "snapshots now (SIGUSR1); restore = every rank back to its on-disk "
+                    "state (SIGKILL and a respawn that recovers from the store)")
+    pc.add_argument("--store-dir", dest="store_dir",
+                    help="store only: read this store directory itself, no coordinator")
+    pc.add_argument("n", nargs="?", type=int, help="target server count (resize only)")
+    pc.add_argument("--no-wait", dest="no_wait", action="store_true",
+                    help="resize only: return once the coordinator accepts (RESIZE n wait=0)")
+    pc.set_defaults(fn=cmd_ps_ctl)
+
+    c = config_parser("chaos", help="fault-injection proxy in front of a running KV server "
+                      "group (a JSON plan's delay / throttle / reset / partition / kill); "
+                      "workers connect to the proxied HOSTS")
+    c.add_argument("--upstreams", required=True,
+                   help="the group's servers, comma-separated host:port in rank order "
+                   "(what `launch ps-server` printed)")
+    c.add_argument("--plan", required=True, help="JSON fault plan (the schema of "
+                   "distlr_tpu_torch/chaos/plan.py; a malformed plan exits 2)")
+    c.add_argument("--seed", type=int, default=None,
+                   help="jitter seed (default: the plan's own, else 0)")
+    c.add_argument("--events-path", dest="events_path",
+                   help="write the deterministic fault-event log here as JSON at exit")
+    c.add_argument("--pids", default=None,
+                   help="the servers' pids in rank order: arms the plan's kill faults "
+                   "(without it they only record their event)")
+    c.add_argument("--protocol", choices=["kv", "serve"], default="kv",
+                   help="the framing the proxy parses: kv (PS links) or serve (the "
+                   "scoring tier's line protocol)")
+    c.set_defaults(fn=cmd_chaos)
 
     r = config_parser("serve", help="online scoring server (batched scoring on the card, "
                       "hot weight reload)")

@@ -13,23 +13,33 @@ time (``opt_segments``).
 :meth:`ServerGroup.respawn` restarts a dead rank on its original port, and
 :class:`ServerSupervisor` does so on its own for an async group, then
 re-seeds the rank from a rolling snapshot (its FTRL ``z``/``n`` too).
-Resizing, the durable store and chaos wait for ROADMAP A.16.
+With ``store_dir`` each rank persists crash-consistent snapshots of its
+slice (and, with ``store_wal``, a log of every applied push) under
+``<store_dir>/rank-<r>/`` and recovers from them when it starts, so a
+group restarted on the same directory comes back where it stopped
+(:mod:`distlr_tpu_torch.ps.store` reads those files).  ``via_chaos`` puts
+a fault plan's proxies (:mod:`distlr_tpu_torch.chaos`) between the
+clients and the servers.  Resizing a live group waits for ROADMAP A.16.6.
 """
 
 from __future__ import annotations
 
+import os
 import subprocess
 import threading
 import time
 
 import numpy as np
 
+from distlr_tpu_torch.config import _not_ported
 from distlr_tpu_torch.ps.build import server_binary
 from distlr_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
 
 OPTIMIZERS = ("sgd", "ftrl", "signsgd")
+#: the supervisor's events of a durable group's recovery
+STORE_EVENTS = ("reseeded-from-store", "store-stale", "store-corrupt-fallback")
 
 
 class ServerGroup:
@@ -47,6 +57,17 @@ class ServerGroup:
     worker's gradient / W instead of the mean).  ``optimizer`` and the
     ``ftrl_*`` parameters pick the update rule; ``opt_segments``, global
     ``(end, "sgd"|"ftrl")`` pairs, give each namespace slice its own.
+
+    ``store_dir`` arms the servers' durable store: a snapshot of each
+    rank's slice every ``store_interval_s`` seconds (and on SIGUSR1), two
+    generations kept, and with ``store_wal`` (async groups only) a log of
+    every applied push, group-committed to disk every
+    ``store_wal_fsync_s`` seconds.  A rank that starts on a non-empty
+    directory restores the newest valid snapshot and replays the log past
+    it.  ``via_chaos``, a :class:`~distlr_tpu_torch.chaos.FaultPlan`,
+    starts a :class:`~distlr_tpu_torch.chaos.ChaosFabric` with the group:
+    :attr:`hosts` then names its proxies and :attr:`direct_hosts` the
+    servers, and the plan's ``kill`` faults SIGKILL this group's ranks.
     """
 
     def __init__(self, num_servers: int, num_workers: int, dim: int, *,
@@ -55,7 +76,9 @@ class ServerGroup:
                  bind_any: bool = False, optimizer: str = "sgd",
                  ftrl_alpha: float = 0.1, ftrl_beta: float = 1.0,
                  ftrl_l1: float = 0.0, ftrl_l2: float = 0.0, compress: bool = True,
-                 opt_segments: list[tuple[int, str]] | None = None):
+                 opt_segments: list[tuple[int, str]] | None = None, via_chaos=None,
+                 store_dir: str | None = None, store_interval_s: float = 5.0,
+                 store_wal: bool = False, store_wal_fsync_s: float = 0.1):
         if num_servers < 1 or num_servers > dim:
             raise ValueError(f"need 1 <= num_servers <= dim={dim}, got {num_servers}")
         if optimizer not in OPTIMIZERS:
@@ -76,6 +99,22 @@ class ServerGroup:
                 prev = end
             if prev != dim:
                 raise ValueError(f"opt_segments must cover [0, dim={dim}), got end {prev}")
+        if store_wal and not store_dir:
+            raise ValueError(
+                "store_wal requires store_dir (the WAL lives in the "
+                "same per-rank store directory)")
+        if store_wal and sync:
+            # the native server refuses it too: a sync round's merge buffer
+            # has no per-push replay semantics
+            raise ValueError(
+                "store_wal requires an async (sync=False) group — "
+                "sync-round merge state has no per-push replay semantics")
+        if store_dir and store_interval_s <= 0:
+            raise ValueError(
+                f"store_interval_s must be positive, got {store_interval_s}")
+        if store_wal and store_wal_fsync_s <= 0:
+            raise ValueError(
+                f"store_wal_fsync_s must be positive, got {store_wal_fsync_s}")
         if optimizer != "sgd" and last_gradient:
             # Q1 is a reference-SGD parity quirk: there is no "last
             # worker's FTRL step or vote / W" to mirror
@@ -95,6 +134,16 @@ class ServerGroup:
         #: capabilities and answer kHello as a binary without codecs
         self.compress = compress
         self._opt_segments = list(opt_segments or [])
+        self.store_dir = store_dir
+        self.store_interval_s = store_interval_s
+        self.store_wal = store_wal
+        self.store_wal_fsync_s = store_wal_fsync_s
+        #: the membership epoch the servers run at: 1, the JAX package's
+        #: static default (a live resize, ROADMAP A.16.6, would bump it)
+        self.epoch = 1
+        self._chaos_plan = via_chaos
+        #: the live ChaosFabric once start() ran with a plan
+        self.chaos = None
         self.ports: list[int] = list(ports or [])
         self.procs: list[subprocess.Popen] = []
         # stop() runs from failing worker threads as well as on exit, and
@@ -105,7 +154,16 @@ class ServerGroup:
 
     @property
     def hosts(self) -> str:
-        """Client connection spec, server-rank order."""
+        """Client connection spec, server-rank order: the fault plan's
+        proxies when the group rides one (``via_chaos``), so every client
+        given it is behind the plan."""
+        if self.chaos is not None:
+            return self.chaos.hosts
+        return self.direct_hosts
+
+    @property
+    def direct_hosts(self) -> str:
+        """The server processes' own ports, past any fault plan."""
         return ",".join(f"127.0.0.1:{p}" for p in self.ports)
 
     @property
@@ -117,6 +175,14 @@ class ServerGroup:
 
     def key_range(self, rank: int) -> tuple[int, int]:
         return self.dim * rank // self.num_servers, self.dim * (rank + 1) // self.num_servers
+
+    def store_rank_dir(self, rank: int) -> str:
+        """Rank ``rank``'s durable-store directory, where its snapshot
+        generations and WAL segments live (the group needs a
+        ``store_dir``)."""
+        if not self.store_dir:
+            raise ValueError("group has no store_dir")
+        return os.path.join(self.store_dir, f"rank-{rank}")
 
     def _local_opt_segments(self, lo: int, hi: int) -> str:
         """``--opt_segments`` of the rank owning global ``[lo, hi)``: the
@@ -157,11 +223,24 @@ class ServerGroup:
             cmd += ftrl_flags
         if not self.compress:
             cmd.append("--compress=0")
+        if self.store_dir:
+            # a directory a rank: the ranks own disjoint slices.  Only
+            # values off the servers' defaults touch the command line
+            cmd.append(f"--store_dir={self.store_rank_dir(rank)}")
+            if self.store_interval_s != 5.0:
+                cmd.append(f"--store_interval={self.store_interval_s}")
+            if self.store_wal:
+                cmd.append("--store_wal=1")
+                if self.store_wal_fsync_s != 0.1:
+                    cmd.append(f"--store_wal_fsync={self.store_wal_fsync_s}")
         return cmd
 
     def _spawn(self, rank: int, port: int) -> tuple[subprocess.Popen, int]:
         """Start rank ``rank`` on ``port`` (0: the kernel's choice);
-        returns the process and the port it bound."""
+        returns the process and the port it bound.  A durable rank
+        recovers from its store directory before it announces the port."""
+        if self.store_dir:
+            os.makedirs(self.store_rank_dir(rank), exist_ok=True)
         proc = subprocess.Popen(self._command(server_binary(), rank, port),
                                 stdout=subprocess.PIPE, text=True)
         # the server prints "PORT <n>" once listening: reading it is the
@@ -182,10 +261,35 @@ class ServerGroup:
                 proc, port = self._spawn(rank, fixed_ports[rank] if fixed_ports else 0)
                 self.procs.append(proc)
                 self.ports.append(port)
+            if self._chaos_plan is not None and self.chaos is None:
+                from distlr_tpu_torch.chaos import ChaosFabric  # noqa: PLC0415
+
+                # one link a rank, to the servers' own ports (a respawn
+                # keeps its port, so a link outlives its server); the
+                # group owns the pids, so it executes the kill faults
+                self.chaos = ChaosFabric(self.direct_hosts, self._chaos_plan,
+                                         killer=self._chaos_kill)
         except BaseException:
             self.stop()
             raise
         return self
+
+    def _chaos_kill(self, target: str) -> None:
+        """The fabric's kill-fault executor: SIGKILL rank N's server
+        (``"rank:N"``) or every rank's (``"group"``).  A supervised group
+        respawns them, and a durable one recovers from its store."""
+        with self._lock:
+            if target == "group":
+                victims = list(self.procs)
+            else:
+                rank = int(target.split(":", 1)[1])
+                if rank >= len(self.procs):
+                    log.warning("chaos kill target %r: no such rank", target)
+                    return
+                victims = [self.procs[rank]]
+        for proc in victims:
+            if proc.poll() is None:
+                proc.kill()
 
     def respawn(self, rank: int) -> bool:
         """Restart a dead server on its original port, so the ``hosts``
@@ -214,6 +318,22 @@ class ServerGroup:
             self.procs[rank] = proc
             return True
 
+    def plan_resize(self, new_num_servers: int):
+        """A live resize of the group: refused as the JAX package refuses
+        it for a sync group and for a durable one; the resize itself is
+        not ported (ROADMAP A.16.6)."""
+        if self.sync:
+            raise ValueError(
+                "elastic resize supports async (Hogwild) groups only — "
+                "a sync BSP round cannot straddle a membership change")
+        if self.store_dir:
+            raise ValueError(
+                "elastic resize of a durable (store_dir) group is not "
+                "supported: the per-rank on-disk slices would no longer "
+                "match the new layout — stop the group, clear or migrate "
+                "the store, and restart at the new size")
+        raise _not_ported(f"elastic resize to {new_num_servers} servers", "A.16.6")
+
     def alive(self) -> list[bool]:
         """Process-level liveness, one flag per server rank."""
         return [p.poll() is None for p in self.procs]
@@ -230,10 +350,16 @@ class ServerGroup:
                     return
 
     def stop(self) -> None:
-        """Terminate every server (a no-op for those that already exited,
-        as they do after a client's ``shutdown_servers``)."""
+        """Stop the fault plan's proxies and terminate every server (a
+        no-op for those that already exited, as they do after a client's
+        ``shutdown_servers``)."""
         with self._lock:
             self._stopped = True
+        if self.chaos is not None:
+            # outside the lock: a kill fault firing now takes it
+            self.chaos.stop()
+            self.chaos = None
+        with self._lock:
             for p in self.procs:
                 if p.poll() is None:
                     p.terminate()
@@ -271,7 +397,16 @@ class ServerSupervisor:
 
     ``events`` is the audit trail of ``(monotonic time, rank, event)``:
     ``respawned``, ``reseeded``, ``seeded-zeros``, ``gave-up`` and
-    ``respawn-failed``.
+    ``respawn-failed``; a durable group (``store_dir``) adds
+    ``reseeded-from-store`` (the respawned rank recovered from its disk
+    state, at least as new as the RAM snapshot: no re-seed),
+    ``store-stale`` (the RAM snapshot was newer and re-seeded over the
+    disk recovery) and ``store-corrupt-fallback`` (a snapshot generation
+    was rejected; the recovery took the other one, or the WAL).
+    ``store_health`` holds each rank's on-disk state by rank, scanned on
+    the snapshot cadence: the newest valid snapshot's age, the snapshot
+    and WAL bytes, the WAL records past that snapshot and the corrupt
+    generations (the JAX package's ``distlr_ps_store_*`` gauges).
     """
 
     #: client_id of the per-rank probe connections
@@ -311,6 +446,7 @@ class ServerSupervisor:
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self.events: list[tuple[float, int, str]] = []
+        self.store_health: dict[int, dict] = {}
 
     def _record_event(self, when: float, rank: int, event: str) -> None:
         self.events.append((when, rank, event))
@@ -389,11 +525,34 @@ class ServerSupervisor:
             except Exception:  # noqa: BLE001 — down or wedged: the respawn pass handles it
                 continue
         self._snapshot_at = time.monotonic()
+        self._refresh_store_health()
+
+    def _refresh_store_health(self) -> None:
+        """Scan each rank's store directory into :attr:`store_health`, on
+        the snapshot cadence (a durable group only)."""
+        if not self._group.store_dir:
+            return
+        from distlr_tpu_torch.ps import store  # noqa: PLC0415
+
+        now = time.time()
+        for r in range(self._group.num_servers):
+            try:
+                rs = store.scan_rank(self._group.store_rank_dir(r))
+            except OSError:
+                continue
+            best = rs.best
+            self.store_health[r] = {
+                "snapshot_age_s": max(0.0, now - best.wall_time) if best is not None else None,
+                "snapshot_bytes": rs.snapshot_bytes, "wal_bytes": rs.wal_bytes,
+                "wal_lag_records": max(0, rs.recovered_clock - rs.snapshot_clock),
+                "corrupt_generations": rs.corrupt}
 
     def _reseed(self, rank: int) -> bool:
         from distlr_tpu_torch.ps.client import PSRejectedError  # noqa: PLC0415  (cycle)
 
         lo, hi = self._group.key_range(rank)
+        if self._group.store_dir and self._recovered_from_store(rank):
+            return True
         if self._snapshot is not None and self._snap_valid[rank]:
             vals, event = self._snapshot[lo:hi], "reseeded"
         else:
@@ -418,6 +577,34 @@ class ServerSupervisor:
         # the new process counts pushes from 0: always re-pull this range
         self._snap_pushes[rank] = -1
         return True
+
+    def _recovered_from_store(self, rank: int) -> bool:
+        """Whether the respawned rank's own recovery from its store (run
+        before it announced its port) stands: its disk clock is at least
+        the RAM snapshot's, so pushing the snapshot over it would move
+        the rank back.  Else the caller re-seeds from RAM."""
+        from distlr_tpu_torch.ps import store  # noqa: PLC0415
+
+        rs = store.scan_rank(self._group.store_rank_dir(rank))
+        now = time.monotonic()
+        if rs.corrupt:
+            # the recovery took the other generation or the WAL: say so
+            self._record_event(now, rank, "store-corrupt-fallback")
+        disk_clock = rs.recovered_clock
+        best = rs.best
+        has_disk = disk_clock > 0 or (best is not None and best.initialized)
+        ram_clock = self._snap_pushes[rank] if self._snap_valid[rank] else -1
+        if has_disk and disk_clock >= ram_clock:
+            self._record_event(now, rank, "reseeded-from-store")
+            log.warning("supervisor: server %d recovered from its store (push_clock=%d >= "
+                        "RAM snapshot %d); skipping re-seed", rank, disk_clock, ram_clock)
+            # the next snapshot cycle re-pulls this range
+            self._snap_pushes[rank] = -1
+            return True
+        if has_disk:
+            # the disk is behind the RAM snapshot (a long store interval)
+            self._record_event(now, rank, "store-stale")
+        return False
 
     def _run(self) -> None:
         self._try_snapshot()  # at once, so an early death has a capture

@@ -50,8 +50,14 @@ resumes (``resume``), against the surviving group or a fresh one.  The
 checkpoints are the port's ``.npz`` steps (:mod:`.checkpoint`); the
 sidecar ``ps_latest.json`` is the JAX package's byte for byte.
 
-Not ported yet: the durable store, chaos and membership (ROADMAP A.16);
-the staleness histograms, trace spans and profiler hooks (A.12).
+A local group can be durable (``ps_store_dir``: snapshots of each rank's
+slice and, with ``ps_store_wal``, a log of every applied push, from which
+a respawned rank recovers) and ride a fault plan (``chaos_plan``: the
+workers reach the servers through the plan's proxies, whose ``kill``
+faults SIGKILL server ranks).
+
+Not ported yet: live resizing (ROADMAP A.16.6); the staleness histograms,
+trace spans and profiler hooks (A.12).
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ from distlr_tpu_torch.data.iterator import BlockedDataIter, DataIter, SparseData
 from distlr_tpu_torch.data.sharding import part_name
 from distlr_tpu_torch.models import get_model
 from distlr_tpu_torch.ps import KVWorker, RetryPolicy, ServerGroup, ServerSupervisor
+from distlr_tpu_torch.ps.server import STORE_EVENTS
 from distlr_tpu_torch.train.checkpoint import Checkpointer
 from distlr_tpu_torch.train.export import save_model_text
 from distlr_tpu_torch.train.metrics import MetricsLogger, StepTimer
@@ -1045,13 +1052,21 @@ def run_ps_workers(cfg: Config, hosts: str, ranks, *, eval_fn=None, save: bool =
 
 def ps_server_group(cfg: Config) -> ServerGroup:
     """The local server group a config trains against (not started):
-    ``num_servers`` ranks of its key space, its mode, Q1 quirk and update
-    rule."""
+    ``num_servers`` ranks of its key space, its mode, Q1 quirk, update
+    rule and durable store, behind its fault plan.  The plan is parsed
+    here, before any server spawns: a malformed plan fails the launch."""
+    via_chaos = None
+    if cfg.chaos_plan:
+        from distlr_tpu_torch.chaos import load_plan  # noqa: PLC0415
+
+        via_chaos = load_plan(cfg.chaos_plan, seed=cfg.chaos_seed)
     return ServerGroup(cfg.num_servers, cfg.num_workers, ps_param_dim(cfg),
                        learning_rate=cfg.learning_rate, sync=cfg.sync_mode,
-                       last_gradient=bool(cfg.sync_last_gradient),
+                       last_gradient=bool(cfg.sync_last_gradient), via_chaos=via_chaos,
                        optimizer=server_optimizer(cfg), ftrl_alpha=cfg.ftrl_alpha,
-                       ftrl_beta=cfg.ftrl_beta, ftrl_l1=cfg.ftrl_l1, ftrl_l2=cfg.ftrl_l2)
+                       ftrl_beta=cfg.ftrl_beta, ftrl_l1=cfg.ftrl_l1, ftrl_l2=cfg.ftrl_l2,
+                       store_dir=cfg.ps_store_dir, store_interval_s=cfg.ps_store_interval_s,
+                       store_wal=cfg.ps_store_wal, store_wal_fsync_s=cfg.ps_store_wal_fsync_s)
 
 
 def run_ps_local(cfg: Config, *, eval_fn=None, save: bool = False, resume: bool = False,
@@ -1065,15 +1080,27 @@ def run_ps_local(cfg: Config, *, eval_fn=None, save: bool = False, resume: bool 
     a :class:`~distlr_tpu_torch.ps.ServerSupervisor`; pair it with
     ``max_restarts > 0`` or ``ps_retry_attempts`` so the workers whose
     stream broke carry on.  ``report``, when given, also receives the
-    supervisor's ``events`` under ``"supervisor_events"``."""
+    supervisor's ``events`` under ``"supervisor_events"`` (and, for a
+    durable group, its ``store_health`` and the store's events under
+    ``"store_events"``), and under ``"chaos_events"`` the fault plan's
+    events by kind."""
     check_ps_config(cfg)
     group = ps_server_group(cfg)
     with contextlib.ExitStack() as stack:
         stack.enter_context(group)
+        fabric = group.chaos  # stop() drops it: keep it for the report
         sup = stack.enter_context(ServerSupervisor(group)) if supervise_servers else None
         results = run_ps_workers(cfg, group.hosts, range(cfg.num_workers), eval_fn=eval_fn,
                                  save=save, on_error=group.stop, resume=resume,
                                  max_restarts=max_restarts, report=report)
     if report is not None and sup is not None:
         report["supervisor_events"] = list(sup.events)
+        if group.store_dir:
+            report["store_events"] = [e for e in sup.events if e[2] in STORE_EVENTS]
+            report["store_health"] = dict(sup.store_health)
+    if report is not None and fabric is not None:
+        kinds: dict[str, int] = {}
+        for e in fabric.events():
+            kinds[e[1]] = kinds.get(e[1], 0) + 1
+        report["chaos_events"] = kinds
     return [results[r] for r in range(cfg.num_workers)]

@@ -1001,3 +1001,38 @@ def test_ps_sync_crash_and_resume_on_card_equals_the_uninterrupted_run(cuda, tmp
     monkeypatch.undo()
     whole = ps_trainer.run_ps_local(cfg.replace(checkpoint_dir=None))
     assert _rel(torch.from_numpy(resumed[0]), torch.from_numpy(whole[0])) <= 1e-5
+
+
+def test_wal_recovery_of_card_gradients_equals_the_pre_kill_pull(cuda, tmp_path):
+    """Four pushes of gradients the card computed (one ``fused_lr_grad``
+    launch each, at the weights just pulled) into a 2-server async group
+    with a WAL; both servers SIGKILLed and the group restarted on its store:
+    the pull equals the pre-kill pull bit for bit (the replay applies the
+    same f32 updates in the same order)."""
+    from distlr_tpu_torch.models import get_model
+    from distlr_tpu_torch.ps import KVWorker, ServerGroup, store
+
+    B, D = 256, 100_000
+    w, X, y, mask = _inputs(cuda, B, D, torch.bfloat16, seed=5)
+    cfg = Config(num_feature_dim=D, l2_c=0.01)
+    model = get_model(cfg)
+    root = str(tmp_path / "store")
+    launches = ops.fused_lr_grad.launches
+    with ServerGroup(2, 1, D, sync=False, store_dir=root, store_interval_s=60.0,
+                     store_wal=True, store_wal_fsync_s=0.01) as g:
+        with KVWorker(g.hosts, D, sync_group=False, timeout_ms=10_000) as kv:
+            kv.push_init(w.cpu().numpy())
+            for _ in range(4):
+                w_now = torch.from_numpy(kv.pull()).to(cuda)
+                kv.wait(kv.push(model.grad(w_now, (X, y, mask), cfg).cpu().numpy()))
+            before = kv.pull()
+            for p in g.procs:
+                p.kill()
+                p.wait()
+    assert ops.fused_lr_grad.launches == launches + 4
+    for r in range(2):
+        assert store.scan_rank(f"{root}/rank-{r}").recovered_clock == 1 + 4
+    with ServerGroup(2, 1, D, sync=False, store_dir=root, store_wal=True) as g:
+        with KVWorker(g.hosts, D, sync_group=False, timeout_ms=10_000) as kv:
+            after = kv.pull()
+    assert after.tobytes() == before.tobytes()

@@ -61,7 +61,9 @@ def test_fresh_interpreter_imports_no_jax():
                 "distlr_tpu_torch.feedback", "distlr_tpu_torch.feedback.spool",
                 "distlr_tpu_torch.feedback.join", "distlr_tpu_torch.feedback.drift",
                 "distlr_tpu_torch.feedback.sink", "distlr_tpu_torch.feedback.online",
-                "distlr_tpu_torch.feedback.clock"):
+                "distlr_tpu_torch.feedback.clock", "distlr_tpu_torch.ps.store",
+                "distlr_tpu_torch.ps.membership", "distlr_tpu_torch.chaos",
+                "distlr_tpu_torch.chaos.plan", "distlr_tpu_torch.chaos.proxy"):
         assert mod in doc["imported"]
     assert doc["leaked"] == []
 

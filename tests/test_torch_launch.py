@@ -23,15 +23,13 @@ from distlr_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
 
-#: the JAX package's ``ps`` flags that are not ported yet (ROADMAP A.16):
-#: (flag, dest, type; None = a switch); given, each one raises
-_UNPORTED_PS_FLAGS = (
-    ("--chaos-plan", "chaos_plan", str),
-    ("--chaos-seed", "chaos_seed", int),
-    ("--store-dir", "ps_store_dir", str),
-    ("--store-interval", "ps_store_interval_s", float),
-    ("--store-wal", "ps_store_wal", None),
-    ("--store-wal-fsync", "ps_store_wal_fsync_s", float),
+#: the ``ps`` durable-store and fault-plan flags the port runs (ROADMAP
+#: A.16.4-A.16.5), each with a value valid in both packages, or refused by
+#: both with the same message (``--store-wal`` on a sync run)
+_STORE_CHAOS_PS_FLAGS = (
+    ["--store-dir", "st"], ["--store-interval", "0.5"], ["--store-wal-fsync", "0.05"],
+    ["--store-wal", "--store-dir", "st"], ["--chaos-plan", "plan.json"],
+    ["--chaos-seed", "5"],
 )
 #: the ``ps`` recovery flags the port runs (ROADMAP A.16.1-A.16.3), each
 #: with a value valid in both packages
@@ -157,8 +155,6 @@ class TestPSCLI:
         assert not os.path.exists(os.path.join(d, "models", "part-001"))
 
     @pytest.mark.parametrize("argv,item", [
-        *[([flag, "1"] if typ is not None else [flag], "A.16")
-          for flag, _, typ in _UNPORTED_PS_FLAGS],
         (["--profile-dir", "prof"], "A.12"),
     ])
     def test_unported_ps_flags_name_their_roadmap_item(self, argv, item, tmp_path):
@@ -204,6 +200,60 @@ class TestPSCLI:
                   "ps_retry_backoff_ms", "ps_retry_backoff_max_ms", "ps_retry_deadline_s",
                   "ps_retry_adaptive"):
             assert getattr(cfg, f) == getattr(jcfg, f), f
+
+    @pytest.mark.parametrize("argv", _STORE_CHAOS_PS_FLAGS, ids=lambda a: a[0])
+    @pytest.mark.parametrize("hosts", [False, True], ids=["local", "hosts"])
+    def test_store_and_chaos_flags_reach_the_run_like_jax(self, argv, hosts, tmp_path,
+                                                          monkeypatch):
+        """The durable-store and fault-plan flags of ``launch ps`` reach the
+        run as the JAX package's ``launch ps`` passes them: the same run
+        function and Config fields, the same exit 2 and message
+        (``--chaos-plan`` with ``--hosts``), or the same refusal."""
+        from distlr_tpu.train import ps_trainer as jax_ps_trainer
+
+        from distlr_tpu_torch.train import ps_trainer
+
+        seen = {}
+        for mod, who in ((ps_trainer, "ours"), (jax_ps_trainer, "theirs")):
+            for fn in ("run_ps_local", "run_ps_workers"):
+                monkeypatch.setattr(mod, fn, lambda cfg, *a, _w=who, _f=fn, **kw:
+                                    seen.setdefault(_w, (_f, cfg)))
+        common = ["ps", "--data-dir", str(tmp_path), "--num-feature-dim", "8", *argv]
+        if hosts:
+            common += ["--hosts", "127.0.0.1:1"]
+        out = []
+        for main, extra in ((launch.main, ["--device", "cpu"]), (jax_launch.main, [])):
+            with contextlib.redirect_stderr(io.StringIO()) as err:
+                try:
+                    out.append((main(common + extra), err.getvalue()))
+                except ValueError as e:
+                    out.append(("ValueError", str(e)))
+        assert out[0] == out[1]
+        if out[0][0] == "ValueError":
+            assert "ps_store_wal requires async mode" in out[0][1]
+            return
+        if out[0][0] == 2:
+            assert hosts and "--chaos-plan applies to local mode" in out[0][1]
+            return
+        (fn, cfg), (jfn, jcfg) = seen["ours"], seen["theirs"]
+        assert fn == jfn == ("run_ps_workers" if hosts else "run_ps_local")
+        for f in ("ps_store_dir", "ps_store_interval_s", "ps_store_wal", "ps_store_wal_fsync_s",
+                  "chaos_plan", "chaos_seed", "sync_mode"):
+            assert getattr(cfg, f) == getattr(jcfg, f), f
+
+    def test_async_store_wal_runs(self, tmp_path, monkeypatch):
+        """``launch ps --async --store-wal`` folds ``--async`` into the
+        Config before it validates, as both packages' ``ps-server`` do (the
+        JAX package's ``launch ps`` validates first and refuses it)."""
+        from distlr_tpu_torch.train import ps_trainer
+
+        seen = []
+        monkeypatch.setattr(ps_trainer, "run_ps_local", lambda cfg, **kw: seen.append(cfg))
+        assert launch.main(["ps", "--data-dir", str(tmp_path), "--num-feature-dim", "8",
+                            "--async", "--store-dir", "st", "--store-wal",
+                            "--device", "cpu"]) == 0
+        assert (seen[0].sync_mode, seen[0].ps_store_wal, seen[0].ps_store_dir) == (
+            False, True, "st")
 
     def test_supervise_servers_needs_async_like_jax(self, tmp_path):
         common = ["ps", "--data-dir", str(tmp_path), "--num-feature-dim", "8",
@@ -311,14 +361,16 @@ _GATES = {
                      "--trace-sample", "--profile-dir"), "A.12"),
     **dict.fromkeys(("--prof-hz", "--prof-window", "--log-level", "--log-ring", "--log-dedupe",
                      "--incident-window", "--incident-settle", "--incident-max"), "A.21"),
-    **dict.fromkeys(("--store-dir", "--store-interval", "--store-wal", "--store-wal-fsync",
-                     "--chaos-plan", "--chaos-seed", "--elastic", "--ctl-port", "--ps-ctl"),
-                    "A.16"),
+    **dict.fromkeys(("--elastic", "--ctl-port", "--ps-ctl"), "A.16"),
 }
 _COMMAND_ITEMS = {("rollout", "--obs-run-dir"): "A.21"}
 # flags whose value must come with another flag to be valid in both packages
 _WITH = {"--accum-start": ["--accum-max", "4"],
-         "--block-groups": ["--model", "blocked_lr", "--block-size", "4"]}
+         "--block-groups": ["--model", "blocked_lr", "--block-size", "4"],
+         "--store-wal": ["--store-dir", "st"]}
+# the subcommands with no Config: their flags go to the writers (gen-data)
+# and to the coordinator's client (ps-ctl)
+_NO_CONFIG = ("gen-data", "ps-ctl")
 _VALUE = {"--accum-growth": "2.5", "--coordinator": "127.0.0.1:1", "--block-size": "4",
           "--eject-after": "5", "--probe-backoff": "0.25", "--ps-retry-backoff-max": "5000"}
 # the flags a command maps onto Config fields itself (the JAX package's
@@ -365,26 +417,36 @@ def test_shared_flags_match_jax(cmd, opt):
     into the same dest, value and default, then either reaches the same
     Config field as in the JAX package or raises naming its ROADMAP item."""
     (action,) = [a for a in _JAX_SUBS[cmd]._actions if opt in a.option_strings]
+    # a required flag with a value; a required positional (ps-ctl's
+    # command) with its first choice
     required = [x for a in _JAX_SUBS[cmd]._actions if a.required
-                for x in (a.option_strings[0], "x") if a.option_strings[0] != opt]
+                for x in ((a.option_strings[0], "x") if a.option_strings else (a.choices[0],))
+                if not a.option_strings or a.option_strings[0] != opt]
     argv = [cmd, *required, *_WITH.get(opt, []), opt, *_flag_value(action, opt)]
+    device = ["--device", "cpu"] if cmd not in _NO_CONFIG else []
     if not action.required:
-        ours_default = _PARSER.parse_args([cmd, *required] + (["--device", "cpu"]
-                                                              if cmd != "gen-data" else []))
+        ours_default = _PARSER.parse_args([cmd, *required] + device)
         theirs_default = _JAX_PARSER.parse_args([cmd, *required])
         assert getattr(ours_default, action.dest) == getattr(theirs_default, action.dest)
-    ours = _PARSER.parse_args(argv + (["--device", "cpu"] if cmd != "gen-data" else []))
+    ours = _PARSER.parse_args(argv + device)
     theirs = _JAX_PARSER.parse_args(argv)
     assert getattr(ours, action.dest) == getattr(theirs, action.dest)
-    if cmd == "gen-data":
-        return  # no Config: the flags go to the writers
+    if cmd in _NO_CONFIG:
+        return
     item = _COMMAND_ITEMS.get((cmd, opt), _GATES.get(opt))
     if item is not None:
         with pytest.raises(NotImplementedError, match=rf"\(ROADMAP {re.escape(item)}\)"):
             launch.command_config(ours)
         return
+    try:
+        jax_cfg = jax_launch._config_from_args(theirs)
+    except ValueError as e:
+        # refused by the JAX package's Config: by the port's with its text
+        with pytest.raises(ValueError) as ours_err:
+            launch.command_config(ours)
+        assert str(ours_err.value) == str(e)
+        return
     cfg = launch.command_config(ours)
-    jax_cfg = jax_launch._config_from_args(theirs)
     if action.dest in _COMMAND_FIELDS.get(cmd, {}):
         field = _COMMAND_FIELDS[cmd][action.dest]
         assert getattr(cfg, field) == getattr(theirs, action.dest) != getattr(Config(), field)

@@ -140,13 +140,26 @@ class TestConfigGates:
         ({"profile_dir": "prof"}, "A.12"),
         ({"ps_host": "10.0.0.1"}, "A.16"),
         ({"ps_port": 9000}, "A.16"),
-        ({"ps_store_dir": "store"}, "A.16"),
-        ({"ps_store_wal": True}, "A.16"),
-        ({"chaos_plan": "plan.json"}, "A.16"),
     ])
     def test_unported_options_name_their_roadmap_item(self, kw, item):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
             Config(device="cpu", **kw)
+
+    # the durable store and the fault plan (ROADMAP A.16.4-A.16.5):
+    # accepted, with the JAX package's values
+    @pytest.mark.parametrize("kw", [
+        {"ps_store_dir": "store"},
+        {"ps_store_dir": "store", "ps_store_wal": True, "sync_mode": False},
+        {"chaos_plan": "plan.json"},
+        {"ps_store_dir": "store", "ps_store_interval_s": 0.5, "ps_store_wal": True,
+         "ps_store_wal_fsync_s": 0.01, "sync_mode": False, "chaos_plan": "plan.json",
+         "chaos_seed": 3},
+    ])
+    def test_store_and_chaos_options_resolve_like_jax(self, kw):
+        j, t = JaxConfig(**kw), Config(device="cpu", **kw)
+        for f in ("ps_store_dir", "ps_store_interval_s", "ps_store_wal", "ps_store_wal_fsync_s",
+                  "chaos_plan", "chaos_seed", "sync_mode"):
+            assert getattr(t, f) == getattr(j, f), f
 
     # the feedback loop's options (ROADMAP A.11): accepted, with the JAX
     # package's values

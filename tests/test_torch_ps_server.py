@@ -312,12 +312,45 @@ class TestLaunchPSServer:
             errs.append(capsys.readouterr().err.strip().splitlines()[-1])
         assert errs[0] == errs[1]
 
-    @pytest.mark.parametrize("argv", [["--elastic"], ["--ctl-port", "9000"],
-                                      ["--store-dir", "s"], ["--store-wal"]])
+    @pytest.mark.parametrize("argv", [["--elastic"], ["--ctl-port", "9000"]])
     def test_unported_flags_name_a16(self, argv, monkeypatch):
         monkeypatch.setattr(signal, "signal", lambda *a: None)
         with pytest.raises(NotImplementedError, match=r"ROADMAP A\.16\)"):
             launch.main(["ps-server", "--num-feature-dim", "8", *argv])
+
+    @pytest.mark.parametrize("argv", [
+        ["--store-dir", "s"],
+        ["--store-dir", "s", "--store-interval", "0.5"],
+        ["--async", "--store-dir", "s", "--store-wal"],
+        ["--async", "--store-dir", "s", "--store-wal", "--store-wal-fsync", "0.02"],
+    ])
+    def test_store_flags_reach_the_group_like_jax(self, argv, tmp_path, monkeypatch):
+        """``ps-server --store-*`` builds the JAX package's group: the same
+        mode and store arguments (``--async`` folded in before the Config
+        validates, so ``--store-wal`` runs)."""
+        import distlr_tpu_torch.ps as port_ps
+
+        seen = {}
+
+        class Built(Exception):
+            pass
+
+        def capture(who):
+            def init(self, *a, **kw):
+                seen[who] = (a, {k: kw[k] for k in ("sync", "store_dir", "store_interval_s",
+                                                    "store_wal", "store_wal_fsync_s")})
+                raise Built
+            return init
+
+        monkeypatch.setattr(port_ps.ServerGroup, "__init__", capture("ours"))
+        monkeypatch.setattr(jax_server_mod.ServerGroup, "__init__", capture("theirs"))
+        monkeypatch.setattr(signal, "signal", lambda *a: None)
+        argv = [str(tmp_path / a) if a == "s" else a for a in argv]
+        for main in (launch.main, jax_launch.main):
+            with pytest.raises(Built):
+                main(["ps-server", "--num-feature-dim", "8", "--num-servers", "2", *argv])
+        assert seen["ours"] == seen["theirs"]
+        assert seen["ours"][1]["store_dir"] == str(tmp_path / "s")
 
 
 class TestLaunchPSBothCLIs:
