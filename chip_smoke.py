@@ -58,7 +58,13 @@ under the ``ServerSupervisor`` and re-seeded from its snapshot, and
 group, snapshot-only recovery within an interval, a whole-group power
 loss by a chaos ``kill`` fault under ``run_ps_local``, ``launch ps-server
 --store-dir`` with ``launch ps-ctl``, and ``launch chaos`` throttling the
-links of f32, int8 and signSGD pushes), then
+links of f32, int8 and signSGD pushes) and live membership resizing at D =
+1M (a 2 -> 4 -> 2 reshard with the bits at rest kept, an FTRL reshard on
+the card's gradients equal to a static group's, the JAX package's "double
+then halve under chaos" with a Hogwild pusher on the card, an online
+trainer and a served engine following the coordinator, and ``launch
+ps-server --elastic`` with ``serve`` / ``online --ps-ctl`` and ``launch
+ps-ctl resize``), then
 the serving control plane (a ``ScoringRouter`` in front of two
 ``ScoringServer`` replicas, each hosting the binary_lr versions v1 and v2
 at D = 1M: one reloads both from two namespaces of one PS group, the other
@@ -2607,7 +2613,9 @@ def phase_ps_keyed(torch, seed: int, smi: str) -> dict:
 # FTRL as tests/test_ftrl.py runs it; signSGD at a signSGD-scale rate; an
 # accumulation span that grows within the async run's 6 batches a worker
 WIRE_FTRL = {"ftrl_alpha": 0.5, "ftrl_beta": 1.0, "ftrl_l1": 0.01, "ftrl_l2": 0.1}
-WIRE_SIGN_LR, WIRE_EPOCHS = 0.02, 2
+# epochs of the sync runs (dense f32, int8, signSGD) and of the FTRL and
+# async runs: cut in depth from 2 and 3 to make room for ps_elastic
+WIRE_SIGN_LR, WIRE_EPOCHS, WIRE_LONG_EPOCHS = 0.02, 1, 2
 WIRE_ACCUM = {"ps_accum_start": 1, "ps_accum_max": 4, "ps_accum_growth_every": 2}
 # keyed FTRL without L1: at a keyed row's gradient (~1e-3 a batch) an L1
 # of 0.01 would hold nearly every weight at zero, and the card-vs-numpy
@@ -2750,15 +2758,16 @@ def _wire_dense_runs(torch, ops, tmp: str, smi: str) -> tuple[dict, dict]:
         return lambda w, grads: orc.step(sum(grads[1:], grads[0]) / two)
 
     runs = {
-        "ftrl_sync": (base.replace(ps_optimizer="ftrl", num_iteration=PS_EPOCHS, **WIRE_FTRL),
+        "ftrl_sync": (base.replace(ps_optimizer="ftrl", num_iteration=WIRE_LONG_EPOCHS,
+                                   **WIRE_FTRL),
                       None),
         "none_sync": (base, None),
         "int8_sync": (base.replace(ps_compress="int8"), sgd_int8),
         "signsgd_sync": (base.replace(ps_compress="signsgd", learning_rate=WIRE_SIGN_LR),
                          sign_vote),
         "int8_accum_async": (base.replace(ps_compress="int8", sync_mode=False,
-                                          batch_size=PS_ASYNC_BATCH, num_iteration=PS_EPOCHS,
-                                          **WIRE_ACCUM), None),
+                                          batch_size=PS_ASYNC_BATCH,
+                                          num_iteration=WIRE_LONG_EPOCHS, **WIRE_ACCUM), None),
     }
     lines, launches = {}, {"fused_lr_grad": 0, "lr_logits": 0}
     for mode, (cfg, update) in runs.items():
@@ -3061,7 +3070,7 @@ def phase_ps_wire(torch, seed: int, smi: str) -> dict:
     bf16, the correct-mean update): each worker's gradient the
     ``fused_lr_grad`` single pass, rank 0's eval ``lr_logits``.
 
-    * sync FTRL (WIRE_FTRL, PS_EPOCHS epochs): both workers end equal, the
+    * sync FTRL (WIRE_FTRL, WIRE_LONG_EPOCHS epochs): both workers end equal, the
       servers' weights within WIRE_FTRL_TOL of a float32 FTRL oracle
       applied to the BSP mean of the kernel's gradients, replayed on the
       card at the oracle's weights (the kernel is deterministic), and
@@ -3090,8 +3099,8 @@ def phase_ps_wire(torch, seed: int, smi: str) -> dict:
     t_phase = time.perf_counter()
     out = {"nvidia_smi": smi, "D": FULL_D, "workers": PS_WORKERS, "servers": PS_SERVERS,
            "shard_rows": PS_SHARD_ROWS, "test_rows": PS_TEST_ROWS,
-           "reduced": {"epochs": f"{PS_EPOCHS} for FTRL and the async run, {WIRE_EPOCHS} for "
-                                 "the dense f32, int8 and signSGD sync runs (cut in depth)",
+           "reduced": {"epochs": f"{WIRE_LONG_EPOCHS} for FTRL and the async run, {WIRE_EPOCHS} "
+                                 "for the dense f32, int8 and signSGD sync runs (cut in depth)",
                        "shard_rows": f"{PS_SHARD_ROWS} a worker, as the ps phase"},
            "tolerances": {"ftrl": WIRE_FTRL_TOL, "ftrl_plain": WIRE_PLAIN_TOL,
                           "int8": WIRE_INT8_TOL, "keyed": WIRE_KEYED_TOL,
@@ -3117,7 +3126,10 @@ def phase_ps_wire(torch, seed: int, smi: str) -> dict:
 # a straggler timeout that outlasts a round at this width (about 1.3 s a
 # sync round) and bounds how long rank 1 waits out the crashed rank 0
 REC_TIMEOUT_MS = 6_000
-REC_KILL_EPOCHS, REC_KILL_AT_PUSHES = 6, 5
+# the kill run's epochs (cut in depth from 6) and the pushes before the kill
+REC_KILL_EPOCHS, REC_KILL_AT_PUSHES = 4, 5
+# the CLI chains' epochs: checkpointed, then resumed to (cut from 2 and 4)
+REC_CLI_EPOCHS, REC_CLI_RESUMED_EPOCHS = 1, 2
 # the supervisor's poll and snapshot intervals in the kill run (its
 # defaults are 0.2 s and 1 s)
 REC_SUP_POLL_S, REC_SUP_SNAPSHOT_S = 0.05, 0.2
@@ -3393,17 +3405,18 @@ def _cli_ps_recovery(tmp: str, seed: int) -> dict:
 
     def resume_chain():
         ckpt = ps + ["--checkpoint-dir", ck, "--checkpoint-interval", "1"]
-        _launch(*ckpt, "--num-iteration", "2")
+        _launch(*ckpt, "--num-iteration", str(REC_CLI_EPOCHS))
         with open(sidecar) as f:
             first = json.load(f)
-        out = _launch(*ckpt, "--num-iteration", "4", "--resume").stdout
+        out = _launch(*ckpt, "--num-iteration", str(REC_CLI_RESUMED_EPOCHS), "--resume").stdout
         with open(sidecar) as f:
             return {"sidecar_first": first, "sidecar_resumed": json.load(f),
                     "resumed_eval_epochs": [int(n) for n, _ in re.findall(EVAL_LINE, out, re.M)]}
 
     def supervised():
         out = _launch(*ps, "--async", "--supervise-servers", "--max-worker-restarts", "2",
-                      "--ps-retry-attempts", "4", "--num-iteration", "2").stdout
+                      "--ps-retry-attempts", "4", "--num-iteration",
+                      str(REC_CLI_EPOCHS)).stdout
         return {"exit": 0, "eval_epochs": [int(n) for n, _ in re.findall(EVAL_LINE, out, re.M)]}
 
     def sync_supervised():
@@ -3422,10 +3435,12 @@ def _cli_ps_recovery(tmp: str, seed: int) -> dict:
     out["seconds"] = time.perf_counter() - t0
     want_msg = ("error: --supervise-servers requires --async (sync BSP state cannot be "
                 "reconstructed; use --checkpoint-dir + --resume)")
-    if (out["resume"]["sidecar_first"] != {"epoch": 2, "attempt": 0}
-            or out["resume"]["sidecar_resumed"] != {"epoch": 4, "attempt": 1}
-            or out["resume"]["resumed_eval_epochs"] != [3, 4]
-            or out["supervised"]["eval_epochs"] != [1, 2]
+    resumed = list(range(REC_CLI_EPOCHS + 1, REC_CLI_RESUMED_EPOCHS + 1))
+    if (out["resume"]["sidecar_first"] != {"epoch": REC_CLI_EPOCHS, "attempt": 0}
+            or out["resume"]["sidecar_resumed"] != {"epoch": REC_CLI_RESUMED_EPOCHS,
+                                                    "attempt": 1}
+            or out["resume"]["resumed_eval_epochs"] != resumed
+            or out["supervised"]["eval_epochs"] != list(range(1, REC_CLI_EPOCHS + 1))
             or out["sync_supervised"]["exit"] != 2
             or want_msg not in out["sync_supervised"]["stderr"]):
         raise AssertionError(f"ps_recovery cli: {out}")
@@ -3462,7 +3477,8 @@ def phase_ps_recovery(torch, seed: int, smi: str) -> dict:
            "reduced": {"epochs": f"{PS_EPOCHS} (sync, async restart), {REC_KILL_EPOCHS} "
                                  "(server kill): cut in depth",
                        "shard_rows": f"{PS_SHARD_ROWS} a worker, as the ps phase",
-                       "cli": f"{REC_CLI_ROWS}-row shards at D = {FULL_D}"}}
+                       "cli": f"{REC_CLI_ROWS}-row shards at D = {FULL_D}, "
+                              f"{REC_CLI_EPOCHS} epoch(s) resumed to {REC_CLI_RESUMED_EPOCHS}"}}
     launches = {}
 
     def add(counts):
@@ -4105,6 +4121,529 @@ def phase_ps_durable(torch, seed: int, smi: str) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     torch.cuda.empty_cache()
     emit("ps_durable", **out)
+    return out
+
+
+# --- live membership resizing -------------------------------------------------
+# a 2 -> 4 -> 2 reshard of an async group at D = 1M: each direction moves
+# [250,000, 500,000) and [750,000, 1,000,000), 500,000 keys of 12 B
+ELASTIC_SERVERS, ELASTIC_GROWN = 2, 4
+ELASTIC_MOVED_KEYS, ELASTIC_MOVED_BYTES = 500_000, 6_000_000
+ELASTIC_FTRL_KEYS, ELASTIC_FTRL_BYTES = 1_000_000, 28_000_000
+ELASTIC_GRAD_B, ELASTIC_FTRL_PUSHES = 512, 8
+# the live scenario: the JAX package's "double then halve under chaos"
+# (tests/test_elastic.py), at D = 1M, with the card's Hogwild pusher beside
+# the online trainer; the partition opens on link 0 at ELASTIC_PARTITION_S
+# after the group starts, and the grow runs inside it
+ELASTIC_SHARDS, ELASTIC_SHARD_ROWS, ELASTIC_TEST_ROWS = 12, 50, 200
+ELASTIC_PARTITION_S, ELASTIC_PARTITION_LEN_S = 5.0, 0.7
+ELASTIC_LR, ELASTIC_PUSH_PACE_S, ELASTIC_RELOAD_S = 8.0, 0.05, 0.2
+ELASTIC_DRAIN_S, ELASTIC_CLI_ROWS = 60.0, 40
+
+
+def _el_rows(rng, vocab, w_true, n: int):
+    """``n`` one-hot rows of the online phase's planted model (ONLINE_FIELDS
+    columns a row, |margin| >= 2) and their labels."""
+    return _online_rows(rng, vocab, w_true, n, +1)
+
+
+def _el_write_shards(shard_dir: str, cols, y, start_seq: int) -> int:
+    """``cols``/``y`` as ELASTIC_SHARD_ROWS-row libsvm shards, each renamed
+    into place whole, numbered from ``start_seq``; returns the next number."""
+    os.makedirs(shard_dir, exist_ok=True)
+    seq = start_seq
+    for lo in range(0, len(y), ELASTIC_SHARD_ROWS):
+        path = os.path.join(shard_dir, f"shard-{seq:06d}.libsvm")
+        with open(path + ".tmp", "w") as f:
+            f.write("".join(f"{int(y[i])} {_features(cols[i])}\n"
+                            for i in range(lo, min(lo + ELASTIC_SHARD_ROWS, len(y)))))
+        os.replace(path + ".tmp", path)
+        seq += 1
+    return seq
+
+
+def _el_at_rest(seed: int) -> dict:
+    """Check 1: a seeded w through resize(4) and resize(2) of an async sgd
+    group; a ``route=coord.layout`` client pulls w bit for bit after each,
+    at epochs 2 and 3, and each direction moves ELASTIC_MOVED_KEYS keys."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.ps import KVWorker, MembershipCoordinator, ServerGroup  # noqa: PLC0415
+
+    w = np.random.default_rng(seed + 60).standard_normal(FULL_D).astype(np.float32)
+    out = {}
+    with ServerGroup(ELASTIC_SERVERS, 1, FULL_D, sync=False) as g:
+        coord = MembershipCoordinator(g)
+        with KVWorker(g.hosts, FULL_D, sync_group=False) as kv:
+            kv.push_init(w)
+        with KVWorker(None, FULL_D, client_id=1, sync_group=False, route=coord.layout) as kv:
+            for target, epoch in ((ELASTIC_GROWN, 2), (ELASTIC_SERVERS, 3)):
+                stats = coord.resize(target)
+                t0 = time.perf_counter()
+                pulled = kv.pull()
+                stats["pull_after_ms"] = (time.perf_counter() - t0) * 1e3
+                if (not np.array_equal(pulled, w) or stats["epoch"] != epoch
+                        or kv.client_epoch != epoch or g.num_servers != target
+                        or stats["keys_moved"] != ELASTIC_MOVED_KEYS
+                        or stats["bytes_moved"] != ELASTIC_MOVED_BYTES):
+                    raise AssertionError(f"ps_elastic at rest: {stats}, client epoch "
+                                         f"{kv.client_epoch}, bits kept "
+                                         f"{np.array_equal(pulled, w)}")
+                out[stats["direction"]] = stats
+            out["client_reroutes"] = kv.reroutes
+    return out
+
+
+def _el_ftrl(torch, ops, seed: int) -> dict:
+    """Check 2: ELASTIC_FTRL_PUSHES gradients of ``fused_lr_grad`` on the
+    card at (ELASTIC_GRAD_B, D), pushed into a 2-rank FTRL group, half
+    before a resize(4) (a full rebuild: weights and z/n) and half after; the
+    pull equals a static 2-rank group's after the same pushes bit for bit."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.ps import KVWorker, MembershipCoordinator, ServerGroup  # noqa: PLC0415
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 61)
+    X = torch.randn((ELASTIC_GRAD_B, FULL_D), generator=gen, device="cuda").bfloat16()
+    y = (torch.rand(ELASTIC_GRAD_B, generator=gen, device="cuda") < 0.5).float()
+    mask = torch.ones(ELASTIC_GRAD_B, device="cuda")
+    grads = []
+    for _ in range(ELASTIC_FTRL_PUSHES):
+        w = torch.randn(FULL_D, generator=gen, device="cuda") * 0.01
+        grads.append(ops.fused_lr_grad(w, X, y, mask).cpu().numpy())
+    g_ref = ops.fused_lr_grad_reference(w, X, y, mask).cpu().numpy()
+    kernel_err = {"rel_err": rel_err(torch.from_numpy(grads[-1]), torch.from_numpy(g_ref)),
+                  "max_abs_err": float(np.abs(grads[-1] - g_ref).max())}
+    del X
+    half = ELASTIC_FTRL_PUSHES // 2
+    with ServerGroup(ELASTIC_SERVERS, 1, FULL_D, sync=False, optimizer="ftrl") as g:
+        coord = MembershipCoordinator(g)
+        with KVWorker(None, FULL_D, sync_group=False, route=coord.layout) as kv:
+            kv.push_init(np.zeros(FULL_D, np.float32))
+            for gv in grads[:half]:
+                kv.push(gv)
+            before = kv.pull()
+            stats = coord.resize(ELASTIC_GROWN)
+            kept = np.array_equal(kv.pull(), before)
+            for gv in grads[half:]:
+                kv.push(gv)
+            w_elastic = kv.pull()
+    with ServerGroup(ELASTIC_SERVERS, 1, FULL_D, sync=False, optimizer="ftrl") as g:
+        with KVWorker(g.hosts, FULL_D, sync_group=False) as kv:
+            kv.push_init(np.zeros(FULL_D, np.float32))
+            for gv in grads:
+                kv.push(gv)
+            w_static = kv.pull()
+    equal = bool(np.array_equal(w_elastic, w_static))
+    if (not kept or not equal or stats["reused"] != 0 or stats["spawned"] != ELASTIC_GROWN
+            or stats["keys_moved"] != ELASTIC_FTRL_KEYS
+            or stats["bytes_moved"] != ELASTIC_FTRL_BYTES or kernel_err["rel_err"] > REL_TOL):
+        raise AssertionError(f"ps_elastic ftrl: {stats}, kept {kept}, equal to static {equal}, "
+                             f"kernel {kernel_err}")
+    return {"resize": stats, "bits_equal_static": equal, "nonzero_weights":
+            int(np.count_nonzero(w_static)), "kernel_vs_plain": kernel_err}
+
+
+def _el_pct(xs, q: float):
+    import numpy as np  # noqa: PLC0415
+
+    return float(np.percentile(np.asarray(xs) * 1e3, q)) if len(xs) else None
+
+
+def _el_live(torch, ops, seed: int, tmp: str) -> dict:
+    """Check 3: the JAX package's "double then halve under chaos" at D = 1M.
+    A supervised 2-rank sgd group behind a partition on link 0, coordinated
+    with the supervisor; a Hogwild pusher thread (pull, ``fused_lr_grad`` on
+    the card, push) and an ``OnlineTrainer`` on labelled shards, both
+    through ``route=coord.layout``; a ``ScoringEngine`` on the card fed by
+    ``LivePSWatcher(route=)`` behind a ``ScoringServer`` and a
+    ``ScoringRouter``, with request traffic.  ``resize(4)`` runs inside the
+    partition, then ``resize(2)``.  Held to the JAX test's invariants, and
+    to a static group's accuracy on the same data."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.chaos import parse_plan  # noqa: PLC0415
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.feedback import OnlineTrainer  # noqa: PLC0415
+    from distlr_tpu_torch.models import get_model  # noqa: PLC0415
+    from distlr_tpu_torch.ps import (  # noqa: PLC0415
+        KVWorker,
+        MembershipCoordinator,
+        RetryPolicy,
+        ServerGroup,
+        ServerSupervisor,
+    )
+    from distlr_tpu_torch.serve import (  # noqa: PLC0415
+        HotReloader,
+        LivePSWatcher,
+        ScoringRouter,
+        ScoringServer,
+        score_lines_over_tcp,
+    )
+
+    rng = np.random.default_rng(seed + 62)
+    vocab = np.sort(rng.choice(FULL_D, size=ONLINE_FIELDS * ONLINE_VOCAB, replace=False)
+                    ).reshape(ONLINE_FIELDS, ONLINE_VOCAB)
+    w_true = np.zeros(FULL_D, np.float32)
+    w_true[vocab] = rng.permuted(np.tile([-1.0, 1.0], ONLINE_VOCAB // 2)[None].repeat(
+        ONLINE_FIELDS, 0), axis=1)
+    cols, y = _el_rows(rng, vocab, w_true, ELASTIC_SHARDS * ELASTIC_SHARD_ROWS)
+    cols_t, y_t = _el_rows(rng, vocab, w_true, ELASTIC_TEST_ROWS)
+    cols_p, y_p = _el_rows(rng, vocab, w_true, ELASTIC_GRAD_B)
+    test_lines = [_features(c) for c in cols_t]
+    X_p = _device_rows(torch, cols_p, FULL_D, torch.bfloat16)
+    y_dev, mask = torch.from_numpy(y_p).float().cuda(), torch.ones(ELASTIC_GRAD_B, device="cuda")
+    cfg = Config(model="binary_lr", num_feature_dim=FULL_D, batch_size=25, l2_c=0.0,
+                 sync_mode=False, learning_rate=ELASTIC_LR, compute_dtype="bfloat16",
+                 ps_retry_attempts=6, ps_retry_backoff_ms=25, ps_retry_deadline_s=30)
+    model = get_model(cfg)
+
+    def accuracy(w) -> float:
+        return float((((w[cols_t].sum(axis=1)) > 0).astype(np.int32) == y_t).mean())
+
+    def push_round(kv) -> int:
+        w = torch.from_numpy(kv.pull()).cuda()
+        return kv.push(model.grad(w, (X_p, y_dev, mask), cfg).cpu().numpy())
+
+    third = len(y) // 3
+    plan = parse_plan({"seed": seed, "faults": [
+        {"kind": "partition", "links": [0],
+         "window": [ELASTIC_PARTITION_S, ELASTIC_PARTITION_S + ELASTIC_PARTITION_LEN_S]}]})
+    shard_dir = os.path.join(tmp, "shards")
+    out: dict = {}
+    group = ServerGroup(ELASTIC_SERVERS, 1, FULL_D, sync=False, learning_rate=ELASTIC_LR,
+                        via_chaos=plan).start()
+    sup = ServerSupervisor(group, poll_interval=0.1).start()
+    coord = MembershipCoordinator(group, supervisor=sup)
+    stop, traffic_stop = threading.Event(), threading.Event()
+    errors: list = []
+    pusher_state = {"ok": 0, "rounds": 0}
+    requests: list[tuple[float, float]] = []
+    serve_errs: list[str] = []
+    windows: list[tuple[float, float]] = []
+    threads, reloader, srv, router, trainer = [], None, None, None, None
+    try:
+        with KVWorker(group.direct_hosts, FULL_D, sync_group=False) as kv:
+            kv.push_init(np.zeros(FULL_D, np.float32))
+        pusher_kv = KVWorker(None, FULL_D, client_id=2, sync_group=False,
+                             timeout_ms=cfg.ps_timeout_ms, retry=RetryPolicy.from_config(cfg),
+                             route=coord.layout)
+        trainer = OnlineTrainer(cfg, None, shard_dir, poll_interval_s=0.05, idle_flush_s=0.3,
+                                route=coord.layout)
+
+        def pusher():
+            try:
+                while not stop.is_set():
+                    if push_round(pusher_kv) >= 0:
+                        pusher_state["ok"] += 1
+                    pusher_state["rounds"] += 1
+                    if pusher_state["rounds"] == 3:
+                        pusher_state["w_probe"] = pusher_kv.pull()
+                    stop.wait(ELASTIC_PUSH_PACE_S)
+            except Exception as e:  # noqa: BLE001 — re-raised in the main thread
+                errors.append(("pusher", e))
+
+        def train():
+            try:
+                trainer.run(stop=stop)
+                trainer._flush_push()
+            except Exception as e:  # noqa: BLE001
+                errors.append(("trainer", e))
+
+        eng = _serve_engine(torch, FULL_D)
+        watcher = LivePSWatcher(None, FULL_D, route=coord.layout, timeout_ms=5000,
+                                retry=RetryPolicy.from_config(cfg))
+        reloader = HotReloader(eng, watcher, interval_s=ELASTIC_RELOAD_S).start()
+        reloader.wait_for_weights(timeout_s=60)
+        srv = ScoringServer(eng, max_wait_ms=SERVE_WAIT_MS).start()
+        router = ScoringRouter([f"{srv.host}:{srv.port}"]).start()
+
+        def traffic():
+            i = 0
+            while not traffic_stop.is_set():
+                t0 = time.monotonic()
+                for r in score_lines_over_tcp(router.host, router.port,
+                                              [test_lines[i % len(test_lines)]]):
+                    if r.startswith("ERR"):
+                        serve_errs.append(r)
+                requests.append((t0, time.monotonic() - t0))
+                i += 1
+                time.sleep(0.002)
+
+        out["setup_done_at_s"] = group.chaos.now()
+        for fn, name in ((pusher, "elastic-pusher"), (train, "elastic-online"),
+                         (traffic, "elastic-traffic")):
+            threads.append(threading.Thread(target=fn, name=name, daemon=True))
+            threads[-1].start()
+        seq = _el_write_shards(shard_dir, cols[:third], y[:third], 0)
+        while group.chaos.now() < ELASTIC_PARTITION_S + 0.05:
+            time.sleep(0.01)
+        t0 = time.monotonic()
+        out["grow_started_at_s"] = group.chaos.now()
+        out["grow"] = coord.resize(ELASTIC_GROWN)
+        windows.append((t0, time.monotonic()))
+        seq = _el_write_shards(shard_dir, cols[third:2 * third], y[third:2 * third], seq)
+        time.sleep(0.6)
+        t0 = time.monotonic()
+        out["shrink"] = coord.resize(ELASTIC_SERVERS)
+        windows.append((t0, time.monotonic()))
+        seq = _el_write_shards(shard_dir, cols[2 * third:], y[2 * third:], seq)
+        deadline = time.monotonic() + ELASTIC_DRAIN_S
+        while (sum(n.endswith(".done") for n in os.listdir(shard_dir)) < seq
+               and time.monotonic() < deadline and not errors):
+            time.sleep(0.05)
+        time.sleep(0.5)  # the idle flush pushes the last span
+    finally:
+        traffic_stop.set()
+        stop.set()
+        for th in threads:
+            th.join(timeout=60)
+        for part in (reloader, router, srv):
+            if part is not None:
+                part.stop()
+    try:
+        if errors:
+            raise AssertionError(f"ps_elastic live: {errors}")
+        done = sum(n.endswith(".done") for n in os.listdir(shard_dir))
+        issued = pusher_state["ok"] + trainer.pushes + 2  # + the two seeding push_inits
+        unknowns = pusher_kv.push_outcome_unknown + trainer.kv.push_outcome_unknown
+        applied = group.global_pushes() - coord.seed_pushes / group.num_servers
+        with KVWorker(group.direct_hosts, FULL_D, sync_group=False) as kv:
+            w_elastic = kv.pull()
+        rstats = router.stats()
+        out.update({
+            "partition": [ELASTIC_PARTITION_S, ELASTIC_PARTITION_S + ELASTIC_PARTITION_LEN_S],
+            "epoch": coord.epoch, "servers": group.num_servers,
+            "shards": {"written": seq, "consumed": done, "examples": trainer.examples,
+                       "rows": len(y)},
+            "pusher": {"rounds": pusher_state["rounds"], "acked": pusher_state["ok"],
+                       "absorbed": pusher_kv.push_outcome_unknown,
+                       "reroutes": pusher_kv.reroutes, "retries": pusher_kv.retries,
+                       "epoch_mismatches": pusher_kv.epoch_mismatches},
+            "online": {"pushes": trainer.pushes, "absorbed": trainer.kv.push_outcome_unknown,
+                       "reroutes": trainer.kv.reroutes},
+            "watcher_reroutes": watcher.kv.reroutes,
+            "audit": {"applied": applied, "issued": issued, "unknown": unknowns,
+                      "seed_pushes": coord.seed_pushes},
+            "serve": {"requests": len(requests), "err_replies": len(serve_errs),
+                      "router_errors": rstats["errors"]},
+            "supervisor_events": list(sup.events)})
+        inside = [s for t, s in requests if any(a <= t <= b for a, b in windows)]
+        outside = [s for t, s in requests if not any(a <= t <= b for a, b in windows)]
+        out["serve_latency_ms"] = {
+            "in_resize": {"n": len(inside), "p50": _el_pct(inside, 50), "p99": _el_pct(inside, 99)},
+            "outside": {"n": len(outside), "p50": _el_pct(outside, 50),
+                        "p99": _el_pct(outside, 99)}}
+    finally:
+        pusher_kv.close()
+        trainer.close()
+        sup.stop()
+        group.stop()
+    # the main path's launches end here: the twin and the comparison follow
+    out["_launches"] = _launches(ops)
+    # the static twin: the same shards and the same pusher rounds, no churn
+    static_dir = os.path.join(tmp, "static")
+    _el_write_shards(static_dir, cols, y, 0)
+    with ServerGroup(ELASTIC_SERVERS, 1, FULL_D, sync=False, learning_rate=ELASTIC_LR) as g2:
+        tr = OnlineTrainer(cfg, g2.hosts, static_dir, poll_interval_s=0.05)
+        tr.run(max_shards=seq)
+        tr._flush_push()
+        tr.close()
+        with KVWorker(g2.hosts, FULL_D, sync_group=False) as kv:
+            for _ in range(pusher_state["rounds"]):
+                push_round(kv)
+            w_static = kv.pull()
+    out["accuracy"] = {"elastic": accuracy(w_elastic), "static": accuracy(w_static)}
+    w_probe = torch.from_numpy(pusher_state.get("w_probe", w_static)).cuda()
+    g_k, g_ref = ops.fused_lr_grad(w_probe, X_p, y_dev, mask), ops.fused_lr_grad_reference(
+        w_probe, X_p, y_dev, mask)
+    out["pusher_grad_vs_plain"] = {"rel_err": rel_err(g_k, g_ref),
+                                   "max_abs_err": float((g_k - g_ref).abs().max())}
+    bad = []
+    if out["serve"]["err_replies"] or out["serve"]["router_errors"] or not requests:
+        bad.append("serving errors")
+    if out["supervisor_events"]:
+        bad.append("supervisor events")
+    if done != seq or trainer.examples != len(y):
+        bad.append("shards not consumed exactly once")
+    if (coord.epoch, out["servers"]) != (3, ELASTIC_SERVERS):
+        bad.append("epoch / servers")
+    if applied > issued + unknowns + 1:
+        bad.append("applied > issued + unknown + 1")
+    if out["accuracy"]["static"] <= 0.9 or out["accuracy"]["elastic"] < (
+            out["accuracy"]["static"] - 0.01):
+        bad.append("accuracy")
+    if not (ELASTIC_PARTITION_S <= out["grow_started_at_s"]
+            <= ELASTIC_PARTITION_S + ELASTIC_PARTITION_LEN_S):
+        bad.append("the grow ran outside the partition")
+    if out["pusher_grad_vs_plain"]["rel_err"] > REL_TOL:
+        bad.append("the pusher's gradient disagrees with the plain version")
+    if bad:
+        raise AssertionError(f"ps_elastic live: {bad}: {out}")
+    return out
+
+
+def _el_cli(torch, ops, seed: int, tmp: str) -> dict:
+    """Check 4: ``launch ps-server --elastic --async`` at D = 1M prints
+    PSCTL; ``launch serve --ps-ctl`` and ``launch online --ps-ctl`` run
+    against it; ``launch ps-ctl resize 4`` exits 0, then ``resize 2
+    --no-wait`` and ``status`` polls until ``last_resize.ok``.  A served
+    score after each resize equals σ(plain logits) of a direct pull."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.ps import KVWorker, layout_client  # noqa: PLC0415
+    from distlr_tpu_torch.serve import score_lines_over_tcp  # noqa: PLC0415
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs, lines_of = {}, {}
+    shard_dir = os.path.join(tmp, "cli-shards")
+
+    def start(name, *argv):
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "distlr_tpu_torch.launch", *argv], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+    def ready(name, *keys):
+        for key in keys:
+            line = procs[name].stdout.readline().strip()
+            got, _, rest = line.partition(" ")
+            if got != key:
+                raise AssertionError(f"launch {name} printed {line!r}, not {key}")
+            lines_of[key] = rest
+
+    def ctl(*argv) -> tuple[int, dict]:
+        p = subprocess.run([sys.executable, "-m", "distlr_tpu_torch.launch", "ps-ctl", "--ctl",
+                            addr, *argv], cwd=ROOT, env=env, capture_output=True, text=True,
+                           timeout=120)
+        last = (p.stdout.strip().splitlines() or ["PSCTL {}"])[-1]
+        return p.returncode, json.loads(last[len("PSCTL "):])
+
+    rng = np.random.default_rng(seed + 63)
+    cols = np.stack([np.sort(rng.choice(FULL_D, ONLINE_FIELDS, replace=False))
+                     for _ in range(ELASTIC_CLI_ROWS)])
+    w0 = _bf16_exact(torch, _serve_weights(rng, FULL_D, cols))
+    y = (w0[cols].sum(axis=1) > 0).astype(np.int32)
+    req = [_features(c) for c in cols]
+    out: dict = {}
+
+    def served_vs_pull(what: str) -> dict:
+        """Served scores against σ(plain logits of a direct pull); polls
+        until the serve's reload caught up (ELASTIC_DRAIN_S at most)."""
+        host, port = lines_of["SERVING"].rsplit(":", 1)
+        deadline = time.monotonic() + ELASTIC_DRAIN_S
+        while True:
+            with KVWorker(None, FULL_D, client_id=9, sync_group=False,
+                          route=layout_client(addr)) as kv:
+                w = kv.pull()
+            labels, scores = _parse_libsvm_replies(score_lines_over_tcp(host, int(port), req))
+            try:
+                return _check_replies(torch, f"ps_elastic cli {what}", labels, scores,
+                                      _plain_logits(torch, ops, torch.from_numpy(w).cuda(),
+                                                    cols, FULL_D))
+            except AssertionError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(ELASTIC_RELOAD_S)
+
+    try:
+        start("ps-server", "ps-server", "--num-feature-dim", str(FULL_D), "--num-servers",
+              str(ELASTIC_SERVERS), "--async", "--elastic")
+        ready("ps-server", "HOSTS", "PSCTL")
+        addr = "127.0.0.1:" + lines_of["PSCTL"].rsplit(":", 1)[1]
+        with KVWorker(lines_of["HOSTS"], FULL_D, sync_group=False) as kv:
+            kv.push_init(w0)
+        # the two clients start side by side: both wait for the seeded group
+        start("serve", "serve", "--num-feature-dim", str(FULL_D), "--ps-ctl", addr, "--port",
+              "0", "--reload-interval", str(ELASTIC_RELOAD_S), "--feature-dtype", "bfloat16")
+        start("online", "online", "--num-feature-dim", str(FULL_D), "--l2-c", "0", "--ps-ctl",
+              addr, "--shard-dir", shard_dir, "--max-shards", "2", "--poll-interval", "0.05")
+        ready("serve", "SERVING")
+        ready("online", "ONLINE")
+        rc, doc = ctl("resize", str(ELASTIC_GROWN))
+        out["resize_4"] = {"exit": rc, **doc}
+        out["served_after_grow"] = served_vs_pull("after the grow")
+        _el_write_shards(shard_dir, cols[:ELASTIC_CLI_ROWS // 2], y[:ELASTIC_CLI_ROWS // 2], 0)
+        deadline = time.monotonic() + ELASTIC_DRAIN_S
+        while not os.path.exists(os.path.join(shard_dir, "shard-000000.libsvm.done")):
+            if time.monotonic() > deadline:
+                raise AssertionError("ps_elastic cli: launch online consumed no shard")
+            time.sleep(0.05)
+        rc, doc = ctl("resize", str(ELASTIC_SERVERS), "--no-wait")
+        out["resize_2_no_wait"] = {"exit": rc, **doc}
+        polls = 0
+        while True:
+            polls += 1
+            _, st = ctl("status")
+            last = st.get("last_resize") or {}
+            if st.get("status") == "active" and last.get("epoch") == 3:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"ps_elastic cli: status {st}")
+            time.sleep(0.1)
+        out["status_polls"], out["last_resize"] = polls, last
+        _el_write_shards(shard_dir, cols[ELASTIC_CLI_ROWS // 2:], y[ELASTIC_CLI_ROWS // 2:], 1)
+        out["exits"] = {"online": procs["online"].wait(timeout=ELASTIC_DRAIN_S)}
+        out["served_after_shrink"] = served_vs_pull("after the shrink")
+        for name in ("serve", "ps-server"):
+            procs[name].send_signal(signal.SIGTERM)
+            out["exits"][name] = procs[name].wait(timeout=60)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if (out["resize_4"]["exit"] != 0 or not out["resize_4"].get("ok")
+            or out["resize_4"].get("epoch") != 2 or not out["resize_2_no_wait"].get("accepted")
+            or not out["last_resize"].get("ok")
+            or out["exits"] != {"online": 0, "serve": 143, "ps-server": 143}):
+        raise AssertionError(f"ps_elastic cli: {out}")
+    return out
+
+
+def phase_ps_elastic(torch, seed: int, smi: str) -> dict:
+    """Live membership resizing at D = 1M (async, binary_lr), through the
+    entry points a user calls: (1) bits at rest across a 2 -> 4 -> 2
+    reshard (:func:`_el_at_rest`); (2) an FTRL group's reshard on card
+    gradients, bit-equal to a static group's (:func:`_el_ftrl`); (3) the
+    live scenario under chaos with the card's pusher, the online trainer
+    and a serving engine on the card (:func:`_el_live`); (4) the CLI chain
+    (:func:`_el_cli`).  The launch counts are zeroed just before checks 2
+    and 3 and read after them, before their kernel-vs-plain comparisons."""
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+
+    t_phase = time.perf_counter()
+    out = {"nvidia_smi": smi, "D": FULL_D, "servers": [ELASTIC_SERVERS, ELASTIC_GROWN,
+                                                       ELASTIC_SERVERS],
+           "reduced": {"live": f"{ELASTIC_SHARDS} shards of {ELASTIC_SHARD_ROWS} rows, one "
+                               "online trainer, one pusher, one engine: a smoke test",
+                       "ftrl": f"{ELASTIC_FTRL_PUSHES} pushes"}}
+    rss: dict = {}
+    with _sampled_peak_rss(rss), tempfile.TemporaryDirectory(prefix="distlr-smoke-el-") as tmp:
+        t0 = time.perf_counter()
+        out["at_rest"] = _el_at_rest(seed)
+        out["at_rest"]["check_s"] = time.perf_counter() - t0
+        launches = {}
+        for name, fn in (("ftrl", lambda: _el_ftrl(torch, ops, seed)),
+                         ("live", lambda: _el_live(torch, ops, seed, tmp))):
+            t0 = time.perf_counter()
+            out[name], counts, _ = _bounded(torch, fn)
+            counts = out[name].pop("_launches", counts)
+            out[name]["check_s"] = time.perf_counter() - t0
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+        # each count was read before its check's comparison launches
+        out["launches"] = {k: v for k, v in launches.items() if v}
+        others = {k: v for k, v in out["launches"].items()
+                  if k not in ("fused_lr_grad", "lr_logits")}
+        if not launches.get("fused_lr_grad") or not launches.get("lr_logits") or others:
+            raise AssertionError(f"ps_elastic: launches {launches}")
+        t0 = time.perf_counter()
+        out["cli"] = _el_cli(torch, ops, seed, tmp)
+        out["cli"]["check_s"] = time.perf_counter() - t0
+    out.update(rss)
+    out["phase_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    emit("ps_elastic", **out)
     return out
 
 
@@ -5958,6 +6497,8 @@ def main(argv=None) -> int:
         ps_recovery = phase_ps_recovery(torch, args.seed, env["nvidia_smi"])
         phase = "ps_durable"
         ps_durable = phase_ps_durable(torch, args.seed, env["nvidia_smi"])
+        phase = "ps_elastic"
+        ps_elastic = phase_ps_elastic(torch, args.seed, env["nvidia_smi"])
         phase = "serve_hot"
         phase_serve_hot(torch, args.seed, env["nvidia_smi"])
         phase = "route"
@@ -5983,6 +6524,8 @@ def main(argv=None) -> int:
             by_path.setdefault(name, {})["ps_recovery"] = n
         for name, n in ps_durable["launches"].items():
             by_path.setdefault(name, {})["ps_durable"] = n
+        for name, n in ps_elastic["launches"].items():
+            by_path.setdefault(name, {})["ps_elastic"] = n
         for shape, t in ps["kernels_at_ps_shapes"]["timing"].items():
             name, rows = shape.rsplit("_B", 1)
             timing[name].setdefault("at_ps_shapes", {})[f"B{rows}"] = t

@@ -16,13 +16,17 @@ with the same names, defaults and validations, and the
 same resolution of the reference-quirk gates Q1, Q2, Q4 and Q5 from
 ``compat_mode``.  Options whose code is not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item, so a run never
-silently drops one; the JAX package's other PS options are here under
-their names for that reason alone.  ``device`` is the port's own knob.
+silently drops one.  ``ps_host`` and ``ps_port``, the reference's
+rendezvous address, are accepted and read by nothing, as in JAX;
+:meth:`Config.from_env` reads the reference's environment variables.
+``device`` is the port's own knob.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from collections.abc import Mapping
 from typing import Any
 
 
@@ -34,11 +38,20 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 _SPARSE_MODELS = ("sparse_lr", "sparse_softmax", "blocked_lr")
 _MODELS = ("binary_lr", "softmax") + _SPARSE_MODELS
 
-#: the JAX package's PS deployment options, with their defaults: any other
-#: value raises (ROADMAP A.16; their item is A.16.6).  The local group's servers bind port 0
-#: on 127.0.0.1, so the rendezvous address (``ps_host``, ``ps_port``) is
-#: not read.
-_UNPORTED_PS_OPTIONS = {"ps_host": "127.0.0.1", "ps_port": 8001}
+def _env(env: Mapping[str, str], name: str, cast, default):
+    raw = env.get(name)
+    if raw is None or raw == "":
+        return default
+    try:
+        return cast(raw)
+    except (TypeError, ValueError) as e:
+        raise ValueError(f"bad value for env var {name}={raw!r}: {e}") from e
+
+
+def _bool_from_int(raw: str) -> bool:
+    # the reference's rule: SYNC_MODE is sync iff the string is exactly "1"
+    # (strcmp in src/main.cc:26)
+    return raw.strip() == "1"
 
 
 @dataclasses.dataclass
@@ -140,7 +153,9 @@ class Config:
     ps_retry_backoff_max_ms: float = 2000.0
     ps_retry_deadline_s: float = 60.0
     ps_retry_adaptive: bool = False
-    # Not ported (ROADMAP A.16.6): must keep these defaults.
+    # The reference's rendezvous address: accepted and read by nothing, as
+    # in JAX (the servers bind port 0 and clients get their hosts, or a
+    # coordinator's layout).
     ps_host: str = "127.0.0.1"        # DMLC_PS_ROOT_URI
     ps_port: int = 8001               # DMLC_PS_ROOT_PORT
     # Durable server store: each spawned rank snapshots its slice (weights,
@@ -325,9 +340,6 @@ class Config:
                 f"ps_retry_deadline_s must be positive, "
                 f"got {self.ps_retry_deadline_s}"
             )
-        for name, default in _UNPORTED_PS_OPTIONS.items():
-            if getattr(self, name) != default:
-                raise _not_ported(f"the PS option {name}={getattr(self, name)!r}", "A.16")
         if self.checkpoint_interval < 0:
             raise ValueError(
                 "checkpoint_interval must be >= 0 (epochs; 0 = only final save), "
@@ -487,6 +499,30 @@ class Config:
         if self.route_backend_timeout_s <= 0:
             raise ValueError("route_backend_timeout_s must be positive, "
                              f"got {self.route_backend_timeout_s}")
+
+    @classmethod
+    def from_env(cls, env: Mapping[str, str] | None = None, **overrides: Any) -> "Config":
+        """A Config from the reference's environment variables
+        (``distlr_tpu/config.py`` ``from_env``); an absent one keeps the
+        launcher default (the reference segfaults)."""
+        env = os.environ if env is None else env
+        kw: dict[str, Any] = dict(
+            sync_mode=_env(env, "SYNC_MODE", _bool_from_int, True),
+            learning_rate=_env(env, "LEARNING_RATE", float, 0.2),
+            data_dir=_env(env, "DATA_DIR", str, "./a9a-data"),
+            num_feature_dim=_env(env, "NUM_FEATURE_DIM", int, 123),
+            num_iteration=_env(env, "NUM_ITERATION", int, 100),
+            batch_size=_env(env, "BATCH_SIZE", int, -1),
+            test_interval=_env(env, "TEST_INTERVAL", int, 10),
+            random_seed=_env(env, "RANDOM_SEED", int, 10),
+            l2_c=_env(env, "C", float, 1.0),
+            num_workers=_env(env, "DMLC_NUM_WORKER", int, 1),
+            num_servers=_env(env, "DMLC_NUM_SERVER", int, 1),
+            ps_host=_env(env, "DMLC_PS_ROOT_URI", str, "127.0.0.1"),
+            ps_port=_env(env, "DMLC_PS_ROOT_PORT", int, 8001),
+        )
+        kw.update(overrides)
+        return cls(**kw)
 
     def replace(self, **kw: Any) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -28,8 +28,9 @@ It needs an async server group: a lone push into a sync (BSP) group
 would wait forever in the barrier.  The JAX trainer's registry series
 (shards consumed, examples, pushes, shard lag, the span ``k``) are the
 attributes here until ROADMAP A.12.  Its client retries transport
-faults by ``RetryPolicy.from_config(cfg)``; the membership route waits
-for ROADMAP A.16.
+faults by ``RetryPolicy.from_config(cfg)``, and with a membership
+``route`` (``launch online --ps-ctl``) follows a live resize: a reshard
+costs the trainer one re-route, never a restart.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ import time
 
 import numpy as np
 
-from distlr_tpu_torch.config import Config, _not_ported
+from distlr_tpu_torch.config import Config
 from distlr_tpu_torch.feedback import clock
 from distlr_tpu_torch.utils.logging import get_logger
 
@@ -61,7 +62,7 @@ class OnlineTrainer:
     #: serving pull client (4095)
     ONLINE_CLIENT_ID = 0x0E00
 
-    def __init__(self, cfg: Config, hosts: str, shard_dir: str, *,
+    def __init__(self, cfg: Config, hosts: str | None, shard_dir: str, *,
                  accum_start: int = 1, accum_growth: float = 2.0,
                  accum_growth_every: int = 32, accum_max: int = 64,
                  poll_interval_s: float = 0.5, idle_flush_s: float = 2.0,
@@ -84,8 +85,6 @@ class OnlineTrainer:
                 f"online training supports {_SUPPORTED}, got {cfg.model!r}")
         if worker_id < 0:
             raise ValueError(f"worker_id must be >= 0, got {worker_id}")
-        if route is not None:
-            raise _not_ported("a membership route for the online trainer", "A.16")
         from distlr_tpu_torch.compress import GradientAccumulator  # noqa: PLC0415
         from distlr_tpu_torch.ps import KVWorker, RetryPolicy  # noqa: PLC0415
         from distlr_tpu_torch.train.ps_trainer import ps_param_dim  # noqa: PLC0415
@@ -106,7 +105,8 @@ class OnlineTrainer:
             timeout_ms=cfg.ps_timeout_ms,
             sync_group=False,  # Hogwild client: no barriers, keyed shortcut
             retry=RetryPolicy.from_config(cfg),
-            compress=cfg.ps_compress)
+            compress=cfg.ps_compress,
+            route=route)
         self.kv = (worker if wire_dim == self.dim and not ns_base
                    else worker.namespace(int(ns_base), self.dim))
         if seed_init:

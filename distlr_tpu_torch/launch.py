@@ -7,8 +7,7 @@ option strings its JAX twin takes, with the same dests, types and
 defaults, plus ``--device`` (default ``cuda``; the CPU only when asked
 for).  A flag whose use is not ported yet is accepted at its default and
 raises ``NotImplementedError`` naming its ROADMAP item otherwise (the obs
-flags A.12; the profiler, log and incident flags A.21; the membership
-flags ``--elastic``, ``--ctl-port`` and ``--ps-ctl`` A.16), so a JAX command line never
+flags A.12; the profiler, log and incident flags A.21), so a JAX command line never
 fails at parse time and never drops a flag silently.  Run as ``python -m
 distlr_tpu_torch.launch``::
 
@@ -84,15 +83,22 @@ its own optimizer) for workers that join it with ``ps --hosts``::
 ``--store-dir S`` makes a group durable: each rank snapshots its slice
 under ``S/rank-<r>/`` every ``--store-interval`` seconds and, with
 ``--store-wal`` (async only), logs every applied push; a rank started on
-the directory recovers from it.  A durable ``ps-server`` also prints
-``PSCTL h:p``, the endpoint ``ps-ctl`` drives (``layout``, ``status``,
-``store``, ``snapshot``, ``restore``, and ``resize N``, which a durable
-group refuses); ``ps-ctl store --store-dir S`` reads a store offline::
+the directory recovers from it.  A durable or ``--elastic`` ``ps-server``
+also prints ``PSCTL h:p``, the endpoint ``ps-ctl`` drives (``layout``,
+``status``, ``store``, ``snapshot``, ``restore``, and ``resize N``, which
+reshards an elastic async group live and which a durable group refuses);
+``ps-ctl store --store-dir S`` reads a store offline.  ``serve --ps-ctl``
+and ``online --ps-ctl`` follow the coordinator's layout through a
+resize::
 
     python -m distlr_tpu_torch.launch ps-server --num-feature-dim 123 --async \\
         --store-dir S --store-wal                                # HOSTS ..., PSCTL h:p
     python -m distlr_tpu_torch.launch ps-ctl --ctl h:p snapshot
     python -m distlr_tpu_torch.launch ps-ctl store --store-dir S
+    python -m distlr_tpu_torch.launch ps-server --num-feature-dim 123 --async \\
+        --num-servers 2 --elastic                                # HOSTS ..., PSCTL h:p
+    python -m distlr_tpu_torch.launch serve --num-feature-dim 123 --ps-ctl h:p
+    python -m distlr_tpu_torch.launch ps-ctl --ctl h:p resize 4  # PSCTL {"ok": true, ...}
 
 ``chaos`` puts a JSON fault plan's proxies (delay, throttle, reset,
 partition, kill) in front of a running group and prints their ``HOSTS``;
@@ -189,21 +195,6 @@ _GATED_SHARED_FLAGS = {
     "incident_max": ("--incident-max", 32, "A.21"),
 }
 
-#: the JAX package's ``serve`` flags that are not ported, with their ROADMAP
-#: items: (flag, dest, type; None = a switch, item); given, each one raises
-_UNPORTED_SERVE_FLAGS = (
-    ("--ps-ctl", "ps_ctl", str, "A.16"),
-)
-
-#: each subcommand's flags whose command the port runs, but whose use
-#: there is not ported: (flag, dest, the JAX default, ROADMAP item)
-_COMMAND_GATES = {
-    "ps-server": (("--elastic", "elastic", False, "A.16"),
-                  ("--ctl-port", "ctl_port", None, "A.16")),
-    "serve": tuple((f, d, None, item) for f, d, _, item in _UNPORTED_SERVE_FLAGS),
-    "online": (("--ps-ctl", "ps_ctl", None, "A.16"),),
-}
-
 
 def _given(value, default) -> bool:
     """A flag was given with a value other than its default (None = not
@@ -215,16 +206,13 @@ def _refuse_gated(args: argparse.Namespace) -> None:
     """Raise naming the ROADMAP item of the first flag given whose use is
     not ported: the shared obs flags (A.12; on ``rollout``,
     ``--obs-run-dir`` is the aggregator's discovery, A.21) and the
-    profiler, log and incident flags (A.21), then the command's own."""
+    profiler, log and incident flags (A.21)."""
     cmd = getattr(args, "cmd", None)
     where = f"launch {cmd}" if cmd else "launch"
     for dest, (flag, default, item) in _GATED_SHARED_FLAGS.items():
         if _given(getattr(args, dest, None), default):
             if cmd == "rollout" and dest == "obs_run_dir":
                 item = "A.21"
-            raise _not_ported(f"{where} {flag}", item)
-    for flag, dest, default, item in _COMMAND_GATES.get(cmd, ()):
-        if _given(getattr(args, dest, None), default):
             raise _not_ported(f"{where} {flag}", item)
 
 
@@ -654,8 +642,9 @@ def cmd_ps_server(args: argparse.Namespace) -> int:
     rendezvous is TCP, there is no scheduler): it prints ``HOSTS h:p,...``
     (and ``NAMESPACES id=base,... per_dim=D`` with ``--namespaces``; and
     ``PSCTL host:port``, the coordinator endpoint ``ps-ctl`` drives, with
-    ``--store-dir``), then waits until a worker retires the group.  SIGTERM
-    stops every server and exits 143."""
+    ``--elastic`` or ``--store-dir``), then waits until a worker retires
+    the group, through any live resize.  SIGTERM stops every server and
+    exits 143."""
     import signal  # noqa: PLC0415
 
     from distlr_tpu_torch.ps import (  # noqa: PLC0415
@@ -695,6 +684,10 @@ def cmd_ps_server(args: argparse.Namespace) -> int:
                 return 2
             opt_segments = [(base + d, ns_opts.get(m, default_opt))
                             for m, (base, d) in layout.items()]
+    if args.elastic and cfg.sync_mode:
+        print("error: --elastic requires --async (a sync BSP round "
+              "cannot straddle a membership change)", file=sys.stderr)
+        return 2
     group = ServerGroup(cfg.num_servers, cfg.num_workers, total_dim,
                         learning_rate=cfg.learning_rate, sync=cfg.sync_mode,
                         last_gradient=bool(cfg.sync_last_gradient), ports=ports, bind_any=True,
@@ -711,16 +704,18 @@ def cmd_ps_server(args: argparse.Namespace) -> int:
             if layout is not None:
                 print("NAMESPACES " + ",".join(f"{m}={b}" for m, (b, _) in layout.items())
                       + f" per_dim={per_dim}", flush=True)
-            if cfg.ps_store_dir:
-                # the coordinator endpoint: LAYOUT / STATUS / STORE /
-                # SNAPSHOT / RESTORE (and RESIZE, which a durable group
-                # refuses), driven by `launch ps-ctl`
+            if args.elastic or cfg.ps_store_dir:
+                # the coordinator endpoint, driven by `launch ps-ctl` and
+                # polled by clients' route providers: LAYOUT / STATUS /
+                # RESIZE, and STORE / SNAPSHOT / RESTORE for a durable group
+                # (which refuses RESIZE)
                 from distlr_tpu_torch.ps.membership import (  # noqa: PLC0415
                     MembershipCoordinator,
                     MembershipServer,
                 )
 
-                ctl = MembershipServer(MembershipCoordinator(group), host="0.0.0.0").start()
+                ctl = MembershipServer(MembershipCoordinator(group), host="0.0.0.0",
+                                       port=args.ctl_port or 0).start()
                 print(f"PSCTL {ctl.host}:{ctl.port}", flush=True)
             group.wait()
     except KeyboardInterrupt:
@@ -734,8 +729,9 @@ def cmd_ps_server(args: argparse.Namespace) -> int:
 def cmd_ps_ctl(args: argparse.Namespace) -> int:
     """The admin CLI of a group's coordinator (:mod:`distlr_tpu_torch.ps.
     membership`): ``layout``, ``status``, ``store``, ``snapshot``,
-    ``restore`` and ``resize N`` against the ``PSCTL host:port`` a durable
-    ``ps-server`` announced, or ``store --store-dir S`` offline.  Prints
+    ``restore`` and ``resize N [--no-wait]`` against the ``PSCTL
+    host:port`` an elastic or durable ``ps-server`` announced, or ``store
+    --store-dir S`` offline.  Prints
     ``PSCTL <json reply>``; exits 3 when the coordinator refused."""
     import json  # noqa: PLC0415
 
@@ -867,9 +863,10 @@ def cmd_serve(args: argparse.Namespace) -> int:
     from distlr_tpu_torch.train.export import load_weights  # noqa: PLC0415
     from distlr_tpu_torch.train.ps_trainer import ps_param_dim  # noqa: PLC0415
 
-    if not (args.model_file or args.checkpoint_dir or args.ps_hosts):
+    live_ps = bool(args.ps_hosts or args.ps_ctl)
+    if not (args.model_file or args.checkpoint_dir or live_ps):
         print("error: serve needs a weight source: --model-file and/or --checkpoint-dir "
-              "(watched) or --ps-hosts (live pull)", file=sys.stderr)
+              "(watched) or --ps-hosts / --ps-ctl (live pull)", file=sys.stderr)
         return 2
     if args.model == "blocked_lr" and args.block_size == 0 and not os.path.isdir(
             args.data_dir or Config.data_dir):
@@ -878,17 +875,24 @@ def cmd_serve(args: argparse.Namespace) -> int:
               file=sys.stderr)
         return 2
     cfg = _serve_config(args)
-    if cfg.serve_hot_rows and not args.ps_hosts:
-        print("error: --hot-rows applies to live-PS reload only (--ps-hosts); "
+    if cfg.serve_hot_rows and not live_ps:
+        print("error: --hot-rows applies to live-PS reload only (--ps-hosts / --ps-ctl); "
               "checkpoint/model-file sources always load the full table", file=sys.stderr)
         return 2
+    ps_route = None
+    if args.ps_ctl:
+        # an elastic group: the serving pulls follow the coordinator's
+        # layout, so a live reshard costs the watcher one re-route in a poll
+        from distlr_tpu_torch.ps.membership import layout_client  # noqa: PLC0415
+
+        ps_route = layout_client(args.ps_ctl)
     # which slice of a shared PS group's key space each model id owns (the
     # order of the group's namespaces spec)
     ns_layout = None
     if args.ps_namespaces:
-        if not args.ps_hosts:
-            print("error: --ps-namespaces applies to live-PS reload only (--ps-hosts)",
-                  file=sys.stderr)
+        if not live_ps:
+            print("error: --ps-namespaces applies to live-PS reload only "
+                  "(--ps-hosts / --ps-ctl)", file=sys.stderr)
             return 2
         from distlr_tpu_torch.ps import namespace_layout  # noqa: PLC0415
 
@@ -903,7 +907,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
         return ns_layout[model_id][0], ps_param_dim(cfg) * len(ns_layout)
 
     hot_tracker = retry = None
-    if args.ps_hosts:
+    if live_ps:
         if cfg.serve_hot_rows:
             hot_tracker = HotSetTracker(cfg.serve_hot_rows)
         base, total = _ns(args.ps_namespace or cfg.serve_model_id)
@@ -915,7 +919,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
                                vals_per_key=_serve_row_width(cfg), hot_tracker=hot_tracker,
                                min_coverage=cfg.serve_hot_min_coverage,
                                full_refresh_every=cfg.serve_hot_full_every,
-                               retry=retry, ns_base=base, ns_total_dim=total)
+                               retry=retry, ns_base=base, ns_total_dim=total,
+                               route=ps_route)
     elif cfg.checkpoint_dir:
         source = CheckpointWatcher(cfg.checkpoint_dir)
     else:
@@ -947,15 +952,17 @@ def cmd_serve(args: argparse.Namespace) -> int:
         eng = ScoringEngine(cfg, max_batch_size=cfg.serve_max_batch_size,
                             idle_evict_s=cfg.serve_engine_idle_evict_s)
         if src == "@ps":
-            if not args.ps_hosts:
-                print("error: --extra-model id=@ps needs --ps-hosts", file=sys.stderr)
+            if not live_ps:
+                print("error: --extra-model id=@ps needs --ps-hosts or --ps-ctl",
+                      file=sys.stderr)
                 return 2
             base, total = _ns(mid)
             # a pull client of its own for each namespace watcher
             extra_src = LivePSWatcher(args.ps_hosts, ps_param_dim(cfg),
                                       vals_per_key=_serve_row_width(cfg),
                                       client_id=LivePSWatcher.SERVE_CLIENT_ID - len(engines),
-                                      retry=retry, ns_base=base, ns_total_dim=total)
+                                      retry=retry, ns_base=base, ns_total_dim=total,
+                                      route=ps_route)
             rl = HotReloader(eng, extra_src, interval_s=cfg.serve_reload_interval_s).start()
             rl.wait_for_weights()
             extra_reloaders.append(rl)
@@ -1020,7 +1027,14 @@ def cmd_online(args: argparse.Namespace) -> int:
             return 2
         ns_base = layout[ns_id][0]
         ns_total = ps_param_dim(cfg) * len(layout)
-    if not args.hosts:
+    route = None
+    if args.ps_ctl:
+        # an elastic group: follow the coordinator's layout, so a live
+        # reshard costs this trainer a re-route, not a restart
+        from distlr_tpu_torch.ps.membership import layout_client  # noqa: PLC0415
+
+        route = layout_client(args.ps_ctl)
+    if not args.hosts and route is None:
         print("error: online needs --hosts or --ps-ctl", file=sys.stderr)
         return 2
     stop = threading.Event()
@@ -1029,7 +1043,7 @@ def cmd_online(args: argparse.Namespace) -> int:
         cfg, args.hosts, args.shard_dir, accum_start=cfg.ps_accum_start,
         accum_growth=cfg.ps_accum_growth, accum_growth_every=cfg.ps_accum_growth_every,
         accum_max=cfg.ps_accum_max, poll_interval_s=args.poll_interval,
-        worker_id=args.worker_id, ns_base=ns_base, ns_total_dim=ns_total)
+        worker_id=args.worker_id, ns_base=ns_base, ns_total_dim=ns_total, route=route)
     # the scriptable readiness line
     print(f"ONLINE shard_dir={args.shard_dir} hosts={args.hosts} worker={args.worker_id}",
           flush=True)
@@ -1208,20 +1222,22 @@ def main(argv=None) -> int:
                    "the per-model dim, announced as 'NAMESPACES id=base,...'; clients "
                    "repeat the list as --ps-namespaces.  An id may carry an optimizer "
                    "suffix ('v1:ftrl,v2:sgd'): that slice's keys run it (sgd|ftrl)")
-    v.add_argument("--elastic", action="store_true", help="not ported yet (ROADMAP A.16)")
+    v.add_argument("--elastic", action="store_true",
+                   help="live-resizable group (needs --async): also serve the membership "
+                   "coordinator, announced as 'PSCTL host:port' (`launch ps-ctl resize N`)")
     v.add_argument("--ctl-port", dest="ctl_port", type=int,
-                   help="not ported yet (ROADMAP A.16)")
+                   help="the coordinator's port (default: ephemeral)")
     v.set_defaults(fn=cmd_ps_server)
 
     pc = sub.add_parser("ps-ctl", help="admin CLI against a group's coordinator (`launch "
-                        "ps-server --store-dir` prints its PSCTL endpoint)")
+                        "ps-server --elastic` or `--store-dir` prints its PSCTL endpoint)")
     pc.add_argument("--ctl", help="the coordinator endpoint (what ps-server announced as "
                     "PSCTL host:port); optional only for `store --store-dir`")
     pc.add_argument("command", choices=["layout", "status", "resize", "store", "snapshot",
                                         "restore"],
                     help="layout = the routing contract clients follow; status = the "
-                    "group's state; resize = reshard to N ranks (refused for a durable "
-                    "group; live resizing is not ported yet, ROADMAP A.16.6); store = the "
+                    "group's state; resize = reshard to N ranks live (an async group; "
+                    "refused for a sync or durable one); store = the "
                     "durable store's snapshots and WAL per rank; snapshot = every rank "
                     "snapshots now (SIGUSR1); restore = every rank back to its on-disk "
                     "state (SIGKILL and a respawn that recovers from the store)")
@@ -1261,8 +1277,10 @@ def main(argv=None) -> int:
                    help="pull live weights from this running KV server group "
                    "(comma-separated host:port, rank order), e.g. while `launch ps "
                    "--async --hosts` trains against it")
-    for flag, dest, typ, item in _UNPORTED_SERVE_FLAGS:
-        r.add_argument(flag, dest=dest, type=typ, help=f"not ported yet (ROADMAP {item})")
+    r.add_argument("--ps-ctl", dest="ps_ctl",
+                   help="elastic group: the membership coordinator's PSCTL host:port; "
+                   "serving pulls follow its layout across live reshards (optional next "
+                   "to --ps-hosts; alone, the layout comes from the coordinator)")
     r.add_argument("--port", type=int, help="listen port (default: ephemeral, announced "
                    "as 'SERVING host:port')")
     r.add_argument("--bind", help="listen address (default 127.0.0.1)")
@@ -1329,7 +1347,10 @@ def main(argv=None) -> int:
                        "serving engines hot-reload from (the closed loop)")
     on.add_argument("--hosts", help="the live async KV server group (comma-separated "
                     "host:port, rank order): the group `launch serve --ps-hosts` pulls from")
-    on.add_argument("--ps-ctl", dest="ps_ctl", help="not ported yet (ROADMAP A.16)")
+    on.add_argument("--ps-ctl", dest="ps_ctl",
+                    help="elastic group: the membership coordinator's PSCTL host:port; "
+                    "this trainer follows its layout (a live reshard costs one re-route, "
+                    "never a restart)")
     on.add_argument("--shard-dir", dest="shard_dir", required=True,
                     help="joined-shard dir the serving tier's feedback sink writes "
                     "(serve --feedback-shards)")

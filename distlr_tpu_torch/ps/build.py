@@ -7,7 +7,7 @@ package's standard flags (``distlr_tpu/ps/native/Makefile``) into
 ``build/native/`` at the root of the checkout, each under a name hashed
 from its source, the protocol header and the flags, behind a file lock
 of its own (:mod:`distlr_tpu_torch.utils.native`).  The sanitizer builds of the JAX
-package wait for ROADMAP A.16.
+package wait for ROADMAP A.16.7.
 """
 
 from __future__ import annotations

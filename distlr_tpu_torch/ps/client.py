@@ -33,8 +33,17 @@ staleness class), and a sync group's pushes never.  The worker counts
 what the JAX package's registry counts (:attr:`KVWorker.retries`,
 ``reconnects``, ``push_outcome_unknown``) as attributes.
 
-Not ported yet: membership epochs and re-routing (ROADMAP A.16), and the
-trace spans and registry counters (A.12).
+Membership epochs (``KVWorker(epoch=, route=)``): a client announces the
+layout epoch it routes by, and a server whose epoch moved (a live resize,
+:mod:`distlr_tpu_torch.ps.membership`) fences its ops with
+:class:`PSEpochError`.  With a ``route`` provider the worker re-fetches
+the coordinator's layout and rebuilds its handle in place, also without a
+retry policy: a reshard costs a re-route, never a restart, and a gradient
+push caught by the fence is absorbed, never re-issued.  The JAX package's
+membership series are attributes (:attr:`KVWorker.reroutes`,
+``epoch_mismatches``, ``client_epoch``).
+
+Not ported yet: the trace spans and registry counters (ROADMAP A.12).
 """
 
 from __future__ import annotations
@@ -86,6 +95,19 @@ class PSRejectedError(OSError):
     """The server answered an explicit rejection: the op does not apply
     to its configuration (an FTRL opt-state op against an sgd server,
     say).  Deterministic: re-issuing it cannot succeed."""
+
+
+class PSEpochError(OSError):
+    """A server's membership-epoch fence bounced the op: the layout this
+    client routes by is stale (ranks joined or retired, kv_protocol.h
+    kEpoch).  Transient by design: re-fetch the layout from the
+    coordinator, reconnect, and the op is legal again; a client with a
+    ``route`` provider does so itself.  ``epoch`` is the epoch the server
+    reported."""
+
+    def __init__(self, msg: str, epoch: int = 0):
+        super().__init__(msg)
+        self.epoch = int(epoch)
 
 
 class FaultRateTracker:
@@ -250,6 +272,14 @@ def _load():
                 lib.kv_negotiate_codec.argtypes = [ctypes.c_void_p, ctypes.c_int]
                 lib.kv_last_wire_sent.restype = ctypes.c_uint64
                 lib.kv_last_wire_sent.argtypes = [ctypes.c_void_p]
+                for name in ("kv_negotiate_epoch", "kv_set_epoch"):
+                    fn = getattr(lib, name)
+                    fn.restype = ctypes.c_int
+                    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+                for name in ("kv_epoch_mismatch", "kv_group_epoch"):
+                    fn = getattr(lib, name)
+                    fn.restype = ctypes.c_int
+                    fn.argtypes = [ctypes.c_void_p]
                 for name in ("kv_pull_opt_state", "kv_push_init_opt_state"):
                     fn = getattr(lib, name)
                     fn.restype = ctypes.c_int
@@ -284,20 +314,53 @@ class KVWorker:
     for a gradient wire codec (``none``, ``int8``, ``signsgd``);
     :attr:`compress_active` is the one in force.  ``retry`` (a
     :class:`RetryPolicy`) re-issues ops after a transport fault, by the
-    rules of :meth:`_run_with_retry`.  Ops on one worker must not
-    overlap: one connection per server, one op at a time.
+    rules of :meth:`_run_with_retry`.
+
+    ``route``, a zero-argument callable returning the coordinator's layout
+    (``{"hosts", "epoch", "status", "dim", ...}``: ``MembershipCoordinator.
+    layout`` or :func:`~distlr_tpu_torch.ps.membership.layout_client`),
+    makes the worker follow a live resize; its hosts override ``hosts``,
+    which may predate a resize, and ``epoch`` defaults to its epoch.
+    ``epoch`` announces the layout epoch to every server, so that the
+    fence protects this client.  Ops on one worker must not overlap: one
+    connection per server, one op at a time.
     """
 
-    def __init__(self, hosts: str, dim: int, client_id: int = 0, *,
+    def __init__(self, hosts: str | None, dim: int, client_id: int = 0, *,
                  timeout_ms: int = 0, sync_group: bool = True,
-                 retry: RetryPolicy | None = None, compress: str = "none"):
+                 retry: RetryPolicy | None = None, compress: str = "none",
+                 epoch: int | None = None, route=None, route_timeout_s: float = 30.0):
         from distlr_tpu_torch.compress import CODEC_IDS  # noqa: PLC0415
 
         if compress not in CODEC_IDS:
             raise ValueError(f"compress must be one of {tuple(CODEC_IDS)}, got {compress!r}")
         self._lib = _load()
-        self.hosts = hosts
         self.dim = int(dim)
+        self._route = route
+        self._route_timeout_s = float(route_timeout_s)
+        self._epoch = int(epoch) if epoch else 0
+        self._epoch_armed = False
+        self._warned_no_epoch = False
+        #: the JAX package's membership series, kept here: routing
+        #: re-negotiations, ops bounced by a fence, and the epoch this
+        #: worker last connected at (0 = none announced)
+        self.reroutes = 0
+        self.epoch_mismatches = 0
+        self.client_epoch = 0
+        if route is not None:
+            # the coordinator is authoritative: a stale hosts list announced
+            # with the current epoch would pass every fence while slicing
+            # ranges by the wrong layout
+            layout = self._fetch_active_layout()
+            if hosts is not None and hosts != layout["hosts"]:
+                log.info("route provider overrides stale hosts %s -> %s", hosts,
+                         layout["hosts"])
+            hosts = layout["hosts"]
+            if not self._epoch:
+                self._epoch = int(layout.get("epoch") or 0)
+        if hosts is None:
+            raise ValueError("KVWorker needs hosts or a route provider")
+        self.hosts = hosts
         self.num_servers = hosts.count(",") + 1
         self._client_id = client_id
         self._timeout_ms = int(timeout_ms)
@@ -326,14 +389,32 @@ class KVWorker:
         self.push_bytes_wire = 0
         self._sign_zero_checked = False  # the first sign-coded push is checked
         self._dense_rows: tuple[np.ndarray, int] | None = None
-        self._h = self._build_handle()
+        self._h = None
+        if route is None:
+            self._h = self._build_handle()
+        else:
+            # a route-provided client may start mid-migration or inside a
+            # partition: poll through connect failures as a re-route does,
+            # within route_timeout_s
+            deadline = time.monotonic() + self._route_timeout_s
+            while True:
+                try:
+                    self._h = self._build_handle()
+                    break
+                except OSError as e:
+                    if time.monotonic() >= deadline:
+                        raise
+                    log.debug("route-provided connect failed (%s); re-fetching layout", e)
+                    time.sleep(0.05)
+                    self._apply_layout(self._fetch_active_layout())
         # dense default key set 0..D-1, like the reference app (src/lr.cc:117-121)
         self._all_keys = np.arange(self.dim, dtype=np.uint64)
 
     def _build_handle(self):
         """A new native handle with this worker's hosts, dim, client id,
         timeout and group mode, its codec negotiated when one was asked
-        for (the codec state lives a handle)."""
+        for (the codec state lives a handle) and its epoch announced when
+        it has one."""
         lib = self._lib
         h = lib.kv_connect(self.hosts.encode(), self.dim, self._client_id)
         if not h:
@@ -358,6 +439,26 @@ class KVWorker:
                 self.compress_active = active
             else:
                 self.compress_active = "none"
+            if self._epoch:
+                got = lib.kv_negotiate_epoch(h, self._epoch)
+                if got < 0:
+                    raise OSError("epoch negotiation failed: " + lib.kv_last_error(h).decode())
+                if got == 0:
+                    # a group that predates epochs: no fencing, as a
+                    # pre-epoch client
+                    if not self._warned_no_epoch:
+                        log.warning("KV group at %s predates membership epochs; "
+                                    "epoch fencing disabled for this client", self.hosts)
+                        self._warned_no_epoch = True
+                    self._epoch_armed = False
+                elif got != self._epoch:
+                    raise PSEpochError(
+                        f"group at {self.hosts} is at membership epoch {got}; this "
+                        f"client's layout says {self._epoch} — re-fetch routing from "
+                        "the coordinator", epoch=got)
+                else:
+                    self._epoch_armed = True
+                    self.client_epoch = self._epoch
         except Exception:
             lib.kv_close(h)
             raise
@@ -366,31 +467,150 @@ class KVWorker:
     def reconnect(self) -> None:
         """Rebuild the native handle in place, the way out of a poisoned
         connection (after one failed receive every later op on that stream
-        fails); the codec is negotiated anew.  The new connections open
-        before the old ones close, so a failed reconnect (servers still
-        down) raises and leaves the old handle as it was."""
+        fails); the codec is negotiated and the epoch announced anew.  The
+        new connections open before the old ones close, so a failed
+        reconnect (servers still down) raises and leaves the old handle as
+        it was."""
         h = self._build_handle()
         old, self._h = self._h, h
         if old:
             self._lib.kv_close(old)
         self.reconnects += 1
 
-    def _run_with_retry(self, op: str, fn, *, idempotent: bool, on_failure=None):
-        """The retry loop (``distlr_tpu/ps/client.py:735``, without its
-        membership re-route layer).  With no policy, or for a sync group's
-        gradient push, a plain call.  A :class:`PSRejectedError` is never
-        retried.  On another transport failure: reconnect, back off, and
-        re-issue, within the policy's attempts and deadline.
+    def recover(self) -> None:
+        """Rebuild the handle after a failed op: :meth:`reconnect`, or for a
+        client with a ``route`` a re-route, since a resize may have retired
+        or re-fenced the ranks it held."""
+        if self._route is not None:
+            self._renegotiate_route()
+        else:
+            self.reconnect()
 
-        ``idempotent=False`` marks a gradient push: it is re-issued only
-        while ``kv_op_delivery_began`` is 0.  Once delivery began its
-        outcome is unknown: it is counted, the handle is reconnected
-        best-effort, and ``on_failure`` resolves the op (the fused
-        push_pull re-pulls), or without one the push is absorbed and -1
-        returned; re-issuing a maybe-applied push would apply it twice.
+    # -- membership re-routing ----------------------------------------------
+    def _fetch_active_layout(self) -> dict:
+        """Poll the route provider until it reports an active layout (a
+        client landing mid-migration waits the drain out here), within
+        ``route_timeout_s``."""
+        deadline = time.monotonic() + self._route_timeout_s
+        delay = 0.05
+        last: Exception | None = None
+        while True:
+            layout = None
+            try:
+                layout = self._route()
+            except Exception as e:  # noqa: BLE001 — the coordinator may be mid-flip
+                last = e
+            if layout is not None and layout.get("status", "active") == "active":
+                return layout
+            if time.monotonic() >= deadline:
+                raise OSError(f"membership layout fetch timed out after "
+                              f"{self._route_timeout_s:g}s"
+                              + (f" (last error: {last})" if last else
+                                 " (coordinator still migrating)"))
+            time.sleep(min(delay, max(0.0, deadline - time.monotonic())))
+            delay = min(delay * 2, 0.5)
+
+    def _renegotiate_route(self) -> None:
+        """The fence's recovery: re-fetch the layout and rebuild the
+        handle against the new ranks at the new epoch, polling through a
+        migration window within ``route_timeout_s``."""
+        deadline = time.monotonic() + self._route_timeout_s
+        last: Exception | None = None
+        while True:
+            self._apply_layout(self._fetch_active_layout())
+            try:
+                self.reconnect()
+            except OSError as e:
+                # a PSEpochError here: the fetched layout is already stale
+                # (a second resize raced this one); else the new ranks may
+                # still be binding.  Poll again either way
+                last = e
+            else:
+                self.reroutes += 1
+                log.info("membership re-route: now at epoch %d over %d server(s)",
+                         self._epoch, self.num_servers)
+                return
+            if time.monotonic() >= deadline:
+                raise OSError(f"membership re-route failed after "
+                              f"{self._route_timeout_s:g}s: {last}")
+            time.sleep(0.05)
+
+    def _apply_layout(self, layout: dict) -> None:
+        hosts = layout["hosts"]
+        if "dim" in layout and int(layout["dim"]) != self.dim:
+            raise OSError(f"membership layout changed the key-space dim "
+                          f"({self.dim} -> {layout['dim']}): not a reshard — "
+                          "this client cannot follow")
+        self.hosts = hosts
+        self.num_servers = hosts.count(",") + 1
+        self._epoch = int(layout.get("epoch") or 0)
+        # the range boundaries moved: the dense row encoding re-derives
+        self._dense_rows = None
+
+    # -- in-place retry and re-route ---------------------------------------
+    def _run_with_retry(self, op: str, fn, *, idempotent: bool, on_failure=None):
+        """The retry driver (``distlr_tpu/ps/client.py:735``).  With no
+        policy and no route, or for a sync group's gradient push, a plain
+        call.  A :class:`PSRejectedError` is never retried.
+
+        The transport ladder (:meth:`_retry_ladder`) runs under a
+        membership layer that is live whenever a ``route`` is set, with or
+        without a policy.  A resize surfaces as an epoch fence
+        (:class:`PSEpochError`) from a running rank or as transport
+        exhaustion against a retired one; both recover by re-fetching the
+        layout and rebuilding the handle, at most 8 times an op.  A
+        gradient push caught by the fence, or whose frames reached a
+        kernel (``kv_op_delivery_began``), is absorbed through the
+        unknown-outcome path (``-1``, or ``on_failure``), never re-issued:
+        a peer whose epoch flipped a moment later may have applied its
+        slice.
         """
         if not idempotent and self._sync_group:
-            return fn()  # BSP pushes: fail fast, never retried
+            return fn()  # BSP pushes: fail fast, no retry, no re-route
+        if self.retry is None and self._route is None:
+            return fn()
+        max_reroutes = 8 if self._route is not None else 0
+        for reroute in range(max_reroutes + 1):
+            try:
+                return self._retry_ladder(op, fn, idempotent=idempotent, on_failure=on_failure)
+            except PSRejectedError:
+                raise  # deterministic: identical on every re-issue
+            except PSEpochError:
+                self.epoch_mismatches += 1
+                if reroute >= max_reroutes:
+                    raise  # no coordinator to ask, or it keeps handing stale layouts
+                if not idempotent:
+                    return self._absorb(on_failure, self._renegotiate_route)
+                self._renegotiate_route()  # raises OSError on timeout
+            except OSError:
+                if not idempotent and self._lib.kv_op_delivery_began(self._h):
+                    # without a policy the ladder is a plain call, so the
+                    # delivery-proof decision lands here
+                    return self._absorb(on_failure, self._renegotiate_route)
+                if reroute >= max_reroutes:
+                    raise
+                # transport exhaustion with a route provider: maybe a retired
+                # rank.  Nothing of this op was delivered, so re-issue
+                self._renegotiate_route()
+        raise AssertionError("unreachable")
+
+    def _absorb(self, on_failure, recover):
+        """A gradient push of unknown outcome: count it, recover the
+        handle best-effort, and resolve it by ``on_failure`` (the fused
+        push_pull re-pulls) or as -1; never re-issue it."""
+        self.push_outcome_unknown += 1
+        with contextlib.suppress(OSError):
+            recover()  # best-effort: later ops retry their own
+        if on_failure is not None:
+            return on_failure()
+        return -1
+
+    def _retry_ladder(self, op: str, fn, *, idempotent: bool, on_failure):
+        """The transport-fault half of :meth:`_run_with_retry`: reconnect,
+        back off and re-issue within the policy's attempts and deadline (a
+        plain call without a policy).  A gradient push is re-issued only
+        while ``kv_op_delivery_began`` is 0.  :class:`PSEpochError` and
+        exhaustion go up to the membership layer."""
         pol = self.retry
         if pol is None:
             return fn()
@@ -403,6 +623,8 @@ class KVWorker:
                 time.sleep(min(nap, max(0.0, deadline - time.monotonic())))
                 try:
                     self.reconnect()
+                except PSEpochError:
+                    raise  # resharded while backing off: the layer above re-routes
                 except OSError as e:
                     # servers unreachable: the reconnect burns the attempt
                     self._record_fault()
@@ -417,17 +639,12 @@ class KVWorker:
                 self.retries[op] = self.retries.get(op, 0) + 1
             try:
                 return fn()
-            except PSRejectedError:
-                raise  # deterministic: identical on every re-issue
+            except (PSRejectedError, PSEpochError):
+                raise  # both handled a layer up, neither is a fault
             except OSError as e:
                 self._record_fault()
                 if not idempotent and self._lib.kv_op_delivery_began(self._h):
-                    self.push_outcome_unknown += 1
-                    with contextlib.suppress(OSError):
-                        self.reconnect()  # best-effort: later ops retry their own
-                    if on_failure is not None:
-                        return on_failure()
-                    return -1
+                    return self._absorb(on_failure, self.reconnect)
                 last = e
                 if time.monotonic() >= deadline:
                     break
@@ -459,6 +676,9 @@ class KVWorker:
             err = self._lib.kv_last_error(self._h).decode()
             if self._lib.kv_timed_out(self._h):
                 raise PSTimeoutError(f"KV {what} timed out: {err}")
+            if self._lib.kv_epoch_mismatch(self._h):
+                raise PSEpochError(f"KV {what} fenced: {err}",
+                                   epoch=self._lib.kv_group_epoch(self._h))
             if self._lib.kv_op_rejected(self._h):
                 raise PSRejectedError(f"KV {what} rejected: {err}")
             raise OSError(f"KV {what} failed: {err}")
@@ -748,11 +968,25 @@ class KVWorker:
                     for name, v in zip(STATS_FIELDS, out[:n])}
         return self._with_retry("stats", issue)
 
-    def global_pushes(self) -> float:
+    def global_pushes(self, *, per_worker_scale: bool = True) -> float:
         """The group's push clock: every server's ``total_pushes`` summed
-        and divided by the server count, so one dense push (which lands
-        on every range) ticks it by 1.  The seeding push counts too."""
-        return sum(self.stats(r)["total_pushes"] for r in range(self.num_servers)) / self.num_servers
+        and, with ``per_worker_scale``, divided by the server count, so one
+        dense push (which lands on every range) ticks it by 1.  The
+        seeding push counts too."""
+        total = sum(self.stats(r)["total_pushes"] for r in range(self.num_servers))
+        return total / self.num_servers if per_worker_scale else float(total)
+
+    def set_epoch(self, epoch: int) -> None:
+        """Admin: flip every server of this handle to membership epoch
+        ``epoch`` (kEpoch SET), the coordinator's fence.  Clients announce
+        through ``epoch=`` and recover through ``route=`` instead."""
+        if self._lib.kv_set_epoch(self._h, int(epoch)) != 0:
+            raise OSError("epoch set failed: " + self._lib.kv_last_error(self._h).decode())
+
+    def group_epoch(self) -> int:
+        """The newest membership epoch any server reported to this handle
+        (0 = never epoch-negotiated)."""
+        return int(self._lib.kv_group_epoch(self._h))
 
     def shutdown_servers(self) -> None:
         self._lib.kv_shutdown_servers(self._h)
@@ -950,8 +1184,8 @@ class KVNamespace:
     def stats(self, server: int = 0) -> dict:
         return self.kv.stats(server)
 
-    def global_pushes(self) -> float:
-        return self.kv.global_pushes()
+    def global_pushes(self, **kw) -> float:
+        return self.kv.global_pushes(**kw)
 
     def wait(self, ts: int) -> None:
         self.kv.wait(ts)

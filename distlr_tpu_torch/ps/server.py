@@ -19,11 +19,21 @@ slice (and, with ``store_wal``, a log of every applied push) under
 group restarted on the same directory comes back where it stopped
 (:mod:`distlr_tpu_torch.ps.store` reads those files).  ``via_chaos`` puts
 a fault plan's proxies (:mod:`distlr_tpu_torch.chaos`) between the
-clients and the servers.  Resizing a live group waits for ROADMAP A.16.6.
+clients and the servers.
+
+An async group can be resized live: :func:`plan_reshard` computes which
+ranks survive, which are spawned and which key sub-ranges move,
+:meth:`ServerGroup.spawn_for_resize` stages the new ranks at the next
+membership epoch and :meth:`ServerGroup.commit_resize` installs the new
+layout; :class:`~distlr_tpu_torch.ps.membership.MembershipCoordinator`
+runs them around its fence and drain.  The JAX package's ``server_up``
+and ``membership_servers`` gauges are attributes (:attr:`ServerGroup.up`,
+``membership_servers``) until ROADMAP A.12.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import subprocess
 import threading
@@ -31,7 +41,7 @@ import time
 
 import numpy as np
 
-from distlr_tpu_torch.config import _not_ported
+from distlr_tpu_torch.ps import wire
 from distlr_tpu_torch.ps.build import server_binary
 from distlr_tpu_torch.utils.logging import get_logger
 
@@ -40,6 +50,86 @@ log = get_logger(__name__)
 OPTIMIZERS = ("sgd", "ftrl", "signsgd")
 #: the supervisor's events of a durable group's recovery
 STORE_EVENTS = ("reseeded-from-store", "store-stale", "store-corrupt-fallback")
+
+
+@dataclasses.dataclass(frozen=True)
+class ResizePlan:
+    """One membership change (``distlr_tpu/ps/server.py:101``): which old
+    processes survive as which new ranks, which new ranks are spawned,
+    which old ranks retire, and which global key sub-ranges move (pulled
+    from their old owner, force-seeded into the new one)."""
+
+    new_num_servers: int
+    #: the global key slice of each new rank
+    new_ranges: list[tuple[int, int]]
+    #: new rank -> the old rank whose process survives as it (same range
+    #: start, so the server's local keys stay valid; its resident slice
+    #: never crosses the wire)
+    reuse: dict[int, int]
+    #: new ranks that need a fresh process
+    spawn: list[int]
+    #: old ranks with no new identity, retired after the drain
+    retire: list[int]
+    #: (old_rank, global_lo, global_hi, new_rank): the data that moves
+    moves: list[tuple[int, int, int, int]]
+
+    @property
+    def moved_keys(self) -> int:
+        return sum(hi - lo for _, lo, hi, _ in self.moves)
+
+
+def plan_reshard(dim: int, old_ranges: list[tuple[int, int]], new_num_servers: int, *,
+                 alive: list[bool], allow_reuse: bool = True) -> ResizePlan:
+    """The planner's pure core (``distlr_tpu/ps/server.py:129``): the
+    current layout -> equal ranges over ``new_num_servers``.  ``alive[r]``
+    says whether old rank ``r``'s process survives (a dead one is never
+    reused); ``allow_reuse=False`` is the full rebuild of FTRL and
+    ``opt_segments`` groups.
+
+    An alive old rank is reused as the new rank whose range starts where
+    its own did: the server stores keys rebased by its range start, so a
+    grown range extends and a shrunk one stops being addressed.  Every key
+    of a new range is then resident or covered by exactly one move.
+    """
+    if new_num_servers < 1:
+        raise ValueError(f"new_num_servers must be >= 1, got {new_num_servers}")
+    if new_num_servers > dim:
+        raise ValueError(f"cannot shard dim={dim} over {new_num_servers} servers (empty ranges)")
+    if len(alive) != len(old_ranges):
+        raise ValueError(f"alive has {len(alive)} entries for {len(old_ranges)} ranks")
+    n = int(new_num_servers)
+    new_ranges = [(dim * r // n, dim * (r + 1) // n) for r in range(n)]
+    reuse: dict[int, int] = {}
+    if allow_reuse:
+        old_by_begin = {lo: r for r, (lo, _hi) in enumerate(old_ranges) if alive[r]}
+        for nr, (lo, _hi) in enumerate(new_ranges):
+            r = old_by_begin.get(lo)
+            if r is not None and r not in reuse.values():
+                reuse[nr] = r
+    moves: list[tuple[int, int, int, int]] = []
+    for nr, (lo, hi) in enumerate(new_ranges):
+        res_hi = min(old_ranges[reuse[nr]][1], hi) if nr in reuse else lo
+        for o, (olo, ohi) in enumerate(old_ranges):
+            mlo, mhi = max(olo, res_hi), min(ohi, hi)
+            if mlo < mhi:
+                moves.append((o, mlo, mhi, nr))
+    return ResizePlan(new_num_servers=n, new_ranges=new_ranges, reuse=reuse,
+                      spawn=[nr for nr in range(n) if nr not in reuse],
+                      retire=[r for r in range(len(old_ranges)) if r not in reuse.values()],
+                      moves=moves)
+
+
+def _reap(proc: subprocess.Popen, *, terminate: bool = False) -> None:
+    """Wait out a server process (SIGKILL after 5 s) and close its pipe."""
+    if terminate and proc.poll() is None:
+        proc.terminate()
+    try:
+        proc.wait(timeout=5)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    if proc.stdout:
+        proc.stdout.close()
 
 
 class ServerGroup:
@@ -68,6 +158,8 @@ class ServerGroup:
     starts a :class:`~distlr_tpu_torch.chaos.ChaosFabric` with the group:
     :attr:`hosts` then names its proxies and :attr:`direct_hosts` the
     servers, and the plan's ``kill`` faults SIGKILL this group's ranks.
+    ``epoch`` is the membership epoch the servers start at (1, the
+    static default, leaves their command lines as without it).
     """
 
     def __init__(self, num_servers: int, num_workers: int, dim: int, *,
@@ -78,7 +170,10 @@ class ServerGroup:
                  ftrl_l1: float = 0.0, ftrl_l2: float = 0.0, compress: bool = True,
                  opt_segments: list[tuple[int, str]] | None = None, via_chaos=None,
                  store_dir: str | None = None, store_interval_s: float = 5.0,
-                 store_wal: bool = False, store_wal_fsync_s: float = 0.1):
+                 store_wal: bool = False, store_wal_fsync_s: float = 0.1, epoch: int = 1):
+        if not 1 <= epoch <= wire.AUX_MAX:
+            # membership epochs ride the u16 MsgHeader::aux field
+            raise ValueError(f"epoch must be in [1, {wire.AUX_MAX}], got {epoch}")
         if num_servers < 1 or num_servers > dim:
             raise ValueError(f"need 1 <= num_servers <= dim={dim}, got {num_servers}")
         if optimizer not in OPTIMIZERS:
@@ -138,12 +233,23 @@ class ServerGroup:
         self.store_interval_s = store_interval_s
         self.store_wal = store_wal
         self.store_wal_fsync_s = store_wal_fsync_s
-        #: the membership epoch the servers run at: 1, the JAX package's
-        #: static default (a live resize, ROADMAP A.16.6, would bump it)
-        self.epoch = 1
+        #: the membership epoch new spawns (respawns too) carry; a resize
+        #: bumps it
+        self.epoch = int(epoch)
+        #: the global key slice of each rank: the equal partition at spawn,
+        #: rewritten by commit_resize
+        self.ranges: list[tuple[int, int]] = [
+            (dim * r // num_servers, dim * (r + 1) // num_servers) for r in range(num_servers)]
         self._chaos_plan = via_chaos
         #: the live ChaosFabric once start() ran with a plan
         self.chaos = None
+        #: the chaos links in rank order (the fabric keeps creation order,
+        #: which a resize leaves behind)
+        self._chaos_links: list = []
+        #: the JAX package's ``distlr_ps_server_up`` (rank -> 1 while its
+        #: process is managed) and ``distlr_membership_servers`` gauges
+        self.up: dict[int, int] = {}
+        self.membership_servers = 0
         self.ports: list[int] = list(ports or [])
         self.procs: list[subprocess.Popen] = []
         # stop() runs from failing worker threads as well as on exit, and
@@ -158,7 +264,7 @@ class ServerGroup:
         proxies when the group rides one (``via_chaos``), so every client
         given it is behind the plan."""
         if self.chaos is not None:
-            return self.chaos.hosts
+            return ",".join(f"127.0.0.1:{lk.port}" for lk in self._chaos_links)
         return self.direct_hosts
 
     @property
@@ -174,7 +280,9 @@ class ServerGroup:
         return self.optimizer == "ftrl" or any(opt == "ftrl" for _, opt in self._opt_segments)
 
     def key_range(self, rank: int) -> tuple[int, int]:
-        return self.dim * rank // self.num_servers, self.dim * (rank + 1) // self.num_servers
+        """The global key slice ``[lo, hi)`` of ``rank`` in the current
+        layout."""
+        return self.ranges[rank]
 
     def store_rank_dir(self, rank: int) -> str:
         """Rank ``rank``'s durable-store directory, where its snapshot
@@ -196,8 +304,9 @@ class ServerGroup:
                 break
         return ",".join(parts)
 
-    def _command(self, binary, rank: int, port: int = 0) -> list[str]:
-        lo, hi = self.key_range(rank)
+    def _command(self, binary, rank: int, port: int = 0, *,
+                 key_range: tuple[int, int] | None = None, epoch: int | None = None) -> list[str]:
+        lo, hi = key_range if key_range is not None else self.key_range(rank)
         # the JAX package's spawn, flag for flag: only non-default
         # optimizers and codecs touch the command line, so an sgd group's
         # command stays that of a group without them
@@ -206,6 +315,9 @@ class ServerGroup:
             f"--dim={hi - lo}", f"--lr={self.learning_rate}", f"--sync={int(self.sync)}",
             f"--last_gradient={int(self.last_gradient)}", f"--bind_any={int(self.bind_any)}",
         ]
+        epoch = self.epoch if epoch is None else epoch
+        if epoch != 1:
+            cmd.append(f"--epoch={epoch}")
         if self._opt_segments:
             segs = self._local_opt_segments(lo, hi)
             if segs:
@@ -235,22 +347,25 @@ class ServerGroup:
                     cmd.append(f"--store_wal_fsync={self.store_wal_fsync_s}")
         return cmd
 
-    def _spawn(self, rank: int, port: int) -> tuple[subprocess.Popen, int]:
-        """Start rank ``rank`` on ``port`` (0: the kernel's choice);
-        returns the process and the port it bound.  A durable rank
-        recovers from its store directory before it announces the port."""
+    def _spawn(self, rank: int, port: int, *, key_range: tuple[int, int] | None = None,
+               epoch: int | None = None) -> tuple[subprocess.Popen, int]:
+        """Start rank ``rank`` on ``port`` (0: the kernel's choice), over
+        ``key_range`` and at ``epoch`` (default: the rank's own and the
+        group's); returns the process and the port it bound.  A durable
+        rank recovers from its store directory before it announces the
+        port."""
         if self.store_dir:
             os.makedirs(self.store_rank_dir(rank), exist_ok=True)
-        proc = subprocess.Popen(self._command(server_binary(), rank, port),
+        proc = subprocess.Popen(self._command(server_binary(), rank, port, key_range=key_range,
+                                              epoch=epoch),
                                 stdout=subprocess.PIPE, text=True)
         # the server prints "PORT <n>" once listening: reading it is the
         # readiness wait
         line = proc.stdout.readline().strip()
         if not line.startswith("PORT "):
-            proc.terminate()
-            proc.wait()
-            proc.stdout.close()
+            _reap(proc, terminate=True)
             raise RuntimeError(f"KV server rank {rank} failed to start (got {line!r})")
+        self.up[rank] = 1
         return proc, int(line.split()[1])
 
     def start(self) -> "ServerGroup":
@@ -269,9 +384,11 @@ class ServerGroup:
                 # group owns the pids, so it executes the kill faults
                 self.chaos = ChaosFabric(self.direct_hosts, self._chaos_plan,
                                          killer=self._chaos_kill)
+                self._chaos_links = list(self.chaos.links)
         except BaseException:
             self.stop()
             raise
+        self.membership_servers = self.num_servers
         return self
 
     def _chaos_kill(self, target: str) -> None:
@@ -310,18 +427,19 @@ class ServerGroup:
             if port != self.ports[rank]:
                 # clients hold the old hosts string: this process is
                 # unreachable, so the respawn fails
-                proc.terminate()
-                proc.wait()
-                proc.stdout.close()
+                _reap(proc, terminate=True)
                 raise RuntimeError(f"respawned server rank {rank} bound port {port}, "
                                    f"expected {self.ports[rank]} (port stolen while down)")
             self.procs[rank] = proc
             return True
 
-    def plan_resize(self, new_num_servers: int):
-        """A live resize of the group: refused as the JAX package refuses
-        it for a sync group and for a durable one; the resize itself is
-        not ported (ROADMAP A.16.6)."""
+    def plan_resize(self, new_num_servers: int) -> ResizePlan:
+        """The membership change from the current layout to
+        ``new_num_servers`` equal ranges, touching nothing
+        (:func:`plan_reshard`).  A sync group and a durable one are
+        refused as the JAX package refuses them.  A group with FTRL state
+        (uniform or through ``opt_segments``) never reuses a process: the
+        opt-state wire seeds whole ranges only, so it is rebuilt in full."""
         if self.sync:
             raise ValueError(
                 "elastic resize supports async (Hogwild) groups only — "
@@ -332,19 +450,102 @@ class ServerGroup:
                 "supported: the per-rank on-disk slices would no longer "
                 "match the new layout — stop the group, clear or migrate "
                 "the store, and restart at the new size")
-        raise _not_ported(f"elastic resize to {new_num_servers} servers", "A.16.6")
+        return plan_reshard(self.dim, self.ranges, new_num_servers,
+                            alive=[p.poll() is None for p in self.procs],
+                            allow_reuse=not self.has_ftrl and not self._opt_segments)
+
+    def spawn_for_resize(self, plan: ResizePlan, epoch: int) -> dict[int, tuple]:
+        """Spawn the plan's fresh ranks at the new epoch on ephemeral
+        ports: ``{new_rank: (proc, port)}``, staged outside the layout
+        until :meth:`commit_resize` (or stopped by an aborted resize)."""
+        staged: dict[int, tuple] = {}
+        try:
+            for nr in plan.spawn:
+                staged[nr] = self._spawn(nr, 0, key_range=plan.new_ranges[nr], epoch=epoch)
+        except Exception:
+            for proc, _port in staged.values():
+                _reap(proc, terminate=True)
+            raise
+        return staged
+
+    def commit_resize(self, plan: ResizePlan, staged: dict[int, tuple], epoch: int) -> None:
+        """Install the new layout: reused processes take their new ranks,
+        staged spawns join, retiring processes are terminated, and under
+        a fault plan each new rank gets a fresh link
+        (``ChaosFabric.add_upstream``) while the retiring ranks' links
+        stop."""
+        with self._lock:
+            old_count = self.num_servers
+            procs, ports, links = [], [], []
+            for nr in range(plan.new_num_servers):
+                if nr in plan.reuse:
+                    r = plan.reuse[nr]
+                    procs.append(self.procs[r])
+                    ports.append(self.ports[r])
+                    if self.chaos is not None:
+                        links.append(self._chaos_links[r])
+                else:
+                    proc, port = staged[nr]
+                    procs.append(proc)
+                    ports.append(port)
+                    if self.chaos is not None:
+                        links.append(self.chaos.add_upstream("127.0.0.1", port))
+            retiring = [self.procs[r] for r in plan.retire]
+            retiring_links = ([self._chaos_links[r] for r in plan.retire]
+                              if self.chaos is not None else [])
+            # new lists, not in-place edits: wait() tells a resize by them
+            self.procs = procs
+            self.ports = ports
+            self.ranges = list(plan.new_ranges)
+            self.num_servers = plan.new_num_servers
+            self._chaos_links = links
+            self.epoch = int(epoch)
+        # the supervisor is paused through a resize, and nothing else
+        # spawns: the retired ranks go down outside the lock
+        for proc in retiring:
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in retiring:
+            _reap(proc)
+        for lk in retiring_links:
+            lk.stop()
+        for rank in range(max(old_count, plan.new_num_servers)):
+            self.up[rank] = int(rank < plan.new_num_servers)
+        self.membership_servers = self.num_servers
 
     def alive(self) -> list[bool]:
         """Process-level liveness, one flag per server rank."""
         return [p.poll() is None for p in self.procs]
 
+    def health(self, *, timeout_ms: int = 2000) -> list[dict]:
+        """Every rank's kStats counters over a short-lived connection to
+        the servers' own ports (past any fault plan: a probe diagnoses a
+        partition rather than time out inside it; stats replies are never
+        deferred, so it answers through a wedged barrier)."""
+        from distlr_tpu_torch.ps.client import KVWorker  # noqa: PLC0415  (cycle)
+
+        with KVWorker(self.direct_hosts, self.dim, client_id=0xFFFF,
+                      timeout_ms=timeout_ms) as probe:
+            return [probe.stats(rank) for rank in range(self.num_servers)]
+
+    def global_pushes(self, *, timeout_ms: int = 2000) -> float:
+        """The group's push clock seen from the servers: the mean
+        ``total_pushes`` over the ranks (:meth:`KVWorker.global_pushes`)."""
+        stats = self.health(timeout_ms=timeout_ms)
+        return sum(s["total_pushes"] for s in stats) / max(len(stats), 1)
+
     def wait(self) -> None:
-        """Block until every server process exits, as they do after a
-        client's ``shutdown_servers``: the foreground of ``launch
-        ps-server``.  A rank respawned while it waited is waited too."""
+        """Block until every server process of the current layout exits,
+        as they do after a client's ``shutdown_servers``: the foreground
+        of ``launch ps-server``.  A resize swaps the process list, so a
+        retired rank's exit does not end the wait: the loop waits the new
+        layout too.  A rank respawned in place is waited as well."""
         while True:
-            for p in list(self.procs):
+            procs = self.procs
+            for p in list(procs):
                 p.wait()
+            if self.procs is not procs:
+                continue  # resized while waiting
             with self._lock:
                 if self._stopped or all(p.poll() is not None for p in self.procs):
                     return
@@ -364,13 +565,9 @@ class ServerGroup:
                 if p.poll() is None:
                     p.terminate()
             for p in self.procs:
-                try:
-                    p.wait(timeout=5)
-                except subprocess.TimeoutExpired:
-                    p.kill()
-                    p.wait()
-                if p.stdout:
-                    p.stdout.close()
+                _reap(p)
+            for rank in range(len(self.procs)):
+                self.up[rank] = 0
             self.procs.clear()
 
     def __enter__(self):
@@ -407,6 +604,9 @@ class ServerSupervisor:
     the snapshot cadence: the newest valid snapshot's age, the snapshot
     and WAL bytes, the WAL records past that snapshot and the corrupt
     generations (the JAX package's ``distlr_ps_store_*`` gauges).
+
+    A live resize pauses the loop (:meth:`pause`: a retiring rank's exit
+    is no crash) and :meth:`reset_layout` re-binds it to the new ranks.
     """
 
     #: client_id of the per-rank probe connections
@@ -444,6 +644,9 @@ class ServerSupervisor:
         self._respawns = [0] * group.num_servers
         self._needs_reseed: set[int] = set()
         self._stop = threading.Event()
+        self._paused = threading.Event()
+        # held through each poll cycle: pause() returns once none is in flight
+        self._cycle = threading.Lock()
         self._thread: threading.Thread | None = None
         self.events: list[tuple[float, int, str]] = []
         self.store_health: dict[int, dict] = {}
@@ -463,6 +666,29 @@ class ServerSupervisor:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+
+    def pause(self) -> None:
+        """Idle the loop through a resize window, once the cycle in flight
+        (if any) has finished: the retiring ranks' exits must not be
+        respawned, and the swap of processes and ranges must not race a
+        cycle."""
+        self._paused.set()
+        with self._cycle:
+            pass
+
+    def resume(self) -> None:
+        self._paused.clear()
+
+    def reset_layout(self) -> None:
+        """Re-bind to the group's current layout after a resize: the rank
+        state starts over (rank ids now mean other key slices, so every
+        range is captured anew); the full-dim snapshot buffer stays."""
+        n = self._group.num_servers
+        self._snap_valid = [False] * n
+        self._snap_pushes = [-1] * n
+        self._snap_at = [0.0] * n
+        self._respawns = [0] * n
+        self._needs_reseed.clear()
 
     def __enter__(self):
         return self.start()
@@ -607,44 +833,49 @@ class ServerSupervisor:
         return False
 
     def _run(self) -> None:
-        self._try_snapshot()  # at once, so an early death has a capture
+        with self._cycle:
+            self._try_snapshot()  # at once, so an early death has a capture
         while not self._stop.wait(self._poll_interval):
-            now = time.monotonic()
-            if self._group._stopped:
-                # a teardown's SIGTERMed ranks exit nonzero: not crashes
+            with self._cycle:
+                if not self._paused.is_set():
+                    self._cycle_once()
+
+    def _cycle_once(self) -> None:
+        now = time.monotonic()
+        if self._group._stopped:
+            # a teardown's SIGTERMed ranks exit nonzero: not crashes
+            return
+        procs = list(self._group.procs)
+        if not procs or all(p.poll() == 0 for p in procs):
+            # every rank exited voluntarily (rank 0's shutdown_servers at
+            # the end of a run): not a crash
+            return
+        dead = [r for r, p in enumerate(procs) if p.poll() is not None and p.returncode != 0]
+        for rank in list(self._needs_reseed):
+            # respawned earlier, its re-seed failed: retry until seeded
+            if rank not in dead and self._reseed(rank):
+                self._needs_reseed.discard(rank)
+        for rank in dead:
+            if self._respawns[rank] >= self._max_respawns:
+                if not any(r == rank and ev == "gave-up" for _, r, ev in self.events):
+                    log.error("supervisor: server %d exceeded %d respawns; "
+                              "leaving it down", rank, self._max_respawns)
+                    self._record_event(now, rank, "gave-up")
                 continue
-            procs = list(self._group.procs)
-            if not procs or all(p.poll() == 0 for p in procs):
-                # every rank exited voluntarily (rank 0's shutdown_servers
-                # at the end of a run): not a crash
+            self._respawns[rank] += 1
+            try:
+                if not self._group.respawn(rank):
+                    continue  # torn down, or raced a still-alive rank
+            except RuntimeError as e:  # spawn failure, stolen port
+                log.warning("supervisor: respawn of server %d failed: %s", rank, e)
+                self._record_event(now, rank, "respawn-failed")
                 continue
-            dead = [r for r, p in enumerate(procs)
-                    if p.poll() is not None and p.returncode != 0]
-            for rank in list(self._needs_reseed):
-                # respawned earlier, its re-seed failed: retry until seeded
-                if rank not in dead and self._reseed(rank):
-                    self._needs_reseed.discard(rank)
-            for rank in dead:
-                if self._respawns[rank] >= self._max_respawns:
-                    if not any(r == rank and ev == "gave-up" for _, r, ev in self.events):
-                        log.error("supervisor: server %d exceeded %d respawns; "
-                                  "leaving it down", rank, self._max_respawns)
-                        self._record_event(now, rank, "gave-up")
-                    continue
-                self._respawns[rank] += 1
-                try:
-                    if not self._group.respawn(rank):
-                        continue  # torn down, or raced a still-alive rank
-                except RuntimeError as e:  # spawn failure, stolen port
-                    log.warning("supervisor: respawn of server %d failed: %s", rank, e)
-                    self._record_event(now, rank, "respawn-failed")
-                    continue
-                log.warning("supervisor: server %d died; respawned (%d/%d)",
-                            rank, self._respawns[rank], self._max_respawns)
-                self._record_event(now, rank, "respawned")
-                if not self._reseed(rank):
-                    self._needs_reseed.add(rank)
-            if now - self._snapshot_at >= self._snapshot_interval:
-                # per-rank captures: a dead or unseeded rank is skipped and
-                # the healthy ranks' slices keep moving
-                self._try_snapshot()
+            log.warning("supervisor: server %d died; respawned (%d/%d)",
+                        rank, self._respawns[rank], self._max_respawns)
+            self._record_event(now, rank, "respawned")
+            if not self._reseed(rank):
+                self._needs_reseed.add(rank)
+        if now - self._snapshot_at >= self._snapshot_interval:
+            # per-rank captures: a dead or unseeded rank is skipped and the
+            # healthy ranks' slices keep moving
+            self._try_snapshot()

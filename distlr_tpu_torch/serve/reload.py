@@ -30,8 +30,10 @@ in lockstep), keeps serving the last good weights through failed polls,
 and offers :meth:`HotReloader.wait_for_weights` as the start-up gate.
 
 A :class:`~distlr_tpu_torch.ps.RetryPolicy` (``retry=``) retries a PS
-blip inside the poll.  Not ported: the membership routing of the PS
-client (ROADMAP A.16), and the trace spans and registry counters (A.12).
+blip inside the poll, and a membership ``route`` (``launch serve
+--ps-ctl``) makes the watcher follow a live resize: a reshard costs one
+re-route inside a poll.  Not ported: the trace spans and registry
+counters (ROADMAP A.12).
 """
 
 from __future__ import annotations
@@ -42,7 +44,6 @@ import time
 
 import numpy as np
 
-from distlr_tpu_torch.config import _not_ported
 from distlr_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -85,22 +86,21 @@ class LivePSWatcher:
     rows straddle a range boundary.  ``hot_tracker``: refresh only the
     hot rows into a cached table, with a full refresh on the first poll,
     when ``coverage() < min_coverage``, or every ``full_refresh_every``
-    polls (0 = never forced).
+    polls (0 = never forced).  ``route``, a membership layout provider
+    (:func:`~distlr_tpu_torch.ps.membership.layout_client`), takes the
+    place of ``hosts`` and is followed through live resizes.
     """
 
     #: client_id of serving pulls, out of the way of trainer worker ranks
     SERVE_CLIENT_ID = 4095
 
-    def __init__(self, hosts: str, dim: int, *, vals_per_key: int = 1,
+    def __init__(self, hosts: str | None, dim: int, *, vals_per_key: int = 1,
                  chunk_rows: int = 1 << 16, timeout_ms: int = 10_000,
                  client_id: int | None = None, hot_tracker=None,
                  min_coverage: float = 0.95, full_refresh_every: int = 10, retry=None,
                  ns_base: int = 0, ns_total_dim: int | None = None, route=None):
-        if route is not None:
-            raise _not_ported("the PS client's membership routing", "A.16")
         from distlr_tpu_torch.ps import KVWorker  # noqa: PLC0415
 
-        self.hosts = hosts
         self.dim = int(dim)
         #: the slice [ns_base, ns_base + dim) of a group of ns_total_dim slots
         #: that this engine serves; N versions' watchers share one group
@@ -113,7 +113,12 @@ class LivePSWatcher:
         # a pull-only client never votes in a BSP barrier
         worker = KVWorker(hosts, self._wire_dim,
                           client_id=self.SERVE_CLIENT_ID if client_id is None else client_id,
-                          timeout_ms=timeout_ms, sync_group=True, retry=retry)
+                          timeout_ms=timeout_ms, sync_group=True, retry=retry,
+                          # a resize that breaks the rows' range alignment
+                          # falls back as construction does; equal ranges
+                          # over dim % (vpk * S) == 0 stay aligned
+                          route=route)
+        self._worker = worker
         self.kv = (worker if self._wire_dim == self.dim and not self.ns_base
                    else worker.namespace(self.ns_base, self.dim))
         self._needs_reconnect = False
@@ -144,6 +149,12 @@ class LivePSWatcher:
         self.last_kind: str | None = None
         self.last_rows = 0
 
+    @property
+    def hosts(self) -> str:
+        """The group's hosts as the client routes now (a resize moves
+        them)."""
+        return self._worker.hosts
+
     def _pull_full(self) -> np.ndarray:
         return self.kv.pull_chunked(vals_per_key=self.vals_per_key, chunk_rows=self.chunk_rows)
 
@@ -158,8 +169,9 @@ class LivePSWatcher:
 
     def poll(self):
         if self._needs_reconnect:
-            # a still-down PS raises here: one more degraded cycle
-            self.kv.reconnect()
+            # a still-down PS raises here: one more degraded cycle.  A routed
+            # client re-routes: its hosts may have been resized away
+            self._worker.recover()
             self._needs_reconnect = False
             self._check_init = True
         try:

@@ -56,8 +56,11 @@ a respawned rank recovers) and ride a fault plan (``chaos_plan``: the
 workers reach the servers through the plan's proxies, whose ``kill``
 faults SIGKILL server ranks).
 
-Not ported yet: live resizing (ROADMAP A.16.6); the staleness histograms,
-trace spans and profiler hooks (A.12).
+The workers route by the hosts they are given, as the JAX package's do:
+a live resize (:mod:`distlr_tpu_torch.ps.membership`) is followed by the
+clients built with a ``route`` (serving, the online trainer).  Not
+ported yet: the staleness histograms, trace spans and profiler hooks
+(ROADMAP A.12).
 """
 
 from __future__ import annotations

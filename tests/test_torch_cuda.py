@@ -1036,3 +1036,42 @@ def test_wal_recovery_of_card_gradients_equals_the_pre_kill_pull(cuda, tmp_path)
         with KVWorker(g.hosts, D, sync_group=False, timeout_ms=10_000) as kv:
             after = kv.pull()
     assert after.tobytes() == before.tobytes()
+
+
+def test_ftrl_reshard_of_card_gradients_equals_a_static_group(cuda):
+    """Eight ``fused_lr_grad`` gradients made on the card pushed into a
+    2-server async FTRL group, four before a live 2 -> 4 reshard (a full
+    rebuild: weights and z/n move) and four after, a pull between: the
+    pull equals a static 2-server group's after the same pushes bit for
+    bit."""
+    from distlr_tpu_torch.ps import KVWorker, MembershipCoordinator, ServerGroup
+
+    B, D = 256, 100_000
+    _, X, y, mask = _inputs(cuda, B, D, torch.bfloat16, seed=7)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    launches = ops.fused_lr_grad.launches
+    grads = [ops.fused_lr_grad(torch.randn(D, generator=gen, device=cuda) * 0.01, X, y,
+                               mask).cpu().numpy() for _ in range(8)]
+    assert ops.fused_lr_grad.launches == launches + 8
+    with ServerGroup(2, 1, D, sync=False, optimizer="ftrl") as g:
+        coord = MembershipCoordinator(g)
+        with KVWorker(None, D, sync_group=False, route=coord.layout) as kv:
+            kv.push_init(torch.zeros(D).numpy())
+            for gv in grads[:4]:
+                kv.push(gv)
+            before = kv.pull()
+            stats = coord.resize(4)
+            # an idempotent op re-routes: a push fenced by the resize would
+            # be absorbed, never re-issued
+            assert kv.pull().tobytes() == before.tobytes() and kv.reroutes == 1
+            for gv in grads[4:]:
+                kv.push(gv)
+            elastic = kv.pull()
+    assert (stats["reused"], stats["spawned"], stats["keys_moved"]) == (0, 4, D)
+    with ServerGroup(2, 1, D, sync=False, optimizer="ftrl") as g:
+        with KVWorker(g.hosts, D, sync_group=False) as kv:
+            kv.push_init(torch.zeros(D).numpy())
+            for gv in grads:
+                kv.push(gv)
+            static = kv.pull()
+    assert elastic.tobytes() == static.tobytes()

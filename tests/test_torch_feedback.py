@@ -443,10 +443,10 @@ class TestOnlineTrainer:
             msgs.append(str(e.value))
         assert msgs[0] == msgs[1]
 
-    def test_retry_and_route_name_a16(self, tmp_path):
-        """The retry policy is ported (A.16.2): the trainer's client gets
-        ``RetryPolicy.from_config(cfg)`` as JAX's does.  The membership
-        route still raises naming A.16."""
+    def test_retry_and_route_like_jax(self, tmp_path):
+        """The trainer's client gets ``RetryPolicy.from_config(cfg)`` as
+        JAX's does, and with a membership ``route`` (no hosts) follows the
+        coordinator through a resize."""
         from distlr_tpu.ps import RetryPolicy as JaxRetryPolicy
 
         cfg = Config(device="cpu", num_feature_dim=D, sync_mode=False, ps_retry_attempts=3)
@@ -458,9 +458,19 @@ class TestOnlineTrainer:
                                                          ps_retry_attempts=3)))
             finally:
                 tr.kv.close()
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A\.16\)"):
-            online.OnlineTrainer(Config(device="cpu", num_feature_dim=D), "127.0.0.1:1",
-                                 str(tmp_path), route=object())
+        from distlr_tpu_torch.ps import MembershipCoordinator
+
+        with ServerGroup(2, 1, D, sync=False) as sg:
+            coord = MembershipCoordinator(sg)
+            tr = online.OnlineTrainer(Config(device="cpu", num_feature_dim=D, sync_mode=False),
+                                      None, str(tmp_path), route=coord.layout)
+            try:
+                assert tr.kv.hosts == sg.hosts and tr.kv.client_epoch == 1
+                coord.resize(4)
+                np.testing.assert_array_equal(tr.kv.pull(), np.zeros(D, np.float32))
+                assert (tr.kv.reroutes, tr.kv.num_servers, tr.kv.client_epoch) == (1, 4, 2)
+            finally:
+                tr.kv.close()
 
     def test_client_id_and_idle_flush(self, tmp_path):
         """The online client id is JAX's; a partial span is pushed after
@@ -795,9 +805,35 @@ class TestCLI:
         assert launch.main(["online", "--shard-dir", str(tmp_path), "--device", "cpu"]) == 2
         assert "online needs --hosts" in capsys.readouterr().err
 
-    def test_online_ps_ctl_names_a16(self, tmp_path):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A\.16\)"):
-            launch.main(["online", "--shard-dir", str(tmp_path), "--ps-ctl", "h:1"])
+    def test_online_ps_ctl_follows_the_coordinator_like_jax(self, tmp_path, monkeypatch):
+        """``launch online --ps-ctl`` (no ``--hosts``) against each package's
+        elastic group, resized 2 -> 4 before it starts: the same weights."""
+        from distlr_tpu.ps import MembershipCoordinator as JaxCoordinator
+        from distlr_tpu.ps import MembershipServer as JaxCtl
+
+        from distlr_tpu_torch.ps import MembershipCoordinator, MembershipServer
+
+        monkeypatch.setattr(signal, "signal", lambda *a: None)
+        _write_shards(tmp_path / "src", "binary_lr", 2, 20, seed=19)
+        got = {}
+        for main, group_cls, coord_cls, ctl_cls, kv_cls, extra, tag in (
+                (launch.main, ServerGroup, MembershipCoordinator, MembershipServer, KVWorker,
+                 ["--device", "cpu"], "ours"),
+                (jax_launch.main, JaxServerGroup, JaxCoordinator, JaxCtl, JaxKVWorker, [],
+                 "jax")):
+            shutil.copytree(tmp_path / "src", tmp_path / tag)
+            with group_cls(2, 1, D, sync=False, optimizer="ftrl", ftrl_alpha=0.5) as sg:
+                coord = coord_cls(sg)
+                with ctl_cls(coord) as ctl:
+                    assert coord.resize(4)["ok"]
+                    assert main(["online", "--num-feature-dim", str(D), "--l2-c", "0",
+                                 "--batch-size", "10", "--ps-ctl", f"127.0.0.1:{ctl.port}",
+                                 "--shard-dir", str(tmp_path / tag), "--max-shards", "2",
+                                 "--poll-interval", "0.01", *extra]) == 0
+                with kv_cls(sg.hosts, D, client_id=9) as kv:
+                    got[tag] = kv.pull()
+        np.testing.assert_allclose(got["ours"], got["jax"], rtol=1e-6, atol=0)
+        assert np.abs(got["ours"]).max() > 0
 
     def test_serve_feedback_without_cuda_raises(self, tmp_path, monkeypatch):
         import torch

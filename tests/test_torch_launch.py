@@ -361,7 +361,6 @@ _GATES = {
                      "--trace-sample", "--profile-dir"), "A.12"),
     **dict.fromkeys(("--prof-hz", "--prof-window", "--log-level", "--log-ring", "--log-dedupe",
                      "--incident-window", "--incident-settle", "--incident-max"), "A.21"),
-    **dict.fromkeys(("--elastic", "--ctl-port", "--ps-ctl"), "A.16"),
 }
 _COMMAND_ITEMS = {("rollout", "--obs-run-dir"): "A.21"}
 # flags whose value must come with another flag to be valid in both packages

@@ -136,14 +136,22 @@ class TestConvert:
 
 
 class TestConfigGates:
+    # profile_dir names its ROADMAP item; the reference's rendezvous
+    # address is accepted and resolved as in JAX (nothing reads it)
     @pytest.mark.parametrize("kw,item", [
         ({"profile_dir": "prof"}, "A.12"),
-        ({"ps_host": "10.0.0.1"}, "A.16"),
-        ({"ps_port": 9000}, "A.16"),
+        ({"ps_host": "10.0.0.1"}, None),
+        ({"ps_port": 9000}, None),
     ])
-    def test_unported_options_name_their_roadmap_item(self, kw, item):
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
-            Config(device="cpu", **kw)
+    def test_options_resolve_like_jax_or_name_their_roadmap_item(self, kw, item):
+        if item is not None:
+            with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
+                Config(device="cpu", **kw)
+            return
+        env = {"DMLC_PS_ROOT_URI": "10.0.0.1", "DMLC_PS_ROOT_PORT": "9000"}
+        for ours, theirs in ((Config(device="cpu", **kw), JaxConfig(**kw)),
+                             (Config.from_env(env, device="cpu"), JaxConfig.from_env(env))):
+            assert (ours.ps_host, ours.ps_port) == (theirs.ps_host, theirs.ps_port)
 
     # the durable store and the fault plan (ROADMAP A.16.4-A.16.5):
     # accepted, with the JAX package's values

@@ -15,6 +15,7 @@ against the JAX package's, on the CPU.
   v1:ftrl,v2`` serves ``v1`` as JAX's does.
 """
 
+import json
 import os
 import signal
 import subprocess
@@ -312,11 +313,41 @@ class TestLaunchPSServer:
             errs.append(capsys.readouterr().err.strip().splitlines()[-1])
         assert errs[0] == errs[1]
 
-    @pytest.mark.parametrize("argv", [["--elastic"], ["--ctl-port", "9000"]])
-    def test_unported_flags_name_a16(self, argv, monkeypatch):
-        monkeypatch.setattr(signal, "signal", lambda *a: None)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A\.16\)"):
-            launch.main(["ps-server", "--num-feature-dim", "8", *argv])
+    @pytest.mark.parametrize("argv", [["--elastic"], ["--async", "--elastic", "--ctl-port"]])
+    def test_elastic_flags_run_like_jax(self, argv, capsys, monkeypatch):
+        """``--elastic`` without ``--async`` exits 2 with the JAX package's
+        text; with it, ``--ctl-port`` fixes the announced ``PSCTL`` port,
+        and ``ps-ctl resize`` reshards the group live (exit 0)."""
+        if "--async" not in argv:
+            monkeypatch.setattr(signal, "signal", lambda *a: None)
+            errs = []
+            for mod in (launch, jax_launch):
+                assert mod.main(["ps-server", "--num-feature-dim", "8", *argv]) == 2
+                errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+            assert errs[0] == errs[1]
+            return
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        proc, lines = _start_ps_server("--num-feature-dim", "16", "--num-servers", "2",
+                                       *argv, str(port))
+        try:
+            lines["PSCTL"] = proc.stdout.readline().strip().partition(" ")[2]
+            assert lines["PSCTL"] == f"0.0.0.0:{port}"
+            env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+            out = subprocess.run(
+                [sys.executable, "-m", "distlr_tpu_torch.launch", "ps-ctl", "--ctl",
+                 f"127.0.0.1:{port}", "resize", "4"],
+                cwd=REPO, env=env, capture_output=True, text=True, timeout=60)
+            assert out.returncode == 0, out.stderr[-2000:]
+            doc = json.loads(out.stdout.strip().splitlines()[-1][len("PSCTL "):])
+            assert (doc["ok"], doc["epoch"], doc["num_servers"], doc["reused"],
+                    doc["spawned"]) == (True, 2, 4, 2, 2)
+            assert len(_children(proc.pid)) == 4
+        finally:
+            assert _stop(proc) == 143
 
     @pytest.mark.parametrize("argv", [
         ["--store-dir", "s"],

@@ -801,10 +801,36 @@ class TestHotReload:
             reloader.stop()
         assert "unreachable" in watcher.describe_unready()
 
-    @pytest.mark.parametrize("kw,item", [({"route": object()}, "A.16")])
-    def test_unported_watcher_options_raise(self, kw, item):
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
-            LivePSWatcher("127.0.0.1:1", 16, **kw)
+    @pytest.mark.parametrize("package", ["both"])
+    def test_watcher_route_follows_a_resize_like_jax(self, package):
+        """``LivePSWatcher(None, route=)``: each package's watcher on its
+        own group and coordinator polls the same weights before and after
+        a 2 -> 4 resize, its client re-routed once."""
+        from distlr_tpu.ps import KVWorker as JaxKVWorker
+        from distlr_tpu.ps import MembershipCoordinator as JaxCoordinator
+        from distlr_tpu.ps import ServerGroup as JaxServerGroup
+        from distlr_tpu.serve import LivePSWatcher as JaxWatcher
+
+        from distlr_tpu_torch.ps import MembershipCoordinator
+
+        w = np.linspace(-1, 1, 16).astype(np.float32)
+        got = {}
+        for tag, group_cls, coord_cls, kv_cls, watcher_cls in (
+                ("ours", ServerGroup, MembershipCoordinator, KVWorker, LivePSWatcher),
+                ("jax", JaxServerGroup, JaxCoordinator, JaxKVWorker, JaxWatcher)):
+            with group_cls(2, 1, dim=16, sync=False) as sg:
+                coord = coord_cls(sg)
+                with kv_cls(sg.hosts, 16) as kv:
+                    kv.push_init(w)
+                watcher = watcher_cls(None, 16, route=coord.layout)
+                first = watcher.poll()
+                coord.resize(4)
+                second = watcher.poll()
+                got[tag] = (first[0], second[0], watcher.kv.num_servers)
+                np.testing.assert_array_equal(first[1], w)
+                np.testing.assert_array_equal(second[1], w)
+                watcher.close()
+        assert got["ours"] == got["jax"] == (1, 2, 4)
 
     def test_watcher_retry_rides_a_server_respawn(self):
         """``LivePSWatcher(retry=)`` as in the JAX package: its client
@@ -1149,13 +1175,47 @@ class TestLaunchServe:
         with pytest.raises(RuntimeError, match="--device cpu"):
             launch.main(["serve", "--num-feature-dim", "24", "--model-file", model_dir[1]])
 
-    @pytest.mark.parametrize("argv,item", [
-        *[([flag, "1"], item) for flag, _, _, item in launch._UNPORTED_SERVE_FLAGS],
-    ])
-    def test_unported_serve_flags_name_their_roadmap_item(self, argv, item, model_dir):
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
-            launch.main(["serve", "--num-feature-dim", "24", "--model-file", model_dir[1],
-                         "--device", "cpu", *argv])
+    @pytest.mark.parametrize("argv", [["--ps-ctl"]])
+    def test_serve_ps_ctl_follows_a_live_resize(self, argv, monkeypatch):
+        """``launch serve --ps-ctl`` without ``--ps-hosts``, as the JAX
+        package's: the watcher routes by the coordinator's layout, and a
+        served score after a resize is the resized group's."""
+        from distlr_tpu_torch.ps import MembershipCoordinator, MembershipServer
+
+        rng = np.random.default_rng(21)
+        D = 24
+        w1, w2 = (rng.standard_normal(D).astype(np.float32) for _ in range(2))
+        lines = _dense_lines(rng, 4, D)
+        seen = {}
+        with ServerGroup(2, 1, dim=D, sync=False) as sg, \
+                MembershipServer(MembershipCoordinator(sg)) as ctl:
+            with KVWorker(sg.hosts, D) as kv:
+                kv.push_init(w1)
+
+            def fake_forever(self):
+                seen["before"] = [self.handle_line(ln) for ln in lines]
+                assert ctl.coordinator.resize(4)["ok"]
+                with KVWorker(None, D, route=ctl.coordinator.layout) as kv:
+                    kv.push_init(w2, force=True)
+                assert self.reloader._poll_once()
+                seen["after"] = [self.handle_line(ln) for ln in lines]
+                seen["source"] = self.reloader.source
+                self.stop()
+
+            monkeypatch.setattr(ScoringServer, "serve_forever", fake_forever)
+            monkeypatch.setattr(signal, "signal", lambda *a: None)
+            assert launch.main(["serve", "--num-feature-dim", str(D), *argv,
+                                f"127.0.0.1:{ctl.port}", "--device", "cpu",
+                                "--reload-interval", "30"]) == 0
+            assert seen["source"].hosts == sg.hosts and sg.num_servers == 4
+            assert seen["source"].kv.reroutes == 1
+        eng = ScoringEngine(Config(device="cpu", num_feature_dim=D))
+        for w, key in ((w1, "before"), (w2, "after")):
+            eng.set_weights(w)
+            labels, scores = eng.score(eng.encode_lines(lines))
+            got_l, got_s = _parse_replies(seen[key])
+            np.testing.assert_array_equal(got_l, labels)
+            np.testing.assert_allclose(got_s, scores, rtol=1e-5)
 
     # the feedback loop's flags (ROADMAP A.11): the same Config as the JAX
     # package's launch serve builds, taken where each builds its engine

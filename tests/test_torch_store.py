@@ -464,9 +464,11 @@ class TestGroup:
             JaxServerGroup(2, 1, dim=8, **kw).plan_resize(3)
         assert str(ours.value) == str(theirs.value)
 
-    def test_plan_resize_past_the_refusals_names_a16_6(self):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A\.16\.6\)"):
-            ServerGroup(2, 1, 8, sync=False).plan_resize(3)
+    def test_plan_resize_past_the_refusals_equals_jax(self):
+        with ServerGroup(2, 1, 8, sync=False) as g, \
+                JaxServerGroup(2, 1, dim=8, sync=False) as jg:
+            ours, theirs = dataclasses.asdict(g.plan_resize(3)), dataclasses.asdict(jg.plan_resize(3))
+        assert ours == theirs and ours["spawn"] == [1, 2]
 
 
 # ---------------------------------------------------------------------------
@@ -772,18 +774,25 @@ class TestCoordinator:
                 srv.stop()
         assert answers[0] == answers[1]
 
-    def test_live_resize_and_layout_client_name_a16_6(self):
-        with ServerGroup(2, 1, 8, sync=False) as g:
-            coord = membership.MembershipCoordinator(g)
-            srv = membership.MembershipServer(coord)
-            for line in ("RESIZE 3", "RESIZE 3 wait=0"):
-                reply = json.loads(srv.handle_line(line))
-                assert reply["ok"] is False and "ROADMAP A.16.6" in reply["error"]
-            srv.stop()
-            for call in (lambda: coord._fence(2), lambda: coord._drain(None, {}),
-                         lambda: membership.layout_client("127.0.0.1:1")):
-                with pytest.raises(NotImplementedError, match=r"ROADMAP A\.16\.6\)"):
-                    call()
+    def test_live_resize_and_layout_client_follow_jax(self):
+        """``RESIZE 3`` and ``RESIZE 3 wait=0`` reshard the group as JAX's
+        coordinator does; ``layout_client`` reads the new layout."""
+        for ms, group_cls in ((membership, ServerGroup), (jax_membership, JaxServerGroup)):
+            with group_cls(2, 1, 8, sync=False) as g:
+                coord = ms.MembershipCoordinator(g)
+                srv = ms.MembershipServer(coord).start()
+                try:
+                    done = json.loads(srv.handle_line("RESIZE 3"))
+                    assert (done["ok"], done["epoch"], done["num_servers"]) == (True, 2, 3)
+                    accepted = json.loads(srv.handle_line("RESIZE 2 wait=0"))
+                    assert accepted == {"ok": True, "accepted": True, "target": 2, "epoch": 2}
+                    deadline = time.monotonic() + 10
+                    while coord.status()["epoch"] != 3 and time.monotonic() < deadline:
+                        time.sleep(0.01)
+                    lay = ms.layout_client(f"127.0.0.1:{srv.port}")()
+                    assert (lay["epoch"], lay["num_servers"], lay["hosts"]) == (3, 2, g.hosts)
+                finally:
+                    srv.stop()
 
     def test_ctl_request_rejects_a_bad_address_like_jax(self):
         for fn in (membership.ctl_request, jax_membership.ctl_request):
