@@ -3,7 +3,13 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100::
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--phases kernels,ps_sanitized]
+
+``--phases`` runs only the named phases (``env`` and ``build`` always
+run) and ends with a ``{"phases_run": [...]}`` line in place of the
+``kernels`` line and the result; every phase's lines carry the wall
+``seconds`` since it began, and a ``smoke_seconds`` line comes before the
+last lines.
 
 It builds the port's CUDA kernels from the sources in the checkout,
 holds each against its plain PyTorch version on the card, drives the
@@ -64,7 +70,11 @@ the card's gradients equal to a static group's, the JAX package's "double
 then halve under chaos" with a Hogwild pusher on the card, an online
 trainer and a served engine following the coordinator, and ``launch
 ps-server --elastic`` with ``serve`` / ``online --ps-ctl`` and ``launch
-ps-ctl resize``), then
+ps-ctl resize``) and the native sanitizer matrix at D = 1M (each KV
+server variant, asan, ubsan and tsan, built from the checkout; a sync
+group held to the plain recurrence and an async int8-pushing WAL group
+whose SIGKILLed rank respawns on the same build, every gradient
+``fused_lr_grad`` on the card, with no report and every exit code 0), then
 the serving control plane (a ``ScoringRouter`` in front of two
 ``ScoringServer`` replicas, each hosting the binary_lr versions v1 and v2
 at D = 1M: one reloads both from two namespaces of one PS group, the other
@@ -175,7 +185,15 @@ INT8_NOTE = ("int8_dot instance of row 1: the JAX model contracts int8 x int8 wi
 INT8_SCALE = 3.0 / 127.0
 
 
+#: when the current phase began (``main`` sets it as each phase starts)
+_PHASE_T0 = time.perf_counter()
+
+
 def emit(phase: str, **kv) -> None:
+    """One JSON line of ``phase``; ``seconds``, unless given, is the wall
+    time since the current phase began (on its last line, the whole
+    phase's)."""
+    kv.setdefault("seconds", time.perf_counter() - _PHASE_T0)
     print(json.dumps({"phase": phase, **kv}), flush=True)
 
 
@@ -4647,6 +4665,321 @@ def phase_ps_elastic(torch, seed: int, smi: str) -> dict:
     return out
 
 
+# --- the native sanitizer matrix at the ps width -----------------------------
+# the variants whose KV servers the phase runs: asan and ubsan through
+# DISTLR_NATIVE_VARIANT, tsan through ServerGroup(binary=) (the TSan client
+# would need its runtime preloaded into this CUDA process)
+SAN_VARIANTS = ("asan", "ubsan", "tsan")
+SAN_SYNC_ROUNDS, SAN_ASYNC_ROUNDS = 3, 8
+SAN_LR = 0.5
+SAN_EXITCODE = 66            # a server that reported exits with it
+SAN_SUP_POLL_S = 0.05
+
+
+def _san_data(torch, seed: int) -> dict:
+    """Each worker's PS_SHARD_ROWS config-3 CTR rows, the PS_TEST_ROWS test
+    rows (bf16 on the card) and a seeded init whose residuals are far from
+    saturation (logits of standard deviation ~0.06)."""
+    import numpy as np  # noqa: PLC0415
+
+    rng = np.random.default_rng(seed + 90)
+    w_true = (rng.standard_normal(FULL_D) * 0.5).astype(np.float32)
+    shards = []
+    for _ in range(PS_WORKERS):
+        cols, y = _ctr_cols(rng, PS_SHARD_ROWS, w_true, FULL_D)
+        shards.append((_device_rows(torch, cols, FULL_D, torch.bfloat16),
+                       torch.from_numpy(y).float().cuda()))
+    cols, y = _ctr_cols(rng, PS_TEST_ROWS, w_true, FULL_D)
+    w0 = (rng.standard_normal(FULL_D) * 0.01).astype(np.float32)
+    return {"shards": shards, "Xt": _device_rows(torch, cols, FULL_D, torch.bfloat16),
+            "yt": torch.from_numpy(y).float().cuda(), "w0": w0}
+
+
+def _san_grad(torch, ops, X, y):
+    """The mean gradient of rows ``X`` at host weights ``w``: one
+    ``fused_lr_grad`` launch, read back as the f32 vector a push sends."""
+    mask = torch.ones(X.shape[0], device="cuda")
+
+    def grad(w):
+        g = ops.fused_lr_grad(torch.from_numpy(w).cuda(), X, y, mask)
+        return (g / X.shape[0]).cpu().numpy()
+
+    return grad
+
+
+def _san_logloss(torch, ops, data, w, *, plain: bool) -> float:
+    """Rank 0's eval: the test logloss of host weights ``w`` by the
+    ``lr_logits`` kernel, or by its plain version."""
+    fn = ops.lr_logits_reference if plain else ops.lr_logits
+    z = fn(torch.from_numpy(w).cuda(), data["Xt"])
+    return float((torch.logaddexp(z, torch.zeros_like(z)) - data["yt"] * z).mean())
+
+
+def _san_workers(group, fn) -> None:
+    """``fn(rank)`` on PS_WORKERS threads; the first failure stops the
+    group so the other worker does not wait out a barrier."""
+    errors = []
+
+    def guarded(rank):
+        try:
+            fn(rank)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+            group.stop()
+
+    threads = [threading.Thread(target=guarded, args=(r,), daemon=True, name=f"smoke-san-{r}")
+               for r in range(PS_WORKERS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(PS_WALL_S)
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("ps_sanitized: a worker thread hung")
+
+
+def _san_retire(group, D: int) -> list:
+    """Shut the group's servers down from a client and wait their exits:
+    their exit codes (SAN_EXITCODE marks a report)."""
+    from distlr_tpu_torch.ps import KVWorker  # noqa: PLC0415
+
+    with KVWorker(group.hosts, D, client_id=99, sync_group=False,
+                  timeout_ms=PS_TIMEOUT_MS) as kv:
+        kv.shutdown_servers()
+    group.wait()
+    return [p.returncode for p in group.procs]
+
+
+def _san_sync(torch, ops, data, binary) -> dict:
+    """(a) A sync SGD group: SAN_SYNC_ROUNDS BSP rounds, each worker's
+    gradient of its whole shard pushed a round (pull, ``fused_lr_grad``,
+    push and the round's merged pull), rank 0's eval on the final
+    weights; held to the plain recurrence on the card."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.ps import KVWorker, ServerGroup  # noqa: PLC0415
+
+    D, final = FULL_D, {}
+    group = ServerGroup(PS_SERVERS, PS_WORKERS, D, sync=True, learning_rate=SAN_LR, binary=binary)
+    with group:
+        def run(rank):
+            X, y = data["shards"][rank]
+            grad = _san_grad(torch, ops, X, y)
+            with KVWorker(group.hosts, D, client_id=rank, timeout_ms=PS_TIMEOUT_MS) as kv:
+                if rank == 0:
+                    kv.wait(kv.push_init(data["w0"]))
+                kv.barrier(0)
+                w = kv.pull()
+                for _ in range(SAN_SYNC_ROUNDS):
+                    w = kv.push_pull(grad(w))
+                final[rank] = w
+                if rank == 0:
+                    final["logloss"] = _san_logloss(torch, ops, data, w, plain=False)
+                kv.barrier(1)
+
+        _san_workers(group, run)
+        codes = _san_retire(group, D)
+    # the plain recurrence: each round subtracts lr times the mean of the
+    # workers' plain gradients at the same weights
+    wp = torch.from_numpy(data["w0"]).cuda()
+    for _ in range(SAN_SYNC_ROUNDS):
+        gs = []
+        for X, y in data["shards"]:
+            mask = torch.ones(X.shape[0], device="cuda")
+            gs.append(ops.fused_lr_grad_reference(wp, X, y, mask) / X.shape[0])
+        wp = wp - SAN_LR * (gs[0] + gs[1]) / PS_WORKERS
+    w0 = torch.from_numpy(data["w0"]).cuda()
+    w = torch.from_numpy(final[0]).cuda()
+    out = {"exit_codes": codes, "rounds": SAN_SYNC_ROUNDS,
+           "workers_equal": bool(np.array_equal(final[0], final[1])),
+           "weights_rel_err_vs_plain": rel_err(w, wp),
+           "update_rel_err_vs_plain": rel_err(w - w0, wp - w0),
+           "test_logloss_reported": final["logloss"],
+           "test_logloss_plain": _san_logloss(torch, ops, data, final[0], plain=True)}
+    out["logloss_rel_err"] = (abs(out["test_logloss_reported"] - out["test_logloss_plain"])
+                              / abs(out["test_logloss_plain"]))
+    if (not out["workers_equal"] or max(out["weights_rel_err_vs_plain"],
+                                        out["update_rel_err_vs_plain"],
+                                        out["logloss_rel_err"]) > REL_TOL):
+        raise AssertionError(f"ps_sanitized sync: {out}")
+    return out
+
+
+def _san_async(torch, ops, data, binary, store_dir: str) -> dict:
+    """(b) An async group with int8 pushes and the WAL under a supervisor:
+    SAN_ASYNC_ROUNDS Hogwild rounds a worker of PS_ASYNC_BATCH rows (the
+    halves of its shard in turn), then rank 1 SIGKILLed and respawned
+    from its store on the same binary, and rank 0's eval of the weights
+    pulled after it."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.ps import KVWorker, ServerGroup, ServerSupervisor  # noqa: PLC0415
+
+    D = FULL_D
+    group = ServerGroup(PS_SERVERS, PS_WORKERS, D, sync=False, learning_rate=SAN_LR,
+                        store_dir=store_dir, store_wal=True, store_wal_fsync_s=0.01,
+                        binary=binary)
+    init_ll = _san_logloss(torch, ops, data, data["w0"], plain=True)
+    with group, ServerSupervisor(group, poll_interval=SAN_SUP_POLL_S,
+                                 snapshot_interval=60.0) as sup:
+        codecs = {}
+
+        def run(rank):
+            X, y = data["shards"][rank]
+            halves = [_san_grad(torch, ops, X[a:a + PS_ASYNC_BATCH].contiguous(),
+                                y[a:a + PS_ASYNC_BATCH])
+                      for a in range(0, PS_SHARD_ROWS, PS_ASYNC_BATCH)]
+            with KVWorker(group.hosts, D, client_id=rank, sync_group=False, compress="int8",
+                          timeout_ms=PS_TIMEOUT_MS) as kv:
+                codecs[rank] = kv.compress_active
+                if rank == 0:
+                    kv.push_init(data["w0"])
+                kv.barrier(0)
+                for i in range(SAN_ASYNC_ROUNDS):
+                    kv.push(halves[i % len(halves)](kv.pull()))
+                kv.barrier(1)
+
+        _san_workers(group, run)
+        victim = group.procs[1]
+        with KVWorker(group.hosts, D, sync_group=False, timeout_ms=PS_TIMEOUT_MS) as kv:
+            before = kv.pull()
+        t_kill = time.monotonic()
+        victim.kill()
+        while not any(r == 1 and ev == "reseeded-from-store" for _, r, ev in sup.events):
+            if time.monotonic() - t_kill > 60.0:
+                raise AssertionError(f"ps_sanitized async: no respawn from the store: "
+                                     f"{sup.events}")
+            time.sleep(0.005)
+        respawn_s = time.monotonic() - t_kill
+        sup.stop()
+        reborn = group.procs[1]
+        exe = os.path.realpath(f"/proc/{reborn.pid}/exe")
+        with KVWorker(group.hosts, D, sync_group=False, timeout_ms=PS_TIMEOUT_MS) as kv:
+            w = kv.pull()
+        final_ll = _san_logloss(torch, ops, data, w, plain=False)
+        codes = _san_retire(group, D)
+    out = {"exit_codes": codes, "rounds": SAN_ASYNC_ROUNDS, "codecs": codecs,
+           "events": [(r, ev) for _, r, ev in sup.events], "kill_to_reseeded_s": respawn_s,
+           "respawned_binary": os.path.basename(exe),
+           "respawn_same_binary": (reborn.pid != victim.pid
+                                   and reborn.args[0] == str(group.binary)
+                                   and exe == os.path.realpath(group.binary)),
+           "pull_equals_pre_kill_bits": before.tobytes() == w.tobytes(),
+           "weights_finite": bool(np.isfinite(w).all()),
+           "test_logloss_init": init_ll, "test_logloss_final": final_ll}
+    if (not out["respawn_same_binary"] or not out["weights_finite"] or final_ll >= init_ll
+            or set(codecs.values()) != {"int8"}):
+        raise AssertionError(f"ps_sanitized async: {out}")
+    return out
+
+
+@contextlib.contextmanager
+def _san_environ(variant: str, log_base: str):
+    """This process's environment for a variant's groups: asan and ubsan
+    through DISTLR_NATIVE_VARIANT (this process keeps the standard
+    client), tsan through its options alone (the group is given the TSan
+    binary); restored afterwards."""
+    from distlr_tpu_torch.ps import build  # noqa: PLC0415
+
+    opts = f"log_path={log_base} exitcode={SAN_EXITCODE}"
+    if variant == "tsan":
+        opts += f" suppressions={build.suppressions_file('tsan')}"
+    var = {"tsan": "TSAN_OPTIONS", "asan": "ASAN_OPTIONS", "ubsan": "UBSAN_OPTIONS"}[variant]
+    saved = {k: os.environ.get(k) for k in ("DISTLR_NATIVE_VARIANT", var)}
+    os.environ[var] = opts
+    if variant != "tsan":
+        os.environ["DISTLR_NATIVE_VARIANT"] = variant
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _san_variant(torch, ops, data, variant: str, tmp: str) -> dict:
+    """Both runs of one variant, each with its launches counted; the
+    report files under the variant's ``log_path`` after them."""
+    import glob  # noqa: PLC0415
+
+    from distlr_tpu_torch.ps import build  # noqa: PLC0415
+
+    root = os.path.join(tmp, variant)
+    os.makedirs(root)
+    log_base = os.path.join(root, "report")
+    # asan and ubsan: the group reads the variant; tsan: the group is given it
+    binary = build.server_binary(variant) if variant == "tsan" else None
+    out = {"variant": variant}
+    with _san_environ(variant, log_base):
+        for name, fn in (("sync", lambda: _san_sync(torch, ops, data, binary)),
+                         ("async", lambda: _san_async(torch, ops, data, binary,
+                                                      os.path.join(root, "store")))):
+            out[name], launches, seconds = _bounded(torch, fn)
+            out[name]["seconds"] = seconds
+            out[name]["launches"] = {k: v for k, v in launches.items() if v}
+    out["reports"] = sorted(glob.glob(log_base + "*"))
+    rounds = {"sync": SAN_SYNC_ROUNDS, "async": SAN_ASYNC_ROUNDS}
+    bad = [name for name in rounds
+           if out[name]["launches"] != {"fused_lr_grad": PS_WORKERS * rounds[name],
+                                        "lr_logits": 1}
+           or out[name]["exit_codes"] != [0] * PS_SERVERS]
+    if out["reports"] or bad:
+        reports = "\n".join(open(f).read()[:4000] for f in out["reports"][:3])
+        raise AssertionError(f"ps_sanitized {variant}: reports {out['reports']} or runs {bad} "
+                             f"off: {out}\n{reports}")
+    out["reports"] = len(out["reports"])
+    return out
+
+
+def phase_ps_sanitized(torch, seed: int, smi: str) -> dict:
+    """The native sanitizer matrix at the ps phase's width (D = 1M,
+    binary_lr, PS_SERVERS servers, PS_WORKERS worker threads on the card):
+    each variant's KV server built from the checkout (one ``g++`` each, in
+    parallel), then for each variant (a) a sync SGD group held to the
+    plain recurrence and (b) an async int8-pushing WAL group whose rank 1
+    is SIGKILLed and respawned from its store on the same build
+    (:func:`_san_sync`, :func:`_san_async`).  Every gradient is one
+    ``fused_lr_grad`` launch, rank 0's evals ``lr_logits``; after each
+    variant: no report file, every server's exit code 0, one
+    ``fused_lr_grad`` a worker and round."""
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.ps import build  # noqa: PLC0415
+
+    t_phase = time.perf_counter()
+    build_s = {}
+
+    def timed_build(v):
+        t0 = time.perf_counter()
+        build.server_binary(v)
+        build_s[v] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SAN_VARIANTS)) as pool:
+        list(pool.map(timed_build, SAN_VARIANTS))
+    out = {"nvidia_smi": smi, "D": FULL_D, "servers": PS_SERVERS, "workers": PS_WORKERS,
+           "shard_rows": PS_SHARD_ROWS, "async_rows": PS_ASYNC_BATCH,
+           "build_wall_s": time.perf_counter() - t0, "variants": {}}
+    data = _san_data(torch, seed)
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="distlr-smoke-san-") as tmp:
+        for v in SAN_VARIANTS:
+            line = _san_variant(torch, ops, data, v, tmp)
+            line["build_s"] = build_s[v]
+            out["variants"][v] = line
+            for run in ("sync", "async"):
+                for k, n in line[run]["launches"].items():
+                    launches[k] = launches.get(k, 0) + n
+    del data
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit("ps_sanitized", **out)
+    return out
+
+
 # --- hot-row serving from a live PS ------------------------------------------
 HOT_ROWS, HOT_PROBE_ROWS, HOT_FULL_EVERY, HOT_INTERVAL_S, HOT_EPOCHS = 4096, 64, 10, 0.05, 24
 
@@ -6418,10 +6751,41 @@ def phase_sass() -> dict:
     return facts
 
 
+#: the phases ``--phases`` may name, in the order a full run takes them
+#: (``env`` and ``build`` run always; ``trainer_feature_sharded`` runs on
+#: ``trainer``'s rows and result, so naming it runs ``trainer`` too)
+PHASES = ("sass", "kernels", "int8_kernels", "lr_backward", "roofline", "trainer",
+          "trainer_feature_sharded", "trainer_int8", "trainer_int8_dot",
+          "feature_sharded_small", "trainer_wide", "trainer_int8_wide", "two_launch",
+          "trainer_sparse_lr", "trainer_sparse_softmax", "trainer_blocked_lr",
+          "trainer_softmax", "step_softmax_wide", "cli", "ps", "serve", "ps_keyed", "ps_wire",
+          "ps_recovery", "ps_durable", "ps_elastic", "ps_sanitized", "serve_hot", "route",
+          "online", "roofline_experiments")
+
+
+def _selected_phases(arg: str | None) -> set | None:
+    """The phases ``--phases`` names (None: every phase)."""
+    if arg is None:
+        return None
+    names = {n.strip() for n in arg.split(",") if n.strip()} - {"env", "build"}
+    unknown = names - set(PHASES)
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}; "
+                         f"known: env, build, {', '.join(PHASES)}")
+    if "trainer_feature_sharded" in names:
+        names.add("trainer")
+    return names
+
+
 def main(argv=None) -> int:
+    global _PHASE_T0
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every random input")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run (env and build always run); a "
+                         "partial run ends with a phases_run line instead of the result")
     args = ap.parse_args(argv)
+    selected = _selected_phases(args.phases)
 
     import torch  # noqa: PLC0415
 
@@ -6439,74 +6803,101 @@ def main(argv=None) -> int:
 
     from distlr_tpu_torch import ops  # noqa: PLC0415
 
+    t_smoke = time.perf_counter()
+    ran = []
     phase = "env"
+
+    def want(name: str) -> bool:
+        """Whether ``name`` runs; if so it becomes the current phase, whose
+        lines carry the seconds since it began."""
+        nonlocal phase
+        global _PHASE_T0
+        if selected is not None and name not in selected:
+            return False
+        phase, _PHASE_T0 = name, time.perf_counter()
+        ran.append(name)
+        return True
+
     try:
+        _PHASE_T0 = time.perf_counter()
         env = phase_env(torch)
-        phase = "build"
+        phase, _PHASE_T0 = "build", time.perf_counter()
+        ran.append("build")
         phase_build()
-        phase = "sass"
-        phase_sass()
-        phase = "kernels"
-        timing = phase_kernels(torch, args.seed)
-        phase = "int8_kernels"
-        timing.update(phase_int8_kernels(torch, args.seed))
-        phase = "lr_backward"
-        timing.update(phase_lr_backward(torch, args.seed))
-        phase = "roofline"
-        timing.update(phase_roofline(torch, args.seed))
+        timing, paths, launches = {}, {}, {}
+        smi = env["nvidia_smi"]
+        if want("sass"):
+            phase_sass()
+        if want("kernels"):
+            timing.update(phase_kernels(torch, args.seed))
+        if want("int8_kernels"):
+            timing.update(phase_int8_kernels(torch, args.seed))
+        if want("lr_backward"):
+            timing.update(phase_lr_backward(torch, args.seed))
+        if want("roofline"):
+            timing.update(phase_roofline(torch, args.seed))
         # the main path at its full width, on one set of rows: bf16, int8
         # and int8_dot features; then above the single pass's bound
-        rows = trainer_rows(args.seed, FULL_D, FULL_B, FULL_TEST)
-        paths = {}
-        for fd, name in (("bfloat16", "trainer"), ("int8", "trainer_int8"),
-                         ("int8_dot", "trainer_int8_dot")):
-            phase = name
-            paths[name] = phase_trainer(torch, rows, feature_dtype=fd, phase=name)
-            if name == "trainer":
-                # the same rows on the feature-sharded path, held to this one
-                phase = "trainer_feature_sharded"
-                ref = (paths[name].pop("final_weights"),
-                       {"accuracy": paths[name]["test_accuracy"],
-                        "logloss": paths[name]["test_logloss"]})
-                paths[phase] = phase_trainer_feature_sharded(torch, rows, ref)
-            paths[name].pop("final_weights", None)
-        phase = "feature_sharded_small"
-        paths.update(phase_feature_sharded_small(torch, args.seed))
-        rows = trainer_rows(args.seed, WIDE_D, WIDE_B, WIDE_TEST)
-        for fd, name in (("bfloat16", "trainer_wide"), ("int8", "trainer_int8_wide")):
-            phase = name
-            paths[name] = phase_trainer(torch, rows, feature_dtype=fd, phase=name)
-        del rows
-        time_two_launch(torch, args.seed, timing)
+        full = ("trainer", "trainer_feature_sharded", "trainer_int8", "trainer_int8_dot")
+        if selected is None or selected & set(full):
+            rows = trainer_rows(args.seed, FULL_D, FULL_B, FULL_TEST)
+            for fd, name in (("bfloat16", "trainer"), ("int8", "trainer_int8"),
+                             ("int8_dot", "trainer_int8_dot")):
+                if not want(name):
+                    continue
+                paths[name] = phase_trainer(torch, rows, feature_dtype=fd, phase=name)
+                if name == "trainer" and want("trainer_feature_sharded"):
+                    # the same rows on the feature-sharded path, held to this one
+                    ref = (paths[name].pop("final_weights"),
+                           {"accuracy": paths[name]["test_accuracy"],
+                            "logloss": paths[name]["test_logloss"]})
+                    paths[phase] = phase_trainer_feature_sharded(torch, rows, ref)
+                paths[name].pop("final_weights", None)
+            del rows
+        if want("feature_sharded_small"):
+            paths.update(phase_feature_sharded_small(torch, args.seed))
+        wide = ("trainer_wide", "trainer_int8_wide")
+        if selected is None or selected & set(wide):
+            rows = trainer_rows(args.seed, WIDE_D, WIDE_B, WIDE_TEST)
+            for fd, name in (("bfloat16", "trainer_wide"), ("int8", "trainer_int8_wide")):
+                if want(name):
+                    paths[name] = phase_trainer(torch, rows, feature_dtype=fd, phase=name)
+            del rows
+        if want("two_launch"):
+            time_two_launch(torch, args.seed, timing)
         for family in ("sparse_lr", "sparse_softmax", "blocked_lr", "softmax"):
-            phase = f"trainer_{family}"
-            phase_family(torch, args.seed, family)
-        phase = "step_softmax_wide"
-        time_softmax_wide(torch, args.seed)
-        phase = "cli"
-        phase_cli()
-        phase = "ps"
-        ps = phase_ps(torch, args.seed, env["nvidia_smi"])
-        phase = "serve"
-        serve = phase_serve(torch, args.seed, env["nvidia_smi"])
-        phase = "ps_keyed"
-        phase_ps_keyed(torch, args.seed, env["nvidia_smi"])
-        phase = "ps_wire"
-        ps_wire = phase_ps_wire(torch, args.seed, env["nvidia_smi"])
-        phase = "ps_recovery"
-        ps_recovery = phase_ps_recovery(torch, args.seed, env["nvidia_smi"])
-        phase = "ps_durable"
-        ps_durable = phase_ps_durable(torch, args.seed, env["nvidia_smi"])
-        phase = "ps_elastic"
-        ps_elastic = phase_ps_elastic(torch, args.seed, env["nvidia_smi"])
-        phase = "serve_hot"
-        phase_serve_hot(torch, args.seed, env["nvidia_smi"])
-        phase = "route"
-        route = phase_route(torch, args.seed, env["nvidia_smi"])
-        phase = "online"
-        online = phase_online(torch, args.seed, env["nvidia_smi"])
-        phase = "roofline_experiments"
-        launches = phase_roofline_experiments(torch, env["nvidia_smi"])
+            if want(f"trainer_{family}"):
+                phase_family(torch, args.seed, family)
+        if want("step_softmax_wide"):
+            time_softmax_wide(torch, args.seed)
+        if want("cli"):
+            phase_cli()
+        if want("ps"):
+            ps = phase_ps(torch, args.seed, smi)
+        if want("serve"):
+            serve = phase_serve(torch, args.seed, smi)
+        if want("ps_keyed"):
+            phase_ps_keyed(torch, args.seed, smi)
+        ps_paths = {}
+        for name, fn in (("ps_wire", phase_ps_wire), ("ps_recovery", phase_ps_recovery),
+                         ("ps_durable", phase_ps_durable), ("ps_elastic", phase_ps_elastic),
+                         ("ps_sanitized", phase_ps_sanitized)):
+            if want(name):
+                ps_paths[name] = fn(torch, args.seed, smi)
+        if want("serve_hot"):
+            phase_serve_hot(torch, args.seed, smi)
+        if want("route"):
+            route = phase_route(torch, args.seed, smi)
+        if want("online"):
+            online = phase_online(torch, args.seed, smi)
+        if want("roofline_experiments"):
+            launches = phase_roofline_experiments(torch, smi)
+        phase = "smoke_seconds"
+        print(json.dumps({"smoke_seconds": time.perf_counter() - t_smoke}), flush=True)
+        if selected is not None:
+            # a partial run: no kernels line and no result
+            print(json.dumps({"phases_run": ["env", *ran]}), flush=True)
+            return 0
         # each dense kernel's launches on the main path that runs it, and
         # on every path, the parameter server's runs among them
         by_path = {}
@@ -6518,14 +6909,9 @@ def main(argv=None) -> int:
             for name, n in ps[mode]["launches"].items():
                 if n:
                     by_path.setdefault(name, {})[f"ps_{mode}"] = n
-        for name, n in ps_wire["launches"].items():
-            by_path.setdefault(name, {})["ps_wire"] = n
-        for name, n in ps_recovery["launches"].items():
-            by_path.setdefault(name, {})["ps_recovery"] = n
-        for name, n in ps_durable["launches"].items():
-            by_path.setdefault(name, {})["ps_durable"] = n
-        for name, n in ps_elastic["launches"].items():
-            by_path.setdefault(name, {})["ps_elastic"] = n
+        for path_name, line in ps_paths.items():
+            for name, n in line["launches"].items():
+                by_path.setdefault(name, {})[path_name] = n
         for shape, t in ps["kernels_at_ps_shapes"]["timing"].items():
             name, rows = shape.rsplit("_B", 1)
             timing[name].setdefault("at_ps_shapes", {})[f"B{rows}"] = t

@@ -6,3 +6,7 @@ The port imports ``torch`` and ``numpy`` and nothing of JAX or of the
 own copy.  Entry points run on ``cuda`` unless the caller asks for the
 CPU (``device="cpu"`` / ``--device cpu``).
 """
+
+__version__ = "0.1.0"
+
+from distlr_tpu_torch.config import Config  # noqa: E402, F401

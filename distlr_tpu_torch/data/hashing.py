@@ -13,6 +13,7 @@ package's, so either package trains on the other's data directories.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import os
@@ -23,6 +24,7 @@ from distlr_tpu_torch.data.libsvm import parse_libsvm_file, parse_libsvm_lines
 from distlr_tpu_torch.data.sharding import part_name
 
 __all__ = [
+    "HashedFeatureEncoder",
     "splitmix64",
     "hash_buckets",
     "hash_group_blocks",
@@ -268,6 +270,47 @@ def encode_blocked(raw_ids, num_blocks: int, block_size: int, *, seed: int = 0,
     blocks, lane_vals = hash_group_blocks(raw_ids, field_groups, num_blocks, seed=seed,
                                           raw_vals=raw_vals)
     return blocks.astype(np.int32), lane_vals
+
+
+@dataclasses.dataclass(frozen=True)
+class HashedFeatureEncoder:
+    """Stateless encoder of raw ``(field, id, value)`` features into a fixed
+    ``num_buckets``-wide space: any 64-bit id space folds into
+    ``[0, num_buckets)`` deterministically, so the data need not already
+    lie in ``[0, D)`` (the reference's ``NUM_FEATURE_DIM`` contract).
+    ``signed`` multiplies each value by the id's +/-1 sign hash."""
+
+    num_buckets: int
+    seed: int = 0
+    signed: bool = False
+
+    def encode_coo(self, field_ids, raw_ids, raw_vals=None):
+        """(..., F) raw ids -> (cols, vals) in bucket space, same shape."""
+        cols, signs = hash_buckets(raw_ids, self.num_buckets, seed=self.seed,
+                                   field_ids=field_ids)
+        vals = (np.ones(cols.shape, np.float32) if raw_vals is None
+                else np.asarray(raw_vals, np.float32))
+        if self.signed:
+            vals = vals * signs
+        return cols, vals
+
+    def encode_dense(self, field_ids, raw_ids, raw_vals=None):
+        """(B, F) raw ids -> dense (B, num_buckets) float32 (scatter-add)."""
+        cols, vals = self.encode_coo(field_ids, raw_ids, raw_vals)
+        B = cols.shape[0]
+        X = np.zeros((B, self.num_buckets), np.float32)
+        rows = np.repeat(np.arange(B), cols.shape[1])
+        np.add.at(X, (rows, cols.reshape(-1)), vals.reshape(-1))
+        return X
+
+    def encode_csr(self, row_ptr, cols, vals):
+        """CSR column ids rehashed (no field namespacing) into bucket space;
+        CSR with the same ``row_ptr``."""
+        new_cols, signs = hash_buckets(cols, self.num_buckets, seed=self.seed)
+        new_vals = np.asarray(vals, np.float32)
+        if self.signed:
+            new_vals = new_vals * signs
+        return row_ptr, new_cols, new_vals
 
 
 def csr_to_padded_coo(row_ptr, cols, vals, *, nnz_max: int | None = None):

@@ -58,7 +58,7 @@ import time
 import numpy as np
 
 from distlr_tpu_torch.ps import wire
-from distlr_tpu_torch.ps.build import client_lib
+from distlr_tpu_torch.ps.build import client_lib, native_variant
 from distlr_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -82,7 +82,9 @@ if len(STATS_FIELDS) != wire.STATS_VALS or STATS_FIELDS[wire.STATS_VALS_V1 - 1] 
     raise ImportError("STATS_FIELDS disagrees with kv_protocol.h's kStats layout (ps/wire.py)")
 
 _lock = threading.Lock()
-_lib = None
+#: the loaded client library of each sanitizer variant: a process that
+#: switches ``DISTLR_NATIVE_VARIANT`` gets the variant's own library
+_libs: dict = {}
 
 
 class PSTimeoutError(TimeoutError):
@@ -231,10 +233,10 @@ class RetryPolicy:
 
 
 def _load():
-    global _lib
-    if _lib is None:
+    variant = native_variant()
+    if variant not in _libs:
         with _lock:
-            if _lib is None:
+            if variant not in _libs:
                 lib = ctypes.CDLL(str(client_lib()))
                 lib.kv_connect.restype = ctypes.c_void_p
                 lib.kv_connect.argtypes = [ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint32]
@@ -294,8 +296,8 @@ def _load():
                 lib.kv_last_error.argtypes = [ctypes.c_void_p]
                 lib.kv_close.restype = None
                 lib.kv_close.argtypes = [ctypes.c_void_p]
-                _lib = lib
-    return _lib
+                _libs[variant] = lib
+    return _libs[variant]
 
 
 def _ptr(a: np.ndarray) -> ctypes.c_void_p:

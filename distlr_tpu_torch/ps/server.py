@@ -38,11 +38,12 @@ import os
 import subprocess
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 
 from distlr_tpu_torch.ps import wire
-from distlr_tpu_torch.ps.build import server_binary
+from distlr_tpu_torch.ps.build import native_variant, sanitizer_environ, server_binary
 from distlr_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -160,6 +161,10 @@ class ServerGroup:
     servers, and the plan's ``kill`` faults SIGKILL this group's ranks.
     ``epoch`` is the membership epoch the servers start at (1, the
     static default, leaves their command lines as without it).
+    ``binary`` is the server executable of every spawn; by default the
+    build of the sanitizer variant ``DISTLR_NATIVE_VARIANT`` names when
+    the group is made (:mod:`distlr_tpu_torch.ps.build`), spawned with
+    that variant's options.
     """
 
     def __init__(self, num_servers: int, num_workers: int, dim: int, *,
@@ -170,7 +175,8 @@ class ServerGroup:
                  ftrl_l1: float = 0.0, ftrl_l2: float = 0.0, compress: bool = True,
                  opt_segments: list[tuple[int, str]] | None = None, via_chaos=None,
                  store_dir: str | None = None, store_interval_s: float = 5.0,
-                 store_wal: bool = False, store_wal_fsync_s: float = 0.1, epoch: int = 1):
+                 store_wal: bool = False, store_wal_fsync_s: float = 0.1, epoch: int = 1,
+                 binary=None):
         if not 1 <= epoch <= wire.AUX_MAX:
             # membership epochs ride the u16 MsgHeader::aux field
             raise ValueError(f"epoch must be in [1, {wire.AUX_MAX}], got {epoch}")
@@ -216,6 +222,12 @@ class ServerGroup:
             raise ValueError(
                 f"optimizer={optimizer!r} is incompatible with "
                 "last_gradient (Q1 compat is an SGD parity quirk)")
+        #: the sanitizer variant of this group's spawns, read once here
+        #: (``DISTLR_NATIVE_VARIANT``; a bogus value raises now): every
+        #: spawn, a respawn and a resize's too, runs the same build with
+        #: the same sanitizer environment
+        self.variant = native_variant()
+        self._binary = binary
         self.num_servers = num_servers
         self.num_workers = num_workers
         self.dim = dim
@@ -257,6 +269,15 @@ class ServerGroup:
         self._lock = threading.Lock()
         #: set by stop(): a torn-down group is never respawned
         self._stopped = False
+
+    @property
+    def binary(self) -> Path:
+        """The server executable every spawn of this group runs: the one
+        given as ``binary``, else the variant's build (made at first
+        use)."""
+        if self._binary is None:
+            self._binary = server_binary(self.variant)
+        return Path(self._binary)
 
     @property
     def hosts(self) -> str:
@@ -356,9 +377,13 @@ class ServerGroup:
         port."""
         if self.store_dir:
             os.makedirs(self.store_rank_dir(rank), exist_ok=True)
-        proc = subprocess.Popen(self._command(server_binary(), rank, port, key_range=key_range,
+        # a sanitizer variant's spawn carries its options (suppressions
+        # forced, the caller's log_path kept); the standard build's gets
+        # env=None and inherits this process's environment
+        proc = subprocess.Popen(self._command(self.binary, rank, port, key_range=key_range,
                                               epoch=epoch),
-                                stdout=subprocess.PIPE, text=True)
+                                stdout=subprocess.PIPE, text=True,
+                                env=sanitizer_environ(variant=self.variant))
         # the server prints "PORT <n>" once listening: reading it is the
         # readiness wait
         line = proc.stdout.readline().strip()

@@ -1,5 +1,9 @@
-"""Logging and the reference-format eval line (copy of ``get_logger`` and
-``log_eval_line`` from ``distlr_tpu/utils/logging.py``).
+"""Logging, CHECK-style invariants and the reference-format eval line
+(copy of ``check``, ``check_eq``, ``get_logger`` and ``log_eval_line``
+from ``distlr_tpu/utils/logging.py``).
+
+A failed check raises :class:`CheckError` where the reference's dmlc
+``CHECK`` / ``CHECK_EQ`` macros abort the process (``src/main.cc:49,86``).
 
 The eval line is byte-for-byte the reference's (``src/lr.cc:56-62``), so
 trajectories from the reference, the JAX package and this port diff
@@ -11,6 +15,20 @@ from __future__ import annotations
 import logging
 import sys
 import time
+
+class CheckError(AssertionError):
+    """Invariant violation: the equivalent of a failed CHECK."""
+
+
+def check(cond: bool, msg: str = "") -> None:
+    if not cond:
+        raise CheckError(f"Check failed: {msg}")
+
+
+def check_eq(a, b, msg: str = "") -> None:
+    if a != b:
+        raise CheckError(f"Check failed: {a!r} != {b!r}. {msg}")
+
 
 _FORMAT = "%(asctime)s %(levelname).1s %(name)s] %(message)s"
 

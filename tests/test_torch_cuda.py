@@ -1075,3 +1075,66 @@ def test_ftrl_reshard_of_card_gradients_equals_a_static_group(cuda):
                 kv.push(gv)
             static = kv.pull()
     assert elastic.tobytes() == static.tobytes()
+
+
+def test_asan_group_of_card_gradients_equals_a_standard_group(cuda, tmp_path, monkeypatch):
+    """``fused_lr_grad`` gradients made on the card at (512, 1M), pushed by
+    two workers into a sync 2-server group built under
+    ``DISTLR_NATIVE_VARIANT=asan`` and into a standard one: the pulls are
+    equal bit for bit, the asan servers exit 0 and write no report."""
+    import glob
+    import threading
+
+    from distlr_tpu_torch.ps import KVWorker, ServerGroup
+    from distlr_tpu_torch.ps import build as ps_build
+
+    B, D, rounds = 512, 1_000_000, 3
+    shards = [_inputs(cuda, B, D, torch.bfloat16, seed=20 + r)[1:] for r in range(2)]
+    w0 = (torch.randn(D, generator=torch.Generator().manual_seed(21)) * 0.01).numpy()
+    log_base = str(tmp_path / "asan")
+
+    def run(variant):
+        if variant:
+            monkeypatch.setenv("DISTLR_NATIVE_VARIANT", variant)
+            monkeypatch.setenv("ASAN_OPTIONS", f"log_path={log_base} exitcode=66")
+        else:
+            monkeypatch.delenv("DISTLR_NATIVE_VARIANT", raising=False)
+        final, errors = {}, []
+        with ServerGroup(2, 2, D, sync=True, learning_rate=0.5) as group:
+            assert group.binary == ps_build.server_binary(variant)
+
+            def worker(rank):
+                try:
+                    X, y, mask = shards[rank]
+                    with KVWorker(group.hosts, D, client_id=rank, timeout_ms=120_000) as kv:
+                        if rank == 0:
+                            kv.wait(kv.push_init(w0))
+                        kv.barrier(0)
+                        w = kv.pull()
+                        for _ in range(rounds):
+                            g = ops.fused_lr_grad(torch.from_numpy(w).to(cuda), X, y, mask) / B
+                            w = kv.push_pull(g.cpu().numpy())
+                        final[rank] = w
+                        kv.barrier(1)
+                        if rank == 0:
+                            kv.shutdown_servers()
+                except Exception as e:  # noqa: BLE001
+                    errors.append(e)
+                    group.stop()
+
+            threads = [threading.Thread(target=worker, args=(r,)) for r in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            assert not errors, errors[0]
+            group.wait()
+            codes = [p.returncode for p in group.procs]
+        return final, codes
+
+    launches = ops.fused_lr_grad.launches
+    asan, asan_codes = run("asan")
+    assert ops.fused_lr_grad.launches == launches + 2 * rounds
+    plain, _ = run("")
+    assert asan_codes == [0, 0] and glob.glob(log_base + "*") == []
+    assert asan[0].tobytes() == asan[1].tobytes() == plain[0].tobytes()

@@ -21,6 +21,11 @@ import distlr_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(distlr_tpu_torch.__path__, "distlr_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# the public names the JAX package exports beside its modules
+from distlr_tpu_torch import Config, __version__
+from distlr_tpu_torch.data import HashedFeatureEncoder
+from distlr_tpu_torch.ps.build import native_variant, sanitizer_environ, suppressions_file
+from distlr_tpu_torch.utils import CheckError, check, check_eq
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 forbidden = %r
@@ -63,7 +68,9 @@ def test_fresh_interpreter_imports_no_jax():
                 "distlr_tpu_torch.feedback.sink", "distlr_tpu_torch.feedback.online",
                 "distlr_tpu_torch.feedback.clock", "distlr_tpu_torch.ps.store",
                 "distlr_tpu_torch.ps.membership", "distlr_tpu_torch.chaos",
-                "distlr_tpu_torch.chaos.plan", "distlr_tpu_torch.chaos.proxy"):
+                "distlr_tpu_torch.chaos.plan", "distlr_tpu_torch.chaos.proxy",
+                "distlr_tpu_torch.ps.build", "distlr_tpu_torch.utils.logging",
+                "distlr_tpu_torch.config"):
         assert mod in doc["imported"]
     assert doc["leaked"] == []
 
