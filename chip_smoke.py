@@ -86,7 +86,12 @@ loop at D = 1M (``ID`` requests and their ``LABEL`` lines through a
 -m distlr_tpu_torch.launch online`` training an async FTRL group the
 server hot-reloads from; the probes separate from cold, follow a label
 flip, the drift alert fires and clears, and the joined shards replay to a
-numpy oracle), and last the path of the on-device generation probes: both roofline experiments
+numpy oracle), then the observability layer on the main path (the
+trainer at D = 1M under ``torch.profiler`` and the phase tracer, a sync PS
+run, a scored burst behind a ``/metrics`` endpoint, ``launch sync
+--metrics-port 0 --trace-path``, each check on the delta of its registry
+series, and the registry's own costs), and last the path of the on-device
+generation probes: both roofline experiments
 (``distlr_tpu_torch.benchmarks.exp_gen_roofline*``) at the published
 (256, 8192) x 64 tile, in this process and as ``python -m``.  Each phase
 prints JSON lines; any failure exits non-zero before the last line, which is
@@ -5966,6 +5971,294 @@ def phase_online(torch, seed: int, smi: str) -> dict:
     return out
 
 
+# the obs phase: the registry, the tracer, torch.profiler and the exporters
+# around the main path at D = 1M; its own bucket ladder, so the engine's
+# compiles in this phase are new signatures in a process that has scored
+# at the serving ladder already
+OBS_STEPS, OBS_REQUESTS, OBS_JSON_ROWS = 3, 24, 100
+OBS_BUCKETS, OBS_MAX_BATCH = (48, 192), 768
+OBS_CLI_D, OBS_CLI_ROWS = 123, 2000
+OBS_SYNC_PHASES = {"h2d", "data_load", "compute", "eval"}
+OBS_PS_PHASES = {"pull", "compute", "push", "barrier_wait", "eval"}
+OBS_COST_REPS, OBS_SCRAPES = 200_000, 10
+
+
+def _obs_series(name: str, **labels) -> float:
+    """The sum of a family's children of the port's registry whose labels
+    include ``labels`` (0 before the family exists)."""
+    from distlr_tpu_torch.obs import get_registry  # noqa: PLC0415
+
+    fam = get_registry().get(name)
+    if fam is None:
+        return 0.0
+    return float(sum(c.value for v, c in fam.children()
+                     if all(dict(zip(fam.labelnames, v)).get(k) == str(x)
+                            for k, x in labels.items())))
+
+
+def _obs_train(torch, seed: int, tmp: str) -> dict:
+    """``Trainer.fit`` at D = 1M, B = 2048, bf16 for OBS_STEPS steps with
+    ``profile_dir``: the profiler's trace names the single pass, the step
+    counter rises by the steps, the tracer holds the JAX trainer's phases,
+    and the weights equal the same steps run without the profiler and the
+    registry (the step function alone), bit for bit."""
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.obs import get_tracer  # noqa: PLC0415
+    from distlr_tpu_torch.train import GlobalShardedData, Trainer  # noqa: PLC0415
+
+    train_rows, test_rows, data_s = trainer_rows(seed, FULL_D, FULL_B, FULL_TEST)
+    train, test = GlobalShardedData([train_rows]), GlobalShardedData([test_rows])
+    prof = os.path.join(tmp, "prof")
+    kw = dict(num_feature_dim=FULL_D, feature_dtype="bfloat16", compute_dtype="bfloat16",
+              batch_size=-1, learning_rate=0.2, l2_c=0.01, num_iteration=OBS_STEPS,
+              test_interval=1, data_dir=tmp)
+    trainer = Trainer(Config(profile_dir=prof, **kw)).load_data(train=train, test=test)
+    w0 = trainer.init_weights().clone()
+    tracer = get_tracer()
+    tracer.reset()
+    steps0 = _obs_series("distlr_train_steps_total", loop="sync")
+    compiles0 = _obs_series("distlr_jax_compiles_total", site="train.sync.step")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit(eval_fn=lambda *_: None)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _launches(ops)
+    steps = _obs_series("distlr_train_steps_total", loop="sync") - steps0
+    compiles = _obs_series("distlr_jax_compiles_total", site="train.sync.step") - compiles0
+    breakdown = tracer.breakdown()
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    with open(os.path.join(prof, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernel_events = [e for e in events if e.get("cat") == "kernel"]
+    # "void (anonymous namespace)::lr_grad_single_pass_kernel<...>(...)"
+    named = sorted({m.group(1) for e in kernel_events
+                    for m in [re.search(r"(\w*lr_\w*_kernel)\b", e.get("name", ""))] if m})
+    # the same steps through the step function alone: no profiler, no
+    # phase spans, no series
+    plain = Trainer(Config(**kw)).load_data(train=train, test=test)
+    w = w0.clone()
+    batch = plain._put(train.full_batch())
+    for _ in range(OBS_STEPS):
+        w, _ = plain.train_step(w, batch)
+    torch.cuda.synchronize()
+    bits_equal = bool(torch.equal(w, trainer.weights))
+    out = {"D": FULL_D, "B": FULL_B, "steps": OBS_STEPS, "fit_s": fit_s, "data_build_s": data_s,
+           "launches": launches, "steps_counted": steps, "compiles_train_sync_step": compiles,
+           "phases": breakdown, "trace_file": traces[0], "trace_events": len(events),
+           "trace_kernel_events": len(kernel_events), "trace_lr_kernels": named,
+           "weights_bit_equal_without_obs": bits_equal}
+    ok = (len(traces) == 1 and "lr_grad_single_pass_kernel" in named
+          and launches["fused_lr_grad"] == OBS_STEPS and steps == OBS_STEPS and compiles == 1
+          and OBS_SYNC_PHASES <= set(breakdown) and bits_equal)
+    if not ok:
+        raise AssertionError(f"obs training: {out}")
+    del trainer, plain, batch, train, test, train_rows, test_rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def _obs_ps(torch, seed: int, tmp: str) -> dict:
+    """``run_ps_local`` sync for PS_EPOCHS rounds at D = 1M (PS_SERVERS
+    native servers, PS_WORKERS worker threads on the card): the client's
+    ok push_pull ops rise by rounds x workers, the retry, reconnect and
+    absorbed-push series by the clients' attributes, and the tracer holds
+    the JAX worker's phases."""
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.obs import get_tracer  # noqa: PLC0415
+
+    d = os.path.join(tmp, "ps")
+    _ps_data(d, seed)
+    cfg = Config(data_dir=d, num_feature_dim=FULL_D, num_workers=PS_WORKERS,
+                 num_servers=PS_SERVERS, batch_size=-1, num_iteration=PS_EPOCHS,
+                 test_interval=1, learning_rate=0.2, l2_c=0.01, compute_dtype="bfloat16",
+                 ps_timeout_ms=PS_TIMEOUT_MS)
+    tracer = get_tracer()
+    tracer.reset()
+    names = (("distlr_ps_client_ops_total", {"op": "push_pull", "status": "ok"}),
+             ("distlr_ps_push_outcome_unknown_total", {}),
+             ("distlr_ps_retries_total", {}), ("distlr_ps_reconnects_total", {}),
+             ("distlr_train_steps_total", {"loop": "ps"}),
+             ("distlr_ps_server_spawns_total", {}))
+    before = [_obs_series(n, **lab) for n, lab in names]
+    _, report, launches, seconds = _run_ps(torch, cfg, save=False)
+    deltas = {n: _obs_series(n, **lab) - b for (n, lab), b in zip(names, before)}
+    attrs = {k: sum(report[r][k] for r in range(PS_WORKERS))
+             for k in ("push_outcome_unknown", "retries", "reconnects")}
+    phases = tracer.phase_names()
+    out = {"rounds": PS_EPOCHS, "workers": PS_WORKERS, "run_s": seconds, "launches": launches,
+           "deltas": deltas, "client_attributes": attrs, "phases": sorted(phases)}
+    ok = (deltas["distlr_ps_client_ops_total"] == PS_EPOCHS * PS_WORKERS
+          and deltas["distlr_ps_push_outcome_unknown_total"] == attrs["push_outcome_unknown"]
+          and deltas["distlr_ps_retries_total"] == attrs["retries"]
+          and deltas["distlr_ps_reconnects_total"] == attrs["reconnects"]
+          and deltas["distlr_train_steps_total"] == PS_EPOCHS * PS_WORKERS
+          and deltas["distlr_ps_server_spawns_total"] == PS_SERVERS
+          and OBS_PS_PHASES <= phases and launches["fused_lr_grad"] == PS_EPOCHS * PS_WORKERS)
+    if not ok:
+        raise AssertionError(f"obs ps: {out}")
+    return out
+
+
+def _obs_serve(torch, seed: int) -> dict:
+    """A ``ScoringEngine`` at D = 1M behind an in-process ``ScoringServer``
+    and a ``MetricsServer`` on port 0: OBS_REQUESTS single lines and one
+    OBS_JSON_ROWS-row JSON batch over TCP, twice, then one scrape of
+    ``/metrics`` and ``/metrics.json``.  The listener's request series
+    rises by the requests; the engine's compiles by one for each bucket
+    first seen (none the second time); the device-bytes gauge holds the
+    f32 weights."""
+    import urllib.request  # noqa: PLC0415
+
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.obs import start_metrics_server, torchrt  # noqa: PLC0415
+    from distlr_tpu_torch.serve import (  # noqa: PLC0415
+        ScoringEngine,
+        ScoringServer,
+        score_lines_over_tcp,
+    )
+
+    rng = np.random.default_rng(seed + 22)
+    cols, _ = _ctr_cols(rng, OBS_REQUESTS + OBS_JSON_ROWS, np.zeros(FULL_D, np.float32), FULL_D)
+    lines = [" ".join(f"{c + 1}:1" for c in row) for row in cols.tolist()]
+    singles, batch = lines[:OBS_REQUESTS], lines[OBS_REQUESTS:]
+    w = (rng.standard_normal(FULL_D) * 0.2).astype(np.float32)
+    eng = ScoringEngine(Config(num_feature_dim=FULL_D, l2_c=0.0), w,
+                        buckets=OBS_BUCKETS, max_batch_size=OBS_MAX_BATCH)
+    rounds = []
+    ops.reset_launch_counts()
+    with ScoringServer(eng, port=0) as srv, start_metrics_server(port=0) as ms:
+        listener = f"{srv.host}:{srv.port}"
+        for _ in range(2):
+            req0 = _obs_series("distlr_serve_requests_total", listener=listener)
+            comp0 = _obs_series("distlr_jax_compiles_total", site="serve.engine")
+            replies = score_lines_over_tcp(srv.host, srv.port, singles)
+            replies += score_lines_over_tcp(srv.host, srv.port, [json.dumps({"rows": batch})])
+            if any(r.startswith("ERR") for r in replies):
+                raise AssertionError(f"obs serve: error replies {replies[:3]}")
+            rounds.append({
+                "requests": _obs_series("distlr_serve_requests_total", listener=listener) - req0,
+                "compiles": _obs_series("distlr_jax_compiles_total", site="serve.engine") - comp0})
+        torch.cuda.synchronize()
+        sampled = torchrt.sample_device_bytes()
+        base = f"http://127.0.0.1:{ms.port}"
+        t0 = time.perf_counter()
+        text = urllib.request.urlopen(base + "/metrics", timeout=30).read().decode()
+        scrape_first_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        doc = json.loads(urllib.request.urlopen(base + "/metrics.json", timeout=30).read())
+        scrape_json_ms = 1e3 * (time.perf_counter() - t0)
+        # a scrape's steady cost: the mean of OBS_SCRAPES more
+        t0 = time.perf_counter()
+        for _ in range(OBS_SCRAPES):
+            urllib.request.urlopen(base + "/metrics", timeout=30).read()
+        scrape_ms = 1e3 * (time.perf_counter() - t0) / OBS_SCRAPES
+        stats = srv.stats()
+    launches = _launches(ops)
+    gauge = doc["distlr_jax_device_buffer_bytes"]["series"][0]["value"]
+    listener_requests = [s["value"] for s in doc["distlr_serve_requests_total"]["series"]
+                         if s["labels"] == {"listener": listener}]
+    hits = stats["engine"]["bucket_hits"]
+    out = {"requests_a_round": OBS_REQUESTS + 1, "rounds": rounds, "bucket_hits": hits,
+           "device_buffer_bytes": gauge, "sampled_bytes": sampled,
+           "memory_allocated": torch.cuda.memory_allocated(),
+           "scrape_first_ms": scrape_first_ms, "scrape_ms": scrape_ms,
+           "scrape_json_ms": scrape_json_ms,
+           "scrape_bytes": len(text), "scrape_lines": text.count("\n"),
+           "listener_requests": listener_requests, "stats_requests": stats["requests"],
+           "launches": launches}
+    ok = (rounds[0]["requests"] == rounds[1]["requests"] == OBS_REQUESTS + 1
+          and rounds[0]["compiles"] == len(hits) and rounds[1]["compiles"] == 0
+          and gauge >= FULL_D * 4 and listener_requests == [2 * (OBS_REQUESTS + 1)]
+          and f'distlr_serve_requests_total{{listener="{listener}"}}' in text
+          and launches["lr_logits"] == sum(hits.values()) > 0)
+    if not ok:
+        raise AssertionError(f"obs serve: {out}")
+    return out
+
+
+def _obs_cli(tmp: str) -> dict:
+    """``launch sync --device cuda --metrics-port 0 --trace-path`` at a
+    small D: the METRICS line, and a Chrome trace with the phases."""
+    d, trace = os.path.join(tmp, "cli"), os.path.join(tmp, "cli_trace.json")
+    _launch("gen-data", "--data-dir", d, "--num-feature-dim", str(OBS_CLI_D), "--num-samples",
+            str(OBS_CLI_ROWS), "--num-parts", "1")
+    proc = _launch("sync", "--data-dir", d, "--num-feature-dim", str(OBS_CLI_D),
+                   "--num-iteration", "2", "--test-interval", "1", "--device", "cuda",
+                   "--metrics-port", "0", "--trace-path", trace)
+    announced = [ln for ln in proc.stdout.splitlines() if ln.startswith("METRICS ")]
+    with open(trace) as f:
+        doc = json.load(f)
+    names = sorted({e["name"] for e in doc["traceEvents"]})
+    out = {"metrics_line": announced, "trace_phases": names,
+           "trace_events": len(doc["traceEvents"])}
+    if not (announced and {"compute", "eval"} <= set(names)
+            and all(e["ph"] == "X" for e in doc["traceEvents"])):
+        raise AssertionError(f"obs cli: {out}")
+    return out
+
+
+def _obs_costs() -> dict:
+    """The registry's own costs on this host: ns a ``Counter.inc`` and a
+    ``Histogram.observe`` (a labeled child, one thread), ms a
+    ``prometheus_text()`` and a ``snapshot()`` of the process registry at
+    its family and series count."""
+    from distlr_tpu_torch.obs import MetricsRegistry, get_registry  # noqa: PLC0415
+
+    reg = MetricsRegistry()
+    c = reg.counter("cost_total", "x", labelnames=("op",)).labels(op="a")
+    h = reg.histogram("cost_seconds", "x", labelnames=("op",)).labels(op="a")
+    t0 = time.perf_counter()
+    for _ in range(OBS_COST_REPS):
+        c.inc()
+    inc_ns = 1e9 * (time.perf_counter() - t0) / OBS_COST_REPS
+    t0 = time.perf_counter()
+    for i in range(OBS_COST_REPS):
+        h.observe(1e-4 * (i % 97))
+    observe_ns = 1e9 * (time.perf_counter() - t0) / OBS_COST_REPS
+    g = get_registry()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        text = g.prometheus_text()
+    text_ms = 1e3 * (time.perf_counter() - t0) / 20
+    t0 = time.perf_counter()
+    for _ in range(20):
+        snap = g.snapshot()
+    snapshot_ms = 1e3 * (time.perf_counter() - t0) / 20
+    return {"counter_inc_ns": inc_ns, "histogram_observe_ns": observe_ns,
+            "prometheus_text_ms": text_ms, "snapshot_ms": snapshot_ms,
+            "families": len(snap), "series": sum(len(f["series"]) for f in snap.values()),
+            "histogram_series": sum(len(f["series"]) for f in snap.values()
+                                    if f["type"] == "histogram"),
+            "text_bytes": len(text)}
+
+
+def phase_obs(torch, seed: int, smi: str) -> dict:
+    """The observability layer on the main path at D = 1M
+    (:mod:`distlr_tpu_torch.obs`): the trainer under ``torch.profiler``
+    (``Config.profile_dir``) and the phase tracer, a sync PS run, a scored
+    burst behind a ``MetricsServer``, ``launch sync --metrics-port 0
+    --trace-path``, and the registry's costs.  Every check reads the delta
+    of a series around its own run; nothing resets the registry."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="distlr-smoke-obs-") as tmp:
+        train = _obs_train(torch, seed, tmp)
+        ps = _obs_ps(torch, seed, tmp)
+        serve = _obs_serve(torch, seed)
+        cli = _obs_cli(tmp)
+    costs = _obs_costs()
+    launches = {k: train["launches"][k] + ps["launches"][k] + serve["launches"][k]
+                for k in train["launches"]}
+    out = {"nvidia_smi": smi, "train": train, "ps": ps, "serve": serve, "cli": cli,
+           "costs": costs, "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    emit("obs", **out)
+    return out
+
+
 # model family -> (gen-data flags, sync / eval flags, the saved params'
 # shape, sync's iterations and test interval)
 CLI_FAMILIES = {
@@ -6760,7 +7053,7 @@ PHASES = ("sass", "kernels", "int8_kernels", "lr_backward", "roofline", "trainer
           "trainer_sparse_lr", "trainer_sparse_softmax", "trainer_blocked_lr",
           "trainer_softmax", "step_softmax_wide", "cli", "ps", "serve", "ps_keyed", "ps_wire",
           "ps_recovery", "ps_durable", "ps_elastic", "ps_sanitized", "serve_hot", "route",
-          "online", "roofline_experiments")
+          "online", "obs", "roofline_experiments")
 
 
 def _selected_phases(arg: str | None) -> set | None:
@@ -6890,6 +7183,8 @@ def main(argv=None) -> int:
             route = phase_route(torch, args.seed, smi)
         if want("online"):
             online = phase_online(torch, args.seed, smi)
+        if want("obs"):
+            obs = phase_obs(torch, args.seed, smi)
         if want("roofline_experiments"):
             launches = phase_roofline_experiments(torch, smi)
         phase = "smoke_seconds"
@@ -6919,7 +7214,8 @@ def main(argv=None) -> int:
         for path_name, counts in (("serve", serve["launches"]),
                                   ("serve_live_ps", serve["live_ps"]["launches"]),
                                   ("route", route["launches"]),
-                                  ("online", online["launches"])):
+                                  ("online", online["launches"]),
+                                  ("obs", obs["launches"])):
             for name, n in counts.items():
                 by_path.setdefault(name, {})[path_name] = n
         for shape, t in serve["kernels_at_serve_shapes"].items():

@@ -39,9 +39,9 @@ Mechanics per link:
   durable store must recover from) or when the fabric clock reaches
   ``at_s``; the event records the plan offset, never wall time.
 
-Every injected fault is counted on the fabric (:attr:`ChaosFabric.counters`,
-the JAX package's ``distlr_chaos_*`` series, kept as an attribute until
-the port has a metrics registry) and recorded in a wall-clock-free event
+Every injected fault is counted on the fabric (:attr:`ChaosFabric.counters`)
+and in the JAX package's ``distlr_chaos_*`` registry series, and recorded
+in a wall-clock-free event
 log: offsets, plan windows, and hash-derived delays only, so two runs of
 the same seed + plan + client op sequence produce byte-identical logs
 (:meth:`ChaosFabric.events`); :attr:`ChaosFabric.timeline` keeps the same
@@ -58,6 +58,7 @@ import time
 
 from distlr_tpu_torch.chaos.plan import FaultPlan, FaultSpec
 from distlr_tpu_torch.compress import codecs
+from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.ps import wire
 from distlr_tpu_torch.utils.logging import get_logger
 
@@ -70,6 +71,38 @@ log = get_logger(__name__)
 #: SIGKILLed target), ``ops_forwarded`` by link (client->server KV frames),
 #: ``bytes`` by (link, direction) and ``delay_ms`` by link
 COUNTERS = ("faults", "ops_forwarded", "bytes", "delay_ms")
+
+_reg = get_registry()
+_FAULTS = _reg.counter(
+    "distlr_chaos_faults_total",
+    "faults injected by the chaos proxy, by kind "
+    "(delay per delayed frame, reset per severed connection, partition "
+    "per window activation, partition_refused per refused connect, "
+    "throttle per paced window activation, kill per SIGKILLed target)",
+    labelnames=("kind", "link"),
+)
+_OPS = _reg.counter(
+    "distlr_chaos_ops_forwarded_total",
+    "client->server KV frames forwarded through the chaos proxy",
+    labelnames=("link",),
+)
+_BYTES = _reg.counter(
+    "distlr_chaos_bytes_total",
+    "bytes relayed through the chaos proxy",
+    labelnames=("link", "direction"),
+)
+_DELAY_MS = _reg.counter(
+    "distlr_chaos_delay_ms_total",
+    "injected request-frame delay, milliseconds",
+    labelnames=("link",),
+)
+#: each counter's registry family and its labels from a counter key
+_SERIES = {
+    "faults": (_FAULTS, lambda key: {"kind": key[0], "link": str(key[1])}),
+    "ops_forwarded": (_OPS, lambda key: {"link": str(key)}),
+    "bytes": (_BYTES, lambda key: {"link": str(key[0]), "direction": key[1]}),
+    "delay_ms": (_DELAY_MS, lambda key: {"link": str(key)}),
+}
 
 #: MsgHeader framing, op codes, and the flags bits the parser depends
 #: on — all from the one Python mirror of kv_protocol.h
@@ -791,6 +824,8 @@ class ChaosFabric:
         with self._events_lock:
             series = self.counters[name]
             series[key] = series.get(key, 0) + by
+        family, labels = _SERIES[name]
+        family.labels(**labels(key)).inc(by)
 
     def record(self, link: int, kind: str, **detail) -> None:
         with self._events_lock:

@@ -8,10 +8,11 @@ times ``growth`` every ``growth_every`` flushes, capped at ``max_k``
 (AdaBatch, arXiv:1712.02029).  The span divides push traffic by ``k``;
 the wire codec divides each push's bytes, and the two multiply.
 
-The span's ``k`` is the attribute :attr:`GradientAccumulator.k`; the
-JAX package also mirrors it into a registry gauge, which waits for the
-port's metrics registry (ROADMAP A.12).  Not thread-safe: one
-accumulator a worker.  Within a span the caller reuses the weights it
+The span's ``k`` is the attribute :attr:`GradientAccumulator.k`, and
+the owner's registry gauge when one is given (the PS worker's
+``distlr_train_accum_batches{rank}``, the online trainer's
+``distlr_feedback_accum_batches``), set at construction and at every
+growth.  Not thread-safe: one accumulator a worker.  Within a span the caller reuses the weights it
 pulled at span start.
 """
 
@@ -24,7 +25,7 @@ class GradientAccumulator:
     """Local mean-gradient accumulation with a growing flush span."""
 
     def __init__(self, dim: int, *, start: int = 1, growth: float = 2.0,
-                 growth_every: int = 32, max_k: int = 64):
+                 growth_every: int = 32, max_k: int = 64, gauge=None):
         if start < 1 or max_k < start:
             raise ValueError(f"need 1 <= start <= max_k, got {start}/{max_k}")
         if growth < 1.0:
@@ -41,6 +42,9 @@ class GradientAccumulator:
         self.flushes = 0
         self._buf = np.zeros(self.dim, np.float32)
         self._batches = 0
+        self._gauge = gauge
+        if gauge is not None:
+            gauge.set(self.k)
 
     @property
     def batches(self) -> int:
@@ -103,3 +107,5 @@ class GradientAccumulator:
         if self.flushes % self.growth_every == 0:
             grown = max(self.k + 1, int(round(self.k * self.growth)))
             self.k = min(self.max_k, grown)
+            if self._gauge is not None:
+                self._gauge.set(self.k)

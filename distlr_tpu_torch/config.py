@@ -12,11 +12,14 @@ servers' durable store ``ps_store_*`` and the fault plan ``chaos_*``)
 and the scoring tier reads (the ``serve_*`` fields of ``launch serve``,
 hot-row reload and named engines among them, the ``feedback_*`` fields of
 the feedback loop, and the ``route_*`` fields of ``launch route``),
-with the same names, defaults and validations, and the
-same resolution of the reference-quirk gates Q1, Q2, Q4 and Q5 from
-``compat_mode``.  Options whose code is not ported yet raise
-``NotImplementedError`` naming their ROADMAP item, so a run never
-silently drops one.  ``ps_host`` and ``ps_port``, the reference's
+and the observability fields (``profile_dir``, ``obs_metrics_port``,
+``obs_metrics_host``, ``obs_trace_path``), with the same names, defaults
+and validations, and the same resolution of the reference-quirk gates
+Q1, Q2, Q4 and Q5 from ``compat_mode``.  :func:`_not_ported` builds the
+``NotImplementedError`` that names the ROADMAP item of an option whose
+code is not ported yet (the launcher's fleet and tracing flags, the
+``TRACE`` line prefix), so a run never silently drops one.
+``ps_host`` and ``ps_port``, the reference's
 rendezvous address, are accepted and read by nothing, as in JAX;
 :meth:`Config.from_env` reads the reference's environment variables.
 ``device`` is the port's own knob.
@@ -183,7 +186,18 @@ class Config:
     # ---- checkpoint / obs ----
     checkpoint_dir: str | None = None
     checkpoint_interval: int = 0      # epochs; 0 = only final save
-    profile_dir: str | None = None    # not ported: must stay unset
+    # torch.profiler (CPU and CUDA activities) around Trainer.fit and a
+    # PS run's rank 0; the Chrome trace is exported into this directory.
+    profile_dir: str | None = None
+    # HTTP /metrics endpoint (distlr_tpu_torch.obs): None = off, 0 =
+    # ephemeral OS-assigned port (announced as "METRICS host:port"), else
+    # the fixed port to bind.  Serves Prometheus text at /metrics and a
+    # JSON snapshot at /metrics.json for every subsystem in this process.
+    obs_metrics_port: int | None = None
+    obs_metrics_host: str = "127.0.0.1"
+    # Write the run's phase spans as Chrome trace-event JSON here at the
+    # end of the command (loadable in Perfetto / chrome://tracing).
+    obs_trace_path: str | None = None
 
     # ---- serving (launch serve / distlr_tpu_torch.serve) ----
     # Port 0 = OS-assigned ephemeral (announced as "SERVING host:port").
@@ -322,6 +336,9 @@ class Config:
                              f"got {self.ps_compute_backend!r}")
         if self.ps_timeout_ms < 0:
             raise ValueError(f"ps_timeout_ms must be >= 0 (0 = no timeout), got {self.ps_timeout_ms}")
+        if self.obs_metrics_port is not None and not 0 <= self.obs_metrics_port < 1 << 16:
+            raise ValueError("obs_metrics_port must be None (off) or in [0, 65536), "
+                             f"got {self.obs_metrics_port}")
         self._check_ps_wire()
         self._check_ps_store()
         if self.ps_retry_attempts < 0:
@@ -344,8 +361,6 @@ class Config:
             raise ValueError(
                 "checkpoint_interval must be >= 0 (epochs; 0 = only final save), "
                 f"got {self.checkpoint_interval}")
-        if self.profile_dir:
-            raise _not_ported("profile_dir", "A.12")
         if self.prefetch < 1:
             raise ValueError("prefetch must be >= 1 (1 = no prefetch)")
         if self.ctr_fields < 0:

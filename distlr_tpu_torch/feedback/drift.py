@@ -13,10 +13,9 @@ reference), so the alert fires while the distribution moves and clears
 once it settles, even at a new level.  Block boundaries count requests,
 not time, so the same traffic gives the same PSI series.
 
-The JAX package also exports the latest PSI and the alert as registry
-gauges (``distlr_feedback_score_psi``, ``distlr_alert_score_drift``);
-here they are the attributes :attr:`psi_last` and :attr:`firing` until
-the port has a metrics registry (ROADMAP A.12).
+The latest PSI and the alert are the registry gauges of the JAX package
+(``distlr_feedback_score_psi``, ``distlr_alert_score_drift{threshold}``)
+and the attributes :attr:`psi_last` and :attr:`firing`.
 """
 
 from __future__ import annotations
@@ -24,6 +23,22 @@ from __future__ import annotations
 import threading
 
 import numpy as np
+
+from distlr_tpu_torch.obs.registry import get_registry
+
+_reg = get_registry()
+_PSI = _reg.gauge(
+    "distlr_feedback_score_psi",
+    "population stability index of the served score distribution: "
+    "latest completed block vs the previous one (the drift signal)",
+)
+_DRIFT = _reg.gauge(
+    "distlr_alert_score_drift",
+    "1 while the served score distribution is shifting (block-to-block "
+    "PSI above the threshold label); clears when scores stabilize, "
+    "even at a new level",
+    labelnames=("threshold",),
+)
 
 
 class ScoreDriftDetector:
@@ -54,6 +69,8 @@ class ScoreDriftDetector:
         self.firing = False
         self.fired_total = 0
         self.cleared_total = 0
+        self._gauge = _DRIFT.labels(threshold=f"{self.threshold:g}")
+        self._gauge.set(0.0)
 
     def observe(self, scores) -> None:
         """Feed served scores (out-of-range values clamp into the edge
@@ -82,12 +99,14 @@ class ScoreDriftDetector:
         self.blocks += 1
         if self._ref is not None:
             self.psi_last = psi(cur, self._ref, smoothing=self.smoothing)
+            _PSI.set(self.psi_last)
             firing = self.psi_last > self.threshold
             if firing and not self.firing:
                 self.fired_total += 1
             elif self.firing and not firing:
                 self.cleared_total += 1
             self.firing = firing
+            self._gauge.set(1.0 if firing else 0.0)
         self._ref = cur
 
     def stats(self) -> dict:

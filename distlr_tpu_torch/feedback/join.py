@@ -18,9 +18,11 @@ the online trainer (:mod:`distlr_tpu_torch.feedback.online`) consumes.
 
 The files are the JAX package's byte for byte.  JAX also writes a
 ``.trace`` sidecar for shards whose records carry a distributed trace;
-no record carries one until ROADMAP A.12, and an untraced shard has no
-sidecar in either package.  The registry counters of the JAX joiner are
-the attributes of :meth:`LabelJoiner.stats` here (ROADMAP A.12).
+no record carries one until ROADMAP A.25, and an untraced shard has no
+sidecar in either package.  The joiner records the JAX joiner's series
+(``distlr_feedback_joined_total``, ``_negative_sampled_total``,
+``_join_delay_seconds``, ``_shards_written_total``, ``_pending_labels``)
+beside the attributes of :meth:`LabelJoiner.stats`.
 """
 
 from __future__ import annotations
@@ -32,6 +34,30 @@ import threading
 
 from distlr_tpu_torch.feedback import clock
 from distlr_tpu_torch.feedback.spool import FeedbackSpool, SpoolRecord, drop
+from distlr_tpu_torch.obs.registry import get_registry
+
+_reg = get_registry()
+_JOINED = _reg.counter(
+    "distlr_feedback_joined_total",
+    "label events joined to their spooled request within the window",
+)
+_NEGATIVE = _reg.counter(
+    "distlr_feedback_negative_sampled_total",
+    "never-labeled requests emitted as negative (label-0) examples by "
+    "the negative-sampling policy at window expiry",
+)
+_JOIN_DELAY = _reg.histogram(
+    "distlr_feedback_join_delay_seconds",
+    "seconds between a request being scored and its label joining",
+)
+_SHARDS = _reg.counter(
+    "distlr_feedback_shards_written_total",
+    "joined training shards emitted for the online trainer",
+)
+_PENDING_LABELS = _reg.gauge(
+    "distlr_feedback_pending_labels",
+    "label events holding for a request that has not arrived yet",
+)
 
 
 class LabelJoiner:
@@ -103,7 +129,8 @@ class LabelJoiner:
         with self._lock:
             pend = self._pending.pop(rec.rid, None)
             if pend is not None:
-                self._join_locked(rec.rid, pend[0], rec)
+                self._join_locked(rec.rid, pend[0], rec, now=pend[1])
+                _PENDING_LABELS.set(len(self._pending))
                 return
             self.spool.add(rec)
 
@@ -115,7 +142,7 @@ class LabelJoiner:
         with self._lock:
             rec = self.spool.pop(rid)
             if rec is not None:
-                self._join_locked(rid, y, rec)
+                self._join_locked(rid, y, rec, now=now)
                 return "joined"
             if rid in self._recent or rid in self._pending:
                 drop("duplicate_label")
@@ -125,12 +152,15 @@ class LabelJoiner:
                 del self._pending[next(iter(self._pending))]
                 drop("unmatched_label")
             self._pending[rid] = (y, now)
+            _PENDING_LABELS.set(len(self._pending))
             return "pending"
 
     # -- the join ----------------------------------------------------------
-    def _join_locked(self, rid: str, y: int, rec: SpoolRecord) -> None:
+    def _join_locked(self, rid: str, y: int, rec: SpoolRecord, *, now: float) -> None:
+        _JOIN_DELAY.observe(max(0.0, now - rec.ts))
         self._remember_locked(rid)
         self.joined += 1
+        _JOINED.inc()
         self._emit_locked(y, rec.line, rid=rid, model=rec.model)
 
     def _remember_locked(self, rid: str) -> None:
@@ -178,6 +208,7 @@ class LabelJoiner:
         self._seqs[model] = seq + 1
         buffer.clear()
         self.shards_written += 1
+        _SHARDS.inc()
 
     # -- window expiry -----------------------------------------------------
     def tick(self, now: float | None = None) -> None:
@@ -191,6 +222,7 @@ class LabelJoiner:
                 self._remember_locked(rec.rid)
                 if self.negative_rate and self._rng.random() < self.negative_rate:
                     self.negatives += 1
+                    _NEGATIVE.inc()
                     self._emit_locked(0, rec.line, model=rec.model)
                 else:
                     drop("expired")
@@ -198,6 +230,8 @@ class LabelJoiner:
             for rid in stale:
                 del self._pending[rid]
                 drop("unmatched_label")
+            if stale:
+                _PENDING_LABELS.set(len(self._pending))
 
     def flush(self) -> None:
         """Force out every model's partial shard (shutdown, tests, idle

@@ -25,9 +25,10 @@ another worker.  ``claim_stale_s`` must exceed the worst consume time of
 one shard.
 
 It needs an async server group: a lone push into a sync (BSP) group
-would wait forever in the barrier.  The JAX trainer's registry series
-(shards consumed, examples, pushes, shard lag, the span ``k``) are the
-attributes here until ROADMAP A.12.  Its client retries transport
+would wait forever in the barrier.  The trainer records the JAX
+trainer's registry series (shards consumed, examples, pushes, shard lag,
+the span ``k``: ``distlr_feedback_*``) and the same numbers in its
+attributes.  Its client retries transport
 faults by ``RetryPolicy.from_config(cfg)``, and with a membership
 ``route`` (``launch online --ps-ctl``) follows a live resize: a reshard
 costs the trainer one re-route, never a restart.
@@ -43,9 +44,34 @@ import numpy as np
 
 from distlr_tpu_torch.config import Config
 from distlr_tpu_torch.feedback import clock
+from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
+
+_reg = get_registry()
+_SHARDS_CONSUMED = _reg.counter(
+    "distlr_feedback_shards_consumed_total",
+    "joined training shards consumed by the online trainer",
+)
+_EXAMPLES = _reg.counter(
+    "distlr_feedback_examples_trained_total",
+    "joined examples the online trainer computed gradients over",
+)
+_PUSHES = _reg.counter(
+    "distlr_feedback_online_pushes_total",
+    "gradient pushes issued by the online trainer (after AdaBatch "
+    "local accumulation)",
+)
+_LAG = _reg.gauge(
+    "distlr_feedback_shard_lag",
+    "joined shards written but not yet consumed by the online trainer "
+    "(the loop's freshness debt)",
+)
+_ACCUM_K = _reg.gauge(
+    "distlr_feedback_accum_batches",
+    "current AdaBatch accumulation span: batches per push",
+)
 
 #: models the online loop supports: dense full-vector pushes (binary_lr,
 #: softmax), keyed sparse pushes (sparse_lr) and keyed per-class rows
@@ -115,7 +141,7 @@ class OnlineTrainer:
             self.kv.push_init(np.zeros(self.dim, np.float32))
         self._accum = GradientAccumulator(
             self.dim, start=accum_start, growth=accum_growth,
-            growth_every=accum_growth_every, max_k=accum_max)
+            growth_every=accum_growth_every, max_k=accum_max, gauge=_ACCUM_K)
         self._w_cache: np.ndarray | None = None
         self.shards_consumed = 0
         self.examples = 0
@@ -156,6 +182,7 @@ class OnlineTrainer:
         self.grad_s += time.perf_counter() - t0
         self._accum.add(g)
         self.examples += len(y)
+        _EXAMPLES.inc(len(y))
 
     def _sparse_batch(self, pc, pv, y) -> None:
         from distlr_tpu_torch.train.ps_trainer import _sparse_batch_grad  # noqa: PLC0415
@@ -170,6 +197,7 @@ class OnlineTrainer:
         self.grad_s += time.perf_counter() - t0
         self._accum.add_at(ub, g_u)
         self.examples += len(y)
+        _EXAMPLES.inc(len(y))
 
     def _sparse_softmax_batch(self, pc, pv, y) -> None:
         """Keyed rows a class: each unique feature key owns its K lanes of
@@ -194,6 +222,7 @@ class OnlineTrainer:
         self.grad_s += time.perf_counter() - t0
         self._accum.add_rows(ub, g_u.reshape(-1), K)
         self.examples += len(y)
+        _EXAMPLES.inc(len(y))
 
     def _flush_push(self) -> None:
         """Push the accumulated mean gradient (one Hogwild update); the
@@ -229,6 +258,7 @@ class OnlineTrainer:
             self.kv.wait(self.kv.push(g))
         self._w_cache = None
         self.pushes += 1
+        _PUSHES.inc()
 
     # -- shard consumption -------------------------------------------------
     def _scan(self) -> list[str]:
@@ -323,6 +353,7 @@ class OnlineTrainer:
                     self._flush_push()
                 n += len(y[lo:lo + B])
         self.shards_consumed += 1
+        _SHARDS_CONSUMED.inc()
         self.consume_s += time.perf_counter() - t_start
         return n
 
@@ -341,6 +372,7 @@ class OnlineTrainer:
             self._reclaim_stale()
             pending = self._scan()
             self.lag = len(pending)
+            _LAG.set(self.lag)
             if not pending:
                 now = clock.monotonic()
                 if self._accum.batches and now - idle_since >= self.idle_flush_s:
@@ -384,6 +416,7 @@ class OnlineTrainer:
                 if max_shards and consumed_this_run >= max_shards:
                     self._flush_push()
                     self.lag = len(self._scan())
+                    _LAG.set(self.lag)
                     return self.stats()
         self._flush_push()
         return self.stats()

@@ -69,7 +69,7 @@ class FeedbackSink:
         labelled but feeds the drift detector and the negative sampling.
         ``model``: the model id that scored the batch (its own shard
         subdirectory); None = the flat layout.  ``trace`` is accepted and
-        ignored until the port traces requests (ROADMAP A.12)."""
+        ignored until the port traces requests (ROADMAP A.25)."""
         now = clock.wall()
         keys = per_row_keys(self.model, rows)
         for i, line in enumerate(lines):

@@ -17,9 +17,11 @@ Two bounds:
   :class:`~distlr_tpu_torch.serve.hotset.HotSetTracker`'s decayed key
   counts and the least important one is dropped; without a tracker, FIFO.
 
-The JAX package counts spooled, dropped and resident records in registry
-series; here they are the attributes :attr:`FeedbackSpool.spooled`,
-:attr:`~FeedbackSpool.evicted` and :data:`DROPPED` until ROADMAP A.12.
+Spooled, dropped and resident records count in the JAX package's
+``distlr_feedback_spooled_total``, ``distlr_feedback_dropped_total{reason}``
+and ``distlr_feedback_spool_size`` series, and in the attributes
+:attr:`FeedbackSpool.spooled`, :attr:`~FeedbackSpool.evicted` and
+:data:`DROPPED`.
 """
 
 from __future__ import annotations
@@ -34,6 +36,26 @@ from collections import Counter
 import numpy as np
 
 from distlr_tpu_torch.feedback import clock
+from distlr_tpu_torch.obs.registry import get_registry
+
+_reg = get_registry()
+_SPOOLED = _reg.counter(
+    "distlr_feedback_spooled_total",
+    "scored requests journaled into the feedback spool",
+)
+_SPOOL_SIZE = _reg.gauge(
+    "distlr_feedback_spool_size",
+    "spooled requests currently awaiting a label",
+)
+_DROPPED = _reg.counter(
+    "distlr_feedback_dropped_total",
+    "feedback-loop records dropped, by reason (capacity = spool "
+    "eviction under pressure; expired = window elapsed and the "
+    "negative-sampling coin came up drop; duplicate_label = a label "
+    "for an already-joined request; unmatched_label = a label whose "
+    "request was never seen within the window)",
+    labelnames=("reason",),
+)
 
 #: feedback-loop records dropped, by reason: ``capacity`` (spool eviction),
 #: ``expired`` (window elapsed, negative sample not drawn),
@@ -48,6 +70,7 @@ def drop(reason: str, n: int = 1) -> None:
     discarded record lands in one count, split by reason)."""
     with _DROPPED_LOCK:
         DROPPED[reason] += n
+    _DROPPED.labels(reason=reason).inc(n)
 
 
 @dataclasses.dataclass
@@ -62,7 +85,7 @@ class SpoolRecord:
     #: PS row keys the request touched (importance input); None = unknown
     keys: np.ndarray | None = None
     #: distributed-trace (trace_id, span_id); always None until the port
-    #: traces requests (ROADMAP A.12), but journaled and replayed as JAX's
+    #: traces requests (ROADMAP A.25), but journaled and replayed as JAX's
     trace: tuple[int, int] | None = None
     #: the model id that scored the request (several engines a server):
     #: the joiner writes its example into that model's shard stream;
@@ -207,6 +230,8 @@ class FeedbackSpool:
                 if len(self._records) > self.capacity:
                     self._evict_one_locked()
             self.replayed += n
+            size = len(self._records)
+        _SPOOL_SIZE.set(size)
         return n
 
     # -- importance -------------------------------------------------------
@@ -235,6 +260,9 @@ class FeedbackSpool:
             if len(self._records) > self.capacity:
                 evicted = self._evict_one_locked()
                 kept = evicted != rec.rid
+            size = len(self._records)
+        _SPOOLED.inc()
+        _SPOOL_SIZE.set(size)
         return kept
 
     def _evict_one_locked(self) -> str:
@@ -258,7 +286,10 @@ class FeedbackSpool:
     def pop(self, rid: str) -> SpoolRecord | None:
         """Claim a spooled request by id (the label join's hit path)."""
         with self._lock:
-            return self._records.pop(rid, None)
+            rec = self._records.pop(rid, None)
+            size = len(self._records)
+        _SPOOL_SIZE.set(size)
+        return rec
 
     def expire_before(self, cutoff_ts: float) -> list[SpoolRecord]:
         """Remove and return every record scored before ``cutoff_ts`` (the
@@ -270,6 +301,8 @@ class FeedbackSpool:
                 if rec.ts >= cutoff_ts:
                     break
                 out.append(self._records.pop(rid))
+            size = len(self._records)
+        _SPOOL_SIZE.set(size)
         return out
 
     def __len__(self) -> int:

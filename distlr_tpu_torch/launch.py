@@ -6,8 +6,8 @@ Counterpart of ``distlr_tpu/launch.py``: every subcommand takes the
 option strings its JAX twin takes, with the same dests, types and
 defaults, plus ``--device`` (default ``cuda``; the CPU only when asked
 for).  A flag whose use is not ported yet is accepted at its default and
-raises ``NotImplementedError`` naming its ROADMAP item otherwise (the obs
-flags A.12; the profiler, log and incident flags A.21), so a JAX command line never
+raises ``NotImplementedError`` naming its ROADMAP item otherwise (the fleet
+flags A.21, ``--trace-sample`` A.25), so a JAX command line never
 fails at parse time and never drops a flag silently.  Run as ``python -m
 distlr_tpu_torch.launch``::
 
@@ -166,6 +166,7 @@ _CONFIG_FIELDS = (
     "random_seed", "prefetch", "feature_dtype", "num_workers", "device",
     "num_classes", "nnz_max", "block_size", "block_groups", "ctr_fields", "hash_seed",
     "checkpoint_dir", "checkpoint_interval", "profile_dir",
+    "obs_metrics_port", "obs_metrics_host", "obs_trace_path",
     "num_servers", "ps_compute_backend", "ps_timeout_ms", "ps_pipeline",
     "ps_optimizer", "ftrl_alpha", "ftrl_beta", "ftrl_l1", "ftrl_l2", "ps_compress",
     "ps_accum_start", "ps_accum_growth", "ps_accum_growth_every", "ps_accum_max",
@@ -180,11 +181,8 @@ _CONFIG_FIELDS = (
 #: another value, each one raises naming its item; the default is
 #: accepted, so a JAX command line with defaults runs unchanged.
 _GATED_SHARED_FLAGS = {
-    "obs_metrics_port": ("--metrics-port", None, "A.12"),
-    "obs_metrics_host": ("--metrics-host", "127.0.0.1", "A.12"),
-    "obs_run_dir": ("--obs-run-dir", None, "A.12"),
-    "obs_trace_path": ("--trace-path", None, "A.12"),
-    "trace_sample": ("--trace-sample", 0.01, "A.12"),
+    "obs_run_dir": ("--obs-run-dir", None, "A.21"),
+    "trace_sample": ("--trace-sample", 0.01, "A.25"),
     "prof_hz": ("--prof-hz", 19.0, "A.21"),
     "prof_window_s": ("--prof-window", 10.0, "A.21"),
     "log_level": ("--log-level", "info", "A.21"),
@@ -204,16 +202,40 @@ def _given(value, default) -> bool:
 
 def _refuse_gated(args: argparse.Namespace) -> None:
     """Raise naming the ROADMAP item of the first flag given whose use is
-    not ported: the shared obs flags (A.12; on ``rollout``,
-    ``--obs-run-dir`` is the aggregator's discovery, A.21) and the
-    profiler, log and incident flags (A.21)."""
+    not ported: ``--obs-run-dir`` (the fleet rendezvous, with the
+    profiler, log and incident flags: A.21) and ``--trace-sample``
+    (distributed tracing, A.25)."""
     cmd = getattr(args, "cmd", None)
     where = f"launch {cmd}" if cmd else "launch"
     for dest, (flag, default, item) in _GATED_SHARED_FLAGS.items():
         if _given(getattr(args, dest, None), default):
-            if cmd == "rollout" and dest == "obs_run_dir":
-                item = "A.21"
             raise _not_ported(f"{where} {flag}", item)
+
+
+@contextlib.contextmanager
+def _obs_scope(cfg: Config):
+    """Command-scoped observability (``distlr_tpu/launch.py``'s
+    ``_obs_scope`` without the fleet rendezvous, A.21): start the
+    /metrics endpoint when ``--metrics-port`` is set (announced as
+    ``METRICS host:port``, the scriptable contract of ``SERVING`` /
+    ``HOSTS``) and dump the phase spans as a Chrome trace at command exit
+    when ``--trace-path`` is."""
+    server = None
+    if cfg.obs_metrics_port is not None:
+        from distlr_tpu_torch.obs import start_metrics_server  # noqa: PLC0415
+
+        server = start_metrics_server(host=cfg.obs_metrics_host, port=cfg.obs_metrics_port)
+        print(f"METRICS {server.host}:{server.port}", flush=True)
+    try:
+        yield
+    finally:
+        if cfg.obs_trace_path:
+            from distlr_tpu_torch.obs import get_tracer  # noqa: PLC0415
+
+            path = get_tracer().dump_chrome_trace(cfg.obs_trace_path)
+            log.info("phase trace -> %s (load in Perfetto)", path)
+        if server is not None:
+            server.stop()
 
 
 def _add_config_flags(p: argparse.ArgumentParser) -> None:
@@ -273,13 +295,20 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--checkpoint-interval", dest="checkpoint_interval", type=int,
                    help="epochs between checkpoints (default 0: only the final one)")
     p.add_argument("--profile-dir", dest="profile_dir",
-                   help="trace the run into this directory (not ported yet: refused)")
-    # the obs, profiler, log and incident flags: refused when given
-    # (_GATED_SHARED_FLAGS)
-    for flag, dest, typ in (("--metrics-port", "obs_metrics_port", int),
-                            ("--metrics-host", "obs_metrics_host", None),
-                            ("--trace-path", "obs_trace_path", None),
-                            ("--trace-sample", "trace_sample", float),
+                   help="torch.profiler (CPU and CUDA activities) around training "
+                   "(sync: Trainer.fit; ps: rank 0's loop); the Chrome trace lands here")
+    p.add_argument("--metrics-port", dest="obs_metrics_port", type=int,
+                   help="serve Prometheus /metrics (and /metrics.json) on this port "
+                   "for the command's lifetime (0 = ephemeral; announced as "
+                   "'METRICS host:port')")
+    p.add_argument("--metrics-host", dest="obs_metrics_host",
+                   help="bind address of the /metrics endpoint (default 127.0.0.1)")
+    p.add_argument("--trace-path", dest="obs_trace_path",
+                   help="write the run's phase spans as Chrome trace-event JSON here "
+                   "at exit (loads in Perfetto)")
+    # the fleet, tracing, profiler, log and incident flags: refused when
+    # given (_GATED_SHARED_FLAGS)
+    for flag, dest, typ in (("--trace-sample", "trace_sample", float),
                             ("--prof-hz", "prof_hz", float),
                             ("--prof-window", "prof_window_s", float),
                             ("--log-ring", "log_ring", int),
@@ -290,7 +319,7 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
         p.add_argument(flag, dest=dest, type=typ,
                        help=f"not ported yet (ROADMAP {_GATED_SHARED_FLAGS[dest][2]})")
     p.add_argument("--obs-run-dir", dest="obs_run_dir", action="append",
-                   help="not ported yet (ROADMAP A.12; on rollout A.21)")
+                   help="not ported yet (ROADMAP A.21)")
     p.add_argument("--log-level", dest="log_level", choices=["debug", "info", "warning", "error"],
                    help="not ported yet (ROADMAP A.21)")
     p.add_argument("--resume", action="store_true",
@@ -572,7 +601,7 @@ def cmd_gen_data(args: argparse.Namespace) -> int:
 def cmd_sync(args: argparse.Namespace) -> int:
     from distlr_tpu_torch.train import Trainer  # noqa: PLC0415
 
-    with _process_group(args, _config_from_args(args)) as cfg:
+    with _process_group(args, _config_from_args(args)) as cfg, _obs_scope(cfg):
         trainer = Trainer(cfg).load_data()
         trainer.fit(resume=args.resume)
         path = trainer.save_model()
@@ -590,11 +619,12 @@ def cmd_eval(args: argparse.Namespace) -> int:
     from distlr_tpu_torch.train.export import load_model_text  # noqa: PLC0415
 
     cfg = _config_from_args(args)
-    trainer = Trainer(cfg).load_data(test_only=cfg.feature_dtype == "float32")
-    w = load_model_text(args.model_file, shape=trainer.model.param_shape)
-    trainer.weights = params_from_jax(w, trainer.model, trainer.device)
-    m = trainer.evaluate_metrics()
-    print(f"accuracy: {m['accuracy']:.4f}  test_logloss: {m['logloss']:.5f}")
+    with _obs_scope(cfg):
+        trainer = Trainer(cfg).load_data(test_only=cfg.feature_dtype == "float32")
+        w = load_model_text(args.model_file, shape=trainer.model.param_shape)
+        trainer.weights = params_from_jax(w, trainer.model, trainer.device)
+        m = trainer.evaluate_metrics()
+        print(f"accuracy: {m['accuracy']:.4f}  test_logloss: {m['logloss']:.5f}")
     return 0
 
 
@@ -618,8 +648,9 @@ def cmd_ps(args: argparse.Namespace) -> int:
             return 2
         ranks = ([int(r) for r in args.worker_ranks.split(",")] if args.worker_ranks
                  else range(cfg.num_workers))
-        run_ps_workers(cfg, args.hosts, ranks, save=True, resume=args.resume,
-                       max_restarts=args.max_worker_restarts)
+        with _obs_scope(cfg):
+            run_ps_workers(cfg, args.hosts, ranks, save=True, resume=args.resume,
+                           max_restarts=args.max_worker_restarts)
     elif args.worker_ranks:
         print("error: --worker-ranks requires --hosts (local mode runs every rank)",
               file=sys.stderr)
@@ -630,9 +661,10 @@ def cmd_ps(args: argparse.Namespace) -> int:
               "--resume)", file=sys.stderr)
         return 2
     else:
-        run_ps_local(cfg, save=True, resume=args.resume,
-                     max_restarts=args.max_worker_restarts,
-                     supervise_servers=args.supervise_servers)
+        with _obs_scope(cfg):
+            run_ps_local(cfg, save=True, resume=args.resume,
+                         max_restarts=args.max_worker_restarts,
+                         supervise_servers=args.supervise_servers)
     return 0
 
 
@@ -698,7 +730,7 @@ def cmd_ps_server(args: argparse.Namespace) -> int:
                         store_wal_fsync_s=cfg.ps_store_wal_fsync_s)
     ctl = None
     try:
-        with group:
+        with _obs_scope(cfg), group:
             # workers pass this, with this host's address for 127.0.0.1, as --hosts
             print(f"HOSTS {group.hosts}", flush=True)
             if layout is not None:
@@ -785,7 +817,7 @@ def cmd_chaos(args: argparse.Namespace) -> int:
 
     from distlr_tpu_torch.chaos import ChaosFabric, FaultPlanError, load_plan  # noqa: PLC0415
 
-    _config_from_args(args)  # the shared flags' gates
+    cfg = _config_from_args(args)  # the shared flags' gates
     killer = None
     if args.pids:
         try:
@@ -813,7 +845,7 @@ def cmd_chaos(args: argparse.Namespace) -> int:
         return 2
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     try:
-        with fabric:
+        with _obs_scope(cfg), fabric:
             print(f"HOSTS {fabric.hosts}", flush=True)
             for lk in fabric.links:
                 log.info("chaos link %d: 127.0.0.1:%d -> %s:%d", lk.link, lk.port,
@@ -994,9 +1026,10 @@ def cmd_serve(args: argparse.Namespace) -> int:
                            max_wait_ms=cfg.serve_max_wait_ms, reloader=reloader,
                            extra_reloaders=extra_reloaders, hot_tracker=hot_tracker,
                            feedback=feedback)
-    # the scriptable readiness line
-    print(f"SERVING {server.host}:{server.port}", flush=True)
-    server.serve_forever()
+    with _obs_scope(cfg):
+        # the scriptable readiness line
+        print(f"SERVING {server.host}:{server.port}", flush=True)
+        server.serve_forever()
     return 0
 
 
@@ -1039,25 +1072,26 @@ def cmd_online(args: argparse.Namespace) -> int:
         return 2
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
-    trainer = OnlineTrainer(
-        cfg, args.hosts, args.shard_dir, accum_start=cfg.ps_accum_start,
-        accum_growth=cfg.ps_accum_growth, accum_growth_every=cfg.ps_accum_growth_every,
-        accum_max=cfg.ps_accum_max, poll_interval_s=args.poll_interval,
-        worker_id=args.worker_id, ns_base=ns_base, ns_total_dim=ns_total, route=route)
-    # the scriptable readiness line
-    print(f"ONLINE shard_dir={args.shard_dir} hosts={args.hosts} worker={args.worker_id}",
-          flush=True)
-    try:
-        stats = trainer.run(stop=stop, max_shards=args.max_shards, idle_exit_s=args.idle_exit)
-    except KeyboardInterrupt:
-        trainer._flush_push()
-        stats = trainer.stats()
-    finally:
-        trainer.close()
-    log.info("online trainer done: %d shards, %d examples, %d pushes (k=%d); %.3f s consuming "
-             "shards, %.3f s of it parsing, %.3f s in the gradients", stats["shards_consumed"],
-             stats["examples"], stats["pushes"], stats["accum_k"], trainer.consume_s,
-             trainer.parse_s, trainer.grad_s)
+    with _obs_scope(cfg):
+        trainer = OnlineTrainer(
+            cfg, args.hosts, args.shard_dir, accum_start=cfg.ps_accum_start,
+            accum_growth=cfg.ps_accum_growth, accum_growth_every=cfg.ps_accum_growth_every,
+            accum_max=cfg.ps_accum_max, poll_interval_s=args.poll_interval,
+            worker_id=args.worker_id, ns_base=ns_base, ns_total_dim=ns_total, route=route)
+        # the scriptable readiness line
+        print(f"ONLINE shard_dir={args.shard_dir} hosts={args.hosts} worker={args.worker_id}",
+              flush=True)
+        try:
+            stats = trainer.run(stop=stop, max_shards=args.max_shards, idle_exit_s=args.idle_exit)
+        except KeyboardInterrupt:
+            trainer._flush_push()
+            stats = trainer.stats()
+        finally:
+            trainer.close()
+        log.info("online trainer done: %d shards, %d examples, %d pushes (k=%d); %.3f s consuming "
+                 "shards, %.3f s of it parsing, %.3f s in the gradients", stats["shards_consumed"],
+                 stats["examples"], stats["pushes"], stats["accum_k"], trainer.consume_s,
+                 trainer.parse_s, trainer.grad_s)
     return 0
 
 
@@ -1084,9 +1118,10 @@ def cmd_route(args: argparse.Namespace) -> int:
         # config and replica-list errors: the argparse-style exit, no traceback
         print(f"error: {e}", file=sys.stderr)
         return 2
-    # the scriptable readiness line
-    print(f"ROUTING {router.host}:{router.port}", flush=True)
-    router.serve_forever()
+    with _obs_scope(cfg):
+        # the scriptable readiness line
+        print(f"ROUTING {router.host}:{router.port}", flush=True)
+        router.serve_forever()
     return 0
 
 
@@ -1103,7 +1138,7 @@ def cmd_rollout(args: argparse.Namespace) -> int:
         parse_stages,
     )
 
-    _config_from_args(args)  # the config flags validate as in every command
+    cfg = _config_from_args(args)  # the config flags validate as in every command
     host, _, port = args.router.rpartition(":")
     if not host or not port.isdigit():
         print(f"error: --router must be host:port, got {args.router!r}", file=sys.stderr)
@@ -1128,17 +1163,18 @@ def cmd_rollout(args: argparse.Namespace) -> int:
               "--obs-run-dir with a running obs-agg, or --unwatched to "
               "ramp on the timer alone (rollback becomes manual)", file=sys.stderr)
         return 2
-    ctrl = RolloutController(RouterAdmin(host, int(port)), args.tenant, args.candidate, stages,
-                             alert_poll=poller, poll_interval_s=args.poll_interval,
-                             shadow_fraction=args.shadow, settle_s=args.settle,
-                             journal_dir=args.journal_dir)
-    try:
-        outcome = ctrl.run()
-    except (OSError, RuntimeError) as e:
-        print(f"error: ramp failed against the router: {e}", file=sys.stderr)
-        return 1
-    # the scriptable outcome line
-    print(f"ROLLOUT {json.dumps(outcome)}", flush=True)
+    with _obs_scope(cfg):
+        ctrl = RolloutController(RouterAdmin(host, int(port)), args.tenant, args.candidate, stages,
+                                 alert_poll=poller, poll_interval_s=args.poll_interval,
+                                 shadow_fraction=args.shadow, settle_s=args.settle,
+                                 journal_dir=args.journal_dir)
+        try:
+            outcome = ctrl.run()
+        except (OSError, RuntimeError) as e:
+            print(f"error: ramp failed against the router: {e}", file=sys.stderr)
+            return 1
+        # the scriptable outcome line
+        print(f"ROLLOUT {json.dumps(outcome)}", flush=True)
     return {"promoted": 0, "rolled_back": 3}.get(outcome["outcome"], 4)
 
 

@@ -30,8 +30,10 @@ transport fault in place: reconnect, back off, re-issue.  Idempotent ops
 are always re-issued; a gradient push only while the native client
 proves no byte of it reached a server, else it is absorbed (the Hogwild
 staleness class), and a sync group's pushes never.  The worker counts
-what the JAX package's registry counts (:attr:`KVWorker.retries`,
-``reconnects``, ``push_outcome_unknown``) as attributes.
+its faults in attributes (:attr:`KVWorker.retries`, ``reconnects``,
+``push_outcome_unknown``), and each site that bumps one also bumps the
+JAX package's process-wide series (``distlr_ps_retries_total{op}``,
+``distlr_ps_reconnects_total``, ``distlr_ps_push_outcome_unknown_total``).
 
 Membership epochs (``KVWorker(epoch=, route=)``): a client announces the
 layout epoch it routes by, and a server whose epoch moved (a live resize,
@@ -39,11 +41,17 @@ layout epoch it routes by, and a server whose epoch moved (a live resize,
 :class:`PSEpochError`.  With a ``route`` provider the worker re-fetches
 the coordinator's layout and rebuilds its handle in place, also without a
 retry policy: a reshard costs a re-route, never a restart, and a gradient
-push caught by the fence is absorbed, never re-issued.  The JAX package's
-membership series are attributes (:attr:`KVWorker.reroutes`,
-``epoch_mismatches``, ``client_epoch``).
+push caught by the fence is absorbed, never re-issued.  The membership
+counters are attributes (:attr:`KVWorker.reroutes`, ``epoch_mismatches``,
+``client_epoch``) and the JAX package's ``distlr_membership_*`` series.
 
-Not ported yet: the trace spans and registry counters (ROADMAP A.12).
+Every op records the JAX package's client series: its latency
+(``distlr_ps_client_op_seconds{op}``), its outcome
+(``distlr_ps_client_ops_total{op,status}``: ok, timeout or error), its
+payload bytes (``distlr_ps_client_bytes_total{op,direction}``), and for a
+delivered push its raw and wire bytes (``distlr_ps_push_bytes_*_total``,
+the ratio gauge ``distlr_ps_push_compress_ratio``).  Not the KV wire's
+trace trailer (ROADMAP A.25).
 """
 
 from __future__ import annotations
@@ -57,11 +65,128 @@ import time
 
 import numpy as np
 
+from distlr_tpu_torch.obs.registry import family_total, get_registry
 from distlr_tpu_torch.ps import wire
 from distlr_tpu_torch.ps.build import client_lib, native_variant
 from distlr_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
+
+_reg = get_registry()
+#: Per-op wall latency of the blocking native client calls.  In sync mode
+#: a push's latency INCLUDES the BSP barrier wait (the deferred reply is
+#: the barrier), which is exactly what a straggler investigation needs.
+_OP_SECONDS = _reg.histogram(
+    "distlr_ps_client_op_seconds", "wall seconds per native KV op",
+    labelnames=("op",),
+)
+_OPS_TOTAL = _reg.counter(
+    "distlr_ps_client_ops_total", "native KV ops by outcome",
+    labelnames=("op", "status"),
+)
+_BYTES_TOTAL = _reg.counter(
+    "distlr_ps_client_bytes_total",
+    "key+value payload bytes moved by native KV ops",
+    labelnames=("op", "direction"),
+)
+_CHUNKED_PULLS = _reg.counter(
+    "distlr_ps_client_chunked_pulls_total",
+    "pull_chunked calls (serving-tier bounded reads)",
+)
+_CHUNKS = _reg.counter(
+    "distlr_ps_client_chunks_total",
+    "individual bounded pull ops issued by pull_chunked",
+)
+_RETRIES = _reg.counter(
+    "distlr_ps_retries_total",
+    "KV ops re-issued in place after a transient transport failure "
+    "(RetryPolicy path: reconnect + re-issue, no process restart)",
+    labelnames=("op",),
+)
+_RECONNECTS = _reg.counter(
+    "distlr_ps_reconnects_total",
+    "native KV connections rebuilt in place (KVWorker.reconnect)",
+)
+_PUSH_UNKNOWN = _reg.counter(
+    "distlr_ps_push_outcome_unknown_total",
+    "gradient pushes whose delivery could not be determined after a "
+    "transport failure — counted and absorbed (the Hogwild staleness "
+    "class), NEVER re-issued (a maybe-applied push re-issued is a "
+    "silent double-apply)",
+)
+_REROUTES = _reg.counter(
+    "distlr_membership_reroutes_total",
+    "client routing re-negotiations after an epoch fence (the group "
+    "layout changed mid-run: layout re-fetched from the membership "
+    "coordinator, handle rebuilt against the new ranks — no restart)",
+)
+_EPOCH_MISMATCHES = _reg.counter(
+    "distlr_membership_epoch_mismatches_total",
+    "KV ops bounced by a server's membership-epoch fence (each one "
+    "triggers a routing re-negotiation, or — for a gradient push whose "
+    "frames already left — an absorbed unknown-outcome push)",
+)
+_CLIENT_EPOCH = _reg.gauge(
+    "distlr_membership_client_epoch",
+    "membership epoch this process's most recently (re)connected "
+    "epoch-announced KV client is at (0 = no epoch announced)",
+)
+#: Push-byte accounting: raw = the dense-f32 encoding the
+#: same frame would have cost before codecs (uncompressed keys + 4
+#: bytes/value), wire = what actually left the kernel (headers + keys +
+#: coded payload, summed over servers).  Both count DELIVERED pushes
+#: exactly once: a failed attempt contributes nothing, its successful
+#: re-issue counts once, and an absorbed unknown-outcome push counts
+#: zero — so the ratio can never be inflated by retries.
+_PUSH_RAW = _reg.counter(
+    "distlr_ps_push_bytes_raw_total",
+    "dense-f32-equivalent bytes of delivered gradient pushes "
+    "(what the same pushes would have cost uncompressed)",
+)
+_PUSH_WIRE = _reg.counter(
+    "distlr_ps_push_bytes_wire_total",
+    "actual wire bytes of delivered gradient pushes "
+    "(headers + keys + coded value payload)",
+)
+_COMPRESS_RATIO = _reg.gauge(
+    "distlr_ps_push_compress_ratio",
+    "cumulative push-byte compression ratio raw/wire (1.0-ish = dense "
+    "f32; the codec x accumulation win reads directly off this gauge)",
+)
+def _account_push_bytes(raw: int, wire: int) -> None:
+    _PUSH_RAW.inc(raw)
+    _PUSH_WIRE.inc(wire)
+    # ratio derived from the counters themselves — no shadow totals to
+    # drift if the registry is ever reset or the counters relabeled
+    wire_total = family_total("distlr_ps_push_bytes_wire_total")
+    if wire_total > 0:
+        _COMPRESS_RATIO.set(
+            family_total("distlr_ps_push_bytes_raw_total") / wire_total)
+
+
+@contextlib.contextmanager
+def _observe_op(op: str, *, sent=0, received: int = 0):
+    """Record one op's latency, outcome, and payload bytes.  Timeouts are
+    distinguished from hard failures (a wedged barrier vs a dead peer
+    read very differently on a dashboard).  ``sent`` may be a callable
+    evaluated on success — for ops whose wire size is only known after
+    the native call (compressed pushes)."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    except PSTimeoutError:
+        _OPS_TOTAL.labels(op=op, status="timeout").inc()
+        raise
+    except Exception:
+        _OPS_TOTAL.labels(op=op, status="error").inc()
+        raise
+    _OP_SECONDS.labels(op=op).observe(time.perf_counter() - t0)
+    _OPS_TOTAL.labels(op=op, status="ok").inc()
+    sent = sent() if callable(sent) else sent
+    if sent:
+        _BYTES_TOTAL.labels(op=op, direction="sent").inc(sent)
+    if received:
+        _BYTES_TOTAL.labels(op=op, direction="received").inc(received)
 
 #: Order of the counters a server stats probe returns (kv_protocol.h);
 #: the ``cpu_*`` tail is per-handler thread-CPU seconds.
@@ -461,6 +586,7 @@ class KVWorker:
                 else:
                     self._epoch_armed = True
                     self.client_epoch = self._epoch
+                    _CLIENT_EPOCH.set(self._epoch)
         except Exception:
             lib.kv_close(h)
             raise
@@ -478,6 +604,7 @@ class KVWorker:
         if old:
             self._lib.kv_close(old)
         self.reconnects += 1
+        _RECONNECTS.inc()
 
     def recover(self) -> None:
         """Rebuild the handle after a failed op: :meth:`reconnect`, or for a
@@ -529,6 +656,7 @@ class KVWorker:
                 last = e
             else:
                 self.reroutes += 1
+                _REROUTES.inc()
                 log.info("membership re-route: now at epoch %d over %d server(s)",
                          self._epoch, self.num_servers)
                 return
@@ -579,6 +707,7 @@ class KVWorker:
                 raise  # deterministic: identical on every re-issue
             except PSEpochError:
                 self.epoch_mismatches += 1
+                _EPOCH_MISMATCHES.inc()
                 if reroute >= max_reroutes:
                     raise  # no coordinator to ask, or it keeps handing stale layouts
                 if not idempotent:
@@ -601,6 +730,7 @@ class KVWorker:
         handle best-effort, and resolve it by ``on_failure`` (the fused
         push_pull re-pulls) or as -1; never re-issue it."""
         self.push_outcome_unknown += 1
+        _PUSH_UNKNOWN.inc()
         with contextlib.suppress(OSError):
             recover()  # best-effort: later ops retry their own
         if on_failure is not None:
@@ -639,6 +769,7 @@ class KVWorker:
                     # rather than block a further full receive timeout
                     break
                 self.retries[op] = self.retries.get(op, 0) + 1
+                _RETRIES.labels(op=op).inc()
             try:
                 return fn()
             except (PSRejectedError, PSEpochError):
@@ -769,8 +900,13 @@ class KVWorker:
         return raw, keys, vpk
 
     def _account_push(self, raw: int) -> None:
+        wire_sent = int(self._lib.kv_last_wire_sent(self._h))
         self.push_bytes_raw += raw
-        self.push_bytes_wire += int(self._lib.kv_last_wire_sent(self._h))
+        self.push_bytes_wire += wire_sent
+        _account_push_bytes(raw, wire_sent)
+
+    def _wire_sent(self) -> int:
+        return int(self._lib.kv_last_wire_sent(self._h))
 
     @property
     def compress_ratio(self) -> float | None:
@@ -793,10 +929,11 @@ class KVWorker:
         raw, keys, vpk = self._push_frame(keys, int(vals_per_key), vals)
 
         def issue():
-            ts = self._check(self._lib.kv_push_vpk(self._h, _ptr(keys), _ptr(vals),
-                                                   keys.shape[0], vpk), "push")
-            self._account_push(raw)
-            return ts
+            with _observe_op("push", sent=self._wire_sent):
+                ts = self._check(self._lib.kv_push_vpk(self._h, _ptr(keys), _ptr(vals),
+                                                       keys.shape[0], vpk), "push")
+                self._account_push(raw)
+                return ts
         return self._push_with_retry("push", issue)
 
     def push_init(self, vals: np.ndarray, keys: np.ndarray | None = None,
@@ -810,9 +947,10 @@ class KVWorker:
             raise ValueError(f"{vals.shape[0]} vals vs {keys.shape[0]} keys")
 
         def issue():
-            ts = self._lib.kv_push_init(self._h, _ptr(keys), _ptr(vals), keys.shape[0],
-                                        1 if force else 0)
-            return self._check(ts, "push_init")
+            with _observe_op("push_init", sent=keys.nbytes + vals.nbytes):
+                ts = self._lib.kv_push_init(self._h, _ptr(keys), _ptr(vals), keys.shape[0],
+                                            1 if force else 0)
+                return self._check(ts, "push_init")
         # idempotent: kInitPush no-ops once seeded, kForceInit re-sends the same values
         return self._with_retry("push_init", issue)
 
@@ -829,10 +967,11 @@ class KVWorker:
         out = np.empty(keys.shape[0] * vpk, dtype=np.float32)
 
         def issue():
-            ts = self._lib.kv_push_pull_vpk(self._h, _ptr(keys), _ptr(vals), _ptr(out),
-                                            keys.shape[0], vpk)
-            self._check(ts, "push_pull")
-            self._account_push(raw)
+            with _observe_op("push_pull", sent=self._wire_sent, received=out.nbytes):
+                ts = self._lib.kv_push_pull_vpk(self._h, _ptr(keys), _ptr(vals), _ptr(out),
+                                                keys.shape[0], vpk)
+                self._check(ts, "push_pull")
+                self._account_push(raw)
             return out
         # an unknown push outcome is absorbed; the pull half is re-issued
         # idempotently, so the caller still gets the keys' current weights
@@ -848,8 +987,9 @@ class KVWorker:
         out = np.empty(keys.shape[0] * vpk, dtype=np.float32)
 
         def issue():
-            self._check(self._lib.kv_pull_vpk(self._h, _ptr(keys), _ptr(out), keys.shape[0],
-                                              vpk), "pull")
+            with _observe_op("pull", sent=keys.nbytes, received=out.nbytes):
+                self._check(self._lib.kv_pull_vpk(self._h, _ptr(keys), _ptr(out), keys.shape[0],
+                                                  vpk), "pull")
             return out
         return self._with_retry("pull", issue)
 
@@ -868,6 +1008,7 @@ class KVWorker:
         if vpk > 1 and not self.supports_vals_per_key(vpk):
             raise ValueError(f"vals_per_key={vpk} rows straddle this group's range "
                              "boundaries; pull with vals_per_key=1 instead")
+        _CHUNKED_PULLS.inc()
         if keys is None:
             space = self.dim // vpk
             parts = [self.pull(np.arange(lo, min(lo + chunk_rows, space), dtype=np.uint64),
@@ -877,6 +1018,7 @@ class KVWorker:
             keys = self._validate_keys(keys, vpk)
             parts = [self.pull(keys[lo:lo + chunk_rows], vals_per_key=vpk)
                      for lo in range(0, keys.shape[0], chunk_rows)]
+        _CHUNKS.inc(len(parts))
         if not parts:
             return np.empty(0, np.float32)
         return parts[0] if len(parts) == 1 else np.concatenate(parts)
@@ -913,8 +1055,10 @@ class KVWorker:
         out = np.empty(2 * self.dim, dtype=np.float32)
 
         def issue():
-            self._check(self._lib.kv_pull_opt_state(self._h, _ptr(self._all_keys), _ptr(out),
-                                                    self._all_keys.shape[0]), "pull_opt_state")
+            with _observe_op("pull_opt_state", sent=self._all_keys.nbytes, received=out.nbytes):
+                self._check(self._lib.kv_pull_opt_state(self._h, _ptr(self._all_keys),
+                                                        _ptr(out), self._all_keys.shape[0]),
+                            "pull_opt_state")
             return out[:self.dim].copy(), out[self.dim:].copy()
         return self._with_retry("pull_opt_state", issue)
 
@@ -934,9 +1078,10 @@ class KVWorker:
         buf = np.concatenate([z, n])
 
         def issue():
-            ts = self._lib.kv_push_init_opt_state(self._h, _ptr(self._all_keys), _ptr(buf),
-                                                  self._all_keys.shape[0], 1 if force else 0)
-            return self._check(ts, "push_init_opt_state")
+            with _observe_op("push_init_opt_state", sent=self._all_keys.nbytes + buf.nbytes):
+                ts = self._lib.kv_push_init_opt_state(self._h, _ptr(self._all_keys), _ptr(buf),
+                                                      self._all_keys.shape[0], 1 if force else 0)
+                return self._check(ts, "push_init_opt_state")
         return self._with_retry("push_init_opt_state", issue)
 
     def wait(self, ts: int) -> None:
@@ -955,8 +1100,10 @@ class KVWorker:
             raise ValueError(f"barrier_id must fit in uint16, got {barrier_id}")
         # a re-vote after a reconnect counts once: closing the failed
         # connection rolls its pending vote out of server 0's count
-        self._with_retry("barrier", lambda: self._check(
-            self._lib.kv_barrier(self._h, barrier_id), "barrier"))
+        def issue():
+            with _observe_op("barrier"):
+                self._check(self._lib.kv_barrier(self._h, barrier_id), "barrier")
+        self._with_retry("barrier", issue)
 
     def stats(self, server: int = 0) -> dict:
         """Counters of one server (never deferred, so it answers while

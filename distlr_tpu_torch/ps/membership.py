@@ -28,10 +28,10 @@ snapshots and WAL, :mod:`distlr_tpu_torch.ps.store`), ``SNAPSHOT``
 (SIGUSR1 to every rank) and ``RESTORE`` (SIGKILL, then a respawn that
 recovers from the store).  Every reply is one JSON line, the JAX
 package's.  :func:`layout_client` wraps the endpoint into a ``route=``
-provider.  The JAX package's ``distlr_reshard_*``,
-``distlr_membership_epoch`` and ``distlr_alert_reshard_failed`` series
-are attributes (:attr:`MembershipCoordinator.counters`,
-``reshard_failed``) until ROADMAP A.12.
+provider.  The coordinator records the JAX package's ``distlr_reshard_*``,
+``distlr_membership_epoch`` and ``distlr_alert_reshard_failed`` series,
+and the same numbers in its attributes (:attr:`MembershipCoordinator.
+counters`, ``reshard_failed``, ``seed_pushes``).
 
 Imports neither the workers nor the compute stack: the control plane has
 to keep answering while the data plane fails.
@@ -49,11 +49,53 @@ import time
 
 import numpy as np
 
+from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.ps import store, wire
 from distlr_tpu_torch.ps.client import KVWorker, PSRejectedError
 from distlr_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
+
+_reg = get_registry()
+_EPOCH = _reg.gauge(
+    "distlr_membership_epoch",
+    "the group layout's CURRENT membership epoch (bumps once per "
+    "completed resize; clients at an older epoch are fenced and "
+    "re-route)",
+)
+_RESHARDS = _reg.counter(
+    "distlr_reshard_total",
+    "completed live reshards of the server group, by direction",
+    labelnames=("direction",),
+)
+_RESHARD_SECONDS = _reg.histogram(
+    "distlr_reshard_seconds",
+    "wall seconds per live reshard (fence -> drain -> commit -> "
+    "activate; the client-visible unavailability upper bound)",
+)
+_KEYS_MOVED = _reg.counter(
+    "distlr_reshard_keys_moved_total",
+    "flat parameter slots migrated between ranks by live reshards",
+)
+_BYTES_MOVED = _reg.counter(
+    "distlr_reshard_bytes_moved_total",
+    "payload bytes (keys + f32 values, opt-state included) moved by "
+    "live reshards",
+)
+_SEED_PUSHES = _reg.counter(
+    "distlr_reshard_seed_pushes_total",
+    "forced init-pushes issued by reshard drains (these tick the "
+    "servers' push clocks; subtract them when auditing applied vs "
+    "issued worker pushes across a migration)",
+)
+_RESHARD_FAILED = _reg.gauge(
+    "distlr_alert_reshard_failed",
+    "1 while the most recent live reshard failed and was rolled back "
+    "(the group still serves the OLD layout); clears on the next "
+    "successful resize",
+    labelnames=("threshold",),
+)
+
 
 
 class MembershipError(RuntimeError):
@@ -99,6 +141,8 @@ class MembershipCoordinator:
         #: 1 while the last resize failed and was rolled back (the group
         #: serves the old layout); 0 after the next success
         self.reshard_failed = 0
+        _EPOCH.set(self._epoch)
+        _RESHARD_FAILED.labels(threshold="0").set(0.0)
 
     @property
     def epoch(self) -> int:
@@ -178,8 +222,10 @@ class MembershipCoordinator:
                     dst.push_init(vals[clo:chi], np.arange(lo - nlo + clo, lo - nlo + chi,
                                                            dtype=np.uint64), force=True)
                     self.seed_pushes += 1
+                    _SEED_PUSHES.inc()
             moved += (hi - lo) * 12
             self.counters["keys_moved"] += hi - lo
+            _KEYS_MOVED.inc(hi - lo)
         if group.has_ftrl:
             z = np.zeros(group.dim, np.float32)
             n = np.zeros(group.dim, np.float32)
@@ -197,8 +243,10 @@ class MembershipCoordinator:
                     except PSRejectedError:
                         continue  # the new rank hosts no FTRL coordinate
                     self.seed_pushes += 1
+                    _SEED_PUSHES.inc()
                 moved += (nhi - nlo) * 16
         self.counters["bytes_moved"] += moved
+        _BYTES_MOVED.inc(moved)
         return moved
 
     # -- live resizing -------------------------------------------------------
@@ -253,6 +301,7 @@ class MembershipCoordinator:
             if self.supervisor is not None:
                 self.supervisor.resume()
             self.reshard_failed = 1
+            _RESHARD_FAILED.labels(threshold="0").set(1.0)
             self._record("resize_failed", error=str(e))
             self.last_resize = {"ok": False, "error": str(e), "direction": direction}
             raise MembershipError(f"resize failed (rolled back): {e}") from e
@@ -267,6 +316,10 @@ class MembershipCoordinator:
         reshards = self.counters["reshards"]
         reshards[direction] = reshards.get(direction, 0) + 1
         self.counters["reshard_seconds"].append(wall)
+        _EPOCH.set(new_epoch)
+        _RESHARDS.labels(direction=direction).inc()
+        _RESHARD_SECONDS.observe(wall)
+        _RESHARD_FAILED.labels(threshold="0").set(0.0)
         stats = {"ok": True, "direction": direction, "epoch": new_epoch,
                  "num_servers": self.group.num_servers, "keys_moved": plan.moved_keys,
                  "bytes_moved": bytes_moved, "reused": len(plan.reuse),

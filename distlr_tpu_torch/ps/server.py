@@ -26,9 +26,18 @@ ranks survive, which are spawned and which key sub-ranges move,
 :meth:`ServerGroup.spawn_for_resize` stages the new ranks at the next
 membership epoch and :meth:`ServerGroup.commit_resize` installs the new
 layout; :class:`~distlr_tpu_torch.ps.membership.MembershipCoordinator`
-runs them around its fence and drain.  The JAX package's ``server_up``
-and ``membership_servers`` gauges are attributes (:attr:`ServerGroup.up`,
-``membership_servers``) until ROADMAP A.12.
+runs them around its fence and drain.
+
+The group and its supervisor record the JAX package's series: spawns and
+liveness by rank (``distlr_ps_server_spawns_total``,
+``distlr_ps_server_up``, also the attribute :attr:`ServerGroup.up`), the
+layout's rank count (``distlr_membership_servers``, also
+``membership_servers``), every health probe's kStats counters
+(``distlr_ps_server_stat``, ``distlr_kv_server_cpu_seconds``), the
+supervisor's events (``distlr_ps_supervisor_events_total``), its
+snapshot cycles (``distlr_ps_supervisor_snapshot_seconds``) and a durable
+group's store health (``distlr_ps_store_*``, also
+:attr:`ServerSupervisor.store_health`).
 """
 
 from __future__ import annotations
@@ -42,11 +51,86 @@ from pathlib import Path
 
 import numpy as np
 
+from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.ps import wire
 from distlr_tpu_torch.ps.build import native_variant, sanitizer_environ, server_binary
 from distlr_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
+
+_reg = get_registry()
+_SPAWNS = _reg.counter(
+    "distlr_ps_server_spawns_total",
+    "native KV server processes spawned (incl. supervisor respawns)",
+    labelnames=("rank",),
+)
+_UP = _reg.gauge(
+    "distlr_ps_server_up",
+    "1 while this server rank's process is managed and running",
+    labelnames=("rank",),
+)
+#: kStats counters of the native servers, refreshed by every health()
+#: probe (the native process cannot scrape itself — the Python side
+#: mirrors its protocol counters into the registry).
+_SERVER_STAT = _reg.gauge(
+    "distlr_ps_server_stat",
+    "latest health-probe value of each native server kStats counter",
+    labelnames=("rank", "stat"),
+)
+#: Per-handler thread-CPU seconds of the native server ranks, mirrored
+#: from the kStats CPU extension by every health() probe — the series a
+#: fleet flamegraph's Python edge lines up against the C++ side with.
+_SERVER_CPU = _reg.gauge(
+    "distlr_kv_server_cpu_seconds",
+    "cumulative per-handler thread CPU seconds inside the native KV "
+    "server (CLOCK_THREAD_CPUTIME_ID around each dispatch: payload "
+    "read + decode + apply, never socket wait), from the latest "
+    "health probe",
+    labelnames=("rank", "handler"),
+)
+_SUP_EVENTS = _reg.counter(
+    "distlr_ps_supervisor_events_total",
+    "supervisor audit-trail events (respawned/reseeded/seeded-zeros/"
+    "gave-up/respawn-failed/reseeded-from-store/store-stale/"
+    "store-corrupt-fallback)",
+    labelnames=("event",),
+)
+#: Durable-store health, scanned from each rank's on-disk state
+#: (ps/store.py) by the supervisor's snapshot cycles when the group
+#: runs with a --store_dir.
+_STORE_SNAPSHOT_AGE = _reg.gauge(
+    "distlr_ps_store_snapshot_age_seconds",
+    "age of this rank's newest VALID on-disk snapshot generation (the "
+    "worst-case RPO window when the WAL is off)",
+    labelnames=("rank",),
+)
+_STORE_BYTES = _reg.gauge(
+    "distlr_ps_store_bytes",
+    "on-disk durable-store footprint per rank",
+    labelnames=("rank", "kind"),
+)
+_STORE_WAL_LAG = _reg.gauge(
+    "distlr_ps_store_wal_lag_records",
+    "intact WAL records past this rank's newest valid snapshot — the "
+    "replay depth a cold restart pays (snapshot lag, not data loss)",
+    labelnames=("rank",),
+)
+_STORE_CORRUPT = _reg.gauge(
+    "distlr_ps_store_corrupt_generations",
+    "snapshot generations on disk currently rejected as torn/corrupt "
+    "(>0 means the store is one failure from losing its fallback)",
+    labelnames=("rank",),
+)
+_SNAPSHOT_SECONDS = _reg.histogram(
+    "distlr_ps_supervisor_snapshot_seconds",
+    "wall seconds per supervisor rolling-snapshot cycle",
+)
+_MEMBERSHIP_SERVERS = _reg.gauge(
+    "distlr_membership_servers",
+    "server ranks in the group's CURRENT layout (moves on an elastic "
+    "resize, not on crashes — crash visibility is distlr_ps_server_up)",
+)
+
 
 OPTIMIZERS = ("sgd", "ftrl", "signsgd")
 #: the supervisor's events of a durable group's recovery
@@ -390,8 +474,17 @@ class ServerGroup:
         if not line.startswith("PORT "):
             _reap(proc, terminate=True)
             raise RuntimeError(f"KV server rank {rank} failed to start (got {line!r})")
-        self.up[rank] = 1
+        _SPAWNS.labels(rank=rank).inc()
+        self._set_up(rank, 1)
         return proc, int(line.split()[1])
+
+    def _set_up(self, rank: int, value: int) -> None:
+        self.up[rank] = value
+        _UP.labels(rank=rank).set(value)
+
+    def _set_membership(self) -> None:
+        self.membership_servers = self.num_servers
+        _MEMBERSHIP_SERVERS.set(self.num_servers)
 
     def start(self) -> "ServerGroup":
         fixed_ports, self.ports = list(self.ports), []
@@ -413,7 +506,7 @@ class ServerGroup:
         except BaseException:
             self.stop()
             raise
-        self.membership_servers = self.num_servers
+        self._set_membership()
         return self
 
     def _chaos_kill(self, target: str) -> None:
@@ -535,8 +628,8 @@ class ServerGroup:
         for lk in retiring_links:
             lk.stop()
         for rank in range(max(old_count, plan.new_num_servers)):
-            self.up[rank] = int(rank < plan.new_num_servers)
-        self.membership_servers = self.num_servers
+            self._set_up(rank, int(rank < plan.new_num_servers))
+        self._set_membership()
 
     def alive(self) -> list[bool]:
         """Process-level liveness, one flag per server rank."""
@@ -551,7 +644,16 @@ class ServerGroup:
 
         with KVWorker(self.direct_hosts, self.dim, client_id=0xFFFF,
                       timeout_ms=timeout_ms) as probe:
-            return [probe.stats(rank) for rank in range(self.num_servers)]
+            stats = [probe.stats(rank) for rank in range(self.num_servers)]
+        # the native servers have no scrape surface: a health probe mirrors
+        # their kStats counters into the registry
+        for rank, st in enumerate(stats):
+            for name, val in st.items():
+                _SERVER_STAT.labels(rank=rank, stat=name).set(val)
+                if name.startswith("cpu_") and name.endswith("_seconds"):
+                    _SERVER_CPU.labels(rank=rank,
+                                       handler=name[len("cpu_"):-len("_seconds")]).set(val)
+        return stats
 
     def global_pushes(self, *, timeout_ms: int = 2000) -> float:
         """The group's push clock seen from the servers: the mean
@@ -592,7 +694,7 @@ class ServerGroup:
             for p in self.procs:
                 _reap(p)
             for rank in range(len(self.procs)):
-                self.up[rank] = 0
+                self._set_up(rank, 0)
             self.procs.clear()
 
     def __enter__(self):
@@ -678,6 +780,7 @@ class ServerSupervisor:
 
     def _record_event(self, when: float, rank: int, event: str) -> None:
         self.events.append((when, rank, event))
+        _SUP_EVENTS.labels(event=event).inc()
 
     def start(self) -> "ServerSupervisor":
         self._stop.clear()
@@ -735,6 +838,10 @@ class ServerSupervisor:
                         sync_group=False)
 
     def _try_snapshot(self) -> None:
+        with _SNAPSHOT_SECONDS.time():
+            self._try_snapshot_inner()
+
+    def _try_snapshot_inner(self) -> None:
         from distlr_tpu_torch.ps.client import PSRejectedError  # noqa: PLC0415  (cycle)
 
         if self._snapshot is None:
@@ -792,6 +899,12 @@ class ServerSupervisor:
             except OSError:
                 continue
             best = rs.best
+            if best is not None:
+                _STORE_SNAPSHOT_AGE.labels(rank=r).set(max(0.0, now - best.wall_time))
+            _STORE_BYTES.labels(rank=r, kind="snapshot").set(rs.snapshot_bytes)
+            _STORE_BYTES.labels(rank=r, kind="wal").set(rs.wal_bytes)
+            _STORE_WAL_LAG.labels(rank=r).set(max(0, rs.recovered_clock - rs.snapshot_clock))
+            _STORE_CORRUPT.labels(rank=r).set(rs.corrupt)
             self.store_health[r] = {
                 "snapshot_age_s": max(0.0, now - best.wall_time) if best is not None else None,
                 "snapshot_bytes": rs.snapshot_bytes, "wal_bytes": rs.wal_bytes,
@@ -876,6 +989,10 @@ class ServerSupervisor:
             # the end of a run): not a crash
             return
         dead = [r for r, p in enumerate(procs) if p.poll() is not None and p.returncode != 0]
+        for r in dead:
+            # down at detection: a gave-up or respawn-failed rank reads 0
+            # (a successful respawn sets it back to 1)
+            self._group._set_up(r, 0)
         for rank in list(self._needs_reseed):
             # respawned earlier, its re-seed failed: retry until seeded
             if rank not in dead and self._reseed(rank):

@@ -6,7 +6,10 @@ rows cannot fill a kernel's bucket, but many concurrent connections can:
 requests queue briefly and flush as ONE batch when either
 ``max_batch_size`` rows have accumulated or the oldest request has waited
 ``max_wait_ms``.  The latency cost is bounded by ``max_wait_ms``; the
-throughput gain is the batch occupancy, which the batcher tracks.
+throughput gain is the batch occupancy, which the batcher tracks (its
+attributes, and the JAX package's ``distlr_serve_batcher_*`` and
+``distlr_serve_batch_occupancy`` series); each flush's scoring runs under
+the tracer's ``serve_score`` phase.
 
 Requests are feature-leaf tuples (the engine's ``rows`` layout).  Leaves
 are merged by concatenation with trailing-dim zero padding (sparse COO
@@ -21,6 +24,28 @@ import time
 from concurrent.futures import Future
 
 import numpy as np
+
+from distlr_tpu_torch.obs.registry import get_registry
+from distlr_tpu_torch.obs.tracing import trace_phase
+
+_reg = get_registry()
+_FLUSHES = _reg.counter(
+    "distlr_serve_batcher_flushes_total", "microbatch flushes (scored batches)",
+)
+_COALESCED = _reg.counter(
+    "distlr_serve_batcher_requests_total", "requests coalesced into flushes",
+)
+_ROWS = _reg.counter(
+    "distlr_serve_batcher_rows_total", "rows flushed through the microbatcher",
+)
+#: Fill ratio of each flushed batch (rows / max_batch_size, capped at 1) —
+#: the throughput-side health metric of request coalescing (AdaBatch):
+#: mass near 0 means the window closes before traffic can fill a bucket.
+_OCCUPANCY = _reg.histogram(
+    "distlr_serve_batch_occupancy", "per-flush batch fill ratio",
+    buckets=(0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0),
+)
+
 
 
 def _merge_leaves(leaf_lists: list[tuple[np.ndarray, ...]]) -> tuple[np.ndarray, ...]:
@@ -118,19 +143,25 @@ class MicroBatcher:
             futures = [req[1] for req in taken]
             counts = [rows[0].shape[0] for rows in leaf_lists]
             try:
-                merged = leaf_lists[0] if len(leaf_lists) == 1 else _merge_leaves(leaf_lists)
-                labels, scores = self._score_fn(merged)
+                with trace_phase("serve_score"):
+                    merged = leaf_lists[0] if len(leaf_lists) == 1 else _merge_leaves(leaf_lists)
+                    labels, scores = self._score_fn(merged)
             except Exception as e:
                 for f in futures:
                     if not f.cancelled():
                         f.set_exception(e)
                 continue
             total = sum(counts)
+            occupancy = min(total / self.max_batch_size, 1.0)
             self.batches += 1
             self.requests += len(taken)
             self.rows += total
-            self._occupancy_sum += min(total / self.max_batch_size, 1.0)
+            self._occupancy_sum += occupancy
             self._coalesced_sum += len(taken)
+            _FLUSHES.inc()
+            _COALESCED.inc(len(taken))
+            _ROWS.inc(total)
+            _OCCUPANCY.observe(occupancy)
             lo = 0
             for f, n in zip(futures, counts):
                 if not f.cancelled():

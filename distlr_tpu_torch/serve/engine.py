@@ -32,9 +32,14 @@ the kernels see, and ``bucket_hits`` counts the same things.
 
 On ``cuda`` the constructor builds and loads the kernel library the
 family's forward launches, so a build failure fails the server's start,
-not its first request.  The obs registry counters and trace spans of the
-JAX engine are not ported (ROADMAP A.12); ``stats()`` reports the same
-numbers from plain attributes.
+not its first request.  The engine records the JAX engine's registry
+series (``distlr_serve_engine_*``, ``distlr_serve_weight_swaps_total``),
+a weight publish runs under the tracer's ``weight_swap`` phase, the first
+call at each new (model, bucket) signature counts in
+``distlr_jax_compiles_total{site="serve.engine",bucket}`` (one process-wide
+signature cache, as JAX's one jitted scorer), and swaps and evictions
+sample the device-bytes gauges (:mod:`distlr_tpu_torch.obs.torchrt`);
+``stats()`` reports the engine's own numbers from its attributes.
 """
 
 from __future__ import annotations
@@ -47,9 +52,53 @@ import torch
 
 from distlr_tpu_torch.config import Config
 from distlr_tpu_torch.models import get_model
+from distlr_tpu_torch.obs import torchrt
+from distlr_tpu_torch.obs.registry import get_registry
+from distlr_tpu_torch.obs.tracing import trace_phase
 from distlr_tpu_torch.utils.device import resolve_device
 
 DEFAULT_BUCKETS = (64, 256, 1024)
+
+_reg = get_registry()
+_SCORE_SECONDS = _reg.histogram(
+    "distlr_serve_engine_seconds",
+    "wall seconds per engine score() call (pad + jit dispatch + readback)",
+)
+_ROWS_SCORED = _reg.counter(
+    "distlr_serve_engine_rows_total", "rows scored across all engines",
+)
+_BATCHES_SCORED = _reg.counter(
+    "distlr_serve_engine_batches_total", "score() calls across all engines",
+)
+_BUCKET_HITS = _reg.counter(
+    "distlr_serve_engine_bucket_hits_total",
+    "padded-batch bucket selections", labelnames=("bucket",),
+)
+_WEIGHT_SWAPS = _reg.counter(
+    "distlr_serve_weight_swaps_total",
+    "atomic weight publishes into serving engines",
+)
+_EVICTIONS = _reg.counter(
+    "distlr_serve_engine_evictions_total",
+    "idle engines that released their device weight table to host "
+    "memory (--engine-idle-evict; the next request lazily re-loads)",
+)
+_EVICT_RELOADS = _reg.counter(
+    "distlr_serve_engine_evict_reloads_total",
+    "lazy device re-loads of an evicted engine's weight table on the "
+    "first request after an idle window",
+)
+_RESIDENT = _reg.gauge(
+    "distlr_serve_engine_resident",
+    "engines currently holding their weight table in DEVICE memory "
+    "(an evicted cold model version counts 0 until its next request)",
+)
+
+#: the signatures the scorer ran at, process-wide (JAX: one jitted scorer
+#: for every engine, keyed on the model and the padded batch), and the
+#: probe that attributes each new one to the bucket that triggered it
+_SCORE_SIGS = torchrt.SignatureCache()
+_SCORE_PROBE = torchrt.CompileProbe(_SCORE_SIGS, "serve.engine")
 
 _PRODUCT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -142,21 +191,30 @@ class ScoringEngine:
         returns the new version.  Calls already past the reference read
         finish on the old weights; the next batch sees the new ones.  An
         evicted engine's publish stays host-side."""
-        if isinstance(weights, torch.Tensor):
-            weights = weights.detach().to("cpu", torch.float32).numpy()
-        host = np.array(weights, dtype=np.float32).reshape(self.model.param_shape)
-        with self._lock:
-            if self.idle_evict_s > 0 and self._weights is None and self._host_weights is not None:
-                self._host_weights = host
+        with trace_phase("weight_swap"):
+            if isinstance(weights, torch.Tensor):
+                weights = weights.detach().to("cpu", torch.float32).numpy()
+            host = np.array(weights, dtype=np.float32).reshape(self.model.param_shape)
+            with self._lock:
+                if (self.idle_evict_s > 0 and self._weights is None
+                        and self._host_weights is not None):
+                    self._host_weights = host
+                    self.weights_version += 1
+                    _WEIGHT_SWAPS.inc()
+                    return self.weights_version
+            w = self._to_device(host)
+            with self._lock:
+                if self._weights is None:
+                    _RESIDENT.inc()
+                self._weights = w
+                if self.idle_evict_s > 0:
+                    self._host_weights = host
                 self.weights_version += 1
-                return self.weights_version
-        w = self._to_device(host)
-        with self._lock:
-            self._weights = w
-            if self.idle_evict_s > 0:
-                self._host_weights = host
-            self.weights_version += 1
-            return self.weights_version
+                _WEIGHT_SWAPS.inc()
+                version = self.weights_version
+        # the swap is when device residency changes: refresh the gauges
+        torchrt.maybe_sample_device_bytes()
+        return version
 
     @property
     def has_weights(self) -> bool:
@@ -196,11 +254,16 @@ class ScoringEngine:
                 self._host_weights = self._weights.to("cpu").numpy()
             self._weights = None
             self.evictions += 1
+            _EVICTIONS.inc()
+            _RESIDENT.dec()
+        torchrt.maybe_sample_device_bytes()
         return True
 
     def _ensure_resident_locked(self) -> None:
         if self._weights is None and self._host_weights is not None:
             self._weights = self._to_device(self._host_weights)
+            _EVICT_RELOADS.inc()
+            _RESIDENT.inc()
 
     # -- scoring ----------------------------------------------------------
     def _leaf_dtype(self, k: int, leaf: np.ndarray) -> torch.dtype:
@@ -233,7 +296,12 @@ class ScoringEngine:
         n = rows[0].shape[0]
         bucket = _next_bucket(n, self.buckets)
         self._bucket_hits[bucket] = self._bucket_hits.get(bucket, 0) + 1
-        labels, scores = self._forward(w, self._pad_rows(rows, bucket))
+        _BUCKET_HITS.labels(bucket=bucket).inc()
+        batch = self._pad_rows(rows, bucket)
+        _SCORE_SIGS.note(self.model, w, batch)
+        labels, scores = self._forward(w, batch)
+        # any new signature is attributed to the bucket that just ran
+        _SCORE_PROBE.tick(bucket)
         return labels[:n].cpu().numpy(), scores[:n].cpu().numpy()
 
     def score(self, rows: tuple[np.ndarray, ...]) -> tuple[np.ndarray, np.ndarray]:
@@ -258,17 +326,20 @@ class ScoringEngine:
             w = self._weights  # the swap point: this call's weights
         try:
             labels_out, scores_out = [], []
-            for lo in range(0, n, self.max_batch_size):
-                chunk = tuple(leaf[lo:lo + self.max_batch_size] for leaf in rows)
-                lab, sc = self._score_bucket(w, chunk)
-                labels_out.append(lab)
-                scores_out.append(sc)
+            with _SCORE_SECONDS.time():
+                for lo in range(0, n, self.max_batch_size):
+                    chunk = tuple(leaf[lo:lo + self.max_batch_size] for leaf in rows)
+                    lab, sc = self._score_bucket(w, chunk)
+                    labels_out.append(lab)
+                    scores_out.append(sc)
         finally:
             with self._lock:
                 self._inflight -= 1
                 self._last_score_at = time.monotonic()
         self.batches_scored += 1
         self.rows_scored += n
+        _BATCHES_SCORED.inc()
+        _ROWS_SCORED.inc(n)
         return np.concatenate(labels_out), np.concatenate(scores_out)
 
     # -- request encoding --------------------------------------------------

@@ -13,8 +13,9 @@ Decayed occurrence counts a row key, capped at ``capacity`` (the
 top-count survivors), and a coverage window: the share of key occurrences
 since the last published snapshot that the snapshot already held.  A
 shifting key distribution drives coverage down, and the watcher answers
-with a full refresh.  The JAX package's registry gauges wait for ROADMAP
-A.12; :meth:`HotSetTracker.stats` carries the same numbers.
+with a full refresh.  The tracker records the JAX package's
+``distlr_serve_hotset_*`` series (keys, coverage, occurrences observed);
+:meth:`HotSetTracker.stats` carries the same numbers.
 """
 
 from __future__ import annotations
@@ -23,6 +24,23 @@ import heapq
 import threading
 
 import numpy as np
+
+from distlr_tpu_torch.obs.registry import get_registry
+
+_reg = get_registry()
+_HOT_KEYS = _reg.gauge(
+    "distlr_serve_hotset_keys",
+    "parameter row keys currently tracked in the serving hot set",
+)
+_HOT_COVERAGE = _reg.gauge(
+    "distlr_serve_hotset_coverage",
+    "fraction of recently requested row-key occurrences covered by the "
+    "published hot set (the full-refresh fallback signal)",
+)
+_OBSERVED = _reg.counter(
+    "distlr_serve_hotset_observed_total",
+    "row-key occurrences observed from scoring requests",
+)
 
 
 class HotSetTracker:
@@ -90,6 +108,7 @@ class HotSetTracker:
                 self._decay_locked()
             elif len(counts) > 2 * self.capacity:
                 self._enforce_cap_locked()
+        _OBSERVED.inc(n_obs)
 
     def _decay_locked(self) -> None:
         d = self.decay
@@ -120,6 +139,7 @@ class HotSetTracker:
             self._hot_sorted = keys
             self._hits = 0
             self._total = 0
+        _HOT_KEYS.set(keys.size)
         return keys.copy()  # callers must not alias the live snapshot
 
     def importance(self, keys) -> float:
@@ -151,7 +171,9 @@ class HotSetTracker:
 
     def coverage(self) -> float:
         with self._lock:
-            return 1.0 if self._total == 0 else self._hits / self._total
+            cov = 1.0 if self._total == 0 else self._hits / self._total
+        _HOT_COVERAGE.set(cov)
+        return cov
 
     def stats(self) -> dict:
         with self._lock:

@@ -32,8 +32,9 @@ and offers :meth:`HotReloader.wait_for_weights` as the start-up gate.
 A :class:`~distlr_tpu_torch.ps.RetryPolicy` (``retry=``) retries a PS
 blip inside the poll, and a membership ``route`` (``launch serve
 --ps-ctl``) makes the watcher follow a live resize: a reshard costs one
-re-route inside a poll.  Not ported: the trace spans and registry
-counters (ROADMAP A.12).
+re-route inside a poll.  Each live-PS reload counts in the JAX package's
+``distlr_serve_reloads_total{kind}`` and ``distlr_serve_reload_rows_total{kind}``
+(full table or hot slice).  Not ported: the trace spans (ROADMAP A.25).
 """
 
 from __future__ import annotations
@@ -44,9 +45,22 @@ import time
 
 import numpy as np
 
+from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
+
+_reg = get_registry()
+_RELOADS = _reg.counter(
+    "distlr_serve_reloads_total",
+    "live-PS weight reloads by kind (full table vs hot working-set slice)",
+    labelnames=("kind",),
+)
+_RELOAD_ROWS = _reg.counter(
+    "distlr_serve_reload_rows_total",
+    "parameter rows fetched by live-PS weight reloads",
+    labelnames=("kind",),
+)
 
 
 class CheckpointWatcher:
@@ -191,6 +205,8 @@ class LivePSWatcher:
             self._version += 1
             self.full_reloads += 1
             self.last_kind, self.last_rows = "full", w.size // self.row_width
+            _RELOADS.labels(kind="full").inc()
+            _RELOAD_ROWS.labels(kind="full").inc(self.last_rows)
             return self._version, w
         full = (self._table is None
                 or self.hot_tracker.coverage() < self.min_coverage
@@ -218,6 +234,8 @@ class LivePSWatcher:
             kind = "hot"
         self._version += 1
         self.last_kind, self.last_rows = kind, rows
+        _RELOADS.labels(kind=kind).inc()
+        _RELOAD_ROWS.labels(kind=kind).inc(rows)
         # a COPY: the next hot poll scatters into the table in place, and a
         # request in flight must finish on the weights it started with
         return self._version, self._table.copy()

@@ -12,8 +12,9 @@ primary never stopped serving.
 Every transition is journaled as JSONL under ``<journal_dir>/rollout/``,
 with the JAX package's event names (``start``, ``stage``, ``promote``,
 ``rollback``, ``rollback_error``, ``abort``) and outcomes (``promoted``,
-``rolled_back``, ``aborted``).  The JAX package's ``distlr_rollout_*``
-registry gauges wait for ROADMAP A.12.  Stdlib only.
+``rolled_back``, ``aborted``), and recorded in the JAX package's
+``distlr_rollout_*`` registry series (the split weight, transitions by
+event, rollbacks).  Stdlib only.
 """
 
 from __future__ import annotations
@@ -25,9 +26,29 @@ import socket
 import time
 import urllib.request
 
+from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
+
+_reg = get_registry()
+_ROLLOUT_WEIGHT = _reg.gauge(
+    "distlr_rollout_weight",
+    "current canary split weight of an in-flight rollout (candidate "
+    "share of the tenant's traffic; 0 after a rollback)",
+    labelnames=("tenant", "candidate"),
+)
+_ROLLOUT_TRANSITIONS = _reg.counter(
+    "distlr_rollout_transitions_total",
+    "rollout state transitions by event (start/stage/promote/"
+    "rollback/abort)",
+    labelnames=("event",),
+)
+_ROLLOUT_ROLLBACKS = _reg.counter(
+    "distlr_rollout_rollbacks_total",
+    "canary ramps rolled back automatically by a firing alert gauge",
+    labelnames=("tenant", "candidate"),
+)
 
 
 def parse_stages(spec: str) -> list[tuple[float, float]]:
@@ -178,12 +199,18 @@ class RolloutController:
             self.journal_path = os.path.join(rollout_dir, f"ramp-{seq:04d}.jsonl")
         #: the current split weight (0 after a rollback or a promotion)
         self.weight = 0.0
+        self._weight_g = _ROLLOUT_WEIGHT.labels(tenant=self.tenant, candidate=self.candidate)
         self.transitions: list[dict] = []
+
+    def _set_weight(self, weight: float) -> None:
+        self.weight = weight
+        self._weight_g.set(weight)
 
     def _journal(self, event: str, **detail) -> dict:
         doc = {"t": round(time.time(), 3), "event": event, "tenant": self.tenant,
                "candidate": self.candidate, **detail}
         self.transitions.append(doc)
+        _ROLLOUT_TRANSITIONS.labels(event=event).inc()
         if self.journal_path:
             with open(self.journal_path, "a") as f:
                 f.write(json.dumps(doc) + "\n")
@@ -254,7 +281,7 @@ class RolloutController:
                 # a failed exchange mid-ramp must not leave the last stage's
                 # split live and unwatched
                 return self._rollback(i, [f"rollout_admin_failed:{e}"])
-            self.weight = weight
+            self._set_weight(weight)
             self._journal("stage", stage=i, weight=weight, hold_s=hold_s)
             log.info("ramp %s -> %s: stage %d/%d at weight %.2f (hold %.1fs)", self.tenant,
                      self.candidate, i + 1, len(self.stages), weight, hold_s)
@@ -273,7 +300,7 @@ class RolloutController:
                 self.admin.send(f"SHADOW {self.tenant} {self.candidate} 0")
             except OSError:
                 pass
-        self.weight = 0.0
+        self._set_weight(0.0)
         doc = self._journal("promote")
         log.info("ramp %s -> %s: PROMOTED (%d stages clean)", self.tenant, self.candidate,
                  len(self.stages))
@@ -289,7 +316,8 @@ class RolloutController:
             # the rollback line failed; the router may be down (then it
             # serves no split either)
             self._journal("rollback_error", error=str(e))
-        self.weight = 0.0
+        self._set_weight(0.0)
+        _ROLLOUT_ROLLBACKS.labels(tenant=self.tenant, candidate=self.candidate).inc()
         self._journal("rollback", stage=stage, alerts=alerts)
         log.warning("ramp %s -> %s: ROLLED BACK at stage %s — firing: %s", self.tenant,
                     self.candidate, stage, ", ".join(alerts))

@@ -35,11 +35,14 @@ router from a single :class:`~distlr_tpu_torch.serve.server.ScoringServer`:
   ``SHADOW`` / ``PROMOTE`` / ``ADDREPLICA`` / ``DELREPLICA`` / ``MODELS``
   admin lines).
 
-Counters are instance attributes, and ``p50_ms`` / ``p99_ms`` read the
-port's :class:`~distlr_tpu_torch.serve.server.LatencyHistogram`, whose
-buckets and estimate are the JAX registry's.  ``TRACE <tid>/<sid>``
-prefixes answer ``ERR`` naming ROADMAP A.12; untraced traffic routes as
-in the JAX package with tracing unconfigured.  The router itself is
+The router counts in the JAX package's ``distlr_route_*`` and
+``distlr_tenant_*`` registry series (per listener, per replica, per
+tenant); ``STATS`` answers from the listener's series (counts as deltas
+since the router was made, ``p50_ms`` / ``p99_ms`` from its request
+histogram), and each replica's counts are attributes of its
+``_Replica``.  ``TRACE <tid>/<sid>`` prefixes answer ``ERR`` naming
+ROADMAP A.25; untraced traffic routes as in the JAX
+package with tracing unconfigured.  The router itself is
 stdlib code: ``launch route`` needs no card.
 """
 
@@ -53,12 +56,70 @@ import threading
 import time
 
 from distlr_tpu_torch.config import _not_ported
+from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.serve import balance as _balance
 from distlr_tpu_torch.serve import tenant as _tenant
-from distlr_tpu_torch.serve.server import LatencyHistogram
 from distlr_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
+
+_reg = get_registry()
+_REQ_SECONDS = _reg.histogram(
+    "distlr_route_request_seconds",
+    "wall seconds per routed request line (admission to reply, incl. "
+    "retries)", labelnames=("listener",),
+)
+_REQUESTS = _reg.counter(
+    "distlr_route_requests_total",
+    "request lines answered from a replica", labelnames=("listener",),
+)
+_ERRORS = _reg.counter(
+    "distlr_route_errors_total",
+    "accepted request lines that failed on every tried replica",
+    labelnames=("listener",),
+)
+_SHED = _reg.counter(
+    "distlr_route_shed_total",
+    "request lines shed at admission (no healthy replica with a free "
+    "in-flight slot)", labelnames=("listener",),
+)
+_RETRIES = _reg.counter(
+    "distlr_route_retries_total",
+    "transparent retries on another replica after a transport failure",
+    labelnames=("listener",),
+)
+_REPLICA_UP = _reg.gauge(
+    "distlr_route_replica_up",
+    "1 while the replica is in rotation (0 = ejected)",
+    labelnames=("replica",),
+)
+_REPLICA_INFLIGHT = _reg.gauge(
+    "distlr_route_replica_inflight",
+    "requests currently in flight to the replica", labelnames=("replica",),
+)
+_EJECTIONS = _reg.counter(
+    "distlr_route_ejections_total",
+    "replica ejections after consecutive transport failures",
+    labelnames=("replica",),
+)
+_REINSTATES = _reg.counter(
+    "distlr_route_reinstates_total",
+    "ejected replicas reinstated by a successful backoff probe",
+    labelnames=("replica",),
+)
+_EJECT_SUPPRESSED = _reg.counter(
+    "distlr_route_eject_suppressed_total",
+    "ejections suppressed by the last-healthy floor (the replica "
+    "crossed eject_after consecutive failures but is the only healthy "
+    "replica left in one of its model pools)",
+    labelnames=("replica",),
+)
+_LABELS = _reg.counter(
+    "distlr_route_labels_total",
+    "LABEL feedback lines fanned out to replicas, by best outcome "
+    "(joined/duplicate/pending/failed)",
+    labelnames=("listener", "outcome"),
+)
 
 
 class _Replica:
@@ -95,15 +156,21 @@ class _Replica:
         self.next_probe_at = 0.0
         self.last_ok = 0.0      # monotonic: last successful exchange or probe
         self.last_probe = 0.0
+        self._up_g = _REPLICA_UP.labels(replica=addr)
+        self._inflight_g = _REPLICA_INFLIGHT.labels(replica=addr)
+        self._up_g.set(1.0)
+        self._inflight_g.set(0.0)
 
     def try_acquire(self) -> bool:
         if self._sem.acquire(blocking=False):
             self.inflight += 1
+            self._inflight_g.inc()
             return True
         return False
 
     def release(self) -> None:
         self.inflight -= 1
+        self._inflight_g.dec()
         self._sem.release()
 
     def _dial(self):
@@ -270,15 +337,21 @@ class ScoringRouter:
         self._retries = int(retries)
         self._lock = threading.Lock()   # health state, rotation, counters
         self._rr = 0
-        self._latency = LatencyHistogram()
-        self.requests = 0
-        self.errors = 0
-        self.shed = 0
-        self.retries = 0
         self._t0 = time.monotonic()
         self._tcp = _TCPServer((host, port), _RouterHandler, bind_and_activate=True)
         self._tcp.router = self  # type: ignore[attr-defined]
         self.host, self.port = self._tcp.server_address[:2]
+        listener = f"{self.host}:{self.port}"
+        self._req_seconds = _REQ_SECONDS.labels(listener=listener)
+        #: the listener's counters, and their values when this router was
+        #: made (a router restarted on the same fixed port resolves the
+        #: same children)
+        self._series = {"requests": _REQUESTS.labels(listener=listener),
+                        "errors": _ERRORS.labels(listener=listener),
+                        "shed": _SHED.labels(listener=listener),
+                        "retries": _RETRIES.labels(listener=listener)}
+        self._series_base = {k: c.value for k, c in self._series.items()}
+        _tenant.set_model_count(len(self.model_ids))
         self._stop = threading.Event()
         self._started = False
         self._accept_thread = threading.Thread(target=self._tcp.serve_forever, daemon=True,
@@ -287,8 +360,7 @@ class ScoringRouter:
                                                name="distlr-route-health")
 
     def _count(self, name: str) -> None:
-        with self._lock:
-            setattr(self, name, getattr(self, name) + 1)
+        self._series[name].inc()
 
     # -- replica selection and health ----------------------------------------
     def _acquire(self, excluded: list, model: str | None = None) -> _Replica | None:
@@ -327,11 +399,14 @@ class ScoringRouter:
         return [self._model_replicas.get(m, []) for m in sorted(rep.models)]
 
     def _post_eject_locked(self, rep: _Replica) -> None:
+        rep._up_g.set(0.0)
+        _EJECTIONS.labels(replica=rep.addr).inc()
         log.warning("replica %s ejected after %d consecutive failures; probing with %.2fs "
                     "backoff", rep.addr, rep.consecutive_errors, rep.backoff_s)
         rep.drain_pool()  # pooled sockets to a suspect replica are suspect
 
     def _floor_locked(self, rep: _Replica) -> None:
+        _EJECT_SUPPRESSED.labels(replica=rep.addr).inc()
         if rep.consecutive_errors == self.eject_after:
             log.warning("replica %s crossed the eject threshold (%d consecutive failures) but "
                         "is the LAST healthy replica of a pool it serves; keeping it in "
@@ -364,6 +439,8 @@ class ScoringRouter:
                 probe_backoff_max_s=self.probe_backoff_max_s, eject_after=self.eject_after,
                 pools=self._pools_locked(rep))
             if outcome == "reinstated":
+                rep._up_g.set(1.0)
+                _REINSTATES.labels(replica=rep.addr).inc()
                 log.info("replica %s reinstated", rep.addr)
             elif outcome == "ejected":
                 self._post_eject_locked(rep)
@@ -414,6 +491,8 @@ class ScoringRouter:
                     # terminal: only the scoring replica joins, and fanning
                     # further would park the label in every other's buffer
                     break
+        _LABELS.labels(listener=f"{self.host}:{self.port}",
+                       outcome=best if best is not None else "failed").inc()
         if best is not None:
             return f"OK {best}"
         self._count("errors")
@@ -501,6 +580,7 @@ class ScoringRouter:
                 self._model_replicas[model] = []
                 self.model_ids.append(model)
                 self._per_model[model] = {"requests": 0, "shed": 0}
+                _tenant.set_model_count(len(self.model_ids))
             pool = self._model_replicas[model]
             if rep in pool:
                 raise ValueError(f"replica {addr} already registered under {model!r}")
@@ -522,6 +602,7 @@ class ScoringRouter:
             if gone:
                 self.replicas.remove(rep)
                 del self._by_addr[addr]
+                rep._up_g.set(0.0)
         if gone:
             rep.drain_pool()
         log.info("replica %s removed from model %s%s", addr, model,
@@ -606,7 +687,7 @@ class ScoringRouter:
             return self._broadcast_label(line, model)
         if line.startswith("TRACE "):
             self._count("errors")
-            err = _not_ported("TRACE prefixes (distributed tracing)", "A.12")
+            err = _not_ported("TRACE prefixes (distributed tracing)", "A.25")
             return f"ERR {type(err).__name__}: {err}"
         return self._route_line(line, model)
 
@@ -629,6 +710,7 @@ class ScoringRouter:
         if q is not None and not q.try_admit():
             with self._lock:
                 self._per_model[tenant]["shed"] += 1
+            _tenant.count_tenant_shed(tenant)
             return f"ERR SHED tenant: {tenant!r} over admission quota ({q.rate:g} req/s)"
         with self._lock:
             split = self._splits.get(tenant)
@@ -685,10 +767,11 @@ class ScoringRouter:
                 excluded.append(rep)
                 continue
             self._note_success(rep)
-            self._latency.observe(time.monotonic() - t0)
+            self._req_seconds.observe(time.monotonic() - t0)
             with self._lock:
-                self.requests += 1
                 self._per_model[tenant]["requests"] += 1
+            self._count("requests")
+            _tenant.count_request(tenant)
             if mirror:
                 # strictly after the reply is final
                 scores = _tenant.extract_scores(reply)
@@ -710,7 +793,6 @@ class ScoringRouter:
         per-replica state and the per-model registry."""
         elapsed = max(time.monotonic() - self._t0, 1e-9)
         with self._lock:
-            n_req, n_err, n_shed, n_retry = self.requests, self.errors, self.shed, self.retries
             reps = [{"addr": r.addr, "healthy": r.healthy, "inflight": r.inflight,
                      "requests": r.requests, "errors": r.errors, "ejections": r.ejections,
                      "reinstates": r.reinstates} for r in self.replicas]
@@ -728,14 +810,15 @@ class ScoringRouter:
                 if q is not None:
                     pm["quota"] = q.stats()
                 per_model[m] = pm
+        n = {k: int(c.value - self._series_base[k]) for k, c in self._series.items()}
         rec = {
-            "requests": n_req,
-            "errors": n_err,
-            "qps": round(n_req / elapsed, 2),
-            "p50_ms": round(self._latency.percentile(0.50) * 1e3, 3),
-            "p99_ms": round(self._latency.percentile(0.99) * 1e3, 3),
-            "shed": n_shed,
-            "retries": n_retry,
+            "requests": n["requests"],
+            "errors": n["errors"],
+            "qps": round(n["requests"] / elapsed, 2),
+            "p50_ms": round(self._req_seconds.percentile(0.50) * 1e3, 3),
+            "p99_ms": round(self._req_seconds.percentile(0.99) * 1e3, 3),
+            "shed": n["shed"],
+            "retries": n["retries"],
             "replica_count": len(reps),
             "replicas_up": sum(r["healthy"] for r in reps),
             "replicas": reps,

@@ -28,22 +28,26 @@ protocol, one request per line and one reply line per request:
 * Malformed input answers ``ERR <Type>: <reason>`` for that line; the
   connection stays up.
 
-Not ported: ``TRACE`` prefixes (distributed tracing) answer ``ERR``
-naming ROADMAP A.12.
+Each request line is counted in the JAX package's per-listener series
+(``distlr_serve_request_seconds``, ``distlr_serve_requests_total``,
+``distlr_serve_errors_total``, label ``listener="host:port"``), which
+``STATS`` answers from: counts as deltas since this server was made,
+percentiles over the listener's history in the process, as in the JAX
+package.  Not ported: ``TRACE`` prefixes (distributed tracing) answer
+``ERR`` naming ROADMAP A.25.
 
 One thread per connection (``ThreadingTCPServer``); every connection of a
 model funnels into that engine's
 :class:`~distlr_tpu_torch.serve.batcher.MicroBatcher`, so requests
 coalesce exactly when traffic is concurrent, and two versions' rows never
 share a padded batch.  ``p50_ms`` /
-``p99_ms`` come from a fixed-bucket latency histogram with the bucket
-edges and the percentile estimate of ``distlr_tpu/obs/registry.py``, so
-the two packages' values mean the same thing.
+``p99_ms`` are the registry histogram's bucket estimates
+(:mod:`distlr_tpu_torch.obs.registry`, the JAX package's), so the two
+packages' values mean the same thing.
 """
 
 from __future__ import annotations
 
-import bisect
 import json
 import socket
 import socketserver
@@ -53,58 +57,28 @@ import time
 import numpy as np
 
 from distlr_tpu_torch.config import _not_ported
+from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.serve.batcher import MicroBatcher
 from distlr_tpu_torch.train.metrics import MetricsLogger
 from distlr_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
 
-#: Latency bucket edges, seconds (the JAX registry's default ladder: 100 us
-#: to 10 s).
-LATENCY_BUCKETS = (
-    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
-    0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+_reg = get_registry()
+#: Per-listener series ("host:port" label): several servers can share one
+#: process (tests, multi-engine front-ends) without aliasing counts.
+_REQ_SECONDS = _reg.histogram(
+    "distlr_serve_request_seconds",
+    "wall seconds per front-end request line", labelnames=("listener",),
 )
-
-
-def percentile_from_counts(bounds: tuple[float, ...], counts, q: float) -> float:
-    """q-quantile (q in [0, 1]) by linear interpolation inside the owning
-    bucket, over per-bucket counts (last slot = +Inf); observations past
-    the top bucket clamp to the largest finite edge."""
-    if not 0.0 <= q <= 1.0:
-        raise ValueError(f"quantile must be in [0, 1], got {q}")
-    total = sum(counts)
-    if total == 0:
-        return 0.0
-    rank, cum = q * total, 0.0
-    for i, c in enumerate(counts[:-1]):
-        prev_cum = cum
-        cum += c
-        if cum >= rank:
-            lo = bounds[i - 1] if i > 0 else 0.0
-            hi = bounds[i]
-            frac = (rank - prev_cum) / c if c else 0.0
-            return lo + (hi - lo) * frac
-    return bounds[-1]
-
-
-class LatencyHistogram:
-    """Fixed-bucket histogram of request seconds (no per-request storage)."""
-
-    def __init__(self, bounds: tuple[float, ...] = LATENCY_BUCKETS):
-        self.bounds = tuple(bounds)
-        self._counts = [0] * (len(self.bounds) + 1)
-        self._lock = threading.Lock()
-
-    def observe(self, seconds: float) -> None:
-        i = bisect.bisect_left(self.bounds, seconds)
-        with self._lock:
-            self._counts[i] += 1
-
-    def percentile(self, q: float) -> float:
-        with self._lock:
-            counts = list(self._counts)
-        return percentile_from_counts(self.bounds, counts, q)
+_REQUESTS = _reg.counter(
+    "distlr_serve_requests_total", "request lines answered OK",
+    labelnames=("listener",),
+)
+_ERRORS = _reg.counter(
+    "distlr_serve_errors_total", "request lines answered ERR",
+    labelnames=("listener",),
+)
 
 
 class _Handler(socketserver.StreamRequestHandler):
@@ -185,14 +159,19 @@ class ScoringServer:
         self.batcher = self._batchers[self._default_id]
         self._model_requests = dict.fromkeys(engines, 0)
         self.metrics = metrics or MetricsLogger()
-        self._latency = LatencyHistogram()
         self._count_lock = threading.Lock()
-        self._requests = 0
-        self._errors = 0
         self._t0 = time.monotonic()
         self._tcp = _TCPServer((host, port), _Handler, bind_and_activate=True)
         self._tcp.scoring_server = self  # type: ignore[attr-defined]
         self.host, self.port = self._tcp.server_address[:2]
+        listener = f"{self.host}:{self.port}"
+        self._req_seconds = _REQ_SECONDS.labels(listener=listener)
+        self._requests_c = _REQUESTS.labels(listener=listener)
+        self._errors_c = _ERRORS.labels(listener=listener)
+        # the children live as long as the process: a server restarted on
+        # the same fixed port counts its STATS from these baselines
+        self._req_base = self._requests_c.value
+        self._err_base = self._errors_c.value
         self._conn_lock = threading.Lock()
         self._active_conns: set = set()
         self._started = False
@@ -242,8 +221,7 @@ class ScoringServer:
         return f"OK {self.feedback.label(parts[1], int(y))}"
 
     def _count_error(self) -> None:
-        with self._count_lock:
-            self._errors += 1
+        self._errors_c.inc()
 
     def _unknown_model(self, model: str) -> str:
         return f"ERR MODEL: unknown model {model!r} (hosted: {','.join(self.engines)})"
@@ -279,7 +257,7 @@ class ScoringServer:
             if line == "STATS":
                 return json.dumps(self.stats())
             if line.startswith("TRACE ") or line == "TRACE":
-                raise _not_ported("TRACE prefixes (distributed tracing)", "A.12")
+                raise _not_ported("TRACE prefixes (distributed tracing)", "A.25")
             if line.startswith("LABEL ") or line == "LABEL":
                 return self._handle_label(line)
             if line.startswith("{"):
@@ -310,25 +288,25 @@ class ScoringServer:
         except Exception as e:
             self._count_error()
             return f"ERR {type(e).__name__}: {e}"
-        self._latency.observe(time.monotonic() - t0)
-        with self._count_lock:
-            self._requests += 1
+        self._req_seconds.observe(time.monotonic() - t0)
+        self._requests_c.inc()
         return reply
 
     # -- stats -------------------------------------------------------------
     def stats(self) -> dict:
         """The STATS reply: the JAX server's schema, key for key (a single
         engine never sheds or retries and is its own one-replica tier)."""
+        n_req = int(self._requests_c.value - self._req_base)
+        n_err = int(self._errors_c.value - self._err_base)
         with self._count_lock:
-            n_req, n_err = self._requests, self._errors
             per_model = dict(self._model_requests)
         elapsed = max(time.monotonic() - self._t0, 1e-9)
         rec = {
             "requests": n_req,
             "errors": n_err,
             "qps": round(n_req / elapsed, 2),
-            "p50_ms": round(self._latency.percentile(0.50) * 1e3, 3),
-            "p99_ms": round(self._latency.percentile(0.99) * 1e3, 3),
+            "p50_ms": round(self._req_seconds.percentile(0.50) * 1e3, 3),
+            "p99_ms": round(self._req_seconds.percentile(0.99) * 1e3, 3),
             "shed": 0,
             "retries": 0,
             "replica_count": 1,

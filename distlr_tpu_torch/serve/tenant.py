@@ -18,9 +18,10 @@ the scoring server share to make model identity first class:
 
 Tenant identity is the model id: ``MODEL <id>`` connection scoping or a
 per-request ``@<id>`` prefix addresses it.  The JAX package's
-``distlr_tenant_*`` registry counters and gauges wait for ROADMAP A.12;
-:meth:`TenantQuota.stats` and :meth:`ShadowMirror.stats` carry the same
-numbers into the router's ``STATS``.
+``distlr_tenant_*`` series are recorded here (:func:`count_request`,
+:func:`count_tenant_shed`, :func:`set_model_count`, the mirror's outcomes
+and PSI); :meth:`TenantQuota.stats` and :meth:`ShadowMirror.stats` carry
+the same numbers into the router's ``STATS``.
 """
 
 from __future__ import annotations
@@ -32,10 +33,43 @@ import time
 import numpy as np
 
 from distlr_tpu_torch.feedback.drift import psi
+from distlr_tpu_torch.obs.registry import get_registry
 
 #: model id of unaddressed traffic: a spec without ``=`` registers its
 #: replicas here, so single-model clients and replica lists keep working
 DEFAULT_MODEL = "default"
+
+_reg = get_registry()
+_TENANT_REQUESTS = _reg.counter(
+    "distlr_tenant_requests_total",
+    "request lines answered per tenant (model id) across the fleet",
+    labelnames=("model",),
+)
+_TENANT_SHED = _reg.counter(
+    "distlr_tenant_shed_total",
+    "request lines shed by a tenant's token-bucket admission quota "
+    "(distinct from distlr_route_shed_total capacity sheds: quota = "
+    "'this tenant is over budget', capacity = 'scale the tier up')",
+    labelnames=("model",),
+)
+_TENANT_MODELS = _reg.gauge(
+    "distlr_tenant_models",
+    "model versions currently registered in this routing tier",
+)
+_SHADOW_TOTAL = _reg.counter(
+    "distlr_tenant_shadow_total",
+    "requests mirrored to a candidate model version, by outcome "
+    "(scored / error / dropped — dropped means the bounded mirror "
+    "queue was full, the primary reply is NEVER delayed)",
+    labelnames=("tenant", "candidate", "outcome"),
+)
+_SHADOW_PSI = _reg.gauge(
+    "distlr_tenant_shadow_psi",
+    "population stability index between a tenant's primary score "
+    "distribution and its shadow candidate's, per completed comparison "
+    "block (the promote/rollback evidence a canary ramp reads)",
+    labelnames=("tenant", "candidate"),
+)
 
 
 def parse_model_spec(spec) -> dict[str, list[str]]:
@@ -172,7 +206,7 @@ def extract_scores(reply: str) -> list[float] | None:
 class _ShadowPair:
     """One (tenant, candidate) pair's score histograms and block PSI."""
 
-    def __init__(self, *, block: int, bins: int):
+    def __init__(self, tenant: str, candidate: str, *, block: int, bins: int):
         self.block = block
         self.bins = bins
         self.primary = np.zeros(bins, np.int64)
@@ -180,6 +214,7 @@ class _ShadowPair:
         self.pairs = 0
         self.blocks = 0
         self.psi_last: float | None = None
+        self._gauge = _SHADOW_PSI.labels(tenant=tenant, candidate=candidate)
 
     def observe(self, primary: list[float], cand: list[float]) -> None:
         n = min(len(primary), len(cand))
@@ -190,6 +225,7 @@ class _ShadowPair:
         self.pairs += n
         if self.pairs >= self.block:
             self.psi_last = psi(self.primary, self.candidate)
+            self._gauge.set(self.psi_last)
             self.blocks += 1
             self.primary[:] = 0
             self.candidate[:] = 0
@@ -237,6 +273,8 @@ class ShadowMirror:
         with self._lock:
             if len(self._queue) >= self._queue_max:
                 self.dropped += 1
+                _SHADOW_TOTAL.labels(tenant=tenant, candidate=candidate,
+                                     outcome="dropped").inc()
                 return False
             self._queue.append((tenant, candidate, line, primary_scores))
             self.submitted += 1
@@ -257,6 +295,9 @@ class ShadowMirror:
                     # submitted = mirrored + errors + dropped + queued holds
                     with self._lock:
                         self.dropped += len(batch) - i
+                    for tnt, cand_id, _line, _primary in batch[i:]:
+                        _SHADOW_TOTAL.labels(tenant=tnt, candidate=cand_id,
+                                             outcome="dropped").inc()
                     return
                 try:
                     reply = self._exchange(candidate, line)
@@ -266,18 +307,22 @@ class ShadowMirror:
                 if cand is None:
                     with self._lock:
                         self.errors += 1
+                    _SHADOW_TOTAL.labels(tenant=tenant, candidate=candidate,
+                                         outcome="error").inc()
                     continue
                 # inserted under the lock: stats() iterates the pairs under it
                 with self._lock:
                     pair = self._pairs.get((tenant, candidate))
                     if pair is None:
                         pair = self._pairs[(tenant, candidate)] = _ShadowPair(
-                            block=self.block, bins=self.bins)
+                            tenant, candidate, block=self.block, bins=self.bins)
                 pair.observe(primary, cand)
                 # counted once observed, so drain() returns only after the
                 # last pair reached its PSI block
                 with self._lock:
                     self.mirrored += 1
+                _SHADOW_TOTAL.labels(tenant=tenant, candidate=candidate,
+                                     outcome="scored").inc()
 
     def drain(self, timeout_s: float = 5.0) -> None:
         """Block until every submitted mirror was processed, not only
@@ -306,3 +351,16 @@ class ShadowMirror:
         self._stop.set()
         self._wake.set()
         self._thread.join(timeout=5.0)
+
+
+def set_model_count(n: int) -> None:
+    """Publish the routing tier's registered-model count."""
+    _TENANT_MODELS.set(float(n))
+
+
+def count_request(model: str) -> None:
+    _TENANT_REQUESTS.labels(model=model).inc()
+
+
+def count_tenant_shed(model: str) -> None:
+    _TENANT_SHED.labels(model=model).inc()

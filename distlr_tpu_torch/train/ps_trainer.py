@@ -58,9 +58,19 @@ faults SIGKILL server ranks).
 
 The workers route by the hosts they are given, as the JAX package's do:
 a live resize (:mod:`distlr_tpu_torch.ps.membership`) is followed by the
-clients built with a ``route`` (serving, the online trainer).  Not
-ported yet: the staleness histograms, trace spans and profiler hooks
-(ROADMAP A.12).
+clients built with a ``route`` (serving, the online trainer).
+
+Observability, as the JAX package's: each worker's step timer feeds the
+``distlr_train_*{loop="ps"}`` series, its rounds open the tracer's
+``data_load`` / ``pull`` / ``compute`` / ``push`` / ``barrier_wait`` /
+``eval`` / ``checkpoint`` phases (``compute`` holds the card's time: a
+gradient ends in its read-back), async workers set
+``distlr_train_staleness_seconds{rank}`` and sample the group's push
+clock into the ``distlr_train_staleness_pushes{rank}`` histogram, and
+rank 0 runs under ``torch.profiler`` with ``profile_dir``.  The steps'
+signatures feed ``distlr_jax_compiles_total`` at JAX's sites
+(``train.ps.grad``, ``train.ps.eval``).  Not the distributed trace of a
+step (JAX's ``_StepTrace``; ROADMAP A.25).
 """
 
 from __future__ import annotations
@@ -80,6 +90,9 @@ from distlr_tpu_torch.config import Config
 from distlr_tpu_torch.data.iterator import BlockedDataIter, DataIter, SparseDataIter
 from distlr_tpu_torch.data.sharding import part_name
 from distlr_tpu_torch.models import get_model
+from distlr_tpu_torch.obs import torchrt
+from distlr_tpu_torch.obs.registry import COUNT_BUCKETS, get_registry
+from distlr_tpu_torch.obs.tracing import trace_phase
 from distlr_tpu_torch.ps import KVWorker, RetryPolicy, ServerGroup, ServerSupervisor
 from distlr_tpu_torch.ps.server import STORE_EVENTS
 from distlr_tpu_torch.train.checkpoint import Checkpointer
@@ -91,6 +104,52 @@ from distlr_tpu_torch.utils.logging import get_logger, log_eval_line
 log = get_logger(__name__)
 
 _KEYED_MODELS = ("sparse_lr", "sparse_softmax", "blocked_lr")
+
+#: Gradient staleness, measured as WEIGHT AGE: seconds between pulling
+#: the weights a gradient was computed from and that gradient landing on
+#: the servers.  In sync BSP this is just the round latency; in async
+#: (Hogwild) it is the real staleness bound the convergence analyses
+#: (arXiv:1508.05711) reason about.
+_STALENESS = get_registry().gauge(
+    "distlr_train_staleness_seconds",
+    "age of the weights behind the most recent gradient push",
+    labelnames=("rank",),
+)
+#: The same staleness in the unit the Hogwild analyses bound (updates):
+#: the group's global push clock (:meth:`KVWorker.global_pushes`) sampled
+#: after the pull and again just before the push.  Sampling is throttled
+#: (one probed pair per _PUSHES_SAMPLE_INTERVAL_S per worker).
+_STALENESS_PUSHES = get_registry().histogram(
+    "distlr_train_staleness_pushes",
+    "Hogwild gradient staleness in pushes-behind: peer updates applied "
+    "between this worker's pull and its push",
+    labelnames=("rank",),
+    buckets=COUNT_BUCKETS,
+)
+#: Min seconds between probed pull/push clock pairs per worker.
+_PUSHES_SAMPLE_INTERVAL_S = 0.05
+#: Cooldown before rebuilding a failed push-clock probe connection (a
+#: transient fault must not silence the staleness series for good).
+_PROBE_RETRY_COOLDOWN_S = 5.0
+_RESTARTS = get_registry().counter(
+    "distlr_ps_worker_restarts_total",
+    "PS workers rebuilt in place after a failure (max_restarts path)",
+)
+#: Current AdaBatch span of each PS worker (batches per push).
+_ACCUM_K = get_registry().gauge(
+    "distlr_train_accum_batches",
+    "current AdaBatch accumulation span of the PS worker loop "
+    "(batches per push)",
+    labelnames=("rank",),
+)
+#: the signatures of the dense steps, shared by the workers of a process
+#: as the JAX package shares one jitted step per (model, L2) (and the
+#: eval per model)
+_GRAD_SIGS: dict = {}
+_EVAL_SIGS: dict = {}
+#: the tracer's phase of each timed op (``PSWorker._timed``)
+_OP_PHASES = {"pull": "pull", "push": "push", "push_pull": "push", "grad": "compute",
+              "prep": "data_load", "checkpoint": "checkpoint"}
 
 
 def ps_param_dim(cfg: Config) -> int:
@@ -503,7 +562,29 @@ class PSWorker:
         self.rendezvous_s: float | None = None
         self._reaper: threading.Thread | None = None
         self.metrics = MetricsLogger()
-        self.timer = StepTimer()
+        # registry-backed step accounting: the "ps" counters add up over
+        # the process's worker threads, each worker's rate gauge is its own
+        self.timer = StepTimer(loop="ps", instance=str(rank))
+        # pushes-behind staleness probing (async only): a second client on
+        # the group, built lazily, reading its push clock
+        self._hosts = hosts
+        self._push_probe: KVWorker | None = None
+        self._push_probe_dead = cfg.sync_mode  # sync BSP: staleness is 0
+        self._probe_retry_at = 0.0  # monotonic; rebuild cooldown gate
+        self._last_pushes_sample = float("-inf")
+        self._staleness_pushes = _STALENESS_PUSHES.labels(rank=str(rank))
+        self._w_time = 0.0  # when _w_cache was pulled (staleness gauge)
+        self._w_pushes: float | None = None  # push clock at _w_cache's arrival
+        # runtime introspection (obs.torchrt): the dense steps' signatures,
+        # ticked at each epoch's end (the keyed families' torch and numpy
+        # gradients have no probe, as their host math has none in JAX)
+        self._compile_probes = []
+        if cfg.model not in ("sparse_lr", "blocked_lr"):
+            grad_key = (self.model, cfg.l2_c, bool(cfg.l2_scale_by_batch))
+            self._grad_sigs = _GRAD_SIGS.setdefault(grad_key, torchrt.SignatureCache())
+            self._eval_sigs = _EVAL_SIGS.setdefault(self.model, torchrt.SignatureCache())
+            self._compile_probes = [torchrt.CompileProbe(self._grad_sigs, "train.ps.grad"),
+                                    torchrt.CompileProbe(self._eval_sigs, "train.ps.eval")]
         self.final_weights: np.ndarray | None = None
         #: the group's push clock read by rank 0 at the exit barrier
         self.group_pushes: float | None = None
@@ -529,10 +610,65 @@ class PSWorker:
                         "— see PARITY.md", cfg.model)
 
     @contextlib.contextmanager
-    def _timed(self, op: str):
-        t0 = time.perf_counter()
-        yield
-        self.op_seconds.setdefault(op, []).append(time.perf_counter() - t0)
+    def _timed(self, op: str, phase: str | None = "op"):
+        """Time ``op`` into :attr:`op_seconds`, under the tracer's phase of
+        that op (``phase=None``: no span)."""
+        phase = _OP_PHASES[op] if phase == "op" else phase
+        with trace_phase(phase) if phase else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            yield
+            self.op_seconds.setdefault(op, []).append(time.perf_counter() - t0)
+
+    # -- pushes-behind staleness probing (async/Hogwild only) -------------
+    def _sample_push_clock(self) -> float | None:
+        """The group's global push clock now, or None when throttled or
+        the probe is unavailable.  A non-None return arms one
+        :meth:`_record_pushes_behind` call at push time."""
+        now = time.perf_counter()
+        if now - self._last_pushes_sample < _PUSHES_SAMPLE_INTERVAL_S:
+            return None
+        if self._push_probe is None:
+            if self._push_probe_dead or time.monotonic() < self._probe_retry_at:
+                return None
+            try:
+                self._push_probe = KVWorker(self._hosts, ps_param_dim(self.cfg),
+                                            client_id=0xFD00 + self.rank, timeout_ms=2000,
+                                            sync_group=False)
+            except Exception:  # noqa: BLE001 — observability never stops training
+                self._probe_retry_at = time.monotonic() + _PROBE_RETRY_COOLDOWN_S
+                return None
+        try:
+            clock = self._push_probe.global_pushes()
+        except Exception:  # noqa: BLE001
+            self._drop_push_probe()
+            return None
+        self._last_pushes_sample = now
+        return clock
+
+    def _record_pushes_behind(self, pulled_clock: float | None) -> None:
+        """Observe the staleness of the gradient about to be pushed:
+        push-time clock minus ``pulled_clock`` (the pull-time sample) =
+        peer updates the weights aged by while this worker computed."""
+        if pulled_clock is None or self._push_probe is None:
+            return
+        try:
+            clock = self._push_probe.global_pushes()
+        except Exception:  # noqa: BLE001
+            self._drop_push_probe()
+            return
+        self._staleness_pushes.observe(max(0.0, clock - pulled_clock))
+
+    def _drop_push_probe(self) -> None:
+        """Close a failed probe and rebuild it after the cooldown (under a
+        fault plan a transient fault may land on its connection)."""
+        probe, self._push_probe = self._push_probe, None
+        self._probe_retry_at = time.monotonic() + _PROBE_RETRY_COOLDOWN_S
+        if probe is not None:
+            with contextlib.suppress(Exception):
+                probe.close()
+
+    def _set_staleness(self, since: float) -> None:
+        _STALENESS.labels(rank=self.rank).set(time.perf_counter() - since)
 
     def _num_classes(self):
         return self.cfg.num_classes if self.cfg.model == "softmax" else None
@@ -573,6 +709,7 @@ class PSWorker:
             return compute_g
 
         def compute_g(wf, X, y, mask):
+            self._grad_sigs.note(self._shape_params(wf), X, y, mask)
             with self._timed("grad"):
                 if dev.type != "cuda":
                     g = self.model.grad(torch.from_numpy(self._shape_params(wf)),
@@ -669,6 +806,7 @@ class PSWorker:
         K = self._num_classes()
         if dev == "numpy":
             return _np_dense_eval(self._shape_params(w), Xt, yt, mt.astype(np.float32), K)
+        self._eval_sigs.note(self._shape_params(w), Xt, yt, mt)
         if self._test_features is None:
             self._test_features = self._features(Xt, dev).to(dev)
         z = self.model.logits(torch.from_numpy(self._shape_params(w)).to(dev),
@@ -691,16 +829,23 @@ class PSWorker:
         # its peers back mid-run.
         w0 = restored if restored is not None else self.model.init(cfg).numpy().reshape(-1)
         if self.rank == 0:
-            self.kv.wait(self.kv.push_init(w0, force=resume and not rejoin))
+            with trace_phase("push"):
+                self.kv.wait(self.kv.push_init(w0, force=resume and not rejoin))
         # every rank reads the same sidecar, so all agree on the pair; a
         # rejoining worker's late vote for a released generation returns
         # at once
         self._barrier_base = 0 if attempt is None else 2 * (attempt + 1)
         self._sidecar_attempt = 0 if attempt is None else attempt
-        self.kv.barrier(self._barrier_base)
+        with trace_phase("barrier_wait"):
+            self.kv.barrier(self._barrier_base)
         self.rendezvous_s = time.perf_counter() - t0
         ckpt = Checkpointer(cfg.checkpoint_dir) if self.rank == 0 and cfg.checkpoint_dir else None
-        with ckpt if ckpt is not None else contextlib.nullcontext():
+        # rank 0's loop (the gradients' launches and the KV round trips)
+        # under torch.profiler with profile_dir, as JAX's under its trace
+        dev = ps_compute_device(cfg)
+        with (ckpt if ckpt is not None else contextlib.nullcontext()), torchrt.profiled(
+                cfg.profile_dir if self.rank == 0 else None,
+                dev if isinstance(dev, torch.device) else "cpu", "ps-rank0"):
             return self._run_epochs(start_epoch, train, test, ckpt, eval_fn=eval_fn, save=save)
 
     def _checkpoint(self, ckpt: Checkpointer, epoch: int) -> None:
@@ -716,6 +861,9 @@ class PSWorker:
         g = accum.flush_dense()
         if g is None:
             return
+        if not self.cfg.sync_mode:
+            self._set_staleness(self._w_time)
+            self._record_pushes_behind(self._w_pushes)
         with self._timed("push"):
             self.kv.wait(self.kv.push(g))
 
@@ -743,7 +891,8 @@ class PSWorker:
         # self-contained for eval and BSP workers stay in lockstep
         accum = self.accum = (GradientAccumulator(
             ps_param_dim(cfg), start=cfg.ps_accum_start, growth=cfg.ps_accum_growth,
-            growth_every=cfg.ps_accum_growth_every, max_k=cfg.ps_accum_max)
+            growth_every=cfg.ps_accum_growth_every, max_k=cfg.ps_accum_max,
+            gauge=_ACCUM_K.labels(rank=str(self.rank)))
             if cfg.ps_accum_max > 1 else None)
         if keyed:
             kround = self._keyed_round(dev, accum)
@@ -771,6 +920,8 @@ class PSWorker:
                     if accum.batches == 0:
                         with self._timed("pull"):
                             self._w_cache = self.kv.pull()
+                        self._w_time = time.perf_counter()
+                        self._w_pushes = None if cfg.sync_mode else self._sample_push_clock()
                     accum.add(compute_g(self._w_cache, X, y, mask))
                     if accum.ready:
                         self._flush_dense_accum(accum)
@@ -781,9 +932,14 @@ class PSWorker:
                 # trips a batch (src/lr.cc:116-132)
                 for X, y, mask in train:
                     self.timer.start()
+                    t_pull = time.perf_counter()
                     with self._timed("pull"):
                         w = self.kv.pull()
+                    p0 = None if cfg.sync_mode else self._sample_push_clock()
                     g = compute_g(w, X, y, mask)
+                    if not cfg.sync_mode:
+                        self._set_staleness(t_pull)
+                        self._record_pushes_behind(p0)
                     with self._timed("push"):
                         self.kv.wait(self.kv.push(g))
                     self.timer.stop(int(mask.sum()))
@@ -806,19 +962,31 @@ class PSWorker:
                 if self._w_cache is None:
                     with self._timed("pull"):
                         self._w_cache = self.kv.pull()
+                    self._w_time = time.perf_counter()
+                    self._w_pushes = self._sample_push_clock()
                 fut = None
                 for X, y, mask in train:
                     self.timer.start()
                     g = compute_g(self._w_cache, X, y, mask)
+                    # g rides the weights of _w_time; the pushes-behind twin
+                    # is the clock now against the clock at their arrival
+                    self._set_staleness(self._w_time)
+                    self._record_pushes_behind(self._w_pushes)
                     if fut is not None:
-                        self._w_cache = fut.result()
+                        self._await_push_pull(fut)
                     fut = self._comm_pool().submit(self._timed_push_pull, g)
                     self.timer.stop(int(mask.sum()))
                 if fut is not None:
-                    self._w_cache = fut.result()
+                    self._await_push_pull(fut)
+            # runtime introspection (obs.torchrt): this epoch's new step
+            # signatures, and the throttled device-bytes gauges
+            for probe in self._compile_probes:
+                probe.tick()
+            torchrt.maybe_sample_device_bytes()
             if (self.rank == 0 and test is not None and cfg.test_interval > 0
                     and (epoch + 1) % cfg.test_interval == 0):
-                acc, test_ll = self._evaluate(test, dev)
+                with trace_phase("eval"):
+                    acc, test_ll = self._evaluate(test, dev)
                 self.metrics.log(epoch=epoch + 1, accuracy=acc, test_logloss=test_ll,
                                  samples_per_sec=self.timer.samples_per_sec)
                 if eval_fn is not None:
@@ -842,7 +1010,8 @@ class PSWorker:
         # exit barrier (the startup generation + 1) so no server retires
         # while a peer still trains, then rank 0 reads the push clock and
         # retires the group
-        self.kv.barrier(self._barrier_base + 1)
+        with trace_phase("barrier_wait"):
+            self.kv.barrier(self._barrier_base + 1)
         if self.rank == 0:
             self.group_pushes = self.kv.global_pushes()
             self.kv.shutdown_servers()
@@ -872,9 +1041,14 @@ class PSWorker:
                 keys = (_expand_block_keys(ub, row_width) if row_width > 1 and vpk == 1
                         else ub.astype(np.uint64))
             self.keyed_rows.append(int(keys.size))
+            t_pull = time.perf_counter()
             with self._timed("pull"):
                 w_u = self.kv.pull(keys, vals_per_key=vpk)
+            p0 = None if cfg.sync_mode else self._sample_push_clock()
             g = kgrad(w_u, (pos.reshape(ids.shape), *b[1:]))
+            if not cfg.sync_mode:
+                self._set_staleness(t_pull)
+                self._record_pushes_behind(p0)
             if accum is None:
                 with self._timed("push"):
                     self.kv.wait(self.kv.push(g, keys, vals_per_key=vpk))
@@ -894,8 +1068,17 @@ class PSWorker:
         return self._comm
 
     def _timed_push_pull(self, g: np.ndarray) -> np.ndarray:
-        with self._timed("push_pull"):
+        # the worker's wait for the reply is the trace's push phase
+        with self._timed("push_pull", phase=None):
             return self.kv.push_pull(g)
+
+    def _await_push_pull(self, fut) -> None:
+        """The pipelined round's reply: the next weights, when they came,
+        and the push clock then."""
+        with trace_phase("push"):
+            self._w_cache = fut.result()
+        self._w_time = time.perf_counter()
+        self._w_pushes = self._sample_push_clock()
 
     def report(self) -> dict:
         """Per-worker timing: steps, ``round_ms`` (host clock, a batch
@@ -949,6 +1132,7 @@ class PSWorker:
         ``wait=False`` (the failure path) returns at once and leaves that
         wait, then the close, to a reaper thread, so a restart never
         blocks behind an op to a dead server for ``ps_timeout_ms``."""
+        self._drop_push_probe()
         if self._reaper is not None:
             self._reaper.join()  # it closes the client
             return
@@ -1020,6 +1204,7 @@ def run_ps_workers(cfg: Config, hosts: str, ranks, *, eval_fn=None, save: bool =
                     if cfg.sync_mode or attempts > max_restarts:
                         fail(e)
                         return
+                    _RESTARTS.inc()
                     log.warning("worker %d failed (%s); restart %d/%d",
                                 worker.rank, e, attempts, max_restarts)
                 # a short reconnect window: after a server death a

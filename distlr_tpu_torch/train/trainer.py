@@ -37,6 +37,8 @@ from distlr_tpu_torch.data.hashing import (
 from distlr_tpu_torch.data.libsvm import parse_libsvm_file
 from distlr_tpu_torch.data.sharding import part_name
 from distlr_tpu_torch.models import get_model
+from distlr_tpu_torch.obs import torchrt
+from distlr_tpu_torch.obs.tracing import trace_phase
 from distlr_tpu_torch.parallel import make_eval_step, make_sync_train_step
 from distlr_tpu_torch.parallel.feature_parallel import column_blocks as column_blocks_of
 from distlr_tpu_torch.parallel.feature_parallel import (
@@ -392,6 +394,17 @@ class Trainer:
         else:
             self.train_step = make_sync_train_step(self.model, self.cfg, self.mesh)
             self.eval_step = make_eval_step(self.model, self.mesh)
+        # runtime introspection (obs.torchrt): the signatures each step
+        # runs at, ticked per epoch in fit() — a re-build (load-time
+        # quantization) starts them afresh, as a re-jit does in JAX
+        self._step_sigs = torchrt.SignatureCache()
+        self._eval_sigs = torchrt.SignatureCache()
+        self._compile_probes = [torchrt.CompileProbe(self._step_sigs, "train.sync.step"),
+                                torchrt.CompileProbe(self._eval_sigs, "train.sync.eval")]
+
+    def _eval(self, batch) -> dict:
+        self._eval_sigs.note(self.weights, batch)
+        return self.eval_step(self.weights, batch)
 
     @property
     def _column_blocks(self) -> int:
@@ -572,12 +585,26 @@ class Trainer:
         if self.weights is None:
             self.init_weights()
         epochs = cfg.num_iteration if epochs is None else epochs
-        self._run_epochs(start_epoch, epochs, eval_fn, ckpt)
-        if ckpt is not None and epochs > start_epoch:
-            self._save_checkpoint(ckpt, epochs, unless_saved=True)
+        # torch.profiler around the epochs (cfg.profile_dir), exported
+        # also when a step raises
+        with torchrt.profiled(cfg.profile_dir, self.device, "fit"):
+            self._run_epochs(start_epoch, epochs, eval_fn, ckpt)
+            if ckpt is not None and epochs > start_epoch:
+                with trace_phase("checkpoint"):
+                    self._save_checkpoint(ckpt, epochs, unless_saved=True)
         return self.weights
 
+    def _h2d_traced(self, host_batch):
+        with trace_phase("h2d"):
+            return self._h2d_async(host_batch)
+
     def _run_epochs(self, start_epoch: int, epochs: int, eval_fn, ckpt) -> None:
+        """The epochs, under the JAX trainer's phase spans: ``h2d`` (the
+        copy's enqueue, on the prefetch thread when ``prefetch > 1``: host
+        time only), ``data_load`` (this thread's wait for the next batch),
+        ``compute`` (the step and the wait for the card: device time),
+        ``eval`` (the forward and the read-back of its metrics: device
+        time) and ``checkpoint``."""
         cfg = self.cfg
         test_batch = None
         if self._test_data is not None:
@@ -588,21 +615,30 @@ class Trainer:
                 cfg.batch_size, wrap=bool(cfg.wrap_final_batch),
                 column_blocks=self._column_blocks, pin_memory=self._copy_stream is not None)
             if cfg.prefetch > 1:
-                pairs = _prefetch(self._h2d_async, host_iter, cfg.prefetch - 1)
+                pairs = _prefetch(self._h2d_traced, host_iter, cfg.prefetch - 1)
             else:  # prefetch=1: the strictly-serial reference shape
-                pairs = ((hb, self._h2d_async(hb)) for hb in host_iter)
+                pairs = ((hb, self._h2d_traced(hb)) for hb in host_iter)
             # closing() stops the producer thread deterministically when a
             # step raises
             with contextlib.closing(pairs):
-                for host_batch, item in pairs:
+                it = iter(pairs)
+                while True:
+                    with trace_phase("data_load"):
+                        pair = next(it, None)
+                    if pair is None:
+                        break
+                    host_batch, item = pair
                     batch = self._await(item)
                     self.timer.start()
-                    self.weights, step_metrics = self.train_step(self.weights, batch)
-                    self._sync()
+                    with trace_phase("compute"):
+                        self._step_sigs.note(self.weights, batch)
+                        self.weights, step_metrics = self.train_step(self.weights, batch)
+                        self._sync()
                     self.timer.stop(int(host_batch[-1].sum()))
             if test_batch is not None and cfg.test_interval > 0 and (epoch + 1) % cfg.test_interval == 0:
-                em = self.eval_step(self.weights, test_batch)
-                acc = float(em["accuracy"])
+                with trace_phase("eval"):
+                    em = self._eval(test_batch)
+                    acc = float(em["accuracy"])
                 self.metrics.log(
                     epoch=epoch + 1,
                     accuracy=acc,
@@ -616,15 +652,22 @@ class Trainer:
                     log_eval_line(epoch + 1, acc)
             if ckpt is not None and cfg.checkpoint_interval > 0 and (
                     epoch + 1) % cfg.checkpoint_interval == 0:
-                self._save_checkpoint(ckpt, epoch + 1)
+                with trace_phase("checkpoint"):
+                    self._save_checkpoint(ckpt, epoch + 1)
+            # runtime introspection (obs.torchrt): epoch-end signature
+            # deltas and the throttled device-bytes gauges
+            for probe in self._compile_probes:
+                probe.tick()
+            torchrt.maybe_sample_device_bytes()
 
     def evaluate(self) -> float:
         return self.evaluate_metrics()["accuracy"]
 
     def evaluate_metrics(self) -> dict:
         """Full-test-set ``{"accuracy", "logloss"}`` as Python floats."""
-        em = self.eval_step(self.weights, self._test_batch())
-        return {k: float(v) for k, v in em.items()}
+        with trace_phase("eval"):
+            em = self._eval(self._test_batch())
+            return {k: float(v) for k, v in em.items()}
 
     def _test_batch(self) -> tuple[torch.Tensor, ...]:
         return self._put(self._test_data.full_batch(column_blocks=self._column_blocks))

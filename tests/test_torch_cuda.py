@@ -1138,3 +1138,83 @@ def test_asan_group_of_card_gradients_equals_a_standard_group(cuda, tmp_path, mo
     plain, _ = run("")
     assert asan_codes == [0, 0] and glob.glob(log_base + "*") == []
     assert asan[0].tobytes() == asan[1].tobytes() == plain[0].tobytes()
+
+
+# --- observability on the card (the obs registry, torch.profiler) -----------
+def test_device_bytes_gauge_reads_the_cards_allocator(cuda):
+    from distlr_tpu_torch.obs import get_registry, torchrt  # noqa: PLC0415
+
+    held = torch.zeros(1 << 20, device=cuda)  # 4 MiB on the card
+    torch.cuda.synchronize()
+    total = torchrt.sample_device_bytes()
+    assert total == torch.cuda.memory_allocated() >= held.numel() * 4
+    assert get_registry().get("distlr_jax_device_buffer_bytes").value == total
+    live = get_registry().get("distlr_jax_live_buffers").value
+    assert live == torch.cuda.memory_stats()["active.all.current"] >= 1
+
+
+def test_profile_dir_trace_names_both_hand_kernels(cuda, tmp_path):
+    """``Config.profile_dir`` on the card: the Chrome trace of ``fit``
+    names the gradient's single pass and the eval's streaming forward."""
+    import json  # noqa: PLC0415
+
+    gen = torch.Generator().manual_seed(1)
+    X = torch.randn(512, 4096, generator=gen).numpy()
+    y = (torch.rand(512, generator=gen) < 0.5).to(torch.int32).numpy()
+    data = lambda: GlobalShardedData([(X, y)])  # noqa: E731
+    cfg = Config(num_feature_dim=4096, num_iteration=2, batch_size=-1, test_interval=1,
+                 feature_dtype="bfloat16", compute_dtype="bfloat16",
+                 profile_dir=str(tmp_path / "prof"))
+    Trainer(cfg).load_data(train=data(), test=data()).fit(eval_fn=lambda *_: None)
+    (trace,) = (tmp_path / "prof").glob("fit-*.pt.trace.json")
+    names = " ".join(str(e.get("name")) for e in json.loads(trace.read_text())["traceEvents"])
+    assert "lr_grad_single_pass_kernel" in names and "lr_logits_streaming_kernel" in names
+
+
+def test_metrics_scrape_during_a_serving_burst(cuda):
+    """Scrapes of ``/metrics`` while eight clients score on the card: every
+    scrape parses, and the listener's request series ends at the burst's
+    count, equal to the server's STATS."""
+    import json  # noqa: PLC0415
+    import threading  # noqa: PLC0415
+    import urllib.request  # noqa: PLC0415
+
+    from distlr_tpu_torch.obs import get_registry, start_metrics_server  # noqa: PLC0415
+    from distlr_tpu_torch.serve import (  # noqa: PLC0415
+        ScoringEngine,
+        ScoringServer,
+        score_lines_over_tcp,
+    )
+
+    D = 100_000
+    eng = ScoringEngine(Config(num_feature_dim=D, l2_c=0.0), _serve_weights(D))
+    lines = [f"{i % D + 1}:1 {(7 * i) % D + 1}:1" for i in range(64)]
+    with ScoringServer(eng, port=0) as srv, start_metrics_server(port=0) as ms:
+        listener = f"{srv.host}:{srv.port}"
+        fam = get_registry().get("distlr_serve_requests_total")
+        base = fam.labels(listener=listener).value
+        errors, scrapes = [], []
+
+        def client():
+            try:
+                for _ in range(4):
+                    score_lines_over_tcp(srv.host, srv.port, lines)
+            except Exception as e:  # noqa: BLE001 — surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client) for _ in range(8)]
+        for t in threads:
+            t.start()
+        while any(t.is_alive() for t in threads):
+            text = urllib.request.urlopen(f"http://127.0.0.1:{ms.port}/metrics",
+                                          timeout=10).read().decode()
+            scrapes.append(text.count("\n"))
+        for t in threads:
+            t.join(60)
+        doc = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{ms.port}/metrics.json",
+                                                timeout=10).read())
+        stats = srv.stats()
+    assert not errors and scrapes
+    assert fam.labels(listener=listener).value - base == 8 * 4 * 64 == stats["requests"]
+    assert [s["value"] for s in doc["distlr_serve_requests_total"]["series"]
+            if s["labels"] == {"listener": listener}] == [8 * 4 * 64]

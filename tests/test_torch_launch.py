@@ -85,10 +85,10 @@ class TestCLI:
         assert not os.path.exists(os.path.join(d, "models", "part-001"))
 
     def test_unported_option_names_its_roadmap_item(self, tmp_path):
-        proc = _launch("sync", "--data-dir", str(tmp_path), "--profile-dir",
-                       str(tmp_path / "prof"), "--device", "cpu", check=False)
+        proc = _launch("sync", "--data-dir", str(tmp_path), "--trace-sample", "0.5",
+                       "--device", "cpu", check=False)
         assert proc.returncode != 0
-        assert "ROADMAP A.12" in proc.stderr
+        assert "ROADMAP A.25" in proc.stderr
 
 
 class TestPSCLI:
@@ -155,7 +155,8 @@ class TestPSCLI:
         assert not os.path.exists(os.path.join(d, "models", "part-001"))
 
     @pytest.mark.parametrize("argv,item", [
-        (["--profile-dir", "prof"], "A.12"),
+        (["--obs-run-dir", "run"], "A.21"),
+        (["--trace-sample", "0.5"], "A.25"),
     ])
     def test_unported_ps_flags_name_their_roadmap_item(self, argv, item, tmp_path):
         from distlr_tpu_torch import launch
@@ -357,12 +358,11 @@ _SHARED_CASES = [(cmd, opt) for cmd in _SUBS if cmd in _JAX_SUBS
 # the ROADMAP item a flag's non-default value must name, independent of
 # the port's own tables
 _GATES = {
-    **dict.fromkeys(("--metrics-port", "--metrics-host", "--obs-run-dir", "--trace-path",
-                     "--trace-sample", "--profile-dir"), "A.12"),
-    **dict.fromkeys(("--prof-hz", "--prof-window", "--log-level", "--log-ring", "--log-dedupe",
-                     "--incident-window", "--incident-settle", "--incident-max"), "A.21"),
+    "--trace-sample": "A.25",
+    **dict.fromkeys(("--obs-run-dir", "--prof-hz", "--prof-window", "--log-level", "--log-ring",
+                     "--log-dedupe", "--incident-window", "--incident-settle",
+                     "--incident-max"), "A.21"),
 }
-_COMMAND_ITEMS = {("rollout", "--obs-run-dir"): "A.21"}
 # flags whose value must come with another flag to be valid in both packages
 _WITH = {"--accum-start": ["--accum-max", "4"],
          "--block-groups": ["--model", "blocked_lr", "--block-size", "4"],
@@ -432,7 +432,7 @@ def test_shared_flags_match_jax(cmd, opt):
     assert getattr(ours, action.dest) == getattr(theirs, action.dest)
     if cmd in _NO_CONFIG:
         return
-    item = _COMMAND_ITEMS.get((cmd, opt), _GATES.get(opt))
+    item = _GATES.get(opt)
     if item is not None:
         with pytest.raises(NotImplementedError, match=rf"\(ROADMAP {re.escape(item)}\)"):
             launch.command_config(ours)

@@ -7,6 +7,8 @@ model rounds the residual to bf16 before the backward product
 kernel does (``pallas_lr.py:76-78``).
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -136,10 +138,13 @@ class TestConvert:
 
 
 class TestConfigGates:
-    # profile_dir names its ROADMAP item; the reference's rendezvous
-    # address is accepted and resolved as in JAX (nothing reads it)
+    # the observability options (profile_dir since the port's obs layer)
+    # and the reference's rendezvous address are accepted and resolved as
+    # in JAX (nothing reads the address)
     @pytest.mark.parametrize("kw,item", [
-        ({"profile_dir": "prof"}, "A.12"),
+        ({"profile_dir": "prof"}, None),
+        ({"obs_metrics_port": 0, "obs_metrics_host": "0.0.0.0",
+          "obs_trace_path": "t.json"}, None),
         ({"ps_host": "10.0.0.1"}, None),
         ({"ps_port": 9000}, None),
     ])
@@ -152,6 +157,15 @@ class TestConfigGates:
         for ours, theirs in ((Config(device="cpu", **kw), JaxConfig(**kw)),
                              (Config.from_env(env, device="cpu"), JaxConfig.from_env(env))):
             assert (ours.ps_host, ours.ps_port) == (theirs.ps_host, theirs.ps_port)
+            for field in kw:
+                assert getattr(ours, field) == getattr(theirs, field), field
+
+    @pytest.mark.parametrize("port", [-1, 1 << 16])
+    def test_metrics_port_refused_like_jax(self, port):
+        with pytest.raises(ValueError) as theirs:
+            JaxConfig(obs_metrics_port=port)
+        with pytest.raises(ValueError, match=re.escape(str(theirs.value))):
+            Config(device="cpu", obs_metrics_port=port)
 
     # the durable store and the fault plan (ROADMAP A.16.4-A.16.5):
     # accepted, with the JAX package's values

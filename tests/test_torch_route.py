@@ -287,7 +287,7 @@ class TestRouterProtocolParity:
         assert sum(r["reinstates"] for r in our_stats["replicas"]) >= 2
         assert our_stats["shadow"]["mirrored"] == 3
 
-    def test_trace_prefix_answers_err_naming_a12(self):
+    def test_trace_prefix_answers_err_naming_a25(self):
         log: list = []
         stub = _Stub("s0", log)
         try:
@@ -298,7 +298,7 @@ class TestRouterProtocolParity:
         finally:
             stub.shutdown()
             stub.server_close()
-        assert reply.startswith("ERR NotImplementedError: ") and "ROADMAP A.12)" in reply
+        assert reply.startswith("ERR NotImplementedError: ") and "ROADMAP A.25)" in reply
         assert not good.startswith("ERR") and stats["errors"] == 1
         assert log == [("s0", "1:1")]
 

@@ -46,7 +46,7 @@ from distlr_tpu_torch.serve import (
     score_lines_over_tcp,
 )
 from distlr_tpu_torch.serve.batcher import _merge_leaves
-from distlr_tpu_torch.serve.server import LatencyHistogram, percentile_from_counts
+from distlr_tpu_torch.obs.registry import MetricsRegistry, percentile_from_counts
 from distlr_tpu_torch.train.checkpoint import Checkpointer
 from distlr_tpu_torch.train.metrics import MetricsLogger
 
@@ -509,7 +509,7 @@ class TestServerEndToEnd:
         assert not good.startswith("ERR")
         assert stats["errors"] == 2 and stats["requests"] == 1
 
-    @pytest.mark.parametrize("line,item", [("TRACE 00/00 1:1", "A.12")])
+    @pytest.mark.parametrize("line,item", [("TRACE 00/00 1:1", "A.25")])
     def test_unported_lines_answer_err_naming_their_item(self, line, item):
         ours, _ = _servers(_trained_weights(8), num_feature_dim=8)
         with ours as srv:
@@ -996,14 +996,16 @@ class TestStatsSchemaRegression:
         assert 0.0 < stats["p50_ms"] <= stats["p99_ms"] < 10_000.0
 
     def test_percentiles_equal_the_jax_registrys(self):
+        """STATS percentiles come from the port's registry histogram (the
+        request series' default buckets): the JAX registry's estimate."""
         from distlr_tpu.obs.registry import DEFAULT_BUCKETS
         from distlr_tpu.obs.registry import percentile_from_counts as jax_percentile
 
-        from distlr_tpu_torch.serve.server import LATENCY_BUCKETS
+        from distlr_tpu_torch.obs.registry import DEFAULT_BUCKETS as LATENCY_BUCKETS
 
         assert LATENCY_BUCKETS == DEFAULT_BUCKETS
         rng = np.random.default_rng(12)
-        hist = LatencyHistogram()
+        hist = MetricsRegistry().histogram("distlr_serve_request_seconds", "x")
         samples = rng.lognormal(-6, 1.5, 500)
         for v in samples:
             hist.observe(float(v))
@@ -1012,7 +1014,7 @@ class TestStatsSchemaRegression:
         for q in (0.0, 0.5, 0.9, 0.99, 1.0):
             assert hist.percentile(q) == jax_percentile(DEFAULT_BUCKETS, counts.tolist(), q)
             assert percentile_from_counts(DEFAULT_BUCKETS, counts.tolist(), q) == hist.percentile(q)
-        assert LatencyHistogram().percentile(0.5) == 0.0
+        assert MetricsRegistry().histogram("h", "x").percentile(0.5) == 0.0
 
     def test_stats_readable_after_stop(self):
         with self._server() as srv:
