@@ -90,7 +90,13 @@ numpy oracle), then the observability layer on the main path (the
 trainer at D = 1M under ``torch.profiler`` and the phase tracer, a sync PS
 run, a scored burst behind a ``/metrics`` endpoint, ``launch sync
 --metrics-port 0 --trace-path``, each check on the delta of its registry
-series, and the registry's own costs), and last the path of the on-device
+series, and the registry's own costs), then distributed tracing at D =
+1M (a sampled sync PS run whose steps, client ops and KV-server handler
+spans link up and whose weights equal the untraced run's; a routed,
+labelled and online-learned request whose one trace runs from the router
+to the FTRL server's handler span, merged by ``launch trace-agg``, with
+replies equal to the untraced session's; the KV wire at sample 0; a
+``launch flightrec`` dump; the tracer's costs), and last the path of the on-device
 generation probes: both roofline experiments
 (``distlr_tpu_torch.benchmarks.exp_gen_roofline*``) at the published
 (256, 8192) x 64 tile, in this process and as ``python -m``.  Each phase
@@ -104,6 +110,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import glob
 import io
 import json
 import math
@@ -6259,6 +6266,340 @@ def phase_obs(torch, seed: int, smi: str) -> dict:
     return out
 
 
+# the dtrace phase: distributed tracing on the main path at D = 1M; every
+# part configures the process-wide tracer and undoes it in a finally
+DTRACE_REQUESTS, DTRACE_COST_REPS = 40, 20_000
+DTRACE_FLIGHT_WAIT_S = 1.0
+DTRACE_CHAIN = ("route.request", "serve.request", "feedback.spool", "feedback.join",
+                "online.consume", "ps.push", "kv.push")
+DTRACE_SERVE_SPANS = ("serve.encode", "serve.score", "serve.batch", "serve.infer")
+
+
+def _dtrace_spans(run: str) -> dict:
+    """Every span record of a run dir's journals, by journal stem."""
+    from distlr_tpu_torch.obs import dtrace  # noqa: PLC0415
+
+    spans_dir = os.path.join(run, "spans")
+    return {name[:-len(".jsonl")]: [r for r in dtrace.read_journal(os.path.join(spans_dir, name))
+                                    if r.get("type") == "span"]
+            for name in sorted(os.listdir(spans_dir)) if name.endswith(".jsonl")}
+
+
+def _dtrace_ps(torch, seed: int, tmp: str) -> dict:
+    """``run_ps_local`` sync for PS_EPOCHS rounds at D = 1M (PS_SERVERS
+    native servers journaling their handler spans, PS_WORKERS worker
+    threads on the card) at sample 1, between two untraced runs of the
+    same config (their ``round_ms`` bracket the traced run's): every
+    ``train.step`` has its ``ps.push_pull`` child, every such op one
+    ``kvserver-<r>`` handler span a server under it, the weights are the
+    untraced runs' bit for bit, and ``fused_lr_grad`` ran once a step."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.obs import dtrace  # noqa: PLC0415
+
+    d, run = os.path.join(tmp, "ps"), os.path.join(tmp, "ps_run")
+    _ps_data(d, seed)
+    cfg = Config(data_dir=d, num_feature_dim=FULL_D, num_workers=PS_WORKERS,
+                 num_servers=PS_SERVERS, batch_size=-1, num_iteration=PS_EPOCHS,
+                 test_interval=0, learning_rate=0.2, l2_c=0.01, compute_dtype="bfloat16",
+                 ps_timeout_ms=PS_TIMEOUT_MS)
+    plain, plain_report, _, plain_s = _run_ps(torch, cfg, save=False)
+    dtrace.configure(run, "ps", 0, sample=1.0)
+    try:
+        traced, report, launches, traced_s = _run_ps(
+            torch, cfg.replace(obs_run_dir=run, trace_sample=1.0), save=False)
+        dtrace.flush()
+    finally:
+        dtrace.reset_for_tests()
+    after, after_report, _, after_s = _run_ps(torch, cfg, save=False)
+    journals = _dtrace_spans(run)
+    by_span = {r["span"]: (stem, r) for stem, recs in journals.items() for r in recs}
+    steps = [r for r in journals["ps-0"] if r["name"] == "train.step"]
+    ops_ = [r for r in journals["ps-0"] if r["name"] == "ps.push_pull"]
+    handlers = {}
+    for stem, recs in journals.items():
+        for r in recs:
+            if r["name"] == "kv.push_pull":
+                handlers.setdefault(r["parent"], []).append((stem, r["trace"]))
+    step_ids = {r["span"] for r in steps}
+    servers = [f"kvserver-{s}" for s in range(PS_SERVERS)]
+    linked = sum(1 for op in ops_ if op["parent"] in step_ids
+                 and sorted(h[0] for h in handlers.get(op["span"], [])) == servers
+                 and all(h[1] == op["trace"] for h in handlers[op["span"]]))
+    out = {"rounds": PS_EPOCHS, "workers": PS_WORKERS, "servers": PS_SERVERS,
+           "journals": {k: len(v) for k, v in journals.items()},
+           "train_steps": len(steps), "push_pull_ops": len(ops_),
+           "ops_with_step_parent_and_server_children": linked,
+           "server_spans": sum(len(v) for k, v in journals.items() if k.startswith("kvserver")),
+           "weights_bit_equal_untraced": all(np.array_equal(a, b) and np.array_equal(a, c)
+                                             for a, b, c in zip(traced, plain, after)),
+           "launches": launches, "run_s": traced_s, "untraced_run_s": [plain_s, after_s],
+           "round_ms": [report[r]["round_ms"] for r in range(PS_WORKERS)],
+           "untraced_round_ms": [[rep[r]["round_ms"] for r in range(PS_WORKERS)]
+                                 for rep in (plain_report, after_report)],
+           "orphans": sum(1 for recs in journals.values() for r in recs
+                          if r["parent"] is not None and r["parent"] not in by_span)}
+    n = PS_EPOCHS * PS_WORKERS
+    if not (len(steps) == len(ops_) == linked == n and out["weights_bit_equal_untraced"]
+            and launches["fused_lr_grad"] == n and out["orphans"] == 0):
+        raise AssertionError(f"dtrace ps: {out}")
+    return out
+
+
+def _dtrace_session(torch, eng, tmp: str, name: str, lines, *, sample=None, ftrl=None) -> dict:
+    """One session through a ``ScoringRouter`` in front of a ``ScoringServer``
+    with a ``FeedbackSink`` (``shard_records`` 1) on ``eng``: an ``ID``
+    request for each line, then a ``LABEL`` for the first; with ``ftrl``
+    (an FTRL group's hosts), an ``OnlineTrainer`` then trains on the
+    joined shard.  ``sample`` None runs it untraced, else with tracing
+    armed at that rate.  The replies, the client's request times, the
+    launches and the engine's bucket hits of the session."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.feedback import FeedbackSink, OnlineTrainer  # noqa: PLC0415
+    from distlr_tpu_torch.obs import dtrace  # noqa: PLC0415
+    from distlr_tpu_torch.serve import ScoringRouter, ScoringServer  # noqa: PLC0415
+
+    base = os.path.join(tmp, name)
+    run = os.path.join(base, "run")
+    if sample is not None:
+        dtrace.configure(run, "tier", 0, sample=sample)
+    try:
+        sink = FeedbackSink(os.path.join(base, "spool"), os.path.join(base, "shards"),
+                            window_s=60.0, shard_records=1)
+        hits0 = dict(eng.stats()["bucket_hits"])
+        ops.reset_launch_counts()
+        with ScoringServer(eng, max_wait_ms=SERVE_WAIT_MS, feedback=sink) as srv, \
+                ScoringRouter(f"{srv.host}:{srv.port}", seed=0) as router:
+            client = _OnlineClient(router.host, router.port)
+            try:
+                replies = [client.exchange(f"ID q{i} {line}") for i, line in enumerate(lines)]
+                label = client.exchange("LABEL q0 1")
+            finally:
+                client.close()
+        torch.cuda.synchronize()
+        launches = _launches(ops)
+        hits = {b: n - hits0.get(b, 0) for b, n in eng.stats()["bucket_hits"].items()}
+        sink.stop()
+        out = {"replies": replies, "label": label, "launches": launches,
+               "bucket_hits": {b: n for b, n in hits.items() if n},
+               "p50_ms": 1e3 * float(np.median(client.seconds[:len(lines)])),
+               "p99_ms": 1e3 * float(np.quantile(client.seconds[:len(lines)], 0.99)),
+               "run": run}
+        if ftrl is not None:
+            cfg = Config(num_feature_dim=FULL_D, batch_size=8, l2_c=0.0, sync_mode=False,
+                         ps_timeout_ms=PS_TIMEOUT_MS)
+            with OnlineTrainer(cfg, ftrl, os.path.join(base, "shards"), accum_start=1,
+                               poll_interval_s=0.05) as trainer:
+                out["online"] = trainer.run(max_shards=1, idle_exit_s=20.0)
+        if sample is not None:
+            dtrace.flush()
+        return out
+    finally:
+        dtrace.reset_for_tests()
+
+
+def _dtrace_serve(torch, seed: int, tmp: str) -> dict:
+    """A ``ScoringEngine`` at D = 1M (bf16, ``lr_logits``) behind a
+    ``ScoringServer`` with a ``FeedbackSink`` behind a ``ScoringRouter``:
+    the same session unconfigured, at sample 0 and at sample 1, the last
+    with an ``OnlineTrainer`` pushing the label into an FTRL
+    ``ServerGroup`` that journals its handler spans; then ``launch
+    trace-agg`` on the traced run dir in a subprocess.  The replies of the
+    three are equal byte for byte; one trace id runs from the router to
+    the KV server's handler span; ``lr_logits`` launched once a bucket hit."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.ps import ServerGroup  # noqa: PLC0415
+
+    rng = np.random.default_rng(seed + 23)
+    cols, _ = _ctr_cols(rng, DTRACE_REQUESTS, np.zeros(FULL_D, np.float32), FULL_D)
+    lines = [_features(c) for c in cols]
+    eng = _serve_engine(torch, FULL_D)
+    eng.set_weights(_serve_weights(rng, FULL_D, cols))
+    sessions = {"unconfigured": _dtrace_session(torch, eng, tmp, "unconfigured", lines),
+                "sample_0": _dtrace_session(torch, eng, tmp, "sample_0", lines, sample=0.0)}
+    run = os.path.join(tmp, "sample_1", "run")
+    with ServerGroup(PS_SERVERS, 1, FULL_D, sync=False, optimizer="ftrl",
+                     trace_journal_dir=os.path.join(run, "spans"), **ONLINE_FTRL) as group:
+        sessions["sample_1"] = _dtrace_session(torch, eng, tmp, "sample_1", lines, sample=1.0,
+                                               ftrl=group.hosts)
+        time.sleep(0.2)  # a server journals its span after its reply
+    merged = os.path.join(tmp, "merged.json")
+    proc = subprocess.run([sys.executable, "-m", "distlr_tpu_torch.launch", "trace-agg",
+                           "--obs-run-dir", run, "--out", merged], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    m = re.fullmatch(r"TRACE (\S+) journals=(\d+) spans=(\d+) traces=(\d+)", line)
+    if proc.returncode != 0 or m is None:
+        raise AssertionError(f"dtrace serve: trace-agg exited {proc.returncode}: {line!r} "
+                             f"{proc.stderr[-1500:]}")
+    with open(merged) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    tid = next(e["args"]["trace"] for e in events
+               if e["name"] == "route.request" and e["args"]["parent"] is None
+               and any(x["name"] == "feedback.join" and x["args"]["trace"] == e["args"]["trace"]
+                       for x in events))
+    in_trace = [e for e in events if e["args"]["trace"] == tid]
+    first = {}
+    for e in in_trace:
+        first.setdefault(e["name"], e)
+    chain_ok = (all(n in first for n in DTRACE_CHAIN + DTRACE_SERVE_SPANS)
+                and all(first[c]["args"]["parent"] == first[p]["args"]["span"]
+                        for p, c in zip(DTRACE_CHAIN, DTRACE_CHAIN[1:])))
+    s1 = sessions["sample_1"]
+    out = {"requests": DTRACE_REQUESTS, "trace_agg_line": line,
+           "trace_agg": {"journals": int(m.group(2)), "spans": int(m.group(3)),
+                         "traces": int(m.group(4))},
+           "one_trace": {"trace": tid, "spans": sorted(e["name"] for e in in_trace),
+                         "chain_linked": chain_ok,
+                         "kv_push_optimizer": first.get("kv.push", {}).get("args", {}).get(
+                             "optimizer")},
+           "replies_equal_across_sessions": (sessions["unconfigured"]["replies"]
+                                             == sessions["sample_0"]["replies"]
+                                             == s1["replies"]),
+           "labels": [s["label"] for s in sessions.values()],
+           "online": {k: s1["online"][k] for k in ("shards_consumed", "pushes")},
+           "p50_ms": {k: s["p50_ms"] for k, s in sessions.items()},
+           "p99_ms": {k: s["p99_ms"] for k, s in sessions.items()},
+           "launches": s1["launches"], "bucket_hits": s1["bucket_hits"]}
+    hits = sum(s1["bucket_hits"].values())
+    if not (chain_ok and out["replies_equal_across_sessions"]
+            and out["one_trace"]["kv_push_optimizer"] == "ftrl"
+            and not any(r.startswith("ERR") for r in s1["replies"])
+            and out["labels"] == ["OK joined"] * 3 and out["online"]["shards_consumed"] == 1
+            and s1["launches"]["lr_logits"] == hits >= DTRACE_REQUESTS):
+        raise AssertionError(f"dtrace serve: {out}")
+    return out
+
+
+def _dtrace_wire(tmp: str) -> dict:
+    """A dense push at D = 1M into PS_SERVERS servers: untraced, then with
+    tracing configured at sample 0 (no trace capability asked, the same
+    bytes), then at sample 1 (16 more bytes a server for the trailer)."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.obs import dtrace  # noqa: PLC0415
+    from distlr_tpu_torch.ps import KVWorker, ServerGroup  # noqa: PLC0415
+
+    g = np.full(FULL_D, 1e-3, np.float32)
+    out = {}
+    with ServerGroup(PS_SERVERS, 1, FULL_D, sync=False) as group:
+        for name, sample in (("untraced", None), ("sample_0", 0.0), ("sample_1", 1.0)):
+            if sample is not None:
+                dtrace.configure(os.path.join(tmp, f"wire_{name}"), "wire", 0, sample=sample)
+            try:
+                with KVWorker(group.hosts, FULL_D, client_id=1, sync_group=False,
+                              timeout_ms=PS_TIMEOUT_MS) as kv:
+                    kv.push_init(np.zeros(FULL_D, np.float32))
+                    with dtrace.use(dtrace.new_trace()):
+                        kv.push(g)
+                    out[name] = {"trace_active": kv.trace_active,
+                                 "push_bytes": int(kv._lib.kv_last_wire_sent(kv._h))}
+            finally:
+                dtrace.reset_for_tests()
+    plain = PS_SERVERS * 24 + FULL_D * 12
+    if not (out["untraced"] == out["sample_0"] == {"trace_active": False, "push_bytes": plain}
+            and out["sample_1"] == {"trace_active": True,
+                                    "push_bytes": plain + 16 * PS_SERVERS}):
+        raise AssertionError(f"dtrace wire: {out}")
+    return out
+
+
+def _dtrace_flightrec(tmp: str) -> dict:
+    """This process configured on a run dir at sample 0, a few unsampled
+    spans, then ``launch flightrec`` in a subprocess: the dump lands
+    within DTRACE_FLIGHT_WAIT_S of the trigger and holds those spans."""
+    from distlr_tpu_torch.obs import dtrace  # noqa: PLC0415
+
+    run = os.path.join(tmp, "flight")
+    dtrace.configure(run, "smoke", 0, sample=0.0)
+    try:
+        for i in range(8):
+            with dtrace.use(dtrace.new_trace()), dtrace.span("before.trigger", tags={"i": i}):
+                pass
+        proc = subprocess.run([sys.executable, "-m", "distlr_tpu_torch.launch", "flightrec",
+                               "--obs-run-dir", run, "--reason", "smoke"], cwd=ROOT,
+                              capture_output=True, text=True, timeout=300)
+        t_done = time.time()
+        pattern = os.path.join(run, "flightrec", "smoke-0-*.json")
+        deadline = time.monotonic() + 10
+        while not glob.glob(pattern) and time.monotonic() < deadline:
+            time.sleep(0.02)
+        dumps = glob.glob(pattern)
+        with open(os.path.join(run, "flightrec", "TRIGGER.json")) as f:
+            trigger = json.load(f)
+    finally:
+        dtrace.reset_for_tests()
+    doc = json.load(open(dumps[0])) if dumps else {}
+    before = [r for r in doc.get("spans", []) if r.get("name") == "before.trigger"]
+    out = {"flightrec_line": proc.stdout.strip(), "returncode": proc.returncode,
+           "dump": os.path.basename(dumps[0]) if dumps else None, "reason": doc.get("reason"),
+           "dump_after_trigger_s": doc["dumped_at"] - trigger["ts"] if dumps else None,
+           "cli_to_observed_s": time.time() - t_done, "spans_before_trigger": len(before),
+           "unsampled": all(r.get("sampled") is False for r in before)}
+    if not (proc.returncode == 0 and dumps and out["reason"] == "smoke" and len(before) == 8
+            and out["unsampled"] and out["dump_after_trigger_s"] <= DTRACE_FLIGHT_WAIT_S):
+        raise AssertionError(f"dtrace flightrec: {out}")
+    return out
+
+
+def _dtrace_costs(tmp: str) -> dict:
+    """µs a ``span()`` on this host, under a request's root: unconfigured
+    (no root: a passthrough), at sample 0 (an unsampled root: the ring) and
+    at sample 1 (the journal); the mean of DTRACE_COST_REPS."""
+    from distlr_tpu_torch.obs import dtrace  # noqa: PLC0415
+
+    out = {}
+    for name, sample in (("unconfigured", None), ("sample_0", 0.0), ("sample_1", 1.0)):
+        if sample is not None:
+            dtrace.configure(os.path.join(tmp, f"cost_{name}"), "cost", 0, sample=sample)
+        try:
+            with dtrace.use(dtrace.new_trace()):
+                t0 = time.perf_counter()
+                for _ in range(DTRACE_COST_REPS):
+                    with dtrace.span("cost"):
+                        pass
+                t = time.perf_counter() - t0
+            out[f"span_us_{name}"] = 1e6 * t / DTRACE_COST_REPS
+            dtrace.flush()
+        finally:
+            dtrace.reset_for_tests()
+    return out
+
+
+def phase_dtrace(torch, seed: int, smi: str) -> dict:
+    """Distributed tracing (:mod:`distlr_tpu_torch.obs.dtrace`) on the main
+    path at D = 1M: a sampled sync PS run (row 1, ``fused_lr_grad``), a
+    routed, labelled and online-learned request (row 1′, ``lr_logits``)
+    merged by ``launch trace-agg``, the KV wire at sample 0, the flight
+    recorder through ``launch flightrec``, and the tracer's costs.  Each
+    part undoes the process-wide configuration in a ``finally``, so the
+    phases after it see an unconfigured tracer."""
+    from distlr_tpu_torch.obs import dtrace  # noqa: PLC0415
+
+    t_phase = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="distlr-smoke-dtrace-") as tmp:
+            ps = _dtrace_ps(torch, seed, tmp)
+            serve = _dtrace_serve(torch, seed, tmp)
+            wire = _dtrace_wire(tmp)
+            flight = _dtrace_flightrec(tmp)
+            costs = _dtrace_costs(tmp)
+    finally:
+        dtrace.reset_for_tests()
+    launches = {k: ps["launches"][k] + serve["launches"][k] for k in ps["launches"]}
+    out = {"nvidia_smi": smi, "ps": ps, "serve": serve, "wire": wire, "flightrec": flight,
+           "costs": costs, "launches": launches,
+           "spans_journaled": sum(ps["journals"].values()) + serve["trace_agg"]["spans"],
+           "phase_s": time.perf_counter() - t_phase}
+    emit("dtrace", **out)
+    return out
+
+
 # model family -> (gen-data flags, sync / eval flags, the saved params'
 # shape, sync's iterations and test interval)
 CLI_FAMILIES = {
@@ -7053,7 +7394,7 @@ PHASES = ("sass", "kernels", "int8_kernels", "lr_backward", "roofline", "trainer
           "trainer_sparse_lr", "trainer_sparse_softmax", "trainer_blocked_lr",
           "trainer_softmax", "step_softmax_wide", "cli", "ps", "serve", "ps_keyed", "ps_wire",
           "ps_recovery", "ps_durable", "ps_elastic", "ps_sanitized", "serve_hot", "route",
-          "online", "obs", "roofline_experiments")
+          "online", "obs", "dtrace", "roofline_experiments")
 
 
 def _selected_phases(arg: str | None) -> set | None:
@@ -7185,6 +7526,8 @@ def main(argv=None) -> int:
             online = phase_online(torch, args.seed, smi)
         if want("obs"):
             obs = phase_obs(torch, args.seed, smi)
+        if want("dtrace"):
+            traced = phase_dtrace(torch, args.seed, smi)
         if want("roofline_experiments"):
             launches = phase_roofline_experiments(torch, smi)
         phase = "smoke_seconds"
@@ -7215,7 +7558,8 @@ def main(argv=None) -> int:
                                   ("serve_live_ps", serve["live_ps"]["launches"]),
                                   ("route", route["launches"]),
                                   ("online", online["launches"]),
-                                  ("obs", obs["launches"])):
+                                  ("obs", obs["launches"]),
+                                  ("dtrace", traced["launches"])):
             for name, n in counts.items():
                 by_path.setdefault(name, {})[path_name] = n
         for shape, t in serve["kernels_at_serve_shapes"].items():

@@ -58,6 +58,7 @@ import time
 
 from distlr_tpu_torch.chaos.plan import FaultPlan, FaultSpec
 from distlr_tpu_torch.compress import codecs
+from distlr_tpu_torch.obs import dtrace
 from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.ps import wire
 from distlr_tpu_torch.utils.logging import get_logger
@@ -828,13 +829,15 @@ class ChaosFabric:
         family.labels(**labels(key)).inc(by)
 
     def record(self, link: int, kind: str, **detail) -> None:
+        # the fault as a dtrace instant on the link's track too (journaled
+        # when this process's tracing is armed); the event log below stays
+        # wall-clock-free and byte-comparable
+        dtrace.instant(f"chaos.{kind}", tags={"link": link, **detail})
         with self._events_lock:
             if len(self._events) < _MAX_EVENTS:
                 self._events.append(
                     (link, kind) + tuple(sorted(detail.items())))
-                # the wall-clock twin of the event (the JAX package's
-                # dtrace instant on the link's track); the log above
-                # stays wall-clock-free and byte-comparable
+                # the wall-clock twin of the event
                 self.timeline.append((time.time(), link, kind, dict(detail)))
             elif not self.events_truncated:
                 self.events_truncated = True

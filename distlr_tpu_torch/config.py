@@ -13,12 +13,13 @@ and the scoring tier reads (the ``serve_*`` fields of ``launch serve``,
 hot-row reload and named engines among them, the ``feedback_*`` fields of
 the feedback loop, and the ``route_*`` fields of ``launch route``),
 and the observability fields (``profile_dir``, ``obs_metrics_port``,
-``obs_metrics_host``, ``obs_trace_path``), with the same names, defaults
+``obs_metrics_host``, ``obs_trace_path``, ``obs_run_dir``,
+``trace_sample``), with the same names, defaults
 and validations, and the same resolution of the reference-quirk gates
 Q1, Q2, Q4 and Q5 from ``compat_mode``.  :func:`_not_ported` builds the
 ``NotImplementedError`` that names the ROADMAP item of an option whose
-code is not ported yet (the launcher's fleet and tracing flags, the
-``TRACE`` line prefix), so a run never silently drops one.
+code is not ported yet (the launcher's profiler, log and incident
+flags), so a run never silently drops one.
 ``ps_host`` and ``ps_port``, the reference's
 rendezvous address, are accepted and read by nothing, as in JAX;
 :meth:`Config.from_env` reads the reference's environment variables.
@@ -198,6 +199,22 @@ class Config:
     # Write the run's phase spans as Chrome trace-event JSON here at the
     # end of the command (loadable in Perfetto / chrome://tracing).
     obs_trace_path: str | None = None
+    # Fleet run dir shared by every process of one run (os.pathsep-joined
+    # when several are given; a process writes into the first): each
+    # launched process publishes its scrape endpoint as
+    # <obs_run_dir>/endpoints/<role>-<rank>.json (a missing
+    # obs_metrics_port then defaults to 0) and arms distributed tracing
+    # (distlr_tpu_torch.obs.dtrace): sampled spans journal to
+    # <obs_run_dir>/spans/ for `launch trace-agg`, and the flight
+    # recorder dumps to <obs_run_dir>/flightrec/.  The JAX package's
+    # profiles/ and logs/ are not written yet (ROADMAP A.21).
+    obs_run_dir: str | None = None
+    # Distributed-trace sampling rate: the fraction of minted traces whose
+    # spans are journaled and propagated across the serve line protocol
+    # and the KV wire.  Tracing arms only when obs_run_dir is set; 0
+    # disables propagation and leaves the KV wire byte-identical.
+    # Unsampled traces still feed the in-memory flight-recorder ring.
+    trace_sample: float = 0.01
 
     # ---- serving (launch serve / distlr_tpu_torch.serve) ----
     # Port 0 = OS-assigned ephemeral (announced as "SERVING host:port").
@@ -339,6 +356,9 @@ class Config:
         if self.obs_metrics_port is not None and not 0 <= self.obs_metrics_port < 1 << 16:
             raise ValueError("obs_metrics_port must be None (off) or in [0, 65536), "
                              f"got {self.obs_metrics_port}")
+        if not 0.0 <= self.trace_sample <= 1.0:
+            raise ValueError(
+                f"trace_sample must be in [0, 1], got {self.trace_sample}")
         self._check_ps_wire()
         self._check_ps_store()
         if self.ps_retry_attempts < 0:

@@ -16,10 +16,12 @@ the online trainer (:mod:`distlr_tpu_torch.feedback.online`) consumes.
   emitted as a label-0 example with probability ``negative_rate``
   (``random.Random(seed)``, the JAX package's stream), else dropped.
 
-The files are the JAX package's byte for byte.  JAX also writes a
-``.trace`` sidecar for shards whose records carry a distributed trace;
-no record carries one until ROADMAP A.25, and an untraced shard has no
-sidecar in either package.  The joiner records the JAX joiner's series
+The files are the JAX package's byte for byte.  A joined record whose
+request was traced is a ``feedback.join`` span under the request's
+``feedback.spool`` span, and a shard with any traced record gets a
+``.trace`` sidecar (a JSON list of ``<tid>/<sid>`` tokens or nulls, one a
+line) written before the shard, which the online trainer reads when it
+claims the shard; an untraced shard has none.  The joiner records the JAX joiner's series
 (``distlr_feedback_joined_total``, ``_negative_sampled_total``,
 ``_join_delay_seconds``, ``_shards_written_total``, ``_pending_labels``)
 beside the attributes of :meth:`LabelJoiner.stats`.
@@ -27,6 +29,7 @@ beside the attributes of :meth:`LabelJoiner.stats`.
 
 from __future__ import annotations
 
+import json
 import os
 import random
 import re
@@ -34,6 +37,7 @@ import threading
 
 from distlr_tpu_torch.feedback import clock
 from distlr_tpu_torch.feedback.spool import FeedbackSpool, SpoolRecord, drop
+from distlr_tpu_torch.obs import dtrace
 from distlr_tpu_torch.obs.registry import get_registry
 
 _reg = get_registry()
@@ -98,8 +102,8 @@ class LabelJoiner:
         #: duplicate-label detector
         self._recent: dict[str, None] = {}
         #: pending shard lines per model (``None`` = the flat layout):
-        #: (text, rid or None)
-        self._buffers: dict[str | None, list[tuple[str, str | None]]] = {}
+        #: (text, (trace_id, span_id) or None, rid or None)
+        self._buffers: dict[str | None, list[tuple]] = {}
         # per-model shard sequence, resumed lazily after any shard an
         # earlier run left (restarting at 0 would clobber unconsumed work)
         self._seqs: dict[str | None, int] = {}
@@ -157,11 +161,20 @@ class LabelJoiner:
 
     # -- the join ----------------------------------------------------------
     def _join_locked(self, rid: str, y: int, rec: SpoolRecord, *, now: float) -> None:
-        _JOIN_DELAY.observe(max(0.0, now - rec.ts))
+        delay = max(0.0, now - rec.ts)
+        _JOIN_DELAY.observe(delay)
         self._remember_locked(rid)
         self.joined += 1
         _JOINED.inc()
-        self._emit_locked(y, rec.line, rid=rid, model=rec.model)
+        trace = rec.trace
+        if trace is not None:
+            # continue the request's trace: the join span parents under the
+            # feedback.spool span, and its ids ride the shard's sidecar
+            ctx = dtrace.TraceContext(trace[0], trace[1], True)
+            with dtrace.span("feedback.join", tags={"delay_s": round(delay, 3), "y": int(y)},
+                             ctx=ctx) as sp:
+                trace = (sp.ctx.trace_id, sp.ctx.span_id)
+        self._emit_locked(y, rec.line, trace, rid=rid, model=rec.model)
 
     def _remember_locked(self, rid: str) -> None:
         self._recent[rid] = None
@@ -171,10 +184,10 @@ class LabelJoiner:
     def _model_dir(self, model: str | None) -> str:
         return self.out_dir if model is None else os.path.join(self.out_dir, model)
 
-    def _emit_locked(self, y: int, line: str, rid: str | None = None,
-                     model: str | None = None) -> None:
+    def _emit_locked(self, y: int, line: str, trace: tuple[int, int] | None = None,
+                     rid: str | None = None, model: str | None = None) -> None:
         buf = self._buffers.setdefault(model, [])
-        buf.append((f"{int(y)} {line}", rid))
+        buf.append((f"{int(y)} {line}", trace, rid))
         if len(buf) >= self.shard_records:
             self._write_shard_locked(model)
 
@@ -188,8 +201,16 @@ class LabelJoiner:
             os.makedirs(out_dir, exist_ok=True)
             seq = self._next_shard_seq(out_dir)
         path = os.path.join(out_dir, f"shard-{seq:06d}.libsvm")
+        # the sidecar first: the rename that makes the shard claimable must
+        # find it in place (the trainer reads it when it claims the shard)
         side = f"{path}.trace"
-        if os.path.exists(side):
+        if any(tr is not None for _, tr, _r in buffer):
+            stmp = f"{side}.tmp"
+            with open(stmp, "w") as f:
+                json.dump([None if tr is None else f"{tr[0]:016x}/{tr[1]:016x}"
+                           for _, tr, _r in buffer], f)
+            os.replace(stmp, side)
+        elif os.path.exists(side):
             # an orphan of a crash between a sidecar's write and its
             # shard's: a same-numbered untraced shard must not inherit it
             try:
@@ -198,11 +219,11 @@ class LabelJoiner:
                 pass
         tmp = f"{path}.tmp"
         with open(tmp, "w") as f:
-            f.write("\n".join(text for text, _rid in buffer) + "\n")
+            f.write("\n".join(text for text, _tr, _rid in buffer) + "\n")
         os.replace(tmp, path)  # atomic: the trainer never sees a torn shard
         # tombstones after the shard is durable: a crash in between
         # replays the record, and never drops a label
-        for _text, rid in buffer:
+        for _text, _tr, rid in buffer:
             if rid is not None:
                 self.spool.mark_joined(rid)
         self._seqs[model] = seq + 1
@@ -223,7 +244,7 @@ class LabelJoiner:
                 if self.negative_rate and self._rng.random() < self.negative_rate:
                     self.negatives += 1
                     _NEGATIVE.inc()
-                    self._emit_locked(0, rec.line, model=rec.model)
+                    self._emit_locked(0, rec.line, rec.trace, model=rec.model)
                 else:
                     drop("expired")
             stale = [rid for rid, (_, ts) in self._pending.items() if ts < cutoff]

@@ -32,10 +32,17 @@ attributes.  Its client retries transport
 faults by ``RetryPolicy.from_config(cfg)``, and with a membership
 ``route`` (``launch online --ps-ctl``) follows a live resize: a reshard
 costs the trainer one re-route, never a restart.
+
+A shard's ``.trace`` sidecar (:mod:`distlr_tpu_torch.feedback.join`)
+names the traces of its records: the consume runs as an
+``online.consume`` span under the first of them, so its flush pushes
+carry that trace to the servers' handler spans, and the same interval is
+recorded under each other trace of the shard.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -44,6 +51,7 @@ import numpy as np
 
 from distlr_tpu_torch.config import Config
 from distlr_tpu_torch.feedback import clock
+from distlr_tpu_torch.obs import dtrace
 from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.utils.logging import get_logger
 
@@ -316,16 +324,56 @@ class OnlineTrainer:
             path = path[:-len(".claim")]
         return path + ".trace"
 
-    def consume_shard(self, path: str) -> int:
-        """Train over one joined shard; returns the examples consumed."""
-        from distlr_tpu_torch.data.hashing import csr_to_padded_coo  # noqa: PLC0415
-        from distlr_tpu_torch.data.libsvm import parse_libsvm_lines  # noqa: PLC0415
+    def _shard_traces(self, path: str) -> list:
+        """The distinct trace contexts of a shard's records, in order of
+        first appearance ([] for an untraced shard)."""
+        try:
+            with open(self._sidecar_path(path)) as f:
+                tokens = json.load(f)
+        except (OSError, ValueError):
+            return []
+        out, seen = [], set()
+        for tok in tokens:
+            if not tok or tok in seen:
+                continue
+            seen.add(tok)
+            try:
+                out.append(dtrace.parse_token(tok))
+            except ValueError:
+                continue
+        return out
 
+    def consume_shard(self, path: str) -> int:
+        """Train over one joined shard; returns the examples consumed.  The
+        consume is an ``online.consume`` span under the shard's first
+        trace, and is recorded again under each other one."""
         t_start = time.perf_counter()
         with open(path) as f:
             lines = [ln for ln in f.read().splitlines() if ln.strip()]
         if not lines:
             return 0
+        traces = self._shard_traces(path)
+        shard = os.path.basename(path)
+        t0_wall, t_consume = clock.wall(), clock.monotonic()
+        with dtrace.use(traces[0] if traces else None), dtrace.span(
+                "online.consume",
+                tags={"shard": shard, "records": len(lines), "worker": self.worker_id}):
+            n = self._train_lines(lines)
+        dur = clock.monotonic() - t_consume
+        for ctx in traces[1:]:
+            dtrace.record_span("online.consume", ctx, t0_wall, dur,
+                               tags={"shard": shard, "shared": True})
+        self.shards_consumed += 1
+        _SHARDS_CONSUMED.inc()
+        self.consume_s += time.perf_counter() - t_start
+        return n
+
+    def _train_lines(self, lines: list[str]) -> int:
+        """Parse a shard's lines and train on them, batch by batch, pushing
+        each time the accumulator is ready; returns the examples."""
+        from distlr_tpu_torch.data.hashing import csr_to_padded_coo  # noqa: PLC0415
+        from distlr_tpu_torch.data.libsvm import parse_libsvm_lines  # noqa: PLC0415
+
         cfg = self.cfg
         B = cfg.batch_size if cfg.batch_size > 0 else 256
         n = 0
@@ -352,9 +400,6 @@ class OnlineTrainer:
                 if self._accum.ready:
                     self._flush_push()
                 n += len(y[lo:lo + B])
-        self.shards_consumed += 1
-        _SHARDS_CONSUMED.inc()
-        self.consume_s += time.perf_counter() - t_start
         return n
 
     # -- the loop ----------------------------------------------------------

@@ -5,8 +5,9 @@ It holds the spool, the label joiner and the drift detector behind the
 two calls :class:`~distlr_tpu_torch.serve.server.ScoringServer` makes:
 
 * :meth:`FeedbackSink.scored` after a batch is scored: journal each row
-  (id, feature line, score, weights version, touched keys) and feed the
-  drift detector;
+  (id, feature line, score, weights version, touched keys, and the ids of
+  the batch's ``feedback.spool`` span when the request was traced) and
+  feed the drift detector;
 * :meth:`FeedbackSink.label` on a ``LABEL <id> <y>`` line.
 
 A daemon ticker drives the window expiry (negative sampling) and
@@ -28,6 +29,7 @@ from distlr_tpu_torch.feedback.spool import (
     per_row_keys,
     strip_label,
 )
+from distlr_tpu_torch.obs import dtrace
 
 
 class FeedbackSink:
@@ -68,17 +70,23 @@ class FeedbackSink:
         ``ids[i] = None`` gets an automatic id: such a row is never
         labelled but feeds the drift detector and the negative sampling.
         ``model``: the model id that scored the batch (its own shard
-        subdirectory); None = the flat layout.  ``trace`` is accepted and
-        ignored until the port traces requests (ROADMAP A.25)."""
+        subdirectory); None = the flat layout.  ``trace``: the scoring
+        request's sampled ``(trace_id, span_id)``; the batch is a
+        ``feedback.spool`` span under it, and each record remembers that
+        span's ids, so a label arriving later (across a restart too, by
+        the journal) continues the request's trace."""
         now = clock.wall()
         keys = per_row_keys(self.model, rows)
-        for i, line in enumerate(lines):
-            rid = ids[i] if ids is not None and ids[i] is not None \
-                else f"auto-{next(self._auto_ids)}"
-            self.joiner.scored(SpoolRecord(
-                rid=str(rid), ts=now, line=strip_label(line),
-                score=float(scores[i]), version=int(version),
-                keys=keys[i] if i < len(keys) else None, model=model))
+        ctx = dtrace.TraceContext(trace[0], trace[1], True) if trace is not None else None
+        with dtrace.span("feedback.spool", tags={"rows": len(lines)}, ctx=ctx) as sp:
+            tr = (sp.ctx.trace_id, sp.ctx.span_id) if sp is not None and sp.ctx.sampled else None
+            for i, line in enumerate(lines):
+                rid = ids[i] if ids is not None and ids[i] is not None \
+                    else f"auto-{next(self._auto_ids)}"
+                self.joiner.scored(SpoolRecord(
+                    rid=str(rid), ts=now, line=strip_label(line),
+                    score=float(scores[i]), version=int(version),
+                    keys=keys[i] if i < len(keys) else None, trace=tr, model=model))
         self.drift.observe(scores)
 
     def label(self, rid: str, y: int) -> str:

@@ -84,8 +84,9 @@ class SpoolRecord:
     version: int               # engine weights version that scored it
     #: PS row keys the request touched (importance input); None = unknown
     keys: np.ndarray | None = None
-    #: distributed-trace (trace_id, span_id); always None until the port
-    #: traces requests (ROADMAP A.25), but journaled and replayed as JAX's
+    #: distributed-trace (trace_id, span_id) of the scoring request's
+    #: feedback.spool span (the delayed-label join continues it); journaled
+    #: and replayed as JAX's, so a join after a restart continues it too
     trace: tuple[int, int] | None = None
     #: the model id that scored the request (several engines a server):
     #: the joiner writes its example into that model's shard stream;

@@ -1,13 +1,13 @@
 """Command-line entry point of the port: ``gen-data``, ``sync``, ``eval``,
 ``ps``, ``ps-server``, ``ps-ctl``, ``chaos``, ``serve``, ``online``,
-``route`` and ``rollout``.
+``route``, ``rollout``, ``trace-agg`` and ``flightrec``.
 
 Counterpart of ``distlr_tpu/launch.py``: every subcommand takes the
 option strings its JAX twin takes, with the same dests, types and
 defaults, plus ``--device`` (default ``cuda``; the CPU only when asked
 for).  A flag whose use is not ported yet is accepted at its default and
-raises ``NotImplementedError`` naming its ROADMAP item otherwise (the fleet
-flags A.21, ``--trace-sample`` A.25), so a JAX command line never
+raises ``NotImplementedError`` naming its ROADMAP item otherwise (the
+profiler, log and incident flags, A.21), so a JAX command line never
 fails at parse time and never drops a flag silently.  Run as ``python -m
 distlr_tpu_torch.launch``::
 
@@ -146,6 +146,22 @@ and promotes it (exit 0), or rolls back when an alert fires (exit 3)::
     python -m distlr_tpu_torch.launch route --replicas v1=A+B,v2=A+B --quota v2=50
     python -m distlr_tpu_torch.launch rollout --router R --tenant v1 --candidate v2 \\
         --stages 0.5:10,1.0:10 --unwatched --journal-dir J
+
+``--obs-run-dir RUN`` on every process of a fleet arms distributed tracing:
+each process journals its sampled spans (``--trace-sample``, default 0.01)
+to ``RUN/spans/<role>-<rank>.jsonl`` (a locally spawned KV server group to
+``RUN/spans/kvserver-<rank>.jsonl``), keeps a flight-recorder ring, and
+publishes its metrics endpoint as ``RUN/endpoints/<role>-<rank>.json``.
+``trace-agg`` merges the journals into one Chrome/Perfetto trace and prints
+``TRACE <out> journals=J spans=S traces=T``; ``flightrec`` makes every
+process on the run dir dump its ring to ``RUN/flightrec/`` (``FLIGHTREC
+<trigger>``).  The JAX package's ``profiles/`` and ``logs/`` are not written
+yet (ROADMAP A.21)::
+
+    python -m distlr_tpu_torch.launch ps --data-dir D --num-feature-dim 123 \\
+        --obs-run-dir RUN --trace-sample 1.0
+    python -m distlr_tpu_torch.launch trace-agg --obs-run-dir RUN --out merged.json
+    python -m distlr_tpu_torch.launch flightrec --obs-run-dir RUN
 """
 
 from __future__ import annotations
@@ -166,7 +182,7 @@ _CONFIG_FIELDS = (
     "random_seed", "prefetch", "feature_dtype", "num_workers", "device",
     "num_classes", "nnz_max", "block_size", "block_groups", "ctr_fields", "hash_seed",
     "checkpoint_dir", "checkpoint_interval", "profile_dir",
-    "obs_metrics_port", "obs_metrics_host", "obs_trace_path",
+    "obs_metrics_port", "obs_metrics_host", "obs_trace_path", "obs_run_dir", "trace_sample",
     "num_servers", "ps_compute_backend", "ps_timeout_ms", "ps_pipeline",
     "ps_optimizer", "ftrl_alpha", "ftrl_beta", "ftrl_l1", "ftrl_l2", "ps_compress",
     "ps_accum_start", "ps_accum_growth", "ps_accum_growth_every", "ps_accum_max",
@@ -181,8 +197,6 @@ _CONFIG_FIELDS = (
 #: another value, each one raises naming its item; the default is
 #: accepted, so a JAX command line with defaults runs unchanged.
 _GATED_SHARED_FLAGS = {
-    "obs_run_dir": ("--obs-run-dir", None, "A.21"),
-    "trace_sample": ("--trace-sample", 0.01, "A.25"),
     "prof_hz": ("--prof-hz", 19.0, "A.21"),
     "prof_window_s": ("--prof-window", 10.0, "A.21"),
     "log_level": ("--log-level", "info", "A.21"),
@@ -202,9 +216,7 @@ def _given(value, default) -> bool:
 
 def _refuse_gated(args: argparse.Namespace) -> None:
     """Raise naming the ROADMAP item of the first flag given whose use is
-    not ported: ``--obs-run-dir`` (the fleet rendezvous, with the
-    profiler, log and incident flags: A.21) and ``--trace-sample``
-    (distributed tracing, A.25)."""
+    not ported: the profiler, log and incident flags (A.21)."""
     cmd = getattr(args, "cmd", None)
     where = f"launch {cmd}" if cmd else "launch"
     for dest, (flag, default, item) in _GATED_SHARED_FLAGS.items():
@@ -212,20 +224,58 @@ def _refuse_gated(args: argparse.Namespace) -> None:
             raise _not_ported(f"{where} {flag}", item)
 
 
+def _obs_rank(args: argparse.Namespace) -> int:
+    """This process's fleet rank (the <rank> of its journal and endpoint
+    files): the explicit process id when given, else the lowest worker
+    rank this process runs, else 0."""
+    pid = getattr(args, "process_id", None)
+    if pid is not None:  # an explicit process id 0 counts too
+        return pid
+    ranks = getattr(args, "worker_ranks", None)
+    if ranks:
+        return min(int(s) for s in ranks.split(","))
+    return 0
+
+
 @contextlib.contextmanager
-def _obs_scope(cfg: Config):
+def _obs_scope(cfg: Config, role: str, rank: int):
     """Command-scoped observability (``distlr_tpu/launch.py``'s
-    ``_obs_scope`` without the fleet rendezvous, A.21): start the
-    /metrics endpoint when ``--metrics-port`` is set (announced as
-    ``METRICS host:port``, the scriptable contract of ``SERVING`` /
-    ``HOSTS``) and dump the phase spans as a Chrome trace at command exit
-    when ``--trace-path`` is."""
+    ``_obs_scope``): start the /metrics endpoint when ``--metrics-port``
+    is set (announced as ``METRICS host:port``, the scriptable contract of
+    ``SERVING`` / ``HOSTS``) and dump the phase spans as a Chrome trace at
+    command exit when ``--trace-path`` is.
+
+    With ``--obs-run-dir`` (its first directory) the process joins the
+    fleet as ``<role>-<rank>``: distributed tracing arms
+    (:mod:`distlr_tpu_torch.obs.dtrace` at ``--trace-sample``; spans to
+    ``spans/``, the flight recorder's trigger watched in ``flightrec/``,
+    the journal flushed at exit), and the endpoint (port 0 when no
+    ``--metrics-port`` was given) is published as
+    ``endpoints/<role>-<rank>.json`` and removed at a clean exit.  The
+    JAX package's continuous profiler and fleet log (``profiles/``,
+    ``logs/``) are ROADMAP A.21."""
     server = None
-    if cfg.obs_metrics_port is not None:
+    endpoint = None
+    run_dir = cfg.obs_run_dir.split(os.pathsep)[0] if cfg.obs_run_dir else None
+    if run_dir:
+        from distlr_tpu_torch.obs import dtrace  # noqa: PLC0415
+
+        dtrace.configure(run_dir, role, rank, sample=cfg.trace_sample)
+        log.info("--obs-run-dir %s: spans/ and endpoints/ are written; the profiles/ and "
+                 "logs/ of the JAX package's profiler and fleet log are not ported yet "
+                 "(ROADMAP A.21)", run_dir)
+    port = cfg.obs_metrics_port
+    if port is None and run_dir:
+        port = 0  # joining a fleet implies a scrape endpoint
+    if port is not None:
         from distlr_tpu_torch.obs import start_metrics_server  # noqa: PLC0415
 
-        server = start_metrics_server(host=cfg.obs_metrics_host, port=cfg.obs_metrics_port)
+        server = start_metrics_server(host=cfg.obs_metrics_host, port=port)
         print(f"METRICS {server.host}:{server.port}", flush=True)
+        if run_dir:
+            from distlr_tpu_torch.obs import write_endpoint  # noqa: PLC0415
+
+            endpoint = write_endpoint(run_dir, role, rank, server.host, server.port)
     try:
         yield
     finally:
@@ -234,8 +284,17 @@ def _obs_scope(cfg: Config):
 
             path = get_tracer().dump_chrome_trace(cfg.obs_trace_path)
             log.info("phase trace -> %s (load in Perfetto)", path)
+        if run_dir:
+            from distlr_tpu_torch.obs import dtrace  # noqa: PLC0415
+
+            dtrace.flush()
         if server is not None:
             server.stop()
+        if endpoint is not None:
+            # a clean exit leaves the fleet; a crash never gets here, and
+            # the file left behind is what marks the rank down
+            with contextlib.suppress(OSError):
+                os.unlink(endpoint)
 
 
 def _add_config_flags(p: argparse.ArgumentParser) -> None:
@@ -306,10 +365,17 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--trace-path", dest="obs_trace_path",
                    help="write the run's phase spans as Chrome trace-event JSON here "
                    "at exit (loads in Perfetto)")
-    # the fleet, tracing, profiler, log and incident flags: refused when
-    # given (_GATED_SHARED_FLAGS)
-    for flag, dest, typ in (("--trace-sample", "trace_sample", float),
-                            ("--prof-hz", "prof_hz", float),
+    p.add_argument("--obs-run-dir", dest="obs_run_dir", action="append",
+                   help="fleet run dir (repeatable; a process writes into the first): "
+                   "distributed-trace span journals under spans/, the flight recorder's "
+                   "dumps under flightrec/, this process's metrics endpoint under "
+                   "endpoints/ (an ephemeral --metrics-port when none is given)")
+    p.add_argument("--trace-sample", dest="trace_sample", type=float,
+                   help="distributed-trace sampling rate with --obs-run-dir (default 0.01; "
+                   "0 = nothing propagates and the KV wire is unchanged)")
+    # the profiler, log and incident flags: refused when given
+    # (_GATED_SHARED_FLAGS)
+    for flag, dest, typ in (("--prof-hz", "prof_hz", float),
                             ("--prof-window", "prof_window_s", float),
                             ("--log-ring", "log_ring", int),
                             ("--log-dedupe", "log_dedupe_s", float),
@@ -318,8 +384,6 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
                             ("--incident-max", "incident_max", int)):
         p.add_argument(flag, dest=dest, type=typ,
                        help=f"not ported yet (ROADMAP {_GATED_SHARED_FLAGS[dest][2]})")
-    p.add_argument("--obs-run-dir", dest="obs_run_dir", action="append",
-                   help="not ported yet (ROADMAP A.21)")
     p.add_argument("--log-level", dest="log_level", choices=["debug", "info", "warning", "error"],
                    help="not ported yet (ROADMAP A.21)")
     p.add_argument("--resume", action="store_true",
@@ -419,6 +483,9 @@ def _config_from_args(args: argparse.Namespace) -> Config:
     ported raises naming its ROADMAP item first."""
     _refuse_gated(args)
     over = {k: v for k, v in vars(args).items() if v is not None and k in _CONFIG_FIELDS}
+    if isinstance(over.get("obs_run_dir"), list):
+        # repeatable: the Config holds the os.pathsep-joined list
+        over["obs_run_dir"] = os.pathsep.join(over["obs_run_dir"])
     if _cpu_devices(args):
         over["device"] = "cpu"
     cfg = Config(**over)
@@ -601,7 +668,8 @@ def cmd_gen_data(args: argparse.Namespace) -> int:
 def cmd_sync(args: argparse.Namespace) -> int:
     from distlr_tpu_torch.train import Trainer  # noqa: PLC0415
 
-    with _process_group(args, _config_from_args(args)) as cfg, _obs_scope(cfg):
+    with _process_group(args, _config_from_args(args)) as cfg, \
+            _obs_scope(cfg, "sync", _obs_rank(args)):
         trainer = Trainer(cfg).load_data()
         trainer.fit(resume=args.resume)
         path = trainer.save_model()
@@ -619,7 +687,7 @@ def cmd_eval(args: argparse.Namespace) -> int:
     from distlr_tpu_torch.train.export import load_model_text  # noqa: PLC0415
 
     cfg = _config_from_args(args)
-    with _obs_scope(cfg):
+    with _obs_scope(cfg, "eval", _obs_rank(args)):
         trainer = Trainer(cfg).load_data(test_only=cfg.feature_dtype == "float32")
         w = load_model_text(args.model_file, shape=trainer.model.param_shape)
         trainer.weights = params_from_jax(w, trainer.model, trainer.device)
@@ -648,7 +716,7 @@ def cmd_ps(args: argparse.Namespace) -> int:
             return 2
         ranks = ([int(r) for r in args.worker_ranks.split(",")] if args.worker_ranks
                  else range(cfg.num_workers))
-        with _obs_scope(cfg):
+        with _obs_scope(cfg, "ps", _obs_rank(args)):
             run_ps_workers(cfg, args.hosts, ranks, save=True, resume=args.resume,
                            max_restarts=args.max_worker_restarts)
     elif args.worker_ranks:
@@ -661,7 +729,7 @@ def cmd_ps(args: argparse.Namespace) -> int:
               "--resume)", file=sys.stderr)
         return 2
     else:
-        with _obs_scope(cfg):
+        with _obs_scope(cfg, "ps", _obs_rank(args)):
             run_ps_local(cfg, save=True, resume=args.resume,
                          max_restarts=args.max_worker_restarts,
                          supervise_servers=args.supervise_servers)
@@ -684,7 +752,11 @@ def cmd_ps_server(args: argparse.Namespace) -> int:
         namespace_layout,
         parse_namespace_optimizers,
     )
-    from distlr_tpu_torch.train.ps_trainer import ps_param_dim, server_optimizer  # noqa: PLC0415
+    from distlr_tpu_torch.train.ps_trainer import (  # noqa: PLC0415
+        ps_param_dim,
+        server_optimizer,
+        trace_journal_dir,
+    )
 
     # a terminated foreground group must not orphan its servers: SIGTERM
     # becomes SystemExit, so the group's context manager stops them
@@ -727,10 +799,11 @@ def cmd_ps_server(args: argparse.Namespace) -> int:
                         ftrl_beta=cfg.ftrl_beta, ftrl_l1=cfg.ftrl_l1, ftrl_l2=cfg.ftrl_l2,
                         opt_segments=opt_segments, store_dir=cfg.ps_store_dir,
                         store_interval_s=cfg.ps_store_interval_s, store_wal=cfg.ps_store_wal,
-                        store_wal_fsync_s=cfg.ps_store_wal_fsync_s)
+                        store_wal_fsync_s=cfg.ps_store_wal_fsync_s,
+                        trace_journal_dir=trace_journal_dir(cfg))
     ctl = None
     try:
-        with _obs_scope(cfg), group:
+        with _obs_scope(cfg, "ps-server", _obs_rank(args)), group:
             # workers pass this, with this host's address for 127.0.0.1, as --hosts
             print(f"HOSTS {group.hosts}", flush=True)
             if layout is not None:
@@ -845,7 +918,7 @@ def cmd_chaos(args: argparse.Namespace) -> int:
         return 2
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     try:
-        with _obs_scope(cfg), fabric:
+        with _obs_scope(cfg, "chaos", _obs_rank(args)), fabric:
             print(f"HOSTS {fabric.hosts}", flush=True)
             for lk in fabric.links:
                 log.info("chaos link %d: 127.0.0.1:%d -> %s:%d", lk.link, lk.port,
@@ -1026,7 +1099,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
                            max_wait_ms=cfg.serve_max_wait_ms, reloader=reloader,
                            extra_reloaders=extra_reloaders, hot_tracker=hot_tracker,
                            feedback=feedback)
-    with _obs_scope(cfg):
+    with _obs_scope(cfg, "serve", _obs_rank(args)):
         # the scriptable readiness line
         print(f"SERVING {server.host}:{server.port}", flush=True)
         server.serve_forever()
@@ -1072,7 +1145,7 @@ def cmd_online(args: argparse.Namespace) -> int:
         return 2
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
-    with _obs_scope(cfg):
+    with _obs_scope(cfg, "online", _obs_rank(args)):
         trainer = OnlineTrainer(
             cfg, args.hosts, args.shard_dir, accum_start=cfg.ps_accum_start,
             accum_growth=cfg.ps_accum_growth, accum_growth_every=cfg.ps_accum_growth_every,
@@ -1118,7 +1191,7 @@ def cmd_route(args: argparse.Namespace) -> int:
         # config and replica-list errors: the argparse-style exit, no traceback
         print(f"error: {e}", file=sys.stderr)
         return 2
-    with _obs_scope(cfg):
+    with _obs_scope(cfg, "route", _obs_rank(args)):
         # the scriptable readiness line
         print(f"ROUTING {router.host}:{router.port}", flush=True)
         router.serve_forever()
@@ -1163,7 +1236,7 @@ def cmd_rollout(args: argparse.Namespace) -> int:
               "--obs-run-dir with a running obs-agg, or --unwatched to "
               "ramp on the timer alone (rollback becomes manual)", file=sys.stderr)
         return 2
-    with _obs_scope(cfg):
+    with _obs_scope(cfg, "rollout", _obs_rank(args)):
         ctrl = RolloutController(RouterAdmin(host, int(port)), args.tenant, args.candidate, stages,
                                  alert_poll=poller, poll_interval_s=args.poll_interval,
                                  shadow_fraction=args.shadow, settle_s=args.settle,
@@ -1176,6 +1249,56 @@ def cmd_rollout(args: argparse.Namespace) -> int:
         # the scriptable outcome line
         print(f"ROLLOUT {json.dumps(outcome)}", flush=True)
     return {"promoted": 0, "rolled_back": 3}.get(outcome["outcome"], 4)
+
+
+def cmd_trace_agg(args: argparse.Namespace) -> int:
+    """Merge every rank's span journal (``<run_dir>/spans/*.jsonl``: the
+    Python processes' and the native KV servers', one schema) into one
+    Chrome/Perfetto trace-event file, a process track a journal, the
+    server journals shifted onto their clients' clocks by the kHello clock
+    probes, and the chaos proxy's fault instants on their tracks.  Needs
+    no card."""
+    from distlr_tpu_torch.obs import dtrace  # noqa: PLC0415
+
+    cfg = _config_from_args(args)
+    if not cfg.obs_run_dir:
+        print("error: trace-agg needs --obs-run-dir (the run dir whose "
+              "spans/ journals to merge; repeatable)", file=sys.stderr)
+        return 2
+    run_dirs = cfg.obs_run_dir.split(os.pathsep)
+    doc = dtrace.write_merged_trace(run_dirs, args.out)
+    meta = doc["otherData"]
+    if not meta["journals"]:
+        print(f"error: no span journals under "
+              f"{', '.join(os.path.join(d, 'spans') for d in run_dirs)} — "
+              "did the fleet run with --obs-run-dir and a non-zero "
+              "--trace-sample?", file=sys.stderr)
+        return 1
+    # the scriptable contract, as METRICS / SERVING / HOSTS
+    print(f"TRACE {args.out} journals={len(meta['journals'])} "
+          f"spans={meta['spans']} traces={len(meta['trace_ids'])}", flush=True)
+    log.info("merged trace -> %s (load in Perfetto); journals: %s",
+             args.out, ", ".join(meta["journals"]))
+    return 0
+
+
+def cmd_flightrec(args: argparse.Namespace) -> int:
+    """Trigger a flight-recorder dump: every process configured on the run
+    dir writes its ring of recent spans and events, sampled or not, to
+    ``<run_dir>/flightrec/<role>-<rank>-<seq>.json`` within one watcher
+    poll (~0.25 s)."""
+    from distlr_tpu_torch.obs import dtrace  # noqa: PLC0415
+
+    cfg = _config_from_args(args)
+    if not cfg.obs_run_dir:
+        print("error: flightrec needs --obs-run-dir", file=sys.stderr)
+        return 2
+    for d in cfg.obs_run_dir.split(os.pathsep):
+        path = dtrace.trigger(d, alert=args.reason)
+        print(f"FLIGHTREC {path}", flush=True)
+    log.info("flight-recorder trigger dropped; processes dump within "
+             "one watcher poll")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -1473,6 +1596,22 @@ def main(argv=None) -> int:
     ro.add_argument("--journal-dir", dest="journal_dir",
                     help="journal the transitions under DIR/rollout/")
     ro.set_defaults(fn=cmd_rollout)
+
+    ta = config_parser("trace-agg", help="merge every rank's distributed-trace span journal "
+                       "(Python and native KV servers) into one Chrome/Perfetto trace with "
+                       "clock-skew alignment and chaos-fault markers")
+    ta.add_argument("--out", default="merged_trace.json",
+                    help="output Chrome trace-event JSON path (default "
+                    "merged_trace.json; open in Perfetto)")
+    ta.set_defaults(fn=cmd_trace_agg)
+
+    fr = config_parser("flightrec", help="trigger a flight-recorder dump: every process on "
+                       "the run dir writes its ring of recent (even unsampled) spans to "
+                       "<run_dir>/flightrec/")
+    fr.add_argument("--reason", default="manual",
+                    help="reason string recorded in the trigger and the dumps "
+                    "(default 'manual')")
+    fr.set_defaults(fn=cmd_flightrec)
 
     args = parser.parse_args(argv)
     return args.fn(args)

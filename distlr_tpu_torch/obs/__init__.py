@@ -1,7 +1,7 @@
 """Observability of the port: metrics registry, phase tracing, exporters.
 
 Counterpart of ``distlr_tpu/obs/`` without its fleet tools (ROADMAP
-A.21) and its distributed tracing (A.25): one process-wide
+A.21): one process-wide
 :class:`MetricsRegistry` of labeled counters, gauges and histograms, under
 the JAX package's series names and exposition text (the PS server group
 and supervisor, the KV client, the trainers' step rate and staleness,
@@ -9,9 +9,11 @@ the scoring tier, the router and tenants, the feedback loop), a
 :func:`trace_phase` span API whose per-phase breakdown says where a
 step's host time went (Chrome trace-event dumps load in Perfetto),
 exporters (Prometheus text and a JSON snapshot over a stdlib HTTP
-endpoint, ``launch ... --metrics-port``), and the runtime probes of
+endpoint, ``launch ... --metrics-port``; the endpoint file of a process
+under ``--obs-run-dir``), the runtime probes of
 :mod:`distlr_tpu_torch.obs.torchrt` (compiles by signature, device
-bytes).
+bytes), and the distributed tracing of :mod:`distlr_tpu_torch.obs.dtrace`
+(span journals, the flight recorder, ``launch trace-agg``).
 
 Metric namespace, as in the JAX package:
 
@@ -22,16 +24,21 @@ Metric namespace, as in the JAX package:
   ``distlr_rollout_*`` — the scoring tier
 * ``distlr_feedback_*``, ``distlr_online_*`` — the online loop
 * ``distlr_phase_seconds``— per-phase histogram behind the tracer
+* ``distlr_trace_*``      — distributed-trace span, journal and flight-
+  recorder accounting (:mod:`distlr_tpu_torch.obs.dtrace`)
 * ``distlr_jax_*``        — runtime introspection (the JAX names, read
   by name by fleet tools; :mod:`distlr_tpu_torch.obs.torchrt` says what
   each counts here)
 """
 
+from distlr_tpu_torch.obs import dtrace  # noqa: F401
 from distlr_tpu_torch.obs.exporters import (  # noqa: F401
     MetricsServer,
+    endpoint_path,
     install_snapshot_atexit,
     snapshot_env_paths,
     start_metrics_server,
+    write_endpoint,
     write_metrics_snapshot,
 )
 from distlr_tpu_torch.obs.registry import (  # noqa: F401

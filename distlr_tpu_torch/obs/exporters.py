@@ -27,9 +27,13 @@ import http.server
 import json
 import os
 import threading
+import time
 import urllib.parse
 
 from distlr_tpu_torch.obs.registry import MetricsRegistry, get_registry
+from distlr_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
 
 
 class _Handler(http.server.BaseHTTPRequestHandler):
@@ -150,6 +154,48 @@ def write_metrics_snapshot(path: str,
     tmp = path + ".tmp"
     with open(tmp, "w") as f:
         f.write(body)
+    os.replace(tmp, path)
+    return path
+
+
+def endpoint_path(run_dir: str, role: str, rank: int | str) -> str:
+    return os.path.join(run_dir, "endpoints", f"{role}-{rank}.json")
+
+
+def write_endpoint(run_dir: str, role: str, rank: int | str, host: str,
+                   port: int, *, pid: int | None = None) -> str:
+    """Atomically publish this process's scrape endpoint into the run dir
+    as ``<run_dir>/endpoints/<role>-<rank>.json``, the JAX package's
+    discovery file (``distlr_tpu/obs/federate.py``), field for field.  A
+    second process claiming the same (role, rank) overwrites it, loudly."""
+    path = endpoint_path(run_dir, role, rank)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    try:
+        with open(path) as f:
+            prev = json.load(f)
+        if (prev.get("host"), prev.get("port")) != (host, int(port)):
+            log.warning(
+                "fleet endpoint %s-%s already published by %s:%s "
+                "(pid %s); overwriting with %s:%s — give each process a "
+                "distinct rank (--process-id) or the hidden one will "
+                "neither scrape nor alert",
+                role, rank, prev.get("host"), prev.get("port"),
+                prev.get("pid"), host, port)
+    except (OSError, ValueError):
+        pass  # absent or unreadable: the first publish
+    doc = {
+        "role": str(role),
+        "rank": int(rank),
+        "host": host,
+        "port": int(port),
+        "pid": os.getpid() if pid is None else int(pid),
+        "started_at": time.time(),
+    }
+    # a tmp name a pid: two processes racing to publish one (role, rank)
+    # land on the warning above, never on each other's tmp file
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f)
     os.replace(tmp, path)
     return path
 

@@ -50,8 +50,15 @@ Every op records the JAX package's client series: its latency
 (``distlr_ps_client_ops_total{op,status}``: ok, timeout or error), its
 payload bytes (``distlr_ps_client_bytes_total{op,direction}``), and for a
 delivered push its raw and wire bytes (``distlr_ps_push_bytes_*_total``,
-the ratio gauge ``distlr_ps_push_compress_ratio``).  Not the KV wire's
-trace trailer (ROADMAP A.25).
+the ratio gauge ``distlr_ps_push_compress_ratio``).
+
+Distributed tracing (:mod:`distlr_tpu_torch.obs.dtrace`): a worker of a
+process whose tracing is armed at a non-zero sample (or ``KVWorker(
+trace=True)``) negotiates the kHello trace capability; a push, pull or
+push_pull issued under a sampled context then records a client
+``ps.<op>`` span and stamps the frames with the 16-byte trace trailer,
+under which each server journals its handler span.  With sampling off
+nothing is negotiated and the wire is byte-identical.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ import time
 
 import numpy as np
 
+from distlr_tpu_torch.obs import dtrace
 from distlr_tpu_torch.obs.registry import family_total, get_registry
 from distlr_tpu_torch.ps import wire
 from distlr_tpu_torch.ps.build import client_lib, native_variant
@@ -397,6 +405,12 @@ def _load():
                 lib.kv_op_delivery_began.argtypes = [ctypes.c_void_p]
                 lib.kv_negotiate_codec.restype = ctypes.c_int
                 lib.kv_negotiate_codec.argtypes = [ctypes.c_void_p, ctypes.c_int]
+                lib.kv_negotiate_trace.restype = ctypes.c_int
+                lib.kv_negotiate_trace.argtypes = [ctypes.c_void_p]
+                lib.kv_set_trace.restype = ctypes.c_int
+                lib.kv_set_trace.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64]
+                lib.kv_clock_offset.restype = ctypes.c_double
+                lib.kv_clock_offset.argtypes = [ctypes.c_void_p, ctypes.c_uint32]
                 lib.kv_last_wire_sent.restype = ctypes.c_uint64
                 lib.kv_last_wire_sent.argtypes = [ctypes.c_void_p]
                 for name in ("kv_negotiate_epoch", "kv_set_epoch"):
@@ -449,14 +463,18 @@ class KVWorker:
     makes the worker follow a live resize; its hosts override ``hosts``,
     which may predate a resize, and ``epoch`` defaults to its epoch.
     ``epoch`` announces the layout epoch to every server, so that the
-    fence protects this client.  Ops on one worker must not overlap: one
-    connection per server, one op at a time.
+    fence protects this client.  ``trace`` asks for the trace capability
+    (None follows the process: ``dtrace`` configured at a sample above 0);
+    :attr:`trace_active` says whether every server of the group took it.
+    Ops on one worker must not overlap: one connection per server, one op
+    at a time.
     """
 
     def __init__(self, hosts: str | None, dim: int, client_id: int = 0, *,
                  timeout_ms: int = 0, sync_group: bool = True,
                  retry: RetryPolicy | None = None, compress: str = "none",
-                 epoch: int | None = None, route=None, route_timeout_s: float = 30.0):
+                 trace: bool | None = None, epoch: int | None = None, route=None,
+                 route_timeout_s: float = 30.0):
         from distlr_tpu_torch.compress import CODEC_IDS  # noqa: PLC0415
 
         if compress not in CODEC_IDS:
@@ -508,6 +526,12 @@ class KVWorker:
         #: so that the first outcome, a fallback too, is always logged
         self.compress_active: str | None = None
         self._codec_id = CODEC_IDS[compress]
+        if trace is None:
+            trace = dtrace.is_configured() and dtrace.sample_rate() > 0
+        self._trace = bool(trace)
+        #: whether every server of the group parses trace trailers
+        #: (re-derived on every reconnect, like compress_active)
+        self.trace_active = False
         #: bytes of the delivered gradient pushes: ``raw`` what they would
         #: have cost as dense f32 (the keys as given + 4 bytes a value),
         #: ``wire`` what left for the servers (headers + keys + coded
@@ -566,6 +590,21 @@ class KVWorker:
                 self.compress_active = active
             else:
                 self.compress_active = "none"
+            if self._trace:
+                got = lib.kv_negotiate_trace(h)
+                if got < 0:
+                    raise OSError("trace negotiation failed: " + lib.kv_last_error(h).decode())
+                if not got and not self.trace_active:
+                    log.info("KV group at %s predates trace propagation; "
+                             "degrading to client-only spans", self.hosts)
+                self.trace_active = got == 1
+                if self.trace_active:
+                    # the hello doubles as a clock probe: journal each
+                    # server's offset, so that trace-agg aligns its journal
+                    for s, host in enumerate(self.hosts.split(",")):
+                        dtrace.record_clock(host, lib.kv_clock_offset(h, s))
+            else:
+                self.trace_active = False
             if self._epoch:
                 got = lib.kv_negotiate_epoch(h, self._epoch)
                 if got < 0:
@@ -657,6 +696,8 @@ class KVWorker:
             else:
                 self.reroutes += 1
                 _REROUTES.inc()
+                dtrace.instant("ps.reroute", tags={"epoch": self._epoch,
+                                                   "servers": self.num_servers})
                 log.info("membership re-route: now at epoch %d over %d server(s)",
                          self._epoch, self.num_servers)
                 return
@@ -798,6 +839,24 @@ class KVWorker:
         :meth:`_run_with_retry`."""
         return self._run_with_retry(op, fn, idempotent=False, on_failure=on_unknown)
 
+    @contextlib.contextmanager
+    def _trace_op(self, op: str):
+        """Under a sampled dtrace context, a client ``ps.<op>`` span around
+        the op (its retries' backoff included) and, when the group took
+        the trace capability, a stamp on the handle: the op's frames carry
+        the trailer, and each server's handler span parents under this
+        one.  The stamp is one-shot, taken by the first attempt; a
+        re-issue goes unstamped rather than be attributed to this span.
+        Without a sampled context: no span, no stamp, no wire change."""
+        ctx = dtrace.current()
+        if ctx is None or not ctx.sampled:
+            yield
+            return
+        with dtrace.span(f"ps.{op}", tags={"servers": self.num_servers}) as sp:
+            if self.trace_active:
+                self._lib.kv_set_trace(self._h, ctx.trace_id, sp.span_id)
+            yield
+
     def set_timeout(self, timeout_ms: int) -> None:
         """Receive timeout for every op; 0 = block forever."""
         if self._lib.kv_set_timeout_ms(self._h, int(timeout_ms)) != 0:
@@ -934,7 +993,8 @@ class KVWorker:
                                                        keys.shape[0], vpk), "push")
                 self._account_push(raw)
                 return ts
-        return self._push_with_retry("push", issue)
+        with self._trace_op("push"):
+            return self._push_with_retry("push", issue)
 
     def push_init(self, vals: np.ndarray, keys: np.ndarray | None = None,
                   *, force: bool = False) -> int:
@@ -975,8 +1035,9 @@ class KVWorker:
             return out
         # an unknown push outcome is absorbed; the pull half is re-issued
         # idempotently, so the caller still gets the keys' current weights
-        return self._push_with_retry("push_pull", issue,
-                                     on_unknown=lambda: self.pull(keys, vals_per_key=vpk))
+        with self._trace_op("push_pull"):
+            return self._push_with_retry("push_pull", issue,
+                                         on_unknown=lambda: self.pull(keys, vals_per_key=vpk))
 
     def pull(self, keys: np.ndarray | None = None, *, vals_per_key: int = 1) -> np.ndarray:
         """Blocking pull of ``keys`` (default: all ``dim`` weights).
@@ -991,7 +1052,8 @@ class KVWorker:
                 self._check(self._lib.kv_pull_vpk(self._h, _ptr(keys), _ptr(out), keys.shape[0],
                                                   vpk), "pull")
             return out
-        return self._with_retry("pull", issue)
+        with self._trace_op("pull"):
+            return self._with_retry("pull", issue)
 
     def pull_chunked(self, keys: np.ndarray | None = None, *, vals_per_key: int = 1,
                      chunk_rows: int = 1 << 16) -> np.ndarray:

@@ -31,7 +31,9 @@ package's.  :func:`layout_client` wraps the endpoint into a ``route=``
 provider.  The coordinator records the JAX package's ``distlr_reshard_*``,
 ``distlr_membership_epoch`` and ``distlr_alert_reshard_failed`` series,
 and the same numbers in its attributes (:attr:`MembershipCoordinator.
-counters`, ``reshard_failed``, ``seed_pushes``).
+counters`, ``reshard_failed``, ``seed_pushes``); a resize is a
+``reshard.resize`` span and each moved sub-range a ``reshard.migrate``
+span under the caller's distributed trace.
 
 Imports neither the workers nor the compute stack: the control plane has
 to keep answering while the data plane fails.
@@ -49,6 +51,7 @@ import time
 
 import numpy as np
 
+from distlr_tpu_torch.obs import dtrace
 from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.ps import store, wire
 from distlr_tpu_torch.ps.client import KVWorker, PSRejectedError
@@ -213,16 +216,18 @@ class MembershipCoordinator:
         for old_rank, lo, hi, nr in plan.moves:
             olo, ohi = group.key_range(old_rank)
             nlo, nhi = plan.new_ranges[nr]
-            with self._rank_conn(group.ports[old_rank], ohi - olo) as src:
-                vals = src.pull_chunked(np.arange(lo - olo, hi - olo, dtype=np.uint64),
-                                        chunk_rows=self.chunk_rows)
-            with self._rank_conn(dst_port(nr), nhi - nlo) as dst:
-                for clo in range(0, hi - lo, self.chunk_rows):
-                    chi = min(clo + self.chunk_rows, hi - lo)
-                    dst.push_init(vals[clo:chi], np.arange(lo - nlo + clo, lo - nlo + chi,
-                                                           dtype=np.uint64), force=True)
-                    self.seed_pushes += 1
-                    _SEED_PUSHES.inc()
+            with dtrace.span("reshard.migrate", tags={"from": old_rank, "to": nr,
+                                                      "keys": hi - lo}):
+                with self._rank_conn(group.ports[old_rank], ohi - olo) as src:
+                    vals = src.pull_chunked(np.arange(lo - olo, hi - olo, dtype=np.uint64),
+                                            chunk_rows=self.chunk_rows)
+                with self._rank_conn(dst_port(nr), nhi - nlo) as dst:
+                    for clo in range(0, hi - lo, self.chunk_rows):
+                        chi = min(clo + self.chunk_rows, hi - lo)
+                        dst.push_init(vals[clo:chi], np.arange(lo - nlo + clo, lo - nlo + chi,
+                                                               dtype=np.uint64), force=True)
+                        self.seed_pushes += 1
+                        _SEED_PUSHES.inc()
             moved += (hi - lo) * 12
             self.counters["keys_moved"] += hi - lo
             _KEYS_MOVED.inc(hi - lo)
@@ -286,10 +291,13 @@ class MembershipCoordinator:
             self.supervisor.pause()
         staged: dict[int, tuple] = {}
         try:
-            staged = self.group.spawn_for_resize(plan, new_epoch)
-            self._fence(new_epoch)
-            bytes_moved = self._drain(plan, staged)
-            self.group.commit_resize(plan, staged, new_epoch)
+            with dtrace.span("reshard.resize", tags={"direction": direction,
+                                                     "new": new_num_servers,
+                                                     "epoch": new_epoch}):
+                staged = self.group.spawn_for_resize(plan, new_epoch)
+                self._fence(new_epoch)
+                bytes_moved = self._drain(plan, staged)
+                self.group.commit_resize(plan, staged, new_epoch)
         except Exception as e:
             from distlr_tpu_torch.ps.server import _reap  # noqa: PLC0415  (cycle)
 

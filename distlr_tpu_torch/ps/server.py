@@ -245,6 +245,10 @@ class ServerGroup:
     servers, and the plan's ``kill`` faults SIGKILL this group's ranks.
     ``epoch`` is the membership epoch the servers start at (1, the
     static default, leaves their command lines as without it).
+    ``trace_journal_dir`` makes each rank journal the handler spans of
+    trace-stamped ops to ``<dir>/kvserver-<rank>.jsonl`` (the native half
+    of the span journals ``launch trace-agg`` merges); respawns and resize
+    spawns keep it, and None leaves the command line as without it.
     ``binary`` is the server executable of every spawn; by default the
     build of the sanitizer variant ``DISTLR_NATIVE_VARIANT`` names when
     the group is made (:mod:`distlr_tpu_torch.ps.build`), spawned with
@@ -260,7 +264,7 @@ class ServerGroup:
                  opt_segments: list[tuple[int, str]] | None = None, via_chaos=None,
                  store_dir: str | None = None, store_interval_s: float = 5.0,
                  store_wal: bool = False, store_wal_fsync_s: float = 0.1, epoch: int = 1,
-                 binary=None):
+                 binary=None, trace_journal_dir: str | None = None):
         if not 1 <= epoch <= wire.AUX_MAX:
             # membership epochs ride the u16 MsgHeader::aux field
             raise ValueError(f"epoch must be in [1, {wire.AUX_MAX}], got {epoch}")
@@ -329,6 +333,7 @@ class ServerGroup:
         self.store_interval_s = store_interval_s
         self.store_wal = store_wal
         self.store_wal_fsync_s = store_wal_fsync_s
+        self.trace_journal_dir = trace_journal_dir
         #: the membership epoch new spawns (respawns too) carry; a resize
         #: bumps it
         self.epoch = int(epoch)
@@ -440,6 +445,9 @@ class ServerGroup:
             cmd += ftrl_flags
         if not self.compress:
             cmd.append("--compress=0")
+        if self.trace_journal_dir:
+            cmd.append("--trace_journal="
+                       + os.path.join(self.trace_journal_dir, f"kvserver-{rank}.jsonl"))
         if self.store_dir:
             # a directory a rank: the ranks own disjoint slices.  Only
             # values off the servers' defaults touch the command line
@@ -461,6 +469,8 @@ class ServerGroup:
         port."""
         if self.store_dir:
             os.makedirs(self.store_rank_dir(rank), exist_ok=True)
+        if self.trace_journal_dir:
+            os.makedirs(self.trace_journal_dir, exist_ok=True)
         # a sanitizer variant's spawn carries its options (suppressions
         # forced, the caller's log_path kept); the standard build's gets
         # env=None and inherits this process's environment

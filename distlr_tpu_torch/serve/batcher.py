@@ -9,7 +9,8 @@ requests queue briefly and flush as ONE batch when either
 throughput gain is the batch occupancy, which the batcher tracks (its
 attributes, and the JAX package's ``distlr_serve_batcher_*`` and
 ``distlr_serve_batch_occupancy`` series); each flush's scoring runs under
-the tracer's ``serve_score`` phase.
+the tracer's ``serve_score`` phase and a ``serve.batch`` distributed-trace
+span under the first sampled context it coalesced (``submit(ctx=)``).
 
 Requests are feature-leaf tuples (the engine's ``rows`` layout).  Leaves
 are merged by concatenation with trailing-dim zero padding (sparse COO
@@ -25,6 +26,7 @@ from concurrent.futures import Future
 
 import numpy as np
 
+from distlr_tpu_torch.obs import dtrace
 from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.obs.tracing import trace_phase
 
@@ -80,8 +82,8 @@ class MicroBatcher:
         self.max_batch_size = int(max_batch_size)
         self.max_wait_s = float(max_wait_ms) / 1000.0
         self._cv = threading.Condition()
-        #: (rows, future, enqueue time)
-        self._pending: list[tuple[tuple[np.ndarray, ...], Future, float]] = []
+        #: (rows, future, enqueue time, trace context)
+        self._pending: list[tuple[tuple[np.ndarray, ...], Future, float, object]] = []
         self._pending_rows = 0
         self._closed = False
         self.batches = 0
@@ -93,7 +95,12 @@ class MicroBatcher:
         self._thread.start()
 
     # -- client side -------------------------------------------------------
-    def submit(self, rows: tuple[np.ndarray, ...]) -> Future:
+    def submit(self, rows: tuple[np.ndarray, ...], ctx=None) -> Future:
+        """``ctx``: the submitting request's
+        :class:`~distlr_tpu_torch.obs.dtrace.TraceContext` (optional); the
+        flush that scores it records its ``serve.batch`` span under the
+        first sampled context it coalesced, so a trace reaches across the
+        batch boundary (a context is thread-local: it crosses only so)."""
         fut: Future = Future()
         n = rows[0].shape[0]
         if n == 0:
@@ -102,7 +109,7 @@ class MicroBatcher:
         with self._cv:
             if self._closed:
                 raise RuntimeError("batcher is closed")
-            self._pending.append((rows, fut, time.monotonic()))
+            self._pending.append((rows, fut, time.monotonic(), ctx))
             self._pending_rows += n
             self._cv.notify()
         return fut
@@ -142,8 +149,12 @@ class MicroBatcher:
             leaf_lists = [req[0] for req in taken]
             futures = [req[1] for req in taken]
             counts = [rows[0].shape[0] for rows in leaf_lists]
+            # a batch serves many traces: its span joins the first sampled one
+            ctx = next((req[3] for req in taken if req[3] is not None and req[3].sampled), None)
             try:
-                with trace_phase("serve_score"):
+                with trace_phase("serve_score"), dtrace.span(
+                        "serve.batch", tags={"requests": len(taken), "rows": sum(counts)},
+                        ctx=ctx):
                     merged = leaf_lists[0] if len(leaf_lists) == 1 else _merge_leaves(leaf_lists)
                     labels, scores = self._score_fn(merged)
             except Exception as e:

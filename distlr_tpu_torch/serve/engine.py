@@ -38,7 +38,8 @@ a weight publish runs under the tracer's ``weight_swap`` phase, the first
 call at each new (model, bucket) signature counts in
 ``distlr_jax_compiles_total{site="serve.engine",bucket}`` (one process-wide
 signature cache, as JAX's one jitted scorer), and swaps and evictions
-sample the device-bytes gauges (:mod:`distlr_tpu_torch.obs.torchrt`);
+sample the device-bytes gauges (:mod:`distlr_tpu_torch.obs.torchrt`), a
+score is a ``serve.infer`` span under the caller's distributed trace;
 ``stats()`` reports the engine's own numbers from its attributes.
 """
 
@@ -52,7 +53,7 @@ import torch
 
 from distlr_tpu_torch.config import Config
 from distlr_tpu_torch.models import get_model
-from distlr_tpu_torch.obs import torchrt
+from distlr_tpu_torch.obs import dtrace, torchrt
 from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.obs.tracing import trace_phase
 from distlr_tpu_torch.utils.device import resolve_device
@@ -326,7 +327,10 @@ class ScoringEngine:
             w = self._weights  # the swap point: this call's weights
         try:
             labels_out, scores_out = [], []
-            with _SCORE_SECONDS.time():
+            # the infer span nests under the batcher's serve.batch span (the
+            # flush thread's current context); a caller without one pays nothing
+            with _SCORE_SECONDS.time(), dtrace.span(
+                    "serve.infer", tags={"rows": n, "version": self.weights_version}):
                 for lo in range(0, n, self.max_batch_size):
                     chunk = tuple(leaf[lo:lo + self.max_batch_size] for leaf in rows)
                     lab, sc = self._score_bucket(w, chunk)

@@ -34,7 +34,9 @@ blip inside the poll, and a membership ``route`` (``launch serve
 --ps-ctl``) makes the watcher follow a live resize: a reshard costs one
 re-route inside a poll.  Each live-PS reload counts in the JAX package's
 ``distlr_serve_reloads_total{kind}`` and ``distlr_serve_reload_rows_total{kind}``
-(full table or hot slice).  Not ported: the trace spans (ROADMAP A.25).
+(full table or hot slice).  Each poll is a distributed-trace root of its
+own (``serve.reload``), so a sampled reload's pulls and the servers'
+``kv.pull`` handler spans lie beside the request and feedback traces.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import time
 
 import numpy as np
 
+from distlr_tpu_torch.obs import dtrace
 from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.utils.logging import get_logger
 
@@ -188,8 +191,10 @@ class LivePSWatcher:
             self._worker.recover()
             self._needs_reconnect = False
             self._check_init = True
+        ctx = dtrace.new_trace()
         try:
-            return self._poll_inner()
+            with dtrace.use(ctx), dtrace.span("serve.reload", tags={"hosts": self.hosts}):
+                return self._poll_inner()
         except OSError:
             self._needs_reconnect = True
             raise

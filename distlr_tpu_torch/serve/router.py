@@ -40,10 +40,12 @@ The router counts in the JAX package's ``distlr_route_*`` and
 tenant); ``STATS`` answers from the listener's series (counts as deltas
 since the router was made, ``p50_ms`` / ``p99_ms`` from its request
 histogram), and each replica's counts are attributes of its
-``_Replica``.  ``TRACE <tid>/<sid>`` prefixes answer ``ERR`` naming
-ROADMAP A.25; untraced traffic routes as in the JAX
-package with tracing unconfigured.  The router itself is
-stdlib code: ``launch route`` needs no card.
+``_Replica``.  A scoring line is a ``route.request`` span under a
+distributed-trace context (:mod:`distlr_tpu_torch.obs.dtrace`): the
+caller's ``TRACE <tid>/<sid>`` prefix, else a root the router mints; a
+sampled context travels to the replica as ``TRACE <token> <line>`` (a
+retry resends it as it was).  The router itself is stdlib code: ``launch
+route`` needs no card.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ import socketserver
 import threading
 import time
 
-from distlr_tpu_torch.config import _not_ported
+from distlr_tpu_torch.obs import dtrace
 from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.serve import balance as _balance
 from distlr_tpu_torch.serve import tenant as _tenant
@@ -686,10 +688,26 @@ class ScoringRouter:
         if line.startswith("LABEL ") or line == "LABEL":
             return self._broadcast_label(line, model)
         if line.startswith("TRACE "):
-            self._count("errors")
-            err = _not_ported("TRACE prefixes (distributed tracing)", "A.25")
-            return f"ERR {type(err).__name__}: {err}"
-        return self._route_line(line, model)
+            parts = line.split(" ", 2)
+            if len(parts) != 3:
+                self._count("errors")
+                return "ERR TRACE: need TRACE <trace_id>/<span_id> <line>"
+            try:
+                ctx = dtrace.parse_token(parts[1])
+            except ValueError as e:
+                self._count("errors")
+                return f"ERR TRACE: {e}"
+            line = parts[2]
+        else:
+            ctx = dtrace.new_trace()  # None until dtrace.configure ran
+        if ctx is None:
+            return self._route_line(line, model)
+        with dtrace.use(ctx), dtrace.span(
+                "route.request", tags={"listener": f"{self.host}:{self.port}"}) as sp:
+            reply = self._route_line(line, model)
+            if reply.startswith("ERR "):
+                sp.tags["error"] = reply.split(":", 1)[0]
+            return reply
 
     def _route_line(self, line: str, scope: str | None = None) -> str:
         # the tenant: an @-prefix, else the connection's scope, else the default
@@ -724,6 +742,10 @@ class ScoringRouter:
             canary = serve_model != tenant
             serve_model = self._serve_as.get(serve_model, serve_model)
             mirror = shadow is not None and not canary and self._rng.random() < shadow[1]
+        # a sampled context rides to the replica as the TRACE prefix (a
+        # retry resends it unchanged: scores are idempotent); the @-model
+        # prefix is per replica, below
+        tok = dtrace.token()
         t0 = time.monotonic()
         excluded: list[_Replica] = []
         last_err = "no healthy replica in rotation"
@@ -745,7 +767,8 @@ class ScoringRouter:
             if attempt > 0:
                 # counted once a replacement was actually acquired
                 self._count("retries")
-            wire = f"@{serve_model} {line}" if len(rep.models) > 1 else line
+            routed = f"@{serve_model} {line}" if len(rep.models) > 1 else line
+            wire = f"TRACE {tok} {routed}" if tok else routed
             try:
                 reply = rep.exchange(wire)
             except Exception as e:  # noqa: BLE001 — any transport failure

@@ -25,6 +25,13 @@ protocol, one request per line and one reply line per request:
   <id>`` scopes the connection to a hosted model (reply ``OK MODEL
   <id>``); a per-request ``@<id> `` prefix addresses one line (JSON and
   ID lines too).  Unaddressed lines score on the default (first) engine.
+* **TRACE**: ``TRACE <trace_id>/<span_id> <line>`` joins the request to
+  a distributed trace (:mod:`distlr_tpu_torch.obs.dtrace`; the router
+  forwards its context so); the reply is the bare line's, byte for byte.
+  A scoring line reached directly mints a root of its own.  A request's
+  ``serve.request`` span holds ``serve.encode`` and ``serve.score`` (the
+  batcher's ``serve.batch`` and the engine's ``serve.infer`` join it),
+  and a feedback sink's spool record remembers its ids.
 * Malformed input answers ``ERR <Type>: <reason>`` for that line; the
   connection stays up.
 
@@ -33,8 +40,7 @@ Each request line is counted in the JAX package's per-listener series
 ``distlr_serve_errors_total``, label ``listener="host:port"``), which
 ``STATS`` answers from: counts as deltas since this server was made,
 percentiles over the listener's history in the process, as in the JAX
-package.  Not ported: ``TRACE`` prefixes (distributed tracing) answer
-``ERR`` naming ROADMAP A.25.
+package.
 
 One thread per connection (``ThreadingTCPServer``); every connection of a
 model funnels into that engine's
@@ -56,7 +62,7 @@ import time
 
 import numpy as np
 
-from distlr_tpu_torch.config import _not_ported
+from distlr_tpu_torch.obs import dtrace
 from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.serve.batcher import MicroBatcher
 from distlr_tpu_torch.train.metrics import MetricsLogger
@@ -191,19 +197,25 @@ class ScoringServer:
                      model: str | None = None):
         mid = self._default_id if model is None else model
         engine = self.engines[mid]
-        rows = engine.encode_lines(lines)
+        with dtrace.span("serve.encode", tags={"rows": len(lines), "model": mid}):
+            rows = engine.encode_lines(lines)
         if self.hot_tracker is not None and mid == self._default_id:
             self.hot_tracker.observe(engine.row_keys(rows))
         # the version is read before scoring: a swap racing the batch makes
         # the journal name at most one version early, never a later one
         version = engine.weights_version
-        labels, scores = self._batchers[mid].submit(rows).result()
+        # the score span holds the microbatch queue's wait and the engine
+        # call; the batcher's serve.batch span, in the same trace, is the
+        # engine's half
+        with dtrace.span("serve.score"):
+            labels, scores = self._batchers[mid].submit(rows, ctx=dtrace.current()).result()
         labels, scores = np.asarray(labels), np.asarray(scores)
         with self._count_lock:
             self._model_requests[mid] += 1
         if self.feedback is not None:
             # ``rows`` are encode_lines' host arrays, not the device batch
             self.feedback.scored(lines, rows, scores, version=version, ids=ids,
+                                 trace=dtrace.current_ids(),
                                  model=mid if self._multi else None)
         return labels, scores
 
@@ -240,9 +252,33 @@ class ScoringServer:
         return f"OK MODEL {parts[1]}", parts[1]
 
     def handle_line(self, line: str, model: str | None = None) -> str:
-        """One request line -> one reply line.  ``model`` is the
-        connection's ``MODEL`` scope; a per-request ``@<id>`` prefix
-        overrides it."""
+        """One request line -> one reply line.  A ``TRACE <tid>/<sid>
+        <line>`` prefix joins the request to the caller's trace; a scoring
+        line without one mints a root (LABEL lines continue their
+        request's trace through the spool record, STATS is not traced).
+        ``model`` is the connection's ``MODEL`` scope; a per-request
+        ``@<id>`` prefix overrides it.  Replies never carry the prefix."""
+        ctx = None
+        if line.startswith("TRACE "):
+            parts = line.split(" ", 2)
+            if len(parts) != 3:
+                self._count_error()
+                return "ERR TRACE: need TRACE <trace_id>/<span_id> <line>"
+            try:
+                ctx = dtrace.parse_token(parts[1])
+            except ValueError as e:
+                self._count_error()
+                return f"ERR TRACE: {e}"
+            line = parts[2]
+        elif line != "STATS" and not line.startswith("LABEL"):
+            ctx = dtrace.new_trace()
+        if ctx is None:
+            return self._handle_request(line, model)
+        with dtrace.use(ctx), dtrace.span("serve.request",
+                                          tags={"listener": f"{self.host}:{self.port}"}):
+            return self._handle_request(line, model)
+
+    def _handle_request(self, line: str, model: str | None = None) -> str:
         t0 = time.monotonic()
         if line.startswith("@"):
             prefix, _, rest = line.partition(" ")
@@ -256,8 +292,6 @@ class ScoringServer:
         try:
             if line == "STATS":
                 return json.dumps(self.stats())
-            if line.startswith("TRACE ") or line == "TRACE":
-                raise _not_ported("TRACE prefixes (distributed tracing)", "A.25")
             if line.startswith("LABEL ") or line == "LABEL":
                 return self._handle_label(line)
             if line.startswith("{"):

@@ -69,8 +69,12 @@ gradient ends in its read-back), async workers set
 clock into the ``distlr_train_staleness_pushes{rank}`` histogram, and
 rank 0 runs under ``torch.profiler`` with ``profile_dir``.  The steps'
 signatures feed ``distlr_jax_compiles_total`` at JAX's sites
-(``train.ps.grad``, ``train.ps.eval``).  Not the distributed trace of a
-step (JAX's ``_StepTrace``; ROADMAP A.25).
+(``train.ps.grad``, ``train.ps.eval``).  Each batch of every loop
+variant is a distributed-trace root (:class:`_StepTrace`, the JAX
+package's): a sampled step is a ``train.step`` span whose KV ops carry the
+trace trailer, so each server's handler span lands under it on the
+``launch trace-agg`` timeline; the pipelined Hogwild push takes the step's
+context to the comm thread.
 """
 
 from __future__ import annotations
@@ -90,7 +94,7 @@ from distlr_tpu_torch.config import Config
 from distlr_tpu_torch.data.iterator import BlockedDataIter, DataIter, SparseDataIter
 from distlr_tpu_torch.data.sharding import part_name
 from distlr_tpu_torch.models import get_model
-from distlr_tpu_torch.obs import torchrt
+from distlr_tpu_torch.obs import dtrace, torchrt
 from distlr_tpu_torch.obs.registry import COUNT_BUCKETS, get_registry
 from distlr_tpu_torch.obs.tracing import trace_phase
 from distlr_tpu_torch.ps import KVWorker, RetryPolicy, ServerGroup, ServerSupervisor
@@ -150,6 +154,40 @@ _EVAL_SIGS: dict = {}
 #: the tracer's phase of each timed op (``PSWorker._timed``)
 _OP_PHASES = {"pull": "pull", "push": "push", "push_pull": "push", "grad": "compute",
               "prep": "data_load", "checkpoint": "checkpoint"}
+
+
+class _StepTrace:
+    """StepTimer proxy that puts each ``start()``/``stop()`` bracket (one
+    batch, in every loop variant) under its own distributed-trace root
+    (``distlr_tpu/train/ps_trainer.py``'s ``_StepTrace``).  A sampled
+    step is a ``train.step`` span whose KV ops carry the trace trailer;
+    with tracing unconfigured ``new_trace()`` is None and a step pays one
+    call."""
+
+    def __init__(self, timer: StepTimer, rank: int):
+        self._timer = timer
+        self._rank = rank
+        self._scope: contextlib.ExitStack | None = None
+
+    def start(self) -> None:
+        if self._scope is not None:  # an exception ended the last step
+            self._scope.close()
+        self._timer.start()
+        ctx = dtrace.new_trace()
+        if ctx is not None:
+            scope = contextlib.ExitStack()
+            scope.enter_context(dtrace.use(ctx))
+            scope.enter_context(dtrace.span("train.step", tags={"rank": self._rank}))
+            self._scope = scope
+
+    def stop(self, n: int):
+        if self._scope is not None:
+            self._scope.close()
+            self._scope = None
+        return self._timer.stop(n)
+
+    def __getattr__(self, name):
+        return getattr(self._timer, name)
 
 
 def ps_param_dim(cfg: Config) -> int:
@@ -564,7 +602,7 @@ class PSWorker:
         self.metrics = MetricsLogger()
         # registry-backed step accounting: the "ps" counters add up over
         # the process's worker threads, each worker's rate gauge is its own
-        self.timer = StepTimer(loop="ps", instance=str(rank))
+        self.timer = _StepTrace(StepTimer(loop="ps", instance=str(rank)), rank)
         # pushes-behind staleness probing (async only): a second client on
         # the group, built lazily, reading its push clock
         self._hosts = hosts
@@ -974,7 +1012,9 @@ class PSWorker:
                     self._record_pushes_behind(self._w_pushes)
                     if fut is not None:
                         self._await_push_pull(fut)
-                    fut = self._comm_pool().submit(self._timed_push_pull, g)
+                    # the step's trace context goes along: the comm thread
+                    # is another thread, and the op belongs to this step
+                    fut = self._comm_pool().submit(self._timed_push_pull, g, dtrace.current())
                     self.timer.stop(int(mask.sum()))
                 if fut is not None:
                     self._await_push_pull(fut)
@@ -1067,9 +1107,10 @@ class PSWorker:
                                             thread_name_prefix=f"ps-comm-{self.rank}")
         return self._comm
 
-    def _timed_push_pull(self, g: np.ndarray) -> np.ndarray:
-        # the worker's wait for the reply is the trace's push phase
-        with self._timed("push_pull", phase=None):
+    def _timed_push_pull(self, g: np.ndarray, ctx=None) -> np.ndarray:
+        # the worker's wait for the reply is the trace's push phase; the
+        # submitting step's dtrace context is installed on this thread
+        with dtrace.use(ctx), self._timed("push_pull", phase=None):
             return self.kv.push_pull(g)
 
     def _await_push_pull(self, fut) -> None:
@@ -1241,7 +1282,7 @@ def run_ps_workers(cfg: Config, hosts: str, ranks, *, eval_fn=None, save: bool =
 def ps_server_group(cfg: Config) -> ServerGroup:
     """The local server group a config trains against (not started):
     ``num_servers`` ranks of its key space, its mode, Q1 quirk, update
-    rule and durable store, behind its fault plan.  The plan is parsed
+    rule, durable store and span journals, behind its fault plan.  The plan is parsed
     here, before any server spawns: a malformed plan fails the launch."""
     via_chaos = None
     if cfg.chaos_plan:
@@ -1254,7 +1295,17 @@ def ps_server_group(cfg: Config) -> ServerGroup:
                        optimizer=server_optimizer(cfg), ftrl_alpha=cfg.ftrl_alpha,
                        ftrl_beta=cfg.ftrl_beta, ftrl_l1=cfg.ftrl_l1, ftrl_l2=cfg.ftrl_l2,
                        store_dir=cfg.ps_store_dir, store_interval_s=cfg.ps_store_interval_s,
-                       store_wal=cfg.ps_store_wal, store_wal_fsync_s=cfg.ps_store_wal_fsync_s)
+                       store_wal=cfg.ps_store_wal, store_wal_fsync_s=cfg.ps_store_wal_fsync_s,
+                       trace_journal_dir=trace_journal_dir(cfg))
+
+
+def trace_journal_dir(cfg: Config) -> str | None:
+    """Where locally spawned servers journal their handler spans: the run
+    dir's ``spans/``, beside the Python ranks' journals, when tracing is
+    armed (``obs_run_dir`` and a sample above 0); else None."""
+    if cfg.obs_run_dir and cfg.trace_sample > 0:
+        return os.path.join(cfg.obs_run_dir.split(os.pathsep)[0], "spans")
+    return None
 
 
 def run_ps_local(cfg: Config, *, eval_fn=None, save: bool = False, resume: bool = False,

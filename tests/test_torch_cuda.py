@@ -1218,3 +1218,81 @@ def test_metrics_scrape_during_a_serving_burst(cuda):
     assert fam.labels(listener=listener).value - base == 8 * 4 * 64 == stats["requests"]
     assert [s["value"] for s in doc["distlr_serve_requests_total"]["series"]
             if s["labels"] == {"listener": listener}] == [8 * 4 * 64]
+
+
+def test_sampled_ps_step_on_card_equals_untraced(cuda, tmp_path):
+    """A sync PS run on the card (2 workers x 2 servers, each gradient one
+    ``fused_lr_grad``) with tracing armed at sample 1 and the servers
+    journaling: the weights equal the untraced run's bit for bit, and every
+    step is a ``train.step`` with its ``ps.push_pull`` and a server span
+    under it."""
+    import os
+
+    from distlr_tpu_torch.data.synthetic import write_synthetic_shards
+    from distlr_tpu_torch.obs import dtrace
+    from distlr_tpu_torch.train import ps_trainer
+
+    d, run = str(tmp_path / "data"), str(tmp_path / "run")
+    write_synthetic_shards(d, 1024, 4096, num_parts=2, seed=9, sparsity=0.5)
+    cfg = Config(data_dir=d, num_feature_dim=4096, num_workers=2, num_servers=2,
+                 num_iteration=3, learning_rate=0.5, l2_c=0.0, batch_size=256,
+                 test_interval=0, sync_mode=True, ps_timeout_ms=10_000)
+    plain = ps_trainer.run_ps_local(cfg)
+    launches = ops.fused_lr_grad.launches
+    dtrace.configure(run, "ps", 0, sample=1.0)
+    try:
+        traced = ps_trainer.run_ps_local(cfg.replace(obs_run_dir=run, trace_sample=1.0))
+        dtrace.flush()
+    finally:
+        dtrace.reset_for_tests()
+    assert ops.fused_lr_grad.launches - launches == 2 * 3 * 2
+    assert all(torch.equal(torch.from_numpy(a), torch.from_numpy(b))
+               for a, b in zip(traced, plain))
+    recs = [r for name in sorted(os.listdir(os.path.join(run, "spans")))
+            for r in dtrace.read_journal(os.path.join(run, "spans", name))
+            if r.get("type") == "span"]
+    by_span = {r["span"]: r for r in recs}
+    steps = [r for r in recs if r["name"] == "train.step"]
+    assert len(steps) == 2 * 3 * 2
+    kv = [r for r in recs if r["name"] == "kv.push_pull"]
+    assert len(kv) == len(steps) * 2
+    assert all(by_span[by_span[r["parent"]]["parent"]]["name"] == "train.step" for r in kv)
+
+
+def test_traced_request_on_card_scores_as_untraced(cuda, tmp_path):
+    """A served request at D = 4,096 on the card, through a router, with
+    tracing armed at sample 1: its reply equals the untraced reply byte for
+    byte, and the server's ``serve.infer`` span lies in the router's
+    trace."""
+    import os
+
+    from distlr_tpu_torch.obs import dtrace
+    from distlr_tpu_torch.serve import (  # noqa: PLC0415
+        ScoringEngine,
+        ScoringRouter,
+        ScoringServer,
+        score_lines_over_tcp,
+    )
+
+    D = 4096
+    eng = ScoringEngine(Config(num_feature_dim=D, l2_c=0.0), _serve_weights(D, 4))
+    lines = [" ".join(f"{c + 1}:1" for c in row.nonzero()[0])
+             for row in _one_hot_rows(8, D, seed=3)]
+    replies = []
+    with ScoringServer(eng, max_wait_ms=0.5) as srv:
+        for sample in (None, 1.0):
+            if sample is not None:
+                dtrace.configure(str(tmp_path), "tier", 0, sample=sample)
+            try:
+                with ScoringRouter(f"{srv.host}:{srv.port}", seed=0) as router:
+                    replies.append(score_lines_over_tcp(router.host, router.port, lines))
+                dtrace.flush()
+            finally:
+                dtrace.reset_for_tests()
+    assert replies[0] == replies[1] and not any(r.startswith("ERR") for r in replies[0])
+    recs = [r for r in dtrace.read_journal(os.path.join(tmp_path, "spans", "tier-0.jsonl"))
+            if r.get("type") == "span"]
+    routes = {r["trace"] for r in recs if r["name"] == "route.request"}
+    infers = [r for r in recs if r["name"] == "serve.infer"]
+    assert len(routes) == len(lines) and infers
+    assert all(r["trace"] in routes for r in infers)

@@ -85,10 +85,10 @@ class TestCLI:
         assert not os.path.exists(os.path.join(d, "models", "part-001"))
 
     def test_unported_option_names_its_roadmap_item(self, tmp_path):
-        proc = _launch("sync", "--data-dir", str(tmp_path), "--trace-sample", "0.5",
+        proc = _launch("sync", "--data-dir", str(tmp_path), "--prof-hz", "5",
                        "--device", "cpu", check=False)
         assert proc.returncode != 0
-        assert "ROADMAP A.25" in proc.stderr
+        assert "ROADMAP A.21" in proc.stderr
 
 
 class TestPSCLI:
@@ -155,8 +155,8 @@ class TestPSCLI:
         assert not os.path.exists(os.path.join(d, "models", "part-001"))
 
     @pytest.mark.parametrize("argv,item", [
-        (["--obs-run-dir", "run"], "A.21"),
-        (["--trace-sample", "0.5"], "A.25"),
+        (["--prof-hz", "5"], "A.21"),
+        (["--log-level", "debug"], "A.21"),
     ])
     def test_unported_ps_flags_name_their_roadmap_item(self, argv, item, tmp_path):
         from distlr_tpu_torch import launch
@@ -357,12 +357,9 @@ _SHARED_CASES = [(cmd, opt) for cmd in _SUBS if cmd in _JAX_SUBS
 
 # the ROADMAP item a flag's non-default value must name, independent of
 # the port's own tables
-_GATES = {
-    "--trace-sample": "A.25",
-    **dict.fromkeys(("--obs-run-dir", "--prof-hz", "--prof-window", "--log-level", "--log-ring",
-                     "--log-dedupe", "--incident-window", "--incident-settle",
-                     "--incident-max"), "A.21"),
-}
+_GATES = dict.fromkeys(("--prof-hz", "--prof-window", "--log-level", "--log-ring",
+                        "--log-dedupe", "--incident-window", "--incident-settle",
+                        "--incident-max"), "A.21")
 # flags whose value must come with another flag to be valid in both packages
 _WITH = {"--accum-start": ["--accum-max", "4"],
          "--block-groups": ["--model", "blocked_lr", "--block-size", "4"],

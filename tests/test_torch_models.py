@@ -7,6 +7,7 @@ model rounds the residual to bf16 before the backward product
 kernel does (``pallas_lr.py:76-78``).
 """
 
+import os
 import re
 
 import jax.numpy as jnp
@@ -166,6 +167,22 @@ class TestConfigGates:
             JaxConfig(obs_metrics_port=port)
         with pytest.raises(ValueError, match=re.escape(str(theirs.value))):
             Config(device="cpu", obs_metrics_port=port)
+
+    # distributed tracing's options (ROADMAP A.25): accepted, with the JAX
+    # package's defaults and values, and refused with its message
+    @pytest.mark.parametrize("kw", [{}, {"trace_sample": 0.0}, {"trace_sample": 1.0},
+                                    {"obs_run_dir": "run", "trace_sample": 0.25},
+                                    {"obs_run_dir": os.pathsep.join(["a", "b"])}])
+    def test_trace_options_resolve_like_jax(self, kw):
+        j, t = JaxConfig(**kw), Config(device="cpu", **kw)
+        assert (t.obs_run_dir, t.trace_sample) == (j.obs_run_dir, j.trace_sample)
+
+    @pytest.mark.parametrize("rate", [-0.01, 1.5])
+    def test_trace_sample_refused_like_jax(self, rate):
+        with pytest.raises(ValueError) as theirs:
+            JaxConfig(trace_sample=rate)
+        with pytest.raises(ValueError, match=re.escape(str(theirs.value))):
+            Config(device="cpu", trace_sample=rate)
 
     # the durable store and the fault plan (ROADMAP A.16.4-A.16.5):
     # accepted, with the JAX package's values

@@ -8,8 +8,9 @@ JAX package's (``distlr_tpu/obs``), on the CPU.
   byte-equal ``prometheus_text()`` and equal ``snapshot()``.
 * Family parity: every family a JAX module declares has, once the port's
   twin is imported, the same name, type, label names, HELP and buckets in
-  the port's registry.  The families of the fleet tools (ROADMAP A.21)
-  and of distributed tracing (A.25) are listed by module as absent.
+  the port's registry (distributed tracing's ``distlr_trace_*`` among
+  them).  The families of the fleet tools (ROADMAP A.21) are listed by
+  module as absent.
 * The runtime probes: the scoring engine's compiles by bucket equal
   JAX's for the same call sequence; the device-bytes gauge moves.
 * The per-client counters ``chip_smoke.py`` reads as attributes still
@@ -482,6 +483,7 @@ _PORTED = {
     "distlr_tpu/train/ps_trainer.py": "distlr_tpu_torch.train.ps_trainer",
     "distlr_tpu/obs/tracing.py": "distlr_tpu_torch.obs.tracing",
     "distlr_tpu/obs/jaxrt.py": "distlr_tpu_torch.obs.torchrt",
+    "distlr_tpu/obs/dtrace.py": "distlr_tpu_torch.obs.dtrace",
 }
 #: JAX modules whose families the port does not declare yet, by ROADMAP item
 _ABSENT = {
@@ -491,7 +493,6 @@ _ABSENT = {
     "distlr_tpu/obs/log.py": "A.21",
     "distlr_tpu/obs/profile.py": "A.21",
     "distlr_tpu/obs/slo.py": "A.21",
-    "distlr_tpu/obs/dtrace.py": "A.25",
 }
 #: the runtime probes keep JAX's names and labels, and say in their HELP
 #: what each counts in the port

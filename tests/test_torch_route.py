@@ -287,20 +287,37 @@ class TestRouterProtocolParity:
         assert sum(r["reinstates"] for r in our_stats["replicas"]) >= 2
         assert our_stats["shadow"]["mirrored"] == 3
 
-    def test_trace_prefix_answers_err_naming_a25(self):
-        log: list = []
-        stub = _Stub("s0", log)
-        try:
-            with ScoringRouter(stub.addr) as router:
-                reply, good = score_lines_over_tcp(router.host, router.port,
-                                                   ["TRACE 00/00 1:1", "1:1"])
-                stats = router.stats()
-        finally:
-            stub.shutdown()
-            stub.server_close()
-        assert reply.startswith("ERR NotImplementedError: ") and "ROADMAP A.25)" in reply
-        assert not good.startswith("ERR") and stats["errors"] == 1
-        assert log == [("s0", "1:1")]
+    def test_trace_prefix_is_forwarded_like_jax(self):
+        """A ``TRACE <tid>/<sid>`` line: both routers answer the replica's
+        reply and forward ``TRACE <tid>/<span> <line>`` under the caller's
+        trace id (a new span id, the route.request span's); a malformed
+        prefix answers JAX's ERR on both, counted as an error."""
+        lines = ["TRACE 00000000000000ab/0000000000000001 1:1", "TRACE broken",
+                 "TRACE nothex/zz 1:1", "1:1"]
+        got = {}
+        for name, cls in (("ours", ScoringRouter), ("jax", JaxRouter)):
+            log: list = []
+            stub = _Stub("s0", log)
+            try:
+                with cls(stub.addr) as router:
+                    replies = score_lines_over_tcp(router.host, router.port, lines)
+                    errors = router.stats()["errors"]
+            finally:
+                stub.shutdown()
+                stub.server_close()
+            got[name] = (replies, errors, log)
+        (ours, our_errors, our_log), (theirs, their_errors, their_log) = got["ours"], got["jax"]
+        assert ours[1:3] == theirs[1:3] and ours[1].startswith("ERR TRACE: need TRACE")
+        assert ours[2] == "ERR TRACE: malformed trace token 'nothex/zz'"
+        assert our_errors == their_errors == 2
+        for log in (our_log, their_log):
+            assert [line for _, line in log][1:] == ["1:1"]
+            fwd = log[0][1].split(" ")
+            assert fwd[0] == "TRACE" and fwd[2] == "1:1"
+            assert fwd[1].startswith("00000000000000ab/") and fwd[1] != lines[0].split(" ")[1]
+        # the stub's score hashes the forwarded line, whose span id is random
+        assert not ours[0].startswith("ERR") and not theirs[0].startswith("ERR")
+        assert ours[3] == theirs[3]
 
     @pytest.mark.parametrize("kw", [
         {"max_inflight": 0}, {"eject_after": 0}, {"health_interval_s": 0},

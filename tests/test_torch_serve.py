@@ -509,13 +509,20 @@ class TestServerEndToEnd:
         assert not good.startswith("ERR")
         assert stats["errors"] == 2 and stats["requests"] == 1
 
-    @pytest.mark.parametrize("line,item", [("TRACE 00/00 1:1", "A.25")])
-    def test_unported_lines_answer_err_naming_their_item(self, line, item):
-        ours, _ = _servers(_trained_weights(8), num_feature_dim=8)
-        with ours as srv:
-            reply, good = score_lines_over_tcp(srv.host, srv.port, [line, "1:1"])
-        assert reply.startswith("ERR NotImplementedError: ") and f"ROADMAP {item})" in reply
-        assert not good.startswith("ERR")
+    @pytest.mark.parametrize("line", ["TRACE 00/00 1:1", "TRACE broken",
+                                      "TRACE nothex/zz 1:1", "TRACE"])
+    def test_trace_lines_answer_like_jax(self, line):
+        """A ``TRACE`` prefix joins the request to the caller's trace and
+        answers the bare line's reply; a malformed one answers JAX's ERR.
+        Both servers reply byte for byte alike, the connection stays up."""
+        replies = []
+        for srv in _servers(_trained_weights(8), num_feature_dim=8, compute_dtype="float32"):
+            with srv:
+                replies.append(score_lines_over_tcp(srv.host, srv.port, [line, "1:1"]))
+        assert replies[0] == replies[1]
+        assert not replies[0][1].startswith("ERR")
+        if line == "TRACE 00/00 1:1":
+            assert replies[0][0] == replies[0][1]
 
     # ID / LABEL lines and the JSON "ids" (ROADMAP A.11), on a server without
     # a feedback sink: the id is ignored, LABEL answers the JAX server's ERR
