@@ -34,8 +34,11 @@ every family, an int8_dot sync that checkpoints and resumes,
 ``gen-data -> ps -> eval``, ``gen-data -> sync -> serve`` (a text model,
 then a checkpoint directory), ``sync`` and ``eval --feature-shards 4``,
 ``sync`` as a one-rank NCCL group, ``serve`` x2 -> ``route`` ->
-``rollout`` and ``ps-server`` -> ``online`` -> ``serve --feedback-spool``,
-then the parameter-server path at the full
+``rollout``, ``ps-server`` -> ``online`` -> ``serve --feedback-spool``,
+and the fleet tools at D = 1M (``ps``, ``serve``, ``route`` and ``obs-agg
+--slo-file`` under one ``--obs-run-dir``, with ``fleet-query``, ``top``,
+``profrec``, ``incident --trigger``, ``autopilot``, ``prof-agg``, ``logs``
+around them), then the parameter-server path at the full
 width through ``run_ps_local`` (native libsvm shards of config-3 CTR rows
 at D = 1M, 2 native KV servers, 2 worker threads on the card: sync BSP
 and async Hogwild, each gradient the ``fused_lr_grad`` single pass; then
@@ -96,7 +99,15 @@ spans link up and whose weights equal the untraced run's; a routed,
 labelled and online-learned request whose one trace runs from the router
 to the FTRL server's handler span, merged by ``launch trace-agg``, with
 replies equal to the untraced session's; the KV wire at sample 0; a
-``launch flightrec`` dump; the tracer's costs), and last the path of the on-device
+``launch flightrec`` dump; the tracer's costs), then the fleet
+observability and control plane at D = 1M (this process as fleet rank
+``ps-0`` beside a ``launch serve`` rank: a sync PS run observed by the
+span journal, the 19 Hz profiler and the fleet log, bit-equal to an
+unobserved one; served latency with the profiler on and off; an incident
+whose flight dumps, burst windows and bundle name each other; the
+aggregator's counter sums exact; one autopilot grow on an elastic group
+equal to a static one; the profiler's and the log's costs), and last the
+path of the on-device
 generation probes: both roofline experiments
 (``distlr_tpu_torch.benchmarks.exp_gen_roofline*``) at the published
 (256, 8192) x 64 tile, in this process and as ``python -m``.  Each phase
@@ -6269,6 +6280,8 @@ def phase_obs(torch, seed: int, smi: str) -> dict:
 # the dtrace phase: distributed tracing on the main path at D = 1M; every
 # part configures the process-wide tracer and undoes it in a finally
 DTRACE_REQUESTS, DTRACE_COST_REPS = 40, 20_000
+# the traced PS runs' rounds (each run a sync group of PS_WORKERS at D = 1M)
+DTRACE_EPOCHS = 2
 DTRACE_FLIGHT_WAIT_S = 1.0
 DTRACE_CHAIN = ("route.request", "serve.request", "feedback.spool", "feedback.join",
                 "online.consume", "ps.push", "kv.push")
@@ -6286,7 +6299,7 @@ def _dtrace_spans(run: str) -> dict:
 
 
 def _dtrace_ps(torch, seed: int, tmp: str) -> dict:
-    """``run_ps_local`` sync for PS_EPOCHS rounds at D = 1M (PS_SERVERS
+    """``run_ps_local`` sync for DTRACE_EPOCHS rounds at D = 1M (PS_SERVERS
     native servers journaling their handler spans, PS_WORKERS worker
     threads on the card) at sample 1, between two untraced runs of the
     same config (their ``round_ms`` bracket the traced run's): every
@@ -6301,7 +6314,7 @@ def _dtrace_ps(torch, seed: int, tmp: str) -> dict:
     d, run = os.path.join(tmp, "ps"), os.path.join(tmp, "ps_run")
     _ps_data(d, seed)
     cfg = Config(data_dir=d, num_feature_dim=FULL_D, num_workers=PS_WORKERS,
-                 num_servers=PS_SERVERS, batch_size=-1, num_iteration=PS_EPOCHS,
+                 num_servers=PS_SERVERS, batch_size=-1, num_iteration=DTRACE_EPOCHS,
                  test_interval=0, learning_rate=0.2, l2_c=0.01, compute_dtype="bfloat16",
                  ps_timeout_ms=PS_TIMEOUT_MS)
     plain, plain_report, _, plain_s = _run_ps(torch, cfg, save=False)
@@ -6327,7 +6340,7 @@ def _dtrace_ps(torch, seed: int, tmp: str) -> dict:
     linked = sum(1 for op in ops_ if op["parent"] in step_ids
                  and sorted(h[0] for h in handlers.get(op["span"], [])) == servers
                  and all(h[1] == op["trace"] for h in handlers[op["span"]]))
-    out = {"rounds": PS_EPOCHS, "workers": PS_WORKERS, "servers": PS_SERVERS,
+    out = {"rounds": DTRACE_EPOCHS, "workers": PS_WORKERS, "servers": PS_SERVERS,
            "journals": {k: len(v) for k, v in journals.items()},
            "train_steps": len(steps), "push_pull_ops": len(ops_),
            "ops_with_step_parent_and_server_children": linked,
@@ -6340,7 +6353,7 @@ def _dtrace_ps(torch, seed: int, tmp: str) -> dict:
                                  for rep in (plain_report, after_report)],
            "orphans": sum(1 for recs in journals.values() for r in recs
                           if r["parent"] is not None and r["parent"] not in by_span)}
-    n = PS_EPOCHS * PS_WORKERS
+    n = DTRACE_EPOCHS * PS_WORKERS
     if not (len(steps) == len(ops_) == linked == n and out["weights_bit_equal_untraced"]
             and launches["fused_lr_grad"] == n and out["orphans"] == 0):
         raise AssertionError(f"dtrace ps: {out}")
@@ -6597,6 +6610,454 @@ def phase_dtrace(torch, seed: int, smi: str) -> dict:
            "spans_journaled": sum(ps["journals"].values()) + serve["trace_agg"]["spans"],
            "phase_s": time.perf_counter() - t_phase}
     emit("dtrace", **out)
+    return out
+
+
+# --- the fleet observability and control plane -------------------------------
+# the in-process phase's PS runs (unobserved, then observed) at D = 1M, the
+# serving sessions' single-row requests, the incident's settle (the
+# profiler's 3 s burst window lands inside it), the autopilot leg's pushes,
+# the timed aggregator ticks and the cost loops
+FLEET_EPOCHS, FLEET_REQUESTS, FLEET_SETTLE_S, FLEET_PUSHES = 2, 60, 4.0, 8
+FLEET_TICKS, FLEET_LOG_REPS, FLEET_SAMPLE_REPS = 5, 2000, 200
+# the autopilot's ps band in pushes/s a server: the leg's pushes exceed it
+FLEET_PUSH_RATE_HIGH, FLEET_PUSH_RATE_LOW = 2.0, 0.5
+# the CLI chain's sync rounds: the fleet tools run while it trains
+FLEET_CLI_ROUNDS = 16
+FLEET_LAYOUT = ["autopilot", "endpoints", "flightrec", "incidents", "logs", "profiles", "spans"]
+# the SLO the CLI chain's aggregator evaluates: routed requests not shed
+FLEET_SLO = {"slos": [{"name": "route_availability", "objective": 0.99, "window_s": 3600,
+                       "sli": {"kind": "ratio", "bad": "increase(route_shed)",
+                               "total": "increase(route_requests)"}}]}
+# extra flags of the fleet's subprocesses that take the card (the CPU
+# rehearsal of the phase sets --device cpu)
+FLEET_DEVICE_ARGS: tuple = ()
+
+
+def _fleet_spawn(base: str, name: str, *argv) -> subprocess.Popen:
+    """``python -m distlr_tpu_torch.launch <argv>`` in the background, its
+    stderr into ``<base>/<name>.err``."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with open(os.path.join(base, f"{name}.err"), "w") as err:
+        return subprocess.Popen([sys.executable, "-m", "distlr_tpu_torch.launch", *argv],
+                                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+
+
+def _fleet_ready(proc: subprocess.Popen, prefix: str, base: str, name: str) -> str:
+    """The address on the first stdout line of ``proc`` that starts with
+    ``prefix`` (``SERVING``, ``ROUTING``, ``METRICS``)."""
+    while True:
+        line = proc.stdout.readline()
+        if line.startswith(prefix):
+            return line.split()[1]
+        if not line:
+            with open(os.path.join(base, f"{name}.err")) as f:
+                raise AssertionError(f"launch {name} exited {proc.wait()} before {prefix!r}:\n"
+                                     f"{f.read()[-2000:]}")
+
+
+def _fleet_stop(procs: dict) -> dict:
+    """SIGTERM every process still running, then the exit codes."""
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+    rcs = {}
+    for name, proc in procs.items():
+        try:
+            rcs[name] = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rcs[name] = proc.wait()
+    return rcs
+
+
+def _fleet_json(url: str) -> dict:
+    import urllib.request  # noqa: PLC0415
+
+    with urllib.request.urlopen(url + "/fleet.json", timeout=10) as r:
+        return json.load(r)
+
+
+def _fleet_wait(url: str, ready, what: str, timeout_s: float = 120.0) -> dict:
+    """Poll the aggregator's ``/fleet.json`` until ``ready(doc)``."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            doc = _fleet_json(url)
+            if ready(doc):
+                return doc
+        except OSError:
+            doc = None
+        if time.monotonic() > deadline:
+            raise AssertionError(f"the fleet never reached {what}: {doc}")
+        time.sleep(0.2)
+
+
+def _fleet_up(doc: dict) -> dict:
+    return {f"{r['role']}-{r['rank']}": r["state"] for r in doc.get("ranks", [])}
+
+
+def _fleet_windows(run: str) -> dict:
+    """Every profile journal's windows, by journal stem."""
+    prof = os.path.join(run, "profiles")
+    out = {}
+    for name in sorted(os.listdir(prof)):
+        if name.endswith(".jsonl"):
+            with open(os.path.join(prof, name)) as f:
+                out[name[:-len(".jsonl")]] = [
+                    w for w in (json.loads(x) for x in f if x.strip())
+                    if w.get("type") == "profwindow"]
+    return out
+
+
+def _fleet_counters(snap: dict) -> dict:
+    """A ``/metrics.json`` document's counter series: (name, labels) -> value."""
+    return {(name, tuple(sorted(s["labels"].items()))): s["value"]
+            for name, fam in snap.items() if fam["type"] == "counter" for s in fam["series"]}
+
+
+def _fleet_federation(scraper, urls: dict) -> dict:
+    """Each rank's own ``/metrics.json`` before and after one scrape by the
+    aggregator: every counter series that held still in every rank across
+    the scrape is, in the merged registry, the sum of the ranks' values
+    exactly; one that moved (the samplers' own counts) lies between the
+    sums before and after."""
+    import urllib.request  # noqa: PLC0415
+
+    def fetch():
+        out = {}
+        for rank, url in urls.items():
+            with urllib.request.urlopen(url + "/metrics.json", timeout=10) as r:
+                out[rank] = _fleet_counters(json.load(r))
+        return out
+
+    before = fetch()
+    merged = _fleet_counters(scraper.scrape_once().snapshot())
+    after = fetch()
+    keys = set().union(*before.values())
+    exact, moving, bad = 0, 0, []
+    for key in sorted(keys):
+        lo = sum(r.get(key, 0.0) for r in before.values())
+        hi = sum(r.get(key, 0.0) for r in after.values())
+        got = merged.get(key)
+        if lo == hi:
+            exact += 1
+            if got != lo:
+                bad.append((key, got, lo))
+        else:
+            moving += 1
+            if got is None or not lo <= got <= hi:
+                bad.append((key, got, lo, hi))
+    return {"counter_series": len(keys), "exact": exact, "moving_between_bounds": moving,
+            "mismatches": bad[:5]}
+
+
+def _fleet_session(server, lines, out: list) -> None:
+    """``lines`` as single-row requests over one connection; each request's
+    seconds appended to ``out``."""
+    client = _OnlineClient(server.host, server.port)
+    try:
+        for line in lines:
+            if client.exchange(line).startswith("ERR"):
+                raise AssertionError(f"fleet: {line[:40]!r} answered an error")
+    finally:
+        client.close()
+    out.extend(client.seconds)
+
+
+def _fleet_autopilot(run: str, scraper, rng) -> dict:
+    """One grow decided by the autopilot: FLEET_PUSHES pushes into a
+    2-server elastic group at D = 1M, the aggregator's scrape of this rank
+    before and after them, and an :class:`AutopilotDaemon` polling its
+    ``/fleet.json`` over HTTP with only the ps actuator bound (``ps-ctl``,
+    RESIZE wait=0).  The second tick sees the push rate above its band and
+    grows the group to 3; the pull after the resize equals a static 2-server
+    group's after the same pushes, bit for bit."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.autopilot import (  # noqa: PLC0415
+        Actuators,
+        AutopilotDaemon,
+        PolicyConfig,
+        PolicyEngine,
+        PSActuator,
+        fleet_fetcher,
+    )
+    from distlr_tpu_torch.obs import MetricsServer, write_endpoint  # noqa: PLC0415
+    from distlr_tpu_torch.ps import (  # noqa: PLC0415
+        KVWorker,
+        MembershipCoordinator,
+        MembershipServer,
+        ServerGroup,
+    )
+
+    grads = [(rng.standard_normal(FULL_D) * 1e-3).astype(np.float32) for _ in range(FLEET_PUSHES)]
+    w0 = (rng.standard_normal(FULL_D) * 0.01).astype(np.float32)
+
+    def pushes(hosts):
+        with KVWorker(hosts, FULL_D, client_id=1, sync_group=False,
+                      timeout_ms=PS_TIMEOUT_MS) as kv:
+            kv.push_init(w0)
+            for g in grads:
+                kv.push(g)
+
+    with ServerGroup(PS_SERVERS, 1, FULL_D, sync=False) as static:
+        pushes(static.hosts)
+        with KVWorker(static.hosts, FULL_D, client_id=2, sync_group=False) as kv:
+            w_static = kv.pull()
+    server = MetricsServer(registry=scraper, extra_json={"/fleet.json": scraper.fleet_json},
+                           extra_query={"/query": scraper.query_endpoint}).start()
+    endpoint = write_endpoint(run, "obs-agg", 0, server.host, server.port)
+    try:
+        with ServerGroup(PS_SERVERS, 1, FULL_D, sync=False) as group:
+            coord = MembershipCoordinator(group)
+            with MembershipServer(coord) as ctl:
+                policy = PolicyConfig(hysteresis_ticks=1, cooldown_s=0.0,
+                                      push_rate_high=FLEET_PUSH_RATE_HIGH,
+                                      push_rate_low=FLEET_PUSH_RATE_LOW, ps_max=PS_SERVERS + 1)
+                actuators = Actuators(ps=PSActuator(f"127.0.0.1:{ctl.port}"))
+                daemon = AutopilotDaemon(PolicyEngine(policy), actuators,
+                                         fetch=fleet_fetcher(f"http://{server.host}:{server.port}"),
+                                         journal_dir=run, rate_window_s=60.0)
+                scraper.scrape_once()
+                first = daemon.tick_once()
+                t0 = time.perf_counter()
+                pushes(group.hosts)
+                push_s = time.perf_counter() - t0
+                scraper.scrape_once()
+                grow = daemon.tick_once()
+                deadline = time.monotonic() + 120
+                while actuators.ps.current() != (PS_SERVERS + 1, False):
+                    if time.monotonic() > deadline:
+                        raise AssertionError("fleet autopilot: the resize never settled")
+                    time.sleep(0.05)
+                with KVWorker(group.hosts, FULL_D, client_id=3, sync_group=False) as kv:
+                    w_elastic = kv.pull()
+                actuators.close()
+    finally:
+        server.stop()
+        with contextlib.suppress(OSError):
+            os.unlink(endpoint)
+    with open(daemon.journal_path) as f:
+        header = json.loads(f.readline())
+    out = {"rules": [first.rule, grow.rule],
+           "action": grow.action.to_doc() if grow.action else None,
+           "push_rate_per_server": grow.inputs.get("push_rate"), "push_s": push_s,
+           "journal_header": header, "servers_after": PS_SERVERS + 1,
+           "pull_bit_equal_static_group": bool(np.array_equal(w_elastic, w_static))}
+    if not (out["rules"] == ["steady", "ps_up"] and out["pull_bit_equal_static_group"]
+            and header == {"schema": 1, "kind": "autopilot_decisions"}
+            and out["action"]["to"] == PS_SERVERS + 1):
+        raise AssertionError(f"fleet autopilot: {out}")
+    return out
+
+
+def _fleet_costs(tmp: str) -> dict:
+    """µs a profiler tick (one ``sample_once`` over every thread of this
+    process) and µs a journaled log record; the mean of their loops."""
+    from distlr_tpu_torch.obs import profile  # noqa: PLC0415
+    from distlr_tpu_torch.obs import log as fleetlog  # noqa: PLC0415
+
+    p = profile.SamplingProfiler(None, "cost", 0)
+    threads = len(sys._current_frames())
+    t0 = time.perf_counter()
+    for _ in range(FLEET_SAMPLE_REPS):
+        p.sample_once()
+    tick_us = 1e6 * (time.perf_counter() - t0) / FLEET_SAMPLE_REPS
+    lg = fleetlog.FleetLogger(os.path.join(tmp, "cost"), "cost", 0, dedupe_s=0.0)
+    t0 = time.perf_counter()
+    for i in range(FLEET_LOG_REPS):
+        lg.emit("info", f"record {i}", logger="distlr_tpu_torch.smoke")
+    lg.close()
+    record_us = 1e6 * (time.perf_counter() - t0) / FLEET_LOG_REPS
+    return {"profiler_tick_us": tick_us, "threads_sampled": threads,
+            "log_record_us": record_us}
+
+
+def phase_fleet(torch, seed: int, smi: str) -> dict:
+    """The fleet observability and control plane on the main path at D = 1M,
+    in this process as fleet rank ``ps-0`` (``launch``'s ``_obs_scope``: span
+    journal, profiler at 19 Hz, fleet log, endpoint) beside a ``launch serve``
+    subprocess on the card as rank ``serve-0``: a sync PS run unobserved then
+    observed (row 1, ``fused_lr_grad``; weights bit-equal), an in-process
+    ``ScoringServer`` at D = 1M (row 1′, ``lr_logits``) with the profiler on,
+    off, on; an incident triggered by hand with traffic during the burst; the
+    aggregator's federation of the two ranks; one autopilot grow; then the
+    run dir's layout, profiles, ``prof-agg`` tracks, log trace ids and the
+    bundle's manifest.  Every process-wide piece (tracer, sampler, log tee)
+    is undone in a ``finally``."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch import launch, ops  # noqa: PLC0415
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.obs import dtrace, federate, incident, profile  # noqa: PLC0415
+    from distlr_tpu_torch.obs import log as fleetlog  # noqa: PLC0415
+    from distlr_tpu_torch.serve import ScoringServer, score_lines_over_tcp  # noqa: PLC0415
+    from distlr_tpu_torch.train.export import save_model_text  # noqa: PLC0415
+    from distlr_tpu_torch.utils.logging import get_logger  # noqa: PLC0415
+
+    t_phase = time.perf_counter()
+    procs = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="distlr-smoke-fleet-") as tmp:
+            run, d = os.path.join(tmp, "run"), os.path.join(tmp, "ps")
+            rng = np.random.default_rng(seed + 24)
+            model = os.path.join(tmp, "model.txt")
+            save_model_text(model, (rng.standard_normal(FULL_D) * 0.01).astype(np.float32))
+            procs["serve"] = _fleet_spawn(
+                tmp, "serve", "serve", "--num-feature-dim", str(FULL_D), "--model-file", model,
+                "--port", "0", "--obs-run-dir", run, "--trace-sample", "1.0",
+                "--prof-window", "1", *FLEET_DEVICE_ARGS)
+            _ps_data(d, seed)
+            cfg = Config(data_dir=d, num_feature_dim=FULL_D, num_workers=PS_WORKERS,
+                         num_servers=PS_SERVERS, batch_size=-1, num_iteration=FLEET_EPOCHS,
+                         test_interval=0, learning_rate=0.2, l2_c=0.01,
+                         compute_dtype="bfloat16", ps_timeout_ms=PS_TIMEOUT_MS)
+            plain, plain_report, _, _ = _run_ps(torch, cfg, save=False)
+            obs_cfg = cfg.replace(obs_run_dir=run, trace_sample=1.0, prof_window_s=1.0)
+            cols, _ = _ctr_cols(rng, 3 * FLEET_REQUESTS, np.zeros(FULL_D, np.float32), FULL_D)
+            lines = [_features(c) for c in cols]
+            with contextlib.ExitStack() as scope:
+                with contextlib.redirect_stdout(io.StringIO()) as announced:
+                    scope.enter_context(launch._obs_scope(obs_cfg, "ps", 0))
+                ps_metrics = announced.getvalue().split()[1]
+                observed, report, ps_launches, _ = _run_ps(torch, obs_cfg, save=False)
+                eng = _serve_engine(torch, FULL_D)
+                eng.set_weights(observed[0])
+                ops.reset_launch_counts()
+                seconds = {"prof_19hz": [], "prof_off": [], "prof_19hz_again": []}
+                with ScoringServer(eng, max_wait_ms=SERVE_WAIT_MS) as srv:
+                    _fleet_session(srv, lines[:10], [])  # the first requests' one-time costs
+                    _fleet_session(srv, lines[:FLEET_REQUESTS], seconds["prof_19hz"])
+                    # the incident: rings dump, samplers burst, the bundle
+                    # assembles after the settle; traffic runs through the burst
+                    serve_addr = _fleet_ready(procs["serve"], "SERVING ", tmp, "serve")
+                    host, port = serve_addr.rsplit(":", 1)
+                    bundle, burst_seconds = {}, []
+                    trig = threading.Thread(target=lambda: bundle.update(
+                        t0=time.perf_counter(),
+                        path=incident.manual_trigger(run, "smoke", settle_s=FLEET_SETTLE_S),
+                        t1=time.perf_counter()))
+                    trig.start()
+                    t_end = time.monotonic() + FLEET_SETTLE_S - 0.5
+                    remote = score_lines_over_tcp(host, int(port), lines[:20])
+                    while time.monotonic() < t_end:
+                        _fleet_session(srv, lines[FLEET_REQUESTS:FLEET_REQUESTS + 10],
+                                       burst_seconds)
+                    trig.join()
+                    profile.stop()
+                    _fleet_session(srv, lines[FLEET_REQUESTS:2 * FLEET_REQUESTS],
+                                   seconds["prof_off"])
+                    profile.configure(run, "ps", 0, hz=obs_cfg.prof_hz, window_s=1.0)
+                    _fleet_session(srv, lines[2 * FLEET_REQUESTS:], seconds["prof_19hz_again"])
+                torch.cuda.synchronize()
+                serve_launches = _launches(ops)
+                # a record written under a span carries the span's ids
+                with dtrace.use(dtrace.new_trace()), dtrace.span("smoke.fleet"):
+                    ids = dtrace.current_ids()
+                    get_logger("distlr_tpu_torch.smoke").warning("fleet smoke under a span")
+                fleetlog.flush()
+                # alert thresholds no earlier phase's cumulative series can
+                # trip: the only trigger of this run dir is the phase's own
+                scraper = federate.FleetScraper(run, interval_s=0.5, thresholds=(
+                    federate.AlertThresholds(barrier_wait_ratio=1e9, push_error_rate=1.1,
+                                             scrape_stale_s=1e9, weight_age_ratio=1e9,
+                                             retry_rate=1.1, shadow_psi=1e9)))
+                t0 = time.perf_counter()
+                for _ in range(FLEET_TICKS):
+                    scraper.scrape_once()
+                tick_ms = 1e3 * (time.perf_counter() - t0) / FLEET_TICKS
+                fleet = scraper.fleet_json()
+                autopilot = _fleet_autopilot(run, scraper, rng)
+                serve_ep = next(e for e in federate.discover_endpoints(run)
+                                if e["role"] == "serve")
+                federation = _fleet_federation(scraper, {
+                    "ps-0": f"http://{ps_metrics}",
+                    "serve-0": f"http://{serve_ep['host']}:{serve_ep['port']}"})
+                costs = _fleet_costs(tmp)
+                rcs = _fleet_stop(procs)
+            # the scope's exit flushed the journals and left the fleet
+            layout = sorted(e for e in os.listdir(run) if os.path.isdir(os.path.join(run, e)))
+            windows = _fleet_windows(run)
+            tracks = profile.merge_run_dirs(run)
+            doc = incident.load(run, incident.latest_seq(run))
+            records = fleetlog.read_records(run)
+            spans = _dtrace_spans(run)
+            dumps = {}
+            for path in doc["flight_dumps"]:
+                with open(path) as f:
+                    dump = json.load(f)
+                dumps[f"{dump['role']}-{dump['rank']}"] = {
+                    "spans": len(dump["spans"]),
+                    "log_journal": os.path.basename(dump.get("log_journal") or ""),
+                    "profile_journal": os.path.basename(dump.get("profile_journal") or ""),
+                    "profile_incident_seq": dump.get("profile_incident_seq")}
+    finally:
+        _fleet_stop(procs)
+        dtrace.reset_for_tests()
+        profile.reset_for_tests()
+        fleetlog.reset_for_tests()
+    seq = doc["seq"]
+    tags = {stem: sorted({k.split(";", 1)[0] for w in ws for k in w["stacks"]})
+            for stem, ws in windows.items()}
+    bursts = {stem: [w.get("incident") for w in ws if w.get("kind") == "burst"]
+              for stem, ws in windows.items()}
+    trace = f"{ids[0]:016x}"
+    under_span = [r for r in records if r.get("msg") == "fleet smoke under a span"]
+    span_traces = {r["trace"] for recs in spans.values() for r in recs}
+    out = {
+        "nvidia_smi": smi, "run_dir_layout": layout,
+        "ps": {"rounds": FLEET_EPOCHS, "weights_bit_equal_unobserved": all(
+                   np.array_equal(a, b) for a, b in zip(plain, observed)),
+               "round_ms": {"unobserved": [plain_report[r]["round_ms"] for r in range(PS_WORKERS)],
+                            "observed_prof_19hz": [report[r]["round_ms"]
+                                                   for r in range(PS_WORKERS)]}},
+        "serve": {"requests": FLEET_REQUESTS, "remote_replies": len(remote),
+                  "p50_ms": {k: 1e3 * float(np.median(v)) for k, v in seconds.items()},
+                  "p99_ms": {k: 1e3 * float(np.quantile(v, 0.99)) for k, v in seconds.items()},
+                  "during_burst_p50_ms": 1e3 * float(np.median(burst_seconds))},
+        "fleet_ranks": _fleet_up(fleet), "federation": federation,
+        "obs_agg_tick_ms": tick_ms, "ranks_scraped": len(fleet["ranks"]),
+        "profiles": {"journals": {k: len(v) for k, v in windows.items()}, "span_tags": tags,
+                     "burst_incidents": bursts, "prof_agg_tracks": sorted(tracks)},
+        "logs": {"records": len(records), "under_span": len(under_span),
+                 "trace_ids_match": bool(under_span) and all(
+                     r.get("trace") == trace and r.get("span") == f"{ids[1]:016x}"
+                     for r in under_span),
+                 "traced_records_in_span_journals": sum(
+                     1 for r in records if r.get("trace") in span_traces)},
+        "incident": {"seq": seq, "trigger_to_bundle_s": bundle["t1"] - bundle["t0"],
+                     "settle_s": FLEET_SETTLE_S, "events": doc["events"],
+                     "flight_dumps": dumps,
+                     "bursts": sorted(os.path.basename(p) for p in doc["bursts"])},
+        "autopilot": autopilot, "costs": costs, "exit_codes": rcs,
+        "launches": {k: ps_launches[k] + serve_launches[k] for k in ps_launches},
+        "launches_by_leg": {"ps_observed": {"fused_lr_grad": ps_launches["fused_lr_grad"]},
+                            "serve_sessions": {"lr_logits": serve_launches["lr_logits"]}},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    python_ranks = ("ps-0", "serve-0")
+    ok = (layout == FLEET_LAYOUT and out["ps"]["weights_bit_equal_unobserved"]
+          and all(s == "up" for s in out["fleet_ranks"].values())
+          and set(out["fleet_ranks"]) == set(python_ranks)
+          and not federation["mismatches"] and federation["exact"] > 0
+          and all(windows.get(s) for s in (*python_ranks, "kvserver-0", "kvserver-1"))
+          and "train.step" in tags["ps-0"]
+          and all(any(t.startswith("serve.") for t in tags[s]) for s in python_ranks)
+          and all(seq in bursts[s] for s in python_ranks)
+          and sorted(tracks) == sorted(windows)
+          and out["logs"]["trace_ids_match"]
+          and all(dumps.get(s, {}).get("spans", 0) > 0
+                  and dumps[s]["log_journal"] == f"{s}.jsonl"
+                  and dumps[s]["profile_journal"] == f"{s}.jsonl"
+                  and dumps[s]["profile_incident_seq"] == seq for s in python_ranks)
+          and rcs == {"serve": 143}
+          and ps_launches["fused_lr_grad"] == FLEET_EPOCHS * PS_WORKERS
+          and serve_launches["lr_logits"] >= 3 * FLEET_REQUESTS)
+    if not ok:
+        raise AssertionError(f"fleet: {out}")
+    emit("fleet", **out)
     return out
 
 
@@ -6924,6 +7385,124 @@ def _cli_online(tmp: str) -> dict:
             "accuracy_of_pulled_weights": acc}
 
 
+def _cli_fleet(tmp: str) -> dict:
+    """The fleet tools around a live fleet at D = 1M, all ``python -m
+    distlr_tpu_torch.launch`` subprocesses under one ``--obs-run-dir``:
+    ``ps`` (sync, 2 servers, 2 workers on the card, FLEET_CLI_ROUNDS rounds),
+    ``serve`` (one replica on the card), ``route`` in front of it and
+    ``obs-agg --interval 0.5 --slo-file``.  Once the aggregator reads every
+    rank up with the ps rank's pushes counted: ``fleet-query``, ``top``,
+    ``profrec``, ``incident --trigger smoke`` and a bounded ``autopilot``
+    side by side; after ``ps`` exits 0 and the others take SIGTERM (143):
+    ``prof-agg``, ``logs --json`` and the ``incident`` listing."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch.obs import incident  # noqa: PLC0415
+    from distlr_tpu_torch.serve import score_lines_over_tcp  # noqa: PLC0415
+    from distlr_tpu_torch.train.export import save_model_text  # noqa: PLC0415
+
+    base = os.path.join(tmp, "fleet")
+    run, d = os.path.join(base, "run"), os.path.join(base, "ps")
+    os.makedirs(base)
+    rng = np.random.default_rng(24)
+    model, slo = os.path.join(base, "model.txt"), os.path.join(base, "slo.json")
+    save_model_text(model, (rng.standard_normal(FULL_D) * 0.01).astype(np.float32))
+    with open(slo, "w") as f:
+        json.dump(FLEET_SLO, f)
+    procs = {}
+    try:
+        procs["serve"] = _fleet_spawn(base, "serve", "serve", "--num-feature-dim", str(FULL_D),
+                                      "--model-file", model, "--port", "0", "--obs-run-dir",
+                                      run, "--prof-window", "2", *FLEET_DEVICE_ARGS)
+        _ps_data(d, 0)
+        procs["ps"] = _fleet_spawn(base, "ps", "ps", "--data-dir", d, "--num-feature-dim",
+                                   str(FULL_D), "--num-workers", str(PS_WORKERS),
+                                   "--num-servers", str(PS_SERVERS), "--num-iteration",
+                                   str(FLEET_CLI_ROUNDS), "--test-interval", "0", "--l2-c",
+                                   "0.01", "--obs-run-dir", run, "--trace-sample", "1.0",
+                                   "--prof-window", "2", *FLEET_DEVICE_ARGS)
+        procs["obs-agg"] = _fleet_spawn(base, "obs-agg", "obs-agg", "--obs-run-dir", run,
+                                        "--interval", "0.5", "--slo-file", slo)
+        url = "http://" + _fleet_ready(procs["obs-agg"], "METRICS ", base, "obs-agg")
+        serve_addr = _fleet_ready(procs["serve"], "SERVING ", base, "serve")
+        procs["route"] = _fleet_spawn(base, "route", "route", "--replicas", serve_addr,
+                                      "--obs-run-dir", run)
+        route_addr = _fleet_ready(procs["route"], "ROUTING ", base, "route")
+        cols, _ = _ctr_cols(rng, 20, np.zeros(FULL_D, np.float32), FULL_D)
+        host, port = route_addr.rsplit(":", 1)
+        routed = score_lines_over_tcp(host, int(port), [_features(c) for c in cols])
+        ranks = {"ps-0", "serve-0", "route-0"}
+
+        def pushing(doc):
+            rows = {f"{r['role']}-{r['rank']}": r for r in doc.get("ranks", [])}
+            return (ranks <= set(rows) and all(rows[k]["state"] == "up" for k in ranks)
+                    and (rows["ps-0"].get("pushes") or 0) > 0)
+
+        fleet = _fleet_wait(url, pushing, "every rank up with pushes counted")
+        time.sleep(1.0)  # a second frame of pushes behind the query's rate
+        tools = {
+            "fleet_query": ("fleet-query", "increase(pushes{role=ps})", "--obs-run-dir", run),
+            "top": ("top", "--obs-run-dir", run, "--iterations", "1", "--no-color"),
+            "profrec": ("profrec", "--obs-run-dir", run, "--reason", "smoke"),
+            "incident": ("incident", "--obs-run-dir", run, "--trigger", "smoke",
+                         "--incident-settle", str(FLEET_SETTLE_S)),
+            "autopilot": ("autopilot", "--fleet", url, "--router", route_addr,
+                          "--replica-pool", serve_addr, "--iterations", "3", "--interval",
+                          "0.5", "--unwatched", "--journal-dir", run),
+        }
+        with ThreadPoolExecutor(len(tools)) as pool:
+            futures = {k: pool.submit(_launch, *argv) for k, argv in tools.items()}
+            out_tools = {k: fut.result().stdout for k, fut in futures.items()}
+        ps_alive_after_tools = procs["ps"].poll() is None
+        rc_ps = procs["ps"].wait(timeout=PS_WALL_S)
+        rcs = {"ps": rc_ps, **_fleet_stop({k: p for k, p in procs.items() if k != "ps"})}
+    finally:
+        _fleet_stop(procs)
+    prof = _launch("prof-agg", "--obs-run-dir", run, "--out", os.path.join(base, "profile"))
+    logs = _launch("logs", "--obs-run-dir", run, "--json")
+    listing = _launch("incident", "--obs-run-dir", run)
+    query = json.loads(out_tools["fleet_query"])
+    bundle_path = out_tools["incident"].split("INCIDENT ", 1)[1].split()[0]
+    manifest = incident.load(run, int(os.path.basename(bundle_path)))
+    tail = json.loads(out_tools["autopilot"].split("AUTOPILOT-EXIT ", 1)[1].splitlines()[0])
+    m = re.search(r"PROF \S+ tracks=(\d+) stacks=(\d+) samples=(\d+)", prof.stdout)
+    with open(os.path.join(run, "autopilot", "decisions.jsonl")) as f:
+        header = json.loads(f.readline())
+    out = {
+        "rounds": FLEET_CLI_ROUNDS, "exit_codes": rcs, "ranks_up": sorted(_fleet_up(fleet)),
+        "routed_replies": len(routed), "query": {k: query.get(k) for k in ("expr", "value")},
+        "top_roles": sorted(r for r in ("ps", "serve", "route")
+                            if re.search(rf"^\s*{r}\b", out_tools["top"], re.M)),
+        "profrec": os.path.basename(out_tools["profrec"].split()[-1]),
+        "incident": {"seq": manifest["seq"], "trigger": manifest["trigger"],
+                     "reason": manifest["reason"],
+                     "flight_dumps": sorted(os.path.basename(p)
+                                            for p in manifest["flight_dumps"]),
+                     "bursts": sorted(os.path.basename(p) for p in manifest["bursts"]),
+                     "bundles": len(incident.list_incidents(run))},
+        "autopilot": {"ticks": tail["ticks"], "journal_header": header},
+        "prof_agg": {"tracks": int(m.group(1)), "stacks": int(m.group(2)),
+                     "samples": int(m.group(3))} if m else None,
+        "log_records": len(logs.stdout.splitlines()),
+        "incident_listing": listing.stdout.split()[:3],
+        "ps_alive_after_tools": ps_alive_after_tools,
+        "run_dir_layout": sorted(e for e in os.listdir(run)
+                                 if os.path.isdir(os.path.join(run, e))),
+    }
+    ok = (rcs == {"ps": 0, "serve": 143, "obs-agg": 143, "route": 143}
+          and out["ranks_up"] == ["ps-0", "route-0", "serve-0"] and query["value"] is not None
+          and out["top_roles"] == ["ps", "route", "serve"]
+          and out["profrec"] == "TRIGGER.json"
+          and (manifest["trigger"], manifest["reason"]) == ("manual", "smoke")
+          and len(manifest["flight_dumps"]) >= 3 and manifest["bursts"]
+          and tail["ticks"] == 3 and header == {"schema": 1, "kind": "autopilot_decisions"}
+          and m is not None and int(m.group(1)) >= 5 and out["log_records"] > 0
+          and out["run_dir_layout"] == FLEET_LAYOUT and len(routed) == 20)
+    if not ok:
+        raise AssertionError(f"cli fleet: {out}")
+    return out
+
+
 def _read(path: str) -> bytes:
     with open(path, "rb") as f:
         return f.read()
@@ -6995,22 +7574,37 @@ def phase_cli() -> None:
     gen-data -> ps -> eval, gen-data -> sync -> serve (of a text model and
     of a checkpoint directory), sync and eval with --feature-shards, sync
     as a one-rank NCCL group, gen-data -> sync x2 -> serve x2 -> route
-    -> rollout, and ps-server -> online -> serve --feedback-spool, the
-    chains side by side."""
+    -> rollout, ps-server -> online -> serve --feedback-spool, and the fleet
+    tools around ps, serve, route and obs-agg, the chains side by side; the
+    line carries each chain's seconds from the phase's start."""
+    t_cli = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *a, **kw):
+        out = fn(*a, **kw)
+        seconds[name] = time.perf_counter() - t_cli
+        return out
+
     with tempfile.TemporaryDirectory(prefix="distlr-smoke-cli-") as tmp:
-        with ThreadPoolExecutor(len(CLI_FAMILIES) + 8) as pool:
-            futures = {f: pool.submit(_cli_family, tmp, f) for f in CLI_FAMILIES}
-            chains = {"int8_dot_resume": pool.submit(_cli_int8_dot_resume, tmp),
-                      "ps": pool.submit(_cli_ps, tmp),
-                      "serve": pool.submit(_cli_serve, tmp),
-                      "serve_checkpoint_dir": pool.submit(_cli_serve, tmp, checkpoints=True),
-                      "feature_shards": pool.submit(_cli_feature_shards, tmp),
-                      "one_nccl_rank": pool.submit(_cli_one_nccl_rank, tmp),
-                      "route": pool.submit(_cli_route, tmp),
-                      "online": pool.submit(_cli_online, tmp)}
+        with ThreadPoolExecutor(len(CLI_FAMILIES) + 9) as pool:
+            futures = {f: pool.submit(timed, f, _cli_family, tmp, f) for f in CLI_FAMILIES}
+            chains = {"int8_dot_resume": pool.submit(timed, "int8_dot_resume",
+                                                     _cli_int8_dot_resume, tmp),
+                      "ps": pool.submit(timed, "ps", _cli_ps, tmp),
+                      "serve": pool.submit(timed, "serve", _cli_serve, tmp),
+                      "serve_checkpoint_dir": pool.submit(timed, "serve_checkpoint_dir",
+                                                          _cli_serve, tmp, checkpoints=True),
+                      "feature_shards": pool.submit(timed, "feature_shards",
+                                                    _cli_feature_shards, tmp),
+                      "one_nccl_rank": pool.submit(timed, "one_nccl_rank", _cli_one_nccl_rank,
+                                                   tmp),
+                      "route": pool.submit(timed, "route", _cli_route, tmp),
+                      "online": pool.submit(timed, "online", _cli_online, tmp),
+                      "fleet": pool.submit(timed, "fleet", _cli_fleet, tmp)}
             results = {f: fut.result() for f, fut in futures.items()}
             chains = {k: fut.result() for k, fut in chains.items()}
-    emit("cli", **results.pop("binary_lr"), families=results, **chains)
+    emit("cli", **results.pop("binary_lr"), families=results, **chains,
+         chain_seconds=seconds)
 
 
 # --- the on-device generation probes ----------------------------------------
@@ -7394,7 +7988,7 @@ PHASES = ("sass", "kernels", "int8_kernels", "lr_backward", "roofline", "trainer
           "trainer_sparse_lr", "trainer_sparse_softmax", "trainer_blocked_lr",
           "trainer_softmax", "step_softmax_wide", "cli", "ps", "serve", "ps_keyed", "ps_wire",
           "ps_recovery", "ps_durable", "ps_elastic", "ps_sanitized", "serve_hot", "route",
-          "online", "obs", "dtrace", "roofline_experiments")
+          "online", "obs", "dtrace", "fleet", "roofline_experiments")
 
 
 def _selected_phases(arg: str | None) -> set | None:
@@ -7528,6 +8122,8 @@ def main(argv=None) -> int:
             obs = phase_obs(torch, args.seed, smi)
         if want("dtrace"):
             traced = phase_dtrace(torch, args.seed, smi)
+        if want("fleet"):
+            fleet = phase_fleet(torch, args.seed, smi)
         if want("roofline_experiments"):
             launches = phase_roofline_experiments(torch, smi)
         phase = "smoke_seconds"
@@ -7559,7 +8155,8 @@ def main(argv=None) -> int:
                                   ("route", route["launches"]),
                                   ("online", online["launches"]),
                                   ("obs", obs["launches"]),
-                                  ("dtrace", traced["launches"])):
+                                  ("dtrace", traced["launches"]),
+                                  ("fleet", fleet["launches"])):
             for name, n in counts.items():
                 by_path.setdefault(name, {})[path_name] = n
         for shape, t in serve["kernels_at_serve_shapes"].items():

@@ -14,12 +14,12 @@ hot-row reload and named engines among them, the ``feedback_*`` fields of
 the feedback loop, and the ``route_*`` fields of ``launch route``),
 and the observability fields (``profile_dir``, ``obs_metrics_port``,
 ``obs_metrics_host``, ``obs_trace_path``, ``obs_run_dir``,
-``trace_sample``), with the same names, defaults
+``trace_sample``, the continuous profiler's ``prof_*``, the fleet log's
+``log_*``, the incident engine's ``incident_*``, the aggregator's
+``slo_file`` and ``obs_tsdb_*``) and the fleet autopilot's
+``autopilot_*``, with the same names, defaults
 and validations, and the same resolution of the reference-quirk gates
-Q1, Q2, Q4 and Q5 from ``compat_mode``.  :func:`_not_ported` builds the
-``NotImplementedError`` that names the ROADMAP item of an option whose
-code is not ported yet (the launcher's profiler, log and incident
-flags), so a run never silently drops one.
+Q1, Q2, Q4 and Q5 from ``compat_mode``.
 ``ps_host`` and ``ps_port``, the reference's
 rendezvous address, are accepted and read by nothing, as in JAX;
 :meth:`Config.from_env` reads the reference's environment variables.
@@ -32,11 +32,6 @@ import dataclasses
 import os
 from collections.abc import Mapping
 from typing import Any
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to distlr_tpu_torch yet (ROADMAP {item})")
 
 
 _SPARSE_MODELS = ("sparse_lr", "sparse_softmax", "blocked_lr")
@@ -206,8 +201,8 @@ class Config:
     # obs_metrics_port then defaults to 0) and arms distributed tracing
     # (distlr_tpu_torch.obs.dtrace): sampled spans journal to
     # <obs_run_dir>/spans/ for `launch trace-agg`, and the flight
-    # recorder dumps to <obs_run_dir>/flightrec/.  The JAX package's
-    # profiles/ and logs/ are not written yet (ROADMAP A.21).
+    # recorder dumps to <obs_run_dir>/flightrec/; the continuous profiler
+    # journals to profiles/ and the fleet log to logs/ (prof_hz, log_*).
     obs_run_dir: str | None = None
     # Distributed-trace sampling rate: the fraction of minted traces whose
     # spans are journaled and propagated across the serve line protocol
@@ -215,6 +210,62 @@ class Config:
     # disables propagation and leaves the KV wire byte-identical.
     # Unsampled traces still feed the in-memory flight-recorder ring.
     trace_sample: float = 0.01
+    # Continuous profiling (distlr_tpu_torch.obs.profile): always-on sampling
+    # rate of the per-process stack profiler, armed (like tracing) only
+    # when obs_run_dir is set — windows journal to
+    # <obs_run_dir>/profiles/<role>-<rank>.jsonl, and an alert edge (or
+    # `launch profrec`) bursts the rate once per incident.  0 disables
+    # the profiler entirely.  ~19 Hz is deliberately off the round
+    # numbers: a rate sharing a period with a 10/20/100 Hz loop would
+    # alias and report one frame as the whole workload.
+    prof_hz: float = 19.0
+    # Seconds of aggregation per journaled profile window.
+    prof_window_s: float = 10.0
+    # Structured fleet logging (distlr_tpu_torch.obs.log): minimum level
+    # journaled to <obs_run_dir>/logs/<role>-<rank>.jsonl as JSONL
+    # records stamped with the active dtrace trace/span ids.  Armed
+    # (like tracing) only when obs_run_dir is set; the human-readable
+    # stderr lines are unaffected either way.
+    log_level: str = "info"
+    # Records kept in the logger's bounded in-memory ring (the `launch
+    # logs --follow`-style recent view; like the flight recorder's span
+    # ring, the ring holds what the journal level filtered out).
+    log_ring: int = 2048
+    # Rate-limited dedupe: identical (level, logger, message-template)
+    # records within this many seconds collapse into one journaled
+    # record carrying a suppressed-count.  0 journals every record.
+    log_dedupe_s: float = 5.0
+    # Incident engine (launch obs-agg, distlr_tpu_torch.obs.incident):
+    # seconds of context collected around an alert edge into the
+    # incidents/<seq>/ bundle (WARN+ logs, chaos events, autopilot
+    # decisions, rollout transitions inside the window).
+    incident_window_s: float = 120.0
+    # Seconds the aggregator waits after the alert edge before
+    # assembling the bundle — long enough for every rank's flight dump
+    # (0.25 s watcher) and the profiler's burst window (burst_s, 3 s
+    # default) to land on disk.
+    incident_settle_s: float = 6.0
+    # Incident bundles kept under <run_dir>/incidents/ before the
+    # oldest is pruned (loudly, via distlr_incident_pruned_total).
+    incident_max: int = 32
+
+    # ---- SLO engine / embedded fleet tsdb (launch obs-agg) ----
+    # SLO spec file (JSON) compiled by `launch obs-agg` into error-
+    # budget gauges (distlr_slo_budget_remaining / distlr_slo_burn_rate)
+    # and multi-window burn-rate alerts (distlr_alert_slo_burn) over the
+    # embedded fleet time-series store.  None = no SLO engine.
+    slo_file: str | None = None
+    # Raw-tier ring size of the embedded tsdb: scrape frames kept per
+    # (series, labels) before the oldest is evicted into the 10s/60s
+    # rollup tiers (~17 min at the default 2 s scrape interval).
+    obs_tsdb_raw_points: int = 512
+    # Seconds of 10s/60s rollup history kept per series; evictions are
+    # counted in distlr_tsdb_points_dropped_total, never silent.
+    obs_tsdb_rollup_retention_s: float = 3600.0
+    # Lines per on-disk history.jsonl segment (the tsdb's raw tier on
+    # disk, `launch top --replay` input) before rotation; one rotated
+    # segment is kept.
+    obs_tsdb_history_lines: int = 2000
 
     # ---- serving (launch serve / distlr_tpu_torch.serve) ----
     # Port 0 = OS-assigned ephemeral (announced as "SERVING host:port").
@@ -294,6 +345,47 @@ class Config:
     # Per-exchange socket timeout toward replicas (connect + reply read).
     route_backend_timeout_s: float = 30.0
 
+    # ---- fleet autopilot (launch autopilot / distlr_tpu_torch.autopilot) ----
+    # Control-loop tick interval: one /fleet.json poll + at most one
+    # scaling action per tick.
+    autopilot_interval_s: float = 2.0
+    # Consecutive in-breach ticks before a band fires (flap damping; a
+    # reshard or replica churn is never answered to a single sample).
+    autopilot_hysteresis_ticks: int = 2
+    # Per-actuator hold after any action (and the global freeze after a
+    # rollback-on-alert) before the policy may move it again.
+    autopilot_cooldown_s: float = 10.0
+    # How long after an action a firing bound alert still blames (and
+    # reverts) it; older actions are left alone and the daemon holds.
+    autopilot_rollback_window_s: float = 60.0
+    # Per-actuator bounds the policy clamps every target into.
+    autopilot_ps_min: int = 1
+    autopilot_ps_max: int = 8
+    autopilot_engine_min: int = 1
+    autopilot_engine_max: int = 8
+    autopilot_worker_min: int = 1
+    autopilot_worker_max: int = 8
+    # PS band: grow on the cumulative staleness-pushes p99 (the Hogwild
+    # quality knob — convergence degrades with staleness τ) or on the
+    # windowed push rate per rank; shrink only on the windowed rate (a
+    # cumulative percentile never forgets the peak).
+    autopilot_staleness_high: float = 64.0
+    autopilot_push_rate_high: float = 200.0
+    autopilot_push_rate_low: float = 20.0
+    # Engine band: grow on windowed admission-shed rate (sheds/s) or
+    # the cumulative route p99 safety bound; shrink when shed-free and
+    # the windowed accepted req/s per replica falls under the floor.
+    autopilot_shed_rate_high: float = 0.5
+    autopilot_route_p99_high_ms: float = 250.0
+    autopilot_req_rate_low: float = 5.0
+    # Worker band on the live distlr_feedback_shard_lag gauge (pending
+    # unclaimed shards): spawn above high, retire below low.
+    autopilot_lag_high: float = 4.0
+    autopilot_lag_low: float = 1.0
+    # Horizon for the windowed rates (successive /fleet.json polls,
+    # seeded from history.jsonl at daemon start).
+    autopilot_rate_window_s: float = 10.0
+
     # ---- port only ----
     device: str = "cuda"              # "cuda", "cuda:N" or "cpu"
 
@@ -359,6 +451,35 @@ class Config:
         if not 0.0 <= self.trace_sample <= 1.0:
             raise ValueError(
                 f"trace_sample must be in [0, 1], got {self.trace_sample}")
+        if self.prof_hz < 0:
+            raise ValueError(
+                f"prof_hz must be >= 0 (0 = profiler off), got "
+                f"{self.prof_hz}")
+        if self.prof_window_s <= 0:
+            raise ValueError(
+                f"prof_window_s must be positive, got {self.prof_window_s}")
+        if self.log_level not in ("debug", "info", "warning", "error"):
+            raise ValueError(
+                "log_level must be debug|info|warning|error, got "
+                f"{self.log_level!r}")
+        if self.log_ring < 1:
+            raise ValueError(
+                f"log_ring must be >= 1, got {self.log_ring}")
+        if self.log_dedupe_s < 0:
+            raise ValueError(
+                "log_dedupe_s must be >= 0 (0 = journal every record), "
+                f"got {self.log_dedupe_s}")
+        if self.incident_window_s <= 0:
+            raise ValueError(
+                "incident_window_s must be positive, got "
+                f"{self.incident_window_s}")
+        if self.incident_settle_s < 0:
+            raise ValueError(
+                "incident_settle_s must be >= 0, got "
+                f"{self.incident_settle_s}")
+        if self.incident_max < 1:
+            raise ValueError(
+                f"incident_max must be >= 1, got {self.incident_max}")
         self._check_ps_wire()
         self._check_ps_store()
         if self.ps_retry_attempts < 0:
@@ -388,6 +509,64 @@ class Config:
         if not 0 <= self.hash_seed < 1 << 64:
             raise ValueError(f"hash_seed must be in [0, 2^64), got {self.hash_seed}")
         self._check_serve()
+        self._check_fleet()
+
+    def _check_fleet(self) -> None:
+        if self.autopilot_interval_s <= 0:
+            raise ValueError(
+                "autopilot_interval_s must be positive, "
+                f"got {self.autopilot_interval_s}")
+        if self.autopilot_hysteresis_ticks < 1:
+            raise ValueError(
+                "autopilot_hysteresis_ticks must be >= 1, "
+                f"got {self.autopilot_hysteresis_ticks}")
+        if self.autopilot_cooldown_s < 0 or self.autopilot_rollback_window_s < 0:
+            raise ValueError(
+                "autopilot_cooldown_s and autopilot_rollback_window_s "
+                f"must be >= 0, got {self.autopilot_cooldown_s}/"
+                f"{self.autopilot_rollback_window_s}")
+        for knob in ("ps", "engine", "worker"):
+            lo = getattr(self, f"autopilot_{knob}_min")
+            hi = getattr(self, f"autopilot_{knob}_max")
+            if lo < 0 or hi < lo:
+                raise ValueError(
+                    f"need 0 <= autopilot_{knob}_min <= autopilot_"
+                    f"{knob}_max, got {lo}/{hi}")
+        if (self.autopilot_push_rate_low < 0
+                or self.autopilot_push_rate_high <= self.autopilot_push_rate_low):
+            raise ValueError(
+                "need 0 <= autopilot_push_rate_low < autopilot_push_"
+                f"rate_high, got {self.autopilot_push_rate_low}/"
+                f"{self.autopilot_push_rate_high}")
+        if (self.autopilot_lag_low < 0
+                or self.autopilot_lag_high <= self.autopilot_lag_low):
+            raise ValueError(
+                "need 0 <= autopilot_lag_low < autopilot_lag_high, "
+                f"got {self.autopilot_lag_low}/{self.autopilot_lag_high}")
+        if (self.autopilot_staleness_high <= 0
+                or self.autopilot_shed_rate_high < 0
+                or self.autopilot_route_p99_high_ms <= 0
+                or self.autopilot_req_rate_low < 0
+                or self.autopilot_rate_window_s <= 0):
+            raise ValueError(
+                "autopilot bands must be positive (shed/req floors >= 0): "
+                f"staleness_high={self.autopilot_staleness_high} "
+                f"shed_rate_high={self.autopilot_shed_rate_high} "
+                f"route_p99_high_ms={self.autopilot_route_p99_high_ms} "
+                f"req_rate_low={self.autopilot_req_rate_low} "
+                f"rate_window_s={self.autopilot_rate_window_s}")
+        if self.obs_tsdb_raw_points < 2:
+            raise ValueError(
+                "obs_tsdb_raw_points must be >= 2 (a rate needs two "
+                f"points), got {self.obs_tsdb_raw_points}")
+        if self.obs_tsdb_rollup_retention_s <= 0:
+            raise ValueError(
+                "obs_tsdb_rollup_retention_s must be positive, got "
+                f"{self.obs_tsdb_rollup_retention_s}")
+        if self.obs_tsdb_history_lines < 1:
+            raise ValueError(
+                "obs_tsdb_history_lines must be >= 1, got "
+                f"{self.obs_tsdb_history_lines}")
 
     def _check_ps_store(self) -> None:
         """The JAX package's checks of the durable store and the fault

@@ -1,15 +1,13 @@
 """Command-line entry point of the port: ``gen-data``, ``sync``, ``eval``,
 ``ps``, ``ps-server``, ``ps-ctl``, ``chaos``, ``serve``, ``online``,
-``route``, ``rollout``, ``trace-agg`` and ``flightrec``.
+``route``, ``rollout``, ``autopilot``, ``obs-agg``, ``fleet-query``,
+``trace-agg``, ``prof-agg``, ``profrec``, ``flightrec``, ``top``, ``logs``
+and ``incident``.
 
 Counterpart of ``distlr_tpu/launch.py``: every subcommand takes the
 option strings its JAX twin takes, with the same dests, types and
 defaults, plus ``--device`` (default ``cuda``; the CPU only when asked
-for).  A flag whose use is not ported yet is accepted at its default and
-raises ``NotImplementedError`` naming its ROADMAP item otherwise (the
-profiler, log and incident flags, A.21), so a JAX command line never
-fails at parse time and never drops a flag silently.  Run as ``python -m
-distlr_tpu_torch.launch``::
+for).  Run as ``python -m distlr_tpu_torch.launch``::
 
     python -m distlr_tpu_torch.launch gen-data --data-dir D --num-feature-dim 123 \\
         --num-samples 2000 --num-parts 2
@@ -147,21 +145,31 @@ and promotes it (exit 0), or rolls back when an alert fires (exit 3)::
     python -m distlr_tpu_torch.launch rollout --router R --tenant v1 --candidate v2 \\
         --stages 0.5:10,1.0:10 --unwatched --journal-dir J
 
-``--obs-run-dir RUN`` on every process of a fleet arms distributed tracing:
+``--obs-run-dir RUN`` on every process of a fleet joins it to the fleet:
 each process journals its sampled spans (``--trace-sample``, default 0.01)
 to ``RUN/spans/<role>-<rank>.jsonl`` (a locally spawned KV server group to
-``RUN/spans/kvserver-<rank>.jsonl``), keeps a flight-recorder ring, and
-publishes its metrics endpoint as ``RUN/endpoints/<role>-<rank>.json``.
-``trace-agg`` merges the journals into one Chrome/Perfetto trace and prints
-``TRACE <out> journals=J spans=S traces=T``; ``flightrec`` makes every
-process on the run dir dump its ring to ``RUN/flightrec/`` (``FLIGHTREC
-<trigger>``).  The JAX package's ``profiles/`` and ``logs/`` are not written
-yet (ROADMAP A.21)::
+``RUN/spans/kvserver-<rank>.jsonl``), samples its stacks at ``--prof-hz``
+(default 19) into ``RUN/profiles/``, journals its structured logs to
+``RUN/logs/``, keeps a flight-recorder ring, and publishes its metrics
+endpoint as ``RUN/endpoints/<role>-<rank>.json``.  ``obs-agg`` federates
+the endpoints (``/metrics``, ``/fleet.json``, ``/query``, derived alerts,
+SLO burn rates with ``--slo-file``, incident bundles on alert edges);
+``top`` renders it, ``fleet-query`` asks its time-series store,
+``autopilot`` scales the fleet from it.  ``trace-agg`` and ``prof-agg``
+merge the span and profile journals, ``logs`` queries the log journals,
+``flightrec`` / ``profrec`` / ``incident --trigger`` make the processes
+dump their rings, burst their samplers, or both into one bundle::
 
     python -m distlr_tpu_torch.launch ps --data-dir D --num-feature-dim 123 \\
         --obs-run-dir RUN --trace-sample 1.0
+    python -m distlr_tpu_torch.launch obs-agg --obs-run-dir RUN --interval 0.5  # METRICS h:p
+    python -m distlr_tpu_torch.launch top --obs-run-dir RUN --iterations 1 --no-color
+    python -m distlr_tpu_torch.launch fleet-query 'rate(pushes)' --obs-run-dir RUN
     python -m distlr_tpu_torch.launch trace-agg --obs-run-dir RUN --out merged.json
-    python -m distlr_tpu_torch.launch flightrec --obs-run-dir RUN
+    python -m distlr_tpu_torch.launch prof-agg --obs-run-dir RUN --out fleet_profile
+    python -m distlr_tpu_torch.launch logs --obs-run-dir RUN --level warning
+    python -m distlr_tpu_torch.launch incident --obs-run-dir RUN --trigger drill
+    python -m distlr_tpu_torch.launch autopilot --obs-run-dir RUN --ps-ctl h:p
 """
 
 from __future__ import annotations
@@ -171,7 +179,7 @@ import contextlib
 import os
 import sys
 
-from distlr_tpu_torch.config import Config, _not_ported
+from distlr_tpu_torch.config import Config
 from distlr_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -190,39 +198,17 @@ _CONFIG_FIELDS = (
     "ps_retry_deadline_s", "ps_retry_adaptive",
     "ps_store_dir", "ps_store_interval_s", "ps_store_wal", "ps_store_wal_fsync_s",
     "chaos_plan", "chaos_seed", "sync_mode",
+    "prof_hz", "prof_window_s", "log_level", "log_ring", "log_dedupe_s",
+    "incident_window_s", "incident_settle_s", "incident_max",
+    "slo_file", "obs_tsdb_raw_points", "obs_tsdb_rollup_retention_s", "obs_tsdb_history_lines",
+    "autopilot_interval_s", "autopilot_hysteresis_ticks", "autopilot_cooldown_s",
+    "autopilot_rollback_window_s", "autopilot_ps_min", "autopilot_ps_max",
+    "autopilot_engine_min", "autopilot_engine_max", "autopilot_worker_min",
+    "autopilot_worker_max", "autopilot_staleness_high", "autopilot_push_rate_high",
+    "autopilot_push_rate_low", "autopilot_shed_rate_high", "autopilot_route_p99_high_ms",
+    "autopilot_req_rate_low", "autopilot_lag_high", "autopilot_lag_low",
+    "autopilot_rate_window_s",
 )
-
-#: the JAX package's shared flags with no Config field in the port:
-#: dest -> (flag, the JAX Config default, ROADMAP item).  Given with
-#: another value, each one raises naming its item; the default is
-#: accepted, so a JAX command line with defaults runs unchanged.
-_GATED_SHARED_FLAGS = {
-    "prof_hz": ("--prof-hz", 19.0, "A.21"),
-    "prof_window_s": ("--prof-window", 10.0, "A.21"),
-    "log_level": ("--log-level", "info", "A.21"),
-    "log_ring": ("--log-ring", 2048, "A.21"),
-    "log_dedupe_s": ("--log-dedupe", 5.0, "A.21"),
-    "incident_window_s": ("--incident-window", 120.0, "A.21"),
-    "incident_settle_s": ("--incident-settle", 6.0, "A.21"),
-    "incident_max": ("--incident-max", 32, "A.21"),
-}
-
-
-def _given(value, default) -> bool:
-    """A flag was given with a value other than its default (None = not
-    given; a switch that is off is not given)."""
-    return value is not None and value is not False and value != default
-
-
-def _refuse_gated(args: argparse.Namespace) -> None:
-    """Raise naming the ROADMAP item of the first flag given whose use is
-    not ported: the profiler, log and incident flags (A.21)."""
-    cmd = getattr(args, "cmd", None)
-    where = f"launch {cmd}" if cmd else "launch"
-    for dest, (flag, default, item) in _GATED_SHARED_FLAGS.items():
-        if _given(getattr(args, dest, None), default):
-            raise _not_ported(f"{where} {flag}", item)
-
 
 def _obs_rank(args: argparse.Namespace) -> int:
     """This process's fleet rank (the <rank> of its journal and endpoint
@@ -248,22 +234,30 @@ def _obs_scope(cfg: Config, role: str, rank: int):
     With ``--obs-run-dir`` (its first directory) the process joins the
     fleet as ``<role>-<rank>``: distributed tracing arms
     (:mod:`distlr_tpu_torch.obs.dtrace` at ``--trace-sample``; spans to
-    ``spans/``, the flight recorder's trigger watched in ``flightrec/``,
-    the journal flushed at exit), and the endpoint (port 0 when no
-    ``--metrics-port`` was given) is published as
-    ``endpoints/<role>-<rank>.json`` and removed at a clean exit.  The
-    JAX package's continuous profiler and fleet log (``profiles/``,
-    ``logs/``) are ROADMAP A.21."""
+    ``spans/``, the flight recorder's trigger watched in ``flightrec/``),
+    the continuous profiler samples at ``--prof-hz`` into ``profiles/``
+    (:mod:`distlr_tpu_torch.obs.profile`; 0 = off), the fleet log tees
+    every ``distlr_tpu_torch*`` logger into ``logs/``
+    (:mod:`distlr_tpu_torch.obs.log`; stderr is unchanged), and the
+    endpoint (port 0 when no ``--metrics-port`` was given) is published as
+    ``endpoints/<role>-<rank>.json`` and removed at a clean exit.  All of
+    them flush and stop at exit."""
     server = None
     endpoint = None
+    prof_armed = False
     run_dir = cfg.obs_run_dir.split(os.pathsep)[0] if cfg.obs_run_dir else None
     if run_dir:
         from distlr_tpu_torch.obs import dtrace  # noqa: PLC0415
+        from distlr_tpu_torch.obs import log as fleetlog  # noqa: PLC0415
 
         dtrace.configure(run_dir, role, rank, sample=cfg.trace_sample)
-        log.info("--obs-run-dir %s: spans/ and endpoints/ are written; the profiles/ and "
-                 "logs/ of the JAX package's profiler and fleet log are not ported yet "
-                 "(ROADMAP A.21)", run_dir)
+        if cfg.prof_hz > 0:
+            from distlr_tpu_torch.obs import profile  # noqa: PLC0415
+
+            profile.configure(run_dir, role, rank, hz=cfg.prof_hz, window_s=cfg.prof_window_s)
+            prof_armed = True
+        fleetlog.configure(run_dir, role, rank, level=cfg.log_level, ring=cfg.log_ring,
+                           dedupe_s=cfg.log_dedupe_s)
     port = cfg.obs_metrics_port
     if port is None and run_dir:
         port = 0  # joining a fleet implies a scrape endpoint
@@ -286,8 +280,14 @@ def _obs_scope(cfg: Config, role: str, rank: int):
             log.info("phase trace -> %s (load in Perfetto)", path)
         if run_dir:
             from distlr_tpu_torch.obs import dtrace  # noqa: PLC0415
+            from distlr_tpu_torch.obs import log as fleetlog  # noqa: PLC0415
 
             dtrace.flush()
+            fleetlog.stop()  # flushes and detaches the journal tee
+        if prof_armed:
+            from distlr_tpu_torch.obs import profile  # noqa: PLC0415
+
+            profile.stop()  # journals the last partial window
         if server is not None:
             server.stop()
         if endpoint is not None:
@@ -368,24 +368,38 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--obs-run-dir", dest="obs_run_dir", action="append",
                    help="fleet run dir (repeatable; a process writes into the first): "
                    "distributed-trace span journals under spans/, the flight recorder's "
-                   "dumps under flightrec/, this process's metrics endpoint under "
-                   "endpoints/ (an ephemeral --metrics-port when none is given)")
+                   "dumps under flightrec/, profile windows under profiles/, structured "
+                   "logs under logs/, this process's metrics endpoint under endpoints/ "
+                   "(an ephemeral --metrics-port when none is given)")
     p.add_argument("--trace-sample", dest="trace_sample", type=float,
                    help="distributed-trace sampling rate with --obs-run-dir (default 0.01; "
                    "0 = nothing propagates and the KV wire is unchanged)")
-    # the profiler, log and incident flags: refused when given
-    # (_GATED_SHARED_FLAGS)
-    for flag, dest, typ in (("--prof-hz", "prof_hz", float),
-                            ("--prof-window", "prof_window_s", float),
-                            ("--log-ring", "log_ring", int),
-                            ("--log-dedupe", "log_dedupe_s", float),
-                            ("--incident-window", "incident_window_s", float),
-                            ("--incident-settle", "incident_settle_s", float),
-                            ("--incident-max", "incident_max", int)):
-        p.add_argument(flag, dest=dest, type=typ,
-                       help=f"not ported yet (ROADMAP {_GATED_SHARED_FLAGS[dest][2]})")
+    p.add_argument("--prof-hz", dest="prof_hz", type=float,
+                   help="continuous-profiling sampling rate (default 19; 0 = profiler off): "
+                   "a daemon thread folds every thread's stack into <obs-run-dir>/profiles/ "
+                   "windows, tagged by the innermost dtrace span, bursting to high Hz once "
+                   "an incident (or `launch profrec`); armed only with --obs-run-dir")
+    p.add_argument("--prof-window", dest="prof_window_s", type=float,
+                   help="seconds of aggregation a journaled profile window (default 10)")
     p.add_argument("--log-level", dest="log_level", choices=["debug", "info", "warning", "error"],
-                   help="not ported yet (ROADMAP A.21)")
+                   help="minimum level of the structured log records journaled to "
+                   "<obs-run-dir>/logs/<role>-<rank>.jsonl (default info; stderr is "
+                   "unaffected), each stamped with the active trace and span ids")
+    p.add_argument("--log-ring", dest="log_ring", type=int,
+                   help="records kept in the structured logger's in-memory ring (default 2048)")
+    p.add_argument("--log-dedupe", dest="log_dedupe_s", type=float,
+                   help="seconds identical records collapse into one journaled record with a "
+                   "suppressed count (default 5; 0 = journal every record)")
+    p.add_argument("--incident-window", dest="incident_window_s", type=float,
+                   help="obs-agg and incident: seconds of context (WARN+ logs, chaos events, "
+                   "autopilot decisions, rollout transitions) collected around an alert edge "
+                   "into the incidents/<seq>/ bundle (default 120)")
+    p.add_argument("--incident-settle", dest="incident_settle_s", type=float,
+                   help="obs-agg and incident: seconds after the edge before the bundle "
+                   "assembles, letting flight dumps and the profiler burst land (default 6)")
+    p.add_argument("--incident-max", dest="incident_max", type=int,
+                   help="obs-agg: incident bundles kept before the oldest is pruned "
+                   "(default 32)")
     p.add_argument("--resume", action="store_true",
                    help="sync: restart from the latest checkpoint in --checkpoint-dir; "
                    "ps: from the step its sidecar names, against a surviving group or "
@@ -479,9 +493,7 @@ def _add_process_flags(p: argparse.ArgumentParser) -> None:
 
 def _config_from_args(args: argparse.Namespace) -> Config:
     """The Config of the flags given, with ``--block-size auto`` resolved
-    from the data dir's raw shards (blocked_lr).  A flag whose use is not
-    ported raises naming its ROADMAP item first."""
-    _refuse_gated(args)
+    from the data dir's raw shards (blocked_lr)."""
     over = {k: v for k, v in vars(args).items() if v is not None and k in _CONFIG_FIELDS}
     if isinstance(over.get("obs_run_dir"), list):
         # repeatable: the Config holds the os.pathsep-joined list
@@ -619,8 +631,7 @@ def _online_config(args: argparse.Namespace) -> Config:
 
 def command_config(args: argparse.Namespace) -> Config:
     """The Config the parsed subcommand ``args`` runs with, built as the
-    command builds it, its gates applied (they raise naming a ROADMAP
-    item)."""
+    command builds it."""
     return {"ps": _ps_config, "ps-server": _ps_config, "serve": _serve_config,
             "route": _route_config, "online": _online_config}.get(
                 args.cmd, _config_from_args)(args)
@@ -753,6 +764,7 @@ def cmd_ps_server(args: argparse.Namespace) -> int:
         parse_namespace_optimizers,
     )
     from distlr_tpu_torch.train.ps_trainer import (  # noqa: PLC0415
+        prof_journal_dir,
         ps_param_dim,
         server_optimizer,
         trace_journal_dir,
@@ -800,7 +812,8 @@ def cmd_ps_server(args: argparse.Namespace) -> int:
                         opt_segments=opt_segments, store_dir=cfg.ps_store_dir,
                         store_interval_s=cfg.ps_store_interval_s, store_wal=cfg.ps_store_wal,
                         store_wal_fsync_s=cfg.ps_store_wal_fsync_s,
-                        trace_journal_dir=trace_journal_dir(cfg))
+                        trace_journal_dir=trace_journal_dir(cfg),
+                        prof_journal_dir=prof_journal_dir(cfg), prof_window_s=cfg.prof_window_s)
     ctl = None
     try:
         with _obs_scope(cfg, "ps-server", _obs_rank(args)), group:
@@ -1222,14 +1235,22 @@ def cmd_rollout(args: argparse.Namespace) -> int:
         print(f"error: bad --stages: {e}", file=sys.stderr)
         return 2
     poller = None
-    if args.fleet:
+    fleet_url = args.fleet
+    run_dir = cfg.obs_run_dir.split(os.pathsep)[0] if cfg.obs_run_dir else None
+    if not fleet_url and run_dir:
+        from distlr_tpu_torch.obs.federate import discover_endpoints  # noqa: PLC0415
+
+        aggs = [e for e in discover_endpoints(run_dir) if e["role"] == "obs-agg"]
+        if aggs:
+            fleet_url = f"http://{aggs[-1]['host']}:{aggs[-1]['port']}"
+    if fleet_url:
         names = ([n.strip() for n in args.alerts.split(",") if n.strip()]
                  if args.alerts else None)
         # by default only alerts attributable to the candidate break the
         # ramp; --gate-all-alerts gates on every bound alert, --slo narrows
         # to one objective's burn-rate alerts
         poller = fleet_alert_poller(
-            args.fleet, names=names,
+            fleet_url, names=names,
             scope_model=None if args.gate_all_alerts else args.candidate, scope_slo=args.slo)
     elif not args.unwatched:
         print("error: no alert source — pass --fleet http://host:port, an "
@@ -1240,7 +1261,7 @@ def cmd_rollout(args: argparse.Namespace) -> int:
         ctrl = RolloutController(RouterAdmin(host, int(port)), args.tenant, args.candidate, stages,
                                  alert_poll=poller, poll_interval_s=args.poll_interval,
                                  shadow_fraction=args.shadow, settle_s=args.settle,
-                                 journal_dir=args.journal_dir)
+                                 journal_dir=args.journal_dir or run_dir)
         try:
             outcome = ctrl.run()
         except (OSError, RuntimeError) as e:
@@ -1298,6 +1319,492 @@ def cmd_flightrec(args: argparse.Namespace) -> int:
         print(f"FLIGHTREC {path}", flush=True)
     log.info("flight-recorder trigger dropped; processes dump within "
              "one watcher poll")
+    return 0
+
+
+def cmd_obs_agg(args: argparse.Namespace) -> int:
+    """Fleet metrics aggregator (:mod:`distlr_tpu_torch.obs.federate`): poll
+    every endpoint published under ``--obs-run-dir``, merge the per-rank
+    registries (counters sum, histograms merge bucket-wise, gauges gain
+    ``role``/``rank`` identity), derive the ``distlr_alert_*`` gauges,
+    and re-serve the fleet as ``/metrics`` + ``/metrics.json`` +
+    ``/fleet.json`` (and ``/query`` over the embedded tsdb).  Needs no
+    card: it starts in well under a second and can watch a wedged run
+    without competing for the device."""
+    import signal  # noqa: PLC0415
+
+    from distlr_tpu_torch.obs import MetricsServer, write_metrics_snapshot  # noqa: PLC0415
+    from distlr_tpu_torch.obs.federate import (  # noqa: PLC0415
+        AlertThresholds,
+        FleetScraper,
+        write_endpoint,
+    )
+
+    cfg = _config_from_args(args)
+    if not cfg.obs_run_dir:
+        print("error: obs-agg needs --obs-run-dir (the rendezvous dir the "
+              "fleet's processes publish their endpoints into)",
+              file=sys.stderr)
+        return 2
+    # Effective alert thresholds: dataclass defaults < --thresholds-file
+    # JSON < explicit CLI flags.  The distlr_alert_* threshold labels are
+    # rendered from this instance, so a scrape always names the values
+    # that were actually in force.
+    try:
+        thresholds = AlertThresholds.resolve(
+            args.thresholds_file,
+            barrier_wait_ratio=args.alert_barrier_wait_ratio,
+            barrier_min_count=args.alert_barrier_min_count,
+            push_error_rate=args.alert_push_error_rate,
+            weight_age_ratio=args.alert_weight_age_ratio,
+            retry_rate=args.alert_retry_rate,
+            scrape_stale_s=args.stale_after,
+            shadow_psi=args.alert_shadow_psi,
+        )
+    except (OSError, ValueError) as e:
+        print(f"error: bad alert thresholds: {e}", file=sys.stderr)
+        return 2
+    slo_spec, slo_rules = None, None
+    if cfg.slo_file:
+        from distlr_tpu_torch.obs.slo import SLOSpecError, load_slo_file  # noqa: PLC0415
+        try:
+            slo_spec, slo_rules = load_slo_file(cfg.slo_file)
+        except SLOSpecError as e:
+            print(f"error: bad --slo-file: {e}", file=sys.stderr)
+            return 2
+        log.info("SLO engine armed: %s",
+                 ", ".join(s.name for s in slo_spec))
+    scraper = FleetScraper(cfg.obs_run_dir, interval_s=args.interval,
+                           stale_after_s=thresholds.scrape_stale_s,
+                           thresholds=thresholds,
+                           slo_spec=slo_spec, slo_rules=slo_rules,
+                           history_max_lines=cfg.obs_tsdb_history_lines,
+                           tsdb_raw_points=cfg.obs_tsdb_raw_points,
+                           tsdb_rollup_retention_s=(
+                               cfg.obs_tsdb_rollup_retention_s),
+                           incident_window_s=cfg.incident_window_s,
+                           incident_settle_s=cfg.incident_settle_s,
+                           incident_max=cfg.incident_max)
+    if args.once:
+        # One-shot federation: merge whatever the run dir holds right
+        # now (live endpoints AND banked snapshots/ files) and emit it,
+        # how a capture script banks a fleet snapshot without a daemon.
+        scraper.scrape_once()
+        fleet = scraper.fleet_json()
+        if args.snapshot_path:
+            write_metrics_snapshot(args.snapshot_path, scraper.merged)
+            log.info("fleet snapshot -> %s", args.snapshot_path)
+        else:
+            print(scraper.prometheus_text(), end="")
+        t = fleet["totals"]
+        print(f"FLEET ranks={t['ranks']} up={t['up']} stale={t['stale']} "
+              f"down={t['down']}", file=sys.stderr)
+        return 0
+
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    port = cfg.obs_metrics_port if cfg.obs_metrics_port is not None else 0
+    server = MetricsServer(
+        registry=scraper, host=cfg.obs_metrics_host, port=port,
+        extra_json={"/fleet.json": scraper.fleet_json},
+        extra_query={"/query": scraper.query_endpoint},
+    ).start()
+    print(f"METRICS {server.host}:{server.port}", flush=True)
+    # Published under its own role so `launch top --obs-run-dir` can find
+    # the aggregator; the scraper skips obs-agg endpoints when merging.
+    # With several run dirs, the FIRST is the aggregator's home.
+    endpoint = write_endpoint(cfg.obs_run_dir.split(os.pathsep)[0],
+                              "obs-agg", 0, server.host, server.port)
+    try:
+        scraper.run_forever()
+    except KeyboardInterrupt:
+        return 130
+    finally:
+        scraper.stop()
+        server.stop()
+        with contextlib.suppress(OSError):
+            # leave cleanly so `launch top` gets the "start obs-agg
+            # first" error instead of polling a dead endpoint
+            os.unlink(endpoint)
+    return 0
+
+
+def cmd_prof_agg(args: argparse.Namespace) -> int:
+    """Merge every rank's continuous-profiling journal
+    (``<run_dir>/profiles/*.jsonl`` — Python samplers AND native
+    ``distlr_kv_server`` per-handler CPU windows, one schema) into a
+    fleet-wide collapsed-stack file (``flamegraph.pl``/inferno input,
+    track-prefixed) plus a speedscope-compatible JSON with one track
+    per ``<role>-<rank>`` journal.  Needs no card."""
+    from distlr_tpu_torch.obs import profile  # noqa: PLC0415
+
+    cfg = _config_from_args(args)
+    if not cfg.obs_run_dir:
+        print("error: prof-agg needs --obs-run-dir (the run dir whose "
+              "profiles/ journals to merge; repeatable)", file=sys.stderr)
+        return 2
+    run_dirs = cfg.obs_run_dir.split(os.pathsep)
+    tracks = profile.merge_run_dirs(run_dirs)
+    if not tracks:
+        print(f"error: no profile journals under "
+              f"{', '.join(os.path.join(d, 'profiles') for d in run_dirs)}"
+              " — did the fleet run with --obs-run-dir and a non-zero "
+              "--prof-hz?", file=sys.stderr)
+        return 1
+    collapsed = args.out + ".collapsed"
+    speedscope = args.out + ".speedscope.json"
+    n_lines = profile.write_collapsed(tracks, collapsed)
+    profile.write_speedscope(tracks, speedscope)
+    samples = sum(t["samples"] for t in tracks.values())
+    # Scriptable contract, like METRICS/SERVING/HOSTS/TRACE.
+    print(f"PROF {args.out} tracks={len(tracks)} stacks={n_lines} "
+          f"samples={samples}", flush=True)
+    log.info("fleet profile -> %s (flamegraph.pl/inferno) + %s "
+             "(speedscope.app); tracks: %s",
+             collapsed, speedscope, ", ".join(sorted(tracks)))
+    return 0
+
+
+def cmd_profrec(args: argparse.Namespace) -> int:
+    """Trigger an on-demand profile burst: every sampler configured on
+    the run dir switches to high-Hz capture once and journals exactly
+    one burst window — the profiler-only twin of ``launch flightrec``
+    (alert incidents trigger both automatically, under one incident
+    sequence number)."""
+    from distlr_tpu_torch.obs import profile  # noqa: PLC0415
+
+    cfg = _config_from_args(args)
+    if not cfg.obs_run_dir:
+        print("error: profrec needs --obs-run-dir", file=sys.stderr)
+        return 2
+    for d in cfg.obs_run_dir.split(os.pathsep):
+        path = profile.trigger(d, reason=args.reason)
+        print(f"PROFREC {path}", flush=True)
+    log.info("profile-burst trigger dropped; samplers burst within one "
+             "watcher poll")
+    return 0
+
+
+def cmd_top(args: argparse.Namespace) -> int:
+    """Live ANSI dashboard over the fleet scrape (`launch top`)."""
+    from distlr_tpu_torch.obs.federate import discover_endpoints  # noqa: PLC0415
+    from distlr_tpu_torch.obs.top import run_top, run_top_replay  # noqa: PLC0415
+
+    if args.replay:
+        # offline incident scrubbing: render the aggregator's banked
+        # scrape history (<run_dir>/history.jsonl) frame by frame —
+        # the metrics-timeline complement of the flight recorder
+        color = False if args.no_color else None
+        return run_top_replay(args.replay, interval=args.replay_interval,
+                              color=color, rate_window=args.rate_window)
+    url = args.fleet
+    if not url:
+        if not args.obs_run_dir:
+            print("error: top needs --fleet http://host:port or "
+                  "--obs-run-dir (to discover a running obs-agg)",
+                  file=sys.stderr)
+            return 2
+        aggs = [e for e in discover_endpoints(args.obs_run_dir)
+                if e["role"] == "obs-agg"]
+        if not aggs:
+            print(f"error: no obs-agg endpoint under {args.obs_run_dir} — "
+                  "start `python -m distlr_tpu_torch.launch obs-agg --obs-run-dir "
+                  f"{args.obs_run_dir}` first", file=sys.stderr)
+            return 2
+        url = f"http://{aggs[-1]['host']}:{aggs[-1]['port']}"
+    color = False if args.no_color else None
+    return run_top(url, interval=args.interval, iterations=args.iterations,
+                   color=color, rate_window=args.rate_window)
+
+
+def cmd_fleet_query(args: argparse.Namespace) -> int:
+    """One tsdb expression against a running obs-agg (`launch
+    fleet-query`): hits the aggregator's ``/query`` endpoint and prints
+    the JSON result — ``rate()``, ``increase()``,
+    ``histogram_quantile()``, ``avg_over_time()`` + label matchers and
+    arithmetic over the embedded fleet time-series store.  Exit codes:
+    0 value, 1 no data in the window, 2 bad query/unreachable."""
+    import json  # noqa: PLC0415
+    import urllib.error  # noqa: PLC0415
+    import urllib.parse  # noqa: PLC0415
+    import urllib.request  # noqa: PLC0415
+
+    from distlr_tpu_torch.obs.federate import discover_endpoints  # noqa: PLC0415
+
+    url = args.fleet
+    if not url:
+        if not args.obs_run_dir:
+            print("error: fleet-query needs --fleet http://host:port or "
+                  "--obs-run-dir (to discover a running obs-agg)",
+                  file=sys.stderr)
+            return 2
+        run_dir = (args.obs_run_dir[0]
+                   if isinstance(args.obs_run_dir, list) else args.obs_run_dir)
+        aggs = [e for e in discover_endpoints(run_dir)
+                if e["role"] == "obs-agg"]
+        if not aggs:
+            print(f"error: no obs-agg endpoint under {run_dir} — start "
+                  "`python -m distlr_tpu_torch.launch obs-agg` first",
+                  file=sys.stderr)
+            return 2
+        url = f"http://{aggs[-1]['host']}:{aggs[-1]['port']}"
+    qs = urllib.parse.urlencode({"expr": args.expr, "window": args.window})
+    try:
+        with urllib.request.urlopen(f"{url.rstrip('/')}/query?{qs}",
+                                    timeout=args.timeout) as r:
+            doc = json.load(r)
+    except urllib.error.HTTPError as e:
+        try:
+            doc = json.load(e)
+        except ValueError:
+            doc = {"error": str(e)}
+        print(f"error: {doc.get('error', e)}", file=sys.stderr)
+        return 2
+    except (OSError, ValueError) as e:
+        print(f"error: aggregator unreachable at {url}: {e}",
+              file=sys.stderr)
+        return 2
+    print(json.dumps(doc))
+    return 0 if doc.get("value") is not None else 1
+
+
+def cmd_logs(args: argparse.Namespace) -> int:
+    """Query the fleet's structured log journals (`launch logs`): merge
+    ``<run_dir>/logs/*.jsonl`` across every rank into one time-ordered
+    stream, filtered by level/substring/time, tailed, or — with
+    ``--trace <id>`` — narrowed to one request's records, interleaved
+    with that trace's spans from the span journals (the log+span story
+    of a single request).  Exit 1 when nothing matched."""
+    import json  # noqa: PLC0415
+    import time  # noqa: PLC0415
+
+    from distlr_tpu_torch.obs import dtrace  # noqa: PLC0415
+    from distlr_tpu_torch.obs import log as fleetlog  # noqa: PLC0415
+
+    cfg = _config_from_args(args)
+    if not cfg.obs_run_dir:
+        print("error: logs needs --obs-run-dir (where the fleet "
+              "journals records)", file=sys.stderr)
+        return 2
+    dirs = cfg.obs_run_dir.split(os.pathsep)
+    events: list[dict] = list(fleetlog.read_records(
+        dirs, level=args.level, grep=args.grep, trace=args.trace))
+    if args.trace:
+        # interleave the trace's spans: records say WHAT was logged,
+        # spans say WHERE in the request the process was
+        want = args.trace.lower().lstrip("0")
+        for d in dirs:
+            spans_dir = os.path.join(d, "spans")
+            if not os.path.isdir(spans_dir):
+                continue
+            for name in sorted(os.listdir(spans_dir)):
+                if not name.endswith(".jsonl"):
+                    continue
+                for r in dtrace.read_journal(
+                        os.path.join(spans_dir, name)):
+                    if r.get("type") != "span" or \
+                            str(r.get("trace", "")).lstrip("0") != want:
+                        continue
+                    events.append({
+                        "ts": float(r.get("ts", 0.0)) / 1e6,
+                        "kind": "span", "src": name[:-len(".jsonl")],
+                        "name": r.get("name"),
+                        "dur_ms": round(float(r.get("dur", 0.0)) / 1e3, 3),
+                        "trace": r.get("trace"), "span": r.get("span"),
+                    })
+        events.sort(key=lambda e: e.get("ts", 0.0))
+    if args.tail and len(events) > args.tail:
+        events = events[-args.tail:]
+    for ev in events:
+        if args.json:
+            print(json.dumps(ev))
+            continue
+        ts = time.strftime("%H:%M:%S", time.localtime(ev.get("ts", 0.0)))
+        ts += f".{int((ev.get('ts', 0.0) % 1) * 1000):03d}"
+        if ev.get("kind") == "span":
+            print(f"{ts} SPAN {ev['src']}] {ev['name']} "
+                  f"({ev['dur_ms']} ms)", flush=True)
+        else:
+            who = f"{ev.get('role', '?')}-{ev.get('rank', '?')}"
+            sup = f" (x{ev['suppressed']} suppressed)" \
+                if ev.get("suppressed") else ""
+            tr = f" trace={ev['trace']}" if ev.get("trace") else ""
+            print(f"{ts} {str(ev.get('level', '?')).upper():7s} {who} "
+                  f"{ev.get('logger')}] {ev.get('msg')}{sup}{tr}",
+                  flush=True)
+    return 0 if events else 1
+
+
+def cmd_incident(args: argparse.Namespace) -> int:
+    """Incident bundles (`launch incident`): list the bundles under
+    ``<run_dir>/incidents/``, show one's facts, re-render its
+    POSTMORTEM.md, or, with ``--trigger``, fire the flight-recorder
+    and profiler-burst machinery by hand and assemble a bundle for a
+    drill."""
+    import json  # noqa: PLC0415
+    import time  # noqa: PLC0415
+
+    from distlr_tpu_torch.obs import incident  # noqa: PLC0415
+
+    cfg = _config_from_args(args)
+    if not cfg.obs_run_dir:
+        print("error: incident needs --obs-run-dir", file=sys.stderr)
+        return 2
+    dirs = cfg.obs_run_dir.split(os.pathsep)
+    if args.trigger:
+        log.info("manual incident trigger (%s): dumping rings, waiting "
+                 "%.1fs settle for bursts", args.trigger,
+                 cfg.incident_settle_s)
+        path = incident.manual_trigger(
+            dirs, args.trigger, window_s=cfg.incident_window_s,
+            settle_s=cfg.incident_settle_s)
+        if path is None:
+            print("error: bundle for this trigger seq already exists",
+                  file=sys.stderr)
+            return 1
+        print(f"INCIDENT {path}", flush=True)
+        return 0
+    if args.action == "list":
+        incidents = incident.list_incidents(dirs[0])
+        for doc in incidents:
+            when = time.strftime(
+                "%H:%M:%S", time.localtime(doc.get("detected_ts", 0)))
+            n = sum((doc.get("events") or {}).values())
+            print(f"{doc['seq']:04d}  {when}  {doc.get('reason', '?'):24s} "
+                  f"events={n:<4d} {doc['path']}", flush=True)
+        return 0 if incidents else 1
+    seq = args.seq
+    if seq is None:
+        seq = incident.latest_seq(dirs[0])
+    if seq is None:
+        print(f"error: no incident bundles under {dirs[0]}/incidents",
+              file=sys.stderr)
+        return 1
+    if args.action == "show":
+        doc = incident.load(dirs[0], seq)
+        if doc is None:
+            print(f"error: no bundle for seq {seq}", file=sys.stderr)
+            return 1
+        print(json.dumps(doc, indent=1))
+        return 0
+    # render
+    path = incident.render(dirs[0], seq)
+    if path is None:
+        print(f"error: no bundle for seq {seq}", file=sys.stderr)
+        return 1
+    print(f"INCIDENT {path}", flush=True)
+    return 0
+
+
+def cmd_autopilot(args: argparse.Namespace) -> int:
+    """Fleet autopilot (:mod:`distlr_tpu_torch.autopilot`): the closed
+    control loop over the elastic fleet.  Polls obs-agg's
+    ``/fleet.json``, reduces it to signals (cumulative percentiles +
+    windowed rates), and drives whichever actuators were bound:
+    ``--ps-ctl`` scales the elastic server group, ``--router`` +
+    ``--replica-pool`` promotes/demotes standby serving replicas,
+    ``--worker-cmd`` spawns/retires online-worker subprocesses.  Every
+    decision journals to ``<journal-dir>/autopilot/decisions.jsonl``;
+    a bound ``distlr_alert_*`` firing inside the rollback window
+    reverts the last action (the ``launch rollout`` fail-safe,
+    repurposed).  Needs no card, like route, rollout and obs-agg."""
+    import json  # noqa: PLC0415
+    import signal  # noqa: PLC0415
+
+    from distlr_tpu_torch.autopilot import (  # noqa: PLC0415
+        Actuators,
+        AutopilotDaemon,
+        EngineActuator,
+        PolicyConfig,
+        PolicyEngine,
+        PSActuator,
+        WorkerActuator,
+        fleet_fetcher,
+    )
+    from distlr_tpu_torch.obs.federate import discover_endpoints  # noqa: PLC0415
+    from distlr_tpu_torch.serve.rollout import fleet_alert_poller  # noqa: PLC0415
+
+    cfg = _config_from_args(args)
+    run_dir = (cfg.obs_run_dir.split(os.pathsep)[0]
+               if cfg.obs_run_dir else None)
+    fleet_url = args.fleet
+    if not fleet_url and run_dir:
+        aggs = [e for e in discover_endpoints(run_dir)
+                if e["role"] == "obs-agg"]
+        if aggs:
+            fleet_url = f"http://{aggs[-1]['host']}:{aggs[-1]['port']}"
+    if not fleet_url:
+        print("error: no fleet source — pass --fleet http://host:port or "
+              "an --obs-run-dir with a running obs-agg (the autopilot is "
+              "blind without /fleet.json)", file=sys.stderr)
+        return 2
+    if args.router and not args.replica_pool:
+        print("error: --router needs --replica-pool (the standby "
+              "replicas the autopilot may promote into rotation)",
+              file=sys.stderr)
+        return 2
+    if not (args.ps_ctl or args.router or args.worker_cmd):
+        print("error: nothing to actuate — bind at least one of "
+              "--ps-ctl, --router (+--replica-pool), --worker-cmd",
+              file=sys.stderr)
+        return 2
+    try:
+        actuators = Actuators(
+            ps=PSActuator(args.ps_ctl) if args.ps_ctl else None,
+            engine=(EngineActuator(
+                args.router,
+                [a.strip() for a in args.replica_pool.split(",")
+                 if a.strip()],
+                model=args.engine_model)
+                if args.router else None),
+            worker=(WorkerActuator(args.worker_cmd)
+                    if args.worker_cmd else None),
+        )
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    poller = None
+    if not args.unwatched:
+        names = ([n.strip() for n in args.alerts.split(",") if n.strip()]
+                 if args.alerts else None)
+        poller = fleet_alert_poller(fleet_url, names=names)
+    journal_dir = args.journal_dir or run_dir
+    with _obs_scope(cfg, "autopilot", _obs_rank(args)):
+        daemon = AutopilotDaemon(
+            PolicyEngine(PolicyConfig.from_config(cfg)),
+            actuators,
+            fetch=fleet_fetcher(fleet_url),
+            alert_poll=poller,
+            interval_s=cfg.autopilot_interval_s,
+            journal_dir=journal_dir,
+            rate_window_s=cfg.autopilot_rate_window_s,
+        )
+        if run_dir:
+            seeded = daemon.seed_rates_from_history(run_dir)
+            if seeded:
+                log.info("autopilot: seeded rate window from %d "
+                         "history rows", seeded)
+        # Scriptable contract, like METRICS/ROLLOUT/HOSTS.
+        print("AUTOPILOT " + json.dumps({
+            "fleet": fleet_url,
+            "actuators": [a for a, on in (
+                ("ps", args.ps_ctl), ("engine", args.router),
+                ("worker", args.worker_cmd)) if on],
+            "journal": daemon.journal_path,
+        }), flush=True)
+        signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+        try:
+            if args.iterations is not None:
+                for _ in range(args.iterations):
+                    daemon.tick_once()
+                    daemon._stop.wait(daemon.interval_s)
+                actuators.close()
+            else:
+                daemon.run_forever()
+        except KeyboardInterrupt:
+            return 130
+        finally:
+            print("AUTOPILOT-EXIT " + json.dumps(daemon.status()),
+                  flush=True)
     return 0
 
 
@@ -1580,7 +2087,8 @@ def main(argv=None) -> int:
                     help="with --shadow: watch the shadow this many seconds before the "
                     "first stage (default 0)")
     ro.add_argument("--fleet", help="aggregator URL (http://host:port) whose /fleet.json "
-                    "alerts gate the ramp")
+                    "alerts gate the ramp; default: the obs-agg discovered under "
+                    "--obs-run-dir")
     ro.add_argument("--alerts", help="comma-separated alert names to bind (default: every "
                     "distlr_alert_*)")
     ro.add_argument("--gate-all-alerts", dest="gate_all_alerts", action="store_true",
@@ -1594,7 +2102,8 @@ def main(argv=None) -> int:
     ro.add_argument("--poll-interval", dest="poll_interval", type=float, default=0.5,
                     help="alert poll period during holds, seconds (default 0.5)")
     ro.add_argument("--journal-dir", dest="journal_dir",
-                    help="journal the transitions under DIR/rollout/")
+                    help="journal the transitions under DIR/rollout/ (default: the first "
+                    "--obs-run-dir)")
     ro.set_defaults(fn=cmd_rollout)
 
     ta = config_parser("trace-agg", help="merge every rank's distributed-trace span journal "
@@ -1612,6 +2121,306 @@ def main(argv=None) -> int:
                     help="reason string recorded in the trigger and the dumps "
                     "(default 'manual')")
     fr.set_defaults(fn=cmd_flightrec)
+
+    ap = config_parser(
+        "autopilot",
+        help="fleet autopilot: closed-loop scaling daemon — polls "
+             "obs-agg's /fleet.json and drives ps-ctl RESIZE, router "
+             "ADDREPLICA/DELREPLICA over a standby pool, and online-"
+             "worker subprocesses through banded hysteresis with "
+             "rollback-on-alert; every decision journals to "
+             "<journal-dir>/autopilot/decisions.jsonl",
+    )
+    ap.add_argument("--fleet",
+                    help="obs-agg URL (http://host:port) polled for "
+                    "/fleet.json; default: discovered from "
+                    "--obs-run-dir")
+    ap.add_argument("--ps-ctl", dest="ps_ctl",
+                    help="elastic group coordinator host:port (what "
+                    "`launch ps-server --elastic` announced as PSCTL): "
+                    "binds the ps actuator (non-blocking RESIZE wait=0)")
+    ap.add_argument("--router",
+                    help="routing front-end host:port (ROUTING): binds "
+                    "the engine actuator; needs --replica-pool")
+    ap.add_argument("--replica-pool", dest="replica_pool",
+                    help="comma-separated host:port of PRE-STARTED "
+                    "standby `launch serve` replicas the autopilot may "
+                    "promote into rotation (idle standbys evict their "
+                    "weights, so parked capacity is cheap)")
+    ap.add_argument("--engine-model", dest="engine_model",
+                    default="default",
+                    help="router model id whose replica set is scaled "
+                    "(default 'default')")
+    ap.add_argument("--worker-cmd", dest="worker_cmd",
+                    help="online-worker command template with a "
+                    "{worker_id} placeholder, e.g. \"python -m "
+                    "distlr_tpu_torch.launch online ... --worker-id "
+                    "{worker_id}\": binds the worker actuator "
+                    "(spawn/SIGTERM-retire; the .claim shard protocol "
+                    "makes churn exactly-once)")
+    ap.add_argument("--alerts",
+                    help="comma-separated alert gauge names that gate "
+                    "rollback (default: every distlr_alert_*; bind "
+                    "explicit names when routine shed/latency alerts "
+                    "are expected during scale-up)")
+    ap.add_argument("--unwatched", action="store_true",
+                    help="no alert gate: never roll an action back "
+                    "(tests/dev only)")
+    ap.add_argument("--journal-dir", dest="journal_dir",
+                    help="journal decisions under DIR/autopilot/ "
+                    "(default: the first --obs-run-dir)")
+    ap.add_argument("--iterations", type=int,
+                    help="run N ticks then exit cleanly (default: "
+                    "until SIGTERM/Ctrl-C)")
+    ap.add_argument("--interval", dest="autopilot_interval_s", type=float,
+                    help="tick period, seconds (default 2)")
+    ap.add_argument("--hysteresis-ticks", dest="autopilot_hysteresis_ticks",
+                    type=int,
+                    help="consecutive breached ticks before a band may "
+                    "act (default 2)")
+    ap.add_argument("--cooldown", dest="autopilot_cooldown_s", type=float,
+                    help="per-actuator seconds after an action during "
+                    "which that actuator holds (default 10)")
+    ap.add_argument("--rollback-window", dest="autopilot_rollback_window_s",
+                    type=float,
+                    help="seconds after an action inside which a firing "
+                    "bound alert reverts it (default 60)")
+    ap.add_argument("--ps-min", dest="autopilot_ps_min", type=int,
+                    help="server-count floor (default 1)")
+    ap.add_argument("--ps-max", dest="autopilot_ps_max", type=int,
+                    help="server-count ceiling (default 8)")
+    ap.add_argument("--engine-min", dest="autopilot_engine_min", type=int,
+                    help="in-rotation replica floor (default 1)")
+    ap.add_argument("--engine-max", dest="autopilot_engine_max", type=int,
+                    help="in-rotation replica ceiling (default 8)")
+    ap.add_argument("--worker-min", dest="autopilot_worker_min", type=int,
+                    help="online-worker floor (default 1)")
+    ap.add_argument("--worker-max", dest="autopilot_worker_max", type=int,
+                    help="online-worker ceiling (default 8)")
+    ap.add_argument("--staleness-high", dest="autopilot_staleness_high",
+                    type=float,
+                    help="staleness_pushes_p99 above which the ps band "
+                    "scales up (default 64)")
+    ap.add_argument("--push-rate-high", dest="autopilot_push_rate_high",
+                    type=float,
+                    help="fleet pushes/s PER SERVER above which the ps "
+                    "band scales up (default 200)")
+    ap.add_argument("--push-rate-low", dest="autopilot_push_rate_low",
+                    type=float,
+                    help="fleet pushes/s per server below which the ps "
+                    "band scales down (default 20)")
+    ap.add_argument("--shed-rate-high", dest="autopilot_shed_rate_high",
+                    type=float,
+                    help="router sheds/s above which the engine band "
+                    "scales up (default 0.5)")
+    ap.add_argument("--route-p99-high", dest="autopilot_route_p99_high_ms",
+                    type=float,
+                    help="route p99 ms above which the engine band "
+                    "scales up (default 250)")
+    ap.add_argument("--req-rate-low", dest="autopilot_req_rate_low",
+                    type=float,
+                    help="requests/s PER REPLICA below which (with zero "
+                    "shed) the engine band scales down (default 5)")
+    ap.add_argument("--lag-high", dest="autopilot_lag_high", type=float,
+                    help="pending feedback shards above which the "
+                    "worker band scales up (default 4)")
+    ap.add_argument("--lag-low", dest="autopilot_lag_low", type=float,
+                    help="pending feedback shards below which the "
+                    "worker band scales down (default 1)")
+    ap.add_argument("--rate-window", dest="autopilot_rate_window_s",
+                    type=float,
+                    help="horizon of the windowed push/shed/req rates, "
+                    "seconds (default 10)")
+    ap.set_defaults(fn=cmd_autopilot)
+
+    a = config_parser(
+        "obs-agg",
+        help="fleet metrics aggregator: merge every rank's /metrics into "
+             "one scrape + /fleet.json (+ derived distlr_alert_* gauges)",
+    )
+    a.add_argument("--interval", type=float, default=2.0,
+                   help="scrape period, seconds (default 2)")
+    a.add_argument("--stale-after", dest="stale_after", type=float,
+                   help="seconds without a successful scrape before a rank "
+                   "counts stale->down and distlr_alert_scrape_stale fires "
+                   "(default 10; overrides a thresholds-file value)")
+    a.add_argument("--thresholds-file", dest="thresholds_file",
+                   help="JSON object overriding AlertThresholds fields "
+                   "(barrier_wait_ratio, barrier_min_count, "
+                   "push_error_rate, scrape_stale_s, weight_age_ratio); "
+                   "explicit CLI flags win over the file, and the "
+                   "distlr_alert_* threshold labels reflect the effective "
+                   "values")
+    a.add_argument("--alert-barrier-wait-ratio",
+                   dest="alert_barrier_wait_ratio", type=float,
+                   help="barrier-wait p99 alert fires above this multiple "
+                   "of the median step time (default 2)")
+    a.add_argument("--alert-barrier-min-count",
+                   dest="alert_barrier_min_count", type=int,
+                   help="minimum barrier-wait observations before the "
+                   "stall alert may fire (default 8)")
+    a.add_argument("--alert-push-error-rate", dest="alert_push_error_rate",
+                   type=float,
+                   help="PS push error+timeout rate above which "
+                   "distlr_alert_ps_push_errors fires (default 0.01)")
+    a.add_argument("--alert-weight-age-ratio", dest="alert_weight_age_ratio",
+                   type=float,
+                   help="async weight age alert fires above this multiple "
+                   "of the median step time (default 10)")
+    a.add_argument("--alert-retry-rate", dest="alert_retry_rate", type=float,
+                   help="distlr_alert_ps_retry_rate fires above this "
+                   "fleet share of KV op attempts that are in-place "
+                   "retry re-issues (default 0.05) — degradation the "
+                   "resilience layer is absorbing, visible before errors")
+    a.add_argument("--alert-shadow-psi", dest="alert_shadow_psi",
+                   type=float,
+                   help="distlr_alert_shadow_psi fires per (tenant, "
+                   "candidate) when the shadow-scored candidate's score "
+                   "distribution diverges from its primary's past this "
+                   "PSI (default 0.25) — the candidate-attributed "
+                   "evidence `launch rollout`'s scoped gate binds")
+    a.add_argument("--once", action="store_true",
+                   help="scrape+merge once and exit: print the fleet "
+                   "Prometheus text (or write --snapshot-path) instead of "
+                   "serving — how capture scripts bank a fleet snapshot")
+    a.add_argument("--snapshot-path", dest="snapshot_path",
+                   help="with --once: write the merged fleet registry here "
+                   "(.json = JSON snapshot, else Prometheus text)")
+    a.add_argument("--slo-file", dest="slo_file",
+                   help="SLO spec JSON: objectives over tsdb SLI "
+                   "expressions, compiled into error-budget gauges "
+                   "(distlr_slo_*) and multi-window burn-rate alerts "
+                   "(distlr_alert_slo_burn{slo,window}) evaluated every "
+                   "scrape (distlr_tpu_torch/obs/slo.py documents the file)")
+    a.add_argument("--obs-tsdb-raw-points", dest="obs_tsdb_raw_points",
+                   type=int,
+                   help="embedded tsdb raw-ring size per series, in "
+                   "scrape frames (default 512)")
+    a.add_argument("--obs-tsdb-rollup-retention-s",
+                   dest="obs_tsdb_rollup_retention_s", type=float,
+                   help="seconds of 10s/60s rollup history kept per "
+                   "series (default 3600); evictions count into "
+                   "distlr_tsdb_points_dropped_total")
+    a.add_argument("--obs-tsdb-history-lines",
+                   dest="obs_tsdb_history_lines", type=int,
+                   help="lines per on-disk history.jsonl segment before "
+                   "rotation (default 2000; one rotated segment kept)")
+    a.set_defaults(fn=cmd_obs_agg)
+
+    fq = sub.add_parser(
+        "fleet-query",
+        help="evaluate one time-series expression (rate / increase / "
+             "histogram_quantile / *_over_time + label matchers and "
+             "arithmetic) against a running obs-agg's embedded tsdb "
+             "and print the JSON result",
+    )
+    fq.add_argument("expr",
+                    help="the expression, e.g. "
+                    "'rate(route_requests{role=route})' or "
+                    "'histogram_quantile(0.99, "
+                    "distlr_route_request_seconds)'")
+    fq.add_argument("--obs-run-dir", dest="obs_run_dir",
+                    help="fleet run dir: discovers the running obs-agg's "
+                    "endpoint file")
+    fq.add_argument("--fleet", help="aggregator URL (http://host:port) — "
+                    "overrides --obs-run-dir discovery")
+    fq.add_argument("--window", type=float, default=60.0,
+                    help="trailing evaluation window, seconds (default "
+                    "60)")
+    fq.add_argument("--timeout", type=float, default=5.0,
+                    help="HTTP timeout, seconds (default 5)")
+    fq.set_defaults(fn=cmd_fleet_query)
+
+    pa = config_parser(
+        "prof-agg",
+        help="merge every rank's continuous-profiling journal (Python "
+             "samplers + native KV-server CPU windows) into a fleet "
+             "collapsed-stack file and a speedscope JSON, one track per "
+             "rank",
+    )
+    pa.add_argument("--out", default="fleet_profile",
+                    help="output stem: writes <out>.collapsed "
+                    "(flamegraph.pl/inferno) and <out>.speedscope.json "
+                    "(speedscope.app); default fleet_profile")
+    pa.set_defaults(fn=cmd_prof_agg)
+
+    pr = config_parser(
+        "profrec",
+        help="trigger an on-demand profile burst: every sampler on the "
+             "run dir captures at high Hz once and journals one burst "
+             "window (the profiler-only twin of flightrec)",
+    )
+    pr.add_argument("--reason", default="manual",
+                    help="reason string recorded in the trigger + burst "
+                    "windows (default 'manual')")
+    pr.set_defaults(fn=cmd_profrec)
+
+    t = sub.add_parser(
+        "top",
+        help="live terminal dashboard over a fleet scrape (per-rank step "
+             "rate, op latencies, staleness, firing alerts)",
+    )
+    t.add_argument("--obs-run-dir", dest="obs_run_dir",
+                   help="fleet run dir: discovers the running obs-agg's "
+                   "endpoint file")
+    t.add_argument("--fleet", help="aggregator URL (http://host:port) — "
+                   "overrides --obs-run-dir discovery")
+    t.add_argument("--interval", type=float, default=1.0,
+                   help="refresh period, seconds (default 1)")
+    t.add_argument("--iterations", type=int,
+                   help="render N frames then exit (default: until Ctrl-C)")
+    t.add_argument("--no-color", dest="no_color", action="store_true",
+                   help="plain text frames (no ANSI colors/clears)")
+    t.add_argument("--rate-window", dest="rate_window", type=int, default=10,
+                   help="frames of history behind the windowed req/s and "
+                   "push/s columns (default 10 scrapes)")
+    t.add_argument("--replay", dest="replay",
+                   help="scrub a PAST incident offline: render this "
+                   "banked scrape history (<run_dir>/history.jsonl, "
+                   "written by the aggregator) frame by frame instead of "
+                   "polling a live fleet")
+    t.add_argument("--replay-interval", dest="replay_interval", type=float,
+                   default=0.0,
+                   help="seconds between replayed frames (default 0 = "
+                   "as fast as the terminal draws)")
+    t.set_defaults(fn=cmd_top)
+
+    lg = config_parser(
+        "logs",
+        help="query the fleet's structured log journals: tail/grep/"
+             "level-filter across every rank, or follow one request "
+             "with --trace",
+    )
+    lg.add_argument("--level", choices=["debug", "info", "warning",
+                                        "error"],
+                    help="minimum record level (default: all journaled)")
+    lg.add_argument("--grep", help="only records whose message contains "
+                    "this substring")
+    lg.add_argument("--trace", help="only this trace id's records, "
+                    "interleaved with its spans (one request's story)")
+    lg.add_argument("--tail", type=int, default=0,
+                    help="print only the last N events (default 0 = all)")
+    lg.add_argument("--json", action="store_true",
+                    help="one JSON object per line instead of text")
+    lg.set_defaults(fn=cmd_logs)
+
+    inc = config_parser(
+        "incident",
+        help="incident bundles: list/show/render the postmortem bundles "
+             "obs-agg assembles on alert edges, or --trigger a manual "
+             "drill bundle",
+    )
+    inc.add_argument("action", nargs="?", default="list",
+                     choices=["list", "show", "render"],
+                     help="list bundles, show one's facts as JSON, or "
+                     "(re-)render its POSTMORTEM.md (default: list)")
+    inc.add_argument("--seq", type=int,
+                     help="bundle sequence (default: the newest)")
+    inc.add_argument("--trigger", metavar="REASON",
+                     help="fire the flight-recorder/profiler dump "
+                     "machinery now and assemble a manual bundle with "
+                     "this reason")
+    inc.set_defaults(fn=cmd_incident)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -80,8 +80,8 @@ _FLIGHT_DUMPS = _reg.counter(
 MAX_JOURNAL_SPANS = 200_000
 
 #: thread ident -> stack of active span NAMES, readable from OTHER
-#: threads (a threading.local cannot be): what a sampling profiler
-#: (ROADMAP A.21) reads to tag each stack sample with the innermost span
+#: threads (a threading.local cannot be): what the sampling profiler
+#: (distlr_tpu_torch.obs.profile) reads to tag each stack sample with the innermost span
 #: running on the sampled thread, so flamegraphs split by serve.request
 #: vs train.step vs feedback.*.  Mutated only by
 #: the owning thread (list append/pop are atomic under the GIL); readers
@@ -624,9 +624,9 @@ def reset_for_tests() -> None:
 def trigger(run_dir: str, alert: str = "manual") -> str:
     """Drop/refresh the flight-recorder trigger file under ``run_dir``:
     every process configured on that run dir dumps its ring within one
-    watcher poll.  Called by ``launch flightrec`` on demand (the JAX
-    package's fleet aggregator also calls it when a ``distlr_alert_*``
-    gauge starts firing; ROADMAP A.21 here)."""
+    watcher poll.  Called by the fleet aggregator when a
+    ``distlr_alert_*`` gauge starts firing, and by ``launch flightrec``
+    on demand."""
     d = os.path.join(run_dir, "flightrec")
     os.makedirs(d, exist_ok=True)
     path = os.path.join(d, TRIGGER_NAME)
@@ -649,9 +649,8 @@ def trigger(run_dir: str, alert: str = "manual") -> str:
 # ---------------------------------------------------------------------------
 
 def read_journal(path: str) -> list[dict]:
-    """Tolerant JSONL journal reader (torn tail lines skipped): what
-    trace-agg reads, and what the JAX package's incident engine reads
-    (ROADMAP A.21 here)."""
+    """Tolerant JSONL journal reader (torn tail lines skipped), shared
+    by trace-agg and the incident engine's artifact collectors."""
     return _read_journal(path)
 
 

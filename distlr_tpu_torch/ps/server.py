@@ -249,6 +249,10 @@ class ServerGroup:
     trace-stamped ops to ``<dir>/kvserver-<rank>.jsonl`` (the native half
     of the span journals ``launch trace-agg`` merges); respawns and resize
     spawns keep it, and None leaves the command line as without it.
+    ``prof_journal_dir`` likewise makes each rank journal its per-handler
+    thread-CPU windows (every ``prof_window_s`` seconds; None keeps the
+    server's 10) to ``<dir>/kvserver-<rank>.jsonl``, the native half of
+    the profile journals ``launch prof-agg`` merges.
     ``binary`` is the server executable of every spawn; by default the
     build of the sanitizer variant ``DISTLR_NATIVE_VARIANT`` names when
     the group is made (:mod:`distlr_tpu_torch.ps.build`), spawned with
@@ -264,7 +268,8 @@ class ServerGroup:
                  opt_segments: list[tuple[int, str]] | None = None, via_chaos=None,
                  store_dir: str | None = None, store_interval_s: float = 5.0,
                  store_wal: bool = False, store_wal_fsync_s: float = 0.1, epoch: int = 1,
-                 binary=None, trace_journal_dir: str | None = None):
+                 binary=None, trace_journal_dir: str | None = None,
+                 prof_journal_dir: str | None = None, prof_window_s: float | None = None):
         if not 1 <= epoch <= wire.AUX_MAX:
             # membership epochs ride the u16 MsgHeader::aux field
             raise ValueError(f"epoch must be in [1, {wire.AUX_MAX}], got {epoch}")
@@ -334,6 +339,8 @@ class ServerGroup:
         self.store_wal = store_wal
         self.store_wal_fsync_s = store_wal_fsync_s
         self.trace_journal_dir = trace_journal_dir
+        self.prof_journal_dir = prof_journal_dir
+        self.prof_window_s = prof_window_s
         #: the membership epoch new spawns (respawns too) carry; a resize
         #: bumps it
         self.epoch = int(epoch)
@@ -448,6 +455,11 @@ class ServerGroup:
         if self.trace_journal_dir:
             cmd.append("--trace_journal="
                        + os.path.join(self.trace_journal_dir, f"kvserver-{rank}.jsonl"))
+        if self.prof_journal_dir:
+            cmd.append("--prof_journal="
+                       + os.path.join(self.prof_journal_dir, f"kvserver-{rank}.jsonl"))
+            if self.prof_window_s is not None:
+                cmd.append(f"--prof_window={self.prof_window_s}")
         if self.store_dir:
             # a directory a rank: the ranks own disjoint slices.  Only
             # values off the servers' defaults touch the command line
@@ -469,8 +481,9 @@ class ServerGroup:
         port."""
         if self.store_dir:
             os.makedirs(self.store_rank_dir(rank), exist_ok=True)
-        if self.trace_journal_dir:
-            os.makedirs(self.trace_journal_dir, exist_ok=True)
+        for d in (self.trace_journal_dir, self.prof_journal_dir):
+            if d:
+                os.makedirs(d, exist_ok=True)
         # a sanitizer variant's spawn carries its options (suppressions
         # forced, the caller's log_path kept); the standard build's gets
         # env=None and inherits this process's environment

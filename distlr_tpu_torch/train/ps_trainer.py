@@ -1296,7 +1296,18 @@ def ps_server_group(cfg: Config) -> ServerGroup:
                        ftrl_beta=cfg.ftrl_beta, ftrl_l1=cfg.ftrl_l1, ftrl_l2=cfg.ftrl_l2,
                        store_dir=cfg.ps_store_dir, store_interval_s=cfg.ps_store_interval_s,
                        store_wal=cfg.ps_store_wal, store_wal_fsync_s=cfg.ps_store_wal_fsync_s,
-                       trace_journal_dir=trace_journal_dir(cfg))
+                       trace_journal_dir=trace_journal_dir(cfg),
+                       prof_journal_dir=prof_journal_dir(cfg), prof_window_s=cfg.prof_window_s)
+
+
+def prof_journal_dir(cfg: Config) -> str | None:
+    """Where locally spawned servers journal their per-handler thread-CPU
+    windows: the run dir's ``profiles/``, beside the Python samplers'
+    journals, when profiling is armed (``obs_run_dir`` and ``prof_hz``
+    above 0); else None."""
+    if cfg.obs_run_dir and cfg.prof_hz > 0:
+        return os.path.join(cfg.obs_run_dir.split(os.pathsep)[0], "profiles")
+    return None
 
 
 def trace_journal_dir(cfg: Config) -> str | None:

@@ -1,6 +1,6 @@
 """Logging, CHECK-style invariants and the reference-format eval line
-(copy of ``check``, ``check_eq``, ``get_logger`` and ``log_eval_line``
-from ``distlr_tpu/utils/logging.py``).
+(copy of ``check``, ``check_eq``, ``get_logger``, the extra-handler hook
+and ``log_eval_line`` from ``distlr_tpu/utils/logging.py``).
 
 A failed check raises :class:`CheckError` where the reference's dmlc
 ``CHECK`` / ``CHECK_EQ`` macros abort the process (``src/main.cc:49,86``).
@@ -47,6 +47,24 @@ class _LazyStderrHandler(logging.StreamHandler):
         return sys.stderr
 
 
+#: extra-handler providers consulted on every get_logger call.  Each is
+#: a zero-arg callable returning a Handler (or None when disarmed); the
+#: handler is attached beside, never instead of, the stderr handler.  The
+#: fleet log's journal tee (distlr_tpu_torch.obs.log) registers here so
+#: loggers created after its configure() still reach the journal.
+_EXTRA_HANDLER_PROVIDERS: list = []
+
+
+def register_extra_handler(provider) -> None:
+    if provider not in _EXTRA_HANDLER_PROVIDERS:
+        _EXTRA_HANDLER_PROVIDERS.append(provider)
+
+
+def unregister_extra_handler(provider) -> None:
+    if provider in _EXTRA_HANDLER_PROVIDERS:
+        _EXTRA_HANDLER_PROVIDERS.remove(provider)
+
+
 def get_logger(name: str = "distlr_tpu_torch") -> logging.Logger:
     logger = logging.getLogger(name)
     if not logger.handlers:
@@ -55,6 +73,10 @@ def get_logger(name: str = "distlr_tpu_torch") -> logging.Logger:
         logger.addHandler(handler)
         logger.setLevel(logging.INFO)
         logger.propagate = False
+    for provider in list(_EXTRA_HANDLER_PROVIDERS):
+        extra = provider()
+        if extra is not None and extra not in logger.handlers:
+            logger.addHandler(extra)
     return logger
 
 

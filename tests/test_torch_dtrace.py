@@ -19,10 +19,10 @@ on the CPU: the counterpart of ``tests/test_dtrace.py``.
 * End to end: a routed request and its label share one merged trace,
   router to KV server, with JAX's span names.
 
-Not portable yet: the two ``TestTopLatencyColumn`` cases read ``launch
-top`` and the fleet aggregator (ROADMAP A.21), listed in
-:data:`WAITING_FOR_A21`; the aggregator's alert case is ported with a
-direct ``dtrace.trigger`` in its place.
+* The fleet tools read the tracing tier's series: ``launch top``'s route
+  latency column and the aggregator's route percentiles
+  (``TestTopLatencyColumn``); the aggregator's alert case triggers the
+  flight recorder with a direct ``dtrace.trigger``.
 """
 
 import collections
@@ -46,12 +46,6 @@ from distlr_tpu_torch.ps import KVWorker, RetryPolicy, ServerGroup
 D = 32
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PUSH_BYTES = 24 + D * 8 + D * 4
-
-#: tests/test_dtrace.py cases that read the fleet tools (``launch top``'s
-#: renderer, the aggregator's fleet.json): waiting for ROADMAP A.21
-WAITING_FOR_A21 = ("TestTopLatencyColumn::test_route_latency_rendered",
-                   "TestTopLatencyColumn::test_fleet_json_carries_route_percentiles")
-
 
 @pytest.fixture(autouse=True)
 def _reset_tracers():
@@ -705,8 +699,10 @@ class TestPSTrainer:
                                      "--trace-sample", "1.0"],
                               cwd=REPO, capture_output=True, text=True, timeout=300)
         assert proc.returncode == 0, proc.stderr
-        assert "ROADMAP A.21" in proc.stderr  # what --obs-run-dir does not write yet
         assert any(ln.startswith("METRICS ") for ln in proc.stdout.splitlines())
+        # the profiler's windows, the servers' CPU windows beside them
+        assert sorted(os.listdir(os.path.join(run, "profiles"))) == [
+            "kvserver-0.jsonl", "kvserver-1.jsonl", "ps-0.jsonl"]
         assert sorted(os.listdir(os.path.join(run, "spans"))) == [
             "kvserver-0.jsonl", "kvserver-1.jsonl", "ps-0.jsonl"]
         assert os.listdir(os.path.join(run, "endpoints")) == []  # left at the clean exit
@@ -732,9 +728,9 @@ class TestPSTrainer:
 
 def test_run_dir_layout_of_each_package(tmp_path):
     """``launch sync --obs-run-dir``: the subdirectories each package leaves
-    in the run dir.  The port writes JAX's ``spans/`` and ``endpoints/``;
-    JAX's continuous profiler and fleet log (``profiles/``, ``logs/``) are
-    ROADMAP A.21."""
+    in the run dir are the same: ``endpoints/`` (emptied at the clean
+    exit), ``logs/``, ``profiles/`` and ``spans/``, each with the process's
+    ``sync-0`` journal."""
     from distlr_tpu_torch.data.synthetic import write_synthetic_shards
 
     d = str(tmp_path / "d")
@@ -754,8 +750,52 @@ def test_run_dir_layout_of_each_package(tmp_path):
         meta = dtrace.read_journal(os.path.join(run, "spans", "sync-0.jsonl"))[0]
         assert (meta["type"], meta["role"], meta["rank"], meta["sample"]) == (
             "meta", "sync", 0, 1.0)
-    assert layout["distlr_tpu_torch"] == ["endpoints", "spans"]
-    assert layout["distlr_tpu"] == ["endpoints", "logs", "profiles", "spans"]
+        for sub in ("logs", "profiles"):
+            assert os.listdir(os.path.join(run, sub)) == ["sync-0.jsonl"], (pkg, sub)
+    assert layout["distlr_tpu_torch"] == layout["distlr_tpu"] == [
+        "endpoints", "logs", "profiles", "spans"]
+
+
+# ---------------------------------------------------------------------------
+# the fleet tools read the tracing tier's series
+# ---------------------------------------------------------------------------
+
+class TestTopLatencyColumn:
+    def test_route_latency_rendered(self, monkeypatch):
+        from distlr_tpu.obs.top import render_fleet as jax_render_fleet
+        from distlr_tpu_torch.obs.top import render_fleet
+
+        monkeypatch.setattr(time, "time", lambda: 5000.0)  # the header's "age" reads it
+        fleet = {
+            "updated": time.time(), "run_dir": "/tmp/x",
+            "totals": {"ranks": 1, "up": 1, "stale": 0, "down": 0, "samples_per_s": 0.0},
+            "alerts": [],
+            "ranks": [{"role": "route", "rank": 0, "state": "up", "route_requests": 100,
+                       "route_p50_ms": 1.25, "route_p99_ms": 9.5}],
+        }
+        frame = render_fleet(fleet, color=False)
+        assert "e2e p50/p99" in frame
+        assert "1.25/9.50" in frame
+        assert frame == jax_render_fleet(fleet, color=False)
+
+    def test_fleet_json_carries_route_percentiles(self, tmp_path):
+        """The port's aggregator extracts route p50/p99 from the port's
+        router's latency histogram, banked as a snapshot."""
+        from distlr_tpu_torch.obs import get_registry, write_metrics_snapshot
+        from distlr_tpu_torch.obs.federate import FleetScraper
+        from distlr_tpu_torch.serve.router import _REQ_SECONDS, _REQUESTS
+
+        _REQUESTS.labels(listener="t:1").inc()
+        for v in (0.001, 0.002, 0.01):
+            _REQ_SECONDS.labels(listener="t:1").observe(v)
+        run = str(tmp_path)
+        os.makedirs(os.path.join(run, "snapshots"))
+        write_metrics_snapshot(os.path.join(run, "snapshots", "route-0.json"), get_registry())
+        scraper = FleetScraper(run)
+        scraper.scrape_once()
+        row = [r for r in scraper.fleet_json()["ranks"] if r["role"] == "route"][0]
+        assert row["route_p50_ms"] > 0
+        assert row["route_p99_ms"] >= row["route_p50_ms"]
 
 
 # ---------------------------------------------------------------------------

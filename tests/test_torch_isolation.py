@@ -70,7 +70,13 @@ def test_fresh_interpreter_imports_no_jax():
                 "distlr_tpu_torch.ps.membership", "distlr_tpu_torch.chaos",
                 "distlr_tpu_torch.chaos.plan", "distlr_tpu_torch.chaos.proxy",
                 "distlr_tpu_torch.ps.build", "distlr_tpu_torch.utils.logging",
-                "distlr_tpu_torch.config"):
+                "distlr_tpu_torch.config", "distlr_tpu_torch.sync",
+                "distlr_tpu_torch.obs.tsdb", "distlr_tpu_torch.obs.slo",
+                "distlr_tpu_torch.obs.log", "distlr_tpu_torch.obs.profile",
+                "distlr_tpu_torch.obs.incident", "distlr_tpu_torch.obs.federate",
+                "distlr_tpu_torch.obs.top", "distlr_tpu_torch.obs.metrics_doc",
+                "distlr_tpu_torch.autopilot", "distlr_tpu_torch.autopilot.policy",
+                "distlr_tpu_torch.autopilot.actuators", "distlr_tpu_torch.autopilot.daemon"):
         assert mod in doc["imported"]
     assert doc["leaked"] == []
 

@@ -4,6 +4,7 @@ import argparse
 import contextlib
 import dataclasses
 import io
+import json
 import os
 import re
 import shutil
@@ -85,10 +86,20 @@ class TestCLI:
         assert not os.path.exists(os.path.join(d, "models", "part-001"))
 
     def test_unported_option_names_its_roadmap_item(self, tmp_path):
-        proc = _launch("sync", "--data-dir", str(tmp_path), "--prof-hz", "5",
-                       "--device", "cpu", check=False)
-        assert proc.returncode != 0
-        assert "ROADMAP A.21" in proc.stderr
+        """Formerly refused naming ROADMAP A.21: ``--prof-hz`` and
+        ``--prof-window`` now arm the profiler of a ``--obs-run-dir`` run,
+        whose windows carry the rate asked for."""
+        d, run = str(tmp_path / "d"), str(tmp_path / "run")
+        _launch("gen-data", "--data-dir", d, "--num-feature-dim", "8", "--num-samples", "200",
+                "--num-parts", "1")
+        _launch("sync", "--data-dir", d, "--num-feature-dim", "8", "--num-iteration", "2",
+                "--test-interval", "0", "--prof-hz", "5", "--prof-window", "30",
+                "--log-level", "debug", "--obs-run-dir", run, "--device", "cpu")
+        with open(os.path.join(run, "profiles", "sync-0.jsonl")) as f:
+            windows = [json.loads(line) for line in f]
+        assert windows and all(w["hz"] == 5.0 for w in windows)
+        with open(os.path.join(run, "logs", "sync-0.jsonl")) as f:
+            assert '"level": "debug"' in f.readline()  # the journal's meta line
 
 
 class TestPSCLI:
@@ -159,11 +170,15 @@ class TestPSCLI:
         (["--log-level", "debug"], "A.21"),
     ])
     def test_unported_ps_flags_name_their_roadmap_item(self, argv, item, tmp_path):
+        """Formerly refused naming ROADMAP ``item``: the flag now reaches
+        the ``ps`` Config as it reaches the JAX package's."""
         from distlr_tpu_torch import launch
 
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP {re.escape(item)}\)"):
-            launch.main(["ps", "--data-dir", str(tmp_path), "--num-feature-dim", "8",
-                         "--device", "cpu", *argv])
+        argv = ["ps", "--data-dir", str(tmp_path), "--num-feature-dim", "8", *argv]
+        cfg = launch.command_config(_PARSER.parse_args(argv + ["--device", "cpu"]))
+        jcfg = jax_launch._config_from_args(_JAX_PARSER.parse_args(argv))
+        assert (cfg.prof_hz, cfg.log_level) == (jcfg.prof_hz, jcfg.log_level)
+        assert (cfg.prof_hz, cfg.log_level) != (Config().prof_hz, Config().log_level)
 
     @pytest.mark.parametrize("argv", _RECOVERY_PS_FLAGS, ids=lambda a: a[0])
     @pytest.mark.parametrize("hosts", [False, True], ids=["local", "hosts"])
@@ -355,18 +370,14 @@ _SHARED_CASES = [(cmd, opt) for cmd in _SUBS if cmd in _JAX_SUBS
                  for opt in sorted({o for a in _JAX_SUBS[cmd]._actions for o in a.option_strings}
                                    - {"-h", "--help"})]
 
-# the ROADMAP item a flag's non-default value must name, independent of
-# the port's own tables
-_GATES = dict.fromkeys(("--prof-hz", "--prof-window", "--log-level", "--log-ring",
-                        "--log-dedupe", "--incident-window", "--incident-settle",
-                        "--incident-max"), "A.21")
 # flags whose value must come with another flag to be valid in both packages
 _WITH = {"--accum-start": ["--accum-max", "4"],
          "--block-groups": ["--model", "blocked_lr", "--block-size", "4"],
          "--store-wal": ["--store-dir", "st"]}
-# the subcommands with no Config: their flags go to the writers (gen-data)
-# and to the coordinator's client (ps-ctl)
-_NO_CONFIG = ("gen-data", "ps-ctl")
+# the subcommands with no Config: their flags go to the writers (gen-data),
+# to the coordinator's client (ps-ctl) and to the aggregator's readers (top,
+# fleet-query), as in the JAX package
+_NO_CONFIG = ("gen-data", "ps-ctl", "top", "fleet-query")
 _VALUE = {"--accum-growth": "2.5", "--coordinator": "127.0.0.1:1", "--block-size": "4",
           "--eject-after": "5", "--probe-backoff": "0.25", "--ps-retry-backoff-max": "5000"}
 # the flags a command maps onto Config fields itself (the JAX package's
@@ -410,13 +421,14 @@ def _flag_value(action, opt: str) -> list[str]:
 @pytest.mark.parametrize("cmd,opt", _SHARED_CASES, ids=[f"{c}:{o}" for c, o in _SHARED_CASES])
 def test_shared_flags_match_jax(cmd, opt):
     """Every option string of a JAX subcommand parses on the port's twin
-    into the same dest, value and default, then either reaches the same
-    Config field as in the JAX package or raises naming its ROADMAP item."""
+    into the same dest, value and default, then reaches the same Config
+    field as in the JAX package, or is refused by both Configs alike."""
     (action,) = [a for a in _JAX_SUBS[cmd]._actions if opt in a.option_strings]
-    # a required flag with a value; a required positional (ps-ctl's
-    # command) with its first choice
+    # a required flag with a value; a required positional with its first
+    # choice (ps-ctl's command) or a value (fleet-query's expression)
     required = [x for a in _JAX_SUBS[cmd]._actions if a.required
-                for x in ((a.option_strings[0], "x") if a.option_strings else (a.choices[0],))
+                for x in ((a.option_strings[0], "x") if a.option_strings
+                          else (a.choices[0] if a.choices else "x",))
                 if not a.option_strings or a.option_strings[0] != opt]
     argv = [cmd, *required, *_WITH.get(opt, []), opt, *_flag_value(action, opt)]
     device = ["--device", "cpu"] if cmd not in _NO_CONFIG else []
@@ -428,11 +440,6 @@ def test_shared_flags_match_jax(cmd, opt):
     theirs = _JAX_PARSER.parse_args(argv)
     assert getattr(ours, action.dest) == getattr(theirs, action.dest)
     if cmd in _NO_CONFIG:
-        return
-    item = _GATES.get(opt)
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=rf"\(ROADMAP {re.escape(item)}\)"):
-            launch.command_config(ours)
         return
     try:
         jax_cfg = jax_launch._config_from_args(theirs)

@@ -9,8 +9,8 @@ JAX package's (``distlr_tpu/obs``), on the CPU.
 * Family parity: every family a JAX module declares has, once the port's
   twin is imported, the same name, type, label names, HELP and buckets in
   the port's registry (distributed tracing's ``distlr_trace_*`` among
-  them).  The families of the fleet tools (ROADMAP A.21) are listed by
-  module as absent.
+  them, and the fleet tools' federation, SLO, log, profiler, incident
+  and autopilot families).
 * The runtime probes: the scoring engine's compiles by bucket equal
   JAX's for the same call sequence; the device-bytes gauge moves.
 * The per-client counters ``chip_smoke.py`` reads as attributes still
@@ -484,16 +484,16 @@ _PORTED = {
     "distlr_tpu/obs/tracing.py": "distlr_tpu_torch.obs.tracing",
     "distlr_tpu/obs/jaxrt.py": "distlr_tpu_torch.obs.torchrt",
     "distlr_tpu/obs/dtrace.py": "distlr_tpu_torch.obs.dtrace",
+    "distlr_tpu/autopilot/daemon.py": "distlr_tpu_torch.autopilot.daemon",
+    "distlr_tpu/obs/federate.py": "distlr_tpu_torch.obs.federate",
+    "distlr_tpu/obs/incident.py": "distlr_tpu_torch.obs.incident",
+    "distlr_tpu/obs/log.py": "distlr_tpu_torch.obs.log",
+    "distlr_tpu/obs/profile.py": "distlr_tpu_torch.obs.profile",
+    "distlr_tpu/obs/slo.py": "distlr_tpu_torch.obs.slo",
 }
-#: JAX modules whose families the port does not declare yet, by ROADMAP item
-_ABSENT = {
-    "distlr_tpu/autopilot/daemon.py": "A.21",
-    "distlr_tpu/obs/federate.py": "A.21",
-    "distlr_tpu/obs/incident.py": "A.21",
-    "distlr_tpu/obs/log.py": "A.21",
-    "distlr_tpu/obs/profile.py": "A.21",
-    "distlr_tpu/obs/slo.py": "A.21",
-}
+#: JAX modules whose families the port does not declare yet, by ROADMAP
+#: item: none since the fleet tools were ported
+_ABSENT: dict[str, str] = {}
 #: the runtime probes keep JAX's names and labels, and say in their HELP
 #: what each counts in the port
 _OWN_HELP = {"distlr_jax_compiles_total", "distlr_jax_device_buffer_bytes",
@@ -536,10 +536,45 @@ def _import_declaring(jax_path: str, port_module: str):
         port_mod.MetricsLogger()
 
 
+#: the aggregator's modules declare their families in the merged registry
+#: of a scrape, not in the process registry
+_SCRAPE_DECLARING = ("distlr_tpu/obs/federate.py", "distlr_tpu/obs/slo.py")
+
+
+def _scrape_registries(tmp_path) -> tuple:
+    """Each package's merged registry after one scrape, with an SLO spec,
+    over banked snapshots that give every conditional family its input:
+    step and barrier-wait histograms, and two ladders of one histogram
+    that conflict."""
+    import importlib
+
+    bucket_sets = ((0.1, 1.0), (0.2, 1.0))
+    for rank, buckets in enumerate(bucket_sets):
+        reg = jax_registry.MetricsRegistry()
+        reg.histogram("distlr_train_step_seconds", "s", ("loop",)).labels(loop="ps").observe(0.1)
+        reg.histogram("distlr_phase_seconds", "s", ("phase",)).labels(
+            phase="barrier_wait").observe(0.2)
+        reg.histogram("distlr_x_seconds", "x", buckets=buckets).observe(0.5)
+        os.makedirs(tmp_path / "snapshots", exist_ok=True)
+        (tmp_path / "snapshots" / f"ps-{rank}.json").write_text(json.dumps(reg.snapshot()))
+    doc = {"slos": [{"name": "a", "objective": 0.9, "window_s": 60,
+                     "sli": {"kind": "ratio", "bad": "increase(x)", "total": "increase(y)"}}]}
+    out = []
+    for pkg in ("distlr_tpu", "distlr_tpu_torch"):
+        federate = importlib.import_module(f"{pkg}.obs.federate")
+        slo = importlib.import_module(f"{pkg}.obs.slo")
+        scraper = federate.FleetScraper(str(tmp_path), history=False,
+                                        slo_spec=slo.load_slo_spec(doc))
+        out.append(scraper.scrape_once())
+    return tuple(out)
+
+
 @pytest.mark.parametrize("jax_path", sorted(_PORTED))
-def test_family_parity(jax_path):
+def test_family_parity(jax_path, tmp_path):
     _import_declaring(jax_path, _PORTED[jax_path])
     theirs, ours = jax_registry.get_registry(), get_registry()
+    if jax_path in _SCRAPE_DECLARING:
+        theirs, ours = _scrape_registries(tmp_path)
     names = _declared(jax_path)
     assert names
     for name in names:
@@ -549,19 +584,6 @@ def test_family_parity(jax_path):
         assert (p.kind, p.labelnames, p._child_kw) == (j.kind, j.labelnames, j._child_kw), name
         if name not in _OWN_HELP:
             assert p.help == j.help, name
-
-
-@pytest.mark.parametrize("jax_path", sorted(_ABSENT))
-def test_unported_families_are_absent(jax_path):
-    import importlib
-    import pkgutil
-
-    import distlr_tpu_torch
-
-    for mod in pkgutil.walk_packages(distlr_tpu_torch.__path__, "distlr_tpu_torch."):
-        importlib.import_module(mod.name)
-    present = [n for n in _declared(jax_path) if get_registry().get(n) is not None]
-    assert present == [], f"{jax_path} ({_ABSENT[jax_path]}) families declared: {present}"
 
 
 # ---------------------------------------------------------------------------
