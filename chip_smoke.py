@@ -1912,6 +1912,37 @@ def _device_rows(torch, cols, D: int, dtype, value: float = 1.0):
     return X
 
 
+def _serve_inputs(seed: int):
+    """The serve phase's seeded inputs: its generator (drawn past them),
+    the full-width weights, the rows' one-hot columns and labels, and the
+    wide engine's columns."""
+    import numpy as np  # noqa: PLC0415
+
+    rng = np.random.default_rng(seed + 10)
+    w_true = (rng.standard_normal(FULL_D) * 0.5).astype(np.float32)
+    n_main = SERVE_CLIENTS * SERVE_SINGLES + sum(SERVE_JSON_ROWS)
+    cols, y = _ctr_cols(rng, n_main, w_true, FULL_D)
+    cols_wide, _ = _ctr_cols(rng, SERVE_WIDE_ROWS, np.zeros(WIDE_D, np.float32), WIDE_D)
+    return rng, _serve_weights(rng, FULL_D, cols), cols, y, cols_wide
+
+
+#: the thread primitives of the classes the port routes through its sync
+#: facade, as the serving phases built them: "<phase>.<object>.<attr>" ->
+#: type.  The sched phase holds each to the stdlib's (the facade's
+#: passthrough on the card path).
+_PRIMITIVE_TYPES: dict = {}
+BATCHER_PRIMITIVES = ("_cv", "_thread")
+ROUTER_PRIMITIVES = ("_lock", "_stop", "_accept_thread", "_health_thread")
+REPLICA_PRIMITIVES = ("_sem", "_pool_lock")
+RELOADER_PRIMITIVES = ("_stop", "_poll_lock", "_thread")
+SHADOW_PRIMITIVES = ("_lock", "_wake", "_stop", "_thread")
+
+
+def _note_primitives(label: str, obj, attrs) -> None:
+    for attr in attrs:
+        _PRIMITIVE_TYPES[f"{label}.{attr}"] = type(getattr(obj, attr))
+
+
 def _serve_weights(rng, D: int, cols):
     """Seeded weights, centred and scaled so that the logits of the rows of
     ``cols`` have a deviation of 1.5: no score saturates."""
@@ -2354,17 +2385,10 @@ def phase_serve(torch, seed: int, smi: str) -> dict:
     live-PS hot reloads and the eviction; then the kernels at the serving
     shapes and the per-bucket time breakdown (launches made there come
     after the counts were read)."""
-    import numpy as np  # noqa: PLC0415
-
     from distlr_tpu_torch import ops  # noqa: PLC0415
     from distlr_tpu_torch.serve import ScoringServer  # noqa: PLC0415
 
-    rng = np.random.default_rng(seed + 10)
-    w_true = (rng.standard_normal(FULL_D) * 0.5).astype(np.float32)
-    n_main = SERVE_CLIENTS * SERVE_SINGLES + sum(SERVE_JSON_ROWS)
-    cols, y = _ctr_cols(rng, n_main, w_true, FULL_D)
-    cols_wide, _ = _ctr_cols(rng, SERVE_WIDE_ROWS, np.zeros(WIDE_D, np.float32), WIDE_D)
-    w = _serve_weights(rng, FULL_D, cols)
+    rng, w, cols, y, cols_wide = _serve_inputs(seed)
     out, rss = {"nvidia_smi": smi, "D": FULL_D, "wide_D": WIDE_D,
                 "buckets": list(SERVE_BUCKETS), "max_wait_ms": SERVE_WAIT_MS}, {}
     t_phase = time.perf_counter()
@@ -2375,6 +2399,7 @@ def phase_serve(torch, seed: int, smi: str) -> dict:
         out["engine_start_s"] = time.perf_counter() - t0
         ops.reset_launch_counts()
         with ScoringServer(eng, max_wait_ms=SERVE_WAIT_MS) as srv:
+            _note_primitives("serve.batcher", srv.batcher, BATCHER_PRIMITIVES)
             traffic = _serve_traffic(torch, ops, srv, torch.from_numpy(w).cuda(), cols, y)
             out["side_engines"] = _serve_side_engines(
                 torch, ops, rng, w, cols[:SERVE_SIDE_ROWS], cols_wide, y)
@@ -3569,7 +3594,8 @@ def phase_ps_recovery(torch, seed: int, smi: str) -> dict:
 
 # --- the durable store, its WAL and the chaos fabric --------------------------
 DUR_WAL_PUSHES, DUR_PUSH_REPS, DUR_SUP_POLL_S = 8, 3, 0.05
-DUR_SNAP_INTERVAL_S, DUR_SNAP_RUN_S = 0.5, 2.5
+# the snapshot-only run: three intervals (the check bounds the loss by two)
+DUR_SNAP_INTERVAL_S, DUR_SNAP_RUN_S = 0.5, 1.5
 DUR_RETRY_ATTEMPTS, DUR_CLI_ROWS = 10, 128
 # a throttle of each rate on every link, None = the proxy alone
 DUR_RATES = {"unthrottled": None, "1gbit": 125_000_000, "100mbit": 12_500_000}
@@ -3829,8 +3855,9 @@ def _dur_drill_run(torch, cfg, *, kill_at_s: float, tmp: str):
 
 def _dur_drill(torch, ops, cfg, tmp: str, Xt, yt, init_ll) -> tuple[dict, dict, object]:
     """Check 3: the power-loss drill through ``run_ps_local``.  A first run
-    with the kill beyond its end gives the epochs' times from the fabric's
-    start; the drill cuts the whole group at the middle of epoch 2.  Then:
+    of two epochs with the kill beyond its end gives the epochs' times from
+    the fabric's start; the drill (PS_EPOCHS epochs) cuts the whole group
+    at the middle of epoch 2.  Then:
     exactly one ``kill`` of target ``group``; on each rank ``respawned``,
     then ``reseeded-from-store``; each rank's recovered clock at the cut
     at least the pushes the workers had acknowledged before it, less the
@@ -3839,13 +3866,15 @@ def _dur_drill(torch, ops, cfg, tmp: str, Xt, yt, init_ll) -> tuple[dict, dict, 
     import numpy as np  # noqa: PLC0415
 
     launches = {}
+    # the kill's time needs the first two epochs' ends only
     _, rep0, counts, s0, tr0 = _dur_drill_run(
-        torch, cfg.replace(ps_store_dir=os.path.join(tmp, "drill0")), kill_at_s=3600.0, tmp=tmp)
+        torch, cfg.replace(ps_store_dir=os.path.join(tmp, "drill0"), num_iteration=2),
+        kill_at_s=3600.0, tmp=tmp)
     for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
     start = tr0["fabric"].started_at
     ends = {e: t - start for e, t, _ in tr0["evals"]}
-    if sorted(ends) != list(range(1, PS_EPOCHS + 1)):
+    if sorted(ends) != [1, 2]:
         raise AssertionError(f"ps_durable drill: the first run's evals {tr0['evals']}")
     kill_at = 0.5 * (ends[1] + ends[2])
     weights, report, counts, seconds, tr = _dur_drill_run(
@@ -3862,7 +3891,8 @@ def _dur_drill(torch, ops, cfg, tmp: str, Xt, yt, init_ll) -> tuple[dict, dict, 
     final_ll = _test_logloss(torch, ops, torch.from_numpy(weights[0]).cuda(), Xt, yt)
     line = {
         "epochs": PS_EPOCHS, "batch_rows": PS_ASYNC_BATCH, "retry_attempts": DUR_RETRY_ATTEMPTS,
-        "max_restarts": 1, "first_run_s": s0, "first_run_epoch_ends_s": ends,
+        "max_restarts": 1, "first_run_epochs": 2, "first_run_s": s0,
+        "first_run_epoch_ends_s": ends,
         "kill_at_s": kill_at, "seconds": seconds,
         "kill_events": [list(e[:2]) + [dict(e[2:])] for e in kills],
         "cut_in_epoch": evals_before + 1, "acked_before_cut": acked, "absorbed": absorbed,
@@ -3930,17 +3960,29 @@ def _dur_cli(tmp: str, seed: int) -> dict:
 
     out = {"rows_per_shard": DUR_CLI_ROWS}
     t0 = time.perf_counter()
+    step_s, t_step = {}, [t0]
+
+    def step(name):
+        """The wall seconds of the step that ends here."""
+        now = time.perf_counter()
+        step_s[name], t_step[0] = now - t_step[0], now
+
     try:
         first, hosts, ctl = ps_server()
+        step("ps_server_1")
         t1 = time.perf_counter()
         _launch("ps", "--data-dir", d, "--hosts", hosts, "--async", "--num-iteration", "1",
                 "--test-interval", "1", *common)
         out["launch_ps_s"] = time.perf_counter() - t1
+        step("launch_ps")
         out["first_server_exit"] = first.wait(timeout=60)  # the workers retired it
+        step("first_server_exit")
         second, hosts, ctl = ps_server()
+        step("ps_server_2")
         out["snapshot"] = ps_ctl("--ctl", ctl, "snapshot")
         code, doc = ps_ctl("--ctl", ctl, "store")
         out["store_live"] = {"exit": code, "recovered_clocks": clocks(doc)}
+        step("ps_ctl_snapshot_store")
         with KVWorker(hosts, FULL_D, sync_group=False, timeout_ms=PS_TIMEOUT_MS) as kv:
             before = kv.pull()
         tree = _dur_proc_tree(second.pid)
@@ -3950,25 +3992,31 @@ def _dur_cli(tmp: str, seed: int) -> dict:
         deadline = time.monotonic() + 10
         while any(_proc_alive(p) for p in tree) and time.monotonic() < deadline:
             time.sleep(0.05)
+        step("pull_and_kill")
         code, doc = ps_ctl("store", "--store-dir", root)
         out["store_offline"] = {"exit": code, "recovered_clocks": clocks(doc)}
+        step("ps_ctl_store_offline")
         third, hosts, ctl = ps_server()
         servers = _child_pids(third.pid)
+        step("ps_server_3")
         with KVWorker(hosts, FULL_D, sync_group=False, timeout_ms=PS_TIMEOUT_MS) as kv:
             out["pull_equals_pre_kill_bits"] = kv.pull().tobytes() == before.tobytes()
         out["resize_3"] = ps_ctl("--ctl", ctl, "resize", "3")
+        step("pull_and_resize")
         third.send_signal(signal.SIGTERM)
         out["sigterm_returncode"] = third.wait(timeout=60)
         deadline = time.monotonic() + 10
         while any(_proc_alive(p) for p in servers) and time.monotonic() < deadline:
             time.sleep(0.05)
         out["servers_left"] = sum(_proc_alive(p) for p in servers)
+        step("sigterm")
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     out["seconds"] = time.perf_counter() - t0
+    out["step_seconds"] = step_s
     want_clock = 1 + PS_WORKERS  # the seeding push, one push a worker
     refusal = ("elastic resize of a durable (store_dir) group is not supported: the per-rank "
                "on-disk slices would no longer match the new layout — stop the group, clear "
@@ -4105,7 +4153,7 @@ def phase_ps_durable(torch, seed: int, smi: str) -> dict:
     t_phase = time.perf_counter()
     out = {"nvidia_smi": smi, "D": FULL_D, "workers": PS_WORKERS, "servers": PS_SERVERS,
            "shard_rows": PS_SHARD_ROWS, "test_rows": PS_TEST_ROWS,
-           "reduced": {"epochs": f"{PS_EPOCHS} (the drill): cut in depth",
+           "reduced": {"epochs": f"{PS_EPOCHS} (the drill; 2 in its timing run): cut in depth",
                        "pushes": f"{DUR_WAL_PUSHES} (the WAL), {DUR_SNAP_RUN_S} s (snapshot "
                                  "only), one client",
                        "cli": f"{DUR_CLI_ROWS}-row shards at D = {FULL_D}"}}
@@ -4134,30 +4182,46 @@ def phase_ps_durable(torch, seed: int, smi: str) -> dict:
         shard = (torch.from_numpy(X).to(torch.bfloat16).cuda(), torch.from_numpy(y).cuda())
         del X
         grad_fn = _dur_grad_fn(torch, model, cfg, shard)
+        part_s, t_part = {}, [time.perf_counter()]
+
+        def part(name):
+            """The wall seconds of the part that ends here."""
+            now = time.perf_counter()
+            part_s[name], t_part[0] = now - t_part[0], now
+
+        part("setup")
         out["wal"], counts, _ = _bounded(
             torch, lambda: _dur_wal(torch, grad_fn, w0, os.path.join(tmp, "wal")))
         add(counts)
+        part("wal")
         out["snapshot_only"], counts, _ = _bounded(
             torch, lambda: _dur_snapshot_only(torch, grad_fn, w0, os.path.join(tmp, "snap")))
         add(counts)
+        part("snapshot_only")
         grad = grad_fn(w0)
         del shard
         torch.cuda.empty_cache()
         out["drill"], counts, w_final = _dur_drill(torch, ops, cfg, tmp, Xt, yt, init_ll)
         add(counts)
+        part("drill")
         out["launches"] = {k: v for k, v in launches.items() if v}
         others = {k: v for k, v in out["launches"].items()
                   if k not in ("fused_lr_grad", "lr_logits")}
         if not launches.get("fused_lr_grad") or not launches.get("lr_logits") or others:
             raise AssertionError(f"ps_durable: launches {launches}")
         out["push_alone"] = _dur_push_alone(grad, os.path.join(tmp, "push"))
+        part("push_alone")
         out["kernels_at_ps_shapes"] = _rec_kernel_check(
             torch, ops, torch.from_numpy(w_final).cuda(), tmp, Xt)
         del Xt
+        part("kernels_at_ps_shapes")
         out["cli"] = _dur_cli(tmp, seed)
+        part("cli")
         chaos_tmp = os.path.join(tmp, "chaos")
         os.makedirs(chaos_tmp)
         out["chaos"] = _dur_chaos(grad, chaos_tmp)
+        part("chaos")
+        out["part_seconds"] = part_s
     out.update(rss)
     out["phase_s"] = time.perf_counter() - t_phase
     torch.cuda.empty_cache()
@@ -5360,6 +5424,7 @@ def _route_shadow(router, host, port, lines, rng, s1, s2) -> dict:
         [_route_request(lines, [int(r)]) for r in rng.integers(0, ROUTE_ROWS, ROUTE_SHADOW_LINES)]
         for _ in range(ROUTE_CLIENTS)])
     router._shadow_mirror.drain(60.0)
+    _note_primitives("route.shadow_mirror", router._shadow_mirror, SHADOW_PRIMITIVES)
     shadow = _stats(host, port)["shadow"]
     admin.expect_ok("SHADOW v1 v2 0")
     tally = _route_tally(clients, s1, s2)
@@ -5570,6 +5635,8 @@ def phase_route(torch, seed: int, smi: str) -> dict:
             engines_b[m].set_weights(load_weights(path, shape=(FULL_D,)))
         servers["A"] = ScoringServer(engines=engines_a, max_wait_ms=SERVE_WAIT_MS,
                                      reloader=reloaders[0], extra_reloaders=reloaders[1:]).start()
+        _note_primitives("route.reloader", reloaders[0], RELOADER_PRIMITIVES)
+        _note_primitives("route.batcher", servers["A"].batcher, BATCHER_PRIMITIVES)
         servers["B"] = ScoringServer(engines=engines_b, max_wait_ms=SERVE_WAIT_MS).start()
         addr = {k: f"{s.host}:{s.port}" for k, s in servers.items()}
 
@@ -5592,6 +5659,8 @@ def phase_route(torch, seed: int, smi: str) -> dict:
                                probe_backoff_max_s=ROUTE_BACKOFF_MAX_S,
                                shadow_block=ROUTE_SHADOW_BLOCK,
                                quotas=f"v2={ROUTE_QUOTA_RATE:g}:{ROUTE_QUOTA_BURST:g}") as router:
+                _note_primitives("route.router", router, ROUTER_PRIMITIVES)
+                _note_primitives("route.replica", router.replicas[0], REPLICA_PRIMITIVES)
                 h, p = router.host, router.port
                 out["mixed"] = _route_mixed(h, p, lines, rng, s1, s2)
                 out["split"] = _route_split(h, p, lines, rng, s1, s2)
@@ -5996,6 +6065,133 @@ def phase_online(torch, seed: int, smi: str) -> dict:
 OBS_STEPS, OBS_REQUESTS, OBS_JSON_ROWS = 3, 24, 100
 OBS_BUCKETS, OBS_MAX_BATCH = (48, 192), 768
 OBS_CLI_D, OBS_CLI_ROWS = 123, 2000
+# --- schedcheck on the card: a MicroBatcher in front of the card engine ------
+# three logical submitters, one row each, under the port's deterministic
+# scheduler; the 64-row bucket, so a merged batch and a row alone run the
+# same lr_logits plan
+SCHED_SUBMITTERS, SCHED_SCHEDULES, SCHED_MAX_STEPS = 3, 16, 4000
+SCHED_BUCKET = SERVE_BUCKETS[0]
+SCHED_LABEL = "distlr_tpu_torch/serve/batcher.py:MicroBatcher"
+
+
+def phase_sched(torch, seed: int, smi: str) -> dict:
+    """The port's schedcheck runtime in front of the card: the full-width
+    ``ScoringEngine`` (the serve phase's weights and dtype, D = 1M,
+    bf16), warmed outside the runtime with one score at the 64-row bucket
+    (so CUDA start-up and the kernel library's load never run under the
+    cooperative scheduler) and then, with the runtime installed, a
+    ``MicroBatcher(engine.score, max_batch_size=64)`` built through the
+    ``sync`` twins, SCHED_SUBMITTERS logical submitters of one seeded row
+    each, the batch closed on the virtual clock; SCHED_SCHEDULES seeded
+    fuzz schedules of ``explore.fuzz``.  In every schedule each future
+    holds exactly the bits of ``engine.score`` of its own row alone (both
+    go through ``lr_logits`` at the 64-row bucket: one plan, one reduction
+    order a row), and ``assert_facade`` passes on the batcher.  Then the
+    facade is passthrough again: ``sync.instrumented()`` is False, and the
+    batcher, router, replica, reloader and shadow mirror the serving
+    phases built hold the stdlib's types."""
+    import queue  # noqa: PLC0415
+
+    from distlr_tpu_torch import ops, sync  # noqa: PLC0415
+    from distlr_tpu_torch.analysis.schedcheck import explore, lint, scenarios  # noqa: PLC0415
+    from distlr_tpu_torch.analysis.schedcheck.runtime import (  # noqa: PLC0415
+        InvariantViolation,
+    )
+    from distlr_tpu_torch.serve.batcher import MicroBatcher  # noqa: PLC0415
+
+    t_phase = time.perf_counter()
+    if sync.instrumented():
+        raise AssertionError("sched: the sync facade is instrumented before the phase")
+    _, w, cols, y, _ = _serve_inputs(seed)
+    eng = _serve_engine(torch, FULL_D)
+    eng.set_weights(w)
+    rows = eng.encode_lines(_libsvm_lines(cols[:SCHED_SUBMITTERS], y[:SCHED_SUBMITTERS]))
+    singles = [tuple(leaf[i:i + 1] for leaf in rows) for i in range(SCHED_SUBMITTERS)]
+    t0 = time.perf_counter()
+    eng.score(singles[0])            # the warm-up: CUDA, the library, the plan
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    # each row alone, outside the runtime: the bits every future must hold
+    alone = [eng.score(r)[1] for r in singles]
+    ops.reset_launch_counts()
+    hits0 = eng.stats()["bucket_hits"].get(SCHED_BUCKET, 0)
+    runs = []
+
+    def scenario(rt):
+        b = MicroBatcher(eng.score, max_batch_size=SCHED_BUCKET, max_wait_ms=SERVE_WAIT_MS)
+        scenarios.assert_facade(b, SCHED_LABEL)
+        futs = {}
+
+        def submit(i):
+            futs[i] = b.submit(singles[i])
+
+        tasks = [sync.Thread(target=submit, args=(i,), name=f"submit-{i}")
+                 for i in range(SCHED_SUBMITTERS)]
+        for t in tasks:
+            t.start()
+        for t in tasks:
+            t.join()
+        rt.await_until(lambda: all(f.done() for f in futs.values()), "futures done")
+        closed_at = rt.clock
+        b.close()
+        for i, fut in sorted(futs.items()):
+            got = fut.result(timeout=0)[1]
+            if got.tobytes() != alone[i].tobytes():
+                raise InvariantViolation(
+                    f"row {i}: batched score {got.tolist()} != its score alone "
+                    f"{alone[i].tolist()}")
+        if closed_at < SERVE_WAIT_MS / 1000.0:
+            raise InvariantViolation(f"the batch closed at virtual {closed_at} s, before "
+                                     f"max_wait_ms {SERVE_WAIT_MS}")
+        runs.append({"batches": b.batches, "requests": b.requests, "vclock_s": closed_at})
+
+    t0 = time.perf_counter()
+    with lint.quiet_logs():
+        res = explore.fuzz("sched_card_batcher", scenario, seeds=SCHED_SCHEDULES,
+                           seed_base=seed, max_steps=SCHED_MAX_STEPS)
+    torch.cuda.synchronize()
+    fuzz_s = time.perf_counter() - t0
+    if res.failure is not None:
+        raise AssertionError("sched: " + res.failure.render_failure())
+    launches = {k: v for k, v in _launches(ops).items() if v}
+    batches = [r["batches"] for r in runs]
+    hits = eng.stats()["bucket_hits"].get(SCHED_BUCKET, 0) - hits0
+    if (res.runs != SCHED_SCHEDULES or len(runs) != SCHED_SCHEDULES
+            or any(r["requests"] != SCHED_SUBMITTERS for r in runs)
+            or set(launches) != {"lr_logits"} or launches["lr_logits"] != sum(batches)
+            or hits != sum(batches)):
+        raise AssertionError(f"sched: {res.runs} schedules, runs {runs}, launches {launches}, "
+                             f"bucket hits {hits}")
+    # passthrough again, in this process and on the serving phases' objects
+    fresh = MicroBatcher(eng.score, max_batch_size=SCHED_BUCKET, max_wait_ms=SERVE_WAIT_MS)
+    fresh.close()
+    _note_primitives("sched.batcher", fresh, BATCHER_PRIMITIVES)
+    stdlib = {type(threading.Lock()), type(threading.RLock()), threading.Condition,
+              threading.Event, threading.Semaphore, threading.BoundedSemaphore,
+              threading.Thread, queue.Queue}
+    foreign = {k: t.__name__ for k, t in _PRIMITIVE_TYPES.items() if t not in stdlib}
+    if sync.instrumented() or sync.Lock is not threading.Lock or foreign:
+        raise AssertionError(f"sched: the facade is not passthrough after the runtime: "
+                             f"instrumented {sync.instrumented()}, non-stdlib {foreign}")
+    del eng
+    torch.cuda.empty_cache()
+    out = {"nvidia_smi": smi, "D": FULL_D, "bucket": SCHED_BUCKET,
+           "submitters": SCHED_SUBMITTERS, "schedules": res.runs,
+           "ms_per_schedule": 1000.0 * fuzz_s / res.runs, "warm_s": warm_s,
+           "batches_per_schedule": dict(sorted(
+               (str(n), batches.count(n)) for n in set(batches))),
+           "vclock_s": sorted({r["vclock_s"] for r in runs}),
+           "bit_equal_to_alone": True, "assert_facade": SCHED_LABEL,
+           "instrumented_after": sync.instrumented(),
+           "passthrough_primitives": sorted(_PRIMITIVE_TYPES),
+           "launches": launches, "phase_s": time.perf_counter() - t_phase,
+           "reduced": {"traffic": f"{SCHED_SUBMITTERS} one-row requests a schedule, "
+                                  f"{SCHED_SCHEDULES} seeded schedules (a check, not a "
+                                  "load test); the weights are the serve phase's"}}
+    emit("sched", **out)
+    return out
+
+
 OBS_SYNC_PHASES = {"h2d", "data_load", "compute", "eval"}
 OBS_PS_PHASES = {"pull", "compute", "push", "barrier_wait", "eval"}
 OBS_COST_REPS, OBS_SCRAPES = 200_000, 10
@@ -7263,23 +7459,28 @@ def _cli_route(tmp: str) -> dict:
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     procs = []
 
-    def start(*argv, ready):
+    def spawn(*argv):
         proc = subprocess.Popen([sys.executable, "-m", "distlr_tpu_torch.launch", *argv],
                                 cwd=ROOT, env=env, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         procs.append(proc)
+        return proc
+
+    def address(proc, name, ready):
         line = proc.stdout.readline()
         if not line.startswith(ready):
             err = proc.stderr.read()[-2000:] if proc.poll() is not None else ""
-            raise AssertionError(f"launch {argv[0]} printed {line!r} first\n{err}")
+            raise AssertionError(f"launch {name} printed {line!r} first\n{err}")
         return line.split()[1]
 
     try:
-        pool = "+".join(start("serve", "--num-feature-dim", "123", "--model-file",
-                              models["v1"], "--model-id", "v1", "--extra-model",
-                              f"v2={models['v2']}", "--port", "0", ready="SERVING ")
-                        for _ in range(2))
-        router = start("route", "--replicas", f"v1={pool},v2={pool}", ready="ROUTING ")
+        # the two replicas start side by side, then the router in front
+        replicas = [spawn("serve", "--num-feature-dim", "123", "--model-file", models["v1"],
+                          "--model-id", "v1", "--extra-model", f"v2={models['v2']}", "--port",
+                          "0") for _ in range(2)]
+        pool = "+".join(address(p, "serve", "SERVING ") for p in replicas)
+        router = address(spawn("route", "--replicas", f"v1={pool},v2={pool}"), "route",
+                         "ROUTING ")
         journal = os.path.join(tmp, "route_journal")
         ro = subprocess.run([sys.executable, "-m", "distlr_tpu_torch.launch", "rollout",
                              "--router", router, "--tenant", "v1", "--candidate", "v2",
@@ -7988,7 +8189,7 @@ PHASES = ("sass", "kernels", "int8_kernels", "lr_backward", "roofline", "trainer
           "trainer_sparse_lr", "trainer_sparse_softmax", "trainer_blocked_lr",
           "trainer_softmax", "step_softmax_wide", "cli", "ps", "serve", "ps_keyed", "ps_wire",
           "ps_recovery", "ps_durable", "ps_elastic", "ps_sanitized", "serve_hot", "route",
-          "online", "obs", "dtrace", "fleet", "roofline_experiments")
+          "online", "sched", "obs", "dtrace", "fleet", "roofline_experiments")
 
 
 def _selected_phases(arg: str | None) -> set | None:
@@ -8118,6 +8319,8 @@ def main(argv=None) -> int:
             route = phase_route(torch, args.seed, smi)
         if want("online"):
             online = phase_online(torch, args.seed, smi)
+        if want("sched"):
+            sched = phase_sched(torch, args.seed, smi)
         if want("obs"):
             obs = phase_obs(torch, args.seed, smi)
         if want("dtrace"):
@@ -8154,6 +8357,7 @@ def main(argv=None) -> int:
                                   ("serve_live_ps", serve["live_ps"]["launches"]),
                                   ("route", route["launches"]),
                                   ("online", online["launches"]),
+                                  ("sched", sched["launches"]),
                                   ("obs", obs["launches"]),
                                   ("dtrace", traced["launches"]),
                                   ("fleet", fleet["launches"])):

@@ -53,9 +53,8 @@ from __future__ import annotations
 import hashlib
 import socket
 import struct
-import threading
-import time
 
+from distlr_tpu_torch import sync
 from distlr_tpu_torch.chaos.plan import FaultPlan, FaultSpec
 from distlr_tpu_torch.compress import codecs
 from distlr_tpu_torch.obs import dtrace
@@ -210,7 +209,7 @@ class ChaosLink:
         # live on the fabric's clock thread, not any link)
         self._kill_faults = tuple(f for f in plan.for_link(link, "kill")
                                   if f.after_ops is not None)
-        self._lock = threading.Lock()
+        self._lock = sync.Lock()
         # cumulative per-LINK traffic state (across reconnects), so
         # after_ops/after_bytes offsets mean "the Nth op/byte on this
         # link", not "on this connection"
@@ -219,11 +218,11 @@ class ChaosLink:
         self._fired: set[int] = set()      # one-shot reset fault indices
         self._announced: set[tuple] = set()  # (fault, window) activations
         self._conns: list[tuple[socket.socket, socket.socket]] = []
-        self._threads: list[threading.Thread] = []
-        self._stop = threading.Event()
+        self._threads: list[sync.Thread] = []
+        self._stop = sync.Event()
         self._lsock = self._listen()
         self.port = self._lsock.getsockname()[1]
-        self._accept_thread = threading.Thread(
+        self._accept_thread = sync.Thread(
             target=self._accept_loop, daemon=True,
             name=f"chaos-accept-{link}")
         self._accept_thread.start()
@@ -292,13 +291,13 @@ class ChaosLink:
             for s in (down, up):
                 s.settimeout(_TICK_S)
                 s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-            severed = threading.Event()
-            t1 = threading.Thread(target=self._pump_c2s,
-                                  args=(down, up, severed), daemon=True,
-                                  name=f"chaos-c2s-{self.link}")
-            t2 = threading.Thread(target=self._pump_s2c,
-                                  args=(down, up, severed), daemon=True,
-                                  name=f"chaos-s2c-{self.link}")
+            severed = sync.Event()
+            t1 = sync.Thread(target=self._pump_c2s,
+                             args=(down, up, severed), daemon=True,
+                             name=f"chaos-c2s-{self.link}")
+            t2 = sync.Thread(target=self._pump_s2c,
+                             args=(down, up, severed), daemon=True,
+                             name=f"chaos-s2c-{self.link}")
             with self._lock:
                 # prune finished churn: a reset-heavy plan forces a
                 # reconnect (fresh conn + 2 pump threads) per reset, and
@@ -311,7 +310,7 @@ class ChaosLink:
             t2.start()
 
     def _read_exact(self, sock: socket.socket, n: int,
-                    severed: threading.Event) -> bytes | None:
+                    severed: sync.Event) -> bytes | None:
         buf = b""
         while len(buf) < n:
             if self._stop.is_set() or severed.is_set():
@@ -327,33 +326,33 @@ class ChaosLink:
             buf += chunk
         return buf
 
-    def _stall_while_partitioned(self, severed: threading.Event) -> None:
+    def _stall_while_partitioned(self, severed: sync.Event) -> None:
         while not (self._stop.is_set() or severed.is_set()):
             part = self._partition_active()
             if part is None:
                 return
             self._announce(part, "partition")
-            time.sleep(min(_TICK_S, 0.02))
+            sync.sleep(min(_TICK_S, 0.02))
 
-    def _throttle(self, nbytes: int, severed: threading.Event) -> None:
+    def _throttle(self, nbytes: int, severed: sync.Event) -> None:
         t = self._now()
         for f in self._throttle_faults:
             if f.active_at(t):
                 self._announce(f, "throttle")
                 pause = nbytes / f.bytes_per_sec
-                end = time.monotonic() + pause
-                while (time.monotonic() < end
+                end = sync.monotonic() + pause
+                while (sync.monotonic() < end
                        and not (self._stop.is_set() or severed.is_set())):
                     # re-read the clock for the sleep arg: the deadline
                     # can pass between the while-check and here, and a
                     # negative sleep raises, killing the pump thread
                     # (observed as a spurious severed link under a
                     # high-rate throttle)
-                    time.sleep(min(_TICK_S, max(0.0, end - time.monotonic())))
+                    sync.sleep(min(_TICK_S, max(0.0, end - sync.monotonic())))
                 return
 
     def _sever(self, down: socket.socket, up: socket.socket,
-               severed: threading.Event, *, hard: bool) -> None:
+               severed: sync.Event, *, hard: bool) -> None:
         severed.set()
         if hard:
             # RST both ways: queued bytes are DISCARDED (the mid-frame
@@ -371,7 +370,7 @@ class ChaosLink:
                 pass
 
     def _read_line_frame(self, sock: socket.socket,
-                         severed: threading.Event,
+                         severed: sync.Event,
                          buf: bytearray) -> bytes | None:
         """One serve-protocol frame: a newline-terminated request line
         (newline included — byte offsets stay exact).  ``buf`` holds
@@ -410,7 +409,7 @@ class ChaosLink:
             return None
 
     def _pump_c2s(self, down: socket.socket, up: socket.socket,
-                  severed: threading.Event) -> None:
+                  severed: sync.Event) -> None:
         """Framed client->server pump — all op-offset faults live here."""
         link = str(self.link)
         linebuf = bytearray()  # serve-protocol cross-read remainder
@@ -515,15 +514,15 @@ class ChaosLink:
                     self._fabric.count("delay_ms", self.link, ms)
                     # sliced like the stall/throttle waits: a multi-second
                     # delay must not outlive stop()'s thread joins
-                    end = time.monotonic() + ms / 1000.0
-                    while (time.monotonic() < end
+                    end = sync.monotonic() + ms / 1000.0
+                    while (sync.monotonic() < end
                            and not (self._stop.is_set()
                                     or severed.is_set())):
                         # same clamp as the throttle loop: the deadline
                         # can pass between the while-check and here, and
                         # a negative sleep raises, killing the pump
-                        time.sleep(min(_TICK_S,
-                                       max(0.0, end - time.monotonic())))
+                        sync.sleep(min(_TICK_S,
+                                       max(0.0, end - sync.monotonic())))
 
                 # reset at byte offset: forward only up to the offset,
                 # then hard-kill mid-frame (frame NOT delivered)
@@ -588,7 +587,7 @@ class ChaosLink:
                     pass
 
     def _relay_raw(self, down: socket.socket, up: socket.socket,
-                   severed: threading.Event) -> None:
+                   severed: sync.Event) -> None:
         while not (self._stop.is_set() or severed.is_set()):
             try:
                 chunk = down.recv(1 << 16)
@@ -604,7 +603,7 @@ class ChaosLink:
                 return
 
     def _pump_s2c(self, down: socket.socket, up: socket.socket,
-                  severed: threading.Event) -> None:
+                  severed: sync.Event) -> None:
         """Raw server->client relay: responses are delayed only by
         stalls/throttle, never reframed.
 
@@ -695,7 +694,7 @@ class ChaosFabric:
         #: (ServerGroup for via_chaos groups; launch chaos via --pids).
         self._killer = killer
         self._kill_fired: set[int] = set()
-        self._kill_lock = threading.Lock()
+        self._kill_lock = sync.Lock()
         if isinstance(upstreams, str):
             pairs = []
             for part in upstreams.split(","):
@@ -722,7 +721,7 @@ class ChaosFabric:
                 f"fault[{badt[0]}].target names a rank >= the fabric's "
                 f"{len(pairs)} upstream(s)")
         self._events: list[tuple] = []
-        self._events_lock = threading.Lock()
+        self._events_lock = sync.Lock()
         #: the log hit _MAX_EVENTS and dropped events: past the cap the
         #: surviving set depends on thread arrival order, so the
         #: determinism contract no longer holds — comparisons must check
@@ -732,17 +731,17 @@ class ChaosFabric:
         self.counters: dict[str, dict] = {name: {} for name in COUNTERS}
         #: ``(wall time, link, kind, detail)`` of each logged event
         self.timeline: list[tuple] = []
-        self.started_at = time.monotonic()
+        self.started_at = sync.monotonic()
         self.links = [ChaosLink(i, up, plan, self, protocol=protocol)
                       for i, up in enumerate(pairs)]
         # time-triggered kills ride the fabric clock, one timer thread
         # per at_s fault (stopped/joined by stop())
-        self._stopped = threading.Event()
-        self._kill_timers: list[threading.Thread] = []
+        self._stopped = sync.Event()
+        self._kill_timers: list[sync.Thread] = []
         for f in plan.faults:
             if f.kind == "kill" and f.at_s is not None:
-                t = threading.Thread(target=self._kill_at, args=(f,),
-                                     daemon=True, name=f"chaos-kill-{f.index}")
+                t = sync.Thread(target=self._kill_at, args=(f,),
+                                daemon=True, name=f"chaos-kill-{f.index}")
                 self._kill_timers.append(t)
                 t.start()
 
@@ -768,7 +767,7 @@ class ChaosFabric:
         return lk
 
     def now(self) -> float:
-        return time.monotonic() - self.started_at
+        return sync.monotonic() - self.started_at
 
     # -- kill faults (the power-loss primitive) ----------------------------
     def set_killer(self, killer) -> None:
@@ -838,7 +837,7 @@ class ChaosFabric:
                 self._events.append(
                     (link, kind) + tuple(sorted(detail.items())))
                 # the wall-clock twin of the event
-                self.timeline.append((time.time(), link, kind, dict(detail)))
+                self.timeline.append((sync.wall(), link, kind, dict(detail)))
             elif not self.events_truncated:
                 self.events_truncated = True
                 log.warning(

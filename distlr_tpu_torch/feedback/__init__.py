@@ -17,8 +17,8 @@ A scored request goes back into training in four steps, a module each:
   scores, firing while the distribution moves.
 
 :mod:`~distlr_tpu_torch.feedback.sink` holds the first, second and last
-behind the scoring server; :mod:`~distlr_tpu_torch.feedback.clock` holds
-the clocks they read.  The server-side half is FTRL-Proximal
+behind the scoring server; every module reads its locks, threads and
+clocks through :mod:`distlr_tpu_torch.sync`.  The server-side half is FTRL-Proximal
 (``--ps-optimizer ftrl``).  The exports are lazy (PEP 562), as in the JAX
 package.
 """

@@ -20,10 +20,9 @@ and the attributes :attr:`psi_last` and :attr:`firing`.
 
 from __future__ import annotations
 
-import threading
-
 import numpy as np
 
+from distlr_tpu_torch import sync
 from distlr_tpu_torch.obs.registry import get_registry
 
 _reg = get_registry()
@@ -60,7 +59,7 @@ class ScoreDriftDetector:
         self.bins = int(bins)
         self.threshold = float(threshold)
         self.smoothing = float(smoothing)
-        self._lock = threading.Lock()
+        self._lock = sync.Lock()
         self._cur = np.zeros(self.bins, np.int64)
         self._cur_n = 0
         self._ref: np.ndarray | None = None

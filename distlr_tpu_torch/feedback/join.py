@@ -33,9 +33,8 @@ import json
 import os
 import random
 import re
-import threading
 
-from distlr_tpu_torch.feedback import clock
+from distlr_tpu_torch import sync
 from distlr_tpu_torch.feedback.spool import FeedbackSpool, SpoolRecord, drop
 from distlr_tpu_torch.obs import dtrace
 from distlr_tpu_torch.obs.registry import get_registry
@@ -95,7 +94,7 @@ class LabelJoiner:
         self.max_pending_labels = int(max_pending_labels)
         self._recent_cap = int(recent_joined)
         self._rng = random.Random(seed)
-        self._lock = threading.Lock()
+        self._lock = sync.Lock()
         #: labels that arrived before their request: rid -> (label, ts)
         self._pending: dict[str, tuple[int, float]] = {}
         #: recently joined rids (bounded, insertion-ordered): the
@@ -141,7 +140,7 @@ class LabelJoiner:
     def label(self, rid: str, y: int, *, ts: float | None = None) -> str:
         """A label event arrived.  Returns the outcome: ``"joined"``,
         ``"pending"`` (request not seen yet) or ``"duplicate"``."""
-        now = clock.wall() if ts is None else ts
+        now = sync.wall() if ts is None else ts
         y = int(y)
         with self._lock:
             rec = self.spool.pop(rid)
@@ -236,7 +235,7 @@ class LabelJoiner:
         """Resolve everything older than the window: never-labelled
         requests go through the negative sampling, held labels whose
         request never came are dropped as unmatched."""
-        now = clock.wall() if now is None else now
+        now = sync.wall() if now is None else now
         cutoff = now - self.window_s
         with self._lock:
             for rec in self.spool.expire_before(cutoff):

@@ -44,13 +44,12 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 
 import numpy as np
 
+from distlr_tpu_torch import sync
 from distlr_tpu_torch.config import Config
-from distlr_tpu_torch.feedback import clock
 from distlr_tpu_torch.obs import dtrace
 from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.utils.logging import get_logger
@@ -303,7 +302,7 @@ class OnlineTrainer:
             names = os.listdir(self.shard_dir)
         except OSError:
             return
-        now = clock.wall()
+        now = sync.wall()
         for nm in names:
             if not nm.endswith(".libsvm.claim"):
                 continue
@@ -354,12 +353,12 @@ class OnlineTrainer:
             return 0
         traces = self._shard_traces(path)
         shard = os.path.basename(path)
-        t0_wall, t_consume = clock.wall(), clock.monotonic()
+        t0_wall, t_consume = sync.wall(), sync.monotonic()
         with dtrace.use(traces[0] if traces else None), dtrace.span(
                 "online.consume",
                 tags={"shard": shard, "records": len(lines), "worker": self.worker_id}):
             n = self._train_lines(lines)
-        dur = clock.monotonic() - t_consume
+        dur = sync.monotonic() - t_consume
         for ctx in traces[1:]:
             dtrace.record_span("online.consume", ctx, t0_wall, dur,
                                tags={"shard": shard, "shared": True})
@@ -403,13 +402,13 @@ class OnlineTrainer:
         return n
 
     # -- the loop ----------------------------------------------------------
-    def run(self, *, stop: threading.Event | None = None,
+    def run(self, *, stop: sync.Event | None = None,
             max_shards: int = 0, idle_exit_s: float | None = None) -> dict:
         """Consume shards until ``stop`` is set, ``max_shards`` shards were
         trained (0 = unbounded), or nothing new came for ``idle_exit_s``
         seconds (None = wait forever)."""
-        stop = stop or threading.Event()
-        idle_since = clock.monotonic()
+        stop = stop or sync.Event()
+        idle_since = sync.monotonic()
         consumed_this_run = 0
         while not stop.is_set():
             # every cycle: under steady traffic the pending list may never
@@ -419,7 +418,7 @@ class OnlineTrainer:
             self.lag = len(pending)
             _LAG.set(self.lag)
             if not pending:
-                now = clock.monotonic()
+                now = sync.monotonic()
                 if self._accum.batches and now - idle_since >= self.idle_flush_s:
                     # a lull: a partial span must not strand its gradients
                     self._flush_push()
@@ -453,7 +452,7 @@ class OnlineTrainer:
                     log.warning("online[%d]: claim on %s expired while "
                                 "consuming (raise claim_stale_s?)",
                                 self.worker_id, os.path.basename(path))
-                idle_since = clock.monotonic()
+                idle_since = sync.monotonic()
                 consumed_this_run += 1
                 log.info("online[%d]: consumed %s (%d examples, k=%d, %d pushes)",
                          self.worker_id, os.path.basename(path), n, self.accum_k,

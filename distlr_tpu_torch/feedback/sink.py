@@ -18,9 +18,8 @@ the tail of a burst still reaches the online trainer.
 from __future__ import annotations
 
 import itertools
-import threading
 
-from distlr_tpu_torch.feedback import clock
+from distlr_tpu_torch import sync
 from distlr_tpu_torch.feedback.drift import ScoreDriftDetector
 from distlr_tpu_torch.feedback.join import LabelJoiner
 from distlr_tpu_torch.feedback.spool import (
@@ -55,9 +54,9 @@ class FeedbackSink:
         self.idle_flush_s = float(idle_flush_s)
         self._auto_ids = itertools.count()
         self._last_emit_seen = 0
-        self._last_emit_at = clock.monotonic()
-        self._stop = threading.Event()
-        self._thread: threading.Thread | None = None
+        self._last_emit_at = sync.monotonic()
+        self._stop = sync.Event()
+        self._thread: sync.Thread | None = None
 
     # -- serve-side entry points ------------------------------------------
     def scored(self, lines: list[str], rows: tuple, scores, *,
@@ -75,7 +74,7 @@ class FeedbackSink:
         ``feedback.spool`` span under it, and each record remembers that
         span's ids, so a label arriving later (across a restart too, by
         the journal) continues the request's trace."""
-        now = clock.wall()
+        now = sync.wall()
         keys = per_row_keys(self.model, rows)
         ctx = dtrace.TraceContext(trace[0], trace[1], True) if trace is not None else None
         with dtrace.span("feedback.spool", tags={"rows": len(lines)}, ctx=ctx) as sp:
@@ -101,7 +100,7 @@ class FeedbackSink:
     def tick(self, now: float | None = None) -> None:
         self.joiner.tick(now)
         emitted = self.joiner.joined + self.joiner.negatives
-        mono = clock.monotonic()
+        mono = sync.monotonic()
         if emitted != self._last_emit_seen:
             self._last_emit_seen = emitted
             self._last_emit_at = mono
@@ -114,8 +113,8 @@ class FeedbackSink:
     def start(self) -> "FeedbackSink":
         if self._thread is None or not self._thread.is_alive():
             self._stop.clear()
-            self._thread = threading.Thread(target=self._run, daemon=True,
-                                            name="distlr-feedback-tick")
+            self._thread = sync.Thread(target=self._run, daemon=True,
+                                       name="distlr-feedback-tick")
             self._thread.start()
         return self
 

@@ -30,12 +30,11 @@ import dataclasses
 import json
 import os
 import re
-import threading
 from collections import Counter
 
 import numpy as np
 
-from distlr_tpu_torch.feedback import clock
+from distlr_tpu_torch import sync
 from distlr_tpu_torch.obs.registry import get_registry
 
 _reg = get_registry()
@@ -62,7 +61,7 @@ _DROPPED = _reg.counter(
 #: ``duplicate_label`` and ``unmatched_label`` (the JAX package's
 #: ``distlr_feedback_dropped_total`` series)
 DROPPED: Counter = Counter()
-_DROPPED_LOCK = threading.Lock()
+_DROPPED_LOCK = sync.Lock()
 
 
 def drop(reason: str, n: int = 1) -> None:
@@ -117,7 +116,7 @@ class FeedbackSpool:
         self.segment_records = int(segment_records)
         self.max_segments = int(max_segments)
         self.evict_scan = max(int(evict_scan), 1)
-        self._lock = threading.Lock()
+        self._lock = sync.Lock()
         #: insertion-ordered: front = oldest
         self._records: dict[str, SpoolRecord] = {}
         # resume the journal after any segment an earlier run left, so two
@@ -183,7 +182,7 @@ class FeedbackSpool:
         a serve restart joins its impression.  Replayed records carry
         ``keys=None`` (keys are not journaled).  Returns the number of
         records restored."""
-        now = clock.wall() if now is None else now
+        now = sync.wall() if now is None else now
         cutoff = now - float(window_s)
         segs = sorted(
             int(m.group(1)) for name in os.listdir(self.directory)
@@ -359,4 +358,4 @@ def strip_label(line: str) -> str:
 
 
 def now_ts() -> float:
-    return clock.wall()
+    return sync.wall()

@@ -46,11 +46,11 @@ import os
 import signal
 import socket
 import socketserver
-import threading
 import time
 
 import numpy as np
 
+from distlr_tpu_torch import sync
 from distlr_tpu_torch.obs import dtrace
 from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.ps import store, wire
@@ -131,7 +131,7 @@ class MembershipCoordinator:
         self.supervisor = supervisor
         self.drain_timeout_ms = int(drain_timeout_ms)
         self.chunk_rows = int(chunk_rows)
-        self._lock = threading.Lock()
+        self._lock = sync.Lock()
         self._status = "active"
         self._epoch = int(group.epoch)
         self.events: list[tuple[float, str, dict]] = []
@@ -168,7 +168,7 @@ class MembershipCoordinator:
                     "last_resize": self.last_resize}
 
     def _record(self, event: str, **detail) -> None:
-        self.events.append((time.monotonic(), event, detail))
+        self.events.append((sync.monotonic(), event, detail))
         log.info("membership: %s %s", event, detail or "")
 
     # -- the drain's plumbing ----------------------------------------------
@@ -283,7 +283,7 @@ class MembershipCoordinator:
             old_epoch = self._epoch
         direction = "grow" if new_num_servers > self.group.num_servers else "shrink"
         new_epoch = old_epoch + 1
-        t0 = time.monotonic()
+        t0 = sync.monotonic()
         self._record("resize_start", direction=direction, old=self.group.num_servers,
                      new=new_num_servers, epoch=new_epoch, moves=len(plan.moves),
                      reuse=len(plan.reuse))
@@ -313,7 +313,7 @@ class MembershipCoordinator:
             self._record("resize_failed", error=str(e))
             self.last_resize = {"ok": False, "error": str(e), "direction": direction}
             raise MembershipError(f"resize failed (rolled back): {e}") from e
-        wall = time.monotonic() - t0
+        wall = sync.monotonic() - t0
         with self._lock:
             self._epoch = new_epoch
             self._status = "active"
@@ -359,7 +359,7 @@ class MembershipCoordinator:
             except MembershipError as e:
                 log.warning("async resize to %d failed: %s", n, e)
 
-        threading.Thread(target=run, daemon=True, name="distlr-resize-async").start()
+        sync.Thread(target=run, daemon=True, name="distlr-resize-async").start()
         return {"ok": True, "accepted": True, "target": n, "epoch": epoch}
 
     # -- the durable store's verbs ----------------------------------------
@@ -448,8 +448,8 @@ class MembershipServer:
         self._tcp = _CtlTCPServer((host, port), _CtlHandler, bind_and_activate=True)
         self._tcp.membership = self  # type: ignore[attr-defined]
         self.host, self.port = self._tcp.server_address[:2]
-        self._thread = threading.Thread(target=self._tcp.serve_forever, daemon=True,
-                                        name="distlr-ps-ctl")
+        self._thread = sync.Thread(target=self._tcp.serve_forever, daemon=True,
+                                   name="distlr-ps-ctl")
         self._started = False
 
     def handle_line(self, line: str) -> str:

@@ -20,12 +20,11 @@ convention, and blocked lane padding is likewise 0).
 
 from __future__ import annotations
 
-import threading
-import time
 from concurrent.futures import Future
 
 import numpy as np
 
+from distlr_tpu_torch import sync
 from distlr_tpu_torch.obs import dtrace
 from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.obs.tracing import trace_phase
@@ -81,7 +80,7 @@ class MicroBatcher:
         self._score_fn = score_fn
         self.max_batch_size = int(max_batch_size)
         self.max_wait_s = float(max_wait_ms) / 1000.0
-        self._cv = threading.Condition()
+        self._cv = sync.Condition()
         #: (rows, future, enqueue time, trace context)
         self._pending: list[tuple[tuple[np.ndarray, ...], Future, float, object]] = []
         self._pending_rows = 0
@@ -91,7 +90,7 @@ class MicroBatcher:
         self.rows = 0
         self._occupancy_sum = 0.0
         self._coalesced_sum = 0
-        self._thread = threading.Thread(target=self._run, daemon=True, name="distlr-microbatch")
+        self._thread = sync.Thread(target=self._run, daemon=True, name="distlr-microbatch")
         self._thread.start()
 
     # -- client side -------------------------------------------------------
@@ -109,7 +108,7 @@ class MicroBatcher:
         with self._cv:
             if self._closed:
                 raise RuntimeError("batcher is closed")
-            self._pending.append((rows, fut, time.monotonic(), ctx))
+            self._pending.append((rows, fut, sync.monotonic(), ctx))
             self._pending_rows += n
             self._cv.notify()
         return fut
@@ -125,7 +124,7 @@ class MicroBatcher:
                     # a closing batcher drains at once
                     if self._closed or self._pending_rows >= self.max_batch_size:
                         break
-                    timeout = self._pending[0][2] + self.max_wait_s - time.monotonic()
+                    timeout = self._pending[0][2] + self.max_wait_s - sync.monotonic()
                     if timeout <= 0:
                         break
                     self._cv.wait(timeout)

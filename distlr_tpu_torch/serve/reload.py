@@ -42,11 +42,10 @@ own (``serve.reload``), so a sampled reload's pulls and the servers'
 from __future__ import annotations
 
 import random
-import threading
-import time
 
 import numpy as np
 
+from distlr_tpu_torch import sync
 from distlr_tpu_torch.obs import dtrace
 from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.utils.logging import get_logger
@@ -306,19 +305,20 @@ class HotReloader:
         self.last_version = None
         self._degraded_since: float | None = None
         self._last_warn = float("-inf")
-        self._stop = threading.Event()
+        self._stop = sync.Event()
         # wait_for_weights (the caller's thread) can overlap the loop, and
         # sources keep per-poll state
-        self._poll_lock = threading.Lock()
-        self._thread = threading.Thread(target=self._run, daemon=True, name="distlr-hot-reload")
+        self._poll_lock = sync.Lock()
+        self._thread = sync.Thread(target=self._run, daemon=True, name="distlr-hot-reload")
 
     def _next_wait(self) -> float:
         if not self.jitter:
             return self.interval_s
         return self.interval_s * (1.0 + self.jitter * (2.0 * self._rng.random() - 1.0))
 
-    def _warn_degraded(self, what: str) -> None:
-        now = time.monotonic()
+    def _warn_degraded_locked(self, what: str) -> None:
+        # called from _poll_once with _poll_lock held
+        now = sync.monotonic()
         if now - self._last_warn >= self.warn_every_s:
             self._last_warn = now
             last = (f", version {self.last_version}" if self.last_version is not None
@@ -333,18 +333,18 @@ class HotReloader:
             except Exception as e:
                 self.errors += 1
                 if self._degraded_since is None:
-                    self._degraded_since = time.monotonic()
-                self._warn_degraded(str(e))
+                    self._degraded_since = sync.monotonic()
+                self._warn_degraded_locked(str(e))
                 return False
             if got is None:
                 # the transport answered but there is nothing to publish
                 # (e.g. a replacement PS group not seeded yet): not recovery
                 if self._degraded_since is not None:
-                    self._warn_degraded("transport answered but published no weights")
+                    self._warn_degraded_locked("transport answered but published no weights")
                 return False
             if self._degraded_since is not None:
                 log.info("weight source recovered after %.0fs degraded (%d errors total)",
-                         time.monotonic() - self._degraded_since, self.errors)
+                         sync.monotonic() - self._degraded_since, self.errors)
                 self._degraded_since = None
                 self._last_warn = float("-inf")
             version, weights = got
@@ -364,11 +364,11 @@ class HotReloader:
     def wait_for_weights(self, timeout_s: float = 30.0) -> None:
         """Block until the engine has weights (the first successful poll):
         the server's start-up gate when no initial weights were given."""
-        deadline = time.monotonic() + timeout_s
+        deadline = sync.monotonic() + timeout_s
         while not self.engine.has_weights:
             if self._poll_once():
                 return
-            if time.monotonic() >= deadline:
+            if sync.monotonic() >= deadline:
                 detail = ""
                 describe = getattr(self.source, "describe_unready", None)
                 if callable(describe):
@@ -378,7 +378,7 @@ class HotReloader:
                         detail = f" (diagnosis failed: {e})"
                 raise TimeoutError(f"no weights from {type(self.source).__name__} within "
                                    f"{timeout_s:.0f}s{detail}")
-            time.sleep(min(self.interval_s, 0.2))
+            sync.sleep(min(self.interval_s, 0.2))
 
     def stats(self) -> dict:
         rec = {"reloads": self.reloads, "reload_errors": self.errors,

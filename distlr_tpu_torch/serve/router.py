@@ -54,9 +54,8 @@ import json
 import random
 import socket
 import socketserver
-import threading
-import time
 
+from distlr_tpu_torch import sync
 from distlr_tpu_torch.obs import dtrace
 from distlr_tpu_torch.obs.registry import get_registry
 from distlr_tpu_torch.serve import balance as _balance
@@ -144,8 +143,8 @@ class _Replica:
         #: several ids hosts several engines and gets @-addressed lines; an
         #: address under one id serves it as its default engine, bare lines
         self.models: set[str] = set()
-        self._sem = threading.BoundedSemaphore(max_inflight)
-        self._pool_lock = threading.Lock()
+        self._sem = sync.BoundedSemaphore(max_inflight)
+        self._pool_lock = sync.Lock()
         self._idle: list[tuple] = []
         self.healthy = True
         self.consecutive_errors = 0
@@ -337,9 +336,9 @@ class ScoringRouter:
         self.backend_timeout_s = float(backend_timeout_s)
         self.probe_timeout_s = min(float(backend_timeout_s), 2.0)
         self._retries = int(retries)
-        self._lock = threading.Lock()   # health state, rotation, counters
+        self._lock = sync.Lock()   # health state, rotation, counters
         self._rr = 0
-        self._t0 = time.monotonic()
+        self._t0 = sync.monotonic()
         self._tcp = _TCPServer((host, port), _RouterHandler, bind_and_activate=True)
         self._tcp.router = self  # type: ignore[attr-defined]
         self.host, self.port = self._tcp.server_address[:2]
@@ -354,12 +353,12 @@ class ScoringRouter:
                         "retries": _RETRIES.labels(listener=listener)}
         self._series_base = {k: c.value for k, c in self._series.items()}
         _tenant.set_model_count(len(self.model_ids))
-        self._stop = threading.Event()
+        self._stop = sync.Event()
         self._started = False
-        self._accept_thread = threading.Thread(target=self._tcp.serve_forever, daemon=True,
-                                               name="distlr-route-accept")
-        self._health_thread = threading.Thread(target=self._health_loop, daemon=True,
-                                               name="distlr-route-health")
+        self._accept_thread = sync.Thread(target=self._tcp.serve_forever, daemon=True,
+                                          name="distlr-route-accept")
+        self._health_thread = sync.Thread(target=self._health_loop, daemon=True,
+                                          name="distlr-route-health")
 
     def _count(self, name: str) -> None:
         self._series[name].inc()
@@ -383,14 +382,14 @@ class ScoringRouter:
 
     def _note_success(self, rep: _Replica) -> None:
         with self._lock:
-            _balance.note_success(rep, time.monotonic())
+            _balance.note_success(rep, sync.monotonic())
 
     def _note_failure(self, rep: _Replica) -> None:
         with self._lock:
             _balance.note_failure(rep)
             verdict = _balance.eject_verdict(rep, self._pools_locked(rep), self.eject_after)
             if verdict == "eject":
-                _balance.eject(rep, time.monotonic(), self.probe_backoff_s)
+                _balance.eject(rep, sync.monotonic(), self.probe_backoff_s)
                 self._post_eject_locked(rep)
             elif verdict == "floor":
                 self._floor_locked(rep)
@@ -437,7 +436,7 @@ class ScoringRouter:
             ok = False
         with self._lock:
             outcome = _balance.probe_result(
-                rep, ok, time.monotonic(), probe_backoff_s=self.probe_backoff_s,
+                rep, ok, sync.monotonic(), probe_backoff_s=self.probe_backoff_s,
                 probe_backoff_max_s=self.probe_backoff_max_s, eject_after=self.eject_after,
                 pools=self._pools_locked(rep))
             if outcome == "reinstated":
@@ -453,7 +452,7 @@ class ScoringRouter:
     def _health_loop(self) -> None:
         tick = max(0.01, min(self.health_interval_s, 0.25))
         while not self._stop.wait(tick):
-            now = time.monotonic()
+            now = sync.monotonic()
             # a snapshot: ADDREPLICA / DELREPLICA change the list meanwhile
             for rep in list(self.replicas):
                 with self._lock:
@@ -746,7 +745,7 @@ class ScoringRouter:
         # retry resends it unchanged: scores are idempotent); the @-model
         # prefix is per replica, below
         tok = dtrace.token()
-        t0 = time.monotonic()
+        t0 = sync.monotonic()
         excluded: list[_Replica] = []
         last_err = "no healthy replica in rotation"
         shed_only = True  # every failure so far was overload, not death
@@ -790,7 +789,7 @@ class ScoringRouter:
                 excluded.append(rep)
                 continue
             self._note_success(rep)
-            self._req_seconds.observe(time.monotonic() - t0)
+            self._req_seconds.observe(sync.monotonic() - t0)
             with self._lock:
                 self._per_model[tenant]["requests"] += 1
             self._count("requests")
@@ -814,7 +813,7 @@ class ScoringRouter:
         """The scalar schema of :meth:`ScoringServer.stats` (requests,
         errors, qps, p50_ms, p99_ms, shed, retries, replica_count) plus the
         per-replica state and the per-model registry."""
-        elapsed = max(time.monotonic() - self._t0, 1e-9)
+        elapsed = max(sync.monotonic() - self._t0, 1e-9)
         with self._lock:
             reps = [{"addr": r.addr, "healthy": r.healthy, "inflight": r.inflight,
                      "requests": r.requests, "errors": r.errors, "ejections": r.ejections,

@@ -27,11 +27,10 @@ the same numbers into the router's ``STATS``.
 from __future__ import annotations
 
 import json
-import threading
-import time
 
 import numpy as np
 
+from distlr_tpu_torch import sync
 from distlr_tpu_torch.feedback.drift import psi
 from distlr_tpu_torch.obs.registry import get_registry
 
@@ -155,14 +154,14 @@ class TenantQuota:
         self.burst = float(burst) if burst is not None else 2.0 * self.rate
         if self.burst < 1.0:
             raise ValueError(f"quota burst must be >= 1 token, got {self.burst}")
-        self._lock = threading.Lock()
+        self._lock = sync.Lock()
         self._tokens = self.burst
-        self._at = time.monotonic()
+        self._at = sync.monotonic()
         self.admitted = 0
         self.shed = 0
 
     def try_admit(self, n: float = 1.0, now: float | None = None) -> bool:
-        now = time.monotonic() if now is None else now
+        now = sync.monotonic() if now is None else now
         with self._lock:
             # a caller's clock behind ours must never drain the bucket
             self._tokens = min(self.burst,
@@ -252,16 +251,16 @@ class ShadowMirror:
         self.block = int(block)
         self.bins = int(bins)
         self._queue: list[tuple[str, str, str, list[float]]] = []
-        self._lock = threading.Lock()
-        self._wake = threading.Event()
-        self._stop = threading.Event()
+        self._lock = sync.Lock()
+        self._wake = sync.Event()
+        self._stop = sync.Event()
         self._pairs: dict[tuple[str, str], _ShadowPair] = {}
         self.submitted = 0
         self.mirrored = 0
         self.dropped = 0
         self.errors = 0
-        self._thread = threading.Thread(target=self._run, daemon=True,
-                                        name="distlr-shadow-mirror")
+        self._thread = sync.Thread(target=self._run, daemon=True,
+                                   name="distlr-shadow-mirror")
         self._thread.start()
 
     def submit(self, tenant: str, candidate: str, line: str,
@@ -327,12 +326,12 @@ class ShadowMirror:
     def drain(self, timeout_s: float = 5.0) -> None:
         """Block until every submitted mirror was processed, not only
         dequeued."""
-        deadline = time.monotonic() + timeout_s
-        while time.monotonic() < deadline:
+        deadline = sync.monotonic() + timeout_s
+        while sync.monotonic() < deadline:
             with self._lock:
                 if not self._queue and self.mirrored + self.errors >= self.submitted:
                     return
-            time.sleep(0.01)
+            sync.sleep(0.01)
 
     def psi(self, tenant: str, candidate: str) -> float | None:
         with self._lock:
@@ -343,9 +342,11 @@ class ShadowMirror:
         with self._lock:
             pairs = {f"{t}->{c}": {"pairs": p.pairs, "blocks": p.blocks, "psi": p.psi_last}
                      for (t, c), p in self._pairs.items()}
-            queued = len(self._queue)
-        return {"mirrored": self.mirrored, "dropped": self.dropped, "errors": self.errors,
-                "queued": queued, "pairs": pairs}
+            # the counters with the queue, in one snapshot: the worker
+            # and submit() move them under this lock
+            counts = {"mirrored": self.mirrored, "dropped": self.dropped,
+                      "errors": self.errors, "queued": len(self._queue)}
+        return {**counts, "pairs": pairs}
 
     def stop(self) -> None:
         self._stop.set()

@@ -8,9 +8,17 @@ costs one module-attribute lookup and behaves as :mod:`threading`'s.
 clock for a deterministic scheduler that owns them, :func:`uninstall`
 restores them, and :func:`instrumented` says which state holds.
 
-The fleet tools of this package (the tsdb, the fleet log, the autopilot
-daemon) take their locks and clocks from here; the rest of the port
-still uses :mod:`threading` and ``feedback/clock.py`` (ROADMAP A.21b).
+The modules of the port that take their locks, threads and clocks from
+here are the ones the JAX package routes: ``serve/batcher.py``,
+``serve/router.py``, ``serve/tenant.py``, ``serve/reload.py``,
+``feedback/join.py``, ``feedback/spool.py``, ``feedback/sink.py``,
+``feedback/drift.py``, ``feedback/online.py``, ``ps/membership.py``,
+``chaos/proxy.py``, ``obs/tsdb.py``, ``obs/log.py`` and
+``autopilot/daemon.py``.  Each calls the facade at use time
+(``sync.Lock()``), never binds a name at import, so
+:mod:`distlr_tpu_torch.analysis.schedcheck` reaches every site.  Modules
+the JAX package leaves on :mod:`threading` (the registry, the tracers,
+the profiler, ``ps/server.py``, the trainers) keep it here too.
 Stdlib only, and cheap to import.
 """
 

@@ -39,9 +39,9 @@ from distlr_tpu.feedback import spool as jax_spool
 from distlr_tpu.ps import KVWorker as JaxKVWorker
 from distlr_tpu.ps import ServerGroup as JaxServerGroup
 from distlr_tpu.serve.hotset import HotSetTracker as JaxHotSetTracker
-from distlr_tpu_torch import launch
+from distlr_tpu_torch import launch, sync
 from distlr_tpu_torch.config import Config
-from distlr_tpu_torch.feedback import clock, drift, join, online, sink, spool
+from distlr_tpu_torch.feedback import drift, join, online, sink, spool
 from distlr_tpu_torch.ps import KVWorker, ServerGroup
 from distlr_tpu_torch.serve.hotset import HotSetTracker
 
@@ -55,8 +55,8 @@ def one_clock(monkeypatch):
     now = {"t": 1_000_000.0}
     monkeypatch.setattr(jax_sync, "wall", lambda: now["t"])
     monkeypatch.setattr(jax_sync, "monotonic", lambda: now["t"])
-    monkeypatch.setattr(clock, "wall", lambda: now["t"])
-    monkeypatch.setattr(clock, "monotonic", lambda: now["t"])
+    monkeypatch.setattr(sync, "wall", lambda: now["t"])
+    monkeypatch.setattr(sync, "monotonic", lambda: now["t"])
     return now
 
 

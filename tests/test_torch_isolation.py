@@ -66,7 +66,7 @@ def test_fresh_interpreter_imports_no_jax():
                 "distlr_tpu_torch.feedback", "distlr_tpu_torch.feedback.spool",
                 "distlr_tpu_torch.feedback.join", "distlr_tpu_torch.feedback.drift",
                 "distlr_tpu_torch.feedback.sink", "distlr_tpu_torch.feedback.online",
-                "distlr_tpu_torch.feedback.clock", "distlr_tpu_torch.ps.store",
+                "distlr_tpu_torch.ps.store",
                 "distlr_tpu_torch.ps.membership", "distlr_tpu_torch.chaos",
                 "distlr_tpu_torch.chaos.plan", "distlr_tpu_torch.chaos.proxy",
                 "distlr_tpu_torch.ps.build", "distlr_tpu_torch.utils.logging",
@@ -76,7 +76,18 @@ def test_fresh_interpreter_imports_no_jax():
                 "distlr_tpu_torch.obs.incident", "distlr_tpu_torch.obs.federate",
                 "distlr_tpu_torch.obs.top", "distlr_tpu_torch.obs.metrics_doc",
                 "distlr_tpu_torch.autopilot", "distlr_tpu_torch.autopilot.policy",
-                "distlr_tpu_torch.autopilot.actuators", "distlr_tpu_torch.autopilot.daemon"):
+                "distlr_tpu_torch.autopilot.actuators", "distlr_tpu_torch.autopilot.daemon",
+                "distlr_tpu_torch.analysis", "distlr_tpu_torch.analysis.report",
+                "distlr_tpu_torch.analysis.wire_parity", "distlr_tpu_torch.analysis.concurrency",
+                "distlr_tpu_torch.analysis.baseline", "distlr_tpu_torch.analysis.config_doc",
+                "distlr_tpu_torch.analysis.printban", "distlr_tpu_torch.analysis.__main__",
+                "distlr_tpu_torch.analysis.schedcheck",
+                "distlr_tpu_torch.analysis.schedcheck.runtime",
+                "distlr_tpu_torch.analysis.schedcheck.explore",
+                "distlr_tpu_torch.analysis.schedcheck.scenarios",
+                "distlr_tpu_torch.analysis.schedcheck.mutants",
+                "distlr_tpu_torch.analysis.schedcheck.lint",
+                "distlr_tpu_torch.analysis.schedcheck.__main__"):
         assert mod in doc["imported"]
     assert doc["leaked"] == []
 
