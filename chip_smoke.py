@@ -6501,9 +6501,13 @@ def _dtrace_ps(torch, seed: int, tmp: str) -> dict:
     same config (their ``round_ms`` bracket the traced run's): every
     ``train.step`` has its ``ps.push_pull`` child, every such op one
     ``kvserver-<r>`` handler span a server under it, the weights are the
-    untraced runs' bit for bit, and ``fused_lr_grad`` ran once a step."""
+    untraced runs' bit for bit, and ``fused_lr_grad`` ran once a step;
+    then the run dir replays through the protocol conformance checker with
+    ``require_parents`` (every handler span under its client op span) with
+    no violation."""
     import numpy as np  # noqa: PLC0415
 
+    from distlr_tpu_torch.analysis.protocol import conformance  # noqa: PLC0415
     from distlr_tpu_torch.config import Config  # noqa: PLC0415
     from distlr_tpu_torch.obs import dtrace  # noqa: PLC0415
 
@@ -6549,9 +6553,13 @@ def _dtrace_ps(torch, seed: int, tmp: str) -> dict:
                                  for rep in (plain_report, after_report)],
            "orphans": sum(1 for recs in journals.values() for r in recs
                           if r["parent"] is not None and r["parent"] not in by_span)}
+    violations = conformance.check_run(conformance.run_dir_journals(run), require_parents=True)
+    out["conformance"] = {"journals": len(conformance.run_dir_journals(run)),
+                          "violations": [v.render() for v in violations[:5]],
+                          "n_violations": len(violations)}
     n = DTRACE_EPOCHS * PS_WORKERS
     if not (len(steps) == len(ops_) == linked == n and out["weights_bit_equal_untraced"]
-            and launches["fused_lr_grad"] == n and out["orphans"] == 0):
+            and launches["fused_lr_grad"] == n and out["orphans"] == 0 and not violations):
         raise AssertionError(f"dtrace ps: {out}")
     return out
 
@@ -6806,6 +6814,191 @@ def phase_dtrace(torch, seed: int, smi: str) -> dict:
            "spans_journaled": sum(ps["journals"].values()) + serve["trace_agg"]["spans"],
            "phase_s": time.perf_counter() - t_phase}
     emit("dtrace", **out)
+    return out
+
+
+# --- the protocol model on the card's artifacts -----------------------------
+# the traced chaos run: async at (PS_ASYNC_BATCH, FULL_D) for 2 epochs behind
+# the conformance witness's plan (a 1 ms delay on link 0, one reset after
+# the 4th op on link 1), retried in place
+PROTOCOL_EPOCHS = 2
+PROTOCOL_PLAN = {"seed": 14, "faults": [{"kind": "delay", "delay_ms": 1, "links": [0]},
+                                        {"kind": "reset", "after_ops": 4, "links": [1]}]}
+PROTOCOL_RETRY_ATTEMPTS = 4
+
+
+def _protocol_swap(src: str, dst: str, slop_us: float) -> int:
+    """Copy ``src`` to ``dst`` with two span records of its busiest writer
+    (tid) swapped, the first adjacent pair whose ends are more than twice
+    the checker's slop apart; returns the 1-based line that now ends
+    before the line above it."""
+    with open(src) as f:
+        lines = f.readlines()
+    by_tid = {}
+    for i, line in enumerate(lines):
+        doc = json.loads(line)
+        if doc.get("type") == "span":
+            by_tid.setdefault(doc["tid"], []).append((i, doc["ts"] + doc["dur"]))
+    recs = max(by_tid.values(), key=len)
+    i, j = next((a, b) for (a, ea), (b, eb) in zip(recs, recs[1:]) if eb - ea > 2 * slop_us)
+    lines[i], lines[j] = lines[j], lines[i]
+    with open(dst, "w") as f:
+        f.writelines(lines)
+    return j + 1
+
+
+def _protocol_fleetsim() -> dict:
+    """``launch fleetsim --json`` and ``--list`` as subprocesses on the
+    card's host (which has no JAX), then each mutant rediscovered here."""
+    from distlr_tpu_torch.analysis.fleetsim import lint, mutants  # noqa: PLC0415
+
+    cmd = [sys.executable, "-m", "distlr_tpu_torch.launch", "fleetsim"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd + ["--json"], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    run_s = time.perf_counter() - t0
+    listed = subprocess.run(cmd + ["--list"], cwd=ROOT, env=env, capture_output=True,
+                            text=True, timeout=300)
+    if run.returncode != 0 or listed.returncode != 0:
+        raise AssertionError(f"protocol: launch fleetsim rc {run.returncode} / "
+                             f"{listed.returncode}: {run.stderr[-2000:]}{listed.stderr[-2000:]}")
+    docs = [json.loads(line) for line in run.stdout.splitlines() if line.startswith("{")]
+    digests = {d["scenario"]: d["digest"] for d in docs}
+    listed_mutants = sorted(line.split(":")[1] for line in listed.stdout.splitlines()
+                            if line.startswith("mutant:"))
+    with lint.quiet_logs():
+        problems = {name: mutants.verify_mutant(name) for name in mutants.MUTANTS}
+    out = {"digests": digests, "digests_equal_pinned": digests == mutants.EXPECTED_DIGESTS,
+           "violations": sum(len(d["violations"]) for d in docs),
+           "events": sum(d["events"] for d in docs), "run_s": run_s,
+           "listed_mutants": listed_mutants,
+           "mutants_rediscovered": {k: not v for k, v in problems.items()}}
+    if not (out["digests_equal_pinned"] and out["violations"] == 0
+            and listed_mutants == sorted(mutants.MUTANTS) and not any(problems.values())):
+        raise AssertionError(f"protocol fleetsim: {out} {problems}")
+    return out
+
+
+def phase_protocol(torch, seed: int, smi: str) -> dict:
+    """The protocol model holding the card's run: ``run_ps_local`` async at
+    (PS_ASYNC_BATCH, FULL_D) bf16, PS_WORKERS workers on the card and
+    PS_SERVERS native servers for PROTOCOL_EPOCHS epochs behind
+    PROTOCOL_PLAN (the conformance witness's faults), retried in place, at
+    trace sample 1 with the servers journaling their handler spans.  The
+    run's journals and the fabric's event log replay through the port's
+    conformance checker with ``require_parents`` and no violation; handler
+    spans on both ranks, a delay and exactly one reset in the log,
+    ``fused_lr_grad`` once a worker round and ``lr_logits`` once an eval of
+    rank 0's, finite weights whose test logloss is below the initial
+    weights'.  A copy of the worker journal with two records of one writer
+    swapped must fail, citing its line.  Last, fleetsim on this host
+    (:func:`_protocol_fleetsim`)."""
+    import numpy as np  # noqa: PLC0415
+
+    from distlr_tpu_torch import ops  # noqa: PLC0415
+    from distlr_tpu_torch.analysis.protocol import conformance  # noqa: PLC0415
+    from distlr_tpu_torch.config import Config  # noqa: PLC0415
+    from distlr_tpu_torch.data import parse_libsvm_file  # noqa: PLC0415
+    from distlr_tpu_torch.models import get_model  # noqa: PLC0415
+    from distlr_tpu_torch.obs import dtrace  # noqa: PLC0415
+    from distlr_tpu_torch.train import ps_trainer  # noqa: PLC0415
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="distlr-smoke-protocol-") as tmp:
+        d, run = os.path.join(tmp, "ps"), os.path.join(tmp, "run")
+        _ps_data(d, seed)
+        plan = os.path.join(tmp, "plan.json")
+        with open(plan, "w") as f:
+            json.dump(PROTOCOL_PLAN, f)
+        cfg = Config(data_dir=d, num_feature_dim=FULL_D, num_workers=PS_WORKERS,
+                     num_servers=PS_SERVERS, batch_size=PS_ASYNC_BATCH,
+                     num_iteration=PROTOCOL_EPOCHS, test_interval=1, learning_rate=0.2,
+                     l2_c=0.01, compute_dtype="bfloat16", sync_mode=False,
+                     ps_timeout_ms=PS_TIMEOUT_MS, chaos_plan=plan,
+                     ps_retry_attempts=PROTOCOL_RETRY_ATTEMPTS, obs_run_dir=run,
+                     trace_sample=1.0)
+        Xt, yt = parse_libsvm_file(os.path.join(d, "test", "part-001"), FULL_D)
+        Xt = torch.from_numpy(Xt).to(torch.bfloat16).cuda()
+        yt = torch.from_numpy(yt).float().cuda()
+        init_ll = _test_logloss(torch, ops, get_model(cfg).init(cfg).to("cuda"), Xt, yt)
+        # the fabric, kept at the group's start: its event log outlives stop()
+        fabrics = []
+        real_psg = ps_trainer.ps_server_group
+
+        def server_group(c):
+            group = real_psg(c)
+            real_start = group.start
+
+            def start():
+                out = real_start()
+                fabrics.append(group.chaos)
+                return out
+
+            group.start = start
+            return group
+
+        ps_trainer.ps_server_group = server_group
+        dtrace.configure(run, "ps", 0, sample=1.0)
+        try:
+            weights, report, launches, run_s = _run_ps(torch, cfg, save=False)
+            dtrace.flush()
+        finally:
+            ps_trainer.ps_server_group = real_psg
+            dtrace.reset_for_tests()
+        events_path = os.path.join(tmp, "chaos_events.json")
+        with open(events_path, "w") as f:
+            json.dump(fabrics[0].events_doc(), f)
+        t0 = time.perf_counter()
+        journals = conformance.run_dir_journals(run)
+        violations = conformance.check_run(journals, events_path, require_parents=True)
+        check_s = time.perf_counter() - t0
+        spans, handlers = {}, {}
+        for path in journals:
+            recs, _ = conformance.load_span_journal(path)
+            stem = os.path.basename(path)[:-len(".jsonl")]
+            spans[stem] = len(recs)
+            handlers[stem] = sum(1 for r in recs if r.name.startswith("kv."))
+        events, _ = conformance.load_chaos_events(events_path)
+        kinds = {}
+        for _link, kind, _detail in events:
+            kinds[kind] = kinds.get(kind, 0) + 1
+        bad = os.path.join(tmp, "ps-0-swapped.jsonl")
+        line = _protocol_swap(os.path.join(run, "spans", "ps-0.jsonl"), bad,
+                              conformance.DEFAULT_SLOP_US)
+        caught = [v.render() for v in conformance.check_run([bad])]
+        w = [torch.from_numpy(x).cuda() for x in weights]
+        rounds = sum(report[r]["steps"] for r in range(PS_WORKERS))
+        out = {"nvidia_smi": smi, "rows": 2 * PS_SHARD_ROWS, "batch_rows": PS_ASYNC_BATCH,
+               "epochs": PROTOCOL_EPOCHS, "workers": PS_WORKERS, "servers": PS_SERVERS,
+               "plan": PROTOCOL_PLAN, "run_s": run_s,
+               "round_ms": [report[r]["round_ms"] for r in range(PS_WORKERS)],
+               "rounds": rounds, "launches": launches, "spans": spans,
+               "handler_spans": handlers, "chaos_events": kinds,
+               "faults": [{k: report[r][k] for k in ("retries", "reconnects",
+                                                     "push_outcome_unknown")}
+                          for r in range(PS_WORKERS)],
+               "n_violations": len(violations),
+               "violations": [v.render() for v in violations[:5]], "check_s": check_s,
+               "negative_control": {"swapped_line": line, "violations": len(caught),
+                                    "cited": [v for v in caught
+                                              if v.startswith(f"{bad}:{line}:")
+                                              and "journal out of order" in v][:1]},
+               "weights_finite": all(bool(torch.isfinite(x).all()) for x in w),
+               "init_logloss": init_ll,
+               "test_logloss": _test_logloss(torch, ops, w[0], Xt, yt)}
+    servers = [f"kvserver-{r}" for r in range(PS_SERVERS)]
+    others = {k: v for k, v in launches.items() if v and k not in ("fused_lr_grad", "lr_logits")}
+    if not (not violations and all(handlers.get(s, 0) > 0 for s in servers)
+            and kinds.get("delay", 0) >= 1 and kinds.get("reset", 0) == 1
+            and launches["fused_lr_grad"] == rounds > 0
+            and launches["lr_logits"] == PROTOCOL_EPOCHS and not others
+            and out["negative_control"]["cited"] and out["weights_finite"]
+            and out["test_logloss"] < init_ll):
+        raise AssertionError(f"protocol: {out}")
+    out["fleetsim"] = _protocol_fleetsim()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit("protocol", **out)
     return out
 
 
@@ -8189,7 +8382,7 @@ PHASES = ("sass", "kernels", "int8_kernels", "lr_backward", "roofline", "trainer
           "trainer_sparse_lr", "trainer_sparse_softmax", "trainer_blocked_lr",
           "trainer_softmax", "step_softmax_wide", "cli", "ps", "serve", "ps_keyed", "ps_wire",
           "ps_recovery", "ps_durable", "ps_elastic", "ps_sanitized", "serve_hot", "route",
-          "online", "sched", "obs", "dtrace", "fleet", "roofline_experiments")
+          "online", "sched", "obs", "dtrace", "protocol", "fleet", "roofline_experiments")
 
 
 def _selected_phases(arg: str | None) -> set | None:
@@ -8325,6 +8518,8 @@ def main(argv=None) -> int:
             obs = phase_obs(torch, args.seed, smi)
         if want("dtrace"):
             traced = phase_dtrace(torch, args.seed, smi)
+        if want("protocol"):
+            proto = phase_protocol(torch, args.seed, smi)
         if want("fleet"):
             fleet = phase_fleet(torch, args.seed, smi)
         if want("roofline_experiments"):
@@ -8360,6 +8555,7 @@ def main(argv=None) -> int:
                                   ("sched", sched["launches"]),
                                   ("obs", obs["launches"]),
                                   ("dtrace", traced["launches"]),
+                                  ("protocol", proto["launches"]),
                                   ("fleet", fleet["launches"])):
             for name, n in counts.items():
                 by_path.setdefault(name, {})[path_name] = n

@@ -2,8 +2,8 @@
 ``distlr_tpu/analysis/``).
 
 One runner (``python -m distlr_tpu_torch.analysis``; ``--only <pass>``
-runs one in isolation, ``--list-passes`` lists them), six ported passes,
-each held on the CPU by ``tests/test_torch_analysis.py``:
+runs one in isolation, ``--list-passes`` lists them), eight passes, each
+held on the CPU by ``tests/test_torch_analysis.py``:
 
 * **wire parity** (:mod:`distlr_tpu_torch.analysis.wire_parity`) —
   parse the port's ``ps/native/kv_protocol.h`` (op codes, flag bits,
@@ -35,12 +35,19 @@ each held on the CPU by ``tests/test_torch_analysis.py``:
   exhaustive DFS + seeded fuzzing per scenario, deadlock detection with
   wait-for cycles, and mutant rediscovery of the joiner and ChaosLink
   teardown races as replayable ≤ 20-step schedules.
+* **protocol** (:mod:`distlr_tpu_torch.analysis.protocol`) — bounded
+  exhaustive search of an executable spec of the KV protocol (its
+  identities from :mod:`distlr_tpu_torch.ps.wire`), rediscovery of the
+  two reverted historical fixes, and conformance replay of the port's
+  banked chaos-run fixtures.
+* **fleetsim** (:mod:`distlr_tpu_torch.analysis.fleetsim`) — seeded
+  discrete-event fleet scenarios driving the real autopilot, balance,
+  reshard and SLO policies: pinned digests and the three policy-bug
+  mutants.
 
-The protocol model checker and fleetsim are ROADMAP A.21c: the runner
-lists them and says they are not ported yet.
-
-Everything here imports neither torch nor numpy at module level: lint
-runs without the card and without building anything.
+Nothing here imports torch (the protocol model's wire mirror brings
+numpy): lint runs without the card and without building anything, and
+only ``protocol.witness`` starts the live PS stack.
 """
 
 from distlr_tpu_torch.analysis.report import Finding  # noqa: F401

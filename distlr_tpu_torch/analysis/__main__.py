@@ -1,15 +1,14 @@
 """distlr-lint runner: ``python -m distlr_tpu_torch.analysis``.
 
-Runs the ported passes (wire parity, concurrency, config/CLI/docs
-parity, the folded-in metrics-doc lint, the print ban and the
-schedcheck interleaving pass), prints findings as ``[pass] key:
-message (file:line ...)``, and exits non-zero when any survive the
-audited baselines — the single static-analysis entry point of the port,
-held by ``tests/test_torch_analysis.py``.  The protocol model-checking
-and fleetsim passes wait for ROADMAP A.21c: run with no arguments the
-runner names them as skipped, and ``--only`` on either raises.
+Runs every pass (wire parity, concurrency, config/CLI/docs parity, the
+folded-in metrics-doc lint, the print ban, the protocol model-checking
+pass, the schedcheck interleaving pass and the fleetsim scenario pass),
+prints findings as ``[pass] key: message (file:line ...)``, and exits
+non-zero when any survive the audited baselines — the single
+static-analysis entry point of the port, held by
+``tests/test_torch_analysis.py``.
 
-    python -m distlr_tpu_torch.analysis                # every ported pass
+    python -m distlr_tpu_torch.analysis                # all passes
     python -m distlr_tpu_torch.analysis --only wire    # one pass in isolation
     python -m distlr_tpu_torch.analysis --list-passes  # what exists
     python -m distlr_tpu_torch.analysis --write-docs   # regenerate
@@ -27,12 +26,6 @@ from distlr_tpu_torch.analysis.report import Finding
 PASSES = ("wire", "concurrency", "config", "metrics", "printban",
           "protocol", "sched", "fleetsim")
 
-#: the passes the port does not have yet, with the ROADMAP item that
-#: brings each
-UNPORTED = {"protocol": "A.21c", "fleetsim": "A.21c"}
-#: what a run with no pass named runs
-PORTED = tuple(p for p in PASSES if p not in UNPORTED)
-
 #: one-line summaries for --list-passes (kept here, not in the pass
 #: modules, so listing passes never imports them)
 PASS_SUMMARIES = {
@@ -47,19 +40,15 @@ PASS_SUMMARIES = {
     "printban": "bare print()/sys.stderr.write outside the audited "
                 "CLI-output allowlist (analysis/printban.py)",
     "protocol": "KV state-machine model checking + mutants + trace "
-                "conformance (analysis/protocol/; not ported yet, A.21c)",
+                "conformance (analysis/protocol/)",
     "sched": "deterministic-interleaving execution of the real fleet "
              "classes + mutants (analysis/schedcheck/)",
     "fleetsim": "discrete-event fleet scenarios property-testing the "
-                "control plane + policy mutants (analysis/fleetsim/; "
-                "not ported yet, A.21c)",
+                "control plane + policy mutants (analysis/fleetsim/)",
 }
 
 
 def run_pass(name: str) -> list[Finding]:
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"the {name} pass is not ported yet (ROADMAP {UNPORTED[name]})")
     if name == "wire":
         from distlr_tpu_torch.analysis import wire_parity
         return wire_parity.check()
@@ -75,11 +64,24 @@ def run_pass(name: str) -> list[Finding]:
         # sees it), not bare prints
         from distlr_tpu_torch.analysis import printban
         return printban.check()
+    if name == "protocol":
+        # bounded exhaustive search of the KV state machine, mutant
+        # rediscovery, and fixture trace conformance (full depth:
+        # `python -m distlr_tpu_torch.analysis.protocol --full`)
+        from distlr_tpu_torch.analysis.protocol import lint
+        return lint.check()
     if name == "sched":
         # the real Python classes under controlled interleavings —
         # scenario DFS/fuzz + the two historical-race mutants
         # (full depth: `python -m distlr_tpu_torch.analysis.schedcheck --full`)
         from distlr_tpu_torch.analysis.schedcheck import lint
+        return lint.check()
+    if name == "fleetsim":
+        # thousand-rank fleet scenarios driving the real autopilot /
+        # balance / reshard / SLO policies on a seeded event loop —
+        # pinned digests + the three policy-bug mutants (full depth:
+        # `python -m distlr_tpu_torch.analysis.fleetsim --full`)
+        from distlr_tpu_torch.analysis.fleetsim import lint
         return lint.check()
     if name == "metrics":
         # the metrics-doc lint, folded under this runner (its module
@@ -90,7 +92,7 @@ def run_pass(name: str) -> list[Finding]:
     raise ValueError(f"unknown pass {name!r} (choose from {PASSES})")
 
 
-def run(passes=PORTED) -> list[Finding]:
+def run(passes=PASSES) -> list[Finding]:
     findings: list[Finding] = []
     for name in passes:
         findings.extend(run_pass(name))
@@ -102,11 +104,11 @@ def main(argv=None) -> int:
         prog="python -m distlr_tpu_torch.analysis",
         description="distlr-lint: wire parity, concurrency, "
                     "config/docs parity, metrics doc, print ban, "
-                    "schedcheck interleavings")
+                    "protocol model checking, schedcheck interleavings, "
+                    "fleetsim scenarios")
     ap.add_argument("--pass", dest="passes", action="append",
                     choices=PASSES,
-                    help="run only this pass (repeatable; default every "
-                    "ported pass)")
+                    help="run only this pass (repeatable; default all)")
     ap.add_argument("--only", dest="passes", action="append",
                     choices=PASSES, metavar="PASS",
                     help="alias of --pass: run one pass in isolation "
@@ -129,13 +131,7 @@ def main(argv=None) -> int:
         print(f"wrote {config_doc.write_doc()}")
         metrics_doc.main([])
         return 0
-    if args.passes:
-        passes = tuple(args.passes)
-    else:
-        passes = PORTED
-        for name, item in UNPORTED.items():
-            print(f"distlr-lint: skipped {name} (not ported yet, "
-                  f"ROADMAP {item})")
+    passes = tuple(args.passes) if args.passes else PASSES
     findings = run(passes)
     for f in findings:
         print(f.render(), file=sys.stderr)

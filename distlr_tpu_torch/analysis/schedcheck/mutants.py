@@ -18,7 +18,7 @@ The two pinned races:
   pending buffer while its request aged out through negative
   sampling (``LabelJoiner.scored``).
 * ``chaoslink_stop_snapshot`` — the concurrency lint's first finding:
-  ``ChaosLink.stop()`` snapshotted ``_conns``/``_threads`` lock-free
+  ``ChaosLink.stop()`` snapshotted its connections and threads lock-free
   BEFORE joining the accept loop, so a connection accepted
   concurrently with stop leaked its sockets and pump threads past
   stop() (``chaos/proxy.py``).
@@ -61,23 +61,18 @@ def _prefix_joiner_scored(self, rec) -> None:
 
 
 def _prefix_chaoslink_stop(self) -> None:
-    """``ChaosLink.stop`` BEFORE the teardown fix: conns/threads
+    """``ChaosLink.stop`` BEFORE the teardown fix: the pump threads
     snapshotted lock-free, and only THEN the accept loop joined — a
     connection registered between the snapshot and the join escapes
-    the teardown entirely."""
+    the teardown entirely.  (The pre-fix body also closed a snapshot of
+    the sockets; the port's pumps close their own, so that step has no
+    counterpart here and the schedule is unchanged.)"""
     self._stop.set()
     try:
         self._lsock.close()
     except OSError:
         pass
-    conns = list(self._conns)
     threads = list(self._threads)
-    for down, up in conns:
-        for s in (down, up):
-            try:
-                s.close()
-            except OSError:
-                pass
     for t in threads:
         t.join(timeout=2.0)
     self._accept_thread.join(timeout=6.0)

@@ -761,6 +761,9 @@ class _FakeSock:
     def sendall(self, data) -> None:
         pass
 
+    def shutdown(self, how) -> None:
+        pass
+
     def close(self) -> None:
         self.closed = True
 

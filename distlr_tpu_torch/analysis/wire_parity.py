@@ -110,17 +110,20 @@ STATS_V1_ORDER = ("dim", "initialized", "pending_sync_pushes",
                   "barrier_waiters", "total_pushes", "total_pulls")
 
 #: Python files that mirror wire framing (repo-relative) — the raw-
-#: literal scan targets.  wire.py itself is the definition site.  JAX's
-#: list also scans its protocol MODEL (``analysis/protocol/spec.py``,
-#: ``checker.py``, ``mutants.py``, ``conformance.py``), a framing site
-#: like any other; the port has no protocol model until ROADMAP A.21c
-#: ports it, and those four sites join this tuple then.
+#: literal scan targets.  wire.py itself is the definition site.  The
+#: protocol MODEL (analysis/protocol/) is a framing site like any other:
+#: its op/flag/capability identities must come from wire.py, so the
+#: executable spec can never drift from the header it verifies.
 MIRROR_SITES = (
     "distlr_tpu_torch/ps/client.py",
     "distlr_tpu_torch/ps/membership.py",
     "distlr_tpu_torch/ps/server.py",
     "distlr_tpu_torch/compress/codecs.py",
     "distlr_tpu_torch/chaos/proxy.py",
+    "distlr_tpu_torch/analysis/protocol/spec.py",
+    "distlr_tpu_torch/analysis/protocol/checker.py",
+    "distlr_tpu_torch/analysis/protocol/mutants.py",
+    "distlr_tpu_torch/analysis/protocol/conformance.py",
 )
 
 #: distinctive protocol values that must never appear as bare literals

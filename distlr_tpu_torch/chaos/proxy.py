@@ -217,7 +217,6 @@ class ChaosLink:
         self._bytes_c2s = 0
         self._fired: set[int] = set()      # one-shot reset fault indices
         self._announced: set[tuple] = set()  # (fault, window) activations
-        self._conns: list[tuple[socket.socket, socket.socket]] = []
         self._threads: list[sync.Thread] = []
         self._stop = sync.Event()
         self._lsock = self._listen()
@@ -292,18 +291,19 @@ class ChaosLink:
                 s.settimeout(_TICK_S)
                 s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             severed = sync.Event()
+            # the two pumps' exit tokens: the one that pops 0 is the last
+            # out and closes the sockets (:meth:`_leave`)
+            left = [0, 1]
             t1 = sync.Thread(target=self._pump_c2s,
-                             args=(down, up, severed), daemon=True,
+                             args=(down, up, severed, left), daemon=True,
                              name=f"chaos-c2s-{self.link}")
             t2 = sync.Thread(target=self._pump_s2c,
-                             args=(down, up, severed), daemon=True,
+                             args=(down, up, severed, left), daemon=True,
                              name=f"chaos-s2c-{self.link}")
             with self._lock:
                 # prune finished churn: a reset-heavy plan forces a
                 # reconnect (fresh conn + 2 pump threads) per reset, and
-                # a soak must not hoard every dead thread/socket pair
-                self._conns = [c for c in self._conns
-                               if c[0].fileno() != -1] + [(down, up)]
+                # a soak must not hoard every dead thread
                 self._threads = [t for t in self._threads
                                  if t.is_alive()] + [t1, t2]
             t1.start()
@@ -353,6 +353,9 @@ class ChaosLink:
 
     def _sever(self, down: socket.socket, up: socket.socket,
                severed: sync.Event, *, hard: bool) -> None:
+        """End the connection: both pumps stop, and the close
+        (:meth:`_leave`) follows as soon as the s2c pump is out of its
+        read — within one tick, since the c2s pump wakes it."""
         severed.set()
         if hard:
             # RST both ways: queued bytes are DISCARDED (the mid-frame
@@ -363,6 +366,24 @@ class ChaosLink:
                                  struct.pack("ii", 1, 0))
                 except OSError:
                     pass
+
+    @staticmethod
+    def _leave(down: socket.socket, up: socket.socket, wake: socket.socket,
+               left: list) -> None:
+        """A pump's exit from its connection.  It wakes the other pump out
+        of its read on ``wake`` (``shutdown(SHUT_RD)`` puts nothing on the
+        wire, and is a use of the descriptor, not its end), then takes its
+        exit token: the pump that takes the last one (0) closes both
+        sockets.  So each socket has exactly one closing thread, and the
+        close comes after the other pump's last call on it: a close while
+        the other pump sits in ``recv`` is a data race on the descriptor.
+        ``list.pop`` is atomic under the GIL."""
+        try:
+            wake.shutdown(socket.SHUT_RD)
+        except OSError:
+            pass
+        if left.pop() != 0:
+            return
         for s in (down, up):
             try:
                 s.close()
@@ -409,7 +430,7 @@ class ChaosLink:
             return None
 
     def _pump_c2s(self, down: socket.socket, up: socket.socket,
-                  severed: sync.Event) -> None:
+                  severed: sync.Event, left: list) -> None:
         """Framed client->server pump — all op-offset faults live here."""
         link = str(self.link)
         linebuf = bytearray()  # serve-protocol cross-read remainder
@@ -580,11 +601,7 @@ class ChaosLink:
                     return
         finally:
             severed.set()
-            for s in (down, up):
-                try:
-                    s.close()
-                except OSError:
-                    pass
+            self._leave(down, up, up, left)
 
     def _relay_raw(self, down: socket.socket, up: socket.socket,
                    severed: sync.Event) -> None:
@@ -603,18 +620,16 @@ class ChaosLink:
                 return
 
     def _pump_s2c(self, down: socket.socket, up: socket.socket,
-                  severed: sync.Event) -> None:
+                  severed: sync.Event, left: list) -> None:
         """Raw server->client relay: responses are delayed only by
         stalls/throttle, never reframed.
 
-        This pump NEVER closes the sockets — the c2s pump owns closure
-        (its ``finally``, or :meth:`_sever`).  Closing here on seeing
-        ``severed`` could race the after_ops reset's
-        set-severed-then-deliver-frame-N sequence and cut the upstream
-        send out from under it (losing both the delivery and the
-        recorded reset event); instead this pump only SETS ``severed``
-        on upstream EOF/error, and the c2s pump notices within one
-        ``_TICK_S`` and tears both sockets down."""
+        On upstream EOF/error this pump SETS ``severed`` and leaves; it
+        closes the sockets only as the last pump out (:meth:`_leave`),
+        so it can never cut the after_ops reset's
+        set-severed-then-deliver-frame-N sequence short (losing both the
+        delivery and the recorded reset event): the c2s pump is still in
+        it, holding its token."""
         try:
             while not (self._stop.is_set() or severed.is_set()):
                 try:
@@ -636,6 +651,7 @@ class ChaosLink:
                 self._fabric.count("bytes", (self.link, "s2c"), len(chunk))
         finally:
             severed.set()
+            self._leave(down, up, down, left)
 
     # -- lifecycle --------------------------------------------------------
     def stop(self) -> None:
@@ -644,8 +660,8 @@ class ChaosLink:
             self._lsock.close()
         except OSError:
             pass
-        # Join the accept loop BEFORE snapshotting conns/threads: it is
-        # the only spawner, so once it exits the lists are final (a
+        # Join the accept loop BEFORE snapshotting the pump threads: it
+        # is the only spawner, so once it exits the list is final (a
         # snapshot taken first could miss a connection accepted
         # concurrently with stop(), and leak its sockets and pump
         # threads past stop()).  The loop blocks at most ~5s in an
@@ -655,14 +671,11 @@ class ChaosLink:
         self._accept_thread.join(timeout=6.0)
         for _attempt in range(2):
             with self._lock:
-                conns = list(self._conns)
                 threads = list(self._threads)
-            for down, up in conns:
-                for s in (down, up):
-                    try:
-                        s.close()
-                    except OSError:
-                        pass
+            # the pumps see _stop within one tick of their socket
+            # timeouts, and the last out of each connection closes its
+            # sockets (_leave): closing them here, while a pump may sit
+            # in recv, would race it on the descriptor
             for t in threads:
                 t.join(timeout=2.0)
             if not self._accept_thread.is_alive():

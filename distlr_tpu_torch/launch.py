@@ -1,8 +1,8 @@
 """Command-line entry point of the port: ``gen-data``, ``sync``, ``eval``,
 ``ps``, ``ps-server``, ``ps-ctl``, ``chaos``, ``serve``, ``online``,
 ``route``, ``rollout``, ``autopilot``, ``obs-agg``, ``fleet-query``,
-``trace-agg``, ``prof-agg``, ``profrec``, ``flightrec``, ``top``, ``logs``
-and ``incident``.
+``trace-agg``, ``prof-agg``, ``profrec``, ``flightrec``, ``top``, ``logs``,
+``incident`` and ``fleetsim``.
 
 Counterpart of ``distlr_tpu/launch.py``: every subcommand takes the
 option strings its JAX twin takes, with the same dests, types and
@@ -1634,6 +1634,36 @@ def cmd_logs(args: argparse.Namespace) -> int:
     return 0 if events else 1
 
 
+def cmd_fleetsim(args: argparse.Namespace) -> int:
+    """Deterministic fleet scenarios (`launch fleetsim`): the
+    discrete-event simulator driving the real autopilot / router /
+    reshard / SLO policies at thousand-rank scale.  Thin shim over
+    ``python -m distlr_tpu_torch.analysis.fleetsim`` so operators reach
+    it from the same entry point as the fleet it models."""
+    from distlr_tpu_torch.analysis.fleetsim.__main__ import (  # noqa: PLC0415
+        main as fleetsim_main,
+    )
+
+    argv: list[str] = []
+    if args.full:
+        argv.append("--full")
+    for name in args.scenario or ():
+        argv.extend(["--scenario", name])
+    if args.seed:
+        argv.extend(["--seed", str(args.seed)])
+    if args.fuzz:
+        argv.extend(["--fuzz", str(args.fuzz)])
+    if args.replay:
+        argv.extend(["--replay", args.replay])
+    if args.history:
+        argv.extend(["--history", args.history])
+    if args.json:
+        argv.append("--json")
+    if args.list:
+        argv.append("--list")
+    return fleetsim_main(argv)
+
+
 def cmd_incident(args: argparse.Namespace) -> int:
     """Incident bundles (`launch incident`): list the bundles under
     ``<run_dir>/incidents/``, show one's facts, re-render its
@@ -2421,6 +2451,32 @@ def main(argv=None) -> int:
                      "machinery now and assemble a manual bundle with "
                      "this reason")
     inc.set_defaults(fn=cmd_incident)
+
+    fs = sub.add_parser(
+        "fleetsim",
+        help="deterministic discrete-event fleet scenarios property-"
+             "testing the real autopilot/router/reshard/SLO policies "
+             "(replay ids: fleetsim:<scenario>:<seed>)",
+    )
+    fs.add_argument("--full", action="store_true",
+                    help="deep tier: add the multi-seed fuzz sweep")
+    fs.add_argument("--scenario", action="append", metavar="NAME",
+                    help="run only this scenario (repeatable)")
+    fs.add_argument("--seed", type=int, default=0,
+                    help="RNG seed (default 0, the pinned digest seed)")
+    fs.add_argument("--fuzz", type=int, default=0, metavar="N",
+                    help="additionally run seeds 1..N per scenario")
+    fs.add_argument("--replay", metavar="REPLAY_ID",
+                    help="re-run one pinned replay id and print its "
+                    "byte-stable verdict")
+    fs.add_argument("--history", metavar="PATH",
+                    help="bank the simulated fleet.json frames for "
+                    "`launch top --replay PATH` (single scenario)")
+    fs.add_argument("--json", action="store_true",
+                    help="one JSON result doc per run instead of prose")
+    fs.add_argument("--list", action="store_true",
+                    help="list scenarios and mutants, then exit")
+    fs.set_defaults(fn=cmd_fleetsim)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -172,7 +172,7 @@ def is_sampled(trace_id: int, rate: float) -> bool:
 class Span:
     """Handle yielded by :func:`span` while the block runs."""
 
-    __slots__ = ("name", "ctx", "tags", "t0_wall", "t0_perf")
+    __slots__ = ("name", "ctx", "tags", "t0_wall", "t0_perf", "held", "parent_id")
 
     def __init__(self, name: str, ctx: TraceContext, tags: dict | None):
         self.name = name
@@ -180,10 +180,21 @@ class Span:
         self.tags = tags
         self.t0_wall = time.time()
         self.t0_perf = time.perf_counter()
+        self.held = False
+        self.parent_id = None
 
     @property
     def span_id(self) -> int:
         return self.ctx.span_id
+
+    def hold(self) -> "Span":
+        """Keep the span open past its block: the block's exit pops the
+        context as always, and :func:`end_span` records the span later.
+        For work the block hands off that must finish inside the span —
+        a pipelined step whose round trip completes on another thread
+        during the next step."""
+        self.held = True
+        return self
 
 
 class _Tracer:
@@ -355,7 +366,14 @@ class _Tracer:
             if not names:
                 _ACTIVE_NAMES.pop(tid, None)
             st.pop()
-            self._record(sp, parent.span_id or None)
+            sp.parent_id = parent.span_id or None
+            if not sp.held:
+                self._record(sp, sp.parent_id)
+
+    def end_span(self, sp: Span | None) -> None:
+        """Record a held span (:meth:`Span.hold`), ending it now."""
+        if sp is not None:
+            self._record(sp, sp.parent_id)
 
     def record_span(self, name: str, ctx: TraceContext, t0_wall: float,
                     dur_s: float, tags: dict | None = None) -> TraceContext:
@@ -590,6 +608,10 @@ def use(ctx: TraceContext | None):
 def span(name: str, tags: dict | None = None,
          ctx: TraceContext | None = None):
     return _TRACER.span(name, tags, ctx)
+
+
+def end_span(sp: Span | None) -> None:
+    _TRACER.end_span(sp)
 
 
 def record_span(name: str, ctx: TraceContext, t0_wall: float, dur_s: float,

@@ -168,22 +168,33 @@ class _StepTrace:
         self._timer = timer
         self._rank = rank
         self._scope: contextlib.ExitStack | None = None
+        self._span = None
 
     def start(self) -> None:
         if self._scope is not None:  # an exception ended the last step
             self._scope.close()
+            self._scope = self._span = None
         self._timer.start()
         ctx = dtrace.new_trace()
         if ctx is not None:
             scope = contextlib.ExitStack()
             scope.enter_context(dtrace.use(ctx))
-            scope.enter_context(dtrace.span("train.step", tags={"rank": self._rank}))
+            self._span = scope.enter_context(
+                dtrace.span("train.step", tags={"rank": self._rank}))
             self._scope = scope
+
+    def hold(self):
+        """The running step's span, held open past :meth:`stop` until the
+        caller's :func:`dtrace.end_span` (None when the step is untraced):
+        a pipelined step's round trip, which outlives the step's block, ends
+        inside the step's span."""
+        return self._span.hold() if self._span is not None else None
 
     def stop(self, n: int):
         if self._scope is not None:
             self._scope.close()
             self._scope = None
+            self._span = None
         return self._timer.stop(n)
 
     def __getattr__(self, name):
@@ -1002,7 +1013,7 @@ class PSWorker:
                         self._w_cache = self.kv.pull()
                     self._w_time = time.perf_counter()
                     self._w_pushes = self._sample_push_clock()
-                fut = None
+                inflight = None
                 for X, y, mask in train:
                     self.timer.start()
                     g = compute_g(self._w_cache, X, y, mask)
@@ -1010,14 +1021,17 @@ class PSWorker:
                     # is the clock now against the clock at their arrival
                     self._set_staleness(self._w_time)
                     self._record_pushes_behind(self._w_pushes)
-                    if fut is not None:
-                        self._await_push_pull(fut)
+                    if inflight is not None:
+                        self._await_push_pull(*inflight)
                     # the step's trace context goes along: the comm thread
-                    # is another thread, and the op belongs to this step
-                    fut = self._comm_pool().submit(self._timed_push_pull, g, dtrace.current())
+                    # is another thread, and the op belongs to this step,
+                    # whose span ends once the reply is in
+                    inflight = (self._comm_pool().submit(self._timed_push_pull, g,
+                                                         dtrace.current()),
+                                self.timer.hold())
                     self.timer.stop(int(mask.sum()))
-                if fut is not None:
-                    self._await_push_pull(fut)
+                if inflight is not None:
+                    self._await_push_pull(*inflight)
             # runtime introspection (obs.torchrt): this epoch's new step
             # signatures, and the throttled device-bytes gauges
             for probe in self._compile_probes:
@@ -1113,11 +1127,12 @@ class PSWorker:
         with dtrace.use(ctx), self._timed("push_pull", phase=None):
             return self.kv.push_pull(g)
 
-    def _await_push_pull(self, fut) -> None:
+    def _await_push_pull(self, fut, step_span) -> None:
         """The pipelined round's reply: the next weights, when they came,
-        and the push clock then."""
+        and the push clock then; the step that sent it ends its span."""
         with trace_phase("push"):
             self._w_cache = fut.result()
+        dtrace.end_span(step_span)
         self._w_time = time.perf_counter()
         self._w_pushes = self._sample_push_clock()
 

@@ -12,9 +12,11 @@
 * print ban and config/CLI/docs parity the same way; ``generate()``'s
   field, flag and default columns equal JAX's for every shared field;
 * the runner: exit 0 on the port's tree (the ``sched`` pass itself runs
-  in ``tests/test_torch_schedcheck_scenarios.py`` at the same depth, so
-  the runner test checks it is called and does not re-run it),
-  ``--list-passes`` lists JAX's eight, ``--only protocol`` names A.21c;
+  in ``tests/test_torch_schedcheck_scenarios.py`` at the same depth, and
+  ``--only protocol`` / ``--only fleetsim`` run those two here, so the
+  runner test checks all three are called and does not re-run them),
+  ``--list-passes`` lists JAX's eight, and ``--only protocol`` /
+  ``--only fleetsim`` exit 0 with JAX's findings;
 * regression tests for the races the lints found: the membership epoch
   read under the lock, chaos stop reaping storming connections, and the
   two the port's first run found (``ShadowMirror.stats`` and the
@@ -38,8 +40,9 @@ from distlr_tpu.analysis import config_doc as jax_config_doc
 from distlr_tpu.analysis import printban as jax_printban
 from distlr_tpu.analysis import wire_parity as jax_wire
 from distlr_tpu.analysis.__main__ import PASSES as JAX_PASSES
+from distlr_tpu.analysis.__main__ import run_pass as jax_run_pass
 from distlr_tpu_torch.analysis import baseline, concurrency, config_doc, printban, wire_parity
-from distlr_tpu_torch.analysis.__main__ import PASSES, UNPORTED
+from distlr_tpu_torch.analysis.__main__ import PASSES
 from distlr_tpu_torch.analysis.__main__ import main as lint_main
 from distlr_tpu_torch.analysis.report import repo_root
 
@@ -51,17 +54,16 @@ REPO = repo_root()
 
 _WIRE_FILES = ("ps/wire.py", "ps/client.py", "ps/membership.py", "ps/server.py",
                "ps/store.py", "compress/codecs.py", "chaos/proxy.py")
-#: JAX's fixture also carries its protocol model, a framing site like any
-#: other; the port has none until ROADMAP A.21c
-_JAX_PROTOCOL_FILES = ("analysis/protocol/spec.py", "analysis/protocol/checker.py",
-                       "analysis/protocol/mutants.py", "analysis/protocol/conformance.py")
+#: each package's protocol model, a framing site like any other
+_PROTOCOL_FILES = ("analysis/protocol/spec.py", "analysis/protocol/checker.py",
+                   "analysis/protocol/mutants.py", "analysis/protocol/conformance.py")
 
 
 def _wire_fixture(root, pkg, mutate_header=None, mutate_client=None, mutate_store=None,
                   drop_store=False):
     """One package's header + mirrors copied under ``root``, with the
     same seeded mutation either package's fixture gets."""
-    files = _WIRE_FILES + (_JAX_PROTOCOL_FILES if pkg == "distlr_tpu" else ())
+    files = _WIRE_FILES + _PROTOCOL_FILES
     for rel in files + ("ps/native/kv_protocol.h",):
         dst = root / pkg / rel
         os.makedirs(dst.parent, exist_ok=True)
@@ -125,10 +127,9 @@ class TestWireParity:
         assert wire_parity.HEADER_TO_WIRE == jax_wire.HEADER_TO_WIRE
         assert wire_parity.HEADER_TO_STORE == jax_wire.HEADER_TO_STORE
         assert wire_parity.WIRE_ONLY == jax_wire.WIRE_ONLY
-        # the port's raw-literal sites are JAX's less its protocol model
-        jax_sites = {s.replace("distlr_tpu/", "distlr_tpu_torch/")
-                     for s in jax_wire.MIRROR_SITES if "/analysis/protocol/" not in s}
-        assert set(wire_parity.MIRROR_SITES) == jax_sites
+        # the port's raw-literal sites are JAX's, protocol model included
+        assert wire_parity.MIRROR_SITES == tuple(
+            s.replace("distlr_tpu/", "distlr_tpu_torch/") for s in jax_wire.MIRROR_SITES)
 
     @pytest.mark.parametrize("name", sorted(_MUTATIONS))
     def test_seeded_fixture_gives_jax_findings(self, tmp_path, name):
@@ -385,16 +386,20 @@ class TestConfigDocLint:
 
 class TestRunner:
     def test_runner_exits_zero_on_port_tree(self, capsys, monkeypatch):
+        from distlr_tpu_torch.analysis.fleetsim import lint as fleetsim_lint
+        from distlr_tpu_torch.analysis.protocol import lint as protocol_lint
         from distlr_tpu_torch.analysis.schedcheck import lint as sched_lint
 
         called = []
-        monkeypatch.setattr(sched_lint, "check", lambda: called.append(1) or [])
+        for name, mod in (("protocol", protocol_lint), ("sched", sched_lint),
+                          ("fleetsim", fleetsim_lint)):
+            monkeypatch.setattr(mod, "check", lambda name=name: called.append(name) or [])
         assert lint_main([]) == 0
         out = capsys.readouterr().out
-        assert called == [1]
-        assert "distlr-lint: clean (wire, concurrency, config, metrics, printban, sched)" in out
-        for name in ("protocol", "fleetsim"):
-            assert f"skipped {name} (not ported yet, ROADMAP A.21c)" in out
+        assert called == ["protocol", "sched", "fleetsim"]
+        assert ("distlr-lint: clean (wire, concurrency, config, metrics, printban, "
+                "protocol, sched, fleetsim)") in out
+        assert "skipped" not in out
 
     def test_list_passes_lists_jaxs_eight(self, capsys):
         assert PASSES == JAX_PASSES
@@ -402,11 +407,11 @@ class TestRunner:
         listed = [line.split(":", 1)[0] for line in capsys.readouterr().out.splitlines()]
         assert tuple(listed) == JAX_PASSES
 
-    @pytest.mark.parametrize("name", sorted(UNPORTED))
-    def test_unported_pass_names_its_roadmap_item(self, name):
-        assert UNPORTED[name] == "A.21c"
-        with pytest.raises(NotImplementedError, match="A.21c"):
-            lint_main(["--only", name])
+    @pytest.mark.parametrize("name", ["fleetsim", "protocol"])
+    def test_model_pass_runs_with_jax_findings(self, capsys, name):
+        assert lint_main(["--only", name]) == 0
+        assert f"distlr-lint: clean ({name})" in capsys.readouterr().out
+        assert jax_run_pass(name) == []
 
     def test_single_pass_selection(self, capsys):
         assert lint_main(["--only", "wire"]) == 0

@@ -87,9 +87,44 @@ def test_fresh_interpreter_imports_no_jax():
                 "distlr_tpu_torch.analysis.schedcheck.scenarios",
                 "distlr_tpu_torch.analysis.schedcheck.mutants",
                 "distlr_tpu_torch.analysis.schedcheck.lint",
-                "distlr_tpu_torch.analysis.schedcheck.__main__"):
+                "distlr_tpu_torch.analysis.schedcheck.__main__",
+                "distlr_tpu_torch.traffic",
+                "distlr_tpu_torch.analysis.protocol",
+                "distlr_tpu_torch.analysis.protocol.spec",
+                "distlr_tpu_torch.analysis.protocol.checker",
+                "distlr_tpu_torch.analysis.protocol.mutants",
+                "distlr_tpu_torch.analysis.protocol.conformance",
+                "distlr_tpu_torch.analysis.protocol.witness",
+                "distlr_tpu_torch.analysis.protocol.lint",
+                "distlr_tpu_torch.analysis.protocol.__main__",
+                "distlr_tpu_torch.analysis.fleetsim",
+                "distlr_tpu_torch.analysis.fleetsim.events",
+                "distlr_tpu_torch.analysis.fleetsim.props",
+                "distlr_tpu_torch.analysis.fleetsim.models",
+                "distlr_tpu_torch.analysis.fleetsim.scenarios",
+                "distlr_tpu_torch.analysis.fleetsim.mutants",
+                "distlr_tpu_torch.analysis.fleetsim.lint",
+                "distlr_tpu_torch.analysis.fleetsim.__main__"):
         assert mod in doc["imported"]
     assert doc["leaked"] == []
+
+
+def test_analysis_and_traffic_load_no_torch():
+    """The protocol model, fleetsim and the traffic model are host code
+    that the lint runner and ``launch fleetsim`` load: a fresh
+    interpreter that imports them holds no torch, as JAX's analysis tree
+    holds no jax."""
+    probe = ("import json, sys\n"
+             "import distlr_tpu_torch.analysis.protocol, distlr_tpu_torch.analysis.fleetsim\n"
+             "import distlr_tpu_torch.analysis.protocol.lint\n"
+             "import distlr_tpu_torch.analysis.fleetsim.lint, distlr_tpu_torch.traffic\n"
+             "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('torch', 'jax', 'distlr_tpu'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 def test_no_forbidden_import_statement():

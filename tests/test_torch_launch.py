@@ -375,9 +375,9 @@ _WITH = {"--accum-start": ["--accum-max", "4"],
          "--block-groups": ["--model", "blocked_lr", "--block-size", "4"],
          "--store-wal": ["--store-dir", "st"]}
 # the subcommands with no Config: their flags go to the writers (gen-data),
-# to the coordinator's client (ps-ctl) and to the aggregator's readers (top,
-# fleet-query), as in the JAX package
-_NO_CONFIG = ("gen-data", "ps-ctl", "top", "fleet-query")
+# to the coordinator's client (ps-ctl), to the aggregator's readers (top,
+# fleet-query) and to the fleet simulator (fleetsim), as in the JAX package
+_NO_CONFIG = ("gen-data", "ps-ctl", "top", "fleet-query", "fleetsim")
 _VALUE = {"--accum-growth": "2.5", "--coordinator": "127.0.0.1:1", "--block-size": "4",
           "--eject-after": "5", "--probe-backoff": "0.25", "--ps-retry-backoff-max": "5000"}
 # the flags a command maps onto Config fields itself (the JAX package's
@@ -416,6 +416,12 @@ def _flag_value(action, opt: str) -> list[str]:
     if action.type is float:
         return ["0.5"]
     return ["x"]
+
+
+def test_subcommands_equal_jax():
+    """The port's launch has every subcommand of JAX's, and no other."""
+    assert sorted(_SUBS) == sorted(_JAX_SUBS)
+    assert len(_SUBS) == 22
 
 
 @pytest.mark.parametrize("cmd,opt", _SHARED_CASES, ids=[f"{c}:{o}" for c, o in _SHARED_CASES])

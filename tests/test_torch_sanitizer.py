@@ -728,3 +728,27 @@ def test_elastic_suite_under_tsan(tmp_path):
     zero unsuppressed reports."""
     _run_suite_under_tsan(tmp_path, ["tests/test_torch_elastic.py", "-m", "not slow"],
                           timeout=3000)
+
+
+#: the chaos suite's cases that drive only the port's fabric (the parity
+#: cases also run the JAX package's proxy in this process, whose pumps keep
+#: the close-under-recv race the port's proxy no longer has), and the
+#: protocol witnesses; not the traced ``run_ps_local`` rehearsal, whose
+#: servers profile under ``--obs-run-dir`` and flush that profile from
+#: their SIGTERM handler, which TSan reports as signal-unsafe
+_PORT_ONLY_CHAOS = ("delay_delays or partition_blocks or reset_after or throttle_paces "
+                    "or same_seed or group_kill or launch_ps_trains or TestWitnesses")
+
+
+@needs_toolchain
+@pytest.mark.slow
+def test_port_proxy_traffic_under_tsan(tmp_path):
+    """The port's proxy alone under TSan: the chaos suite's port-only
+    traffic (delays, partitions, resets after ops and bytes, throttles,
+    kills, training behind a plan) and the protocol conformance witnesses
+    and traced chaos run, both native sides instrumented: zero reports.
+    Each connection's sockets are closed once, by the last of its two
+    pumps out."""
+    _run_suite_under_tsan(tmp_path, ["tests/test_torch_chaos.py",
+                                     "tests/test_torch_protocol_conformance.py",
+                                     "-m", "not slow", "-k", _PORT_ONLY_CHAOS], timeout=3000)
