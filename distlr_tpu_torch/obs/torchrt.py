@@ -26,8 +26,10 @@ them by name) reads either package:
   process-wide.
 
 :func:`profiled` is ``Config.profile_dir``: ``torch.profiler`` around a
-run, its Chrome trace exported into the directory.  Imports only
-``torch`` (lazily, at a sample or a profile) and the registry.
+run, its Chrome trace exported into the directory.  A :class:`DeviceClock`
+puts the card's timing events on the host's ``time.perf_counter`` clock,
+the clock of the phase spans.  Imports only ``torch`` (lazily, at a
+sample, a profile or an anchor) and the registry.
 """
 
 from __future__ import annotations
@@ -174,6 +176,52 @@ def maybe_sample_device_bytes(min_interval_s: float = 5.0) -> None:
         due = time.monotonic() - _last_walk >= min_interval_s
     if due:
         sample_device_bytes()
+
+
+class DeviceClock:
+    """CUDA timing events on the host's ``time.perf_counter`` clock.
+
+    One anchor: a timing event that completed at host time ``t_anchor``,
+    known to within ``width`` / 2.  A later timing event ``e`` that has
+    completed happened at ``t_anchor + anchor.elapsed_time(e) / 1e3``.
+    The card's clock drifts from the host's by some µs a second, so an
+    anchor serves a second or so (the sync trainer takes one at each
+    ``fit``, and again once a second)."""
+
+    #: the widest bracket of host time an anchor is taken from
+    ANCHOR_SLACK_S = 50e-6
+    #: records tried for an anchor before the narrowest bracket is kept
+    ANCHOR_TRIES = 10
+
+    def __init__(self, anchor, t_anchor: float, width: float = 0.0):
+        self.anchor, self.t_anchor, self.width = anchor, t_anchor, width
+
+    @classmethod
+    def take(cls, device) -> DeviceClock:
+        """Anchor on ``device`` now: record an event on the current stream
+        and wait for it, between two reads of the host's clock; their
+        midpoint is the anchor.  A bracket wider than ``ANCHOR_SLACK_S``
+        (the stream was busy, the card slow to record, or the thread lost
+        the interpreter lock) is taken again."""
+        import torch  # noqa: PLC0415
+
+        stream = torch.cuda.current_stream(device)
+        best = None
+        for _ in range(cls.ANCHOR_TRIES):
+            anchor = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            anchor.record(stream)
+            anchor.synchronize()
+            t1 = time.perf_counter()
+            if best is None or t1 - t0 < best.width:
+                best = cls(anchor, (t0 + t1) / 2, t1 - t0)
+            if best.width < cls.ANCHOR_SLACK_S:
+                break
+        return best
+
+    def host_time(self, event) -> float:
+        """A completed timing event's host ``perf_counter`` seconds."""
+        return self.t_anchor + self.anchor.elapsed_time(event) / 1e3
 
 
 @contextlib.contextmanager

@@ -20,9 +20,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import itertools
 import os
 import queue
 import threading
+import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,7 +42,7 @@ from distlr_tpu_torch.data.libsvm import parse_libsvm_file
 from distlr_tpu_torch.data.sharding import part_name
 from distlr_tpu_torch.models import get_model
 from distlr_tpu_torch.obs import torchrt
-from distlr_tpu_torch.obs.tracing import trace_phase
+from distlr_tpu_torch.obs.tracing import COPY_STREAM_TID, get_tracer, trace_phase
 from distlr_tpu_torch.parallel import make_eval_step, make_sync_train_step
 from distlr_tpu_torch.parallel.feature_parallel import column_blocks as column_blocks_of
 from distlr_tpu_torch.parallel.feature_parallel import (
@@ -356,6 +360,25 @@ def _prefetch(to_device, host_batches, depth: int):
             q.get_nowait()
 
 
+class _Copy(NamedTuple):
+    """A batch's copy on the copy stream: a timing event recorded before
+    it where the stream was still busy with an earlier copy (else None),
+    one after it (the batch is ready), the host time its first leaf's
+    enqueue returned, the bytes it moves, and the device clock anchored
+    before it was enqueued, which puts the events on the host's clock."""
+
+    start: torch.cuda.Event | None
+    ready: torch.cuda.Event
+    enqueued: float
+    nbytes: int
+    clock: torchrt.DeviceClock
+
+
+#: seconds between anchors of the device clock during a fit: the card's
+#: clock drifts from the host's by some µs a second
+_CLOCK_ANCHOR_S = 1.0
+
+
 class Trainer:
     """End-to-end sync training: data -> device -> steps -> eval -> export."""
 
@@ -386,6 +409,9 @@ class Trainer:
         # host->device copies run on their own stream, so they overlap steps
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+        # the copy stream's timing events on the host's clock, anchored
+        # at each fit
+        self._clock: torchrt.DeviceClock | None = None
 
     def _build_steps(self) -> None:
         if self.feature_sharded:
@@ -509,30 +535,70 @@ class Trainer:
         """Blocking host->device copy of a batch."""
         return tuple(_as_tensor(a).to(self.device) for a in host_batch)
 
-    def _h2d_async(self, host_batch):
-        """Enqueue a batch's copy on the copy stream: ``(tensors, event)``.
-        Runs on the prefetch thread; the source is pinned first so the
-        copy is a real asynchronous DMA."""
+    def _h2d_async(self, host_batch, tag: dict | None = None):
+        """Enqueue a batch's copy on the copy stream: ``(tensors, copy)``,
+        with ``copy`` a :class:`_Copy` (None off CUDA, where the copy is
+        blocking).  Runs on the prefetch thread; the leaves are pinned
+        first (span ``pin``, ``tag`` its attributes), so the copy is a real
+        asynchronous DMA."""
         if self._copy_stream is None:
             return self._put(host_batch), None
+        src = [_as_tensor(a) for a in host_batch]
+        with trace_phase("pin", args=tag) as pin:
+            pinned = [t.pin_memory() for t in src]
+            # a column-blocked batch is built pinned: pin_memory() returns it
+            pin.nbytes = sum(p.nbytes for p, t in zip(pinned, src)
+                             if p.data_ptr() != t.data_ptr())
+        clock = self._clock
+        ready = torch.cuda.Event(enable_timing=True)
         with torch.cuda.stream(self._copy_stream):
-            dev = tuple(_as_tensor(a).pin_memory().to(self.device, non_blocking=True)
-                        for a in host_batch)
-            ready = torch.cuda.Event()
+            dev = tuple(torch.empty_like(t, device=self.device) for t in pinned)
+            # on an idle stream the copy starts as its enqueue returns;
+            # behind an earlier copy, when the start event fires
+            start = None
+            if not self._copy_stream.query():
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(self._copy_stream)
+            dev[0].copy_(pinned[0], non_blocking=True)
+            enqueued = time.perf_counter()
+            for d, t in zip(dev[1:], pinned[1:]):
+                d.copy_(t, non_blocking=True)
             ready.record(self._copy_stream)
-        return dev, ready
+        return dev, _Copy(start, ready, enqueued, sum(t.nbytes for t in pinned), clock)
 
     def _await(self, item) -> tuple[torch.Tensor, ...]:
         """Make the compute stream wait for a batch's copy; ``record_stream``
         keeps the allocator from reusing its memory while the step still
         reads it."""
-        dev, ready = item
-        if ready is not None:
+        dev, copy = item
+        if copy is not None:
             compute = torch.cuda.current_stream(self.device)
-            compute.wait_event(ready)
+            compute.wait_event(copy.ready)
             for t in dev:
                 t.record_stream(compute)
         return dev
+
+    def _trace_copy(self, copy: _Copy | None, compute, tag: dict) -> None:
+        """Record a batch's copy as ``h2d_copy`` on the card's clock, and
+        as ``copy_wait`` the part of its step's ``compute`` span before the
+        copy ended.  Its events have completed: the step has synced.  The
+        device clock is anchored anew here once a second, the current
+        stream idle."""
+        if copy is None:
+            return
+        if compute.t1 - self._clock.t_anchor > _CLOCK_ANCHOR_S:
+            self._clock = torchrt.DeviceClock.take(self.device)
+        tracer = get_tracer()
+        end = copy.clock.host_time(copy.ready)
+        start = copy.enqueued
+        if copy.start is not None:  # the earlier copy may have ended first
+            start = max(start, copy.clock.host_time(copy.start))
+        start = min(start, end)
+        tracer.record("h2d_copy", start, end, nbytes=copy.nbytes, args=tag,
+                      tid=COPY_STREAM_TID)
+        waited = min(end, compute.t1)
+        if waited > compute.t0:
+            tracer.record("copy_wait", compute.t0, waited, args=tag)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -585,6 +651,8 @@ class Trainer:
         if self.weights is None:
             self.init_weights()
         epochs = cfg.num_iteration if epochs is None else epochs
+        if self._copy_stream is not None:
+            self._clock = torchrt.DeviceClock.take(self.device)
         # torch.profiler around the epochs (cfg.profile_dir), exported
         # also when a step raises
         with torchrt.profiled(cfg.profile_dir, self.device, "fit"):
@@ -594,46 +662,71 @@ class Trainer:
                     self._save_checkpoint(ckpt, epochs, unless_saved=True)
         return self.weights
 
-    def _h2d_traced(self, host_batch):
-        with trace_phase("h2d"):
-            return self._h2d_async(host_batch)
+    def _h2d_traced(self, epoch: int, indexed):
+        """``_h2d_async`` of the batch ``indexed`` = ``(k, host batch)``
+        of ``epoch``, in a span ``h2d``: the pin (span ``pin``) and the
+        enqueue of the copy, host time only."""
+        k, host_batch = indexed
+        tag = {"epoch": epoch, "batch": k}
+        with trace_phase("h2d", args=tag):
+            return self._h2d_async(host_batch, tag)
 
     def _run_epochs(self, start_epoch: int, epochs: int, eval_fn, ckpt) -> None:
-        """The epochs, under the JAX trainer's phase spans: ``h2d`` (the
-        copy's enqueue, on the prefetch thread when ``prefetch > 1``: host
-        time only), ``data_load`` (this thread's wait for the next batch),
-        ``compute`` (the step and the wait for the card: device time),
-        ``eval`` (the forward and the read-back of its metrics: device
-        time) and ``checkpoint``."""
+        """The epochs, under the JAX trainer's phase spans and the port's
+        own (``obs.tracing.PORT_ONLY_PHASES``); each span of a batch
+        carries ``{"epoch", "batch"}``.
+
+        * ``test_h2d``: the test batch's blocking copy to the device.
+        * ``h2d``, on the prefetch thread when ``prefetch > 1``: the
+          batch's ``pin`` into page-locked memory and the enqueue of its
+          copy, host time only.  The copy itself is ``h2d_copy``, timed on
+          the copy stream and put on the host's clock once its step has
+          synced.
+        * ``data_load``: this thread's wait for the next batch; for an
+          epoch's first batch also ``epoch_fill``, with the same extent.
+        * ``compute``: the step's launches and the wait for the card,
+          which first waits for the batch's copy (``copy_wait``, the span's
+          part before the copy ended) and then runs the step.
+        * ``eval``: the forward and the read-back of its metrics (device
+          time), and ``checkpoint``.
+
+        The step timer runs from the wait for a batch to the step's end,
+        so its rate counts the data wait."""
         cfg = self.cfg
         test_batch = None
         if self._test_data is not None:
-            test_batch = self._test_batch()
+            with trace_phase("test_h2d"):
+                test_batch = self._test_batch()
 
         for epoch in range(start_epoch, epochs):
-            host_iter = self._train_data.batches(
+            host_iter = enumerate(self._train_data.batches(
                 cfg.batch_size, wrap=bool(cfg.wrap_final_batch),
-                column_blocks=self._column_blocks, pin_memory=self._copy_stream is not None)
+                column_blocks=self._column_blocks, pin_memory=self._copy_stream is not None))
+            to_device = functools.partial(self._h2d_traced, epoch)
             if cfg.prefetch > 1:
-                pairs = _prefetch(self._h2d_traced, host_iter, cfg.prefetch - 1)
+                pairs = _prefetch(to_device, host_iter, cfg.prefetch - 1)
             else:  # prefetch=1: the strictly-serial reference shape
-                pairs = ((hb, self._h2d_traced(hb)) for hb in host_iter)
+                pairs = ((kb, to_device(kb)) for kb in host_iter)
             # closing() stops the producer thread deterministically when a
             # step raises
             with contextlib.closing(pairs):
                 it = iter(pairs)
-                while True:
-                    with trace_phase("data_load"):
+                for k in itertools.count():
+                    tag = {"epoch": epoch, "batch": k}
+                    self.timer.start()
+                    with trace_phase("data_load", args=tag) as wait:
                         pair = next(it, None)
+                    if k == 0:
+                        get_tracer().record("epoch_fill", wait.t0, wait.t1, args=tag)
                     if pair is None:
                         break
-                    host_batch, item = pair
+                    (_, host_batch), item = pair
                     batch = self._await(item)
-                    self.timer.start()
-                    with trace_phase("compute"):
+                    with trace_phase("compute", args=tag) as compute:
                         self._step_sigs.note(self.weights, batch)
                         self.weights, step_metrics = self.train_step(self.weights, batch)
                         self._sync()
+                    self._trace_copy(item[1], compute, tag)
                     self.timer.stop(int(host_batch[-1].sum()))
             if test_batch is not None and cfg.test_interval > 0 and (epoch + 1) % cfg.test_interval == 0:
                 with trace_phase("eval"):

@@ -1171,6 +1171,94 @@ def test_profile_dir_trace_names_both_hand_kernels(cuda, tmp_path):
     assert "lr_grad_single_pass_kernel" in names and "lr_logits_streaming_kernel" in names
 
 
+def _pipeline_trainer(B=512, D=65_536, batches=3, epochs=2):
+    """A bf16 trainer of ``batches`` batches of B rows at width D for
+    ``epochs`` epochs, an eval each epoch; and the bytes of one batch."""
+    from distlr_tpu_torch.train.trainer import _as_tensor  # noqa: PLC0415
+
+    gen = torch.Generator().manual_seed(3)
+    X = torch.rand(B * batches, D, generator=gen).numpy()
+    y = (torch.rand(B * batches, generator=gen) < 0.5).to(torch.int32).numpy()
+    data = lambda: GlobalShardedData([(X, y)])  # noqa: E731
+    cfg = Config(num_feature_dim=D, num_iteration=epochs, batch_size=B, test_interval=1,
+                 feature_dtype="bfloat16", compute_dtype="bfloat16")
+    trainer = Trainer(cfg).load_data(train=data(), test=data())
+    batch_bytes = sum(_as_tensor(a).nbytes for a in next(trainer._train_data.batches(B)))
+    return trainer, batch_bytes
+
+
+def _batch_events(events, name):
+    return {(e["args"]["epoch"], e["args"]["batch"]): e for e in events if e["name"] == name}
+
+
+def test_fit_traces_each_batchs_pin_copy_and_wait(cuda):
+    """A short fit on the card: one ``pin`` and one ``h2d_copy`` a step,
+    each of the batch's bytes; at most one ``copy_wait`` a step, inside
+    its ``compute`` span; each copy ends before its step does."""
+    from distlr_tpu_torch.obs import get_tracer  # noqa: PLC0415
+    from distlr_tpu_torch.obs.tracing import COPY_STREAM_TID  # noqa: PLC0415
+
+    trainer, batch_bytes = _pipeline_trainer()
+    tracer = get_tracer()
+    tracer.reset()
+    trainer.fit(eval_fn=lambda *_: None)
+    phases, events = tracer.breakdown(), tracer.chrome_trace()["traceEvents"]
+    steps = 2 * 3
+    assert phases["compute"]["count"] == phases["pin"]["count"] == steps
+    assert phases["h2d_copy"]["count"] == steps
+    assert phases["pin"]["bytes"] == phases["h2d_copy"]["bytes"] == steps * batch_bytes
+    assert phases.get("copy_wait", {"count": 0})["count"] <= steps
+    assert phases["epoch_fill"]["count"] == 2 and phases["test_h2d"]["count"] == 1
+    computes = _batch_events(events, "compute")
+    copies = _batch_events(events, "h2d_copy")
+    assert set(copies) == set(computes) == set(_batch_events(events, "pin"))
+    for key, copy in copies.items():
+        step = computes[key]
+        assert copy["tid"] == COPY_STREAM_TID and copy["dur"] > 0
+        assert copy["ts"] + copy["dur"] <= step["ts"] + step["dur"] + 1e3  # µs; the clocks' error
+    for key, wait in _batch_events(events, "copy_wait").items():
+        step = computes[key]
+        assert wait["ts"] == step["ts"] and wait["dur"] <= step["dur"]
+
+
+def test_h2d_copy_spans_match_the_profilers_copies(cuda, tmp_path):
+    """Each ``h2d_copy`` span, on the host's clock, covers its batch's
+    pinned ``Memcpy HtoD`` copies (its leaves, in order) in a
+    ``torch.profiler`` trace of the same fit: the profiler's clock set on
+    the host's by the median offset, both ends within 200 µs."""
+    import json  # noqa: PLC0415
+    import statistics  # noqa: PLC0415
+
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    from distlr_tpu_torch.obs import get_tracer  # noqa: PLC0415
+
+    trainer, _ = _pipeline_trainer()
+    leaves = len(next(trainer._train_data.batches(512)))
+    tracer = get_tracer()
+    tracer.reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.fit(eval_fn=lambda *_: None)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    pinned = sorted((e for e in json.loads(path.read_text())["traceEvents"]
+                     if e.get("ph") == "X" and e.get("cat") == "gpu_memcpy"
+                     and "HtoD" in e["name"] and "Pinned" in e["name"]),
+                    key=lambda e: float(e["ts"]))
+    spans = sorted((e for e in tracer.chrome_trace()["traceEvents"] if e["name"] == "h2d_copy"),
+                   key=lambda e: e["ts"])
+    assert len(spans) == 6 and len(pinned) == leaves * len(spans)
+    pairs = []
+    for i, span in enumerate(spans):
+        group = pinned[leaves * i:leaves * (i + 1)]
+        start = float(group[0]["ts"])
+        end = max(float(e["ts"]) + float(e["dur"]) for e in group)
+        pairs.append((start - span["ts"], end - (span["ts"] + span["dur"])))
+    offset = statistics.median(d for d, _ in pairs)
+    assert all(abs(d0 - offset) <= 200 and abs(d1 - offset) <= 200 for d0, d1 in pairs), pairs
+
+
 def test_metrics_scrape_during_a_serving_burst(cuda):
     """Scrapes of ``/metrics`` while eight clients score on the card: every
     scrape parses, and the listener's request series ends at the burst's

@@ -54,9 +54,12 @@ from distlr_tpu_torch.obs import (
     torchrt,
     write_metrics_snapshot,
 )
+from distlr_tpu_torch.obs.tracing import COPY_STREAM_TID, PORT_ONLY_PHASES
 from distlr_tpu_torch.train.metrics import MetricsLogger, StepTimer
 
 REPO = Path(__file__).resolve().parents[1]
+#: the port-only phases of the copy stream, which a CPU run records none of
+COPY_STREAM_PHASES = {"pin", "h2d_copy", "copy_wait"}
 
 
 def _both(fn):
@@ -301,6 +304,56 @@ class TestTracer:
         doc = tracer.chrome_trace()
         assert len(doc["traceEvents"]) == 2
         assert doc["otherData"]["dropped_events"] == 3
+
+    def test_bytes_reach_the_breakdown_of_their_phase_only(self):
+        tracer = PhaseTracer(registry=MetricsRegistry())
+        for n in (100, 28):
+            with tracer.phase("pin", nbytes=n):
+                pass
+        with tracer.phase("compute"):
+            pass
+        got = tracer.breakdown()
+        assert got["pin"]["bytes"] == 128 and got["pin"]["count"] == 2
+        assert set(got["compute"]) == {"seconds", "count"}
+
+    def test_attributes_become_args_and_plain_events_keep_jax_keys(self):
+        tracer = PhaseTracer(registry=MetricsRegistry())
+        tag = {"epoch": 1, "batch": 2}
+        with tracer.phase("h2d", args=tag):
+            pass
+        with tracer.phase("pin", nbytes=64, args=tag):
+            pass
+        with tracer.phase("compute"):
+            pass
+        h2d, pin, compute = tracer.chrome_trace()["traceEvents"]
+        assert h2d["args"] == tag and pin["args"] == {**tag, "bytes": 64}
+        jt = jax_tracing.PhaseTracer(registry=jax_registry.MetricsRegistry())
+        with jt.phase("compute"):
+            pass
+        assert set(compute) == set(jt.chrome_trace()["traceEvents"][0])
+        assert set(h2d) - set(compute) == {"args"}
+
+    def test_record_feeds_breakdown_histogram_and_timeline(self):
+        """A span timed elsewhere, on the host's perf_counter clock, lands
+        where a phase block of the same extent does."""
+        reg = MetricsRegistry()
+        tracer = PhaseTracer(registry=reg)
+        with tracer.phase("compute") as span:
+            time.sleep(0.002)
+        tracer.record("copy_wait", span.t0, span.t1, args={"epoch": 0, "batch": 0})
+        t = time.perf_counter()
+        tracer.record("h2d_copy", t + 0.5, t + 0.75, nbytes=4096, tid=COPY_STREAM_TID)
+        got = tracer.breakdown()
+        assert got["copy_wait"] == got["compute"]
+        assert got["h2d_copy"] == {"seconds": 0.25, "count": 1, "bytes": 4096}
+        hist = reg.get("distlr_phase_seconds")
+        assert hist.labels(phase="copy_wait").sum == hist.labels(phase="compute").sum
+        assert hist.labels(phase="h2d_copy").count == 1
+        compute, wait, copy = tracer.chrome_trace()["traceEvents"]
+        assert (wait["ts"], wait["dur"], wait["tid"]) == (compute["ts"], compute["dur"],
+                                                          compute["tid"])
+        assert copy["tid"] == COPY_STREAM_TID and copy["dur"] == 250_000.0
+        assert copy["ts"] == pytest.approx(compute["ts"] + (t + 0.5 - span.t0) * 1e6, abs=1e-2)
 
     def test_reset(self):
         reg = MetricsRegistry()
@@ -667,8 +720,9 @@ class TestRuntimeProbes:
             got[name] = ({s: family_total_of(reg, "distlr_jax_compiles_total", site=s) - v
                           for s, v in before.items()}, tracer.phase_names())
         assert got["ours"][0] == got["jax"][0] == {"train.sync.step": 1, "train.sync.eval": 1}
-        assert got["ours"][1] == got["jax"][1]
-        assert {"data_load", "h2d", "compute", "eval"} <= got["ours"][1]
+        # off CUDA the port adds its port-only phases but the copy stream's
+        assert got["ours"][1] == got["jax"][1] | (PORT_ONLY_PHASES - COPY_STREAM_PHASES)
+        assert {"data_load", "h2d", "compute", "eval"} <= got["jax"][1]
 
     def test_profile_dir_exports_a_chrome_trace(self, obs_data_dir, tmp_path):
         from distlr_tpu_torch.train import Trainer
@@ -680,6 +734,211 @@ class TestRuntimeProbes:
         (trace,) = prof.glob("fit-*.pt.trace.json")
         names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
         assert any(str(n).startswith("aten::") for n in names)
+
+
+class _StubAnchor:
+    """An anchor event: ``elapsed_time`` to a stub event is its fixed ms."""
+
+    def elapsed_time(self, event) -> float:
+        return event.ms
+
+
+class _StubEvent:
+    def __init__(self, ms: float):
+        self.ms = ms
+
+
+@pytest.mark.parametrize("t_anchor,ms,want", [
+    (100.0, 0.0, 100.0), (100.0, 250.0, 100.25), (5.5, 1.5, 5.5015), (7.0, 60_000.0, 67.0)])
+def test_device_clock_puts_an_event_on_the_hosts_clock(t_anchor, ms, want):
+    clock = torchrt.DeviceClock(_StubAnchor(), t_anchor)
+    assert clock.host_time(_StubEvent(ms)) == pytest.approx(want, abs=1e-12)
+
+
+class _SlowEvent:
+    """A timing event whose record and wait take the next of ``waits``
+    seconds (none once they run out)."""
+
+    waits: list = []
+    made: list = []
+
+    def __init__(self, enable_timing=False):
+        _SlowEvent.made.append(self)
+
+    def record(self, stream=None):
+        pass
+
+    def synchronize(self):
+        if _SlowEvent.waits:
+            time.sleep(_SlowEvent.waits.pop(0))
+
+
+@pytest.mark.parametrize("waits,tries", [
+    ([0.005, 0.005], None),                  # retried until narrow
+    ([0.004, 0.002, 0.003] + [0.005] * 7, 10),  # all wide: the narrowest kept
+])
+def test_device_clock_anchors_on_a_narrow_bracket(monkeypatch, waits, tries):
+    """An anchor is the midpoint of the host's reads around its record
+    and wait; a bracket wider than the slack is taken again, and where
+    none is narrow the narrowest is kept."""
+    import torch
+
+    monkeypatch.setattr(_SlowEvent, "waits", list(waits))
+    monkeypatch.setattr(_SlowEvent, "made", [])
+    monkeypatch.setattr(torch.cuda, "Event", _SlowEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    t0 = time.perf_counter()
+    clock = torchrt.DeviceClock.take("cuda")
+    t1 = time.perf_counter()
+    assert t0 < clock.t_anchor < t1
+    if tries is None:
+        assert len(_SlowEvent.made) >= 3 and clock.anchor is _SlowEvent.made[-1]
+        assert clock.width < 0.004
+    else:
+        assert len(_SlowEvent.made) == tries == torchrt.DeviceClock.ANCHOR_TRIES
+        assert clock.anchor is _SlowEvent.made[1] and 0.002 <= clock.width < 0.003
+
+
+def _fit_spans(data_dir, **kw):
+    """One CPU sync fit of 2 epochs of 4 batches (640 train rows in 2
+    shards, 100 a worker): the trainer, the tracer's breakdown and its
+    events."""
+    from distlr_tpu_torch.train import Trainer
+
+    cfg = Config(device="cpu", data_dir=data_dir, num_feature_dim=24, num_iteration=2,
+                 test_interval=1, batch_size=100, l2_c=0.0, num_workers=2, **kw)
+    trainer = Trainer(cfg).load_data()
+    tracer = get_tracer()
+    tracer.reset()
+    trainer.fit(eval_fn=lambda *_: None)
+    return trainer, tracer.breakdown(), tracer.chrome_trace()["traceEvents"]
+
+
+class TestSyncTrainerPipelineSpans:
+    EPOCHS, BATCHES = 2, 4
+
+    @pytest.mark.parametrize("prefetch", [1, 2, 3])
+    def test_one_epoch_fill_an_epoch_with_its_first_waits_extent(self, obs_data_dir, prefetch):
+        _, phases, events = _fit_spans(obs_data_dir, prefetch=prefetch)
+        fills = [e for e in events if e["name"] == "epoch_fill"]
+        assert phases["epoch_fill"]["count"] == len(fills) == self.EPOCHS
+        waits = {(e["args"]["epoch"], e["args"]["batch"]): e
+                 for e in events if e["name"] == "data_load"}
+        for fill in fills:
+            assert fill["args"]["batch"] == 0
+            wait = waits[(fill["args"]["epoch"], 0)]
+            assert (fill["ts"], fill["dur"], fill["tid"]) == (wait["ts"], wait["dur"],
+                                                              wait["tid"])
+        assert phases["test_h2d"]["count"] == 1
+        assert not COPY_STREAM_PHASES & set(phases)
+
+    @pytest.mark.parametrize("prefetch", [1, 2])
+    def test_every_batch_span_carries_its_epoch_and_batch(self, obs_data_dir, prefetch):
+        _, _, events = _fit_spans(obs_data_dir, prefetch=prefetch)
+        batch_spans = [e for e in events if e["name"] not in ("eval", "test_h2d")]
+        assert all(set(e["args"]) == {"epoch", "batch"} for e in batch_spans)
+        want = {(ep, k) for ep in range(self.EPOCHS) for k in range(self.BATCHES)}
+        for name in ("h2d", "compute"):
+            keys = [(e["args"]["epoch"], e["args"]["batch"]) for e in events
+                    if e["name"] == name]
+            assert sorted(keys) == sorted(want)
+        # each batch's wait, and one more an epoch for its end
+        waits = {(e["args"]["epoch"], e["args"]["batch"]) for e in events
+                 if e["name"] == "data_load"}
+        assert waits == want | {(ep, self.BATCHES) for ep in range(self.EPOCHS)}
+        # a batch's copy is enqueued before its step starts
+        starts = {(e["name"], e["args"]["epoch"], e["args"]["batch"]): e["ts"]
+                  for e in batch_spans}
+        assert all(starts[("h2d", ep, k)] < starts[("compute", ep, k)] for ep, k in want)
+
+    def test_step_timer_counts_the_data_wait(self, obs_data_dir):
+        """The timer runs from the wait for a batch to the step's end: its
+        elapsed time covers the batches' data_load spans and every compute
+        span, and the rate it publishes is the samples over that time."""
+        trainer, _, events = _fit_spans(obs_data_dir, prefetch=2)
+        covered = sum(e["dur"] for e in events
+                      if e["name"] == "compute"
+                      or (e["name"] == "data_load" and e["args"]["batch"] < self.BATCHES)) / 1e6
+        timer = trainer.timer
+        assert timer.steps == self.EPOCHS * self.BATCHES
+        assert timer.samples == self.EPOCHS * trainer._train_data.num_samples
+        assert covered <= timer.elapsed
+        window = max(e["ts"] + e["dur"] for e in events) / 1e6 - min(e["ts"] for e in events) / 1e6
+        assert timer.elapsed <= window
+        assert timer.samples_per_sec == pytest.approx(timer.samples / timer.elapsed)
+
+
+def _traced_copy(monkeypatch, copy_ms: tuple[float | None, float], compute: tuple[float, float],
+                 enqueued: float = 0.0):
+    """``Trainer._trace_copy`` of a copy whose events fire ``copy_ms``
+    after an anchor at host time 10 s (no start event: None), its first
+    leaf enqueued at host time ``enqueued``, for a step whose compute span
+    is ``compute``: the recorded phases and events."""
+    from distlr_tpu_torch.obs.tracing import Span
+    from distlr_tpu_torch.train import Trainer
+    from distlr_tpu_torch.train.trainer import _Copy
+
+    tracer = PhaseTracer(registry=MetricsRegistry())
+    monkeypatch.setattr("distlr_tpu_torch.train.trainer.get_tracer", lambda: tracer)
+    trainer = Trainer(Config(device="cpu", num_feature_dim=8))
+    trainer._clock = torchrt.DeviceClock(_StubAnchor(), 10.0)
+    span = Span(tracer, "compute", None, None)
+    span.t0, span.t1 = compute
+    start = None if copy_ms[0] is None else _StubEvent(copy_ms[0])
+    copy = _Copy(start, _StubEvent(copy_ms[1]), enqueued, 4096, trainer._clock)
+    trainer._trace_copy(copy, span, {"epoch": 3, "batch": 1})
+    return tracer.breakdown(), {e["name"]: e for e in tracer.chrome_trace()["traceEvents"]}
+
+
+@pytest.mark.parametrize("copy_ms,compute,wait_s", [
+    ((0.0, 100.0), (10.05, 10.2), 0.05),     # the step waits for the copy's end
+    ((0.0, 40.0), (10.05, 10.2), None),      # the copy ended before the step began
+    ((0.0, 250.0), (10.05, 10.2), 0.15),     # held to the compute span
+    ((60.0, 160.0), (10.1, 10.3), 0.06),
+])
+def test_trace_copy_puts_the_copy_on_the_hosts_clock(monkeypatch, copy_ms, compute, wait_s):
+    phases, events = _traced_copy(monkeypatch, copy_ms, compute)
+    copy = events["h2d_copy"]
+    assert phases["h2d_copy"]["bytes"] == 4096
+    assert copy["tid"] == COPY_STREAM_TID and copy["args"]["batch"] == 1
+    assert copy["dur"] == pytest.approx(1e3 * (copy_ms[1] - copy_ms[0]))
+    if wait_s is None:
+        assert "copy_wait" not in phases
+    else:
+        assert phases["copy_wait"]["seconds"] == pytest.approx(wait_s, abs=1e-6)
+        wait = events["copy_wait"]
+        assert wait["args"] == {"epoch": 3, "batch": 1} and "bytes" not in wait["args"]
+
+
+@pytest.mark.parametrize("start_ms,enqueued,start", [
+    (0.0, 9.0, 10.0),       # behind a running copy: the start event
+    (0.0, 10.02, 10.02),    # that copy ended before the enqueue returned
+    (None, 10.02, 10.02),   # on an idle stream: the enqueue's return
+    (None, 10.5, 10.1),     # a copy done before its enqueue returned: empty
+])
+def test_trace_copy_starts_no_earlier_than_the_enqueue_returned(monkeypatch, start_ms, enqueued,
+                                                                start):
+    _, events = _traced_copy(monkeypatch, (start_ms, 100.0), (10.05, 10.2), enqueued)
+    copy = events["h2d_copy"]
+    assert copy["dur"] == pytest.approx(1e6 * (10.1 - start))
+
+
+@pytest.mark.parametrize("compute,anchored", [((10.5, 10.9), False), ((10.9, 11.2), True)])
+def test_trace_copy_anchors_the_clock_anew_after_a_second(monkeypatch, compute, anchored):
+    """A step that ends more than a second after the clock's anchor takes
+    a new one; the copy's own clock times it all the same."""
+    taken = []
+
+    def take(cls, device):
+        taken.append(device)
+        return cls(_StubAnchor(), 20.0)
+
+    monkeypatch.setattr(torchrt.DeviceClock, "take", classmethod(take))
+    phases, events = _traced_copy(monkeypatch, (400.0, 1000.0), compute)
+    assert len(taken) == anchored
+    assert events["h2d_copy"]["dur"] == pytest.approx(6e5)
+    assert phases["copy_wait"]["seconds"] == pytest.approx(min(11.0, compute[1]) - compute[0],
+                                                           abs=1e-6)
 
 
 def family_total_of(registry, name: str, **labels) -> float:
